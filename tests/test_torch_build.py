@@ -1,0 +1,60 @@
+"""The kernel build helper (sed_crnn_torch/ops/kernels/_build.py) with a
+stand-in for ``nvcc``, so that it is tested where no CUDA toolkit is
+installed: libraries are named by a hash of their source, built once, and a
+failing compile raises only after every started compile has been waited
+for."""
+
+import stat
+import sys
+import textwrap
+
+import pytest
+
+from sed_crnn_torch.ops.kernels import _build
+
+
+def _fake_nvcc(tmp_path, fail_on: str = ""):
+    script = tmp_path / "nvcc"
+    script.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys, pathlib
+        args = sys.argv[1:]
+        src, out = args[-1], args[args.index("-o") + 1]
+        if {fail_on!r} and src.endswith({fail_on!r}):
+            print("error in", src)
+            sys.exit(3)
+        pathlib.Path(out).write_text("built from " + src)
+        print("ptxas info    : Used 10 registers")
+        """))
+    script.chmod(script.stat().st_mode | stat.S_IEXEC)
+    return str(script)
+
+
+@pytest.fixture
+def build_dir(tmp_path, monkeypatch):
+    d = tmp_path / "build"
+    monkeypatch.setattr(_build, "BUILD_DIR", d)
+    return d
+
+
+def test_build_all_builds_each_source_once(tmp_path, build_dir, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    _build.build_all()
+    libs = sorted(p.name for p in build_dir.iterdir())
+    assert len(libs) == len(_build.KERNEL_SOURCES)
+    for name in _build.KERNEL_SOURCES:
+        assert _build._library_path(name)[1].name in libs
+        assert "registers" in _build.ptxas_reports[name]
+    # already built: no compiler is started again
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("nvcc started again"))
+    _build.build_all()
+
+
+def test_failed_compile_raises_after_waiting_for_all(tmp_path, build_dir, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path, fail_on="gru_scan.cu")
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed for gru_scan.cu"):
+        _build.build_all()
+    names = sorted(p.name for p in build_dir.iterdir())
+    assert names == [_build._library_path("fused_logmel")[1].name]  # no temp files left
