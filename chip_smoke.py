@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one GPU and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one GPU and check
+its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -23,10 +24,29 @@ exits non-zero and prints no result line:
    (plain versions); logits within 1e-3, probabilities within 1e-3, events
    equal, and both kernels' launch counts read around this phase alone
    (kernel A once per kernel-frontend ``extract``, kernel B 4x per chunk);
-6. throughput in ``bench.py``'s units (audio-seconds per second).
+6. throughput in ``bench.py``'s units (audio-seconds per second) and a
+   torch.profiler breakdown of streaming;
+7. kernel B train (the residual forward and the backward with its
+   fixed-order partial sum) against their plain versions: T=256, H=32,
+   B in {1, 8, 128}, both conventions, both gates, both directions, non-zero
+   h0, dys and dhl; ys/res atol 1e-5, gradients within 1e-4 of each one's
+   largest magnitude; dwh bitwise equal across two runs; times at B=128
+   beside cuDNN's GRU (reset_after=True, not the same function);
+8. one full-width ``sednet-dcase`` train step (batch 16, dropout 0, the
+   serving phase's seeded weights) on the card against the CPU: loss, Adam's
+   moments, BatchNorm statistics and updated parameters within their bands,
+   and exactly 4 residual forwards and 4 backwards launched;
+9. ``run_fold`` at the preset's full size on synthetic folds (2 epochs of
+   2 steps at batch 128, full-split validation sweeps): finite losses,
+   JAX-format best/last checkpoints that load back and serve the same
+   validation scores on the card and the same logits as on the CPU, and
+   exact launch counts (4 + 4 GRU kernels per train step, 4 forwards per
+   sweep step);
+10. training throughput: train-step time at batch 128, the training rate in
+    audio-seconds per second, and a torch.profiler breakdown of one step.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last is ``{"ok": true, "device": {...}}``.
+The last lines are the card's name and power limit (nvidia-smi), one JSON
+object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,6 +71,22 @@ PROB_ATOL = 1e-3
 # Card vs CPU logits of the main path: float32 reassociation between cuDNN's
 # and the CPU's convolutions and products, times the head's 8x last layer.
 LOGIT_ATOL = 1e-3
+# Kernel B's gradients against the plain loop, relative to each gradient's
+# largest magnitude: dxp/dh0 come out of a 256-step chain, dwh/dbh are sums
+# over B*T = 32,768 terms taken in another order.
+GRAD_RTOL = 1e-4
+# One train step, card vs CPU: the loss (a mean of float32 terms); Adam's
+# first moment (the gradient times 0.1) per leaf, relative to the leaf's
+# largest magnitude (cuDNN's and the CPU's convolution gradients sum in other
+# orders; the first two blocks' weight gradients pass through train-mode
+# BatchNorm's backward, which subtracts batch means, and reach ~1e-3 even
+# between the CPU's own two convolution backends, which the phase prints);
+# BatchNorm running statistics; parameters after Adam's step.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
+STEP_BN_ATOL = 1e-5
+STEP_PARAM_ATOL = 1e-5
+TRAIN_BATCH = 128
 
 
 def check(ok: bool, what: str) -> None:
@@ -457,6 +493,358 @@ def profile_streaming(model, mel):
               f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:5d}  {e.key[:90]}")
 
 
+def _maxdiff(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def phase_gru_train():
+    """Kernel B's residual forward and backward against their plain versions,
+    and their times at the training shape (B=128, T=256, H=32)."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        GATES,
+        gru_scan_bwd,
+        gru_scan_bwd_plain,
+        gru_scan_fwd_res,
+        gru_scan_fwd_res_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    T, H = 256, 32
+
+    def inputs(B):
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+        return (t(rng.standard_normal((B, T, 3 * H))), t(0.3 * rng.standard_normal((H, 3 * H))),
+                t(0.1 * rng.standard_normal(3 * H)), t(0.5 * rng.standard_normal((B, H))),
+                t(rng.standard_normal((B, T, H))), t(rng.standard_normal((B, H))))
+
+    worst_fwd, worst_bwd, worst_rel = 0.0, 0.0, 0.0
+    for B in (1, 8, 128):
+        xp, wh, bh, h0, dys, dhl = inputs(B)
+        fwd_errs, rels = [], []
+        for reset_after in (False, True):
+            for gate in GATES:
+                for reverse in (False, True):
+                    conf = (reset_after, gate, reverse)
+                    b = bh if reset_after else None
+                    ys, res, hl = gru_scan_fwd_res(xp, wh, b, h0, *conf)
+                    ys_p, res_p, hl_p = gru_scan_fwd_res_plain(xp, wh, b, h0, *conf)
+                    torch.cuda.synchronize()
+                    err = max(_maxdiff(ys, ys_p), _maxdiff(res, res_p), _maxdiff(hl, hl_p))
+                    check(err <= GRU_ATOL, f"GRU fwd_res B={B} {conf}: {err}")
+                    fwd_errs.append(err)
+                    got = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
+                    want = gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(("dxp", "dwh", "dbh", "dh0"), got, want):
+                        e, scale = _maxdiff(g, w), float(w.abs().max())
+                        check(e <= GRAD_RTOL * scale,
+                              f"GRU bwd B={B} {conf} {name}: {e} > {GRAD_RTOL} x {scale}")
+                        worst_bwd = max(worst_bwd, e)
+                        rels.append(e / scale if scale else 0.0)
+        worst_fwd, worst_rel = max(worst_fwd, max(fwd_errs)), max(worst_rel, max(rels))
+        print(f"[kernel B train] B={B:3d}: 8 variants, fwd_res max|diff| {max(fwd_errs):.3g}, "
+              f"backward max|diff| / max|grad| {max(rels):.3g}")
+
+    # Times at the training shape: sednet, reset_after=False, sigmoid.
+    xp, wh, _, h0, dys, dhl = inputs(TRAIN_BATCH)
+    B, conf = TRAIN_BATCH, (False, "sigmoid", False)
+    ys, res, _ = gru_scan_fwd_res(xp, wh, None, h0, *conf)
+    first = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
+    second = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "the backward is not deterministic from run to run")
+    fwd_ms = cuda_ms(lambda: gru_scan_fwd_res(xp, wh, None, h0, *conf), reps=50)
+    bwd_ms = cuda_ms(lambda: gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf), reps=50)
+    fwd_plain = cuda_ms(lambda: gru_scan_fwd_res_plain(xp, wh, None, h0, *conf), reps=3, warmup=1)
+    bwd_plain = cuda_ms(lambda: gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf),
+                        reps=3, warmup=1)
+    cudnn = torch.nn.GRU(3 * H, H, batch_first=True).to(dev)
+    x_in = xp.clone().requires_grad_()
+    cudnn_fwd = cuda_ms(lambda: cudnn(x_in, h0[None]), reps=50)
+
+    def cudnn_fwd_bwd():
+        out, _ = cudnn(x_in, h0[None])
+        torch.autograd.backward(out, dys)
+
+    cudnn_bwd = cuda_ms(cudnn_fwd_bwd, reps=50) - cudnn_fwd
+    f = 4
+    fwd_bytes = f * (B * T * 3 * H + H * 3 * H + 2 * B * H + B * T * H + B * T * 3 * H)
+    fwd_flops = T * B * (2 * H * 3 * H + 12 * H)
+    bwd_bytes = f * (B * T * H + B * T * 3 * H + H * 3 * H + 2 * B * H + B * T * H
+                     + B * T * 3 * H + H * 3 * H + 3 * H + B * H)
+    bwd_flops = T * B * (2 * 2 * H * 3 * H + 20 * H)
+    fb, fby = bound_ms(fwd_bytes, fwd_flops)
+    bb, bby = bound_ms(bwd_bytes, bwd_flops)
+    print(f"[kernel B train] B={B} T={T} H={H}: fwd_res {fwd_ms:.4f} ms "
+          f"({fwd_ms / T * 1e3:.2f} us/step), plain {fwd_plain:.2f} ms, bound {fb:.5f} ms "
+          f"({fby}, {fwd_bytes / 1e6:.1f} MB); backward + partial sum {bwd_ms:.4f} ms "
+          f"({bwd_ms / T * 1e3:.2f} us/step), plain {bwd_plain:.2f} ms, bound {bb:.5f} ms "
+          f"({bby}, {bwd_bytes / 1e6:.1f} MB); cuDNN nn.GRU (reset_after=True, not the same "
+          f"function) forward {cudnn_fwd:.4f} ms, backward {cudnn_bwd:.4f} ms; "
+          f"dwh bitwise equal across runs")
+    common = {"route": "cuda", "source": "sed_crnn_torch/csrc/gru_scan.cu"}
+    return (
+        {"name": "gru_scan_fwd_res", **common,
+         "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
+         "max_abs_err": worst_fwd, "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,
+         "bound_by": fby, "library_ms": cudnn_fwd},
+        {"name": "gru_scan_bwd", **common,
+         "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
+         "max_abs_err": worst_bwd, "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
+         "bound_by": bby, "library_ms": cudnn_bwd},
+    )
+
+
+def _leaves(tree, path=""):
+    """(path, array) for every leaf of a checkpoint tree, in tree order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, np.asarray(tree)
+
+
+def _gru_counts():
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_bwd, gru_scan_fwd_res
+
+    return {"gru_scan_fwd": gru_scan.launches, "gru_scan_fwd_res": gru_scan_fwd_res.launches,
+            "gru_scan_bwd": gru_scan_bwd.launches,
+            "gru_scan_sum_partials": gru_scan_bwd.sum_launches}
+
+
+def _reset_gru_counts():
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_bwd, gru_scan_fwd_res
+
+    gru_scan.launches = gru_scan_fwd_res.launches = 0
+    gru_scan_bwd.launches = gru_scan_bwd.sum_launches = 0
+
+
+def phase_train_step():
+    """One full-width sednet-dcase train step on the card and on the CPU from
+    the same weights and batch, dropout 0."""
+    import torch
+
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.models import get_model
+    from sed_crnn_torch.models.convert import from_jax
+    from sed_crnn_torch.train.loop import Trainer, TrainState, checkpoint_tree
+
+    cfg = get_preset("sednet-dcase")
+    mcfg = dataclasses.replace(cfg.model, dropout=0.0)
+    params, state = sednet_tree(cfg.model, seed=11)
+    batch = 16   # the CPU's side of the comparison takes a few seconds at this size
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((batch, mcfg.seq_len_in, mcfg.n_mels)).astype(np.float32)
+    y = (rng.random((batch, mcfg.seq_len_out, mcfg.n_classes)) > 0.8).astype(np.float32)
+
+    def step(device):
+        model = get_model(mcfg)
+        model.load_state_dict(from_jax(params, state, mcfg))
+        trainer = Trainer(model.to(device), cfg.train, None, None)
+        st = TrainState(trainer.adam.init({k: p.detach() for k, p in trainer.params().items()}),
+                        1.0)
+        st, loss, _ = trainer.train_step(st, torch.from_numpy(x).to(device),
+                                         torch.from_numpy(y).to(device))
+        return float(loss), checkpoint_tree(trainer, st)
+
+    _reset_gru_counts()
+    loss_g, tree_g = step("cuda")
+    torch.cuda.synchronize()
+    launches = _gru_counts()
+    want = {"gru_scan_fwd": 0, "gru_scan_fwd_res": 4, "gru_scan_bwd": 4,
+            "gru_scan_sum_partials": 4}
+    check(launches == want, f"train step launches {launches} != {want}")
+    t0 = time.perf_counter()
+    loss_c, tree_c = step("cpu")
+    cpu_s = time.perf_counter() - t0
+    # The CPU against itself with its other convolution backend: how far
+    # float32 alone moves these gradients (the conditioning of the band).
+    with torch.backends.mkldnn.flags(enabled=False):
+        _, tree_c2 = step("cpu")
+    check(np.isfinite(loss_g), "non-finite loss on the card")
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    check(loss_rel <= STEP_LOSS_RTOL, f"train step loss {loss_g} vs {loss_c}")
+
+    mu_g = dict(_leaves(tree_g["opt_state"]["mu"]))
+    mu_c = dict(_leaves(tree_c["opt_state"]["mu"]))
+    mu_c2 = dict(_leaves(tree_c2["opt_state"]["mu"]))
+    cpu_spread, cpu_leaf = max(
+        (float(np.abs(mu_c2[k] - c).max() / np.abs(c).max()), k)
+        for k, c in mu_c.items() if not (k.startswith("/conv/") and k.endswith("/b")))
+    tree_scale = max(float(np.abs(a).max()) for a in mu_c.values())
+    worst_grad, worst_leaf, unclear = 0.0, "", 0
+    for (path, p_g), (_, p_c) in zip(_leaves(tree_g["params"]), _leaves(tree_c["params"])):
+        g, c = mu_g[path], mu_c[path]
+        scale = float(np.abs(c).max())
+        lr = cfg.train.learning_rate
+        # Adam's first step moves an element by about lr * sign(g) whatever
+        # |g| is, so elements whose gradient lies inside the band may move
+        # apart by up to 2 lr; the rest agree to STEP_PARAM_ATOL.
+        check(float(np.abs(p_g - p_c).max()) <= 2 * lr + STEP_PARAM_ATOL, f"{path} after Adam")
+        if path.startswith("/conv/") and path.endswith("/b"):
+            # A conv bias ahead of a train-mode BatchNorm has an exact
+            # gradient of 0 (the batch mean removes any per-channel shift):
+            # both sides hold rounding noise, held to the tree's scale, and
+            # every element of the leaf lies inside the band.
+            check(max(float(np.abs(g).max()), scale) <= 1e-4 * tree_scale,
+                  f"{path}: gradient of a bias ahead of BatchNorm is not ~0")
+            unclear += g.size
+            continue
+        err = float(np.abs(g - c).max()) / scale
+        check(err <= STEP_GRAD_RTOL, f"train step gradient {path}: {err} of its max")
+        if err > worst_grad:
+            worst_grad, worst_leaf = err, path
+        clear = np.abs(c) > STEP_GRAD_RTOL * scale
+        unclear += int((~clear).sum())
+        if clear.any():
+            err = float(np.abs(p_g[clear] - p_c[clear]).max())
+            check(err <= STEP_PARAM_ATOL, f"{path} after Adam: {err}")
+    bn_err = max(float(np.abs(a - b).max()) for (_, a), (_, b) in
+                 zip(_leaves(tree_g["model_state"]), _leaves(tree_c["model_state"])))
+    check(bn_err <= STEP_BN_ATOL, f"BatchNorm running statistics: {bn_err}")
+    print(f"[train step] sednet-dcase full width, batch {batch}, dropout 0: loss card "
+          f"{loss_g:.6f} vs CPU {loss_c:.6f} (rel {loss_rel:.2g}); gradients (Adam's mu) "
+          f"max|diff| / leaf max {worst_grad:.3g} ({worst_leaf}; the CPU's two convolution "
+          f"backends differ by {cpu_spread:.3g} at {cpu_leaf}); BatchNorm stats {bn_err:.3g}; "
+          f"{unclear} parameter elements with |g| inside the band; launches {launches}; "
+          f"CPU step {cpu_s:.2f} s")
+
+
+def phase_train(workdir: str):
+    """`run_fold` at the preset's full size on synthetic folds, on the card."""
+    import torch
+
+    from sed_crnn_torch.apps.infer import load_model
+    from sed_crnn_torch.apps.train import synthetic_folds
+    from sed_crnn_torch.core.checkpoint import load_checkpoint
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.train.loop import Trainer, make_samplers, run_fold
+
+    cfg = get_preset("sednet-dcase")
+    epochs = 2
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, max_epochs=epochs, plot_every=0))
+    frames = int(cfg.train.batch_size * cfg.model.seq_len_in * 1.3)   # as apps.train does
+    fold = synthetic_folds(1, frames=frames, n_classes=cfg.model.n_classes)[1]
+    dev = torch.device("cuda")
+    tr, val = make_samplers(cfg, fold, dev)
+    n_train, n_sweep = tr.steps_per_epoch(cfg.train.batch_size), val.sweep_steps(cfg.train.batch_size)
+    art = os.path.join(workdir, "fold1")
+
+    _reset_gru_counts()
+    t0 = time.perf_counter()
+    res = run_fold(cfg, fold, 1, art, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _gru_counts()
+    want = {"gru_scan_fwd": 4 * n_sweep * epochs, "gru_scan_fwd_res": 4 * n_train * epochs,
+            "gru_scan_bwd": 4 * n_train * epochs, "gru_scan_sum_partials": 4 * n_train * epochs}
+    check(launches == want, f"run_fold launches {launches} != {want}")
+    check(res.epochs_run == epochs, f"run_fold ran {res.epochs_run} epochs")
+    for k in ("loss_tr", "loss_val"):
+        v = res.history[k]
+        check(len(v) == epochs and bool(np.isfinite(v).all()), f"history {k}: {v}")
+    best, last = os.path.join(art, "best_fold1.npz"), os.path.join(art, "last_fold1.npz")
+    check(os.path.exists(best) and os.path.exists(last), "best/last checkpoints written")
+
+    tree, meta = load_checkpoint(last)
+    check(set(tree) >= {"params", "model_state", "opt_state", "lr_scale"}
+          and int(tree["opt_state"]["step"]) == n_train * epochs,
+          f"last checkpoint layout {sorted(tree)}")
+    model = load_model(tree, cfg.model, dev)
+    scores = Trainer(model, cfg.train, tr, val).eval_sweep(None)
+    loss_val = float(scores["loss"])
+    check(abs(loss_val - res.history["loss_val"][-1]) <= 1e-6 * abs(loss_val),
+          f"checkpoint's validation loss {loss_val} vs the run's {res.history['loss_val'][-1]}")
+    check(float(scores["er_overall_1sec"]) == res.history["er_1s_val"][-1],
+          "checkpoint's validation ER differs from the run's")
+    n = min(4, val.n_windows)
+    x = val.data["mel"][: n * cfg.model.seq_len_in].reshape(n, cfg.model.seq_len_in, -1)
+    with torch.no_grad():
+        logits = model.eval()(x)[0].cpu()
+        logits_cpu = load_model(tree, cfg.model, "cpu").eval()(x.cpu())[0]
+    logit_err = float((logits - logits_cpu).abs().max())
+    check(logit_err <= LOGIT_ATOL, f"checkpoint logits card vs CPU {logit_err}")
+    epoch_sec = [json.loads(ln)["epoch_sec"] for ln in open(os.path.join(art, "train_fold1.jsonl"))]
+    print(f"[train] run_fold sednet-dcase full width, {frames} frames per train split: "
+          f"{epochs} epochs x {n_train} steps at batch {cfg.train.batch_size}, "
+          f"{n_sweep} sweep step(s) per epoch, in {wall:.2f} s (epoch_sec {epoch_sec}); "
+          f"loss_tr {res.history['loss_tr']}, loss_val {res.history['loss_val']}, "
+          f"ER_1s_val {res.history['er_1s_val']}; last checkpoint serves the same val scores "
+          f"(loss {loss_val:.6f}) and card vs CPU logits within {logit_err:.3g}; "
+          f"launches {launches}")
+    return launches, cfg, fold
+
+
+def phase_train_throughput(cfg, fold):
+    """Train-step time at batch 128 and the training rate; a profile of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sed_crnn_torch.models import get_model
+    from sed_crnn_torch.models.convert import from_jax
+    from sed_crnn_torch.train.loop import Rngs, Trainer, TrainState, make_samplers
+
+    dev = torch.device("cuda")
+    params, state = sednet_tree(cfg.model, seed=11)
+    model = get_model(cfg.model)
+    model.load_state_dict(from_jax(params, state, cfg.model))
+    tr, val = make_samplers(cfg, fold, dev)
+    trainer = Trainer(model.to(dev), cfg.train, tr, val)
+    st = TrainState(trainer.adam.init({k: p.detach() for k, p in trainer.params().items()}), 1.0)
+    rngs = Rngs(dev, 0, model.n_dropout_sites)
+    batch = cfg.train.batch_size
+
+    def one_step():
+        nonlocal st
+        x, y = tr.sample_batch(rngs.batch, batch)
+        st, _, _ = trainer.train_step(st, x, y, rngs.dropout)
+
+    for _ in range(3):
+        one_step()
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times)) * 1e3
+    event_ms = cuda_ms(one_step, reps=10, warmup=1)
+    audio = batch * cfg.model.seq_len_in / FRAMES_PER_SEC
+    print(f"[throughput] train step sednet-dcase batch {batch} x {cfg.model.seq_len_in} frames "
+          f"(dropout {cfg.model.dropout}): host clock median {step_ms:.2f} ms "
+          f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), CUDA events "
+          f"{event_ms:.2f} ms -> {audio / (step_ms / 1e3):,.0f} audio-sec/sec "
+          f"({audio:.1f} audio-s per step)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    if busy_us == 0:
+        print("[profile] train step: the profiler recorded no device time (not measured)")
+        return step_ms
+    print(f"[profile] train step: wall {wall_us / 1e3:.2f} ms unprofiled, device busy "
+          f"{busy_us / 1e3:.2f} ms, idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:14]:
+        print(f"[profile]   {e.self_device_time_total / busy_us:6.1%} "
+              f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
+    return step_ms
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -473,14 +861,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         launches, fe_kernel, model = phase_main(workdir, pcm)
     phase_throughput(fe_kernel, model, pcm)
+    kernel_fwd_res, kernel_bwd = phase_gru_train()
+    phase_train_step()
+    with tempfile.TemporaryDirectory() as workdir:
+        train_launches, cfg, fold = phase_train(workdir)
+    phase_train_throughput(cfg, fold)
+    launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd")})
     kernels = []
-    for k in (kernel_a, kernel_b):
+    for k in (kernel_a, kernel_b, kernel_fwd_res, kernel_bwd):
         kernels.append({"name": k["name"], "route": k["route"], "source": k["source"],
                         "replaces": k["replaces"], "launches": launches[k["name"]],
                         **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
                                                    "bound_ms", "bound_by", "library_ms")}})
-    print(json.dumps({"kernels": kernels}))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -14,8 +14,8 @@ the backend names that pointed at XLA or Pallas renamed for this port:
   tensor. The JAX ``"xla"`` scan and ``"pallas"`` kernel compute the same
   function, so a JAX config carrying either maps to ``"auto"``.
 
-Training-only fields (`TrainConfig`) are copied so that presets compare
-equal field by field; nothing in this package reads them yet.
+`TrainConfig` is copied field for field, so that presets compare equal;
+`train/loop.py` reads it.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization / loop parameters (read by the training slice)."""
+    """Optimization / loop parameters (read by `train/loop.py`)."""
 
     batch_size: int = 128
     max_epochs: int = 200

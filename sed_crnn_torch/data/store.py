@@ -1,10 +1,12 @@
-"""Feature-cache files: the fold packs' recorded normalization statistics
-and per-video features (the readers serving needs; packing waits)."""
+"""Feature-cache files: the fold packs (``mbe_<tag>_fold<k>.npz``: ``arr_0``
+to ``arr_3`` = X_train, Y_train, X_test, Y_test, and optionally the recorded
+normalization statistics ``arr_4``/``arr_5``) and per-video features. The
+readers serving and training need; packing waits."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,3 +33,18 @@ def load_fold_stats(
         if "arr_4" in arr.files and "arr_5" in arr.files:
             return arr["arr_4"], arr["arr_5"]
     return None
+
+
+def load_fold(cache_dir: str, fold_id: int, channel_tag: str = "mon") -> Dict[str, np.ndarray]:
+    with np.load(fold_path(cache_dir, fold_id, channel_tag)) as arr:
+        fold = {"train_x": arr["arr_0"], "train_y": arr["arr_1"],
+                "val_x": arr["arr_2"], "val_y": arr["arr_3"]}
+        if "arr_4" in arr.files and "arr_5" in arr.files:
+            fold["norm_mean"], fold["norm_scale"] = arr["arr_4"], arr["arr_5"]
+    return fold
+
+
+def load_all_folds(
+    cache_dir: str, fold_ids: Sequence[int] = (1, 2, 3, 4), channel_tag: str = "mon"
+) -> Dict[int, Dict[str, np.ndarray]]:
+    return {k: load_fold(cache_dir, k, channel_tag) for k in fold_ids}

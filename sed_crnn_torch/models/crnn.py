@@ -8,11 +8,16 @@ the two time-pooled variants.
 Layout: NCHW with the JAX package's (H, W) and W the pooled axis, i.e.
 (B, C, T, F) for mel pooling and (B, C, F, T) for time pooling. The trunk
 output is flattened in the JAX order [B, T, C, F] before the GRUs.
+
+Train mode (`model.train()`): BatchNorm normalizes with batch statistics and
+updates its running buffers, and dropout draws from one generator per
+dropout site (`dropout_generators`), the JAX package's one key per block.
+`init_parameters` draws every layer by the config's ``init_scheme``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -41,7 +46,7 @@ class CRNN(nn.Module):
         convs, bns = [], []
         for out_ch in cfg.conv_channels:
             convs.append(Conv2d(in_ch, out_ch, tuple(cfg.kernel_size)))
-            bns.append(BatchNorm2d(out_ch, cfg.bn_eps))
+            bns.append(BatchNorm2d(out_ch, cfg.bn_eps, cfg.bn_momentum))
             in_ch = out_ch
         self.conv = nn.ModuleList(convs)
         self.bn = nn.ModuleList(bns)
@@ -59,6 +64,27 @@ class CRNN(nn.Module):
             in_dim = d
         self.head = nn.ModuleList(head)
         self.eval()
+
+    def init_parameters(self, generator: torch.Generator) -> "CRNN":
+        """Draw every parameter by ``cfg.init_scheme`` from ``generator``, in
+        the JAX package's layer order, and reset the BatchNorm running
+        statistics. Draws happen on the generator's device and are copied
+        into the parameters wherever they live."""
+        scheme = self.cfg.init_scheme
+        for conv, bn in zip(self.conv, self.bn):
+            conv.init_parameters(generator, scheme)
+            bn.init_parameters()
+        for gru in self.gru:
+            gru.init_parameters(generator, scheme)
+        for dense in self.head:
+            dense.init_parameters(generator, scheme)
+        return self
+
+    @property
+    def n_dropout_sites(self) -> int:
+        """Dropout generators a train-mode forward takes: one per block plus
+        the trailing site (the JAX package splits its key the same way)."""
+        return len(self.cfg.conv_channels) + 1
 
     # ---- static shape arithmetic -------------------------------------
     @property
@@ -103,22 +129,26 @@ class CRNN(nn.Module):
         x: torch.Tensor,
         rnn_carry: Optional[Carry] = None,
         carry_at: Optional[int] = None,
+        dropout_generators: Optional[Sequence[torch.Generator]] = None,
     ) -> Tuple[torch.Tensor, Carry]:
-        """Eval forward -> ``(logits (B, T_out, n_classes), new_carry)``.
+        """Forward -> ``(logits (B, T_out, n_classes), new_carry)``.
 
         ``rnn_carry``: one {"fwd", "bwd"} state dict per BiGRU, as streaming
         chains chunks; None starts from zeros. ``carry_at``: make the
         returned forward states the hidden states at that GRU timestep
         instead of the final ones (lookahead streaming).
+        ``dropout_generators``: `n_dropout_sites` generators on the input's
+        device, needed in train mode when ``cfg.dropout > 0``.
         """
         cfg = self.cfg
+        gens = list(dropout_generators or [None] * self.n_dropout_sites)
         x = self._to_nchw(x.to(getattr(torch, cfg.compute_dtype)))
-        for conv, bn, p in zip(self.conv, self.bn, cfg.pool):
+        for i, (conv, bn, p) in enumerate(zip(self.conv, self.bn, cfg.pool)):
             x = max_pool2d(torch.relu(bn(conv(x))), (1, p))
             if cfg.dropout_per_block:
-                x = self.dropout(x)
+                x = self.dropout(x, gens[i])
         if not cfg.dropout_per_block:
-            x = self.dropout(x)
+            x = self.dropout(x, gens[-1])
 
         # -> (B, T, C*F) in the JAX flatten order [B, T, C, F]
         x = x.permute(0, 3, 1, 2) if cfg.pool_axis == "time" else x.permute(0, 2, 1, 3)

@@ -10,19 +10,25 @@ hoisted out of the recurrence as one ``torch.matmul``.
 ``reset_after=True`` is the torch/cuDNN convention (reset applied to the
 projected hidden state); ``False`` is the keras-2.2 SEDnet convention (reset
 applied to ``h`` before the recurrent product, one bias). The recurrence
-runs through the kernel's wrapper, which launches the CUDA kernel for a CUDA
-tensor and runs the plain step loop for a CPU tensor.
-Parameters start at zero: weights come from `models/convert.py` until the
-training slice ports the init schemes.
+runs through the kernel's wrapper: the CUDA kernels for a CUDA tensor (the
+residual forward and the backward kernel when autograd needs a gradient),
+the plain step loop for a CPU tensor.
+
+`GRU.init_parameters` draws the JAX package's two schemes from a caller's
+generator: ``"torch"`` U(+-1/sqrt(H)) for every leaf; ``"keras"`` a
+glorot-uniform ``wi``, ``wh`` the transposed Q of a QR of a normal
+(3H, H) draw sign-fixed by diag(R) (orthonormal rows), zero biases.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from sed_crnn_torch.nn.layers import glorot_uniform_, uniform_
 from sed_crnn_torch.ops.kernels.gru_scan import GATES, gru_scan
 
 
@@ -45,6 +51,26 @@ class GRU(nn.Module):
         self.wh = nn.Parameter(torch.zeros(hidden, h3))
         self.bi = nn.Parameter(torch.zeros(h3))
         self.bh = nn.Parameter(torch.zeros(h3)) if reset_after else None
+
+    def init_parameters(self, generator: torch.Generator, scheme: str = "torch") -> None:
+        in_dim, h3 = self.wi.shape
+        if scheme == "keras":
+            glorot_uniform_(self.wi, in_dim, h3, generator)
+            a = torch.randn((h3, self.hidden), generator=generator, device=generator.device)
+            q, r = torch.linalg.qr(a)
+            q = q * torch.sign(torch.diagonal(r))
+            with torch.no_grad():
+                self.wh.copy_(q.T)
+                self.bi.zero_()
+                if self.bh is not None:
+                    self.bh.zero_()
+        elif scheme == "torch":
+            bound = 1.0 / math.sqrt(self.hidden)
+            for p in (self.wi, self.wh, self.bi, self.bh):
+                if p is not None:
+                    uniform_(p, bound, generator)
+        else:
+            raise ValueError(f"unknown init scheme {scheme!r}")
 
     def forward(
         self, x: torch.Tensor, h0: Optional[torch.Tensor] = None, reverse: bool = False
@@ -70,6 +96,10 @@ class BiGRU(nn.Module):
         self.hidden = hidden
         self.fwd = GRU(in_dim, hidden, reset_after, gate_activation)
         self.bwd = GRU(in_dim, hidden, reset_after, gate_activation)
+
+    def init_parameters(self, generator: torch.Generator, scheme: str = "torch") -> None:
+        self.fwd.init_parameters(generator, scheme)
+        self.bwd.init_parameters(generator, scheme)
 
     def forward(
         self, x: torch.Tensor, h0: Optional[Dict[str, torch.Tensor]] = None

@@ -6,7 +6,9 @@ fixture). On a machine with one, and without JAX, run:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances as in chip_smoke.py: 1e-5 absolute for the GRU recurrence
-(float32, same operation order up to reassociation in the small products),
+(float32, same operation order up to reassociation in the small products)
+and 1e-4 of each gradient's largest magnitude for its backward (a long
+gradient chain, and dwh/dbh summed over B*T terms in another order),
 5e-4 in the log domain for the fused log-mel at finite entries, with an
 identical -inf pattern.
 """
@@ -19,7 +21,14 @@ import torch
 
 from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel, fused_log_mel_plain
-from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_plain
+from sed_crnn_torch.ops.kernels.gru_scan import (
+    gru_scan,
+    gru_scan_bwd,
+    gru_scan_bwd_plain,
+    gru_scan_fwd_res,
+    gru_scan_fwd_res_plain,
+    gru_scan_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,15 +61,80 @@ def test_gru_kernel_matches_plain(cuda, B, T, H, reset_after, gate, reverse):
     torch.testing.assert_close(hl, hl_p, rtol=0, atol=1e-5)
 
 
-def test_gru_kernel_refuses_autograd(cuda):
-    """The kernel has no backward yet: a graph through it must not be cut silently."""
-    wh = torch.zeros(4, 12, device=cuda, requires_grad=True)
-    args = (torch.zeros(2, 3, 12, device=cuda), wh, None, torch.zeros(2, 4, device=cuda),
-            False, "sigmoid", False)
-    with pytest.raises(NotImplementedError):
-        gru_scan(*args)
+def _gru_case(dev, B, T, H, reset_after, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    return (t(rng.standard_normal((B, T, 3 * H))), t(rng.standard_normal((H, 3 * H)) / np.sqrt(H)),
+            t(0.1 * rng.standard_normal(3 * H)) if reset_after else None,
+            t(0.5 * rng.standard_normal((B, H))), t(rng.standard_normal((B, T, H))),
+            t(rng.standard_normal((B, H))))
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 1, 4), (3, 7, 8), (5, 300, 32), (2, 20, 64)])
+@pytest.mark.parametrize("reset_after", [False, True])
+@pytest.mark.parametrize("gate", ["sigmoid", "hard_sigmoid"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse):
+    """The residual forward and the backward against their plain versions:
+    ys/res/h_last within 1e-5; dxp/dh0/dwh/dbh within 1e-4 of each one's
+    largest magnitude (a 300-step gradient chain, and sums over B*T terms
+    taken in another order)."""
+    xp, wh, bh, h0, dys, dhl = _gru_case(cuda, B, T, H, reset_after, B * 1000 + T)
+    conf = (reset_after, gate, reverse)
+    n_fwd, n_bwd, n_sum = (gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+                           gru_scan_bwd.sum_launches)
+    ys, res, hl = gru_scan_fwd_res(xp, wh, bh, h0, *conf)
+    torch.cuda.synchronize()
+    ys_p, res_p, hl_p = gru_scan_fwd_res_plain(xp, wh, bh, h0, *conf)
+    for got, want in ((ys, ys_p), (res, res_p), (hl, hl_p)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    ys0, hl0 = gru_scan(xp, wh, bh, h0, *conf)
+    assert torch.equal(ys0, ys) and torch.equal(hl0, hl)  # one templated body
+    grads = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
+    torch.cuda.synchronize()
+    want = gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf)
+    for got, w in zip(grads, want):
+        scale = max(float(w.abs().max()), 1e-6)
+        torch.testing.assert_close(got, w, rtol=0, atol=1e-4 * scale)
+    if not reset_after:
+        assert not bool(grads[2].any())
+    assert (gru_scan_fwd_res.launches, gru_scan_bwd.launches, gru_scan_bwd.sum_launches) == (
+        n_fwd + 1, n_bwd + 1, n_sum + 1)
+
+
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_gru_backward_is_deterministic(cuda, reset_after):
+    """dwh is summed from per-block partials in a fixed order: bitwise equal
+    from run to run."""
+    xp, wh, bh, h0, dys, dhl = _gru_case(cuda, 128, 256, 32, reset_after, 5)
+    conf = (reset_after, "sigmoid", False)
+    ys, res, _ = gru_scan_fwd_res(xp, wh, bh, h0, *conf)
+    first = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
+    second = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_gru_autograd_goes_through_the_kernels(cuda, reset_after):
+    """With grad enabled `gru_scan` runs GruScanFn: the residual forward and
+    the backward kernel, with gradients equal to autograd through the plain
+    step loop within the backward's band."""
+    xp, wh, bh, h0, dys, _ = _gru_case(cuda, 6, 40, 16, reset_after, 9)
+    ins = [a.clone().requires_grad_() for a in (xp, wh, h0) + ((bh,) if reset_after else ())]
+    bh_in = ins[3] if reset_after else None
+    n_fwd, n_bwd, n_plain = gru_scan_fwd_res.launches, gru_scan_bwd.launches, gru_scan.launches
+    ys, _ = gru_scan(ins[0], ins[1], bh_in, ins[2], reset_after, "hard_sigmoid", True)
+    got = torch.autograd.grad((ys * dys).sum(), ins)
+    assert (gru_scan_fwd_res.launches, gru_scan_bwd.launches, gru_scan.launches) == (
+        n_fwd + 1, n_bwd + 1, n_plain)
+    ys_p, _ = gru_scan_plain(ins[0], ins[1], bh_in, ins[2], reset_after, "hard_sigmoid", True)
+    want = torch.autograd.grad((ys_p * dys).sum(), ins)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
     with torch.no_grad():
-        gru_scan(*args)
+        gru_scan(ins[0], ins[1], bh_in, ins[2], reset_after, "hard_sigmoid", True)
+    assert gru_scan.launches == n_plain + 1
 
 
 def test_gru_kernel_rejects_bad_inputs(cuda):

@@ -56,9 +56,10 @@ def port_config_of(jax_cfg):
 
 
 def seeded_tree(jax_model, seed: int):
-    """JAX (params, state) with every leaf drawn from a numpy seed."""
+    """JAX (params, state) with every leaf drawn from a numpy seed (the
+    JAX init gives only the tree's shapes)."""
     rng = np.random.default_rng(seed)
-    params, state = jax_model.init(jax.random.PRNGKey(0))
+    params, state = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0))
 
     def draw(a, scale):
         return (scale * rng.standard_normal(np.shape(a))).astype(np.float32)
