@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one GPU and check
-its kernels.
+"""Drive the PyTorch port's serving, training and feature-extraction paths
+on one GPU and check its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -44,6 +44,25 @@ exits non-zero and prints no result line:
    sweep step);
 10. training throughput: train-step time at batch 128, the training rate in
     audio-seconds per second, and a torch.profiler breakdown of one step.
+11. kernel A's framed DIF route (the TPU `_kernel_dif`: n_fft 1024 and 4096
+    at hop 1024, and a frame-matrix input) and its direct route (the TPU
+    `_kernel_exact`: mode "exact" at n_fft 2048, the n_fft 1034 / hop 517
+    fallback) against their plain versions on the signals of phase 3 and a
+    1,500-sample one, with and without a floor (-inf pattern equal, 5e-4 at
+    finite entries); their times at the binmul path's shapes (warm and cold
+    L2) beside the plain versions, ``torch.stft`` + mel and the bounds; the
+    direct route driven once through ``frontend.extract`` at n_fft 1034;
+12. the feature path: a synthetic DCASE 2017 street layout (12 binaural
+    120 s wavs at 44.1 kHz and one 20 s wav at 48 kHz, folds 1 and 2) through
+    ``apps.feature.main --binmul --backend kernel --device cuda``: exactly 2
+    chunked and 4 framed launches per file, a cached rerun that launches
+    nothing, per-file features within 5e-4 of ``--backend fft`` on the card,
+    the packs' shapes and standardized means; the feature rate (host clock),
+    a profile and the host's parts of one file;
+13. ``apps.train.main --preset sednet-dcase-binmul`` on those packs at full
+    width (in_channels 6, batch 128), 2 epochs: finite losses, exact GRU
+    kernel launch counts, a best checkpoint that loads back and gives the
+    same logits on the card and the CPU.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -845,6 +864,433 @@ def phase_train_throughput(cfg, fold):
     return step_ms
 
 
+def cuda_ms_cold(fn, reps: int = 10) -> float:
+    """Mean device milliseconds per call with a cold L2: a 256 MB write
+    evicts the 50 MB L2 before each call, and CUDA events bracket the call
+    alone."""
+    import torch
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def logmel_bound(n_samples: int, n_frames: int, n_fft: int, n_mels: int):
+    """The least work of log-mel, as [kernel A] counts it: a real FFT of
+    n_fft points (2.5 N log2 N), the power and the mel product per frame;
+    the waveform read once and the log-mels written once."""
+    n_bins = n_fft // 2 + 1
+    flops = n_frames * (2.5 * n_fft * np.log2(n_fft) + 3 * n_bins + 2 * n_bins * n_mels + n_mels)
+    nbytes = 4 * (n_samples + n_frames * n_mels)
+    return bound_ms(nbytes, flops) + (flops, nbytes)
+
+
+def formulation_bound(n_samples: int, n_frames: int, n_fft: int, n_mels: int, direct: bool):
+    """The kernel's own formulation's work, for reference: DIF, two real
+    DFTs of M = n_fft/2 points as products (M + 1 bins); direct, one of n_fft
+    points (n_fft/2 + 1 bins); then the power and the mel product. The bases
+    read once."""
+    k, bins = (n_fft, n_fft // 2 + 1) if direct else (n_fft // 2, n_fft // 2 + 1)
+    flops = n_frames * (2 * k * 2 * bins + 3 * bins + 2 * bins * n_mels)
+    nbytes = 4 * (n_samples + 2 * k * bins + bins * n_mels + n_frames * n_mels)
+    return bound_ms(nbytes, flops) + (flops,)
+
+
+def _logmel_counts():
+    from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
+
+    return {"chunked": fused_log_mel.launches, "framed": fused_log_mel.framed_launches,
+            "exact": fused_log_mel.exact_launches}
+
+
+def _reset_logmel_counts():
+    from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
+
+    fused_log_mel.launches = fused_log_mel.framed_launches = fused_log_mel.exact_launches = 0
+
+
+def _check_logmel(tag: str, got, want) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), fin), f"{tag}: -inf pattern")
+    check(torch.equal(got[~fin], want[~fin]), f"{tag}: non-finite values")
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(err <= LOGMEL_ATOL, f"{tag}: {err} > {LOGMEL_ATOL}")
+    return err
+
+
+def phase_logmel_routes(pcm: np.ndarray):
+    """Kernel A's framed DIF route (the TPU `_kernel_dif`) and direct route
+    (`_kernel_exact`) against their plain versions on the card, their times
+    at the binmul path's shapes, and the direct route driven once through
+    `frontend.extract` at an n_fft that is not a multiple of 4."""
+    import torch
+
+    from sed_crnn_torch.core.config import FrontendConfig
+    from sed_crnn_torch.ops import frontend
+    from sed_crnn_torch.ops.kernels.fused_logmel import (
+        fused_log_mel,
+        fused_log_mel_frames,
+        fused_log_mel_frames_plain,
+        fused_log_mel_plain,
+        route,
+    )
+    from sed_crnn_torch.ops.mel import mel_filterbank
+    from sed_crnn_torch.ops.stft import frame_signal
+
+    dev = torch.device("cuda")
+    base = FrontendConfig()
+    signals = [
+        ("30s bucket", bucket_signal(tones(30.0, 1)[: 30 * SR - 4096], base), False),
+        ("240s", tones(240.0, 2, silent=[(100.0, 101.5)]), True),
+        ("ragged", tones(123457 / SR, 3), True),
+        ("silence", np.zeros(5 * SR, np.float32), True),
+        ("short", tones(1500 / SR, 4), True),
+    ]
+    confs = {"framed": [((1024, 1024), "dif"), ((4096, 1024), "dif")],
+             "exact": [((2048, 1024), "exact"), ((1034, 517), "dif")]}
+    worst = {"framed": 0.0, "exact": 0.0}
+    for kind, cases in confs.items():
+        for (n_fft, hop), mode in cases:
+            errs = []
+            for name, y, center in signals:
+                yt = torch.from_numpy(y).to(dev)
+                for floor in (None, 1e-10):
+                    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center,
+                                         log_floor=floor)
+                    check(route(len(y), cfg, mode) == kind, f"{name} {n_fft}/{hop} route")
+                    got = fused_log_mel(yt, cfg, mode)
+                    want = fused_log_mel_plain(yt, cfg, mode)
+                    tag = f"log-mel {kind} {n_fft}/{hop} {mode} {name} floor={floor}"
+                    errs.append(_check_logmel(tag, got, want))
+                    if name == "silence" and floor is None:
+                        check(not bool(torch.isfinite(want).any()), f"{tag}: not all -inf")
+            # The frame-matrix entry (stride n_fft) on the 240 s signal's frames.
+            y240 = torch.from_numpy(signals[1][1]).to(dev)
+            cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
+            frames = frame_signal(y240, n_fft, hop).contiguous()
+            got = fused_log_mel_frames(frames, cfg, mode)
+            want = fused_log_mel_frames_plain(frames, cfg, mode)
+            errs.append(_check_logmel(f"log-mel frames {n_fft}/{hop} {mode}", got, want))
+            worst[kind] = max(worst[kind], max(errs))
+            print(f"[kernel A {kind}] n_fft {n_fft} hop {hop} mode {mode}: "
+                  f"{len(signals)} signals x 2 floors + a {tuple(frames.shape)} frame matrix, "
+                  f"max|diff| at finite {max(errs):.3g}, -inf patterns equal")
+
+    def library(yt, cfg):
+        fb = torch.from_numpy(mel_filterbank(SR, cfg.n_fft, cfg.n_mels)).to(dev)
+        window = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
+        return lambda: torch.log(torch.clamp_min(fb @ torch.stft(
+            yt, cfg.n_fft, cfg.hop_length, window=window, center=False,
+            return_complex=True).abs().square(), 1e-10))
+
+    timed = {}
+    for kind, n_fft, hop, mode in (("framed", 1024, 1024, "dif"), ("framed", 4096, 1024, "dif"),
+                                   ("exact", 2048, 1024, "exact")):
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        y = bucket_signal(pcm, cfg)
+        yt = torch.from_numpy(y).to(dev)
+        n_frames = 1 + (len(y) - n_fft) // hop
+        check(route(len(y), cfg, mode) == kind, f"timed {kind} route")
+        err = _check_logmel(f"log-mel {kind} {n_fft}/{hop} {mode} binmul-path shape",
+                            fused_log_mel(yt, cfg, mode), fused_log_mel_plain(yt, cfg, mode))
+        worst[kind] = max(worst[kind], err)
+        ms = cuda_ms(lambda: fused_log_mel(yt, cfg, mode))
+        cold = cuda_ms_cold(lambda: fused_log_mel(yt, cfg, mode))
+        plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg, mode), reps=5)
+        lib_ms = cuda_ms(library(yt, cfg))
+        bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, n_fft, cfg.n_mels)
+        f_bnd, f_by, f_flops = formulation_bound(len(y), n_frames, n_fft, cfg.n_mels,
+                                                 kind == "exact")
+        print(f"[kernel A {kind}] binmul-path shape n_fft {n_fft} hop {hop} mode {mode}: "
+              f"{n_frames} frames ({len(y) / SR:.1f} s padded), vs plain max|diff| at finite "
+              f"{err:.3g}, -inf patterns equal: kernel {ms:.4f} ms warm L2, "
+              f"{cold:.4f} ms cold L2, plain {plain:.4f} ms, torch.stft+mel {lib_ms:.4f} ms; "
+              f"bound {bnd:.4f} ms ({by}, rFFT+power+mel {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB); formulation bound {f_bnd:.4f} ms ({f_by}, "
+              f"{f_flops / 1e9:.2f} GFLOP, kernel at {f_flops / ms / 1e9:.1f} TFLOP/s)")
+        timed[(kind, n_fft)] = {"ms": ms, "cold_ms": cold, "plain_ms": plain, "bound_ms": bnd,
+                                "bound_by": by, "library_ms": lib_ms}
+
+    # The direct route's main path: `frontend.extract` of the 120 s file at
+    # n_fft 1034 (not a multiple of 4), against the fft backend.
+    cfg = FrontendConfig(n_fft=1034, hop_length=517, backend="kernel")
+    _reset_logmel_counts()
+    got = frontend.extract(pcm, cfg, device=dev)
+    torch.cuda.synchronize()
+    exact_launches = _logmel_counts()
+    check(exact_launches == {"chunked": 0, "framed": 0, "exact": 1},
+          f"extract at n_fft 1034 launches {exact_launches}")
+    want = frontend.extract(pcm, dataclasses.replace(cfg, backend="fft"), device=dev)
+    err = _check_logmel("extract n_fft 1034 kernel vs fft", got, want)
+    print(f"[kernel A exact] main path: frontend.extract of the {len(pcm) / SR:.0f} s file at "
+          f"n_fft 1034 hop 517: {tuple(got.shape)}, launches {exact_launches}, "
+          f"vs the fft backend max|diff| {err:.3g}")
+    common = {"route": "cuda", "source": "sed_crnn_torch/csrc/fused_logmel.cu"}
+    return (
+        {"name": "fused_logmel_framed", **common,
+         "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:162",
+         "max_abs_err": worst["framed"], **timed[("framed", 4096)]},
+        {"name": "fused_logmel_exact", **common,
+         "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:264",
+         "max_abs_err": worst["exact"], "launches": exact_launches["exact"],
+         **timed[("exact", 2048)]},
+    )
+
+
+DCASE_CLASS_FREQS = (300.0, 700.0, 1300.0, 2500.0, 4100.0, 6300.0)
+
+
+def write_dcase_layout(root: str, seed: int = 21):
+    """A synthetic DCASE 2017 street layout: 12 binaural 16-bit wavs of 120 s
+    at 44.1 kHz and one of 20 s at 48 kHz, noise plus a class tone (per
+    channel gains) during each event; folds 1 and 2 (8 train and 4 evaluate
+    files each, the 48 kHz file in fold 1's evaluate list); the 6 classes."""
+    from sed_crnn_torch.data.catalog import DCASE_CLASSES
+    from sed_crnn_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    audio = os.path.join(root, "audio", "street")
+    setup = os.path.join(root, "evaluation_setup")
+    os.makedirs(audio)
+    os.makedirs(setup)
+    lines = {}
+    names = [f"street_{i:02d}.wav" for i in range(12)] + ["street_48k.wav"]
+    for name in names:
+        sr, seconds = (48000, 20.0) if name.endswith("48k.wav") else (SR, 120.0)
+        n = int(seconds * sr)
+        x = (0.02 * rng.standard_normal((n, 2))).astype(np.float32)
+        events = []
+        for _ in range(max(1, int(seconds // 15))):
+            start = float(rng.uniform(0.0, seconds - 6.0))
+            end = start + float(rng.uniform(1.0, 5.0))
+            c = int(rng.integers(len(DCASE_CLASSES)))
+            a, b = int(start * sr), int(end * sr)
+            tone = 0.2 * np.sin(2 * np.pi * DCASE_CLASS_FREQS[c] / sr * np.arange(b - a))
+            x[a:b] += (tone[:, None] * rng.uniform(0.3, 1.0, 2)).astype(np.float32)
+            events.append(f"audio/street/{name}\tstreet\t{start:.3f}\t{end:.3f}\t"
+                          f"{DCASE_CLASSES[c]}")
+        write_wav(os.path.join(audio, name), x, sr)
+        lines[name] = events or [f"audio/street/{name}\tstreet"]
+    splits = {1: (names[:8], names[8:]), 2: (names[4:12], names[:4])}
+    for fold, (train, evaluate) in splits.items():
+        for split, files in (("train", train), ("evaluate", evaluate)):
+            with open(os.path.join(setup, f"street_fold{fold}_{split}.txt"), "w") as f:
+                f.write("\n".join(ln for n in files for ln in lines[n]) + "\n")
+    return names
+
+
+def _quiet(fn, *args):
+    """Run ``fn(*args)`` with its standard output captured; returns its
+    result and the captured lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def phase_feature(workdir: str):
+    """`apps/feature.py --binmul --backend kernel` on a synthetic DCASE layout
+    on the card (exact launch counts, a cached rerun, the fft backend's
+    features, the packs), the feature rate and a profile, then
+    `apps/train.py --preset sednet-dcase-binmul` on those packs at full
+    width."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sed_crnn_torch.apps import feature
+    from sed_crnn_torch.core.config import FrontendConfig
+    from sed_crnn_torch.data import store
+    from sed_crnn_torch.data.wavio import read_wav_multichannel
+
+    root = os.path.join(workdir, "dcase")
+    t0 = time.perf_counter()
+    names = write_dcase_layout(root)
+    print(f"[feature] wrote {len(names)} binaural wavs in {time.perf_counter() - t0:.1f} s")
+    audio_s = 12 * 120.0 + 20.0
+    cache = os.path.join(workdir, "cache")
+    args = ["--dcase-root", root, "--binmul", "--folds", "1", "2", "--device", "cuda"]
+
+    _reset_logmel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = _quiet(feature.main, args + ["--cache-dir", cache, "--backend", "kernel"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _logmel_counts()
+    want = {"chunked": 2 * len(names), "framed": 4 * len(names), "exact": 0}
+    check(launches == want, f"feature launches {launches} != {want}")
+    print(f"[feature] extract_dcase --binmul --backend kernel: {len(names)} files "
+          f"({audio_s:.0f} s of binaural audio, 2 folds) in {wall:.2f} s host clock -> "
+          f"{audio_s / wall:,.0f} audio-sec/sec; launches {launches} (per file 2 chunked "
+          f"at n_fft 2048, 4 framed at n_fft 1024 and 4096); {out[-1]}")
+
+    per_file = sorted(f for f in os.listdir(cache) if f.endswith("_binmul.npz")
+                      and not f.startswith("mbe_"))
+    check(len(per_file) == len(names), f"{len(per_file)} per-file caches")
+    log = os.path.join(cache, "feature_log.jsonl")
+    records = [json.loads(ln) for ln in open(log)]
+    n_log = len(records)
+    secs = {os.path.basename(r["video"]): r["duration_sec"] for r in records}
+    at_44k = [secs[n] for n in names[:-1]]
+    print(f"[feature] per-file seconds (feature_log.jsonl, decode to npz write): 44.1 kHz "
+          f"files first {at_44k[0]}, then min {min(at_44k[1:])} median "
+          f"{float(np.median(at_44k[1:]))} max {max(at_44k[1:])}; the 20 s 48 kHz file "
+          f"(resampled on the host) {secs[names[-1]]}")
+    mtimes = {f: os.path.getmtime(os.path.join(cache, f)) for f in per_file}
+    _reset_logmel_counts()
+    _quiet(feature.main, args + ["--cache-dir", cache, "--backend", "kernel"])
+    check(_logmel_counts() == {"chunked": 0, "framed": 0, "exact": 0},
+          f"a cached rerun launched {_logmel_counts()}")
+    check({f: os.path.getmtime(os.path.join(cache, f)) for f in per_file} == mtimes
+          and len(open(log).read().splitlines()) == n_log == len(names),
+          "a cached rerun rewrote a file or a log line")
+
+    fft_cache = os.path.join(workdir, "cache_fft")
+    _quiet(feature.main, args + ["--cache-dir", fft_cache, "--backend", "fft"])
+    worst = 0.0
+    for f in per_file:
+        x, y = store.load_video_features(os.path.join(cache, f))
+        fx, fy = store.load_video_features(os.path.join(fft_cache, f))
+        check(x.shape == fx.shape and x.shape[1] == 240 and np.array_equal(y, fy),
+              f"{f}: shapes {x.shape} / {fx.shape} or labels")
+        fin = np.isfinite(fx)
+        check(np.array_equal(np.isfinite(x), fin), f"{f}: -inf pattern vs fft")
+        err = float(np.abs(x[fin] - fx[fin]).max())
+        check(err <= LOGMEL_ATOL, f"{f}: kernel vs fft backend {err}")
+        worst = max(worst, err)
+    for k in (1, 2):
+        fold = store.load_fold(cache, k, "binmul")
+        means = np.abs(fold["train_x"].mean(axis=0)).max()
+        check(fold["train_x"].shape[1] == fold["val_x"].shape[1] == 240
+              and fold["train_y"].shape[1] == 6 and means < 1e-3
+              and fold["norm_mean"].shape == fold["norm_scale"].shape == (240,)
+              and bool(np.isfinite(fold["val_x"]).all()),
+              f"fold {k} pack")
+        print(f"[feature] fold {k} pack: train {fold['train_x'].shape}, val "
+              f"{fold['val_x'].shape}, labels {fold['train_y'].shape[1]} classes "
+              f"({int(fold['train_y'].sum())} positive cells), train means within {means:.2g}")
+    print(f"[feature] per-file features, kernel vs fft backend on the card: max|diff| "
+          f"{worst:.3g} over {len(per_file)} files, -inf patterns and labels equal")
+
+    # Where the time goes: the device's share (torch.profiler over a fresh
+    # run of fold 2's 12 files) and the host's parts for one file.
+    prof_cache = os.path.join(workdir, "cache_prof")
+    fold2 = ["--dcase-root", root, "--binmul", "--folds", "2", "--device", "cuda",
+             "--backend", "kernel", "--cache-dir", prof_cache]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _quiet(feature.main, fold2)
+        torch.cuda.synchronize()
+    prof_wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    kern_us = sum(e.self_device_time_total for e in rows if "logmel" in e.key)
+    if busy_us == 0:
+        print("[profile] feature: the profiler recorded no device time (not measured)")
+    else:
+        print(f"[profile] feature, 12 files (fold 2) profiled: wall {prof_wall_us / 1e6:.2f} s, "
+              f"device busy {busy_us / 1e3:.1f} ms ({busy_us / prof_wall_us:.3f} of wall), "
+              f"log-mel kernels {kern_us / 1e3:.1f} ms ({kern_us / prof_wall_us:.3f} of wall)")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"[profile]   {e.self_device_time_total / busy_us:6.1%} "
+                  f"{e.self_device_time_total / 1e3:8.2f} ms x{e.count:5d}  {e.key[:80]}")
+    path = os.path.join(root, "audio", "street", names[0])
+    t0 = time.perf_counter()
+    pcm, _ = read_wav_multichannel(path)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for nf in (1024, 2048, 4096):
+        for c in range(2):
+            bucket_signal(np.ascontiguousarray(pcm[:, c]), FrontendConfig(n_fft=nf))
+    t_pad = time.perf_counter() - t0
+    x, y = store.load_video_features(os.path.join(cache, per_file[0]))
+    t0 = time.perf_counter()
+    store.save_video_features(os.path.join(workdir, "probe.npz"), x, y)
+    t_save = time.perf_counter() - t0
+    print(f"[feature] host parts of one 120 s file: wav read {t_read * 1e3:.1f} ms, "
+          f"reflect + bucket padding x6 {t_pad * 1e3:.1f} ms, npz write {t_save * 1e3:.1f} ms; "
+          f"all of one file {wall / len(names) * 1e3:.0f} ms on average")
+    return launches, cache, audio_s / wall
+
+
+def phase_feature_train(workdir: str, cache: str):
+    """`apps/train.py --preset sednet-dcase-binmul` on the packs the feature
+    phase wrote, at full width on the card, 2 epochs."""
+    import torch
+
+    from sed_crnn_torch.apps import train as train_app
+    from sed_crnn_torch.apps.infer import load_model
+    from sed_crnn_torch.core.checkpoint import load_checkpoint
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.data import store
+    from sed_crnn_torch.train.loop import make_samplers
+
+    epochs = 2
+    cfg = get_preset("sednet-dcase-binmul")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, max_epochs=epochs, plot_every=0))
+    m = cfg.model
+    check(m.in_channels == 6 and tuple(m.conv_channels) == (128, 128, 128)
+          and tuple(m.gru_hidden) == (32, 32) and cfg.train.batch_size == TRAIN_BATCH,
+          "sednet-dcase-binmul preset widths")
+    fold = store.load_fold(cache, 1, "binmul")
+    tr, val = make_samplers(cfg, fold, torch.device("cuda"))
+    n_train, n_sweep = tr.steps_per_epoch(cfg.train.batch_size), val.sweep_steps(cfg.train.batch_size)
+    art = os.path.join(workdir, "art")
+    _reset_gru_counts()
+    t0 = time.perf_counter()
+    out, lines = _quiet(train_app.main, [
+        "--preset", "sednet-dcase-binmul", "--cache-dir", cache, "--channel-tag", "binmul",
+        "--folds", "1", "--max-epochs", str(epochs), "--plot-every", "0", "--device", "cuda",
+        "--art-dir", art])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _gru_counts()
+    want = {"gru_scan_fwd": 4 * n_sweep * epochs, "gru_scan_fwd_res": 4 * n_train * epochs,
+            "gru_scan_bwd": 4 * n_train * epochs, "gru_scan_sum_partials": 4 * n_train * epochs}
+    check(launches == want, f"binmul training launches {launches} != {want}")
+    res = out["folds"][0]
+    check(res.epochs_run == epochs, f"ran {res.epochs_run} epochs")
+    for k in ("loss_tr", "loss_val"):
+        v = res.history[k]
+        check(len(v) == epochs and bool(np.isfinite(v).all()), f"history {k}: {v}")
+    check(res.best_checkpoint is not None and os.path.exists(res.best_checkpoint),
+          "best checkpoint written")
+    tree, meta = load_checkpoint(res.best_checkpoint)
+    model = load_model(tree, m, "cuda").eval()
+    n = min(4, len(fold["val_x"]) // m.seq_len_in)
+    x = torch.from_numpy(fold["val_x"][: n * m.seq_len_in].reshape(n, m.seq_len_in, -1))
+    with torch.no_grad():
+        logits = model(x.cuda())[0].cpu()
+        logits_cpu = load_model(tree, m, "cpu").eval()(x)[0]
+    err = float((logits - logits_cpu).abs().max())
+    check(bool(torch.isfinite(logits).all()) and err <= LOGIT_ATOL,
+          f"best checkpoint logits card vs CPU {err}")
+    print(f"[feature train] apps.train --preset sednet-dcase-binmul (in_channels 6, conv "
+          f"{m.conv_channels}, biGRU {m.gru_hidden}, batch {cfg.train.batch_size}) on the "
+          f"packs: fold 1 {fold['train_x'].shape[0]} train frames, {epochs} epochs x {n_train} "
+          f"steps, {n_sweep} sweep step(s), in {wall:.2f} s; loss_tr {res.history['loss_tr']}, "
+          f"loss_val {res.history['loss_val']}; best checkpoint (epoch {meta.get('epoch')}) "
+          f"loads back, logits {tuple(logits.shape)} card vs CPU {err:.3g}; launches {launches}")
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -866,9 +1312,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, cfg, fold = phase_train(workdir)
     phase_train_throughput(cfg, fold)
+    kernel_framed, kernel_exact = phase_logmel_routes(pcm)
+    with tempfile.TemporaryDirectory() as workdir:
+        feature_launches, cache, _ = phase_feature(workdir)
+        phase_feature_train(workdir, cache)
     launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd")})
+    launches["fused_logmel_framed"] = feature_launches["framed"]
+    launches["fused_logmel_exact"] = kernel_exact.pop("launches")
     kernels = []
-    for k in (kernel_a, kernel_b, kernel_fwd_res, kernel_bwd):
+    for k in (kernel_a, kernel_framed, kernel_exact, kernel_b, kernel_fwd_res, kernel_bwd):
         kernels.append({"name": k["name"], "route": k["route"], "source": k["source"],
                         "replaces": k["replaces"], "launches": launches[k["name"]],
                         **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",

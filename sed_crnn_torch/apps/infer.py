@@ -17,6 +17,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from sed_crnn_torch.core import checkpoint as ckpt_io
 from sed_crnn_torch.core.config import get_preset
@@ -104,20 +105,42 @@ def infer_file(
     return probs, events, meta
 
 
-def stats_from_fold(cache_dir: str, fold_id: int, channel_tag: str = "mon"):
-    """The fold's recorded train-split normalization statistics
-    (``arr_4``/``arr_5`` of its pack), or None when the cache holds no pack
-    and no per-video features. Refitting from per-video features (packs
-    without recorded statistics) is not yet ported and raises."""
+def stats_from_fold(cache_dir: str, fold_id: int, channel_tag: str = "mon",
+                    k_folds: int = 4, device=None):
+    """The fold's train-split normalization statistics, for serving.
+
+    First choice: the fold pack's recorded ``arr_4``/``arr_5``, the exact
+    statistics training normalized with, valid for every pipeline.
+
+    Packs written by the reference record none; then the statistics are
+    refit (on ``device``, None means ``cuda``) from the per-video features
+    under the Decorte fold rule: sorted names, round-robin, fold ``k``'s
+    test videos at sorted index ``i`` with ``i % k_folds == k - 1``. That
+    rule is wrong for DCASE caches (their folds follow the
+    ``evaluation_setup`` lists), so multi-class per-file caches are refused.
+    Returns (mean, scale), or None when the cache holds neither a pack with
+    statistics nor per-video files."""
     recorded = store.load_fold_stats(cache_dir, fold_id, channel_tag)
     if recorded is not None:
         return recorded
-    if glob.glob(os.path.join(cache_dir, f"*_{channel_tag}.npz")):
-        raise NotImplementedError(
-            f"{cache_dir}: the fold pack records no statistics; refitting them "
-            "from per-video features is not yet ported"
+    files = sorted(glob.glob(os.path.join(cache_dir, f"*_{channel_tag}.npz")))
+    if not files:
+        return None
+    # DCASE caches share the per-file pattern but assign folds through the
+    # evaluation_setup lists; their multi-class labels give them away.
+    first_lbl = store.load_video_features(files[0])[1]
+    if first_lbl.ndim == 2 and first_lbl.shape[1] > 1:
+        fold_pack = os.path.basename(store.fold_path(cache_dir, fold_id, channel_tag))
+        raise ValueError(
+            f"{cache_dir} holds multi-class per-file caches (DCASE-style), whose fold "
+            f"membership follows the evaluation_setup lists; the Decorte round-robin "
+            f"refit would compute wrong statistics. Re-pack the folds with the feature "
+            f"app (the pack {fold_pack} then records the exact train stats as arr_4/arr_5)."
         )
-    return None
+    train = [f for i, f in enumerate(files) if i % k_folds != (fold_id - 1) % k_folds]
+    x = np.concatenate([store.load_video_features(f)[0] for f in train], axis=0)
+    stats = frontend.fit_norm_stats(torch.from_numpy(x).to(resolve_device(device)))
+    return stats.mean.cpu().numpy(), stats.scale.cpu().numpy()
 
 
 def main(argv=None):
@@ -157,7 +180,8 @@ def main(argv=None):
     if args.threshold is not None:
         threshold = (args.threshold[0] if len(args.threshold) == 1
                      else np.asarray(args.threshold, np.float32))
-    stats = stats_from_fold(args.stats_from, args.fold) if args.stats_from else None
+    stats = (stats_from_fold(args.stats_from, args.fold, device=args.device)
+             if args.stats_from else None)
     probs, events, meta = infer_file(
         args.wav, args.checkpoint, args.preset, stats, threshold,
         args.carry_backward, args.lookahead, args.log_floor, args.median,

@@ -1,16 +1,20 @@
-"""WAV decode and encode in numpy, with no audio library.
+"""WAV decode and encode in numpy, with no audio library, and the ffmpeg
+paths for other containers.
 
-A copy of the JAX package's `data/wavio.py` readers: a RIFF parser for PCM
-8/16/24/32-bit and IEEE float32/64, channel averaging for forced mono.
-`decode_audio` takes wav files at the model's sample rate; resampling and
-other containers (ffmpeg) are not yet ported and raise.
+A copy of the JAX package's `data/wavio.py`: a RIFF parser for PCM
+8/16/24/32-bit and IEEE float32/64, channel averaging for forced mono
+(ffmpeg's ``-ac 1``), `data/resample.py` for a wav at another rate, and an
+ffmpeg subprocess for any other container when the binary exists (ffprobe
+for the media probes).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
-from typing import Tuple
+import subprocess
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -76,6 +80,15 @@ def read_wav(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
     return np.ascontiguousarray(x, dtype=np.float32), int(sr)
 
 
+def read_wav_multichannel(path: str) -> Tuple[np.ndarray, int]:
+    """(n, ch) float32 and the sample rate: the binaural DCASE pipeline's
+    reader."""
+    x, sr = read_wav(path, mono=False)
+    if x.ndim == 1:
+        x = x[:, None]
+    return x, sr
+
+
 def write_wav(path: str, samples: np.ndarray, sr: int) -> None:
     """Write float32 samples as 16-bit PCM (test fixtures / debugging)."""
     x = np.asarray(samples)
@@ -95,15 +108,96 @@ def write_wav(path: str, samples: np.ndarray, sr: int) -> None:
         f.write(data)
 
 
-def decode_audio(path: str, sr: int = 44100, mono: bool = True) -> np.ndarray:
-    """Decode a wav file to float32 PCM at ``sr``."""
-    if not path.lower().endswith(".wav"):
-        raise NotImplementedError(
-            f"{path}: only wav input is ported; the ffmpeg path is not yet ported"
+def ffmpeg_available() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def decode_audio(
+    path: str, sr: int = 44100, mono: bool = True, channels: Optional[int] = None
+) -> np.ndarray:
+    """Decode a media file to float32 PCM at ``sr``. WAV files use the
+    native reader, a rate mismatch converted by the polyphase resampler
+    (`data/resample.py`, the family of ffmpeg's swresample, which the
+    reference used through ``-ar``). Other containers pipe through ffmpeg
+    (f32le, ``-ac 1`` for mono) when the binary exists, and raise otherwise.
+
+    ``mono=False`` returns (n, ch); the ffmpeg path emits interleaved
+    samples without channel metadata, so it needs ``channels`` to
+    de-interleave (the WAV path reads the count from the header)."""
+    if path.lower().endswith(".wav"):
+        x, file_sr = read_wav(path, mono=mono)
+        if file_sr == sr:
+            return x
+        from sed_crnn_torch.data.resample import resample
+
+        return resample(x, file_sr, sr)
+    if not ffmpeg_available():
+        raise RuntimeError(f"cannot decode {path}: ffmpeg not available")
+    if not mono and channels is None:
+        raise ValueError(
+            f"{path}: mono=False via the ffmpeg path needs explicit `channels` "
+            "to de-interleave the f32le stream"
         )
-    x, file_sr = read_wav(path, mono=mono)
-    if file_sr != sr:
-        raise NotImplementedError(
-            f"{path}: sample rate {file_sr} != {sr}; resampling is not yet ported"
-        )
+    cmd = ["ffmpeg", "-v", "error", "-i", path, "-f", "f32le"]
+    cmd += ["-ac", "1"] if mono else ["-ac", str(channels)]
+    cmd += ["-ar", str(sr), "pipe:1"]
+    raw = subprocess.check_output(cmd)
+    x = np.frombuffer(raw, dtype=np.float32)
+    if not mono:
+        x = x[: (len(x) // channels) * channels].reshape(-1, channels)
     return x
+
+
+def probe_duration(path: str) -> Optional[float]:
+    """Media duration in seconds via ffprobe; None if unavailable."""
+    if shutil.which("ffprobe") is None:
+        return None
+    try:
+        out = subprocess.check_output(
+            [
+                "ffprobe", "-v", "error", "-show_entries", "format=duration",
+                "-of", "default=noprint_wrappers=1:nokey=1", path,
+            ]
+        )
+        return float(out.strip())
+    except (subprocess.CalledProcessError, ValueError):
+        return None
+
+
+def probe_media_meta(path: str) -> dict:
+    """Media metadata from one ffprobe run: fps, frame count, width, height
+    and duration (what the reference's OpenCV probe collected). Missing or
+    unprobeable fields are None (audio-only files have no video stream)."""
+    meta = {"fps": None, "n_frames": None, "width": None, "height": None,
+            "duration_s": None}
+    if shutil.which("ffprobe") is None:
+        return meta
+    try:
+        out = subprocess.check_output(
+            [
+                "ffprobe", "-v", "error", "-select_streams", "v:0",
+                "-show_entries",
+                "format=duration:stream=avg_frame_rate,nb_frames,width,height",
+                "-of", "default=noprint_wrappers=1", path,
+            ]
+        ).decode()
+    except subprocess.CalledProcessError:
+        return meta
+    for line in out.splitlines():
+        key, _, val = line.partition("=")
+        val = val.strip()
+        if not val or val in ("N/A", "0/0"):
+            continue
+        try:
+            if key == "avg_frame_rate":
+                num, _, den = val.partition("/")
+                meta["fps"] = float(num) / float(den) if den else float(num)
+            elif key == "nb_frames":
+                meta["n_frames"] = int(val)
+            elif key in ("width", "height"):
+                meta[key] = int(val)
+            elif key == "duration":
+                meta["duration_s"] = float(val)
+        except (ValueError, ZeroDivisionError):
+            pass
+    return meta

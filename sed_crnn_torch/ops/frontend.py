@@ -7,7 +7,13 @@ unless ``log_floor`` is set) -> ``(frames, n_mels)``. Backends:
 * ``"fft"``: ``torch.fft.rfft`` of windowed frames;
 * ``"matmul"``: windowed DFT as two matrix products;
 * ``"kernel"``: the fused log-mel of `ops/kernels/fused_logmel.py` (the CUDA
-  kernel on a CUDA tensor, its plain version on a CPU tensor).
+  kernel on a CUDA tensor, its plain version on a CPU tensor), at any hop
+  and any signal length, by the JAX ``"pallas"`` backend's dispatch: the
+  chunked DIF route for ``hop * 2 == n_fft``, the framed DIF route for
+  other hops and short signals, the direct route for ``n_fft % 4 != 0``.
+
+Centred framing reflects as numpy's ``mode="reflect"`` does, again and again
+when the signal is shorter than ``n_fft / 2`` (`ops/stft.py::reflect_pad`).
 
 Normalization follows sklearn's StandardScaler as the reference used it:
 per-mel-bin mean and population variance from the train split only,

@@ -27,13 +27,32 @@ def num_frames(n_samples: int, n_fft: int, hop: int, center: bool = True) -> int
     return 1 + (padded - n_fft) // hop
 
 
+def reflect_index(n: int, idx: np.ndarray) -> np.ndarray:
+    """Where numpy's ``mode="reflect"`` reads sample ``idx`` (any integer,
+    inside or outside ``[0, n)``) of an ``n``-sample signal: reflected again
+    and again about the edges, the edge sample not repeated (period
+    ``2 (n - 1)``). A 1-sample signal repeats, as numpy pads it."""
+    if n == 1:
+        return np.zeros_like(idx)
+    period = 2 * (n - 1)
+    j = np.mod(idx, period)
+    return np.where(j >= n, period - j, j)
+
+
 def reflect_pad(y: torch.Tensor, pad: int) -> torch.Tensor:
-    """numpy ``mode="reflect"`` padding of a 1-D signal (edge not repeated)."""
+    """numpy ``mode="reflect"`` padding of a 1-D signal (edge not repeated),
+    for any ``pad``: beyond ``len(y) - 1`` the reflection repeats, as
+    numpy's and ``jnp.pad``'s does. An empty signal raises, as in numpy."""
     if pad == 0:
         return y
-    left = y[1 : pad + 1].flip(0)
-    right = y[-pad - 1 : -1].flip(0)
-    return torch.cat([left, y, right])
+    n = y.shape[0]
+    if n == 0:
+        raise ValueError("cannot reflect-pad an empty signal")
+    if pad < n:
+        return torch.cat([y[1 : pad + 1].flip(0), y, y[-pad - 1 : -1].flip(0)])
+    left = torch.from_numpy(reflect_index(n, np.arange(-pad, 0))).to(y.device)
+    right = torch.from_numpy(reflect_index(n, np.arange(n, n + pad))).to(y.device)
+    return torch.cat([y[left], y, y[right]])
 
 
 def frame_signal(y: torch.Tensor, n_fft: int, hop: int, center: bool = True) -> torch.Tensor:

@@ -4,11 +4,12 @@ seeded waveforms.
 
 Tolerances, in the log domain: 2e-4 between the fft/matmul backends of the
 two frameworks (two float32 FFT/GEMM implementations, the band of the JAX
-package's own oracle test); 5e-4 between the port's float32 fused path and
-the JAX fused Pallas kernel, whose products run as bf16x3 (the band of
-tests/test_frontend_parity.py). Signals are tones plus noise, so no mel band
-sits at a window sidelobe floor; -inf entries (exact silence with no floor)
-must coincide.
+package's own oracle test) and between the port's direct ("exact") route and
+the JAX exact kernel (float32 products summed in another order); 5e-4
+between the port's float32 DIF routes and the JAX DIF kernels, whose
+products run as bf16x3 (the band of tests/test_frontend_parity.py). Signals
+are tones plus noise, so no mel band sits at a window sidelobe floor; -inf
+entries (exact silence with no floor) must coincide.
 """
 
 import dataclasses
@@ -21,11 +22,19 @@ import torch
 
 from sed_crnn_tpu.core.config import FrontendConfig as JaxFrontendConfig
 from sed_crnn_tpu.ops import frontend as jax_frontend
+from sed_crnn_tpu.ops import stft as jax_stft
 from sed_crnn_tpu.ops.pallas.fused_logmel import fused_log_mel as jax_fused_log_mel
+from sed_crnn_tpu.ops.pallas.fused_logmel import fused_log_mel_frames as jax_fused_frames
 
 from sed_crnn_torch.core.config import FrontendConfig
-from sed_crnn_torch.ops import frontend
-from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel, fused_log_mel_plain
+from sed_crnn_torch.ops import frontend, stft
+from sed_crnn_torch.ops.kernels.fused_logmel import (
+    fused_log_mel,
+    fused_log_mel_frames,
+    fused_log_mel_frames_plain,
+    fused_log_mel_plain,
+    route,
+)
 
 SMALL = dict(sample_rate=16000, n_fft=256, hop_length=128, n_mels=16)
 
@@ -129,8 +138,112 @@ def test_norm_stats_and_normalize_match_jax():
 
 
 def test_unknown_backend_and_unported_shapes_raise():
+    """An unknown backend or mode raises; hop 512 at n_fft 2048 (once
+    refused) now takes the framed DIF route and matches the JAX pallas
+    backend."""
     y = torch.zeros(4096)
     with pytest.raises(ValueError):
         frontend.log_mel_energies(y, FrontendConfig(backend="pallas"))
-    with pytest.raises(NotImplementedError):
-        fused_log_mel(y, dataclasses.replace(FrontendConfig(), hop_length=512))
+    with pytest.raises(ValueError):
+        fused_log_mel(y, FrontendConfig(), mode="bf16x3")
+    y = _tone_mix(np.random.default_rng(7), 20000)
+    cfg = FrontendConfig(hop_length=512)
+    assert route(len(y), cfg) == "framed"
+    want = jax_frontend.extract(y, JaxFrontendConfig(backend="pallas", hop_length=512))
+    got = frontend.extract(y, dataclasses.replace(cfg, backend="kernel"), device="cpu")
+    _assert_log_close(got.numpy(), want, 5e-4)
+
+
+@pytest.mark.parametrize("n,pad", [(1, 3), (2, 5), (3, 5), (5, 4), (700, 1024), (1500, 1024),
+                                   (2048, 1024)])
+def test_reflect_pad_is_numpy_reflect(n, pad):
+    """Repeated reflection once the pad reaches the signal's length."""
+    y = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    got = stft.reflect_pad(torch.from_numpy(y), pad)
+    np.testing.assert_array_equal(got.numpy(), np.pad(y, pad, mode="reflect"))
+    assert got.shape[0] == n + 2 * pad
+
+
+@pytest.mark.parametrize("backend", ["fft", "matmul", "kernel"])
+@pytest.mark.parametrize("n", [700, 1500])
+def test_short_signals_match_jax(backend, n):
+    """Centred signals shorter than n_fft / 2 and than n_fft, unbucketed:
+    the repeated reflection gives the JAX package's frames."""
+    y = _tone_mix(np.random.default_rng(n), n)
+    jax_backend = "pallas" if backend == "kernel" else backend
+    want = jax_frontend.extract(y, JaxFrontendConfig(backend=jax_backend), bucket_seconds=0)
+    got = frontend.extract(y, FrontendConfig(backend=backend), bucket_seconds=0, device="cpu")
+    assert got.shape[0] == stft.num_frames(n, 2048, 1024) == want.shape[0]
+    _assert_log_close(got.numpy(), want, 5e-4 if backend == "kernel" else 2e-4)
+
+
+FRAMED = {
+    "small": (dict(sample_rate=16000, n_fft=256, hop_length=64, n_mels=16), 16000),
+    "1024/1024": (dict(n_fft=1024, hop_length=1024), 2 * 44100),
+    "4096/1024": (dict(n_fft=4096, hop_length=1024), 2 * 44100),
+}
+
+
+@pytest.mark.parametrize("case,center,log_floor", [
+    ("small", True, None), ("small", True, 1e-10), ("small", False, None),
+    ("small", False, 1e-10), ("1024/1024", True, None), ("1024/1024", False, 1e-10),
+    ("4096/1024", True, None), ("4096/1024", False, 1e-10),
+])
+def test_framed_dif_plain_matches_jax_kernel(case, center, log_floor):
+    """hop != n_fft / 2: the framed DIF route (stride hop on the padded
+    waveform) against the JAX `_kernel_dif` run interpreted, on a signal
+    with a silent stretch (-inf rows without a floor)."""
+    kw, n = FRAMED[case]
+    sr = kw.get("sample_rate", 44100)
+    y = _tone_mix(np.random.default_rng(8), n, sr=sr)
+    y[sr // 4 : sr // 4 + sr // 2] = 0.0
+    kw = dict(kw, center=center, log_floor=log_floor)
+    assert route(n, FrontendConfig(**kw)) == "framed"
+    want = np.asarray(jax.jit(lambda w: jax_fused_log_mel(w, JaxFrontendConfig(**kw)))(
+        jnp.asarray(y)))
+    got = fused_log_mel_plain(torch.from_numpy(y), FrontendConfig(**kw))
+    if log_floor is None:
+        assert np.isneginf(want).any()
+    _assert_log_close(got.numpy(), want, 5e-4)
+
+
+@pytest.mark.parametrize("n_fft,hop,mode", [(1024, 1024, "dif"), (2048, 1024, "dif"),
+                                            (2048, 1024, "exact"), (1034, 517, "dif")])
+def test_frames_plain_matches_jax_frames(n_fft, hop, mode):
+    """The frame-matrix entry (stride n_fft) against JAX
+    `fused_log_mel_frames` on the same frames; 1034 falls back to exact."""
+    y = _tone_mix(np.random.default_rng(9), 30000)
+    frames = np.array(jax_stft.frame_signal(jnp.asarray(y), n_fft, hop))
+    jax_mode = "bf16x3" if mode == "dif" else mode
+    want = np.asarray(jax_fused_frames(jnp.asarray(frames), JaxFrontendConfig(n_fft=n_fft),
+                                       jax_mode))
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop)
+    got = fused_log_mel_frames(torch.from_numpy(frames), cfg, mode)
+    assert torch.equal(got, fused_log_mel_frames_plain(torch.from_numpy(frames), cfg, mode))
+    direct = mode == "exact" or n_fft % 4
+    _assert_log_close(got.numpy(), want, 2e-4 if direct else 5e-4)
+
+
+@pytest.mark.parametrize("n", [44100, 44100 * 2 + 777, 2048])
+def test_chunked_route_equals_frame_matrix_route(n):
+    """Stride M on the waveform and stride n_fft on the materialized frames
+    read the same samples: bit for bit equal on the CPU."""
+    cfg = FrontendConfig()
+    y = torch.from_numpy(np.random.default_rng(11).standard_normal(n).astype(np.float32) * 0.3)
+    assert route(n, cfg) == "chunked"
+    frames = stft.frame_signal(y, cfg.n_fft, cfg.hop_length, center=cfg.center)
+    assert torch.equal(fused_log_mel(y, cfg), fused_log_mel_frames(frames, cfg))
+
+
+@pytest.mark.parametrize("kw,mode", [(dict(), "exact"), (dict(n_fft=1034, hop_length=517), "dif")])
+def test_exact_plain_matches_jax_kernel(kw, mode):
+    """mode "exact" at n_fft 2048, and the n_fft % 4 fallback at 1034/517
+    (the JAX test's shape), against JAX `_kernel_exact` run interpreted."""
+    y = _tone_mix(np.random.default_rng(12), 44100)
+    cfg = FrontendConfig(log_floor=1e-10, **kw)
+    assert route(len(y), cfg, mode) == "exact"
+    jax_mode = "bf16x3" if mode == "dif" else mode
+    want = np.asarray(jax.jit(lambda w: jax_fused_log_mel(
+        w, JaxFrontendConfig(log_floor=1e-10, **kw), jax_mode))(jnp.asarray(y)))
+    got = fused_log_mel_plain(torch.from_numpy(y), cfg, mode)
+    _assert_log_close(got.numpy(), want, 2e-4)

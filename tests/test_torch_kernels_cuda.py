@@ -20,7 +20,14 @@ import pytest
 import torch
 
 from sed_crnn_torch.core.config import FrontendConfig
-from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel, fused_log_mel_plain
+from sed_crnn_torch.ops.kernels.fused_logmel import (
+    fused_log_mel,
+    fused_log_mel_frames,
+    fused_log_mel_frames_plain,
+    fused_log_mel_plain,
+    route,
+)
+from sed_crnn_torch.ops.stft import frame_signal
 from sed_crnn_torch.ops.kernels.gru_scan import (
     gru_scan,
     gru_scan_bwd,
@@ -178,3 +185,65 @@ def test_logmel_kernel_matches_plain(cuda, cfg, log_floor):
     if log_floor is None:
         assert not bool(fin.all())
     torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=5e-4)
+
+
+def _counts():
+    return (fused_log_mel.launches, fused_log_mel.framed_launches, fused_log_mel.exact_launches)
+
+
+def _assert_logmel_close(got, want):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[~fin], want[~fin])
+    torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("n_fft,hop,mode", [
+    (1024, 1024, "dif"), (4096, 1024, "dif"), (2048, 512, "dif"), (2048, 1024, "exact"),
+    (1034, 517, "dif"), (4096, 1024, "exact"),
+])
+@pytest.mark.parametrize("center,n", [(True, 3 * 44100 + 777), (False, 3 * 44100 + 777),
+                                      (True, 1500)])
+@pytest.mark.parametrize("log_floor", [None, 1e-10])
+def test_framed_and_exact_kernels_match_plain(cuda, n_fft, hop, mode, center, n, log_floor):
+    """The framed DIF route (stride hop on the padded waveform) and the
+    direct route against their plain versions: ragged lengths, a silent
+    stretch, short signals (centred), each launch counted on its route."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center, log_floor=log_floor)
+    y = torch.from_numpy(_signal(n, 44100, 2, silent=(44100 // 2, 44100) if n > 44100 else None))
+    y = y.to(cuda)
+    r = route(n, cfg, mode)
+    before = _counts()
+    got = fused_log_mel(y, cfg, mode)
+    torch.cuda.synchronize()
+    want = fused_log_mel_plain(y, cfg, mode)
+    after = list(before)
+    after[("chunked", "framed", "exact").index(r)] += 1
+    assert _counts() == tuple(after)
+    assert got.shape[0] == 1 + (n + (n_fft if center else 0) - n_fft) // hop
+    _assert_logmel_close(got, want)
+
+
+@pytest.mark.parametrize("n_fft,hop,mode", [(2048, 1024, "dif"), (1024, 1024, "dif"),
+                                            (4096, 1024, "dif"), (2048, 1024, "exact"),
+                                            (1034, 517, "dif")])
+def test_frame_matrix_kernel_matches_plain(cuda, n_fft, hop, mode):
+    """Stride n_fft on a materialized frame matrix; for hop == n_fft / 2 it
+    equals the chunked route (stride M on the waveform) bit for bit."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
+    y = torch.from_numpy(_signal(2 * 44100 + 123, 44100, 3)).to(cuda)
+    frames = frame_signal(y, n_fft, hop, center=True).contiguous()
+    got = fused_log_mel_frames(frames, cfg, mode)
+    torch.cuda.synchronize()
+    _assert_logmel_close(got, fused_log_mel_frames_plain(frames, cfg, mode))
+    if route(y.shape[0], cfg, mode) == "chunked":
+        assert torch.equal(got, fused_log_mel(y, cfg, mode))
+
+
+def test_logmel_kernel_rejects_bad_inputs(cuda):
+    with pytest.raises(TypeError):
+        fused_log_mel(torch.zeros(8192, device=cuda, dtype=torch.float64), FrontendConfig())
+    with pytest.raises(ValueError):
+        fused_log_mel(torch.zeros(100, device=cuda), FrontendConfig(center=False))
+    with pytest.raises(ValueError):
+        fused_log_mel_frames(torch.zeros(4, 2048, device=cuda), FrontendConfig(), "bf16x3")
