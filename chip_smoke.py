@@ -10,10 +10,16 @@ exits non-zero and prints no result line:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from ``sed_crnn_torch/csrc/*.cu`` (one nvcc
    per source, in parallel) into ``build/sed_crnn_torch/``;
-3. kernel A (fused log-mel) against its plain PyTorch version on the card:
+3. kernel A (fused log-mel; at a power-of-two n_fft the FFT body of
+   ``csrc/logmel_fft.cu``) against its DIF plain PyTorch version on the card:
    a 30 s bucket, a 240 s signal, a ragged length and an all-silence input,
    with and without a log floor; log-domain atol 5e-4 at finite entries and
-   an identical -inf pattern;
+   an identical -inf pattern; max|diff| against the FFT body's own plain
+   version, two runs bitwise equal; times (warm and cold L2) at the main
+   path's shape beside the plain versions, ``torch.stft`` + mel, the bound
+   and the retained dft body's time (its output held against the DIF plain
+   version first), each also as torch.profiler device-busy time beside the
+   host's issue time, and the 240 s frontend rate;
 4. kernel B (GRU recurrence) against its plain version: T=256, H=32,
    B in {1, 8, 128}, both conventions, both gates, both directions, non-zero
    h0; atol 1e-5;
@@ -23,7 +29,8 @@ exits non-zero and prints no result line:
    composition with the ``"kernel"`` frontend, on the card and on the CPU
    (plain versions); logits within 1e-3, probabilities within 1e-3, events
    equal, and both kernels' launch counts read around this phase alone
-   (kernel A once per kernel-frontend ``extract``, kernel B 4x per chunk);
+   (kernel A once per kernel-frontend ``extract``, on the chunked route and
+   never on the dft body; kernel B 4x per chunk);
 6. throughput in ``bench.py``'s units (audio-seconds per second) and a
    torch.profiler breakdown of streaming;
 7. kernel B train (the residual forward and the backward with its
@@ -44,25 +51,33 @@ exits non-zero and prints no result line:
    sweep step);
 10. training throughput: train-step time at batch 128, the training rate in
     audio-seconds per second, and a torch.profiler breakdown of one step.
-11. kernel A's framed DIF route (the TPU `_kernel_dif`: n_fft 1024 and 4096
-    at hop 1024, and a frame-matrix input) and its direct route (the TPU
-    `_kernel_exact`: mode "exact" at n_fft 2048, the n_fft 1034 / hop 517
-    fallback) against their plain versions on the signals of phase 3 and a
-    1,500-sample one, with and without a floor (-inf pattern equal, 5e-4 at
-    finite entries); their times at the binmul path's shapes (warm and cold
-    L2) beside the plain versions, ``torch.stft`` + mel and the bounds; the
-    direct route driven once through ``frontend.extract`` at n_fft 1034;
+11. kernel A's framed route (the TPU `_kernel_dif`: n_fft 1024 and 4096
+    at hop 1024, and a frame-matrix input) and its exact route (the TPU
+    `_kernel_exact`: mode "exact" at n_fft 2048 on the FFT body, the n_fft
+    1034 / hop 517 fallback on the dft body; the dft body's DIF
+    formulation at n_fft 3072) against their DIF / direct plain versions on
+    the signals of phase 3 and a 1,500-sample one, with and without a floor
+    (-inf pattern equal, 5e-4 at finite entries), the FFT body also against
+    its own plain version and twice, bitwise; their times at the binmul
+    path's shapes (warm and cold L2) beside the dft body's at the same
+    shapes (its output held against the same plain version first), the
+    plain versions, ``torch.stft`` + mel and the bounds, and as
+    torch.profiler device-busy time beside the host's issue time; the
+    exact route driven once by ``fused_log_mel(mode="exact")`` at n_fft
+    2048 and the dft body once through ``frontend.extract`` at n_fft 1034;
 12. the feature path: a synthetic DCASE 2017 street layout (12 binaural
     120 s wavs at 44.1 kHz and one 20 s wav at 48 kHz, folds 1 and 2) through
     ``apps.feature.main --binmul --backend kernel --device cuda``: exactly 2
     chunked and 4 framed launches per file, a cached rerun that launches
-    nothing, per-file features within 5e-4 of ``--backend fft`` on the card,
+    nothing and no launch lands on the dft body, per-file features within
+    5e-4 of ``--backend fft`` on the card,
     the packs' shapes and standardized means; the feature rate (host clock),
     a profile and the host's parts of one file;
 13. ``apps.train.main --preset sednet-dcase-binmul`` on those packs at full
     width (in_channels 6, batch 128), 2 epochs: finite losses, exact GRU
-    kernel launch counts, a best checkpoint that loads back and gives the
-    same logits on the card and the CPU.
+    kernel launch counts (and no log-mel launch, as in phases 8 and 9), a
+    best checkpoint that loads back and gives the same logits on the card
+    and the CPU.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -224,11 +239,30 @@ def phase_build():
           f"into {_build.BUILD_DIR}")
 
 
+def _check_fft_body(tag: str, got, again, fft_plain) -> float:
+    """Two runs of the FFT body bitwise equal, and their max|diff| against
+    `fft_log_mel_plain` (the same float32 operations; only the log differs)
+    at finite entries, with the same -inf pattern."""
+    import torch
+
+    check(torch.equal(got, again), f"{tag}: two runs of the kernel differ")
+    fin = torch.isfinite(fft_plain)
+    check(torch.equal(torch.isfinite(got), fin), f"{tag}: -inf pattern vs the fft plain version")
+    err = float((got[fin] - fft_plain[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(err <= LOGMEL_ATOL, f"{tag}: {err} from the fft plain version")
+    return err
+
+
 def phase_logmel(main_signal: np.ndarray):
     import torch
 
     from sed_crnn_torch.core.config import FrontendConfig
-    from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel, fused_log_mel_plain
+    from sed_crnn_torch.ops.kernels.fused_logmel import (
+        _launch_dft,
+        fft_log_mel_plain,
+        fused_log_mel,
+        fused_log_mel_plain,
+    )
     from sed_crnn_torch.ops.mel import mel_filterbank
 
     dev = torch.device("cuda")
@@ -240,12 +274,13 @@ def phase_logmel(main_signal: np.ndarray):
         ("ragged", tones(123457 / SR, 3), True),
         ("silence", np.zeros(5 * SR, np.float32), True),
     ]
-    worst = 0.0
+    worst, worst_fft = 0.0, 0.0
     for name, y, center in cases:
         for floor in (None, 1e-10):
             cfg = dataclasses.replace(base, center=center, log_floor=floor)
             yt = torch.from_numpy(y).to(dev)
             got = fused_log_mel(yt, cfg)
+            again = fused_log_mel(yt, cfg)
             want = fused_log_mel_plain(yt, cfg)
             torch.cuda.synchronize()
             fin = torch.isfinite(want)
@@ -255,15 +290,17 @@ def phase_logmel(main_signal: np.ndarray):
             if name == "silence" and floor is None:
                 check(not bool(fin.any()), "silence without a floor must be all -inf")
             check(err <= LOGMEL_ATOL, f"log-mel {name} floor={floor}: {err} > {LOGMEL_ATOL}")
-            worst = max(worst, err)
+            err_fft = _check_fft_body(f"log-mel {name} floor={floor}", got, again,
+                                      fft_log_mel_plain(yt, cfg))
+            worst, worst_fft = max(worst, err), max(worst_fft, err_fft)
             print(f"[kernel A] {name:10s} floor={floor}: shape {tuple(got.shape)} "
-                  f"max|diff| at finite {err:.3g}")
+                  f"max|diff| at finite {err:.3g} (fft plain {err_fft:.3g}), "
+                  f"two runs bitwise equal")
 
     # Times at the main path's shape: the 120 s file's bucket-padded signal.
     cfg = dataclasses.replace(base, center=False, log_floor=1e-10)
     yt = torch.from_numpy(main_signal).to(dev)
     n_frames = 1 + (len(main_signal) - cfg.n_fft) // cfg.hop_length
-    M = cfg.hop_length
     fb = torch.from_numpy(mel_filterbank(SR, cfg.n_fft, cfg.n_mels)).to(dev)
     window = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
 
@@ -272,39 +309,37 @@ def phase_logmel(main_signal: np.ndarray):
                           return_complex=True)
         return torch.log(torch.clamp_min(fb @ spec.abs().square(), 1e-10))
 
-    ms = cuda_ms(lambda: fused_log_mel(yt, cfg))
-    plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg))
+    kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
+    dft = lambda: _launch_dft(yt, cfg.hop_length, n_frames, cfg.n_fft, cfg, False)  # noqa: E731
+    dft_err = _check_logmel("log-mel dft body (DIF) at the main-path shape", dft(),
+                            fused_log_mel_plain(yt, cfg))
+    ms = cuda_ms(kernel)
+    cold = cuda_ms_cold(kernel)
+    fft_plain = cuda_ms(lambda: fft_log_mel_plain(yt, cfg), reps=5)
+    plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg), reps=5)
     lib_ms = cuda_ms(library)
-    # The bound is the function's least work: a real FFT of n_fft points
-    # (2.5 N log2 N), the power and the mel product per frame; the waveform
-    # read once and the log-mels written once.
-    n_bins = cfg.n_fft // 2 + 1
-    flops = n_frames * (2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3 * n_bins
-                        + 2 * n_bins * cfg.n_mels + cfg.n_mels)
-    nbytes = 4 * (len(main_signal) + n_frames * cfg.n_mels)
-    bnd, by = bound_ms(nbytes, flops)
-    # The DIF formulation's own work (two real DFTs of M points as GEMMs, the
-    # power and two mel GEMMs per frame; bases read once), for reference only.
-    dif_flops = n_frames * (2 * M * 2 * (M + 1) + 3 * (M + 1) + 2 * (M + 1) * cfg.n_mels)
-    dif_bytes = 4 * ((n_frames + 1) * M + 2 * M + 2 * M * (M + 1)
-                     + (M + 1) * cfg.n_mels + n_frames * cfg.n_mels)
-    dif_bnd, dif_by = bound_ms(dif_bytes, dif_flops)
+    dft_ms = cuda_ms(dft)
+    bnd, by, flops, nbytes = logmel_bound(len(main_signal), n_frames, cfg)
     audio_s = len(main_signal) / SR
-    print(f"[kernel A] main-path shape: {n_frames} frames ({audio_s:.1f} s padded): "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.stft+mel {lib_ms:.4f} ms; "
-          f"bound {bnd:.4f} ms ({by}, rFFT+power+mel {flops / 1e9:.3f} GFLOP, "
-          f"{nbytes / 1e6:.2f} MB); DIF-formulation bound {dif_bnd:.4f} ms ({dif_by}, "
-          f"{dif_flops / 1e9:.2f} GFLOP, kernel at {dif_flops / ms / 1e9:.1f} TFLOP/s)")
+    print(f"[kernel A] main-path shape (chunked, n_fft 2048 hop 1024): {n_frames} frames "
+          f"({audio_s:.1f} s padded): kernel {ms:.4f} ms warm L2, {cold:.4f} ms cold L2, "
+          f"plain (DIF) {plain:.4f} ms, torch.stft+mel {lib_ms:.4f} ms; bound {bnd:.4f} ms "
+          f"({by}, rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+          f"kernel at {bnd / ms:.3f} of its bound; the dft body at this shape {dft_ms:.4f} ms "
+          f"(vs the DIF plain version {dft_err:.3g}); the fft body's plain emulation "
+          f"{fft_plain:.4f} ms")
+    print(f"[kernel A] main-path shape, {split_line(bnd, kernel=kernel, library=library, dft=dft)}")
     y240 = torch.from_numpy(tones(240.0, 4)).to(dev)
     cfg240 = dataclasses.replace(base, log_floor=1e-10)
     ms240 = cuda_ms(lambda: fused_log_mel(y240, cfg240))
-    print(f"[kernel A] 240 s centered: kernel {ms240:.4f} ms -> "
+    cold240 = cuda_ms_cold(lambda: fused_log_mel(y240, cfg240))
+    print(f"[kernel A] 240 s centered: kernel {ms240:.4f} ms warm L2 ({cold240:.4f} ms cold) -> "
           f"{240.0 / (ms240 / 1e3):,.0f} audio-sec/sec")
     return {"name": "fused_logmel", "route": "cuda",
-            "source": "sed_crnn_torch/csrc/fused_logmel.cu",
+            "source": "sed_crnn_torch/csrc/logmel_fft.cu",
             "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:173",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "library_ms": lib_ms}
+            "bound_by": by, "library_ms": lib_ms}, dft_err
 
 
 def phase_gru():
@@ -392,21 +427,22 @@ def phase_main(workdir: str, pcm: np.ndarray):
         probs = stream_probabilities(model, mel)
         return probs, events_from_labels(probs, SR, out_hop, 0.5), model, mel
 
-    fused_log_mel.launches = 0
+    _reset_logmel_counts()
     gru_scan.launches = 0
     t0 = time.perf_counter()
     probs_i, events_i, _ = infer_file(wav, ckpt, preset, stats, device="cuda")
     probs_c, events_c, model_c, mel_c = composition("cuda")
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
+    logmel = _logmel_counts()
     launches = {"fused_logmel": fused_log_mel.launches, "gru_scan_fwd": gru_scan.launches}
 
     n_frames = mel_c.shape[0]
     n_chunks = -(-n_frames // cfg.model.seq_len_in)
     streams = 2
     kernel_extracts = 1   # the composition's extract; infer_file's preset frontend is fft
-    check(launches["fused_logmel"] == kernel_extracts,
-          f"kernel A launches {launches['fused_logmel']} != {kernel_extracts} extract call")
+    check(logmel == {"chunked": kernel_extracts, "framed": 0, "exact": 0, "dft": 0},
+          f"kernel A launches {logmel} != {kernel_extracts} chunked extract call, no dft body")
     check(launches["gru_scan_fwd"] == streams * 4 * n_chunks,
           f"kernel B launches {launches['gru_scan_fwd']} != 4 x {n_chunks} chunks x {streams}")
 
@@ -673,9 +709,11 @@ def phase_train_step():
         return float(loss), checkpoint_tree(trainer, st)
 
     _reset_gru_counts()
+    _reset_logmel_counts()
     loss_g, tree_g = step("cuda")
     torch.cuda.synchronize()
     launches = _gru_counts()
+    check(not any(_logmel_counts().values()), f"train step log-mel launches {_logmel_counts()}")
     want = {"gru_scan_fwd": 0, "gru_scan_fwd_res": 4, "gru_scan_bwd": 4,
             "gru_scan_sum_partials": 4}
     check(launches == want, f"train step launches {launches} != {want}")
@@ -756,11 +794,13 @@ def phase_train(workdir: str):
     art = os.path.join(workdir, "fold1")
 
     _reset_gru_counts()
+    _reset_logmel_counts()
     t0 = time.perf_counter()
     res = run_fold(cfg, fold, 1, art, device="cuda", verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _gru_counts()
+    check(not any(_logmel_counts().values()), f"run_fold log-mel launches {_logmel_counts()}")
     want = {"gru_scan_fwd": 4 * n_sweep * epochs, "gru_scan_fwd_res": 4 * n_train * epochs,
             "gru_scan_bwd": 4 * n_train * epochs, "gru_scan_sum_partials": 4 * n_train * epochs}
     check(launches == want, f"run_fold launches {launches} != {want}")
@@ -885,38 +925,72 @@ def cuda_ms_cold(fn, reps: int = 10) -> float:
     return total / reps
 
 
-def logmel_bound(n_samples: int, n_frames: int, n_fft: int, n_mels: int):
-    """The least work of log-mel, as [kernel A] counts it: a real FFT of
-    n_fft points (2.5 N log2 N), the power and the mel product per frame;
-    the waveform read once and the log-mels written once."""
-    n_bins = n_fft // 2 + 1
-    flops = n_frames * (2.5 * n_fft * np.log2(n_fft) + 3 * n_bins + 2 * n_bins * n_mels + n_mels)
-    nbytes = 4 * (n_samples + n_frames * n_mels)
+def device_host_ms(fn, reps: int = 20):
+    """(device-busy ms, host ms) per call: the self device time of all that
+    ``fn`` launches, summed by torch.profiler over ``reps`` calls (None where
+    it records none), and the host's time to issue one call, by the host
+    clock around ``reps`` calls that are not waited for. CUDA events around
+    back-to-back calls (`cuda_ms`) read the larger of the two."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (busy_us / reps / 1e3 if busy_us > 0 else None), host
+
+
+def split_line(bnd: float, **fns) -> str:
+    """`device_host_ms` of each named function, the kernel's device time
+    against its bound."""
+    parts = []
+    for name, fn in fns.items():
+        dev, host = device_host_ms(fn)
+        if dev is None:
+            parts.append(f"{name} device not measured, host {host:.4f} ms")
+            continue
+        share = f" ({bnd / dev:.3f} of its bound)" if name == "kernel" else ""
+        parts.append(f"{name} device {dev:.4f} ms{share}, host {host:.4f} ms")
+    return "torch.profiler device-busy time and host issue time per call: " + "; ".join(parts)
+
+
+def logmel_bound(n_samples: int, n_frames: int, cfg):
+    """The least work of log-mel: per frame a real FFT of n_fft points
+    (2.5 N log2 N), the power and the mel product over the filterbank's
+    nonzero weights only (2 nnz), the log; the waveform read once and the
+    log-mels written once. Returns (ms, what bounds it, flops, bytes)."""
+    from sed_crnn_torch.ops.kernels.fused_logmel import mel_csr
+
+    nnz = len(mel_csr(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)[2])
+    n_bins = cfg.n_fft // 2 + 1
+    flops = n_frames * (2.5 * cfg.n_fft * np.log2(cfg.n_fft) + 3 * n_bins + 2 * nnz + cfg.n_mels)
+    nbytes = 4 * (n_samples + n_frames * cfg.n_mels)
     return bound_ms(nbytes, flops) + (flops, nbytes)
 
 
-def formulation_bound(n_samples: int, n_frames: int, n_fft: int, n_mels: int, direct: bool):
-    """The kernel's own formulation's work, for reference: DIF, two real
-    DFTs of M = n_fft/2 points as products (M + 1 bins); direct, one of n_fft
-    points (n_fft/2 + 1 bins); then the power and the mel product. The bases
-    read once."""
-    k, bins = (n_fft, n_fft // 2 + 1) if direct else (n_fft // 2, n_fft // 2 + 1)
-    flops = n_frames * (2 * k * 2 * bins + 3 * bins + 2 * bins * n_mels)
-    nbytes = 4 * (n_samples + 2 * k * bins + bins * n_mels + n_frames * n_mels)
-    return bound_ms(nbytes, flops) + (flops,)
-
-
 def _logmel_counts():
+    """Launches per route, and of the dft body among them."""
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
 
     return {"chunked": fused_log_mel.launches, "framed": fused_log_mel.framed_launches,
-            "exact": fused_log_mel.exact_launches}
+            "exact": fused_log_mel.exact_launches, "dft": fused_log_mel.dft_launches}
 
 
 def _reset_logmel_counts():
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
 
     fused_log_mel.launches = fused_log_mel.framed_launches = fused_log_mel.exact_launches = 0
+    fused_log_mel.dft_launches = 0
 
 
 def _check_logmel(tag: str, got, want) -> float:
@@ -931,16 +1005,25 @@ def _check_logmel(tag: str, got, want) -> float:
     return err
 
 
-def phase_logmel_routes(pcm: np.ndarray):
-    """Kernel A's framed DIF route (the TPU `_kernel_dif`) and direct route
-    (`_kernel_exact`) against their plain versions on the card, their times
-    at the binmul path's shapes, and the direct route driven once through
-    `frontend.extract` at an n_fft that is not a multiple of 4."""
+def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
+    """Kernel A's framed route (the TPU `_kernel_dif`) and exact route
+    (`_kernel_exact`), each by the body its n_fft takes, against the DIF /
+    direct plain version on the card (and the FFT body against its own plain
+    version, two runs bitwise equal; the dft body's DIF formulation at n_fft
+    3072); their times at the binmul path's shapes beside the retained dft
+    body's (its output held against the same plain version first), the
+    plain versions, `torch.stft` + mel and the bounds; the exact route
+    driven once at n_fft 2048 and the dft body once through
+    `frontend.extract` at n_fft 1034. ``dft_err`` is the dft body's error
+    from `phase_logmel`."""
     import torch
 
     from sed_crnn_torch.core.config import FrontendConfig
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import (
+        _launch_dft,
+        body,
+        fft_log_mel_plain,
         fused_log_mel,
         fused_log_mel_frames,
         fused_log_mel_frames_plain,
@@ -959,12 +1042,13 @@ def phase_logmel_routes(pcm: np.ndarray):
         ("silence", np.zeros(5 * SR, np.float32), True),
         ("short", tones(1500 / SR, 4), True),
     ]
-    confs = {"framed": [((1024, 1024), "dif"), ((4096, 1024), "dif")],
+    confs = {"framed": [((1024, 1024), "dif"), ((4096, 1024), "dif"), ((3072, 1024), "dif")],
              "exact": [((2048, 1024), "exact"), ((1034, 517), "dif")]}
-    worst = {"framed": 0.0, "exact": 0.0}
+    worst = {"framed": 0.0, "exact": 0.0, "dft": dft_err}
     for kind, cases in confs.items():
         for (n_fft, hop), mode in cases:
-            errs = []
+            errs, fft_errs = [], []
+            kb = body(n_fft)
             for name, y, center in signals:
                 yt = torch.from_numpy(y).to(dev)
                 for floor in (None, 1e-10):
@@ -975,6 +1059,9 @@ def phase_logmel_routes(pcm: np.ndarray):
                     want = fused_log_mel_plain(yt, cfg, mode)
                     tag = f"log-mel {kind} {n_fft}/{hop} {mode} {name} floor={floor}"
                     errs.append(_check_logmel(tag, got, want))
+                    if kb == "fft":
+                        fft_errs.append(_check_fft_body(tag, got, fused_log_mel(yt, cfg, mode),
+                                                        fft_log_mel_plain(yt, cfg)))
                     if name == "silence" and floor is None:
                         check(not bool(torch.isfinite(want).any()), f"{tag}: not all -inf")
             # The frame-matrix entry (stride n_fft) on the 240 s signal's frames.
@@ -984,10 +1071,15 @@ def phase_logmel_routes(pcm: np.ndarray):
             got = fused_log_mel_frames(frames, cfg, mode)
             want = fused_log_mel_frames_plain(frames, cfg, mode)
             errs.append(_check_logmel(f"log-mel frames {n_fft}/{hop} {mode}", got, want))
-            worst[kind] = max(worst[kind], max(errs))
-            print(f"[kernel A {kind}] n_fft {n_fft} hop {hop} mode {mode}: "
+            check(torch.equal(got, fused_log_mel_frames(frames, cfg, mode)),
+                  f"log-mel frames {n_fft}/{hop} {mode}: two runs differ")
+            slot = kind if kb == "fft" else "dft"
+            worst[slot] = max(worst[slot], max(errs))
+            fft_note = (f" (fft plain {max(fft_errs):.3g}), two runs bitwise equal"
+                        if fft_errs else "")
+            print(f"[kernel A {kind}] n_fft {n_fft} hop {hop} mode {mode}, {kb} body: "
                   f"{len(signals)} signals x 2 floors + a {tuple(frames.shape)} frame matrix, "
-                  f"max|diff| at finite {max(errs):.3g}, -inf patterns equal")
+                  f"max|diff| at finite {max(errs):.3g}{fft_note}, -inf patterns equal")
 
     def library(yt, cfg):
         fb = torch.from_numpy(mel_filterbank(SR, cfg.n_fft, cfg.n_mels)).to(dev)
@@ -998,55 +1090,98 @@ def phase_logmel_routes(pcm: np.ndarray):
 
     timed = {}
     for kind, n_fft, hop, mode in (("framed", 1024, 1024, "dif"), ("framed", 4096, 1024, "dif"),
-                                   ("exact", 2048, 1024, "exact")):
+                                   ("exact", 2048, 1024, "exact"), ("dft", 1034, 517, "dif")):
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
         y = bucket_signal(pcm, cfg)
         yt = torch.from_numpy(y).to(dev)
         n_frames = 1 + (len(y) - n_fft) // hop
-        check(route(len(y), cfg, mode) == kind, f"timed {kind} route")
-        err = _check_logmel(f"log-mel {kind} {n_fft}/{hop} {mode} binmul-path shape",
-                            fused_log_mel(yt, cfg, mode), fused_log_mel_plain(yt, cfg, mode))
+        kb = body(n_fft)
+        check(route(len(y), cfg, mode) == ("exact" if kind == "dft" else kind)
+              and (kb == "dft") == (kind == "dft"), f"timed {kind} route and body")
+        tag = f"log-mel {kind} {n_fft}/{hop} {mode} binmul-path shape"
+        want = fused_log_mel_plain(yt, cfg, mode)
+        got = fused_log_mel(yt, cfg, mode)
+        err = _check_logmel(tag, got, want)
         worst[kind] = max(worst[kind], err)
-        ms = cuda_ms(lambda: fused_log_mel(yt, cfg, mode))
-        cold = cuda_ms_cold(lambda: fused_log_mel(yt, cfg, mode))
+        kernel = lambda: fused_log_mel(yt, cfg, mode)  # noqa: E731
+        lib = library(yt, cfg)
+        ms = cuda_ms(kernel)
+        cold = cuda_ms_cold(kernel)
         plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg, mode), reps=5)
-        lib_ms = cuda_ms(library(yt, cfg))
-        bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, n_fft, cfg.n_mels)
-        f_bnd, f_by, f_flops = formulation_bound(len(y), n_frames, n_fft, cfg.n_mels,
-                                                 kind == "exact")
-        print(f"[kernel A {kind}] binmul-path shape n_fft {n_fft} hop {hop} mode {mode}: "
-              f"{n_frames} frames ({len(y) / SR:.1f} s padded), vs plain max|diff| at finite "
-              f"{err:.3g}, -inf patterns equal: kernel {ms:.4f} ms warm L2, "
-              f"{cold:.4f} ms cold L2, plain {plain:.4f} ms, torch.stft+mel {lib_ms:.4f} ms; "
-              f"bound {bnd:.4f} ms ({by}, rFFT+power+mel {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB); formulation bound {f_bnd:.4f} ms ({f_by}, "
-              f"{f_flops / 1e9:.2f} GFLOP, kernel at {f_flops / ms / 1e9:.1f} TFLOP/s)")
-        timed[(kind, n_fft)] = {"ms": ms, "cold_ms": cold, "plain_ms": plain, "bound_ms": bnd,
-                                "bound_by": by, "library_ms": lib_ms}
+        lib_ms = cuda_ms(lib)
+        bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
+        direct = route(len(y), cfg, mode) == "exact"
+        line = (f"[kernel A {kind}] binmul-path shape n_fft {n_fft} hop {hop} mode {mode}, "
+                f"{kb} body: {n_frames} frames ({len(y) / SR:.1f} s padded), vs plain max|diff| "
+                f"at finite {err:.3g}, -inf patterns equal: kernel {ms:.4f} ms warm L2, "
+                f"{cold:.4f} ms cold L2; plain ({'direct' if direct else 'DIF'}) {plain:.4f} ms")
+        splits = {"kernel": kernel, "library": lib}
+        if kb == "fft":
+            err_fft = _check_fft_body(tag, got, fused_log_mel(yt, cfg, mode),
+                                      fft_log_mel_plain(yt, cfg))
+            fft_plain = cuda_ms(lambda: fft_log_mel_plain(yt, cfg), reps=5)
+            dft = lambda: _launch_dft(yt, hop, n_frames, n_fft, cfg, direct)  # noqa: E731
+            err_dft = _check_logmel(f"{tag}, dft body", dft(), want)
+            worst["dft"] = max(worst["dft"], err_dft)
+            dft_ms = cuda_ms(dft)
+            dft_cold = cuda_ms_cold(dft)
+            splits["dft"] = dft
+            line += (f"; vs the fft plain version {err_fft:.3g}, two runs bitwise equal; the "
+                     f"dft body at this shape {dft_ms:.4f} ms warm, {dft_cold:.4f} ms cold (vs "
+                     f"the same plain version {err_dft:.3g}); the fft body's plain emulation "
+                     f"{fft_plain:.4f} ms")
+        print(f"{line}; torch.stft+mel {lib_ms:.4f} ms; bound {bnd:.4f} ms ({by}, rFFT+power+"
+              f"sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at "
+              f"{bnd / ms:.3f} of its bound")
+        print(f"[kernel A {kind}] n_fft {n_fft} hop {hop}, {split_line(bnd, **splits)}")
+        timed[(kind, n_fft)] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                                "library_ms": lib_ms}
 
-    # The direct route's main path: `frontend.extract` of the 120 s file at
-    # n_fft 1034 (not a multiple of 4), against the fft backend.
+    # The exact route on the FFT body: mode "exact" at n_fft 2048 on the
+    # 120 s file, against the direct plain version.
+    cfg = FrontendConfig(log_floor=1e-10)
+    y120 = torch.from_numpy(pcm).to(dev)
+    _reset_logmel_counts()
+    got = fused_log_mel(y120, cfg, "exact")
+    torch.cuda.synchronize()
+    exact_launches = _logmel_counts()
+    check(exact_launches == {"chunked": 0, "framed": 0, "exact": 1, "dft": 0},
+          f"mode exact at n_fft 2048 launches {exact_launches}")
+    err = _check_logmel("exact route n_fft 2048 on the 120 s file", got,
+                        fused_log_mel_plain(y120, cfg, "exact"))
+    print(f"[kernel A exact] fused_log_mel(mode='exact') of the {len(pcm) / SR:.0f} s file at "
+          f"n_fft 2048: {tuple(got.shape)}, launches {exact_launches}, vs the direct plain "
+          f"version max|diff| {err:.3g}")
+
+    # The dft body's main path: `frontend.extract` of the 120 s file at
+    # n_fft 1034 (neither a power of two nor a multiple of 4), against the
+    # fft backend.
     cfg = FrontendConfig(n_fft=1034, hop_length=517, backend="kernel")
     _reset_logmel_counts()
     got = frontend.extract(pcm, cfg, device=dev)
     torch.cuda.synchronize()
-    exact_launches = _logmel_counts()
-    check(exact_launches == {"chunked": 0, "framed": 0, "exact": 1},
-          f"extract at n_fft 1034 launches {exact_launches}")
+    dft_launches = _logmel_counts()
+    check(dft_launches == {"chunked": 0, "framed": 0, "exact": 1, "dft": 1},
+          f"extract at n_fft 1034 launches {dft_launches}")
     want = frontend.extract(pcm, dataclasses.replace(cfg, backend="fft"), device=dev)
     err = _check_logmel("extract n_fft 1034 kernel vs fft", got, want)
-    print(f"[kernel A exact] main path: frontend.extract of the {len(pcm) / SR:.0f} s file at "
-          f"n_fft 1034 hop 517: {tuple(got.shape)}, launches {exact_launches}, "
+    print(f"[kernel A dft] main path: frontend.extract of the {len(pcm) / SR:.0f} s file at "
+          f"n_fft 1034 hop 517: {tuple(got.shape)}, launches {dft_launches}, "
           f"vs the fft backend max|diff| {err:.3g}")
-    common = {"route": "cuda", "source": "sed_crnn_torch/csrc/fused_logmel.cu"}
+    fft = {"route": "cuda", "source": "sed_crnn_torch/csrc/logmel_fft.cu"}
     return (
-        {"name": "fused_logmel_framed", **common,
+        {"name": "fused_logmel_framed", **fft,
          "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:162",
          "max_abs_err": worst["framed"], **timed[("framed", 4096)]},
-        {"name": "fused_logmel_exact", **common,
+        {"name": "fused_logmel_exact", **fft,
          "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:264",
          "max_abs_err": worst["exact"], "launches": exact_launches["exact"],
          **timed[("exact", 2048)]},
+        {"name": "fused_logmel_dft", "route": "cuda",
+         "source": "sed_crnn_torch/csrc/fused_logmel.cu",
+         "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:264",
+         "max_abs_err": worst["dft"], "launches": dft_launches["dft"],
+         **timed[("dft", 1034)]},
     )
 
 
@@ -1133,12 +1268,12 @@ def phase_feature(workdir: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _logmel_counts()
-    want = {"chunked": 2 * len(names), "framed": 4 * len(names), "exact": 0}
+    want = {"chunked": 2 * len(names), "framed": 4 * len(names), "exact": 0, "dft": 0}
     check(launches == want, f"feature launches {launches} != {want}")
     print(f"[feature] extract_dcase --binmul --backend kernel: {len(names)} files "
           f"({audio_s:.0f} s of binaural audio, 2 folds) in {wall:.2f} s host clock -> "
           f"{audio_s / wall:,.0f} audio-sec/sec; launches {launches} (per file 2 chunked "
-          f"at n_fft 2048, 4 framed at n_fft 1024 and 4096); {out[-1]}")
+          f"at n_fft 2048, 4 framed at n_fft 1024 and 4096, all on the fft body); {out[-1]}")
 
     per_file = sorted(f for f in os.listdir(cache) if f.endswith("_binmul.npz")
                       and not f.startswith("mbe_"))
@@ -1155,7 +1290,7 @@ def phase_feature(workdir: str):
     mtimes = {f: os.path.getmtime(os.path.join(cache, f)) for f in per_file}
     _reset_logmel_counts()
     _quiet(feature.main, args + ["--cache-dir", cache, "--backend", "kernel"])
-    check(_logmel_counts() == {"chunked": 0, "framed": 0, "exact": 0},
+    check(not any(_logmel_counts().values()),
           f"a cached rerun launched {_logmel_counts()}")
     check({f: os.path.getmtime(os.path.join(cache, f)) for f in per_file} == mtimes
           and len(open(log).read().splitlines()) == n_log == len(names),
@@ -1255,6 +1390,7 @@ def phase_feature_train(workdir: str, cache: str):
     n_train, n_sweep = tr.steps_per_epoch(cfg.train.batch_size), val.sweep_steps(cfg.train.batch_size)
     art = os.path.join(workdir, "art")
     _reset_gru_counts()
+    _reset_logmel_counts()
     t0 = time.perf_counter()
     out, lines = _quiet(train_app.main, [
         "--preset", "sednet-dcase-binmul", "--cache-dir", cache, "--channel-tag", "binmul",
@@ -1266,6 +1402,8 @@ def phase_feature_train(workdir: str, cache: str):
     want = {"gru_scan_fwd": 4 * n_sweep * epochs, "gru_scan_fwd_res": 4 * n_train * epochs,
             "gru_scan_bwd": 4 * n_train * epochs, "gru_scan_sum_partials": 4 * n_train * epochs}
     check(launches == want, f"binmul training launches {launches} != {want}")
+    check(not any(_logmel_counts().values()),
+          f"binmul training log-mel launches {_logmel_counts()}")
     res = out["folds"][0]
     check(res.epochs_run == epochs, f"ran {res.epochs_run} epochs")
     for k in ("loss_tr", "loss_val"):
@@ -1302,7 +1440,7 @@ def main() -> int:
     from sed_crnn_torch.core.config import FrontendConfig
 
     pcm = tones(120.0, 9, silent=[(50.0, 52.0)])
-    kernel_a = phase_logmel(bucket_signal(pcm, FrontendConfig()))
+    kernel_a, dft_err = phase_logmel(bucket_signal(pcm, FrontendConfig()))
     kernel_b = phase_gru()
     with tempfile.TemporaryDirectory() as workdir:
         launches, fe_kernel, model = phase_main(workdir, pcm)
@@ -1312,15 +1450,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, cfg, fold = phase_train(workdir)
     phase_train_throughput(cfg, fold)
-    kernel_framed, kernel_exact = phase_logmel_routes(pcm)
+    kernel_framed, kernel_exact, kernel_dft = phase_logmel_routes(pcm, dft_err)
     with tempfile.TemporaryDirectory() as workdir:
         feature_launches, cache, _ = phase_feature(workdir)
         phase_feature_train(workdir, cache)
     launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd")})
     launches["fused_logmel_framed"] = feature_launches["framed"]
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
+    launches["fused_logmel_dft"] = kernel_dft.pop("launches")
     kernels = []
-    for k in (kernel_a, kernel_framed, kernel_exact, kernel_b, kernel_fwd_res, kernel_bwd):
+    for k in (kernel_a, kernel_framed, kernel_exact, kernel_dft, kernel_b, kernel_fwd_res,
+              kernel_bwd):
         kernels.append({"name": k["name"], "route": k["route"], "source": k["source"],
                         "replaces": k["replaces"], "launches": launches[k["name"]],
                         **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",

@@ -10,7 +10,9 @@ Tolerances as in chip_smoke.py: 1e-5 absolute for the GRU recurrence
 and 1e-4 of each gradient's largest magnitude for its backward (a long
 gradient chain, and dwh/dbh summed over B*T terms in another order),
 5e-4 in the log domain for the fused log-mel at finite entries, with an
-identical -inf pattern.
+identical -inf pattern (against the DIF / direct plain version; 1e-5
+against `fft_log_mel_plain`, which repeats the FFT body's float32
+operations, so only ``logf`` against ``torch.log`` differs).
 """
 
 import dataclasses
@@ -21,6 +23,10 @@ import torch
 
 from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.ops.kernels.fused_logmel import (
+    _launch_dft,
+    _launch_fft,
+    body,
+    fft_log_mel_plain,
     fused_log_mel,
     fused_log_mel_frames,
     fused_log_mel_frames_plain,
@@ -174,10 +180,10 @@ def test_logmel_kernel_matches_plain(cuda, cfg, log_floor):
     cfg = dataclasses.replace(cfg, log_floor=log_floor)
     y = torch.from_numpy(_signal(3 * cfg.sample_rate + 777, cfg.sample_rate, 1,
                                  silent=(cfg.sample_rate, 2 * cfg.sample_rate))).to(cuda)
-    launches = fused_log_mel.launches
+    launches, dft = fused_log_mel.launches, fused_log_mel.dft_launches
     got = fused_log_mel(y, cfg)
     torch.cuda.synchronize()
-    assert fused_log_mel.launches == launches + 1
+    assert (fused_log_mel.launches, fused_log_mel.dft_launches) == (launches + 1, dft)
     want = fused_log_mel_plain(y, cfg)
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin)
@@ -188,7 +194,8 @@ def test_logmel_kernel_matches_plain(cuda, cfg, log_floor):
 
 
 def _counts():
-    return (fused_log_mel.launches, fused_log_mel.framed_launches, fused_log_mel.exact_launches)
+    return (fused_log_mel.launches, fused_log_mel.framed_launches, fused_log_mel.exact_launches,
+            fused_log_mel.dft_launches)
 
 
 def _assert_logmel_close(got, want):
@@ -200,7 +207,7 @@ def _assert_logmel_close(got, want):
 
 @pytest.mark.parametrize("n_fft,hop,mode", [
     (1024, 1024, "dif"), (4096, 1024, "dif"), (2048, 512, "dif"), (2048, 1024, "exact"),
-    (1034, 517, "dif"), (4096, 1024, "exact"),
+    (1034, 517, "dif"), (4096, 1024, "exact"), (1024, 441, "dif"),
 ])
 @pytest.mark.parametrize("center,n", [(True, 3 * 44100 + 777), (False, 3 * 44100 + 777),
                                       (True, 1500)])
@@ -208,7 +215,8 @@ def _assert_logmel_close(got, want):
 def test_framed_and_exact_kernels_match_plain(cuda, n_fft, hop, mode, center, n, log_floor):
     """The framed DIF route (stride hop on the padded waveform) and the
     direct route against their plain versions: ragged lengths, a silent
-    stretch, short signals (centred), each launch counted on its route."""
+    stretch, short signals (centred), an unaligned hop (scalar loads), each
+    launch counted on its route and, at n_fft 1034, on the dft body."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center, log_floor=log_floor)
     y = torch.from_numpy(_signal(n, 44100, 2, silent=(44100 // 2, 44100) if n > 44100 else None))
     y = y.to(cuda)
@@ -219,6 +227,7 @@ def test_framed_and_exact_kernels_match_plain(cuda, n_fft, hop, mode, center, n,
     want = fused_log_mel_plain(y, cfg, mode)
     after = list(before)
     after[("chunked", "framed", "exact").index(r)] += 1
+    after[3] += body(n_fft) == "dft"
     assert _counts() == tuple(after)
     assert got.shape[0] == 1 + (n + (n_fft if center else 0) - n_fft) // hop
     _assert_logmel_close(got, want)
@@ -238,6 +247,64 @@ def test_frame_matrix_kernel_matches_plain(cuda, n_fft, hop, mode):
     _assert_logmel_close(got, fused_log_mel_frames_plain(frames, cfg, mode))
     if route(y.shape[0], cfg, mode) == "chunked":
         assert torch.equal(got, fused_log_mel(y, cfg, mode))
+
+
+LOGMEL_SHAPES = [
+    (dict(sample_rate=16000, n_fft=256, hop_length=128, n_mels=16), True),
+    (dict(), True), (dict(), False), (dict(n_mels=128), True),
+    (dict(n_fft=1024, hop_length=1024), True), (dict(n_fft=4096, hop_length=1024), False),
+    (dict(n_fft=2048, hop_length=512), True), (dict(n_fft=1024, hop_length=441), True),
+    (dict(n_fft=1024, hop_length=441), False), (dict(n_fft=16384, hop_length=4096), True),
+]
+
+
+@pytest.mark.parametrize("kw,center", LOGMEL_SHAPES)
+@pytest.mark.parametrize("log_floor", [None, 1e-10])
+def test_fft_kernel_matches_fft_plain_and_is_deterministic(cuda, kw, center, log_floor):
+    """The FFT body against `fft_log_mel_plain` (the same float32
+    operations, only the log differs), bitwise equal across two runs, and
+    launched as the fft body."""
+    cfg = FrontendConfig(center=center, log_floor=log_floor, **kw)
+    sr = cfg.sample_rate
+    y = torch.from_numpy(_signal(3 * sr + 777, sr, 4, silent=(sr, 2 * sr))).to(cuda)
+    assert body(cfg.n_fft) == "fft"
+    before = _counts()
+    first = fused_log_mel(y, cfg)
+    second = fused_log_mel(y, cfg)
+    torch.cuda.synchronize()
+    assert _counts()[3] == before[3]
+    assert torch.equal(first, second)
+    _assert_logmel_close(first, fused_log_mel_plain(y, cfg))
+    want = fft_log_mel_plain(y, cfg)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(first), fin)
+    torch.testing.assert_close(first[fin], want[fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(32768, 8192), (1000, 500), (3072, 1024)])
+def test_other_sizes_launch_the_dft_body(cuda, n_fft, hop):
+    """Above 16384 or not a power of two: the dft body, counted, and within
+    its band of the plain version."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
+    y = torch.from_numpy(_signal(3 * 44100, 44100, 5)).to(cuda)
+    assert body(n_fft) == "dft"
+    before = _counts()
+    got = fused_log_mel(y, cfg)
+    torch.cuda.synchronize()
+    assert _counts()[3] == before[3] + 1
+    _assert_logmel_close(got, fused_log_mel_plain(y, cfg))
+
+
+def test_both_bodies_agree_at_a_power_of_two(cuda):
+    """The retained dft body, launched through its private launcher at a
+    size the fft body takes, computes the same function."""
+    cfg = FrontendConfig(n_fft=4096, hop_length=1024, center=False, log_floor=1e-10)
+    y = torch.from_numpy(_signal(3 * 44100, 44100, 6)).to(cuda)
+    n_frames = 1 + (y.shape[0] - 4096) // 1024
+    fft = _launch_fft(y, 1024, n_frames, 4096, cfg)
+    dft = _launch_dft(y, 1024, n_frames, 4096, cfg, False)
+    torch.cuda.synchronize()
+    _assert_logmel_close(fft, dft)
 
 
 def test_logmel_kernel_rejects_bad_inputs(cuda):
