@@ -20,9 +20,15 @@ exits non-zero and prints no result line:
    and the retained dft body's time (its output held against the DIF plain
    version first), each also as torch.profiler device-busy time beside the
    host's issue time, and the 240 s frontend rate;
-4. kernel B (GRU recurrence) against its plain version: T=256, H=32,
-   B in {1, 8, 128}, both conventions, both gates, both directions, non-zero
-   h0; atol 1e-5;
+4. kernel B's forward (the GRU recurrence; the warp body ``csrc/gru_warp.cu``
+   for H <= 32, the retained ``csrc/gru_scan.cu`` above) against its plain
+   version: T=256, H in {32, 16, 8} (warp) at B in {1, 8, 128} and H=64
+   (retained) at B in {1, 8}, both conventions, both gates, both directions,
+   non-zero h0, single directions and pair launches; atol 1e-5; at the
+   serving shape (B=1, H=32) the warp body's time beside the retained
+   body's, one pair launch beside two single ones, the plain version, and
+   ``torch.nn.GRU`` at reset_after=True (the one variant it computes),
+   with torch.profiler device time and the host's issue time per call;
 5. the main path at full width: ``sednet-dcase`` weights from a numpy seed
    in the JAX layout, written as a JAX-format checkpoint, and a 120 s 44.1 kHz
    wav with tone bursts, served by ``apps.infer.infer_file`` and by the same
@@ -30,25 +36,32 @@ exits non-zero and prints no result line:
    (plain versions); logits within 1e-3, probabilities within 1e-3, events
    equal, and both kernels' launch counts read around this phase alone
    (kernel A once per kernel-frontend ``extract``, on the chunked route and
-   never on the dft body; kernel B 4x per chunk);
+   never on the dft body; kernel B one pair launch per BiGRU layer per
+   chunk, all on the warp body) and no GRU plain version run on a CUDA
+   tensor;
 6. throughput in ``bench.py``'s units (audio-seconds per second) and a
    torch.profiler breakdown of streaming;
-7. kernel B train (the residual forward and the backward with its
-   fixed-order partial sum) against their plain versions: T=256, H=32,
-   B in {1, 8, 128}, both conventions, both gates, both directions, non-zero
-   h0, dys and dhl; ys/res atol 1e-5, gradients within 1e-4 of each one's
-   largest magnitude; dwh bitwise equal across two runs; times at B=128
-   beside cuDNN's GRU (reset_after=True, not the same function);
+7. kernel B train (the residual forward, the backward chain, the dwh
+   reduction and the fixed-order partial sum) against their plain versions
+   at the widths and batches of phase 4, single directions and pair
+   launches, non-zero h0, dys and dhl; ys/res atol 1e-5, gradients within
+   1e-4 of each one's largest magnitude, the reduction also against
+   ``gru_dwh_plain`` on the kernel's own dxp; the retained body driven once
+   through a BiGRU at H=64; dwh bitwise equal across two runs; times at
+   B=128 beside the retained body, two single launches, the plain versions,
+   a torch.profiler split of the backward by kernel, and ``torch.nn.GRU``
+   at reset_after=True, forward and backward at B=1 and B=128;
 8. one full-width ``sednet-dcase`` train step (batch 16, dropout 0, the
    serving phase's seeded weights) on the card against the CPU: loss, Adam's
    moments, BatchNorm statistics and updated parameters within their bands,
-   and exactly 4 residual forwards and 4 backwards launched;
+   and exactly one pair residual forward and one pair backward (chain,
+   dwh reduction, partial sum) launched per BiGRU layer;
 9. ``run_fold`` at the preset's full size on synthetic folds (2 epochs of
    2 steps at batch 128, full-split validation sweeps): finite losses,
    JAX-format best/last checkpoints that load back and serve the same
    validation scores on the card and the same logits as on the CPU, and
-   exact launch counts (4 + 4 GRU kernels per train step, 4 forwards per
-   sweep step);
+   exact launch counts (per BiGRU layer one pair of each GRU kernel per
+   train step, one pair forward per sweep step), none on the retained body;
 10. training throughput: train-step time at batch 128, the training rate in
     audio-seconds per second, and a torch.profiler breakdown of one step.
 11. kernel A's framed route (the TPU `_kernel_dif`: n_fft 1024 and 4096
@@ -85,6 +98,7 @@ object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -121,6 +135,13 @@ STEP_GRAD_RTOL = 1e-3
 STEP_BN_ATOL = 1e-5
 STEP_PARAM_ATOL = 1e-5
 TRAIN_BATCH = 128
+GRU_T = 256
+GRU_WIDTHS = (32, 16, 8)    # sednet's and timepooled-v1's H; timepooled-v2's two layers
+# `torch.nn.GRU` computes the reset_after=True sigmoid recurrence (cuDNN's
+# convention): its outputs against the plain version, float32 with sums in
+# another order and cuDNN's own exp/tanh.
+LIBRARY_ATOL = 1e-4
+LIBRARY_VARIANT = "reset_after=True, sigmoid"
 
 
 def check(ok: bool, what: str) -> None:
@@ -342,56 +363,139 @@ def phase_logmel(main_signal: np.ndarray):
             "bound_by": by, "library_ms": lib_ms}, dft_err
 
 
-def phase_gru():
+def _gru_inputs(rng, dev, B: int, H: int, train: bool = False):
+    """xp, wh, bh, h0 (and dys, dhl for ``train``) on the card, T=256."""
     import torch
 
-    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_plain
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    out = (t(rng.standard_normal((B, GRU_T, 3 * H))), t(0.3 * rng.standard_normal((H, 3 * H))),
+           t(0.1 * rng.standard_normal(3 * H)), t(0.5 * rng.standard_normal((B, H))))
+    if train:
+        out += (t(rng.standard_normal((B, GRU_T, H))), t(rng.standard_normal((B, H))))
+    return out
+
+
+def _pair_of(sets, i, reset_after=True):
+    """Argument i of both directions' operand sets, as a pair (None for bh
+    when not ``reset_after``)."""
+    return tuple(None if (i == 2 and not reset_after) else s[i] for s in sets)
+
+
+def _library_gru(wh, bh):
+    """`torch.nn.GRU` computing the ``reset_after=True`` sigmoid recurrence
+    of pre-projected inputs: weight_ih = I, bias_ih = 0, weight_hh = wh^T,
+    bias_hh = bh (gate order r, z, n in both)."""
+    import torch
+
+    H = wh.shape[0]
+    g = torch.nn.GRU(3 * H, H, batch_first=True).to(wh.device)
+    with torch.no_grad():
+        g.weight_ih_l0.copy_(torch.eye(3 * H, device=wh.device))
+        g.bias_ih_l0.zero_()
+        g.weight_hh_l0.copy_(wh.T)
+        g.bias_hh_l0.copy_(bh)
+    return g
+
+
+def phase_gru():
+    """Kernel B's forward: the warp body (H <= 32) at H in {32, 16, 8} and
+    the retained body at H=64 against the plain version, single directions
+    and pair launches; times at the serving shape beside the retained body,
+    two single launches, the plain version and `torch.nn.GRU`."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        GATES,
+        _fwd,
+        gru_body,
+        gru_scan,
+        gru_scan_pair,
+        gru_scan_plain,
+    )
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    T, H = 256, 32
-    worst = 0.0
-
-    def inputs(B):
-        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
-        return (t(rng.standard_normal((B, T, 3 * H))), t(0.3 * rng.standard_normal((H, 3 * H))),
-                t(0.1 * rng.standard_normal(3 * H)), t(0.5 * rng.standard_normal((B, H))))
-
-    for B in (1, 8, 128):
-        xp, wh, bh, h0 = inputs(B)
-        errs = []
-        for reset_after in (False, True):
-            for gate in ("sigmoid", "hard_sigmoid"):
-                for reverse in (False, True):
-                    args = (xp, wh, bh if reset_after else None, h0, reset_after, gate, reverse)
-                    ys, hl = gru_scan(*args)
-                    ys_p, hl_p = gru_scan_plain(*args)
+    worst = {"warp": 0.0, "retained": 0.0}
+    _reset_gru_counts()
+    n_warp = n_retained = 0
+    for H in GRU_WIDTHS + (64,):
+        body = gru_body(H)
+        for B in (1, 8, 128) if body == "warp" else (1, 8):
+            sets = [_gru_inputs(rng, dev, B, H) for _ in range(2)]   # direction 0 / 1
+            errs = []
+            for reset_after in (False, True):
+                for gate in GATES:
+                    want = []
+                    for k, reverse in enumerate((False, True)):
+                        xp, wh, bh, h0 = sets[k]
+                        args = (xp, wh, bh if reset_after else None, h0, reset_after, gate, reverse)
+                        got = gru_scan(*args)
+                        want.append(gru_scan_plain(*args))
+                        errs.append(max(_maxdiff(g, w) for g, w in zip(got, want[k])))
+                    pair = gru_scan_pair(_pair_of(sets, 0), _pair_of(sets, 1),
+                                         _pair_of(sets, 2, reset_after), _pair_of(sets, 3),
+                                         reset_after, gate)
                     torch.cuda.synchronize()
-                    err = max(float((ys - ys_p).abs().max()), float((hl - hl_p).abs().max()))
-                    check(err <= GRU_ATOL,
-                          f"GRU B={B} reset_after={reset_after} {gate} reverse={reverse}: {err}")
-                    errs.append(err)
-        worst = max(worst, max(errs))
-        print(f"[kernel B] B={B:3d}: 8 variants, max|diff| {max(errs):.3g}")
+                    for k in (0, 1):
+                        errs.append(max(_maxdiff(g, w) for g, w in zip(pair[k], want[k])))
+            err = max(errs)
+            check(err <= GRU_ATOL, f"GRU {body} body H={H} B={B}: {err}")
+            worst[body] = max(worst[body], err)
+            launches = 8 + 4 * (1 if body == "warp" else 2)
+            n_warp += launches * (body == "warp")
+            n_retained += launches * (body == "retained")
+            print(f"[kernel B] {body} body H={H:2d} B={B:3d}: 8 variants and 4 pair launches "
+                  f"against the plain version, max|diff| {err:.3g}")
+    counts = _gru_counts()
+    check(counts["gru_scan_fwd"] == n_warp + n_retained and counts["gru_scan_retained"] == n_retained,
+          f"phase 4 launches {counts}: {n_warp} warp, {n_retained} retained expected")
 
     # Times at the main path's shape: sednet streaming, B=1, reset_after=False.
-    xp, wh, _, h0 = inputs(1)
-    ms = cuda_ms(lambda: gru_scan(xp, wh, None, h0, False, "sigmoid", False), reps=50)
-    plain = cuda_ms(lambda: gru_scan_plain(xp, wh, None, h0, False, "sigmoid", False), reps=5)
-    cudnn = torch.nn.GRU(3 * H, H, batch_first=True).to(dev)
-    with torch.no_grad():
-        cudnn_ms = cuda_ms(lambda: cudnn(xp, h0[None]), reps=50)
+    H, conf = 32, (False, "sigmoid")
+    (xp, wh, bh, h0), (xp2, wh2, bh2, h02) = (_gru_inputs(rng, dev, 1, H) for _ in range(2))
+    single = lambda: gru_scan(xp, wh, None, h0, *conf, False)  # noqa: E731
+    retained = lambda: _fwd([xp], [wh], [None], [h0], [False], *conf, False, "retained")  # noqa: E731
+    pair = lambda: gru_scan_pair((xp, xp2), (wh, wh2), (None, None), (h0, h02), *conf)  # noqa: E731
+    two = lambda: (single(), gru_scan(xp2, wh2, None, h02, *conf, True))  # noqa: E731
+    want = gru_scan_plain(xp, wh, None, h0, *conf, False)
+    (ret_out,), _ = retained()
+    ret_err = max(_maxdiff(ret_out[0], want[0]), _maxdiff(ret_out[2], want[1]))
+    check(ret_err <= GRU_ATOL, f"retained body at the serving shape: {ret_err}")
+    worst["retained"] = max(worst["retained"], ret_err)
+    ms = cuda_ms(single, reps=50)
+    ret_ms = cuda_ms(retained, reps=50)
+    pair_ms = cuda_ms(pair, reps=50)
+    two_ms = cuda_ms(two, reps=50)
+    plain = cuda_ms(lambda: gru_scan_plain(xp, wh, None, h0, *conf, False), reps=5)
+    T = GRU_T
     flops = T * (2 * H * 3 * H + 12 * H)
     nbytes = 4 * (T * 3 * H + H * 3 * H + H + T * H + H)
     bnd, by = bound_ms(nbytes, flops)
-    print(f"[kernel B] main-path shape B=1 T={T} H={H}: kernel {ms:.4f} ms "
-          f"({ms / T * 1e3:.2f} us/step), plain {plain:.4f} ms, bound {bnd:.6f} ms ({by}); "
-          f"cuDNN nn.GRU (reset_after=True, not the same function) {cudnn_ms:.4f} ms")
-    return {"name": "gru_scan_fwd", "route": "cuda",
-            "source": "sed_crnn_torch/csrc/gru_scan.cu",
-            "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "library_ms": None}
+    # The library's function: reset_after=True, sigmoid, as the timepooled presets.
+    lib = _library_gru(wh, bh)
+    with torch.no_grad():
+        lib_out, lib_h = lib(xp, h0[None])
+        lib_ms = cuda_ms(lambda: lib(xp, h0[None]), reps=50)
+    want = gru_scan_plain(xp, wh, bh, h0, True, "sigmoid", False)
+    lib_err = max(_maxdiff(lib_out, want[0]), _maxdiff(lib_h[0], want[1]))
+    check(lib_err <= LIBRARY_ATOL, f"torch.nn.GRU vs the plain reset_after=True version: {lib_err}")
+    ra_ms = cuda_ms(lambda: gru_scan(xp, wh, bh, h0, True, "sigmoid", False), reps=50)
+    print(f"[kernel B] serving shape B=1 T={T} H={H} reset_after=False: warp body {ms:.4f} ms "
+          f"({ms / T * 1e3:.3f} us/step), retained body {ret_ms:.4f} ms (vs plain {ret_err:.3g}), "
+          f"plain {plain:.4f} ms, bound {bnd:.6f} ms ({by}); both directions: one pair launch "
+          f"{pair_ms:.4f} ms, two single launches {two_ms:.4f} ms")
+    split = {}
+    print(f"[kernel B] serving shape, "
+          f"{split_line(bnd, split, kernel=single, retained=retained, pair=pair)}")
+    print(f"[kernel B] reset_after=True sigmoid at B=1: warp body {ra_ms:.4f} ms, torch.nn.GRU "
+          f"(weight_ih = I, weight_hh = wh^T; vs plain {lib_err:.3g}) {lib_ms:.4f} ms")
+    entry = {"name": "gru_scan_fwd", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_warp.cu",
+             "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
+             "max_abs_err": worst["warp"], "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+             "bound_by": by, "library_ms": lib_ms, "library_variant": LIBRARY_VARIANT,
+             "variant_ms": ra_ms, "device_ms": split["kernel"][0], "host_ms": split["kernel"][1]}
+    return entry, {"fwd_err": worst["retained"], "fwd_ms": ret_ms, "fwd_plain_ms": plain,
+                   "bound_ms": bnd, "bound_by": by}
 
 
 def phase_main(workdir: str, pcm: np.ndarray):
@@ -405,7 +509,6 @@ def phase_main(workdir: str, pcm: np.ndarray):
     from sed_crnn_torch.models.streaming import stream_logits, stream_probabilities
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
-    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan
 
     preset = "sednet-dcase"
     cfg = get_preset(preset)
@@ -428,14 +531,16 @@ def phase_main(workdir: str, pcm: np.ndarray):
         return probs, events_from_labels(probs, SR, out_hop, 0.5), model, mel
 
     _reset_logmel_counts()
-    gru_scan.launches = 0
+    _reset_gru_counts()
     t0 = time.perf_counter()
-    probs_i, events_i, _ = infer_file(wav, ckpt, preset, stats, device="cuda")
-    probs_c, events_c, model_c, mel_c = composition("cuda")
-    torch.cuda.synchronize()
+    with _no_plain_gru_on_card() as plain_on_card:
+        probs_i, events_i, _ = infer_file(wav, ckpt, preset, stats, device="cuda")
+        probs_c, events_c, model_c, mel_c = composition("cuda")
+        torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     logmel = _logmel_counts()
-    launches = {"fused_logmel": fused_log_mel.launches, "gru_scan_fwd": gru_scan.launches}
+    gru = _gru_counts()
+    launches = {"fused_logmel": fused_log_mel.launches, "gru_scan_fwd": gru["gru_scan_fwd"]}
 
     n_frames = mel_c.shape[0]
     n_chunks = -(-n_frames // cfg.model.seq_len_in)
@@ -443,8 +548,11 @@ def phase_main(workdir: str, pcm: np.ndarray):
     kernel_extracts = 1   # the composition's extract; infer_file's preset frontend is fft
     check(logmel == {"chunked": kernel_extracts, "framed": 0, "exact": 0, "dft": 0},
           f"kernel A launches {logmel} != {kernel_extracts} chunked extract call, no dft body")
-    check(launches["gru_scan_fwd"] == streams * 4 * n_chunks,
-          f"kernel B launches {launches['gru_scan_fwd']} != 4 x {n_chunks} chunks x {streams}")
+    # Kernel B: one pair launch per BiGRU layer (2) per chunk, on the warp body.
+    want = _gru_path_counts(streams * 2 * n_chunks, 0)
+    check(gru == want, f"kernel B launches {gru} != {want} (2 pairs x {n_chunks} chunks x "
+          f"{streams} streams)")
+    check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
 
     t0 = time.perf_counter()
     probs_i_cpu, events_i_cpu, _ = infer_file(wav, ckpt, preset, stats, device="cpu")
@@ -552,104 +660,253 @@ def _maxdiff(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def phase_gru_train():
-    """Kernel B's residual forward and backward against their plain versions,
-    and their times at the training shape (B=128, T=256, H=32)."""
+def _by_kernel(fn, reps: int = 20) -> dict:
+    """torch.profiler's device ms per call of ``fn``, by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def _part(split: dict, *names) -> float:
+    return sum(v for k, v in split.items() if any(n in k for n in names))
+
+
+def phase_gru_train(retained: dict):
+    """Kernel B's residual forward, backward and dwh reduction: the warp body
+    at H in {32, 16, 8} and the retained body at H=64 against their plain
+    versions, single directions and pair launches; the retained body driven
+    once through a BiGRU at H=64; times at the training shape (B=128, T=256,
+    H=32) beside the retained body, two single launches, the plain versions
+    and `torch.nn.GRU`."""
     import torch
 
+    from sed_crnn_torch.nn.gru import BiGRU
     from sed_crnn_torch.ops.kernels.gru_scan import (
         GATES,
+        _bwd,
+        _fwd,
+        gru_body,
+        gru_dwh_plain,
         gru_scan_bwd,
         gru_scan_bwd_plain,
         gru_scan_fwd_res,
         gru_scan_fwd_res_plain,
+        gru_scan_pair_bwd,
+        gru_scan_pair_fwd_res,
     )
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(8)
-    T, H = 256, 32
+    worst = {b: {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0} for b in ("warp", "retained")}
+    grads = ("dxp", "dwh", "dbh", "dh0")
 
-    def inputs(B):
-        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
-        return (t(rng.standard_normal((B, T, 3 * H))), t(0.3 * rng.standard_normal((H, 3 * H))),
-                t(0.1 * rng.standard_normal(3 * H)), t(0.5 * rng.standard_normal((B, H))),
-                t(rng.standard_normal((B, T, H))), t(rng.standard_normal((B, H))))
+    def rel(got, want, tag, names=grads):
+        worst_rel = 0.0
+        for name, g, w in zip(names, got, want):
+            e, scale = _maxdiff(g, w), float(w.abs().max())
+            check(e <= GRAD_RTOL * scale, f"{tag} {name}: {e} > {GRAD_RTOL} x {scale}")
+            worst_rel = max(worst_rel, e / scale if scale else 0.0)
+        return worst_rel
 
-    worst_fwd, worst_bwd, worst_rel = 0.0, 0.0, 0.0
-    for B in (1, 8, 128):
-        xp, wh, bh, h0, dys, dhl = inputs(B)
-        fwd_errs, rels = [], []
-        for reset_after in (False, True):
-            for gate in GATES:
-                for reverse in (False, True):
-                    conf = (reset_after, gate, reverse)
-                    b = bh if reset_after else None
-                    ys, res, hl = gru_scan_fwd_res(xp, wh, b, h0, *conf)
-                    ys_p, res_p, hl_p = gru_scan_fwd_res_plain(xp, wh, b, h0, *conf)
+    for H in GRU_WIDTHS + (64,):
+        body = gru_body(H, backward=True)
+        for B in (1, 8, 128) if body == "warp" else (1, 8):
+            sets = [_gru_inputs(rng, dev, B, H, train=True) for _ in range(2)]
+            fwd_errs, rels, dwh_rels = [], [], []
+            for reset_after in (False, True):
+                for gate in GATES:
+                    want_f, want_b, got_b = [], [], []
+                    for k, reverse in enumerate((False, True)):
+                        xp, wh, bh, h0, dys, dhl = sets[k]
+                        conf = (reset_after, gate, reverse)
+                        b = bh if reset_after else None
+                        ys, res, hl = gru_scan_fwd_res(xp, wh, b, h0, *conf)
+                        want_f.append(gru_scan_fwd_res_plain(xp, wh, b, h0, *conf))
+                        torch.cuda.synchronize()
+                        fwd_errs.append(max(_maxdiff(g, w) for g, w in zip((ys, res, hl), want_f[k])))
+                        got_b.append(gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf))
+                        want_b.append(gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf))
+                        torch.cuda.synchronize()
+                        rels.append(rel(got_b[k], want_b[k], f"GRU bwd H={H} B={B} {conf}"))
+                        # The reduction against its reference on the kernel's own dxp.
+                        dwh, dbh = gru_dwh_plain(ys, res, h0, got_b[k][0], reset_after, reverse)
+                        dwh_rels.append(rel((dwh, dbh), got_b[k][1:3], f"GRU dwh H={H} B={B} {conf}",
+                                            ("dwh", "dbh")))
+                    args = [_pair_of(sets, i, reset_after) for i in range(4)]
+                    pair = gru_scan_pair_fwd_res(*args, reset_after, gate)
+                    pair_b = gru_scan_pair_bwd(
+                        tuple(p[0] for p in pair), tuple(p[1] for p in pair), args[1], args[3],
+                        _pair_of(sets, 4), _pair_of(sets, 5), reset_after, gate)
                     torch.cuda.synchronize()
-                    err = max(_maxdiff(ys, ys_p), _maxdiff(res, res_p), _maxdiff(hl, hl_p))
-                    check(err <= GRU_ATOL, f"GRU fwd_res B={B} {conf}: {err}")
-                    fwd_errs.append(err)
-                    got = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
-                    want = gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf)
-                    torch.cuda.synchronize()
-                    for name, g, w in zip(("dxp", "dwh", "dbh", "dh0"), got, want):
-                        e, scale = _maxdiff(g, w), float(w.abs().max())
-                        check(e <= GRAD_RTOL * scale,
-                              f"GRU bwd B={B} {conf} {name}: {e} > {GRAD_RTOL} x {scale}")
-                        worst_bwd = max(worst_bwd, e)
-                        rels.append(e / scale if scale else 0.0)
-        worst_fwd, worst_rel = max(worst_fwd, max(fwd_errs)), max(worst_rel, max(rels))
-        print(f"[kernel B train] B={B:3d}: 8 variants, fwd_res max|diff| {max(fwd_errs):.3g}, "
-              f"backward max|diff| / max|grad| {max(rels):.3g}")
+                    for k in (0, 1):
+                        fwd_errs.append(max(_maxdiff(g, w) for g, w in zip(pair[k], want_f[k])))
+                        rels.append(rel(pair_b[k], want_b[k], f"GRU pair bwd H={H} B={B}"))
+            err = max(fwd_errs)
+            check(err <= GRU_ATOL, f"GRU fwd_res {body} body H={H} B={B}: {err}")
+            w = worst[body]
+            w["fwd"], w["bwd"] = max(w["fwd"], err), max(w["bwd"], max(rels))
+            w["dwh"] = max(w["dwh"], max(dwh_rels))
+            print(f"[kernel B train] {body} body H={H:2d} B={B:3d}: 8 variants and 4 pair launches, "
+                  f"fwd_res max|diff| {err:.3g}, backward max|diff| / max|grad| {max(rels):.3g}, "
+                  f"dwh/dbh vs gru_dwh_plain on the kernel's dxp {max(dwh_rels):.3g}")
+
+    # The retained body's own main path: a BiGRU at H=64 trained one step
+    # (autograd through GruScanPairFn: one pair residual forward, one pair
+    # backward, two launches each on this body).
+    gen = torch.Generator().manual_seed(4)
+    layer = BiGRU(96, 64, False, "sigmoid")
+    layer.init_parameters(gen)
+    layer.to(dev)
+    x = torch.randn(16, GRU_T, 96, generator=gen).to(dev)
+    _reset_gru_counts()
+    y, _ = layer(x)
+    y.square().mean().backward()
+    torch.cuda.synchronize()
+    ret_launches = _gru_counts()
+    check(ret_launches["gru_scan_retained"] == 4 and ret_launches["gru_dwh"] == 0
+          and ret_launches["gru_scan_fwd_res"] == 2 and ret_launches["gru_scan_bwd"] == 2,
+          f"BiGRU H=64 launches {ret_launches}")
+    check(all(bool(torch.isfinite(p.grad).all()) for p in layer.parameters()), "BiGRU H=64 grads")
+    print(f"[kernel B retained] BiGRU(96, 64) one train step at B=16 T={GRU_T}: launches "
+          f"{ret_launches}")
 
     # Times at the training shape: sednet, reset_after=False, sigmoid.
-    xp, wh, _, h0, dys, dhl = inputs(TRAIN_BATCH)
-    B, conf = TRAIN_BATCH, (False, "sigmoid", False)
+    B, H, T, conf = TRAIN_BATCH, 32, GRU_T, (False, "sigmoid", False)
+    xp, wh, bh, h0, dys, dhl = _gru_inputs(rng, dev, B, H, train=True)
+    xp2, wh2, bh2, h02, dys2, dhl2 = _gru_inputs(rng, dev, B, H, train=True)
     ys, res, _ = gru_scan_fwd_res(xp, wh, None, h0, *conf)
+    ys2, res2, _ = gru_scan_fwd_res(xp2, wh2, None, h02, False, "sigmoid", True)
     first = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
     second = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)
     check(all(torch.equal(a, b) for a, b in zip(first, second)),
           "the backward is not deterministic from run to run")
-    fwd_ms = cuda_ms(lambda: gru_scan_fwd_res(xp, wh, None, h0, *conf), reps=50)
-    bwd_ms = cuda_ms(lambda: gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf), reps=50)
+    fwd = lambda: gru_scan_fwd_res(xp, wh, None, h0, *conf)  # noqa: E731
+    bwd = lambda: gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)  # noqa: E731
+    ret_fwd = lambda: _fwd([xp], [wh], [None], [h0], [False], False, "sigmoid", True, "retained")  # noqa: E731
+    ret_bwd = lambda: _bwd([ys], [res], [wh], [h0], [dys], [dhl], [False], False, "sigmoid",  # noqa: E731
+                           "retained")
+    (rf,), _ = ret_fwd()
+    (rb,) = ret_bwd()
+    want_f = gru_scan_fwd_res_plain(xp, wh, None, h0, *conf)
+    ret_err = max(_maxdiff(g, w) for g, w in zip(rf, want_f))
+    check(ret_err <= GRU_ATOL, f"retained fwd_res at the training shape: {ret_err}")
+    ret_rel = rel(rb, gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf),
+                  "retained bwd at the training shape")
+    pair_fwd = lambda: gru_scan_pair_fwd_res((xp, xp2), (wh, wh2), (None, None), (h0, h02),  # noqa: E731
+                                             False, "sigmoid")
+    two_fwd = lambda: (fwd(), gru_scan_fwd_res(xp2, wh2, None, h02, False, "sigmoid", True))  # noqa: E731
+    pair_bwd = lambda: gru_scan_pair_bwd((ys, ys2), (res, res2), (wh, wh2), (h0, h02),  # noqa: E731
+                                         (dys, dys2), (dhl, dhl2), False, "sigmoid")
+    two_bwd = lambda: (bwd(), gru_scan_bwd(ys2, res2, wh2, h02, dys2, dhl2,  # noqa: E731
+                                           False, "sigmoid", True))
+    dxp = first[0]
+    dwh_plain_fn = lambda: gru_dwh_plain(ys, res, h0, dxp, False, False)  # noqa: E731
+    fwd_ms, bwd_ms = cuda_ms(fwd, reps=50), cuda_ms(bwd, reps=50)
+    ret_fwd_ms, ret_bwd_ms = cuda_ms(ret_fwd, reps=20), cuda_ms(ret_bwd, reps=20)
+    pair_fwd_ms, two_fwd_ms = cuda_ms(pair_fwd, reps=50), cuda_ms(two_fwd, reps=50)
+    pair_bwd_ms, two_bwd_ms = cuda_ms(pair_bwd, reps=50), cuda_ms(two_bwd, reps=50)
     fwd_plain = cuda_ms(lambda: gru_scan_fwd_res_plain(xp, wh, None, h0, *conf), reps=3, warmup=1)
     bwd_plain = cuda_ms(lambda: gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf),
                         reps=3, warmup=1)
-    cudnn = torch.nn.GRU(3 * H, H, batch_first=True).to(dev)
-    x_in = xp.clone().requires_grad_()
-    cudnn_fwd = cuda_ms(lambda: cudnn(x_in, h0[None]), reps=50)
-
-    def cudnn_fwd_bwd():
-        out, _ = cudnn(x_in, h0[None])
-        torch.autograd.backward(out, dys)
-
-    cudnn_bwd = cuda_ms(cudnn_fwd_bwd, reps=50) - cudnn_fwd
+    dwh_plain_ms = cuda_ms(dwh_plain_fn, reps=20)
+    split = _by_kernel(bwd)
+    ret_split = _by_kernel(ret_bwd)
+    chain_ms = _part(split, "gru_warp_bwd")
+    dwh_ms = _part(split, "gru_warp_dwh", "gru_warp_sum")
     f = 4
     fwd_bytes = f * (B * T * 3 * H + H * 3 * H + 2 * B * H + B * T * H + B * T * 3 * H)
     fwd_flops = T * B * (2 * H * 3 * H + 12 * H)
     bwd_bytes = f * (B * T * H + B * T * 3 * H + H * 3 * H + 2 * B * H + B * T * H
                      + B * T * 3 * H + H * 3 * H + 3 * H + B * H)
     bwd_flops = T * B * (2 * 2 * H * 3 * H + 20 * H)
+    dwh_bytes = f * (B * T * H + B * T * H + B * T * 3 * H + B * H + H * 3 * H + 3 * H)
+    dwh_flops = B * T * (2 * H * 3 * H + H)
     fb, fby = bound_ms(fwd_bytes, fwd_flops)
     bb, bby = bound_ms(bwd_bytes, bwd_flops)
-    print(f"[kernel B train] B={B} T={T} H={H}: fwd_res {fwd_ms:.4f} ms "
-          f"({fwd_ms / T * 1e3:.2f} us/step), plain {fwd_plain:.2f} ms, bound {fb:.5f} ms "
-          f"({fby}, {fwd_bytes / 1e6:.1f} MB); backward + partial sum {bwd_ms:.4f} ms "
-          f"({bwd_ms / T * 1e3:.2f} us/step), plain {bwd_plain:.2f} ms, bound {bb:.5f} ms "
-          f"({bby}, {bwd_bytes / 1e6:.1f} MB); cuDNN nn.GRU (reset_after=True, not the same "
-          f"function) forward {cudnn_fwd:.4f} ms, backward {cudnn_bwd:.4f} ms; "
-          f"dwh bitwise equal across runs")
-    common = {"route": "cuda", "source": "sed_crnn_torch/csrc/gru_scan.cu"}
+    db, dby = bound_ms(dwh_bytes, dwh_flops)
+    print(f"[kernel B train] B={B} T={T} H={H} reset_after=False: fwd_res warp body {fwd_ms:.4f} ms "
+          f"({fwd_ms / T * 1e3:.3f} us/step), retained body {ret_fwd_ms:.4f} ms (vs plain "
+          f"{ret_err:.3g}), plain {fwd_plain:.2f} ms, bound {fb:.5f} ms ({fby}, "
+          f"{fwd_bytes / 1e6:.1f} MB); both directions: one pair launch {pair_fwd_ms:.4f} ms, "
+          f"two single launches {two_fwd_ms:.4f} ms")
+    print(f"[kernel B train] backward (chain + dwh reduction + partial sum) warp body "
+          f"{bwd_ms:.4f} ms ({bwd_ms / T * 1e3:.3f} us/step), retained body {ret_bwd_ms:.4f} ms "
+          f"(vs plain {ret_rel:.3g} of max|grad|), plain {bwd_plain:.2f} ms, bound {bb:.5f} ms "
+          f"({bby}, {bwd_bytes / 1e6:.1f} MB); both directions: one pair {pair_bwd_ms:.4f} ms, "
+          f"two singles {two_bwd_ms:.4f} ms; dwh bitwise equal across runs")
+    print("[kernel B train] backward device ms per call by kernel (torch.profiler): warp body "
+          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in split.items()) + "; retained body "
+          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in ret_split.items()))
+    print(f"[kernel B train] dwh reduction + partial sum {dwh_ms:.4f} ms device, "
+          f"gru_dwh_plain {dwh_plain_ms:.4f} ms, bound {db:.5f} ms ({dby}, "
+          f"{dwh_bytes / 1e6:.1f} MB)")
+    bwd_split, fwd_split = {}, {}
+    print(f"[kernel B train] "
+          f"{split_line(bb, bwd_split, kernel=bwd, retained=ret_bwd, pair=pair_bwd)}")
+    print(f"[kernel B train] fwd_res "
+          f"{split_line(fb, fwd_split, kernel=fwd, retained=ret_fwd, pair=pair_fwd)}")
+
+    # The library's function: reset_after=True, sigmoid.
+    lib_times, own = {}, {}
+    for b_ in (1, TRAIN_BATCH):
+        xq, whq, bhq, h0q, dyq, dhq = _gru_inputs(rng, dev, b_, H, train=True)
+        lib = _library_gru(whq, bhq)
+        x_in = xq.clone().requires_grad_()
+        out, hl = lib(x_in, h0q[None])
+        want = gru_scan_fwd_res_plain(xq, whq, bhq, h0q, True, "sigmoid", False)
+        lib_err = max(_maxdiff(out, want[0]), _maxdiff(hl[0], want[2]))
+        check(lib_err <= LIBRARY_ATOL, f"torch.nn.GRU B={b_} vs plain: {lib_err}")
+        lib_fwd = cuda_ms(lambda: lib(x_in, h0q[None]), reps=50)
+
+        def lib_fwd_bwd():
+            o, _ = lib(x_in, h0q[None])
+            torch.autograd.backward(o, dyq)
+
+        lib_times[b_] = (lib_fwd, cuda_ms(lib_fwd_bwd, reps=50) - lib_fwd, lib_err)
+        ysq, resq, _ = gru_scan_fwd_res(xq, whq, bhq, h0q, True, "sigmoid", False)
+        own[b_] = (cuda_ms(lambda: gru_scan_fwd_res(xq, whq, bhq, h0q, True, "sigmoid", False),
+                           reps=50),
+                   cuda_ms(lambda: gru_scan_bwd(ysq, resq, whq, h0q, dyq, dhq, True, "sigmoid",
+                                                False), reps=50))
+        print(f"[kernel B train] reset_after=True sigmoid B={b_}: warp body fwd_res {own[b_][0]:.4f} "
+              f"ms, backward {own[b_][1]:.4f} ms; torch.nn.GRU (vs plain {lib_err:.3g}) forward "
+              f"{lib_fwd:.4f} ms, backward {lib_times[b_][1]:.4f} ms")
+    common = {"route": "cuda", "source": "sed_crnn_torch/csrc/gru_warp.cu",
+              "library_variant": LIBRARY_VARIANT}
+    w = worst["warp"]
     return (
         {"name": "gru_scan_fwd_res", **common,
          "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
-         "max_abs_err": worst_fwd, "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,
-         "bound_by": fby, "library_ms": cudnn_fwd},
+         "max_abs_err": w["fwd"], "ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fb,
+         "bound_by": fby, "library_ms": lib_times[TRAIN_BATCH][0],
+         "variant_ms": own[TRAIN_BATCH][0], "device_ms": fwd_split["kernel"][0],
+         "host_ms": fwd_split["kernel"][1]},
         {"name": "gru_scan_bwd", **common,
          "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
-         "max_abs_err": worst_bwd, "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
-         "bound_by": bby, "library_ms": cudnn_bwd},
+         "max_abs_err": w["bwd"], "ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bb,
+         "bound_by": bby, "library_ms": lib_times[TRAIN_BATCH][1],
+         "variant_ms": own[TRAIN_BATCH][1], "device_ms": bwd_split["kernel"][0],
+         "host_ms": bwd_split["kernel"][1], "chain_ms": chain_ms},
+        {"name": "gru_dwh", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_warp.cu",
+         "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
+         "max_abs_err": w["dwh"], "ms": dwh_ms, "plain_ms": dwh_plain_ms, "bound_ms": db,
+         "bound_by": dby, "library_ms": None},
+        {"name": "gru_scan_retained", "route": "cuda",
+         "source": "sed_crnn_torch/csrc/gru_scan.cu",
+         "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
+         "max_abs_err": max(retained["fwd_err"], worst["retained"]["fwd"]),
+         "ms": retained["fwd_ms"], "plain_ms": retained["fwd_plain_ms"],
+         "bound_ms": retained["bound_ms"], "bound_by": retained["bound_by"], "library_ms": None,
+         "launches": ret_launches["gru_scan_retained"], "train_fwd_ms": ret_fwd_ms,
+         "train_bwd_ms": ret_bwd_ms, "bwd_max_rel_err": max(ret_rel, worst["retained"]["bwd"])},
     )
 
 
@@ -669,15 +926,51 @@ def _gru_counts():
     from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_bwd, gru_scan_fwd_res
 
     return {"gru_scan_fwd": gru_scan.launches, "gru_scan_fwd_res": gru_scan_fwd_res.launches,
-            "gru_scan_bwd": gru_scan_bwd.launches,
-            "gru_scan_sum_partials": gru_scan_bwd.sum_launches}
+            "gru_scan_bwd": gru_scan_bwd.launches, "gru_dwh": gru_scan_bwd.dwh_launches,
+            "gru_scan_sum_partials": gru_scan_bwd.sum_launches,
+            "gru_scan_retained": gru_scan.retained_launches}
 
 
 def _reset_gru_counts():
     from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_bwd, gru_scan_fwd_res
 
-    gru_scan.launches = gru_scan_fwd_res.launches = 0
-    gru_scan_bwd.launches = gru_scan_bwd.sum_launches = 0
+    gru_scan.launches = gru_scan_fwd_res.launches = gru_scan.retained_launches = 0
+    gru_scan_bwd.launches = gru_scan_bwd.dwh_launches = gru_scan_bwd.sum_launches = 0
+
+
+def _gru_path_counts(fwd: int, steps: int) -> dict:
+    """Exact GRU launch counts of a path with ``fwd`` no-grad BiGRU layer
+    calls and ``steps`` train-step BiGRU layer calls: one pair launch of
+    each kernel per layer call, all on the warp body."""
+    return {"gru_scan_fwd": fwd, "gru_scan_fwd_res": steps, "gru_scan_bwd": steps,
+            "gru_dwh": steps, "gru_scan_sum_partials": steps, "gru_scan_retained": 0}
+
+
+@contextlib.contextmanager
+def _no_plain_gru_on_card():
+    """Count calls of the GRU plain versions on CUDA tensors while the block
+    runs (the wrappers reach them through the module's globals); yields the
+    list of such calls, which a driven path leaves empty."""
+    from sed_crnn_torch.ops.kernels import gru_scan as mod
+
+    names = ("gru_scan_plain", "gru_scan_fwd_res_plain", "gru_scan_bwd_plain", "gru_dwh_plain")
+    saved = {n: getattr(mod, n) for n in names}
+    hits = []
+
+    def counting(name, fn):
+        def wrapped(first, *args, **kwargs):
+            if first.is_cuda:
+                hits.append(name)
+            return fn(first, *args, **kwargs)
+        return wrapped
+
+    for n in names:
+        setattr(mod, n, counting(n, saved[n]))
+    try:
+        yield hits
+    finally:
+        for n in names:
+            setattr(mod, n, saved[n])
 
 
 def phase_train_step():
@@ -710,13 +1003,14 @@ def phase_train_step():
 
     _reset_gru_counts()
     _reset_logmel_counts()
-    loss_g, tree_g = step("cuda")
-    torch.cuda.synchronize()
+    with _no_plain_gru_on_card() as plain_on_card:
+        loss_g, tree_g = step("cuda")
+        torch.cuda.synchronize()
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"train step log-mel launches {_logmel_counts()}")
-    want = {"gru_scan_fwd": 0, "gru_scan_fwd_res": 4, "gru_scan_bwd": 4,
-            "gru_scan_sum_partials": 4}
+    want = _gru_path_counts(0, 2)   # one pair per BiGRU layer, forward and backward
     check(launches == want, f"train step launches {launches} != {want}")
+    check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     t0 = time.perf_counter()
     loss_c, tree_c = step("cpu")
     cpu_s = time.perf_counter() - t0
@@ -796,14 +1090,15 @@ def phase_train(workdir: str):
     _reset_gru_counts()
     _reset_logmel_counts()
     t0 = time.perf_counter()
-    res = run_fold(cfg, fold, 1, art, device="cuda", verbose=False)
-    torch.cuda.synchronize()
+    with _no_plain_gru_on_card() as plain_on_card:
+        res = run_fold(cfg, fold, 1, art, device="cuda", verbose=False)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"run_fold log-mel launches {_logmel_counts()}")
-    want = {"gru_scan_fwd": 4 * n_sweep * epochs, "gru_scan_fwd_res": 4 * n_train * epochs,
-            "gru_scan_bwd": 4 * n_train * epochs, "gru_scan_sum_partials": 4 * n_train * epochs}
+    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs)
     check(launches == want, f"run_fold launches {launches} != {want}")
+    check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     check(res.epochs_run == epochs, f"run_fold ran {res.epochs_run} epochs")
     for k in ("loss_tr", "loss_val"):
         v = res.history[k]
@@ -950,12 +1245,14 @@ def device_host_ms(fn, reps: int = 20):
     return (busy_us / reps / 1e3 if busy_us > 0 else None), host
 
 
-def split_line(bnd: float, **fns) -> str:
+def split_line(bnd: float, measured: dict | None = None, **fns) -> str:
     """`device_host_ms` of each named function, the kernel's device time
-    against its bound."""
+    against its bound; each (device, host) pair also lands in ``measured``."""
     parts = []
     for name, fn in fns.items():
         dev, host = device_host_ms(fn)
+        if measured is not None:
+            measured[name] = (dev, host)
         if dev is None:
             parts.append(f"{name} device not measured, host {host:.4f} ms")
             continue
@@ -1392,16 +1689,17 @@ def phase_feature_train(workdir: str, cache: str):
     _reset_gru_counts()
     _reset_logmel_counts()
     t0 = time.perf_counter()
-    out, lines = _quiet(train_app.main, [
-        "--preset", "sednet-dcase-binmul", "--cache-dir", cache, "--channel-tag", "binmul",
-        "--folds", "1", "--max-epochs", str(epochs), "--plot-every", "0", "--device", "cuda",
-        "--art-dir", art])
-    torch.cuda.synchronize()
+    with _no_plain_gru_on_card() as plain_on_card:
+        out, lines = _quiet(train_app.main, [
+            "--preset", "sednet-dcase-binmul", "--cache-dir", cache, "--channel-tag", "binmul",
+            "--folds", "1", "--max-epochs", str(epochs), "--plot-every", "0", "--device", "cuda",
+            "--art-dir", art])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _gru_counts()
-    want = {"gru_scan_fwd": 4 * n_sweep * epochs, "gru_scan_fwd_res": 4 * n_train * epochs,
-            "gru_scan_bwd": 4 * n_train * epochs, "gru_scan_sum_partials": 4 * n_train * epochs}
+    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs)
     check(launches == want, f"binmul training launches {launches} != {want}")
+    check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     check(not any(_logmel_counts().values()),
           f"binmul training log-mel launches {_logmel_counts()}")
     res = out["folds"][0]
@@ -1441,11 +1739,11 @@ def main() -> int:
 
     pcm = tones(120.0, 9, silent=[(50.0, 52.0)])
     kernel_a, dft_err = phase_logmel(bucket_signal(pcm, FrontendConfig()))
-    kernel_b = phase_gru()
+    kernel_b, retained = phase_gru()
     with tempfile.TemporaryDirectory() as workdir:
         launches, fe_kernel, model = phase_main(workdir, pcm)
     phase_throughput(fe_kernel, model, pcm)
-    kernel_fwd_res, kernel_bwd = phase_gru_train()
+    kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_retained = phase_gru_train(retained)
     phase_train_step()
     with tempfile.TemporaryDirectory() as workdir:
         train_launches, cfg, fold = phase_train(workdir)
@@ -1454,17 +1752,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         feature_launches, cache, _ = phase_feature(workdir)
         phase_feature_train(workdir, cache)
-    launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd")})
+    launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd",
+                                                    "gru_dwh")})
     launches["fused_logmel_framed"] = feature_launches["framed"]
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
     launches["fused_logmel_dft"] = kernel_dft.pop("launches")
+    launches["gru_scan_retained"] = kernel_retained.pop("launches")
     kernels = []
+    head = ("name", "route", "source", "replaces")
     for k in (kernel_a, kernel_framed, kernel_exact, kernel_dft, kernel_b, kernel_fwd_res,
-              kernel_bwd):
-        kernels.append({"name": k["name"], "route": k["route"], "source": k["source"],
-                        "replaces": k["replaces"], "launches": launches[k["name"]],
-                        **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                   "bound_ms", "bound_by", "library_ms")}})
+              kernel_bwd, kernel_dwh, kernel_retained):
+        kernels.append({**{key: k[key] for key in head}, "launches": launches[k["name"]],
+                        **{key: v for key, v in k.items() if key not in head}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

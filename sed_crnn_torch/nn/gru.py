@@ -11,8 +11,9 @@ hoisted out of the recurrence as one ``torch.matmul``.
 projected hidden state); ``False`` is the keras-2.2 SEDnet convention (reset
 applied to ``h`` before the recurrent product, one bias). The recurrence
 runs through the kernel's wrapper: the CUDA kernels for a CUDA tensor (the
-residual forward and the backward kernel when autograd needs a gradient),
-the plain step loop for a CPU tensor.
+residual forward and the backward kernels when autograd needs a gradient),
+the plain step loop for a CPU tensor. `BiGRU` runs its two directions as
+one pair (`gru_scan_pair`): one launch per kernel on the card.
 
 `GRU.init_parameters` draws the JAX package's two schemes from a caller's
 generator: ``"torch"`` U(+-1/sqrt(H)) for every leaf; ``"keras"`` a
@@ -29,7 +30,7 @@ import torch
 from torch import nn
 
 from sed_crnn_torch.nn.layers import glorot_uniform_, uniform_
-from sed_crnn_torch.ops.kernels.gru_scan import GATES, gru_scan
+from sed_crnn_torch.ops.kernels.gru_scan import GATES, gru_scan, gru_scan_pair
 
 
 class GRU(nn.Module):
@@ -78,8 +79,12 @@ class GRU(nn.Module):
         """x (B, T, in) -> (outputs (B, T, H), h_last (B, H))."""
         if h0 is None:
             h0 = x.new_zeros((x.shape[0], self.hidden))
-        xp = torch.matmul(x, self.wi) + self.bi                    # (B, T, 3H)
-        return gru_scan(xp, self.wh, self.bh, h0, self.reset_after, self.gate_activation, reverse)
+        return gru_scan(self.project(x), self.wh, self.bh, h0, self.reset_after,
+                        self.gate_activation, reverse)
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """The input projection of every timestep, x (B, T, in) -> (B, T, 3H)."""
+        return torch.matmul(x, self.wi) + self.bi
 
 
 class BiGRU(nn.Module):
@@ -107,6 +112,10 @@ class BiGRU(nn.Module):
         """x (B, T, in) -> ((B, T, 2H), {"fwd": h, "bwd": h}). ``h0`` is an
         optional dict of initial states, as streaming carries them."""
         h0 = h0 or {}
-        yf, hf = self.fwd(x, h0.get("fwd"), reverse=False)
-        yb, hb = self.bwd(x, h0.get("bwd"), reverse=True)
+        f, b = self.fwd, self.bwd
+        zeros = x.new_zeros((x.shape[0], self.hidden))
+        start = tuple(zeros if h0.get(d) is None else h0[d] for d in ("fwd", "bwd"))
+        (yf, hf), (yb, hb) = gru_scan_pair((f.project(x), b.project(x)), (f.wh, b.wh),
+                                           (f.bh, b.bh), start, f.reset_after,
+                                           f.gate_activation)
         return torch.cat([yf, yb], dim=-1), {"fwd": hf, "bwd": hb}

@@ -1,5 +1,6 @@
-"""GRU recurrence: the CUDA kernels (``csrc/gru_scan.cu``), their plain
-PyTorch versions, and the `torch.autograd.Function` that joins them.
+"""GRU recurrence: the CUDA kernels (``csrc/gru_warp.cu`` and
+``csrc/gru_scan.cu``), their plain PyTorch versions, and the
+`torch.autograd.Function`s that join them.
 
 The counterpart of the JAX package's `ops/pallas/gru_scan.py`, with its
 batch-major contract: ``xp (B, T, 3H)`` pre-projected inputs
@@ -8,40 +9,59 @@ batch-major contract: ``xp (B, T, 3H)`` pre-projected inputs
 ``h_last (B, H)``. Both ``reset_after`` conventions, ``sigmoid`` and
 keras-2.2 ``hard_sigmoid`` gates, and reverse time.
 
-Three kernels, each behind a wrapper that launches it for a CUDA tensor,
-runs its plain version only for a CPU tensor, and counts its launches:
+Two CUDA bodies, chosen by `gru_body` from the hidden width H:
 
-* `gru_scan`: the forward (`_fwd_kernel`, ``with_res=False``). With grad
-  enabled and an input that requires grad it goes through `GruScanFn`
-  instead; under ``no_grad`` it launches this kernel (serving, validation).
-* `gru_scan_fwd_res`: the forward that also stores the gates of every step,
-  ``res (B, T, 3H)`` = r | z | n, or ``(B, T, 4H)`` with the projected
-  candidate hn appended when ``reset_after`` (`_fwd_kernel`,
-  ``with_res=True``).
-* `gru_scan_bwd`: the reverse-time gradient recurrence (`_bwd_kernel`) over
-  the stored residuals -> ``dxp, dwh, dbh, dh0``. Its kernel writes one
-  partial ``dwh``/``dbh`` per block of batch rows, which a second kernel adds
-  in block order (counted in ``gru_scan_bwd.sum_launches``). ``dbh`` is zero
-  when ``reset_after`` is False, as the JAX wrapper sets it.
+* ``"warp"`` (``csrc/gru_warp.cu``), H <= 32 (every preset): one warp per
+  batch row (or 32 / HP rows, HP = H rounded up to a power of two), the
+  recurrent weights in registers, one or two directions per launch, and the
+  backward's ``dwh``/``dbh`` reduced after the gradient chain by a separate
+  kernel over the stored rows (`gru_dwh_plain` is its reference);
+* ``"retained"`` (``csrc/gru_scan.cu``), 32 < H <= 128 for the forward and
+  <= 64 for the backward: a block of batch rows per direction, the weights
+  and the partial ``dwh`` in shared memory; a pair is two launches.
 
-`GruScanFn` is the custom VJP: its forward is `gru_scan_fwd_res`, its
-backward `gru_scan_bwd`, on the card or, for CPU tensors, their plain
-versions. The kernels stream every per-step array, so any T and B are taken.
+Entry points, each of which launches a kernel for a CUDA tensor, runs its
+plain version only for a CPU tensor, and counts its launches:
+
+* `gru_scan` / `gru_scan_pair`: the forward of one direction / of both
+  directions of a BiGRU (``_fwd_kernel``, ``with_res=False``); with grad
+  enabled and an input that requires grad they go through `GruScanFn` /
+  `GruScanPairFn` instead. Counted in ``gru_scan.launches``.
+* `gru_scan_fwd_res` / `gru_scan_pair_fwd_res`: the forward that also stores
+  the gates of every step, ``res (B, T, 3H)`` = r | z | n, or ``(B, T, 4H)``
+  with the projected candidate hn appended when ``reset_after``
+  (``_fwd_kernel``, ``with_res=True``). Counted in
+  ``gru_scan_fwd_res.launches``.
+* `gru_scan_bwd` / `gru_scan_pair_bwd`: the reverse-time gradient recurrence
+  (``_bwd_kernel``) over the stored residuals -> ``dxp, dwh, dbh, dh0``.
+  The chain is counted in ``gru_scan_bwd.launches``; the warp body's
+  ``dwh``/``dbh`` reduction in ``gru_scan_bwd.dwh_launches``; the fixed-order
+  sum of per-block partials (either body) in ``gru_scan_bwd.sum_launches``.
+  ``dbh`` is zero when ``reset_after`` is False, as the JAX wrapper sets it.
+
+A pair on the warp body is one launch of each kernel; ``direction 0`` runs
+forward in time and ``direction 1`` reversed, as `nn/gru.py`'s BiGRU needs.
+``gru_scan.retained_launches`` counts the launches of the retained body's
+recurrences (forward, residual forward, backward) among all of the above.
+The kernels stream every per-step array, so any T and B are taken.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from sed_crnn_torch.ops.kernels import _build
 
 GATES = ("sigmoid", "hard_sigmoid")
-MAX_HIDDEN = 128      # forward: wh (H, 3H) float32 must fit the block's shared memory
-MAX_HIDDEN_BWD = 64   # backward: whT and the partial dwh, both (H, 3H), must fit
+MAX_HIDDEN = 128      # forward: the retained body keeps wh (H, 3H) in shared memory
+MAX_HIDDEN_BWD = 64   # backward: the retained body keeps whT and the partial dwh there
+WARP_MAX_HIDDEN = 32  # the warp body: lane j owns hidden unit j
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
 def hard_sigmoid(v: torch.Tensor) -> torch.Tensor:
@@ -69,6 +89,16 @@ def gate_grad_from_output(name: str, g: torch.Tensor) -> torch.Tensor:
 def res_width(reset_after: bool, H: int) -> int:
     """Width of a residual row: r | z | n, plus hn when ``reset_after``."""
     return 4 * H if reset_after else 3 * H
+
+
+def gru_body(H: int, backward: bool = False) -> str:
+    """The CUDA body that a hidden width H runs on: ``"warp"``
+    (``csrc/gru_warp.cu``) for H <= 32, ``"retained"`` (``csrc/gru_scan.cu``)
+    up to `MAX_HIDDEN` (forward) or `MAX_HIDDEN_BWD` (``backward``)."""
+    limit = MAX_HIDDEN_BWD if backward else MAX_HIDDEN
+    if not 0 < H <= limit:
+        raise ValueError(f"hidden width must satisfy 0 < H <= {limit}, got {H}")
+    return "warp" if H <= WARP_MAX_HIDDEN else "retained"
 
 
 def _steps(T: int, reverse: bool):
@@ -134,6 +164,36 @@ def gru_scan_fwd_res_plain(
     return ys_t, res_t, h
 
 
+def gru_dwh_plain(
+    ys: torch.Tensor,
+    res: torch.Tensor,
+    h0: torch.Tensor,
+    dxp: torch.Tensor,
+    reset_after: bool,
+    reverse: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dwh (H, 3H)`` and ``dbh (3H,)`` from the stored rows, after the
+    gradient chain: with ``h_prev`` the state before each step (``ys``
+    shifted by one step in the direction's order, ``h0`` at the chain's
+    start) and ``dxp = [da_r, da_z, da_n]``,
+    ``dwh[:, :2H] = h_prev^T dxp[:, :2H]``; ``dwh[:, 2H:] = (r h_prev)^T da_n``
+    when not ``reset_after``, else ``h_prev^T (da_n r)`` and
+    ``dbh = sum [da_r, da_z, da_n r]`` (zeros when not ``reset_after``)."""
+    B, T, H = ys.shape
+    if B == 0 or T == 0:
+        return ys.new_zeros((H, 3 * H)), ys.new_zeros((3 * H,))
+    before = h0[:, None]
+    h_prev = torch.cat([ys[:, 1:], before], 1) if reverse else torch.cat([before, ys[:, :-1]], 1)
+    h_prev = h_prev.reshape(-1, H)
+    r = res[..., :H].reshape(-1, H)
+    d = dxp.reshape(-1, 3 * H)
+    if reset_after:
+        dhp = torch.cat([d[:, : 2 * H], d[:, 2 * H :] * r], dim=-1)
+        return h_prev.T @ dhp, dhp.sum(0)
+    dwh = torch.cat([h_prev.T @ d[:, : 2 * H], (r * h_prev).T @ d[:, 2 * H :]], dim=-1)
+    return dwh, ys.new_zeros((3 * H,))
+
+
 def gru_scan_bwd_plain(
     ys: torch.Tensor,
     res: torch.Tensor,
@@ -146,11 +206,9 @@ def gru_scan_bwd_plain(
     reverse: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The reverse-time gradient recurrence as an explicit step loop over the
-    stored residuals (the JAX `_bwd_kernel`'s math, not autograd) ->
-    ``(dxp (B, T, 3H), dwh (H, 3H), dbh (3H,), dh0 (B, H))``."""
+    stored residuals (the JAX `_bwd_kernel`'s math, not autograd), then
+    `gru_dwh_plain` -> ``(dxp (B, T, 3H), dwh (H, 3H), dbh (3H,), dh0 (B, H))``."""
     B, T, H = ys.shape
-    dwh = wh.new_zeros(wh.shape)
-    dbh = wh.new_zeros((3 * H,))
     dxp = [None] * T
     dh = dhl
     for t in _steps(T, not reverse):
@@ -166,37 +224,71 @@ def gru_scan_bwd_plain(
         if reset_after:
             hn = rt[:, 3 * H :]
             da_r = da_n * hn * gate_grad_from_output(gate_activation, r)
-            dhp = torch.cat([da_r, da_z, da_n * r], dim=-1)
-            dh = dht * z + dhp @ wh.T
-            dwh = dwh + h_prev.T @ dhp
-            dbh = dbh + dhp.sum(0)
+            dh = dht * z + torch.cat([da_r, da_z, da_n * r], dim=-1) @ wh.T
         else:
             drh = da_n @ wh[:, 2 * H :].T
             da_r = drh * h_prev * gate_grad_from_output(gate_activation, r)
-            da_rz = torch.cat([da_r, da_z], dim=-1)
-            dh = dht * z + da_rz @ wh[:, : 2 * H].T + drh * r
-            dwh = dwh + torch.cat([h_prev.T @ da_rz, (r * h_prev).T @ da_n], dim=-1)
+            dh = dht * z + torch.cat([da_r, da_z], dim=-1) @ wh[:, : 2 * H].T + drh * r
         dxp[t] = torch.cat([da_r, da_z, da_n], dim=-1)
     dxp_t = torch.stack(dxp, dim=1) if T else ys.new_zeros((B, 0, 3 * H))
+    dwh, dbh = gru_dwh_plain(ys, res, h0, dxp_t, reset_after, reverse)
     return dxp_t, dwh, dbh, dh
+
+
+# --- the CUDA libraries --------------------------------------------------------
+
+_p, _i = ctypes.c_void_p, ctypes.c_int
+
+
+class _FwdDir(ctypes.Structure):
+    _fields_ = [(n, _p) for n in ("xp", "wh", "bh", "h0", "ys", "res", "h_last")] + [
+        ("reverse", _i)]
+
+
+class _BwdDir(ctypes.Structure):
+    _fields_ = [(n, _p) for n in ("ys", "res", "wh", "h0", "dys", "dhl", "dxp", "dh0")] + [
+        ("reverse", _i)]
+
+
+class _DwhDir(ctypes.Structure):
+    _fields_ = [(n, _p) for n in ("ys", "res", "h0", "dxp", "part")] + [("reverse", _i)]
 
 
 @lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The retained body, ``csrc/gru_scan.cu``."""
     lib = _build.load("gru_scan")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gru_scan_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
-    lib.gru_scan_fwd.restype = i
-    lib.gru_scan_fwd_res.argtypes = [p] * 7 + [i] * 6 + [p]
-    lib.gru_scan_fwd_res.restype = i
-    lib.gru_scan_bwd_blocks.argtypes = [i, i]
-    lib.gru_scan_bwd_blocks.restype = i
-    lib.gru_scan_bwd.argtypes = [p] * 9 + [i] * 6 + [p]
-    lib.gru_scan_bwd.restype = i
-    lib.gru_scan_sum_partials.argtypes = [p, p, i, i, p]
-    lib.gru_scan_sum_partials.restype = i
-    lib.gru_scan_error_string.argtypes = [i]
+    lib.gru_scan_fwd.argtypes = [_p] * 6 + [_i] * 6 + [_p]
+    lib.gru_scan_fwd.restype = _i
+    lib.gru_scan_fwd_res.argtypes = [_p] * 7 + [_i] * 6 + [_p]
+    lib.gru_scan_fwd_res.restype = _i
+    lib.gru_scan_bwd_blocks.argtypes = [_i, _i]
+    lib.gru_scan_bwd_blocks.restype = _i
+    lib.gru_scan_bwd.argtypes = [_p] * 9 + [_i] * 6 + [_p]
+    lib.gru_scan_bwd.restype = _i
+    lib.gru_scan_sum_partials.argtypes = [_p, _p, _i, _i, _p]
+    lib.gru_scan_sum_partials.restype = _i
+    lib.gru_scan_error_string.argtypes = [_i]
     lib.gru_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _warp_lib() -> ctypes.CDLL:
+    """The warp body, ``csrc/gru_warp.cu``."""
+    lib = _build.load("gru_warp")
+    lib.gru_warp_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 7 + [_p]
+    lib.gru_warp_fwd_launch.restype = _i
+    lib.gru_warp_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 6 + [_p]
+    lib.gru_warp_bwd_launch.restype = _i
+    lib.gru_warp_dwh_blocks.argtypes = [_i, _i]
+    lib.gru_warp_dwh_blocks.restype = _i
+    lib.gru_warp_dwh_launch.argtypes = [ctypes.POINTER(_DwhDir)] + [_i] * 5 + [_p]
+    lib.gru_warp_dwh_launch.restype = _i
+    lib.gru_warp_sum_partials.argtypes = [_p, _p, _i, _i, _i, _p]
+    lib.gru_warp_sum_partials.restype = _i
+    lib.gru_warp_error_string.argtypes = [_i]
+    lib.gru_warp_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -210,10 +302,10 @@ def _checked(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
     return t.contiguous()
 
 
-def _raise_on(status: int, what: str) -> None:
+def _raise_on(status: int, what: str, error_string) -> None:
+    """Raise with the library's message for a non-zero CUDA status."""
     if status != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{_lib().gru_scan_error_string(status).decode()}")
+        raise RuntimeError(f"{what} launch failed: {error_string(status).decode()}")
 
 
 def _device_of(xp: torch.Tensor) -> torch.device:
@@ -222,13 +314,14 @@ def _device_of(xp: torch.Tensor) -> torch.device:
     return xp.device
 
 
-def _validate(H3: int, gate_activation: str, max_hidden: int) -> int:
+def _validate(H3: int, gate_activation: str, backward: bool) -> Tuple[int, str]:
+    """-> (H, the body that runs it)."""
     if gate_activation not in GATES:
         raise ValueError(f"unknown gate_activation {gate_activation!r}")
     H = H3 // 3
-    if H3 != 3 * H or not 0 < H <= max_hidden:
-        raise ValueError(f"the gate axis must be 3H with 0 < H <= {max_hidden}, got {H3}")
-    return H
+    if H3 != 3 * H:
+        raise ValueError(f"the gate axis must be 3H, got {H3}")
+    return H, gru_body(H, backward)
 
 
 def _bias(bh: Optional[torch.Tensor], reset_after: bool, xp: torch.Tensor) -> Optional[torch.Tensor]:
@@ -237,6 +330,135 @@ def _bias(bh: Optional[torch.Tensor], reset_after: bool, xp: torch.Tensor) -> Op
     if bh is not None:
         return bh.reshape(H3)
     return xp.new_zeros((H3,)) if reset_after else None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
+         reset_after: bool, gate_activation: str, with_res: bool,
+         body: Optional[str] = None) -> Tuple[List[tuple], int]:
+    """Launch the forward of ``len(xps)`` (1 or 2) directions of one shape on
+    the card, on ``body`` (default: `gru_body`'s choice) -> per direction
+    ``(ys, res or None, h_last)``, and the number of launches."""
+    dev = xps[0].device
+    B, T, H3 = xps[0].shape
+    H, chosen = _validate(H3, gate_activation, backward=False)
+    body = body or chosen
+    dirs = []
+    for x, wh, bh, h0 in zip(xps, whs, bhs, h0s):
+        dirs.append((_checked("xp", x, (B, T, H3), dev), _checked("wh", wh, (H, H3), dev),
+                     _checked("bh", bh, (H3,), dev) if reset_after else None,
+                     _checked("h0", h0, (B, H), dev)))
+    outs = [(torch.empty((B, T, H), dtype=torch.float32, device=dev),
+             torch.empty((B, T, res_width(reset_after, H)), dtype=torch.float32, device=dev)
+             if with_res else None,
+             torch.empty((B, H), dtype=torch.float32, device=dev)) for _ in dirs]
+    if B == 0 or T == 0:
+        for (_, _, _, h0), (_, _, hl) in zip(dirs, outs):
+            hl.copy_(h0)
+        return outs, 0
+    flags = (int(reset_after), int(gate_activation == "hard_sigmoid"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if body == "warp":
+            lib = _warp_lib()
+            arr = (_FwdDir * len(dirs))(*(
+                _FwdDir(x.data_ptr(), wh.data_ptr(), _ptr(bh), h0.data_ptr(), ys.data_ptr(),
+                        _ptr(res), hl.data_ptr(), int(rev))
+                for (x, wh, bh, h0), (ys, res, hl), rev in zip(dirs, outs, reverses)))
+            status = lib.gru_warp_fwd_launch(arr, len(dirs), B, T, H, *flags, int(with_res),
+                                             stream)
+            _raise_on(status, "gru_warp_fwd", lib.gru_warp_error_string)
+            return outs, 1
+        if body != "retained":
+            raise ValueError(f"unknown GRU body {body!r}")
+        lib = _lib()
+        for (x, wh, bh, h0), (ys, res, hl), rev in zip(dirs, outs, reverses):
+            if with_res:
+                status = lib.gru_scan_fwd_res(x.data_ptr(), wh.data_ptr(), _ptr(bh),
+                                              h0.data_ptr(), ys.data_ptr(), res.data_ptr(),
+                                              hl.data_ptr(), B, T, H, *flags, int(rev), stream)
+            else:
+                status = lib.gru_scan_fwd(x.data_ptr(), wh.data_ptr(), _ptr(bh), h0.data_ptr(),
+                                          ys.data_ptr(), hl.data_ptr(), B, T, H, *flags,
+                                          int(rev), stream)
+            _raise_on(status, "gru_scan_fwd", lib.gru_scan_error_string)
+            gru_scan.retained_launches += 1
+    return outs, len(dirs)
+
+
+def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_after: bool,
+         gate_activation: str, body: Optional[str] = None) -> List[tuple]:
+    """Launch the backward of ``len(ys_s)`` directions of one shape on the
+    card -> per direction ``(dxp, dwh, dbh, dh0)``; counts its launches."""
+    dev = ys_s[0].device
+    B, T, H = ys_s[0].shape
+    _, chosen = _validate(3 * H, gate_activation, backward=True)
+    body = body or chosen
+    RW = res_width(reset_after, H)
+    dirs = [(_checked("ys", ys, (B, T, H), dev), _checked("res", res, (B, T, RW), dev),
+             _checked("wh", wh, (H, 3 * H), dev), _checked("h0", h0, (B, H), dev),
+             _checked("dys", dys, (B, T, H), dev), _checked("dhl", dhl, (B, H), dev))
+            for ys, res, wh, h0, dys, dhl in zip(ys_s, res_s, whs, h0s, dys_s, dhl_s)]
+    n_dir = len(dirs)
+    dxps = [torch.empty((B, T, 3 * H), dtype=torch.float32, device=dev) for _ in dirs]
+    if B == 0 or T == 0:
+        return [(dxp, d[2].new_zeros((H, 3 * H)), d[2].new_zeros((3 * H,)), d[5].clone())
+                for dxp, d in zip(dxps, dirs)]
+    dh0s = [torch.empty((B, H), dtype=torch.float32, device=dev) for _ in dirs]
+    n = 3 * H * H + 3 * H
+    flags = (int(reset_after), int(gate_activation == "hard_sigmoid"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if body == "warp":
+            lib = _warp_lib()
+            arr = (_BwdDir * n_dir)(*(
+                _BwdDir(*(t.data_ptr() for t in d), dxp.data_ptr(), dh0.data_ptr(), int(rev))
+                for d, dxp, dh0, rev in zip(dirs, dxps, dh0s, reverses)))
+            status = lib.gru_warp_bwd_launch(arr, n_dir, B, T, H, *flags, stream)
+            _raise_on(status, "gru_warp_bwd", lib.gru_warp_error_string)
+            gru_scan_bwd.launches += 1
+            part = torch.empty((n_dir, lib.gru_warp_dwh_blocks(B, T), n), dtype=torch.float32,
+                               device=dev)
+            arr = (_DwhDir * n_dir)(*(
+                _DwhDir(ys.data_ptr(), res.data_ptr(), h0.data_ptr(), dxp.data_ptr(),
+                        part[k].data_ptr(), int(rev))
+                for k, ((ys, res, _, h0, _, _), dxp, rev) in enumerate(zip(dirs, dxps, reverses))))
+            status = lib.gru_warp_dwh_launch(arr, n_dir, B, T, H, int(reset_after), stream)
+            _raise_on(status, "gru_warp_dwh", lib.gru_warp_error_string)
+            gru_scan_bwd.dwh_launches += 1
+            sums = torch.empty((n_dir, n), dtype=torch.float32, device=dev)
+            status = lib.gru_warp_sum_partials(part.data_ptr(), sums.data_ptr(), n_dir,
+                                               part.shape[1], n, stream)
+            _raise_on(status, "gru_warp_sum_partials", lib.gru_warp_error_string)
+            gru_scan_bwd.sum_launches += 1
+        elif body == "retained":
+            lib = _lib()
+            part = torch.empty((lib.gru_scan_bwd_blocks(H, B), n), dtype=torch.float32,
+                               device=dev)
+            sums = torch.empty((n_dir, n), dtype=torch.float32, device=dev)
+            for k, (d, dxp, dh0, rev) in enumerate(zip(dirs, dxps, dh0s, reverses)):
+                status = lib.gru_scan_bwd(*(t.data_ptr() for t in d), dxp.data_ptr(),
+                                          dh0.data_ptr(), part.data_ptr(), B, T, H, *flags,
+                                          int(rev), stream)
+                _raise_on(status, "gru_scan_bwd", lib.gru_scan_error_string)
+                gru_scan_bwd.launches += 1
+                gru_scan.retained_launches += 1
+                status = lib.gru_scan_sum_partials(part.data_ptr(), sums[k].data_ptr(),
+                                                   part.shape[0], n, stream)
+                _raise_on(status, "gru_scan_sum_partials", lib.gru_scan_error_string)
+                gru_scan_bwd.sum_launches += 1
+        else:
+            raise ValueError(f"unknown GRU body {body!r}")
+    return [(dxp, sums[k, : 3 * H * H].view(H, 3 * H), sums[k, 3 * H * H :], dh0)
+            for k, (dxp, dh0) in enumerate(zip(dxps, dh0s))]
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def gru_scan(
@@ -251,41 +473,20 @@ def gru_scan(
     """One direction of the GRU recurrence over all T steps.
 
     With grad enabled and an input that requires grad: `GruScanFn` (the
-    residual forward and the backward kernel). Otherwise, for a CUDA tensor
-    the forward kernel, for a CPU tensor `gru_scan_plain`."""
+    residual forward and the backward kernels). Otherwise, for a CUDA tensor
+    the forward kernel of `gru_body`'s body, for a CPU tensor `gru_scan_plain`."""
     bh = _bias(bh, reset_after, xp)
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (xp, wh, bh, h0)
-    ):
+    if _needs_grad(xp, wh, bh, h0):
         return GruScanFn.apply(xp, wh, bh, h0, reset_after, gate_activation, reverse)
-    dev = _device_of(xp)
-    if dev.type == "cpu":
+    if _device_of(xp).type == "cpu":
         return gru_scan_plain(xp, wh, bh, h0, reset_after, gate_activation, reverse)
-    B, T, H3 = xp.shape
-    H = _validate(H3, gate_activation, MAX_HIDDEN)
-    xp = _checked("xp", xp, (B, T, H3), dev)
-    wh = _checked("wh", wh, (H, H3), dev)
-    h0 = _checked("h0", h0, (B, H), dev)
-    if reset_after:
-        bh = _checked("bh", bh, (H3,), dev)
-    ys = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-    h_last = torch.empty((B, H), dtype=torch.float32, device=dev)
-    if B == 0 or T == 0:
-        h_last.copy_(h0)
-        return ys, h_last
-    with torch.cuda.device(dev):
-        status = _lib().gru_scan_fwd(
-            xp.data_ptr(), wh.data_ptr(), bh.data_ptr() if reset_after else None,
-            h0.data_ptr(), ys.data_ptr(), h_last.data_ptr(),
-            B, T, H, int(reset_after), int(gate_activation == "hard_sigmoid"),
-            int(reverse), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on(status, "gru_scan")
-    gru_scan.launches += 1
-    return ys, h_last
+    (out,), n = _fwd([xp], [wh], [bh], [h0], [reverse], reset_after, gate_activation, False)
+    gru_scan.launches += n
+    return out[0], out[2]
 
 
 gru_scan.launches = 0
+gru_scan.retained_launches = 0
 
 
 def gru_scan_fwd_res(
@@ -300,32 +501,11 @@ def gru_scan_fwd_res(
     """The forward that keeps its residuals -> ``(ys, res, h_last)``. CUDA
     tensor: the kernel; CPU tensor: `gru_scan_fwd_res_plain`."""
     bh = _bias(bh, reset_after, xp)
-    dev = _device_of(xp)
-    if dev.type == "cpu":
+    if _device_of(xp).type == "cpu":
         return gru_scan_fwd_res_plain(xp, wh, bh, h0, reset_after, gate_activation, reverse)
-    B, T, H3 = xp.shape
-    H = _validate(H3, gate_activation, MAX_HIDDEN)
-    xp = _checked("xp", xp, (B, T, H3), dev)
-    wh = _checked("wh", wh, (H, H3), dev)
-    h0 = _checked("h0", h0, (B, H), dev)
-    if reset_after:
-        bh = _checked("bh", bh, (H3,), dev)
-    ys = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-    res = torch.empty((B, T, res_width(reset_after, H)), dtype=torch.float32, device=dev)
-    h_last = torch.empty((B, H), dtype=torch.float32, device=dev)
-    if B == 0 or T == 0:
-        h_last.copy_(h0)
-        return ys, res, h_last
-    with torch.cuda.device(dev):
-        status = _lib().gru_scan_fwd_res(
-            xp.data_ptr(), wh.data_ptr(), bh.data_ptr() if reset_after else None,
-            h0.data_ptr(), ys.data_ptr(), res.data_ptr(), h_last.data_ptr(),
-            B, T, H, int(reset_after), int(gate_activation == "hard_sigmoid"),
-            int(reverse), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _raise_on(status, "gru_scan_fwd_res")
-    gru_scan_fwd_res.launches += 1
-    return ys, res, h_last
+    (out,), n = _fwd([xp], [wh], [bh], [h0], [reverse], reset_after, gate_activation, True)
+    gru_scan_fwd_res.launches += n
+    return out
 
 
 gru_scan_fwd_res.launches = 0
@@ -343,47 +523,96 @@ def gru_scan_bwd(
     reverse: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient recurrence -> ``(dxp, dwh, dbh, dh0)``. CUDA tensor: the
-    backward kernel and the fixed-order partial sum; CPU tensor:
+    backward kernels (the chain, then on the warp body the ``dwh``
+    reduction, then the fixed-order partial sum); CPU tensor:
     `gru_scan_bwd_plain`."""
-    dev = _device_of(ys)
-    if dev.type == "cpu":
+    if _device_of(ys).type == "cpu":
         return gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, reset_after,
                                   gate_activation, reverse)
-    B, T, H = ys.shape
-    _validate(3 * H, gate_activation, MAX_HIDDEN_BWD)
-    ys = _checked("ys", ys, (B, T, H), dev)
-    res = _checked("res", res, (B, T, res_width(reset_after, H)), dev)
-    wh = _checked("wh", wh, (H, 3 * H), dev)
-    h0 = _checked("h0", h0, (B, H), dev)
-    dys = _checked("dys", dys, (B, T, H), dev)
-    dhl = _checked("dhl", dhl, (B, H), dev)
-    dxp = torch.empty((B, T, 3 * H), dtype=torch.float32, device=dev)
-    if B == 0 or T == 0:
-        return dxp, wh.new_zeros(wh.shape), wh.new_zeros((3 * H,)), dhl.clone()
-    lib = _lib()
-    n = 3 * H * H + 3 * H
-    part = torch.empty((lib.gru_scan_bwd_blocks(H, B), n), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    sums = torch.empty((n,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.gru_scan_bwd(
-            ys.data_ptr(), res.data_ptr(), wh.data_ptr(), h0.data_ptr(), dys.data_ptr(),
-            dhl.data_ptr(), dxp.data_ptr(), dh0.data_ptr(), part.data_ptr(),
-            B, T, H, int(reset_after), int(gate_activation == "hard_sigmoid"),
-            int(reverse), stream,
-        )
-        _raise_on(status, "gru_scan_bwd")
-        gru_scan_bwd.launches += 1
-        status = lib.gru_scan_sum_partials(part.data_ptr(), sums.data_ptr(),
-                                           part.shape[0], n, stream)
-        _raise_on(status, "gru_scan_sum_partials")
-        gru_scan_bwd.sum_launches += 1
-    return dxp, sums[: 3 * H * H].view(H, 3 * H), sums[3 * H * H :], dh0
+    (out,) = _bwd([ys], [res], [wh], [h0], [dys], [dhl], [reverse], reset_after,
+                  gate_activation)
+    return out
 
 
 gru_scan_bwd.launches = 0
+gru_scan_bwd.dwh_launches = 0
 gru_scan_bwd.sum_launches = 0
+
+
+def _pair_bias(bh: Sequence[Optional[torch.Tensor]], reset_after: bool, xp: Pair):
+    return tuple(_bias(b, reset_after, x) for b, x in zip(bh, xp))
+
+
+def _check_pair(xp: Pair) -> torch.device:
+    dev = _device_of(xp[0])
+    if len(xp) != 2 or xp[1].device != dev or xp[1].shape != xp[0].shape:
+        raise ValueError("a pair needs two directions of one shape on one device")
+    return dev
+
+
+def gru_scan_pair(
+    xp: Pair,
+    wh: Pair,
+    bh: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]],
+    h0: Pair,
+    reset_after: bool,
+    gate_activation: str,
+) -> Tuple[Pair, Pair]:
+    """Both directions of a BiGRU, each argument a (forward-in-time,
+    reversed) pair -> ``((ys_f, h_last_f), (ys_b, h_last_b))``.
+
+    With grad enabled and an input that requires grad: `GruScanPairFn`.
+    Otherwise, for CUDA tensors one launch of the warp body (two of the
+    retained one), for CPU tensors two `gru_scan_plain` runs."""
+    bh = _pair_bias(bh, reset_after, xp)
+    if _needs_grad(*xp, *wh, *bh, *h0):
+        ys_f, ys_b, hl_f, hl_b = GruScanPairFn.apply(*xp, *wh, *bh, *h0, reset_after,
+                                                     gate_activation)
+        return (ys_f, hl_f), (ys_b, hl_b)
+    if _check_pair(xp).type == "cpu":
+        return tuple(gru_scan_plain(x, w, b, h, reset_after, gate_activation, rev)
+                     for x, w, b, h, rev in zip(xp, wh, bh, h0, (False, True)))
+    outs, n = _fwd(xp, wh, bh, h0, (False, True), reset_after, gate_activation, False)
+    gru_scan.launches += n
+    return tuple((ys, hl) for ys, _, hl in outs)
+
+
+def gru_scan_pair_fwd_res(
+    xp: Pair,
+    wh: Pair,
+    bh: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]],
+    h0: Pair,
+    reset_after: bool,
+    gate_activation: str,
+) -> Tuple[tuple, tuple]:
+    """`gru_scan_fwd_res` of both directions -> ``((ys, res, h_last) forward,
+    (ys, res, h_last) reversed)``; counted in ``gru_scan_fwd_res.launches``."""
+    bh = _pair_bias(bh, reset_after, xp)
+    if _check_pair(xp).type == "cpu":
+        return tuple(gru_scan_fwd_res_plain(x, w, b, h, reset_after, gate_activation, rev)
+                     for x, w, b, h, rev in zip(xp, wh, bh, h0, (False, True)))
+    outs, n = _fwd(xp, wh, bh, h0, (False, True), reset_after, gate_activation, True)
+    gru_scan_fwd_res.launches += n
+    return tuple(outs)
+
+
+def gru_scan_pair_bwd(
+    ys: Pair,
+    res: Pair,
+    wh: Pair,
+    h0: Pair,
+    dys: Pair,
+    dhl: Pair,
+    reset_after: bool,
+    gate_activation: str,
+) -> Tuple[tuple, tuple]:
+    """`gru_scan_bwd` of both directions -> ``((dxp, dwh, dbh, dh0) forward,
+    (...) reversed)``: on the warp body one launch each of the chain, the
+    ``dwh`` reduction and the partial sum."""
+    if _check_pair(ys).type == "cpu":
+        return tuple(gru_scan_bwd_plain(*a, reset_after, gate_activation, rev)
+                     for *a, rev in zip(ys, res, wh, h0, dys, dhl, (False, True)))
+    return tuple(_bwd(ys, res, wh, h0, dys, dhl, (False, True), reset_after, gate_activation))
 
 
 class GruScanFn(torch.autograd.Function):
@@ -410,3 +639,38 @@ class GruScanFn(torch.autograd.Function):
         dhl = torch.zeros_like(h0) if dhl is None else dhl.contiguous()
         dxp, dwh, dbh, dh0 = gru_scan_bwd(ys, res, wh, h0, dys, dhl, *ctx.conf)
         return dxp, dwh, dbh if ctx.has_bh else None, dh0, None, None, None
+
+
+class GruScanPairFn(torch.autograd.Function):
+    """`GruScanFn` for both directions of a BiGRU at once: forward
+    `gru_scan_pair_fwd_res`, backward `gru_scan_pair_bwd`. Arguments
+    ``(xp_f, xp_b, wh_f, wh_b, bh_f, bh_b, h0_f, h0_b, reset_after,
+    gate_activation)``, outputs ``(ys_f, ys_b, h_last_f, h_last_b)``; the
+    same rules for absent cotangents and biases as `GruScanFn`."""
+
+    @staticmethod
+    def forward(ctx, xp_f, xp_b, wh_f, wh_b, bh_f, bh_b, h0_f, h0_b, reset_after,
+                gate_activation):
+        (ys_f, res_f, hl_f), (ys_b, res_b, hl_b) = gru_scan_pair_fwd_res(
+            (xp_f, xp_b), (wh_f, wh_b), (bh_f, bh_b), (h0_f, h0_b), reset_after,
+            gate_activation)
+        ctx.save_for_backward(ys_f, ys_b, res_f, res_b, wh_f, wh_b, h0_f, h0_b)
+        ctx.conf = (reset_after, gate_activation)
+        ctx.has_bh = (bh_f is not None, bh_b is not None)
+        ctx.set_materialize_grads(False)
+        return ys_f, ys_b, hl_f, hl_b
+
+    @staticmethod
+    def backward(ctx, dys_f, dys_b, dhl_f, dhl_b):
+        ys_f, ys_b, res_f, res_b, wh_f, wh_b, h0_f, h0_b = ctx.saved_tensors
+
+        def cot(g, like):
+            return torch.zeros_like(like) if g is None else g.contiguous()
+
+        grads = gru_scan_pair_bwd(
+            (ys_f, ys_b), (res_f, res_b), (wh_f, wh_b), (h0_f, h0_b),
+            (cot(dys_f, ys_f), cot(dys_b, ys_b)), (cot(dhl_f, h0_f), cot(dhl_b, h0_b)),
+            *ctx.conf)
+        (dxp_f, dwh_f, dbh_f, dh0_f), (dxp_b, dwh_b, dbh_b, dh0_b) = grads
+        return (dxp_f, dxp_b, dwh_f, dwh_b, dbh_f if ctx.has_bh[0] else None,
+                dbh_b if ctx.has_bh[1] else None, dh0_f, dh0_b, None, None)

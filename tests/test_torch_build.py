@@ -60,3 +60,11 @@ def test_failed_compile_raises_after_waiting_for_all(tmp_path, build_dir, monkey
     others = sorted(_build._library_path(n)[1].name for n in _build.KERNEL_SOURCES
                     if n != "gru_scan")
     assert names == others  # no temp files left
+
+
+def test_every_kernel_source_is_listed():
+    """The four sources under csrc/ (the two log-mel bodies, the two GRU
+    bodies) are exactly the ones `build_all` compiles."""
+    on_disk = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert on_disk == sorted(_build.KERNEL_SOURCES)
+    assert on_disk == ["fused_logmel", "gru_scan", "gru_warp", "logmel_fft"]

@@ -21,6 +21,7 @@ from sed_crnn_tpu.ops.pallas.gru_scan import gru_scan as jax_gru_scan
 
 from sed_crnn_torch.ops.kernels.gru_scan import (
     GruScanFn,
+    gru_dwh_plain,
     gru_scan,
     gru_scan_bwd_plain,
     gru_scan_fwd_res_plain,
@@ -132,3 +133,22 @@ def test_unused_outputs_and_absent_bias():
     ys, _ = gru_scan(xp, wh, bh, h0, False, "sigmoid", False)
     (g_bh,) = torch.autograd.grad(ys.sum(), [bh])
     assert g_bh.shape == (3 * H,) and not bool(g_bh.any())
+
+
+@pytest.mark.parametrize("reset_after,gate,reverse", VARIANTS)
+def test_dwh_plain_matches_jax_kernel(reset_after, gate, reverse):
+    """`gru_dwh_plain` (dwh/dbh after the chain, the CUDA reduction's
+    reference) from the JAX kernel's own dxp gives the JAX `_bwd_kernel`'s
+    dwh and dbh."""
+    c = _case(33, reset_after)
+    want = _jax_grads(c, reset_after, gate, reverse)
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in c.items()}
+    ys, res, _ = gru_scan_fwd_res_plain(t["xp"], t["wh"], t["bh"], t["h0"], reset_after, gate,
+                                        reverse)
+    dwh, dbh = gru_dwh_plain(ys, res, t["h0"], torch.from_numpy(want["xp"]), reset_after,
+                             reverse)
+    np.testing.assert_allclose(dwh.numpy(), want["wh"], atol=ATOL)
+    if reset_after:
+        np.testing.assert_allclose(dbh.numpy(), want["bh"], atol=ATOL)
+    else:
+        assert dbh.shape == (3 * H,) and not bool(dbh.any())

@@ -34,12 +34,20 @@ from sed_crnn_torch.ops.kernels.fused_logmel import (
     route,
 )
 from sed_crnn_torch.ops.stft import frame_signal
+from sed_crnn_torch.nn.gru import BiGRU
 from sed_crnn_torch.ops.kernels.gru_scan import (
+    _bwd,
+    _fwd,
+    gru_body,
+    gru_dwh_plain,
     gru_scan,
     gru_scan_bwd,
     gru_scan_bwd_plain,
     gru_scan_fwd_res,
     gru_scan_fwd_res_plain,
+    gru_scan_pair,
+    gru_scan_pair_bwd,
+    gru_scan_pair_fwd_res,
     gru_scan_plain,
 )
 
@@ -54,7 +62,11 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,T,H", [(1, 1, 4), (3, 7, 8), (5, 300, 32), (2, 20, 64)])
+# H <= 32 runs the warp body (csrc/gru_warp.cu), H=64 the retained one.
+GRU_SHAPES = [(1, 1, 4), (3, 7, 8), (7, 45, 16), (5, 300, 32), (2, 20, 64)]
+
+
+@pytest.mark.parametrize("B,T,H", GRU_SHAPES)
 @pytest.mark.parametrize("reset_after", [False, True])
 @pytest.mark.parametrize("gate", ["sigmoid", "hard_sigmoid"])
 @pytest.mark.parametrize("reverse", [False, True])
@@ -65,10 +77,11 @@ def test_gru_kernel_matches_plain(cuda, B, T, H, reset_after, gate, reverse):
     wh = t(rng.standard_normal((H, 3 * H)) / np.sqrt(H))
     bh = t(0.1 * rng.standard_normal(3 * H)) if reset_after else None
     h0 = t(0.5 * rng.standard_normal((B, H)))
-    launches = gru_scan.launches
+    launches, retained = gru_scan.launches, gru_scan.retained_launches
     ys, hl = gru_scan(xp, wh, bh, h0, reset_after, gate, reverse)
     torch.cuda.synchronize()
     assert gru_scan.launches == launches + 1
+    assert gru_scan.retained_launches == retained + (gru_body(H) == "retained")
     ys_p, hl_p = gru_scan_plain(xp, wh, bh, h0, reset_after, gate, reverse)
     torch.testing.assert_close(ys, ys_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(hl, hl_p, rtol=0, atol=1e-5)
@@ -83,7 +96,7 @@ def _gru_case(dev, B, T, H, reset_after, seed):
             t(rng.standard_normal((B, H))))
 
 
-@pytest.mark.parametrize("B,T,H", [(1, 1, 4), (3, 7, 8), (5, 300, 32), (2, 20, 64)])
+@pytest.mark.parametrize("B,T,H", GRU_SHAPES)
 @pytest.mark.parametrize("reset_after", [False, True])
 @pytest.mark.parametrize("gate", ["sigmoid", "hard_sigmoid"])
 @pytest.mark.parametrize("reverse", [False, True])
@@ -96,6 +109,7 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
     conf = (reset_after, gate, reverse)
     n_fwd, n_bwd, n_sum = (gru_scan_fwd_res.launches, gru_scan_bwd.launches,
                            gru_scan_bwd.sum_launches)
+    n_dwh, n_retained = gru_scan_bwd.dwh_launches, gru_scan.retained_launches
     ys, res, hl = gru_scan_fwd_res(xp, wh, bh, h0, *conf)
     torch.cuda.synchronize()
     ys_p, res_p, hl_p = gru_scan_fwd_res_plain(xp, wh, bh, h0, *conf)
@@ -113,6 +127,9 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
         assert not bool(grads[2].any())
     assert (gru_scan_fwd_res.launches, gru_scan_bwd.launches, gru_scan_bwd.sum_launches) == (
         n_fwd + 1, n_bwd + 1, n_sum + 1)
+    warp = gru_body(H) == "warp"
+    assert gru_scan_bwd.dwh_launches == n_dwh + warp
+    assert gru_scan.retained_launches == n_retained + 3 * (not warp)  # fwd_res, fwd, bwd
 
 
 @pytest.mark.parametrize("reset_after", [False, True])
@@ -158,6 +175,111 @@ def test_gru_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         gru_scan(xp, torch.zeros(4, 12), None, torch.zeros(2, 4, device=cuda),
                  False, "sigmoid", False)
+
+
+def _pair_case(dev, B, T, H, reset_after, seed):
+    a = _gru_case(dev, B, T, H, reset_after, seed)
+    b = _gru_case(dev, B, T, H, reset_after, seed + 1)
+    return tuple(zip(a, b))
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 256, 32), (8, 256, 16), (128, 256, 8), (3, 20, 64)])
+@pytest.mark.parametrize("reset_after", [False, True])
+@pytest.mark.parametrize("gate", ["sigmoid", "hard_sigmoid"])
+def test_gru_pair_launches_match_two_plain_directions(cuda, B, T, H, reset_after, gate):
+    """One pair launch (two on the retained body) of each kernel against the
+    single-direction plain versions run forward and reversed."""
+    xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 70 + H)
+    warp = gru_body(H) == "warp"
+    before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+    pair = gru_scan_pair(xp, wh, bh, h0, reset_after, gate)
+    pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, gate)
+    ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
+    grads = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, gate)
+    torch.cuda.synchronize()
+    n = 1 if warp else 2
+    assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+            gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches,
+            gru_scan.retained_launches) == (
+        before[0] + n, before[1] + n, before[2] + n, before[3] + warp, before[4] + n,
+        before[5] + (0 if warp else 6))
+    for k, rev in enumerate((False, True)):
+        conf = (reset_after, gate, rev)
+        want = gru_scan_fwd_res_plain(xp[k], wh[k], bh[k], h0[k], *conf)
+        for got, w in zip(pair_res[k], want):
+            torch.testing.assert_close(got, w, rtol=0, atol=1e-5)
+        assert torch.equal(pair[k][0], pair_res[k][0]) and torch.equal(pair[k][1], pair_res[k][2])
+        want = gru_scan_bwd_plain(ys[k], res[k], wh[k], h0[k], dys[k], dhl[k], *conf)
+        for got, w in zip(grads[k], want):
+            torch.testing.assert_close(got, w, rtol=0, atol=1e-4 * max(float(w.abs().max()), 1e-6))
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 256, 32), (128, 256, 32), (8, 256, 16), (5, 77, 8)])
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, reset_after):
+    """The warp body's dwh/dbh (reduction kernel + fixed-order sum) against
+    `gru_dwh_plain` on the kernel's own dxp, within 1e-4 of the largest
+    magnitude (B*T terms summed in another order); two runs bitwise equal."""
+    xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 90 + B)
+    pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, "sigmoid")
+    ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
+    first = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, "sigmoid")
+    second = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, "sigmoid")
+    torch.cuda.synchronize()
+    for k, rev in enumerate((False, True)):
+        dxp, dwh, dbh, _ = first[k]
+        want_dwh, want_dbh = gru_dwh_plain(ys[k], res[k], h0[k], dxp, reset_after, rev)
+        torch.testing.assert_close(dwh, want_dwh, rtol=0,
+                                   atol=1e-4 * float(want_dwh.abs().max()))
+        torch.testing.assert_close(dbh, want_dbh, rtol=0,
+                                   atol=1e-4 * max(float(want_dbh.abs().max()), 1e-6))
+        assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
+
+
+@pytest.mark.parametrize("H", [8, 32])
+def test_retained_body_still_matches_plain_at_warp_widths(cuda, H):
+    """The private launchers put the retained body on a width the warp body
+    takes (as chip_smoke.py times them side by side): same function."""
+    xp, wh, bh, h0, dys, dhl = _gru_case(cuda, 4, 50, H, True, 11)
+    outs = {}
+    for body in ("warp", "retained"):
+        (fwd,), _ = _fwd([xp], [wh], [bh], [h0], [True], True, "sigmoid", True, body)
+        (bwd,) = _bwd([fwd[0]], [fwd[1]], [wh], [h0], [dys], [dhl], [True], True, "sigmoid", body)
+        outs[body] = fwd + bwd
+    for a, b in zip(outs["warp"], outs["retained"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(float(b.abs().max()), 1e-6))
+
+
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_bigru_autograd_launches_one_pair_per_kernel(cuda, reset_after):
+    """Autograd through a two-layer BiGRU stack on the card: per layer one
+    pair residual forward, one pair backward (chain, dwh reduction, partial
+    sum), none on the retained body; gradients as the CPU's plain versions."""
+    gen = torch.Generator().manual_seed(3)
+    layers = [BiGRU(10, 16, reset_after, "sigmoid"), BiGRU(32, 8, reset_after, "sigmoid")]
+    for m in layers:
+        m.init_parameters(gen)
+    x = torch.randn(4, 64, 10, generator=gen)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ms = [BiGRU(10, 16, reset_after, "sigmoid"), BiGRU(32, 8, reset_after, "sigmoid")]
+        for m, src in zip(ms, layers):
+            m.load_state_dict(src.state_dict())
+            m.to(dev)
+        before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+                  gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+        h = x.to(dev)
+        for m in ms:
+            h, _ = m(h)
+        params = [p for m in ms for p in m.parameters()]
+        grads[dev] = torch.autograd.grad(h.square().sum(), params)
+        after = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+                 gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+        steps = tuple(a - b for a, b in zip(after, before))
+        assert steps == ((0, 0, 0, 0, 0, 0) if dev == "cpu" else (0, 2, 2, 2, 2, 0))
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
 
 
 def _signal(n, sr, seed, silent=None):
