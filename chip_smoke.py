@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and feature-extraction paths
-on one GPU and check its kernels.
+"""Drive the PyTorch port's serving, training, feature-extraction and
+evaluation paths on one GPU and check its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -90,7 +90,25 @@ exits non-zero and prints no result line:
     width (in_channels 6, batch 128), 2 epochs: finite losses, exact GRU
     kernel launch counts (and no log-mel launch, as in phases 8 and 9), a
     best checkpoint that loads back and gives the same logits on the card
-    and the CPU.
+    and the CPU;
+14. the evaluation path ([evaluate]): ``evaluate_split`` on a 1,800 s
+    synthetic 6-class split (77,520 frames, 302 windows, 2 batches of 256)
+    with phase 9's best checkpoint alone and best + last as an ensemble:
+    exactly one pair forward per BiGRU layer per batch per member, nothing
+    else and no plain version on the card; the forward against the CPU on
+    16 windows (1e-3), the card's and the CPU's scoring of the card's roll
+    (counts, thresholds and None/NaN places equal, ratios within 1e-6,
+    dumped event lists byte-identical); ``apps.evaluate`` on phase 13's
+    binmul checkpoint and phase 12's pack with ``--dump-events``, rescored
+    by ``score_event_lists`` within 1e-9; the evaluation rate and its parts
+    (forward, sweeps, event decode and matching, the rest), the event
+    counts, and kernel B's pair forward at B=256 beside its bound and a
+    bidirectional ``torch.nn.GRU``;
+15. sequential multi-seed training ([multiseed]): ``apps.train --runs 2
+    --runs-mode sequential`` at full width, 1 epoch, exact launch counts,
+    per-seed checkpoints and ``experiment_multiseed.jsonl``; then
+    ``apps.evaluate`` on both seeds' best checkpoints (2 members and the
+    ensemble, exact launch counts).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -1725,6 +1743,361 @@ def phase_feature_train(workdir: str, cache: str):
           f"steps, {n_sweep} sweep step(s), in {wall:.2f} s; loss_tr {res.history['loss_tr']}, "
           f"loss_val {res.history['loss_val']}; best checkpoint (epoch {meta.get('epoch')}) "
           f"loads back, logits {tuple(logits.shape)} card vs CPU {err:.3g}; launches {launches}")
+    return res.best_checkpoint
+
+
+EVAL_FRAMES = 77_520     # 1,800 s at 43.07 frames/s: about one DCASE 2017 street evaluate list
+EVAL_BATCH = 256         # evaluate_split's default batch
+SCORE_ATOL = 1e-6        # card vs CPU scoring ratios on one probability roll
+MATCH_PAIRS_MAX = 5e7    # (ref x sys) event pairs past which host matching takes minutes
+
+
+def _reports_agree(got, want, path="report"):
+    """Two evaluation reports of one probability roll: the same keys, ints
+    and strings equal, floats within SCORE_ATOL with NaN / inf and None in
+    the same places."""
+    if isinstance(want, dict):
+        check(list(got) == list(want), f"{path}: keys {list(got)} vs {list(want)}")
+        for k in want:
+            _reports_agree(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        check(len(got) == len(want), f"{path}: lengths")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _reports_agree(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        same = (str(got) == str(want)) if not np.isfinite(want) else (
+            isinstance(got, float) and abs(got - want) <= SCORE_ATOL)
+        check(same, f"{path}: {got} vs {want}")
+    else:
+        check(type(got) is type(want) and got == want, f"{path}: {got!r} vs {want!r}")
+
+
+def phase_evaluate(train_dir: str, cache: str, binmul_best: str):
+    """`evaluate_split` and `apps.evaluate` on the card: phase 9's
+    sednet-dcase checkpoints on a 1,800 s synthetic split, alone and as a
+    2-member ensemble, with exact launch counts; card vs CPU forward and
+    scoring; the binmul chain feature -> train -> evaluate -> score_events;
+    the evaluation rate and its parts; kernel B's pair forward at B=256."""
+    import torch
+
+    from sed_crnn_torch.apps import evaluate as eval_app
+    from sed_crnn_torch.apps.infer import load_model
+    from sed_crnn_torch.apps.score_events import score_event_lists
+    from sed_crnn_torch.apps.train import synthetic_folds
+    from sed_crnn_torch.core.checkpoint import load_checkpoint
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.ops import metrics as metrics_ops
+    from sed_crnn_torch.ops.event_metrics import (
+        class_wise_event_scores,
+        event_scores,
+        events_from_roll,
+    )
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan_pair, gru_scan_plain
+    from sed_crnn_torch.train.evaluate import (
+        DEFAULT_THRESHOLDS,
+        evaluate_split,
+        forward_probabilities,
+        score_rolls,
+        window_split,
+    )
+
+    dev = torch.device("cuda")
+    cfg = get_preset("sednet-dcase")
+    m, tc = cfg.model, cfg.train
+    val = synthetic_folds(1, frames=2 * EVAL_FRAMES, seed=14, n_classes=m.n_classes)[1]
+    x, y = val["val_x"], val["val_y"]
+    check(x.shape == (EVAL_FRAMES, m.n_mels), f"evaluation split {x.shape}")
+    xw, yw = window_split(x, y, m.seq_len_in, m.seq_len_out)
+    n_win = xw.shape[0]
+    n_batches = -(-n_win // EVAL_BATCH)
+    audio_s = EVAL_FRAMES / FRAMES_PER_SEC
+    ckpts = {k: load_checkpoint(os.path.join(train_dir, "fold1", f"{k}_fold1.npz"))
+             for k in ("best", "last")}
+    trees = {k: tree for k, (tree, _) in ckpts.items()}
+    best, last = (load_model(trees[k], m, dev) for k in ("best", "last"))
+
+    # The forward once before any clock (cuDNN's algorithm choice, the
+    # kernel's first launch), and the event counts before any matching.
+    probs = forward_probabilities([best.eval()], xw, EVAL_BATCH)
+    flat_p = probs.reshape(-1, m.n_classes)
+    flat_y = torch.from_numpy(np.ascontiguousarray(yw.reshape(-1, m.n_classes))).to(dev)
+    n_ref = len(events_from_roll(flat_y.cpu().numpy(), 1, 0.5))
+    n_sys = len(events_from_roll(flat_p.cpu().numpy(), 1, tc.threshold))
+    print(f"[evaluate] {n_ref} reference and {n_sys} system events at threshold {tc.threshold}")
+    check(n_ref * n_sys <= MATCH_PAIRS_MAX,
+          f"{n_ref} x {n_sys} events: host matching would take minutes")
+    reports, walls = {}, {}
+    for name, members in (("best", best), ("best+last", [best, last])):
+        n_members = 1 if name == "best" else 2
+        _reset_gru_counts()
+        _reset_logmel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _no_plain_gru_on_card() as plain_on_card:
+            reports[name] = evaluate_split(members, x, y, cfg, device="cuda")
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts = _gru_counts()
+        want = _gru_path_counts(2 * n_batches * n_members, 0)
+        check(counts == want, f"evaluate {name} launches {counts} != {want}")
+        check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
+        check(not any(_logmel_counts().values()), f"evaluate log-mel launches {_logmel_counts()}")
+        r = reports[name]
+        check(r["n_windows"] == n_win and len(r["sweep"]["er_1s"]) == len(DEFAULT_THRESHOLDS)
+              and len(r["per_class_sweep"]["thresholds"]) == m.n_classes
+              and np.isfinite(r["best_er_1s"]) and sum(r["confusion"].values()) == n_win
+              * m.seq_len_out * m.n_classes, f"evaluate {name} report")
+    eval_launches = sum(2 * n_batches * k for k in (1, 2))
+
+    # Card vs CPU: the forward on the first 16 windows, then the scoring code
+    # on the card's own roll (median 5 and dumped events on both).
+    head = probs[:16].cpu()
+    cpu_probs = forward_probabilities([load_model(trees["best"], m, "cpu").eval()], xw[:16],
+                                      EVAL_BATCH)
+    prob_err = float((head - cpu_probs).abs().max())
+    check(bool(torch.isfinite(probs).all()) and prob_err <= PROB_ATOL,
+          f"evaluation probabilities card vs CPU {prob_err}")
+    dumps = {d: os.path.join(train_dir, f"events_{d}") for d in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    on_card = score_rolls(flat_p, flat_y, cfg, n_win, median_filter=5,
+                          dump_events_dir=dumps["cuda"])
+    score_s = time.perf_counter() - t0
+    on_cpu = score_rolls(flat_p.cpu(), flat_y.cpu(), cfg, n_win, median_filter=5,
+                         dump_events_dir=dumps["cpu"])
+    _reports_agree(on_card, on_cpu)
+    check(on_card["confusion"] == on_cpu["confusion"]
+          and on_card["best_threshold"] == on_cpu["best_threshold"]
+          and on_card["per_class_sweep"]["thresholds"] == on_cpu["per_class_sweep"]["thresholds"],
+          "card vs CPU counts or thresholds")
+    for f in ("ref_events.txt", "est_events.txt"):
+        with open(os.path.join(dumps["cuda"], f), "rb") as a, \
+                open(os.path.join(dumps["cpu"], f), "rb") as b:
+            check(a.read() == b.read(), f"card vs CPU event list {f}")
+
+    # Where the time goes: the forward (CUDA events), the sweeps on the card
+    # and the host's event decoding and matching, each alone.
+    fwd_ms = cuda_ms(lambda: forward_probabilities([best], xw, EVAL_BATCH), reps=3, warmup=1)
+
+    def sweeps():
+        binary = (flat_p > torch.tensor(tc.threshold, device=dev)).float()
+        out = (metrics_ops.all_scores(binary, flat_y, tc.frames_in_1_sec),
+               metrics_ops.best_threshold(flat_p, flat_y, DEFAULT_THRESHOLDS, tc.frames_in_1_sec),
+               metrics_ops.class_wise_report(binary, flat_y, tc.frames_in_1_sec),
+               metrics_ops.best_per_class_thresholds(flat_p, flat_y, DEFAULT_THRESHOLDS,
+                                                     tc.frames_in_1_sec))
+        torch.cuda.synchronize()
+        return out
+
+    sweeps()
+    t0 = time.perf_counter()
+    sweeps()
+    sweep_s = time.perf_counter() - t0
+    hop_s = cfg.frontend.hop_length / cfg.frontend.sample_rate
+    t0 = time.perf_counter()
+    sys_ev = events_from_roll(flat_p.cpu().numpy(), hop_s, tc.threshold)
+    ref_ev = events_from_roll(flat_y.cpu().numpy(), hop_s, 0.5)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    event_scores(ref_ev, sys_ev)
+    class_wise_event_scores(ref_ev, sys_ev, n_classes=m.n_classes)
+    match_s = time.perf_counter() - t0
+    wall = walls["best"]
+    rest = wall - fwd_ms / 1e3 - sweep_s - decode_s - match_s
+    print(f"[evaluate] evaluate_split sednet-dcase (phase 9's best checkpoint, epoch "
+          f"{ckpts['best'][1].get('epoch')}) on a {EVAL_FRAMES}-frame split ({audio_s:.1f} s, "
+          f"{n_win} windows, {n_batches} batches of {EVAL_BATCH}): {wall:.3f} s host clock -> "
+          f"{audio_s / wall:,.1f} audio-sec/sec; 2-member ensemble {walls['best+last']:.3f} s -> "
+          f"{audio_s / walls['best+last']:,.1f} audio-sec/sec")
+    print(f"[evaluate] parts of the single-model run, each alone: forward {fwd_ms:.2f} ms (CUDA "
+          f"events), sweeps and base scores on the card {sweep_s * 1e3:.2f} ms (host clock to a "
+          f"sync), event decode {decode_s * 1e3:.2f} ms and matching {match_s * 1e3:.2f} ms "
+          f"(host), the rest {rest * 1e3:.2f} ms; {len(ref_ev)} reference and {len(sys_ev)} "
+          f"system events")
+    r = reports["best"]
+    print(f"[evaluate] best: ER_1s {r['er_1s']:.4f} F1_1s {r['f1_1s']:.4f}, best threshold "
+          f"{r['best_threshold']:.2f} (ER {r['best_er_1s']:.4f}), per-class ER "
+          f"{r['per_class_sweep']['er_1s']:.4f}, event ER {r['er_event']:.4f} F1 "
+          f"{r['f1_event']:.4f}; ensemble ER_1s {reports['best+last']['er_1s']:.4f}; launches "
+          f"{_gru_path_counts(2 * n_batches, 0)['gru_scan_fwd']} and "
+          f"{_gru_path_counts(4 * n_batches, 0)['gru_scan_fwd']} pair forwards, nothing else")
+    n_dumped = {f: len(open(os.path.join(dumps["cuda"], f)).read().splitlines())
+                for f in ("ref_events.txt", "est_events.txt")}
+    print(f"[evaluate] card vs CPU: forward on 16 windows max|diff| {prob_err:.3g}; scoring of "
+          f"the card's roll (median 5) on the card {score_s:.3f} s and on the CPU agree (counts, "
+          f"thresholds, None/NaN places equal, ratios within {SCORE_ATOL}), event lists "
+          f"byte-identical ({n_dumped['ref_events.txt']} reference, "
+          f"{n_dumped['est_events.txt']} system events after the median)")
+
+    # The device's share of one single-model run (torch.profiler), and the
+    # host matching at a heavier load: the roll decoded at the per-class
+    # sweep's thresholds.
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        evaluate_split(best, x, y, cfg, device="cuda")
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    busy = ("not measured" if busy_ms == 0 else
+            f"{busy_ms:.2f} ms busy of {prof_wall * 1e3:.2f} ms profiled, idle share "
+            f"{max(0.0, 1 - busy_ms / (prof_wall * 1e3)):.3f}")
+    th_vec = np.asarray(r["per_class_sweep"]["thresholds"], np.float32)
+    sys_pc = events_from_roll(flat_p.cpu().numpy(), hop_s, th_vec)
+    t0 = time.perf_counter()
+    event_scores(ref_ev, sys_pc)
+    class_wise_event_scores(ref_ev, sys_pc, n_classes=m.n_classes)
+    match_pc = time.perf_counter() - t0
+    print(f"[evaluate] device during one single-model run (torch.profiler): {busy}; host "
+          f"matching of {len(ref_ev)} reference and {len(sys_pc)} system events decoded at the "
+          f"per-class thresholds {th_vec.tolist()}: {match_pc * 1e3:.2f} ms")
+
+    # The binmul chain: phase 12's fold-1 pack and phase 13's best checkpoint.
+    dump = os.path.join(train_dir, "events_binmul")
+    out = os.path.join(train_dir, "binmul_report.json")
+    n_val = len(np.load(os.path.join(cache, "mbe_binmul_fold1.npz"))["arr_2"])
+    binmul_batches = -(-(n_val // m.seq_len_in) // EVAL_BATCH)
+    _reset_gru_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        report, _ = _quiet(eval_app.main, [
+            "--checkpoint", binmul_best, "--preset", "sednet-dcase-binmul", "--cache-dir", cache,
+            "--channel-tag", "binmul", "--fold", "1", "--dump-events", dump, "--out", out,
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+    counts = _gru_counts()
+    check(counts == _gru_path_counts(2 * binmul_batches, 0) and not plain_on_card,
+          f"binmul evaluate launches {counts}")
+    eval_launches += counts["gru_scan_fwd"]
+    overall, _ = score_event_lists(os.path.join(dump, "ref_events.txt"),
+                                   os.path.join(dump, "est_events.txt"))
+    for k in ("er_event", "f1_event"):
+        check(abs(overall[k] - report[k]) <= 1e-9 or (np.isnan(overall[k]) and np.isnan(report[k])),
+              f"score_events {k} {overall[k]} vs the report's {report[k]}")
+    print(f"[evaluate] binmul chain: apps.evaluate on phase 13's best checkpoint and phase 12's "
+          f"fold-1 pack ({n_val} frames, {n_val // m.seq_len_in} windows): ER_1s "
+          f"{report['er_1s']:.4f}, event ER {report['er_event']:.4f} F1 {report['f1_event']:.4f} "
+          f"reproduced by score_events (n_ref {overall['n_ref']}, n_sys {overall['n_sys']}); "
+          f"launches {counts['gru_scan_fwd']}")
+
+    # Kernel B's pair forward at the evaluation batch.
+    B, H, T = EVAL_BATCH, 32, GRU_T
+    rng = np.random.default_rng(15)
+    sets = [_gru_inputs(rng, dev, B, H) for _ in range(2)]
+    conf = (False, "sigmoid")
+    pair = lambda: gru_scan_pair(_pair_of(sets, 0), _pair_of(sets, 1),  # noqa: E731
+                                 (None, None), _pair_of(sets, 3), *conf)
+    got = pair()
+    err = 0.0
+    for k, rev in enumerate((False, True)):
+        xp, wh, _, h0 = sets[k]
+        want = gru_scan_plain(xp, wh, None, h0, *conf, rev)
+        err = max(err, max(_maxdiff(g, w) for g, w in zip(got[k], want)))
+    check(err <= GRU_ATOL, f"pair forward at B={B}: {err}")
+    ms = cuda_ms(pair, reps=20)
+    dev_ms, host_ms = device_host_ms(pair)
+    nbytes = 2 * 4 * (B * T * 3 * H + H * 3 * H + 2 * B * H + B * T * H)
+    flops = 2 * T * B * (2 * H * 3 * H + 12 * H)
+    bnd, by = bound_ms(nbytes, flops)
+    xp, wh, bh, h0 = sets[0]
+    lib = torch.nn.GRU(3 * H, H, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for sfx in ("", "_reverse"):
+            getattr(lib, f"weight_ih_l0{sfx}").copy_(torch.eye(3 * H, device=dev))
+            getattr(lib, f"bias_ih_l0{sfx}").zero_()
+            getattr(lib, f"weight_hh_l0{sfx}").copy_(wh.T)
+            getattr(lib, f"bias_hh_l0{sfx}").copy_(bh)
+        h0s = torch.stack([h0, h0])
+        lib_ms = cuda_ms(lambda: lib(xp, h0s), reps=20)
+        lib_out, _ = lib(xp, h0s)
+    want = gru_scan_plain(xp, wh, bh, h0, True, "sigmoid", False)
+    lib_err = _maxdiff(lib_out[..., :H], want[0])
+    check(lib_err <= LIBRARY_ATOL, f"bidirectional torch.nn.GRU at B={B} vs plain: {lib_err}")
+    ra_sets = [(s[0], s[1], s[2], s[3]) for s in sets]
+    ra_ms = cuda_ms(lambda: gru_scan_pair(_pair_of(ra_sets, 0), _pair_of(ra_sets, 1),
+                                          _pair_of(ra_sets, 2), _pair_of(ra_sets, 3), True,
+                                          "sigmoid"), reps=20)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"[evaluate] kernel B pair forward at B={B} T={T} H={H} reset_after=False ({2 * B} "
+          f"warps): {ms:.4f} ms by events ({ms / T * 1e3:.3f} us/step), device {dev_txt} "
+          f"(torch.profiler), host issue {host_ms:.4f} ms, vs plain {err:.3g}; bound {bnd:.5f} ms "
+          f"({by}, {nbytes / 1e6:.1f} MB); reset_after=True pair {ra_ms:.4f} ms vs "
+          f"bidirectional torch.nn.GRU (weight_ih = I; vs plain {lib_err:.3g}) {lib_ms:.4f} ms")
+    return eval_launches, {"eval_b256_ms": ms, "eval_b256_device_ms": dev_ms,
+                           "eval_b256_host_ms": host_ms, "eval_b256_bound_ms": bnd,
+                           "eval_b256_bound_by": by, "eval_b256_library_ms": lib_ms,
+                           "eval_b256_variant_ms": ra_ms, "eval_rate_audio_s_per_s": audio_s / wall}
+
+
+def phase_multiseed(workdir: str):
+    """`apps.train --runs 2 --runs-mode sequential` at full width on the card
+    (1 epoch, 1 fold), then `apps.evaluate` on the two seeds' best
+    checkpoints: 2 members and their ensemble."""
+    import glob
+
+    import torch
+
+    from sed_crnn_torch.apps import evaluate as eval_app
+    from sed_crnn_torch.apps import train as train_app
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.train.loop import make_samplers
+    from sed_crnn_torch.train.multiseed import run_seeds
+
+    cfg = get_preset("sednet-dcase")
+    batch, seq = cfg.train.batch_size, cfg.model.seq_len_in
+    frames = max(8000, int(batch * seq * 1.3))          # as apps.train --synthetic makes them
+    fold = train_app.synthetic_folds(1, frames=frames, n_classes=cfg.model.n_classes,
+                                     n_mels=cfg.model.n_mels)[1]
+    tr, val = make_samplers(cfg, fold, torch.device("cuda"))
+    n_train, n_sweep = tr.steps_per_epoch(batch), val.sweep_steps(batch)
+    art = os.path.join(workdir, "art")
+    seeds = run_seeds(cfg.train.seed, 2)
+    _reset_gru_counts()
+    t0 = time.perf_counter()
+    with _no_plain_gru_on_card() as plain_on_card:
+        out, _ = _quiet(train_app.main, [
+            "--preset", "sednet-dcase", "--synthetic", "--folds", "1", "--runs", "2",
+            "--runs-mode", "sequential", "--max-epochs", "1", "--plot-every", "0",
+            "--device", "cuda", "--art-dir", art])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _gru_counts()
+    want = _gru_path_counts(2 * n_sweep * len(seeds), 2 * n_train * len(seeds))
+    check(counts == want and not plain_on_card, f"multiseed launches {counts} != {want}")
+    (run,) = os.listdir(art)
+    bests = sorted(glob.glob(os.path.join(art, run, "fold1", "seed*", "best_fold1.npz")))
+    check(out["seeds"] == seeds and bests == sorted(
+        os.path.join(art, run, "fold1", f"seed{s}", "best_fold1.npz") for s in seeds),
+        f"multiseed seeds {out['seeds']} / checkpoints {bests}")
+    with open(os.path.join(art, run, "experiment_multiseed.jsonl")) as f:
+        (record,) = [json.loads(ln) for ln in f]
+    check(record["seeds"] == seeds and record["mean_er"] == out["mean_er"]
+          and record["std_er"] == out["std_er"] and np.isfinite(record["mean_er"]),
+          f"experiment_multiseed.jsonl {record}")
+    print(f"[multiseed] apps.train --runs 2 --runs-mode sequential sednet-dcase full width, 1 "
+          f"epoch x {n_train} steps at batch {batch} + {n_sweep} sweep step per seed, seeds "
+          f"{seeds}, in {wall:.2f} s: ER {out['mean_er']:.4f} ± {out['std_er']:.4f}, F1 "
+          f"{out['mean_f1']:.4f} ± {out['std_f1']:.4f}; launches {counts}")
+
+    cache = os.path.join(workdir, "cache")
+    os.makedirs(cache)
+    np.savez(os.path.join(cache, "mbe_mon_fold1.npz"), fold["train_x"], fold["train_y"],
+             fold["val_x"], fold["val_y"])
+    n_batches = -(-(len(fold["val_x"]) // seq) // EVAL_BATCH)
+    _reset_gru_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        report, _ = _quiet(eval_app.main, ["--checkpoint", *bests, "--preset", "sednet-dcase",
+                                           "--cache-dir", cache, "--device", "cuda"])
+        torch.cuda.synchronize()
+    counts = _gru_counts()
+    want = _gru_path_counts(2 * n_batches * (2 + 2), 0)
+    check(counts == want and not plain_on_card, f"multiseed evaluate launches {counts} != {want}")
+    check(report["n_members"] == 2 and len(report["members"]) == 2
+          and np.isfinite(report["ensemble"]["er_1s"]), "multiseed evaluate report")
+    print(f"[multiseed] apps.evaluate on the 2 seeds' best checkpoints: member ER_1s "
+          f"{[round(mm['er_1s'], 4) for mm in report['members']]} (mean "
+          f"{report['mean_er_1s']:.4f} ± {report['std_er_1s']:.4f}), ensemble ER_1s "
+          f"{report['ensemble']['er_1s']:.4f}; launches {counts['gru_scan_fwd']} pair forwards")
 
 
 def main() -> int:
@@ -1746,12 +2119,17 @@ def main() -> int:
     kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_retained = phase_gru_train(retained)
     phase_train_step()
     with tempfile.TemporaryDirectory() as workdir:
-        train_launches, cfg, fold = phase_train(workdir)
-    phase_train_throughput(cfg, fold)
-    kernel_framed, kernel_exact, kernel_dft = phase_logmel_routes(pcm, dft_err)
-    with tempfile.TemporaryDirectory() as workdir:
-        feature_launches, cache, _ = phase_feature(workdir)
-        phase_feature_train(workdir, cache)
+        train_dir, feature_dir = (os.path.join(workdir, d) for d in ("train", "feature"))
+        train_launches, cfg, fold = phase_train(train_dir)
+        phase_train_throughput(cfg, fold)
+        kernel_framed, kernel_exact, kernel_dft = phase_logmel_routes(pcm, dft_err)
+        os.makedirs(feature_dir)
+        feature_launches, cache, _ = phase_feature(feature_dir)
+        binmul_best = phase_feature_train(feature_dir, cache)
+        eval_launches, eval_numbers = phase_evaluate(train_dir, cache, binmul_best)
+        phase_multiseed(os.path.join(workdir, "multiseed"))
+    kernel_b.update(eval_numbers)
+    launches["gru_scan_fwd"] += eval_launches
     launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd",
                                                     "gru_dwh")})
     launches["fused_logmel_framed"] = feature_launches["framed"]

@@ -9,7 +9,7 @@ npz with train-only standardization: the files `apps/train.py --cache-dir`
 reads, and the JAX package's too.
 
   python -m sed_crnn_torch.apps.feature --media-dir DIR --hits-csv F --cache-dir OUT
-  python -m sed_crnn_torch.apps.feature --dcase-root DIR --cache-dir OUT [--binaural | --binmul]
+  python -m sed_crnn_torch.apps.feature --dcase-root DIR --cache-dir OUT [--binaural | --binmul | --multires N_FFT ...]
 
 Runs on ``--device cuda`` by default and raises without a GPU; ``--device
 cpu`` runs the plain versions. ``--backend`` names the frontend: ``fft``
@@ -198,6 +198,8 @@ def main(argv=None):
                         f"at n_fft {BINMUL_N_FFTS} and stacked to 6 feature "
                         "maps per frame (the sednet-dcase-binmul preset's "
                         "input); implies --binaural")
+    p.add_argument("--multires", type=int, nargs="+", metavar="N_FFT",
+                   help="override the --binmul resolution set; implies --binaural")
     p.add_argument("--cache-dir", required=True)
     p.add_argument("--k-folds", type=int, default=4)
     p.add_argument("--folds", type=int, nargs="+", default=[1, 2, 3, 4],
@@ -208,10 +210,12 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     fcfg = FrontendConfig(backend=args.backend)
-    multires = BINMUL_N_FFTS if args.binmul else None
+    multires = None
+    if args.binmul or args.multires:
+        multires = tuple(args.multires) if args.multires else BINMUL_N_FFTS
     if args.dcase_root:
         extract_dcase(args.dcase_root, args.cache_dir, args.scene, folds=tuple(args.folds),
-                      binaural=args.binaural or args.binmul, fcfg=fcfg,
+                      binaural=args.binaural or bool(multires), fcfg=fcfg,
                       multires=multires, device=device)
     elif args.media_dir and args.hits_csv:
         extract_decorte(args.media_dir, args.hits_csv, args.cache_dir,

@@ -8,7 +8,11 @@ Artifacts land under ``--art-dir/<timestamp>/fold<k>``: the JAX package's
 npz checkpoints, one jsonl record per epoch and, with ``--plot-every`` > 0,
 PNG plots (which need matplotlib). Runs on ``--device cuda`` by default and
 raises without a GPU; ``--device cpu`` runs the kernels' plain versions.
-``--runs``, ``--data-parallel`` and ``--seed-parallel`` are not yet ported.
+
+``--runs N`` repeats the experiment over N seeds, one `run_fold` after
+another into ``fold<k>/seed<s>/``, and reports the mean and std over seeds
+(``experiment_multiseed.jsonl``). ``--runs-mode stacked``,
+``--data-parallel`` and ``--seed-parallel`` are not yet ported.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from sed_crnn_torch.core.device import resolve_device
 from sed_crnn_torch.data import store
 from sed_crnn_torch.data.rasterize import rasterize_events
 from sed_crnn_torch.train import loop as train_loop
+from sed_crnn_torch.train import multiseed
 
 
 def synthetic_folds(k: int = 2, frames: int = 8000, seed: int = 0, n_classes: int = 1,
@@ -78,12 +83,18 @@ def main(argv=None):
     p.add_argument("--synthetic", action="store_true",
                    help="train on generated data (smoke/benchmark run)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
-    p.add_argument("--runs", type=int, default=1, help="not yet ported")
+    p.add_argument("--runs", type=int, default=1, metavar="N",
+                   help="repeat the experiment over N seeds and report mean±std ER/F1 "
+                        "(the reference README's 'mean of 5 runs' protocol)")
+    p.add_argument("--runs-mode", choices=("auto", "sequential"), default="auto",
+                   help="with --runs: 'sequential' trains the seeds one after another; "
+                        "'auto' (default) means sequential until 'stacked' (all seeds "
+                        "as one program) is ported")
     p.add_argument("--data-parallel", type=int, default=0, help="not yet ported")
     p.add_argument("--seed-parallel", type=int, default=0, help="not yet ported")
     args = p.parse_args(argv)
 
-    for flag, value in (("--runs", args.runs > 1), ("--data-parallel", args.data_parallel),
+    for flag, value in (("--data-parallel", args.data_parallel),
                         ("--seed-parallel", args.seed_parallel)):
         if value:
             raise NotImplementedError(f"{flag} is not yet ported")
@@ -125,6 +136,12 @@ def main(argv=None):
     os.makedirs(art_root, exist_ok=True)
     print(f"ARTIFACTS -> {art_root}")
 
+    if args.runs > 1:
+        if args.resume:
+            p.error("--resume with --runs: resume individual seeds via "
+                    "run_fold(resume_from=<seed dir>/last_fold<k>.npz) instead")
+        return multiseed.run_experiment_multiseed(cfg, folds, art_root, n_runs=args.runs,
+                                                  mode=args.runs_mode, device=device)
     if args.resume:
         results = []
         for fold_id, fold_data in sorted(folds.items()):

@@ -14,8 +14,8 @@ What differs, and why:
 * The loop is the JAX package's sequential (``debug``) path. Its pipelined
   dispatch and its `CompilePlan` shape buckets exist to keep one compiled
   XLA program busy across epochs and folds; PyTorch runs eagerly and has no
-  program to share, so neither is ported. Data parallelism and multi-seed
-  training are not ported yet.
+  program to share, so neither is ported. Data parallelism is not ported
+  yet; multi-seed training runs `run_fold` per seed (`train/multiseed.py`).
 * Random numbers come from `torch.Generator`s on the training device: one
   for batch draws, one for random validation draws and one per dropout site
   (`CRNN.n_dropout_sites`), seeded from ``seed + fold_id``. Parameters are

@@ -169,6 +169,24 @@ def test_mono_and_binaural_packs_match_jax(tmp_path, binaural):
     _assert_packs_close(cache, jcache, (1, 2), tag, 2e-4)
 
 
+def test_multires_cli_matches_jax(tmp_path):
+    """`--multires 1024 2048` (implies binaural, overrides --binmul's set)
+    through both CLIs: the same 4-map packs, features within 5e-4."""
+    root = _fake_dcase_root(tmp_path / "dcase", 3)
+    cache, jcache = str(tmp_path / "port"), str(tmp_path / "jax")
+    args = ["--dcase-root", root, "--folds", "1", "--binmul", "--multires", "1024", "2048"]
+    jax_feature.main(args + ["--cache-dir", jcache])
+    feature.main(args + ["--cache-dir", cache, "--device", "cpu"])
+    files = _per_file(cache, "binmul")
+    assert files == _per_file(jcache, "binmul") and len(files) == 5
+    for f in files:
+        (x, y), (jx, jy) = (store.load_video_features(os.path.join(c, f)) for c in (cache, jcache))
+        assert x.shape[1] == 4 * 40
+        _assert_log_close(x, jx, 5e-4)
+        np.testing.assert_array_equal(y, jy)
+    _assert_packs_close(cache, jcache, (1,), "binmul", 5e-4)
+
+
 def test_multires_requires_binaural(tmp_path):
     root = _fake_dcase_root(tmp_path / "dcase", 2, binaural=False)
     with pytest.raises(ValueError, match="binaural"):

@@ -215,6 +215,21 @@ def test_gru_pair_launches_match_two_plain_directions(cuda, B, T, H, reset_after
             torch.testing.assert_close(got, w, rtol=0, atol=1e-4 * max(float(w.abs().max()), 1e-6))
 
 
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_gru_pair_forward_at_the_eval_batch(cuda, reset_after):
+    """The evaluation path's shape: B=256 (`evaluate_split`'s default
+    batch), T=256, H=32, one pair launch on the warp body (512 warps)."""
+    xp, wh, bh, h0, _, _ = _pair_case(cuda, 256, 256, 32, reset_after, 256)
+    launches, retained = gru_scan.launches, gru_scan.retained_launches
+    pair = gru_scan_pair(xp, wh, bh, h0, reset_after, "sigmoid")
+    torch.cuda.synchronize()
+    assert (gru_scan.launches, gru_scan.retained_launches) == (launches + 1, retained)
+    for k, rev in enumerate((False, True)):
+        want = gru_scan_plain(xp[k], wh[k], bh[k], h0[k], reset_after, "sigmoid", rev)
+        for got, w in zip(pair[k], want):
+            torch.testing.assert_close(got, w, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("B,T,H", [(1, 256, 32), (128, 256, 32), (8, 256, 16), (5, 77, 8)])
 @pytest.mark.parametrize("reset_after", [False, True])
 def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, reset_after):

@@ -24,12 +24,15 @@ from sed_crnn_tpu.models import get_model as jax_get_model
 from sed_crnn_tpu.models.streaming import stream_probabilities as jax_stream
 from sed_crnn_tpu.ops import frontend as jax_frontend
 
+from sed_crnn_torch.apps import evaluate as evaluate_app
 from sed_crnn_torch.apps import infer
 from sed_crnn_torch.core.config import get_preset
 from sed_crnn_torch.data import wavio
 from sed_crnn_torch.data.rasterize import events_from_labels
 from sed_crnn_torch.models.streaming import stream_probabilities
 from sed_crnn_torch.ops import frontend
+from sed_crnn_torch.train.evaluate import evaluate_split
+from sed_crnn_torch.train.multiseed import run_experiment_multiseed
 from tests.test_torch_model import narrowed, port_model, seeded_tree
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -133,7 +136,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scanned = {f.relative_to(REPO).as_posix() for f in files}
     assert {f"sed_crnn_torch/{m}.py" for m in (
         "apps/feature", "data/catalog", "data/xlsx", "data/resample", "data/wavio",
-        "data/store", "ops/kernels/fused_logmel")} <= scanned
+        "data/store", "ops/kernels/fused_logmel", "train/evaluate", "apps/evaluate",
+        "apps/score_events", "ops/event_metrics", "data/eventio", "data/seqs",
+        "train/multiseed")} <= scanned
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "sed_crnn_tpu")]
     assert bad == []
@@ -145,3 +150,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         frontend.extract(np.zeros(4096, np.float32), get_preset("sednet-dcase").frontend)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         infer.infer_file(_wav(tmp_path / "d.wav", 0.5, 28), "unused.npz", "sednet-dcase")
+    jc, tc = narrowed("timepooled-v1")
+    model = port_model(tc, *seeded_tree(jax_get_model(jc.model), 32))
+    x, y = np.zeros((128, 40), np.float32), np.zeros((128, 1), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_split(model, x, y, tc)
+    np.savez(str(tmp_path / "mbe_mon_fold1.npz"), x, y, x, y)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_app.main(["--checkpoint", "unused.npz", "--cache-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_experiment_multiseed(tc, {1: {"train_x": x, "train_y": y, "val_x": x, "val_y": y}},
+                                 str(tmp_path / "runs"), n_runs=2)

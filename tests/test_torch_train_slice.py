@@ -224,8 +224,9 @@ def test_train_cli_runs_on_cpu(tmp_path, monkeypatch):
     run = os.listdir(tmp_path)[0]
     assert os.path.exists(tmp_path / run / "fold1" / "last_fold1.npz")
     assert os.path.exists(tmp_path / run / "experiment.jsonl")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_app.main(["--synthetic", "--runs", "2", "--device", "cpu"])
+    for flag in ("--seed-parallel", "--data-parallel"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            train_app.main(["--synthetic", "--runs", "2", flag, "2", "--device", "cpu"])
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
