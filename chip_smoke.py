@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, feature-extraction and
-evaluation paths on one GPU and check its kernels.
+"""Drive the PyTorch port's serving, training, feature-extraction,
+evaluation and live-serving paths on one GPU and check its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -108,7 +108,23 @@ exits non-zero and prints no result line:
     --runs-mode sequential`` at full width, 1 epoch, exact launch counts,
     per-seed checkpoints and ``experiment_multiseed.jsonl``; then
     ``apps.evaluate`` on both seeds' best checkpoints (2 members and the
-    ensemble, exact launch counts).
+    ensemble, exact launch counts);
+16. the export and live-serving path ([serve]): kernel B's pair forward at
+    the lookahead pair's T=512 and at B=8 against its plain version; phase
+    9's best checkpoint exported by ``apps.export.main`` (kernel frontend,
+    ``--stats-from`` a fold pack of the served file's statistics, per-class
+    ``--threshold`` at gaps of the checkpoint's probabilities) and loaded on
+    the card and the CPU; ``infer_file_artifact`` on the 120 s wav with and
+    without lookahead, card vs CPU (1e-3, events equal) and against
+    ``infer_file`` (1e-5, events equal) on the chunks that the zero-padded
+    last chunk does not reach (the artifact normalizes the padding,
+    ``infer_file`` pads after normalizing); ``serve_stream`` on random f32le
+    packets (its events equal); the ``--listen`` daemon with
+    ``--max-streams 8`` and 8 concurrent clients (each client's events equal,
+    ticks between 21 and 8 x 21, kernel B launched 2 x ticks, kernel A once
+    per non-empty framer block, every socket and join bounded); the serving
+    rate, per-step p50/p99, the device idle share (torch.profiler) and
+    ``stream_step_batch`` at B=8 against 8 x ``stream_step``.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -123,6 +139,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2100,6 +2117,376 @@ def phase_multiseed(workdir: str):
           f"{report['ensemble']['er_1s']:.4f}; launches {counts['gru_scan_fwd']} pair forwards")
 
 
+SERVE_STREAMS = 8        # concurrent TCP clients of the [serve] daemon (--max-streams)
+SERVE_TIMEOUT_S = 120    # every client socket and the daemon's join
+
+
+def _gap_thresholds(probs: np.ndarray) -> list:
+    """Per class, the midpoint of the widest gap between the sorted
+    probabilities from the median to the 99.5th percentile: an operating
+    point at which the class fires and no frame sits near the edge."""
+    out = []
+    for p in np.sort(np.asarray(probs, np.float64), axis=0).T:
+        hi = p[len(p) // 2 : int(len(p) * 0.995)]
+        i = int(np.argmax(np.diff(hi)))
+        out.append(float((hi[i] + hi[i + 1]) / 2))
+    return out
+
+
+class _BlockCount:
+    """Counts the non-empty frame blocks of every framer that `apps/serve.py`
+    makes while it is installed (the handler threads share it)."""
+
+    def __init__(self, serve_app):
+        self.app, self.real = serve_app, serve_app.make_framer
+        self.blocks = 0
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        counter = self
+
+        class Counting:
+            def __init__(self, *args):
+                self.inner = counter.real(*args)
+
+            def _count(self, frames):
+                if frames.shape[0]:
+                    with counter._lock:
+                        counter.blocks += 1
+                return frames
+
+            def feed(self, pcm):
+                return self._count(self.inner.feed(pcm))
+
+            def flush(self):
+                return self._count(self.inner.flush())
+
+        self.app.make_framer = Counting
+        return self
+
+    def __exit__(self, *exc):
+        self.app.make_framer = self.real
+
+
+def _serve_daemon(serve_app, art_path: str, pcm: np.ndarray, profiled: bool = False) -> dict:
+    """`apps.serve.main --listen` with ``SERVE_STREAMS`` clients sending the
+    whole wav at once as f32le; every socket and join bounded by
+    ``SERVE_TIMEOUT_S``. -> the clients' lines, the daemon's counts, the wall
+    time from the first connect to the last reply, and (``profiled``) the
+    device-busy time of the run."""
+    import queue
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    result: "queue.SimpleQueue" = queue.SimpleQueue()
+
+    def daemon():
+        try:
+            result.put(serve_app.main([
+                "--artifact", art_path, "--pcm", "f32le", "--listen", str(port),
+                "--connections", str(SERVE_STREAMS), "--max-streams", str(SERVE_STREAMS),
+                "--device", "cuda"]))
+        except BaseException as e:  # handed to the phase, which raises it
+            result.put(e)
+
+    payload = pcm.astype("<f4").tobytes()
+    lines = [None] * SERVE_STREAMS
+
+    def client(i):
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while True:
+            try:
+                s = socket.create_connection(("127.0.0.1", port), timeout=1)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.02)
+        with s:
+            s.settimeout(SERVE_TIMEOUT_S)
+            s.sendall(payload)
+            s.shutdown(socket.SHUT_WR)
+            data = b""
+            while chunk := s.recv(1 << 16):
+                data += chunk
+        lines[i] = [json.loads(ln) for ln in data.decode().splitlines()]
+
+    server = threading.Thread(target=daemon, daemon=True)
+    clients = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(SERVE_STREAMS)]
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+            else contextlib.nullcontext())
+    with prof:
+        server.start()
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients + [server]:
+            t.join(timeout=SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    check(not any(t.is_alive() for t in clients + [server]),
+          f"the daemon or a client did not finish within {SERVE_TIMEOUT_S} s")
+    counts = result.get(timeout=1)
+    if isinstance(counts, BaseException):
+        raise counts
+    check(all(ln is not None for ln in lines), "a client got no reply")
+    busy = None
+    if profiled:
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6 or None
+    return {"lines": lines, "counts": counts, "wall": wall, "busy": busy}
+
+
+def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
+    """The export and live-serving path at full width on the card
+    ([serve]): phase 9's best sednet-dcase checkpoint exported through
+    `apps.export`, `infer_file_artifact` card vs CPU and against
+    `infer_file`, `serve_stream` on random packets, and the `--listen`
+    daemon with 8 concurrent clients, with exact launch counts."""
+    from unittest import mock
+
+    import torch
+
+    from sed_crnn_torch.apps import export as export_app
+    from sed_crnn_torch.apps import serve as serve_app
+    from sed_crnn_torch.apps.infer import infer_file, infer_file_artifact
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.data.eventio import default_class_names
+    from sed_crnn_torch.data.rasterize import events_from_labels
+    from sed_crnn_torch.data.wavio import write_wav
+    from sed_crnn_torch.models.export import ServingArtifact
+    from sed_crnn_torch.ops import frontend
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan_pair, gru_scan_plain
+    from sed_crnn_torch.ops.stft import num_frames
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    preset = "sednet-dcase"
+    cfg = get_preset(preset)
+    m = cfg.model
+    os.makedirs(workdir)
+    best = os.path.join(train_dir, "fold1", "best_fold1.npz")
+    wav = os.path.join(workdir, "tones_120s.wav")
+    write_wav(wav, pcm, SR)
+
+    # Kernel B at the shapes this path gives it first: the lookahead pair
+    # (T=512) and the daemon's batch (B=8), from carried states.
+    rng = np.random.default_rng(17)
+    H = m.gru_hidden[0]
+    pair_err = 0.0
+    for B, T in ((1, 2 * m.seq_len_in), (SERVE_STREAMS, m.seq_len_in)):
+        sets = [tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.standard_normal((B, T, 3 * H)), rng.standard_normal((H, 3 * H)) / np.sqrt(H),
+            0.5 * rng.standard_normal((B, H)))) for _ in range(2)]
+        got = gru_scan_pair(*(tuple(s[k] for s in sets) for k in range(2)), (None, None),
+                            tuple(s[2] for s in sets), False, "sigmoid")
+        for k, rev in enumerate((False, True)):
+            want = gru_scan_plain(sets[k][0], sets[k][1], None, sets[k][2], False, "sigmoid", rev)
+            pair_err = max(pair_err, *(_maxdiff(g, w) for g, w in zip(got[k], want)))
+    check(pair_err <= GRU_ATOL, f"kernel B pair forward at T=512 / B=8: {pair_err}")
+
+    # The fold's statistics, fit on the served file's log-mels and recorded in a
+    # fold pack as the feature app records them (arr_4, arr_5).
+    fe = dataclasses.replace(cfg.frontend, log_floor=1e-10)
+    st = frontend.fit_norm_stats(frontend.extract(pcm, fe, device=dev))
+    stats = (st.mean.cpu().numpy(), st.scale.cpu().numpy())
+    cache = os.path.join(workdir, "cache")
+    os.makedirs(cache)
+    x0, y0 = np.zeros((4, m.n_mels), np.float32), np.zeros((4, m.n_classes), np.float32)
+    np.savez(os.path.join(cache, "mbe_mon_fold1.npz"), x0, y0, x0, y0, *stats)
+
+    # Per-class operating points from the checkpoint's own probabilities.
+    probs0, _, _ = infer_file(wav, best, preset, stats, device=dev)
+    thr = _gap_thresholds(probs0)
+    margin = min(float(np.abs(probs0[:, c] - t).min()) for c, t in enumerate(thr))
+
+    # 1. Export, with the kernel frontend in the cfg handed to export_serving.
+    art_path = os.path.join(workdir, "sednet.sedart")
+    kernel_cfg = cfg.replace(frontend=dataclasses.replace(cfg.frontend, backend="kernel"))
+    with mock.patch.object(export_app, "get_preset", return_value=kernel_cfg):
+        out, _ = _quiet(export_app.main, [
+            "--checkpoint", best, "--preset", preset, "--stats-from", cache, "--fold", "1",
+            "--threshold", *(repr(t) for t in thr), "--out", art_path, "--device", "cuda"])
+    check(out["norm_folded"] and out["default_threshold"] == thr, f"export {out}")
+    art = ServingArtifact.load(art_path, "cuda")
+    art_cpu = ServingArtifact.load(art_path, "cpu")
+    check(art.meta == art_cpu.meta and art.meta["frontend"]["backend"] == "kernel",
+          "the artifact's metadata")
+
+    # 2. infer_file_artifact, card vs CPU and against infer_file, with and
+    # without lookahead; launches counted on the card runs alone.
+    n_frames = num_frames(len(pcm), fe.n_fft, fe.hop_length, fe.center)
+    n_chunks = -(-n_frames // m.seq_len_in)
+    _reset_logmel_counts()
+    _reset_gru_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        card = {la: infer_file_artifact(wav, art_path, lookahead=la, device="cuda")
+                for la in (False, True)}
+        torch.cuda.synchronize()
+    logmel, gru = _logmel_counts(), _gru_counts()
+    check(logmel == {"chunked": 2, "framed": 0, "exact": 0, "dft": 0},
+          f"infer_file_artifact kernel A launches {logmel}")
+    check(gru == _gru_path_counts(2 * 2 * n_chunks, 0) and not plain_on_card,
+          f"infer_file_artifact kernel B launches {gru} ({n_chunks} chunks)")
+    launches = {"chunked": logmel["chunked"], "gru_scan_fwd": gru["gru_scan_fwd"]}
+    errs = {}
+    out_hop = cfg.frontend.hop_length * (m.seq_len_in // m.seq_len_out)
+    for la in (False, True):
+        probs, events, _ = card[la]
+        cpu_probs, cpu_events, _ = infer_file_artifact(wav, art_path, lookahead=la, device="cpu")
+        ref_probs, _, _ = infer_file(wav, best, preset, stats, thr, lookahead=la, device=dev)
+        check(probs.shape == (n_frames, m.n_classes) and bool(np.isfinite(probs).all()),
+              f"artifact probabilities {probs.shape}")
+        # The artifact pads the last chunk's raw log-mels with zeros and
+        # normalizes in the program (the JAX artifact's semantics); infer_file
+        # pads after normalizing. So the two agree up to the chunk that the
+        # padded one reaches: the last, and under lookahead the one before.
+        k = (n_chunks - 1 - la) * m.seq_len_out
+        ref_ev, got_ev = (events_from_labels(p[:k], SR, out_hop, np.float32(thr))
+                          for p in (ref_probs, probs))
+        errs[la] = (float(np.abs(probs - cpu_probs).max()),
+                    float(np.abs(probs[:k] - ref_probs[:k]).max()),
+                    float(np.abs(probs[k:] - ref_probs[k:]).max()))
+        check(errs[la][0] <= PROB_ATOL and events == cpu_events,
+              f"lookahead={la}: artifact card vs CPU {errs[la][0]}, events equal "
+              f"{events == cpu_events}")
+        check(errs[la][1] <= 1e-5 and got_ev == ref_ev,
+              f"lookahead={la}: artifact vs infer_file on the first {k} frames {errs[la][1]}, "
+              f"events equal {got_ev == ref_ev}")
+    events0 = card[False][1]
+    check(len(events0) > 0, "the artifact's operating points decode events")
+    print(f"[serve] apps.export of phase 9's best checkpoint (kernel frontend, --stats-from, "
+          f"{m.n_classes} thresholds {[round(t, 4) for t in thr]}, nearest frame "
+          f"{margin:.3g} away): {out['bytes']} bytes; infer_file_artifact on the {len(pcm) / SR:.0f}"
+          f" s wav: {len(events0)} events; card vs CPU max|diff| {errs[False][0]:.3g} "
+          f"(lookahead {errs[True][0]:.3g}), events equal; vs infer_file {errs[False][1]:.3g} "
+          f"(lookahead {errs[True][1]:.3g}) before the chunks the padded tail reaches, events "
+          f"there equal, and {errs[False][2]:.3g} (lookahead {errs[True][2]:.3g}) in them; "
+          f"launches {launches}")
+
+    # 3. serve_stream through the direct stepper on random packet sizes.
+    def packets(seed):
+        r = np.random.default_rng(seed)
+        i = 0
+        while i < len(pcm):
+            step = int(r.integers(256, 8193))
+            yield pcm[i : i + step]
+            i += step
+
+    stepper = serve_app._DirectStepper(art)
+    lines = []
+    _reset_logmel_counts()
+    _reset_gru_counts()
+    with _BlockCount(serve_app) as blocks, _no_plain_gru_on_card() as plain_on_card:
+        t0 = time.perf_counter()
+        n_out, n_events = serve_app.serve_stream(art, packets(19), lines.append, stepper=stepper)
+        live_s = time.perf_counter() - t0
+    logmel, gru = _logmel_counts(), _gru_counts()
+    n_steps = len(stepper.latencies)
+    check(n_steps == n_chunks and n_out == n_frames, f"serve_stream {n_steps} steps, {n_out} frames")
+    check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "dft": 0},
+          f"serve_stream kernel A launches {logmel} vs {blocks.blocks} framer blocks")
+    check(gru == _gru_path_counts(2 * n_steps, 0) and not plain_on_card,
+          f"serve_stream kernel B launches {gru}")
+    launches["framed"] = logmel["framed"]
+    launches["gru_scan_fwd"] += gru["gru_scan_fwd"]
+    live_events = [ln for ln in lines if ln["type"] == "event"]
+    check(sorted((ln["start_s"], ln["end_s"], ln["class"]) for ln in live_events)
+          == sorted((round(s, 3), round(e, 3), c) for s, e, c in events0),
+          "serve_stream's events differ from infer_file_artifact's")
+    lat = np.asarray(stepper.latencies) * 1e3
+    print(f"[serve] serve_stream, f32le packets of 256-8192 samples: {n_out} frames, "
+          f"{n_events} event lines equal to infer_file_artifact's, {blocks.blocks} framer "
+          f"blocks, {n_steps} steps in {live_s:.2f} s; step p50 {np.percentile(lat, 50):.3f} ms "
+          f"p99 {np.percentile(lat, 99):.3f} ms (host clock to the host copy)")
+
+    # 4. The daemon: 8 concurrent clients, one batched step per tick.
+    names = default_class_names(m.n_classes)
+    _reset_logmel_counts()
+    _reset_gru_counts()
+    with _BlockCount(serve_app) as blocks, _no_plain_gru_on_card() as plain_on_card:
+        run = _serve_daemon(serve_app, art_path, pcm)
+    logmel, gru = _logmel_counts(), _gru_counts()
+    ticks, stepped = run["counts"]["ticks"], run["counts"]["stepped"]
+    check(run["counts"]["served"] == SERVE_STREAMS and stepped == SERVE_STREAMS * n_steps,
+          f"daemon counts {run['counts']}")
+    check(n_steps <= ticks <= SERVE_STREAMS * n_steps, f"{ticks} ticks for {n_steps} chunks")
+    check(gru == _gru_path_counts(2 * ticks, 0) and not plain_on_card,
+          f"daemon kernel B launches {gru} vs 2 x {ticks} ticks")
+    check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "dft": 0},
+          f"daemon kernel A launches {logmel} vs {blocks.blocks} framer blocks")
+    launches["framed"] += logmel["framed"]
+    launches["gru_scan_fwd"] += gru["gru_scan_fwd"]
+    for got in run["lines"]:
+        ev = [ln for ln in got if ln["type"] == "event"]
+        check([{k: v for k, v in ln.items() if k != "label"} for ln in ev] == live_events
+              and all(ln["label"] == names[ln["class"]] for ln in ev),
+              "a daemon client's event lines differ from serve_stream's")
+        check(got[-1]["type"] == "summary" and got[-1]["n_output_frames"] == n_out,
+              f"a daemon client's summary {got[-1]}")
+    p50 = float(np.median([got[-1]["step_ms_p50"] for got in run["lines"]]))
+    p99 = float(max(got[-1]["step_ms_p99"] for got in run["lines"]))
+    rate = SERVE_STREAMS * len(pcm) / SR / run["wall"]
+    prof = _serve_daemon(serve_app, art_path, pcm, profiled=True)
+    idle = "not measured" if prof["busy"] is None else f"{1 - prof['busy'] / run['wall']:.3f}"
+    busy = "not measured" if prof["busy"] is None else f"{prof['busy'] * 1e3:.1f} ms"
+    print(f"[serve] daemon --max-streams {SERVE_STREAMS}, {SERVE_STREAMS} clients sending the "
+          f"{len(pcm) / SR:.0f} s wav at once: {ticks} ticks, {stepped} chunk steps, "
+          f"{stepped / ticks:.2f} streams per tick; per-step p50 {p50:.2f} ms (median over "
+          f"clients) p99 {p99:.2f} ms (max); wall {run['wall']:.2f} s -> {rate:,.0f} "
+          f"audio-sec/sec; device busy {busy} in a profiled repeat, idle share {idle}; every "
+          f"client's event lines equal serve_stream's; launches {gru['gru_scan_fwd']} pair "
+          f"forwards (2 x ticks), {logmel['framed']} framed (= framer blocks)")
+
+    # stream_step_batch at B=8 against 8 stream_steps at B=1, on real chunks.
+    mel = frontend.extract(pcm, dataclasses.replace(fe, backend="kernel"), device=dev)
+    chunks = mel[: SERVE_STREAMS * m.seq_len_in].reshape(SERVE_STREAMS, m.seq_len_in, -1)
+    carry8, carry1 = art.stream_init_batch(SERVE_STREAMS), art.stream_init()
+
+    def batch8():
+        return art.stream_step_batch(carry8, chunks)
+
+    def singles8():
+        return [art.stream_step(carry1, chunks[i]) for i in range(SERVE_STREAMS)]
+
+    b8_ms, b1x8_ms = cuda_ms(batch8, reps=20), cuda_ms(singles8, reps=10)
+    b8_dev, b8_host = device_host_ms(batch8)
+    b1x8_dev, b1x8_host = device_host_ms(singles8, reps=10)
+    T, B = m.seq_len_in, SERVE_STREAMS
+    nbytes = 2 * 4 * (B * T * 3 * H + H * 3 * H + 2 * B * H + B * T * H)
+    bnd, by = bound_ms(nbytes, 2 * T * B * (2 * H * 3 * H + 12 * H))
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+
+    # The live rows (the framed route on the framer's frames) against the
+    # offline rows (`extract`'s chunked route): the same FFT body per frame.
+    framer = serve_app.make_framer(fe.n_fft, fe.hop_length, fe.center)
+    frames = np.concatenate([framer.feed(pcm), framer.flush()])
+    live_rows = frontend.log_mel_from_frames(torch.from_numpy(frames).to(dev),
+                                             dataclasses.replace(fe, backend="kernel"))
+    rows_equal = bool(torch.equal(live_rows, mel))
+    rows_err = 0.0 if rows_equal else _maxdiff(live_rows, mel)
+    wall = time.perf_counter() - t_phase
+    print(f"[serve] stream_step_batch B={B}: {b8_ms:.4f} ms by events (device {fmt(b8_dev)}, "
+          f"host issue {b8_host:.4f} ms) vs {B} x stream_step B=1: {b1x8_ms:.4f} ms (device "
+          f"{fmt(b1x8_dev)}, host issue {b1x8_host:.4f} ms); kernel B pair at B={B} bound "
+          f"{bnd:.6f} ms ({by}); pair at T=512 / B=8 vs plain {pair_err:.3g}; live vs offline "
+          f"log-mel rows ({frames.shape[0]} frames) bitwise equal: {rows_equal} (max|diff| "
+          f"{rows_err:.3g}); phase wall {wall:.1f} s")
+    return launches, {
+        "serve_max_abs_err": pair_err, "serve_b8_ms": b8_ms, "serve_b8_device_ms": b8_dev,
+        "serve_b8_host_ms": b8_host, "serve_b1x8_ms": b1x8_ms, "serve_b1x8_device_ms": b1x8_dev,
+        "serve_b1x8_host_ms": b1x8_host, "serve_b8_bound_ms": bnd, "serve_b8_bound_by": by,
+        "serve_rate_audio_s_per_s": rate, "serve_step_p50_ms": p50, "serve_step_p99_ms": p99,
+        "serve_ticks": ticks, "serve_idle_share": None if prof["busy"] is None
+        else 1 - prof["busy"] / run["wall"], "serve_live_rows_bitwise": rows_equal}
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -2128,11 +2515,16 @@ def main() -> int:
         binmul_best = phase_feature_train(feature_dir, cache)
         eval_launches, eval_numbers = phase_evaluate(train_dir, cache, binmul_best)
         phase_multiseed(os.path.join(workdir, "multiseed"))
+        serve_launches, serve_numbers = phase_serve(train_dir, os.path.join(workdir, "serve"),
+                                                    pcm)
     kernel_b.update(eval_numbers)
-    launches["gru_scan_fwd"] += eval_launches
+    kernel_b.update(serve_numbers)
+    kernel_b["max_abs_err"] = max(kernel_b["max_abs_err"], serve_numbers["serve_max_abs_err"])
+    launches["gru_scan_fwd"] += eval_launches + serve_launches["gru_scan_fwd"]
+    launches["fused_logmel"] += serve_launches["chunked"]
     launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd",
                                                     "gru_dwh")})
-    launches["fused_logmel_framed"] = feature_launches["framed"]
+    launches["fused_logmel_framed"] = feature_launches["framed"] + serve_launches["framed"]
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
     launches["fused_logmel_dft"] = kernel_dft.pop("launches")
     launches["gru_scan_retained"] = kernel_retained.pop("launches")

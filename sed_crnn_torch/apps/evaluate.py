@@ -23,11 +23,11 @@ import json
 
 import numpy as np
 
-from sed_crnn_torch.apps.infer import load_model
 from sed_crnn_torch.core import checkpoint as ckpt_io
 from sed_crnn_torch.core.config import get_preset
 from sed_crnn_torch.core.device import resolve_device
 from sed_crnn_torch.data import store
+from sed_crnn_torch.models.convert import load_model
 from sed_crnn_torch.train.evaluate import evaluate_split
 
 

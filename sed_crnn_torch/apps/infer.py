@@ -4,8 +4,12 @@ intervals, chunk by chunk with carried GRU state.
   python -m sed_crnn_torch.apps.infer --checkpoint best_fold1.npz \\
       --preset sednet-dcase --wav recording.wav --stats-from fold1-cache-dir
 
+  python -m sed_crnn_torch.apps.infer --artifact model.sedart --wav recording.wav
+
 Checkpoints are the JAX package's npz files; `models/convert.py` carries
-their weights into the port's model. Runs on ``--device cuda`` by default.
+their weights into the port's model. A serving artifact
+(`apps/export.py`) replaces the checkpoint, the preset and the statistics.
+Runs on ``--device cuda`` by default.
 """
 
 from __future__ import annotations
@@ -20,14 +24,14 @@ import numpy as np
 import torch
 
 from sed_crnn_torch.core import checkpoint as ckpt_io
-from sed_crnn_torch.core.config import get_preset
+from sed_crnn_torch.core.config import FrontendConfig, get_preset
 from sed_crnn_torch.core.device import resolve_device
 from sed_crnn_torch.data import store
 from sed_crnn_torch.data.eventio import default_class_names, format_event_list
 from sed_crnn_torch.data.rasterize import events_from_labels
 from sed_crnn_torch.data.wavio import decode_audio
-from sed_crnn_torch.models import get_model
-from sed_crnn_torch.models.convert import from_jax
+from sed_crnn_torch.models.convert import load_model
+from sed_crnn_torch.models.export import ServingArtifact
 from sed_crnn_torch.models.streaming import stream_probabilities
 from sed_crnn_torch.ops import frontend
 from sed_crnn_torch.ops.postprocess import median_smooth
@@ -44,13 +48,6 @@ def _threshold_arg(threshold, n_classes: int):
             f"global threshold or exactly one per class"
         )
     return arr
-
-
-def load_model(tree, model_cfg, device):
-    """A `CRNN` on ``device`` holding the weights of a JAX checkpoint tree."""
-    model = get_model(model_cfg)
-    model.load_state_dict(from_jax(tree["params"], tree["model_state"], model_cfg))
-    return model.to(device)
 
 
 def infer_file(
@@ -143,6 +140,41 @@ def stats_from_fold(cache_dir: str, fold_id: int, channel_tag: str = "mon",
     return stats.mean.cpu().numpy(), stats.scale.cpu().numpy()
 
 
+def infer_file_artifact(
+    wav_path: str,
+    artifact_path: str,
+    threshold=None,
+    log_floor: float = 1e-10,
+    lookahead: bool = False,
+    median: int = 0,
+    device=None,
+):
+    """Serve from a serving artifact (`apps/export.py`): its metadata carries
+    the frontend parameters, its weights the model and, when exported with
+    ``--stats-from``, the fold's normalization; the wav file and the
+    artifact are the only inputs. ``threshold=None`` uses the artifact's
+    ``default_threshold``, else 0.5. ``device``: None means ``cuda`` (the
+    frontend and the artifact's programs both run there).
+    -> ``(probs (frames_out, n_classes) numpy, events, meta)``."""
+    art = ServingArtifact.load(artifact_path, device)
+    if threshold is None:
+        threshold = art.meta.get("default_threshold")
+        if threshold is None:
+            threshold = 0.5
+    threshold = _threshold_arg(threshold, int(art.meta["n_classes"]))
+    fcfg = FrontendConfig(**art.meta["frontend"])
+    if log_floor:
+        fcfg = dataclasses.replace(fcfg, log_floor=float(log_floor))
+
+    pcm = decode_audio(wav_path, sr=fcfg.sample_rate, mono=True)
+    probs = art.stream(frontend.extract(pcm, fcfg, device=art.device), lookahead=lookahead)
+    if median > 1:
+        probs = median_smooth(probs, median)
+    pool = int(art.meta["seq_len_in"]) // int(art.meta["seq_len_out"])
+    events = events_from_labels(probs, fcfg.sample_rate, fcfg.hop_length * pool, threshold)
+    return probs, events, art.meta
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -150,10 +182,14 @@ def main(argv=None):
     p.add_argument("--checkpoint", nargs="+",
                    help="npz checkpoint (with --preset); several paths "
                         "stream as a probability ensemble")
-    p.add_argument("--artifact", help="serving artifact (not yet ported)")
+    p.add_argument("--artifact",
+                   help="serving artifact from sed_crnn_torch.apps.export; replaces "
+                        "--checkpoint/--preset/--stats-from")
     p.add_argument("--preset", default="timepooled-v2")
     p.add_argument("--threshold", type=float, nargs="+", default=None,
-                   help="binarization threshold: one global value, or one per class")
+                   help="binarization threshold: one global value, or one per class "
+                        "(default: the artifact's default_threshold with --artifact, "
+                        "else 0.5)")
     p.add_argument("--median", type=int, default=0,
                    help="odd width > 1 median-smooths the probability tracks "
                         "before event decoding (0 = off)")
@@ -172,21 +208,26 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.artifact:
-        raise NotImplementedError("--artifact: serving artifacts are not yet ported")
-    if not args.checkpoint:
-        p.error("--checkpoint is required")
-    threshold = 0.5
+    if bool(args.checkpoint) == bool(args.artifact):
+        p.error("pass exactly one of --checkpoint or --artifact")
+    threshold = None
     if args.threshold is not None:
         threshold = (args.threshold[0] if len(args.threshold) == 1
                      else np.asarray(args.threshold, np.float32))
-    stats = (stats_from_fold(args.stats_from, args.fold, device=args.device)
-             if args.stats_from else None)
-    probs, events, meta = infer_file(
-        args.wav, args.checkpoint, args.preset, stats, threshold,
-        args.carry_backward, args.lookahead, args.log_floor, args.median,
-        device=args.device,
-    )
+    if args.artifact:
+        probs, events, meta = infer_file_artifact(
+            args.wav, args.artifact, threshold, args.log_floor, args.lookahead,
+            args.median, device=args.device,
+        )
+    else:
+        stats = (stats_from_fold(args.stats_from, args.fold, device=args.device)
+                 if args.stats_from else None)
+        probs, events, meta = infer_file(
+            args.wav, args.checkpoint, args.preset, stats,
+            0.5 if threshold is None else threshold,
+            args.carry_backward, args.lookahead, args.log_floor, args.median,
+            device=args.device,
+        )
     if args.format == "dcase":
         n_classes = int(probs.shape[1])
         names = (tuple(args.class_names.split(",")) if args.class_names

@@ -2,7 +2,8 @@
 
 `from_jax` takes the ``params`` and ``model_state`` trees as numpy arrays,
 exactly as `core/checkpoint.py` stores them, and returns a ``state_dict``
-for the port's `CRNN`; `to_jax` is its inverse:
+for the port's `CRNN` (`load_model` builds the model from one); `to_jax` is
+its inverse:
 
 * conv ``w`` HWIO <-> ``weight`` OIHW, ``b`` <-> ``bias``;
 * BatchNorm ``scale``/``bias`` <-> ``weight``/``bias``, state
@@ -28,6 +29,8 @@ import numpy as np
 import torch
 
 from sed_crnn_torch.core.config import ModelConfig
+from sed_crnn_torch.models import get_model
+from sed_crnn_torch.models.crnn import CRNN
 
 _GRU_KEYS = ("wi", "wh", "bi", "bh")
 
@@ -62,6 +65,14 @@ def from_jax(params: Mapping, state: Optional[Mapping],
         sd[f"head.{i}.weight"] = _t(np.transpose(dense["w"]))
         sd[f"head.{i}.bias"] = _t(dense["b"])
     return sd
+
+
+def load_model(tree: Mapping, model_cfg: ModelConfig, device) -> CRNN:
+    """A `CRNN` on ``device`` holding the weights of a JAX checkpoint tree
+    (``{"params", "model_state"}``), in eval mode."""
+    model = get_model(model_cfg)
+    model.load_state_dict(from_jax(tree["params"], tree["model_state"], model_cfg))
+    return model.to(device)
 
 
 def to_jax(sd: Mapping[str, torch.Tensor],

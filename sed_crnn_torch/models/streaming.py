@@ -11,6 +11,10 @@ approximation: bidirectional RNNs are not causal).
 model runs once over the [k, k+1] pair with the carried forward state and
 reads the next forward carry out of the pair pass at the chunk boundary
 (``carry_at``), giving the backward GRU one chunk of real right context.
+
+``stream_logits_batch`` streams B recordings of one length together (the
+JAX package ``vmap``s the single stream; here they share every chunk's
+batch).
 """
 
 from __future__ import annotations
@@ -34,16 +38,29 @@ def pad_to_chunks(mel: torch.Tensor, chunk: int) -> torch.Tensor:
 def stream_logits(model: CRNN, mel: torch.Tensor, carry_backward: bool = False) -> torch.Tensor:
     """mel (frames, n_mels*channels) -> logits
     (ceil(frames/seq_len) * seq_len_out, n_classes)."""
-    chunks = pad_to_chunks(mel.to(torch.float32), model.cfg.seq_len_in)
-    zero = model.zero_carry(1, mel.device)
+    return stream_logits_batch(model, mel[None], carry_backward)[0]
+
+
+@torch.no_grad()
+def stream_logits_batch(model: CRNN, mels: torch.Tensor,
+                        carry_backward: bool = False) -> torch.Tensor:
+    """Batched streaming: mels (B, frames, n_mels*channels) -> logits
+    (B, ceil(frames/seq_len) * seq_len_out, n_classes). The B recordings run
+    as one batch per chunk with a carry of batch B, so the GRU kernel sees B
+    rows (one pair launch per BiGRU layer per chunk)."""
+    chunk = model.cfg.seq_len_in
+    b, n = mels.shape[:2]
+    n_chunks = -(-n // chunk)
+    mels = F.pad(mels.to(torch.float32), (0, 0, 0, n_chunks * chunk - n))
+    zero = model.zero_carry(b, mels.device)
     carry = zero
-    out = [mel.new_zeros((0, model.cfg.n_classes))]
-    for xc in chunks:
-        logits, carry = model(xc[None], rnn_carry=carry)
+    out = [mels.new_zeros((b, 0, model.cfg.n_classes))]
+    for k in range(n_chunks):
+        logits, carry = model(mels[:, k * chunk:(k + 1) * chunk], rnn_carry=carry)
         if not carry_backward:
             carry = [{"fwd": c["fwd"], "bwd": z["bwd"]} for c, z in zip(carry, zero)]
-        out.append(logits[0])
-    return torch.cat(out).reshape(-1, model.cfg.n_classes)
+        out.append(logits)
+    return torch.cat(out, dim=1)
 
 
 @torch.no_grad()

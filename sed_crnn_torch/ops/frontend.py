@@ -31,7 +31,7 @@ import torch
 from sed_crnn_torch.core.config import FRONTEND_BACKENDS, FrontendConfig
 from sed_crnn_torch.core.device import resolve_device
 from sed_crnn_torch.ops import stft as stft_ops
-from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
+from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel, fused_log_mel_frames
 from sed_crnn_torch.ops.mel import mel_filterbank
 
 
@@ -47,12 +47,16 @@ def _mel_log(power: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     return torch.log(mel)
 
 
-def log_mel_energies(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """Log mel-band energies of a 1-D waveform -> ``(n_frames, n_mels)``."""
+def _check_backend(cfg: FrontendConfig) -> None:
     if cfg.backend not in FRONTEND_BACKENDS:
         raise ValueError(
             f"unknown frontend backend {cfg.backend!r}; expected one of {FRONTEND_BACKENDS}"
         )
+
+
+def log_mel_energies(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """Log mel-band energies of a 1-D waveform -> ``(n_frames, n_mels)``."""
+    _check_backend(cfg)
     y = y.to(torch.float32)
     if cfg.backend == "kernel":
         return fused_log_mel(y, cfg)
@@ -64,7 +68,13 @@ def log_mel_energies(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
 
 def log_mel_from_frames(frames: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """Log-mel rows from pre-framed windows ``(n, n_fft)``: the rows
-    `log_mel_energies` gives for the same frames of a whole waveform."""
+    `log_mel_energies` gives for the same frames of a whole waveform.
+    ``"kernel"``: `fused_log_mel_frames`, the framed route at stride n_fft;
+    ``"fft"`` and ``"matmul"``: ``torch.fft.rfft`` rows, as the JAX package
+    computes them for every backend."""
+    _check_backend(cfg)
+    if cfg.backend == "kernel":
+        return fused_log_mel_frames(frames.to(torch.float32), cfg)
     window = torch.from_numpy(stft_ops.hann_window(cfg.n_fft)).to(frames.device)
     power = stft_ops.power_spectrum_fft(frames.to(torch.float32), cfg.n_fft, window)
     return _mel_log(power, cfg)

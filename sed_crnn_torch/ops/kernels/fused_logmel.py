@@ -49,6 +49,7 @@ the ``"dft"`` body among them.
 from __future__ import annotations
 
 import ctypes
+import threading
 from functools import lru_cache
 from typing import Tuple
 
@@ -65,6 +66,10 @@ FRAME_TILE = 64   # csrc/fused_logmel.cu TF: frames per block
 MAX_MELS = 256    # keeps the dft body's shared memory under the card's limit
 MODES = ("dif", "exact")
 FFT_LOG_N = (8, 14)   # csrc/logmel_fft.cu: n_fft 256 .. 16384
+
+# Serving threads call the wrappers concurrently: the operand cache and the
+# launch counters are read-modify-write.
+_lock = threading.Lock()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -175,8 +180,9 @@ def _device_operands(sr, n_fft, n_mels, fmin, fmax, kind: str, device: str) -> d
 
 
 def _operands(cfg: FrontendConfig, n_fft: int, kind: str, device: torch.device) -> dict:
-    return _device_operands(cfg.sample_rate, n_fft, cfg.n_mels, cfg.fmin, cfg.fmax,
-                            kind, str(device))
+    with _lock:   # one build per key when threads meet an empty cache
+        return _device_operands(cfg.sample_rate, n_fft, cfg.n_mels, cfg.fmin, cfg.fmax,
+                                kind, str(device))
 
 
 def _check_mode(mode: str) -> None:
@@ -433,7 +439,8 @@ def _launch_dft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
         raise RuntimeError(
             f"fused_logmel launch failed: {lib.fused_logmel_error_string(status).decode()}"
         )
-    fused_log_mel.dft_launches += 1
+    with _lock:
+        fused_log_mel.dft_launches += 1
     return out
 
 
@@ -453,12 +460,13 @@ def _launch(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
 
 
 def _count(r: str) -> None:
-    if r == "chunked":
-        fused_log_mel.launches += 1
-    elif r == "framed":
-        fused_log_mel.framed_launches += 1
-    else:
-        fused_log_mel.exact_launches += 1
+    with _lock:
+        if r == "chunked":
+            fused_log_mel.launches += 1
+        elif r == "framed":
+            fused_log_mel.framed_launches += 1
+        else:
+            fused_log_mel.exact_launches += 1
 
 
 def fused_log_mel(y: torch.Tensor, cfg: FrontendConfig, mode: str = "dif") -> torch.Tensor:

@@ -230,6 +230,23 @@ def test_gru_pair_forward_at_the_eval_batch(cuda, reset_after):
             torch.testing.assert_close(got, w, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,T", [(1, 512), (8, 256), (8, 512)])
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_gru_pair_forward_at_the_live_serving_shapes(cuda, B, T, reset_after):
+    """The live serving path's shapes, H=32, from carried (non-zero) states:
+    the lookahead pair step (T=512) and `stream_step_batch` over B=8
+    concurrent streams, one pair launch on the warp body each."""
+    xp, wh, bh, h0, _, _ = _pair_case(cuda, B, T, 32, reset_after, 500 + B + T)
+    launches, retained = gru_scan.launches, gru_scan.retained_launches
+    pair = gru_scan_pair(xp, wh, bh, h0, reset_after, "sigmoid")
+    torch.cuda.synchronize()
+    assert (gru_scan.launches, gru_scan.retained_launches) == (launches + 1, retained)
+    for k, rev in enumerate((False, True)):
+        want = gru_scan_plain(xp[k], wh[k], bh[k], h0[k], reset_after, "sigmoid", rev)
+        for got, w in zip(pair[k], want):
+            torch.testing.assert_close(got, w, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("B,T,H", [(1, 256, 32), (128, 256, 32), (8, 256, 16), (5, 77, 8)])
 @pytest.mark.parametrize("reset_after", [False, True])
 def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, reset_after):

@@ -25,10 +25,13 @@ from sed_crnn_tpu.models.streaming import stream_probabilities as jax_stream
 from sed_crnn_tpu.ops import frontend as jax_frontend
 
 from sed_crnn_torch.apps import evaluate as evaluate_app
+from sed_crnn_torch.apps import export as export_app
 from sed_crnn_torch.apps import infer
+from sed_crnn_torch.apps import serve as serve_app
 from sed_crnn_torch.core.config import get_preset
 from sed_crnn_torch.data import wavio
 from sed_crnn_torch.data.rasterize import events_from_labels
+from sed_crnn_torch.models.export import ServingArtifact, export_serving
 from sed_crnn_torch.models.streaming import stream_probabilities
 from sed_crnn_torch.ops import frontend
 from sed_crnn_torch.train.evaluate import evaluate_split
@@ -138,7 +141,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "apps/feature", "data/catalog", "data/xlsx", "data/resample", "data/wavio",
         "data/store", "ops/kernels/fused_logmel", "train/evaluate", "apps/evaluate",
         "apps/score_events", "ops/event_metrics", "data/eventio", "data/seqs",
-        "train/multiseed")} <= scanned
+        "train/multiseed", "models/export", "apps/export", "apps/serve",
+        "utils/native")} <= scanned
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "sed_crnn_tpu")]
     assert bad == []
@@ -161,3 +165,27 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_experiment_multiseed(tc, {1: {"train_x": x, "train_y": y, "val_x": x, "val_y": y}},
                                  str(tmp_path / "runs"), n_runs=2)
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The artifact's load and export, `infer_file_artifact`, and the export
+    and serve CLIs run on the CPU only when asked to."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jc, tc = narrowed("timepooled-v1")
+    params, state = seeded_tree(jax_get_model(jc.model), 33)
+    path = str(tmp_path / "m.sedart")
+    export_serving(tc, params, state, device="cpu").save(path)
+    assert ServingArtifact.load(path, device="cpu").device.type == "cpu"
+    wav = _wav(tmp_path / "e.wav", 0.5, 34)
+    ckpt = jax_ckpt.save_checkpoint(str(tmp_path / "e.npz"),
+                                    {"params": params, "model_state": state})
+    for call in (
+        lambda: ServingArtifact.load(path),
+        lambda: export_serving(tc, params, state),
+        lambda: infer.infer_file_artifact(wav, path),
+        lambda: infer.main(["--wav", wav, "--artifact", path]),
+        lambda: export_app.main(["--checkpoint", ckpt, "--out", str(tmp_path / "o.sedart")]),
+        lambda: serve_app.main(["--artifact", path, "--wav", wav]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
