@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, feature-extraction,
-evaluation and live-serving paths on one GPU and check its kernels.
+evaluation, live-serving and stacked multi-seed training paths on one GPU
+and check its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -124,7 +125,20 @@ exits non-zero and prints no result line:
     ticks between 21 and 8 x 21, kernel B launched 2 x ticks, kernel A once
     per non-empty framer block, every socket and join bounded); the serving
     rate, per-step p50/p99, the device idle share (torch.profiler) and
-    ``stream_step_batch`` at B=8 against 8 x ``stream_step``.
+    ``stream_step_batch`` at B=8 against 8 x ``stream_step``;
+17. stacked multi-seed training ([multiseed stacked]): kernel B with a seed
+    axis (S in {1, 3, 5} at H in {8, 16}, B=128, T=8; S=2 at H=32, T=256)
+    against its plain versions seed by seed, one launch per kernel for all
+    S seeds x 2 directions, dwh bitwise equal run to run, and timed by
+    events and device time beside S pair launches; timepooled-v2's bf16
+    trunk on the card against the CPU's float32 forward within
+    ``BF16_BAND`` x the JAX distance; ``apps.train --preset timepooled-v2
+    --runs 5`` at full width in ``--runs-mode stacked`` (the main path) and
+    ``sequential``: exact launch counts, per-seed histories within
+    ``STACK_LOSS_RTOL`` / ``STACK_METRIC_ATOL``, equal best epochs, the
+    aggregate training rates, one step of each mode timed and profiled;
+    and the conv-128 split behind ``choose_runs_mode`` (timepooled-v1 x 2
+    and x 4, sednet-dcase x 2, stacked against sequential steps).
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -227,7 +241,7 @@ def bucket_signal(pcm: np.ndarray, cfg, bucket_seconds: float = 30.0) -> np.ndar
     return np.pad(y, (0, -(-len(y) // bucket) * bucket - len(y)))
 
 
-def sednet_tree(model_cfg, seed: int):
+def model_tree(model_cfg, seed: int):
     """A full-width JAX-layout (params, state) tree from a numpy seed, with
     fan-in scaled weights so the activations stay in range."""
     rng = np.random.default_rng(seed)
@@ -248,13 +262,16 @@ def sednet_tree(model_cfg, seed: int):
         state["bn"].append({"mean": b(c, 0.5),
                             "var": rng.uniform(0.5, 2.0, c).astype(np.float32)})
         c_in = c
-    mel_out = model_cfg.n_mels
-    for p in model_cfg.pool:
-        mel_out //= p
-    d_in = model_cfg.conv_channels[-1] * mel_out
+    non_time = model_cfg.n_mels        # the features left per frame after the trunk
+    if model_cfg.pool_axis != "time":
+        for p in model_cfg.pool:
+            non_time //= p
+    d_in = model_cfg.conv_channels[-1] * non_time
+    reset_after = model_cfg.name != "sednet"     # the GRUs then carry bh too
     for h in model_cfg.gru_hidden:
         params["gru"].append({
-            d: {"wi": w((d_in, 3 * h), d_in), "wh": w((h, 3 * h), h), "bi": b(3 * h)}
+            d: {"wi": w((d_in, 3 * h), d_in), "wh": w((h, 3 * h), h), "bi": b(3 * h),
+                **({"bh": b(3 * h)} if reset_after else {})}
             for d in ("fwd", "bwd")
         })
         d_in = 2 * h
@@ -265,6 +282,23 @@ def sednet_tree(model_cfg, seed: int):
     # float reassociation between card and CPU cannot flip an event edge.
     params["head"][-1]["w"] *= 8.0
     return params, state
+
+
+# timepooled-v2's bf16 trunk: the distance of its logits from the float32
+# forward may be at most BF16_BAND times the JAX package's own (jitted, on
+# the CPU; tests/test_torch_bf16.py checks these values against JAX), per
+# (weight seed, train mode) on `model_tree`'s weights and `bf16_input`.
+BF16_BAND = 1.25
+BF16_JAX_DIST = {
+    (0, False): 0.017360568046569824, (0, True): 0.04473447799682617,
+    (1, False): 0.0182037353515625, (1, True): 0.0627450942993164,
+    (2, False): 0.018290996551513672, (2, True): 0.07585287094116211,
+}
+
+
+def bf16_input(seed: int) -> np.ndarray:
+    """The band's input for weight seed ``seed``: 32 windows of 64 x 40."""
+    return np.random.default_rng(100 + seed).standard_normal((32, 64, 40)).astype(np.float32)
 
 
 def phase_device():
@@ -547,7 +581,7 @@ def phase_main(workdir: str, pcm: np.ndarray):
 
     preset = "sednet-dcase"
     cfg = get_preset(preset)
-    params, state = sednet_tree(cfg.model, seed=11)
+    params, state = model_tree(cfg.model, seed=11)
     ckpt = save_checkpoint(os.path.join(workdir, "sednet.npz"),
                            {"params": params, "model_state": state}, {"epoch": 0})
     wav = os.path.join(workdir, "tones_120s.wav")
@@ -1020,7 +1054,7 @@ def phase_train_step():
 
     cfg = get_preset("sednet-dcase")
     mcfg = dataclasses.replace(cfg.model, dropout=0.0)
-    params, state = sednet_tree(cfg.model, seed=11)
+    params, state = model_tree(cfg.model, seed=11)
     batch = 16   # the CPU's side of the comparison takes a few seconds at this size
     rng = np.random.default_rng(12)
     x = rng.standard_normal((batch, mcfg.seq_len_in, mcfg.n_mels)).astype(np.float32)
@@ -1180,7 +1214,7 @@ def phase_train_throughput(cfg, fold):
     from sed_crnn_torch.train.loop import Rngs, Trainer, TrainState, make_samplers
 
     dev = torch.device("cuda")
-    params, state = sednet_tree(cfg.model, seed=11)
+    params, state = model_tree(cfg.model, seed=11)
     model = get_model(cfg.model)
     model.load_state_dict(from_jax(params, state, cfg.model))
     tr, val = make_samplers(cfg, fold, dev)
@@ -2117,6 +2151,410 @@ def phase_multiseed(workdir: str):
           f"{report['ensemble']['er_1s']:.4f}; launches {counts['gru_scan_fwd']} pair forwards")
 
 
+# [multiseed stacked]: kernel B with a seed axis at the stacked main path's
+# shapes (timepooled-v2: S seeds x BiGRU(16) and BiGRU(8), B=128, T=8; and
+# S=2 at sednet's H=32, T=256), both multi-seed modes on timepooled-v2, the
+# conv-128 split behind `choose_runs_mode`, and the bf16 trunk on the card.
+STACK_SHAPES = [(S, 128, 8, H) for S in (1, 3, 5) for H in (8, 16)] + [(2, 128, 256, 32)]
+STACK_RUNS = 5                 # the reference protocol's "mean of 5 runs"
+STACK_EPOCHS = 2
+# Stacked vs sequential on the card: the same function up to float32
+# rounding (a grouped convolution, batched products), which the bf16 trunk
+# and the focal loss carry forward through training: loss histories within
+# 10 % of each other, ER/F1 within 0.15, the same best epochs.
+STACK_LOSS_RTOL = 0.10
+STACK_METRIC_ATOL = 0.15
+# The split: conv-128 trunks at batch 128, stacked against sequential.
+SPLIT_CELLS = [("timepooled-v1", 2), ("timepooled-v1", 4), ("sednet-dcase", 2)]
+
+
+def _stack_operands(rng, dev, S: int, B: int, T: int, H: int):
+    """Both directions' (xp, wh, bh, h0, dys, dhl), each with a leading seed
+    axis, on the card."""
+    import torch
+
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    return [(t(rng.standard_normal((S, B, T, 3 * H))), t(0.3 * rng.standard_normal((S, H, 3 * H))),
+             t(0.1 * rng.standard_normal((S, 3 * H))), t(0.5 * rng.standard_normal((S, B, H))),
+             t(rng.standard_normal((S, B, T, H))), t(rng.standard_normal((S, B, H))))
+            for _ in range(2)]
+
+
+def _gru_bounds(S: int, B: int, T: int, H: int, reset_after: bool):
+    """The least work of S seeds x 2 directions of the forward, the residual
+    forward and the backward (chain + dwh), as `phase_gru_train` counts it
+    per direction: (fwd, fwd_res, bwd) each (ms, what bounds it)."""
+    f, n, RW = 4, 2 * S, (4 if reset_after else 3) * H
+    fwd_b = f * (B * T * 3 * H + H * 3 * H + 3 * H + 2 * B * H + B * T * H)
+    fwd_f = T * B * (2 * H * 3 * H + 12 * H)
+    bwd_b = f * (B * T * H + B * T * RW + H * 3 * H + 2 * B * H + B * T * H
+                 + B * T * 3 * H + H * 3 * H + 3 * H + B * H)
+    bwd_f = T * B * (2 * 2 * H * 3 * H + 20 * H)
+    return (bound_ms(n * fwd_b, n * fwd_f), bound_ms(n * (fwd_b + f * B * T * RW), n * fwd_f),
+            bound_ms(n * bwd_b, n * bwd_f))
+
+
+def _stack_kernel_checks():
+    """Kernel B's stacked entry points against their plain versions seed by
+    seed at STACK_SHAPES, both conventions: one launch per kernel per call,
+    the forward bands, gradients and dwh within GRAD_RTOL, dwh bitwise equal
+    from run to run. Returns the worst errors."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        gru_dwh_plain,
+        gru_scan_bwd_plain,
+        gru_scan_fwd_res_plain,
+        gru_scan_stack,
+        gru_scan_stack_bwd,
+        gru_scan_stack_fwd_res,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    worst = {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0}
+    one = {"gru_scan_fwd": 1, "gru_scan_fwd_res": 1, "gru_scan_bwd": 1, "gru_dwh": 1,
+           "gru_scan_sum_partials": 1, "gru_scan_retained": 0}
+    for S, B, T, H in STACK_SHAPES:
+        d0, d1 = _stack_operands(rng, dev, S, B, T, H)
+        for reset_after in (False, True):
+            def arg(i, reset_after=reset_after):   # operand i of both directions
+                return (d0[i], d1[i]) if (i != 2 or reset_after) else (None, None)
+            _reset_gru_counts()
+            fwd = gru_scan_stack(arg(0), arg(1), arg(2), arg(3), reset_after, "sigmoid")
+            res = gru_scan_stack_fwd_res(arg(0), arg(1), arg(2), arg(3), reset_after, "sigmoid")
+            ys, rs = tuple(r[0] for r in res), tuple(r[1] for r in res)
+            bwd = gru_scan_stack_bwd(ys, rs, arg(1), arg(3), arg(4), arg(5), reset_after,
+                                     "sigmoid")
+            torch.cuda.synchronize()
+            counts = _gru_counts()
+            check(counts == one, f"stacked S={S} H={H} launches {counts} != {one}")
+            again = gru_scan_stack_bwd(ys, rs, arg(1), arg(3), arg(4), arg(5), reset_after,
+                                       "sigmoid")
+            for k, rev in enumerate((False, True)):
+                check(all(torch.equal(a, b) for a, b in zip(bwd[k], again[k])),
+                      f"stacked backward S={S} H={H} not bitwise equal run to run")
+                for s in range(S):
+                    a = (arg(0)[k][s], arg(1)[k][s], None if arg(2)[k] is None else arg(2)[k][s],
+                         arg(3)[k][s])
+                    want = gru_scan_fwd_res_plain(*a, reset_after, "sigmoid", rev)
+                    err = max(max(_maxdiff(g[s], w) for g, w in zip(res[k], want)),
+                              _maxdiff(fwd[k][0][s], want[0]), _maxdiff(fwd[k][1][s], want[2]))
+                    check(err <= GRU_ATOL, f"stacked forward S={S} H={H} seed {s}: {err}")
+                    worst["fwd"] = max(worst["fwd"], err)
+                    want = gru_scan_bwd_plain(ys[k][s], rs[k][s], arg(1)[k][s], arg(3)[k][s],
+                                              arg(4)[k][s], arg(5)[k][s], reset_after, "sigmoid",
+                                              rev)
+                    dwh = gru_dwh_plain(ys[k][s], rs[k][s], arg(3)[k][s], bwd[k][0][s],
+                                        reset_after, rev)
+                    for name, g, w in zip(("dxp", "dwh", "dbh", "dh0", "dwh/own dxp",
+                                           "dbh/own dxp"),
+                                          [b[s] for b in bwd[k]] + [bwd[k][1][s], bwd[k][2][s]],
+                                          list(want) + list(dwh)):
+                        scale = float(w.abs().max())
+                        e = _maxdiff(g, w)
+                        check(e <= GRAD_RTOL * max(scale, 1e-6),
+                              f"stacked {name} S={S} H={H} seed {s}: {e} of {scale}")
+                        key = "dwh" if "own" in name else "bwd"
+                        worst[key] = max(worst[key], e / scale if scale else 0.0)
+        print(f"[multiseed stacked] kernel B stacked S={S} B={B} T={T} H={H:2d}: forward, residual "
+              f"forward, backward and dwh, both conventions, one launch each for {2 * S} "
+              f"(seed, direction) pairs; against the plain versions seed by seed")
+    print(f"[multiseed stacked] kernel B stacked worst: forward max|diff| {worst['fwd']:.3g}, "
+          f"backward {worst['bwd']:.3g} and dwh on its own dxp {worst['dwh']:.3g} of max|grad|; "
+          f"dwh bitwise equal run to run")
+    return worst
+
+
+def _stack_kernel_times(S: int, B: int, T: int, H: int) -> dict:
+    """Stacked launches against S pair launches at one shape, reset_after=True
+    sigmoid (timepooled-v2's GRUs): CUDA events, device and host times."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        gru_scan_pair,
+        gru_scan_pair_bwd,
+        gru_scan_pair_fwd_res,
+        gru_scan_stack,
+        gru_scan_stack_bwd,
+        gru_scan_stack_fwd_res,
+    )
+
+    d0, d1 = _stack_operands(np.random.default_rng(14), torch.device("cuda"), S, B, T, H)
+    arg = lambda i: (d0[i], d1[i])  # noqa: E731
+    per = [tuple((d0[i][s].contiguous(), d1[i][s].contiguous()) for i in range(6))
+           for s in range(S)]
+    res = gru_scan_stack_fwd_res(arg(0), arg(1), arg(2), arg(3), True, "sigmoid")
+    ys, rs = tuple(r[0] for r in res), tuple(r[1] for r in res)
+    pres = [gru_scan_pair_fwd_res(p[0], p[1], p[2], p[3], True, "sigmoid") for p in per]
+    fns = {
+        "fwd": lambda: gru_scan_stack(arg(0), arg(1), arg(2), arg(3), True, "sigmoid"),
+        "fwd_res": lambda: gru_scan_stack_fwd_res(arg(0), arg(1), arg(2), arg(3), True, "sigmoid"),
+        "bwd": lambda: gru_scan_stack_bwd(ys, rs, arg(1), arg(3), arg(4), arg(5), True, "sigmoid"),
+    }
+    sep = {
+        "fwd": lambda: [gru_scan_pair(p[0], p[1], p[2], p[3], True, "sigmoid") for p in per],
+        "fwd_res": lambda: [gru_scan_pair_fwd_res(p[0], p[1], p[2], p[3], True, "sigmoid")
+                            for p in per],
+        "bwd": lambda: [gru_scan_pair_bwd(tuple(r[0] for r in pr), tuple(r[1] for r in pr), p[1],
+                                          p[3], p[4], p[5], True, "sigmoid")
+                        for p, pr in zip(per, pres)],
+    }
+    bounds = dict(zip(("fwd", "fwd_res", "bwd"), _gru_bounds(S, B, T, H, True)))
+    out = {}
+    for name in ("fwd", "fwd_res", "bwd"):
+        ms, sep_ms = cuda_ms(fns[name], reps=50), cuda_ms(sep[name], reps=20)
+        dev_ms, host_ms = device_host_ms(fns[name])
+        sep_dev, sep_host = device_host_ms(sep[name])
+        out[name] = {"ms": ms, "device_ms": dev_ms, "host_ms": host_ms, "separate_ms": sep_ms,
+                     "separate_device_ms": sep_dev, "separate_host_ms": sep_host,
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+        if name == "bwd":   # the chain and the dwh reduction + sum apart, by device time
+            by = _by_kernel(fns[name])
+            out[name]["chain_device_ms"] = _part(by, "gru_warp_bwd")
+            out[name]["dwh_device_ms"] = _part(by, "gru_warp_dwh", "gru_warp_sum")
+        print(f"[multiseed stacked] kernel B {name} S={S} B={B} T={T} H={H}: one stacked launch "
+              f"{ms:.4f} ms by events (device {_fmt(dev_ms)} ms, host issue {host_ms:.4f} ms) vs "
+              f"{S} pair launches {sep_ms:.4f} ms (device {_fmt(sep_dev)} ms, host issue "
+              f"{sep_host:.4f} ms); bound {bounds[name][0]:.6f} ms ({bounds[name][1]})")
+    return out
+
+
+def _fmt(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def _profile_once(fn) -> tuple:
+    """(unprofiled wall ms, device-busy ms or None, the top rows) of one
+    synchronized call of ``fn``, by the host clock and torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    return wall, (busy if busy > 0 else None), rows
+
+
+def _step_fns(cfg, n_seeds: int, dev):
+    """(stacked step, sequential steps) of ``n_seeds`` freshly initialized
+    seeds of ``cfg`` on synthetic data: one `MultiSeedTrainer` step over all
+    seeds, and one `Trainer` step per seed."""
+    import torch
+
+    from sed_crnn_torch.apps.train import synthetic_folds
+    from sed_crnn_torch.models import get_model
+    from sed_crnn_torch.models.stacked import StackedCRNN
+    from sed_crnn_torch.train.loop import Rngs, Trainer, TrainState, make_samplers
+    from sed_crnn_torch.train.multiseed import MultiSeedTrainer
+
+    m, batch = cfg.model, cfg.train.batch_size
+    frames = max(8000, int(batch * m.seq_len_in * 1.3))
+    fold = synthetic_folds(1, frames=frames, n_classes=m.n_classes, n_mels=m.n_mels,
+                           in_channels=m.in_channels)[1]
+    tr, val = make_samplers(cfg, fold, dev)
+    models = [get_model(m).init_parameters(torch.Generator().manual_seed(s))
+              for s in range(n_seeds)]
+    stacked = MultiSeedTrainer(StackedCRNN.from_models(models).to(dev), cfg.train, tr, val)
+    rngs = [Rngs(dev, s, stacked.model.n_dropout_sites) for s in range(n_seeds)]
+    st = TrainState(stacked.adam.init({k: p.detach() for k, p in stacked.params().items()}),
+                    torch.ones(n_seeds, device=dev))
+    singles = [Trainer(mm.to(dev), cfg.train, tr, val) for mm in models]
+    sts = [TrainState(t.adam.init({k: p.detach() for k, p in t.params().items()}), 1.0)
+           for t in singles]
+
+    def stacked_step():
+        nonlocal st
+        x, y = stacked.draw_batch(tr, [r.batch for r in rngs])
+        st, _, _ = stacked.train_step(st, x, y, [r.dropout for r in rngs])
+
+    def sequential_steps():
+        for i, (t, r) in enumerate(zip(singles, rngs)):
+            x, y = tr.sample_batch(r.batch, batch)
+            sts[i], _, _ = t.train_step(sts[i], x, y, r.dropout)
+
+    return stacked_step, sequential_steps
+
+
+def _median_ms(fn, reps: int = 10) -> float:
+    """Median host-clock ms of ``reps`` synchronized calls, after 3 warm-ups."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _bf16_on_card() -> float:
+    """timepooled-v2's bf16 trunk on the card against the CPU's float32
+    forward, within BF16_BAND of the JAX distance for each weight seed and
+    mode; returns the worst share of the band's limit."""
+    import torch
+
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.models import get_model
+    from sed_crnn_torch.models.convert import from_jax
+
+    mcfg = dataclasses.replace(get_preset("timepooled-v2").model, dropout=0.0)
+    worst = 0.0
+    for seed in (0, 1, 2):
+        params, state = model_tree(mcfg, seed)
+        x = bf16_input(seed)
+        for train in (False, True):
+            out = {}
+            for dtype, dev in (("float32", "cpu"), ("bfloat16", "cuda")):
+                m = get_model(dataclasses.replace(mcfg, compute_dtype=dtype))
+                m.load_state_dict(from_jax(params, state, m.cfg))
+                with torch.no_grad():
+                    out[dev] = m.to(dev).train(train)(torch.from_numpy(x).to(dev))[0].cpu()
+            dist = float((out["cuda"] - out["cpu"]).abs().max())
+            limit = BF16_BAND * BF16_JAX_DIST[seed, train]
+            check(dist <= limit, f"bf16 trunk on the card seed {seed} train {train}: {dist} > "
+                                 f"{limit}")
+            worst = max(worst, dist / limit)
+            print(f"[multiseed stacked] bf16 trunk timepooled-v2 seed {seed} "
+                  f"{'train' if train else 'eval'}: card bf16 vs CPU float32 max|diff| {dist:.4g}, "
+                  f"JAX's own {BF16_JAX_DIST[seed, train]:.4g}, limit {limit:.4g}")
+    return worst
+
+
+def phase_multiseed_stacked(workdir: str):
+    """[multiseed stacked]: kernel B's stacked checks and times, the bf16
+    trunk on the card, `apps.train --runs 5` on timepooled-v2 in both modes
+    (histories, best epochs, exact launch counts, rates, profiles), and the
+    conv-128 split behind `choose_runs_mode`. Returns the stacked run's GRU
+    launch counts and the kernel numbers."""
+    import torch
+
+    from sed_crnn_torch.apps import train as train_app
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.train.loop import make_samplers
+    from sed_crnn_torch.train.multiseed import STACKED_SPLIT_BATCH, choose_runs_mode
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    worst = _stack_kernel_checks()
+    times = {H: _stack_kernel_times(STACK_RUNS, 128, 8, H) for H in (16, 8)}
+    times[32] = _stack_kernel_times(2, 128, GRU_T, 32)
+    bf16_share = _bf16_on_card()
+
+    # Both modes on timepooled-v2 through the CLI, full width.
+    cfg = get_preset("timepooled-v2")
+    batch, seq = cfg.train.batch_size, cfg.model.seq_len_in
+    audio_per_step = batch * seq / FRAMES_PER_SEC
+    frames = max(8000, int(batch * seq * 1.3))          # as apps.train --synthetic makes them
+    fold = train_app.synthetic_folds(1, frames=frames, n_classes=cfg.model.n_classes,
+                                     n_mels=cfg.model.n_mels)[1]
+    tr, val = make_samplers(cfg, fold, dev)
+    n_train = tr.steps_per_epoch(batch)
+    n_val = max(1, val.steps_per_epoch(batch, drop_last=False))
+    layers = len(cfg.model.gru_hidden)
+    runs, wall, counts = {}, {}, {}
+    for mode in ("stacked", "sequential"):
+        art = os.path.join(workdir, mode)
+        _reset_gru_counts()
+        t0 = time.perf_counter()
+        with _no_plain_gru_on_card() as plain_on_card:
+            runs[mode], _ = _quiet(train_app.main, [
+                "--preset", "timepooled-v2", "--synthetic", "--folds", "1",
+                "--runs", str(STACK_RUNS), "--runs-mode", mode, "--max-epochs", str(STACK_EPOCHS),
+                "--plot-every", "0", "--device", "cuda", "--art-dir", art])
+            torch.cuda.synchronize()
+        wall[mode] = time.perf_counter() - t0
+        counts[mode] = _gru_counts()
+        per = 1 if mode == "stacked" else STACK_RUNS
+        want = _gru_path_counts(per * layers * n_val * STACK_EPOCHS,
+                                per * layers * n_train * STACK_EPOCHS)
+        check(counts[mode] == want and not plain_on_card,
+              f"timepooled-v2 --runs-mode {mode} launches {counts[mode]} != {want}")
+        (run,) = os.listdir(art)
+        epoch_sec = {}
+        for s in runs[mode]["seeds"]:
+            with open(os.path.join(art, run, "fold1", f"seed{s}", "train_fold1.jsonl")) as f:
+                epoch_sec[s] = [json.loads(ln)["epoch_sec"] for ln in f]
+        # seconds of training and validation, checkpoint writing excluded
+        sec = (sum(epoch_sec[runs[mode]["seeds"][0]]) if mode == "stacked"
+               else sum(sum(v) for v in epoch_sec.values()))
+        rate = STACK_RUNS * n_train * STACK_EPOCHS * audio_per_step / sec
+        runs[mode]["rate"], runs[mode]["epoch_sec"] = rate, epoch_sec
+        print(f"[multiseed stacked] apps.train timepooled-v2 --runs {STACK_RUNS} --runs-mode {mode}"
+              f" (full width, batch {batch}, bf16 trunk, {STACK_EPOCHS} epochs x {n_train} train +"
+              f" {n_val} validation steps): wall {wall[mode]:.2f} s, epochs {sec:.2f} s -> "
+              f"{rate:,.0f} audio-sec/sec aggregate ({audio_per_step:.1f} audio-s per seed-step); "
+              f"ER {runs[mode]['mean_er']:.4f} ± {runs[mode]['std_er']:.4f}; launches "
+              f"{counts[mode]}")
+    worst_loss, worst_metric = 0.0, 0.0
+    for j, s in enumerate(runs["stacked"]["seeds"]):
+        a, b = runs["stacked"]["folds"][1][j], runs["sequential"]["folds"][1][j]
+        check((a.best_epoch, a.epochs_run) == (b.best_epoch, b.epochs_run),
+              f"seed {s}: stacked best epoch {a.best_epoch} / {a.epochs_run} run vs sequential "
+              f"{b.best_epoch} / {b.epochs_run}")
+        for k, v in b.history.items():
+            g, w = np.asarray(a.history[k]), np.asarray(v)
+            if k.startswith("loss"):
+                e = float(np.max(np.abs(g - w) / np.abs(w)))
+                check(e <= STACK_LOSS_RTOL, f"seed {s} {k}: stacked {g} vs sequential {w}")
+                worst_loss = max(worst_loss, e)
+            else:
+                e = float(np.max(np.abs(g - w)))
+                check(e <= STACK_METRIC_ATOL, f"seed {s} {k}: stacked {g} vs sequential {w}")
+                worst_metric = max(worst_metric, e)
+    print(f"[multiseed stacked] stacked vs sequential per seed: loss histories within "
+          f"{worst_loss:.3g} relative (band {STACK_LOSS_RTOL}), ER/F1 within {worst_metric:.3g} "
+          f"(band {STACK_METRIC_ATOL}), the same best epochs "
+          f"{[r.best_epoch for r in runs['stacked']['folds'][1]]}; aggregate rate stacked / "
+          f"sequential {runs['stacked']['rate'] / runs['sequential']['rate']:.2f}")
+
+    # One step of each mode at steady state: rate, profile and idle share.
+    stacked_step, sequential_steps = _step_fns(cfg, STACK_RUNS, dev)
+    step = {"stacked": _median_ms(stacked_step), "sequential": _median_ms(sequential_steps)}
+    for mode, fn in (("stacked", stacked_step), ("sequential", sequential_steps)):
+        wall_ms, busy, rows = _profile_once(fn)
+        rate = STACK_RUNS * audio_per_step / (step[mode] / 1e3)
+        idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall_ms):.3f}"
+        print(f"[multiseed stacked] {mode} step, {STACK_RUNS} seeds of timepooled-v2 at batch "
+              f"{batch}: host clock median {step[mode]:.2f} ms -> {rate:,.0f} audio-sec/sec; "
+              f"profiled: wall {wall_ms:.2f} ms, device busy {_fmt(busy)} ms, idle share {idle}")
+        for e in rows[:8]:
+            print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  "
+                  f"{e.key[:90]}")
+
+    # The conv-128 split: stacked vs sequential step rate at batch 128.
+    split = {}
+    for name, n_seeds in SPLIT_CELLS:
+        c = get_preset(name)
+        st_fn, seq_fn = _step_fns(c, n_seeds, dev)
+        st_ms, seq_ms = _median_ms(st_fn, reps=5), _median_ms(seq_fn, reps=5)
+        split[name, n_seeds] = seq_ms / st_ms
+        eff = c.train.batch_size * n_seeds
+        print(f"[multiseed stacked] split {name} x{n_seeds} (effective batch {eff}): stacked step "
+              f"{st_ms:.2f} ms vs {n_seeds} sequential steps {seq_ms:.2f} ms -> stacked / "
+              f"sequential rate {seq_ms / st_ms:.3f}; choose_runs_mode says "
+              f"{choose_runs_mode(c, n_seeds)} (split {STACKED_SPLIT_BATCH})")
+    print(f"[multiseed stacked] phase wall {time.perf_counter() - t_phase:.1f} s")
+    numbers = {"worst": worst, "times": times, "bf16_share": bf16_share,
+               "rates": {m: runs[m]["rate"] for m in runs}, "steps_ms": step,
+               "split": {f"{k[0]} x{k[1]}": v for k, v in split.items()}}
+    return counts["stacked"], numbers
+
+
 SERVE_STREAMS = 8        # concurrent TCP clients of the [serve] daemon (--max-streams)
 SERVE_TIMEOUT_S = 120    # every client socket and the daemon's join
 
@@ -2515,6 +2953,7 @@ def main() -> int:
         binmul_best = phase_feature_train(feature_dir, cache)
         eval_launches, eval_numbers = phase_evaluate(train_dir, cache, binmul_best)
         phase_multiseed(os.path.join(workdir, "multiseed"))
+        stack_launches, stack = phase_multiseed_stacked(os.path.join(workdir, "stacked"))
         serve_launches, serve_numbers = phase_serve(train_dir, os.path.join(workdir, "serve"),
                                                     pcm)
     kernel_b.update(eval_numbers)
@@ -2528,6 +2967,22 @@ def main() -> int:
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
     launches["fused_logmel_dft"] = kernel_dft.pop("launches")
     launches["gru_scan_retained"] = kernel_retained.pop("launches")
+    # kernel B's stacked launches (one per kernel for all seeds) on the
+    # stacked main path, and its stacked numbers at timepooled-v2's H=16
+    for k in ("gru_scan_fwd", "gru_scan_fwd_res", "gru_scan_bwd", "gru_dwh"):
+        launches[k] += stack_launches[k]
+    shape = f"S={STACK_RUNS} B=128 T=8 H=16 reset_after=True"
+    for entry, name in ((kernel_b, "fwd"), (kernel_fwd_res, "fwd_res"), (kernel_bwd, "bwd")):
+        t = stack["times"][16][name]
+        entry.update({"stack_shape": shape, "stack_ms": t["ms"], "stack_device_ms": t["device_ms"],
+                      "stack_host_ms": t["host_ms"], "stack_separate_ms": t["separate_ms"],
+                      "stack_bound_ms": t["bound_ms"], "stack_bound_by": t["bound_by"]})
+    kernel_dwh.update({"stack_shape": shape,
+                       "stack_device_ms": stack["times"][16]["bwd"]["dwh_device_ms"]})
+    kernel_b["max_abs_err"] = max(kernel_b["max_abs_err"], stack["worst"]["fwd"])
+    kernel_fwd_res["max_abs_err"] = max(kernel_fwd_res["max_abs_err"], stack["worst"]["fwd"])
+    kernel_bwd["max_abs_err"] = max(kernel_bwd["max_abs_err"], stack["worst"]["bwd"])
+    kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])
     kernels = []
     head = ("name", "route", "source", "replaces")
     for k in (kernel_a, kernel_framed, kernel_exact, kernel_dft, kernel_b, kernel_fwd_res,

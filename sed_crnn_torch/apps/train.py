@@ -9,10 +9,12 @@ npz checkpoints, one jsonl record per epoch and, with ``--plot-every`` > 0,
 PNG plots (which need matplotlib). Runs on ``--device cuda`` by default and
 raises without a GPU; ``--device cpu`` runs the kernels' plain versions.
 
-``--runs N`` repeats the experiment over N seeds, one `run_fold` after
-another into ``fold<k>/seed<s>/``, and reports the mean and std over seeds
-(``experiment_multiseed.jsonl``). ``--runs-mode stacked``,
-``--data-parallel`` and ``--seed-parallel`` are not yet ported.
+``--runs N`` repeats the experiment over N seeds into ``fold<k>/seed<s>/``
+and reports the mean and std over seeds (``experiment_multiseed.jsonl``):
+``--runs-mode stacked`` trains all seeds of a fold as one stacked model,
+``sequential`` one `run_fold` after another, and ``auto`` (the default)
+picks by `train.multiseed.choose_runs_mode`. ``--data-parallel`` and
+``--seed-parallel`` are not yet ported (ROADMAP.md Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -86,18 +88,20 @@ def main(argv=None):
     p.add_argument("--runs", type=int, default=1, metavar="N",
                    help="repeat the experiment over N seeds and report mean±std ER/F1 "
                         "(the reference README's 'mean of 5 runs' protocol)")
-    p.add_argument("--runs-mode", choices=("auto", "sequential"), default="auto",
-                   help="with --runs: 'sequential' trains the seeds one after another; "
-                        "'auto' (default) means sequential until 'stacked' (all seeds "
-                        "as one program) is ported")
-    p.add_argument("--data-parallel", type=int, default=0, help="not yet ported")
-    p.add_argument("--seed-parallel", type=int, default=0, help="not yet ported")
+    p.add_argument("--runs-mode", choices=("auto", "stacked", "sequential"), default="auto",
+                   help="with --runs: 'stacked' trains all seeds of a fold as one model, "
+                        "'sequential' one after another; 'auto' (default) picks the one "
+                        "measured faster for the preset (choose_runs_mode)")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="not yet ported (ROADMAP.md Queue 1 item 4)")
+    p.add_argument("--seed-parallel", type=int, default=0,
+                   help="not yet ported (ROADMAP.md Queue 1 item 4)")
     args = p.parse_args(argv)
 
     for flag, value in (("--data-parallel", args.data_parallel),
                         ("--seed-parallel", args.seed_parallel)):
         if value:
-            raise NotImplementedError(f"{flag} is not yet ported")
+            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP.md Queue 1 item 4)")
     device = resolve_device(args.device)
 
     cfg = get_preset(args.preset)

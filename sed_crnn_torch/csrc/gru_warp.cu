@@ -55,9 +55,14 @@
 //   * cheap gates: sigmoid and tanh from __expf and __fdividef (a fifth off
 //     the forward's step against expf, a division and tanhf on an H100),
 //     within a few 1e-7 of the plain version's;
-//   * directions in parallel: grid.y is the direction, each with its own
-//     pointers and time order, so the two recurrences of a BiGRU run side by
-//     side; one warp per block, so B=128 x 2 directions spread over the SMs;
+//   * directions and seeds in parallel: grid.y is 2 * seed + direction,
+//     each direction with its own pointers and time order, so the two
+//     recurrences of a BiGRU run side by side; one warp per block, so B=128 x
+//     2 directions spread over the SMs. Stacked multi-seed training runs S
+//     independent weight sets at once: every tensor of a direction holds S
+//     seeds one after another (xp (S, B, T, 3H), wh (S, H, 3H), ...), so
+//     seed s of a direction is its pointer plus s times the tensor's size per
+//     seed, and one launch takes all S seeds x 2 directions;
 //   * the dwh reduction off the chain: dwh[:, :2H] = sum h_prev^T dxp[:, :2H],
 //     dwh[:, 2H:] = sum (r h_prev)^T da_n (reset_after=0) or
 //     sum h_prev^T (da_n r) (reset_after=1), dbh = sum [da_r, da_z, da_n r],
@@ -70,6 +75,8 @@
 #include <math.h>
 
 // One direction's operands; the C entry points take an array of 1 or 2.
+// Each pointer is that of seed 0; the kernels step to seed s by the
+// tensor's size per seed, from B, T and H.
 struct FwdDir {
   const float* xp;
   const float* wh;
@@ -108,16 +115,19 @@ constexpr int MAX_DIRS = 2;
 constexpr int STAGES = 8;           // staging ring: STAGES - 1 steps in flight
 constexpr int DWH_THREADS = 256;
 constexpr int DWH_TILE = 32;        // rows staged in shared memory at a time
-constexpr int DWH_MAX_BLOCKS = 128; // partials per direction
+constexpr int DWH_MAX_BLOCKS = 128; // partials per (seed, direction)
 
 template <typename D>
 struct Dirs {
   D d[MAX_DIRS];
 };
 
-// A field of this block's direction (grid.y), selected field by field so
-// that the kernel never copies a whole direction struct to local memory.
-#define PICK(field) (blockIdx.y ? dirs.d[1].field : dirs.d[0].field)
+// A field of this block's direction (bit 0 of grid.y; the rest is the
+// seed), selected field by field so that the kernel never copies a whole
+// direction struct to local memory.
+#define PICK(field) ((blockIdx.y & 1) ? dirs.d[1].field : dirs.d[0].field)
+
+__device__ __forceinline__ size_t seed_of_block() { return blockIdx.y >> 1; }
 
 // The gates from the hardware's exp2 and reciprocal (__expf, __fdividef):
 // within a few 1e-7 of the correctly rounded functions, and at the extremes
@@ -179,16 +189,17 @@ template <int HP, bool WITH_RES>
 __global__ void __launch_bounds__(32) gru_warp_fwd(Dirs<FwdDir> dirs, int B, int T, int H,
                                                    int reset_after, int hard) {
   constexpr int S = STAGES;
-  const float* wh = PICK(wh);
-  const float* bh = PICK(bh);
+  const int H3 = 3 * H;
+  const int RW = reset_after ? 4 * H : H3;
+  const size_t seed = seed_of_block();
+  const float* wh = PICK(wh) + seed * H * H3;
+  const float* bh = reset_after ? PICK(bh) + seed * H3 : nullptr;
   const int rev = PICK(reverse);
   const int lane = threadIdx.x;
   const int seg = lane / HP;               // batch row within the warp
   const int j = lane % HP;                 // hidden unit
   const int b = blockIdx.x * (32 / HP) + seg;
   const bool act = b < B && j < H;
-  const int H3 = 3 * H;
-  const int RW = reset_after ? 4 * H : H3;
 
   // Per-warp broadcast rows: h (double-buffered: one barrier per step when
   // reset_after) and r * h; and the staging ring of xp, each lane's own three
@@ -211,7 +222,7 @@ __global__ void __launch_bounds__(32) gru_warp_fwd(Dirs<FwdDir> dirs, int B, int
     bz = bh[H + j];
     bn = bh[2 * H + j];
   }
-  const size_t bb = act ? (size_t)b : 0;
+  const size_t bb = seed * B + (act ? b : 0);   // the row among all seeds' rows
   const float* x_b = PICK(xp) + bb * T * H3;
   float* y_b = PICK(ys) + bb * T * H;
   float* res_b = WITH_RES ? PICK(res) + bb * T * RW : nullptr;
@@ -278,15 +289,16 @@ template <int HP>
 __global__ void __launch_bounds__(32) gru_warp_bwd(Dirs<BwdDir> dirs, int B, int T, int H,
                                                    int reset_after, int hard) {
   constexpr int S = STAGES;
-  const float* wh = PICK(wh);
+  const int H3 = 3 * H;
+  const int RW = reset_after ? 4 * H : H3;
+  const size_t seed = seed_of_block();
+  const float* wh = PICK(wh) + seed * H * H3;
   const int rev = PICK(reverse);
   const int lane = threadIdx.x;
   const int seg = lane / HP;
   const int j = lane % HP;
   const int b = blockIdx.x * (32 / HP) + seg;
   const bool act = b < B && j < H;
-  const int H3 = 3 * H;
-  const int RW = reset_after ? 4 * H : H3;
 
   // Per-warp broadcast rows, double-buffered: da_r | da_z | da_n (times r
   // when reset_after), each HP wide; and the staging ring of the saved
@@ -302,7 +314,7 @@ __global__ void __launch_bounds__(32) gru_warp_bwd(Dirs<BwdDir> dirs, int B, int
     wz[k] = ok ? wh[j * H3 + H + k] : 0.f;
     wn[k] = ok ? wh[j * H3 + 2 * H + k] : 0.f;
   }
-  const size_t bb = act ? (size_t)b : 0;
+  const size_t bb = seed * B + (act ? b : 0);
   const float* y_b = PICK(ys) + bb * T * H;
   const float* res_b = PICK(res) + bb * T * RW;
   const float* dy_b = PICK(dys) + bb * T * H;
@@ -393,16 +405,17 @@ __global__ void __launch_bounds__(DWH_THREADS) gru_warp_dwh(Dirs<DwhDir> dirs, i
   constexpr int KG = HP / 4 + 1;           // k-groups, the last one the bias
   constexpr int CG = 3 * HP / 4;           // column groups
   static_assert(KG * CG <= DWH_THREADS, "one 4 x 4 tile per thread");
-  const float* ys = PICK(ys);
-  const float* res = PICK(res);
-  const float* h0 = PICK(h0);
-  const float* dxp = PICK(dxp);
-  const int rev = PICK(reverse);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const int H3 = 3 * H;
   const int RW = reset_after ? 4 * H : H3;
   const long long N = (long long)B * T;
+  const size_t seed = seed_of_block();
+  const float* ys = PICK(ys) + seed * N * H;
+  const float* res = PICK(res) + seed * N * RW;
+  const float* h0 = PICK(h0) + seed * B * H;
+  const float* dxp = PICK(dxp) + seed * N * H3;
+  const int rev = PICK(reverse);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const long long chunk = (N + nblk - 1) / nblk;
   const long long n_lo = blockIdx.x * chunk;
   const long long n_hi = n_lo + chunk < N ? n_lo + chunk : N;
@@ -466,7 +479,7 @@ __global__ void __launch_bounds__(DWH_THREADS) gru_warp_dwh(Dirs<DwhDir> dirs, i
   }
 
   if (!owner) return;
-  float* p = PICK(part) + (size_t)blockIdx.x * (H * H3 + H3);
+  float* p = PICK(part) + (seed * nblk + blockIdx.x) * (H * H3 + H3);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int cc = c0 + c;
@@ -484,7 +497,8 @@ __global__ void __launch_bounds__(DWH_THREADS) gru_warp_dwh(Dirs<DwhDir> dirs, i
   }
 }
 
-// out[d][e] = sum over blocks of part[d][blk][e], blocks added in index order.
+// out[q][e] = sum over blocks of part[q][blk][e], blocks added in index
+// order, for each (direction, seed) row q.
 __global__ void gru_warp_sum(const float* __restrict__ part, float* __restrict__ out,
                              int nblk, int n) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -499,8 +513,10 @@ __global__ void gru_warp_sum(const float* __restrict__ part, float* __restrict__
 
 int padded(int H) { return H <= 4 ? 4 : H <= 8 ? 8 : H <= 16 ? 16 : 32; }
 
-bool bad_shape(int ndir, int B, int T, int H) {
-  return ndir < 1 || ndir > MAX_DIRS || B <= 0 || T <= 0 || H <= 0 || H > 32;
+// More than one seed takes both directions: grid.y is 2 * seed + direction.
+bool bad_shape(int ndir, int nseed, int B, int T, int H) {
+  return ndir < 1 || ndir > MAX_DIRS || nseed < 1 || (nseed > 1 && ndir != MAX_DIRS) ||
+         B <= 0 || T <= 0 || H <= 0 || H > 32;
 }
 
 template <typename D>
@@ -511,9 +527,9 @@ Dirs<D> pack(const D* dirs, int ndir) {
 }
 
 template <int HP>
-void launch_fwd(const Dirs<FwdDir>& dirs, int ndir, int B, int T, int H, int reset_after,
+void launch_fwd(const Dirs<FwdDir>& dirs, int ny, int B, int T, int H, int reset_after,
                 int hard, int with_res, cudaStream_t stream) {
-  const dim3 grid((B + 32 / HP - 1) / (32 / HP), ndir);
+  const dim3 grid((B + 32 / HP - 1) / (32 / HP), ny);
   if (with_res) {
     gru_warp_fwd<HP, true><<<grid, 32, 0, stream>>>(dirs, B, T, H, reset_after, hard);
   } else {
@@ -522,17 +538,17 @@ void launch_fwd(const Dirs<FwdDir>& dirs, int ndir, int B, int T, int H, int res
 }
 
 template <int HP>
-void launch_bwd(const Dirs<BwdDir>& dirs, int ndir, int B, int T, int H, int reset_after,
+void launch_bwd(const Dirs<BwdDir>& dirs, int ny, int B, int T, int H, int reset_after,
                 int hard, cudaStream_t stream) {
-  const dim3 grid((B + 32 / HP - 1) / (32 / HP), ndir);
+  const dim3 grid((B + 32 / HP - 1) / (32 / HP), ny);
   gru_warp_bwd<HP><<<grid, 32, 0, stream>>>(dirs, B, T, H, reset_after, hard);
 }
 
 template <int HP>
-void launch_dwh(const Dirs<DwhDir>& dirs, int ndir, int B, int T, int H, int reset_after,
+void launch_dwh(const Dirs<DwhDir>& dirs, int ny, int B, int T, int H, int reset_after,
                 int nblk, cudaStream_t stream) {
-  gru_warp_dwh<HP><<<dim3(nblk, ndir), DWH_THREADS, 0, stream>>>(dirs, B, T, H, reset_after,
-                                                                 nblk);
+  gru_warp_dwh<HP><<<dim3(nblk, ny), DWH_THREADS, 0, stream>>>(dirs, B, T, H, reset_after,
+                                                               nblk);
 }
 
 }  // namespace
@@ -543,72 +559,80 @@ const char* gru_warp_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// ndir (1 or 2) directions, each xp (B, T, 3H), wh (H, 3H), bh (3H) or null,
-// h0 (B, H) -> ys (B, T, H), res (B, T, RW) when with_res, h_last (B, H);
-// float32, contiguous, on the device of `stream`; 0 < H <= 32.
-int gru_warp_fwd_launch(const FwdDir* dirs, int ndir, int B, int T, int H, int reset_after,
-                        int hard_sigmoid, int with_res, void* stream) {
-  if (bad_shape(ndir, B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
+// ndir (1 or 2) directions of nseed seeds (nseed > 1 only with both
+// directions), each xp (nseed, B, T, 3H), wh (nseed, H, 3H), bh (nseed, 3H)
+// or null, h0 (nseed, B, H) -> ys (nseed, B, T, H), res (nseed, B, T, RW)
+// when with_res, h_last (nseed, B, H); float32, contiguous, on the device of
+// `stream`; 0 < H <= 32.
+int gru_warp_fwd_launch(const FwdDir* dirs, int ndir, int nseed, int B, int T, int H,
+                        int reset_after, int hard_sigmoid, int with_res, void* stream) {
+  if (bad_shape(ndir, nseed, B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
   const Dirs<FwdDir> d = pack(dirs, ndir);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ny = ndir * nseed;
   switch (padded(H)) {
-    case 4: launch_fwd<4>(d, ndir, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
-    case 8: launch_fwd<8>(d, ndir, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
-    case 16: launch_fwd<16>(d, ndir, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
-    default: launch_fwd<32>(d, ndir, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
+    case 4: launch_fwd<4>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
+    case 8: launch_fwd<8>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
+    case 16: launch_fwd<16>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
+    default: launch_fwd<32>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// ndir directions, each ys (B, T, H), res (B, T, RW), wh (H, 3H), h0 (B, H),
-// dys (B, T, H), dhl (B, H) -> dxp (B, T, 3H), dh0 (B, H).
-int gru_warp_bwd_launch(const BwdDir* dirs, int ndir, int B, int T, int H, int reset_after,
-                        int hard_sigmoid, void* stream) {
-  if (bad_shape(ndir, B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
+// ndir directions of nseed seeds, each ys (nseed, B, T, H), res (nseed, B,
+// T, RW), wh (nseed, H, 3H), h0 (nseed, B, H), dys (nseed, B, T, H), dhl
+// (nseed, B, H) -> dxp (nseed, B, T, 3H), dh0 (nseed, B, H).
+int gru_warp_bwd_launch(const BwdDir* dirs, int ndir, int nseed, int B, int T, int H,
+                        int reset_after, int hard_sigmoid, void* stream) {
+  if (bad_shape(ndir, nseed, B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
   const Dirs<BwdDir> d = pack(dirs, ndir);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ny = ndir * nseed;
   switch (padded(H)) {
-    case 4: launch_bwd<4>(d, ndir, B, T, H, reset_after, hard_sigmoid, s); break;
-    case 8: launch_bwd<8>(d, ndir, B, T, H, reset_after, hard_sigmoid, s); break;
-    case 16: launch_bwd<16>(d, ndir, B, T, H, reset_after, hard_sigmoid, s); break;
-    default: launch_bwd<32>(d, ndir, B, T, H, reset_after, hard_sigmoid, s); break;
+    case 4: launch_bwd<4>(d, ny, B, T, H, reset_after, hard_sigmoid, s); break;
+    case 8: launch_bwd<8>(d, ny, B, T, H, reset_after, hard_sigmoid, s); break;
+    case 16: launch_bwd<16>(d, ny, B, T, H, reset_after, hard_sigmoid, s); break;
+    default: launch_bwd<32>(d, ny, B, T, H, reset_after, hard_sigmoid, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Partials gru_warp_dwh_launch writes per direction for B*T rows.
+// Partials gru_warp_dwh_launch writes per (seed, direction) for B*T rows.
 int gru_warp_dwh_blocks(int B, int T) {
   const long long rows = (long long)B * T;
   const long long tiles = (rows + DWH_TILE - 1) / DWH_TILE;
   return (int)(tiles < DWH_MAX_BLOCKS ? (tiles > 0 ? tiles : 1) : DWH_MAX_BLOCKS);
 }
 
-// ndir directions, each ys (B, T, H), res (B, T, RW), h0 (B, H), dxp (B, T, 3H)
-// -> part (gru_warp_dwh_blocks(B, T), 3H * H + 3H): per block, dwh (row-major
-// (H, 3H)) then dbh (zeros unless reset_after).
-int gru_warp_dwh_launch(const DwhDir* dirs, int ndir, int B, int T, int H, int reset_after,
-                        void* stream) {
-  if (bad_shape(ndir, B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
+// ndir directions of nseed seeds, each ys (nseed, B, T, H), res (nseed, B,
+// T, RW), h0 (nseed, B, H), dxp (nseed, B, T, 3H) -> part (nseed,
+// gru_warp_dwh_blocks(B, T), 3H * H + 3H): per block, dwh (row-major (H,
+// 3H)) then dbh (zeros unless reset_after).
+int gru_warp_dwh_launch(const DwhDir* dirs, int ndir, int nseed, int B, int T, int H,
+                        int reset_after, void* stream) {
+  if (bad_shape(ndir, nseed, B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
   const Dirs<DwhDir> d = pack(dirs, ndir);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nblk = gru_warp_dwh_blocks(B, T);
+  const int ny = ndir * nseed;
   switch (padded(H)) {
-    case 4: launch_dwh<4>(d, ndir, B, T, H, reset_after, nblk, s); break;
-    case 8: launch_dwh<8>(d, ndir, B, T, H, reset_after, nblk, s); break;
-    case 16: launch_dwh<16>(d, ndir, B, T, H, reset_after, nblk, s); break;
-    default: launch_dwh<32>(d, ndir, B, T, H, reset_after, nblk, s); break;
+    case 4: launch_dwh<4>(d, ny, B, T, H, reset_after, nblk, s); break;
+    case 8: launch_dwh<8>(d, ny, B, T, H, reset_after, nblk, s); break;
+    case 16: launch_dwh<16>(d, ny, B, T, H, reset_after, nblk, s); break;
+    default: launch_dwh<32>(d, ny, B, T, H, reset_after, nblk, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (ndir, n) = part (ndir, nblk, n) summed over its block axis in index order.
-int gru_warp_sum_partials(const float* part, float* out, int ndir, int nblk, int n,
+// out (nrows, n) = part (nrows, nblk, n) summed over its block axis in index
+// order; a row per (direction, seed).
+int gru_warp_sum_partials(const float* part, float* out, int nrows, int nblk, int n,
                           void* stream) {
-  if (ndir < 1 || ndir > MAX_DIRS || nblk <= 0 || n <= 0) {
+  if (nrows < 1 || nrows > 65535 || nblk <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = 256;
-  gru_warp_sum<<<dim3((n + threads - 1) / threads, ndir), threads, 0,
+  gru_warp_sum<<<dim3((n + threads - 1) / threads, nrows), threads, 0,
                  static_cast<cudaStream_t>(stream)>>>(part, out, nblk, n);
   return static_cast<int>(cudaGetLastError());
 }

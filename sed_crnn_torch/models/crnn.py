@@ -35,50 +35,11 @@ _ACTIVATIONS = {
 Carry = List[Dict[str, torch.Tensor]]
 
 
-class CRNN(nn.Module):
-    def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        if cfg.gru_backend not in GRU_BACKENDS:
-            raise ValueError(f"unknown GRU backend {cfg.gru_backend!r}; expected one of "
-                             f"{GRU_BACKENDS}")
-        self.cfg = cfg
-        in_ch = cfg.in_channels
-        convs, bns = [], []
-        for out_ch in cfg.conv_channels:
-            convs.append(Conv2d(in_ch, out_ch, tuple(cfg.kernel_size)))
-            bns.append(BatchNorm2d(out_ch, cfg.bn_eps, cfg.bn_momentum))
-            in_ch = out_ch
-        self.conv = nn.ModuleList(convs)
-        self.bn = nn.ModuleList(bns)
-        self.dropout = Dropout(cfg.dropout)
-        # the legacy keras SEDnet convention resets before the recurrent product
-        reset_after = cfg.name != "sednet"
-        grus, in_dim = [], self.flat_dim
-        for h in cfg.gru_hidden:
-            grus.append(BiGRU(in_dim, h, reset_after, cfg.gru_gate_activation))
-            in_dim = 2 * h
-        self.gru = nn.ModuleList(grus)
-        head = []
-        for d in cfg.head_dims:
-            head.append(Dense(in_dim, d))
-            in_dim = d
-        self.head = nn.ModuleList(head)
-        self.eval()
+class CRNNShape:
+    """The shape arithmetic and input layout of a configuration, shared by
+    `CRNN` and the seed-stacked `models/stacked.py::StackedCRNN`."""
 
-    def init_parameters(self, generator: torch.Generator) -> "CRNN":
-        """Draw every parameter by ``cfg.init_scheme`` from ``generator``, in
-        the JAX package's layer order, and reset the BatchNorm running
-        statistics. Draws happen on the generator's device and are copied
-        into the parameters wherever they live."""
-        scheme = self.cfg.init_scheme
-        for conv, bn in zip(self.conv, self.bn):
-            conv.init_parameters(generator, scheme)
-            bn.init_parameters()
-        for gru in self.gru:
-            gru.init_parameters(generator, scheme)
-        for dense in self.head:
-            dense.init_parameters(generator, scheme)
-        return self
+    cfg: ModelConfig
 
     @property
     def n_dropout_sites(self) -> int:
@@ -124,6 +85,52 @@ class CRNN(nn.Module):
             raise ValueError(f"expected (B,T,F) or (B,C,T,F) input, got {tuple(x.shape)}")
         return x.transpose(2, 3) if cfg.pool_axis == "time" else x
 
+
+class CRNN(CRNNShape, nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.gru_backend not in GRU_BACKENDS:
+            raise ValueError(f"unknown GRU backend {cfg.gru_backend!r}; expected one of "
+                             f"{GRU_BACKENDS}")
+        self.cfg = cfg
+        in_ch = cfg.in_channels
+        convs, bns = [], []
+        for out_ch in cfg.conv_channels:
+            convs.append(Conv2d(in_ch, out_ch, tuple(cfg.kernel_size)))
+            bns.append(BatchNorm2d(out_ch, cfg.bn_eps, cfg.bn_momentum))
+            in_ch = out_ch
+        self.conv = nn.ModuleList(convs)
+        self.bn = nn.ModuleList(bns)
+        self.dropout = Dropout(cfg.dropout)
+        # the legacy keras SEDnet convention resets before the recurrent product
+        reset_after = cfg.name != "sednet"
+        grus, in_dim = [], self.flat_dim
+        for h in cfg.gru_hidden:
+            grus.append(BiGRU(in_dim, h, reset_after, cfg.gru_gate_activation))
+            in_dim = 2 * h
+        self.gru = nn.ModuleList(grus)
+        head = []
+        for d in cfg.head_dims:
+            head.append(Dense(in_dim, d))
+            in_dim = d
+        self.head = nn.ModuleList(head)
+        self.eval()
+
+    def init_parameters(self, generator: torch.Generator) -> "CRNN":
+        """Draw every parameter by ``cfg.init_scheme`` from ``generator``, in
+        the JAX package's layer order, and reset the BatchNorm running
+        statistics. Draws happen on the generator's device and are copied
+        into the parameters wherever they live."""
+        scheme = self.cfg.init_scheme
+        for conv, bn in zip(self.conv, self.bn):
+            conv.init_parameters(generator, scheme)
+            bn.init_parameters()
+        for gru in self.gru:
+            gru.init_parameters(generator, scheme)
+        for dense in self.head:
+            dense.init_parameters(generator, scheme)
+        return self
+
     def forward(
         self,
         x: torch.Tensor,
@@ -142,9 +149,12 @@ class CRNN(nn.Module):
         """
         cfg = self.cfg
         gens = list(dropout_generators or [None] * self.n_dropout_sites)
-        x = self._to_nchw(x.to(getattr(torch, cfg.compute_dtype)))
+        dtype = getattr(torch, cfg.compute_dtype)
+        x = self._to_nchw(x.to(dtype))
         for i, (conv, bn, p) in enumerate(zip(self.conv, self.bn, cfg.pool)):
-            x = max_pool2d(torch.relu(bn(conv(x))), (1, p))
+            # A bf16 trunk keeps convolution, bias and BatchNorm in float32
+            # and rounds once per block, here (`nn/layers.py` Conv2d).
+            x = max_pool2d(torch.relu(bn(conv(x)).to(dtype)), (1, p))
             if cfg.dropout_per_block:
                 x = self.dropout(x, gens[i])
         if not cfg.dropout_per_block:

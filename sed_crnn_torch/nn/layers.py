@@ -84,7 +84,15 @@ class Conv2d(nn.Module):
                           scheme, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding="same")
+        """Float32 in, float32 out. A reduced-precision ``x`` (a bf16 trunk)
+        gives a float32 output too: the weight is rounded to ``x``'s dtype,
+        the exact products are summed and the bias added in float32, as a
+        bf16 convolution accumulates, and the block rounds once, after
+        BatchNorm (`models/crnn.py`)."""
+        if x.dtype == torch.float32:
+            return F.conv2d(x, self.weight, self.bias, padding="same")
+        return F.conv2d(x.float(), self.weight.to(x.dtype).float(), self.bias.float(),
+                        padding="same")
 
 
 class BatchNorm2d(nn.Module):

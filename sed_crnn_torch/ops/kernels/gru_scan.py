@@ -41,6 +41,15 @@ plain version only for a CPU tensor, and counts its launches:
 
 A pair on the warp body is one launch of each kernel; ``direction 0`` runs
 forward in time and ``direction 1`` reversed, as `nn/gru.py`'s BiGRU needs.
+
+`gru_scan_stack`, `gru_scan_stack_fwd_res`, `gru_scan_stack_bwd` and
+`GruScanStackFn` are the pair's entry points for S independent BiGRUs of one
+shape (stacked multi-seed training, `models/stacked.py`): every operand of a
+direction carries a leading seed axis, ``xp (S, B, T, 3H)``, ``wh (S, H,
+3H)``, ``bh (S, 3H)``, ``h0 (S, B, H)``, and so does every result. On the
+warp body each kernel launches once per call for all S seeds x 2
+directions, counted in the counters above; the retained body takes no seed
+axis. A CPU tensor runs the plain versions seed by seed.
 ``gru_scan.retained_launches`` counts the launches of the retained body's
 recurrences (forward, residual forward, backward) among all of the above.
 The kernels stream every per-step array, so any T and B are taken.
@@ -277,13 +286,13 @@ def _lib() -> ctypes.CDLL:
 def _warp_lib() -> ctypes.CDLL:
     """The warp body, ``csrc/gru_warp.cu``."""
     lib = _build.load("gru_warp")
-    lib.gru_warp_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 7 + [_p]
+    lib.gru_warp_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 8 + [_p]
     lib.gru_warp_fwd_launch.restype = _i
-    lib.gru_warp_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 6 + [_p]
+    lib.gru_warp_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 7 + [_p]
     lib.gru_warp_bwd_launch.restype = _i
     lib.gru_warp_dwh_blocks.argtypes = [_i, _i]
     lib.gru_warp_dwh_blocks.restype = _i
-    lib.gru_warp_dwh_launch.argtypes = [ctypes.POINTER(_DwhDir)] + [_i] * 5 + [_p]
+    lib.gru_warp_dwh_launch.argtypes = [ctypes.POINTER(_DwhDir)] + [_i] * 6 + [_p]
     lib.gru_warp_dwh_launch.restype = _i
     lib.gru_warp_sum_partials.argtypes = [_p, _p, _i, _i, _i, _p]
     lib.gru_warp_sum_partials.restype = _i
@@ -336,26 +345,35 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _lead(stack: Optional[int]) -> tuple:
+    """The leading shape of stacked operands: (S,), or () unstacked."""
+    return () if stack is None else (stack,)
+
+
 def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
          reset_after: bool, gate_activation: str, with_res: bool,
-         body: Optional[str] = None) -> Tuple[List[tuple], int]:
+         body: Optional[str] = None, stack: Optional[int] = None) -> Tuple[List[tuple], int]:
     """Launch the forward of ``len(xps)`` (1 or 2) directions of one shape on
     the card, on ``body`` (default: `gru_body`'s choice) -> per direction
-    ``(ys, res or None, h_last)``, and the number of launches."""
+    ``(ys, res or None, h_last)``, and the number of launches. ``stack``:
+    the seed count S of stacked operands (both directions, the warp body),
+    None for unstacked ones."""
     dev = xps[0].device
-    B, T, H3 = xps[0].shape
+    lead = _lead(stack)
+    B, T, H3 = xps[0].shape[-3:]
     H, chosen = _validate(H3, gate_activation, backward=False)
     body = body or chosen
     dirs = []
     for x, wh, bh, h0 in zip(xps, whs, bhs, h0s):
-        dirs.append((_checked("xp", x, (B, T, H3), dev), _checked("wh", wh, (H, H3), dev),
-                     _checked("bh", bh, (H3,), dev) if reset_after else None,
-                     _checked("h0", h0, (B, H), dev)))
-    outs = [(torch.empty((B, T, H), dtype=torch.float32, device=dev),
-             torch.empty((B, T, res_width(reset_after, H)), dtype=torch.float32, device=dev)
-             if with_res else None,
-             torch.empty((B, H), dtype=torch.float32, device=dev)) for _ in dirs]
-    if B == 0 or T == 0:
+        dirs.append((_checked("xp", x, lead + (B, T, H3), dev),
+                     _checked("wh", wh, lead + (H, H3), dev),
+                     _checked("bh", bh, lead + (H3,), dev) if reset_after else None,
+                     _checked("h0", h0, lead + (B, H), dev)))
+    outs = [(torch.empty(lead + (B, T, H), dtype=torch.float32, device=dev),
+             torch.empty(lead + (B, T, res_width(reset_after, H)), dtype=torch.float32,
+                         device=dev) if with_res else None,
+             torch.empty(lead + (B, H), dtype=torch.float32, device=dev)) for _ in dirs]
+    if B == 0 or T == 0 or stack == 0:
         for (_, _, _, h0), (_, _, hl) in zip(dirs, outs):
             hl.copy_(h0)
         return outs, 0
@@ -368,12 +386,14 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
                 _FwdDir(x.data_ptr(), wh.data_ptr(), _ptr(bh), h0.data_ptr(), ys.data_ptr(),
                         _ptr(res), hl.data_ptr(), int(rev))
                 for (x, wh, bh, h0), (ys, res, hl), rev in zip(dirs, outs, reverses)))
-            status = lib.gru_warp_fwd_launch(arr, len(dirs), B, T, H, *flags, int(with_res),
-                                             stream)
+            status = lib.gru_warp_fwd_launch(arr, len(dirs), stack or 1, B, T, H, *flags,
+                                             int(with_res), stream)
             _raise_on(status, "gru_warp_fwd", lib.gru_warp_error_string)
             return outs, 1
         if body != "retained":
             raise ValueError(f"unknown GRU body {body!r}")
+        if stack is not None:
+            raise ValueError("the retained GRU body (H > 32) takes no seed axis")
         lib = _lib()
         for (x, wh, bh, h0), (ys, res, hl), rev in zip(dirs, outs, reverses):
             if with_res:
@@ -390,25 +410,30 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
 
 
 def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_after: bool,
-         gate_activation: str, body: Optional[str] = None) -> List[tuple]:
+         gate_activation: str, body: Optional[str] = None,
+         stack: Optional[int] = None) -> List[tuple]:
     """Launch the backward of ``len(ys_s)`` directions of one shape on the
-    card -> per direction ``(dxp, dwh, dbh, dh0)``; counts its launches."""
+    card -> per direction ``(dxp, dwh, dbh, dh0)``; counts its launches.
+    ``stack`` as for `_fwd`."""
     dev = ys_s[0].device
-    B, T, H = ys_s[0].shape
+    lead = _lead(stack)
+    B, T, H = ys_s[0].shape[-3:]
     _, chosen = _validate(3 * H, gate_activation, backward=True)
     body = body or chosen
     RW = res_width(reset_after, H)
-    dirs = [(_checked("ys", ys, (B, T, H), dev), _checked("res", res, (B, T, RW), dev),
-             _checked("wh", wh, (H, 3 * H), dev), _checked("h0", h0, (B, H), dev),
-             _checked("dys", dys, (B, T, H), dev), _checked("dhl", dhl, (B, H), dev))
+    dirs = [(_checked("ys", ys, lead + (B, T, H), dev),
+             _checked("res", res, lead + (B, T, RW), dev),
+             _checked("wh", wh, lead + (H, 3 * H), dev), _checked("h0", h0, lead + (B, H), dev),
+             _checked("dys", dys, lead + (B, T, H), dev), _checked("dhl", dhl, lead + (B, H), dev))
             for ys, res, wh, h0, dys, dhl in zip(ys_s, res_s, whs, h0s, dys_s, dhl_s)]
     n_dir = len(dirs)
-    dxps = [torch.empty((B, T, 3 * H), dtype=torch.float32, device=dev) for _ in dirs]
-    if B == 0 or T == 0:
-        return [(dxp, d[2].new_zeros((H, 3 * H)), d[2].new_zeros((3 * H,)), d[5].clone())
-                for dxp, d in zip(dxps, dirs)]
-    dh0s = [torch.empty((B, H), dtype=torch.float32, device=dev) for _ in dirs]
+    dxps = [torch.empty(lead + (B, T, 3 * H), dtype=torch.float32, device=dev) for _ in dirs]
+    if B == 0 or T == 0 or stack == 0:
+        return [(dxp, d[2].new_zeros(lead + (H, 3 * H)), d[2].new_zeros(lead + (3 * H,)),
+                 d[5].clone()) for dxp, d in zip(dxps, dirs)]
+    dh0s = [torch.empty(lead + (B, H), dtype=torch.float32, device=dev) for _ in dirs]
     n = 3 * H * H + 3 * H
+    n_seed = stack or 1
     flags = (int(reset_after), int(gate_activation == "hard_sigmoid"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -417,24 +442,33 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
             arr = (_BwdDir * n_dir)(*(
                 _BwdDir(*(t.data_ptr() for t in d), dxp.data_ptr(), dh0.data_ptr(), int(rev))
                 for d, dxp, dh0, rev in zip(dirs, dxps, dh0s, reverses)))
-            status = lib.gru_warp_bwd_launch(arr, n_dir, B, T, H, *flags, stream)
+            status = lib.gru_warp_bwd_launch(arr, n_dir, n_seed, B, T, H, *flags, stream)
             _raise_on(status, "gru_warp_bwd", lib.gru_warp_error_string)
             gru_scan_bwd.launches += 1
-            part = torch.empty((n_dir, lib.gru_warp_dwh_blocks(B, T), n), dtype=torch.float32,
-                               device=dev)
+            # Partials per (direction, seed), each seed's in block order.
+            part = torch.empty((n_dir, n_seed, lib.gru_warp_dwh_blocks(B, T), n),
+                               dtype=torch.float32, device=dev)
             arr = (_DwhDir * n_dir)(*(
                 _DwhDir(ys.data_ptr(), res.data_ptr(), h0.data_ptr(), dxp.data_ptr(),
                         part[k].data_ptr(), int(rev))
                 for k, ((ys, res, _, h0, _, _), dxp, rev) in enumerate(zip(dirs, dxps, reverses))))
-            status = lib.gru_warp_dwh_launch(arr, n_dir, B, T, H, int(reset_after), stream)
+            status = lib.gru_warp_dwh_launch(arr, n_dir, n_seed, B, T, H, int(reset_after),
+                                             stream)
             _raise_on(status, "gru_warp_dwh", lib.gru_warp_error_string)
             gru_scan_bwd.dwh_launches += 1
-            sums = torch.empty((n_dir, n), dtype=torch.float32, device=dev)
-            status = lib.gru_warp_sum_partials(part.data_ptr(), sums.data_ptr(), n_dir,
-                                               part.shape[1], n, stream)
+            sums = torch.empty((n_dir, n_seed, n), dtype=torch.float32, device=dev)
+            status = lib.gru_warp_sum_partials(part.data_ptr(), sums.data_ptr(), n_dir * n_seed,
+                                               part.shape[2], n, stream)
             _raise_on(status, "gru_warp_sum_partials", lib.gru_warp_error_string)
             gru_scan_bwd.sum_launches += 1
+            if stack is not None:
+                return [(dxp, sums[k, :, : 3 * H * H].view(stack, H, 3 * H),
+                         sums[k, :, 3 * H * H :], dh0)
+                        for k, (dxp, dh0) in enumerate(zip(dxps, dh0s))]
+            sums = sums[:, 0]
         elif body == "retained":
+            if stack is not None:
+                raise ValueError("the retained GRU body (H > 32) takes no seed axis")
             lib = _lib()
             part = torch.empty((lib.gru_scan_bwd_blocks(H, B), n), dtype=torch.float32,
                                device=dev)
@@ -641,17 +675,16 @@ class GruScanFn(torch.autograd.Function):
         return dxp, dwh, dbh if ctx.has_bh else None, dh0, None, None, None
 
 
-class GruScanPairFn(torch.autograd.Function):
-    """`GruScanFn` for both directions of a BiGRU at once: forward
-    `gru_scan_pair_fwd_res`, backward `gru_scan_pair_bwd`. Arguments
-    ``(xp_f, xp_b, wh_f, wh_b, bh_f, bh_b, h0_f, h0_b, reset_after,
-    gate_activation)``, outputs ``(ys_f, ys_b, h_last_f, h_last_b)``; the
-    same rules for absent cotangents and biases as `GruScanFn`."""
+def _bigru_function(name: str, fwd_res: Callable, bwd: Callable, doc: str):
+    """A `torch.autograd.Function` over both directions of a BiGRU: forward
+    ``fwd_res``, saving what ``bwd`` takes. Arguments ``(xp_f, xp_b, wh_f,
+    wh_b, bh_f, bh_b, h0_f, h0_b, reset_after, gate_activation)``, outputs
+    ``(ys_f, ys_b, h_last_f, h_last_b)``; the same rules for absent
+    cotangents and biases as `GruScanFn`."""
 
-    @staticmethod
     def forward(ctx, xp_f, xp_b, wh_f, wh_b, bh_f, bh_b, h0_f, h0_b, reset_after,
                 gate_activation):
-        (ys_f, res_f, hl_f), (ys_b, res_b, hl_b) = gru_scan_pair_fwd_res(
+        (ys_f, res_f, hl_f), (ys_b, res_b, hl_b) = fwd_res(
             (xp_f, xp_b), (wh_f, wh_b), (bh_f, bh_b), (h0_f, h0_b), reset_after,
             gate_activation)
         ctx.save_for_backward(ys_f, ys_b, res_f, res_b, wh_f, wh_b, h0_f, h0_b)
@@ -660,17 +693,133 @@ class GruScanPairFn(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         return ys_f, ys_b, hl_f, hl_b
 
-    @staticmethod
     def backward(ctx, dys_f, dys_b, dhl_f, dhl_b):
         ys_f, ys_b, res_f, res_b, wh_f, wh_b, h0_f, h0_b = ctx.saved_tensors
 
         def cot(g, like):
             return torch.zeros_like(like) if g is None else g.contiguous()
 
-        grads = gru_scan_pair_bwd(
+        grads = bwd(
             (ys_f, ys_b), (res_f, res_b), (wh_f, wh_b), (h0_f, h0_b),
             (cot(dys_f, ys_f), cot(dys_b, ys_b)), (cot(dhl_f, h0_f), cot(dhl_b, h0_b)),
             *ctx.conf)
         (dxp_f, dwh_f, dbh_f, dh0_f), (dxp_b, dwh_b, dbh_b, dh0_b) = grads
         return (dxp_f, dxp_b, dwh_f, dwh_b, dbh_f if ctx.has_bh[0] else None,
                 dbh_b if ctx.has_bh[1] else None, dh0_f, dh0_b, None, None)
+
+    return type(name, (torch.autograd.Function,), {
+        "forward": staticmethod(forward), "backward": staticmethod(backward), "__doc__": doc})
+
+
+GruScanPairFn = _bigru_function(
+    "GruScanPairFn", gru_scan_pair_fwd_res, gru_scan_pair_bwd,
+    """`GruScanFn` for both directions of a BiGRU at once: forward
+    `gru_scan_pair_fwd_res`, backward `gru_scan_pair_bwd`.""")
+
+
+# --- S BiGRUs of one shape at once (stacked multi-seed training) ---------------
+
+def _check_stack(xp: Pair) -> Tuple[torch.device, int]:
+    dev = _check_pair(xp)
+    if xp[0].dim() != 4:
+        raise ValueError(f"stacked operands need a leading seed axis, got xp {tuple(xp[0].shape)}")
+    return dev, xp[0].shape[0]
+
+
+def _stack_bias(bh, reset_after: bool, xp: Pair):
+    """Each direction's ``bh`` as (S, 3H); zeros when ``reset_after`` and none
+    is given."""
+    S, _, _, H3 = xp[0].shape
+    return tuple((b.reshape(S, H3) if b is not None
+                  else x.new_zeros((S, H3)) if reset_after else None) for b, x in zip(bh, xp))
+
+
+def _seedwise(fn: Callable, *stacked) -> tuple:
+    """``fn`` on every seed's slice of the stacked arguments (None passes
+    through), its results stacked along a new seed axis."""
+    S = stacked[0].shape[0]
+    outs = [fn(*(None if a is None else a[s] for a in stacked)) for s in range(S)]
+    return tuple(torch.stack(r) for r in zip(*outs))
+
+
+def gru_scan_stack(
+    xp: Pair,
+    wh: Pair,
+    bh: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]],
+    h0: Pair,
+    reset_after: bool,
+    gate_activation: str,
+) -> Tuple[Pair, Pair]:
+    """Both directions of S BiGRUs, each argument a (forward-in-time,
+    reversed) pair of stacked tensors ``xp (S, B, T, 3H)``, ``wh (S, H, 3H)``,
+    ``bh (S, 3H)`` or None, ``h0 (S, B, H)`` -> ``((ys_f, h_last_f), (ys_b,
+    h_last_b))`` of shapes (S, B, T, H) and (S, B, H).
+
+    With grad enabled and an input that requires grad: `GruScanStackFn`.
+    Otherwise, for CUDA tensors one launch of the warp body for every seed and
+    direction, for CPU tensors `gru_scan_plain` seed by seed."""
+    dev, S = _check_stack(xp)
+    bh = _stack_bias(bh, reset_after, xp)
+    if _needs_grad(*xp, *wh, *bh, *h0):
+        ys_f, ys_b, hl_f, hl_b = GruScanStackFn.apply(*xp, *wh, *bh, *h0, reset_after,
+                                                      gate_activation)
+        return (ys_f, hl_f), (ys_b, hl_b)
+    if dev.type == "cpu":
+        return tuple(_seedwise(lambda x_, w_, b_, h_: gru_scan_plain(
+            x_, w_, b_, h_, reset_after, gate_activation, rev), x, w, b, h)
+            for x, w, b, h, rev in zip(xp, wh, bh, h0, (False, True)))
+    outs, n = _fwd(xp, wh, bh, h0, (False, True), reset_after, gate_activation, False,
+                   stack=S)
+    gru_scan.launches += n
+    return tuple((ys, hl) for ys, _, hl in outs)
+
+
+def gru_scan_stack_fwd_res(
+    xp: Pair,
+    wh: Pair,
+    bh: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]],
+    h0: Pair,
+    reset_after: bool,
+    gate_activation: str,
+) -> Tuple[tuple, tuple]:
+    """`gru_scan_pair_fwd_res` of S stacked BiGRUs -> per direction ``(ys,
+    res, h_last)`` with a leading seed axis; one launch on the card, counted
+    in ``gru_scan_fwd_res.launches``."""
+    dev, S = _check_stack(xp)
+    bh = _stack_bias(bh, reset_after, xp)
+    if dev.type == "cpu":
+        return tuple(_seedwise(lambda x_, w_, b_, h_: gru_scan_fwd_res_plain(
+            x_, w_, b_, h_, reset_after, gate_activation, rev), x, w, b, h)
+            for x, w, b, h, rev in zip(xp, wh, bh, h0, (False, True)))
+    outs, n = _fwd(xp, wh, bh, h0, (False, True), reset_after, gate_activation, True, stack=S)
+    gru_scan_fwd_res.launches += n
+    return tuple(outs)
+
+
+def gru_scan_stack_bwd(
+    ys: Pair,
+    res: Pair,
+    wh: Pair,
+    h0: Pair,
+    dys: Pair,
+    dhl: Pair,
+    reset_after: bool,
+    gate_activation: str,
+) -> Tuple[tuple, tuple]:
+    """`gru_scan_pair_bwd` of S stacked BiGRUs -> per direction ``(dxp, dwh,
+    dbh, dh0)`` with a leading seed axis: on the card one launch each of the
+    chain, the ``dwh`` reduction and the partial sum for all seeds; each
+    seed's ``dwh`` summed in the same fixed order as alone."""
+    dev, S = _check_stack(ys)
+    if dev.type == "cpu":
+        return tuple(_seedwise(lambda *a: gru_scan_bwd_plain(*a, reset_after, gate_activation,
+                                                             rev), *args)
+                     for *args, rev in zip(ys, res, wh, h0, dys, dhl, (False, True)))
+    return tuple(_bwd(ys, res, wh, h0, dys, dhl, (False, True), reset_after, gate_activation,
+                      stack=S))
+
+
+GruScanStackFn = _bigru_function(
+    "GruScanStackFn", gru_scan_stack_fwd_res, gru_scan_stack_bwd,
+    """`GruScanPairFn` over stacked operands: forward `gru_scan_stack_fwd_res`,
+    backward `gru_scan_stack_bwd`, every tensor with a leading seed axis.""")

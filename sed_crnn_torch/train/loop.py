@@ -15,7 +15,8 @@ What differs, and why:
   dispatch and its `CompilePlan` shape buckets exist to keep one compiled
   XLA program busy across epochs and folds; PyTorch runs eagerly and has no
   program to share, so neither is ported. Data parallelism is not ported
-  yet; multi-seed training runs `run_fold` per seed (`train/multiseed.py`).
+  yet; multi-seed training (`train/multiseed.py`) runs `run_fold` per seed
+  or all seeds of a fold as one stacked model.
 * Random numbers come from `torch.Generator`s on the training device: one
   for batch draws, one for random validation draws and one per dropout site
   (`CRNN.n_dropout_sites`), seeded from ``seed + fold_id``. Parameters are

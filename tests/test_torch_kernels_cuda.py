@@ -49,6 +49,9 @@ from sed_crnn_torch.ops.kernels.gru_scan import (
     gru_scan_pair_bwd,
     gru_scan_pair_fwd_res,
     gru_scan_plain,
+    gru_scan_stack,
+    gru_scan_stack_bwd,
+    gru_scan_stack_fwd_res,
 )
 
 pytestmark = pytest.mark.cuda
@@ -468,3 +471,52 @@ def test_logmel_kernel_rejects_bad_inputs(cuda):
         fused_log_mel(torch.zeros(100, device=cuda), FrontendConfig(center=False))
     with pytest.raises(ValueError):
         fused_log_mel_frames(torch.zeros(4, 2048, device=cuda), FrontendConfig(), "bf16x3")
+
+
+@pytest.mark.parametrize("S,B,T,H",
+                         [(1, 128, 8, 16), (3, 128, 8, 8), (5, 9, 8, 16), (2, 33, 256, 32)])
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_gru_stack_launches_once_for_every_seed(cuda, S, B, T, H, reset_after):
+    """Kernel B with a seed axis: S BiGRUs' forward, residual forward and
+    backward each in one launch on the warp body (grid.y = 2S), against the
+    plain versions seed by seed (1e-5; gradients 1e-4 of each one's largest
+    magnitude); dwh bitwise equal from run to run; seed s of the stack is
+    bitwise the unstacked pair on seed s's operands."""
+    cases = [_pair_case(cuda, B, T, H, reset_after, 300 + 10 * s + H) for s in range(S)]
+
+    def stacked(i):   # operand i of both directions, seeds stacked
+        if cases[0][i][0] is None:
+            return None, None
+        return tuple(torch.stack([c[i][k] for c in cases]) for k in range(2))
+
+    xp, wh, bh, h0, dys, dhl = (stacked(i) for i in range(6))
+    before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+    fwd = gru_scan_stack(xp, wh, bh, h0, reset_after, "sigmoid")
+    res = gru_scan_stack_fwd_res(xp, wh, bh, h0, reset_after, "sigmoid")
+    ys, rs = tuple(r[0] for r in res), tuple(r[1] for r in res)
+    first = gru_scan_stack_bwd(ys, rs, wh, h0, dys, dhl, reset_after, "sigmoid")
+    torch.cuda.synchronize()
+    assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+            gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches,
+            gru_scan.retained_launches) == tuple(b + 1 for b in before[:5]) + before[5:]
+    second = gru_scan_stack_bwd(ys, rs, wh, h0, dys, dhl, reset_after, "sigmoid")
+    for k, rev in enumerate((False, True)):
+        assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
+        for s in range(S):
+            args = (xp[k][s], wh[k][s], None if bh[k] is None else bh[k][s], h0[k][s])
+            want = gru_scan_fwd_res_plain(*args, reset_after, "sigmoid", rev)
+            for got, w in zip(res[k], want):
+                torch.testing.assert_close(got[s], w, rtol=0, atol=1e-5)
+            assert torch.equal(fwd[k][0][s], res[k][0][s]) and torch.equal(fwd[k][1][s],
+                                                                            res[k][2][s])
+            want = gru_scan_bwd_plain(ys[k][s], rs[k][s], wh[k][s], h0[k][s], dys[k][s],
+                                      dhl[k][s], reset_after, "sigmoid", rev)
+            for got, w in zip(first[k], want):
+                torch.testing.assert_close(got[s], w, rtol=0,
+                                           atol=1e-4 * max(float(w.abs().max()), 1e-6))
+    for s in range(S):
+        one = lambda t: tuple(None if a is None else a[s] for a in t)  # noqa: E731
+        pair = gru_scan_pair_fwd_res(one(xp), one(wh), one(bh), one(h0), reset_after, "sigmoid")
+        for k in range(2):
+            assert all(torch.equal(a, b[s]) for a, b in zip(pair[k], res[k]))

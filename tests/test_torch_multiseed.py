@@ -1,7 +1,8 @@
-"""Sequential multi-seed training on the CPU: the port's
-`train/multiseed.py` and `apps/train.py --runs` against `run_fold` and the
-JAX package's protocol arithmetic, on narrowed `sednet-dcase` and tiny
-synthetic folds.
+"""Multi-seed training on the CPU: the port's `train/multiseed.py` and
+`apps/train.py --runs` against `run_fold` and the JAX package's protocol
+arithmetic, on narrowed `sednet-dcase` and tiny synthetic folds, in both
+modes (`tests/test_torch_multiseed_stacked.py` holds stacked mode's seeds
+against `run_fold`).
 
 Each seed of the experiment must be exactly `run_fold(seed=s)` (equal
 histories, bitwise-equal checkpoints), and the seed-major mean and std, the
@@ -77,28 +78,44 @@ def test_sequential_experiment_is_run_fold_per_seed(tmp_path, monkeypatch):
         k: v for k, v in want.items() if k != "folds"}
     assert len(set(out["er_by_seed"])) == 2   # the two seeds trained apart
 
-    def record(path):
-        (line,) = open(path).read().splitlines()
-        rec = json.loads(line)
-        rec.pop("time")
-        return rec
-
-    assert record(tmp_path / "m" / "experiment_multiseed.jsonl") == record(
+    assert _record(tmp_path / "m" / "experiment_multiseed.jsonl") == _record(
         tmp_path / "j" / "experiment_multiseed.jsonl")
 
 
-def test_modes_that_are_not_ported_raise(tmp_path):
-    _, tc = _cfgs()
+def _record(path):
+    """The one record of an experiment_multiseed.jsonl, less its time."""
+    (line,) = open(path).read().splitlines()
+    rec = json.loads(line)
+    rec.pop("time")
+    return rec
+
+
+def test_modes_that_are_not_ported_raise(tmp_path, monkeypatch):
+    """Stacked mode runs (it raised until it was ported) and writes the JAX
+    protocol's record from its per-fold results; unknown modes and duplicate
+    seeds raise before anything is written."""
+    jc, tc = _cfgs()
     folds = train_app.synthetic_folds(1, frames=1600, seed=5, n_classes=6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        multiseed.run_experiment_multiseed(tc, folds, str(tmp_path), n_runs=2, mode="stacked",
-                                           device="cpu")
+    out = multiseed.run_experiment_multiseed(tc, folds, str(tmp_path / "m"), n_runs=2,
+                                             mode="stacked", verbose=False, device="cpu")
+    seeds = multiseed.run_seeds(tc.train.seed, 2)
+    assert out["seeds"] == seeds and len(out["folds"][1]) == 2
+    for s in seeds:
+        assert os.path.exists(tmp_path / "m" / "fold1" / f"seed{s}" / "best_fold1.npz")
+    by_fold = out["folds"]
+    monkeypatch.setattr(jax_multiseed, "run_fold_multiseed",
+                        lambda cfg, fold_data, fold_id, *a, **kw: by_fold[fold_id])
+    jax_multiseed.run_experiment_multiseed(jc, folds, str(tmp_path / "j"), seeds=seeds,
+                                           verbose=False, share_compile=False, mode="stacked")
+    assert _record(tmp_path / "m" / "experiment_multiseed.jsonl") == _record(
+        tmp_path / "j" / "experiment_multiseed.jsonl")
     with pytest.raises(ValueError, match="mode"):
-        multiseed.run_experiment_multiseed(tc, folds, str(tmp_path), mode="fast", device="cpu")
-    with pytest.raises(ValueError, match="duplicate"):
-        multiseed.run_experiment_multiseed(tc, folds, str(tmp_path), seeds=[1, 1],
+        multiseed.run_experiment_multiseed(tc, folds, str(tmp_path / "x"), mode="fast",
                                            device="cpu")
-    assert not os.listdir(tmp_path)
+    with pytest.raises(ValueError, match="duplicate"):
+        multiseed.run_experiment_multiseed(tc, folds, str(tmp_path / "x"), seeds=[1, 1],
+                                           device="cpu")
+    assert sorted(os.listdir(tmp_path)) == ["j", "m"]
 
 
 def test_train_cli_runs(tmp_path, monkeypatch):
@@ -115,9 +132,19 @@ def test_train_cli_runs(tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         train_app.main(["--synthetic", "--runs", "2", "--resume", "--art-dir", str(tmp_path),
                         "--device", "cpu"])
-    with pytest.raises(SystemExit):     # not a choice until stacked mode is ported
-        train_app.main(["--synthetic", "--runs", "2", "--runs-mode", "stacked",
-                        "--art-dir", str(tmp_path / "s"), "--device", "cpu"])
+    out = train_app.main(["--preset", "sednet-dcase", "--synthetic", "--folds", "1",
+                          "--runs", "2", "--runs-mode", "stacked", "--batch-size", "16",
+                          "--art-dir", str(tmp_path / "s"), "--device", "cpu"])
+    (run,) = os.listdir(tmp_path / "s")
+    rec = _record(tmp_path / "s" / run / "experiment_multiseed.jsonl")
+    assert set(rec) == {"mean_er", "std_er", "mean_f1", "std_f1", "er_by_seed", "f1_by_seed",
+                        "seeds", "experiment"}
+    assert rec["seeds"] == out["seeds"] and rec["mean_er"] == out["mean_er"]
+    for s in out["seeds"]:
+        assert os.path.exists(tmp_path / "s" / run / "fold1" / f"seed{s}" / "last_fold1.npz")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        train_app.main(["--synthetic", "--runs", "2", "--seed-parallel", "2",
+                        "--art-dir", str(tmp_path / "p"), "--device", "cpu"])
 
 
 def test_multiseed_raises_without_cuda(monkeypatch, tmp_path):
