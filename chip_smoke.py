@@ -18,9 +18,10 @@ exits non-zero and prints no result line:
    an identical -inf pattern; max|diff| against the FFT body's own plain
    version, two runs bitwise equal; times (warm and cold L2) at the main
    path's shape beside the plain versions, ``torch.stft`` + mel, the bound
-   and the retained dft body's time (its output held against the DIF plain
-   version first), each also as torch.profiler device-busy time beside the
-   host's issue time, and the 240 s frontend rate;
+   and the retained dft body's time (its direct formulation, its output
+   held against the DIF plain version first), each also as torch.profiler
+   device-busy time beside the host's issue time, and the 240 s frontend
+   rate;
 4. kernel B's forward (the GRU recurrence; the warp body ``csrc/gru_warp.cu``
    for H <= 32, the retained ``csrc/gru_scan.cu`` above) against its plain
    version: T=256, H in {32, 16, 8} (warp) at B in {1, 8, 128} and H=64
@@ -67,18 +68,29 @@ exits non-zero and prints no result line:
     audio-seconds per second, and a torch.profiler breakdown of one step.
 11. kernel A's framed route (the TPU `_kernel_dif`: n_fft 1024 and 4096
     at hop 1024, and a frame-matrix input) and its exact route (the TPU
-    `_kernel_exact`: mode "exact" at n_fft 2048 on the FFT body, the n_fft
-    1034 / hop 517 fallback on the dft body; the dft body's DIF
-    formulation at n_fft 3072) against their DIF / direct plain versions on
-    the signals of phase 3 and a 1,500-sample one, with and without a floor
-    (-inf pattern equal, 5e-4 at finite entries), the FFT body also against
-    its own plain version and twice, bitwise; their times at the binmul
-    path's shapes (warm and cold L2) beside the dft body's at the same
+    `_kernel_exact`: mode "exact" at n_fft 2048 on the FFT body) against
+    their DIF / direct plain versions on the signals of phase 3 and a
+    1,500-sample one, with and without a floor (-inf pattern equal, 5e-4 at
+    finite entries), the FFT body also against its own plain version and
+    twice, bitwise; their times at the binmul path's shapes (warm and cold
+    L2) beside the retained dft body's direct formulation at the same
     shapes (its output held against the same plain version first), the
     plain versions, ``torch.stft`` + mel and the bounds, and as
-    torch.profiler device-busy time beside the host's issue time; the
-    exact route driven once by ``fused_log_mel(mode="exact")`` at n_fft
-    2048 and the dft body once through ``frontend.extract`` at n_fft 1034;
+    torch.profiler device-busy time beside the host's issue time; the exact
+    route driven once by ``fused_log_mel(mode="exact")`` at n_fft 2048 and
+    the dft body (the sizes beyond the mixed body's shared-memory limit)
+    once through ``frontend.extract`` at n_fft 12865;
+    then ([kernel A mixed]) the mixed-radix / Bluestein body
+    ``csrc/logmel_mixed.cu`` at n_fft 1034 / hop 517 (exact route,
+    Bluestein), 1764 / 882 (chunked, direct), 3072 / 1024 (framed, direct)
+    and 1001 / 500 (exact, odd, Bluestein) on those signals, with and
+    without a floor: bitwise against `mixed_log_mel_plain`, two runs bitwise
+    equal, within 5e-4 of the DIF / direct plain version with the -inf
+    pattern equal, and on a frame matrix; its times on 150 s of padded
+    audio (warm and cold L2, device and host) beside ``torch.stft`` + mel,
+    the dft body's direct formulation, both plain versions and the bound;
+    ``frontend.extract`` at n_fft 1034 with exactly one mixed launch and no
+    dft launch;
 12. the feature path: a synthetic DCASE 2017 street layout (12 binaural
     120 s wavs at 44.1 kHz and one 20 s wav at 48 kHz, folds 1 and 2) through
     ``apps.feature.main --binmul --backend kernel --device cuda``: exactly 2
@@ -86,7 +98,10 @@ exits non-zero and prints no result line:
     nothing and no launch lands on the dft body, per-file features within
     5e-4 of ``--backend fft`` on the card,
     the packs' shapes and standardized means; the feature rate (host clock),
-    a profile and the host's parts of one file;
+    a profile and the host's parts of one file; then ``--multires 1764
+    3072 --backend kernel`` into its own cache: exactly 4 framed launches
+    per file, all on the mixed body, none on the dft body, features within
+    5e-4 of ``--backend fft``;
 13. ``apps.train.main --preset sednet-dcase-binmul`` on those packs at full
     width (in_channels 6, batch 128), 2 epochs: finite losses, exact GRU
     kernel launch counts (and no log-mel launch, as in phases 8 and 9), a
@@ -353,7 +368,6 @@ def phase_logmel(main_signal: np.ndarray):
         fused_log_mel,
         fused_log_mel_plain,
     )
-    from sed_crnn_torch.ops.mel import mel_filterbank
 
     dev = torch.device("cuda")
     base = FrontendConfig()
@@ -391,17 +405,10 @@ def phase_logmel(main_signal: np.ndarray):
     cfg = dataclasses.replace(base, center=False, log_floor=1e-10)
     yt = torch.from_numpy(main_signal).to(dev)
     n_frames = 1 + (len(main_signal) - cfg.n_fft) // cfg.hop_length
-    fb = torch.from_numpy(mel_filterbank(SR, cfg.n_fft, cfg.n_mels)).to(dev)
-    window = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
-
-    def library():
-        spec = torch.stft(yt, cfg.n_fft, cfg.hop_length, window=window, center=False,
-                          return_complex=True)
-        return torch.log(torch.clamp_min(fb @ spec.abs().square(), 1e-10))
-
+    library = _library_logmel(yt, cfg)
     kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
-    dft = lambda: _launch_dft(yt, cfg.hop_length, n_frames, cfg.n_fft, cfg, False)  # noqa: E731
-    dft_err = _check_logmel("log-mel dft body (DIF) at the main-path shape", dft(),
+    dft = lambda: _launch_dft(yt, cfg.hop_length, n_frames, cfg.n_fft, cfg)  # noqa: E731
+    dft_err = _check_logmel("log-mel dft body (direct) at the main-path shape", dft(),
                             fused_log_mel_plain(yt, cfg))
     ms = cuda_ms(kernel)
     cold = cuda_ms_cold(kernel)
@@ -415,7 +422,8 @@ def phase_logmel(main_signal: np.ndarray):
           f"({audio_s:.1f} s padded): kernel {ms:.4f} ms warm L2, {cold:.4f} ms cold L2, "
           f"plain (DIF) {plain:.4f} ms, torch.stft+mel {lib_ms:.4f} ms; bound {bnd:.4f} ms "
           f"({by}, rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-          f"kernel at {bnd / ms:.3f} of its bound; the dft body at this shape {dft_ms:.4f} ms "
+          f"kernel at {bnd / ms:.3f} of its bound; the dft body (direct) at this shape "
+          f"{dft_ms:.4f} ms "
           f"(vs the DIF plain version {dft_err:.3g}); the fft body's plain emulation "
           f"{fft_plain:.4f} ms")
     print(f"[kernel A] main-path shape, {split_line(bnd, kernel=kernel, library=library, dft=dft)}")
@@ -615,7 +623,8 @@ def phase_main(workdir: str, pcm: np.ndarray):
     n_chunks = -(-n_frames // cfg.model.seq_len_in)
     streams = 2
     kernel_extracts = 1   # the composition's extract; infer_file's preset frontend is fft
-    check(logmel == {"chunked": kernel_extracts, "framed": 0, "exact": 0, "dft": 0},
+    check(logmel == {"chunked": kernel_extracts, "framed": 0, "exact": 0, "mixed": 0,
+                     "dft": 0},
           f"kernel A launches {logmel} != {kernel_extracts} chunked extract call, no dft body")
     # Kernel B: one pair launch per BiGRU layer (2) per chunk, on the warp body.
     want = _gru_path_counts(streams * 2 * n_chunks, 0)
@@ -1345,18 +1354,19 @@ def logmel_bound(n_samples: int, n_frames: int, cfg):
 
 
 def _logmel_counts():
-    """Launches per route, and of the dft body among them."""
+    """Launches per route, and of the mixed and dft bodies among them."""
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
 
     return {"chunked": fused_log_mel.launches, "framed": fused_log_mel.framed_launches,
-            "exact": fused_log_mel.exact_launches, "dft": fused_log_mel.dft_launches}
+            "exact": fused_log_mel.exact_launches, "mixed": fused_log_mel.mixed_launches,
+            "dft": fused_log_mel.dft_launches}
 
 
 def _reset_logmel_counts():
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
 
     fused_log_mel.launches = fused_log_mel.framed_launches = fused_log_mel.exact_launches = 0
-    fused_log_mel.dft_launches = 0
+    fused_log_mel.mixed_launches = fused_log_mel.dft_launches = 0
 
 
 def _check_logmel(tag: str, got, want) -> float:
@@ -1371,17 +1381,45 @@ def _check_logmel(tag: str, got, want) -> float:
     return err
 
 
+def _logmel_signals(base):
+    """Phase 3's signals (a 30 s bucket run uncentred, 240 s with a silent
+    stretch, a ragged length, silence) and a 1,500-sample one, with whether
+    each is centred."""
+    return [
+        ("30s bucket", bucket_signal(tones(30.0, 1)[: 30 * SR - 4096], base), False),
+        ("240s", tones(240.0, 2, silent=[(100.0, 101.5)]), True),
+        ("ragged", tones(123457 / SR, 3), True),
+        ("silence", np.zeros(5 * SR, np.float32), True),
+        ("short", tones(1500 / SR, 4), True),
+    ]
+
+
+def _library_logmel(yt, cfg):
+    """`torch.stft` + mel + floor + log at ``cfg``, uncentred: one library
+    pipeline computing kernel A's function (timed, never used by the port)."""
+    import torch
+
+    from sed_crnn_torch.ops.mel import mel_filterbank
+
+    fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels)).to(yt.device)
+    window = torch.hann_window(cfg.n_fft, periodic=True, device=yt.device)
+    return lambda: torch.log(torch.clamp_min(fb @ torch.stft(
+        yt, cfg.n_fft, cfg.hop_length, window=window, center=False,
+        return_complex=True).abs().square(), 1e-10))
+
+
 def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
     """Kernel A's framed route (the TPU `_kernel_dif`) and exact route
-    (`_kernel_exact`), each by the body its n_fft takes, against the DIF /
-    direct plain version on the card (and the FFT body against its own plain
-    version, two runs bitwise equal; the dft body's DIF formulation at n_fft
-    3072); their times at the binmul path's shapes beside the retained dft
-    body's (its output held against the same plain version first), the
-    plain versions, `torch.stft` + mel and the bounds; the exact route
-    driven once at n_fft 2048 and the dft body once through
-    `frontend.extract` at n_fft 1034. ``dft_err`` is the dft body's error
-    from `phase_logmel`."""
+    (`_kernel_exact`) on the FFT body, against the DIF / direct plain
+    version on the card (and against the FFT body's own plain version, two
+    runs bitwise equal); their times at the binmul path's shapes beside the
+    retained dft body's direct formulation (its output held against the same
+    plain version first), the plain versions, `torch.stft` + mel and the
+    bounds; the exact route driven once at n_fft 2048 and the dft body, which
+    serves only the sizes beyond the mixed body's limit, once through
+    `frontend.extract` at n_fft 12865. ``dft_err`` is the dft body's error
+    from `phase_logmel`; returns the framed and exact entries, the dft
+    body's worst error and its launches on its `extract` run."""
     import torch
 
     from sed_crnn_torch.core.config import FrontendConfig
@@ -1396,25 +1434,17 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
         fused_log_mel_plain,
         route,
     )
-    from sed_crnn_torch.ops.mel import mel_filterbank
     from sed_crnn_torch.ops.stft import frame_signal
 
     dev = torch.device("cuda")
-    base = FrontendConfig()
-    signals = [
-        ("30s bucket", bucket_signal(tones(30.0, 1)[: 30 * SR - 4096], base), False),
-        ("240s", tones(240.0, 2, silent=[(100.0, 101.5)]), True),
-        ("ragged", tones(123457 / SR, 3), True),
-        ("silence", np.zeros(5 * SR, np.float32), True),
-        ("short", tones(1500 / SR, 4), True),
-    ]
-    confs = {"framed": [((1024, 1024), "dif"), ((4096, 1024), "dif"), ((3072, 1024), "dif")],
-             "exact": [((2048, 1024), "exact"), ((1034, 517), "dif")]}
+    signals = _logmel_signals(FrontendConfig())
+    confs = {"framed": [((1024, 1024), "dif"), ((4096, 1024), "dif")],
+             "exact": [((2048, 1024), "exact")]}
     worst = {"framed": 0.0, "exact": 0.0, "dft": dft_err}
     for kind, cases in confs.items():
         for (n_fft, hop), mode in cases:
             errs, fft_errs = [], []
-            kb = body(n_fft)
+            check(body(n_fft) == "fft", f"{n_fft}: the fft body")
             for name, y, center in signals:
                 yt = torch.from_numpy(y).to(dev)
                 for floor in (None, 1e-10):
@@ -1425,9 +1455,8 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
                     want = fused_log_mel_plain(yt, cfg, mode)
                     tag = f"log-mel {kind} {n_fft}/{hop} {mode} {name} floor={floor}"
                     errs.append(_check_logmel(tag, got, want))
-                    if kb == "fft":
-                        fft_errs.append(_check_fft_body(tag, got, fused_log_mel(yt, cfg, mode),
-                                                        fft_log_mel_plain(yt, cfg)))
+                    fft_errs.append(_check_fft_body(tag, got, fused_log_mel(yt, cfg, mode),
+                                                    fft_log_mel_plain(yt, cfg)))
                     if name == "silence" and floor is None:
                         check(not bool(torch.isfinite(want).any()), f"{tag}: not all -inf")
             # The frame-matrix entry (stride n_fft) on the 240 s signal's frames.
@@ -1439,67 +1468,53 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
             errs.append(_check_logmel(f"log-mel frames {n_fft}/{hop} {mode}", got, want))
             check(torch.equal(got, fused_log_mel_frames(frames, cfg, mode)),
                   f"log-mel frames {n_fft}/{hop} {mode}: two runs differ")
-            slot = kind if kb == "fft" else "dft"
-            worst[slot] = max(worst[slot], max(errs))
-            fft_note = (f" (fft plain {max(fft_errs):.3g}), two runs bitwise equal"
-                        if fft_errs else "")
-            print(f"[kernel A {kind}] n_fft {n_fft} hop {hop} mode {mode}, {kb} body: "
+            worst[kind] = max(worst[kind], max(errs))
+            print(f"[kernel A {kind}] n_fft {n_fft} hop {hop} mode {mode}, fft body: "
                   f"{len(signals)} signals x 2 floors + a {tuple(frames.shape)} frame matrix, "
-                  f"max|diff| at finite {max(errs):.3g}{fft_note}, -inf patterns equal")
-
-    def library(yt, cfg):
-        fb = torch.from_numpy(mel_filterbank(SR, cfg.n_fft, cfg.n_mels)).to(dev)
-        window = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
-        return lambda: torch.log(torch.clamp_min(fb @ torch.stft(
-            yt, cfg.n_fft, cfg.hop_length, window=window, center=False,
-            return_complex=True).abs().square(), 1e-10))
+                  f"max|diff| at finite {max(errs):.3g} (fft plain {max(fft_errs):.3g}), two "
+                  f"runs bitwise equal, -inf patterns equal")
 
     timed = {}
     for kind, n_fft, hop, mode in (("framed", 1024, 1024, "dif"), ("framed", 4096, 1024, "dif"),
-                                   ("exact", 2048, 1024, "exact"), ("dft", 1034, 517, "dif")):
+                                   ("exact", 2048, 1024, "exact")):
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
         y = bucket_signal(pcm, cfg)
         yt = torch.from_numpy(y).to(dev)
         n_frames = 1 + (len(y) - n_fft) // hop
-        kb = body(n_fft)
-        check(route(len(y), cfg, mode) == ("exact" if kind == "dft" else kind)
-              and (kb == "dft") == (kind == "dft"), f"timed {kind} route and body")
+        check(route(len(y), cfg, mode) == kind, f"timed {kind} route")
         tag = f"log-mel {kind} {n_fft}/{hop} {mode} binmul-path shape"
         want = fused_log_mel_plain(yt, cfg, mode)
         got = fused_log_mel(yt, cfg, mode)
         err = _check_logmel(tag, got, want)
         worst[kind] = max(worst[kind], err)
         kernel = lambda: fused_log_mel(yt, cfg, mode)  # noqa: E731
-        lib = library(yt, cfg)
+        lib = _library_logmel(yt, cfg)
         ms = cuda_ms(kernel)
         cold = cuda_ms_cold(kernel)
         plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg, mode), reps=5)
         lib_ms = cuda_ms(lib)
         bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
+        err_fft = _check_fft_body(tag, got, fused_log_mel(yt, cfg, mode),
+                                  fft_log_mel_plain(yt, cfg))
+        fft_plain = cuda_ms(lambda: fft_log_mel_plain(yt, cfg), reps=5)
+        dft = lambda: _launch_dft(yt, hop, n_frames, n_fft, cfg)  # noqa: E731
+        err_dft = _check_logmel(f"{tag}, dft body", dft(), want)
+        worst["dft"] = max(worst["dft"], err_dft)
+        dft_ms = cuda_ms(dft)
+        dft_cold = cuda_ms_cold(dft)
         direct = route(len(y), cfg, mode) == "exact"
-        line = (f"[kernel A {kind}] binmul-path shape n_fft {n_fft} hop {hop} mode {mode}, "
-                f"{kb} body: {n_frames} frames ({len(y) / SR:.1f} s padded), vs plain max|diff| "
-                f"at finite {err:.3g}, -inf patterns equal: kernel {ms:.4f} ms warm L2, "
-                f"{cold:.4f} ms cold L2; plain ({'direct' if direct else 'DIF'}) {plain:.4f} ms")
-        splits = {"kernel": kernel, "library": lib}
-        if kb == "fft":
-            err_fft = _check_fft_body(tag, got, fused_log_mel(yt, cfg, mode),
-                                      fft_log_mel_plain(yt, cfg))
-            fft_plain = cuda_ms(lambda: fft_log_mel_plain(yt, cfg), reps=5)
-            dft = lambda: _launch_dft(yt, hop, n_frames, n_fft, cfg, direct)  # noqa: E731
-            err_dft = _check_logmel(f"{tag}, dft body", dft(), want)
-            worst["dft"] = max(worst["dft"], err_dft)
-            dft_ms = cuda_ms(dft)
-            dft_cold = cuda_ms_cold(dft)
-            splits["dft"] = dft
-            line += (f"; vs the fft plain version {err_fft:.3g}, two runs bitwise equal; the "
-                     f"dft body at this shape {dft_ms:.4f} ms warm, {dft_cold:.4f} ms cold (vs "
-                     f"the same plain version {err_dft:.3g}); the fft body's plain emulation "
-                     f"{fft_plain:.4f} ms")
-        print(f"{line}; torch.stft+mel {lib_ms:.4f} ms; bound {bnd:.4f} ms ({by}, rFFT+power+"
-              f"sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at "
-              f"{bnd / ms:.3f} of its bound")
-        print(f"[kernel A {kind}] n_fft {n_fft} hop {hop}, {split_line(bnd, **splits)}")
+        print(f"[kernel A {kind}] binmul-path shape n_fft {n_fft} hop {hop} mode {mode}, fft "
+              f"body: {n_frames} frames ({len(y) / SR:.1f} s padded), vs plain max|diff| at "
+              f"finite {err:.3g}, -inf patterns equal: kernel {ms:.4f} ms warm L2, {cold:.4f} ms "
+              f"cold L2; plain ({'direct' if direct else 'DIF'}) {plain:.4f} ms; vs the fft "
+              f"plain version {err_fft:.3g}, two runs bitwise equal; the dft body (direct) at "
+              f"this shape {dft_ms:.4f} ms warm, {dft_cold:.4f} ms cold (vs the same plain "
+              f"version {err_dft:.3g}); the fft body's plain emulation {fft_plain:.4f} ms; "
+              f"torch.stft+mel {lib_ms:.4f} ms; bound {bnd:.4f} ms ({by}, rFFT+power+sparse "
+              f"mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at {bnd / ms:.3f} "
+              f"of its bound")
+        print(f"[kernel A {kind}] n_fft {n_fft} hop {hop}, "
+              f"{split_line(bnd, kernel=kernel, library=lib, dft=dft)}")
         timed[(kind, n_fft)] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
                                 "library_ms": lib_ms}
 
@@ -1511,7 +1526,7 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
     got = fused_log_mel(y120, cfg, "exact")
     torch.cuda.synchronize()
     exact_launches = _logmel_counts()
-    check(exact_launches == {"chunked": 0, "framed": 0, "exact": 1, "dft": 0},
+    check(exact_launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 0, "dft": 0},
           f"mode exact at n_fft 2048 launches {exact_launches}")
     err = _check_logmel("exact route n_fft 2048 on the 120 s file", got,
                         fused_log_mel_plain(y120, cfg, "exact"))
@@ -1519,21 +1534,23 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
           f"n_fft 2048: {tuple(got.shape)}, launches {exact_launches}, vs the direct plain "
           f"version max|diff| {err:.3g}")
 
-    # The dft body's main path: `frontend.extract` of the 120 s file at
-    # n_fft 1034 (neither a power of two nor a multiple of 4), against the
-    # fft backend.
-    cfg = FrontendConfig(n_fft=1034, hop_length=517, backend="kernel")
+    # The dft body's path: `frontend.extract` of the 120 s file at n_fft
+    # 12865, the first size beyond the mixed body's shared-memory limit (odd:
+    # the exact route), against the fft backend.
+    cfg = FrontendConfig(n_fft=12865, hop_length=6432, backend="kernel")
+    check(body(cfg.n_fft) == "dft", "n_fft 12865 takes the dft body")
     _reset_logmel_counts()
     got = frontend.extract(pcm, cfg, device=dev)
     torch.cuda.synchronize()
     dft_launches = _logmel_counts()
-    check(dft_launches == {"chunked": 0, "framed": 0, "exact": 1, "dft": 1},
-          f"extract at n_fft 1034 launches {dft_launches}")
+    check(dft_launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 0, "dft": 1},
+          f"extract at n_fft 12865 launches {dft_launches}")
     want = frontend.extract(pcm, dataclasses.replace(cfg, backend="fft"), device=dev)
-    err = _check_logmel("extract n_fft 1034 kernel vs fft", got, want)
+    err = _check_logmel("extract n_fft 12865 kernel vs fft", got, want)
+    worst["dft"] = max(worst["dft"], err)
     print(f"[kernel A dft] main path: frontend.extract of the {len(pcm) / SR:.0f} s file at "
-          f"n_fft 1034 hop 517: {tuple(got.shape)}, launches {dft_launches}, "
-          f"vs the fft backend max|diff| {err:.3g}")
+          f"n_fft 12865 hop 6432 (beyond the mixed body's limit): {tuple(got.shape)}, "
+          f"launches {dft_launches}, vs the fft backend max|diff| {err:.3g}")
     fft = {"route": "cuda", "source": "sed_crnn_torch/csrc/logmel_fft.cu"}
     return (
         {"name": "fused_logmel_framed", **fft,
@@ -1543,12 +1560,168 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
          "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:264",
          "max_abs_err": worst["exact"], "launches": exact_launches["exact"],
          **timed[("exact", 2048)]},
-        {"name": "fused_logmel_dft", "route": "cuda",
-         "source": "sed_crnn_torch/csrc/fused_logmel.cu",
-         "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:264",
-         "max_abs_err": worst["dft"], "launches": dft_launches["dft"],
-         **timed[("dft", 1034)]},
+        worst["dft"], dft_launches["dft"],
     )
+
+
+# The mixed body's shapes (n_fft, hop, route, plan): Bluestein at L 517 /
+# M 1050, direct at L 882 and 1536, the odd Bluestein at L 1001 / M 2016.
+MIXED_SHAPES = ((1034, 517, "exact"), (1764, 882, "chunked"), (3072, 1024, "framed"),
+                (1001, 500, "exact"))
+TPU_LOGMEL_SITES = ", ".join(f"sed_crnn_tpu/ops/pallas/fused_logmel.py:{line}"
+                             for line in (173, 162, 264))
+
+
+def phase_logmel_mixed(pcm: np.ndarray, dft_worst: float, dft_launches: int):
+    """[kernel A mixed]: the mixed-radix / Bluestein body at `MIXED_SHAPES`
+    on phase 3's signals and a 1,500-sample one, with and without a floor:
+    bitwise against `mixed_log_mel_plain`, two runs bitwise equal, within
+    5e-4 of the DIF / direct plain version with the -inf pattern equal, and
+    on a frame matrix; its times on 150 s of padded audio beside `torch.stft`
+    + mel, the dft body's direct formulation (held against the same plain
+    version first), both plain versions and the bound; `frontend.extract` at
+    n_fft 1034 with one mixed launch and no dft launch. Returns the mixed
+    entry, its launches on that `extract` run, and the dft body's entry
+    (timed at 1034 / 517, where the mixed body replaced it)."""
+    import torch
+
+    from sed_crnn_torch.core.config import FrontendConfig
+    from sed_crnn_torch.ops import frontend
+    from sed_crnn_torch.ops.kernels.fused_logmel import (
+        _launch_dft,
+        body,
+        fused_log_mel,
+        fused_log_mel_frames,
+        fused_log_mel_plain,
+        mixed_log_mel_plain,
+        mixed_plan,
+        route,
+    )
+    from sed_crnn_torch.ops.stft import frame_signal
+
+    dev = torch.device("cuda")
+    signals = _logmel_signals(FrontendConfig())
+    worst, worst_dft = 0.0, dft_worst
+    for n_fft, hop, kind in MIXED_SHAPES:
+        plan = mixed_plan(n_fft)
+        check(body(n_fft) == "mixed", f"{n_fft}: the mixed body")
+        errs = []
+        _reset_logmel_counts()
+        calls = 0
+        for name, y, center in signals:
+            yt = torch.from_numpy(y).to(dev)
+            for floor in (None, 1e-10):
+                cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center, log_floor=floor)
+                r = route(len(y), cfg)
+                check(r == kind or (r == "framed" and len(y) < n_fft),
+                      f"{name} {n_fft}/{hop} route {r}")
+                tag = f"log-mel mixed {n_fft}/{hop} {name} floor={floor}"
+                got = fused_log_mel(yt, cfg)
+                again = fused_log_mel(yt, cfg)
+                calls += 2
+                check(torch.equal(got, again), f"{tag}: two runs differ")
+                check(torch.equal(got, mixed_log_mel_plain(yt, cfg)),
+                      f"{tag}: not bitwise equal to mixed_log_mel_plain")
+                errs.append(_check_logmel(tag, got, fused_log_mel_plain(yt, cfg)))
+                if name == "silence" and floor is None:
+                    check(not bool(torch.isfinite(got).any()), f"{tag}: not all -inf")
+        y240 = torch.from_numpy(signals[1][1]).to(dev)
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
+        frames = frame_signal(y240, n_fft, hop).contiguous()
+        got = fused_log_mel_frames(frames, cfg)
+        calls += 1
+        check(torch.equal(got, mixed_log_mel_plain(frames, cfg))
+              and torch.equal(got, fused_log_mel(y240, cfg)),
+              f"mixed {n_fft}/{hop} frame matrix: not bitwise the plain version's or the "
+              f"waveform's")
+        calls += 1
+        counts = _logmel_counts()
+        check(counts["mixed"] == calls and counts["dft"] == 0,
+              f"mixed {n_fft}/{hop}: launches {counts} for {calls} calls")
+        worst = max(worst, max(errs))
+        print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind} route; "
+              f"{'Bluestein' if plan.bluestein else 'direct'} L {plan.points}, N {plan.n}, "
+              f"radices {plan.radices}): {len(signals)} signals x 2 floors + a "
+              f"{tuple(frames.shape)} frame matrix, bitwise equal to mixed_log_mel_plain and "
+              f"run to run, vs the DIF / direct plain version max|diff| at finite "
+              f"{max(errs):.3g}, -inf patterns equal; launches {counts}")
+
+    timed = {}
+    for n_fft, hop, kind in MIXED_SHAPES:
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        y = bucket_signal(pcm, cfg)
+        yt = torch.from_numpy(y).to(dev)
+        n_frames = 1 + (len(y) - n_fft) // hop
+        want = fused_log_mel_plain(yt, cfg)
+        got = fused_log_mel(yt, cfg)
+        tag = f"log-mel mixed {n_fft}/{hop} timed shape"
+        err = _check_logmel(tag, got, want)
+        check(torch.equal(got, mixed_log_mel_plain(yt, cfg)), f"{tag}: not bitwise the plain")
+        worst = max(worst, err)
+        kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
+        dft = lambda: _launch_dft(yt, hop, n_frames, n_fft, cfg)  # noqa: E731
+        lib = _library_logmel(yt, cfg)
+        err_dft = _check_logmel(f"{tag}, dft body", dft(), want)
+        worst_dft = max(worst_dft, err_dft)
+        ms, cold = cuda_ms(kernel), cuda_ms_cold(kernel)
+        lib_ms, dft_ms = cuda_ms(lib), cuda_ms(dft)
+        dft_cold = cuda_ms_cold(dft)
+        plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg), reps=5)
+        mixed_plain = cuda_ms(lambda: mixed_log_mel_plain(yt, cfg), reps=5)
+        bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
+        measured = {}
+        split = split_line(bnd, measured, kernel=kernel, library=lib, dft=dft)
+        direct = route(len(y), cfg) == "exact"
+        plan = mixed_plan(n_fft)
+        point_stages = n_frames * plan.n * len(plan.radices) * (2 if plan.bluestein else 1)
+        print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind}), {n_frames} frames "
+              f"({len(y) / SR:.1f} s padded): kernel {ms:.4f} ms warm L2, {cold:.4f} ms cold "
+              f"L2; torch.stft+mel {lib_ms:.4f} ms; the dft body (direct) {dft_ms:.4f} ms warm, "
+              f"{dft_cold:.4f} ms cold (vs the {'direct' if direct else 'DIF'} plain version "
+              f"{err_dft:.3g}); plain ({'direct' if direct else 'DIF'}) {plain:.4f} ms, "
+              f"mixed_log_mel_plain {mixed_plain:.4f} ms; bound {bnd:.4f} ms ({by}, "
+              f"rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at "
+              f"{bnd / ms:.3f} of its bound; x{dft_ms / ms:.2f} faster than the dft body, "
+              f"x{lib_ms / ms:.2f} against torch.stft+mel; {point_stages:,} frame-point-stages "
+              f"(frames x N x stages, x2 for Bluestein), {ms * 1e9 / point_stages:.2f} ps each")
+        print(f"[kernel A mixed] n_fft {n_fft} hop {hop}, {split}")
+        timed[n_fft] = {"ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
+                        "host_ms": measured["kernel"][1], "plain_ms": plain,
+                        "mixed_plain_ms": mixed_plain, "bound_ms": bnd, "bound_by": by,
+                        "library_ms": lib_ms, "dft_ms": dft_ms, "dft_cold_ms": dft_cold,
+                        "dft_device_ms": measured["dft"][0]}
+
+    # The main path at a size the mixed body takes: `frontend.extract` of
+    # the 120 s file at n_fft 1034 (neither a power of two nor a multiple of
+    # 4: the exact route, Bluestein), against the fft backend.
+    cfg = FrontendConfig(n_fft=1034, hop_length=517, backend="kernel")
+    _reset_logmel_counts()
+    got = frontend.extract(pcm, cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = _logmel_counts()
+    check(launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 1, "dft": 0},
+          f"extract at n_fft 1034 launches {launches}")
+    want = frontend.extract(pcm, dataclasses.replace(cfg, backend="fft"), device=dev)
+    err = _check_logmel("extract n_fft 1034 kernel vs fft", got, want)
+    worst = max(worst, err)
+    print(f"[kernel A mixed] main path: frontend.extract of the {len(pcm) / SR:.0f} s file at "
+          f"n_fft 1034 hop 517: {tuple(got.shape)}, launches {launches}, vs the fft backend "
+          f"max|diff| {err:.3g}")
+    main = timed[1034]
+    shapes = {f"{n}/{h}": timed[n] for n, h, _ in MIXED_SHAPES}
+    mixed = {"name": "fused_logmel_mixed", "route": "cuda",
+             "source": "sed_crnn_torch/csrc/logmel_mixed.cu", "replaces": TPU_LOGMEL_SITES,
+             "max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "library_ms")},
+             "shape": "n_fft 1034 hop 517, 150 s padded", "shapes": shapes}
+    dft = {"name": "fused_logmel_dft", "route": "cuda",
+           "source": "sed_crnn_torch/csrc/fused_logmel.cu", "replaces": TPU_LOGMEL_SITES,
+           "serves": "every n_fft beyond the mixed body's shared-memory limit (from 12865), "
+                     "direct formulation", "launches": dft_launches, "max_abs_err": worst_dft,
+           "ms": main["dft_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+           "shape": "n_fft 1034 hop 517, 150 s padded"}
+    return mixed, launches["mixed"], dft
 
 
 DCASE_CLASS_FREQS = (300.0, 700.0, 1300.0, 2500.0, 4100.0, 6300.0)
@@ -1634,7 +1807,8 @@ def phase_feature(workdir: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _logmel_counts()
-    want = {"chunked": 2 * len(names), "framed": 4 * len(names), "exact": 0, "dft": 0}
+    want = {"chunked": 2 * len(names), "framed": 4 * len(names), "exact": 0, "mixed": 0,
+            "dft": 0}
     check(launches == want, f"feature launches {launches} != {want}")
     print(f"[feature] extract_dcase --binmul --backend kernel: {len(names)} files "
           f"({audio_s:.0f} s of binaural audio, 2 folds) in {wall:.2f} s host clock -> "
@@ -1730,6 +1904,56 @@ def phase_feature(workdir: str):
           f"reflect + bucket padding x6 {t_pad * 1e3:.1f} ms, npz write {t_save * 1e3:.1f} ms; "
           f"all of one file {wall / len(names) * 1e3:.0f} ms on average")
     return launches, cache, audio_s / wall
+
+
+def phase_feature_multires(workdir: str) -> int:
+    """`apps/feature.py --multires 1764 3072 --backend kernel` on the
+    feature phase's synthetic DCASE layout, into its own cache: window sizes
+    that are not powers of two (40 ms at 44.1 kHz, and 3072), each a framed
+    launch on the mixed body, exactly 4 per file and none on the dft body;
+    per-file features within 5e-4 of ``--backend fft``. Returns the mixed
+    launches."""
+    import torch
+
+    from sed_crnn_torch.apps import feature
+    from sed_crnn_torch.data import store
+
+    root = os.path.join(workdir, "dcase")
+    n_files = len([f for f in os.listdir(os.path.join(root, "audio", "street"))
+                   if f.endswith(".wav")])
+    args = ["--dcase-root", root, "--multires", "1764", "3072", "--folds", "1", "2",
+            "--device", "cuda"]
+    cache = os.path.join(workdir, "cache_multires")
+    _reset_logmel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = _quiet(feature.main, args + ["--cache-dir", cache, "--backend", "kernel"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _logmel_counts()
+    want = {"chunked": 0, "framed": 4 * n_files, "exact": 0, "mixed": 4 * n_files, "dft": 0}
+    check(launches == want, f"--multires 1764 3072 launches {launches} != {want}")
+    fft_cache = os.path.join(workdir, "cache_multires_fft")
+    _quiet(feature.main, args + ["--cache-dir", fft_cache, "--backend", "fft"])
+    per_file = sorted(f for f in os.listdir(cache) if f.endswith("_binmul.npz")
+                      and not f.startswith("mbe_"))
+    check(len(per_file) == n_files, f"{len(per_file)} per-file caches for {n_files} files")
+    worst = 0.0
+    for f in per_file:
+        x, y = store.load_video_features(os.path.join(cache, f))
+        fx, fy = store.load_video_features(os.path.join(fft_cache, f))
+        check(x.shape == fx.shape and x.shape[1] == 4 * 40 and np.array_equal(y, fy),
+              f"multires {f}: shapes {x.shape} / {fx.shape} or labels")
+        fin = np.isfinite(fx)
+        check(np.array_equal(np.isfinite(x), fin), f"multires {f}: -inf pattern vs fft")
+        err = float(np.abs(x[fin] - fx[fin]).max())
+        check(err <= LOGMEL_ATOL, f"multires {f}: kernel vs fft backend {err}")
+        worst = max(worst, err)
+    print(f"[feature] --multires 1764 3072 --backend kernel: {n_files} files in {wall:.2f} s "
+          f"host clock, launches {launches} (per file 2 channels x 2 sizes, framed, all on the "
+          f"mixed body); features {x.shape[1]} a frame, vs --backend fft max|diff| {worst:.3g} "
+          f"over {len(per_file)} files, -inf patterns and labels equal; {out[-1]}")
+    return launches["mixed"]
 
 
 def phase_feature_train(workdir: str, cache: str):
@@ -2768,7 +2992,7 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
                 for la in (False, True)}
         torch.cuda.synchronize()
     logmel, gru = _logmel_counts(), _gru_counts()
-    check(logmel == {"chunked": 2, "framed": 0, "exact": 0, "dft": 0},
+    check(logmel == {"chunked": 2, "framed": 0, "exact": 0, "mixed": 0, "dft": 0},
           f"infer_file_artifact kernel A launches {logmel}")
     check(gru == _gru_path_counts(2 * 2 * n_chunks, 0) and not plain_on_card,
           f"infer_file_artifact kernel B launches {gru} ({n_chunks} chunks)")
@@ -2828,7 +3052,8 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     logmel, gru = _logmel_counts(), _gru_counts()
     n_steps = len(stepper.latencies)
     check(n_steps == n_chunks and n_out == n_frames, f"serve_stream {n_steps} steps, {n_out} frames")
-    check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "dft": 0},
+    check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "mixed": 0,
+                     "dft": 0},
           f"serve_stream kernel A launches {logmel} vs {blocks.blocks} framer blocks")
     check(gru == _gru_path_counts(2 * n_steps, 0) and not plain_on_card,
           f"serve_stream kernel B launches {gru}")
@@ -2857,7 +3082,8 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     check(n_steps <= ticks <= SERVE_STREAMS * n_steps, f"{ticks} ticks for {n_steps} chunks")
     check(gru == _gru_path_counts(2 * ticks, 0) and not plain_on_card,
           f"daemon kernel B launches {gru} vs 2 x {ticks} ticks")
-    check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "dft": 0},
+    check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "mixed": 0,
+                     "dft": 0},
           f"daemon kernel A launches {logmel} vs {blocks.blocks} framer blocks")
     launches["framed"] += logmel["framed"]
     launches["gru_scan_fwd"] += gru["gru_scan_fwd"]
@@ -2947,9 +3173,12 @@ def main() -> int:
         train_dir, feature_dir = (os.path.join(workdir, d) for d in ("train", "feature"))
         train_launches, cfg, fold = phase_train(train_dir)
         phase_train_throughput(cfg, fold)
-        kernel_framed, kernel_exact, kernel_dft = phase_logmel_routes(pcm, dft_err)
+        kernel_framed, kernel_exact, dft_worst, dft_launches = phase_logmel_routes(pcm, dft_err)
+        kernel_mixed, mixed_launches, kernel_dft = phase_logmel_mixed(pcm, dft_worst,
+                                                                      dft_launches)
         os.makedirs(feature_dir)
         feature_launches, cache, _ = phase_feature(feature_dir)
+        mixed_launches += phase_feature_multires(feature_dir)
         binmul_best = phase_feature_train(feature_dir, cache)
         eval_launches, eval_numbers = phase_evaluate(train_dir, cache, binmul_best)
         phase_multiseed(os.path.join(workdir, "multiseed"))
@@ -2965,6 +3194,7 @@ def main() -> int:
                                                     "gru_dwh")})
     launches["fused_logmel_framed"] = feature_launches["framed"] + serve_launches["framed"]
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
+    launches["fused_logmel_mixed"] = mixed_launches
     launches["fused_logmel_dft"] = kernel_dft.pop("launches")
     launches["gru_scan_retained"] = kernel_retained.pop("launches")
     # kernel B's stacked launches (one per kernel for all seeds) on the
@@ -2985,10 +3215,12 @@ def main() -> int:
     kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])
     kernels = []
     head = ("name", "route", "source", "replaces")
-    for k in (kernel_a, kernel_framed, kernel_exact, kernel_dft, kernel_b, kernel_fwd_res,
-              kernel_bwd, kernel_dwh, kernel_retained):
+    for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_dft, kernel_b,
+              kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_retained):
         kernels.append({**{key: k[key] for key in head}, "launches": launches[k["name"]],
                         **{key: v for key, v in k.items() if key not in head}})
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    check(not idle, f"kernels never launched on their paths: {idle}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,49 +1,50 @@
-"""Fused log-mel: the CUDA kernels (``csrc/logmel_fft.cu`` and
-``csrc/fused_logmel.cu``) and their plain PyTorch versions.
+"""Fused log-mel: the CUDA kernels (``csrc/logmel_fft.cu``,
+``csrc/logmel_mixed.cu`` and ``csrc/fused_logmel.cu``) and their plain
+PyTorch versions.
 
 The JAX package's `ops/pallas/fused_logmel.py` has three TPU kernels, which
-all compute one function: windowed real DFT, power, mel, floor, log. Two
-CUDA bodies replace them, each in float32, chosen by `body` from ``n_fft``:
+all compute one function: windowed real DFT, power, mel, floor, log. Three
+CUDA bodies replace them, each in float32, chosen by `body` from ``n_fft``
+whatever the route:
 
 * ``"fft"`` (``csrc/logmel_fft.cu``), every power-of-two ``n_fft`` from 256
-  to 16384, whatever the route: the frame windowed on load and packed as
-  ``n_fft / 2`` complex points, a radix-4 Stockham FFT in shared memory, the
-  real-to-complex untangle, power, the mel filterbank as CSR rows, floor,
-  log. `fft_log_mel_plain` repeats its arithmetic operation by operation;
-* ``"dft"`` (``csrc/fused_logmel.cu``), any other ``n_fft``, in two
-  formulations:
-
-  - DIF, the radix-2 decimation in frequency (JAX ``_kernel_dif_chunked``
-    and ``_kernel_dif``): frame t's halves ``a``, ``b`` read at
-    ``src[t*stride + k]`` and ``src[t*stride + M + k]`` (``M = n_fft / 2``);
-    ``s = wa*a + wb*b`` gives the even DFT bins through an M-point real DFT,
-    ``d = wa*a - wb*b`` the odd bins through the half-bin-shifted DFT; then
-    power, the mel product (the even/odd split folded into the mel rows),
-    the optional floor and the log;
-  - direct (JAX ``_kernel_exact``): the raw frame against the
-    window-folded bases of the full n_fft-point DFT, then the same power,
-    mel, floor, log.
+  to 16384: the frame windowed on load and packed as ``n_fft / 2`` complex
+  points, a radix-4 Stockham FFT in shared memory, the real-to-complex
+  untangle, power, the mel filterbank as CSR rows, floor, log.
+  `fft_log_mel_plain` repeats its arithmetic operation by operation;
+* ``"mixed"`` (``csrc/logmel_mixed.cu``), every other ``n_fft`` whose plan
+  (`mixed_plan`) fits in a block's shared memory: the same packing (or, at
+  an odd ``n_fft``, the real frame as ``n_fft`` complex points), an
+  in-place mixed-radix FFT (radix 4, 2, 3, 5, 7) when the transform length
+  L is 7-smooth, else Bluestein's chirp convolution through two such FFTs
+  of a 7-smooth length M >= 2L - 1, then the same power, CSR mel, floor,
+  log. `mixed_log_mel_plain` repeats its arithmetic operation by operation;
+* ``"dft"`` (``csrc/fused_logmel.cu``), the sizes beyond that limit only:
+  the raw frame against the window-folded cos / -sin bases of the full
+  n_fft-point DFT (the formulation of the JAX ``_kernel_exact``), power, a
+  dense mel product, floor, log.
 
 Modes, renamed from the JAX package's (as `core/config.py` renames the
-backends): ``"dif"`` is the JAX ``"bf16x3"`` (the TPU ran the DIF products
-as bf16x3; here they are float32 FMAs) and ``"exact"`` keeps its name.
-Dispatch follows the JAX ``fused_log_mel`` / ``fused_log_mel_frames``:
+backends): ``"dif"`` is the JAX ``"bf16x3"`` and ``"exact"`` keeps its
+name. Dispatch follows the JAX ``fused_log_mel`` / ``fused_log_mel_frames``:
 
 * ``"chunked"``: mode ``"dif"``, ``hop * 2 == n_fft``, ``n_fft % 4 == 0`` and
-  a signal of at least ``n_fft`` samples: stride ``M`` on the (padded)
-  waveform, frame t is hop rows t and t+1;
+  a signal of at least ``n_fft`` samples: stride ``n_fft / 2`` on the
+  (padded) waveform, frame t is hop rows t and t+1;
 * ``"framed"``: mode ``"dif"`` otherwise (any hop, short signals): stride
   ``hop`` on the padded waveform, or ``n_fft`` on a frame matrix;
-* ``"exact"``: mode ``"exact"``, or any ``n_fft % 4 != 0`` (the DIF split
-  needs an even half length).
+* ``"exact"``: mode ``"exact"``, or any ``n_fft % 4 != 0``.
 
-`fused_log_mel` and `fused_log_mel_frames` launch a kernel for a CUDA
-tensor and run the DIF / direct plain version only for a CPU tensor (the
-function the JAX kernels compute, as the JAX package runs it). Launches are
-counted per route on `fused_log_mel`: ``launches`` (chunked),
-``framed_launches`` and ``exact_launches``, whichever of the two wrappers
-launched and whichever body ran; ``dft_launches`` counts the launches of
-the ``"dft"`` body among them.
+The route sets the frame stride of a launch and the plain version a CPU
+tensor runs: `fused_log_mel` and `fused_log_mel_frames` launch a kernel for
+a CUDA tensor and run the DIF / direct plain version (`fused_log_mel_plain`:
+the JAX kernels' radix-2 decimation in frequency, or the direct DFT for the
+exact route, as products) only for a CPU tensor, the function the JAX
+kernels compute, as the JAX package runs it. Launches are counted per route
+on `fused_log_mel`: ``launches`` (chunked), ``framed_launches`` and
+``exact_launches``, whichever of the two wrappers launched and whichever
+body ran; ``mixed_launches`` and ``dft_launches`` count the launches of the
+``"mixed"`` and ``"dft"`` bodies among them.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from functools import lru_cache
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +67,8 @@ FRAME_TILE = 64   # csrc/fused_logmel.cu TF: frames per block
 MAX_MELS = 256    # keeps the dft body's shared memory under the card's limit
 MODES = ("dif", "exact")
 FFT_LOG_N = (8, 14)   # csrc/logmel_fft.cu: n_fft 256 .. 16384
+MIXED_MAX_SMEM = 232448           # csrc/logmel_mixed.cu MAX_SMEM: 227 KB a block
+MIXED_MAX_STAGES = 16             # csrc/logmel_mixed.cu MAX_STAGES
 
 # Serving threads call the wrappers concurrently: the operand cache and the
 # launch counters are read-modify-write.
@@ -112,7 +115,7 @@ def exact_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
     window-folded cos / -sin bases of the full DFT, ``(n_fft, NB)``, and the
     transposed mel filterbank ``(NB, n_mels)``, the bin axis padded with
     zeros to a multiple of the 64-bin tile (1025 -> 1088), so padded bins
-    contribute nothing. Every tile counts as "even": no DIF split."""
+    contribute nothing."""
     n_bins = 1 + n_fft // 2
     nb = _round_up(n_bins, BIN_TILE)
     cos_b, sin_b = dft_bases(n_fft, windowed=True)                 # (n_fft, n_bins)
@@ -121,14 +124,73 @@ def exact_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
     bc[:, :n_bins], bs[:, :n_bins] = cos_b, sin_b
     melw = np.zeros((nb, n_mels), np.float32)
     melw[:n_bins] = mel_filterbank(sr, n_fft, n_mels, fmin, fmax).T
-    return {"bc": bc, "bs": bs, "melw": melw, "n_even_tiles": nb // BIN_TILE}
+    return {"bc": bc, "bs": bs, "melw": melw}
+
+
+def _smooth_radices(n: int) -> Optional[Tuple[int, ...]]:
+    """The DIF radices of a 7-smooth ``n`` (radix 4 for each pair of 2s, one
+    radix 2 for an odd one out, then 3, 5, 7), or None when a prime above 7
+    divides it."""
+    counts = {}
+    for p in (2, 3, 5, 7):
+        counts[p] = 0
+        while n % p == 0:
+            n //= p
+            counts[p] += 1
+    if n != 1:
+        return None
+    fours, twos = divmod(counts[2], 2)
+    return (4,) * fours + (2,) * twos + (3,) * counts[3] + (5,) * counts[5] + (7,) * counts[7]
+
+
+class MixedPlan(NamedTuple):
+    """How ``csrc/logmel_mixed.cu`` transforms a frame of ``n_fft`` samples:
+    ``points`` complex points L (``n_fft / 2`` packed, or ``n_fft`` at an odd
+    n_fft), a transform of length ``n`` (L direct, or Bluestein's M) by DIF
+    stages of ``radices``, and the shared memory one frame takes (the work
+    array and the power row)."""
+
+    n_fft: int
+    points: int
+    n: int
+    radices: Tuple[int, ...]
+    bluestein: bool
+    smem_bytes: int
+
+
+def mixed_plan(n_fft: int) -> MixedPlan:
+    """The mixed body's plan at ``n_fft`` >= 1: direct when L is 7-smooth,
+    else Bluestein at M, the smallest 7-smooth length >= 2L - 1."""
+    if n_fft < 1:
+        raise ValueError(f"n_fft must be positive, got {n_fft}")
+    points = n_fft if n_fft % 2 else n_fft // 2
+    radices = _smooth_radices(points)
+    n = points
+    if radices is None:
+        n = 2 * points - 1
+        while (radices := _smooth_radices(n)) is None:
+            n += 1
+    return MixedPlan(n_fft, points, n, radices, n != points,
+                     8 * n + 4 * (n_fft // 2 + 1))
 
 
 def body(n_fft: int) -> str:
     """Which CUDA body computes a launch at ``n_fft``: ``"fft"`` for a power
-    of two from 256 to 16384, ``"dft"`` otherwise."""
+    of two from 256 to 16384; ``"mixed"`` for any other n_fft whose
+    `mixed_plan` takes at most ``MIXED_MAX_SMEM`` bytes of shared memory a
+    frame (8 M or 8 L bytes of work array and 4 (n_fft / 2 + 1) of power
+    row): every n_fft up to 12,864 (12,865 is odd with L 12,865 and M
+    25,920: 233,092 bytes), every even one up to 23,040 (23,042: L 11,521,
+    M 23,328), and above those the sizes whose plan fits, direct up to L =
+    21,875 (an odd n_fft; the largest even n_fft is 38,416, L = 19,208) and
+    Bluestein up to M = 25,725; ``"dft"`` (the direct formulation of the
+    retained body) for the rest."""
     lo, hi = FFT_LOG_N
-    return "fft" if n_fft & (n_fft - 1) == 0 and 1 << lo <= n_fft <= 1 << hi else "dft"
+    if n_fft & (n_fft - 1) == 0 and 1 << lo <= n_fft <= 1 << hi:
+        return "fft"
+    if n_fft >= 1 and mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM:
+        return "mixed"
+    return "dft"
 
 
 def mel_csr(sr: int, n_fft: int, n_mels: int, fmin: float, fmax):
@@ -148,6 +210,13 @@ def mel_csr(sr: int, n_fft: int, n_mels: int, fmin: float, fmax):
     return first, ptr, np.concatenate(rows).astype(np.float32)
 
 
+def _unit_roots(count: int, n: int) -> np.ndarray:
+    """``exp(-2 pi i m / n)`` for m < ``count``, computed in float64 and
+    rounded once to float32 (re, im) pairs, ``(count, 2)``."""
+    ang = 2.0 * np.pi * np.arange(count, dtype=np.float64) / n
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
 def fft_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
     """The FFT body's operands: the Hann window, the twiddles of the
     ``n_fft / 2``-point complex FFT (``tw[m] = exp(-2 pi i m / H)``, ``(H, 2)``)
@@ -155,24 +224,88 @@ def fft_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
     ``(H + 1, 2)``), each computed in float64 and rounded to float32, and
     the mel filterbank as CSR rows (`mel_csr`)."""
     h = n_fft // 2
-    ang = 2.0 * np.pi * np.arange(h, dtype=np.float64) / h
-    uang = 2.0 * np.pi * np.arange(h + 1, dtype=np.float64) / n_fft
     first, ptr, weights = mel_csr(sr, n_fft, n_mels, fmin, fmax)
     return {
         "window": hann_window(n_fft, np.float64).astype(np.float32),
-        "tw": np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32),
-        "utw": np.stack([np.cos(uang), -np.sin(uang)], axis=1).astype(np.float32),
+        "tw": _unit_roots(h, h), "utw": _unit_roots(h + 1, n_fft),
         "mel_first": first, "mel_ptr": ptr, "mel_w": weights,
     }
 
 
-_OPERANDS = {"dif": dif_operands, "exact": exact_operands, "fft": fft_operands}
+def dif_positions(radices) -> np.ndarray:
+    """Where the in-place DIF stages of ``radices`` leave X_k: stage s puts
+    the sub-transform of frequencies k = s mod R in sub-block s, so the digits
+    of k in the mixed radix, last radix slowest, give its position."""
+    n = int(np.prod(radices, dtype=np.int64))
+    k = np.arange(n, dtype=np.int64)
+    pos = np.zeros(n, np.int64)
+    span = n
+    for r in radices:
+        span //= r
+        pos += (k % r) * span
+        k //= r
+    return pos
+
+
+def _chirp64(points: int) -> np.ndarray:
+    """Bluestein's chirp ``w_n = exp(-i pi (n^2 mod 2L) / L)`` in complex128;
+    n^2 mod 2L in int64 (n^2 overflows int32 from L = 46,341, and a float
+    angle of n^2 loses the phase)."""
+    q = (np.arange(points, dtype=np.int64) ** 2) % (2 * points)
+    return np.exp(-1j * np.pi * q.astype(np.float64) / points)
+
+
+def bluestein_chirp(points: int) -> np.ndarray:
+    """The chirp table of an L-point Bluestein transform, ``(L, 2)`` float32."""
+    w = _chirp64(points)
+    return np.stack([w.real, w.imag], axis=1).astype(np.float32)
+
+
+def bluestein_filter(points: int, radices) -> np.ndarray:
+    """``B = FFT_M(b) / M``, b_m = conj(w_m) for |m| < L wrapped mod M and
+    zero elsewhere, in float64, stored at the DIF positions of ``radices``
+    (whose product is M) and rounded once: ``(M, 2)`` float32."""
+    m = int(np.prod(radices, dtype=np.int64))
+    w = _chirp64(points)
+    b = np.zeros(m, np.complex128)
+    b[:points] = np.conj(w)
+    b[m - points + 1 :] = np.conj(w[1:])[::-1]
+    spec = np.fft.fft(b) / m
+    out = np.empty((m, 2), np.float64)
+    out[dif_positions(radices)] = np.stack([spec.real, spec.imag], axis=1)
+    return out.astype(np.float32)
+
+
+def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
+    """The mixed body's operands, each computed in float64 and rounded once
+    to float32: the Hann window, the stage twiddles of the N-point transform
+    (``tw[m] = exp(-2 pi i m / N)``, ``(N, 2)``, the odd radices' constants
+    among them), at an even n_fft the untangle twiddles (``utw[k] =
+    exp(-2 pi i k / n_fft)``, ``(L + 1, 2)``); direct: the positions of X_k
+    (``pos``, int32); Bluestein: the chirp (``(L, 2)``) and the filter
+    spectrum (``bspec``, ``(M, 2)``); the mel filterbank as CSR rows."""
+    plan = mixed_plan(n_fft)
+    first, ptr, weights = mel_csr(sr, n_fft, n_mels, fmin, fmax)
+    ops = {"window": hann_window(n_fft, np.float64).astype(np.float32),
+           "tw": _unit_roots(plan.n, plan.n), "mel_first": first, "mel_ptr": ptr, "mel_w": weights}
+    if n_fft % 2 == 0:
+        ops["utw"] = _unit_roots(plan.points + 1, n_fft)
+    if plan.bluestein:
+        ops["chirp"] = bluestein_chirp(plan.points)
+        ops["bspec"] = bluestein_filter(plan.points, plan.radices)
+    else:
+        ops["pos"] = dif_positions(plan.radices).astype(np.int32)
+    return ops
+
+
+_OPERANDS = {"dif": dif_operands, "exact": exact_operands, "fft": fft_operands,
+             "mixed": mixed_operands}
 
 
 @lru_cache(maxsize=16)
 def _device_operands(sr, n_fft, n_mels, fmin, fmax, kind: str, device: str) -> dict:
-    """The operands of ``kind`` (``"dif"``, ``"exact"``, ``"fft"``) on
-    ``device``, built on the host and cached only here: the cached tensors
+    """The operands of ``kind`` (``"dif"``, ``"exact"``, ``"fft"``,
+    ``"mixed"``) on ``device``, built on the host and cached only here: the cached tensors
     are shared, read only."""
     ops = _OPERANDS[kind](sr, n_fft, n_mels, fmin, fmax)
     return {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray) else v)
@@ -241,6 +374,32 @@ def _plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     return _finish(power @ ops["melw"], cfg.log_floor)
 
 
+def _untangle(a, b, utw):
+    """``bin_power`` of the FFT bodies: |X_k|^2 from Z_k = ``a`` and Z_{L-k} =
+    ``b`` (each a (re, im) pair), w = ``utw`` = exp(-2 pi i k / n_fft):
+    E = (a + conj b) / 2, O = (a - conj b) / 2i, X_k = E + w O."""
+    (a_r, a_i), (b_r, b_i) = a, b
+    w_r, w_i = utw[:, 0], utw[:, 1]
+    e_r, e_i = 0.5 * (a_r + b_r), 0.5 * (a_i - b_i)
+    o_r, o_i = 0.5 * (a_i + b_i), 0.5 * (b_r - a_r)
+    x_r = e_r + (w_r * o_r - w_i * o_i)
+    x_i = e_i + (w_r * o_i + w_i * o_r)
+    return x_r * x_r + x_i * x_i
+
+
+def _csr_mel(power: torch.Tensor, ops: dict, n_mels: int) -> torch.Tensor:
+    """The FFT bodies' mel sums: (frames, bins) power against the CSR rows,
+    each band's bins added in bin order (bin i of every band at once)."""
+    first, ptr, mel_w = ops["mel_first"].long(), ops["mel_ptr"].long(), ops["mel_w"]
+    count = ptr[1:] - ptr[:-1]
+    acc = torch.zeros((power.shape[0], n_mels), dtype=torch.float32, device=power.device)
+    for i in range(int(count.max())):
+        live = i < count
+        w = torch.where(live, mel_w[torch.clamp(ptr[:-1] + i, max=mel_w.numel() - 1)], 0.0)
+        acc = acc + w * power[:, torch.clamp(first + i, max=power.shape[1] - 1)]
+    return acc
+
+
 def _butterfly(vr, vi):
     """The R-point forward DFT of ``csrc/logmel_fft.cu``'s ``butterfly<R>``
     (R = 2 or 4) on lists of real and imaginary parts, the same operations."""
@@ -283,22 +442,9 @@ def _fft_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
             re[:, d + r * ns], im[:, d + r * ns] = ur[r], ui[r]
         ns *= radix
     k = torch.arange(h + 1, device=src.device)
-    a_r, a_i = re[:, k % h], im[:, k % h]
-    b_r, b_i = re[:, (h - k) % h], im[:, (h - k) % h]
-    w_r, w_i = ops["utw"][:, 0], ops["utw"][:, 1]
-    e_r, e_i = 0.5 * (a_r + b_r), 0.5 * (a_i - b_i)
-    o_r, o_i = 0.5 * (a_i + b_i), 0.5 * (b_r - a_r)
-    x_r = e_r + (w_r * o_r - w_i * o_i)
-    x_i = e_i + (w_r * o_i + w_i * o_r)
-    power = x_r * x_r + x_i * x_i                   # (n_frames, h + 1)
-    first, ptr, mel_w = ops["mel_first"].long(), ops["mel_ptr"].long(), ops["mel_w"]
-    count = ptr[1:] - ptr[:-1]
-    acc = torch.zeros((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
-    for i in range(int(count.max())):               # bin i of every band, in bin order
-        live = i < count
-        w = torch.where(live, mel_w[torch.clamp(ptr[:-1] + i, max=mel_w.numel() - 1)], 0.0)
-        acc = acc + w * power[:, torch.clamp(first + i, max=h)]
-    return _finish(acc, cfg.log_floor)
+    return _finish(_csr_mel(_untangle((re[:, k % h], im[:, k % h]),
+                                      (re[:, (h - k) % h], im[:, (h - k) % h]), ops["utw"]),
+                            ops, cfg.n_mels), cfg.log_floor)
 
 
 def fft_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
@@ -310,6 +456,127 @@ def fft_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
                          f"{1 << FFT_LOG_N[1]}], got {cfg.n_fft}")
     src, n_frames = frame_source(y.to(torch.float32), cfg)
     return _fft_plain(src, cfg.hop_length, n_frames, cfg.n_fft, cfg)
+
+
+def _cmul(ar, ai, wr, wi):
+    """``cmul`` of the kernels: (a.x w.x - a.y w.y, a.x w.y + a.y w.x)."""
+    return ar * wr - ai * wi, ar * wi + ai * wr
+
+
+def _radix_butterfly(radix: int, vr, vi, tw_r, tw_i):
+    """``butterfly<R>`` of ``csrc/logmel_mixed.cu``: radix 2 and 4 as in the
+    FFT body; an odd radix by the pairs a_r = v_r + v_{R-r}, b_r = v_r -
+    v_{R-r} against its constants e^{-2 pi i q / R} = ``tw[q N / R]``."""
+    if radix in (2, 4):
+        return _butterfly(vr, vi)
+    h = (radix - 1) // 2
+    step = tw_r.numel() // radix
+    c = [(tw_r[q * step], -tw_i[q * step]) for q in range(radix)]   # (cos, sin)
+    ar = [None] + [vr[r] + vr[radix - r] for r in range(1, h + 1)]
+    ai = [None] + [vi[r] + vi[radix - r] for r in range(1, h + 1)]
+    br = [None] + [vr[r] - vr[radix - r] for r in range(1, h + 1)]
+    bi = [None] + [vi[r] - vi[radix - r] for r in range(1, h + 1)]
+    out_r, out_i = [vr[0]] * radix, [vi[0]] * radix
+    for r in range(1, h + 1):
+        out_r[0], out_i[0] = out_r[0] + ar[r], out_i[0] + ai[r]
+    for s in range(1, h + 1):
+        pr, pi = vr[0], vi[0]
+        for r in range(1, h + 1):
+            cs, sn = c[(r * s) % radix]
+            pr, pi = pr + cs * ar[r], pi + cs * ai[r]
+            tr, ti = sn * br[r], sn * bi[r]
+            qr, qi = (tr, ti) if r == 1 else (qr + tr, qi + ti)
+        out_r[s], out_i[s] = pr + qi, pi - qr
+        out_r[radix - s], out_i[radix - s] = pr - qi, pi + qr
+    return out_r, out_i
+
+
+def _mixed_stage(re, im, radix: int, ls: int, tw_r, tw_i, transposed: bool):
+    """One in-place stage of ``csrc/logmel_mixed.cu`` on sub-transforms of
+    length ``ls``: butterfly b is sub-transform b // m at offset j = b % m
+    (m = ls / R), its points g ls + j + r m; DIF: butterfly, then output s
+    times e^{-2 pi i j s / ls}; transposed: input r times that, then
+    butterfly; no twiddles when m = 1."""
+    n = re.shape[1]
+    m = ls // radix
+    b = torch.arange(n // radix, device=re.device)
+    j = b % m
+    idx = [(b - j) * radix + j + r * m for r in range(radix)]
+    vr, vi = [re[:, i] for i in idx], [im[:, i] for i in idx]
+    tw_idx = [j * r * (n // ls) for r in range(radix)]
+    if transposed and m > 1:
+        for r in range(1, radix):
+            vr[r], vi[r] = _cmul(vr[r], vi[r], tw_r[tw_idx[r]], tw_i[tw_idx[r]])
+    vr, vi = _radix_butterfly(radix, vr, vi, tw_r, tw_i)
+    if not transposed and m > 1:
+        for r in range(1, radix):
+            vr[r], vi[r] = _cmul(vr[r], vi[r], tw_r[tw_idx[r]], tw_i[tw_idx[r]])
+    re, im = torch.empty_like(re), torch.empty_like(im)
+    for r in range(radix):
+        re[:, idx[r]], im[:, idx[r]] = vr[r], vi[r]
+    return re, im
+
+
+def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
+                 cfg: FrontendConfig) -> torch.Tensor:
+    """The mixed body's arithmetic stage by stage in float32 PyTorch ops,
+    frames read from the flat ``src`` at ``t * stride``: the same plan,
+    tables and order, each product and sum rounded where the kernel rounds
+    it (the kernel contracts nothing into an FMA)."""
+    plan = mixed_plan(n_fft)
+    ops = _operands(cfg, n_fft, "mixed", src.device)
+    big, pts = plan.n, plan.points
+    x = src.as_strided((n_frames, n_fft), (stride, 1), src.storage_offset()) * ops["window"]
+    if n_fft % 2 == 0:
+        re, im = x[:, 0::2], x[:, 1::2]             # z[n] = x[2n] + i x[2n+1]
+    else:
+        re, im = x, torch.zeros_like(x)
+    tw_r, tw_i = ops["tw"][:, 0], ops["tw"][:, 1]
+    if plan.bluestein:
+        ch_r, ch_i = ops["chirp"][:, 0], ops["chirp"][:, 1]
+        re, im = _cmul(re, im, ch_r, ch_i)
+        zeros = torch.zeros((n_frames, big - pts), dtype=torch.float32, device=src.device)
+        re, im = torch.cat([re, zeros], dim=1), torch.cat([im, zeros], dim=1)
+    ls = big
+    for radix in plan.radices:
+        re, im = _mixed_stage(re, im, radix, ls, tw_r, tw_i, False)
+        ls //= radix
+    if plan.bluestein:
+        re, im = _cmul(re, im, ops["bspec"][:, 0], ops["bspec"][:, 1])
+        im = -im
+        for radix in reversed(plan.radices):
+            ls *= radix
+            re, im = _mixed_stage(re, im, radix, ls, tw_r, tw_i, True)
+
+        def spectrum(k):                            # w_k conj(D_k)
+            return _cmul(re[:, k], -im[:, k], ch_r[k], ch_i[k])
+    else:
+        pos = ops["pos"].long()
+
+        def spectrum(k):
+            return re[:, pos[k]], im[:, pos[k]]
+    k = torch.arange(n_fft // 2 + 1, device=src.device)
+    if n_fft % 2 == 0:
+        power = _untangle(spectrum(k % pts), spectrum((pts - k) % pts), ops["utw"])
+    else:
+        z_r, z_i = spectrum(k)
+        power = z_r * z_r + z_i * z_i
+    return _finish(_csr_mel(power, ops, cfg.n_mels), cfg.log_floor)
+
+
+def mixed_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """A 1-D waveform (frames at stride hop on the centre-padded waveform) or
+    an ``(n_frames, n_fft)`` frame matrix -> ``(n_frames, n_mels)`` log mel
+    energies by the mixed body's arithmetic (`_mixed_plain`), at an n_fft
+    that `body` sends to ``"mixed"``."""
+    n_fft = y.shape[1] if y.ndim == 2 else cfg.n_fft
+    if body(n_fft) != "mixed":
+        raise ValueError(f"the mixed body does not take n_fft {n_fft} (body {body(n_fft)!r})")
+    if y.ndim == 2:
+        src, n_frames, n_fft, _ = _frame_matrix(y.to(torch.float32), "dif")
+        return _mixed_plain(src, n_fft, n_frames, n_fft, cfg)
+    src, n_frames = frame_source(y.to(torch.float32), cfg)
+    return _mixed_plain(src, cfg.hop_length, n_frames, cfg.n_fft, cfg)
 
 
 def fused_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig, mode: str = "dif") -> torch.Tensor:
@@ -352,7 +619,7 @@ def _n_groups(n_frames: int, n_bin_tiles: int, device: torch.device) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_logmel")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_logmel.argtypes = ([p] * 8 + [i, i, ctypes.c_longlong] + [i] * 6
+    lib.fused_logmel.argtypes = ([p] * 6 + [i, i, ctypes.c_longlong] + [i] * 4
                                  + [ctypes.c_float, p])
     lib.fused_logmel.restype = i
     lib.fused_logmel_tile_bins.argtypes = []
@@ -361,6 +628,25 @@ def _lib() -> ctypes.CDLL:
     lib.fused_logmel_error_string.restype = ctypes.c_char_p
     if lib.fused_logmel_tile_bins() != BIN_TILE:
         raise RuntimeError("csrc/fused_logmel.cu tile width differs from BIN_TILE")
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _mixed_lib() -> ctypes.CDLL:
+    lib = _build.load("logmel_mixed")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.logmel_mixed.argtypes = ([p, ctypes.c_longlong, i, i, i, i, ctypes.POINTER(i), i]
+                                 + [p] * 9 + [i, i, ctypes.c_float, p, p])
+    lib.logmel_mixed.restype = i
+    for name in ("logmel_mixed_max_smem", "logmel_mixed_max_stages"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.logmel_mixed_error_string.argtypes = [i]
+    lib.logmel_mixed_error_string.restype = ctypes.c_char_p
+    if (lib.logmel_mixed_max_smem(), lib.logmel_mixed_max_stages()) != (MIXED_MAX_SMEM,
+                                                                        MIXED_MAX_STAGES):
+        raise RuntimeError("csrc/logmel_mixed.cu limits differ from MIXED_MAX_SMEM / "
+                           "MIXED_MAX_STAGES")
     return lib
 
 
@@ -414,25 +700,50 @@ def _launch_fft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     return out
 
 
+def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
+                  cfg: FrontendConfig) -> torch.Tensor:
+    """The mixed body by `mixed_plan`; raises with the launcher's error where
+    the plan is refused."""
+    plan = mixed_plan(n_fft)
+    ops = _operands(cfg, n_fft, "mixed", src.device)
+    out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
+    radices = (ctypes.c_int * max(1, len(plan.radices)))(*plan.radices)
+    lib = _mixed_lib()
+    with torch.cuda.device(src.device):
+        status = lib.logmel_mixed(
+            src.data_ptr(), stride, n_frames, n_fft, plan.n, len(plan.radices), radices,
+            int(plan.bluestein),
+            *(ops[k].data_ptr() if k in ops else None
+              for k in ("window", "tw", "pos", "chirp", "bspec", "utw", "mel_first",
+                        "mel_ptr", "mel_w")),
+            cfg.n_mels, *_floor(cfg), out.data_ptr(),
+            torch.cuda.current_stream(src.device).cuda_stream,
+        )
+    if status != 0:
+        raise RuntimeError(
+            f"logmel_mixed launch failed: {lib.logmel_mixed_error_string(status).decode()}")
+    with _lock:
+        fused_log_mel.mixed_launches += 1
+    return out
+
+
 def _launch_dft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-                cfg: FrontendConfig, direct: bool) -> torch.Tensor:
-    """The dft body (direct or DIF formulation) at any ``n_fft``; `_launch`
+                cfg: FrontendConfig) -> torch.Tensor:
+    """The dft body (its direct formulation) at any ``n_fft``; `_launch`
     takes it where `body` says ``"dft"``."""
     dev = src.device
-    ops = _operands(cfg, n_fft, "exact" if direct else "dif", dev)
+    ops = _operands(cfg, n_fft, "exact", dev)
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=dev)
     nb = ops["bc"].shape[1]
     groups = _n_groups(n_frames, nb // BIN_TILE, dev)
     partial = (torch.empty((groups, n_frames, cfg.n_mels), dtype=torch.float32, device=dev)
                if groups > 1 else out)
     lib = _lib()
-    window = (None, None) if direct else (ops["wa"].data_ptr(), ops["wb"].data_ptr())
     with torch.cuda.device(dev):
         status = lib.fused_logmel(
-            src.data_ptr(), *window, ops["bc"].data_ptr(), ops["bs"].data_ptr(),
+            src.data_ptr(), ops["bc"].data_ptr(), ops["bs"].data_ptr(),
             ops["melw"].data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_frames, n_fft if direct else n_fft // 2, stride, nb, ops["n_even_tiles"],
-            cfg.n_mels, groups, int(direct), *_floor(cfg),
+            n_frames, n_fft, stride, nb, cfg.n_mels, groups, *_floor(cfg),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if status != 0:
@@ -444,19 +755,19 @@ def _launch_dft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     return out
 
 
+_LAUNCHERS = {"fft": _launch_fft, "mixed": _launch_mixed, "dft": _launch_dft}
+
+
 def _launch(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-            cfg: FrontendConfig, direct: bool) -> torch.Tensor:
+            cfg: FrontendConfig) -> torch.Tensor:
     """One launch over frames ``src[t*stride : t*stride + n_fft]``, by the
-    body `body` names for ``n_fft`` (the direct formulation applies to the
-    dft body only)."""
+    body `body` names for ``n_fft``."""
     if src.ndim != 1 or not src.is_contiguous():
         raise ValueError("the frame source must be a contiguous 1-D tensor")
     if n_frames <= 0 or (n_frames - 1) * stride + n_fft > src.shape[0]:
         raise ValueError(f"{n_frames} frames of {n_fft} at stride {stride} overrun "
                          f"{src.shape[0]} samples")
-    if body(n_fft) == "fft":
-        return _launch_fft(src, stride, n_frames, n_fft, cfg)
-    return _launch_dft(src, stride, n_frames, n_fft, cfg, direct)
+    return _LAUNCHERS[body(n_fft)](src, stride, n_frames, n_fft, cfg)
 
 
 def _count(r: str) -> None:
@@ -478,7 +789,7 @@ def fused_log_mel(y: torch.Tensor, cfg: FrontendConfig, mode: str = "dif") -> to
     _check_cuda(y, cfg)
     r = route(y.shape[0], cfg, mode)
     src, n_frames = frame_source(y, cfg)
-    out = _launch(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, r == "exact")
+    out = _launch(src, cfg.hop_length, n_frames, cfg.n_fft, cfg)
     _count(r)
     return out
 
@@ -492,7 +803,7 @@ def fused_log_mel_frames(frames: torch.Tensor, cfg: FrontendConfig,
         return fused_log_mel_frames_plain(frames, cfg, mode)
     _check_cuda(frames, cfg)
     src, n_frames, n_fft, direct = _frame_matrix(frames, mode)
-    out = _launch(src, n_fft, n_frames, n_fft, cfg, direct)
+    out = _launch(src, n_fft, n_frames, n_fft, cfg)
     _count("exact" if direct else "framed")
     return out
 
@@ -500,4 +811,5 @@ def fused_log_mel_frames(frames: torch.Tensor, cfg: FrontendConfig,
 fused_log_mel.launches = 0
 fused_log_mel.framed_launches = 0
 fused_log_mel.exact_launches = 0
+fused_log_mel.mixed_launches = 0
 fused_log_mel.dft_launches = 0

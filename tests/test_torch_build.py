@@ -63,8 +63,8 @@ def test_failed_compile_raises_after_waiting_for_all(tmp_path, build_dir, monkey
 
 
 def test_every_kernel_source_is_listed():
-    """The four sources under csrc/ (the two log-mel bodies, the two GRU
+    """The five sources under csrc/ (the three log-mel bodies, the two GRU
     bodies) are exactly the ones `build_all` compiles."""
     on_disk = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert on_disk == sorted(_build.KERNEL_SOURCES)
-    assert on_disk == ["fused_logmel", "gru_scan", "gru_warp", "logmel_fft"]
+    assert on_disk == ["fused_logmel", "gru_scan", "gru_warp", "logmel_fft", "logmel_mixed"]

@@ -12,7 +12,8 @@ gradient chain, and dwh/dbh summed over B*T terms in another order),
 5e-4 in the log domain for the fused log-mel at finite entries, with an
 identical -inf pattern (against the DIF / direct plain version; 1e-5
 against `fft_log_mel_plain`, which repeats the FFT body's float32
-operations, so only ``logf`` against ``torch.log`` differs).
+operations, so only ``logf`` against ``torch.log`` differs; bitwise against
+`mixed_log_mel_plain`, which repeats the mixed body's).
 """
 
 import dataclasses
@@ -25,12 +26,14 @@ from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.ops.kernels.fused_logmel import (
     _launch_dft,
     _launch_fft,
+    _launch_mixed,
     body,
     fft_log_mel_plain,
     fused_log_mel,
     fused_log_mel_frames,
     fused_log_mel_frames_plain,
     fused_log_mel_plain,
+    mixed_log_mel_plain,
     route,
 )
 from sed_crnn_torch.ops.stft import frame_signal
@@ -352,7 +355,7 @@ def test_logmel_kernel_matches_plain(cuda, cfg, log_floor):
 
 def _counts():
     return (fused_log_mel.launches, fused_log_mel.framed_launches, fused_log_mel.exact_launches,
-            fused_log_mel.dft_launches)
+            fused_log_mel.mixed_launches, fused_log_mel.dft_launches)
 
 
 def _assert_logmel_close(got, want):
@@ -373,7 +376,7 @@ def test_framed_and_exact_kernels_match_plain(cuda, n_fft, hop, mode, center, n,
     """The framed DIF route (stride hop on the padded waveform) and the
     direct route against their plain versions: ragged lengths, a silent
     stretch, short signals (centred), an unaligned hop (scalar loads), each
-    launch counted on its route and, at n_fft 1034, on the dft body."""
+    launch counted on its route and, at n_fft 1034, on the mixed body."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center, log_floor=log_floor)
     y = torch.from_numpy(_signal(n, 44100, 2, silent=(44100 // 2, 44100) if n > 44100 else None))
     y = y.to(cuda)
@@ -384,7 +387,7 @@ def test_framed_and_exact_kernels_match_plain(cuda, n_fft, hop, mode, center, n,
     want = fused_log_mel_plain(y, cfg, mode)
     after = list(before)
     after[("chunked", "framed", "exact").index(r)] += 1
-    after[3] += body(n_fft) == "dft"
+    after[3] += body(n_fft) == "mixed"
     assert _counts() == tuple(after)
     assert got.shape[0] == 1 + (n + (n_fft if center else 0) - n_fft) // hop
     _assert_logmel_close(got, want)
@@ -429,7 +432,7 @@ def test_fft_kernel_matches_fft_plain_and_is_deterministic(cuda, kw, center, log
     first = fused_log_mel(y, cfg)
     second = fused_log_mel(y, cfg)
     torch.cuda.synchronize()
-    assert _counts()[3] == before[3]
+    assert _counts()[3:] == before[3:]
     assert torch.equal(first, second)
     _assert_logmel_close(first, fused_log_mel_plain(y, cfg))
     want = fft_log_mel_plain(y, cfg)
@@ -438,30 +441,101 @@ def test_fft_kernel_matches_fft_plain_and_is_deterministic(cuda, kw, center, log
     torch.testing.assert_close(first[fin], want[fin], rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(32768, 8192), (1000, 500), (3072, 1024)])
-def test_other_sizes_launch_the_dft_body(cuda, n_fft, hop):
-    """Above 16384 or not a power of two: the dft body, counted, and within
-    its band of the plain version."""
+@pytest.mark.parametrize("n_fft,hop,other", [
+    (32768, 8192, "mixed"), (1000, 500, "mixed"), (3072, 1024, "mixed"),
+    (12865, 6432, "dft"), (23042, 11521, "dft"),
+])
+def test_other_sizes_launch_the_dft_body(cuda, n_fft, hop, other):
+    """Above 16384 or not a power of two: the mixed body up to its
+    shared-memory limit, the dft body's direct formulation beyond it, each
+    counted once, and within its band of the plain version."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
     y = torch.from_numpy(_signal(3 * 44100, 44100, 5)).to(cuda)
-    assert body(n_fft) == "dft"
+    assert body(n_fft) == other
     before = _counts()
     got = fused_log_mel(y, cfg)
     torch.cuda.synchronize()
-    assert _counts()[3] == before[3] + 1
+    assert (_counts()[3] - before[3], _counts()[4] - before[4]) == (
+        (1, 0) if other == "mixed" else (0, 1))
     _assert_logmel_close(got, fused_log_mel_plain(y, cfg))
 
 
 def test_both_bodies_agree_at_a_power_of_two(cuda):
-    """The retained dft body, launched through its private launcher at a
-    size the fft body takes, computes the same function."""
+    """The mixed body and the dft body's direct formulation, launched through
+    their private launchers at a size the fft body takes, compute the same
+    function."""
     cfg = FrontendConfig(n_fft=4096, hop_length=1024, center=False, log_floor=1e-10)
     y = torch.from_numpy(_signal(3 * 44100, 44100, 6)).to(cuda)
     n_frames = 1 + (y.shape[0] - 4096) // 1024
     fft = _launch_fft(y, 1024, n_frames, 4096, cfg)
-    dft = _launch_dft(y, 1024, n_frames, 4096, cfg, False)
+    mixed = _launch_mixed(y, 1024, n_frames, 4096, cfg)
+    dft = _launch_dft(y, 1024, n_frames, 4096, cfg)
     torch.cuda.synchronize()
     _assert_logmel_close(fft, dft)
+    _assert_logmel_close(fft, mixed)
+
+
+# The mixed body's shapes: chip_smoke.py's four (Bluestein 1034, direct
+# 1764 and 3072, odd Bluestein 1001), 25 ms at 16 kHz, an odd direct plan
+# (1575), a Bluestein 2050, and the largest plans (n_fft 32768 direct,
+# 1,024 threads a frame; 22000 Bluestein at M 22,050, 220 KB of shared
+# memory).
+MIXED_SHAPES = [
+    dict(n_fft=1034, hop_length=517), dict(n_fft=1764, hop_length=882),
+    dict(n_fft=3072, hop_length=1024), dict(n_fft=1001, hop_length=500),
+    dict(sample_rate=16000, n_fft=400, hop_length=160), dict(n_fft=1575, hop_length=700),
+    dict(n_fft=2050, hop_length=1024), dict(n_fft=32768, hop_length=8192),
+    dict(n_fft=22000, hop_length=11000),
+]
+
+
+@pytest.mark.parametrize("kw", MIXED_SHAPES)
+@pytest.mark.parametrize("center,n", [(True, 3 * 44100 + 777), (False, 3 * 44100 + 777),
+                                      (True, 1500)])
+@pytest.mark.parametrize("log_floor", [None, 1e-10])
+def test_mixed_kernel_matches_its_plain_version_bitwise(cuda, kw, center, n, log_floor):
+    """The mixed body against `mixed_log_mel_plain` bit for bit, twice, one
+    mixed launch per call and no dft launch, and within 5e-4 of the DIF /
+    direct plain version; a silent stretch gives the same -inf rows."""
+    cfg = FrontendConfig(center=center, log_floor=log_floor, **kw)
+    sr = cfg.sample_rate
+    y = torch.from_numpy(_signal(n, sr, 7, silent=(sr // 2, sr) if n > sr else None)).to(cuda)
+    assert body(cfg.n_fft) == "mixed"
+    before = _counts()
+    first = fused_log_mel(y, cfg)
+    second = fused_log_mel(y, cfg)
+    torch.cuda.synchronize()
+    assert (_counts()[3] - before[3], _counts()[4] - before[4]) == (2, 0)
+    assert torch.equal(first, second)
+    assert torch.equal(first, mixed_log_mel_plain(y, cfg))
+    _assert_logmel_close(first, fused_log_mel_plain(y, cfg))
+
+
+@pytest.mark.parametrize("kw", MIXED_SHAPES[:4])
+def test_mixed_kernel_on_a_frame_matrix(cuda, kw):
+    """Stride n_fft on a materialized frame matrix: the waveform's rows bit
+    for bit, counted on the framed or exact route and on the mixed body."""
+    cfg = FrontendConfig(log_floor=1e-10, **kw)
+    y = torch.from_numpy(_signal(2 * 44100 + 123, 44100, 8)).to(cuda)
+    frames = frame_signal(y, cfg.n_fft, cfg.hop_length, center=True).contiguous()
+    before = _counts()
+    got = fused_log_mel_frames(frames, cfg)
+    torch.cuda.synchronize()
+    assert _counts()[3] == before[3] + 1
+    assert torch.equal(got, fused_log_mel(y, cfg))
+    assert torch.equal(got, mixed_log_mel_plain(frames, cfg))
+    _assert_logmel_close(got, fused_log_mel_frames_plain(frames, cfg))
+
+
+def test_mixed_launcher_refuses_a_plan_over_the_limit(cuda):
+    """A plan whose frame takes more than 227 KB of shared memory is refused
+    by the launcher, which raises its error: nothing falls back."""
+    cfg = FrontendConfig(n_fft=12865, hop_length=6432, center=False)
+    y = torch.zeros(4 * 12865, device=cuda)
+    before = _counts()
+    with pytest.raises(RuntimeError, match="logmel_mixed launch failed"):
+        _launch_mixed(y, 6432, 2, 12865, cfg)
+    assert _counts() == before
 
 
 def test_logmel_kernel_rejects_bad_inputs(cuda):

@@ -124,9 +124,15 @@ def test_power_of_two_sizes_take_the_fft_body(n_fft):
     assert body(n_fft) == "fft"
 
 
-@pytest.mark.parametrize("n_fft", [1034, 1000, 128, 32768, 2050, 3072])
-def test_other_sizes_take_the_dft_body(n_fft):
-    assert body(n_fft) == "dft"
+@pytest.mark.parametrize("n_fft,other", [
+    (1034, "mixed"), (1000, "mixed"), (128, "mixed"), (32768, "mixed"), (2050, "mixed"),
+    (3072, "mixed"), (12865, "dft"), (23042, "dft"),
+])
+def test_other_sizes_take_the_dft_body(n_fft, other):
+    """Every other size leaves the FFT body: the mixed body up to its
+    shared-memory limit (tests/test_torch_logmel_mixed.py), the dft body's
+    direct formulation beyond it."""
+    assert body(n_fft) == other
     with pytest.raises(ValueError):
         fft_log_mel_plain(torch.zeros(4 * n_fft), FrontendConfig(n_fft=n_fft, hop_length=512))
 
