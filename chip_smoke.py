@@ -23,12 +23,13 @@ exits non-zero and prints no result line:
    device-busy time beside the host's issue time, and the 240 s frontend
    rate;
 4. kernel B's forward (the GRU recurrence; the warp body ``csrc/gru_warp.cu``
-   for H <= 32, the retained ``csrc/gru_scan.cu`` above) against its plain
+   for H <= 32, the wide body ``csrc/gru_wide.cu`` above) against its plain
    version: T=256, H in {32, 16, 8} (warp) at B in {1, 8, 128} and H=64
-   (retained) at B in {1, 8}, both conventions, both gates, both directions,
+   (wide) at B in {1, 8}, both conventions, both gates, both directions,
    non-zero h0, single directions and pair launches; atol 1e-5; at the
-   serving shape (B=1, H=32) the warp body's time beside the retained
-   body's, one pair launch beside two single ones, the plain version, and
+   serving shape (B=1, H=32) the warp body's time beside the wide body's
+   (through the private launcher), one pair launch beside two single ones,
+   the plain version, and
    ``torch.nn.GRU`` at reset_after=True (the one variant it computes),
    with torch.profiler device time and the host's issue time per call;
 5. the main path at full width: ``sednet-dcase`` weights from a numpy seed
@@ -48,9 +49,9 @@ exits non-zero and prints no result line:
    at the widths and batches of phase 4, single directions and pair
    launches, non-zero h0, dys and dhl; ys/res atol 1e-5, gradients within
    1e-4 of each one's largest magnitude, the reduction also against
-   ``gru_dwh_plain`` on the kernel's own dxp; the retained body driven once
-   through a BiGRU at H=64; dwh bitwise equal across two runs; times at
-   B=128 beside the retained body, two single launches, the plain versions,
+   ``gru_dwh_plain`` on the kernel's own dxp; dwh bitwise equal across two
+   runs; times at B=128 beside the wide body, two single launches, the
+   plain versions,
    a torch.profiler split of the backward by kernel, and ``torch.nn.GRU``
    at reset_after=True, forward and backward at B=1 and B=128;
 8. one full-width ``sednet-dcase`` train step (batch 16, dropout 0, the
@@ -63,7 +64,7 @@ exits non-zero and prints no result line:
    JAX-format best/last checkpoints that load back and serve the same
    validation scores on the card and the same logits as on the CPU, and
    exact launch counts (per BiGRU layer one pair of each GRU kernel per
-   train step, one pair forward per sweep step), none on the retained body;
+   train step, one pair forward per sweep step), none on the wide body;
 10. training throughput: train-step time at batch 128, the training rate in
     audio-seconds per second, and a torch.profiler breakdown of one step.
 11. kernel A's framed route (the TPU `_kernel_dif`: n_fft 1024 and 4096
@@ -153,7 +154,25 @@ exits non-zero and prints no result line:
     ``STACK_LOSS_RTOL`` / ``STACK_METRIC_ATOL``, equal best epochs, the
     aggregate training rates, one step of each mode timed and profiled;
     and the conv-128 split behind ``choose_runs_mode`` (timepooled-v1 x 2
-    and x 4, sednet-dcase x 2, stacked against sequential steps).
+    and x 4, sednet-dcase x 2, stacked against sequential steps);
+18. kernel B's wide body ([kernel B wide], ``csrc/gru_wide.cu``, H > 32):
+    pair launches against the plain versions at H in WIDE_WIDTHS (33 .. 128
+    in registers, 129 and 256 through L2), B in {1, 8, 128}, T=64, both
+    conventions, both gates, both directions, one launch of each kernel,
+    dwh bitwise run to run, and stacked (S=5) with seed 0 bitwise the
+    unstacked pair; at H=128 with wh up to 0.3 N(0, 1), against float64,
+    beside the float32 plain version and the same kernel built with exact
+    gates; its times at H in {64, 128, 256} (forward at B=1, residual
+    forward and backward at B=128, T=256) beside the plain versions, the
+    bounds and ``torch.nn.GRU``; then its three full-width paths: ``run_fold`` (2 epochs) and a card-vs-CPU train step
+    of ``sednet-dcase`` with ``gru_hidden=(128, 128)``, that checkpoint
+    through ``stream_logits`` (40 chunks, B=1) and ``forward_probabilities``
+    (B=256) against the CPU, and ``timepooled-v2`` with ``gru_hidden=(64,
+    64)``: one 5-seed ``MultiSeedTrainer`` step, the stacked kernels at its
+    shape, ``run_experiment_multiseed`` stacked against sequential, and the
+    two modes' per-step losses from one init (bf16 and float32 trunks,
+    the preset's GRUs and these); exact launch counts on every path and no
+    plain version on the card.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -440,15 +459,17 @@ def phase_logmel(main_signal: np.ndarray):
             "bound_by": by, "library_ms": lib_ms}, dft_err
 
 
-def _gru_inputs(rng, dev, B: int, H: int, train: bool = False):
-    """xp, wh, bh, h0 (and dys, dhl for ``train``) on the card, T=256."""
+def _gru_inputs(rng, dev, B: int, H: int, train: bool = False, T: int = GRU_T,
+                wh_std: float = 0.3):
+    """xp, wh (``wh_std`` N(0, 1)), bh, h0 (and dys, dhl for ``train``) on
+    the card."""
     import torch
 
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
-    out = (t(rng.standard_normal((B, GRU_T, 3 * H))), t(0.3 * rng.standard_normal((H, 3 * H))),
+    out = (t(rng.standard_normal((B, T, 3 * H))), t(wh_std * rng.standard_normal((H, 3 * H))),
            t(0.1 * rng.standard_normal(3 * H)), t(0.5 * rng.standard_normal((B, H))))
     if train:
-        out += (t(rng.standard_normal((B, GRU_T, H))), t(rng.standard_normal((B, H))))
+        out += (t(rng.standard_normal((B, T, H))), t(rng.standard_normal((B, H))))
     return out
 
 
@@ -458,27 +479,31 @@ def _pair_of(sets, i, reset_after=True):
     return tuple(None if (i == 2 and not reset_after) else s[i] for s in sets)
 
 
-def _library_gru(wh, bh):
+def _library_gru(wh, bh, bidirectional: bool = False):
     """`torch.nn.GRU` computing the ``reset_after=True`` sigmoid recurrence
     of pre-projected inputs: weight_ih = I, bias_ih = 0, weight_hh = wh^T,
-    bias_hh = bh (gate order r, z, n in both)."""
+    bias_hh = bh (gate order r, z, n in both). ``bidirectional``: wh and bh
+    are pairs, the second for the reverse direction, over one input."""
     import torch
 
-    H = wh.shape[0]
-    g = torch.nn.GRU(3 * H, H, batch_first=True).to(wh.device)
+    whs, bhs = (wh, bh) if bidirectional else ((wh,), (bh,))
+    H, dev = whs[0].shape[0], whs[0].device
+    g = torch.nn.GRU(3 * H, H, batch_first=True, bidirectional=bidirectional).to(dev)
     with torch.no_grad():
-        g.weight_ih_l0.copy_(torch.eye(3 * H, device=wh.device))
-        g.bias_ih_l0.zero_()
-        g.weight_hh_l0.copy_(wh.T)
-        g.bias_hh_l0.copy_(bh)
+        for sfx, w, b in zip(("", "_reverse"), whs, bhs):
+            getattr(g, f"weight_ih_l0{sfx}").copy_(torch.eye(3 * H, device=dev))
+            getattr(g, f"bias_ih_l0{sfx}").zero_()
+            getattr(g, f"weight_hh_l0{sfx}").copy_(w.T)
+            getattr(g, f"bias_hh_l0{sfx}").copy_(b)
     return g
 
 
 def phase_gru():
     """Kernel B's forward: the warp body (H <= 32) at H in {32, 16, 8} and
-    the retained body at H=64 against the plain version, single directions
-    and pair launches; times at the serving shape beside the retained body,
-    two single launches, the plain version and `torch.nn.GRU`."""
+    the wide body at H=64 against the plain version, single directions and
+    pair launches; times at the serving shape beside the wide body (through
+    the private launcher), two single launches, the plain version and
+    `torch.nn.GRU`."""
     import torch
 
     from sed_crnn_torch.ops.kernels.gru_scan import (
@@ -492,9 +517,9 @@ def phase_gru():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    worst = {"warp": 0.0, "retained": 0.0}
+    worst = {"warp": 0.0, "wide": 0.0}
     _reset_gru_counts()
-    n_warp = n_retained = 0
+    n_warp = n_wide = 0
     for H in GRU_WIDTHS + (64,):
         body = gru_body(H)
         for B in (1, 8, 128) if body == "warp" else (1, 8):
@@ -518,29 +543,29 @@ def phase_gru():
             err = max(errs)
             check(err <= GRU_ATOL, f"GRU {body} body H={H} B={B}: {err}")
             worst[body] = max(worst[body], err)
-            launches = 8 + 4 * (1 if body == "warp" else 2)
+            launches = 8 + 4
             n_warp += launches * (body == "warp")
-            n_retained += launches * (body == "retained")
+            n_wide += launches * (body == "wide")
             print(f"[kernel B] {body} body H={H:2d} B={B:3d}: 8 variants and 4 pair launches "
                   f"against the plain version, max|diff| {err:.3g}")
     counts = _gru_counts()
-    check(counts["gru_scan_fwd"] == n_warp + n_retained and counts["gru_scan_retained"] == n_retained,
-          f"phase 4 launches {counts}: {n_warp} warp, {n_retained} retained expected")
+    check(counts["gru_scan_fwd"] == n_warp + n_wide and counts["gru_wide"] == n_wide,
+          f"phase 4 launches {counts}: {n_warp} warp, {n_wide} wide expected")
 
     # Times at the main path's shape: sednet streaming, B=1, reset_after=False.
     H, conf = 32, (False, "sigmoid")
     (xp, wh, bh, h0), (xp2, wh2, bh2, h02) = (_gru_inputs(rng, dev, 1, H) for _ in range(2))
     single = lambda: gru_scan(xp, wh, None, h0, *conf, False)  # noqa: E731
-    retained = lambda: _fwd([xp], [wh], [None], [h0], [False], *conf, False, "retained")  # noqa: E731
+    wide = lambda: _fwd([xp], [wh], [None], [h0], [False], *conf, False, "wide")  # noqa: E731
     pair = lambda: gru_scan_pair((xp, xp2), (wh, wh2), (None, None), (h0, h02), *conf)  # noqa: E731
     two = lambda: (single(), gru_scan(xp2, wh2, None, h02, *conf, True))  # noqa: E731
     want = gru_scan_plain(xp, wh, None, h0, *conf, False)
-    (ret_out,), _ = retained()
-    ret_err = max(_maxdiff(ret_out[0], want[0]), _maxdiff(ret_out[2], want[1]))
-    check(ret_err <= GRU_ATOL, f"retained body at the serving shape: {ret_err}")
-    worst["retained"] = max(worst["retained"], ret_err)
+    (wide_out,), _ = wide()
+    wide_err = max(_maxdiff(wide_out[0], want[0]), _maxdiff(wide_out[2], want[1]))
+    check(wide_err <= GRU_ATOL, f"wide body at the serving shape: {wide_err}")
+    worst["wide"] = max(worst["wide"], wide_err)
     ms = cuda_ms(single, reps=50)
-    ret_ms = cuda_ms(retained, reps=50)
+    wide_ms = cuda_ms(wide, reps=50)
     pair_ms = cuda_ms(pair, reps=50)
     two_ms = cuda_ms(two, reps=50)
     plain = cuda_ms(lambda: gru_scan_plain(xp, wh, None, h0, *conf, False), reps=5)
@@ -558,21 +583,21 @@ def phase_gru():
     check(lib_err <= LIBRARY_ATOL, f"torch.nn.GRU vs the plain reset_after=True version: {lib_err}")
     ra_ms = cuda_ms(lambda: gru_scan(xp, wh, bh, h0, True, "sigmoid", False), reps=50)
     print(f"[kernel B] serving shape B=1 T={T} H={H} reset_after=False: warp body {ms:.4f} ms "
-          f"({ms / T * 1e3:.3f} us/step), retained body {ret_ms:.4f} ms (vs plain {ret_err:.3g}), "
+          f"({ms / T * 1e3:.3f} us/step), wide body {wide_ms:.4f} ms (vs plain {wide_err:.3g}), "
           f"plain {plain:.4f} ms, bound {bnd:.6f} ms ({by}); both directions: one pair launch "
           f"{pair_ms:.4f} ms, two single launches {two_ms:.4f} ms")
     split = {}
     print(f"[kernel B] serving shape, "
-          f"{split_line(bnd, split, kernel=single, retained=retained, pair=pair)}")
+          f"{split_line(bnd, split, kernel=single, wide=wide, pair=pair)}")
     print(f"[kernel B] reset_after=True sigmoid at B=1: warp body {ra_ms:.4f} ms, torch.nn.GRU "
           f"(weight_ih = I, weight_hh = wh^T; vs plain {lib_err:.3g}) {lib_ms:.4f} ms")
     entry = {"name": "gru_scan_fwd", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_warp.cu",
              "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
              "max_abs_err": worst["warp"], "ms": ms, "plain_ms": plain, "bound_ms": bnd,
              "bound_by": by, "library_ms": lib_ms, "library_variant": LIBRARY_VARIANT,
-             "variant_ms": ra_ms, "device_ms": split["kernel"][0], "host_ms": split["kernel"][1]}
-    return entry, {"fwd_err": worst["retained"], "fwd_ms": ret_ms, "fwd_plain_ms": plain,
-                   "bound_ms": bnd, "bound_by": by}
+             "variant_ms": ra_ms, "device_ms": split["kernel"][0], "host_ms": split["kernel"][1],
+             "wide_body_ms": wide_ms}
+    return entry, worst["wide"]
 
 
 def phase_main(workdir: str, pcm: np.ndarray):
@@ -738,6 +763,18 @@ def _maxdiff(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
+def _rel_err(got, want, tag: str, names=("dxp", "dwh", "dbh", "dh0"),
+             floor: float = 0.0) -> float:
+    """max|got - want| / max|want| of each pair, each held to GRAD_RTOL of
+    max(max|want|, ``floor``); returns the largest."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        e, scale = _maxdiff(g, w), float(w.abs().max())
+        check(e <= GRAD_RTOL * max(scale, floor), f"{tag} {name}: {e} > {GRAD_RTOL} x {scale}")
+        worst = max(worst, e / scale if scale else 0.0)
+    return worst
+
+
 def _by_kernel(fn, reps: int = 20) -> dict:
     """torch.profiler's device ms per call of ``fn``, by kernel name."""
     import torch
@@ -757,16 +794,15 @@ def _part(split: dict, *names) -> float:
     return sum(v for k, v in split.items() if any(n in k for n in names))
 
 
-def phase_gru_train(retained: dict):
+def phase_gru_train():
     """Kernel B's residual forward, backward and dwh reduction: the warp body
-    at H in {32, 16, 8} and the retained body at H=64 against their plain
-    versions, single directions and pair launches; the retained body driven
-    once through a BiGRU at H=64; times at the training shape (B=128, T=256,
-    H=32) beside the retained body, two single launches, the plain versions
-    and `torch.nn.GRU`."""
+    at H in {32, 16, 8} and the wide body at H=64 against their plain
+    versions, single directions and pair launches; times at the training
+    shape (B=128, T=256, H=32) beside the wide body (through the private
+    launchers), two single launches, the plain versions and
+    `torch.nn.GRU`."""
     import torch
 
-    from sed_crnn_torch.nn.gru import BiGRU
     from sed_crnn_torch.ops.kernels.gru_scan import (
         GATES,
         _bwd,
@@ -783,16 +819,7 @@ def phase_gru_train(retained: dict):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(8)
-    worst = {b: {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0} for b in ("warp", "retained")}
-    grads = ("dxp", "dwh", "dbh", "dh0")
-
-    def rel(got, want, tag, names=grads):
-        worst_rel = 0.0
-        for name, g, w in zip(names, got, want):
-            e, scale = _maxdiff(g, w), float(w.abs().max())
-            check(e <= GRAD_RTOL * scale, f"{tag} {name}: {e} > {GRAD_RTOL} x {scale}")
-            worst_rel = max(worst_rel, e / scale if scale else 0.0)
-        return worst_rel
+    worst = {b: {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0} for b in ("warp", "wide")}
 
     for H in GRU_WIDTHS + (64,):
         body = gru_body(H, backward=True)
@@ -813,11 +840,11 @@ def phase_gru_train(retained: dict):
                         got_b.append(gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf))
                         want_b.append(gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf))
                         torch.cuda.synchronize()
-                        rels.append(rel(got_b[k], want_b[k], f"GRU bwd H={H} B={B} {conf}"))
+                        rels.append(_rel_err(got_b[k], want_b[k], f"GRU bwd H={H} B={B} {conf}"))
                         # The reduction against its reference on the kernel's own dxp.
                         dwh, dbh = gru_dwh_plain(ys, res, h0, got_b[k][0], reset_after, reverse)
-                        dwh_rels.append(rel((dwh, dbh), got_b[k][1:3], f"GRU dwh H={H} B={B} {conf}",
-                                            ("dwh", "dbh")))
+                        dwh_rels.append(_rel_err((dwh, dbh), got_b[k][1:3],
+                                                 f"GRU dwh H={H} B={B} {conf}", ("dwh", "dbh")))
                     args = [_pair_of(sets, i, reset_after) for i in range(4)]
                     pair = gru_scan_pair_fwd_res(*args, reset_after, gate)
                     pair_b = gru_scan_pair_bwd(
@@ -826,7 +853,7 @@ def phase_gru_train(retained: dict):
                     torch.cuda.synchronize()
                     for k in (0, 1):
                         fwd_errs.append(max(_maxdiff(g, w) for g, w in zip(pair[k], want_f[k])))
-                        rels.append(rel(pair_b[k], want_b[k], f"GRU pair bwd H={H} B={B}"))
+                        rels.append(_rel_err(pair_b[k], want_b[k], f"GRU pair bwd H={H} B={B}"))
             err = max(fwd_errs)
             check(err <= GRU_ATOL, f"GRU fwd_res {body} body H={H} B={B}: {err}")
             w = worst[body]
@@ -835,26 +862,6 @@ def phase_gru_train(retained: dict):
             print(f"[kernel B train] {body} body H={H:2d} B={B:3d}: 8 variants and 4 pair launches, "
                   f"fwd_res max|diff| {err:.3g}, backward max|diff| / max|grad| {max(rels):.3g}, "
                   f"dwh/dbh vs gru_dwh_plain on the kernel's dxp {max(dwh_rels):.3g}")
-
-    # The retained body's own main path: a BiGRU at H=64 trained one step
-    # (autograd through GruScanPairFn: one pair residual forward, one pair
-    # backward, two launches each on this body).
-    gen = torch.Generator().manual_seed(4)
-    layer = BiGRU(96, 64, False, "sigmoid")
-    layer.init_parameters(gen)
-    layer.to(dev)
-    x = torch.randn(16, GRU_T, 96, generator=gen).to(dev)
-    _reset_gru_counts()
-    y, _ = layer(x)
-    y.square().mean().backward()
-    torch.cuda.synchronize()
-    ret_launches = _gru_counts()
-    check(ret_launches["gru_scan_retained"] == 4 and ret_launches["gru_dwh"] == 0
-          and ret_launches["gru_scan_fwd_res"] == 2 and ret_launches["gru_scan_bwd"] == 2,
-          f"BiGRU H=64 launches {ret_launches}")
-    check(all(bool(torch.isfinite(p.grad).all()) for p in layer.parameters()), "BiGRU H=64 grads")
-    print(f"[kernel B retained] BiGRU(96, 64) one train step at B=16 T={GRU_T}: launches "
-          f"{ret_launches}")
 
     # Times at the training shape: sednet, reset_after=False, sigmoid.
     B, H, T, conf = TRAIN_BATCH, 32, GRU_T, (False, "sigmoid", False)
@@ -868,16 +875,16 @@ def phase_gru_train(retained: dict):
           "the backward is not deterministic from run to run")
     fwd = lambda: gru_scan_fwd_res(xp, wh, None, h0, *conf)  # noqa: E731
     bwd = lambda: gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)  # noqa: E731
-    ret_fwd = lambda: _fwd([xp], [wh], [None], [h0], [False], False, "sigmoid", True, "retained")  # noqa: E731
-    ret_bwd = lambda: _bwd([ys], [res], [wh], [h0], [dys], [dhl], [False], False, "sigmoid",  # noqa: E731
-                           "retained")
-    (rf,), _ = ret_fwd()
-    (rb,) = ret_bwd()
+    wide_fwd = lambda: _fwd([xp], [wh], [None], [h0], [False], False, "sigmoid", True, "wide")  # noqa: E731
+    wide_bwd = lambda: _bwd([ys], [res], [wh], [h0], [dys], [dhl], [False], False, "sigmoid",  # noqa: E731
+                            "wide")
+    (wf,), _ = wide_fwd()
+    (wb,) = wide_bwd()
     want_f = gru_scan_fwd_res_plain(xp, wh, None, h0, *conf)
-    ret_err = max(_maxdiff(g, w) for g, w in zip(rf, want_f))
-    check(ret_err <= GRU_ATOL, f"retained fwd_res at the training shape: {ret_err}")
-    ret_rel = rel(rb, gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf),
-                  "retained bwd at the training shape")
+    wide_err = max(_maxdiff(g, w) for g, w in zip(wf, want_f))
+    check(wide_err <= GRU_ATOL, f"wide fwd_res at the training shape: {wide_err}")
+    wide_rel = _rel_err(wb, gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf),
+                        "wide bwd at the training shape")
     pair_fwd = lambda: gru_scan_pair_fwd_res((xp, xp2), (wh, wh2), (None, None), (h0, h02),  # noqa: E731
                                              False, "sigmoid")
     two_fwd = lambda: (fwd(), gru_scan_fwd_res(xp2, wh2, None, h02, False, "sigmoid", True))  # noqa: E731
@@ -888,7 +895,7 @@ def phase_gru_train(retained: dict):
     dxp = first[0]
     dwh_plain_fn = lambda: gru_dwh_plain(ys, res, h0, dxp, False, False)  # noqa: E731
     fwd_ms, bwd_ms = cuda_ms(fwd, reps=50), cuda_ms(bwd, reps=50)
-    ret_fwd_ms, ret_bwd_ms = cuda_ms(ret_fwd, reps=20), cuda_ms(ret_bwd, reps=20)
+    wide_fwd_ms, wide_bwd_ms = cuda_ms(wide_fwd, reps=20), cuda_ms(wide_bwd, reps=20)
     pair_fwd_ms, two_fwd_ms = cuda_ms(pair_fwd, reps=50), cuda_ms(two_fwd, reps=50)
     pair_bwd_ms, two_bwd_ms = cuda_ms(pair_bwd, reps=50), cuda_ms(two_bwd, reps=50)
     fwd_plain = cuda_ms(lambda: gru_scan_fwd_res_plain(xp, wh, None, h0, *conf), reps=3, warmup=1)
@@ -896,7 +903,7 @@ def phase_gru_train(retained: dict):
                         reps=3, warmup=1)
     dwh_plain_ms = cuda_ms(dwh_plain_fn, reps=20)
     split = _by_kernel(bwd)
-    ret_split = _by_kernel(ret_bwd)
+    wide_split = _by_kernel(wide_bwd)
     chain_ms = _part(split, "gru_warp_bwd")
     dwh_ms = _part(split, "gru_warp_dwh", "gru_warp_sum")
     f = 4
@@ -911,26 +918,26 @@ def phase_gru_train(retained: dict):
     bb, bby = bound_ms(bwd_bytes, bwd_flops)
     db, dby = bound_ms(dwh_bytes, dwh_flops)
     print(f"[kernel B train] B={B} T={T} H={H} reset_after=False: fwd_res warp body {fwd_ms:.4f} ms "
-          f"({fwd_ms / T * 1e3:.3f} us/step), retained body {ret_fwd_ms:.4f} ms (vs plain "
-          f"{ret_err:.3g}), plain {fwd_plain:.2f} ms, bound {fb:.5f} ms ({fby}, "
+          f"({fwd_ms / T * 1e3:.3f} us/step), wide body {wide_fwd_ms:.4f} ms (vs plain "
+          f"{wide_err:.3g}), plain {fwd_plain:.2f} ms, bound {fb:.5f} ms ({fby}, "
           f"{fwd_bytes / 1e6:.1f} MB); both directions: one pair launch {pair_fwd_ms:.4f} ms, "
           f"two single launches {two_fwd_ms:.4f} ms")
     print(f"[kernel B train] backward (chain + dwh reduction + partial sum) warp body "
-          f"{bwd_ms:.4f} ms ({bwd_ms / T * 1e3:.3f} us/step), retained body {ret_bwd_ms:.4f} ms "
-          f"(vs plain {ret_rel:.3g} of max|grad|), plain {bwd_plain:.2f} ms, bound {bb:.5f} ms "
+          f"{bwd_ms:.4f} ms ({bwd_ms / T * 1e3:.3f} us/step), wide body {wide_bwd_ms:.4f} ms "
+          f"(vs plain {wide_rel:.3g} of max|grad|), plain {bwd_plain:.2f} ms, bound {bb:.5f} ms "
           f"({bby}, {bwd_bytes / 1e6:.1f} MB); both directions: one pair {pair_bwd_ms:.4f} ms, "
           f"two singles {two_bwd_ms:.4f} ms; dwh bitwise equal across runs")
     print("[kernel B train] backward device ms per call by kernel (torch.profiler): warp body "
-          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in split.items()) + "; retained body "
-          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in ret_split.items()))
+          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in split.items()) + "; wide body "
+          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in wide_split.items()))
     print(f"[kernel B train] dwh reduction + partial sum {dwh_ms:.4f} ms device, "
           f"gru_dwh_plain {dwh_plain_ms:.4f} ms, bound {db:.5f} ms ({dby}, "
           f"{dwh_bytes / 1e6:.1f} MB)")
     bwd_split, fwd_split = {}, {}
     print(f"[kernel B train] "
-          f"{split_line(bb, bwd_split, kernel=bwd, retained=ret_bwd, pair=pair_bwd)}")
+          f"{split_line(bb, bwd_split, kernel=bwd, wide=wide_bwd, pair=pair_bwd)}")
     print(f"[kernel B train] fwd_res "
-          f"{split_line(fb, fwd_split, kernel=fwd, retained=ret_fwd, pair=pair_fwd)}")
+          f"{split_line(fb, fwd_split, kernel=fwd, wide=wide_fwd, pair=pair_fwd)}")
 
     # The library's function: reset_after=True, sigmoid.
     lib_times, own = {}, {}
@@ -977,15 +984,9 @@ def phase_gru_train(retained: dict):
          "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
          "max_abs_err": w["dwh"], "ms": dwh_ms, "plain_ms": dwh_plain_ms, "bound_ms": db,
          "bound_by": dby, "library_ms": None},
-        {"name": "gru_scan_retained", "route": "cuda",
-         "source": "sed_crnn_torch/csrc/gru_scan.cu",
-         "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
-         "max_abs_err": max(retained["fwd_err"], worst["retained"]["fwd"]),
-         "ms": retained["fwd_ms"], "plain_ms": retained["fwd_plain_ms"],
-         "bound_ms": retained["bound_ms"], "bound_by": retained["bound_by"], "library_ms": None,
-         "launches": ret_launches["gru_scan_retained"], "train_fwd_ms": ret_fwd_ms,
-         "train_bwd_ms": ret_bwd_ms, "bwd_max_rel_err": max(ret_rel, worst["retained"]["bwd"])},
-    )
+    ), {"fwd": max(worst["wide"]["fwd"], wide_err), "bwd": max(worst["wide"]["bwd"], wide_rel),
+        "dwh": worst["wide"]["dwh"], "train_fwd_ms_at_32": wide_fwd_ms,
+        "train_bwd_ms_at_32": wide_bwd_ms}
 
 
 def _leaves(tree, path=""):
@@ -1006,22 +1007,25 @@ def _gru_counts():
     return {"gru_scan_fwd": gru_scan.launches, "gru_scan_fwd_res": gru_scan_fwd_res.launches,
             "gru_scan_bwd": gru_scan_bwd.launches, "gru_dwh": gru_scan_bwd.dwh_launches,
             "gru_scan_sum_partials": gru_scan_bwd.sum_launches,
-            "gru_scan_retained": gru_scan.retained_launches}
+            "gru_wide": gru_scan.wide_launches}
 
 
 def _reset_gru_counts():
     from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_bwd, gru_scan_fwd_res
 
-    gru_scan.launches = gru_scan_fwd_res.launches = gru_scan.retained_launches = 0
+    gru_scan.launches = gru_scan_fwd_res.launches = gru_scan.wide_launches = 0
     gru_scan_bwd.launches = gru_scan_bwd.dwh_launches = gru_scan_bwd.sum_launches = 0
 
 
-def _gru_path_counts(fwd: int, steps: int) -> dict:
+def _gru_path_counts(fwd: int, steps: int, wide: bool = False) -> dict:
     """Exact GRU launch counts of a path with ``fwd`` no-grad BiGRU layer
     calls and ``steps`` train-step BiGRU layer calls: one pair launch of
-    each kernel per layer call, all on the warp body."""
+    each kernel per layer call, all on the warp body, or all on the wide
+    body (``wide``: its recurrences, the forward, residual forward and
+    backward chain, counted in ``gru_wide``)."""
     return {"gru_scan_fwd": fwd, "gru_scan_fwd_res": steps, "gru_scan_bwd": steps,
-            "gru_dwh": steps, "gru_scan_sum_partials": steps, "gru_scan_retained": 0}
+            "gru_dwh": steps, "gru_scan_sum_partials": steps,
+            "gru_wide": fwd + 2 * steps if wide else 0}
 
 
 @contextlib.contextmanager
@@ -1051,9 +1055,15 @@ def _no_plain_gru_on_card():
             setattr(mod, n, saved[n])
 
 
-def phase_train_step():
-    """One full-width sednet-dcase train step on the card and on the CPU from
-    the same weights and batch, dropout 0."""
+def _is_wide(model_cfg) -> bool:
+    """Whether the model's GRUs run kernel B's wide body (H > 32)."""
+    return any(h > 32 for h in model_cfg.gru_hidden)
+
+
+def phase_train_step(model_overrides: dict | None = None, tag: str = "[train step]"):
+    """One full-width sednet-dcase train step (the model config replaced by
+    ``model_overrides``) on the card and on the CPU from the same weights and
+    batch, dropout 0."""
     import torch
 
     from sed_crnn_torch.core.config import get_preset
@@ -1062,6 +1072,7 @@ def phase_train_step():
     from sed_crnn_torch.train.loop import Trainer, TrainState, checkpoint_tree
 
     cfg = get_preset("sednet-dcase")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **(model_overrides or {})))
     mcfg = dataclasses.replace(cfg.model, dropout=0.0)
     params, state = model_tree(cfg.model, seed=11)
     batch = 16   # the CPU's side of the comparison takes a few seconds at this size
@@ -1086,7 +1097,7 @@ def phase_train_step():
         torch.cuda.synchronize()
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"train step log-mel launches {_logmel_counts()}")
-    want = _gru_path_counts(0, 2)   # one pair per BiGRU layer, forward and backward
+    want = _gru_path_counts(0, 2, _is_wide(mcfg))   # one pair per BiGRU layer, fwd and bwd
     check(launches == want, f"train step launches {launches} != {want}")
     check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     t0 = time.perf_counter()
@@ -1137,16 +1148,20 @@ def phase_train_step():
     bn_err = max(float(np.abs(a - b).max()) for (_, a), (_, b) in
                  zip(_leaves(tree_g["model_state"]), _leaves(tree_c["model_state"])))
     check(bn_err <= STEP_BN_ATOL, f"BatchNorm running statistics: {bn_err}")
-    print(f"[train step] sednet-dcase full width, batch {batch}, dropout 0: loss card "
+    print(f"{tag} sednet-dcase full width, gru_hidden {tuple(mcfg.gru_hidden)}, batch {batch}, "
+          f"dropout 0: loss card "
           f"{loss_g:.6f} vs CPU {loss_c:.6f} (rel {loss_rel:.2g}); gradients (Adam's mu) "
           f"max|diff| / leaf max {worst_grad:.3g} ({worst_leaf}; the CPU's two convolution "
           f"backends differ by {cpu_spread:.3g} at {cpu_leaf}); BatchNorm stats {bn_err:.3g}; "
           f"{unclear} parameter elements with |g| inside the band; launches {launches}; "
           f"CPU step {cpu_s:.2f} s")
+    return {"loss_rel": loss_rel, "grad_rel": worst_grad, "bn": bn_err,
+            "launches": launches["gru_wide"]}
 
 
-def phase_train(workdir: str):
-    """`run_fold` at the preset's full size on synthetic folds, on the card."""
+def phase_train(workdir: str, model_overrides: dict | None = None, tag: str = "[train]"):
+    """`run_fold` at the preset's full size (the model config replaced by
+    ``model_overrides``) on synthetic folds, on the card."""
     import torch
 
     from sed_crnn_torch.apps.infer import load_model
@@ -1157,7 +1172,8 @@ def phase_train(workdir: str):
 
     cfg = get_preset("sednet-dcase")
     epochs = 2
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, max_epochs=epochs, plot_every=0))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **(model_overrides or {})),
+                      train=dataclasses.replace(cfg.train, max_epochs=epochs, plot_every=0))
     frames = int(cfg.train.batch_size * cfg.model.seq_len_in * 1.3)   # as apps.train does
     fold = synthetic_folds(1, frames=frames, n_classes=cfg.model.n_classes)[1]
     dev = torch.device("cuda")
@@ -1174,7 +1190,7 @@ def phase_train(workdir: str):
     wall = time.perf_counter() - t0
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"run_fold log-mel launches {_logmel_counts()}")
-    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs)
+    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs, _is_wide(cfg.model))
     check(launches == want, f"run_fold launches {launches} != {want}")
     check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     check(res.epochs_run == epochs, f"run_fold ran {res.epochs_run} epochs")
@@ -1203,7 +1219,8 @@ def phase_train(workdir: str):
     logit_err = float((logits - logits_cpu).abs().max())
     check(logit_err <= LOGIT_ATOL, f"checkpoint logits card vs CPU {logit_err}")
     epoch_sec = [json.loads(ln)["epoch_sec"] for ln in open(os.path.join(art, "train_fold1.jsonl"))]
-    print(f"[train] run_fold sednet-dcase full width, {frames} frames per train split: "
+    print(f"{tag} run_fold sednet-dcase full width, gru_hidden {tuple(cfg.model.gru_hidden)}, "
+          f"{frames} frames per train split: "
           f"{epochs} epochs x {n_train} steps at batch {cfg.train.batch_size}, "
           f"{n_sweep} sweep step(s) per epoch, in {wall:.2f} s (epoch_sec {epoch_sec}); "
           f"loss_tr {res.history['loss_tr']}, loss_val {res.history['loss_val']}, "
@@ -2392,23 +2409,29 @@ STACK_METRIC_ATOL = 0.15
 SPLIT_CELLS = [("timepooled-v1", 2), ("timepooled-v1", 4), ("sednet-dcase", 2)]
 
 
-def _stack_operands(rng, dev, S: int, B: int, T: int, H: int):
+def _stack_operands(rng, dev, S: int, B: int, T: int, H: int, w: float | None = None):
     """Both directions' (xp, wh, bh, h0, dys, dhl), each with a leading seed
-    axis, on the card."""
+    axis, on the card; wh ``w`` N(0, 1), by default 0.3 up to H=32 and
+    0.3 sqrt(32 / H) above, so that the recurrent pre-activations keep
+    H=32's spread. (At 0.3 and H=128 the recurrence carries a one-ulp
+    change of its input to ~5e-5, so no float32 version, the plain one
+    included, is within GRU_ATOL of another: `_wide_precision` holds the
+    wide body to float64 there.)"""
     import torch
 
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
-    return [(t(rng.standard_normal((S, B, T, 3 * H))), t(0.3 * rng.standard_normal((S, H, 3 * H))),
+    w = 0.3 * min(1.0, (32.0 / H) ** 0.5) if w is None else w
+    return [(t(rng.standard_normal((S, B, T, 3 * H))), t(w * rng.standard_normal((S, H, 3 * H))),
              t(0.1 * rng.standard_normal((S, 3 * H))), t(0.5 * rng.standard_normal((S, B, H))),
              t(rng.standard_normal((S, B, T, H))), t(rng.standard_normal((S, B, H))))
             for _ in range(2)]
 
 
-def _gru_bounds(S: int, B: int, T: int, H: int, reset_after: bool):
-    """The least work of S seeds x 2 directions of the forward, the residual
-    forward and the backward (chain + dwh), as `phase_gru_train` counts it
-    per direction: (fwd, fwd_res, bwd) each (ms, what bounds it)."""
-    f, n, RW = 4, 2 * S, (4 if reset_after else 3) * H
+def _gru_bounds(S: int, B: int, T: int, H: int, reset_after: bool, n_dirs: int = 2):
+    """The least work of S seeds x ``n_dirs`` directions of the forward, the
+    residual forward and the backward (chain + dwh), as `phase_gru_train`
+    counts it per direction: (fwd, fwd_res, bwd) each (ms, what bounds it)."""
+    f, n, RW = 4, n_dirs * S, (4 if reset_after else 3) * H
     fwd_b = f * (B * T * 3 * H + H * 3 * H + 3 * H + 2 * B * H + B * T * H)
     fwd_f = T * B * (2 * H * 3 * H + 12 * H)
     bwd_b = f * (B * T * H + B * T * RW + H * 3 * H + 2 * B * H + B * T * H
@@ -2418,28 +2441,31 @@ def _gru_bounds(S: int, B: int, T: int, H: int, reset_after: bool):
             bound_ms(n * bwd_b, n * bwd_f))
 
 
-def _stack_kernel_checks():
+def _stack_kernel_checks(shapes=None, tag: str = "[multiseed stacked]", seed: int = 13):
     """Kernel B's stacked entry points against their plain versions seed by
-    seed at STACK_SHAPES, both conventions: one launch per kernel per call,
-    the forward bands, gradients and dwh within GRAD_RTOL, dwh bitwise equal
-    from run to run. Returns the worst errors."""
+    seed at ``shapes`` (default STACK_SHAPES), both conventions: one launch
+    per kernel per call, the forward bands, gradients and dwh within
+    GRAD_RTOL, dwh bitwise equal from run to run, seed 0 bitwise equal to
+    the unstacked pair on its operands. Returns the worst errors."""
     import torch
 
     from sed_crnn_torch.ops.kernels.gru_scan import (
+        gru_body,
         gru_dwh_plain,
         gru_scan_bwd_plain,
         gru_scan_fwd_res_plain,
+        gru_scan_pair_bwd,
+        gru_scan_pair_fwd_res,
         gru_scan_stack,
         gru_scan_stack_bwd,
         gru_scan_stack_fwd_res,
     )
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(13)
+    rng = np.random.default_rng(seed)
     worst = {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0}
-    one = {"gru_scan_fwd": 1, "gru_scan_fwd_res": 1, "gru_scan_bwd": 1, "gru_dwh": 1,
-           "gru_scan_sum_partials": 1, "gru_scan_retained": 0}
-    for S, B, T, H in STACK_SHAPES:
+    for S, B, T, H in shapes or STACK_SHAPES:
+        one = _gru_path_counts(1, 1, gru_body(H) == "wide")
         d0, d1 = _stack_operands(rng, dev, S, B, T, H)
         for reset_after in (False, True):
             def arg(i, reset_after=reset_after):   # operand i of both directions
@@ -2455,6 +2481,15 @@ def _stack_kernel_checks():
             check(counts == one, f"stacked S={S} H={H} launches {counts} != {one}")
             again = gru_scan_stack_bwd(ys, rs, arg(1), arg(3), arg(4), arg(5), reset_after,
                                        "sigmoid")
+            first = lambda i: tuple(None if a is None else a[0].contiguous() for a in arg(i))  # noqa: E731
+            pres = gru_scan_pair_fwd_res(first(0), first(1), first(2), first(3), reset_after,
+                                         "sigmoid")
+            pbwd = gru_scan_pair_bwd(tuple(r[0] for r in pres), tuple(r[1] for r in pres),
+                                     first(1), first(3), first(4), first(5), reset_after, "sigmoid")
+            for k in (0, 1):
+                check(all(torch.equal(a, b[0]) for a, b in zip(pres[k] + pbwd[k],
+                                                               res[k] + bwd[k])),
+                      f"stacked S={S} H={H}: seed 0 is not bitwise the unstacked pair")
             for k, rev in enumerate((False, True)):
                 check(all(torch.equal(a, b) for a, b in zip(bwd[k], again[k])),
                       f"stacked backward S={S} H={H} not bitwise equal run to run")
@@ -2481,10 +2516,11 @@ def _stack_kernel_checks():
                               f"stacked {name} S={S} H={H} seed {s}: {e} of {scale}")
                         key = "dwh" if "own" in name else "bwd"
                         worst[key] = max(worst[key], e / scale if scale else 0.0)
-        print(f"[multiseed stacked] kernel B stacked S={S} B={B} T={T} H={H:2d}: forward, residual "
-              f"forward, backward and dwh, both conventions, one launch each for {2 * S} "
-              f"(seed, direction) pairs; against the plain versions seed by seed")
-    print(f"[multiseed stacked] kernel B stacked worst: forward max|diff| {worst['fwd']:.3g}, "
+        print(f"{tag} kernel B stacked S={S} B={B} T={T} H={H:2d} ({gru_body(H)} body): forward, "
+              f"residual forward, backward and dwh, both conventions, one launch each for "
+              f"{2 * S} (seed, direction) pairs; against the plain versions seed by seed; seed 0 "
+              f"bitwise the unstacked pair")
+    print(f"{tag} kernel B stacked worst: forward max|diff| {worst['fwd']:.3g}, "
           f"backward {worst['bwd']:.3g} and dwh on its own dxp {worst['dwh']:.3g} of max|grad|; "
           f"dwh bitwise equal run to run")
     return worst
@@ -2573,7 +2609,9 @@ def _profile_once(fn) -> tuple:
 def _step_fns(cfg, n_seeds: int, dev):
     """(stacked step, sequential steps) of ``n_seeds`` freshly initialized
     seeds of ``cfg`` on synthetic data: one `MultiSeedTrainer` step over all
-    seeds, and one `Trainer` step per seed."""
+    seeds, and one `Trainer` step per seed, each returning the seeds' losses
+    (S,). The two draw from generators of their own with the same seeds, so
+    their n-th calls see the same batches and dropout masks."""
     import torch
 
     from sed_crnn_torch.apps.train import synthetic_folds
@@ -2590,7 +2628,8 @@ def _step_fns(cfg, n_seeds: int, dev):
     models = [get_model(m).init_parameters(torch.Generator().manual_seed(s))
               for s in range(n_seeds)]
     stacked = MultiSeedTrainer(StackedCRNN.from_models(models).to(dev), cfg.train, tr, val)
-    rngs = [Rngs(dev, s, stacked.model.n_dropout_sites) for s in range(n_seeds)]
+    rngs, seq_rngs = ([Rngs(dev, s, stacked.model.n_dropout_sites) for s in range(n_seeds)]
+                      for _ in range(2))
     st = TrainState(stacked.adam.init({k: p.detach() for k, p in stacked.params().items()}),
                     torch.ones(n_seeds, device=dev))
     singles = [Trainer(mm.to(dev), cfg.train, tr, val) for mm in models]
@@ -2600,12 +2639,16 @@ def _step_fns(cfg, n_seeds: int, dev):
     def stacked_step():
         nonlocal st
         x, y = stacked.draw_batch(tr, [r.batch for r in rngs])
-        st, _, _ = stacked.train_step(st, x, y, [r.dropout for r in rngs])
+        st, losses, _ = stacked.train_step(st, x, y, [r.dropout for r in rngs])
+        return losses
 
     def sequential_steps():
-        for i, (t, r) in enumerate(zip(singles, rngs)):
+        losses = []
+        for i, (t, r) in enumerate(zip(singles, seq_rngs)):
             x, y = tr.sample_batch(r.batch, batch)
-            sts[i], _, _ = t.train_step(sts[i], x, y, r.dropout)
+            sts[i], loss, _ = t.train_step(sts[i], x, y, r.dropout)
+            losses.append(loss)
+        return torch.stack(losses)
 
     return stacked_step, sequential_steps
 
@@ -3151,6 +3194,584 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
         else 1 - prof["busy"] / run["wall"], "serve_live_rows_bitwise": rows_equal}
 
 
+# Kernel B's wide body (csrc/gru_wide.cu, H > 32): the widths, batches and
+# timed shapes of [kernel B wide], and the three full-width paths' configs.
+WIDE_WIDTHS = (33, 48, 64, 96, 128, 129, 256)   # register tier to 128, L2 tier above
+WIDE_BATCHES = (1, 8, 128)
+WIDE_CHECK_T = 64
+WIDE_TIMED = (64, 128, 256)
+WIDE_STACK_SHAPES = [(5, 8, 32, H) for H in (48, 64, 128, 129)]
+WIDE_SEDNET = {"gru_hidden": (128, 128)}   # SELDnet's (DCASE 2019 Task 3) recurrent width
+WIDE_V2 = {"gru_hidden": (64, 64)}
+# Its operands scale wh by 1 / sqrt(H), so that the pre-activations keep one
+# spread at every width.
+
+
+def _wide_checks() -> dict:
+    """The wide body's pair launches against the plain versions at every
+    width of WIDE_WIDTHS and batch of WIDE_BATCHES, both conventions, both
+    gates: one launch of each kernel, forwards within GRU_ATOL, gradients and
+    dwh (also on the kernel's own dxp) within GRAD_RTOL, dwh bitwise equal
+    run to run. Returns the worst errors."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        GATES,
+        gru_body,
+        gru_dwh_plain,
+        gru_scan_bwd_plain,
+        gru_scan_fwd_res_plain,
+        gru_scan_pair,
+        gru_scan_pair_bwd,
+        gru_scan_pair_fwd_res,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    worst = {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0}
+    want_counts = _gru_path_counts(1, 1, True)
+    for H in WIDE_WIDTHS:
+        check(gru_body(H) == gru_body(H, backward=True) == "wide", f"H={H} not on the wide body")
+        for B in WIDE_BATCHES:
+            fwd_e = bwd_e = dwh_e = 0.0
+            for reset_after in (False, True):
+                for gate in GATES:
+                    sets = [_gru_inputs(rng, dev, B, H, True, WIDE_CHECK_T, H ** -0.5)
+                            for _ in range(2)]
+                    args = [_pair_of(sets, i, reset_after) for i in range(4)]
+                    _reset_gru_counts()
+                    pair = gru_scan_pair(*args, reset_after, gate)
+                    pres = gru_scan_pair_fwd_res(*args, reset_after, gate)
+                    ys, rs = tuple(r[0] for r in pres), tuple(r[1] for r in pres)
+                    grads = gru_scan_pair_bwd(ys, rs, args[1], args[3], _pair_of(sets, 4),
+                                              _pair_of(sets, 5), reset_after, gate)
+                    torch.cuda.synchronize()
+                    counts = _gru_counts()
+                    check(counts == want_counts, f"wide H={H} B={B} launches {counts}")
+                    again = gru_scan_pair_bwd(ys, rs, args[1], args[3], _pair_of(sets, 4),
+                                              _pair_of(sets, 5), reset_after, gate)
+                    for k, rev in enumerate((False, True)):
+                        tag = f"wide H={H} B={B} reset_after={reset_after} {gate} dir {k}"
+                        a = [x[k] for x in args]
+                        want = gru_scan_fwd_res_plain(*a, reset_after, gate, rev)
+                        fwd_e = max(fwd_e, max(_maxdiff(g, w) for g, w in zip(pres[k], want)))
+                        check(torch.equal(pair[k][0], pres[k][0])
+                              and torch.equal(pair[k][1], pres[k][2]), f"{tag}: fwd vs fwd_res")
+                        want = gru_scan_bwd_plain(ys[k], rs[k], a[1], a[3], sets[k][4], sets[k][5],
+                                                  reset_after, gate, rev)
+                        bwd_e = max(bwd_e, _rel_err(grads[k], want, tag))
+                        own = gru_dwh_plain(ys[k], rs[k], a[3], grads[k][0], reset_after, rev)
+                        dwh_e = max(dwh_e, _rel_err(grads[k][1:3], own, f"{tag} dwh on own dxp",
+                                                    ("dwh", "dbh")))
+                        check(all(torch.equal(x, y) for x, y in zip(grads[k], again[k])),
+                              f"{tag}: backward not bitwise equal run to run")
+            check(fwd_e <= GRU_ATOL, f"wide H={H} B={B} forward {fwd_e}")
+            worst["fwd"] = max(worst["fwd"], fwd_e)
+            worst["bwd"] = max(worst["bwd"], bwd_e)
+            worst["dwh"] = max(worst["dwh"], dwh_e)
+            print(f"[kernel B wide] H={H:3d} B={B:3d} T={WIDE_CHECK_T}: pair forward, residual "
+                  f"forward and backward, both conventions and gates, one launch each; fwd "
+                  f"max|diff| {fwd_e:.3g}, backward {bwd_e:.3g} and dwh on its own dxp "
+                  f"{dwh_e:.3g} of max|grad|; dwh bitwise run to run")
+    return worst
+
+
+def _wide_times(H: int) -> dict:
+    """The wide body at width H, CUDA events, warm L2: one direction's
+    forward at B=1 and residual forward and backward (chain + dwh + sum) at
+    B=128, T=256, reset_after=False sigmoid (sednet's convention), each held
+    against its plain version first, beside the plain version's time, the
+    bound, device and host times and the backward's split by kernel; then, at
+    reset_after=True sigmoid (the library's convention), one direction's
+    residual forward at B=128 beside a one-direction `torch.nn.GRU`, and a
+    pair's forward at B=1 and residual forward and backward at B=128 beside a
+    bidirectional one on the same input (the library's outputs held against
+    the plain versions)."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        gru_scan,
+        gru_scan_bwd,
+        gru_scan_bwd_plain,
+        gru_scan_fwd_res,
+        gru_scan_fwd_res_plain,
+        gru_scan_pair,
+        gru_scan_pair_bwd,
+        gru_scan_pair_fwd_res,
+        gru_scan_plain,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(22 + H)
+    T, BT = GRU_T, TRAIN_BATCH
+    out = {"H": H}
+    xp, wh, bh, h0, _, _ = _gru_inputs(rng, dev, 1, H, True, T, H ** -0.5)
+    conf = (False, "sigmoid", False)
+    fwd = lambda: gru_scan(xp, wh, None, h0, *conf)  # noqa: E731
+    err = max(_maxdiff(g, w) for g, w in zip(fwd(), gru_scan_plain(xp, wh, None, h0, *conf)))
+    check(err <= GRU_ATOL, f"wide H={H} forward B=1: {err}")
+    out["fwd_b1_ms"] = cuda_ms(fwd, reps=20)
+    out["fwd_b1_plain_ms"] = cuda_ms(lambda: gru_scan_plain(xp, wh, None, h0, *conf), reps=3,
+                                     warmup=1)
+    out["fwd_b1_device_ms"], out["fwd_b1_host_ms"] = device_host_ms(fwd)
+    out["fwd_b1_bound_ms"], out["fwd_b1_bound_by"] = _gru_bounds(1, 1, T, H, False, 1)[0]
+
+    xp, wh, bh, h0, dys, dhl = _gru_inputs(rng, dev, BT, H, True, T, H ** -0.5)
+    fres = lambda: gru_scan_fwd_res(xp, wh, None, h0, *conf)  # noqa: E731
+    ys, res, hl = fres()
+    want = gru_scan_fwd_res_plain(xp, wh, None, h0, *conf)
+    err = max(_maxdiff(g, w) for g, w in zip((ys, res, hl), want))
+    check(err <= GRU_ATOL, f"wide H={H} residual forward B={BT}: {err}")
+    bwd = lambda: gru_scan_bwd(ys, res, wh, h0, dys, dhl, *conf)  # noqa: E731
+    first, second = bwd(), bwd()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)), f"wide H={H}: dwh run to run")
+    out["bwd_rel_err"] = _rel_err(first, gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf),
+                                  f"wide H={H} backward B={BT}")
+    out["fwd_res_ms"], out["bwd_ms"] = cuda_ms(fres, reps=20), cuda_ms(bwd, reps=20)
+    out["fwd_res_plain_ms"] = cuda_ms(lambda: gru_scan_fwd_res_plain(xp, wh, None, h0, *conf),
+                                      reps=3, warmup=1)
+    out["bwd_plain_ms"] = cuda_ms(lambda: gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, *conf),
+                                  reps=3, warmup=1)
+    out["fwd_res_device_ms"], out["fwd_res_host_ms"] = device_host_ms(fres)
+    out["bwd_device_ms"], out["bwd_host_ms"] = device_host_ms(bwd)
+    split = _by_kernel(bwd)
+    out["bwd_chain_ms"] = _part(split, "gru_wide_bwd")
+    out["bwd_dwh_ms"] = _part(split, "gru_wide_dwh")
+    out["bwd_sum_ms"] = _part(split, "gru_wide_sum")
+    _, (out["fwd_res_bound_ms"], out["fwd_res_bound_by"]), (out["bwd_bound_ms"],
+                                                            out["bwd_bound_by"]) = \
+        _gru_bounds(1, BT, T, H, False, 1)
+
+    # The library's function: reset_after=True sigmoid, one direction (the
+    # same work as the entries of the other GRU kernels), then both.
+    one = _library_gru(wh, bh)
+    want = gru_scan_plain(xp, wh, bh, h0, True, "sigmoid", False)
+    y_one, hl_one = one(xp, h0[None])
+    err = max(_maxdiff(y_one, want[0]), _maxdiff(hl_one[0], want[1]))
+    check(err <= LIBRARY_ATOL, f"torch.nn.GRU H={H} B={BT}: {err}")
+    out["variant_fwd_res_ms"] = cuda_ms(lambda: gru_scan_fwd_res(xp, wh, bh, h0, True, "sigmoid",
+                                                                 False), reps=20)
+    out["library_one_fwd_ms"] = cuda_ms(lambda: one(xp, h0[None]), reps=20)
+    for B in (1, BT):
+        d0, d1 = (_gru_inputs(rng, dev, B, H, True, T, H ** -0.5) for _ in range(2))
+        x = d0[0]
+        args = ((x, x), (d0[1], d1[1]), (d0[2], d1[2]), (d0[3], d1[3]))
+        lib = _library_gru((d0[1], d1[1]), (d0[2], d1[2]), bidirectional=True)
+        x_in = x.clone().requires_grad_()
+        h_lib = torch.stack([d0[3], d1[3]])
+        y_lib, hl_lib = lib(x_in, h_lib)
+        lib_err = 0.0
+        for k, rev in enumerate((False, True)):
+            want = gru_scan_plain(x, args[1][k], args[2][k], args[3][k], True, "sigmoid", rev)
+            lib_err = max(lib_err, _maxdiff(y_lib[..., k * H:(k + 1) * H], want[0]),
+                          _maxdiff(hl_lib[k], want[1]))
+        check(lib_err <= LIBRARY_ATOL, f"bidirectional torch.nn.GRU H={H} B={B}: {lib_err}")
+        dy = torch.cat([d0[4], d1[4]], dim=-1)
+        lib_fwd = cuda_ms(lambda: lib(x_in, h_lib), reps=20)
+
+        def lib_fwd_bwd():
+            o, _ = lib(x_in, h_lib)
+            torch.autograd.backward(o, dy)
+
+        lib_bwd = cuda_ms(lib_fwd_bwd, reps=20) - lib_fwd
+        if B == 1:
+            out["pair_fwd_b1_ms"] = cuda_ms(lambda: gru_scan_pair(*args, True, "sigmoid"), reps=20)
+            out["library_fwd_b1_ms"] = lib_fwd
+            continue
+        pres = gru_scan_pair_fwd_res(*args, True, "sigmoid")
+        pys, prs = tuple(r[0] for r in pres), tuple(r[1] for r in pres)
+        dys2, dhl2 = (d0[4], d1[4]), (d0[5], d1[5])
+        out["pair_fwd_res_ms"] = cuda_ms(lambda: gru_scan_pair_fwd_res(*args, True, "sigmoid"),
+                                         reps=20)
+        out["pair_bwd_ms"] = cuda_ms(lambda: gru_scan_pair_bwd(pys, prs, args[1], args[3], dys2,
+                                                               dhl2, True, "sigmoid"), reps=20)
+        out["library_fwd_ms"], out["library_bwd_ms"], out["library_err"] = lib_fwd, lib_bwd, lib_err
+    print(f"[kernel B wide] times H={H} T={T} (reset_after=False sigmoid, one direction): forward "
+          f"B=1 {out['fwd_b1_ms']:.4f} ms ({out['fwd_b1_ms'] / T * 1e3:.3f} us/step; device "
+          f"{_fmt(out['fwd_b1_device_ms'])}, host {out['fwd_b1_host_ms']:.4f}; plain "
+          f"{out['fwd_b1_plain_ms']:.2f}; bound {out['fwd_b1_bound_ms']:.6f} {out['fwd_b1_bound_by']}"
+          f"); B={BT}: residual forward {out['fwd_res_ms']:.4f} ms (device "
+          f"{_fmt(out['fwd_res_device_ms'])}; plain {out['fwd_res_plain_ms']:.2f}; bound "
+          f"{out['fwd_res_bound_ms']:.5f} {out['fwd_res_bound_by']}), backward "
+          f"{out['bwd_ms']:.4f} ms (device {_fmt(out['bwd_device_ms'])}: chain "
+          f"{out['bwd_chain_ms']:.4f}, dwh {out['bwd_dwh_ms']:.4f}, sum {out['bwd_sum_ms']:.4f}; "
+          f"plain {out['bwd_plain_ms']:.2f}; bound {out['bwd_bound_ms']:.5f} "
+          f"{out['bwd_bound_by']}; vs plain {out['bwd_rel_err']:.3g} of max|grad|)")
+    print(f"[kernel B wide] times H={H} T={T} reset_after=True sigmoid: one direction's residual "
+          f"forward B={BT} {out['variant_fwd_res_ms']:.4f} ms vs torch.nn.GRU forward "
+          f"{out['library_one_fwd_ms']:.4f}; both directions vs bidirectional torch.nn.GRU (vs "
+          f"plain {out['library_err']:.3g}): forward B=1 pair "
+          f"{out['pair_fwd_b1_ms']:.4f} ms vs {out['library_fwd_b1_ms']:.4f}; B={BT} residual "
+          f"forward pair {out['pair_fwd_res_ms']:.4f} ms vs forward {out['library_fwd_ms']:.4f}; "
+          f"backward pair {out['pair_bwd_ms']:.4f} ms vs {out['library_bwd_ms']:.4f}")
+    return out
+
+
+# The wide body's precision on a badly conditioned recurrence: the stacked
+# check's shape at H=128 with wh at the warp widths' scale (0.3 N(0, 1)) and
+# at smaller ones, against float64.
+PRECISION_SHAPE = (5, 8, 32, 128)
+PRECISION_SCALES = (0.15, 0.2, 0.3)
+# The gates of csrc/gru_wide.cu, and their exact forms for `_exact_gate_wide`.
+EXACT_GATES = {"__fdividef(1.0f, 1.0f + __expf(-v))": "1.0f / (1.0f + expf(-v))",
+               "1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v))": "tanhf(v)"}
+
+
+@contextlib.contextmanager
+def _exact_gate_wide(workdir: str):
+    """Kernel B's wide body built from csrc/gru_wide.cu with EXACT_GATES in
+    place of its __expf / __fdividef gates, launched by the port's wrappers
+    inside the block."""
+    import ctypes
+
+    from sed_crnn_torch.ops.kernels import _build
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+
+    src = (_build.CSRC_DIR / "gru_wide.cu").read_text()
+    for fast, exact in EXACT_GATES.items():
+        check(src.count(fast) == 1, f"gru_wide.cu has {src.count(fast)} of {fast!r}")
+        src = src.replace(fast, exact)
+    check("__expf" not in src and "__fdividef" not in src, "gru_wide.cu: fast math left")
+    cu, so = os.path.join(workdir, "gru_wide_exact.cu"), os.path.join(workdir, "gru_wide_exact.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc of the exact-gate wide body:\n{proc.stdout}{proc.stderr}")
+    fast_lib = _build.load("gru_wide")
+    _build._loaded["gru_wide"] = ctypes.CDLL(so)
+    gs._wide_lib.cache_clear()
+    try:
+        yield
+    finally:
+        _build._loaded["gru_wide"] = fast_lib
+        gs._wide_lib.cache_clear()
+
+
+def _wide_precision() -> dict:
+    """The wide body against a float64 plain version at PRECISION_SHAPE
+    (stacked, both directions, both conventions and gates) for wh at each of
+    PRECISION_SCALES: per scale the largest distance of the forward's ys and
+    h_last to float64 for the kernel, the same kernel with exact gates, the
+    float32 plain version and the float32 plain version on xp moved by one
+    ulp (how far float32 rounding alone is carried here), with the kernel's
+    distance to the float32 plain version (what the GRU_ATOL checks read)
+    and the spread of the r and z pre-activations. The kernel is held within
+    GRU_ATOL of float64 or, where float32 rounding alone is carried further,
+    no further than the float32 plain version on the moved xp."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import GATES, gru_scan_fwd_res_plain, gru_scan_stack
+
+    S, B, T, H = PRECISION_SHAPE
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(26)
+    cases = {w: _stack_operands(rng, dev, S, B, T, H, w) for w in PRECISION_SCALES}
+    confs = [(ra, g) for ra in (False, True) for g in GATES]
+
+    def launch(d0, d1, ra, gate):
+        arg = lambda i: (d0[i], d1[i]) if (i != 2 or ra) else (None, None)  # noqa: E731
+        return gru_scan_stack(arg(0), arg(1), arg(2), arg(3), ra, gate)
+
+    fast = {(w, c): launch(*d, *c) for w, d in cases.items() for c in confs}
+    with tempfile.TemporaryDirectory() as workdir, _exact_gate_wide(workdir):
+        exact = {(w, c): launch(*d, *c) for w, d in cases.items() for c in confs}
+    out = {}
+    for w, (d0, d1) in cases.items():
+        r = {"kernel": 0.0, "exact_gates": 0.0, "plain": 0.0, "plain_ulp": 0.0,
+             "kernel_vs_plain": 0.0, "pre_std": 0.0, "pre_max": 0.0}
+        for ra, gate in confs:
+            for k, (d, rev) in enumerate(((d0, False), (d1, True))):
+                for s in range(S):
+                    a = [d[0][s], d[1][s], d[2][s] if ra else None, d[3][s]]
+                    f64 = gru_scan_fwd_res_plain(*(None if x is None else x.double() for x in a),
+                                                 ra, gate, rev)
+                    f32 = gru_scan_fwd_res_plain(*a, ra, gate, rev)
+                    sign = torch.from_numpy(rng.choice([-1.0, 1.0], a[0].shape).astype(np.float32))
+                    moved = a[0] * (1 + 2.0 ** -23 * sign.to(dev))
+                    ulp = gru_scan_fwd_res_plain(moved, *a[1:], ra, gate, rev)
+
+                    def dist(ys, hl, ref=f64):
+                        return max(_maxdiff(ys.double(), ref[0]), _maxdiff(hl.double(), ref[2]))
+
+                    kf, ke = fast[(w, (ra, gate))][k], exact[(w, (ra, gate))][k]
+                    for key, v in (("kernel", dist(kf[0][s], kf[1][s])),
+                                   ("exact_gates", dist(ke[0][s], ke[1][s])),
+                                   ("plain", dist(f32[0], f32[2])),
+                                   ("plain_ulp", dist(ulp[0], ulp[2])),
+                                   ("kernel_vs_plain", dist(kf[0][s], kf[1][s], f32))):
+                        r[key] = max(r[key], v)
+                    ys = f64[0].flip(1) if rev else f64[0]
+                    prev = torch.cat([a[3].double()[:, None], ys[:, :-1]], dim=1)
+                    pre = ((a[0].double() if not rev else a[0].double().flip(1))[..., :2 * H]
+                           + prev @ a[1].double()[:, :2 * H])
+                    r["pre_std"] = max(r["pre_std"], float(pre.std()))
+                    r["pre_max"] = max(r["pre_max"], float(pre.abs().max()))
+        check(r["kernel"] <= max(GRU_ATOL, r["plain_ulp"]),
+              f"wide precision wh {w}: kernel {r['kernel']} from float64, float32 plain on "
+              f"1-ulp-moved xp {r['plain_ulp']}")
+        out[w] = r
+        print(f"[kernel B wide] precision S={S} B={B} T={T} H={H}, wh {w} N(0, 1) (r, z "
+              f"pre-activations std {r['pre_std']:.3g}, max |v| {r['pre_max']:.3g}), both "
+              f"conventions, gates and directions: max distance to float64 of the kernel "
+              f"{r['kernel']:.3g}, with exact gates {r['exact_gates']:.3g}, of float32 plain "
+              f"{r['plain']:.3g}, of float32 plain on 1-ulp-moved xp {r['plain_ulp']:.3g}; "
+              f"kernel vs float32 plain {r['kernel_vs_plain']:.3g}")
+    return out
+
+
+def phase_gru_wide() -> dict:
+    """[kernel B wide]: the wide body's checks at every width, batch,
+    convention, gate and direction, pair and stacked; its precision against
+    float64 (`_wide_precision`); its times at WIDE_TIMED."""
+    t0 = time.perf_counter()
+    worst = _wide_checks()
+    stack = _stack_kernel_checks(WIDE_STACK_SHAPES, "[kernel B wide]", seed=23)
+    for k in worst:
+        worst[k] = max(worst[k], stack[k])
+    precision = _wide_precision()
+    times = {H: _wide_times(H) for H in WIDE_TIMED}
+    print(f"[kernel B wide] kernel checks and times in {time.perf_counter() - t0:.1f} s")
+    return {"worst": worst, "times": times, "precision": precision}
+
+
+def _wide_entry(wide: dict, paths: dict, train: dict, serving_err: float) -> dict:
+    """The wide body's entry of the kernels line: one direction's residual
+    forward at H=128, B=128 (the wide training path's shape) as the headline,
+    beside one direction of `torch.nn.GRU` and the kernel at the library's
+    convention; its times at every WIDE_TIMED width, its launches by path and
+    worst errors."""
+    t = wide["times"][128]
+    worst = wide["worst"]
+    return {"name": "gru_wide", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_wide.cu",
+            "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
+            "replaces_backward": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
+            "shape": f"one direction, B={TRAIN_BATCH} T={GRU_T} H=128 reset_after=False, "
+                     "residual forward",
+            "max_abs_err": max(worst["fwd"], train["fwd"], serving_err),
+            "bwd_max_rel_err": max(worst["bwd"], train["bwd"]),
+            "dwh_max_rel_err": max(worst["dwh"], train["dwh"]),
+            "ms": t["fwd_res_ms"], "plain_ms": t["fwd_res_plain_ms"],
+            "bound_ms": t["fwd_res_bound_ms"], "bound_by": t["fwd_res_bound_by"],
+            "library_ms": t["library_one_fwd_ms"], "library_variant": "reset_after=True, sigmoid",
+            "variant_ms": t["variant_fwd_res_ms"], "launches_by_path": paths["launches"],
+            "times": {str(h): v for h, v in wide["times"].items()},
+            "precision_h128": {str(w): v for w, v in wide["precision"].items()},
+            "at_h32": {k: train[k] for k in train if k.endswith("_at_32")}}
+
+
+def _wide_serving(cfg, best: str) -> dict:
+    """The wide model's checkpoint served on the card and the CPU:
+    `stream_logits` over 40 chunks at B=1 with the GRU state carried, and
+    `forward_probabilities` at B=256 (the CPU on its first 16 windows); logits
+    within LOGIT_ATOL, probabilities within PROB_ATOL, events equal, exact
+    launch counts, no plain version on the card."""
+    import torch
+
+    from sed_crnn_torch.apps.infer import load_model
+    from sed_crnn_torch.core.checkpoint import load_checkpoint
+    from sed_crnn_torch.data.rasterize import events_from_labels
+    from sed_crnn_torch.models.streaming import stream_logits
+    from sed_crnn_torch.train.evaluate import forward_probabilities
+
+    m = cfg.model
+    tree, _ = load_checkpoint(best)
+    card, cpu = load_model(tree, m, "cuda"), load_model(tree, m, "cpu")
+    rng = np.random.default_rng(24)
+    n_chunks = 40
+    mel = torch.from_numpy(rng.standard_normal((n_chunks * m.seq_len_in - 100, m.n_mels))
+                           .astype(np.float32))
+    out_hop = cfg.frontend.hop_length * (m.seq_len_in // m.seq_len_out)
+    layers = len(m.gru_hidden)
+
+    def events(p):
+        return events_from_labels(np.asarray(p), SR, out_hop, 0.5)
+
+    _reset_gru_counts()
+    t0 = time.perf_counter()
+    with _no_plain_gru_on_card() as plain_on_card:
+        logits = stream_logits(card, mel.cuda())
+        torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    counts = _gru_counts()
+    want = _gru_path_counts(layers * n_chunks, 0, True)
+    check(counts == want and not plain_on_card, f"wide streaming launches {counts} != {want}")
+    logits_cpu = stream_logits(cpu, mel)
+    logit_err = _maxdiff(logits.cpu(), logits_cpu)
+    check(bool(torch.isfinite(logits).all()) and logit_err <= LOGIT_ATOL,
+          f"wide streaming logits card vs CPU {logit_err}")
+    ev, ev_cpu = events(torch.sigmoid(logits).cpu()), events(torch.sigmoid(logits_cpu))
+    check(ev == ev_cpu, "wide streaming: card and CPU events differ")
+    xw = rng.standard_normal((300, m.seq_len_in, m.n_mels)).astype(np.float32)
+    _reset_gru_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        probs = forward_probabilities([card], xw, 256)
+        torch.cuda.synchronize()
+    counts = _gru_counts()
+    want = _gru_path_counts(layers * 2, 0, True)
+    check(counts == want and not plain_on_card, f"wide forward_probabilities launches {counts}")
+    probs_cpu = forward_probabilities([cpu], xw[:16], 16)
+    prob_err = _maxdiff(probs[:16].cpu(), probs_cpu)
+    check(prob_err <= PROB_ATOL, f"wide forward_probabilities card vs CPU {prob_err}")
+    flat = lambda p: p.reshape(-1, p.shape[-1]).cpu()  # noqa: E731
+    check(events(flat(probs[:16])) == events(flat(probs_cpu)),
+          "wide forward_probabilities: card and CPU events differ")
+    audio = n_chunks * m.seq_len_in / FRAMES_PER_SEC
+    print(f"[kernel B wide] serving gru_hidden {tuple(m.gru_hidden)}: stream_logits {n_chunks} "
+          f"chunks at B=1, card vs CPU logits {logit_err:.3g}, {len(ev)} events equal, "
+          f"{stream_s:.3f} s on the card ({audio / stream_s:,.0f} audio-sec/sec, first call); "
+          f"forward_probabilities 300 windows at B=256, card vs CPU on 16 windows {prob_err:.3g}, "
+          f"events equal; launches exact")
+    return {"launches": layers * (n_chunks + 2), "logit_err": logit_err, "prob_err": prob_err}
+
+
+def _cudnn_deterministic():
+    """cuDNN held to deterministic algorithms (float32, no TF32) inside the
+    block. Stacked and sequential training are two float32 orderings of one
+    function whose gap training grows step by step (`_stack_divergence`);
+    cuDNN's default convolution algorithms add run-to-run noise of the same
+    size (timepooled-v2 with WIDE_V2's GRUs on an H100: the worst loss gap read 0.064 to
+    0.098 over five runs, 0.0621 twice with these algorithms), so the wide
+    path compares the modes with them."""
+    import torch
+
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+def _stack_divergence(cfg, steps: int) -> list:
+    """Per train step of STACK_RUNS seeds of ``cfg``, from one init on the
+    same batches and dropout masks, the largest relative gap over seeds
+    between the stacked step's loss and the sequential steps' (`_step_fns`)."""
+    import torch
+
+    stacked_step, sequential_steps = _step_fns(cfg, STACK_RUNS, torch.device("cuda"))
+    gaps = []
+    for _ in range(steps):
+        a, b = stacked_step(), sequential_steps()
+        gaps.append(float(((a - b).abs() / b.abs()).max()))
+    return gaps
+
+
+def _wide_stacked(workdir: str) -> dict:
+    """timepooled-v2 with WIDE_V2's GRUs, 5 seeds at batch 128: one
+    `MultiSeedTrainer` step with one launch of each kernel per BiGRU layer
+    for all seeds; the kernels at that step's GRU shape (seed 0 bitwise the
+    unstacked pair); `run_experiment_multiseed` stacked against sequential,
+    histories within STACK_LOSS_RTOL / STACK_METRIC_ATOL, equal best epochs,
+    exact launch counts."""
+    import torch
+
+    from sed_crnn_torch.apps.train import synthetic_folds
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.train.loop import make_samplers
+    from sed_crnn_torch.train.multiseed import run_experiment_multiseed
+
+    dev = torch.device("cuda")
+    cfg = get_preset("timepooled-v2")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **WIDE_V2),
+                      train=dataclasses.replace(cfg.train, max_epochs=STACK_EPOCHS, plot_every=0))
+    m, batch = cfg.model, cfg.train.batch_size
+    layers = len(m.gru_hidden)
+    stacked_step, _ = _step_fns(cfg, STACK_RUNS, dev)
+    stacked_step()
+    torch.cuda.synchronize()
+    _reset_gru_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        stacked_step()
+        torch.cuda.synchronize()
+    counts = _gru_counts()
+    want = _gru_path_counts(0, layers, True)
+    check(counts == want and not plain_on_card, f"wide stacked step launches {counts} != {want}")
+    step_ms = _median_ms(stacked_step, reps=5)
+    worst = _stack_kernel_checks([(STACK_RUNS, batch, m.seq_len_out, h) for h in
+                                  sorted(set(m.gru_hidden))], "[kernel B wide]", seed=25)
+
+    frames = max(8000, int(batch * m.seq_len_in * 1.3))
+    folds = synthetic_folds(1, frames=frames, n_classes=m.n_classes, n_mels=m.n_mels)
+    tr, val = make_samplers(cfg, folds[1], dev)
+    n_train = tr.steps_per_epoch(batch)
+    n_val = max(1, val.steps_per_epoch(batch, drop_last=False))
+    runs, wide_launches = {}, 0
+    for mode in ("stacked", "sequential"):
+        _reset_gru_counts()
+        t0 = time.perf_counter()
+        with _no_plain_gru_on_card() as plain_on_card, _cudnn_deterministic():
+            runs[mode] = run_experiment_multiseed(cfg, folds, os.path.join(workdir, mode),
+                                                  n_runs=STACK_RUNS, verbose=False, mode=mode,
+                                                  device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _gru_counts()
+        per = 1 if mode == "stacked" else STACK_RUNS
+        want = _gru_path_counts(per * layers * n_val * STACK_EPOCHS,
+                                per * layers * n_train * STACK_EPOCHS, True)
+        check(counts == want and not plain_on_card,
+              f"wide --runs-mode {mode} launches {counts} != {want}")
+        if mode == "stacked":
+            wide_launches = counts["gru_wide"]
+        print(f"[kernel B wide] run_experiment_multiseed timepooled-v2 gru_hidden "
+              f"{tuple(m.gru_hidden)} x{STACK_RUNS} {mode}: {STACK_EPOCHS} epochs x {n_train} "
+              f"train + {n_val} validation steps in {wall:.2f} s; launches {counts}")
+    worst_loss = worst_metric = 0.0
+    worst_at = None
+    for j, s in enumerate(runs["stacked"]["seeds"]):
+        a, b = runs["stacked"]["folds"][1][j], runs["sequential"]["folds"][1][j]
+        check((a.best_epoch, a.epochs_run) == (b.best_epoch, b.epochs_run),
+              f"wide seed {s}: best epoch {a.best_epoch} vs {b.best_epoch}")
+        for k, v in b.history.items():
+            g, w = np.asarray(a.history[k]), np.asarray(v)
+            if k.startswith("loss"):
+                e = float(np.max(np.abs(g - w) / np.abs(w)))
+                check(e <= STACK_LOSS_RTOL, f"wide seed {s} {k}: stacked {g} vs sequential {w}")
+                if e > worst_loss:
+                    worst_loss, worst_at = e, (s, k, g.tolist(), w.tolist())
+            else:
+                e = float(np.max(np.abs(g - w)))
+                check(e <= STACK_METRIC_ATOL, f"wide seed {s} {k}: stacked {g} vs sequential {w}")
+                worst_metric = max(worst_metric, e)
+    print(f"[kernel B wide] stacked step {STACK_RUNS} seeds at batch {batch}: {step_ms:.2f} ms "
+          f"host clock, one launch of each kernel per layer; stacked vs sequential histories "
+          f"within {worst_loss:.3g} relative (band {STACK_LOSS_RTOL}; seed {worst_at[0]} "
+          f"{worst_at[1]} stacked {worst_at[2]} vs sequential {worst_at[3]}), ER/F1 within "
+          f"{worst_metric:.3g} (band {STACK_METRIC_ATOL}), equal best epochs")
+    # Where the gap between the modes comes from: their per-step losses from
+    # one init, with the preset's GRUs and WIDE_V2's, bf16 and float32 trunks.
+    gaps = {}
+    for gru in (get_preset("timepooled-v2").model.gru_hidden, m.gru_hidden):
+        for trunk in ("bfloat16", "float32"):
+            c = cfg.replace(model=dataclasses.replace(m, gru_hidden=gru, compute_dtype=trunk))
+            with _cudnn_deterministic():
+                g = _stack_divergence(c, STACK_EPOCHS * n_train)
+            gaps[f"{tuple(gru)} {trunk}"] = g
+            print(f"[kernel B wide] stacked vs sequential step losses, timepooled-v2 gru_hidden "
+                  f"{tuple(gru)}, {trunk} trunk, {STACK_RUNS} seeds from one init: largest "
+                  f"relative gap over seeds at steps 1, 2, 5, 10, 20, {len(g)}: "
+                  f"{', '.join(f'{g[i - 1]:.3g}' for i in (1, 2, 5, 10, 20, len(g)))}; "
+                  f"max {max(g):.3g}")
+    return {"launches": 2 * layers + wide_launches, "worst": worst, "step_ms": step_ms,
+            "loss_rel": worst_loss, "metric": worst_metric, "step_gaps": gaps}
+
+
+def phase_wide_paths(workdir: str) -> dict:
+    """[kernel B wide]'s three full-width paths on the wide body: `run_fold`
+    and a card-vs-CPU train step of sednet-dcase with WIDE_SEDNET's GRUs, that
+    checkpoint served, and stacked multi-seed timepooled-v2 with WIDE_V2's.
+    Returns the wide body's launches on each path and the errors."""
+    t0 = time.perf_counter()
+    train_launches, cfg, _ = phase_train(os.path.join(workdir, "train"), WIDE_SEDNET,
+                                         "[kernel B wide] train")
+    step = phase_train_step(WIDE_SEDNET, "[kernel B wide] train step")
+    serving = _wide_serving(cfg, os.path.join(workdir, "train", "fold1", "best_fold1.npz"))
+    stacked = _wide_stacked(os.path.join(workdir, "stacked"))
+    launches = {"train": train_launches["gru_wide"] + step["launches"],
+                "serving": serving["launches"], "stacked": stacked["launches"]}
+    check(all(v > 0 for v in launches.values()), f"wide body launches by path {launches}")
+    print(f"[kernel B wide] the wide body's launches by path {launches}; paths in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "step": step, "serving": serving, "stacked": stacked}
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -3163,11 +3784,11 @@ def main() -> int:
 
     pcm = tones(120.0, 9, silent=[(50.0, 52.0)])
     kernel_a, dft_err = phase_logmel(bucket_signal(pcm, FrontendConfig()))
-    kernel_b, retained = phase_gru()
+    kernel_b, wide_serving_err = phase_gru()
     with tempfile.TemporaryDirectory() as workdir:
         launches, fe_kernel, model = phase_main(workdir, pcm)
     phase_throughput(fe_kernel, model, pcm)
-    kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_retained = phase_gru_train(retained)
+    (kernel_fwd_res, kernel_bwd, kernel_dwh), wide_train = phase_gru_train()
     phase_train_step()
     with tempfile.TemporaryDirectory() as workdir:
         train_dir, feature_dir = (os.path.join(workdir, d) for d in ("train", "feature"))
@@ -3185,6 +3806,8 @@ def main() -> int:
         stack_launches, stack = phase_multiseed_stacked(os.path.join(workdir, "stacked"))
         serve_launches, serve_numbers = phase_serve(train_dir, os.path.join(workdir, "serve"),
                                                     pcm)
+        wide = phase_gru_wide()
+        wide_paths = phase_wide_paths(os.path.join(workdir, "wide"))
     kernel_b.update(eval_numbers)
     kernel_b.update(serve_numbers)
     kernel_b["max_abs_err"] = max(kernel_b["max_abs_err"], serve_numbers["serve_max_abs_err"])
@@ -3196,7 +3819,7 @@ def main() -> int:
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
     launches["fused_logmel_mixed"] = mixed_launches
     launches["fused_logmel_dft"] = kernel_dft.pop("launches")
-    launches["gru_scan_retained"] = kernel_retained.pop("launches")
+    launches["gru_wide"] = sum(wide_paths["launches"].values())
     # kernel B's stacked launches (one per kernel for all seeds) on the
     # stacked main path, and its stacked numbers at timepooled-v2's H=16
     for k in ("gru_scan_fwd", "gru_scan_fwd_res", "gru_scan_bwd", "gru_dwh"):
@@ -3213,10 +3836,11 @@ def main() -> int:
     kernel_fwd_res["max_abs_err"] = max(kernel_fwd_res["max_abs_err"], stack["worst"]["fwd"])
     kernel_bwd["max_abs_err"] = max(kernel_bwd["max_abs_err"], stack["worst"]["bwd"])
     kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])
+    kernel_wide = _wide_entry(wide, wide_paths, wide_train, wide_serving_err)
     kernels = []
     head = ("name", "route", "source", "replaces")
     for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_dft, kernel_b,
-              kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_retained):
+              kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_wide):
         kernels.append({**{key: k[key] for key in head}, "launches": launches[k["name"]],
                         **{key: v for key, v in k.items() if key not in head}})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]

@@ -10,12 +10,12 @@
 //     dxp and dh0), then gru_warp_dwh (dwh and dbh from the stored rows, one
 //     partial per block) and gru_warp_sum_partials (the partials added in
 //     block order, so dwh is bitwise equal from run to run).
-// csrc/gru_scan.cu keeps serving 32 < H <= 128 (forward) and <= 64
-// (backward). The contract is the same: pre-projected inputs xp = x @ wi + bi
-// (B, T, 3H), recurrent kernel wh (H, 3H) in gate order (reset, update,
-// candidate), bias bh (3H) read only when reset_after, initial state h0 (B, H)
-// -> ys (B, T, H), h_last (B, H) and, with residuals, res (B, T, RW) =
-// r | z | n (| hn when reset_after). Both conventions:
+// csrc/gru_wide.cu serves 32 < H. The contract is the same: pre-projected
+// inputs xp = x @ wi + bi (B, T, 3H), recurrent kernel wh (H, 3H) in gate
+// order (reset, update, candidate), bias bh (3H) read only when
+// reset_after, initial state h0 (B, H) -> ys (B, T, H), h_last (B, H) and,
+// with residuals, res (B, T, RW) = r | z | n (| hn when reset_after).
+// Both conventions:
 //   reset_after=1: hp = h @ wh + bh; r = g(xr + hp_r); z = g(xz + hp_z);
 //                  n = tanh(xn + r * hp_n)
 //   reset_after=0: r = g(xr + h @ wh_r); z = g(xz + h @ wh_z);
@@ -31,7 +31,7 @@
 // on the one warp that owns the row: at H=32 about 240 (the broadcast reads
 // and 96 FMAs of the dot products, the gates, the stores), 0.33-0.36 us a
 // step forward and 0.35 us backward on an H100, where the first body
-// (csrc/gru_scan.cu) took 1.0 and 6.97 us.
+// (retired) took 1.0 and 6.97 us.
 //
 // What the design does about it:
 //   * registers, not shared memory: lane j owns hidden unit j and holds the

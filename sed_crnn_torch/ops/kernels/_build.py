@@ -24,7 +24,7 @@ from typing import Dict, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sed_crnn_torch"
-KERNEL_SOURCES = ("fused_logmel", "gru_scan", "gru_warp", "logmel_fft", "logmel_mixed")
+KERNEL_SOURCES = ("fused_logmel", "gru_warp", "gru_wide", "logmel_fft", "logmel_mixed")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,5 @@
 """GRU recurrence: the CUDA kernels (``csrc/gru_warp.cu`` and
-``csrc/gru_scan.cu``), their plain PyTorch versions, and the
+``csrc/gru_wide.cu``), their plain PyTorch versions, and the
 `torch.autograd.Function`s that join them.
 
 The counterpart of the JAX package's `ops/pallas/gru_scan.py`, with its
@@ -9,16 +9,19 @@ batch-major contract: ``xp (B, T, 3H)`` pre-projected inputs
 ``h_last (B, H)``. Both ``reset_after`` conventions, ``sigmoid`` and
 keras-2.2 ``hard_sigmoid`` gates, and reverse time.
 
-Two CUDA bodies, chosen by `gru_body` from the hidden width H:
+Two CUDA bodies, chosen by `gru_body` from the hidden width H, forward and
+backward alike; every H >= 1 runs one of them:
 
 * ``"warp"`` (``csrc/gru_warp.cu``), H <= 32 (every preset): one warp per
   batch row (or 32 / HP rows, HP = H rounded up to a power of two), the
-  recurrent weights in registers, one or two directions per launch, and the
-  backward's ``dwh``/``dbh`` reduced after the gradient chain by a separate
-  kernel over the stored rows (`gru_dwh_plain` is its reference);
-* ``"retained"`` (``csrc/gru_scan.cu``), 32 < H <= 128 for the forward and
-  <= 64 for the backward: a block of batch rows per direction, the weights
-  and the partial ``dwh`` in shared memory; a pair is two launches.
+  recurrent weights in registers;
+* ``"wide"`` (``csrc/gru_wide.cu``), H > 32: four lanes per hidden unit, each
+  holding a quarter of the unit's weights in registers up to H = 128 (read
+  through L2 above), R batch rows a block.
+
+Both run one or two directions (and S seeds) per launch, and reduce the
+backward's ``dwh``/``dbh`` after the gradient chain by a separate kernel over
+the stored rows (`gru_dwh_plain` is its reference), summed in a fixed order.
 
 Entry points, each of which launches a kernel for a CUDA tensor, runs its
 plain version only for a CPU tensor, and counts its launches:
@@ -34,25 +37,24 @@ plain version only for a CPU tensor, and counts its launches:
   ``gru_scan_fwd_res.launches``.
 * `gru_scan_bwd` / `gru_scan_pair_bwd`: the reverse-time gradient recurrence
   (``_bwd_kernel``) over the stored residuals -> ``dxp, dwh, dbh, dh0``.
-  The chain is counted in ``gru_scan_bwd.launches``; the warp body's
-  ``dwh``/``dbh`` reduction in ``gru_scan_bwd.dwh_launches``; the fixed-order
-  sum of per-block partials (either body) in ``gru_scan_bwd.sum_launches``.
-  ``dbh`` is zero when ``reset_after`` is False, as the JAX wrapper sets it.
+  The chain is counted in ``gru_scan_bwd.launches``, the ``dwh``/``dbh``
+  reduction in ``gru_scan_bwd.dwh_launches`` and the fixed-order sum of its
+  partials in ``gru_scan_bwd.sum_launches``. ``dbh`` is zero when
+  ``reset_after`` is False, as the JAX wrapper sets it.
 
-A pair on the warp body is one launch of each kernel; ``direction 0`` runs
-forward in time and ``direction 1`` reversed, as `nn/gru.py`'s BiGRU needs.
+A pair is one launch of each kernel; ``direction 0`` runs forward in time
+and ``direction 1`` reversed, as `nn/gru.py`'s BiGRU needs.
 
 `gru_scan_stack`, `gru_scan_stack_fwd_res`, `gru_scan_stack_bwd` and
 `GruScanStackFn` are the pair's entry points for S independent BiGRUs of one
 shape (stacked multi-seed training, `models/stacked.py`): every operand of a
 direction carries a leading seed axis, ``xp (S, B, T, 3H)``, ``wh (S, H,
-3H)``, ``bh (S, 3H)``, ``h0 (S, B, H)``, and so does every result. On the
-warp body each kernel launches once per call for all S seeds x 2
-directions, counted in the counters above; the retained body takes no seed
-axis. A CPU tensor runs the plain versions seed by seed.
-``gru_scan.retained_launches`` counts the launches of the retained body's
-recurrences (forward, residual forward, backward) among all of the above.
-The kernels stream every per-step array, so any T and B are taken.
+3H)``, ``bh (S, 3H)``, ``h0 (S, B, H)``, and so does every result. Each
+kernel launches once per call for all S seeds x 2 directions, counted in the
+counters above. A CPU tensor runs the plain versions seed by seed.
+``gru_scan.wide_launches`` counts the launches of the wide body's
+recurrences (forward, residual forward, backward chain) among all of the
+above. The kernels stream every per-step array, so any T and B are taken.
 """
 
 from __future__ import annotations
@@ -66,8 +68,6 @@ import torch
 from sed_crnn_torch.ops.kernels import _build
 
 GATES = ("sigmoid", "hard_sigmoid")
-MAX_HIDDEN = 128      # forward: the retained body keeps wh (H, 3H) in shared memory
-MAX_HIDDEN_BWD = 64   # backward: the retained body keeps whT and the partial dwh there
 WARP_MAX_HIDDEN = 32  # the warp body: lane j owns hidden unit j
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -101,13 +101,12 @@ def res_width(reset_after: bool, H: int) -> int:
 
 
 def gru_body(H: int, backward: bool = False) -> str:
-    """The CUDA body that a hidden width H runs on: ``"warp"``
-    (``csrc/gru_warp.cu``) for H <= 32, ``"retained"`` (``csrc/gru_scan.cu``)
-    up to `MAX_HIDDEN` (forward) or `MAX_HIDDEN_BWD` (``backward``)."""
-    limit = MAX_HIDDEN_BWD if backward else MAX_HIDDEN
-    if not 0 < H <= limit:
-        raise ValueError(f"hidden width must satisfy 0 < H <= {limit}, got {H}")
-    return "warp" if H <= WARP_MAX_HIDDEN else "retained"
+    """The CUDA body that a hidden width H runs on, forward and backward
+    alike: ``"warp"`` (``csrc/gru_warp.cu``) for H <= 32, ``"wide"``
+    (``csrc/gru_wide.cu``) above."""
+    if H <= 0:
+        raise ValueError(f"hidden width must be positive, got {H}")
+    return "warp" if H <= WARP_MAX_HIDDEN else "wide"
 
 
 def _steps(T: int, reverse: bool):
@@ -264,25 +263,6 @@ class _DwhDir(ctypes.Structure):
 
 
 @lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The retained body, ``csrc/gru_scan.cu``."""
-    lib = _build.load("gru_scan")
-    lib.gru_scan_fwd.argtypes = [_p] * 6 + [_i] * 6 + [_p]
-    lib.gru_scan_fwd.restype = _i
-    lib.gru_scan_fwd_res.argtypes = [_p] * 7 + [_i] * 6 + [_p]
-    lib.gru_scan_fwd_res.restype = _i
-    lib.gru_scan_bwd_blocks.argtypes = [_i, _i]
-    lib.gru_scan_bwd_blocks.restype = _i
-    lib.gru_scan_bwd.argtypes = [_p] * 9 + [_i] * 6 + [_p]
-    lib.gru_scan_bwd.restype = _i
-    lib.gru_scan_sum_partials.argtypes = [_p, _p, _i, _i, _p]
-    lib.gru_scan_sum_partials.restype = _i
-    lib.gru_scan_error_string.argtypes = [_i]
-    lib.gru_scan_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@lru_cache(maxsize=None)
 def _warp_lib() -> ctypes.CDLL:
     """The warp body, ``csrc/gru_warp.cu``."""
     lib = _build.load("gru_warp")
@@ -299,6 +279,34 @@ def _warp_lib() -> ctypes.CDLL:
     lib.gru_warp_error_string.argtypes = [_i]
     lib.gru_warp_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@lru_cache(maxsize=None)
+def _wide_lib() -> ctypes.CDLL:
+    """The wide body, ``csrc/gru_wide.cu``."""
+    lib = _build.load("gru_wide")
+    lib.gru_wide_scratch_floats.argtypes = [_i] * 5
+    lib.gru_wide_scratch_floats.restype = ctypes.c_longlong
+    lib.gru_wide_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 8 + [_p, _p]
+    lib.gru_wide_fwd_launch.restype = _i
+    lib.gru_wide_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 7 + [_p, _p]
+    lib.gru_wide_bwd_launch.restype = _i
+    lib.gru_wide_dwh_splits.argtypes = [_i, _i, _i]
+    lib.gru_wide_dwh_splits.restype = _i
+    lib.gru_wide_dwh_launch.argtypes = [ctypes.POINTER(_DwhDir)] + [_i] * 6 + [_p]
+    lib.gru_wide_dwh_launch.restype = _i
+    lib.gru_wide_sum_partials.argtypes = [_p, _p, _i, _i, _i, _p]
+    lib.gru_wide_sum_partials.restype = _i
+    lib.gru_wide_error_string.argtypes = [_i]
+    lib.gru_wide_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _scratch(lib, n_dir: int, n_seed: int, B: int, H: int, backward: bool,
+             device) -> Optional[torch.Tensor]:
+    """The wide body's global scratch above its register tier, else None."""
+    n = lib.gru_wide_scratch_floats(n_dir, n_seed, B, H, int(backward))
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
 
 
 def _checked(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
@@ -323,14 +331,14 @@ def _device_of(xp: torch.Tensor) -> torch.device:
     return xp.device
 
 
-def _validate(H3: int, gate_activation: str, backward: bool) -> Tuple[int, str]:
+def _validate(H3: int, gate_activation: str) -> Tuple[int, str]:
     """-> (H, the body that runs it)."""
     if gate_activation not in GATES:
         raise ValueError(f"unknown gate_activation {gate_activation!r}")
     H = H3 // 3
     if H3 != 3 * H:
         raise ValueError(f"the gate axis must be 3H, got {H3}")
-    return H, gru_body(H, backward)
+    return H, gru_body(H)
 
 
 def _bias(bh: Optional[torch.Tensor], reset_after: bool, xp: torch.Tensor) -> Optional[torch.Tensor]:
@@ -354,15 +362,17 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
          reset_after: bool, gate_activation: str, with_res: bool,
          body: Optional[str] = None, stack: Optional[int] = None) -> Tuple[List[tuple], int]:
     """Launch the forward of ``len(xps)`` (1 or 2) directions of one shape on
-    the card, on ``body`` (default: `gru_body`'s choice) -> per direction
-    ``(ys, res or None, h_last)``, and the number of launches. ``stack``:
-    the seed count S of stacked operands (both directions, the warp body),
-    None for unstacked ones."""
+    the card, on ``body`` (default: `gru_body`'s choice; the private launch
+    takes either body at any width) -> per direction ``(ys, res or None,
+    h_last)``, and the number of launches. ``stack``: the seed count S of
+    stacked operands (both directions), None for unstacked ones."""
     dev = xps[0].device
     lead = _lead(stack)
     B, T, H3 = xps[0].shape[-3:]
-    H, chosen = _validate(H3, gate_activation, backward=False)
+    H, chosen = _validate(H3, gate_activation)
     body = body or chosen
+    if body not in ("warp", "wide"):
+        raise ValueError(f"unknown GRU body {body!r}")
     dirs = []
     for x, wh, bh, h0 in zip(xps, whs, bhs, h0s):
         dirs.append((_checked("xp", x, lead + (B, T, H3), dev),
@@ -377,49 +387,42 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
         for (_, _, _, h0), (_, _, hl) in zip(dirs, outs):
             hl.copy_(h0)
         return outs, 0
-    flags = (int(reset_after), int(gate_activation == "hard_sigmoid"))
+    n_dir, n_seed = len(dirs), stack or 1
+    shape = (n_dir, n_seed, B, T, H, int(reset_after), int(gate_activation == "hard_sigmoid"),
+             int(with_res))
+    arr = (_FwdDir * n_dir)(*(
+        _FwdDir(x.data_ptr(), wh.data_ptr(), _ptr(bh), h0.data_ptr(), ys.data_ptr(),
+                _ptr(res), hl.data_ptr(), int(rev))
+        for (x, wh, bh, h0), (ys, res, hl), rev in zip(dirs, outs, reverses)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if body == "warp":
             lib = _warp_lib()
-            arr = (_FwdDir * len(dirs))(*(
-                _FwdDir(x.data_ptr(), wh.data_ptr(), _ptr(bh), h0.data_ptr(), ys.data_ptr(),
-                        _ptr(res), hl.data_ptr(), int(rev))
-                for (x, wh, bh, h0), (ys, res, hl), rev in zip(dirs, outs, reverses)))
-            status = lib.gru_warp_fwd_launch(arr, len(dirs), stack or 1, B, T, H, *flags,
-                                             int(with_res), stream)
+            status = lib.gru_warp_fwd_launch(arr, *shape, stream)
             _raise_on(status, "gru_warp_fwd", lib.gru_warp_error_string)
-            return outs, 1
-        if body != "retained":
-            raise ValueError(f"unknown GRU body {body!r}")
-        if stack is not None:
-            raise ValueError("the retained GRU body (H > 32) takes no seed axis")
-        lib = _lib()
-        for (x, wh, bh, h0), (ys, res, hl), rev in zip(dirs, outs, reverses):
-            if with_res:
-                status = lib.gru_scan_fwd_res(x.data_ptr(), wh.data_ptr(), _ptr(bh),
-                                              h0.data_ptr(), ys.data_ptr(), res.data_ptr(),
-                                              hl.data_ptr(), B, T, H, *flags, int(rev), stream)
-            else:
-                status = lib.gru_scan_fwd(x.data_ptr(), wh.data_ptr(), _ptr(bh), h0.data_ptr(),
-                                          ys.data_ptr(), hl.data_ptr(), B, T, H, *flags,
-                                          int(rev), stream)
-            _raise_on(status, "gru_scan_fwd", lib.gru_scan_error_string)
-            gru_scan.retained_launches += 1
-    return outs, len(dirs)
+        else:
+            lib = _wide_lib()
+            scratch = _scratch(lib, n_dir, n_seed, B, H, False, dev)
+            status = lib.gru_wide_fwd_launch(arr, *shape, _ptr(scratch), stream)
+            _raise_on(status, "gru_wide_fwd", lib.gru_wide_error_string)
+            gru_scan.wide_launches += 1
+    return outs, 1
 
 
 def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_after: bool,
          gate_activation: str, body: Optional[str] = None,
          stack: Optional[int] = None) -> List[tuple]:
     """Launch the backward of ``len(ys_s)`` directions of one shape on the
-    card -> per direction ``(dxp, dwh, dbh, dh0)``; counts its launches.
-    ``stack`` as for `_fwd`."""
+    card: the gradient chain, the ``dwh``/``dbh`` reduction and the
+    fixed-order sum of its partials -> per direction ``(dxp, dwh, dbh,
+    dh0)``; counts its launches. ``body`` and ``stack`` as for `_fwd`."""
     dev = ys_s[0].device
     lead = _lead(stack)
     B, T, H = ys_s[0].shape[-3:]
-    _, chosen = _validate(3 * H, gate_activation, backward=True)
+    _, chosen = _validate(3 * H, gate_activation)
     body = body or chosen
+    if body not in ("warp", "wide"):
+        raise ValueError(f"unknown GRU body {body!r}")
     RW = res_width(reset_after, H)
     dirs = [(_checked("ys", ys, lead + (B, T, H), dev),
              _checked("res", res, lead + (B, T, RW), dev),
@@ -435,58 +438,44 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
     n = 3 * H * H + 3 * H
     n_seed = stack or 1
     flags = (int(reset_after), int(gate_activation == "hard_sigmoid"))
+    chain = (_BwdDir * n_dir)(*(
+        _BwdDir(*(t.data_ptr() for t in d), dxp.data_ptr(), dh0.data_ptr(), int(rev))
+        for d, dxp, dh0, rev in zip(dirs, dxps, dh0s, reverses)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if body == "warp":
-            lib = _warp_lib()
-            arr = (_BwdDir * n_dir)(*(
-                _BwdDir(*(t.data_ptr() for t in d), dxp.data_ptr(), dh0.data_ptr(), int(rev))
-                for d, dxp, dh0, rev in zip(dirs, dxps, dh0s, reverses)))
-            status = lib.gru_warp_bwd_launch(arr, n_dir, n_seed, B, T, H, *flags, stream)
-            _raise_on(status, "gru_warp_bwd", lib.gru_warp_error_string)
-            gru_scan_bwd.launches += 1
-            # Partials per (direction, seed), each seed's in block order.
-            part = torch.empty((n_dir, n_seed, lib.gru_warp_dwh_blocks(B, T), n),
-                               dtype=torch.float32, device=dev)
-            arr = (_DwhDir * n_dir)(*(
-                _DwhDir(ys.data_ptr(), res.data_ptr(), h0.data_ptr(), dxp.data_ptr(),
-                        part[k].data_ptr(), int(rev))
-                for k, ((ys, res, _, h0, _, _), dxp, rev) in enumerate(zip(dirs, dxps, reverses))))
-            status = lib.gru_warp_dwh_launch(arr, n_dir, n_seed, B, T, H, int(reset_after),
-                                             stream)
-            _raise_on(status, "gru_warp_dwh", lib.gru_warp_error_string)
-            gru_scan_bwd.dwh_launches += 1
-            sums = torch.empty((n_dir, n_seed, n), dtype=torch.float32, device=dev)
-            status = lib.gru_warp_sum_partials(part.data_ptr(), sums.data_ptr(), n_dir * n_seed,
-                                               part.shape[2], n, stream)
-            _raise_on(status, "gru_warp_sum_partials", lib.gru_warp_error_string)
-            gru_scan_bwd.sum_launches += 1
-            if stack is not None:
-                return [(dxp, sums[k, :, : 3 * H * H].view(stack, H, 3 * H),
-                         sums[k, :, 3 * H * H :], dh0)
-                        for k, (dxp, dh0) in enumerate(zip(dxps, dh0s))]
-            sums = sums[:, 0]
-        elif body == "retained":
-            if stack is not None:
-                raise ValueError("the retained GRU body (H > 32) takes no seed axis")
-            lib = _lib()
-            part = torch.empty((lib.gru_scan_bwd_blocks(H, B), n), dtype=torch.float32,
-                               device=dev)
-            sums = torch.empty((n_dir, n), dtype=torch.float32, device=dev)
-            for k, (d, dxp, dh0, rev) in enumerate(zip(dirs, dxps, dh0s, reverses)):
-                status = lib.gru_scan_bwd(*(t.data_ptr() for t in d), dxp.data_ptr(),
-                                          dh0.data_ptr(), part.data_ptr(), B, T, H, *flags,
-                                          int(rev), stream)
-                _raise_on(status, "gru_scan_bwd", lib.gru_scan_error_string)
-                gru_scan_bwd.launches += 1
-                gru_scan.retained_launches += 1
-                status = lib.gru_scan_sum_partials(part.data_ptr(), sums[k].data_ptr(),
-                                                   part.shape[0], n, stream)
-                _raise_on(status, "gru_scan_sum_partials", lib.gru_scan_error_string)
-                gru_scan_bwd.sum_launches += 1
+            lib, name = _warp_lib(), "gru_warp"
+            status = lib.gru_warp_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, stream)
+            n_part = lib.gru_warp_dwh_blocks(B, T)
         else:
-            raise ValueError(f"unknown GRU body {body!r}")
-    return [(dxp, sums[k, : 3 * H * H].view(H, 3 * H), sums[k, 3 * H * H :], dh0)
+            lib, name = _wide_lib(), "gru_wide"
+            scratch = _scratch(lib, n_dir, n_seed, B, H, True, dev)
+            status = lib.gru_wide_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags,
+                                             _ptr(scratch), stream)
+            gru_scan.wide_launches += 1
+            n_part = lib.gru_wide_dwh_splits(B, T, H)
+        error_string = getattr(lib, f"{name}_error_string")
+        _raise_on(status, f"{name}_bwd", error_string)
+        gru_scan_bwd.launches += 1
+        # Partials per (direction, seed), each seed's in a fixed order.
+        part = torch.empty((n_dir, n_seed, n_part, n), dtype=torch.float32, device=dev)
+        arr = (_DwhDir * n_dir)(*(
+            _DwhDir(ys.data_ptr(), res.data_ptr(), h0.data_ptr(), dxp.data_ptr(),
+                    part[k].data_ptr(), int(rev))
+            for k, ((ys, res, _, h0, _, _), dxp, rev) in enumerate(zip(dirs, dxps, reverses))))
+        status = getattr(lib, f"{name}_dwh_launch")(arr, n_dir, n_seed, B, T, H,
+                                                     int(reset_after), stream)
+        _raise_on(status, f"{name}_dwh", error_string)
+        gru_scan_bwd.dwh_launches += 1
+        sums = torch.empty((n_dir, n_seed, n), dtype=torch.float32, device=dev)
+        status = getattr(lib, f"{name}_sum_partials")(part.data_ptr(), sums.data_ptr(),
+                                                      n_dir * n_seed, n_part, n, stream)
+        _raise_on(status, f"{name}_sum_partials", error_string)
+        gru_scan_bwd.sum_launches += 1
+    if stack is not None:
+        return [(dxp, sums[k, :, : 3 * H * H].view(stack, H, 3 * H), sums[k, :, 3 * H * H :], dh0)
+                for k, (dxp, dh0) in enumerate(zip(dxps, dh0s))]
+    return [(dxp, sums[k, 0, : 3 * H * H].view(H, 3 * H), sums[k, 0, 3 * H * H :], dh0)
             for k, (dxp, dh0) in enumerate(zip(dxps, dh0s))]
 
 
@@ -520,7 +509,7 @@ def gru_scan(
 
 
 gru_scan.launches = 0
-gru_scan.retained_launches = 0
+gru_scan.wide_launches = 0
 
 
 def gru_scan_fwd_res(
@@ -557,8 +546,8 @@ def gru_scan_bwd(
     reverse: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient recurrence -> ``(dxp, dwh, dbh, dh0)``. CUDA tensor: the
-    backward kernels (the chain, then on the warp body the ``dwh``
-    reduction, then the fixed-order partial sum); CPU tensor:
+    backward kernels (the chain, the ``dwh`` reduction, the fixed-order
+    partial sum); CPU tensor:
     `gru_scan_bwd_plain`."""
     if _device_of(ys).type == "cpu":
         return gru_scan_bwd_plain(ys, res, wh, h0, dys, dhl, reset_after,
@@ -596,8 +585,8 @@ def gru_scan_pair(
     reversed) pair -> ``((ys_f, h_last_f), (ys_b, h_last_b))``.
 
     With grad enabled and an input that requires grad: `GruScanPairFn`.
-    Otherwise, for CUDA tensors one launch of the warp body (two of the
-    retained one), for CPU tensors two `gru_scan_plain` runs."""
+    Otherwise, for CUDA tensors one forward launch, for CPU tensors two
+    `gru_scan_plain` runs."""
     bh = _pair_bias(bh, reset_after, xp)
     if _needs_grad(*xp, *wh, *bh, *h0):
         ys_f, ys_b, hl_f, hl_b = GruScanPairFn.apply(*xp, *wh, *bh, *h0, reset_after,
@@ -641,8 +630,8 @@ def gru_scan_pair_bwd(
     gate_activation: str,
 ) -> Tuple[tuple, tuple]:
     """`gru_scan_bwd` of both directions -> ``((dxp, dwh, dbh, dh0) forward,
-    (...) reversed)``: on the warp body one launch each of the chain, the
-    ``dwh`` reduction and the partial sum."""
+    (...) reversed)``: on the card one launch each of the chain, the ``dwh``
+    reduction and the partial sum."""
     if _check_pair(ys).type == "cpu":
         return tuple(gru_scan_bwd_plain(*a, reset_after, gate_activation, rev)
                      for *a, rev in zip(ys, res, wh, h0, dys, dhl, (False, True)))
@@ -756,8 +745,7 @@ def gru_scan_stack(
     h_last_b))`` of shapes (S, B, T, H) and (S, B, H).
 
     With grad enabled and an input that requires grad: `GruScanStackFn`.
-    Otherwise, for CUDA tensors one launch of the warp body for every seed and
-    direction, for CPU tensors `gru_scan_plain` seed by seed."""
+    Otherwise, for CUDA tensors one launch for every seed and direction, for CPU tensors `gru_scan_plain` seed by seed."""
     dev, S = _check_stack(xp)
     bh = _stack_bias(bh, reset_after, xp)
     if _needs_grad(*xp, *wh, *bh, *h0):

@@ -52,13 +52,13 @@ def test_build_all_builds_each_source_once(tmp_path, build_dir, monkeypatch):
 
 
 def test_failed_compile_raises_after_waiting_for_all(tmp_path, build_dir, monkeypatch):
-    nvcc = _fake_nvcc(tmp_path, fail_on="gru_scan.cu")
+    nvcc = _fake_nvcc(tmp_path, fail_on="gru_wide.cu")
     monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
-    with pytest.raises(RuntimeError, match="nvcc failed for gru_scan.cu"):
+    with pytest.raises(RuntimeError, match="nvcc failed for gru_wide.cu"):
         _build.build_all()
     names = sorted(p.name for p in build_dir.iterdir())
     others = sorted(_build._library_path(n)[1].name for n in _build.KERNEL_SOURCES
-                    if n != "gru_scan")
+                    if n != "gru_wide")
     assert names == others  # no temp files left
 
 
@@ -67,4 +67,4 @@ def test_every_kernel_source_is_listed():
     bodies) are exactly the ones `build_all` compiles."""
     on_disk = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert on_disk == sorted(_build.KERNEL_SOURCES)
-    assert on_disk == ["fused_logmel", "gru_scan", "gru_warp", "logmel_fft", "logmel_mixed"]
+    assert on_disk == ["fused_logmel", "gru_warp", "gru_wide", "logmel_fft", "logmel_mixed"]

@@ -3,7 +3,7 @@
 `BiGRU`, which runs through them) on CPU tensors, against the JAX package's
 `BiGRU.apply` on its Pallas `gru_scan` (interpreted on the CPU, gradients
 through its custom-VJP backward kernel); and `gru_body`, which picks the CUDA
-body (``csrc/gru_warp.cu`` up to H=32, ``csrc/gru_scan.cu`` above).
+body (``csrc/gru_warp.cu`` up to H=32, ``csrc/gru_wide.cu`` above).
 
 Tiny shapes (T=12, B=3, H=4). Tolerance 1e-5 absolute, as in
 tests/test_torch_gru.py: float32 on both sides, the same per-step arithmetic
@@ -113,7 +113,7 @@ def test_pair_functions_on_cpu_are_two_plain_directions(reset_after):
     h0 = tuple(t(0.5 * rng.standard_normal((B, H))) for _ in DIRS)
     dys = tuple(t(rng.standard_normal((B, T, H))) for _ in DIRS)
     dhl = tuple(t(rng.standard_normal((B, H))) for _ in DIRS)
-    counts = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan.retained_launches)
+    counts = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan.wide_launches)
     pair = gru_scan_pair(xp, wh, bh, h0, reset_after, "sigmoid")
     pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, "sigmoid")
     grads = gru_scan_pair_bwd(tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res), wh,
@@ -126,20 +126,23 @@ def test_pair_functions_on_cpu_are_two_plain_directions(reset_after):
                                           dhl[k], reset_after, "sigmoid", rev)
         for a, b in zip(pair[k] + pair_res[k] + grads[k], single + single_res + single_grads):
             assert torch.equal(a, b)
-    assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan.retained_launches) == counts
+    assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan.wide_launches) == counts
 
 
 @pytest.mark.parametrize("H_,forward,backward", [
     (4, "warp", "warp"), (8, "warp", "warp"), (16, "warp", "warp"), (32, "warp", "warp"),
-    (33, "retained", "retained"), (64, "retained", "retained")])
+    (33, "wide", "wide"), (64, "wide", "wide")])
 def test_gru_body_by_hidden_width(H_, forward, backward):
     assert gru_body(H_) == forward
     assert gru_body(H_, backward=True) == backward
 
 
 def test_gru_body_rejects_widths_no_body_takes():
-    assert gru_body(128) == "retained"
-    for h, bwd in ((0, False), (129, False), (65, True)):
+    """Every positive width has a body; only H <= 0 raises."""
+    assert gru_body(1) == "warp"
+    for h, bwd in ((128, False), (129, False), (65, True), (4096, True)):
+        assert gru_body(h, backward=bwd) == "wide"
+    for h, bwd in ((0, False), (-1, False), (0, True)):
         with pytest.raises(ValueError):
             gru_body(h, backward=bwd)
 

@@ -68,8 +68,9 @@ def cuda():
     return torch.device("cuda")
 
 
-# H <= 32 runs the warp body (csrc/gru_warp.cu), H=64 the retained one.
-GRU_SHAPES = [(1, 1, 4), (3, 7, 8), (7, 45, 16), (5, 300, 32), (2, 20, 64)]
+# H <= 32 runs the warp body (csrc/gru_warp.cu), H > 32 the wide one
+# (csrc/gru_wide.cu; registers up to 128, L2 above).
+GRU_SHAPES = [(1, 1, 4), (3, 7, 8), (7, 45, 16), (5, 300, 32), (2, 20, 64), (3, 30, 129)]
 
 
 @pytest.mark.parametrize("B,T,H", GRU_SHAPES)
@@ -83,11 +84,11 @@ def test_gru_kernel_matches_plain(cuda, B, T, H, reset_after, gate, reverse):
     wh = t(rng.standard_normal((H, 3 * H)) / np.sqrt(H))
     bh = t(0.1 * rng.standard_normal(3 * H)) if reset_after else None
     h0 = t(0.5 * rng.standard_normal((B, H)))
-    launches, retained = gru_scan.launches, gru_scan.retained_launches
+    launches, wide = gru_scan.launches, gru_scan.wide_launches
     ys, hl = gru_scan(xp, wh, bh, h0, reset_after, gate, reverse)
     torch.cuda.synchronize()
     assert gru_scan.launches == launches + 1
-    assert gru_scan.retained_launches == retained + (gru_body(H) == "retained")
+    assert gru_scan.wide_launches == wide + (gru_body(H) == "wide")
     ys_p, hl_p = gru_scan_plain(xp, wh, bh, h0, reset_after, gate, reverse)
     torch.testing.assert_close(ys, ys_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(hl, hl_p, rtol=0, atol=1e-5)
@@ -115,7 +116,7 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
     conf = (reset_after, gate, reverse)
     n_fwd, n_bwd, n_sum = (gru_scan_fwd_res.launches, gru_scan_bwd.launches,
                            gru_scan_bwd.sum_launches)
-    n_dwh, n_retained = gru_scan_bwd.dwh_launches, gru_scan.retained_launches
+    n_dwh, n_wide = gru_scan_bwd.dwh_launches, gru_scan.wide_launches
     ys, res, hl = gru_scan_fwd_res(xp, wh, bh, h0, *conf)
     torch.cuda.synchronize()
     ys_p, res_p, hl_p = gru_scan_fwd_res_plain(xp, wh, bh, h0, *conf)
@@ -133,9 +134,9 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
         assert not bool(grads[2].any())
     assert (gru_scan_fwd_res.launches, gru_scan_bwd.launches, gru_scan_bwd.sum_launches) == (
         n_fwd + 1, n_bwd + 1, n_sum + 1)
-    warp = gru_body(H) == "warp"
-    assert gru_scan_bwd.dwh_launches == n_dwh + warp
-    assert gru_scan.retained_launches == n_retained + 3 * (not warp)  # fwd_res, fwd, bwd
+    assert gru_scan_bwd.dwh_launches == n_dwh + 1
+    wide = gru_body(H) == "wide"
+    assert gru_scan.wide_launches == n_wide + 3 * wide  # fwd_res, fwd, bwd
 
 
 @pytest.mark.parametrize("reset_after", [False, True])
@@ -189,27 +190,25 @@ def _pair_case(dev, B, T, H, reset_after, seed):
     return tuple(zip(a, b))
 
 
-@pytest.mark.parametrize("B,T,H", [(1, 256, 32), (8, 256, 16), (128, 256, 8), (3, 20, 64)])
+@pytest.mark.parametrize("B,T,H", [(1, 256, 32), (8, 256, 16), (128, 256, 8), (3, 20, 64),
+                                   (128, 64, 128), (8, 40, 256)])
 @pytest.mark.parametrize("reset_after", [False, True])
 @pytest.mark.parametrize("gate", ["sigmoid", "hard_sigmoid"])
 def test_gru_pair_launches_match_two_plain_directions(cuda, B, T, H, reset_after, gate):
-    """One pair launch (two on the retained body) of each kernel against the
+    """One pair launch of each kernel, on either body, against the
     single-direction plain versions run forward and reversed."""
     xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 70 + H)
-    warp = gru_body(H) == "warp"
+    wide = gru_body(H) == "wide"
     before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
-              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches)
     pair = gru_scan_pair(xp, wh, bh, h0, reset_after, gate)
     pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, gate)
     ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
     grads = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, gate)
     torch.cuda.synchronize()
-    n = 1 if warp else 2
     assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
             gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches,
-            gru_scan.retained_launches) == (
-        before[0] + n, before[1] + n, before[2] + n, before[3] + warp, before[4] + n,
-        before[5] + (0 if warp else 6))
+            gru_scan.wide_launches) == tuple(b + 1 for b in before[:5]) + (before[5] + 3 * wide,)
     for k, rev in enumerate((False, True)):
         conf = (reset_after, gate, rev)
         want = gru_scan_fwd_res_plain(xp[k], wh[k], bh[k], h0[k], *conf)
@@ -226,10 +225,10 @@ def test_gru_pair_forward_at_the_eval_batch(cuda, reset_after):
     """The evaluation path's shape: B=256 (`evaluate_split`'s default
     batch), T=256, H=32, one pair launch on the warp body (512 warps)."""
     xp, wh, bh, h0, _, _ = _pair_case(cuda, 256, 256, 32, reset_after, 256)
-    launches, retained = gru_scan.launches, gru_scan.retained_launches
+    launches, wide = gru_scan.launches, gru_scan.wide_launches
     pair = gru_scan_pair(xp, wh, bh, h0, reset_after, "sigmoid")
     torch.cuda.synchronize()
-    assert (gru_scan.launches, gru_scan.retained_launches) == (launches + 1, retained)
+    assert (gru_scan.launches, gru_scan.wide_launches) == (launches + 1, wide)
     for k, rev in enumerate((False, True)):
         want = gru_scan_plain(xp[k], wh[k], bh[k], h0[k], reset_after, "sigmoid", rev)
         for got, w in zip(pair[k], want):
@@ -243,10 +242,10 @@ def test_gru_pair_forward_at_the_live_serving_shapes(cuda, B, T, reset_after):
     the lookahead pair step (T=512) and `stream_step_batch` over B=8
     concurrent streams, one pair launch on the warp body each."""
     xp, wh, bh, h0, _, _ = _pair_case(cuda, B, T, 32, reset_after, 500 + B + T)
-    launches, retained = gru_scan.launches, gru_scan.retained_launches
+    launches, wide = gru_scan.launches, gru_scan.wide_launches
     pair = gru_scan_pair(xp, wh, bh, h0, reset_after, "sigmoid")
     torch.cuda.synchronize()
-    assert (gru_scan.launches, gru_scan.retained_launches) == (launches + 1, retained)
+    assert (gru_scan.launches, gru_scan.wide_launches) == (launches + 1, wide)
     for k, rev in enumerate((False, True)):
         want = gru_scan_plain(xp[k], wh[k], bh[k], h0[k], reset_after, "sigmoid", rev)
         for got, w in zip(pair[k], want):
@@ -275,17 +274,56 @@ def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, re
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
 
 
+WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256]
+
+
+@pytest.mark.parametrize("H", WIDE_WIDTHS)
+@pytest.mark.parametrize("B", [1, 8, 128])
+@pytest.mark.parametrize("reset_after", [False, True])
+@pytest.mark.parametrize("gate", ["sigmoid", "hard_sigmoid"])
+def test_wide_body_pair_matches_plain(cuda, H, B, reset_after, gate):
+    """The wide body (csrc/gru_wide.cu) at every width it serves, register
+    tier (H <= 128) and L2 tier: a pair's forward, residual forward and
+    backward against the plain versions of both directions (1e-5; gradients
+    1e-4 of each one's largest magnitude), dwh bitwise equal run to run, one
+    launch of each kernel."""
+    T = 64
+    xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 700 + H + B)
+    assert gru_body(H) == gru_body(H, backward=True) == "wide"
+    before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches)
+    pair = gru_scan_pair(xp, wh, bh, h0, reset_after, gate)
+    pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, gate)
+    ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
+    first = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, gate)
+    torch.cuda.synchronize()
+    assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
+            gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches,
+            gru_scan.wide_launches) == tuple(b + 1 for b in before[:5]) + (before[5] + 3,)
+    second = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, gate)
+    for k, rev in enumerate((False, True)):
+        conf = (reset_after, gate, rev)
+        want = gru_scan_fwd_res_plain(xp[k], wh[k], bh[k], h0[k], *conf)
+        for got, w in zip(pair_res[k], want):
+            torch.testing.assert_close(got, w, rtol=0, atol=1e-5)
+        assert torch.equal(pair[k][0], pair_res[k][0]) and torch.equal(pair[k][1], pair_res[k][2])
+        want = gru_scan_bwd_plain(ys[k], res[k], wh[k], h0[k], dys[k], dhl[k], *conf)
+        for got, w in zip(first[k], want):
+            torch.testing.assert_close(got, w, rtol=0, atol=1e-4 * max(float(w.abs().max()), 1e-6))
+        assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
+
+
 @pytest.mark.parametrize("H", [8, 32])
 def test_retained_body_still_matches_plain_at_warp_widths(cuda, H):
-    """The private launchers put the retained body on a width the warp body
-    takes (as chip_smoke.py times them side by side): same function."""
+    """The private launchers put the wide body on a width the warp body takes
+    (as chip_smoke.py times them side by side): same function."""
     xp, wh, bh, h0, dys, dhl = _gru_case(cuda, 4, 50, H, True, 11)
     outs = {}
-    for body in ("warp", "retained"):
+    for body in ("warp", "wide"):
         (fwd,), _ = _fwd([xp], [wh], [bh], [h0], [True], True, "sigmoid", True, body)
         (bwd,) = _bwd([fwd[0]], [fwd[1]], [wh], [h0], [dys], [dhl], [True], True, "sigmoid", body)
         outs[body] = fwd + bwd
-    for a, b in zip(outs["warp"], outs["retained"]):
+    for a, b in zip(outs["warp"], outs["wide"]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(float(b.abs().max()), 1e-6))
 
 
@@ -293,7 +331,7 @@ def test_retained_body_still_matches_plain_at_warp_widths(cuda, H):
 def test_bigru_autograd_launches_one_pair_per_kernel(cuda, reset_after):
     """Autograd through a two-layer BiGRU stack on the card: per layer one
     pair residual forward, one pair backward (chain, dwh reduction, partial
-    sum), none on the retained body; gradients as the CPU's plain versions."""
+    sum), none on the wide body; gradients as the CPU's plain versions."""
     gen = torch.Generator().manual_seed(3)
     layers = [BiGRU(10, 16, reset_after, "sigmoid"), BiGRU(32, 8, reset_after, "sigmoid")]
     for m in layers:
@@ -306,14 +344,14 @@ def test_bigru_autograd_launches_one_pair_per_kernel(cuda, reset_after):
             m.load_state_dict(src.state_dict())
             m.to(dev)
         before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
-                  gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+                  gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches)
         h = x.to(dev)
         for m in ms:
             h, _ = m(h)
         params = [p for m in ms for p in m.parameters()]
         grads[dev] = torch.autograd.grad(h.square().sum(), params)
         after = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
-                 gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+                 gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches)
         steps = tuple(a - b for a, b in zip(after, before))
         assert steps == ((0, 0, 0, 0, 0, 0) if dev == "cpu" else (0, 2, 2, 2, 2, 0))
     for g, w in zip(grads["cuda"], grads["cpu"]):
@@ -548,11 +586,12 @@ def test_logmel_kernel_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.parametrize("S,B,T,H",
-                         [(1, 128, 8, 16), (3, 128, 8, 8), (5, 9, 8, 16), (2, 33, 256, 32)])
+                         [(1, 128, 8, 16), (3, 128, 8, 8), (5, 9, 8, 16), (2, 33, 256, 32),
+                          (5, 128, 16, 64), (3, 9, 20, 48), (2, 5, 12, 160)])
 @pytest.mark.parametrize("reset_after", [False, True])
 def test_gru_stack_launches_once_for_every_seed(cuda, S, B, T, H, reset_after):
     """Kernel B with a seed axis: S BiGRUs' forward, residual forward and
-    backward each in one launch on the warp body (grid.y = 2S), against the
+    backward each in one launch (grid.y = 2S), against the
     plain versions seed by seed (1e-5; gradients 1e-4 of each one's largest
     magnitude); dwh bitwise equal from run to run; seed s of the stack is
     bitwise the unstacked pair on seed s's operands."""
@@ -565,7 +604,7 @@ def test_gru_stack_launches_once_for_every_seed(cuda, S, B, T, H, reset_after):
 
     xp, wh, bh, h0, dys, dhl = (stacked(i) for i in range(6))
     before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
-              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.retained_launches)
+              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches)
     fwd = gru_scan_stack(xp, wh, bh, h0, reset_after, "sigmoid")
     res = gru_scan_stack_fwd_res(xp, wh, bh, h0, reset_after, "sigmoid")
     ys, rs = tuple(r[0] for r in res), tuple(r[1] for r in res)
@@ -573,7 +612,8 @@ def test_gru_stack_launches_once_for_every_seed(cuda, S, B, T, H, reset_after):
     torch.cuda.synchronize()
     assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
             gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches,
-            gru_scan.retained_launches) == tuple(b + 1 for b in before[:5]) + before[5:]
+            gru_scan.wide_launches) == tuple(b + 1 for b in before[:5]) + (
+        before[5] + 3 * (gru_body(H) == "wide"),)
     second = gru_scan_stack_bwd(ys, rs, wh, h0, dys, dhl, reset_after, "sigmoid")
     for k, rev in enumerate((False, True)):
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
