@@ -17,11 +17,9 @@ exits non-zero and prints no result line:
    with and without a log floor; log-domain atol 5e-4 at finite entries and
    an identical -inf pattern; max|diff| against the FFT body's own plain
    version, two runs bitwise equal; times (warm and cold L2) at the main
-   path's shape beside the plain versions, ``torch.stft`` + mel, the bound
-   and the retained dft body's time (its direct formulation, its output
-   held against the DIF plain version first), each also as torch.profiler
-   device-busy time beside the host's issue time, and the 240 s frontend
-   rate;
+   path's shape beside the plain versions, ``torch.stft`` + mel and the
+   bound, each also as torch.profiler device-busy time beside the host's
+   issue time, and the 240 s frontend rate;
 4. kernel B's forward (the GRU recurrence; the warp body ``csrc/gru_warp.cu``
    for H <= 32, the wide body ``csrc/gru_wide.cu`` above) against its plain
    version: T=256, H in {32, 16, 8} (warp) at B in {1, 8, 128} and H=64
@@ -39,7 +37,7 @@ exits non-zero and prints no result line:
    (plain versions); logits within 1e-3, probabilities within 1e-3, events
    equal, and both kernels' launch counts read around this phase alone
    (kernel A once per kernel-frontend ``extract``, on the chunked route and
-   never on the dft body; kernel B one pair launch per BiGRU layer per
+   never on the cluster body; kernel B one pair launch per BiGRU layer per
    chunk, all on the warp body) and no GRU plain version run on a CUDA
    tensor;
 6. throughput in ``bench.py``'s units (audio-seconds per second) and a
@@ -74,13 +72,10 @@ exits non-zero and prints no result line:
     1,500-sample one, with and without a floor (-inf pattern equal, 5e-4 at
     finite entries), the FFT body also against its own plain version and
     twice, bitwise; their times at the binmul path's shapes (warm and cold
-    L2) beside the retained dft body's direct formulation at the same
-    shapes (its output held against the same plain version first), the
-    plain versions, ``torch.stft`` + mel and the bounds, and as
-    torch.profiler device-busy time beside the host's issue time; the exact
-    route driven once by ``fused_log_mel(mode="exact")`` at n_fft 2048 and
-    the dft body (the sizes beyond the mixed body's shared-memory limit)
-    once through ``frontend.extract`` at n_fft 12865;
+    L2) beside the plain versions, ``torch.stft`` + mel and the bounds, and
+    as torch.profiler device-busy time beside the host's issue time (the
+    FFT body's at n_fft 1024 printed on its own); the exact route driven
+    once by ``fused_log_mel(mode="exact")`` at n_fft 2048;
     then ([kernel A mixed]) the mixed-radix / Bluestein body
     ``csrc/logmel_mixed.cu`` at n_fft 1034 / hop 517 (exact route,
     Bluestein), 1764 / 882 (chunked, direct), 3072 / 1024 (framed, direct)
@@ -89,19 +84,34 @@ exits non-zero and prints no result line:
     equal, within 5e-4 of the DIF / direct plain version with the -inf
     pattern equal, and on a frame matrix; its times on 150 s of padded
     audio (warm and cold L2, device and host) beside ``torch.stft`` + mel,
-    the dft body's direct formulation, both plain versions and the bound;
-    ``frontend.extract`` at n_fft 1034 with exactly one mixed launch and no
-    dft launch;
+    both plain versions and the bound; ``frontend.extract`` at n_fft 1034
+    with exactly one mixed launch and no cluster launch;
+    then ([kernel A cluster]) the cluster body ``csrc/logmel_cluster.cu``
+    (every n_fft beyond one block's shared memory): the clusters the card
+    holds at 227 KB a CTA for every size to 16; n_fft 12865 / 6432
+    (Bluestein, exact route), 23042 / 11521 (Bluestein), 44100 / 22050 and
+    48000 / 24000 (direct, chunked) and 88200 / 44100 (3 CTAs) on those
+    signals, with and without a floor: bitwise against
+    `mixed_log_mel_plain`, two runs bitwise equal, within 5e-4 of torch's
+    FFT + mel with the -inf pattern equal; the same bits at other
+    cluster sizes (12865 at 2-16 CTAs, 44100 at 2, 3, 4, 7, 88200 at 3-12) and
+    the mixed body's four shapes forced onto it at 2, 3, 4 and 8 CTAs,
+    bitwise the mixed body's; times on 150 s of padded audio (warm and cold
+    L2, device and host) beside ``torch.stft`` + mel, the plain version and
+    the bound, and 88200 at 3 and 4 CTAs and 141000 at 7 and 8 in turns;
+    ``frontend.extract`` of
+    the 120 s file at 12865 (exact) and 44100 (chunked), exactly one cluster
+    launch each;
 12. the feature path: a synthetic DCASE 2017 street layout (12 binaural
     120 s wavs at 44.1 kHz and one 20 s wav at 48 kHz, folds 1 and 2) through
     ``apps.feature.main --binmul --backend kernel --device cuda``: exactly 2
     chunked and 4 framed launches per file, a cached rerun that launches
-    nothing and no launch lands on the dft body, per-file features within
+    nothing and no launch lands on the cluster body, per-file features within
     5e-4 of ``--backend fft`` on the card,
     the packs' shapes and standardized means; the feature rate (host clock),
     a profile and the host's parts of one file; then ``--multires 1764
     3072 --backend kernel`` into its own cache: exactly 4 framed launches
-    per file, all on the mixed body, none on the dft body, features within
+    per file, all on the mixed body, none on the cluster body, features within
     5e-4 of ``--backend fft``;
 13. ``apps.train.main --preset sednet-dcase-binmul`` on those packs at full
     width (in_channels 6, batch 128), 2 epochs: finite losses, exact GRU
@@ -382,7 +392,6 @@ def phase_logmel(main_signal: np.ndarray):
 
     from sed_crnn_torch.core.config import FrontendConfig
     from sed_crnn_torch.ops.kernels.fused_logmel import (
-        _launch_dft,
         fft_log_mel_plain,
         fused_log_mel,
         fused_log_mel_plain,
@@ -426,26 +435,20 @@ def phase_logmel(main_signal: np.ndarray):
     n_frames = 1 + (len(main_signal) - cfg.n_fft) // cfg.hop_length
     library = _library_logmel(yt, cfg)
     kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
-    dft = lambda: _launch_dft(yt, cfg.hop_length, n_frames, cfg.n_fft, cfg)  # noqa: E731
-    dft_err = _check_logmel("log-mel dft body (direct) at the main-path shape", dft(),
-                            fused_log_mel_plain(yt, cfg))
     ms = cuda_ms(kernel)
     cold = cuda_ms_cold(kernel)
     fft_plain = cuda_ms(lambda: fft_log_mel_plain(yt, cfg), reps=5)
     plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg), reps=5)
     lib_ms = cuda_ms(library)
-    dft_ms = cuda_ms(dft)
     bnd, by, flops, nbytes = logmel_bound(len(main_signal), n_frames, cfg)
     audio_s = len(main_signal) / SR
     print(f"[kernel A] main-path shape (chunked, n_fft 2048 hop 1024): {n_frames} frames "
           f"({audio_s:.1f} s padded): kernel {ms:.4f} ms warm L2, {cold:.4f} ms cold L2, "
           f"plain (DIF) {plain:.4f} ms, torch.stft+mel {lib_ms:.4f} ms; bound {bnd:.4f} ms "
           f"({by}, rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-          f"kernel at {bnd / ms:.3f} of its bound; the dft body (direct) at this shape "
-          f"{dft_ms:.4f} ms "
-          f"(vs the DIF plain version {dft_err:.3g}); the fft body's plain emulation "
+          f"kernel at {bnd / ms:.3f} of its bound; the fft body's plain emulation "
           f"{fft_plain:.4f} ms")
-    print(f"[kernel A] main-path shape, {split_line(bnd, kernel=kernel, library=library, dft=dft)}")
+    print(f"[kernel A] main-path shape, {split_line(bnd, kernel=kernel, library=library)}")
     y240 = torch.from_numpy(tones(240.0, 4)).to(dev)
     cfg240 = dataclasses.replace(base, log_floor=1e-10)
     ms240 = cuda_ms(lambda: fused_log_mel(y240, cfg240))
@@ -456,7 +459,7 @@ def phase_logmel(main_signal: np.ndarray):
             "source": "sed_crnn_torch/csrc/logmel_fft.cu",
             "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:173",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-            "bound_by": by, "library_ms": lib_ms}, dft_err
+            "bound_by": by, "library_ms": lib_ms}
 
 
 def _gru_inputs(rng, dev, B: int, H: int, train: bool = False, T: int = GRU_T,
@@ -649,8 +652,9 @@ def phase_main(workdir: str, pcm: np.ndarray):
     streams = 2
     kernel_extracts = 1   # the composition's extract; infer_file's preset frontend is fft
     check(logmel == {"chunked": kernel_extracts, "framed": 0, "exact": 0, "mixed": 0,
-                     "dft": 0},
-          f"kernel A launches {logmel} != {kernel_extracts} chunked extract call, no dft body")
+                     "cluster": 0},
+          f"kernel A launches {logmel} != {kernel_extracts} chunked extract call, no cluster "
+          f"body")
     # Kernel B: one pair launch per BiGRU layer (2) per chunk, on the warp body.
     want = _gru_path_counts(streams * 2 * n_chunks, 0)
     check(gru == want, f"kernel B launches {gru} != {want} (2 pairs x {n_chunks} chunks x "
@@ -1371,19 +1375,19 @@ def logmel_bound(n_samples: int, n_frames: int, cfg):
 
 
 def _logmel_counts():
-    """Launches per route, and of the mixed and dft bodies among them."""
+    """Launches per route, and of the mixed and cluster bodies among them."""
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
 
     return {"chunked": fused_log_mel.launches, "framed": fused_log_mel.framed_launches,
             "exact": fused_log_mel.exact_launches, "mixed": fused_log_mel.mixed_launches,
-            "dft": fused_log_mel.dft_launches}
+            "cluster": fused_log_mel.cluster_launches}
 
 
 def _reset_logmel_counts():
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
 
     fused_log_mel.launches = fused_log_mel.framed_launches = fused_log_mel.exact_launches = 0
-    fused_log_mel.mixed_launches = fused_log_mel.dft_launches = 0
+    fused_log_mel.mixed_launches = fused_log_mel.cluster_launches = 0
 
 
 def _check_logmel(tag: str, got, want) -> float:
@@ -1425,24 +1429,18 @@ def _library_logmel(yt, cfg):
         return_complex=True).abs().square(), 1e-10))
 
 
-def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
+def phase_logmel_routes(pcm: np.ndarray):
     """Kernel A's framed route (the TPU `_kernel_dif`) and exact route
     (`_kernel_exact`) on the FFT body, against the DIF / direct plain
     version on the card (and against the FFT body's own plain version, two
     runs bitwise equal); their times at the binmul path's shapes beside the
-    retained dft body's direct formulation (its output held against the same
-    plain version first), the plain versions, `torch.stft` + mel and the
-    bounds; the exact route driven once at n_fft 2048 and the dft body, which
-    serves only the sizes beyond the mixed body's limit, once through
-    `frontend.extract` at n_fft 12865. ``dft_err`` is the dft body's error
-    from `phase_logmel`; returns the framed and exact entries, the dft
-    body's worst error and its launches on its `extract` run."""
+    plain versions, `torch.stft` + mel and the bounds, and the host's issue
+    time per call; the exact route driven once at n_fft 2048. Returns the
+    framed and exact entries."""
     import torch
 
     from sed_crnn_torch.core.config import FrontendConfig
-    from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import (
-        _launch_dft,
         body,
         fft_log_mel_plain,
         fused_log_mel,
@@ -1457,7 +1455,7 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
     signals = _logmel_signals(FrontendConfig())
     confs = {"framed": [((1024, 1024), "dif"), ((4096, 1024), "dif")],
              "exact": [((2048, 1024), "exact")]}
-    worst = {"framed": 0.0, "exact": 0.0, "dft": dft_err}
+    worst = {"framed": 0.0, "exact": 0.0}
     for kind, cases in confs.items():
         for (n_fft, hop), mode in cases:
             errs, fft_errs = [], []
@@ -1514,26 +1512,21 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
         err_fft = _check_fft_body(tag, got, fused_log_mel(yt, cfg, mode),
                                   fft_log_mel_plain(yt, cfg))
         fft_plain = cuda_ms(lambda: fft_log_mel_plain(yt, cfg), reps=5)
-        dft = lambda: _launch_dft(yt, hop, n_frames, n_fft, cfg)  # noqa: E731
-        err_dft = _check_logmel(f"{tag}, dft body", dft(), want)
-        worst["dft"] = max(worst["dft"], err_dft)
-        dft_ms = cuda_ms(dft)
-        dft_cold = cuda_ms_cold(dft)
         direct = route(len(y), cfg, mode) == "exact"
         print(f"[kernel A {kind}] binmul-path shape n_fft {n_fft} hop {hop} mode {mode}, fft "
               f"body: {n_frames} frames ({len(y) / SR:.1f} s padded), vs plain max|diff| at "
               f"finite {err:.3g}, -inf patterns equal: kernel {ms:.4f} ms warm L2, {cold:.4f} ms "
               f"cold L2; plain ({'direct' if direct else 'DIF'}) {plain:.4f} ms; vs the fft "
-              f"plain version {err_fft:.3g}, two runs bitwise equal; the dft body (direct) at "
-              f"this shape {dft_ms:.4f} ms warm, {dft_cold:.4f} ms cold (vs the same plain "
-              f"version {err_dft:.3g}); the fft body's plain emulation {fft_plain:.4f} ms; "
+              f"plain version {err_fft:.3g}, two runs bitwise equal; the fft body's plain "
+              f"emulation {fft_plain:.4f} ms; "
               f"torch.stft+mel {lib_ms:.4f} ms; bound {bnd:.4f} ms ({by}, rFFT+power+sparse "
               f"mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at {bnd / ms:.3f} "
               f"of its bound")
+        measured = {}
         print(f"[kernel A {kind}] n_fft {n_fft} hop {hop}, "
-              f"{split_line(bnd, kernel=kernel, library=lib, dft=dft)}")
+              f"{split_line(bnd, measured, kernel=kernel, library=lib)}")
         timed[(kind, n_fft)] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                                "library_ms": lib_ms}
+                                "library_ms": lib_ms, "host_ms": measured["kernel"][1]}
 
     # The exact route on the FFT body: mode "exact" at n_fft 2048 on the
     # 120 s file, against the direct plain version.
@@ -1543,7 +1536,7 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
     got = fused_log_mel(y120, cfg, "exact")
     torch.cuda.synchronize()
     exact_launches = _logmel_counts()
-    check(exact_launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 0, "dft": 0},
+    check(exact_launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 0, "cluster": 0},
           f"mode exact at n_fft 2048 launches {exact_launches}")
     err = _check_logmel("exact route n_fft 2048 on the 120 s file", got,
                         fused_log_mel_plain(y120, cfg, "exact"))
@@ -1551,23 +1544,9 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
           f"n_fft 2048: {tuple(got.shape)}, launches {exact_launches}, vs the direct plain "
           f"version max|diff| {err:.3g}")
 
-    # The dft body's path: `frontend.extract` of the 120 s file at n_fft
-    # 12865, the first size beyond the mixed body's shared-memory limit (odd:
-    # the exact route), against the fft backend.
-    cfg = FrontendConfig(n_fft=12865, hop_length=6432, backend="kernel")
-    check(body(cfg.n_fft) == "dft", "n_fft 12865 takes the dft body")
-    _reset_logmel_counts()
-    got = frontend.extract(pcm, cfg, device=dev)
-    torch.cuda.synchronize()
-    dft_launches = _logmel_counts()
-    check(dft_launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 0, "dft": 1},
-          f"extract at n_fft 12865 launches {dft_launches}")
-    want = frontend.extract(pcm, dataclasses.replace(cfg, backend="fft"), device=dev)
-    err = _check_logmel("extract n_fft 12865 kernel vs fft", got, want)
-    worst["dft"] = max(worst["dft"], err)
-    print(f"[kernel A dft] main path: frontend.extract of the {len(pcm) / SR:.0f} s file at "
-          f"n_fft 12865 hop 6432 (beyond the mixed body's limit): {tuple(got.shape)}, "
-          f"launches {dft_launches}, vs the fft backend max|diff| {err:.3g}")
+    print(f"[kernel A framed] host issue per call at n_fft 1024 hop 1024 (the FFT body sets its "
+          f"shared-memory attribute once per instantiation and device): "
+          f"{timed[('framed', 1024)]['host_ms']:.4f} ms")
     fft = {"route": "cuda", "source": "sed_crnn_torch/csrc/logmel_fft.cu"}
     return (
         {"name": "fused_logmel_framed", **fft,
@@ -1577,7 +1556,6 @@ def phase_logmel_routes(pcm: np.ndarray, dft_err: float):
          "replaces": "sed_crnn_tpu/ops/pallas/fused_logmel.py:264",
          "max_abs_err": worst["exact"], "launches": exact_launches["exact"],
          **timed[("exact", 2048)]},
-        worst["dft"], dft_launches["dft"],
     )
 
 
@@ -1589,23 +1567,20 @@ TPU_LOGMEL_SITES = ", ".join(f"sed_crnn_tpu/ops/pallas/fused_logmel.py:{line}"
                              for line in (173, 162, 264))
 
 
-def phase_logmel_mixed(pcm: np.ndarray, dft_worst: float, dft_launches: int):
+def phase_logmel_mixed(pcm: np.ndarray):
     """[kernel A mixed]: the mixed-radix / Bluestein body at `MIXED_SHAPES`
     on phase 3's signals and a 1,500-sample one, with and without a floor:
     bitwise against `mixed_log_mel_plain`, two runs bitwise equal, within
     5e-4 of the DIF / direct plain version with the -inf pattern equal, and
     on a frame matrix; its times on 150 s of padded audio beside `torch.stft`
-    + mel, the dft body's direct formulation (held against the same plain
-    version first), both plain versions and the bound; `frontend.extract` at
-    n_fft 1034 with one mixed launch and no dft launch. Returns the mixed
-    entry, its launches on that `extract` run, and the dft body's entry
-    (timed at 1034 / 517, where the mixed body replaced it)."""
+    + mel, both plain versions and the bound; `frontend.extract` at n_fft
+    1034 with one mixed launch and no cluster launch. Returns the mixed
+    entry and its launches on that `extract` run."""
     import torch
 
     from sed_crnn_torch.core.config import FrontendConfig
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import (
-        _launch_dft,
         body,
         fused_log_mel,
         fused_log_mel_frames,
@@ -1618,7 +1593,7 @@ def phase_logmel_mixed(pcm: np.ndarray, dft_worst: float, dft_launches: int):
 
     dev = torch.device("cuda")
     signals = _logmel_signals(FrontendConfig())
-    worst, worst_dft = 0.0, dft_worst
+    worst = 0.0
     for n_fft, hop, kind in MIXED_SHAPES:
         plan = mixed_plan(n_fft)
         check(body(n_fft) == "mixed", f"{n_fft}: the mixed body")
@@ -1653,7 +1628,7 @@ def phase_logmel_mixed(pcm: np.ndarray, dft_worst: float, dft_launches: int):
               f"waveform's")
         calls += 1
         counts = _logmel_counts()
-        check(counts["mixed"] == calls and counts["dft"] == 0,
+        check(counts["mixed"] == calls and counts["cluster"] == 0,
               f"mixed {n_fft}/{hop}: launches {counts} for {calls} calls")
         worst = max(worst, max(errs))
         print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind} route; "
@@ -1676,37 +1651,30 @@ def phase_logmel_mixed(pcm: np.ndarray, dft_worst: float, dft_launches: int):
         check(torch.equal(got, mixed_log_mel_plain(yt, cfg)), f"{tag}: not bitwise the plain")
         worst = max(worst, err)
         kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
-        dft = lambda: _launch_dft(yt, hop, n_frames, n_fft, cfg)  # noqa: E731
         lib = _library_logmel(yt, cfg)
-        err_dft = _check_logmel(f"{tag}, dft body", dft(), want)
-        worst_dft = max(worst_dft, err_dft)
         ms, cold = cuda_ms(kernel), cuda_ms_cold(kernel)
-        lib_ms, dft_ms = cuda_ms(lib), cuda_ms(dft)
-        dft_cold = cuda_ms_cold(dft)
+        lib_ms = cuda_ms(lib)
         plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg), reps=5)
         mixed_plain = cuda_ms(lambda: mixed_log_mel_plain(yt, cfg), reps=5)
         bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
         measured = {}
-        split = split_line(bnd, measured, kernel=kernel, library=lib, dft=dft)
+        split = split_line(bnd, measured, kernel=kernel, library=lib)
         direct = route(len(y), cfg) == "exact"
         plan = mixed_plan(n_fft)
         point_stages = n_frames * plan.n * len(plan.radices) * (2 if plan.bluestein else 1)
         print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind}), {n_frames} frames "
               f"({len(y) / SR:.1f} s padded): kernel {ms:.4f} ms warm L2, {cold:.4f} ms cold "
-              f"L2; torch.stft+mel {lib_ms:.4f} ms; the dft body (direct) {dft_ms:.4f} ms warm, "
-              f"{dft_cold:.4f} ms cold (vs the {'direct' if direct else 'DIF'} plain version "
-              f"{err_dft:.3g}); plain ({'direct' if direct else 'DIF'}) {plain:.4f} ms, "
-              f"mixed_log_mel_plain {mixed_plain:.4f} ms; bound {bnd:.4f} ms ({by}, "
-              f"rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at "
-              f"{bnd / ms:.3f} of its bound; x{dft_ms / ms:.2f} faster than the dft body, "
-              f"x{lib_ms / ms:.2f} against torch.stft+mel; {point_stages:,} frame-point-stages "
-              f"(frames x N x stages, x2 for Bluestein), {ms * 1e9 / point_stages:.2f} ps each")
+              f"L2; torch.stft+mel {lib_ms:.4f} ms; plain ({'direct' if direct else 'DIF'}) "
+              f"{plain:.4f} ms, mixed_log_mel_plain {mixed_plain:.4f} ms; bound {bnd:.4f} ms "
+              f"({by}, rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
+              f"kernel at {bnd / ms:.3f} of its bound; x{lib_ms / ms:.2f} against "
+              f"torch.stft+mel; {point_stages:,} frame-point-stages (frames x N x stages, x2 "
+              f"for Bluestein), {ms * 1e9 / point_stages:.2f} ps each")
         print(f"[kernel A mixed] n_fft {n_fft} hop {hop}, {split}")
         timed[n_fft] = {"ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
                         "host_ms": measured["kernel"][1], "plain_ms": plain,
                         "mixed_plain_ms": mixed_plain, "bound_ms": bnd, "bound_by": by,
-                        "library_ms": lib_ms, "dft_ms": dft_ms, "dft_cold_ms": dft_cold,
-                        "dft_device_ms": measured["dft"][0]}
+                        "library_ms": lib_ms}
 
     # The main path at a size the mixed body takes: `frontend.extract` of
     # the 120 s file at n_fft 1034 (neither a power of two nor a multiple of
@@ -1716,7 +1684,7 @@ def phase_logmel_mixed(pcm: np.ndarray, dft_worst: float, dft_launches: int):
     got = frontend.extract(pcm, cfg, device=dev)
     torch.cuda.synchronize()
     launches = _logmel_counts()
-    check(launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 1, "dft": 0},
+    check(launches == {"chunked": 0, "framed": 0, "exact": 1, "mixed": 1, "cluster": 0},
           f"extract at n_fft 1034 launches {launches}")
     want = frontend.extract(pcm, dataclasses.replace(cfg, backend="fft"), device=dev)
     err = _check_logmel("extract n_fft 1034 kernel vs fft", got, want)
@@ -1731,14 +1699,218 @@ def phase_logmel_mixed(pcm: np.ndarray, dft_worst: float, dft_launches: int):
              "max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                                             "bound_by", "library_ms")},
              "shape": "n_fft 1034 hop 517, 150 s padded", "shapes": shapes}
-    dft = {"name": "fused_logmel_dft", "route": "cuda",
-           "source": "sed_crnn_torch/csrc/fused_logmel.cu", "replaces": TPU_LOGMEL_SITES,
-           "serves": "every n_fft beyond the mixed body's shared-memory limit (from 12865), "
-                     "direct formulation", "launches": dft_launches, "max_abs_err": worst_dft,
-           "ms": main["dft_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-           "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-           "shape": "n_fft 1034 hop 517, 150 s padded"}
-    return mixed, launches["mixed"], dft
+    return mixed, launches["mixed"]
+
+
+# The cluster body's shapes (n_fft, hop): the first odd size beyond the mixed
+# body's limit (Bluestein, exact route), the first such even one (Bluestein,
+# chunked), 1 s at 44.1 kHz and at 48 kHz (direct, chunked, 2 CTAs a frame)
+# and 2 s at 44.1 kHz (direct, 3 CTAs).
+CLUSTER_SHAPES = ((12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000),
+                  (88200, 44100))
+# Other splits of three of them, whose bits must be the default split's (4
+# CTAs do not divide 44100's N, so all its stages cross CTAs).
+CLUSTER_SPLITS = {12865: (2, 3, 4, 8, 16), 44100: (2, 3, 4, 7), 88200: (3, 4, 6, 12)}
+# Sizes timed at two cluster sizes in turns: the smallest that holds the
+# plan (`cluster_size`) and one with fewer stages crossing CTAs.
+CLUSTER_TURNS = ((88200, 44100, 3, 4), (141000, 70500, 7, 8))
+# The mixed body's shapes forced onto the cluster body at these sizes.
+CLUSTER_FORCED = (2, 3, 4, 8)
+
+
+def _library_fft_log_mel(yt, cfg):
+    """torch's FFT + mel + floor + log in float32 on the frames the kernel
+    reads (`frame_source`: the port's reflect padding, uncentred), each
+    windowed frame one complex transform: the library reference of [kernel A
+    cluster] (never used by the port). Not `torch.stft`: at an odd n_fft
+    cuFFT's batched real-to-complex transform leaks a neighbouring frame's
+    rounding into an all-zero frame (7e-05 of a 470 peak at 12865), whose
+    exact power, and the kernel's, is 0."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.fused_logmel import frame_source
+    from sed_crnn_torch.ops.mel import mel_filterbank
+
+    src, _ = frame_source(yt, cfg)
+    fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+                                         cfg.fmax)).to(yt.device)
+    window = torch.hann_window(cfg.n_fft, periodic=True, device=yt.device)
+    frames = src.unfold(0, cfg.n_fft, cfg.hop_length) * window
+    spec = torch.fft.fft(frames.to(torch.complex64))[:, : cfg.n_fft // 2 + 1]
+    mel = spec.abs().square() @ fb.T
+    return torch.log(mel if cfg.log_floor is None else torch.clamp_min(mel, cfg.log_floor))
+
+
+def phase_logmel_cluster(pcm: np.ndarray):
+    """[kernel A cluster]: the mixed body's plan split over a thread-block
+    cluster (``csrc/logmel_cluster.cu``), at every n_fft beyond one block's
+    shared memory. The clusters the card holds at full shared memory, by
+    size; at `CLUSTER_SHAPES` on phase 3's signals and a 1,500-sample one,
+    with and without a floor: bitwise `mixed_log_mel_plain`, twice, and
+    within 5e-4 of torch's FFT + mel (`_library_fft_log_mel`) with the -inf
+    pattern equal; at
+    `CLUSTER_SPLITS` the same bits at every cluster size; the mixed body's
+    shapes forced onto the cluster body at `CLUSTER_FORCED` sizes, bitwise
+    the mixed body's; times on 150 s of padded audio (warm and cold L2,
+    device and host) beside the bound, `torch.stft` + mel and the plain
+    version; `frontend.extract` of the 120 s file at 12865 (exact route) and
+    44100 (chunked), one cluster launch each and nothing else. Returns the
+    kernels-line entry and the launches of those two `extract` runs."""
+    import torch
+
+    from sed_crnn_torch.core.config import FrontendConfig
+    from sed_crnn_torch.ops import frontend
+    from sed_crnn_torch.ops.kernels.fused_logmel import (
+        CLUSTER_MAX,
+        _launch_cluster,
+        _launch_mixed,
+        body,
+        cluster_resident,
+        cluster_size,
+        cluster_split,
+        frame_source,
+        fused_log_mel,
+        mixed_log_mel_plain,
+        mixed_plan,
+    )
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    resident = {c: cluster_resident(c) for c in range(1, CLUSTER_MAX + 1)}
+    print(f"[kernel A cluster] clusters the card holds at once at 1,024 threads and 227 KB a "
+          f"CTA, by cluster size: {resident}")
+    check(all(n > 0 for n in resident.values()),
+          f"the card refuses a cluster size the body may pick: {resident}")
+    signals = _logmel_signals(FrontendConfig())
+    worst = 0.0
+    for n_fft, hop in CLUSTER_SHAPES:
+        check(body(n_fft) == "cluster", f"{n_fft}: the cluster body")
+        sp = cluster_split(n_fft, cluster_size(n_fft))
+        _reset_logmel_counts()
+        calls, errs = 0, []
+        for name, y, center in signals:
+            yt = torch.from_numpy(y).to(dev)
+            for floor in (None, 1e-10):
+                cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center, log_floor=floor)
+                tag = f"log-mel cluster {n_fft}/{hop} {name} floor={floor}"
+                got = fused_log_mel(yt, cfg)
+                again = fused_log_mel(yt, cfg)
+                calls += 2
+                check(torch.equal(got, again), f"{tag}: two runs differ")
+                check(torch.equal(got, mixed_log_mel_plain(yt, cfg)),
+                      f"{tag}: not bitwise equal to mixed_log_mel_plain")
+                errs.append(_check_logmel(f"{tag} vs torch.fft+mel", got,
+                                          _library_fft_log_mel(yt, cfg)))
+                if name == "silence" and floor is None:
+                    check(not bool(torch.isfinite(got).any()), f"{tag}: not all -inf")
+        counts = _logmel_counts()
+        check(counts["cluster"] == calls and counts["mixed"] == 0,
+              f"cluster {n_fft}/{hop}: launches {counts} for {calls} calls")
+        worst = max(worst, max(errs))
+        plan = mixed_plan(n_fft)
+        print(f"[kernel A cluster] n_fft {n_fft} hop {hop} "
+              f"({'Bluestein' if plan.bluestein else 'direct'} L {plan.points}, N {plan.n}, "
+              f"radices {plan.radices}; {sp.ctas} CTAs of {sp.smem_bytes:,} bytes, "
+              f"{sum(sp.cross)} of {len(sp.cross)} stages cross CTAs, each twice with "
+              f"Bluestein): {len(signals)} signals x 2 floors, bitwise equal to "
+              f"mixed_log_mel_plain and run to run, vs torch.fft+mel max|diff| at finite "
+              f"{max(errs):.3g}, -inf patterns equal; launches {counts}")
+
+    # The mixed body's shapes forced onto the cluster body, and other splits
+    # of the real sizes: the same bits.
+    y30 = torch.from_numpy(signals[0][1]).to(dev)
+    for n_fft, hop, _ in MIXED_SHAPES:
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False)
+        src, n_frames = frame_source(y30, cfg)
+        want = _launch_mixed(src, hop, n_frames, n_fft, cfg)
+        for c in CLUSTER_FORCED:
+            check(torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c), want),
+                  f"cluster body forced to {n_fft}/{hop} at C {c}: not the mixed body's bits")
+    print(f"[kernel A cluster] the mixed body's shapes {[s[:2] for s in MIXED_SHAPES]} on the "
+          f"30 s bucket at C {CLUSTER_FORCED}: bitwise equal to the mixed body")
+    for n_fft, splits in CLUSTER_SPLITS.items():
+        hop = dict(CLUSTER_SHAPES)[n_fft]
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        src, n_frames = frame_source(torch.from_numpy(bucket_signal(pcm, cfg)).to(dev), cfg)
+        want = fused_log_mel(src, cfg)
+        for c in splits:
+            check(torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c), want),
+                  f"cluster {n_fft}/{hop} at C {c}: bits differ from C {cluster_size(n_fft)}")
+        print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {n_frames} frames: bitwise equal at "
+              f"C {splits} (default {cluster_size(n_fft)})")
+
+    timed = {}
+    for n_fft, hop in CLUSTER_SHAPES:
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        y = bucket_signal(pcm, cfg)
+        yt = torch.from_numpy(y).to(dev)
+        n_frames = 1 + (len(y) - n_fft) // hop
+        kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
+        lib = _library_logmel(yt, cfg)
+        check(torch.equal(kernel(), mixed_log_mel_plain(yt, cfg)), f"timed {n_fft}: not bitwise")
+        ms, cold = cuda_ms(kernel), cuda_ms_cold(kernel)
+        lib_ms = cuda_ms(lib)
+        plain = cuda_ms(lambda: mixed_log_mel_plain(yt, cfg), reps=2, warmup=1)
+        bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
+        measured = {}
+        split = split_line(bnd, measured, kernel=kernel, library=lib)
+        plan, sp = mixed_plan(n_fft), cluster_split(n_fft, cluster_size(n_fft))
+        point_stages = n_frames * plan.n * len(plan.radices) * (2 if plan.bluestein else 1)
+        print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {n_frames} frames "
+              f"({len(y) / SR:.1f} s padded), C {sp.ctas}: kernel {ms:.4f} ms warm L2, "
+              f"{cold:.4f} ms cold L2; torch.stft+mel {lib_ms:.4f} ms (x{lib_ms / ms:.2f}); "
+              f"mixed_log_mel_plain {plain:.4f} ms; bound {bnd:.4f} ms ({by}, rFFT+power+sparse "
+              f"mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at {bnd / ms:.4f} of "
+              f"its bound; {point_stages:,} frame-point-stages, {ms * 1e9 / point_stages:.2f} ps "
+              f"each")
+        print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {split}")
+        timed[n_fft] = {"ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
+                        "host_ms": measured["kernel"][1], "plain_ms": plain, "bound_ms": bnd,
+                        "bound_by": by, "library_ms": lib_ms, "ctas": sp.ctas,
+                        "cross_stages": sum(sp.cross), "stages": len(sp.cross)}
+    by_c = {}
+    for n_fft, hop, small, other in CLUSTER_TURNS:
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        src, n_frames = frame_source(torch.from_numpy(bucket_signal(pcm, cfg)).to(dev), cfg)
+        check(cluster_size(n_fft) == small, f"{n_fft}: cluster size {cluster_size(n_fft)}")
+        turns = [[c, sum(cluster_split(n_fft, c).cross),
+                  cuda_ms(lambda c=c: _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c),
+                          reps=10)]
+                 for c in (small, other, other, small)]
+        by_c[f"{n_fft}/{hop}"] = turns
+        print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {n_frames} frames, by cluster "
+              f"size in turns [C, stages crossing, ms]: {turns}")
+
+    # The main path: `frontend.extract` of the 120 s file at 12865 (odd: the
+    # exact route) and at 44100 (hop n_fft / 2: the chunked route), against
+    # the fft backend.
+    launches = 0
+    for n_fft, hop, kind in ((12865, 6432, "exact"), (44100, 22050, "chunked")):
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, backend="kernel")
+        _reset_logmel_counts()
+        got = frontend.extract(pcm, cfg, device=dev)
+        torch.cuda.synchronize()
+        counts = _logmel_counts()
+        want_counts = {"chunked": 0, "framed": 0, "exact": 0, "mixed": 0, "cluster": 1, kind: 1}
+        check(counts == want_counts, f"extract at n_fft {n_fft} launches {counts}")
+        launches += counts["cluster"]
+        err = _check_logmel(f"extract n_fft {n_fft} kernel vs fft", got,
+                            frontend.extract(pcm, dataclasses.replace(cfg, backend="fft"),
+                                             device=dev))
+        worst = max(worst, err)
+        print(f"[kernel A cluster] main path: frontend.extract of the {len(pcm) / SR:.0f} s file "
+              f"at n_fft {n_fft} hop {hop}: {tuple(got.shape)}, launches {counts}, vs the fft "
+              f"backend max|diff| {err:.3g}")
+    print(f"[kernel A cluster] phase in {time.perf_counter() - t0:.1f} s")
+    main = timed[12865]
+    entry = {"name": "fused_logmel_cluster", "route": "cuda",
+             "source": "sed_crnn_torch/csrc/logmel_cluster.cu", "replaces": TPU_LOGMEL_SITES,
+             "max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "library_ms")},
+             "shape": "n_fft 12865 hop 6432, 150 s padded",
+             "shapes": {f"{n}/{h}": timed[n] for n, h in CLUSTER_SHAPES},
+             "ms_by_ctas": by_c}
+    return entry, launches
 
 
 DCASE_CLASS_FREQS = (300.0, 700.0, 1300.0, 2500.0, 4100.0, 6300.0)
@@ -1825,7 +1997,7 @@ def phase_feature(workdir: str):
     wall = time.perf_counter() - t0
     launches = _logmel_counts()
     want = {"chunked": 2 * len(names), "framed": 4 * len(names), "exact": 0, "mixed": 0,
-            "dft": 0}
+            "cluster": 0}
     check(launches == want, f"feature launches {launches} != {want}")
     print(f"[feature] extract_dcase --binmul --backend kernel: {len(names)} files "
           f"({audio_s:.0f} s of binaural audio, 2 folds) in {wall:.2f} s host clock -> "
@@ -1927,7 +2099,7 @@ def phase_feature_multires(workdir: str) -> int:
     """`apps/feature.py --multires 1764 3072 --backend kernel` on the
     feature phase's synthetic DCASE layout, into its own cache: window sizes
     that are not powers of two (40 ms at 44.1 kHz, and 3072), each a framed
-    launch on the mixed body, exactly 4 per file and none on the dft body;
+    launch on the mixed body, exactly 4 per file and none on the cluster body;
     per-file features within 5e-4 of ``--backend fft``. Returns the mixed
     launches."""
     import torch
@@ -1948,7 +2120,7 @@ def phase_feature_multires(workdir: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _logmel_counts()
-    want = {"chunked": 0, "framed": 4 * n_files, "exact": 0, "mixed": 4 * n_files, "dft": 0}
+    want = {"chunked": 0, "framed": 4 * n_files, "exact": 0, "mixed": 4 * n_files, "cluster": 0}
     check(launches == want, f"--multires 1764 3072 launches {launches} != {want}")
     fft_cache = os.path.join(workdir, "cache_multires_fft")
     _quiet(feature.main, args + ["--cache-dir", fft_cache, "--backend", "fft"])
@@ -3035,7 +3207,7 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
                 for la in (False, True)}
         torch.cuda.synchronize()
     logmel, gru = _logmel_counts(), _gru_counts()
-    check(logmel == {"chunked": 2, "framed": 0, "exact": 0, "mixed": 0, "dft": 0},
+    check(logmel == {"chunked": 2, "framed": 0, "exact": 0, "mixed": 0, "cluster": 0},
           f"infer_file_artifact kernel A launches {logmel}")
     check(gru == _gru_path_counts(2 * 2 * n_chunks, 0) and not plain_on_card,
           f"infer_file_artifact kernel B launches {gru} ({n_chunks} chunks)")
@@ -3096,7 +3268,7 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     n_steps = len(stepper.latencies)
     check(n_steps == n_chunks and n_out == n_frames, f"serve_stream {n_steps} steps, {n_out} frames")
     check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "mixed": 0,
-                     "dft": 0},
+                     "cluster": 0},
           f"serve_stream kernel A launches {logmel} vs {blocks.blocks} framer blocks")
     check(gru == _gru_path_counts(2 * n_steps, 0) and not plain_on_card,
           f"serve_stream kernel B launches {gru}")
@@ -3126,7 +3298,7 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     check(gru == _gru_path_counts(2 * ticks, 0) and not plain_on_card,
           f"daemon kernel B launches {gru} vs 2 x {ticks} ticks")
     check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "mixed": 0,
-                     "dft": 0},
+                     "cluster": 0},
           f"daemon kernel A launches {logmel} vs {blocks.blocks} framer blocks")
     launches["framed"] += logmel["framed"]
     launches["gru_scan_fwd"] += gru["gru_scan_fwd"]
@@ -3783,7 +3955,7 @@ def main() -> int:
     from sed_crnn_torch.core.config import FrontendConfig
 
     pcm = tones(120.0, 9, silent=[(50.0, 52.0)])
-    kernel_a, dft_err = phase_logmel(bucket_signal(pcm, FrontendConfig()))
+    kernel_a = phase_logmel(bucket_signal(pcm, FrontendConfig()))
     kernel_b, wide_serving_err = phase_gru()
     with tempfile.TemporaryDirectory() as workdir:
         launches, fe_kernel, model = phase_main(workdir, pcm)
@@ -3794,9 +3966,9 @@ def main() -> int:
         train_dir, feature_dir = (os.path.join(workdir, d) for d in ("train", "feature"))
         train_launches, cfg, fold = phase_train(train_dir)
         phase_train_throughput(cfg, fold)
-        kernel_framed, kernel_exact, dft_worst, dft_launches = phase_logmel_routes(pcm, dft_err)
-        kernel_mixed, mixed_launches, kernel_dft = phase_logmel_mixed(pcm, dft_worst,
-                                                                      dft_launches)
+        kernel_framed, kernel_exact = phase_logmel_routes(pcm)
+        kernel_mixed, mixed_launches = phase_logmel_mixed(pcm)
+        kernel_cluster, cluster_launches = phase_logmel_cluster(pcm)
         os.makedirs(feature_dir)
         feature_launches, cache, _ = phase_feature(feature_dir)
         mixed_launches += phase_feature_multires(feature_dir)
@@ -3818,7 +3990,7 @@ def main() -> int:
     launches["fused_logmel_framed"] = feature_launches["framed"] + serve_launches["framed"]
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
     launches["fused_logmel_mixed"] = mixed_launches
-    launches["fused_logmel_dft"] = kernel_dft.pop("launches")
+    launches["fused_logmel_cluster"] = cluster_launches
     launches["gru_wide"] = sum(wide_paths["launches"].values())
     # kernel B's stacked launches (one per kernel for all seeds) on the
     # stacked main path, and its stacked numbers at timepooled-v2's H=16
@@ -3839,7 +4011,7 @@ def main() -> int:
     kernel_wide = _wide_entry(wide, wide_paths, wide_train, wide_serving_err)
     kernels = []
     head = ("name", "route", "source", "replaces")
-    for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_dft, kernel_b,
+    for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_cluster, kernel_b,
               kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_wide):
         kernels.append({**{key: k[key] for key in head}, "launches": launches[k["name"]],
                         **{key: v for key, v in k.items() if key not in head}})

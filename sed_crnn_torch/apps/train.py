@@ -15,6 +15,8 @@ and reports the mean and std over seeds (``experiment_multiseed.jsonl``):
 ``sequential`` one `run_fold` after another, and ``auto`` (the default)
 picks by `train.multiseed.choose_runs_mode`. ``--data-parallel`` and
 ``--seed-parallel`` are not yet ported (ROADMAP.md Queue 1 item 4).
+``--slow-prng`` is accepted and changes nothing: `torch.Generator` has one
+PRNG, where JAX chooses between threefry and rbg.
 """
 
 from __future__ import annotations
@@ -96,6 +98,9 @@ def main(argv=None):
                    help="not yet ported (ROADMAP.md Queue 1 item 4)")
     p.add_argument("--seed-parallel", type=int, default=0,
                    help="not yet ported (ROADMAP.md Queue 1 item 4)")
+    p.add_argument("--slow-prng", action="store_true",
+                   help="accepted for the JAX CLI's command lines, where it keeps threefry in "
+                        "place of rbg; torch.Generator has one PRNG, so it selects nothing here")
     args = p.parse_args(argv)
 
     for flag, value in (("--data-parallel", args.data_parallel),

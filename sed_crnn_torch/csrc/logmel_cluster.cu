@@ -1,0 +1,415 @@
+// Log-mel by the mixed-radix / Bluestein FFT of csrc/logmel_mixed.cu with
+// one frame split over a thread-block cluster, for Hopper (sm_90a), at every
+// n_fft whose plan takes more than one block's shared memory: windowed frame
+// -> DFT -> power -> sparse mel -> floor -> log, in one pass over the
+// waveform, with no spectral intermediate in device memory.
+//
+// Replaces, at those sizes, the three TPU kernels of
+// sed_crnn_tpu/ops/pallas/fused_logmel.py: `_kernel_dif_chunked` (hop ==
+// n_fft / 2), `_kernel_dif` (any hop, or a frame matrix) and `_kernel_exact`
+// (mode "exact", any n_fft % 4 != 0). All three compute the same function;
+// the frame stride picks the source.
+//
+// The plan is the mixed body's (ops/kernels/fused_logmel.py `mixed_plan`):
+// the same radices, twiddle tables, Bluestein chirp and filter spectrum,
+// untangle and CSR mel order, and the same operations from
+// csrc/logmel_stages.cuh, so the result is bitwise `_mixed_plain`'s whatever
+// the cluster size C. One cluster of C CTAs owns one frame: CTA c holds
+// points [c chunk, (c + 1) chunk) of the N-point work array (chunk =
+// ceil(N / C)) and bins [c bin_chunk, (c + 1) bin_chunk) of the power row in
+// its own shared memory, and reaches its partners' through distributed
+// shared memory (`cluster.map_shared_rank`): point p lives in CTA p / chunk
+// at offset p % chunk.
+//
+// A stage on sub-transforms of length ls whose span lies inside one CTA's
+// chunk (chunk % ls == 0) runs each CTA's own butterflies on its own points
+// between block barriers; a stage with a longer span (the first DIF stages,
+// the last transposed ones) splits its butterflies evenly over the CTAs,
+// which read and write each other's points, between cluster barriers
+// (barrier.cluster arrive.release / wait.acquire). A barrier is
+// cluster-wide when the phase before it or after it reaches another CTA.
+// The power of a bin reads its spectrum points anywhere in the cluster; the
+// mel sum of a band runs on a warp of its own in the CTA that holds its
+// middle bin and reads its bins' power in bin order, mostly from that CTA's
+// shared memory; a last cluster barrier keeps every CTA's shared memory
+// alive until no partner reads it.
+//
+// What bounds it on an H100: these sizes run O(N log N) operations a frame
+// against 4 * hop bytes of new waveform, and the mel product of 2 nnz, so
+// operations; Bluestein doubles the transform. The design keeps the frame on
+// chip (C x up to 227 KB of shared memory, one CTA a SM at the real sizes)
+// and pays for it with the distributed shared memory traffic and cluster
+// barriers of the stages that cross CTAs. At one-second windows the mel
+// sums, one serial chain of adds over up to 4,019 bins a band at n_fft
+// 44,100, take about half the time (sed_crnn_torch/tools/
+// logmel_cluster_phases.py splits it by phase). Every product and sum is an
+// explicitly rounded float32 operation (no FMA contraction) on tables
+// computed in float64 and rounded once on the host: bitwise the same from
+// run to run and at every C.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <atomic>
+
+#include "logmel_stages.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using logmel::MAX_STAGES;
+using logmel::Plan;
+
+constexpr int MAX_THREADS = 1024;
+constexpr int POINTS = 8;               // transform points a thread owns per stage
+constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a CTA
+constexpr int MAX_CLUSTER = 16;         // the non-portable cluster limit on Hopper
+constexpr int MEL_BATCH = 8;            // mel products issued ahead of their adds
+constexpr int NO_CLUSTER_FITS = -1;     // status: the card holds no cluster of this shape
+
+// Profiling cuts, for sed_crnn_torch/tools/logmel_cluster_phases.py only
+// (the results are then wrong): built with -DLOGMEL_CLUSTER_CUT=1 the body
+// leaves out the mel sums, with 2 also the bins' power, with 3 also the FFT
+// stages. 0, the default, cuts nothing.
+#ifndef LOGMEL_CLUSTER_CUT
+#define LOGMEL_CLUSTER_CUT 0
+#endif
+constexpr int CUT = LOGMEL_CLUSTER_CUT;
+
+// How a frame is split over the cluster (the caller's choice, checked by
+// the launcher).
+struct Split {
+  int ctas;         // C
+  int chunk;        // work-array points a CTA: ceil(N / C)
+  int bin_chunk;    // power-row bins a CTA: ceil(n_bins / C)
+  unsigned cross;   // bit s: stage s (DIF s, and its transposed twin) reaches other CTAs
+};
+
+// `Spread`: point p of the cluster's work array, in CTA p / chunk.
+struct Spread {
+  float2* z;        // this CTA's share; the same offset in every CTA
+  int chunk;
+  __device__ __forceinline__ float2& operator[](int p) const {
+    const int r = p / chunk;
+    return *cg::this_cluster().map_shared_rank(z + (p - r * chunk), r);
+  }
+};
+
+// A barrier between two phases: cluster-wide when either reaches another
+// CTA's shared memory, else this block's.
+__device__ __forceinline__ void phase_barrier(bool cross) {
+  if (cross) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// One stage on either side of the split: a crossing stage's butterflies
+// evenly over the CTAs, on points anywhere in the cluster; any other
+// stage's own butterflies, on its own points.
+template <bool TRANSPOSED>
+__device__ __forceinline__ void split_stage(int radix, bool cross, Spread all,
+                                            logmel::Shifted own, int N, int ls, int c, int C,
+                                            int lo, int hi, int lt, int nt,
+                                            const float2* __restrict__ tw) {
+  const int nb = N / radix;
+  if (cross) {
+    const int per = (nb + C - 1) / C;
+    logmel::run_stage<TRANSPOSED>(radix, all, N, ls, min(nb, c * per), min(nb, (c + 1) * per),
+                                  lt, nt, tw);
+  } else {
+    logmel::run_stage<TRANSPOSED>(radix, own, N, ls, lo / radix, hi / radix, lt, nt, tw);
+  }
+}
+
+// acc + w[0] p[0] + ... + w[n-1] p[n-1], added in that order, the loads and
+// products issued MEL_BATCH at a time ahead of their adds.
+__device__ __forceinline__ float band_sum(float acc, const float* __restrict__ w, const float* p,
+                                          int n) {
+  int j = 0;
+  for (; j + MEL_BATCH <= n; j += MEL_BATCH) {
+    float prod[MEL_BATCH];
+#pragma unroll
+    for (int q = 0; q < MEL_BATCH; ++q) prod[q] = __fmul_rn(__ldg(w + j + q), p[j + q]);
+#pragma unroll
+    for (int q = 0; q < MEL_BATCH; ++q) acc = __fadd_rn(acc, prod[q]);
+  }
+  for (; j < n; ++j) acc = __fadd_rn(acc, __fmul_rn(__ldg(w + j), p[j]));
+  return acc;
+}
+
+template <bool BLUE>
+__global__ void __launch_bounds__(MAX_THREADS)
+logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
+                      long long stride, int n_fft, Plan plan, Split split,
+                      const float* __restrict__ window,   // (n_fft) Hann
+                      const float2* __restrict__ tw,      // (N) e^{-2 pi i m / N}
+                      const int* __restrict__ pos,        // (L) direct: position of X_k
+                      const float2* __restrict__ chirp,   // (L) Bluestein: w_n
+                      const float2* __restrict__ bspec,   // (M) Bluestein: B / M, DIF positions
+                      const float2* __restrict__ utw,     // (L + 1) even n_fft: e^{-2 pi i k / n_fft}
+                      const int* __restrict__ mel_first,  // (n_mels) first bin of each band
+                      const int* __restrict__ mel_ptr,    // (n_mels + 1) CSR row pointers
+                      const float* __restrict__ mel_w,    // (nnz) weights in bin order
+                      int n_mels, int use_floor, float floor_v,
+                      float* __restrict__ out) {          // (n_frames, n_mels)
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = plan.n, L = plan.points, NB = plan.n_bins;
+  const int C = split.ctas, chunk = split.chunk, bin_chunk = split.bin_chunk;
+  float2* const z = reinterpret_cast<float2*>(smem_raw);             // points [lo, hi)
+  float* const pw = reinterpret_cast<float*>(z + chunk);              // bins [k_lo, k_hi)
+  const bool even = (n_fft & 1) == 0;
+
+  const int c = static_cast<int>(cluster.block_rank());
+  const int t = blockIdx.x / C;         // the frame of this cluster
+  const int lt = threadIdx.x, nt = blockDim.x;
+  const int lo = min(N, c * chunk), hi = min(N, lo + chunk);
+  const logmel::Shifted own{z, lo};
+  const Spread all{z, chunk};
+
+  bool cross_before = false;   // the last phase reached another CTA
+  // Load this CTA's points: window, pack (even) or zero imaginary part
+  // (odd), chirp (Bluestein), zeros past L.
+  const float* fr = src + (size_t)t * (size_t)stride;
+  for (int n = lo + lt; n < hi; n += nt)
+    z[n - lo] = logmel::load_point<BLUE>(fr, n, L, even, window, chirp);
+
+  int ls = N;
+  for (int s = 0; s < plan.n_stages; ++s) {
+    const bool cross = (split.cross >> s) & 1u;
+    phase_barrier(cross_before || cross);
+    cross_before = cross;
+    if (CUT < 3)
+      split_stage<false>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt, tw);
+    ls /= plan.radix[s];
+  }
+
+  if (BLUE) {
+    // Pointwise product with the filter spectrum, conjugated (own points
+    // only), then the transposed stages in reverse order: D = FFT(conj(A B))
+    // in natural order.
+    phase_barrier(cross_before);
+    cross_before = false;
+    for (int p = lo + lt; p < hi; p += nt)
+      z[p - lo] = logmel::cconj(logmel::cmul(z[p - lo], __ldg(bspec + p)));
+    ls = 1;
+    for (int s = plan.n_stages - 1; s >= 0; --s) {
+      ls *= plan.radix[s];
+      const bool cross = (split.cross >> s) & 1u;
+      phase_barrier(cross_before || cross);
+      cross_before = cross;
+      if (CUT < 3)
+        split_stage<true>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt, tw);
+    }
+  }
+
+  // Power of this CTA's bins: the untangle (even n_fft) or |Z_k|^2 (odd),
+  // from spectrum points anywhere in the cluster.
+  cluster.sync();
+  const int k_lo = min(NB, c * bin_chunk), k_hi = min(NB, k_lo + bin_chunk);
+  for (int k = k_lo + lt; k < k_hi; k += nt)
+    pw[k - k_lo] = CUT < 2 ? logmel::power<BLUE>(all, k, L, even, pos, chirp, utw) : 0.0f;
+
+  // Sparse mel: band m on lane 0 of warp m % warps of the CTA that holds
+  // its middle bin, so that most of its bins are read from that CTA's own
+  // shared memory and no two of the widest bands share a warp (a band's
+  // sum is one chain of dependent adds over its bins, thousands at these
+  // sizes, and lanes of one warp with chains of other lengths would wait on
+  // each other); its bins in order across the CTAs that hold them; floor,
+  // log.
+  cluster.sync();
+  const int warps = nt / 32;
+  for (int m = lt / 32; lt % 32 == 0 && m < n_mels; m += warps) {
+    const int b = mel_ptr[m], e = mel_ptr[m + 1];
+    if (min(C - 1, (mel_first[m] + (e - b) / 2) / bin_chunk) != c) continue;
+    float acc = 0.0f;
+    for (int i = b, k = mel_first[m]; i < e;) {
+      const int r = k / bin_chunk, off = k - r * bin_chunk;
+      const int run_len = min(e - i, bin_chunk - off);
+      if (CUT < 1)
+        acc = r == c ? band_sum(acc, mel_w + i, pw + off, run_len)
+                     : band_sum(acc, mel_w + i, cluster.map_shared_rank(pw + off, r), run_len);
+      i += run_len;
+      k += run_len;
+    }
+    out[(size_t)t * n_mels + m] = logf(use_floor ? fmaxf(acc, floor_v) : acc);
+  }
+  // No CTA leaves while a partner may still read its shared memory.
+  cluster.sync();
+}
+
+// Threads a CTA: POINTS points of its chunk a thread, whole warps, at most
+// MAX_THREADS.
+int threads_per_cta(int chunk) {
+  int t = (chunk + POINTS - 1) / POINTS;
+  t = (t + 31) / 32 * 32;
+  return t > MAX_THREADS ? MAX_THREADS : t;
+}
+
+size_t cta_smem(const Split& split) {
+  return sizeof(float2) * (size_t)split.chunk + sizeof(float) * (size_t)split.bin_chunk;
+}
+
+// Host side: the dynamic shared memory and non-portable cluster attributes
+// are set once per instantiation and device (bit d of `done`).
+template <bool BLUE>
+cudaError_t opt_in() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(done.load() & bit)) {
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    done.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
+// A launch of `clusters` clusters of `ctas` CTAs of `threads` threads and
+// `smem` bytes, and how many such clusters the card holds at once (0: none,
+// the launch would be refused).
+template <bool BLUE>
+struct Launch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+
+  Launch(int clusters, int ctas, int threads, size_t smem, cudaStream_t s) {
+    cfg.gridDim = dim3(static_cast<unsigned>(clusters) * ctas, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+
+  cudaError_t resident(int* clusters) {
+    cudaError_t err = opt_in<BLUE>();
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE>, &cfg);
+  }
+};
+
+// The launch: grid C CTAs a frame, cluster dimension C, after asking the
+// card whether it holds one such cluster.
+template <bool BLUE>
+int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
+           const Split& split, const float* window, const float2* tw, const int* pos,
+           const float2* chirp, const float2* bspec, const float2* utw, const int* mel_first,
+           const int* mel_ptr, const float* mel_w, int n_mels, int use_floor, float floor_v,
+           float* out, cudaStream_t s) {
+  Launch<BLUE> l(n_frames, split.ctas, threads_per_cta(split.chunk), cta_smem(split), s);
+  int clusters = 0;
+  cudaError_t err = l.resident(&clusters);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return NO_CLUSTER_FITS;
+  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE>, src, stride, n_fft, plan, split,
+                           window, tw, pos, chirp, bspec, utw, mel_first, mel_ptr, mel_w,
+                           n_mels, use_floor, floor_v, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* logmel_cluster_error_string(int status) {
+  if (status == NO_CLUSTER_FITS)
+    return "the card cannot hold one cluster of this shape (cudaOccupancyMaxActiveClusters is 0)";
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}
+
+int logmel_cluster_max_smem() { return MAX_SMEM; }
+int logmel_cluster_max_ctas() { return MAX_CLUSTER; }
+int logmel_cluster_max_stages() { return MAX_STAGES; }
+
+// How many clusters of `ctas` CTAs (1 .. 16) of `threads` threads and
+// `smem` bytes of dynamic shared memory each the card holds at once (0:
+// such a launch is refused), or a negative cudaError_t.
+int logmel_cluster_resident(int ctas, int threads, int smem) {
+  if (ctas < 1 || ctas > MAX_CLUSTER || threads < 1 || threads > MAX_THREADS || smem < 0 ||
+      smem > MAX_SMEM)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  Launch<true> l(1, ctas, threads, smem, nullptr);
+  int clusters = 0;
+  const cudaError_t err = l.resident(&clusters);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+// Frame t (t < n_frames) is the n_fft samples at src[t * stride]; the plan
+// and tables as for logmel_mixed (csrc/logmel_mixed.cu), split over
+// clusters of `ctas` CTAs (1 .. 16), one cluster a frame, as the caller
+// chose (ops/kernels/fused_logmel.py `cluster_split`): `chunk` work-array
+// points and `bin_chunk` power-row bins a CTA, and bit s of `cross` set
+// where stage s reaches other CTAs. The split is checked, not chosen, here:
+// it must cover the array and the row, fit a CTA's shared memory, and a
+// stage left inside the CTAs must have sub-transforms that divide the chunk.
+// Returns a cudaError_t, or -1 when the card cannot hold one such cluster;
+// cudaErrorInvalidValue for a plan or split it does not take.
+int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, int n,
+                   int n_stages, const int* radices, int bluestein, int ctas, int chunk,
+                   int bin_chunk, unsigned cross, const float* window, const void* tw,
+                   const int* pos, const void* chirp, const void* bspec, const void* utw,
+                   const int* mel_first, const int* mel_ptr, const float* mel_w, int n_mels,
+                   int use_floor, float floor_v, float* out, void* stream) {
+  if (n_frames <= 0 || stride <= 0 || n_mels <= 0 || n_fft <= 0 || n <= 0 || src == nullptr ||
+      out == nullptr || window == nullptr || tw == nullptr || n_stages < 0 ||
+      n_stages > MAX_STAGES || (n_stages > 0 && radices == nullptr) || ctas < 1 ||
+      ctas > MAX_CLUSTER || (long long)n_frames * ctas > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan plan{};
+  plan.n = n;
+  plan.points = n_fft % 2 ? n_fft : n_fft / 2;
+  plan.n_bins = n_fft / 2 + 1;
+  plan.n_stages = n_stages;
+  long long prod = 1;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7)
+      return static_cast<int>(cudaErrorInvalidValue);
+    plan.radix[s] = r;
+    prod *= r;
+  }
+  const bool direct_ok = !bluestein && n == plan.points && pos != nullptr;
+  const bool blue_ok = bluestein && n >= 2 * plan.points - 1 && chirp != nullptr &&
+                       bspec != nullptr;
+  if (prod != n || !(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Split split{ctas, chunk, bin_chunk, cross};
+  if (chunk < 1 || bin_chunk < 1 || (long long)chunk * ctas < n ||
+      (long long)bin_chunk * ctas < plan.n_bins || cta_smem(split) > (size_t)MAX_SMEM ||
+      (cross >> n_stages) != 0u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int ls = n;
+  for (int s = 0; s < n_stages; ++s) {
+    if (!((cross >> s) & 1u) && chunk % ls != 0) return static_cast<int>(cudaErrorInvalidValue);
+    ls /= plan.radix[s];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float2* tw2 = static_cast<const float2*>(tw);
+  const float2* ch2 = static_cast<const float2*>(chirp);
+  const float2* bs2 = static_cast<const float2*>(bspec);
+  const float2* ut2 = static_cast<const float2*>(utw);
+  if (bluestein)
+    return launch<true>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2, bs2,
+                        ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v, out, s);
+  return launch<false>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2, bs2,
+                       ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v, out, s);
+}
+
+}  // extern "C"

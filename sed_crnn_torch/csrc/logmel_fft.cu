@@ -8,7 +8,7 @@
 // frame matrix) and `_kernel_exact` (mode "exact"). All three compute the
 // same function; the frame stride picks the source: M = n_fft / 2 for the
 // chunked route, the hop on the padded waveform, n_fft on a frame matrix.
-// Other sizes take csrc/fused_logmel.cu.
+// Other sizes take csrc/logmel_mixed.cu or csrc/logmel_cluster.cu.
 //
 // What bounds it on an H100: the function's least work per frame is an
 // rFFT (2.5 N log2 N flops), the power and the sparse mel product (about 1.9
@@ -38,7 +38,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "logmel_stages.cuh"
+
 namespace {
+
+using logmel::bin_power;
+using logmel::butterfly;
+using logmel::cmul;
 
 constexpr int MIN_LOG_N = 8;    // n_fft 256
 constexpr int MAX_LOG_N = 14;   // n_fft 16384
@@ -58,53 +66,6 @@ struct Shape {
   static constexpr int PW = H + 1;              // power row: bins 0..H
   static constexpr size_t SMEM = FPB * (sizeof(float2) * H + sizeof(float) * PW);
 };
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(__fsub_rn(__fmul_rn(a.x, w.x), __fmul_rn(a.y, w.y)),
-                     __fadd_rn(__fmul_rn(a.x, w.y), __fmul_rn(a.y, w.x)));
-}
-
-// In-place R-point forward DFT (e^{-2 pi i / R}) of v[0..R-1].
-template <int R>
-__device__ __forceinline__ void butterfly(float2* v);
-
-template <>
-__device__ __forceinline__ void butterfly<2>(float2* v) {
-  const float2 a = v[0], b = v[1];
-  v[0] = cadd(a, b);
-  v[1] = csub(a, b);
-}
-
-template <>
-__device__ __forceinline__ void butterfly<4>(float2* v) {
-  const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
-  const float2 t2 = cadd(v[1], v[3]), t3 = csub(v[1], v[3]);
-  v[0] = cadd(t0, t2);
-  v[2] = csub(t0, t2);
-  v[1] = make_float2(__fadd_rn(t1.x, t3.y), __fsub_rn(t1.y, t3.x));   // t1 - i t3
-  v[3] = make_float2(__fsub_rn(t1.x, t3.y), __fadd_rn(t1.y, t3.x));   // t1 + i t3
-}
-
-// |X_k|^2 from Z_k = a and Z_{H-k} = b of the packed FFT, with
-// w = e^{-2 pi i k / N}: E = (a + conj b) / 2, O = (a - conj b) / 2i,
-// X_k = E + w O.
-__device__ __forceinline__ float bin_power(float2 a, float2 b, float2 w) {
-  const float er = __fmul_rn(0.5f, __fadd_rn(a.x, b.x));
-  const float ei = __fmul_rn(0.5f, __fsub_rn(a.y, b.y));
-  const float o_r = __fmul_rn(0.5f, __fadd_rn(a.y, b.y));
-  const float o_i = __fmul_rn(0.5f, __fsub_rn(b.x, a.x));
-  const float xr = __fadd_rn(er, __fsub_rn(__fmul_rn(w.x, o_r), __fmul_rn(w.y, o_i)));
-  const float xi = __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, o_i), __fmul_rn(w.y, o_r)));
-  return __fadd_rn(__fmul_rn(xr, xr), __fmul_rn(xi, xi));
-}
 
 template <int LOGN, bool VEC>
 __global__ void __launch_bounds__(Shape<LOGN>::THREADS)
@@ -163,7 +124,7 @@ logmel_fft_kernel(const float* __restrict__ src,      // frame t at src[t * stri
     }
 #pragma unroll
     for (int q = 0; q < BPT; ++q) {
-      butterfly<R>(v + q * R);
+      butterfly<R>(v + q * R, nullptr);
       const int j = lt * BPT + q;
 #pragma unroll
       for (int r = 0; r < R; ++r) z[j * R + r] = v[q * R + r];
@@ -193,7 +154,7 @@ logmel_fft_kernel(const float* __restrict__ src,      // frame t at src[t * stri
       const int k = j & (ns - 1);
 #pragma unroll
       for (int r = 1; r < 4; ++r) v[q * 4 + r] = cmul(v[q * 4 + r], tw[k * r * step]);
-      butterfly<4>(v + q * 4);
+      butterfly<4>(v + q * 4, nullptr);
       const int d = (j - k) * 4 + k;
 #pragma unroll
       for (int r = 0; r < 4; ++r) z[d + r * ns] = v[q * 4 + r];
@@ -223,8 +184,26 @@ logmel_fft_kernel(const float* __restrict__ src,      // frame t at src[t * stri
   }
 }
 
-// Host side: pick the load width from the pointers and the stride, size the
-// block's shared memory, launch.
+// Host side: the dynamic shared memory attribute of an instantiation is set
+// once per device (bit d of `done`), not on every launch.
+template <int LOGN, bool VEC>
+cudaError_t opt_in_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(done.load() & bit)) {
+    err = cudaFuncSetAttribute(logmel_fft_kernel<LOGN, VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Shape<LOGN>::SMEM);
+    if (err != cudaSuccess) return err;
+    done.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
+// Pick the load width from the pointers and the stride, launch.
 template <int LOGN>
 int launch(const float* src, long long stride, int n_frames, const float* window,
            const float2* tw, const float2* utw, const int* mel_first, const int* mel_ptr,
@@ -233,16 +212,18 @@ int launch(const float* src, long long stride, int n_frames, const float* window
   using S = Shape<LOGN>;
   const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(window) % 16 == 0 && stride % 4 == 0;
-  void (*kernel)(const float*, long long, int, const float*, const float2*, const float2*,
-                 const int*, const int*, const float*, int, int, float, float*) =
-      vec ? logmel_fft_kernel<LOGN, true> : logmel_fft_kernel<LOGN, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  const cudaError_t err = vec ? opt_in_smem<LOGN, true>() : opt_in_smem<LOGN, false>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n_frames + S::FPB - 1) / S::FPB;
-  kernel<<<blocks, S::THREADS, S::SMEM, s>>>(src, stride, n_frames, window, tw, utw,
-                                              mel_first, mel_ptr, mel_w, n_mels,
-                                              use_floor, floor_v, out);
+  if (vec) {
+    logmel_fft_kernel<LOGN, true><<<blocks, S::THREADS, S::SMEM, s>>>(
+        src, stride, n_frames, window, tw, utw, mel_first, mel_ptr, mel_w, n_mels, use_floor,
+        floor_v, out);
+  } else {
+    logmel_fft_kernel<LOGN, false><<<blocks, S::THREADS, S::SMEM, s>>>(
+        src, stride, n_frames, window, tw, utw, mel_first, mel_ptr, mel_w, n_mels, use_floor,
+        floor_v, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

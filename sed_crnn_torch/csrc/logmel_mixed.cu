@@ -1,8 +1,10 @@
 // Log-mel by a mixed-radix FFT in shared memory, for Hopper (sm_90a), at
 // every n_fft that csrc/logmel_fft.cu (powers of two 256 .. 16384) does not
-// take, up to the shared-memory limit below: windowed frame -> DFT -> power
-// -> sparse mel -> floor -> log, in one pass over the waveform, with no
-// spectral intermediate in device memory.
+// take, up to the shared-memory limit below (csrc/logmel_cluster.cu splits a
+// frame over a thread-block cluster beyond it): windowed frame -> DFT ->
+// power -> sparse mel -> floor -> log, in one pass over the waveform, with
+// no spectral intermediate in device memory. The arithmetic lives in
+// csrc/logmel_stages.cuh, shared with the cluster body.
 //
 // Replaces, at those sizes, the three TPU kernels of
 // sed_crnn_tpu/ops/pallas/fused_logmel.py: `_kernel_dif_chunked` (hop ==
@@ -56,154 +58,17 @@
 
 #include <atomic>
 
+#include "logmel_stages.cuh"
+
 namespace {
 
-constexpr int MAX_STAGES = 16;
+using logmel::MAX_STAGES;
+using logmel::Plan;
+
 constexpr int MAX_THREADS = 1024;
 constexpr int MIN_THREADS = 256;        // frames a block grow to this many threads
 constexpr int POINTS = 8;               // transform points a thread owns per frame
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a block
-
-struct Plan {
-  int n;                  // transform length N: L (direct) or M (Bluestein)
-  int points;             // L
-  int n_bins;             // n_fft / 2 + 1
-  int n_stages;
-  int radix[MAX_STAGES];  // DIF order; their product is N
-};
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(__fsub_rn(__fmul_rn(a.x, w.x), __fmul_rn(a.y, w.y)),
-                     __fadd_rn(__fmul_rn(a.x, w.y), __fmul_rn(a.y, w.x)));
-}
-
-__device__ __forceinline__ float2 cconj(float2 a) { return make_float2(a.x, -a.y); }
-
-// In-place R-point forward DFT (e^{-2 pi i / R}) of v[0..R-1]; c[q] =
-// e^{-2 pi i q / R} from the twiddle table (odd R only).
-template <int R>
-__device__ __forceinline__ void butterfly(float2* v, const float2* c) {
-  if constexpr (R == 2) {
-    const float2 a = v[0], b = v[1];
-    v[0] = cadd(a, b);
-    v[1] = csub(a, b);
-  } else if constexpr (R == 4) {
-    const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
-    const float2 t2 = cadd(v[1], v[3]), t3 = csub(v[1], v[3]);
-    v[0] = cadd(t0, t2);
-    v[2] = csub(t0, t2);
-    v[1] = make_float2(__fadd_rn(t1.x, t3.y), __fsub_rn(t1.y, t3.x));   // t1 - i t3
-    v[3] = make_float2(__fsub_rn(t1.x, t3.y), __fadd_rn(t1.y, t3.x));   // t1 + i t3
-  } else {
-    // Odd R, pairs r and R - r: a_r = v_r + v_{R-r}, b_r = v_r - v_{R-r};
-    // V_s = P_s - i Q_s and V_{R-s} = P_s + i Q_s with P_s = v_0 + sum_r
-    // cos(2 pi rs / R) a_r and Q_s = sum_r sin(2 pi rs / R) b_r.
-    constexpr int H = (R - 1) / 2;
-    float2 a[H + 1], b[H + 1], out[R];
-#pragma unroll
-    for (int r = 1; r <= H; ++r) {
-      a[r] = cadd(v[r], v[R - r]);
-      b[r] = csub(v[r], v[R - r]);
-    }
-    out[0] = v[0];
-#pragma unroll
-    for (int r = 1; r <= H; ++r) out[0] = cadd(out[0], a[r]);
-#pragma unroll
-    for (int s = 1; s <= H; ++s) {
-      float2 p = v[0], q = make_float2(0.0f, 0.0f);
-#pragma unroll
-      for (int r = 1; r <= H; ++r) {
-        const float cs = c[(r * s) % R].x, sn = -c[(r * s) % R].y;
-        p = make_float2(__fadd_rn(p.x, __fmul_rn(cs, a[r].x)),
-                        __fadd_rn(p.y, __fmul_rn(cs, a[r].y)));
-        const float2 t = make_float2(__fmul_rn(sn, b[r].x), __fmul_rn(sn, b[r].y));
-        q = r == 1 ? t : cadd(q, t);
-      }
-      out[s] = make_float2(__fadd_rn(p.x, q.y), __fsub_rn(p.y, q.x));
-      out[R - s] = make_float2(__fsub_rn(p.x, q.y), __fadd_rn(p.y, q.x));
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = out[r];
-  }
-}
-
-// One radix-R stage on sub-transforms of length ls (m = ls / R) of the
-// N-point array z, in place: butterfly b is sub-transform g = b / m, offset
-// j = b % m, its points z[g ls + j + r m]. DIF (TRANSPOSED = false):
-// butterfly, then output s times e^{-2 pi i j s / ls}. Transposed: input r
-// times e^{-2 pi i j r / ls}, then butterfly. The last DIF stage (m = 1) has
-// only unit twiddles and skips them.
-template <int R, bool TRANSPOSED>
-__device__ __forceinline__ void stage(float2* z, int N, int ls, int lt, int tpf,
-                                      const float2* __restrict__ tw) {
-  const int m = ls / R;
-  const int step = N / ls;
-  float2 c[R];
-  if constexpr (R % 2 == 1) {
-#pragma unroll
-    for (int q = 0; q < R; ++q) c[q] = __ldg(tw + q * (N / R));
-  }
-  for (int b = lt; b < N / R; b += tpf) {
-    const int g = b / m, j = b - g * m;
-    float2* const base = z + g * ls + j;
-    float2 v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = base[r * m];
-    if (TRANSPOSED && m > 1) {
-#pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], __ldg(tw + j * r * step));
-    }
-    butterfly<R>(v, c);
-    if (!TRANSPOSED && m > 1) {
-#pragma unroll
-      for (int s = 1; s < R; ++s) v[s] = cmul(v[s], __ldg(tw + j * s * step));
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) base[r * m] = v[r];
-  }
-}
-
-template <bool TRANSPOSED>
-__device__ __forceinline__ void run_stage(int radix, float2* z, int N, int ls, int lt, int tpf,
-                                          const float2* __restrict__ tw) {
-  switch (radix) {
-    case 2: stage<2, TRANSPOSED>(z, N, ls, lt, tpf, tw); break;
-    case 3: stage<3, TRANSPOSED>(z, N, ls, lt, tpf, tw); break;
-    case 4: stage<4, TRANSPOSED>(z, N, ls, lt, tpf, tw); break;
-    case 5: stage<5, TRANSPOSED>(z, N, ls, lt, tpf, tw); break;
-    default: stage<7, TRANSPOSED>(z, N, ls, lt, tpf, tw); break;
-  }
-}
-
-// |X_k|^2 from Z_k = a and Z_{L-k} = b of the packed FFT, with
-// w = e^{-2 pi i k / n_fft}: E = (a + conj b) / 2, O = (a - conj b) / 2i,
-// X_k = E + w O.
-__device__ __forceinline__ float bin_power(float2 a, float2 b, float2 w) {
-  const float er = __fmul_rn(0.5f, __fadd_rn(a.x, b.x));
-  const float ei = __fmul_rn(0.5f, __fsub_rn(a.y, b.y));
-  const float o_r = __fmul_rn(0.5f, __fadd_rn(a.y, b.y));
-  const float o_i = __fmul_rn(0.5f, __fsub_rn(b.x, a.x));
-  const float xr = __fadd_rn(er, __fsub_rn(__fmul_rn(w.x, o_r), __fmul_rn(w.y, o_i)));
-  const float xi = __fadd_rn(ei, __fadd_rn(__fmul_rn(w.x, o_i), __fmul_rn(w.y, o_r)));
-  return __fadd_rn(__fmul_rn(xr, xr), __fmul_rn(xi, xi));
-}
-
-// Z_k of the L-point transform from the work array: at pos[k] (direct), or
-// w_k conj(D_k) (Bluestein).
-template <bool BLUE>
-__device__ __forceinline__ float2 spectrum(const float2* z, int k, const int* __restrict__ pos,
-                                           const float2* __restrict__ chirp) {
-  if (BLUE) return cmul(cconj(z[k]), __ldg(chirp + k));
-  return z[__ldg(pos + k)];
-}
 
 template <bool BLUE>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -235,24 +100,14 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
   // Load: window, pack (even) or zero imaginary part (odd), chirp
   // (Bluestein), zeros past L. A frame past the end computes on zeros.
   const float* fr = src + (size_t)(live ? t0 + f : 0) * (size_t)stride;
-  for (int n = lt; n < N; n += tpf) {
-    float2 v = make_float2(0.0f, 0.0f);
-    if (live && n < L) {
-      if (even) {
-        v = make_float2(__fmul_rn(fr[2 * n], __ldg(window + 2 * n)),
-                        __fmul_rn(fr[2 * n + 1], __ldg(window + 2 * n + 1)));
-      } else {
-        v = make_float2(__fmul_rn(fr[n], __ldg(window + n)), 0.0f);
-      }
-      if (BLUE) v = cmul(v, __ldg(chirp + n));
-    }
-    z[n] = v;
-  }
+  for (int n = lt; n < N; n += tpf)
+    z[n] = live ? logmel::load_point<BLUE>(fr, n, L, even, window, chirp)
+                : make_float2(0.0f, 0.0f);
   __syncthreads();
 
   int ls = N;
   for (int s = 0; s < plan.n_stages; ++s) {
-    run_stage<false>(plan.radix[s], z, N, ls, lt, tpf, tw);
+    logmel::run_block_stage<false>(plan.radix[s], z, N, ls, lt, tpf, tw);
     ls /= plan.radix[s];
     __syncthreads();
   }
@@ -260,12 +115,12 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
   if (BLUE) {
     // Pointwise product with the filter spectrum, conjugated, then the
     // transposed stages in reverse order: D = FFT(conj(A B)) in natural order.
-    for (int p = lt; p < N; p += tpf) z[p] = cconj(cmul(z[p], __ldg(bspec + p)));
+    for (int p = lt; p < N; p += tpf) z[p] = logmel::cconj(logmel::cmul(z[p], __ldg(bspec + p)));
     __syncthreads();
     ls = 1;
     for (int s = plan.n_stages - 1; s >= 0; --s) {
       ls *= plan.radix[s];
-      run_stage<true>(plan.radix[s], z, N, ls, lt, tpf, tw);
+      logmel::run_block_stage<true>(plan.radix[s], z, N, ls, lt, tpf, tw);
       __syncthreads();
     }
   }
@@ -273,16 +128,8 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
   // Power of bins 0..NB-1: the real-to-complex untangle (even n_fft), or
   // |Z_k|^2 (odd).
   float* const p = pall + (size_t)f * NB;
-  for (int k = lt; k < NB; k += tpf) {
-    if (even) {
-      const float2 a = spectrum<BLUE>(z, k == L ? 0 : k, pos, chirp);
-      const float2 b = spectrum<BLUE>(z, k == 0 ? 0 : L - k, pos, chirp);
-      p[k] = bin_power(a, b, __ldg(utw + k));
-    } else {
-      const float2 a = spectrum<BLUE>(z, k, pos, chirp);
-      p[k] = __fadd_rn(__fmul_rn(a.x, a.x), __fmul_rn(a.y, a.y));
-    }
-  }
+  for (int k = lt; k < NB; k += tpf)
+    p[k] = logmel::power<BLUE>(z, k, L, even, pos, chirp, utw);
   __syncthreads();
 
   // Sparse mel: one thread per (frame, band), its bins in order; floor, log.

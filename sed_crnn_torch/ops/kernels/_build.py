@@ -3,10 +3,11 @@
 Each ``sed_crnn_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which is loaded
 with `ctypes`. The library lands in ``build/sed_crnn_torch/`` at the root of
-the checkout, under a name that carries a hash of its source, so an edited
-source is never served by a stale library. Nothing is built when a module is
-imported: the first call that needs a kernel builds it, and `build_all`
-builds every kernel at once (one ``nvcc`` process per source, in parallel).
+the checkout, under a name that carries a hash of its source and of the
+headers beside it (``csrc/*.cuh``), so an edited source is never served by
+a stale library. Nothing is built when a module is imported: the first call
+that needs a kernel builds it, and `build_all` builds every kernel at once
+(one ``nvcc`` process per source, in parallel).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Dict, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sed_crnn_torch"
-KERNEL_SOURCES = ("fused_logmel", "gru_warp", "gru_wide", "logmel_fft", "logmel_mixed")
+KERNEL_SOURCES = ("gru_warp", "gru_wide", "logmel_cluster", "logmel_fft", "logmel_mixed")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,9 +50,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Tuple[Path, Path]:
+    """The source and its library, named by a hash of the source and of
+    every header under ``csrc/`` (which the sources share)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

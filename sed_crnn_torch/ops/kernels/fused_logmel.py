@@ -1,5 +1,5 @@
 """Fused log-mel: the CUDA kernels (``csrc/logmel_fft.cu``,
-``csrc/logmel_mixed.cu`` and ``csrc/fused_logmel.cu``) and their plain
+``csrc/logmel_mixed.cu`` and ``csrc/logmel_cluster.cu``) and their plain
 PyTorch versions.
 
 The JAX package's `ops/pallas/fused_logmel.py` has three TPU kernels, which
@@ -19,10 +19,12 @@ whatever the route:
   L is 7-smooth, else Bluestein's chirp convolution through two such FFTs
   of a 7-smooth length M >= 2L - 1, then the same power, CSR mel, floor,
   log. `mixed_log_mel_plain` repeats its arithmetic operation by operation;
-* ``"dft"`` (``csrc/fused_logmel.cu``), the sizes beyond that limit only:
-  the raw frame against the window-folded cos / -sin bases of the full
-  n_fft-point DFT (the formulation of the JAX ``_kernel_exact``), power, a
-  dense mel product, floor, log.
+* ``"cluster"`` (``csrc/logmel_cluster.cu``), every n_fft beyond that limit:
+  the mixed body's plan and operations with one frame split over a
+  thread-block cluster of `cluster_size` CTAs, each holding its share of the
+  work array and power row in its own shared memory and reaching its
+  partners' through distributed shared memory; bitwise the mixed body's
+  (`mixed_log_mel_plain`) at every cluster size.
 
 Modes, renamed from the JAX package's (as `core/config.py` renames the
 backends): ``"dif"`` is the JAX ``"bf16x3"`` and ``"exact"`` keeps its
@@ -43,8 +45,8 @@ exact route, as products) only for a CPU tensor, the function the JAX
 kernels compute, as the JAX package runs it. Launches are counted per route
 on `fused_log_mel`: ``launches`` (chunked), ``framed_launches`` and
 ``exact_launches``, whichever of the two wrappers launched and whichever
-body ran; ``mixed_launches`` and ``dft_launches`` count the launches of the
-``"mixed"`` and ``"dft"`` bodies among them.
+body ran; ``mixed_launches`` and ``cluster_launches`` count the launches of
+the ``"mixed"`` and ``"cluster"`` bodies among them.
 """
 
 from __future__ import annotations
@@ -62,13 +64,12 @@ from sed_crnn_torch.ops.kernels import _build
 from sed_crnn_torch.ops.mel import mel_filterbank
 from sed_crnn_torch.ops.stft import dft_bases, hann_window, reflect_pad
 
-BIN_TILE = 64     # csrc/fused_logmel.cu TB: bins per tile
-FRAME_TILE = 64   # csrc/fused_logmel.cu TF: frames per block
-MAX_MELS = 256    # keeps the dft body's shared memory under the card's limit
+BIN_TILE = 64     # the JAX kernels' bin tile: the plain version's bases pad to it
 MODES = ("dif", "exact")
 FFT_LOG_N = (8, 14)   # csrc/logmel_fft.cu: n_fft 256 .. 16384
 MIXED_MAX_SMEM = 232448           # csrc/logmel_mixed.cu MAX_SMEM: 227 KB a block
-MIXED_MAX_STAGES = 16             # csrc/logmel_mixed.cu MAX_STAGES
+MIXED_MAX_STAGES = 16             # csrc/logmel_stages.cuh MAX_STAGES
+CLUSTER_MAX = 16                  # csrc/logmel_cluster.cu MAX_CLUSTER: CTAs a cluster
 
 # Serving threads call the wrappers concurrently: the operand cache and the
 # launch counters are read-modify-write.
@@ -143,6 +144,23 @@ def _smooth_radices(n: int) -> Optional[Tuple[int, ...]]:
     return (4,) * fours + (2,) * twos + (3,) * counts[3] + (5,) * counts[5] + (7,) * counts[7]
 
 
+def _next_smooth(n: int) -> int:
+    """The smallest 7-smooth integer >= ``n`` >= 1: over every 3^a 5^b 7^c
+    below the best so far, the least power-of-two multiple that reaches n."""
+    best = 1 << (n - 1).bit_length()
+    p7 = 1
+    while p7 < best:
+        p5 = p7
+        while p5 < best:
+            p3 = p5
+            while p3 < best:
+                best = min(best, p3 << (-(-n // p3) - 1).bit_length())
+                p3 *= 3
+            p5 *= 5
+        p7 *= 7
+    return best
+
+
 class MixedPlan(NamedTuple):
     """How ``csrc/logmel_mixed.cu`` transforms a frame of ``n_fft`` samples:
     ``points`` complex points L (``n_fft / 2`` packed, or ``n_fft`` at an odd
@@ -158,6 +176,7 @@ class MixedPlan(NamedTuple):
     smem_bytes: int
 
 
+@lru_cache(maxsize=None)
 def mixed_plan(n_fft: int) -> MixedPlan:
     """The mixed body's plan at ``n_fft`` >= 1: direct when L is 7-smooth,
     else Bluestein at M, the smallest 7-smooth length >= 2L - 1."""
@@ -167,30 +186,77 @@ def mixed_plan(n_fft: int) -> MixedPlan:
     radices = _smooth_radices(points)
     n = points
     if radices is None:
-        n = 2 * points - 1
-        while (radices := _smooth_radices(n)) is None:
-            n += 1
+        n = _next_smooth(2 * points - 1)
+        radices = _smooth_radices(n)
     return MixedPlan(n_fft, points, n, radices, n != points,
                      8 * n + 4 * (n_fft // 2 + 1))
 
 
+class ClusterSplit(NamedTuple):
+    """How ``csrc/logmel_cluster.cu`` splits one frame of `mixed_plan` over a
+    cluster of ``ctas`` CTAs: ``chunk`` work-array points and ``bin_chunk``
+    power-row bins a CTA, the shared memory a CTA takes, and which DIF
+    stages (each with its transposed twin) reach other CTAs: stage s on
+    sub-transforms of length ls crosses when ls does not divide the chunk."""
+
+    ctas: int
+    chunk: int
+    bin_chunk: int
+    smem_bytes: int
+    cross: Tuple[bool, ...]
+
+
+def cluster_split(n_fft: int, ctas: int) -> ClusterSplit:
+    """`mixed_plan(n_fft)` split over ``ctas`` CTAs: the split
+    `_launch_cluster` hands the kernel, whose launcher refuses one that
+    does not cover the frame, does not fit or keeps a stage inside the CTAs
+    whose sub-transforms do not divide the chunk."""
+    plan = mixed_plan(n_fft)
+    chunk, bins = -(-plan.n // ctas), -(-(n_fft // 2 + 1) // ctas)
+    cross, ls = [], plan.n
+    for r in plan.radices:
+        cross.append(chunk % ls != 0)
+        ls //= r
+    return ClusterSplit(ctas, chunk, bins, 8 * chunk + 4 * bins, tuple(cross))
+
+
+@lru_cache(maxsize=None)
+def cluster_size(n_fft: int) -> int:
+    """C, the CTAs a frame of the cluster body: the smallest C from 2 to
+    ``CLUSTER_MAX`` whose share of the plan fits in ``MIXED_MAX_SMEM``
+    (measured the fastest on an H100 at six of seven sizes, PERF.md §6).
+    Raises ValueError beyond the body's limit, a plan that
+    ``CLUSTER_MAX`` CTAs do not hold. The bits do not depend on C."""
+    for c in range(2, CLUSTER_MAX + 1):
+        if cluster_split(n_fft, c).smem_bytes <= MIXED_MAX_SMEM:
+            return c
+    raise ValueError(
+        f"n_fft {n_fft} is beyond the cluster body's limit: its plan takes "
+        f"{mixed_plan(n_fft).smem_bytes:,} bytes of shared memory a frame, more than "
+        f"{CLUSTER_MAX} CTAs of {MIXED_MAX_SMEM:,} bytes hold")
+
+
 def body(n_fft: int) -> str:
-    """Which CUDA body computes a launch at ``n_fft``: ``"fft"`` for a power
-    of two from 256 to 16384; ``"mixed"`` for any other n_fft whose
+    """Which CUDA body computes a launch at ``n_fft`` >= 1: ``"fft"`` for a
+    power of two from 256 to 16384; ``"mixed"`` for any other n_fft whose
     `mixed_plan` takes at most ``MIXED_MAX_SMEM`` bytes of shared memory a
     frame (8 M or 8 L bytes of work array and 4 (n_fft / 2 + 1) of power
     row): every n_fft up to 12,864 (12,865 is odd with L 12,865 and M
     25,920: 233,092 bytes), every even one up to 23,040 (23,042: L 11,521,
     M 23,328), and above those the sizes whose plan fits, direct up to L =
     21,875 (an odd n_fft; the largest even n_fft is 38,416, L = 19,208) and
-    Bluestein up to M = 25,725; ``"dft"`` (the direct formulation of the
-    retained body) for the rest."""
+    Bluestein up to M = 25,725; ``"cluster"`` for the rest, the same plan
+    split over `cluster_size` CTAs. The cluster body's limit is a plan whose
+    share in ``CLUSTER_MAX`` (16) CTAs fits in 227 KB each: every n_fft
+    below 206,209 (odd: Bluestein at M = 413,343, 3,719,164 bytes), and
+    above it the sizes whose plan fits (to 617,400, an even n_fft whose half
+    is 7-smooth); beyond it a launch raises ValueError (`cluster_size`)."""
     lo, hi = FFT_LOG_N
     if n_fft & (n_fft - 1) == 0 and 1 << lo <= n_fft <= 1 << hi:
         return "fft"
-    if n_fft >= 1 and mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM:
+    if mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM:
         return "mixed"
-    return "dft"
+    return "cluster"
 
 
 def mel_csr(sr: int, n_fft: int, n_mels: int, fmin: float, fmax):
@@ -355,8 +421,9 @@ def _finish(mel: torch.Tensor, log_floor) -> torch.Tensor:
 
 def _plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
            cfg: FrontendConfig, direct: bool) -> torch.Tensor:
-    """The dft body's arithmetic in float32 PyTorch ops, frames read from
-    the flat ``src`` at ``t * stride`` as the kernel reads them."""
+    """The JAX kernels' arithmetic in float32 PyTorch ops (the DIF real DFT
+    or, ``direct``, the full DFT, as products against their bases), frames
+    read from the flat ``src`` at ``t * stride``."""
     ops = _operands(cfg, n_fft, "exact" if direct else "dif", src.device)
     base = src.storage_offset()
     if direct:
@@ -568,10 +635,12 @@ def mixed_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """A 1-D waveform (frames at stride hop on the centre-padded waveform) or
     an ``(n_frames, n_fft)`` frame matrix -> ``(n_frames, n_mels)`` log mel
     energies by the mixed body's arithmetic (`_mixed_plain`), at an n_fft
-    that `body` sends to ``"mixed"``."""
+    that `body` sends to ``"mixed"`` or ``"cluster"`` (the same plan and
+    operations, split over a cluster)."""
     n_fft = y.shape[1] if y.ndim == 2 else cfg.n_fft
-    if body(n_fft) != "mixed":
-        raise ValueError(f"the mixed body does not take n_fft {n_fft} (body {body(n_fft)!r})")
+    if body(n_fft) not in ("mixed", "cluster"):
+        raise ValueError(f"the mixed and cluster bodies do not take n_fft {n_fft} "
+                         f"(body {body(n_fft)!r})")
     if y.ndim == 2:
         src, n_frames, n_fft, _ = _frame_matrix(y.to(torch.float32), "dif")
         return _mixed_plain(src, n_fft, n_frames, n_fft, cfg)
@@ -604,31 +673,6 @@ def fused_log_mel_frames_plain(frames: torch.Tensor, cfg: FrontendConfig,
     ``n_fft % 4 != 0``)."""
     src, n_frames, n_fft, direct = _frame_matrix(frames.to(torch.float32), mode)
     return _plain(src, n_fft, n_frames, n_fft, cfg, direct)
-
-
-def _n_groups(n_frames: int, n_bin_tiles: int, device: torch.device) -> int:
-    """Bin-tile groups per frame tile: enough blocks for two per SM."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    frame_tiles = -(-n_frames // FRAME_TILE)
-    g = min(n_bin_tiles, max(1, -(-2 * n_sm // frame_tiles)))
-    per = -(-n_bin_tiles // g)
-    return -(-n_bin_tiles // per)
-
-
-@lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_logmel")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_logmel.argtypes = ([p] * 6 + [i, i, ctypes.c_longlong] + [i] * 4
-                                 + [ctypes.c_float, p])
-    lib.fused_logmel.restype = i
-    lib.fused_logmel_tile_bins.argtypes = []
-    lib.fused_logmel_tile_bins.restype = i
-    lib.fused_logmel_error_string.argtypes = [i]
-    lib.fused_logmel_error_string.restype = ctypes.c_char_p
-    if lib.fused_logmel_tile_bins() != BIN_TILE:
-        raise RuntimeError("csrc/fused_logmel.cu tile width differs from BIN_TILE")
-    return lib
 
 
 @lru_cache(maxsize=None)
@@ -667,13 +711,46 @@ def _fft_lib() -> ctypes.CDLL:
     return lib
 
 
+@lru_cache(maxsize=None)
+def _cluster_lib() -> ctypes.CDLL:
+    lib = _build.load("logmel_cluster")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.logmel_cluster.argtypes = ([p, ctypes.c_longlong, i, i, i, i, ctypes.POINTER(i), i, i,
+                                    i, i, ctypes.c_uint] + [p] * 9 + [i, i, ctypes.c_float, p, p])
+    lib.logmel_cluster.restype = i
+    lib.logmel_cluster_resident.argtypes = [i, i, i]
+    lib.logmel_cluster_resident.restype = i
+    for name in ("logmel_cluster_max_smem", "logmel_cluster_max_ctas",
+                 "logmel_cluster_max_stages"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.logmel_cluster_error_string.argtypes = [i]
+    lib.logmel_cluster_error_string.restype = ctypes.c_char_p
+    if (lib.logmel_cluster_max_smem(), lib.logmel_cluster_max_ctas(),
+            lib.logmel_cluster_max_stages()) != (MIXED_MAX_SMEM, CLUSTER_MAX, MIXED_MAX_STAGES):
+        raise RuntimeError("csrc/logmel_cluster.cu limits differ from MIXED_MAX_SMEM / "
+                           "CLUSTER_MAX / MIXED_MAX_STAGES")
+    return lib
+
+
+def cluster_resident(ctas: int, threads: int = 1024, smem: int = MIXED_MAX_SMEM) -> int:
+    """How many clusters of ``ctas`` CTAs of ``threads`` threads and ``smem``
+    bytes of shared memory each the current card holds at once (0: it
+    refuses such a launch), by ``cudaOccupancyMaxActiveClusters``."""
+    n = _cluster_lib().logmel_cluster_resident(ctas, threads, smem)
+    if n < 0:
+        raise RuntimeError(f"logmel_cluster_resident failed: "
+                           f"{_cluster_lib().logmel_cluster_error_string(-n).decode()}")
+    return n
+
+
 def _check_cuda(x: torch.Tensor, cfg: FrontendConfig) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"expected float32 samples, got {x.dtype}")
-    if not 0 < cfg.n_mels <= MAX_MELS:
-        raise ValueError(f"n_mels must be in [1, {MAX_MELS}], got {cfg.n_mels}")
+    if cfg.n_mels < 1:
+        raise ValueError(f"n_mels must be at least 1, got {cfg.n_mels}")
 
 
 def _floor(cfg: FrontendConfig) -> Tuple[int, float]:
@@ -700,24 +777,28 @@ def _launch_fft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     return out
 
 
+def _mixed_args(plan: MixedPlan, ops: dict) -> tuple:
+    """The plan and tables as `logmel_mixed` and `logmel_cluster` take them,
+    after the frame source: n_fft, N, stages, radices, Bluestein, and the
+    table pointers (None where the plan has no such table)."""
+    radices = (ctypes.c_int * max(1, len(plan.radices)))(*plan.radices)
+    return (plan.n_fft, plan.n, len(plan.radices), radices, int(plan.bluestein),
+            tuple(ops[k].data_ptr() if k in ops else None
+                  for k in ("window", "tw", "pos", "chirp", "bspec", "utw", "mel_first",
+                            "mel_ptr", "mel_w")))
+
+
 def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
                   cfg: FrontendConfig) -> torch.Tensor:
     """The mixed body by `mixed_plan`; raises with the launcher's error where
     the plan is refused."""
-    plan = mixed_plan(n_fft)
-    ops = _operands(cfg, n_fft, "mixed", src.device)
+    *plan, tables = _mixed_args(mixed_plan(n_fft), _operands(cfg, n_fft, "mixed", src.device))
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
-    radices = (ctypes.c_int * max(1, len(plan.radices)))(*plan.radices)
     lib = _mixed_lib()
     with torch.cuda.device(src.device):
         status = lib.logmel_mixed(
-            src.data_ptr(), stride, n_frames, n_fft, plan.n, len(plan.radices), radices,
-            int(plan.bluestein),
-            *(ops[k].data_ptr() if k in ops else None
-              for k in ("window", "tw", "pos", "chirp", "bspec", "utw", "mel_first",
-                        "mel_ptr", "mel_w")),
-            cfg.n_mels, *_floor(cfg), out.data_ptr(),
-            torch.cuda.current_stream(src.device).cuda_stream,
+            src.data_ptr(), stride, n_frames, *plan, *tables, cfg.n_mels, *_floor(cfg),
+            out.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream,
         )
     if status != 0:
         raise RuntimeError(
@@ -727,35 +808,32 @@ def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     return out
 
 
-def _launch_dft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-                cfg: FrontendConfig) -> torch.Tensor:
-    """The dft body (its direct formulation) at any ``n_fft``; `_launch`
-    takes it where `body` says ``"dft"``."""
-    dev = src.device
-    ops = _operands(cfg, n_fft, "exact", dev)
-    out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=dev)
-    nb = ops["bc"].shape[1]
-    groups = _n_groups(n_frames, nb // BIN_TILE, dev)
-    partial = (torch.empty((groups, n_frames, cfg.n_mels), dtype=torch.float32, device=dev)
-               if groups > 1 else out)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        status = lib.fused_logmel(
-            src.data_ptr(), ops["bc"].data_ptr(), ops["bs"].data_ptr(),
-            ops["melw"].data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_frames, n_fft, stride, nb, cfg.n_mels, groups, *_floor(cfg),
-            torch.cuda.current_stream(dev).cuda_stream,
+def _launch_cluster(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
+                    cfg: FrontendConfig, ctas: Optional[int] = None) -> torch.Tensor:
+    """The cluster body by `mixed_plan`, one frame a cluster of ``ctas``
+    CTAs (`cluster_size` by default; any 1 .. ``CLUSTER_MAX`` whose share
+    fits gives the same bits); raises ValueError beyond the body's limit and
+    the launcher's error where it or the card refuses the split."""
+    sp = cluster_split(n_fft, cluster_size(n_fft) if ctas is None else ctas)
+    cross = sum(1 << s for s, c in enumerate(sp.cross) if c)
+    *plan, tables = _mixed_args(mixed_plan(n_fft), _operands(cfg, n_fft, "mixed", src.device))
+    out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
+    lib = _cluster_lib()
+    with torch.cuda.device(src.device):
+        status = lib.logmel_cluster(
+            src.data_ptr(), stride, n_frames, *plan, sp.ctas, sp.chunk, sp.bin_chunk, cross,
+            *tables, cfg.n_mels, *_floor(cfg), out.data_ptr(),
+            torch.cuda.current_stream(src.device).cuda_stream,
         )
     if status != 0:
         raise RuntimeError(
-            f"fused_logmel launch failed: {lib.fused_logmel_error_string(status).decode()}"
-        )
+            f"logmel_cluster launch failed: {lib.logmel_cluster_error_string(status).decode()}")
     with _lock:
-        fused_log_mel.dft_launches += 1
+        fused_log_mel.cluster_launches += 1
     return out
 
 
-_LAUNCHERS = {"fft": _launch_fft, "mixed": _launch_mixed, "dft": _launch_dft}
+_LAUNCHERS = {"fft": _launch_fft, "mixed": _launch_mixed, "cluster": _launch_cluster}
 
 
 def _launch(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
@@ -812,4 +890,4 @@ fused_log_mel.launches = 0
 fused_log_mel.framed_launches = 0
 fused_log_mel.exact_launches = 0
 fused_log_mel.mixed_launches = 0
-fused_log_mel.dft_launches = 0
+fused_log_mel.cluster_launches = 0

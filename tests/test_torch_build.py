@@ -64,7 +64,31 @@ def test_failed_compile_raises_after_waiting_for_all(tmp_path, build_dir, monkey
 
 def test_every_kernel_source_is_listed():
     """The five sources under csrc/ (the three log-mel bodies, the two GRU
-    bodies) are exactly the ones `build_all` compiles."""
+    bodies) are exactly the ones `build_all` compiles; the log-mel bodies
+    share one header."""
     on_disk = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert on_disk == sorted(_build.KERNEL_SOURCES)
-    assert on_disk == ["fused_logmel", "gru_warp", "gru_wide", "logmel_fft", "logmel_mixed"]
+    assert on_disk == ["gru_warp", "gru_wide", "logmel_cluster", "logmel_fft", "logmel_mixed"]
+    assert sorted(p.name for p in _build.CSRC_DIR.glob("*.cuh")) == ["logmel_stages.cuh"]
+    for name in ("logmel_cluster", "logmel_fft", "logmel_mixed"):
+        assert '#include "logmel_stages.cuh"' in (_build.CSRC_DIR / f"{name}.cu").read_text()
+
+
+def test_a_header_edit_renames_every_library(tmp_path, monkeypatch):
+    """A library's name carries the hash of its source and of the headers
+    beside it: editing a shared header rebuilds every source, editing one
+    source only that one."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text(f'#include "h.cuh"\n// {name}\n')
+    (csrc / "h.cuh").write_text("// header\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    names = lambda: [_build._library_path(n)[1].name for n in ("a", "b")]  # noqa: E731
+    first = names()
+    (csrc / "a.cu").write_text('#include "h.cuh"\n// a, edited\n')
+    second = names()
+    assert second[0] != first[0] and second[1] == first[1]
+    (csrc / "h.cuh").write_text("// header, edited\n")
+    third = names()
+    assert third[0] != second[0] and third[1] != second[1]

@@ -13,7 +13,7 @@ gradient chain, and dwh/dbh summed over B*T terms in another order),
 identical -inf pattern (against the DIF / direct plain version; 1e-5
 against `fft_log_mel_plain`, which repeats the FFT body's float32
 operations, so only ``logf`` against ``torch.log`` differs; bitwise against
-`mixed_log_mel_plain`, which repeats the mixed body's).
+`mixed_log_mel_plain`, which repeats the mixed and cluster bodies').
 """
 
 import dataclasses
@@ -24,11 +24,16 @@ import torch
 
 from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.ops.kernels.fused_logmel import (
-    _launch_dft,
+    CLUSTER_MAX,
+    _launch_cluster,
     _launch_fft,
     _launch_mixed,
     body,
+    cluster_resident,
+    cluster_size,
+    cluster_split,
     fft_log_mel_plain,
+    frame_source,
     fused_log_mel,
     fused_log_mel_frames,
     fused_log_mel_frames_plain,
@@ -36,7 +41,8 @@ from sed_crnn_torch.ops.kernels.fused_logmel import (
     mixed_log_mel_plain,
     route,
 )
-from sed_crnn_torch.ops.stft import frame_signal
+from sed_crnn_torch.ops.mel import mel_filterbank
+from sed_crnn_torch.ops.stft import frame_signal, hann_window
 from sed_crnn_torch.nn.gru import BiGRU
 from sed_crnn_torch.ops.kernels.gru_scan import (
     _bwd,
@@ -378,10 +384,10 @@ def test_logmel_kernel_matches_plain(cuda, cfg, log_floor):
     cfg = dataclasses.replace(cfg, log_floor=log_floor)
     y = torch.from_numpy(_signal(3 * cfg.sample_rate + 777, cfg.sample_rate, 1,
                                  silent=(cfg.sample_rate, 2 * cfg.sample_rate))).to(cuda)
-    launches, dft = fused_log_mel.launches, fused_log_mel.dft_launches
+    launches, cluster = fused_log_mel.launches, fused_log_mel.cluster_launches
     got = fused_log_mel(y, cfg)
     torch.cuda.synchronize()
-    assert (fused_log_mel.launches, fused_log_mel.dft_launches) == (launches + 1, dft)
+    assert (fused_log_mel.launches, fused_log_mel.cluster_launches) == (launches + 1, cluster)
     want = fused_log_mel_plain(y, cfg)
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin)
@@ -393,7 +399,7 @@ def test_logmel_kernel_matches_plain(cuda, cfg, log_floor):
 
 def _counts():
     return (fused_log_mel.launches, fused_log_mel.framed_launches, fused_log_mel.exact_launches,
-            fused_log_mel.mixed_launches, fused_log_mel.dft_launches)
+            fused_log_mel.mixed_launches, fused_log_mel.cluster_launches)
 
 
 def _assert_logmel_close(got, want):
@@ -481,12 +487,13 @@ def test_fft_kernel_matches_fft_plain_and_is_deterministic(cuda, kw, center, log
 
 @pytest.mark.parametrize("n_fft,hop,other", [
     (32768, 8192, "mixed"), (1000, 500, "mixed"), (3072, 1024, "mixed"),
-    (12865, 6432, "dft"), (23042, 11521, "dft"),
+    (12865, 6432, "cluster"), (23042, 11521, "cluster"),
 ])
 def test_other_sizes_launch_the_dft_body(cuda, n_fft, hop, other):
     """Above 16384 or not a power of two: the mixed body up to its
-    shared-memory limit, the dft body's direct formulation beyond it, each
-    counted once, and within its band of the plain version."""
+    shared-memory limit, the cluster body (which took the retired dft
+    body's sizes) beyond it, each counted once, and within its band of the
+    plain version."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
     y = torch.from_numpy(_signal(3 * 44100, 44100, 5)).to(cuda)
     assert body(n_fft) == other
@@ -499,17 +506,18 @@ def test_other_sizes_launch_the_dft_body(cuda, n_fft, hop, other):
 
 
 def test_both_bodies_agree_at_a_power_of_two(cuda):
-    """The mixed body and the dft body's direct formulation, launched through
-    their private launchers at a size the fft body takes, compute the same
-    function."""
+    """The mixed body and the cluster body, launched through their private
+    launchers at a size the fft body takes, compute the same function: the
+    cluster body bitwise the mixed body's, both within 5e-4 of the FFT
+    body."""
     cfg = FrontendConfig(n_fft=4096, hop_length=1024, center=False, log_floor=1e-10)
     y = torch.from_numpy(_signal(3 * 44100, 44100, 6)).to(cuda)
     n_frames = 1 + (y.shape[0] - 4096) // 1024
     fft = _launch_fft(y, 1024, n_frames, 4096, cfg)
     mixed = _launch_mixed(y, 1024, n_frames, 4096, cfg)
-    dft = _launch_dft(y, 1024, n_frames, 4096, cfg)
+    cluster = _launch_cluster(y, 1024, n_frames, 4096, cfg, ctas=2)
     torch.cuda.synchronize()
-    _assert_logmel_close(fft, dft)
+    assert torch.equal(cluster, mixed)
     _assert_logmel_close(fft, mixed)
 
 
@@ -533,7 +541,7 @@ MIXED_SHAPES = [
 @pytest.mark.parametrize("log_floor", [None, 1e-10])
 def test_mixed_kernel_matches_its_plain_version_bitwise(cuda, kw, center, n, log_floor):
     """The mixed body against `mixed_log_mel_plain` bit for bit, twice, one
-    mixed launch per call and no dft launch, and within 5e-4 of the DIF /
+    mixed launch per call and no cluster launch, and within 5e-4 of the DIF /
     direct plain version; a silent stretch gives the same -inf rows."""
     cfg = FrontendConfig(center=center, log_floor=log_floor, **kw)
     sr = cfg.sample_rate
@@ -574,6 +582,156 @@ def test_mixed_launcher_refuses_a_plan_over_the_limit(cuda):
     with pytest.raises(RuntimeError, match="logmel_mixed launch failed"):
         _launch_mixed(y, 6432, 2, 12865, cfg)
     assert _counts() == before
+
+
+def _fft_log_mel64(y, cfg):
+    """The library's log-mel in float64 on the card: frames as the kernel
+    cuts them (`frame_source`), windowed, each one complex transform
+    (`torch.fft.fft`; cuFFT's batched real-to-complex transform at an odd
+    n_fft leaks a neighbouring frame's rounding into an all-zero frame),
+    power, mel, floor, log; an independent reference at sizes whose plain
+    bases would not fit."""
+    src, _ = frame_source(y, cfg)
+    window = torch.from_numpy(hann_window(cfg.n_fft, np.float64)).to(y.device)
+    fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+                                         cfg.fmax, np.float64)).to(y.device)
+    frames = src.double().unfold(0, cfg.n_fft, cfg.hop_length) * window
+    spec = torch.fft.fft(frames.to(torch.complex128))[:, : cfg.n_fft // 2 + 1]
+    mel = spec.abs().square() @ fb.T
+    if cfg.log_floor is not None:
+        mel = torch.clamp_min(mel, cfg.log_floor)
+    return torch.log(mel).float()
+
+
+# The cluster body's sizes (n_fft, hop): the first odd and even sizes beyond
+# the mixed body's limit (Bluestein), 1 s at 44.1 and 48 kHz (direct, C = 2),
+# 2 s at 44.1 kHz (C = 3) and a power of two (C = 4).
+CLUSTER_SHAPES = [(12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000),
+                  (88200, 44100), (131072, 32768)]
+
+
+@pytest.mark.parametrize("n_fft,hop", CLUSTER_SHAPES)
+@pytest.mark.parametrize("center", [True, False])
+@pytest.mark.parametrize("log_floor", [None, 1e-10])
+def test_cluster_kernel_matches_its_plain_version_bitwise(cuda, n_fft, hop, center, log_floor):
+    """The cluster body through `fused_log_mel` against `mixed_log_mel_plain`
+    bit for bit, twice, one cluster launch per call and no mixed launch, and
+    within 5e-4 of torch's FFT + mel in float64 with the same -inf rows (a
+    silent stretch of two frames' length)."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center, log_floor=log_floor)
+    y = torch.from_numpy(_signal(3 * n_fft + 777, 44100, 9, silent=(n_fft, 3 * n_fft))).to(cuda)
+    assert body(n_fft) == "cluster"
+    before = _counts()
+    first = fused_log_mel(y, cfg)
+    second = fused_log_mel(y, cfg)
+    torch.cuda.synchronize()
+    assert (_counts()[3] - before[3], _counts()[4] - before[4]) == (0, 2)
+    assert torch.equal(first, second)
+    assert torch.equal(first, mixed_log_mel_plain(y, cfg))
+    _assert_logmel_close(first, _fft_log_mel64(y, cfg))
+    assert bool(torch.isinf(first).any()) == (log_floor is None)
+
+
+@pytest.mark.parametrize("n_fft,hop,ctas", [(12865, 6432, (2, 3, 4, 5, 8, 16)),
+                                            (44100, 22050, (2, 3, 4, 7, 9)),
+                                            (88200, 44100, (3, 4, 6, 12))])
+def test_cluster_kernel_bits_do_not_depend_on_the_cluster_size(cuda, n_fft, hop, ctas):
+    """The same frames split over every cluster size tried give the same
+    bits as the default split: the stages that cross CTAs change (at 44100
+    over 4 CTAs, which do not divide N, all 7 do), the operations do not."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+    y = torch.from_numpy(_signal(5 * n_fft, 44100, 10)).to(cuda)
+    src, n_frames = frame_source(y, cfg)
+    want = fused_log_mel(y, cfg)
+    for c in ctas:
+        assert torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c), want), c
+
+
+@pytest.mark.parametrize("kw", MIXED_SHAPES[:4])
+@pytest.mark.parametrize("ctas", [1, 2, 3, 4, 8])
+def test_cluster_kernel_forced_small_is_the_mixed_body(cuda, kw, ctas):
+    """The mixed body's shapes forced onto the cluster body, one frame split
+    over 1 to 8 CTAs (3 and 8 do not divide every transform length, so
+    nearly every stage crosses CTAs there): bitwise the mixed body's and
+    the plain version's."""
+    cfg = FrontendConfig(center=False, log_floor=None, **kw)
+    y = torch.from_numpy(_signal(2 * 44100, 44100, 11, silent=(20000, 30000))).to(cuda)
+    src, n_frames = frame_source(y, cfg)
+    got = _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas)
+    assert torch.equal(got, _launch_mixed(src, cfg.hop_length, n_frames, cfg.n_fft, cfg))
+    assert torch.equal(got, mixed_log_mel_plain(y, cfg))
+
+
+def test_cluster_kernel_on_a_frame_matrix(cuda):
+    """Stride n_fft on a frame matrix at n_fft 12865: the waveform's rows
+    bit for bit, counted on the exact route and the cluster body."""
+    cfg = FrontendConfig(n_fft=12865, hop_length=6432, log_floor=1e-10)
+    y = torch.from_numpy(_signal(5 * 12865, 44100, 12)).to(cuda)
+    frames = frame_signal(y, cfg.n_fft, cfg.hop_length, center=True).contiguous()
+    before = _counts()
+    got = fused_log_mel_frames(frames, cfg)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 1, 0, 1]
+    assert torch.equal(got, fused_log_mel(y, cfg))
+    assert torch.equal(got, mixed_log_mel_plain(frames, cfg))
+
+
+def test_cluster_kernel_takes_more_than_256_mels(cuda):
+    """No body limits the mel count (the retired dft body's 256): 300 mels
+    at n_fft 12865, bitwise the plain version's."""
+    cfg = FrontendConfig(n_fft=12865, hop_length=6432, n_mels=300, log_floor=1e-10)
+    y = torch.from_numpy(_signal(4 * 12865, 44100, 13)).to(cuda)
+    got = fused_log_mel(y, cfg)
+    assert got.shape[1] == 300
+    assert torch.equal(got, mixed_log_mel_plain(y, cfg))
+
+
+def test_card_holds_the_largest_cluster_at_full_shared_memory(cuda):
+    """Every cluster size the body may pick, up to CLUSTER_MAX, fits on the
+    card at 1,024 threads and 227 KB of shared memory a CTA: the body's
+    limit stands as `body` states it."""
+    assert cluster_size(617400) == CLUSTER_MAX
+    assert [c for c in range(1, CLUSTER_MAX + 1) if cluster_resident(c) < 1] == []
+
+
+def test_cluster_body_beyond_its_limit_raises(cuda):
+    """n_fft 206,209, the first plan that 16 CTAs do not hold, raises a
+    ValueError naming the limit, launches nothing, and falls back to
+    nothing; so does a split the launcher refuses."""
+    y = torch.zeros(2 * 206209, device=cuda)
+    before = _counts()
+    with pytest.raises(ValueError, match="beyond the cluster body's limit"):
+        fused_log_mel(y, FrontendConfig(n_fft=206209, hop_length=103104, center=False))
+    with pytest.raises(RuntimeError, match="logmel_cluster launch failed"):
+        _launch_cluster(y, 6432, 2, 12865, FrontendConfig(n_fft=12865, hop_length=6432), ctas=1)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("n_fft,hop,ctas", [(12865, 6432, 2), (88200, 44100, 3)])
+def test_cluster_launcher_checks_the_split_it_is_given(cuda, monkeypatch, n_fft, hop, ctas):
+    """The launcher takes `cluster_split`'s split and checks it: a crossing
+    stage marked as inside the CTAs, a chunk that leaves points uncovered
+    or a share over 227 KB is refused (no launch counted); every stage
+    marked crossing is allowed and gives the same bits."""
+    import sed_crnn_torch.ops.kernels.fused_logmel as fl
+
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+    src, n_frames = frame_source(torch.from_numpy(_signal(n_fft + 3 * hop, 44100, 5)).to(cuda), cfg)
+    want = _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas)
+    sp = cluster_split(n_fft, ctas)
+    assert any(sp.cross)
+    bad = (sp._replace(cross=(False,) * len(sp.cross)),
+           sp._replace(chunk=sp.chunk - 1),
+           sp._replace(chunk=sp.chunk + 30000, smem_bytes=sp.smem_bytes + 240000))
+    for split in bad:
+        monkeypatch.setattr(fl, "cluster_split", lambda n, c, split=split: split)
+        before = _counts()
+        with pytest.raises(RuntimeError, match="logmel_cluster launch failed"):
+            _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas)
+        assert _counts() == before
+    every = sp._replace(cross=(True,) * len(sp.cross))
+    monkeypatch.setattr(fl, "cluster_split", lambda n, c: every)
+    assert torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas), want)
 
 
 def test_logmel_kernel_rejects_bad_inputs(cuda):

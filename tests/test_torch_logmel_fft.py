@@ -126,12 +126,12 @@ def test_power_of_two_sizes_take_the_fft_body(n_fft):
 
 @pytest.mark.parametrize("n_fft,other", [
     (1034, "mixed"), (1000, "mixed"), (128, "mixed"), (32768, "mixed"), (2050, "mixed"),
-    (3072, "mixed"), (12865, "dft"), (23042, "dft"),
+    (3072, "mixed"), (12865, "cluster"), (23042, "cluster"),
 ])
 def test_other_sizes_take_the_dft_body(n_fft, other):
     """Every other size leaves the FFT body: the mixed body up to its
-    shared-memory limit (tests/test_torch_logmel_mixed.py), the dft body's
-    direct formulation beyond it."""
+    shared-memory limit (tests/test_torch_logmel_mixed.py), the cluster
+    body beyond it (tests/test_torch_logmel_cluster.py)."""
     assert body(n_fft) == other
     with pytest.raises(ValueError):
         fft_log_mel_plain(torch.zeros(4 * n_fft), FrontendConfig(n_fft=n_fft, hop_length=512))
@@ -179,7 +179,7 @@ def test_cpu_wrapper_runs_the_dft_plain_version():
     cfg = FrontendConfig(log_floor=1e-10)
     y = torch.from_numpy(_signal(20000, 44100, seed=4))
     counts = (fused_log_mel.launches, fused_log_mel.framed_launches,
-              fused_log_mel.exact_launches, fused_log_mel.dft_launches)
+              fused_log_mel.exact_launches, fused_log_mel.cluster_launches)
     assert torch.equal(fused_log_mel(y, cfg), fused_log_mel_plain(y, cfg))
     assert counts == (fused_log_mel.launches, fused_log_mel.framed_launches,
-                      fused_log_mel.exact_launches, fused_log_mel.dft_launches)
+                      fused_log_mel.exact_launches, fused_log_mel.cluster_launches)

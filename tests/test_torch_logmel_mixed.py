@@ -145,22 +145,24 @@ def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
     """A plan fits when one frame's work array and power row take at most
     227 KB: every n_fft to 12,864 (12,863: Bluestein at the largest M,
     25,725), every even one to 23,040, and beyond them the sizes whose plan
-    is small enough (21,875 and 38,416 direct; 40,000, L 20,000, is not)."""
+    is small enough (21,875 and 38,416 direct; 40,000, L 20,000, is not);
+    a plan that does not fit goes to the cluster body."""
     assert (mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM) == fits
-    assert body(n_fft) == ("mixed" if fits else "dft") or body(n_fft) == "fft"
+    assert body(n_fft) == ("mixed" if fits else "cluster") or body(n_fft) == "fft"
 
 
 @pytest.mark.parametrize("n_fft,want", [
     (1034, "mixed"), (1764, "mixed"), (882, "mixed"), (400, "mixed"), (960, "mixed"),
     (1920, "mixed"), (1001, "mixed"), (128, "mixed"), (1, "mixed"), (20000, "mixed"),
-    (2048, "fft"), (256, "fft"), (16384, "fft"), (12865, "dft"), (23042, "dft"),
+    (2048, "fft"), (256, "fft"), (16384, "fft"), (12865, "cluster"), (23042, "cluster"),
 ])
 def test_body_by_size(n_fft, want):
     assert body(n_fft) == want
 
 
 def test_body_below_the_limit_is_never_the_dft_body():
-    """No n_fft up to 12,864 reaches the dft body."""
+    """No n_fft up to 12,864 leaves one block for the cluster body (and no
+    n_fft reaches the retired dft body: `body` no longer names it)."""
     assert {body(n) for n in range(1, 12865)} == {"fft", "mixed"}
 
 
@@ -292,9 +294,10 @@ def test_mixed_plain_on_a_frame_matrix(case):
     _assert_log_close(got.numpy(), fused_log_mel_frames_plain(frames, cfg).numpy(), 5e-4)
 
 
-@pytest.mark.parametrize("n_fft", [2048, 12865])
+@pytest.mark.parametrize("n_fft", [2048, 16384])
 def test_mixed_plain_refuses_sizes_it_does_not_take(n_fft):
-    with pytest.raises(ValueError, match="mixed body"):
+    """The FFT body's sizes; the cluster body's (12,865 and up) are taken."""
+    with pytest.raises(ValueError, match="mixed and cluster bodies"):
         mixed_log_mel_plain(torch.zeros(4 * n_fft), FrontendConfig(n_fft=n_fft, hop_length=512))
 
 
@@ -303,7 +306,7 @@ def test_cpu_wrapper_runs_the_dif_direct_plain_version():
     direct plain version (the JAX kernels' function), counting no launch."""
     counts = lambda: (fused_log_mel.launches, fused_log_mel.framed_launches,  # noqa: E731
                       fused_log_mel.exact_launches, fused_log_mel.mixed_launches,
-                      fused_log_mel.dft_launches)
+                      fused_log_mel.cluster_launches)
     before = counts()
     for case in ("1764", "1034"):
         cfg = FrontendConfig(log_floor=1e-10, **CONFIGS[case])

@@ -147,6 +147,30 @@ def test_train_cli_runs(tmp_path, monkeypatch):
                         "--art-dir", str(tmp_path / "p"), "--device", "cpu"])
 
 
+def test_train_cli_accepts_slow_prng(tmp_path, monkeypatch):
+    """The JAX CLI's ``--slow-prng`` is accepted and selects nothing: the
+    run writes the same files, and the same checkpoints, as without it."""
+    _, tc = _cfgs()
+    monkeypatch.setattr(train_app, "get_preset", lambda name: tc)
+    roots = {}
+    for tag, extra in (("plain", []), ("slow", ["--slow-prng"])):
+        train_app.main(["--preset", "sednet-dcase", "--synthetic", "--folds", "1",
+                        "--batch-size", "16", "--art-dir", str(tmp_path / tag),
+                        "--device", "cpu", *extra])
+        (run,) = os.listdir(tmp_path / tag)
+        roots[tag] = tmp_path / tag / run
+    files = {tag: sorted(str(p.relative_to(r)) for p in r.rglob("*"))
+             for tag, r in roots.items()}
+    assert files["plain"] == files["slow"]
+    ckpts = [f for f in files["plain"] if f.endswith(".npz")]
+    assert ckpts
+    for name in ckpts:
+        with np.load(roots["plain"] / name) as a, np.load(roots["slow"] / name) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k])
+
+
 def test_multiseed_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tc = _cfgs()
