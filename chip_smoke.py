@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, feature-extraction,
-evaluation, live-serving and stacked multi-seed training paths on one GPU
-and check its kernels.
+evaluation, live-serving, stacked multi-seed training and checkpoint
+migration paths on one GPU and check its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -182,7 +182,22 @@ exits non-zero and prints no result line:
     shape, ``run_experiment_multiseed`` stacked against sequential, and the
     two modes' per-step losses from one init (bf16 and float32 trunks,
     the preset's GRUs and these); exact launch counts on every path and no
-    plain version on the card.
+    plain version on the card;
+19. checkpoint migration ([import], after [serve]): the reference's v1 and
+    v2 classes (`reference_model`: full width, weights from
+    ``torch.Generator`` seeds, primed BatchNorm statistics) saved as a raw
+    ``state_dict`` and as a Lightning ``.ckpt`` with pickled
+    hyper-parameters, imported by ``apps.import_torch.main``; at B=128 the
+    reference class (cuDNN ``nn.GRU``) against the port's `CRNN` from the
+    imported npz on the card within 1e-4 (v2 at float32; the preset's bf16
+    trunk for its launches), one pair launch per BiGRU layer; the imported
+    v1 served as in phase 5 (card vs CPU, exact launch counts);
+    ``run_fold(resume_from=...)`` on it for one epoch of a few steps at full
+    width, exact launch counts; ``apps.export_weights.main`` back to ``.pt``
+    (naming v1 and v2), reloaded with ``strict=True`` into fresh reference
+    classes, bitwise the originals; the whole forwards' times and kernel B's
+    pair at (B 128, T 8, H 32, reset_after=True) beside one bidirectional
+    ``torch.nn.GRU`` layer, the plain version and the bound.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -343,6 +358,94 @@ BF16_JAX_DIST = {
 def bf16_input(seed: int) -> np.ndarray:
     """The band's input for weight seed ``seed``: 32 windows of 64 x 40."""
     return np.random.default_rng(100 + seed).standard_normal((32, 64, 40)).astype(np.float32)
+
+
+def reference_model(version: str, seed: int, conv: int | None = None,
+                    hidden: tuple | None = None):
+    """A plain-torch reconstruction of one of the reference's CRNN classes,
+    on the CPU in eval mode, over (B, 1, 40, 64) input: ``"v1"``, the
+    TimePooledCRNN of `sed.py:82-112` (``convs``/``bns`` ModuleLists of 3
+    conv + BN blocks, one 2-layer bidirectional ``gru``, ``fc``), or ``"v2"``,
+    `crnn_lightning.py:41-73` (a ``conv_stack`` Sequential of [Conv2d, BN,
+    ReLU, MaxPool] per block and a trailing Dropout, ``gru1``/``gru2``,
+    ``d1``/``d2``), so that its ``state_dict`` has the reference's keys in
+    their order. Widths default to the presets' (v1: conv 128, GRU 32; v2:
+    conv 16, GRUs 16 and 8). Every parameter is drawn from a
+    ``torch.Generator`` seeded with ``seed``, fan-in scaled, the last layer
+    x4 so that few probabilities sit near the 0.5 threshold; the BatchNorm
+    statistics are primed by three train-mode batches from the same
+    generator."""
+    import torch
+    from torch import nn
+
+    n_mels, pool = 40, 2
+    if version == "v1":
+        c = conv or 128
+        h = hidden or (32, 32)
+
+        class ReferenceV1(nn.Module):
+            def __init__(self):
+                super().__init__()
+                chans = [1, c, c, c]
+                self.convs = nn.ModuleList(nn.Conv2d(chans[i], chans[i + 1], 3, padding=1)
+                                           for i in range(3))
+                self.bns = nn.ModuleList(nn.BatchNorm2d(c) for _ in range(3))
+                self.gru = nn.GRU(c * n_mels, h[0], num_layers=2, batch_first=True,
+                                  bidirectional=True)
+                self.fc = nn.Linear(2 * h[0], 1)
+
+            def forward(self, x):
+                for conv_, bn in zip(self.convs, self.bns):
+                    x = nn.functional.max_pool2d(torch.relu(bn(conv_(x))), (1, pool))
+                x = x.permute(0, 3, 1, 2)
+                x, _ = self.gru(x.reshape(x.shape[0], x.shape[1], -1))
+                return self.fc(x)
+
+        model, last = ReferenceV1(), "fc.weight"
+    elif version == "v2":
+        c = conv or 16
+        h = hidden or (16, 8)
+
+        class ReferenceV2(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.conv_stack = nn.Sequential()
+                in_c = 1
+                for _ in range(3):
+                    self.conv_stack.append(nn.Conv2d(in_c, c, 3, padding=1))
+                    self.conv_stack.append(nn.BatchNorm2d(c))
+                    self.conv_stack.append(nn.ReLU())
+                    self.conv_stack.append(nn.MaxPool2d((1, pool)))
+                    in_c = c
+                self.conv_stack.append(nn.Dropout(0.4))
+                self.gru1 = nn.GRU(c * n_mels, h[0], batch_first=True, bidirectional=True)
+                self.gru2 = nn.GRU(2 * h[0], h[1], batch_first=True, bidirectional=True)
+                self.d1 = nn.Linear(2 * h[1], 8)
+                self.d2 = nn.Linear(8, 1)
+
+            def forward(self, x):
+                x = self.conv_stack(x).permute(0, 3, 1, 2)
+                x, _ = self.gru1(x.reshape(x.shape[0], x.shape[1], -1))
+                x, _ = self.gru2(x)
+                return self.d2(torch.relu(self.d1(x)))
+
+        model, last = ReferenceV2(), "d2.weight"
+    else:
+        raise ValueError(f"unknown reference version {version!r}")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            draw = torch.randn(p.shape, generator=g)
+            if p.ndim > 1:                       # weights: 1 / sqrt(fan-in)
+                p.copy_(draw / p[0].numel() ** 0.5 * (4.0 if name == last else 1.0))
+            elif name.endswith("weight"):        # BatchNorm scales
+                p.copy_(1.0 + 0.1 * draw)
+            else:
+                p.copy_(0.1 * draw)
+        model.train()
+        for _ in range(3):
+            model(torch.randn((8, 1, n_mels, 64), generator=g))
+    return model.eval()
 
 
 def phase_device():
@@ -603,25 +706,27 @@ def phase_gru():
     return entry, worst["wide"]
 
 
-def phase_main(workdir: str, pcm: np.ndarray):
+def _serve_card_and_cpu(tag: str, wav: str, ckpt: str, preset: str, pcm: np.ndarray):
+    """Serve ``wav`` (``pcm`` at 44.1 kHz) with checkpoint ``ckpt`` through
+    `apps.infer.infer_file` (the preset's fft frontend) and through the same
+    composition with the ``"kernel"`` frontend, on the card and on the CPU:
+    logits within LOGIT_ATOL, probabilities within PROB_ATOL, events equal;
+    the card's launches read around its two runs alone: kernel A once (the
+    composition's extract, chunked route, not on the cluster body), kernel B
+    one pair launch per BiGRU layer per chunk per stream, on the warp body,
+    and no GRU plain version on a CUDA tensor.
+    -> (launches, the kernel frontend config, the card's model)."""
     import torch
 
     from sed_crnn_torch.apps.infer import infer_file, load_model
-    from sed_crnn_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from sed_crnn_torch.core.checkpoint import load_checkpoint
     from sed_crnn_torch.core.config import get_preset
     from sed_crnn_torch.data.rasterize import events_from_labels
-    from sed_crnn_torch.data.wavio import write_wav
     from sed_crnn_torch.models.streaming import stream_logits, stream_probabilities
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
 
-    preset = "sednet-dcase"
     cfg = get_preset(preset)
-    params, state = model_tree(cfg.model, seed=11)
-    ckpt = save_checkpoint(os.path.join(workdir, "sednet.npz"),
-                           {"params": params, "model_state": state}, {"epoch": 0})
-    wav = os.path.join(workdir, "tones_120s.wav")
-    write_wav(wav, pcm, SR)
     fe_kernel = dataclasses.replace(cfg.frontend, backend="kernel", log_floor=1e-10)
     stats = frontend.fit_norm_stats(frontend.extract(pcm, fe_kernel, device="cpu"))
     stats = (stats.mean.numpy(), stats.scale.numpy())
@@ -653,13 +758,14 @@ def phase_main(workdir: str, pcm: np.ndarray):
     kernel_extracts = 1   # the composition's extract; infer_file's preset frontend is fft
     check(logmel == {"chunked": kernel_extracts, "framed": 0, "exact": 0, "mixed": 0,
                      "cluster": 0},
-          f"kernel A launches {logmel} != {kernel_extracts} chunked extract call, no cluster "
-          f"body")
-    # Kernel B: one pair launch per BiGRU layer (2) per chunk, on the warp body.
-    want = _gru_path_counts(streams * 2 * n_chunks, 0)
-    check(gru == want, f"kernel B launches {gru} != {want} (2 pairs x {n_chunks} chunks x "
-          f"{streams} streams)")
-    check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
+          f"{tag} kernel A launches {logmel} != {kernel_extracts} chunked extract call, no "
+          f"cluster body")
+    # Kernel B: one pair launch per BiGRU layer per chunk, on the warp body.
+    n_layers = len(cfg.model.gru_hidden)
+    want = _gru_path_counts(streams * n_layers * n_chunks, 0)
+    check(gru == want, f"{tag} kernel B launches {gru} != {want} ({n_layers} pairs x "
+          f"{n_chunks} chunks x {streams} streams)")
+    check(not plain_on_card, f"{tag} a GRU plain version ran on the card: {plain_on_card}")
 
     t0 = time.perf_counter()
     probs_i_cpu, events_i_cpu, _ = infer_file(wav, ckpt, preset, stats, device="cpu")
@@ -671,25 +777,41 @@ def phase_main(workdir: str, pcm: np.ndarray):
     logits = stream_logits(model_c, mel_c).cpu()
     logits_cpu = stream_logits(model_c_cpu, mel_c_cpu)
     logit_err = float((logits - logits_cpu).abs().max())
-    check(bool(torch.isfinite(logits).all()), "non-finite logits on the card")
+    check(bool(torch.isfinite(logits).all()), f"{tag} non-finite logits on the card")
     check(logit_err <= LOGIT_ATOL,
-          f"card vs CPU logits {logit_err} > {LOGIT_ATOL}")
-    print(f"[main] kernel composition logits {tuple(logits.shape)}: card vs CPU max|diff| "
-          f"{logit_err:.3g} (|logit| up to {float(logits.abs().max()):.3g})")
+          f"{tag} card vs CPU logits {logit_err} > {LOGIT_ATOL}")
+    print(f"{tag} {preset} kernel composition logits {tuple(logits.shape)}: card vs CPU "
+          f"max|diff| {logit_err:.3g} (|logit| up to {float(logits.abs().max()):.3g}, "
+          f"nearest the threshold {float(logits[: n_frames // pool].abs().min()):.3g})")
     for name, g, c, eg, ec in (("infer_file", probs_i, probs_i_cpu, events_i, events_i_cpu),
                                ("kernel composition", probs_c, probs_c_cpu, events_c,
                                 events_c_cpu)):
-        check(g.shape == c.shape == (n_frames, cfg.model.n_classes), f"{name} shape {g.shape}")
-        check(bool(np.isfinite(g).all()), f"{name}: non-finite probabilities")
+        check(g.shape == c.shape == (n_frames // pool, cfg.model.n_classes),
+              f"{tag} {name} shape {g.shape}")
+        check(bool(np.isfinite(g).all()), f"{tag} {name}: non-finite probabilities")
         err = float(np.abs(g - c).max())
-        check(err <= PROB_ATOL, f"{name}: card vs CPU probabilities {err} > {PROB_ATOL}")
-        check(eg == ec, f"{name}: card and CPU events differ")
-        print(f"[main] {name}: probs {g.shape}, card vs CPU max|diff| {err:.3g}, "
+        check(err <= PROB_ATOL, f"{tag} {name}: card vs CPU probabilities {err} > {PROB_ATOL}")
+        check(eg == ec, f"{tag} {name}: card and CPU events differ")
+        print(f"{tag} {name}: probs {g.shape}, card vs CPU max|diff| {err:.3g}, "
               f"{len(eg)} events equal, mean prob {float(g.mean()):.3f}")
-    check(len(events_c) > 0, "the 120 s file decodes into events")
-    print(f"[main] launches in the main path: {launches} ({n_chunks} chunks per stream, "
+    check(len(events_c) > 0, f"{tag} the 120 s file decodes into events")
+    print(f"{tag} launches in the serving path: {launches} ({n_chunks} chunks per stream, "
           f"{streams} streams); card {gpu_s:.2f} s, CPU {cpu_s:.2f} s")
-    return launches, fe_kernel, load_model(tree, cfg.model, "cuda")
+    return launches, fe_kernel, model_c
+
+
+def phase_main(workdir: str, pcm: np.ndarray):
+    from sed_crnn_torch.core.checkpoint import save_checkpoint
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.data.wavio import write_wav
+
+    preset = "sednet-dcase"
+    params, state = model_tree(get_preset(preset).model, seed=11)
+    ckpt = save_checkpoint(os.path.join(workdir, "sednet.npz"),
+                           {"params": params, "model_state": state}, {"epoch": 0})
+    wav = os.path.join(workdir, "tones_120s.wav")
+    write_wav(wav, pcm, SR)
+    return _serve_card_and_cpu("[main]", wav, ckpt, preset, pcm)
 
 
 def phase_throughput(fe_kernel, model, pcm: np.ndarray):
@@ -3368,6 +3490,225 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
 
 # Kernel B's wide body (csrc/gru_wide.cu, H > 32): the widths, batches and
 # timed shapes of [kernel B wide], and the three full-width paths' configs.
+IMPORT_BATCH = 128       # windows of 64 x 40 in the forward parity and its times
+# The port's forward from an imported checkpoint against the reference class
+# on the card: cuDNN's convolutions on both sides, cuDNN's GRU against kernel
+# B (float32, sums in another order), before a head that scales logits x4.
+IMPORT_ATOL = 1e-4
+IMPORT_FRAMES = 3000     # the fine-tune's synthetic train split: a few steps of 128
+
+
+def phase_import(workdir: str, pcm: np.ndarray):
+    """[import]: checkpoint migration on the card. The reference's v1 and v2
+    classes (`reference_model`, full width, seeded) saved as a raw
+    ``state_dict`` and as a Lightning ``.ckpt`` (pickled hyper-parameters:
+    the full-unpickle path), imported by ``apps.import_torch.main``; their
+    forward at B=128 against the port's `CRNN` from the imported npz (v2 at
+    float32; the preset's bf16 trunk for its launches), one pair launch per
+    BiGRU layer; the imported v1 served by `_serve_card_and_cpu`; fine-tuned
+    by ``run_fold(resume_from=...)`` for one epoch, exact launch counts; both
+    exported by ``apps.export_weights.main`` (naming v1, v2) and reloaded
+    with ``strict=True`` into fresh reference classes, bitwise; times of the
+    forwards and of kernel B's pair at (B 128, T 8, H 32, reset_after=True)
+    beside one bidirectional ``torch.nn.GRU`` layer and the bound."""
+    import argparse
+    import warnings
+
+    import torch
+
+    from sed_crnn_torch.apps import export_weights, import_torch
+    from sed_crnn_torch.apps.train import synthetic_folds
+    from sed_crnn_torch.core.checkpoint import load_checkpoint
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.data.wavio import write_wav
+    from sed_crnn_torch.models.convert import load_model
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan_pair, gru_scan_plain
+    from sed_crnn_torch.train.loop import make_samplers, run_fold
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir)
+    dev = torch.device("cuda")
+    presets = {"v1": "timepooled-v1", "v2": "timepooled-v2"}
+    # v1's seed: its nearest logit to the threshold on the served file is 0.08,
+    # 80x LOGIT_ATOL, so that card-vs-CPU rounding cannot move an event edge.
+    refs = {"v1": reference_model("v1", 42), "v2": reference_model("v2", 32)}
+    originals = {v: {k: t.clone() for k, t in m.state_dict().items()} for v, m in refs.items()}
+    src = {"v1": os.path.join(workdir, "v1_state_dict.pt"),
+           "v2": os.path.join(workdir, "v2_lightning.ckpt")}
+    torch.save(originals["v1"], src["v1"])
+    torch.save({"state_dict": {f"model.{k}": t for k, t in originals["v2"].items()},
+                "hyper_parameters": argparse.Namespace(lr=1e-3, fold_id=1, batch_size=128),
+                "epoch": 41}, src["v2"])
+    npz = {v: os.path.join(workdir, f"imported_{v}.npz") for v in presets}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for v, preset in presets.items():
+            import_torch.main(["--torch-ckpt", src[v], "--preset", preset, "--out", npz[v]])
+    unpickle = [w for w in caught if "FULL unpickle" in str(w.message)]
+    check(len(unpickle) == 1, f"the Lightning file takes the full-unpickle path once: {caught}")
+
+    # Forward parity on the card: the reference class (cuDNN conv and GRU)
+    # against the port's model from the imported npz.
+    rng = np.random.default_rng(33)
+    xt = torch.from_numpy(rng.standard_normal((IMPORT_BATCH, 64, 40)).astype(np.float32)).to(dev)
+    x_ref = xt.transpose(1, 2)[:, None].contiguous()     # (B, 1, 40, 64), the reference's
+    numbers, fwd_launches = {}, 0
+    for v, preset in presets.items():
+        mcfg = dataclasses.replace(get_preset(preset).model, compute_dtype="float32")
+        tree, meta = load_checkpoint(npz[v])
+        check(meta["preset"] == preset and meta["epoch"] == 0, f"{v} metadata {meta}")
+        model, ref = load_model(tree, mcfg, dev), refs[v].to(dev)
+        _reset_gru_counts()
+        with torch.no_grad(), _no_plain_gru_on_card() as plain_on_card:
+            got = model(xt)[0]
+            torch.cuda.synchronize()
+        counts = _gru_counts()
+        want_counts = _gru_path_counts(len(mcfg.gru_hidden), 0)
+        check(counts == want_counts, f"[import] {v} forward launches {counts} != {want_counts}")
+        check(not plain_on_card, f"[import] a GRU plain version ran on the card: {plain_on_card}")
+        fwd_launches += counts["gru_scan_fwd"]
+        with torch.no_grad():
+            want = ref(x_ref)
+        check(got.shape == want.shape == (IMPORT_BATCH, 8, 1), f"{v} logits {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        check(err <= IMPORT_ATOL, f"[import] {v} port vs reference class on the card: {err}")
+        with torch.no_grad():
+            ref_ms = cuda_ms(lambda: ref(x_ref), reps=20)
+            port_ms = cuda_ms(lambda: model(xt), reps=20)
+            split = _by_kernel(lambda: model(xt))
+        numbers[v] = {"ref_ms": ref_ms, "port_ms": port_ms}
+        top = ", ".join(f"{k[:48]} {ms:.4f}" for k, ms in
+                        sorted(split.items(), key=lambda kv: -kv[1])[:3])
+        line = (f"[import] {v} ({preset}, full width, float32) B={IMPORT_BATCH}: port vs "
+                f"reference class max|diff| {err:.3g} (|logit| up to "
+                f"{float(want.abs().max()):.3g}); whole forward: reference class (cuDNN GRU) "
+                f"{ref_ms:.4f} ms, port {port_ms:.4f} ms (device-busy "
+                f"{sum(split.values()):.4f} ms, kernel B {_part(split, 'gru_warp'):.4f}; "
+                f"largest: {top})")
+        if v == "v2":
+            # The preset's own bf16 trunk: launches, and its distance from float32.
+            bf16 = load_model(tree, get_preset(preset).model, dev)
+            _reset_gru_counts()
+            with torch.no_grad(), _no_plain_gru_on_card() as plain_on_card:
+                got16 = bf16(xt)[0]
+                torch.cuda.synchronize()
+            counts = _gru_counts()
+            check(counts == want_counts and not plain_on_card,
+                  f"[import] v2 bf16 forward launches {counts} != {want_counts}")
+            fwd_launches += counts["gru_scan_fwd"]
+            check(bool(torch.isfinite(got16).all()), "[import] v2 bf16 logits not finite")
+            with torch.no_grad():
+                bf16_ms = cuda_ms(lambda: bf16(xt), reps=20)
+            line += (f"; the preset's bf16 trunk {bf16_ms:.4f} ms, "
+                     f"{float((got16 - got).abs().max()):.3g} from float32")
+        print(line)
+
+    # Serve the imported v1: the 120 s wav through infer_file and the
+    # kernel-frontend composition, card and CPU.
+    wav = os.path.join(workdir, "tones_120s.wav")
+    write_wav(wav, pcm, SR)
+    serve_launches, _, _ = _serve_card_and_cpu("[import]", wav, npz["v1"], presets["v1"], pcm)
+
+    # Fine-tune the imported v1 for one epoch on synthetic folds at full width.
+    cfg = get_preset(presets["v1"])
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, max_epochs=1, plot_every=0))
+    fold = synthetic_folds(1, frames=IMPORT_FRAMES, n_classes=cfg.model.n_classes)[1]
+    tr, val = make_samplers(cfg, fold, dev)
+    n_train = tr.steps_per_epoch(cfg.train.batch_size)
+    n_val = max(1, val.steps_per_epoch(cfg.train.batch_size, drop_last=False))
+    check(n_train >= 2, f"fine-tune split gives {n_train} steps")
+    art = os.path.join(workdir, "finetune")
+    _reset_gru_counts()
+    _reset_logmel_counts()
+    t0 = time.perf_counter()
+    with _no_plain_gru_on_card() as plain_on_card:
+        res = run_fold(cfg, fold, 1, art, resume_from=npz["v1"], device="cuda", verbose=False)
+        torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune = _gru_counts()
+    want_counts = _gru_path_counts(2 * n_val, 2 * n_train)
+    check(tune == want_counts, f"[import] fine-tune launches {tune} != {want_counts}")
+    check(not any(_logmel_counts().values()), f"fine-tune log-mel launches {_logmel_counts()}")
+    check(not plain_on_card, f"[import] a GRU plain version ran on the card: {plain_on_card}")
+    check(res.epochs_run == 1 and all(np.isfinite(res.history[k][0])
+                                      for k in ("loss_tr", "loss_val")),
+          f"fine-tune history {res.history}")
+    tuned, _ = load_checkpoint(os.path.join(art, "last_fold1.npz"))
+    imported, _ = load_checkpoint(npz["v1"])
+    moved = max(float(np.abs(a - b).max()) for (_, a), (_, b) in
+                zip(_leaves(tuned["params"]), _leaves(imported["params"])))
+    check(int(tuned["opt_state"]["step"]) == n_train and moved > 0,
+          f"fine-tuned checkpoint: step {tuned['opt_state']['step']}, moved {moved}")
+    print(f"[import] run_fold(resume_from=imported v1), 1 epoch x {n_train} steps at batch "
+          f"{cfg.train.batch_size}, {n_val} validation steps, in {tune_s:.2f} s: loss_tr "
+          f"{res.history['loss_tr']}, loss_val {res.history['loss_val']}; parameters moved up "
+          f"to {moved:.3g}; launches {tune}")
+
+    # Export both imports back and reload them into fresh reference classes.
+    for v, preset in presets.items():
+        out = os.path.join(workdir, f"exported_{v}.pt")
+        export_weights.main(["--checkpoint", npz[v], "--preset", preset, "--naming", v,
+                             "--out", out])
+        fresh = reference_model(v, 34)
+        fresh.load_state_dict(torch.load(out, map_location="cpu", weights_only=True), strict=True)
+        back = fresh.state_dict()
+        check(list(back) == list(originals[v]), f"[import] {v} export key order")
+        for k, t in originals[v].items():
+            if k.endswith("num_batches_tracked"):
+                check(back[k].dtype == torch.int64 and int(back[k]) == 0, f"{v} {k}")
+            else:
+                check(back[k].dtype == t.dtype and torch.equal(back[k], t),
+                      f"[import] {v} exported {k} differs from the original")
+        print(f"[import] {v} exported (naming {v}) and strict-loaded into a fresh reference "
+              f"class: {len(back)} tensors, every parameter and running statistic bitwise the "
+              f"original (num_batches_tracked 0)")
+
+    # Kernel B's pair at the imported models' shape against one bidirectional
+    # torch.nn.GRU layer on the same input.
+    B, T, H = IMPORT_BATCH, 8, 32
+    d0, d1 = (_gru_inputs(rng, dev, B, H, T=T, wh_std=H ** -0.5) for _ in range(2))
+    x = d0[0]
+    args = ((x, x), (d0[1], d1[1]), (d0[2], d1[2]), (d0[3], d1[3]))
+    pair = lambda: gru_scan_pair(*args, True, "sigmoid")  # noqa: E731
+    lib = _library_gru((d0[1], d1[1]), (d0[2], d1[2]), bidirectional=True)
+    h_lib = torch.stack([d0[3], d1[3]])
+    with torch.no_grad():
+        got = pair()
+        y_lib, hl_lib = lib(x, h_lib)
+    err = lib_err = 0.0
+    for k, rev in enumerate((False, True)):
+        want = gru_scan_plain(x, args[1][k], args[2][k], args[3][k], True, "sigmoid", rev)
+        err = max(err, _maxdiff(got[k][0], want[0]), _maxdiff(got[k][1], want[1]))
+        lib_err = max(lib_err, _maxdiff(y_lib[..., k * H:(k + 1) * H], want[0]),
+                      _maxdiff(hl_lib[k], want[1]))
+    check(err <= GRU_ATOL, f"[import] pair at B={B} T={T}: {err}")
+    check(lib_err <= LIBRARY_ATOL, f"[import] bidirectional torch.nn.GRU at B={B} T={T}: {lib_err}")
+    with torch.no_grad():
+        pair_ms = cuda_ms(pair, reps=50)
+        lib_ms = cuda_ms(lambda: lib(x, h_lib), reps=50)
+        pair_dev, pair_host = device_host_ms(pair)
+        lib_dev, lib_host = device_host_ms(lambda: lib(x, h_lib))
+    plain_ms = cuda_ms(lambda: [gru_scan_plain(x, args[1][k], args[2][k], args[3][k], True,
+                                               "sigmoid", k == 1) for k in (0, 1)], reps=5)
+    (bnd, by), _, _ = _gru_bounds(1, B, T, H, True)
+    print(f"[import] kernel B pair forward at B={B} T={T} H={H} reset_after=True: "
+          f"{pair_ms:.4f} ms (vs plain {err:.3g}), bidirectional torch.nn.GRU {lib_ms:.4f} ms "
+          f"(vs plain {lib_err:.3g}), plain {plain_ms:.4f} ms, bound {bnd:.6f} ms ({by}); "
+          f"device-busy / host issue per call: pair {_fmt(pair_dev)} / {pair_host:.4f} ms, "
+          f"library {_fmt(lib_dev)} / {lib_host:.4f} ms; phase in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    launches = {"fused_logmel": serve_launches["fused_logmel"],
+                "gru_scan_fwd": fwd_launches + serve_launches["gru_scan_fwd"] + tune["gru_scan_fwd"],
+                **{k: tune[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd", "gru_dwh")}}
+    entry = {"import_shape": f"pair B={B} T={T} H={H} reset_after=True", "import_ms": pair_ms,
+             "import_plain_ms": plain_ms, "import_library_ms": lib_ms, "import_bound_ms": bnd,
+             "import_bound_by": by, "import_max_abs_err": err, "import_device_ms": pair_dev,
+             "import_host_ms": pair_host,
+             **{f"import_{v}_forward_ms": n["port_ms"] for v, n in numbers.items()},
+             **{f"import_{v}_reference_ms": n["ref_ms"] for v, n in numbers.items()}}
+    return launches, entry
+
+
 WIDE_WIDTHS = (33, 48, 64, 96, 128, 129, 256)   # register tier to 128, L2 tier above
 WIDE_BATCHES = (1, 8, 128)
 WIDE_CHECK_T = 64
@@ -3978,6 +4319,7 @@ def main() -> int:
         stack_launches, stack = phase_multiseed_stacked(os.path.join(workdir, "stacked"))
         serve_launches, serve_numbers = phase_serve(train_dir, os.path.join(workdir, "serve"),
                                                     pcm)
+        import_launches, import_numbers = phase_import(os.path.join(workdir, "import"), pcm)
         wide = phase_gru_wide()
         wide_paths = phase_wide_paths(os.path.join(workdir, "wide"))
     kernel_b.update(eval_numbers)
@@ -4004,7 +4346,11 @@ def main() -> int:
                       "stack_bound_ms": t["bound_ms"], "stack_bound_by": t["bound_by"]})
     kernel_dwh.update({"stack_shape": shape,
                        "stack_device_ms": stack["times"][16]["bwd"]["dwh_device_ms"]})
-    kernel_b["max_abs_err"] = max(kernel_b["max_abs_err"], stack["worst"]["fwd"])
+    kernel_b["max_abs_err"] = max(kernel_b["max_abs_err"], stack["worst"]["fwd"],
+                                  import_numbers["import_max_abs_err"])
+    kernel_b.update(import_numbers)
+    for k, n in import_launches.items():
+        launches[k] += n
     kernel_fwd_res["max_abs_err"] = max(kernel_fwd_res["max_abs_err"], stack["worst"]["fwd"])
     kernel_bwd["max_abs_err"] = max(kernel_bwd["max_abs_err"], stack["worst"]["bwd"])
     kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])

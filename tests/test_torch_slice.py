@@ -142,7 +142,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "data/store", "ops/kernels/fused_logmel", "train/evaluate", "apps/evaluate",
         "apps/score_events", "ops/event_metrics", "data/eventio", "data/seqs",
         "train/multiseed", "models/export", "apps/export", "apps/serve",
-        "utils/native")} <= scanned
+        "utils/native", "models/transplant", "apps/import_torch",
+        "apps/export_weights")} <= scanned
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "sed_crnn_tpu")]
     assert bad == []
