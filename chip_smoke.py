@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, feature-extraction,
-evaluation, live-serving, stacked multi-seed training and checkpoint
-migration paths on one GPU and check its kernels.
+evaluation, live-serving, stacked multi-seed training, checkpoint
+migration, data- and seed-parallel and DCASE reproduction paths on one GPU
+and check its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -197,7 +198,34 @@ exits non-zero and prints no result line:
     (naming v1 and v2), reloaded with ``strict=True`` into fresh reference
     classes, bitwise the originals; the whole forwards' times and kernel B's
     pair at (B 128, T 8, H 32, reset_after=True) beside one bidirectional
-    ``torch.nn.GRU`` layer, the plain version and the bound.
+    ``torch.nn.GRU`` layer, the plain version and the bound;
+20. data parallelism, the seed mesh and the DCASE reproduction script
+    ([parallel], after [import]), ``sednet-dcase`` at full width, dropout
+    0: `run_fold` with ``data_parallel_factory(make_mesh(1))`` over NCCL
+    and ``apps.train --data-parallel 1 --synthetic`` (batch 128, 2 epochs
+    of 2 steps, full-split sweeps) bitwise plain `run_fold` under
+    deterministic cuDNN (histories, best and last checkpoints), exact
+    launch counts, no GRU plain version on the card; the step at batch 128
+    against the plain step in turns, its 7 all_reduces alone, a profile;
+    two ranks spawned on ``cuda:0`` over gloo: one step of a fixed global
+    batch of 128 (halves of 64) against one device's step on the same
+    arithmetic (convolutions on the halves, BatchNorm's moments as the mean
+    of the halves'; gradients within 1e-4 of each leaf's largest) and on
+    the whole batch (4e-4: the halves' BatchNorm moments alone move that
+    step by 1.6e-4; BatchNorm statistics and parameters 1e-5 in both), the
+    same step with BatchNorm's reduction hidden from autograd over 100
+    times that band, parameters bitwise equal on both ranks after 3 steps,
+    the sweep equal to one device's, exact launch counts, per-rank step and
+    collective times and bytes; ``apps.evaluate --data-parallel`` on
+    [evaluate]'s split and phase 9's best checkpoint, report and event
+    lists byte-identical to the unsharded CLI's, exact launch counts;
+    ``reproduce_dcase.main`` as it ships (``--folds 1 2 --runs 2
+    --max-epochs 2 --seed-parallel 1``) on a synthetic 13-file DCASE layout:
+    stage 1 on the feature CLI's default fft frontend (no kernel A launch,
+    as the JAX script), no plot and a notice where matplotlib is missing,
+    kernel B's stacked launches exact, the protocol's ER/F1, std and
+    per-seed values bitwise a direct stacked `run_experiment_multiseed` on
+    the same cache under deterministic cuDNN, the stages' wall times.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 object with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
@@ -4285,6 +4313,645 @@ def phase_wide_paths(workdir: str) -> dict:
     return {"launches": launches, "step": step, "serving": serving, "stacked": stacked}
 
 
+PARALLEL_EPOCHS = 2
+PARALLEL_HALF = 64          # each rank's share of the fixed global batch of 128
+PARALLEL_GRAD_RTOL = 1e-4   # two ranks vs one device on the same arithmetic: gradients,
+                            # of each leaf's largest
+# Two ranks vs one device's step on the whole batch: gradients, of each
+# leaf's largest. The two ranks reduce BatchNorm's moments as the mean of
+# the halves' moments; that alone, on one device with no collective, moves
+# this step's gradient by 1.6e-4 of /conv/1/w's largest, and cuDNN against
+# torch's own convolutions moves it by 2.9e-4 of /conv/0/w's (an H100
+# 80GB HBM3 at 700 W, ``[parallel]``'s own readings), so 1e-4 is below this
+# step's float32 spread.
+PARALLEL_WHOLE_GRAD_RTOL = 4e-4
+PARALLEL_ATOL = 1e-5        # two ranks vs one: BatchNorm statistics, parameters
+PARALLEL_TIMEOUT_S = 600    # the two spawned ranks, build and all
+
+
+def _dp_cfg():
+    """sednet-dcase at full width for the [parallel] phase: 2 epochs,
+    dropout 0 (the two-rank comparison holds one step to bands)."""
+    from sed_crnn_torch.core.config import get_preset
+
+    cfg = get_preset("sednet-dcase")
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0),
+                       train=dataclasses.replace(cfg.train, max_epochs=PARALLEL_EPOCHS,
+                                                 plot_every=0))
+
+
+def _tree_gaps(a: dict, b: dict) -> list:
+    """(max |a - b|, path) of every leaf two checkpoint trees hold."""
+    fa, fb = dict(_leaves(a)), dict(_leaves(b))
+    check(set(fa) == set(fb), f"checkpoint trees differ in leaves: {set(fa) ^ set(fb)}")
+    return sorted(((float(np.abs(fa[k].astype(np.float64) - fb[k]).max()) if fa[k].size
+                    else 0.0, k) for k in fa), reverse=True)
+
+
+def _step_gaps(got: dict, want: dict, grad_rtol: float) -> dict:
+    """How far one step's checkpoint tree is from another's: per leaf, Adam's
+    first moment (the gradient, scaled) as a share of the leaf's largest
+    (``grad``; a conv bias ahead of train-mode BatchNorm, whose exact
+    gradient is 0, as a share of the tree's scale, ``zero_grad``), the
+    parameters (``param`` all, ``param_clear`` where the gradient is clear of
+    ``grad_rtol``: Adam's first step moves an element by about lr * sign(g)
+    whatever |g| is), and the BatchNorm statistics (``bn``)."""
+    mu_g, mu_w = dict(_leaves(got["opt_state"]["mu"])), dict(_leaves(want["opt_state"]["mu"]))
+    tree_scale = max(float(np.abs(a).max()) for a in mu_w.values())
+    out = {"grad": {}, "zero_grad": {}, "param": {}, "param_clear": {}}
+    for (path, p_g), (_, p_w) in zip(_leaves(got["params"]), _leaves(want["params"])):
+        g, w = mu_g[path], mu_w[path]
+        out["param"][path] = float(np.abs(p_g - p_w).max())
+        if path.startswith("/conv/") and path.endswith("/b"):
+            out["zero_grad"][path] = max(float(np.abs(g).max()),
+                                         float(np.abs(w).max())) / tree_scale
+            continue
+        scale = float(np.abs(w).max())
+        out["grad"][path] = float(np.abs(g - w).max()) / scale
+        clear = np.abs(w) > grad_rtol * scale
+        out["param_clear"][path] = float(np.abs(p_g[clear] - p_w[clear]).max()) if clear.any() \
+            else 0.0
+    out["bn"] = max(float(np.abs(a - b).max()) for (_, a), (_, b) in
+                    zip(_leaves(got["model_state"]), _leaves(want["model_state"])))
+    return out
+
+
+def _check_step_gaps(tag: str, gaps: dict, lr: float, grad_band: dict, atol: float) -> None:
+    """Hold `_step_gaps` to bands: each leaf's gradient to ``grad_band``
+    (by path), a conv bias ahead of BatchNorm to 1e-4 of the tree's scale,
+    the parameters to ``atol`` where the gradient is clear of the band and
+    2 lr elsewhere, the BatchNorm statistics to ``atol``."""
+    for path, v in gaps["param"].items():
+        check(v <= 2 * lr + atol, f"{tag} {path} after Adam: {v}")
+    for path, v in gaps["zero_grad"].items():
+        check(v <= 1e-4, f"{tag} {path}: gradient of a bias ahead of BatchNorm is not ~0")
+    for path, v in gaps["grad"].items():
+        check(v <= grad_band[path], f"{tag} gradient {path}: {v:.3g} of its max "
+              f"(band {grad_band[path]:.3g})")
+    for path, v in gaps["param_clear"].items():
+        check(v <= atol, f"{tag} {path} after Adam: {v}")
+    check(gaps["bn"] <= atol, f"{tag} BatchNorm running statistics {gaps['bn']}")
+
+
+def _collective_sizes(model) -> list:
+    """Floats per all_reduce of one data-parallel train step: the flat
+    gradient, then each BatchNorm's packed (mean, mean_sq, n) forward and its
+    backward."""
+    from sed_crnn_torch.nn.layers import BatchNorm2d
+
+    n_params = sum(p.numel() for p in model.parameters())
+    bns = [2 * m.weight.numel() + 1 for m in model.modules() if isinstance(m, BatchNorm2d)]
+    return [n_params] + bns + bns
+
+
+def _collectives_ms(mesh, sizes: list, reps: int = 10) -> float:
+    """Host-clock milliseconds of one step's all_reduces alone (``sizes``
+    floats each, on the mesh's device), the device synchronized."""
+    import torch
+
+    from sed_crnn_torch.parallel.mesh import all_reduce_sum
+
+    bufs = [torch.zeros(n, device=mesh.device) for n in sizes]
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bufs:
+            all_reduce_sum(b, mesh)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _dp_step_fn(trainer, x, y):
+    """One train step of ``trainer`` on (x, y), its state carried."""
+    from sed_crnn_torch.train.loop import TrainState
+
+    box = [TrainState(trainer.adam.init({k: p.detach() for k, p in trainer.params().items()}),
+                      1.0)]
+
+    def step():
+        box[0], _, _ = trainer.train_step(box[0], x, y)
+
+    return step, box
+
+
+def _median_step_ms(step, reps: int = 8) -> float:
+    import torch
+
+    for _ in range(2):
+        step()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _parallel_rank(payload: dict) -> dict:
+    """One of two ranks on ``cuda:0`` over gloo (spawned by `_two_ranks`):
+    the fixed global batch's step on its half, 2 more steps, the sweep at
+    the initial parameters, per-rank times and bytes, exact launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from sed_crnn_torch.models import get_model
+    from sed_crnn_torch.parallel import mesh as mesh_mod
+    from sed_crnn_torch.parallel.data_parallel import DataParallelTrainer
+    from sed_crnn_torch.train.loop import checkpoint_tree, make_samplers
+
+    mesh = mesh_mod.make_mesh(2, device="cuda:0")
+    check(dist.get_backend() == "gloo" and mesh.device == torch.device("cuda", 0),
+          f"rank {mesh.rank}: {dist.get_backend()} on {mesh.device}")
+    cfg, r, dev = payload["cfg"], mesh.rank, mesh.device
+    model = get_model(cfg.model)
+    model.load_state_dict(payload["state_dict"])
+    tr, val = make_samplers(cfg, payload["fold"], dev)
+    trainer = DataParallelTrainer(model.to(dev), cfg.train, tr, val, mesh)
+    check(trainer.local_batch == PARALLEL_HALF, f"local batch {trainer.local_batch}")
+    sweep = {k: float(v) for k, v in trainer.eval_sweep(None).items()}
+    half = slice(PARALLEL_HALF * r, PARALLEL_HALF * (r + 1))
+    x = torch.from_numpy(payload["x"][half]).to(dev)
+    y = torch.from_numpy(payload["y"][half]).to(dev)
+    step, box = _dp_step_fn(trainer, x, y)
+    _reset_gru_counts()
+    mesh_mod.reset_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        step()
+        torch.cuda.synchronize()
+    launches = _gru_counts()
+    per_step = dict(mesh_mod.counts)
+    first = checkpoint_tree(trainer, box[0])
+    rngs = trainer.replica_rngs(dev, 7)
+    for _ in range(2):
+        xb, yb = tr.sample_batch(rngs.batch, trainer.local_batch)
+        box[0], _, _ = trainer.train_step(box[0], xb, yb)
+    third = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    step_ms = _median_step_ms(step)
+    sizes = _collective_sizes(model)
+    coll_ms, grad_ms = _collectives_ms(mesh, sizes), _collectives_ms(mesh, sizes[:1])
+    # the same first step with BatchNorm's reduction hidden from autograd
+    model.load_state_dict(payload["state_dict"])
+    step, box = _dp_step_fn(trainer, x, y)
+    differentiable = mesh_mod.all_reduce_sum_grad
+    mesh_mod.all_reduce_sum_grad = mesh_mod.all_reduce_sum
+    try:
+        step()
+    finally:
+        mesh_mod.all_reduce_sum_grad = differentiable
+    return {"rank": r, "sweep": sweep, "first": first, "third": third, "launches": launches,
+            "plain_on_card": plain_on_card, "per_step": per_step, "step_ms": step_ms,
+            "collectives_ms": coll_ms, "grad_ms": grad_ms,
+            "detached": checkpoint_tree(trainer, box[0])}
+
+
+@contextlib.contextmanager
+def _conv_by_halves():
+    """Every `Conv2d` of the port run on the batch's two halves apart (a
+    rank's convolutions at the local batch), inside the block."""
+    import torch
+
+    from sed_crnn_torch.nn.layers import Conv2d
+
+    whole = Conv2d.forward
+    Conv2d.forward = lambda self, x: torch.cat([whole(self, h) for h in x.chunk(2)])
+    try:
+        yield
+    finally:
+        Conv2d.forward = whole
+
+
+@contextlib.contextmanager
+def _bn_moments_by_halves():
+    """Train-mode `BatchNorm2d` with its moments taken as the mean of the
+    batch halves' moments (two ranks' cross-replica reduction, on one
+    device), inside the block: a plain restatement of the layer's float32
+    train forward."""
+    import torch
+
+    from sed_crnn_torch.nn.layers import BatchNorm2d
+
+    whole = BatchNorm2d.forward
+
+    def forward(self, x):
+        if not self.training:
+            return whole(self, x)
+        halves = x.float().chunk(2)
+        mean = sum(h.mean(dim=(0, 2, 3)) for h in halves) / 2.0
+        mean_sq = sum((h * h).mean(dim=(0, 2, 3)) for h in halves) / 2.0
+        n = float(x.numel() // x.shape[1])
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var * n / (n - 1.0))
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
+        shape = (1, -1, 1, 1)
+        return (x - mean.view(shape)) * inv.view(shape) + self.bias.float().view(shape)
+
+    BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm2d.forward = whole
+
+
+@contextlib.contextmanager
+def _halves_arithmetic():
+    """Two ranks' arithmetic on one device: convolutions on the halves,
+    BatchNorm's moments as the mean of the halves'."""
+    with _conv_by_halves(), _bn_moments_by_halves():
+        yield
+
+
+def _two_ranks(cfg, fold, state_dict, x, y) -> dict:
+    """Two ranks on one card over gloo against one device's step on the same
+    arithmetic (`_halves_arithmetic`) and on the whole batch, a BatchNorm
+    reduction hidden from autograd against the latter, the sweep against one
+    device's, parameters across ranks."""
+    import torch
+
+    from sed_crnn_torch.models import get_model
+    from sed_crnn_torch.parallel import mesh as mesh_mod
+    from sed_crnn_torch.train.loop import Trainer, checkpoint_tree, make_samplers
+
+    dev = torch.device("cuda")
+    payload = {"cfg": cfg, "fold": fold, "state_dict": state_dict, "x": x, "y": y}
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn_ranks(_parallel_rank, 2, (payload,), device="cuda:0",
+                                 backend="gloo", timeout=PARALLEL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+
+    model = get_model(cfg.model)
+    model.load_state_dict(state_dict)
+    tr, val = make_samplers(cfg, fold, dev)
+    trainer = Trainer(model.to(dev), cfg.train, tr, val)
+    one_sweep = {k: float(v) for k, v in trainer.eval_sweep(None).items()}
+    def one_rank_step(order, flags=None):
+        model.load_state_dict(state_dict)
+        step, box = _dp_step_fn(trainer, torch.from_numpy(x[order]).to(dev),
+                                torch.from_numpy(y[order]).to(dev))
+        with flags or contextlib.nullcontext():
+            step()
+        return checkpoint_tree(trainer, box[0])
+
+    n = x.shape[0]
+    whole = np.arange(n)
+    want = one_rank_step(whole)
+    # one device, no collective: the two ranks' arithmetic, each part of it
+    # alone, and torch's own convolutions in place of cuDNN's
+    same = one_rank_step(whole, _halves_arithmetic())
+    parts = {}
+    for name, order, flags in (
+            ("convolutions on the halves", whole, _conv_by_halves()),
+            ("BatchNorm moments by halves", whole, _bn_moments_by_halves()),
+            ("the batch reversed", whole[::-1].copy(), None),
+            ("cuDNN off", whole, torch.backends.cudnn.flags(enabled=False, allow_tf32=False))):
+        g = _step_gaps(one_rank_step(order, flags), want, PARALLEL_GRAD_RTOL)["grad"]
+        parts[name] = max(g.items(), key=lambda kv: kv[1])
+    lr = cfg.train.learning_rate
+    gaps = [_step_gaps(r["first"], want, PARALLEL_GRAD_RTOL) for r in ranks]
+    to_same = [_step_gaps(r["first"], same, PARALLEL_GRAD_RTOL) for r in ranks]
+    detached = [max(_step_gaps(r["detached"], want, PARALLEL_GRAD_RTOL)["grad"].values())
+                for r in ranks]
+    for r, g, e, d in zip(ranks, gaps, to_same, detached):
+        worst = max((v, k) for k, v in g["grad"].items())
+        worst_same = max((v, k) for k, v in e["grad"].items())
+        print(f"[parallel] gloo rank {r['rank']}/2 on cuda:0, local batch {PARALLEL_HALF}: "
+              f"step {r['step_ms']:.2f} ms (host clock, median of 8), collectives alone "
+              f"{r['collectives_ms']:.2f} ms (the gradient's {r['grad_ms']:.2f}), "
+              f"{r['per_step']['collectives']} all_reduces {r['per_step']['bytes']:,} bytes per "
+              f"step; gradients vs one device on the same arithmetic {worst_same[0]:.3g} of the "
+              f"leaf max ({worst_same[1]}; band {PARALLEL_GRAD_RTOL:g}), vs one device's step on "
+              f"all 128 {worst[0]:.3g} ({worst[1]}; band {PARALLEL_WHOLE_GRAD_RTOL:g}), with "
+              f"BatchNorm's reduction hidden from autograd {d:.3g}; BatchNorm stats "
+              f"{g['bn']:.3g}, parameters where the gradient is clear "
+              f"{max(g['param_clear'].values()):.3g}; launches {r['launches']}")
+    print("[parallel] one device's step on all 128 moved by (largest share of a leaf's max): "
+          + "; ".join(f"{k} {v:.3g} ({p})" for k, (p, v) in parts.items()))
+    for r, g, e, d in zip(ranks, gaps, to_same, detached):
+        tag = f"[parallel] rank {r['rank']} vs one device"
+        _check_step_gaps(f"{tag} on the same arithmetic", e, lr,
+                         {k: PARALLEL_GRAD_RTOL for k in e["grad"]}, PARALLEL_ATOL)
+        _check_step_gaps(f"{tag} on all 128", g, lr,
+                         {k: PARALLEL_WHOLE_GRAD_RTOL for k in g["grad"]}, PARALLEL_ATOL)
+        check(d > 100 * PARALLEL_WHOLE_GRAD_RTOL, f"{tag}: a BatchNorm reduction autograd "
+              f"misses moves the gradient by only {d:.3g}")
+    for k in ranks[0]["third"]:
+        check(np.array_equal(ranks[0]["third"][k], ranks[1]["third"][k]),
+              f"[parallel] {k} differs across ranks after 3 steps")
+    for r in ranks:
+        check(r["launches"] == _gru_path_counts(0, 2), f"rank {r['rank']} launches "
+              f"{r['launches']}")
+        check(not r["plain_on_card"], f"a GRU plain version ran on the card: {r['plain_on_card']}")
+        for k, v in one_sweep.items():
+            ok = abs(r["sweep"][k] - v) <= 1e-6 * abs(v) if k == "loss" else r["sweep"][k] == v
+            check(ok, f"rank {r['rank']} sweep {k}: {r['sweep'][k]} vs {v}")
+    sizes = _collective_sizes(model)
+    check(ranks[0]["per_step"] == {"collectives": len(sizes), "bytes": 4 * sum(sizes)},
+          f"collectives per step {ranks[0]['per_step']} vs {len(sizes)} of {sizes} floats")
+    print(f"[parallel] gloo: parameters bitwise equal on both ranks after 3 steps; the sweep "
+          f"(loss {ranks[0]['sweep']['loss']:.6f}, ER {ranks[0]['sweep']['er_overall_1sec']:.4f})"
+          f" equals one device's; two ranks spawned and joined in {wall:.1f} s")
+    return {"gloo_step_ms": [r["step_ms"] for r in ranks],
+            "gloo_collectives_ms": [r["collectives_ms"] for r in ranks],
+            "gloo_grad_ms": [r["grad_ms"] for r in ranks],
+            "grad_rel": max(max(g["grad"].values()) for g in gaps),
+            "grad_rel_same": max(max(e["grad"].values()) for e in to_same)}
+
+
+def _dp_world1(workdir: str) -> dict:
+    """Data parallelism at world size 1 over NCCL: `run_fold` with the
+    data-parallel factory and ``apps.train --data-parallel 1`` against plain
+    `run_fold`, deterministic cuDNN; the step against the plain step; the
+    collectives alone; a profile of one step."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from sed_crnn_torch.apps import train as train_app
+    from sed_crnn_torch.apps.train import synthetic_folds
+    from sed_crnn_torch.core.checkpoint import load_checkpoint
+    from sed_crnn_torch.models import get_model
+    from sed_crnn_torch.models.convert import from_jax
+    from sed_crnn_torch.parallel import mesh as mesh_mod
+    from sed_crnn_torch.parallel.data_parallel import DataParallelTrainer
+    from sed_crnn_torch.train.loop import Trainer, data_parallel_factory, make_samplers, run_fold
+
+    cfg = _dp_cfg()
+    dev = torch.device("cuda")
+    frames = int(cfg.train.batch_size * cfg.model.seq_len_in * 1.3)   # as apps.train does
+    fold = synthetic_folds(1, frames=frames, n_classes=cfg.model.n_classes)[1]
+    tr, val = make_samplers(cfg, fold, dev)
+    n_train, n_sweep = tr.steps_per_epoch(cfg.train.batch_size), val.sweep_steps(
+        cfg.train.batch_size)
+    dirs = {k: os.path.join(workdir, k) for k in ("plain", "dp", "cli")}
+    with _cudnn_deterministic():
+        plain = run_fold(cfg, fold, 1, dirs["plain"], device="cuda", verbose=False)
+        mesh = mesh_mod.make_mesh(1, device="cuda")
+        check(dist.get_backend() == "nccl" and mesh.size == 1, f"{dist.get_backend()} mesh")
+        _reset_gru_counts()
+        _reset_logmel_counts()
+        mesh_mod.reset_counts()
+        t0 = time.perf_counter()
+        with _no_plain_gru_on_card() as plain_on_card:
+            dp = run_fold(cfg, fold, 1, dirs["dp"], device=mesh.device, verbose=False,
+                          trainer_factory=data_parallel_factory(mesh))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _gru_counts()
+        collectives = dict(mesh_mod.counts)
+        mesh.close()
+        check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
+        check(not any(_logmel_counts().values()), f"log-mel launches {_logmel_counts()}")
+        want = _gru_path_counts(2 * n_sweep * PARALLEL_EPOCHS, 2 * n_train * PARALLEL_EPOCHS)
+        check(launches == want, f"data-parallel run_fold launches {launches} != {want}")
+        _reset_gru_counts()
+        saved = train_app.get_preset
+        train_app.get_preset = lambda name: _dp_cfg()
+        try:
+            cli, _ = _quiet(train_app.main, ["--synthetic", "--folds", "1", "--data-parallel", "1",
+                                             "--art-dir", dirs["cli"], "--device", "cuda"])
+        finally:
+            train_app.get_preset = saved
+        cli_launches = _gru_counts()
+    check(dp.epochs_run == PARALLEL_EPOCHS and bool(np.isfinite(dp.history["loss_tr"]).all()),
+          f"data-parallel run_fold history {dp.history}")
+    (cli_run,) = os.listdir(dirs["cli"])
+    runs = {"run_fold": (dp, dirs["dp"]),
+            "apps.train": (cli["folds"][0], os.path.join(dirs["cli"], cli_run, "fold1"))}
+    verdicts = []
+    for name, (res, d) in runs.items():
+        gaps = [g for ck in ("best_fold1.npz", "last_fold1.npz") for g in _tree_gaps(
+            load_checkpoint(os.path.join(d, ck))[0],
+            load_checkpoint(os.path.join(dirs["plain"], ck))[0])]
+        if res.history == plain.history and gaps[0][0] == 0.0:
+            verdicts.append(f"{name} bitwise run_fold's (histories, best and last checkpoints)")
+            continue
+        # not bitwise: name the leaf and hold the run to [train step]'s bands
+        for k, v in plain.history.items():
+            rel = np.abs(np.asarray(res.history[k]) - v) / np.maximum(np.abs(v), 1e-12)
+            check(k.startswith("loss") and float(rel.max()) <= STEP_LOSS_RTOL
+                  or not k.startswith("loss"), f"{name} history {k}: {res.history[k]} vs {v}")
+        gaps = _step_gaps(load_checkpoint(os.path.join(d, "last_fold1.npz"))[0],
+                          load_checkpoint(os.path.join(dirs["plain"], "last_fold1.npz"))[0],
+                          STEP_GRAD_RTOL)
+        _check_step_gaps(f"[parallel] {name}", gaps, cfg.train.learning_rate,
+                         {k: STEP_GRAD_RTOL for k in gaps["grad"]}, STEP_PARAM_ATOL)
+        verdicts.append(f"{name} NOT bitwise: largest gap {gaps[0][0]:.3g} at {gaps[0][1]}, "
+                        f"within [train step]'s bands")
+    print(f"[parallel] NCCL world size 1, sednet-dcase full width, {PARALLEL_EPOCHS} epochs x "
+          f"{n_train} steps at batch {cfg.train.batch_size} + {n_sweep} sweep step(s), in "
+          f"{wall:.2f} s: " + "; ".join(verdicts) + f"; launches {launches} (apps.train's "
+          f"{cli_launches}); {collectives['collectives']} all_reduces, "
+          f"{collectives['bytes']:,} bytes")
+
+    # the step at batch 128: data-parallel at world size 1 against plain
+    mesh = mesh_mod.make_mesh(1, device="cuda")
+    params, state = model_tree(cfg.model, seed=11)
+    state_dict = from_jax(params, state, cfg.model)
+    # a decisive last layer: few probabilities near the 0.5 threshold, so the
+    # sweep's scores cannot flip on the float32 rounding between batch-64 and
+    # batch-128 convolutions (the two-rank comparison)
+    last = [k for k in state_dict if k.startswith("head.") and k.endswith(".weight")][-1]
+    state_dict[last] = state_dict[last] * 8.0
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((128, cfg.model.seq_len_in, cfg.model.n_mels)).astype(np.float32)
+    y = (rng.random((128, cfg.model.seq_len_out, cfg.model.n_classes)) > 0.8).astype(np.float32)
+    xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    def trainer_of(cls, *extra):
+        model = get_model(cfg.model)
+        model.load_state_dict(state_dict)
+        return cls(model.to(dev), cfg.train, tr, val, *extra)
+
+    plain_step, _ = _dp_step_fn(trainer_of(Trainer), xd, yd)
+    dp_trainer = trainer_of(DataParallelTrainer, mesh)
+    dp_step, _ = _dp_step_fn(dp_trainer, xd, yd)
+    times = {}
+    for turn in ("plain", "dp", "dp", "plain"):
+        times.setdefault(turn, []).append(_median_step_ms(plain_step if turn == "plain"
+                                                          else dp_step))
+    sizes = _collective_sizes(dp_trainer.model)
+    coll_ms = _collectives_ms(mesh, sizes)
+    grad_ms = _collectives_ms(mesh, sizes[:1])
+    wall_us = _median_step_ms(dp_step, reps=3) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dp_step()
+        torch.cuda.synchronize()
+    mesh.close()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows)
+    nccl_us = sum(e.self_device_time_total for e in rows
+                  if "nccl" in e.key.lower() or "memcpy dtod" in e.key.lower())
+    idle = max(0.0, 1 - busy_us / wall_us) if busy_us else float("nan")
+    plain_ms, dp_ms = (float(np.mean(times[k])) for k in ("plain", "dp"))
+    print(f"[parallel] train step at batch 128 (host clock, median of 8, in turns plain, dp, dp, "
+          f"plain): plain {times['plain']} ms, data-parallel world size 1 (NCCL) {times['dp']} "
+          f"ms ({dp_ms / plain_ms:.3f}x); its {len(sizes)} all_reduces alone {coll_ms:.3f} ms "
+          f"(the gradient's, {sizes[0]:,} floats = {4 * sizes[0]:,} bytes, {grad_ms:.3f} ms; "
+          f"{len(sizes) - 1} BatchNorm ones of {sizes[1:]} floats); profile: device busy "
+          f"{busy_us / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms, idle share {idle:.3f}, NCCL "
+          f"kernels and device-to-device copies {nccl_us / 1e3:.3f} ms")
+    return {"launches": launches, "cli_launches": cli_launches, "fold": fold, "cfg": cfg,
+            "state_dict": state_dict, "x": x, "y": y, "plain_ms": plain_ms, "dp_ms": dp_ms,
+            "nccl_collectives_ms": coll_ms, "nccl_grad_ms": grad_ms, "idle": idle,
+            "n_params": sizes[0]}
+
+
+def _sharded_evaluate(train_dir: str, workdir: str) -> dict:
+    """``apps.evaluate --data-parallel`` (world size 1, NCCL) on [evaluate]'s
+    split and best checkpoint against the unsharded CLI: the report and the
+    dumped event lists equal, exact launch counts."""
+    import torch
+
+    from sed_crnn_torch.apps import evaluate as eval_app
+    from sed_crnn_torch.apps.train import synthetic_folds
+    from sed_crnn_torch.core.config import get_preset
+
+    m = get_preset("sednet-dcase").model
+    val = synthetic_folds(1, frames=2 * EVAL_FRAMES, seed=14, n_classes=m.n_classes)[1]
+    x, y = val["val_x"], val["val_y"]
+    cache = os.path.join(workdir, "cache")
+    os.makedirs(cache)
+    np.savez(os.path.join(cache, "mbe_mon_fold1.npz"), x, y, x, y)
+    n_batches = -(-(x.shape[0] // m.seq_len_in) // EVAL_BATCH)
+    base = ["--checkpoint", os.path.join(train_dir, "fold1", "best_fold1.npz"),
+            "--preset", "sednet-dcase", "--cache-dir", cache, "--device", "cuda"]
+    out, walls, launches = {}, {}, {}
+    for name, extra in (("single", []), ("sharded", ["--data-parallel"])):
+        d = os.path.join(workdir, name)
+        _reset_gru_counts()
+        _reset_logmel_counts()
+        t0 = time.perf_counter()
+        with _no_plain_gru_on_card() as plain_on_card:
+            _quiet(eval_app.main, base + extra + ["--dump-events", d,
+                                                  "--out", os.path.join(d, "report.json")])
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = _gru_counts()
+        check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
+        check(launches[name] == _gru_path_counts(2 * n_batches, 0),
+              f"{name} evaluation launches {launches[name]}")
+        out[name] = {f: open(os.path.join(d, f), "rb").read()
+                     for f in ("report.json", "ref_events.txt", "est_events.txt")}
+    for f in out["single"]:
+        check(out["sharded"][f] == out["single"][f], f"sharded evaluation: {f} differs")
+    report = json.loads(out["single"]["report.json"])
+    print(f"[parallel] apps.evaluate --data-parallel (NCCL, world size 1) on [evaluate]'s "
+          f"{x.shape[0]:,}-frame split, best checkpoint: report, ref_events.txt and "
+          f"est_events.txt byte-identical to the unsharded CLI's (ER_1s {report['er_1s']:.4f},"
+          f" F1_1s {report['f1_1s']:.4f}, {report['n_windows']} windows); walls "
+          f"{walls['single']:.2f} / {walls['sharded']:.2f} s; launches {launches['sharded']}")
+    return launches["sharded"]
+
+
+def _reproduce_dcase_run(workdir: str) -> dict:
+    """``python -m sed_crnn_torch.apps.reproduce_dcase`` as it ships, at full
+    width on a synthetic DCASE layout, ``--seed-parallel 1``: stage 1 on the
+    feature CLI's default ``fft`` frontend, as the JAX script (no kernel A
+    launch); without matplotlib, its notice and no plot; exact stacked kernel
+    B launch counts; the protocol's numbers (its ``experiment_multiseed.jsonl``
+    and the report) against a direct stacked `run_experiment_multiseed` on
+    the same cache, deterministic cuDNN; the stages' walls, split where the
+    cache's last file was written."""
+    import importlib.util
+    import io
+
+    import torch
+
+    from sed_crnn_torch.apps import reproduce_dcase
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.data import store
+    from sed_crnn_torch.train import multiseed
+    from sed_crnn_torch.train.loop import make_samplers
+
+    root = os.path.join(workdir, "dcase")
+    names = write_dcase_layout(root)
+    art, cache = os.path.join(workdir, "art"), os.path.join(root, "sedtpu_cache")
+    _reset_gru_counts()
+    _reset_logmel_counts()
+    err = io.StringIO()
+    t0 = time.time()
+    with _cudnn_deterministic(), _no_plain_gru_on_card() as plain_on_card, \
+            contextlib.redirect_stderr(err):
+        report, lines = _quiet(reproduce_dcase.main, [
+            "--dcase-root", root, "--art-dir", art, "--folds", "1", "2", "--runs", "2",
+            "--max-epochs", str(PARALLEL_EPOCHS), "--seed-parallel", "1", "--device", "cuda",
+            "--out", os.path.join(workdir, "report.json")])
+        torch.cuda.synchronize()
+    t1 = time.time()
+    stack_launches, fe = _gru_counts(), _logmel_counts()
+    check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
+    check(not any(fe.values()), f"stage 1 launched kernel A {fe}; the script's frontend is fft")
+    check(json.loads(lines[-2]) == report and lines[-1].startswith("vs published baseline: "),
+          f"the script's last lines {lines[-2:]}")
+    pngs = [f for _, _, fs in os.walk(art) for f in fs if f.endswith(".png")]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    check(plots == bool(pngs) and plots != ("matplotlib is not installed" in err.getvalue()),
+          f"plots: matplotlib {'present' if plots else 'missing'}, {len(pngs)} png, stderr "
+          f"{err.getvalue()!r}")
+    features_end = max(os.path.getmtime(os.path.join(cache, f)) for f in os.listdir(cache))
+    with open(os.path.join(art, "experiment_multiseed.jsonl")) as f:
+        (logged,) = [json.loads(ln) for ln in f]
+
+    cfg = get_preset("sednet-dcase")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, max_epochs=PARALLEL_EPOCHS,
+                                                plot_every=0))
+    folds = store.load_all_folds(cache, [1, 2], "mon")
+    with _cudnn_deterministic():
+        direct = multiseed.run_experiment_multiseed(cfg, folds, os.path.join(workdir, "direct"),
+                                                    n_runs=2, mode="stacked", verbose=False,
+                                                    device="cuda")
+    for k in ("mean_er", "std_er", "mean_f1", "std_f1", "er_by_seed", "f1_by_seed", "seeds"):
+        check(logged[k] == direct[k], f"reproduce_dcase {k} {logged[k]} vs direct {direct[k]}")
+    for key, src in (("er_1s", "mean_er"), ("f1_1s", "mean_f1"), ("std_er", "std_er"),
+                     ("std_f1", "std_f1")):
+        check(report[key] == round(direct[src], 4), f"report {key} {report} vs direct {direct}")
+    fwd = steps = 0
+    for k, fd in folds.items():
+        tr, val = make_samplers(cfg, fd, torch.device("cpu"))
+        epochs = max(r.epochs_run for r in direct["folds"][k])
+        fwd += 2 * val.sweep_steps(cfg.train.batch_size) * epochs
+        steps += 2 * tr.steps_per_epoch(cfg.train.batch_size) * epochs
+    want = _gru_path_counts(fwd, steps)
+    check(stack_launches == want, f"stage 2 stacked launches {stack_launches} != {want}")
+    print(f"[parallel] reproduce_dcase --folds 1 2 --runs 2 --max-epochs {PARALLEL_EPOCHS} "
+          f"--seed-parallel 1, as it ships, on {len(names)} files (sednet-dcase full width, "
+          f"batch {cfg.train.batch_size}, 2 seeds stacked): walls, split at the cache's last "
+          f"write, features {features_end - t0:.2f} s, protocol and report "
+          f"{t1 - features_end:.2f} s; stage 1 on the fft frontend (kernel A launches {fe}); "
+          f"plots: {len(pngs)} png (matplotlib {'present' if plots else 'missing'}); report "
+          f"{report}; the protocol's ER/F1, std and per-seed values bitwise a direct stacked "
+          f"run_experiment_multiseed; kernel B stacked {stack_launches}")
+    return stack_launches
+
+
+def phase_parallel(train_dir: str, workdir: str) -> dict:
+    """[parallel]: data parallelism at world size 1 over NCCL and over two
+    gloo ranks on one card, sharded evaluation and the DCASE reproduction script,
+    at full width."""
+    os.makedirs(workdir)
+    w1 = _dp_world1(os.path.join(workdir, "world1"))
+    two = _two_ranks(w1["cfg"], w1["fold"], w1["state_dict"], w1["x"], w1["y"])
+    eval_launches = _sharded_evaluate(train_dir, os.path.join(workdir, "evaluate"))
+    stack_launches = _reproduce_dcase_run(os.path.join(workdir, "reproduce"))
+    launches = {k: w1["launches"][k] + w1["cli_launches"][k] + eval_launches[k]
+                + stack_launches[k] for k in w1["launches"]}
+    return {"launches": launches, "numbers": {
+        "dp_step_ms": w1["dp_ms"], "plain_step_ms": w1["plain_ms"],
+        "nccl_collectives_ms": w1["nccl_collectives_ms"], "nccl_grad_ms": w1["nccl_grad_ms"],
+        "gloo_step_ms": two["gloo_step_ms"], "gloo_collectives_ms": two["gloo_collectives_ms"],
+        "gloo_grad_ms": two["gloo_grad_ms"],
+        "dp_idle_share": w1["idle"], "n_params": w1["n_params"],
+        "two_rank_grad_rel": two["grad_rel"], "two_rank_grad_rel_same": two["grad_rel_same"]}}
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -4320,6 +4987,7 @@ def main() -> int:
         serve_launches, serve_numbers = phase_serve(train_dir, os.path.join(workdir, "serve"),
                                                     pcm)
         import_launches, import_numbers = phase_import(os.path.join(workdir, "import"), pcm)
+        parallel = phase_parallel(train_dir, os.path.join(workdir, "parallel"))
         wide = phase_gru_wide()
         wide_paths = phase_wide_paths(os.path.join(workdir, "wide"))
     kernel_b.update(eval_numbers)
@@ -4351,6 +5019,10 @@ def main() -> int:
     kernel_b.update(import_numbers)
     for k, n in import_launches.items():
         launches[k] += n
+    for k, n in parallel["launches"].items():
+        if k in launches:
+            launches[k] += n
+    kernel_b.update({f"parallel_{k}": v for k, v in parallel["numbers"].items()})
     kernel_fwd_res["max_abs_err"] = max(kernel_fwd_res["max_abs_err"], stack["worst"]["fwd"])
     kernel_bwd["max_abs_err"] = max(kernel_bwd["max_abs_err"], stack["worst"]["bwd"])
     kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])

@@ -13,21 +13,29 @@ ensemble (the members' sigmoids averaged):
 
 Checkpoints are the JAX package's npz files. Runs on ``--device cuda`` by
 default and raises without a GPU; ``--device cpu`` runs the kernels' plain
-versions. ``--data-parallel`` is not yet ported.
+versions.
+
+``--data-parallel`` shards the windows over every visible card, one process
+each (spawned here, or the ranks of torch's launcher), with the
+single-device report; on the CPU it takes the launcher's group, or world
+size 1. Rank 0 prints the report and writes ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
+import torch
 
 from sed_crnn_torch.core import checkpoint as ckpt_io
 from sed_crnn_torch.core.config import get_preset
 from sed_crnn_torch.core.device import resolve_device
 from sed_crnn_torch.data import store
 from sed_crnn_torch.models.convert import load_model
+from sed_crnn_torch.parallel import mesh as mesh_mod
 from sed_crnn_torch.train.evaluate import evaluate_split
 
 
@@ -50,18 +58,35 @@ def main(argv=None):
                    help="event-metric pairing: 'optimal' (maximum bipartite, "
                         "order-independent) or 'greedy' (sed_eval's exact "
                         "first-eligible-in-order pairing)")
-    p.add_argument("--data-parallel", action="store_true", help="not yet ported")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard the window axis over every visible card (one process each); "
+                        "the same report")
     p.add_argument("--dump-events",
                    help="directory for the decoded ref_events.txt / est_events.txt "
                         "(with several checkpoints, the ensemble's events)")
     p.add_argument("--out", help="write the JSON report here (default stdout)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
 
+    mesh = None
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not yet ported: ROADMAP.md Queue 1 item 4")
-    device = resolve_device(args.device)
+        device = resolve_device(args.device)
+        n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+        if n_cards > 1 and not mesh_mod.launched():
+            return mesh_mod.spawn_ranks(main, n_cards, (argv,), device=args.device)[0]
+        mesh = mesh_mod.make_mesh(None, device=args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _evaluate(args, device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _evaluate(args, device, mesh):
     cfg = get_preset(args.preset)
     loaded = [ckpt_io.load_checkpoint(c) for c in args.checkpoint]
     models = [load_model(tree, cfg.model, device) for tree, _ in loaded]
@@ -72,7 +97,7 @@ def main(argv=None):
         return evaluate_split(model, x, y, cfg, batch_size=args.batch_size,
                               event_matching=args.event_matching, median_filter=args.median,
                               dump_events_dir=args.dump_events if dump else None,
-                              device=device)
+                              device=device, mesh=mesh)
 
     if len(models) == 1:
         report = run(models[0], dump=True)
@@ -103,6 +128,8 @@ def main(argv=None):
     report["fold"] = args.fold
     report["split"] = args.split
 
+    if mesh is not None and mesh.rank != 0:
+        return report
     text = json.dumps(report, indent=2)
     if args.out:
         with open(args.out, "w") as f:

@@ -107,7 +107,17 @@ class BatchNorm2d(nn.Module):
     0)`` in float32 (as the JAX package computes it, not `F.batch_norm`'s
     two-pass variance) normalize; the running buffers are updated in place
     with ``momentum`` and the unbiased ``var * n / (n - 1)``, ``n = B*H*W``.
+
+    Cross-replica (data-parallel) training: with a `parallel.mesh.Mesh` in
+    ``sync_group``, the train-mode ``mean`` and ``mean_sq`` are averaged and
+    ``n`` summed over the mesh's ranks (the JAX package's `pmean` / `psum`
+    with ``axis_name``), packed into one differentiable all_reduce (the
+    group's ``all_reduce_sum_grad``): its backward sums the cotangents over
+    ranks, so the parameters below receive the global batch's gradient. The data-parallel trainer sets and clears
+    the attribute around its train step; eval mode never reads it.
     """
+
+    sync_group = None
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -133,8 +143,13 @@ class BatchNorm2d(nn.Module):
             n = float(xf.numel() // xf.shape[1])
             mean = xf.mean(dim=axes)
             mean_sq = (xf * xf).mean(dim=axes)
-            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
-            unbiased = var * n / max(n - 1.0, 1.0)
+            if self.sync_group is not None:
+                mean, mean_sq, n = _global_moments(mean, mean_sq, n, self.sync_group)
+                var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+                unbiased = var * n / torch.clamp_min(n - 1.0, 1.0)
+            else:
+                var = torch.clamp_min(mean_sq - mean * mean, 0.0)
+                unbiased = var * n / max(n - 1.0, 1.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
@@ -147,6 +162,17 @@ class BatchNorm2d(nn.Module):
             return (x - mean.view(shape)) * inv.view(shape) + bias.view(shape)
         shift = bias - mean * inv
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+def _global_moments(mean: torch.Tensor, mean_sq: torch.Tensor, n: float, mesh):
+    """(pmean(mean), pmean(mean_sq), psum(n)) over ``mesh`` with one
+    differentiable all_reduce of the packed (2C + 1,) float32 vector; ``n``
+    comes back as a 0-d tensor, so nothing waits on the device."""
+    c = mean.shape[0]
+    packed = torch.cat([mean, mean_sq, mean.new_full((1,), n)])
+    total = mesh.all_reduce_sum_grad(packed)
+    w = float(mesh.size)
+    return total[:c] / w, total[c : 2 * c] / w, total[2 * c]
 
 
 class Dropout(nn.Module):

@@ -33,6 +33,7 @@ from sed_crnn_torch.core.device import resolve_device
 from sed_crnn_torch.ops import stft as stft_ops
 from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel, fused_log_mel_frames
 from sed_crnn_torch.ops.mel import mel_filterbank
+from sed_crnn_torch.parallel import mesh as mesh_ops
 
 
 def _mel_fb(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
@@ -117,13 +118,26 @@ class NormStats(NamedTuple):
     scale: torch.Tensor  # (n_mels,) std, zeros replaced by 1
 
 
-def fit_norm_stats(x: torch.Tensor) -> NormStats:
+def fit_norm_stats(x: torch.Tensor, group=None) -> NormStats:
     """Mean and population std over the frames of ``x (frames, n_mels)``,
-    two-pass so that constant features give an exact zero (scale 1)."""
+    two-pass so that constant features give an exact zero (scale 1).
+
+    ``group``: a `parallel.mesh.Mesh` whose ranks each hold a shard of the
+    frames; the frame count and the sums are then all_reduced first, and
+    the squared deviations from that global mean second (the JAX package's
+    ``axis_name`` form), giving the whole corpus's statistics on every
+    rank."""
     x = x.to(torch.float32)
-    n = float(x.shape[0])
-    mean = x.sum(dim=0) / n
-    var = ((x - mean) ** 2).sum(dim=0) / n
+    if group is None:
+        n = float(x.shape[0])
+        mean = x.sum(dim=0) / n
+        var = ((x - mean) ** 2).sum(dim=0) / n
+    else:
+        first = mesh_ops.all_reduce_sum(torch.cat([x.sum(dim=0), x.new_full((1,), x.shape[0])]),
+                                        group)
+        n = first[-1]
+        mean = first[:-1] / n
+        var = mesh_ops.all_reduce_sum(((x - mean) ** 2).sum(dim=0), group) / n
     std = torch.sqrt(var)
     return NormStats(mean=mean, scale=torch.where(std == 0.0, torch.ones_like(std), std))
 

@@ -16,6 +16,13 @@ Two parts, so that a caller can score a probability roll it already has:
 * `score_rolls`: the flat probability and label rolls -> the report. The
   median filter and both sweeps run on the rolls' device; only event
   decoding, matching and the JSON-ready values go to the host.
+
+With a data mesh (`parallel/mesh.py`, one process per card), the windows are
+padded to a multiple of ``batch_size x world``, rank r forwards its
+contiguous block of batches (ensembles replicated on every rank), and the
+probabilities are gathered in window order before scoring: each batch goes
+through the same forward as on one device, so the report is the
+single-device report, on every rank.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from sed_crnn_torch.ops.event_metrics import (
     events_from_roll,
 )
 from sed_crnn_torch.ops.postprocess import median_smooth
+from sed_crnn_torch.parallel.mesh import Mesh, all_gather
 
 DEFAULT_THRESHOLDS = np.round(np.arange(0.05, 0.96, 0.05), 3).astype(np.float32)
 
@@ -51,23 +59,32 @@ def window_split(x: np.ndarray, y: np.ndarray, seq_len_in: int, seq_len_out: int
     return xw, yw
 
 
-def forward_probabilities(models: Sequence[CRNN], xw: np.ndarray, batch_size: int) -> torch.Tensor:
+def forward_probabilities(models: Sequence[CRNN], xw: np.ndarray, batch_size: int,
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Sigmoid probabilities (N, T_out, C) of every window on the models'
     device: eval mode, no autograd, ``ceil(N / batch_size)`` batches (the
     last padded with zero windows, trimmed from the result); with several
-    models, the float32 mean of their sigmoids per batch."""
+    models, the float32 mean of their sigmoids per batch. With a ``mesh``,
+    the batches are padded to a multiple of its size, rank r forwards its
+    contiguous share and every rank returns all windows in order."""
     dev = next(models[0].parameters()).device
     n = xw.shape[0]
+    world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    pad = (-n) % (batch_size * world)
+    share = (n + pad) // world
+    xw = xw[rank * share : (rank + 1) * share]
     x = torch.from_numpy(np.ascontiguousarray(xw, dtype=np.float32)).to(dev)
-    pad = (-n) % batch_size
-    if pad:
-        x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+    if x.shape[0] < share:
+        x = torch.cat([x, x.new_zeros((share - x.shape[0], *x.shape[1:]))])
     out = []
     with torch.no_grad():
         for i in range(0, x.shape[0], batch_size):
             xb = x[i : i + batch_size]
             out.append(torch.stack([torch.sigmoid(m(xb)[0]) for m in models]).mean(dim=0))
-    return torch.cat(out)[:n]
+    probs = torch.cat(out)
+    if mesh is not None:
+        probs = all_gather(probs, mesh).reshape(-1, *probs.shape[1:])
+    return probs[:n]
 
 
 def evaluate_split(
@@ -91,12 +108,10 @@ def evaluate_split(
     "optimal" or "greedy" (sed_eval's pairing). ``median_filter``: an odd
     width > 1 median-smooths the probability tracks before all
     thresholding. ``dump_events_dir``: also write the decoded
-    ``ref_events.txt`` / ``est_events.txt``. ``mesh`` (data-parallel
-    evaluation) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel evaluation (mesh) is not yet ported: ROADMAP.md Queue 1 item 4")
-    dev = resolve_device(device)
+    ``ref_events.txt`` / ``est_events.txt`` (rank 0 of a mesh). ``mesh``: a
+    data mesh (`parallel/mesh.py`) whose ranks share the windows; the models
+    go to its device, and every rank returns the single-device report."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     models = [model] if isinstance(model, CRNN) else list(model)
     if not models:
         raise ValueError("need at least one model")
@@ -105,9 +120,11 @@ def evaluate_split(
     n = xw.shape[0]
     if n == 0:
         raise ValueError(f"split has {x.shape[0]} frames < one {m.seq_len_in}-frame window")
-    probs = forward_probabilities([mm.to(dev).eval() for mm in models], xw, batch_size)
+    probs = forward_probabilities([mm.to(dev).eval() for mm in models], xw, batch_size, mesh)
     flat_p = probs.reshape(-1, probs.shape[-1])
     flat_y = torch.from_numpy(np.ascontiguousarray(yw.reshape(-1, yw.shape[-1]))).to(dev)
+    if mesh is not None and mesh.rank != 0:
+        dump_events_dir = None
     return score_rolls(flat_p, flat_y, cfg, n, thresholds, event_matching, median_filter,
                        dump_events_dir)
 

@@ -24,8 +24,16 @@ numbers differ from `run_fold`'s by float32 rounding only (a grouped
 convolution and batched products sum in other orders), which training
 carries forward.
 
-`choose_runs_mode` picks the mode from a rule measured on the card. The JAX
-package's seed-sharded mesh belongs with data parallelism and is not ported.
+`choose_runs_mode` picks the mode from a rule measured on the card.
+
+The seed axis is the cheapest multi-card axis: with a seed mesh
+(`parallel/mesh.py::make_mesh(axis_name="seed")`, one process per card),
+rank r trains its contiguous share of the seeds as one `StackedCRNN` and
+writes those seeds' directories, exactly as a one-process
+`run_fold_multiseed` of that share would. Training runs no collective; one
+scalar all_reduce per epoch keeps the ranks in step until every rank's
+seeds have stopped (a rank whose seeds all stopped trains nothing more),
+and at the end every rank receives every seed's `FoldResult` in seed order.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from sed_crnn_torch.models import get_model
 from sed_crnn_torch.models.convert import opt_state_to_jax, to_jax
 from sed_crnn_torch.models.stacked import StackedCRNN
 from sed_crnn_torch.ops import metrics as metrics_ops
+from sed_crnn_torch.parallel.mesh import Mesh, all_reduce_sum, gather_objects
 from sed_crnn_torch.train import artifacts
 from sed_crnn_torch.train.loop import (
     _TRACK_KEYS,
@@ -193,6 +202,27 @@ def _to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     return out
 
 
+def _check_lanes(n_seeds: int, mesh: Mesh) -> None:
+    if n_seeds % mesh.size:
+        raise ValueError(
+            f"{n_seeds} seeds cannot shard evenly over a {mesh.size}-device"
+            f" mesh — pass a seed count divisible by the mesh size"
+        )
+
+
+def shard_lanes(tree, mesh: Mesh):
+    """This rank's contiguous share of a lane-stacked host tree (dicts,
+    lists and tuples of arrays whose leading axis is the lane axis)."""
+    if isinstance(tree, dict):
+        return {k: shard_lanes(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_lanes(v, mesh) for v in tree)
+    n = len(tree)
+    _check_lanes(n, mesh)
+    k = n // mesh.size
+    return tree[mesh.rank * k : (mesh.rank + 1) * k]
+
+
 def run_fold_multiseed(
     cfg: ExperimentConfig,
     fold_data: Dict[str, np.ndarray],
@@ -202,6 +232,7 @@ def run_fold_multiseed(
     verbose: bool = True,
     lr_scales: Optional[Sequence[float]] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> List[FoldResult]:
     """Train ``len(seeds)`` independent runs of one fold as one stacked model;
     returns one `FoldResult` per seed, ordered like ``seeds``.
@@ -210,7 +241,10 @@ def run_fold_multiseed(
     learning rate, so the lanes double as a learning-rate sweep (a seed may
     then repeat, and each lane writes ``seed<s>_lr<scale>/``). Under a
     plateau schedule each lane's schedule starts from its own base scale.
-    ``device``: None means ``cuda`` (raises without a GPU)."""
+    ``device``: None means ``cuda`` (raises without a GPU). ``mesh``: a seed
+    mesh; the seed count must divide by its size, rank r trains lanes
+    ``[r * k, (r + 1) * k)`` on the mesh's device, and every rank returns
+    every seed's result."""
     seeds = list(seeds)
     n = len(seeds)
     if n < 1:
@@ -221,7 +255,23 @@ def run_fold_multiseed(
         raise ValueError(f"duplicate seeds in {seeds} — runs would be identical")
     if len(set(zip(seeds, lr_scales or [0.0] * n))) != n:
         raise ValueError("duplicate (seed, lr_scale) lanes — runs would be identical")
-    dev = resolve_device(device)
+    if mesh is None:
+        return _run_lanes(cfg, fold_data, fold_id, art_dir, seeds, verbose, lr_scales,
+                          resolve_device(device), None)
+    _check_lanes(n, mesh)
+    seeds = shard_lanes(np.asarray(seeds), mesh).tolist()
+    if lr_scales is not None:
+        lr_scales = shard_lanes(np.asarray(lr_scales, np.float64), mesh).tolist()
+    mine = _run_lanes(cfg, fold_data, fold_id, art_dir, seeds, verbose, lr_scales,
+                      mesh.device, mesh)
+    return [r for share in gather_objects(mine, mesh) for r in share]
+
+
+def _run_lanes(cfg, fold_data, fold_id, art_dir, seeds, verbose, lr_scales, dev, mesh):
+    """`run_fold_multiseed`'s training of ``seeds`` on ``dev``; with a
+    ``mesh``, one all_reduce per epoch of the live lane count keeps the
+    ranks in step (no other collective)."""
+    n = len(seeds)
     tcfg = cfg.train
     models = [get_model(cfg.model).init_parameters(torch.Generator().manual_seed(s + fold_id))
               for s in seeds]
@@ -262,7 +312,14 @@ def run_fold_multiseed(
     t_start = time.time()
 
     epoch = 0
+    live = n
     for epoch in range(1, tcfg.max_epochs + 1):
+        if mesh is not None:
+            everywhere = all_reduce_sum(torch.tensor([float(live)], device=dev), mesh)
+            if float(everywhere[0]) == 0.0:
+                break
+        if live == 0:
+            continue  # this rank's lanes stopped; it waits for the others
         t_ep = time.time()
         state, tr_scores = trainer.train_epoch(state, rngs, n_train_steps)
         if full_sweep:
@@ -359,7 +416,7 @@ def run_fold_multiseed(
             print(f"[Fold {fold_id}] [Epoch {epoch}/{tcfg.max_epochs}] "
                   f"dt={dt:.1f}s total={(time.time() - t_start) / 60:.1f}min | "
                   f"{n} seeds ({live} live) | val_ER={ers}")
-        if live == 0:
+        if live == 0 and mesh is None:
             break
 
     results = []
@@ -379,11 +436,14 @@ def run_fold_multiseed(
     return results
 
 
-def choose_runs_mode(cfg: ExperimentConfig, n_runs: int) -> str:
-    """The faster mode for ``n_runs`` seeds on one card, by the JAX rule's
-    shape with the card's own split: a conv trunk under 128 channels always
-    stacks; a conv-128 trunk runs sequential once its stacked effective
-    batch (batch_size x n_runs) reaches `STACKED_SPLIT_BATCH`."""
+def choose_runs_mode(cfg: ExperimentConfig, n_runs: int, mesh: Optional[Mesh] = None) -> str:
+    """The faster mode for ``n_runs`` seeds, by the JAX rule's shape with the
+    card's own split: a seed mesh always stacks (sequential mode cannot use
+    it); on one card a conv trunk under 128 channels always stacks, and a
+    conv-128 trunk runs sequential once its stacked effective batch
+    (batch_size x n_runs) reaches `STACKED_SPLIT_BATCH`."""
+    if mesh is not None:
+        return "stacked"
     if max(cfg.model.conv_channels) < _BIG_CONV_CHANNELS:
         return "stacked"
     if cfg.train.batch_size * n_runs >= STACKED_SPLIT_BATCH:
@@ -400,6 +460,7 @@ def run_experiment_multiseed(
     verbose: bool = True,
     mode: str = "auto",
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Any]:
     """Train every fold once per seed (``seeds``, or ``run_seeds(cfg.train.
     seed, n_runs)``); returns the seed-major mean and std of the best ER/F1
@@ -411,14 +472,19 @@ def run_experiment_multiseed(
     (`run_fold` per seed and fold) or "auto" (`choose_runs_mode`); an
     explicit mode that contradicts the rule runs as asked but warns. Both
     write ``<art_dir>/fold<k>/seed<s>/`` in `run_fold`'s layout.
-    ``device``: None means ``cuda`` (raises without a GPU)."""
+    ``device``: None means ``cuda`` (raises without a GPU). ``mesh``: a seed
+    mesh for stacked mode (`run_fold_multiseed`), on its device; every rank
+    returns the whole result and rank 0 alone prints the summary and
+    appends the record."""
     if mode not in ("auto", "stacked", "sequential"):
         raise ValueError(f"mode must be 'auto', 'stacked' or 'sequential', got {mode!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    writer = mesh is None or mesh.rank == 0
+    verbose = verbose and writer
     seeds = list(run_seeds(cfg.train.seed, n_runs) if seeds is None else seeds)
     if len(set(seeds)) != len(seeds):
         raise ValueError(f"duplicate seeds in {seeds}: runs would be identical")
-    predicted = choose_runs_mode(cfg, len(seeds))
+    predicted = choose_runs_mode(cfg, len(seeds), mesh)
     if mode == "auto":
         mode = predicted
         if verbose:
@@ -429,12 +495,14 @@ def run_experiment_multiseed(
             f"{max(cfg.model.conv_channels)}ch, stacked effective batch "
             f"{cfg.train.batch_size * len(seeds)} vs the measured split "
             f"{STACKED_SPLIT_BATCH}); proceeding as asked", stacklevel=2)
+    if mode == "sequential" and mesh is not None:
+        raise ValueError("mode='sequential' does not shard seeds; drop mesh")
     per_fold: Dict[int, List[FoldResult]] = {}
     for fold_id, fold_data in sorted(folds.items()):
         fold_dir = os.path.join(art_dir, f"fold{fold_id}")
         if mode == "stacked":
             per_fold[fold_id] = run_fold_multiseed(cfg, fold_data, fold_id, fold_dir, seeds,
-                                                   verbose=verbose, device=dev)
+                                                   verbose=verbose, device=dev, mesh=mesh)
         else:
             per_fold[fold_id] = [
                 run_fold(cfg, fold_data, fold_id, os.path.join(fold_dir, f"seed{s}"), seed=s,
@@ -458,8 +526,9 @@ def run_experiment_multiseed(
     if verbose:
         print(f"{len(seeds)}-run protocol: ER {out['mean_er']:.3f} ± {out['std_er']:.3f}"
               f" | F1 {out['mean_f1']:.3f} ± {out['std_f1']:.3f}")
-    artifacts.append_jsonl(
-        os.path.join(art_dir, "experiment_multiseed.jsonl"),
-        {k: v for k, v in out.items() if k != "folds"} | {"experiment": cfg.name},
-    )
+    if writer:
+        artifacts.append_jsonl(
+            os.path.join(art_dir, "experiment_multiseed.jsonl"),
+            {k: v for k, v in out.items() if k != "folds"} | {"experiment": cfg.name},
+        )
     return out

@@ -29,6 +29,7 @@ from sed_crnn_tpu.train import evaluate as jax_eval
 from sed_crnn_torch.apps import evaluate as eval_app
 from sed_crnn_torch.apps import train as train_app
 from sed_crnn_torch.apps.score_events import score_event_lists
+from sed_crnn_torch.parallel.mesh import Mesh
 from sed_crnn_torch.train import evaluate
 from tests.test_torch_model import narrowed, port_model, seeded_tree
 
@@ -155,8 +156,10 @@ def test_evaluate_split_refusals():
     short = (np.zeros((10, 40), np.float32), np.zeros((10, 1), np.float32))
     with pytest.raises(ValueError, match="window"):
         evaluate.evaluate_split(model, *short, tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        evaluate.evaluate_split(model, *short, tc, mesh=object(), device="cpu")
+    # data-parallel evaluation refuses a short split as the unsharded one does
+    with pytest.raises(ValueError, match="window"):
+        evaluate.evaluate_split(model, *short, tc,
+                                mesh=Mesh("data", 2, 0, torch.device("cpu"), None))
     with pytest.raises(ValueError, match="at least one"):
         evaluate.evaluate_split([], *short, tc, device="cpu")
 
@@ -199,5 +202,6 @@ def test_evaluate_cli_matches_jax_cli(tmp_path, monkeypatch):
                                        os.path.join(dump, "est_events.txt"))
         assert overall["er_event"] == pytest.approx(ens["er_event"], abs=1e-9)
         assert overall["f1_event"] == pytest.approx(ens["f1_event"], abs=1e-9)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        eval_app.main(base + ["--checkpoint", paths[0], "--data-parallel", "--device", "cpu"])
+    # --data-parallel on the CPU (world size 1): the same report
+    args = base + ["--checkpoint", paths[0], "--device", "cpu"]
+    assert eval_app.main(args + ["--data-parallel"]) == eval_app.main(args)

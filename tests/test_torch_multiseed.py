@@ -142,9 +142,12 @@ def test_train_cli_runs(tmp_path, monkeypatch):
     assert rec["seeds"] == out["seeds"] and rec["mean_er"] == out["mean_er"]
     for s in out["seeds"]:
         assert os.path.exists(tmp_path / "s" / run / "fold1" / f"seed{s}" / "last_fold1.npz")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # --seed-parallel shards stacked mode only (the JAX CLI's refusal)
+    with pytest.raises(SystemExit):
         train_app.main(["--synthetic", "--runs", "2", "--seed-parallel", "2",
-                        "--art-dir", str(tmp_path / "p"), "--device", "cpu"])
+                        "--runs-mode", "sequential", "--art-dir", str(tmp_path / "p"),
+                        "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "p")
 
 
 def test_train_cli_accepts_slow_prng(tmp_path, monkeypatch):

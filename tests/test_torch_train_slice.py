@@ -224,9 +224,14 @@ def test_train_cli_runs_on_cpu(tmp_path, monkeypatch):
     run = os.listdir(tmp_path)[0]
     assert os.path.exists(tmp_path / run / "fold1" / "last_fold1.npz")
     assert os.path.exists(tmp_path / run / "experiment.jsonl")
-    for flag in ("--seed-parallel", "--data-parallel"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train_app.main(["--synthetic", "--runs", "2", flag, "2", "--device", "cpu"])
+    # --runs takes --seed-parallel, not --data-parallel; sequential runs take
+    # neither (the JAX CLI's refusals, before any work)
+    for flags in (["--data-parallel", "2"], ["--seed-parallel", "2", "--runs-mode",
+                                              "sequential"]):
+        with pytest.raises(SystemExit):
+            train_app.main(["--synthetic", "--runs", "2", *flags, "--device", "cpu",
+                            "--art-dir", str(tmp_path / "refused")])
+    assert not os.path.exists(tmp_path / "refused")
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
