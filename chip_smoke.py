@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, feature-extraction,
 evaluation, live-serving, stacked multi-seed training, checkpoint
-migration, data- and seed-parallel and DCASE reproduction paths on one GPU
-and check its kernels.
+migration, data- and seed-parallel and DCASE reproduction paths and its
+tracing, debug and host-library tools on one GPU and check its kernels.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
 
@@ -65,7 +65,23 @@ exits non-zero and prints no result line:
    exact launch counts (per BiGRU layer one pair of each GRU kernel per
    train step, one pair forward per sweep step), none on the wide body;
 10. training throughput: train-step time at batch 128, the training rate in
-    audio-seconds per second, and a torch.profiler breakdown of one step.
+    audio-seconds per second, and a torch.profiler breakdown of one step;
+    then the port's tools ([tools], sednet-dcase full width):
+    ``utils/tracing.py::profile_trace`` around a kernel-frontend ``extract``
+    of a 240 s signal, one train step at batch 128 and one B=1 serving chunk,
+    each in its ``annotate`` region; the written Chrome trace holds the three
+    annotations and, per kind, as many kernel A and kernel B device events
+    (by symbol) as the wrappers counted launches, with non-zero device time,
+    printed beside CUDA events on the same shapes; ``StepClock`` over 10
+    train steps beside the training rate; ``run_fold(debug=True)`` for one
+    epoch on phase 9's fold with the GRU launches of ``debug=False``, and
+    with one NaN planted in a window of the first training batch raising
+    ``NonFiniteError`` at fold 1 epoch 1; the C++ host library built with
+    g++: ``log_mel_native`` within 5e-4 of kernel A's chunked route on the
+    240 s signal (-inf pattern equal), ``StreamingFramer`` bitwise
+    ``PythonFramer`` on random packets of the 120 s signal,
+    ``wav_read_mono_native`` within 1e-6 of ``data/wavio``; the TF
+    SavedModel export is held on the CPU only (no tensorflow here).
 11. kernel A's framed route (the TPU `_kernel_dif`: n_fft 1024 and 4096
     at hop 1024, and a frame-matrix input) and its exact route (the TPU
     `_kernel_exact`: mode "exact" at n_fft 2048 on the FFT body) against
@@ -150,7 +166,9 @@ exits non-zero and prints no result line:
     packets (its events equal); the ``--listen`` daemon with
     ``--max-streams 8`` and 8 concurrent clients (each client's events equal,
     ticks between 21 and 8 x 21, kernel B launched 2 x ticks, kernel A once
-    per non-empty framer block, every socket and join bounded); the serving
+    per non-empty framer block, every socket and join bounded); every
+    framer of the live chain the C++ ``StreamingFramer``, closed with its
+    handle freed, and its rows bitwise the offline rows; the serving
     rate, per-step p50/p99, the device idle share (torch.profiler) and
     ``stream_step_batch`` at B=8 against 8 x ``stream_step``;
 17. stacked multi-seed training ([multiseed stacked]): kernel B with a seed
@@ -1384,10 +1402,10 @@ def phase_train(workdir: str, model_overrides: dict | None = None, tag: str = "[
     return launches, cfg, fold
 
 
-def phase_train_throughput(cfg, fold):
-    """Train-step time at batch 128 and the training rate; a profile of one step."""
+def _train_stepper(cfg, fold):
+    """One full-width train step at the preset's batch on the card, from the
+    serving phase's seeded weights (numpy seed 11), as a closure."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sed_crnn_torch.models import get_model
     from sed_crnn_torch.models.convert import from_jax
@@ -1401,13 +1419,22 @@ def phase_train_throughput(cfg, fold):
     trainer = Trainer(model.to(dev), cfg.train, tr, val)
     st = TrainState(trainer.adam.init({k: p.detach() for k, p in trainer.params().items()}), 1.0)
     rngs = Rngs(dev, 0, model.n_dropout_sites)
-    batch = cfg.train.batch_size
 
     def one_step():
         nonlocal st
-        x, y = tr.sample_batch(rngs.batch, batch)
+        x, y = tr.sample_batch(rngs.batch, cfg.train.batch_size)
         st, _, _ = trainer.train_step(st, x, y, rngs.dropout)
 
+    return one_step
+
+
+def phase_train_throughput(cfg, fold):
+    """Train-step time at batch 128 and the training rate; a profile of one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    one_step = _train_stepper(cfg, fold)
+    batch = cfg.train.batch_size
     for _ in range(3):
         one_step()
     times = []
@@ -1446,6 +1473,296 @@ def phase_train_throughput(cfg, fold):
         print(f"[profile]   {e.self_device_time_total / busy_us:6.1%} "
               f"{e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:90]}")
     return step_ms
+
+
+# [tools]: the port's tracing, debug and host-library tools at full width.
+TOOLS_STEPS = 10          # StepClock's train steps at batch 128
+TOOLS_ANNOTATIONS = ("frontend", "train step", "serve")
+# The kernels' symbols in a trace, by wrapper count: kernel A's bodies, and
+# kernel B's recurrences (the forward with or without residuals told apart
+# by the WITH_RES template argument, demangled or not), chain, dwh and sum.
+TRACE_SYMBOLS = {
+    "fused_logmel": ("logmel_fft_kernel", "logmel_mixed_kernel", "logmel_cluster_kernel"),
+    "gru_scan_fwd": ("gru_warp_fwd", "gru_wide_fwd"),
+    "gru_scan_bwd": ("gru_warp_bwd", "gru_wide_bwd"),
+    "gru_dwh": ("gru_warp_dwh", "gru_wide_dwh"),
+    "gru_scan_sum_partials": ("gru_warp_sum", "gru_wide_sum"),
+}
+
+
+def _trace_kind(name: str):
+    """The wrapper count a kernel event of the trace belongs to, or None."""
+    for kind, symbols in TRACE_SYMBOLS.items():
+        if any(sym in name for sym in symbols):
+            if kind == "gru_scan_fwd" and ("true>" in name or "Lb1E" in name):
+                return "gru_scan_fwd_res"
+            return kind
+    return None
+
+
+def _read_trace(path: str):
+    """-> (device ms and event count per kind, the annotation names)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    per_kind: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        kind = _trace_kind(e.get("name", ""))
+        if kind is not None:
+            n, ms = per_kind.get(kind, (0, 0.0))
+            per_kind[kind] = (n + 1, ms + float(e.get("dur", 0.0)) / 1e3)
+    names = {e.get("name") for e in events
+             if e.get("cat") in ("user_annotation", "gpu_user_annotation")}
+    return per_kind, names
+
+
+def _launch_deltas() -> dict:
+    """Kernel A's launches (every route) and kernel B's by count, as the
+    trace kinds group them."""
+    lm, gru = _logmel_counts(), _gru_counts()
+    return {"fused_logmel": lm["chunked"] + lm["framed"] + lm["exact"],
+            **{k: gru[k] for k in ("gru_scan_fwd", "gru_scan_fwd_res", "gru_scan_bwd",
+                                   "gru_dwh", "gru_scan_sum_partials")}}
+
+
+def _tools_trace(workdir: str, cfg, fold, y240: np.ndarray) -> dict:
+    """`profile_trace` around a kernel-frontend `extract` of 240 s, one train
+    step at batch 128 and one B=1 serving chunk, each annotated; the trace's
+    kernel A and B events against the wrappers' launch counts, and their
+    device time against CUDA events on the same shapes."""
+    import torch
+
+    from sed_crnn_torch.models.export import export_serving
+    from sed_crnn_torch.ops import frontend
+    from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        gru_scan_pair,
+        gru_scan_pair_bwd,
+        gru_scan_pair_fwd_res,
+    )
+    from sed_crnn_torch.utils.tracing import TRACE_FILE, annotate, profile_trace
+
+    dev = torch.device("cuda")
+    fe = dataclasses.replace(cfg.frontend, backend="kernel")
+    one_step = _train_stepper(cfg, fold)
+    params, state = model_tree(cfg.model, seed=11)
+    art = export_serving(cfg, params, state, device=dev)
+    mel = frontend.extract(y240, fe, device=dev)      # warm: the build and the first launches
+    chunk = mel[: cfg.model.seq_len_in]
+    one_step()
+    art.stream_step(art.stream_init(), chunk)
+    torch.cuda.synchronize()
+
+    trace_dir = os.path.join(workdir, "trace")
+    _reset_logmel_counts()
+    _reset_gru_counts()
+    with profile_trace(trace_dir):
+        with annotate("frontend"):
+            frontend.extract(y240, fe, device=dev)
+        with annotate("train step"):
+            one_step()
+        with annotate("serve"):
+            art.stream_step(art.stream_init(), chunk)
+    launches = _launch_deltas()
+    per_kind, names = _read_trace(os.path.join(trace_dir, TRACE_FILE))
+    counted = {k: per_kind.get(k, (0, 0.0))[0] for k in launches}
+    check(counted == launches, f"trace kernel events {counted} != wrapper launches {launches}")
+    check(all(v > 0 for v in launches.values()), f"a kernel kind missing from the run {launches}")
+    missing = [a for a in TOOLS_ANNOTATIONS if a not in names]
+    check(not missing, f"annotations missing from the trace: {missing}")
+    zero = [k for k in launches if not per_kind[k][1] > 0]
+    check(not zero, f"no device time in the trace for {zero}")
+
+    # CUDA events on the traced shapes: kernel A on the padded 240 s signal
+    # `extract` hands it, kernel B's pairs at B=128 (training) and B=1.
+    y = torch.from_numpy(bucket_signal(y240, fe)).to(dev)
+    raw = dataclasses.replace(fe, center=False)
+    rng = np.random.default_rng(23)
+    H, T = cfg.model.gru_hidden[0], cfg.model.seq_len_out
+    reset_after = cfg.model.name != "sednet"
+
+    def pair(B):
+        t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa: E731
+        xp = (t(B, T, 3 * H), t(B, T, 3 * H))
+        wh = (0.3 * t(H, 3 * H), 0.3 * t(H, 3 * H))
+        h0 = (t(B, H), t(B, H))
+        return xp, wh, (None, None), h0, (t(B, T, H), t(B, T, H)), (t(B, H), t(B, H))
+
+    xp, wh, bh, h0, dys, dhl = pair(cfg.train.batch_size)
+    (fys, fres, _), (bys, bres, _) = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after,
+                                                           cfg.model.gru_gate_activation)
+    xp1, wh1, bh1, h01, _, _ = pair(1)
+    gate = cfg.model.gru_gate_activation
+    event_ms = {
+        "fused_logmel": cuda_ms(lambda: fused_log_mel(y, raw)),
+        "gru_scan_fwd_res": cuda_ms(lambda: gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after,
+                                                                  gate)),
+        "gru_scan_bwd+dwh+sum": cuda_ms(lambda: gru_scan_pair_bwd(
+            (fys, bys), (fres, bres), wh, h0, dys, dhl, reset_after, gate)),
+        "gru_scan_fwd": cuda_ms(lambda: gru_scan_pair(xp1, wh1, bh1, h01, reset_after, gate)),
+    }
+    trace_ms = {k: per_kind[k][1] / per_kind[k][0] for k in launches}
+    trace_ms["gru_scan_bwd+dwh+sum"] = sum(
+        trace_ms[k] for k in ("gru_scan_bwd", "gru_dwh", "gru_scan_sum_partials"))
+    print(f"[tools] profile_trace of a kernel-frontend extract ({len(y240) / SR:.0f} s), one "
+          f"train step at batch {cfg.train.batch_size} and one B=1 serving chunk "
+          f"(sednet-dcase full width): kernel events by kind {counted} = the wrappers' "
+          f"launches; annotations {list(TOOLS_ANNOTATIONS)} present")
+    for k in ("fused_logmel", "gru_scan_fwd_res", "gru_scan_bwd", "gru_dwh",
+              "gru_scan_sum_partials", "gru_scan_bwd+dwh+sum", "gru_scan_fwd"):
+        beside = f", CUDA events {event_ms[k]:.4f} ms" if k in event_ms else ""
+        print(f"[tools]   {k}: trace device {trace_ms[k]:.4f} ms per launch{beside}")
+    return {"launches": launches, "trace_ms": trace_ms, "event_ms": event_ms}
+
+
+def _tools_debug(workdir: str, cfg, fold) -> dict:
+    """`run_fold(debug=True)` for one epoch on [train]'s synthetic fold: the
+    same GRU launches as without it; with one NaN in a window of the first
+    training batch it raises `NonFiniteError` at fold 1 epoch 1."""
+    import torch
+
+    from sed_crnn_torch.train.loop import Rngs, make_samplers, run_fold
+    from sed_crnn_torch.utils.debug import NonFiniteError
+
+    dev = torch.device("cuda")
+    cfg1 = cfg.replace(train=dataclasses.replace(cfg.train, max_epochs=1))
+    counts, walls = {}, {}
+    for debug in (False, True):
+        _reset_gru_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_fold(cfg1, fold, 1, os.path.join(workdir, f"debug_{debug}"), device="cuda",
+                       verbose=False, debug=debug)
+        torch.cuda.synchronize()
+        walls[debug], counts[debug] = time.perf_counter() - t0, _gru_counts()
+        check(res.epochs_run == 1 and np.isfinite(res.history["loss_tr"]).all(),
+              f"run_fold debug={debug}: {res.history['loss_tr']}")
+    check(counts[True] == counts[False], f"debug launches {counts[True]} != {counts[False]}")
+
+    # The first batch's first window, replayed from run_fold's generators.
+    tr, _ = make_samplers(cfg1, fold, dev)
+    rngs = Rngs(dev, cfg1.train.seed + 1, len(cfg1.model.conv_channels) + 1)
+    x, _ = tr.sample_batch(rngs.batch, cfg1.train.batch_size)
+    T = cfg1.model.seq_len_in
+    n_win = len(fold["train_x"]) // T
+    windows = fold["train_x"][: n_win * T].reshape(n_win, T, -1)
+    (w,) = np.flatnonzero((windows == x[0].cpu().numpy()).all(axis=(1, 2)))
+    planted = dict(fold, train_x=fold["train_x"].copy())
+    planted["train_x"][w * T + T // 2, 7] = np.nan
+    message = None
+    try:
+        run_fold(cfg1, planted, 1, os.path.join(workdir, "debug_nan"), device="cuda",
+                 verbose=False, debug=True)
+    except NonFiniteError as e:
+        message = str(e)
+    check(message is not None and message.startswith("fold 1 epoch 1: non-finite loss"),
+          f"run_fold(debug=True) with a planted NaN: {message!r}")
+    print(f"[tools] run_fold 1 epoch on [train]'s fold: debug=False {walls[False]:.3f} s, "
+          f"debug=True {walls[True]:.3f} s, GRU launches equal {counts[True]}; one NaN in "
+          f"window {w} of the first batch: NonFiniteError {message!r}")
+    return {"launches": counts[True], "wall_s": walls[False], "debug_wall_s": walls[True]}
+
+
+def _tools_native(workdir: str, y240: np.ndarray, pcm: np.ndarray) -> dict:
+    """The C++ host library, built here: `log_mel_native` against kernel A's
+    chunked route on the 240 s signal (5e-4 in the log domain, -inf pattern
+    equal), `StreamingFramer` bitwise `PythonFramer` on random packets of the
+    120 s signal, `wav_read_mono_native` within 1e-6 of `data/wavio`."""
+    import torch
+
+    from sed_crnn_torch.core.config import FrontendConfig
+    from sed_crnn_torch.data.wavio import read_wav, write_wav
+    from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
+    from sed_crnn_torch.utils import native
+
+    t0 = time.perf_counter()
+    lib = native.build_library(force=True)   # compiled by this run, whatever is cached
+    build_s = time.perf_counter() - t0
+    fe = FrontendConfig()
+    t0 = time.perf_counter()
+    host = native.log_mel_native(y240, fe.sample_rate, fe.n_fft, fe.hop_length, fe.n_mels,
+                                 fe.center)
+    host_s = time.perf_counter() - t0
+    kernel = fused_log_mel(torch.from_numpy(y240).cuda(), fe).cpu().numpy()
+    fin = np.isfinite(kernel)
+    check(host.shape == kernel.shape and np.array_equal(np.isfinite(host), fin),
+          f"log_mel_native {host.shape} vs kernel A {kernel.shape}: -inf pattern")
+    check(not fin.all(), "the 240 s signal's silence gives -inf rows")
+    err = float(np.abs(host[fin] - kernel[fin]).max())
+    check(err <= LOGMEL_ATOL, f"log_mel_native vs kernel A: {err}")
+
+    rng = np.random.default_rng(29)
+    framers = (native.StreamingFramer(fe.n_fft, fe.hop_length), native.PythonFramer(
+        fe.n_fft, fe.hop_length))
+    parts: tuple = ([], [])
+    i = 0
+    while i < len(pcm):
+        step = int(rng.integers(1, 8193))
+        for f, out in zip(framers, parts):
+            out.append(f.feed(pcm[i : i + step]))
+        i += step
+    for f, out in zip(framers, parts):
+        out.append(f.flush())
+        f.close()
+    frames = [np.concatenate(p) for p in parts]
+    check(np.array_equal(frames[0], frames[1]), "StreamingFramer vs PythonFramer")
+
+    wav = os.path.join(workdir, "tones_120s.wav")
+    write_wav(wav, pcm, SR)
+    got, sr = native.wav_read_mono_native(wav)
+    want, sr_ref = read_wav(wav)
+    wav_err = float(np.abs(got - want).max())
+    check(sr == sr_ref == SR and got.shape == want.shape and wav_err <= 1e-6,
+          f"wav_read_mono_native vs wavio: {wav_err}")
+    print(f"[tools] host library {lib} built in {build_s:.2f} s (g++ -O3); log_mel_native on "
+          f"240 s ({host.shape[0]} frames, {host_s:.2f} s on the host) vs kernel A's chunked "
+          f"route: max|diff| at finite {err:.3g}, -inf pattern equal ({int((~fin).sum())} "
+          f"entries); StreamingFramer bitwise PythonFramer on {len(parts[0])} packets "
+          f"({frames[0].shape[0]} frames); wav_read_mono_native vs wavio {wav_err:.3g}")
+    print("[tools] TF SavedModel export (models/tf_export.py, apps.export --format tf): "
+          "held on the CPU only (tests/test_torch_tf_export.py): no tensorflow beside the card")
+    return {"logmel_native_max_abs_err": err}
+
+
+def phase_tools(workdir: str, cfg, fold, train_step_ms: float, pcm: np.ndarray) -> dict:
+    """[tools]: tracing (`utils/tracing.py`) around kernels A and B, the
+    StepClock against the training rate, `run_fold(debug=True)` and the C++
+    host library, at sednet-dcase full width."""
+    import torch
+
+    from sed_crnn_torch.utils.tracing import FRAMES_PER_SEC as CLOCK_FPS
+    from sed_crnn_torch.utils.tracing import StepClock
+
+    t_phase = time.perf_counter()
+    os.makedirs(workdir)
+    y240 = tones(240.0, 2, silent=[(100.0, 101.5)])
+    traced = _tools_trace(workdir, cfg, fold, y240)
+
+    one_step = _train_stepper(cfg, fold)
+    one_step()
+    clock = StepClock(cfg.model.seq_len_in)
+    torch.cuda.synchronize()
+    with clock:
+        for _ in range(TOOLS_STEPS):
+            one_step()
+            clock.add_windows(cfg.train.batch_size)
+        torch.cuda.synchronize()
+    rate_h = cfg.train.batch_size * cfg.model.seq_len_in / CLOCK_FPS / (train_step_ms / 1e3) / 3600
+    print(f"[tools] StepClock over {TOOLS_STEPS} train steps at batch {cfg.train.batch_size}: "
+          f"{clock.record()} -> {clock.audio_hours_per_sec:.4f} audio-hours/sec; [throughput]'s "
+          f"median step ({train_step_ms:.2f} ms) gives {rate_h:.4f} audio-hours/sec")
+
+    debugged = _tools_debug(workdir, cfg, fold)
+    hosted = _tools_native(workdir, y240, pcm)
+    print(f"[tools] phase wall {time.perf_counter() - t_phase:.1f} s")
+    launches = dict(traced["launches"])
+    for k, n in debugged["launches"].items():
+        if k in launches:
+            launches[k] += n
+    return {"launches": launches, "trace_ms": traced["trace_ms"], "event_ms": traced["event_ms"],
+            "clock_audio_hours_per_sec": clock.audio_hours_per_sec, **hosted,
+            "debug_wall_s": debugged["debug_wall_s"], "plain_wall_s": debugged["wall_s"]}
 
 
 def cuda_ms_cold(fn, reps: int = 10) -> float:
@@ -3162,11 +3479,13 @@ def _gap_thresholds(probs: np.ndarray) -> list:
 
 class _BlockCount:
     """Counts the non-empty frame blocks of every framer that `apps/serve.py`
-    makes while it is installed (the handler threads share it)."""
+    makes while it is installed (the handler threads share it), the kinds of
+    framer made, and the framers closed with their C handle freed."""
 
     def __init__(self, serve_app):
         self.app, self.real = serve_app, serve_app.make_framer
-        self.blocks = 0
+        self.blocks = self.made = self.freed = 0
+        self.kinds: set = set()
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -3175,6 +3494,9 @@ class _BlockCount:
         class Counting:
             def __init__(self, *args):
                 self.inner = counter.real(*args)
+                with counter._lock:
+                    counter.made += 1
+                    counter.kinds.add(type(self.inner).__name__)
 
             def _count(self, frames):
                 if frames.shape[0]:
@@ -3188,11 +3510,22 @@ class _BlockCount:
             def flush(self):
                 return self._count(self.inner.flush())
 
+            def close(self):
+                self.inner.close()
+                with counter._lock:
+                    counter.freed += getattr(self.inner, "_h", 0) is None
+
         self.app.make_framer = Counting
         return self
 
     def __exit__(self, *exc):
         self.app.make_framer = self.real
+
+    def check_native(self, tag: str) -> None:
+        """Every framer of the run was the C++ one, and every one was closed
+        with its handle freed."""
+        check(self.kinds == {"StreamingFramer"} and self.freed == self.made > 0,
+              f"{tag}: framers {sorted(self.kinds)}, {self.made} made, {self.freed} freed")
 
 
 def _serve_daemon(serve_app, art_path: str, pcm: np.ndarray, profiled: bool = False) -> dict:
@@ -3291,6 +3624,7 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.gru_scan import gru_scan_pair, gru_scan_plain
     from sed_crnn_torch.ops.stft import num_frames
+    from sed_crnn_torch.utils import native
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
@@ -3422,6 +3756,7 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
           f"serve_stream kernel A launches {logmel} vs {blocks.blocks} framer blocks")
     check(gru == _gru_path_counts(2 * n_steps, 0) and not plain_on_card,
           f"serve_stream kernel B launches {gru}")
+    blocks.check_native("serve_stream")
     launches["framed"] = logmel["framed"]
     launches["gru_scan_fwd"] += gru["gru_scan_fwd"]
     live_events = [ln for ln in lines if ln["type"] == "event"]
@@ -3450,6 +3785,7 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     check(logmel == {"chunked": 0, "framed": blocks.blocks, "exact": 0, "mixed": 0,
                      "cluster": 0},
           f"daemon kernel A launches {logmel} vs {blocks.blocks} framer blocks")
+    blocks.check_native("daemon")
     launches["framed"] += logmel["framed"]
     launches["gru_scan_fwd"] += gru["gru_scan_fwd"]
     for got in run["lines"]:
@@ -3465,13 +3801,29 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     prof = _serve_daemon(serve_app, art_path, pcm, profiled=True)
     idle = "not measured" if prof["busy"] is None else f"{1 - prof['busy'] / run['wall']:.3f}"
     busy = "not measured" if prof["busy"] is None else f"{prof['busy'] * 1e3:.1f} ms"
-    print(f"[serve] daemon --max-streams {SERVE_STREAMS}, {SERVE_STREAMS} clients sending the "
+    print(f"[serve] daemon --max-streams {SERVE_STREAMS} (C++ StreamingFramer, "
+          f"{blocks.made} made and freed), {SERVE_STREAMS} clients sending the "
           f"{len(pcm) / SR:.0f} s wav at once: {ticks} ticks, {stepped} chunk steps, "
           f"{stepped / ticks:.2f} streams per tick; per-step p50 {p50:.2f} ms (median over "
           f"clients) p99 {p99:.2f} ms (max); wall {run['wall']:.2f} s -> {rate:,.0f} "
           f"audio-sec/sec; device busy {busy} in a profiled repeat, idle share {idle}; every "
           f"client's event lines equal serve_stream's; launches {gru['gru_scan_fwd']} pair "
-          f"forwards (2 x ticks), {logmel['framed']} framed (= framer blocks)")
+          f"forwards (2 x ticks), {logmel['framed']} framed (= framer blocks); with the numpy "
+          f"framer the daemon read 220-268 audio-sec/sec, p50 18.81-24.80 ms, idle share "
+          f"0.975-0.980 (PERF.md section 5)")
+
+    # The same daemon on the numpy framer, in turns with the C++ one (the
+    # run above was the first C++ turn): aggregate rate, p50, p99.
+    turns = {"StreamingFramer": [(rate, p50, p99)], "PythonFramer": []}
+    for kind in ("PythonFramer", "StreamingFramer", "PythonFramer"):
+        with mock.patch.object(serve_app, "make_framer", getattr(native, kind)):
+            r = _serve_daemon(serve_app, art_path, pcm)
+        turns[kind].append((SERVE_STREAMS * len(pcm) / SR / r["wall"],
+                            float(np.median([g[-1]["step_ms_p50"] for g in r["lines"]])),
+                            float(max(g[-1]["step_ms_p99"] for g in r["lines"]))))
+    print("[serve] daemon in turns (C++, numpy, C++, numpy): " + "; ".join(
+        f"{k} " + ", ".join(f"{a:,.0f} audio-sec/sec (p50 {b:.2f}, p99 {c:.2f} ms)"
+                            for a, b, c in v) for k, v in turns.items()))
 
     # stream_step_batch at B=8 against 8 stream_steps at B=1, on real chunks.
     mel = frontend.extract(pcm, dataclasses.replace(fe, backend="kernel"), device=dev)
@@ -3496,10 +3848,13 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
     # offline rows (`extract`'s chunked route): the same FFT body per frame.
     framer = serve_app.make_framer(fe.n_fft, fe.hop_length, fe.center)
     frames = np.concatenate([framer.feed(pcm), framer.flush()])
+    framer.close()
     live_rows = frontend.log_mel_from_frames(torch.from_numpy(frames).to(dev),
                                              dataclasses.replace(fe, backend="kernel"))
     rows_equal = bool(torch.equal(live_rows, mel))
     rows_err = 0.0 if rows_equal else _maxdiff(live_rows, mel)
+    check(rows_equal and type(framer).__name__ == "StreamingFramer",
+          f"live rows ({type(framer).__name__}) vs offline rows: {rows_err}")
     wall = time.perf_counter() - t_phase
     print(f"[serve] stream_step_batch B={B}: {b8_ms:.4f} ms by events (device {fmt(b8_dev)}, "
           f"host issue {b8_host:.4f} ms) vs {B} x stream_step B=1: {b1x8_ms:.4f} ms (device "
@@ -3513,7 +3868,8 @@ def phase_serve(train_dir: str, workdir: str, pcm: np.ndarray):
         "serve_b1x8_host_ms": b1x8_host, "serve_b8_bound_ms": bnd, "serve_b8_bound_by": by,
         "serve_rate_audio_s_per_s": rate, "serve_step_p50_ms": p50, "serve_step_p99_ms": p99,
         "serve_ticks": ticks, "serve_idle_share": None if prof["busy"] is None
-        else 1 - prof["busy"] / run["wall"], "serve_live_rows_bitwise": rows_equal}
+        else 1 - prof["busy"] / run["wall"], "serve_live_rows_bitwise": rows_equal,
+        "serve_rate_turns": {k: [t[0] for t in v] for k, v in turns.items()}}
 
 
 # Kernel B's wide body (csrc/gru_wide.cu, H > 32): the widths, batches and
@@ -4973,7 +5329,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         train_dir, feature_dir = (os.path.join(workdir, d) for d in ("train", "feature"))
         train_launches, cfg, fold = phase_train(train_dir)
-        phase_train_throughput(cfg, fold)
+        step_ms = phase_train_throughput(cfg, fold)
+        tools = phase_tools(os.path.join(workdir, "tools"), cfg, fold, step_ms, pcm)
         kernel_framed, kernel_exact = phase_logmel_routes(pcm)
         kernel_mixed, mixed_launches = phase_logmel_mixed(pcm)
         kernel_cluster, cluster_launches = phase_logmel_cluster(pcm)
@@ -4997,6 +5354,9 @@ def main() -> int:
     launches["fused_logmel"] += serve_launches["chunked"]
     launches.update({k: train_launches[k] for k in ("gru_scan_fwd_res", "gru_scan_bwd",
                                                     "gru_dwh")})
+    for k, n in tools["launches"].items():
+        if k in launches:
+            launches[k] += n
     launches["fused_logmel_framed"] = feature_launches["framed"] + serve_launches["framed"]
     launches["fused_logmel_exact"] = kernel_exact.pop("launches")
     launches["fused_logmel_mixed"] = mixed_launches
@@ -5027,6 +5387,13 @@ def main() -> int:
     kernel_bwd["max_abs_err"] = max(kernel_bwd["max_abs_err"], stack["worst"]["bwd"])
     kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])
     kernel_wide = _wide_entry(wide, wide_paths, wide_train, wide_serving_err)
+    # [tools]: each kernel's device time per launch in the profile_trace trace
+    for entry, kind in ((kernel_a, "fused_logmel"), (kernel_b, "gru_scan_fwd"),
+                        (kernel_fwd_res, "gru_scan_fwd_res"), (kernel_bwd, "gru_scan_bwd"),
+                        (kernel_dwh, "gru_dwh")):
+        entry["trace_ms"] = tools["trace_ms"][kind]
+        entry["trace_event_ms"] = tools["event_ms"].get(kind)
+    kernel_a["logmel_native_max_abs_err"] = tools["logmel_native_max_abs_err"]
     kernels = []
     head = ("name", "route", "source", "replaces")
     for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_cluster, kernel_b,

@@ -10,7 +10,9 @@ normalization statistics and the tuned thresholds; `apps/infer.py
 package's npz files; several export their probability ensemble. The
 artifact runs wherever this package runs (``cuda`` or ``cpu``), so there is
 no ``--platforms``; ``--device`` is where the export builds the model
-(``cuda`` by default). ``--format tf`` (a TF SavedModel) is not ported.
+(``cuda`` by default). ``--format tf`` writes a TensorFlow SavedModel
+directory instead (the windowed forward only, for TF Serving;
+`models/tf_export.py`), built on the host with tensorflow.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import os
 from sed_crnn_torch.apps.infer import stats_from_fold
 from sed_crnn_torch.core import checkpoint as ckpt_io
 from sed_crnn_torch.core.config import get_preset
-from sed_crnn_torch.models.export import export_serving, stack_trees
+from sed_crnn_torch.models.export import export_serving, export_tf_savedmodel, stack_trees
 
 
 def main(argv=None):
@@ -41,16 +43,18 @@ def main(argv=None):
     p.add_argument("--compute-dtype", default=None,
                    help="override the conv trunk's activation dtype (e.g. bfloat16)")
     p.add_argument("--format", choices=("sedart", "tf"), default="sedart",
-                   help="sedart: the serving artifact; tf (a TF SavedModel) is not ported")
+                   help="sedart: the serving artifact (windowed + streaming); tf: a "
+                        "TensorFlow SavedModel directory (windowed forward only, for TF "
+                        "Serving)")
     p.add_argument("--threshold", type=float, nargs="+", default=None,
                    help="default binarization threshold baked into the artifact: one "
                         "global value, or one per class")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.format == "tf":
-        p.error("--format tf is not ported to sed_crnn_torch (the JAX package writes "
-                "it through jax2tf); export --format sedart")
+    if args.format == "tf" and args.threshold is not None:
+        p.error("--threshold applies to the sedart format only — TF "
+                "Serving consumers apply their own event decode")
     default_threshold = None
     if args.threshold is not None:
         default_threshold = args.threshold[0] if len(args.threshold) == 1 else args.threshold
@@ -76,6 +80,19 @@ def main(argv=None):
                 f"fold {args.fold} (tag {args.channel_tag!r}); refusing to export without "
                 f"the requested statistics"
             )
+
+    if args.format == "tf":
+        export_tf_savedmodel(cfg, params, state, args.out, norm_stats=norm_stats,
+                             compute_dtype=args.compute_dtype, ensemble_members=n_members)
+        out = {
+            "artifact": args.out,
+            "format": "tf_saved_model",
+            "norm_folded": norm_stats is not None,
+            "ensemble_members": n_members,
+            "checkpoint_meta": meta,
+        }
+        print(json.dumps(out))
+        return out
 
     artifact = export_serving(
         cfg, params, state, norm_stats=norm_stats, preset=args.preset,

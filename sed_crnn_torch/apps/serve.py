@@ -2,8 +2,9 @@
 artifact alone.
 
 The live counterpart of `apps/infer.py --artifact`: PCM packets of any size
-(a microphone, a socket, ffmpeg's stdout) enter the streaming framer
-(`utils/native.py`), complete frames become log-mel rows
+(a microphone, a socket, ffmpeg's stdout) enter the stream's own framer
+(`utils/native.py::make_framer`: the C++ `StreamingFramer`, numpy only on a
+host without g++), complete frames become log-mel rows
 (`ops/frontend.py::log_mel_from_frames`: on the artifact's ``"kernel"``
 frontend, kernel A's framed route, one launch per framer block), and every
 ``seq_len_in`` rows one `stream_step` of the artifact advances the carried
@@ -386,13 +387,17 @@ def serve_stream(
             consume(buf[:chunk_frames], chunk_frames // pool)
             buf = buf[chunk_frames:]
 
-    for pcm in pcm_chunks:
-        add_rows(framer.feed(pcm))
-    # End of stream: the framer's right-pad tail frames, then the final
-    # ragged chunk, zero-padded to a full chunk and trimmed to its true
-    # output frames as the offline `ServingArtifact.stream` pads and trims,
-    # then the events still open (their offset is the end of the stream).
-    add_rows(framer.flush())
+    try:
+        for pcm in pcm_chunks:
+            add_rows(framer.feed(pcm))
+        # End of stream: the framer's right-pad tail frames, then the final
+        # ragged chunk, zero-padded to a full chunk and trimmed to its true
+        # output frames as the offline `ServingArtifact.stream` pads and
+        # trims, then the events still open (their offset is the end of the
+        # stream).
+        add_rows(framer.flush())
+    finally:
+        framer.close()   # this stream's own framer: its C handle freed here
     # A ragged tail of fewer than ``pool`` frames emits nothing itself, but
     # under lookahead it is still the held chunk's real right context, as
     # the offline padding provides it.

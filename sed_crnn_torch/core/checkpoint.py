@@ -96,3 +96,15 @@ def load_checkpoint(path: str) -> Tuple[Any, Dict]:
             else:
                 flat[k] = data[k]
     return _unflatten(flat), meta
+
+
+def latest_checkpoint(directory: str, prefix: str = "") -> Optional[str]:
+    """The most recently modified ``<prefix>*.npz`` in ``directory``, or None."""
+    if not os.path.isdir(directory):
+        return None
+    cands = [
+        os.path.join(directory, f)
+        for f in os.listdir(directory)
+        if f.startswith(prefix) and f.endswith(".npz")
+    ]
+    return max(cands, key=os.path.getmtime) if cands else None

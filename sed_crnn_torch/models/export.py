@@ -44,6 +44,9 @@ A traced program would not make the artifact independent of this package:
 one that calls the kernels through custom operators needs the package
 imported to load, and it ties the artifact to one torch version. A JAX
 artifact (``"sed_crnn_tpu.serving/1"``, StableHLO programs) is refused.
+
+The TF SavedModel format (`export_tf_savedmodel`, the windowed forward
+only) is built in `models/tf_export.py` and re-exported here.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from sed_crnn_torch.core.checkpoint import _flatten, _unflatten
 from sed_crnn_torch.core.config import ExperimentConfig, ModelConfig
 from sed_crnn_torch.core.device import resolve_device
 from sed_crnn_torch.models.convert import load_model
+from sed_crnn_torch.models.tf_export import export_tf_savedmodel  # noqa: F401  (re-export)
 
 FORMAT = "sed_crnn_torch.serving/1"
 JAX_FORMAT = "sed_crnn_tpu.serving/1"
@@ -323,11 +327,3 @@ def export_serving(
                   for k, v in dataclasses.asdict(mcfg).items()},
     }
     return ServingArtifact(meta, tree, norm, device)
-
-
-def export_tf_savedmodel(*args, **kwargs):
-    """Not ported: the JAX package writes the TF SavedModel through jax2tf."""
-    raise NotImplementedError(
-        "export_tf_savedmodel is not ported to sed_crnn_torch (the JAX package converts "
-        "its programs with jax2tf); see ROADMAP.md Queue 1, 'TF SavedModel export'"
-    )

@@ -13,6 +13,10 @@ import time
 from typing import Dict, List, Optional
 
 
+def log_save(path: str) -> None:
+    print(f"saved -> {path}")
+
+
 def append_jsonl(path: str, record: Dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     record = dict(record)

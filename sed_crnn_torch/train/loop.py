@@ -59,6 +59,7 @@ from sed_crnn_torch.ops import metrics as metrics_ops
 from sed_crnn_torch.ops.losses import make_loss
 from sed_crnn_torch.train import artifacts
 from sed_crnn_torch.train.optim import Adam, AdamState, PlateauState, ReduceLROnPlateau
+from sed_crnn_torch.utils.debug import assert_tree_finite, guard_scores
 
 _TRACK_KEYS = (
     ("loss_tr", "loss_val", "loss"),
@@ -346,6 +347,7 @@ def run_fold(
     verbose: bool = True,
     device=None,
     trainer_factory=None,
+    debug: bool = False,
 ) -> FoldResult:
     """Train one fold to early stop; returns the best 1-second segment ER.
     ``device``: None means ``cuda`` (raises without a GPU); ``"cpu"`` runs
@@ -353,13 +355,16 @@ def run_fold(
     train_sampler, val_sampler) -> Trainer``, e.g. `data_parallel_factory`)
     replaces `Trainer`; under a data-parallel one, pass the mesh's device:
     every rank trains the same parameters and returns the same result, and
-    only its writer rank writes files and prints."""
+    only its writer rank writes files and prints. ``debug``: after each
+    epoch's scores, raise `utils.debug.NonFiniteError` on a non-finite
+    training or validation loss, or on a non-finite parameter (named by its
+    path in the JAX layout); nothing else changes."""
     return _run_fold(cfg, fold_data, fold_id, art_dir, seed, resume_from, verbose, device,
-                     trainer_factory)[0]
+                     trainer_factory, debug)[0]
 
 
 def _run_fold(cfg, fold_data, fold_id, art_dir, seed, resume_from, verbose, device,
-              trainer_factory) -> Tuple[FoldResult, bool]:
+              trainer_factory, debug=False) -> Tuple[FoldResult, bool]:
     """`run_fold` -> (its result, whether this process wrote its files: the
     trainer's ``is_writer``)."""
     dev = resolve_device(device)
@@ -418,6 +423,11 @@ def _run_fold(cfg, fold_data, fold_id, art_dir, seed, resume_from, verbose, devi
             val_scores = trainer.eval_epoch(state, rngs.val, n_val_steps)
         tr = {k: float(v) for k, v in tr_scores.items()}
         val = {k: float(v) for k, v in val_scores.items()}
+        if debug:
+            guard_scores(tr, epoch, fold_id)
+            guard_scores(val, epoch, fold_id)
+            assert_tree_finite(to_jax(trainer.model.state_dict(), cfg.model)[0],
+                               f"fold {fold_id} epoch {epoch} params")
         if trainer.plateau:
             plateau_state = trainer.plateau.step(plateau_state, val["loss"])
             state = state._replace(lr_scale=plateau_state.lr_scale)

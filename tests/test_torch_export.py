@@ -257,8 +257,11 @@ def test_load_refuses_jax_artifacts_and_other_files(tmp_path):
         zf.writestr("meta.json", json.dumps({"format": "something-else"}))
     with pytest.raises(ValueError, match="artifact"):
         ServingArtifact.load(other, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_tf_savedmodel(None, None, None, str(tmp_path / "tf"))
+    # the TF export refuses, before tensorflow loads, an ensemble whose
+    # weights carry no member axis
+    tc = port_config_of(jc)
+    with pytest.raises(ValueError, match="member axis of 2"):
+        export_tf_savedmodel(tc, params, state, str(tmp_path / "tf"), ensemble_members=2)
 
 
 @pytest.mark.parametrize("threshold,want", [(0.999, 0.999), ([0.4], [0.4]), (None, None)])
@@ -342,7 +345,8 @@ def test_export_and_infer_clis_match_jax(tmp_path, capsys):
         with pytest.raises(SystemExit):
             infer.main(["--wav", wav, "--device", "cpu", *argv])
     with pytest.raises(SystemExit):
-        export_app.main(["--checkpoint", ckpt, "--out", tpath, "--format", "tf"])
+        export_app.main(["--checkpoint", ckpt, "--out", tpath, "--format", "tf",
+                         "--threshold", "0.5"])
     empty = tmp_path / "empty"
     empty.mkdir()
     with mock.patch.object(export_app, "get_preset", return_value=tc), pytest.raises(SystemExit):

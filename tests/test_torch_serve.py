@@ -37,7 +37,8 @@ from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.data import wavio
 from sed_crnn_torch.models.export import export_serving
 from sed_crnn_torch.ops import frontend
-from sed_crnn_torch.utils.native import PythonFramer, make_framer
+from sed_crnn_torch.utils.native import (PythonFramer, StreamingFramer, make_framer,
+                                         native_available)
 from tests.test_export import _tiny_cfg
 from tests.test_torch_export import _gap_threshold
 from tests.test_torch_model import port_config_of, seeded_tree
@@ -105,7 +106,11 @@ def test_framer_is_bitwise_jax_python_framer(n_fft, hop, center):
         assert a.dtype == np.float32 and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got.flush(), want.flush())
-    assert isinstance(make_framer(n_fft, hop, center), PythonFramer)
+    # make_framer's choice is JAX's: the C++ framer wherever g++ or a built
+    # library is present, the numpy one elsewhere
+    framer = make_framer(n_fft, hop, center)
+    assert isinstance(framer, StreamingFramer if native_available() else PythonFramer)
+    assert type(framer).__name__ == type(jax_native.make_framer(n_fft, hop, center)).__name__
 
 
 def test_framer_is_bitwise_jax_native_framer():

@@ -143,10 +143,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "apps/score_events", "ops/event_metrics", "data/eventio", "data/seqs",
         "train/multiseed", "models/export", "apps/export", "apps/serve",
         "utils/native", "models/transplant", "apps/import_torch",
-        "apps/export_weights")} <= scanned
+        "apps/export_weights", "utils/debug", "utils/tracing", "models/tf_export")} <= scanned
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "sed_crnn_tpu")]
     assert bad == []
+    # tensorflow only inside the TF export, and not at its top level
+    tf_users = {f.relative_to(REPO).as_posix() for f in files
+                if any(m.split(".")[0] == "tensorflow" for m in _imports(f))}
+    assert tf_users == {"sed_crnn_torch/models/tf_export.py"}
+    top = ast.parse((REPO / "sed_crnn_torch/models/tf_export.py").read_text()).body
+    assert not any(isinstance(n, (ast.Import, ast.ImportFrom)) and "tensorflow" in ast.dump(n)
+                   for n in top)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
