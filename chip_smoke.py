@@ -93,32 +93,35 @@ exits non-zero and prints no result line:
     as torch.profiler device-busy time beside the host's issue time (the
     FFT body's at n_fft 1024 printed on its own); the exact route driven
     once by ``fused_log_mel(mode="exact")`` at n_fft 2048;
-    then ([kernel A mixed]) the mixed-radix / Bluestein body
-    ``csrc/logmel_mixed.cu`` at n_fft 1034 / hop 517 (exact route,
-    Bluestein), 1764 / 882 (chunked, direct), 3072 / 1024 (framed, direct)
-    and 1001 / 500 (exact, odd, Bluestein) on those signals, with and
-    without a floor: bitwise against `mixed_log_mel_plain`, two runs bitwise
-    equal, within 5e-4 of the DIF / direct plain version with the -inf
+    then ([kernel A mixed]) the mixed-radix body ``csrc/logmel_mixed.cu``
+    at n_fft 1034 / hop 517 (exact route, 11 and a matrix stage of 47),
+    1764 / 882 (chunked, direct), 3072 / 1024 (framed, direct), 1001 / 500
+    (exact, 7, 11, 13), 1102 / 551 (matrix stages 19, 29), 12865 / 6432
+    and 23042 / 11521 (matrix stages) on those signals, with and without a
+    floor: against `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL
+    with matrix stages), two runs bitwise equal, within 5e-4 of the DIF /
+    direct plain version (torch's FFT + mel above 4096) with the -inf
     pattern equal, and on a frame matrix; its times on 150 s of padded
     audio (warm and cold L2, device and host) beside ``torch.stft`` + mel,
-    both plain versions and the bound; ``frontend.extract`` at n_fft 1034
-    with exactly one mixed launch and no cluster launch;
+    both plain versions and the bound; both plans in turns at the sizes
+    that were Bluestein; ``frontend.extract`` at n_fft 1034 with exactly
+    one mixed launch and no cluster launch;
     then ([kernel A cluster]) the cluster body ``csrc/logmel_cluster.cu``
     (every n_fft beyond one block's shared memory): the clusters the card
-    holds at 227 KB a CTA for every size to 16; n_fft 12865 / 6432
-    (Bluestein, exact route), 23042 / 11521 (Bluestein), 44100 / 22050 and
+    holds at 227 KB a CTA for every size to 16; n_fft 12867 / 6433
+    (Bluestein, exact route), 23054 / 11527 (Bluestein), 44100 / 22050 and
     48000 / 24000 (direct, chunked) and 88200 / 44100 (3 CTAs) on those
     signals, with and without a floor: bitwise against
     `mixed_log_mel_plain`, two runs bitwise equal, within 5e-4 of torch's
     FFT + mel with the -inf pattern equal; the same bits at other
-    cluster sizes (12865 at 2-16 CTAs, 44100 at 2, 3, 4, 7, 88200 at 3-12) and
-    the mixed body's four shapes forced onto it at 2, 3, 4 and 8 CTAs,
-    bitwise the mixed body's; times on 150 s of padded audio (warm and cold
-    L2, device and host) beside ``torch.stft`` + mel, the plain version and
-    the bound, and 88200 at 3 and 4 CTAs and 141000 at 7 and 8 in turns;
-    ``frontend.extract`` of
-    the 120 s file at 12865 (exact) and 44100 (chunked), exactly one cluster
-    launch each;
+    cluster sizes (12867 at 2-16 CTAs, 44100 at 2, 3, 4, 7, 88200 at 3-12)
+    and the mixed body's shapes forced onto it at 2, 3, 4 and 8 CTAs,
+    bitwise the mixed body's (plans with matrix stages refused, their
+    Bluestein plans run instead); times on 150 s of padded audio (warm and
+    cold L2, device and host) beside ``torch.stft`` + mel, the plain
+    version and the bound, and 88200 at 3 and 4 CTAs and 141000 at 7 and 8
+    in turns; ``frontend.extract`` of the 120 s file at 12867 (exact) and
+    44100 (chunked), exactly one cluster launch each;
 12. the feature path: a synthetic DCASE 2017 street layout (12 binaural
     120 s wavs at 44.1 kHz and one 20 s wav at 48 kHz, folds 1 and 2) through
     ``apps.feature.main --binmul --backend kernel --device cuda``: exactly 2
@@ -2026,29 +2029,75 @@ def phase_logmel_routes(pcm: np.ndarray):
     )
 
 
-# The mixed body's shapes (n_fft, hop, route, plan): Bluestein at L 517 /
-# M 1050, direct at L 882 and 1536, the odd Bluestein at L 1001 / M 2016.
+# The mixed body's shapes (n_fft, hop, route): L 517 = 11 x 47 (a matrix
+# stage of 47), direct at L 882 and 1536, L 1001 = 7 x 11 x 13 (register
+# radices), L 551 = 19 x 29 (two matrix stages), L 12865 = 5 x 31 x 83 and
+# 11521 = 41 x 281 (matrix stages; the cluster body's Bluestein sizes
+# before their direct plans fitted one block).
 MIXED_SHAPES = ((1034, 517, "exact"), (1764, 882, "chunked"), (3072, 1024, "framed"),
-                (1001, 500, "exact"))
+                (1001, 500, "exact"), (1102, 551, "exact"), (12865, 6432, "exact"),
+                (23042, 11521, "exact"))
+# A plan with matrix stages against `mixed_log_mel_plain` (whose matrix
+# product is float64, rounded once): three TF32 products with float32 sums
+# come within about 2^-21 of a butterfly's inputs, not bitwise, so a band
+# far below its frame's peak (12 nats at 1034) moves by that over its
+# share: 4.2e-5 at most on the card over every shape and signal here
+# (PERF.md §6), held at 1e-4; LOGMEL_ATOL is the ceiling.
+MATRIX_ATOL = 1e-4
+# The sizes whose plan was Bluestein before matrix stages, timed with each
+# plan in turns (direct on the mixed body; Bluestein on the mixed body, or
+# the cluster body where it does not fit one block); 23044 (L 2 x 7 x 823,
+# a matrix stage of 823, against Bluestein on the cluster body).
+PLAN_TURNS = ((1034, 517), (1102, 551), (12865, 6432), (23042, 11521), (23044, 11522))
 TPU_LOGMEL_SITES = ", ".join(f"sed_crnn_tpu/ops/pallas/fused_logmel.py:{line}"
                              for line in (173, 162, 264))
+
+
+def _plan_text(plan) -> str:
+    """A plan as the timed lines print it."""
+    return (f"{'Bluestein' if plan.bluestein else 'direct'} L {plan.points}, N {plan.n}, "
+            f"radices {plan.radices}, matrix stages {plan.matrix or 'none'}")
+
+
+def _check_plain_bits(tag: str, got, plain, plan) -> float:
+    """The kernel against `mixed_log_mel_plain`: bitwise for a plan with no
+    matrix stage, else within MATRIX_ATOL with the same -inf entries;
+    returns max|diff| at finite entries (0 when bitwise)."""
+    import torch
+
+    if not plan.matrix:
+        check(torch.equal(got, plain), f"{tag}: not bitwise equal to mixed_log_mel_plain")
+        return 0.0
+    fin = torch.isfinite(plain)
+    check(torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], plain[~fin]),
+          f"{tag}: -inf pattern vs mixed_log_mel_plain")
+    err = float((got[fin] - plain[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(err <= MATRIX_ATOL, f"{tag}: {err} from mixed_log_mel_plain > {MATRIX_ATOL}")
+    return err
 
 
 def phase_logmel_mixed(pcm: np.ndarray):
     """[kernel A mixed]: the mixed-radix / Bluestein body at `MIXED_SHAPES`
     on phase 3's signals and a 1,500-sample one, with and without a floor:
-    bitwise against `mixed_log_mel_plain`, two runs bitwise equal, within
-    5e-4 of the DIF / direct plain version with the -inf pattern equal, and
-    on a frame matrix; its times on 150 s of padded audio beside `torch.stft`
-    + mel, both plain versions and the bound; `frontend.extract` at n_fft
-    1034 with one mixed launch and no cluster launch. Returns the mixed
-    entry and its launches on that `extract` run."""
+    against `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL with
+    matrix stages), two runs bitwise equal, within 5e-4 of the DIF / direct
+    plain version (torch's FFT + mel above n_fft 4096, where that version's
+    bases grow to gigabytes) with the -inf pattern equal, and on a frame
+    matrix; its times on 150 s of padded audio beside `torch.stft` + mel,
+    both plain versions and the bound; each `PLAN_TURNS` size with both
+    plans in turns; `frontend.extract` at n_fft 1034 with one mixed launch
+    and no cluster launch. Returns the mixed entry and its launches on that
+    `extract` run."""
     import torch
 
     from sed_crnn_torch.core.config import FrontendConfig
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import (
+        MIXED_MAX_SMEM,
+        _launch_cluster,
+        _launch_mixed,
         body,
+        frame_source,
         fused_log_mel,
         fused_log_mel_frames,
         fused_log_mel_plain,
@@ -2060,11 +2109,12 @@ def phase_logmel_mixed(pcm: np.ndarray):
 
     dev = torch.device("cuda")
     signals = _logmel_signals(FrontendConfig())
-    worst = 0.0
+    worst = worst_plain = 0.0
     for n_fft, hop, kind in MIXED_SHAPES:
         plan = mixed_plan(n_fft)
         check(body(n_fft) == "mixed", f"{n_fft}: the mixed body")
-        errs = []
+        reference = fused_log_mel_plain if n_fft <= 4096 else _library_fft_log_mel
+        errs, plain_errs = [], []
         _reset_logmel_counts()
         calls = 0
         for name, y, center in signals:
@@ -2079,9 +2129,8 @@ def phase_logmel_mixed(pcm: np.ndarray):
                 again = fused_log_mel(yt, cfg)
                 calls += 2
                 check(torch.equal(got, again), f"{tag}: two runs differ")
-                check(torch.equal(got, mixed_log_mel_plain(yt, cfg)),
-                      f"{tag}: not bitwise equal to mixed_log_mel_plain")
-                errs.append(_check_logmel(tag, got, fused_log_mel_plain(yt, cfg)))
+                plain_errs.append(_check_plain_bits(tag, got, mixed_log_mel_plain(yt, cfg), plan))
+                errs.append(_check_logmel(tag, got, reference(yt, cfg)))
                 if name == "silence" and floor is None:
                     check(not bool(torch.isfinite(got).any()), f"{tag}: not all -inf")
         y240 = torch.from_numpy(signals[1][1]).to(dev)
@@ -2089,21 +2138,23 @@ def phase_logmel_mixed(pcm: np.ndarray):
         frames = frame_signal(y240, n_fft, hop).contiguous()
         got = fused_log_mel_frames(frames, cfg)
         calls += 1
-        check(torch.equal(got, mixed_log_mel_plain(frames, cfg))
-              and torch.equal(got, fused_log_mel(y240, cfg)),
-              f"mixed {n_fft}/{hop} frame matrix: not bitwise the plain version's or the "
-              f"waveform's")
+        check(torch.equal(got, fused_log_mel(y240, cfg)),
+              f"mixed {n_fft}/{hop} frame matrix: not bitwise the waveform's")
+        plain_errs.append(_check_plain_bits(f"mixed {n_fft}/{hop} frame matrix", got,
+                                            mixed_log_mel_plain(frames, cfg), plan))
         calls += 1
         counts = _logmel_counts()
         check(counts["mixed"] == calls and counts["cluster"] == 0,
               f"mixed {n_fft}/{hop}: launches {counts} for {calls} calls")
-        worst = max(worst, max(errs))
-        print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind} route; "
-              f"{'Bluestein' if plan.bluestein else 'direct'} L {plan.points}, N {plan.n}, "
-              f"radices {plan.radices}): {len(signals)} signals x 2 floors + a "
-              f"{tuple(frames.shape)} frame matrix, bitwise equal to mixed_log_mel_plain and "
-              f"run to run, vs the DIF / direct plain version max|diff| at finite "
-              f"{max(errs):.3g}, -inf patterns equal; launches {counts}")
+        worst, worst_plain = max(worst, max(errs)), max(worst_plain, max(plain_errs))
+        versus = ("bitwise equal to mixed_log_mel_plain" if not plan.matrix else
+                  f"vs mixed_log_mel_plain max|diff| {max(plain_errs):.3g} (tolerance "
+                  f"{MATRIX_ATOL:g}, matrix stages)")
+        print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind} route; {_plan_text(plan)}): "
+              f"{len(signals)} signals x 2 floors + a {tuple(frames.shape)} frame matrix, "
+              f"{versus}, bitwise run to run, vs the "
+              f"{'DIF / direct plain version' if n_fft <= 4096 else 'torch FFT + mel'} "
+              f"max|diff| at finite {max(errs):.3g}, -inf patterns equal; launches {counts}")
 
     timed = {}
     for n_fft, hop, kind in MIXED_SHAPES:
@@ -2111,41 +2162,75 @@ def phase_logmel_mixed(pcm: np.ndarray):
         y = bucket_signal(pcm, cfg)
         yt = torch.from_numpy(y).to(dev)
         n_frames = 1 + (len(y) - n_fft) // hop
-        want = fused_log_mel_plain(yt, cfg)
+        plan = mixed_plan(n_fft)
+        small = n_fft <= 4096
         got = fused_log_mel(yt, cfg)
         tag = f"log-mel mixed {n_fft}/{hop} timed shape"
-        err = _check_logmel(tag, got, want)
-        check(torch.equal(got, mixed_log_mel_plain(yt, cfg)), f"{tag}: not bitwise the plain")
-        worst = max(worst, err)
+        err = _check_logmel(tag, got, (fused_log_mel_plain if small else _library_fft_log_mel)(
+            yt, cfg))
+        plain_err = _check_plain_bits(tag, got, mixed_log_mel_plain(yt, cfg), plan)
+        worst, worst_plain = max(worst, err), max(worst_plain, plain_err)
         kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
         lib = _library_logmel(yt, cfg)
         ms, cold = cuda_ms(kernel), cuda_ms_cold(kernel)
         lib_ms = cuda_ms(lib)
-        plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg), reps=5)
-        mixed_plain = cuda_ms(lambda: mixed_log_mel_plain(yt, cfg), reps=5)
+        plain = cuda_ms(lambda: fused_log_mel_plain(yt, cfg), reps=5) if small else None
+        mixed_plain = cuda_ms(lambda: mixed_log_mel_plain(yt, cfg), reps=5 if small else 2,
+                              warmup=1)
         bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
         measured = {}
         split = split_line(bnd, measured, kernel=kernel, library=lib)
-        direct = route(len(y), cfg) == "exact"
-        plan = mixed_plan(n_fft)
         point_stages = n_frames * plan.n * len(plan.radices) * (2 if plan.bluestein else 1)
-        print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind}), {n_frames} frames "
-              f"({len(y) / SR:.1f} s padded): kernel {ms:.4f} ms warm L2, {cold:.4f} ms cold "
-              f"L2; torch.stft+mel {lib_ms:.4f} ms; plain ({'direct' if direct else 'DIF'}) "
-              f"{plain:.4f} ms, mixed_log_mel_plain {mixed_plain:.4f} ms; bound {bnd:.4f} ms "
-              f"({by}, rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), "
-              f"kernel at {bnd / ms:.3f} of its bound; x{lib_ms / ms:.2f} against "
-              f"torch.stft+mel; {point_stages:,} frame-point-stages (frames x N x stages, x2 "
-              f"for Bluestein), {ms * 1e9 / point_stages:.2f} ps each")
+        plain_text = (f"plain ({'direct' if route(len(y), cfg) == 'exact' else 'DIF'}) "
+                      f"{plain:.4f} ms, " if small else "")
+        print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind}; {_plan_text(plan)}), "
+              f"{n_frames} frames ({len(y) / SR:.1f} s padded): kernel {ms:.4f} ms warm L2, "
+              f"{cold:.4f} ms cold L2; torch.stft+mel {lib_ms:.4f} ms, x{lib_ms / ms:.2f} "
+              f"against it ({'faster' if ms <= lib_ms else 'slower'}); {plain_text}"
+              f"mixed_log_mel_plain {mixed_plain:.4f} ms (tolerance "
+              f"{MATRIX_ATOL if plan.matrix else 0.0:g}: max|diff| {plain_err:.3g}); bound "
+              f"{bnd:.4f} ms ({by}, rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), kernel at {bnd / ms:.3f} of its bound; {point_stages:,} "
+              f"frame-point-stages (frames x N x stages, x2 for Bluestein), "
+              f"{ms * 1e9 / point_stages:.2f} ps each")
         print(f"[kernel A mixed] n_fft {n_fft} hop {hop}, {split}")
         timed[n_fft] = {"ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
                         "host_ms": measured["kernel"][1], "plain_ms": plain,
                         "mixed_plain_ms": mixed_plain, "bound_ms": bnd, "bound_by": by,
-                        "library_ms": lib_ms}
+                        "library_ms": lib_ms, "radices": list(plan.radices),
+                        "matrix": list(plan.matrix), "plain_atol": MATRIX_ATOL if plan.matrix
+                        else 0.0, "plain_max_abs_err": plain_err}
+
+    # Both plans at the sizes that were Bluestein before matrix stages, in
+    # turns: direct (the mixed body) and Bluestein (the mixed body where it
+    # fits one block, else the cluster body); `mixed_plan` keeps the faster.
+    turns = {}
+    for n_fft, hop in PLAN_TURNS:
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        src, n_frames = frame_source(torch.from_numpy(bucket_signal(pcm, cfg)).to(dev), cfg)
+        blue = mixed_plan(n_fft, True)
+        blue_body = "mixed" if blue.smem_bytes <= MIXED_MAX_SMEM else "cluster"
+        fns = {"direct": lambda: _launch_mixed(src, hop, n_frames, n_fft, cfg, bluestein=False),
+               "bluestein": (lambda: _launch_mixed(src, hop, n_frames, n_fft, cfg, bluestein=True))
+               if blue_body == "mixed" else
+               (lambda: _launch_cluster(src, hop, n_frames, n_fft, cfg, bluestein=True))}
+        for k, forced in (("direct", False), ("bluestein", True)):
+            _check_plain_bits(f"plans {n_fft}/{hop} {k}", fns[k](),
+                              mixed_log_mel_plain(src, cfg, bluestein=forced),
+                              mixed_plan(n_fft, forced))
+        ms = {k: [] for k in fns}
+        for k in ("direct", "bluestein", "bluestein", "direct"):
+            ms[k].append(cuda_ms(fns[k], reps=10))
+        chosen = "bluestein" if mixed_plan(n_fft).bluestein else "direct"
+        turns[f"{n_fft}/{hop}"] = {"ms": ms, "chosen": chosen, "bluestein_body": blue_body}
+        print(f"[kernel A mixed] plans at n_fft {n_fft} hop {hop}, {n_frames} frames, in turns "
+              f"(direct, Bluestein, Bluestein, direct): direct {mixed_plan(n_fft, False).radices} "
+              f"on the mixed body {ms['direct']} ms; Bluestein {blue.radices} (M {blue.n}) on "
+              f"the {blue_body} body {ms['bluestein']} ms; mixed_plan picks {chosen}")
 
     # The main path at a size the mixed body takes: `frontend.extract` of
     # the 120 s file at n_fft 1034 (neither a power of two nor a multiple of
-    # 4: the exact route, Bluestein), against the fft backend.
+    # 4: the exact route, a matrix stage), against the fft backend.
     cfg = FrontendConfig(n_fft=1034, hop_length=517, backend="kernel")
     _reset_logmel_counts()
     got = frontend.extract(pcm, cfg, device=dev)
@@ -2163,21 +2248,22 @@ def phase_logmel_mixed(pcm: np.ndarray):
     shapes = {f"{n}/{h}": timed[n] for n, h, _ in MIXED_SHAPES}
     mixed = {"name": "fused_logmel_mixed", "route": "cuda",
              "source": "sed_crnn_torch/csrc/logmel_mixed.cu", "replaces": TPU_LOGMEL_SITES,
-             "max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                            "bound_by", "library_ms")},
-             "shape": "n_fft 1034 hop 517, 150 s padded", "shapes": shapes}
+             "max_abs_err": worst, "plain_max_abs_err": worst_plain,
+             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             "shape": "n_fft 1034 hop 517, 150 s padded", "shapes": shapes, "plan_turns": turns}
     return mixed, launches["mixed"]
 
 
 # The cluster body's shapes (n_fft, hop): the first odd size beyond the mixed
-# body's limit (Bluestein, exact route), the first such even one (Bluestein,
-# chunked), 1 s at 44.1 kHz and at 48 kHz (direct, chunked, 2 CTAs a frame)
-# and 2 s at 44.1 kHz (direct, 3 CTAs).
-CLUSTER_SHAPES = ((12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000),
+# body's limit (12867 = 3 x 4289: Bluestein, exact route), the first such
+# even one (23054, L 11527 prime: Bluestein, exact route), 1 s at 44.1
+# kHz and at 48 kHz (direct, chunked, 2 CTAs a frame) and 2 s at 44.1 kHz
+# (direct, 3 CTAs).
+CLUSTER_SHAPES = ((12867, 6433), (23054, 11527), (44100, 22050), (48000, 24000),
                   (88200, 44100))
 # Other splits of three of them, whose bits must be the default split's (4
 # CTAs do not divide 44100's N, so all its stages cross CTAs).
-CLUSTER_SPLITS = {12865: (2, 3, 4, 8, 16), 44100: (2, 3, 4, 7), 88200: (3, 4, 6, 12)}
+CLUSTER_SPLITS = {12867: (2, 3, 4, 8, 16), 44100: (2, 3, 4, 7), 88200: (3, 4, 6, 12)}
 # Sizes timed at two cluster sizes in turns: the smallest that holds the
 # plan (`cluster_size`) and one with fewer stages crossing CTAs.
 CLUSTER_TURNS = ((88200, 44100, 3, 4), (141000, 70500, 7, 8))
@@ -2215,12 +2301,13 @@ def phase_logmel_cluster(pcm: np.ndarray):
     size; at `CLUSTER_SHAPES` on phase 3's signals and a 1,500-sample one,
     with and without a floor: bitwise `mixed_log_mel_plain`, twice, and
     within 5e-4 of torch's FFT + mel (`_library_fft_log_mel`) with the -inf
-    pattern equal; at
-    `CLUSTER_SPLITS` the same bits at every cluster size; the mixed body's
-    shapes forced onto the cluster body at `CLUSTER_FORCED` sizes, bitwise
-    the mixed body's; times on 150 s of padded audio (warm and cold L2,
-    device and host) beside the bound, `torch.stft` + mel and the plain
-    version; `frontend.extract` of the 120 s file at 12865 (exact route) and
+    pattern equal; at `CLUSTER_SPLITS` the same bits at every cluster size;
+    the mixed body's shapes forced onto the cluster body at `CLUSTER_FORCED`
+    sizes, bitwise the mixed body's (a plan with matrix stages refused, and
+    its Bluestein plan run instead, bitwise that plan's plain version);
+    times on 150 s of padded audio (warm and cold L2, device and host)
+    beside the bound, `torch.stft` + mel and the plain version;
+    `frontend.extract` of the 120 s file at 12867 (exact route) and
     44100 (chunked), one cluster launch each and nothing else. Returns the
     kernels-line entry and the launches of those two `extract` runs."""
     import torch
@@ -2229,6 +2316,7 @@ def phase_logmel_cluster(pcm: np.ndarray):
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import (
         CLUSTER_MAX,
+        MIXED_MAX_SMEM,
         _launch_cluster,
         _launch_mixed,
         body,
@@ -2284,17 +2372,38 @@ def phase_logmel_cluster(pcm: np.ndarray):
               f"{max(errs):.3g}, -inf patterns equal; launches {counts}")
 
     # The mixed body's shapes forced onto the cluster body, and other splits
-    # of the real sizes: the same bits.
+    # of the real sizes: the same bits. The cluster body has no matrix
+    # stage: it refuses such a plan, and runs that size's Bluestein plan.
     y30 = torch.from_numpy(signals[0][1]).to(dev)
+    refused = []
     for n_fft, hop, _ in MIXED_SHAPES:
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False)
         src, n_frames = frame_source(y30, cfg)
-        want = _launch_mixed(src, hop, n_frames, n_fft, cfg)
+        forced = None
+        if mixed_plan(n_fft).matrix:
+            try:
+                _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=2)
+                why = None
+            except ValueError as e:
+                why = str(e)
+            check(why is not None and "no matrix stage" in why,
+                  f"cluster body forced to {n_fft}/{hop}: a matrix stage was not refused")
+            refused.append(f"{n_fft} ({mixed_plan(n_fft).matrix})")
+            forced = True
+        plan = mixed_plan(n_fft, forced)
+        want = (_launch_mixed(src, hop, n_frames, n_fft, cfg, bluestein=forced)
+                if plan.smem_bytes <= MIXED_MAX_SMEM else
+                mixed_log_mel_plain(src, cfg, bluestein=forced))
         for c in CLUSTER_FORCED:
-            check(torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c), want),
-                  f"cluster body forced to {n_fft}/{hop} at C {c}: not the mixed body's bits")
+            got = _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c, bluestein=forced)
+            check(torch.equal(got, want),
+                  f"cluster body forced to {n_fft}/{hop} ({plan.radices}) at C {c}: not the "
+                  f"mixed body's bits")
     print(f"[kernel A cluster] the mixed body's shapes {[s[:2] for s in MIXED_SHAPES]} on the "
-          f"30 s bucket at C {CLUSTER_FORCED}: bitwise equal to the mixed body")
+          f"30 s bucket at C {CLUSTER_FORCED}: bitwise equal to the mixed body (or to the plain "
+          f"version where the plan does not fit one block); refused, as plans with matrix "
+          f"stages the cluster body does not have, and run by their Bluestein plans instead: "
+          f"{', '.join(refused) or 'none'}")
     for n_fft, splits in CLUSTER_SPLITS.items():
         hop = dict(CLUSTER_SHAPES)[n_fft]
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
@@ -2324,9 +2433,11 @@ def phase_logmel_cluster(pcm: np.ndarray):
         plan, sp = mixed_plan(n_fft), cluster_split(n_fft, cluster_size(n_fft))
         point_stages = n_frames * plan.n * len(plan.radices) * (2 if plan.bluestein else 1)
         print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {n_frames} frames "
-              f"({len(y) / SR:.1f} s padded), C {sp.ctas}: kernel {ms:.4f} ms warm L2, "
-              f"{cold:.4f} ms cold L2; torch.stft+mel {lib_ms:.4f} ms (x{lib_ms / ms:.2f}); "
-              f"mixed_log_mel_plain {plain:.4f} ms; bound {bnd:.4f} ms ({by}, rFFT+power+sparse "
+              f"({len(y) / SR:.1f} s padded; {_plan_text(plan)}), C {sp.ctas}: kernel "
+              f"{ms:.4f} ms warm L2, {cold:.4f} ms cold L2; torch.stft+mel {lib_ms:.4f} ms "
+              f"(x{lib_ms / ms:.2f}, {'faster' if ms <= lib_ms else 'slower'}); "
+              f"mixed_log_mel_plain {plain:.4f} ms (tolerance 0: bitwise); bound {bnd:.4f} ms "
+              f"({by}, rFFT+power+sparse "
               f"mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at {bnd / ms:.4f} of "
               f"its bound; {point_stages:,} frame-point-stages, {ms * 1e9 / point_stages:.2f} ps "
               f"each")
@@ -2348,11 +2459,11 @@ def phase_logmel_cluster(pcm: np.ndarray):
         print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {n_frames} frames, by cluster "
               f"size in turns [C, stages crossing, ms]: {turns}")
 
-    # The main path: `frontend.extract` of the 120 s file at 12865 (odd: the
+    # The main path: `frontend.extract` of the 120 s file at 12867 (odd: the
     # exact route) and at 44100 (hop n_fft / 2: the chunked route), against
     # the fft backend.
     launches = 0
-    for n_fft, hop, kind in ((12865, 6432, "exact"), (44100, 22050, "chunked")):
+    for n_fft, hop, kind in ((12867, 6433, "exact"), (44100, 22050, "chunked")):
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, backend="kernel")
         _reset_logmel_counts()
         got = frontend.extract(pcm, cfg, device=dev)
@@ -2369,12 +2480,12 @@ def phase_logmel_cluster(pcm: np.ndarray):
               f"at n_fft {n_fft} hop {hop}: {tuple(got.shape)}, launches {counts}, vs the fft "
               f"backend max|diff| {err:.3g}")
     print(f"[kernel A cluster] phase in {time.perf_counter() - t0:.1f} s")
-    main = timed[12865]
+    main = timed[12867]
     entry = {"name": "fused_logmel_cluster", "route": "cuda",
              "source": "sed_crnn_torch/csrc/logmel_cluster.cu", "replaces": TPU_LOGMEL_SITES,
              "max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                                             "bound_by", "library_ms")},
-             "shape": "n_fft 12865 hop 6432, 150 s padded",
+             "shape": "n_fft 12867 hop 6433, 150 s padded",
              "shapes": {f"{n}/{h}": timed[n] for n, h in CLUSTER_SHAPES},
              "ms_by_ctas": by_c}
     return entry, launches

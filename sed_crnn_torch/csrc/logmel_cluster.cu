@@ -11,8 +11,10 @@
 // the frame stride picks the source.
 //
 // The plan is the mixed body's (ops/kernels/fused_logmel.py `mixed_plan`):
-// the same radices, twiddle tables, Bluestein chirp and filter spectrum,
-// untangle and CSR mel order, and the same operations from
+// the same radices (register radices 2-13; a plan with a matrix stage is
+// refused: `mixed_plan` gives one only where it fits one block, else
+// Bluestein), twiddle tables, Bluestein chirp and filter spectrum, untangle
+// and lane order of the mel sums, and the same operations from
 // csrc/logmel_stages.cuh, so the result is bitwise `_mixed_plain`'s whatever
 // the cluster size C. One cluster of C CTAs owns one frame: CTA c holds
 // points [c chunk, (c + 1) chunk) of the N-point work array (chunk =
@@ -30,19 +32,23 @@
 // cluster-wide when the phase before it or after it reaches another CTA.
 // The power of a bin reads its spectrum points anywhere in the cluster; the
 // mel sum of a band runs on a warp of its own in the CTA that holds its
-// middle bin and reads its bins' power in bin order, mostly from that CTA's
-// shared memory; a last cluster barrier keeps every CTA's shared memory
-// alive until no partner reads it.
+// middle bin, lane l adding the band's bins l, l + 32, ... in bin order
+// (mostly from that CTA's shared memory) and a fixed shuffle tree combining
+// the lanes; a last cluster barrier keeps every CTA's shared memory alive
+// until no partner reads it.
 //
 // What bounds it on an H100: these sizes run O(N log N) operations a frame
 // against 4 * hop bytes of new waveform, and the mel product of 2 nnz, so
 // operations; Bluestein doubles the transform. The design keeps the frame on
 // chip (C x up to 227 KB of shared memory, one CTA a SM at the real sizes)
 // and pays for it with the distributed shared memory traffic and cluster
-// barriers of the stages that cross CTAs. At one-second windows the mel
-// sums, one serial chain of adds over up to 4,019 bins a band at n_fft
-// 44,100, take about half the time (sed_crnn_torch/tools/
-// logmel_cluster_phases.py splits it by phase). Every product and sum is an
+// barriers of the stages that cross CTAs. A band's mel sum, up to 4,019
+// bins at n_fft 44,100, was one serial chain of adds on one lane and took
+// about half the time at one-second windows; over 32 lanes it takes ~6 %
+// (sed_crnn_torch/tools/logmel_phases.py splits the time by phase). Radices
+// 11 and 13 run in the wide instantiation (512 threads a CTA at most, up to
+// 128 registers a thread), the others in the radix-7 one. Every product
+// and sum is an
 // explicitly rounded float32 operation (no FMA contraction) on tables
 // computed in float64 and rounded once on the host: bitwise the same from
 // run to run and at every C.
@@ -64,13 +70,13 @@ using logmel::MAX_STAGES;
 using logmel::Plan;
 
 constexpr int MAX_THREADS = 1024;
+constexpr int WIDE_THREADS = 512;       // the instantiation with radices 11 and 13
 constexpr int POINTS = 8;               // transform points a thread owns per stage
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a CTA
 constexpr int MAX_CLUSTER = 16;         // the non-portable cluster limit on Hopper
-constexpr int MEL_BATCH = 8;            // mel products issued ahead of their adds
 constexpr int NO_CLUSTER_FITS = -1;     // status: the card holds no cluster of this shape
 
-// Profiling cuts, for sed_crnn_torch/tools/logmel_cluster_phases.py only
+// Profiling cuts, for sed_crnn_torch/tools/logmel_phases.py only
 // (the results are then wrong): built with -DLOGMEL_CLUSTER_CUT=1 the body
 // leaves out the mel sums, with 2 also the bins' power, with 3 also the FFT
 // stages. 0, the default, cuts nothing.
@@ -111,7 +117,7 @@ __device__ __forceinline__ void phase_barrier(bool cross) {
 // One stage on either side of the split: a crossing stage's butterflies
 // evenly over the CTAs, on points anywhere in the cluster; any other
 // stage's own butterflies, on its own points.
-template <bool TRANSPOSED>
+template <bool TRANSPOSED, bool WIDE>
 __device__ __forceinline__ void split_stage(int radix, bool cross, Spread all,
                                             logmel::Shifted own, int N, int ls, int c, int C,
                                             int lo, int hi, int lt, int nt,
@@ -119,31 +125,15 @@ __device__ __forceinline__ void split_stage(int radix, bool cross, Spread all,
   const int nb = N / radix;
   if (cross) {
     const int per = (nb + C - 1) / C;
-    logmel::run_stage<TRANSPOSED>(radix, all, N, ls, min(nb, c * per), min(nb, (c + 1) * per),
-                                  lt, nt, tw);
+    logmel::run_stage<TRANSPOSED, WIDE>(radix, all, N, ls, min(nb, c * per),
+                                        min(nb, (c + 1) * per), lt, nt, tw);
   } else {
-    logmel::run_stage<TRANSPOSED>(radix, own, N, ls, lo / radix, hi / radix, lt, nt, tw);
+    logmel::run_stage<TRANSPOSED, WIDE>(radix, own, N, ls, lo / radix, hi / radix, lt, nt, tw);
   }
 }
 
-// acc + w[0] p[0] + ... + w[n-1] p[n-1], added in that order, the loads and
-// products issued MEL_BATCH at a time ahead of their adds.
-__device__ __forceinline__ float band_sum(float acc, const float* __restrict__ w, const float* p,
-                                          int n) {
-  int j = 0;
-  for (; j + MEL_BATCH <= n; j += MEL_BATCH) {
-    float prod[MEL_BATCH];
-#pragma unroll
-    for (int q = 0; q < MEL_BATCH; ++q) prod[q] = __fmul_rn(__ldg(w + j + q), p[j + q]);
-#pragma unroll
-    for (int q = 0; q < MEL_BATCH; ++q) acc = __fadd_rn(acc, prod[q]);
-  }
-  for (; j < n; ++j) acc = __fadd_rn(acc, __fmul_rn(__ldg(w + j), p[j]));
-  return acc;
-}
-
-template <bool BLUE>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <bool BLUE, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS)
 logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                       long long stride, int n_fft, Plan plan, Split split,
                       const float* __restrict__ window,   // (n_fft) Hann
@@ -185,7 +175,7 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
     phase_barrier(cross_before || cross);
     cross_before = cross;
     if (CUT < 3)
-      split_stage<false>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt, tw);
+      split_stage<false, WIDE>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt, tw);
     ls /= plan.radix[s];
   }
 
@@ -204,7 +194,8 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
       phase_barrier(cross_before || cross);
       cross_before = cross;
       if (CUT < 3)
-        split_stage<true>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt, tw);
+        split_stage<true, WIDE>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt,
+                                tw);
     }
   }
 
@@ -215,40 +206,39 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
   for (int k = k_lo + lt; k < k_hi; k += nt)
     pw[k - k_lo] = CUT < 2 ? logmel::power<BLUE>(all, k, L, even, pos, chirp, utw) : 0.0f;
 
-  // Sparse mel: band m on lane 0 of warp m % warps of the CTA that holds
-  // its middle bin, so that most of its bins are read from that CTA's own
-  // shared memory and no two of the widest bands share a warp (a band's
-  // sum is one chain of dependent adds over its bins, thousands at these
-  // sizes, and lanes of one warp with chains of other lengths would wait on
-  // each other); its bins in order across the CTAs that hold them; floor,
-  // log.
+  // Sparse mel: band m on warp m % warps of the CTA that holds its middle
+  // bin, so that most of its bins are read from that CTA's own shared
+  // memory; lane l adds the band's bins l, l + 32, ... in bin order, across
+  // the CTAs that hold them, and a fixed tree of shuffles combines the 32
+  // partials (`mel_tree_warp`, the mixed body's order); floor, log.
   cluster.sync();
-  const int warps = nt / 32;
-  for (int m = lt / 32; lt % 32 == 0 && m < n_mels; m += warps) {
+  const int warps = nt / 32, lane = lt % 32;
+  for (int m = lt / 32; m < n_mels; m += warps) {
     const int b = mel_ptr[m], e = mel_ptr[m + 1];
     if (min(C - 1, (mel_first[m] + (e - b) / 2) / bin_chunk) != c) continue;
     float acc = 0.0f;
-    for (int i = b, k = mel_first[m]; i < e;) {
+    for (int i = b, k = mel_first[m]; CUT < 1 && i < e;) {
       const int r = k / bin_chunk, off = k - r * bin_chunk;
       const int run_len = min(e - i, bin_chunk - off);
-      if (CUT < 1)
-        acc = r == c ? band_sum(acc, mel_w + i, pw + off, run_len)
-                     : band_sum(acc, mel_w + i, cluster.map_shared_rank(pw + off, r), run_len);
+      const float* q = r == c ? pw + off : cluster.map_shared_rank(pw + off, r);
+      acc = logmel::lane_sum(acc, mel_w + i, q, run_len, (lane - (i - b)) & 31);
       i += run_len;
       k += run_len;
     }
-    out[(size_t)t * n_mels + m] = logf(use_floor ? fmaxf(acc, floor_v) : acc);
+    acc = logmel::mel_tree_warp(acc);
+    if (lane == 0) out[(size_t)t * n_mels + m] = logf(use_floor ? fmaxf(acc, floor_v) : acc);
   }
   // No CTA leaves while a partner may still read its shared memory.
   cluster.sync();
 }
 
 // Threads a CTA: POINTS points of its chunk a thread, whole warps, at most
-// MAX_THREADS.
-int threads_per_cta(int chunk) {
+// MAX_THREADS (WIDE_THREADS for the wide instantiation).
+int threads_per_cta(int chunk, bool wide) {
   int t = (chunk + POINTS - 1) / POINTS;
   t = (t + 31) / 32 * 32;
-  return t > MAX_THREADS ? MAX_THREADS : t;
+  const int most = wide ? WIDE_THREADS : MAX_THREADS;
+  return t > most ? most : t;
 }
 
 size_t cta_smem(const Split& split) {
@@ -257,7 +247,7 @@ size_t cta_smem(const Split& split) {
 
 // Host side: the dynamic shared memory and non-portable cluster attributes
 // are set once per instantiation and device (bit d of `done`).
-template <bool BLUE>
+template <bool BLUE, bool WIDE>
 cudaError_t opt_in() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -265,10 +255,10 @@ cudaError_t opt_in() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     done.fetch_or(bit);
@@ -279,7 +269,7 @@ cudaError_t opt_in() {
 // A launch of `clusters` clusters of `ctas` CTAs of `threads` threads and
 // `smem` bytes, and how many such clusters the card holds at once (0: none,
 // the launch would be refused).
-template <bool BLUE>
+template <bool BLUE, bool WIDE>
 struct Launch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -298,26 +288,28 @@ struct Launch {
   }
 
   cudaError_t resident(int* clusters) {
-    cudaError_t err = opt_in<BLUE>();
+    cudaError_t err = opt_in<BLUE, WIDE>();
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE>, &cfg);
+    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE, WIDE>, &cfg);
   }
 };
 
 // The launch: grid C CTAs a frame, cluster dimension C, after asking the
 // card whether it holds one such cluster.
-template <bool BLUE>
+template <bool BLUE, bool WIDE>
 int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
            const Split& split, const float* window, const float2* tw, const int* pos,
            const float2* chirp, const float2* bspec, const float2* utw, const int* mel_first,
            const int* mel_ptr, const float* mel_w, int n_mels, int use_floor, float floor_v,
            float* out, cudaStream_t s) {
-  Launch<BLUE> l(n_frames, split.ctas, threads_per_cta(split.chunk), cta_smem(split), s);
+  Launch<BLUE, WIDE> l(n_frames, split.ctas, threads_per_cta(split.chunk, WIDE), cta_smem(split),
+                       s);
   int clusters = 0;
   cudaError_t err = l.resident(&clusters);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (clusters < 1) return NO_CLUSTER_FITS;
-  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE>, src, stride, n_fft, plan, split,
+  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE, WIDE>, src, stride, n_fft, plan,
+                           split,
                            window, tw, pos, chirp, bspec, utw, mel_first, mel_ptr, mel_w,
                            n_mels, use_floor, floor_v, out);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -345,7 +337,7 @@ int logmel_cluster_resident(int ctas, int threads, int smem) {
   if (ctas < 1 || ctas > MAX_CLUSTER || threads < 1 || threads > MAX_THREADS || smem < 0 ||
       smem > MAX_SMEM)
     return -static_cast<int>(cudaErrorInvalidValue);
-  Launch<true> l(1, ctas, threads, smem, nullptr);
+  Launch<true, false> l(1, ctas, threads, smem, nullptr);
   int clusters = 0;
   const cudaError_t err = l.resident(&clusters);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
@@ -378,15 +370,16 @@ int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, 
   plan.n_bins = n_fft / 2 + 1;
   plan.n_stages = n_stages;
   long long prod = 1;
+  bool wide = false;
   for (int s = 0; s < n_stages; ++s) {
     const int r = radices[s];
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (!logmel::register_radix(r, true)) return static_cast<int>(cudaErrorInvalidValue);
+    wide = wide || !logmel::register_radix(r, false);
     plan.radix[s] = r;
     prod *= r;
   }
   const bool direct_ok = !bluestein && n == plan.points && pos != nullptr;
-  const bool blue_ok = bluestein && n >= 2 * plan.points - 1 && chirp != nullptr &&
+  const bool blue_ok = bluestein && !wide && n >= 2 * plan.points - 1 && chirp != nullptr &&
                        bspec != nullptr;
   if (prod != n || !(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -406,10 +399,16 @@ int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, 
   const float2* bs2 = static_cast<const float2*>(bspec);
   const float2* ut2 = static_cast<const float2*>(utw);
   if (bluestein)
-    return launch<true>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2, bs2,
-                        ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v, out, s);
-  return launch<false>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2, bs2,
-                       ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v, out, s);
+    return launch<true, false>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2,
+                               bs2, ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v,
+                               out, s);
+  if (wide)
+    return launch<false, true>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2,
+                               bs2, ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v,
+                               out, s);
+  return launch<false, false>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2,
+                              bs2, ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v,
+                              out, s);
 }
 
 }  // extern "C"

@@ -19,38 +19,49 @@
 // n_fft is transformed as L = n_fft points with a zero imaginary part, bins
 // 0..(n_fft-1)/2 kept. The L-point DFT is either
 //
-// * direct, when L is 7-smooth: N = L, in-place decimation-in-frequency
-//   stages of radix 4, 2, 3, 5 and 7, which leave X_k at position pos[k]
-//   (a table from the host); or
-// * Bluestein, otherwise: the chirp w_n = e^{-i pi (n^2 mod 2L) / L}, a_n =
-//   z_n w_n zero-padded to N = M, the smallest 7-smooth length >= 2L - 1;
-//   the same DIF stages on a (output at permuted positions), a pointwise
-//   product with the filter spectrum B stored at those positions (1/M folded
-//   in on the host), the conjugate, and the transposed stages run in reverse
-//   order (twiddle, then butterfly), which take permuted input to natural
-//   output: the inverse FFT as conj(FFT(conj(.))); X_k = w_k conj(D_k).
+// * direct: N = L, in-place decimation-in-frequency stages of radix 4, 2,
+//   3, 5, 7, 11 and 13 in registers, then a matrix stage for each prime
+//   factor above 13 (up to 1,021), which leave X_k at position pos[k] (a
+//   table from the host); a matrix stage runs each butterfly's DFT as two
+//   real products on the tensor cores (`matrix_stage`, three TF32 mma a
+//   product: near float32's precision, not its bits) and writes out of
+//   place, into a second work array; or
+// * Bluestein, where a prime above 1,021 divides L or `plan_cost` finds it
+//   cheaper: the chirp w_n = e^{-i pi (n^2 mod 2L) / L}, a_n = z_n w_n
+//   zero-padded to N = M, the smallest 7-smooth length >= 2L - 1; the same
+//   DIF stages on a (output at permuted positions), a pointwise product with
+//   the filter spectrum B stored at those positions (1/M folded in on the
+//   host), the conjugate, and the transposed stages run in reverse order
+//   (twiddle, then butterfly), which take permuted input to natural output:
+//   the inverse FFT as conj(FFT(conj(.))); X_k = w_k conj(D_k).
 //
 // What bounds it on an H100: as for the power-of-two body, the least work
 // per frame is an FFT of n_fft points, the power and the sparse mel product,
 // against 4 * hop bytes of new waveform per frame: device-memory bytes at
 // the sizes users run (n_fft 400-3072). Bluestein costs two M-point FFTs a
-// frame (M ~ 2L), about 4x a direct transform. The design keeps every
-// intermediate on chip: a frame is read once (scalar loads at src[t *
-// stride + k], size_t index, the Hann window applied on load; a hop such as
-// 517 rules out wider loads), the transform runs in place in shared memory
-// (8 N bytes a frame) with each butterfly in registers, so a thread holds at
-// most 7 points whatever N is and a block needs no second buffer; a stage's
-// radix is uniform across the block, so its `switch` does not diverge. Then
-// |X_k|^2 goes to a power row in shared memory and one thread sums each
-// (frame, mel) cell over its band's contiguous bins in bin order, applies
-// the floor and logf and stores coalesced. A block owns its frames whole: no
-// partial sums, no atomics, no second pass. Every product and sum is an
-// explicitly rounded float32 operation (no FMA contraction), and the radix
-// constants, stage twiddles, chirp, B and untangle twiddles all come from
-// tables computed in float64 and rounded once to float32 on the host, so the
-// result is bitwise the same from run to run and `mixed_log_mel_plain`
-// repeats it. Shared memory: frames a block x (8 N + 4 (n_fft / 2 + 1))
-// bytes, at most 227 KB (232,448 bytes), opted in once per instantiation.
+// frame (M ~ 2L), about 4x a direct transform, which is why wide primes run
+// as matrix stages: an R-point DFT is O(R^2) work, too wide for registers
+// above 13, and as two (R + 1) / 2-square products it fits the tensor cores.
+// The design keeps every intermediate on chip: a frame is read once (scalar
+// loads at src[t * stride + k], size_t index, the Hann window applied on
+// load; a hop such as 517 rules out wider loads), the transform runs in
+// shared memory (8 N bytes a frame, twice with matrix stages) with each
+// register butterfly in registers; a stage's radix is uniform across the
+// block, so its `switch` does not diverge. Then |X_k|^2 goes to a power row
+// in shared memory and one warp sums each (frame, mel) cell, lane l over
+// the band's bins l, l + 32, ... in bin order, a fixed shuffle tree over the
+// lanes (the cluster body's order), applies the floor and logf. A block owns
+// its frames whole: no partial sums, no atomics, no second pass. Every
+// product and sum outside the matrix stages is an explicitly rounded float32
+// operation (no FMA contraction), and the radix constants, stage twiddles,
+// DFT matrices, chirp, B and untangle twiddles all come from tables
+// computed in float64 and rounded once on the host, so the result is
+// bitwise the same from run to run, and `mixed_log_mel_plain` repeats it
+// bitwise at plans without a matrix stage. Shared memory: frames a block x
+// (8 N (x2 with matrix stages) + 4 (n_fft / 2 + 1)) bytes, at most 227 KB
+// (232,448 bytes), opted in once per instantiation. Radices 11, 13 and the
+// matrix stages run in the wide instantiations (512 threads a frame at
+// most); the others keep the radix-7 kernel's code and registers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,36 +77,84 @@ using logmel::MAX_STAGES;
 using logmel::Plan;
 
 constexpr int MAX_THREADS = 1024;
+constexpr int WIDE_THREADS = 512;       // the instantiations with radices 11, 13 and matrix stages
 constexpr int MIN_THREADS = 256;        // frames a block grow to this many threads
 constexpr int POINTS = 8;               // transform points a thread owns per frame
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a block
 
-template <bool BLUE>
-__global__ void __launch_bounds__(MAX_THREADS)
+// Profiling cuts, for sed_crnn_torch/tools/logmel_phases.py only (the
+// results are then wrong): built with -DLOGMEL_MIXED_CUT=1 the body leaves
+// out the mel sums, with 2 also the bins' power, with 3 also the matrix
+// stages, with 4 also Bluestein's filter product and second transform, with
+// 5 also the register stages. 0, the default, cuts nothing.
+#ifndef LOGMEL_MIXED_CUT
+#define LOGMEL_MIXED_CUT 0
+#endif
+constexpr int CUT = LOGMEL_MIXED_CUT;
+
+// The mel sums of a block's frames, a group of G lanes a (frame, band)
+// (`group_band_sum`), its first lane storing the log.
+template <int G>
+__device__ __forceinline__ void mel_phase(const float* pall, int NB, int fpb, int n_frames,
+                                          int t0, const int* __restrict__ mel_first,
+                                          const int* __restrict__ mel_ptr,
+                                          const float* __restrict__ mel_w, int n_mels,
+                                          int use_floor, float floor_v, float* __restrict__ out) {
+  const int groups = blockDim.x / G, k = threadIdx.x % G;
+  // Whole warps loop together (the shuffles), past the last cell if need be.
+  const int cells = fpb * n_mels, rounds = (cells + groups - 1) / groups;
+  for (int r = 0; r < rounds; ++r) {
+    const int c = r * groups + threadIdx.x / G;
+    const int ff = c / n_mels, m = c - ff * n_mels;
+    const bool on = c < cells && t0 + ff < n_frames;
+    const int nbins = on && CUT < 1 ? mel_ptr[m + 1] - mel_ptr[m] : 0;
+    const float acc = logmel::group_band_sum<G>(mel_w + (on ? mel_ptr[m] : 0),
+                                                pall + (size_t)(on ? ff : 0) * NB +
+                                                    (on ? mel_first[m] : 0),
+                                                nbins, k);
+    if (on && k == 0)
+      out[(size_t)(t0 + ff) * n_mels + m] = logf(use_floor ? fmaxf(acc, floor_v) : acc);
+  }
+}
+
+// BLOCKS: the blocks an SM the wide instantiations are compiled for, 2 (at
+// most 64 registers a thread, a few spilled) where two blocks' shared
+// memory fits an SM, else 1 (up to 128): small frames gain more from the
+// occupancy than they lose to the spills, one frame a block only loses
+// (sed_crnn_torch/tools/logmel_phases.py times both, PERF.md §6).
+// -DLOGMEL_WIDE_BLOCKS=1 or 2 forces one, for that tool only.
+#ifndef LOGMEL_WIDE_BLOCKS
+#define LOGMEL_WIDE_BLOCKS 0
+#endif
+template <bool BLUE, bool WIDE, int BLOCKS>
+__global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS, BLOCKS)
 logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                     long long stride, int n_frames, int n_fft, Plan plan, int tpf, int fpb,
+                    int alt,                            // 1: a second work array (matrix stages)
                     const float* __restrict__ window,   // (n_fft) Hann
                     const float2* __restrict__ tw,      // (N) e^{-2 pi i m / N}
                     const int* __restrict__ pos,        // (L) direct: position of X_k
                     const float2* __restrict__ chirp,   // (L) Bluestein: w_n
                     const float2* __restrict__ bspec,   // (M) Bluestein: B / M at DIF positions
                     const float2* __restrict__ utw,     // (L + 1) even n_fft: e^{-2 pi i k / n_fft}
+                    const float* __restrict__ dft,      // matrix stages' B fragments
                     const int* __restrict__ mel_first,  // (n_mels) first bin of each band
                     const int* __restrict__ mel_ptr,    // (n_mels + 1) CSR row pointers
                     const float* __restrict__ mel_w,    // (nnz) weights in bin order
-                    int n_mels, int use_floor, float floor_v,
+                    int n_mels, int mel_group, int use_floor, float floor_v,
                     float* __restrict__ out) {          // (n_frames, n_mels)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = plan.n, L = plan.points, NB = plan.n_bins;
   float2* const zall = reinterpret_cast<float2*>(smem_raw);
-  float* const pall = reinterpret_cast<float*>(zall + (size_t)fpb * N);
+  float* const pall = reinterpret_cast<float*>(zall + (size_t)(1 + alt) * fpb * N);
   const bool even = (n_fft & 1) == 0;
 
   const int lt = threadIdx.x % tpf;     // thread within its frame
   const int f = threadIdx.x / tpf;      // frame within the block
   const int t0 = blockIdx.x * fpb;
   const bool live = t0 + f < n_frames;
-  float2* const z = zall + (size_t)f * N;
+  float2* z = zall + (size_t)f * N;                   // the current work array
+  float2* zb = zall + (size_t)(fpb + f) * N;          // the other (matrix stages' output)
 
   // Load: window, pack (even) or zero imaginary part (odd), chirp
   // (Bluestein), zeros past L. A frame past the end computes on zeros.
@@ -107,12 +166,24 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
 
   int ls = N;
   for (int s = 0; s < plan.n_stages; ++s) {
-    logmel::run_block_stage<false>(plan.radix[s], z, N, ls, lt, tpf, tw);
-    ls /= plan.radix[s];
+    const int r = plan.radix[s];
+    if constexpr (WIDE) {
+      if (r > logmel::MAX_REGISTER_RADIX) {
+        if (CUT < 3) logmel::matrix_stage(z, zb, N, r, ls, lt, tpf, dft + plan.table[s], tw);
+        float2* const t = z;
+        z = zb;
+        zb = t;
+      } else if (CUT < 5) {
+        logmel::run_block_stage<false, true>(r, z, N, ls, lt, tpf, tw);
+      }
+    } else if (CUT < 5) {
+      logmel::run_block_stage<false, false>(r, z, N, ls, lt, tpf, tw);
+    }
+    ls /= r;
     __syncthreads();
   }
 
-  if (BLUE) {
+  if (BLUE && CUT < 4) {
     // Pointwise product with the filter spectrum, conjugated, then the
     // transposed stages in reverse order: D = FFT(conj(A B)) in natural order.
     for (int p = lt; p < N; p += tpf) z[p] = logmel::cconj(logmel::cmul(z[p], __ldg(bspec + p)));
@@ -120,7 +191,7 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
     ls = 1;
     for (int s = plan.n_stages - 1; s >= 0; --s) {
       ls *= plan.radix[s];
-      logmel::run_block_stage<true>(plan.radix[s], z, N, ls, lt, tpf, tw);
+      logmel::run_block_stage<true, WIDE>(plan.radix[s], z, N, ls, lt, tpf, tw);
       __syncthreads();
     }
   }
@@ -129,62 +200,98 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
   // |Z_k|^2 (odd).
   float* const p = pall + (size_t)f * NB;
   for (int k = lt; k < NB; k += tpf)
-    p[k] = logmel::power<BLUE>(z, k, L, even, pos, chirp, utw);
+    p[k] = CUT < 2 ? logmel::power<BLUE>(z, k, L, even, pos, chirp, utw) : 0.0f;
   __syncthreads();
 
-  // Sparse mel: one thread per (frame, band), its bins in order; floor, log.
-  for (int c = threadIdx.x; c < fpb * n_mels; c += blockDim.x) {
-    const int ff = c / n_mels, m = c - ff * n_mels;
-    if (t0 + ff >= n_frames) break;
-    const float* pp = pall + (size_t)ff * NB + mel_first[m];
-    const int b = mel_ptr[m], e = mel_ptr[m + 1];
-    float acc = 0.0f;
-    for (int i = b; i < e; ++i) acc = __fadd_rn(acc, __fmul_rn(mel_w[i], pp[i - b]));
-    out[(size_t)(t0 + ff) * n_mels + m] = logf(use_floor ? fmaxf(acc, floor_v) : acc);
+  // Sparse mel: bin i of a band into partial i mod 32 in bin order, the
+  // partials combined by the cluster body's fixed tree; floor, log. A group
+  // of `mel_group` lanes (4, 8, 16 or 32; the host picks it from the bands'
+  // mean width) a (frame, band), 32 / mel_group partials a lane.
+  switch (mel_group) {
+    case 4:
+      mel_phase<4>(pall, NB, fpb, n_frames, t0, mel_first, mel_ptr, mel_w, n_mels, use_floor,
+                   floor_v, out);
+      break;
+    case 8:
+      mel_phase<8>(pall, NB, fpb, n_frames, t0, mel_first, mel_ptr, mel_w, n_mels, use_floor,
+                   floor_v, out);
+      break;
+    case 16:
+      mel_phase<16>(pall, NB, fpb, n_frames, t0, mel_first, mel_ptr, mel_w, n_mels, use_floor,
+                    floor_v, out);
+      break;
+    default:
+      mel_phase<32>(pall, NB, fpb, n_frames, t0, mel_first, mel_ptr, mel_w, n_mels, use_floor,
+                    floor_v, out);
   }
 }
 
 // Threads per frame: POINTS transform points a thread, whole warps, at most
-// MAX_THREADS; frames a block: up to MIN_THREADS threads, within MAX_SMEM.
-int threads_per_frame(int n) {
-  int t = (n + POINTS - 1) / POINTS;
+// MAX_THREADS (WIDE_THREADS for the wide instantiation). Frames a block: up
+// to MIN_THREADS threads, within MAX_SMEM.
+int threads_per_frame(const Plan& plan, bool wide) {
+  int t = (plan.n + POINTS - 1) / POINTS;
   t = (t + 31) / 32 * 32;
-  return t > MAX_THREADS ? MAX_THREADS : t;
+  const int most = wide ? WIDE_THREADS : MAX_THREADS;
+  return t > most ? most : t;
 }
 
-size_t frame_smem(const Plan& plan) {
-  return sizeof(float2) * (size_t)plan.n + sizeof(float) * (size_t)plan.n_bins;
+// A frame's shared memory: its work array (two with matrix stages, which
+// write out of place) and its power row.
+size_t frame_smem(const Plan& plan, bool matrix) {
+  return sizeof(float2) * (size_t)plan.n * (matrix ? 2 : 1) +
+         sizeof(float) * (size_t)plan.n_bins;
 }
+
+int frames_per_block(const Plan& plan, bool matrix, int tpf) {
+  int fpb = tpf >= MIN_THREADS ? 1 : MIN_THREADS / tpf;
+  while (fpb > 1 && fpb * frame_smem(plan, matrix) > (size_t)MAX_SMEM) --fpb;
+  return fpb;
+}
+
 
 // Host side: the dynamic shared memory attribute is set once per
 // instantiation and device (bit d of `done`), then the launch.
-template <bool BLUE>
-int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
-           const float* window, const float2* tw, const int* pos, const float2* chirp,
-           const float2* bspec, const float2* utw, const int* mel_first, const int* mel_ptr,
-           const float* mel_w, int n_mels, int use_floor, float floor_v, float* out,
-           cudaStream_t s) {
+template <bool BLUE, bool WIDE, int BLOCKS>
+int launch_as(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
+              bool matrix, const float* window, const float2* tw, const int* pos,
+              const float2* chirp, const float2* bspec, const float2* utw, const float* dft,
+              const int* mel_first, const int* mel_ptr, const float* mel_w, int n_mels,
+              int mel_group, int use_floor, float floor_v, float* out, cudaStream_t s) {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE>,
+    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE, WIDE, BLOCKS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     done.fetch_or(bit);
   }
-  const int tpf = threads_per_frame(plan.n);
-  const size_t per_frame = frame_smem(plan);
-  int fpb = tpf >= MIN_THREADS ? 1 : MIN_THREADS / tpf;
-  while (fpb > 1 && fpb * per_frame > (size_t)MAX_SMEM) --fpb;
-  const size_t smem = fpb * per_frame;
+  const int tpf = threads_per_frame(plan, WIDE);
+  const int fpb = frames_per_block(plan, matrix, tpf);
+  const size_t smem = fpb * frame_smem(plan, matrix);
   const int blocks = (n_frames + fpb - 1) / fpb;
-  logmel_mixed_kernel<BLUE><<<blocks, tpf * fpb, smem, s>>>(
-      src, stride, n_frames, n_fft, plan, tpf, fpb, window, tw, pos, chirp, bspec, utw,
-      mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v, out);
+  logmel_mixed_kernel<BLUE, WIDE, BLOCKS><<<blocks, tpf * fpb, smem, s>>>(
+      src, stride, n_frames, n_fft, plan, tpf, fpb, matrix ? 1 : 0, window, tw, pos, chirp,
+      bspec, utw, dft,
+      mel_first, mel_ptr, mel_w, n_mels, mel_group, use_floor, floor_v, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation by the blocks an SM holds (see BLOCKS): the wide ones
+// at 2 where two blocks' shared memory fits an SM.
+template <bool BLUE, bool WIDE, class... A>
+int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
+           bool matrix, A... rest) {
+  if constexpr (WIDE) {
+    const int fpb = frames_per_block(plan, matrix, threads_per_frame(plan, true));
+    const bool two = LOGMEL_WIDE_BLOCKS ? LOGMEL_WIDE_BLOCKS == 2
+                                        : 2 * fpb * frame_smem(plan, matrix) <= (size_t)MAX_SMEM;
+    if (two) return launch_as<BLUE, WIDE, 2>(src, stride, n_frames, n_fft, plan, matrix, rest...);
+  }
+  return launch_as<BLUE, WIDE, 1>(src, stride, n_frames, n_fft, plan, matrix, rest...);
 }
 
 }  // namespace
@@ -197,25 +304,34 @@ const char* logmel_mixed_error_string(int status) {
 
 int logmel_mixed_max_smem() { return MAX_SMEM; }
 int logmel_mixed_max_stages() { return MAX_STAGES; }
+// The most column tiles a matrix stage takes (`matrix_tiles`): the largest
+// odd radix whose B fragments (2 x tiles^2 x 512 bytes) stay within 4 MB.
+int logmel_mixed_matrix_tiles() { return 64; }
 
 // Frame t (t < n_frames) is the n_fft samples at src[t * stride]; the plan:
 // transform length n (L = n_fft / 2 for an even n_fft, n_fft for an odd one;
-// M >= 2L - 1 with bluestein), its DIF radices (each 2, 3, 4, 5 or 7, their
-// product n); window (n_fft); tw (n) complex float32 pairs; pos (L, int32,
-// direct only); chirp (L) and bspec (n) (Bluestein only); utw (L + 1, even
-// n_fft only); the mel filterbank as CSR rows of contiguous bins: band m
-// covers bins mel_first[m] .. mel_first[m] + mel_ptr[m + 1] - mel_ptr[m] - 1
-// with weights mel_w[mel_ptr[m] ..]; out (n_frames, n_mels). Returns a
+// M >= 2L - 1 with bluestein), its DIF radices (each 2, 3, 4, 5, 7, 11 or
+// 13, or, direct only, any odd radix from 15 whose matrix_tiles fit
+// logmel_mixed_matrix_tiles: a matrix stage; their product n); window
+// (n_fft); tw (n) complex float32 pairs; pos (L, int32, direct only); chirp
+// (L) and bspec (n) (Bluestein only); utw (L + 1, even n_fft only); dft
+// (matrix stages only: each one's matrix_table, in stage order); the mel
+// filterbank as CSR rows of contiguous bins: band m covers bins
+// mel_first[m] .. mel_first[m] + mel_ptr[m + 1] - mel_ptr[m] - 1 with
+// weights mel_w[mel_ptr[m] ..], each band summed by mel_group lanes (4, 8,
+// 16 or 32); out (n_frames, n_mels). Returns a
 // cudaError_t: cudaErrorInvalidValue for a plan it does not take (one frame
 // over 227 KB of shared memory included).
 int logmel_mixed(const float* src, long long stride, int n_frames, int n_fft, int n,
                  int n_stages, const int* radices, int bluestein, const float* window,
                  const void* tw, const int* pos, const void* chirp, const void* bspec,
-                 const void* utw, const int* mel_first, const int* mel_ptr, const float* mel_w,
-                 int n_mels, int use_floor, float floor_v, float* out, void* stream) {
+                 const void* utw, const float* dft, const int* mel_first, const int* mel_ptr,
+                 const float* mel_w, int n_mels, int mel_group, int use_floor, float floor_v,
+                 float* out, void* stream) {
   if (n_frames <= 0 || stride <= 0 || n_mels <= 0 || n_fft <= 0 || src == nullptr ||
       out == nullptr || window == nullptr || tw == nullptr || n_stages < 0 ||
-      n_stages > MAX_STAGES || (n_stages > 0 && radices == nullptr))
+      n_stages > MAX_STAGES || (n_stages > 0 && radices == nullptr) ||
+      (mel_group != 4 && mel_group != 8 && mel_group != 16 && mel_group != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan{};
   plan.n = n;
@@ -223,18 +339,30 @@ int logmel_mixed(const float* src, long long stride, int n_frames, int n_fft, in
   plan.n_bins = n_fft / 2 + 1;
   plan.n_stages = n_stages;
   long long prod = 1;
+  bool wide = false, matrix = false;
+  int table = 0;
   for (int s = 0; s < n_stages; ++s) {
     const int r = radices[s];
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7)
-      return static_cast<int>(cudaErrorInvalidValue);
     plan.radix[s] = r;
+    plan.table[s] = 0;
+    if (logmel::register_radix(r, true)) {
+      wide = wide || !logmel::register_radix(r, false);
+    } else if (r > logmel::MAX_REGISTER_RADIX && r % 2 == 1 &&
+               logmel::matrix_tiles(r) <= logmel_mixed_matrix_tiles()) {
+      wide = matrix = true;
+      plan.table[s] = table;
+      const int t = logmel::matrix_tiles(r);
+      table += t * t * 32 * 8;
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     prod *= r;
   }
   const bool direct_ok = !bluestein && n == plan.points && pos != nullptr;
-  const bool blue_ok = bluestein && n >= 2 * plan.points - 1 && chirp != nullptr &&
+  const bool blue_ok = bluestein && !wide && n >= 2 * plan.points - 1 && chirp != nullptr &&
                        bspec != nullptr;
   if (prod != n || !(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr) ||
-      frame_smem(plan) > (size_t)MAX_SMEM)
+      (matrix && dft == nullptr) || frame_smem(plan, matrix) > (size_t)MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* tw2 = static_cast<const float2*>(tw);
@@ -242,10 +370,16 @@ int logmel_mixed(const float* src, long long stride, int n_frames, int n_fft, in
   const float2* bs2 = static_cast<const float2*>(bspec);
   const float2* ut2 = static_cast<const float2*>(utw);
   if (bluestein)
-    return launch<true>(src, stride, n_frames, n_fft, plan, window, tw2, pos, ch2, bs2, ut2,
-                        mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v, out, s);
-  return launch<false>(src, stride, n_frames, n_fft, plan, window, tw2, pos, ch2, bs2, ut2,
-                       mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v, out, s);
+    return launch<true, false>(src, stride, n_frames, n_fft, plan, false, window, tw2, pos, ch2,
+                               bs2, ut2, dft, mel_first, mel_ptr, mel_w, n_mels, mel_group,
+                               use_floor, floor_v, out, s);
+  if (wide)
+    return launch<false, true>(src, stride, n_frames, n_fft, plan, matrix, window, tw2, pos, ch2,
+                               bs2, ut2, dft, mel_first, mel_ptr, mel_w, n_mels, mel_group,
+                               use_floor, floor_v, out, s);
+  return launch<false, false>(src, stride, n_frames, n_fft, plan, false, window, tw2, pos, ch2,
+                              bs2, ut2, dft, mel_first, mel_ptr, mel_w, n_mels, mel_group,
+                              use_floor, floor_v, out, s);
 }
 
 }  // extern "C"

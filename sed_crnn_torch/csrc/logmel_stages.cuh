@@ -2,8 +2,10 @@
 // csrc/logmel_mixed.cu and csrc/logmel_cluster.cu): complex float32
 // arithmetic in which every product and sum is an explicitly rounded
 // operation (no FMA contraction), the R-point butterflies, one in-place
-// decimation-in-frequency (or transposed) stage of the mixed-radix FFT, the
-// real-to-complex untangle's bin power and the spectrum lookup.
+// decimation-in-frequency (or transposed) stage of the mixed-radix FFT in
+// registers, the matrix stage of a wide radix on the tensor cores (the
+// mixed body's), the real-to-complex untangle's bin power, the spectrum
+// lookup and the mel sums' tree over 32 partials.
 //
 // A stage of the cluster body reaches its work array through an accessor,
 // `z[p]` for point p: its own share (`Shifted`) or the whole cluster's
@@ -16,10 +18,13 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace logmel {
 
 constexpr int MAX_STAGES = 16;
+constexpr int MAX_REGISTER_RADIX = 13;  // radices above run as matrix stages (mixed body)
+constexpr int MEL_LANES = 32;           // a band's partial sums
 
 struct Plan {
   int n;                  // transform length N: L (direct) or M (Bluestein)
@@ -27,7 +32,18 @@ struct Plan {
   int n_bins;             // n_fft / 2 + 1
   int n_stages;
   int radix[MAX_STAGES];  // DIF order; their product is N
+  int table[MAX_STAGES];  // matrix stage s: its B fragments at dft + table[s] (floats)
 };
+
+// A register radix of the wide instantiations (2, 3, 4, 5, 7, 11, 13), or
+// of the others (to 7).
+__host__ __device__ constexpr bool register_radix(int r, bool wide) {
+  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || (wide && (r == 11 || r == 13));
+}
+
+// The 8-wide tiles of a matrix stage's products each way: (R + 1) / 2 rows
+// and columns (r, s = 0 .. (R - 1) / 2), padded to the mma depth of 8.
+__host__ __device__ constexpr int matrix_tiles(int r) { return (r + 16) / 16; }
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
@@ -173,7 +189,10 @@ __device__ __forceinline__ void block_stage(float2* z, int N, int ls, int lt, in
   }
 }
 
-template <bool TRANSPOSED>
+// The register stage of `radix`: 2, 3, 4, 5, 7, and with WIDE also 11 and
+// 13 (the instantiations that take them, with fewer threads and more
+// registers a thread; the others keep the code they had before).
+template <bool TRANSPOSED, bool WIDE>
 __device__ __forceinline__ void run_block_stage(int radix, float2* z, int N, int ls, int lt,
                                                 int nt, const float2* __restrict__ tw) {
   switch (radix) {
@@ -181,11 +200,23 @@ __device__ __forceinline__ void run_block_stage(int radix, float2* z, int N, int
     case 3: block_stage<3, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
     case 4: block_stage<4, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
     case 5: block_stage<5, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
-    default: block_stage<7, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
+    default:
+      if constexpr (WIDE) {
+        if (radix == 11) {
+          block_stage<11, TRANSPOSED>(z, N, ls, lt, nt, tw);
+          break;
+        }
+        if (radix == 13) {
+          block_stage<13, TRANSPOSED>(z, N, ls, lt, nt, tw);
+          break;
+        }
+      }
+      block_stage<7, TRANSPOSED>(z, N, ls, lt, nt, tw);
+      break;
   }
 }
 
-template <bool TRANSPOSED, class Z>
+template <bool TRANSPOSED, bool WIDE, class Z>
 __device__ __forceinline__ void run_stage(int radix, Z z, int N, int ls, int b0, int b1,
                                           int lt, int nt, const float2* __restrict__ tw) {
   switch (radix) {
@@ -193,8 +224,169 @@ __device__ __forceinline__ void run_stage(int radix, Z z, int N, int ls, int b0,
     case 3: stage<3, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw); break;
     case 4: stage<4, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw); break;
     case 5: stage<5, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw); break;
-    default: stage<7, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw); break;
+    default:
+      if constexpr (WIDE) {
+        if (radix == 11) {
+          stage<11, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw);
+          break;
+        }
+        if (radix == 13) {
+          stage<13, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw);
+          break;
+        }
+      }
+      stage<7, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw);
+      break;
   }
+}
+
+// The TF32 rounding of x (to nearest, ties away from zero), as bits.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d += a b: one m16n8k8 TF32 product on the tensor cores, float32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One radix-R DIF stage as matrix products on the tensor cores (odd R, in
+// practice the primes above 13), from the N-point array z of this frame's
+// nt threads (whole warps, lt = 0 .. nt-1) into zo. Butterfly b (sub-
+// transform g = b / m, offset j = b % m, m = ls / R) has points v_r =
+// z[g ls + j + r m]; with H = (R - 1) / 2, a_r = v_r + v_{R-r} and b_r = v_r
+// - v_{R-r} (r = 1 .. H), its outputs are V_0 = v_0 + sum a_r = P_0, V_s =
+// P_s - i Q_s and V_{R-s} = P_s + i Q_s (s = 1 .. H), where P_s = v_0 +
+// sum_r cos(2 pi r s / R) a_r and Q_s = sum_r sin(2 pi r s / R) b_r: two
+// real (H + 1) x (H + 1) products, the real and imaginary parts as rows.
+// A row tile is 8 butterflies (rows 0-7 their real parts, 8-15 their
+// imaginary parts), so that a lane's accumulators hold P_s and Q_s of one
+// butterfly, real and imaginary, and combine in registers. The matrices
+// come from the host (`matrix_table` in ops/kernels/fused_logmel.py: cos
+// and sin, rows r, columns s, zero-padded to T = matrix_tiles(R) tiles of 8,
+// in mma.m16n8k8 B-fragment order, each value as TF32 hi and lo parts).
+// Each product runs as three TF32 mma, a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// the a = a_hi + a_lo split here: about float32's precision, not its bits.
+// Then the DIF twiddles (not at m = 1), written to the same positions of zo.
+//
+// Work: a warp's job is a row tile and two column tiles (one where T is
+// odd, at the last), the cos and sin fragments of its row built once a k
+// tile for both; jobs are independent, since the stage reads z and writes
+// zo, so a warp holds only its job's accumulators.
+__device__ __forceinline__ void split_tf32(const float (&a)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = to_tf32(a[e]);
+    lo[e] = to_tf32(__fsub_rn(a[e], __uint_as_float(hi[e])));
+  }
+}
+
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&hi)[4],
+                                           const uint32_t (&lo)[4], float4 b) {
+  mma_tf32(d, lo, __float_as_uint(b.x), __float_as_uint(b.y));
+  mma_tf32(d, hi, __float_as_uint(b.z), __float_as_uint(b.w));
+  mma_tf32(d, hi, __float_as_uint(b.x), __float_as_uint(b.y));
+}
+
+__device__ __forceinline__ void matrix_stage(const float2* z, float2* zo, int N, int R, int ls,
+                                             int lt, int nt, const float* __restrict__ table,
+                                             const float2* __restrict__ tw) {
+  const int m = ls / R, step = N / ls, nb = N / R, H = (R - 1) / 2;
+  const int T = matrix_tiles(R), pairs = (T + 1) / 2, jobs = (nb + 7) / 8 * pairs;
+  const int lane = lt % 32, gid = lane >> 2, tig = lane & 3;
+  const float4* frag = reinterpret_cast<const float4*>(table);
+  for (int job = lt / 32; job < jobs; job += nt / 32) {
+    const int mi = job / pairs, n0 = 2 * (job - mi * pairs);
+    const bool two = n0 + 1 < T;
+    const int b = 8 * mi + gid, g = b / m;
+    const int base = b < nb ? g * ls + b - g * m : -1;   // g ls + j, -1 past the last
+    float p[2][4], q[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[0][e] = p[1][e] = q[0][e] = q[1][e] = 0.0f;
+    for (int kt = 0; kt < T; ++kt) {
+      // A fragments: (row gid, r0), (row gid + 8, r0), (row gid, r1), (row
+      // gid + 8, r1): rows gid and gid + 8 are this butterfly's real and
+      // imaginary parts; column r of the cos product is a_r (v_0 at r = 0),
+      // of the sin product b_r (0 at r = 0).
+      float2 sa[2], sb[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 8 * kt + tig + 4 * h;
+        sa[h] = sb[h] = make_float2(0.0f, 0.0f);
+        if (base >= 0 && r <= H) {
+          const float2 v = z[base + r * m];
+          if (r == 0) {
+            sa[h] = v;
+          } else {
+            const float2 w = z[base + (R - r) * m];
+            sa[h] = cadd(v, w);
+            sb[h] = csub(v, w);
+          }
+        }
+      }
+      const float fa[4] = {sa[0].x, sa[0].y, sa[1].x, sa[1].y};
+      const float fb[4] = {sb[0].x, sb[0].y, sb[1].x, sb[1].y};
+      uint32_t ahi[4], alo[4], bhi[4], blo[4];
+      split_tf32(fa, ahi, alo);
+      split_tf32(fb, bhi, blo);
+      const float4* f = frag + 2 * ((kt * T + n0) * 32 + lane);
+      mma_tf32x3(p[0], ahi, alo, __ldg(f));
+      mma_tf32x3(q[0], bhi, blo, __ldg(f + 1));
+      if (two) {
+        mma_tf32x3(p[1], ahi, alo, __ldg(f + 64));
+        mma_tf32x3(q[1], bhi, blo, __ldg(f + 65));
+      }
+    }
+    if (base < 0) continue;
+    const int j = base % ls;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        // Column 2 tig + c of tile n0 + t: P_s in p[t][c] (real) and
+        // p[t][c + 2] (imaginary), Q_s likewise.
+        const int s = 8 * (n0 + t) + 2 * tig + c;
+        if (s > H || (t == 1 && !two)) continue;
+        const float pr = p[t][c], pi = p[t][c + 2], qr = q[t][c], qi = q[t][c + 2];
+        if (s == 0) {
+          zo[base] = make_float2(pr, pi);
+          continue;
+        }
+        float2 lo_s = make_float2(__fadd_rn(pr, qi), __fsub_rn(pi, qr));
+        float2 hi_s = make_float2(__fsub_rn(pr, qi), __fadd_rn(pi, qr));
+        if (m > 1) {
+          lo_s = cmul(lo_s, __ldg(tw + j * s * step));
+          hi_s = cmul(hi_s, __ldg(tw + j * (R - s) * step));
+        }
+        zo[base + s * m] = lo_s;
+        zo[base + (R - s) * m] = hi_s;
+      }
+    }
+  }
+}
+
+// One lane's share of a run of a band's bins: acc + w[t] p[t] + w[t + 32]
+// p[t + 32] + ... (t < n), added in that order, the loads and products
+// issued MEL_BATCH at a time ahead of their adds.
+constexpr int MEL_BATCH = 4;
+__device__ __forceinline__ float lane_sum(float acc, const float* __restrict__ w, const float* p,
+                                          int n, int t) {
+  for (; t + 32 * (MEL_BATCH - 1) < n; t += 32 * MEL_BATCH) {
+    float prod[MEL_BATCH];
+#pragma unroll
+    for (int k = 0; k < MEL_BATCH; ++k) prod[k] = __fmul_rn(__ldg(w + t + 32 * k), p[t + 32 * k]);
+#pragma unroll
+    for (int k = 0; k < MEL_BATCH; ++k) acc = __fadd_rn(acc, prod[k]);
+  }
+  for (; t < n; t += 32) acc = __fadd_rn(acc, __fmul_rn(__ldg(w + t), p[t]));
+  return acc;
 }
 
 // |X_k|^2 from Z_k = a and Z_{L-k} = b of the packed FFT, with
@@ -233,6 +425,46 @@ __device__ __forceinline__ float power(Z z, int k, int L, bool even,
   }
   const float2 a = spectrum<BLUE>(z, k, pos, chirp);
   return __fadd_rn(__fmul_rn(a.x, a.x), __fmul_rn(a.y, a.y));
+}
+
+// A band's 32 partial sums, lane l's (its bins l, l + 32, ... in order) in
+// `acc`, combined by a fixed tree over the lanes of a warp: at each step s =
+// 16, 8, 4, 2, 1 lane l adds lane l ^ s's, which for l < s is l + s; every
+// lane ends with the sum (an addition's operands commute bitwise).
+__device__ __forceinline__ float mel_tree_warp(float acc) {
+#pragma unroll
+  for (int s = MEL_LANES / 2; s > 0; s /= 2)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, s));
+  return acc;
+}
+
+// A band's sum in the same order on a group of G lanes (G = 1, 2, 4, 8, 16
+// or 32, the group aligned to G lanes of its warp): lane k of the group
+// holds the partials k, k + G, ... (32 / G of them), each over the bins l,
+// l + 32, ... in bin order, and the tree's steps s >= G run in the lane,
+// the others as shuffles within the group. Bitwise `mel_tree_warp`
+// (lane_sum).
+template <int G>
+__device__ __forceinline__ float group_band_sum(const float* __restrict__ w, const float* p,
+                                                int n, int k) {
+  constexpr int P = MEL_LANES / G;
+  float acc[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) acc[q] = 0.0f;
+  for (int i = k; i < n; i += MEL_LANES) {
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      if (i + q * G < n) acc[q] = __fadd_rn(acc[q], __fmul_rn(__ldg(w + i + q * G), p[i + q * G]));
+  }
+#pragma unroll
+  for (int s = MEL_LANES / 2; s >= G; s /= 2) {
+#pragma unroll
+    for (int q = 0; q < s / G; ++q) acc[q] = __fadd_rn(acc[q], acc[q + s / G]);
+  }
+  float sum = acc[0];
+#pragma unroll
+  for (int s = G / 2; s > 0; s /= 2) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, s));
+  return sum;
 }
 
 // The windowed input point n of a frame fr (n < N): the packed pair (even

@@ -14,11 +14,15 @@ whatever the route:
   `fft_log_mel_plain` repeats its arithmetic operation by operation;
 * ``"mixed"`` (``csrc/logmel_mixed.cu``), every other ``n_fft`` whose plan
   (`mixed_plan`) fits in a block's shared memory: the same packing (or, at
-  an odd ``n_fft``, the real frame as ``n_fft`` complex points), an
-  in-place mixed-radix FFT (radix 4, 2, 3, 5, 7) when the transform length
-  L is 7-smooth, else Bluestein's chirp convolution through two such FFTs
-  of a 7-smooth length M >= 2L - 1, then the same power, CSR mel, floor,
-  log. `mixed_log_mel_plain` repeats its arithmetic operation by operation;
+  an odd ``n_fft``, the real frame as ``n_fft`` complex points), a
+  mixed-radix FFT of the transform length L (register radices 4, 2, 3, 5,
+  7, 11, 13 in place, then a matrix stage on the tensor cores for each
+  prime factor above 13 up to ``MATRIX_MAX``), or Bluestein's chirp
+  convolution through two FFTs of a 7-smooth length M >= 2L - 1 where a
+  larger prime divides L or `plan_cost` finds it cheaper, then the same
+  power, mel (a warp a band), floor, log. `mixed_log_mel_plain` repeats its
+  arithmetic operation by operation (a matrix stage as one float64 product,
+  which the kernel's TF32 products approximate);
 * ``"cluster"`` (``csrc/logmel_cluster.cu``), every n_fft beyond that limit:
   the mixed body's plan and operations with one frame split over a
   thread-block cluster of `cluster_size` CTAs, each holding its share of the
@@ -53,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -70,6 +74,21 @@ FFT_LOG_N = (8, 14)   # csrc/logmel_fft.cu: n_fft 256 .. 16384
 MIXED_MAX_SMEM = 232448           # csrc/logmel_mixed.cu MAX_SMEM: 227 KB a block
 MIXED_MAX_STAGES = 16             # csrc/logmel_stages.cuh MAX_STAGES
 CLUSTER_MAX = 16                  # csrc/logmel_cluster.cu MAX_CLUSTER: CTAs a cluster
+REGISTER_RADICES = (2, 3, 4, 5, 7, 11, 13)   # csrc/logmel_stages.cuh `butterfly<R>`
+MEL_LANES = 32                    # a band's partial sums: the lanes of a warp
+MEL_BINS_PER_LANE = 16            # `mel_group`: a band's mean bins a lane, to widen the group
+# csrc/logmel_mixed.cu `logmel_mixed_matrix_tiles`: the most column tiles a
+# matrix stage takes (`matrix_tiles`; B fragments of at most 4 MB), so every
+# odd R up to 1,023.
+MATRIX_TILES = 64
+MATRIX_MAX = 1021                 # the largest prime a matrix stage takes
+# `plan_cost`'s weights, ns a frame on one SM, and the cluster body's cost
+# against the mixed body's for the same register stages: the least-squares
+# fits that `python3 -m sed_crnn_torch.tools.logmel_phases` prints from the
+# bodies' transform times on an H100 (PERF.md §6).
+COST_REGISTER = 0.268
+COST_MATRIX = 27.4
+COST_CLUSTER = 1.43
 
 # Serving threads call the wrappers concurrently: the operand cache and the
 # launch counters are read-modify-write.
@@ -161,12 +180,69 @@ def _next_smooth(n: int) -> int:
     return best
 
 
+def _prime_factors(n: int) -> Tuple[int, ...]:
+    """The prime factors of ``n`` >= 1 with multiplicity, ascending."""
+    out, p = [], 2
+    while p * p <= n:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 1 if p == 2 else 2
+    return tuple(out + [n] if n > 1 else out)
+
+
+def matrix_tiles(radix: int) -> int:
+    """The 8-wide tiles of a matrix stage's two products, each way: (R + 1)
+    / 2 rows r and columns s (0 .. (R - 1) / 2), padded to the ``mma``
+    depth of 8."""
+    return -(-(radix + 1) // 16)
+
+
+def _direct_radices(n: int) -> Optional[Tuple[int, ...]]:
+    """The DIF radices of a direct transform of ``n`` points: radix 4 for
+    each pair of 2s, one radix 2 for an odd one out, the other register
+    radices ascending, then each prime above them as a matrix stage,
+    ascending; None when a prime above ``MATRIX_MAX`` divides ``n``."""
+    primes = _prime_factors(n)
+    if any(p > MATRIX_MAX for p in primes):
+        return None
+    fours, twos = divmod(primes.count(2), 2)
+    return (4,) * fours + (2,) * twos + tuple(p for p in primes if p != 2)
+
+
+def plan_counts(n: int, radices: Tuple[int, ...], bluestein: bool) -> Tuple[int, int]:
+    """A plan's work a frame as `plan_cost` weighs it: register-stage points
+    (both transforms with Bluestein, and its filter product as one more
+    stage), and matrix tile steps (ceil(N / R / 8) row tiles x
+    `matrix_tiles` (R)^2 a stage, each six ``mma`` and the gather of their
+    operands)."""
+    reg = sum(n for r in radices if r in REGISTER_RADICES)
+    mat = sum(-(-(n // r) // 8) * matrix_tiles(r) ** 2 for r in radices
+              if r not in REGISTER_RADICES)
+    return (2 * reg + n, 2 * mat) if bluestein else (reg, mat)
+
+
+def plan_cost(n: int, radices: Tuple[int, ...], bluestein: bool,
+              cluster: bool = False) -> float:
+    """The cost model `mixed_plan` picks by, in nanoseconds a frame on one
+    SM: ``COST_REGISTER`` a register-stage point and ``COST_MATRIX`` a
+    matrix tile step (`plan_counts`), times ``COST_CLUSTER`` for a plan the
+    cluster body runs (its stages cross CTAs through distributed shared
+    memory and cluster barriers). Fitted to the bodies' transform times on
+    an H100 (12 plans at 7 sizes on the mixed body, within about 30 % of
+    each; 5 sizes on the cluster body), it orders every pair of plans timed
+    there as the card does."""
+    reg, mat = plan_counts(n, radices, bluestein)
+    return (COST_REGISTER * reg + COST_MATRIX * mat) * (COST_CLUSTER if cluster else 1.0)
+
+
 class MixedPlan(NamedTuple):
     """How ``csrc/logmel_mixed.cu`` transforms a frame of ``n_fft`` samples:
     ``points`` complex points L (``n_fft / 2`` packed, or ``n_fft`` at an odd
     n_fft), a transform of length ``n`` (L direct, or Bluestein's M) by DIF
-    stages of ``radices``, and the shared memory one frame takes (the work
-    array and the power row)."""
+    stages of ``radices`` (those above 13 are matrix stages), and the shared
+    memory one frame takes (the work array, twice with matrix stages, and
+    the power row)."""
 
     n_fft: int
     points: int
@@ -175,21 +251,55 @@ class MixedPlan(NamedTuple):
     bluestein: bool
     smem_bytes: int
 
+    @property
+    def matrix(self) -> Tuple[int, ...]:
+        """The radices run as matrix stages, in stage order."""
+        return tuple(r for r in self.radices if r not in REGISTER_RADICES)
+
+
+def _make_plan(n_fft: int, points: int, radices: Tuple[int, ...], bluestein: bool) -> MixedPlan:
+    """A plan and its shared memory a frame: the work array (two where a
+    matrix stage writes out of place) and the power row."""
+    n = int(np.prod(radices, dtype=np.int64))
+    arrays = 2 if any(r not in REGISTER_RADICES for r in radices) else 1
+    return MixedPlan(n_fft, points, n, radices, bluestein, 8 * arrays * n + 4 * (n_fft // 2 + 1))
+
 
 @lru_cache(maxsize=None)
-def mixed_plan(n_fft: int) -> MixedPlan:
-    """The mixed body's plan at ``n_fft`` >= 1: direct when L is 7-smooth,
-    else Bluestein at M, the smallest 7-smooth length >= 2L - 1."""
+def mixed_plan(n_fft: int, bluestein: Optional[bool] = None) -> MixedPlan:
+    """The plan of the mixed and cluster bodies at ``n_fft`` >= 1.
+
+    L points (n_fft / 2 at an even n_fft, n_fft at an odd one) run either
+    direct, N = L, by `_direct_radices` (register radices 2, 3, 4, 5, 7,
+    11, 13, then matrix stages for the primes above 13 up to
+    ``MATRIX_MAX``), or by Bluestein at M, the smallest 7-smooth length >=
+    2L - 1 (register radices only). ``bluestein`` None picks the cheaper
+    by `plan_cost` (on the body each would run on); a direct plan with a
+    matrix stage that does not fit one block's shared memory
+    (``MIXED_MAX_SMEM``) takes Bluestein instead, since the cluster body
+    has no matrix stage. True or False forces the
+    one or the other (ValueError where L has no direct plan)."""
     if n_fft < 1:
         raise ValueError(f"n_fft must be positive, got {n_fft}")
     points = n_fft if n_fft % 2 else n_fft // 2
-    radices = _smooth_radices(points)
-    n = points
-    if radices is None:
-        n = _next_smooth(2 * points - 1)
-        radices = _smooth_radices(n)
-    return MixedPlan(n_fft, points, n, radices, n != points,
-                     8 * n + 4 * (n_fft // 2 + 1))
+    direct = _direct_radices(points)
+    blue = _make_plan(n_fft, points, _smooth_radices(_next_smooth(2 * points - 1)), True)
+    if bluestein:
+        return blue
+    if direct is None:
+        if bluestein is False:
+            raise ValueError(f"n_fft {n_fft}: L = {points} has a prime factor above "
+                             f"{MATRIX_MAX}, so no direct plan")
+        return blue
+    plan = _make_plan(n_fft, points, direct, False)
+    if bluestein is False:
+        return plan
+    if plan.matrix and plan.smem_bytes > MIXED_MAX_SMEM:
+        return blue
+    if plan_cost(plan.n, plan.radices, False, plan.smem_bytes > MIXED_MAX_SMEM) <= plan_cost(
+            blue.n, blue.radices, True, blue.smem_bytes > MIXED_MAX_SMEM):
+        return plan
+    return blue
 
 
 class ClusterSplit(NamedTuple):
@@ -206,12 +316,12 @@ class ClusterSplit(NamedTuple):
     cross: Tuple[bool, ...]
 
 
-def cluster_split(n_fft: int, ctas: int) -> ClusterSplit:
-    """`mixed_plan(n_fft)` split over ``ctas`` CTAs: the split
+def cluster_split(n_fft: int, ctas: int, bluestein: Optional[bool] = None) -> ClusterSplit:
+    """`mixed_plan` (n_fft, ``bluestein``) split over ``ctas`` CTAs: the split
     `_launch_cluster` hands the kernel, whose launcher refuses one that
     does not cover the frame, does not fit or keeps a stage inside the CTAs
     whose sub-transforms do not divide the chunk."""
-    plan = mixed_plan(n_fft)
+    plan = mixed_plan(n_fft, bluestein)
     chunk, bins = -(-plan.n // ctas), -(-(n_fft // 2 + 1) // ctas)
     cross, ls = [], plan.n
     for r in plan.radices:
@@ -221,18 +331,18 @@ def cluster_split(n_fft: int, ctas: int) -> ClusterSplit:
 
 
 @lru_cache(maxsize=None)
-def cluster_size(n_fft: int) -> int:
+def cluster_size(n_fft: int, bluestein: Optional[bool] = None) -> int:
     """C, the CTAs a frame of the cluster body: the smallest C from 2 to
     ``CLUSTER_MAX`` whose share of the plan fits in ``MIXED_MAX_SMEM``
     (measured the fastest on an H100 at six of seven sizes, PERF.md §6).
     Raises ValueError beyond the body's limit, a plan that
     ``CLUSTER_MAX`` CTAs do not hold. The bits do not depend on C."""
     for c in range(2, CLUSTER_MAX + 1):
-        if cluster_split(n_fft, c).smem_bytes <= MIXED_MAX_SMEM:
+        if cluster_split(n_fft, c, bluestein).smem_bytes <= MIXED_MAX_SMEM:
             return c
     raise ValueError(
         f"n_fft {n_fft} is beyond the cluster body's limit: its plan takes "
-        f"{mixed_plan(n_fft).smem_bytes:,} bytes of shared memory a frame, more than "
+        f"{mixed_plan(n_fft, bluestein).smem_bytes:,} bytes of shared memory a frame, more than "
         f"{CLUSTER_MAX} CTAs of {MIXED_MAX_SMEM:,} bytes hold")
 
 
@@ -240,17 +350,24 @@ def body(n_fft: int) -> str:
     """Which CUDA body computes a launch at ``n_fft`` >= 1: ``"fft"`` for a
     power of two from 256 to 16384; ``"mixed"`` for any other n_fft whose
     `mixed_plan` takes at most ``MIXED_MAX_SMEM`` bytes of shared memory a
-    frame (8 M or 8 L bytes of work array and 4 (n_fft / 2 + 1) of power
-    row): every n_fft up to 12,864 (12,865 is odd with L 12,865 and M
-    25,920: 233,092 bytes), every even one up to 23,040 (23,042: L 11,521,
-    M 23,328), and above those the sizes whose plan fits, direct up to L =
-    21,875 (an odd n_fft; the largest even n_fft is 38,416, L = 19,208) and
-    Bluestein up to M = 25,725; ``"cluster"`` for the rest, the same plan
-    split over `cluster_size` CTAs. The cluster body's limit is a plan whose
+    frame (8 N bytes of work array, twice with matrix stages, and 4 (n_fft /
+    2 + 1) of power row): every n_fft up to 12,866 (12,865 = 5 x 31 x 83
+    direct with matrix stages, 231,572 bytes; 12,867 = 3 x 4289 is odd
+    Bluestein at M 25,920: 233,096 bytes), every even one up to 23,052
+    (23,042: L 41 x 281 direct, 230,424 bytes; 23,054: L 11,527 prime,
+    Bluestein at M 23,328), and above those the sizes whose plan fits:
+    direct with register radices up to L = 22,869 (an odd n_fft, 3^3 x 7 x
+    11^2; the largest even n_fft is 38,720, L = 19,360), with matrix stages
+    up to n_fft 23,244 (L 2 x 3 x 13 x 149, 232,444 bytes), and Bluestein
+    up to M = 25,725; ``"cluster"`` for the rest, the same plan split over `cluster_size`
+    CTAs (never a matrix stage: a direct plan with one that does not fit
+    one block takes Bluestein). The cluster body's limit is a plan whose
     share in ``CLUSTER_MAX`` (16) CTAs fits in 227 KB each: every n_fft
     below 206,209 (odd: Bluestein at M = 413,343, 3,719,164 bytes), and
     above it the sizes whose plan fits (to 617,400, an even n_fft whose half
-    is 7-smooth); beyond it a launch raises ValueError (`cluster_size`)."""
+    is 7-smooth); beyond it a launch raises ValueError (`cluster_size`). No
+    n_fft that ran before matrix stages is refused: every plan is the old
+    plan or a smaller one on a body that takes it."""
     lo, hi = FFT_LOG_N
     if n_fft & (n_fft - 1) == 0 and 1 << lo <= n_fft <= 1 << hi:
         return "fft"
@@ -274,6 +391,20 @@ def mel_csr(sr: int, n_fft: int, n_mels: int, fmin: float, fmax):
         first[m], ptr[m + 1] = lo, ptr[m] + hi - lo
         rows.append(row[lo:hi])
     return first, ptr, np.concatenate(rows).astype(np.float32)
+
+
+def mel_group(ptr: np.ndarray) -> int:
+    """The lanes that sum one band in the mixed body (`group_band_sum` in
+    ``csrc/logmel_stages.cuh``, the same order at any width): 4, doubled to
+    at most 32 while the bands' mean width is at least MEL_BINS_PER_LANE
+    bins a lane. Measured on an H100 against every width from 1 to 32 at
+    n_fft 400 (16 kHz) to 23,042: the best within 2 % at each (PERF.md §6);
+    below 4 lanes the in-lane tree's 32 / G - 1 adds cost more."""
+    width = (int(ptr[-1]) - int(ptr[0])) / max(1, len(ptr) - 1)
+    g = 4
+    while g < MEL_LANES and width >= MEL_BINS_PER_LANE * g:
+        g *= 2
+    return g
 
 
 def _unit_roots(count: int, n: int) -> np.ndarray:
@@ -342,15 +473,62 @@ def bluestein_filter(points: int, radices) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
-    """The mixed body's operands, each computed in float64 and rounded once
-    to float32: the Hann window, the stage twiddles of the N-point transform
-    (``tw[m] = exp(-2 pi i m / N)``, ``(N, 2)``, the odd radices' constants
-    among them), at an even n_fft the untangle twiddles (``utw[k] =
-    exp(-2 pi i k / n_fft)``, ``(L + 1, 2)``); direct: the positions of X_k
-    (``pos``, int32); Bluestein: the chirp (``(L, 2)``) and the filter
-    spectrum (``bspec``, ``(M, 2)``); the mel filterbank as CSR rows."""
-    plan = mixed_plan(n_fft)
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero: what ``cvt.rna.tf32.f32`` does on the card."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def pair_matrices(radix: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The two real matrices of an odd R-point DFT in pair form, float64,
+    rows r and columns s from 0 to H = (R - 1) / 2, zero-padded to 8
+    `matrix_tiles` each way: cos[r, s] = cos(2 pi r s / R), and sin[r, s] =
+    sin(2 pi r s / R) but 0 at r = 0 or s = 0. With a_0 = v_0, a_r = v_r +
+    v_{R-r}, b_r = v_r - v_{R-r} and P = a cos, Q = b sin: X_0 = P_0, X_s =
+    P_s - i Q_s and X_{R-s} = P_s + i Q_s. The angles reduce r s mod R
+    exactly."""
+    kp = 8 * matrix_tiles(radix)
+    h = (radix - 1) // 2
+    r = np.arange(h + 1)
+    ang = 2.0 * np.pi * (np.outer(r, r) % radix) / radix
+    cos, sin = np.zeros((kp, kp)), np.zeros((kp, kp))
+    cos[: h + 1, : h + 1] = np.cos(ang)
+    sin[1 : h + 1, 1 : h + 1] = np.sin(ang[1:, 1:])
+    return cos, sin
+
+
+def matrix_table(radix: int) -> np.ndarray:
+    """`pair_matrices` (radix) as the ``mma.m16n8k8`` TF32 B fragments of
+    ``matrix_stage``, each value split in two TF32 parts, hi its TF32
+    rounding and lo that of the float64 rest: for each k tile kt and n tile
+    nt, lane 4 g + t holds (hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n])
+    of cos and then of sin, at k = 8 kt + t, n = 8 nt + g. ``(tiles^2 x 32 x
+    8,)`` float32."""
+    t = matrix_tiles(radix)
+    lane = np.arange(32)
+    k = 8 * np.arange(t)[:, None, None] + (lane % 4)[None, None, :]
+    n = 8 * np.arange(t)[None, :, None] + (lane // 4)[None, None, :]
+    parts = []
+    for g in pair_matrices(radix):
+        hi = _tf32(g.astype(np.float32))
+        lo = _tf32((g - hi.astype(np.float64)).astype(np.float32))
+        parts += [hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n]]
+    return np.stack(parts, axis=-1).reshape(-1)
+
+
+def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax,
+                   bluestein: Optional[bool] = None) -> dict:
+    """The mixed body's operands for `mixed_plan` (n_fft, ``bluestein``),
+    each computed in float64 and rounded once to float32: the Hann window,
+    the stage twiddles of the N-point transform (``tw[m] = exp(-2 pi i m /
+    N)``, ``(N, 2)``, the register radices' constants among them), at an
+    even n_fft the untangle twiddles (``utw[k] = exp(-2 pi i k / n_fft)``,
+    ``(L + 1, 2)``); direct: the positions of X_k (``pos``, int32) and, with
+    matrix stages, their `matrix_table` s in stage order (``dft``);
+    Bluestein: the chirp (``(L, 2)``) and the filter spectrum (``bspec``,
+    ``(M, 2)``); the mel filterbank as CSR rows."""
+    plan = mixed_plan(n_fft, bluestein)
     first, ptr, weights = mel_csr(sr, n_fft, n_mels, fmin, fmax)
     ops = {"window": hann_window(n_fft, np.float64).astype(np.float32),
            "tw": _unit_roots(plan.n, plan.n), "mel_first": first, "mel_ptr": ptr, "mel_w": weights}
@@ -361,11 +539,17 @@ def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
         ops["bspec"] = bluestein_filter(plan.points, plan.radices)
     else:
         ops["pos"] = dif_positions(plan.radices).astype(np.int32)
+    if plan.matrix:
+        ops["dft"] = np.concatenate([matrix_table(r) for r in plan.matrix])
+    ops["mel_group"] = mel_group(ptr)
     return ops
 
 
 _OPERANDS = {"dif": dif_operands, "exact": exact_operands, "fft": fft_operands,
-             "mixed": mixed_operands}
+             "mixed": mixed_operands,
+             "mixed-bluestein": partial(mixed_operands, bluestein=True),
+             "mixed-direct": partial(mixed_operands, bluestein=False)}
+_MIXED_KINDS = {None: "mixed", True: "mixed-bluestein", False: "mixed-direct"}
 
 
 @lru_cache(maxsize=16)
@@ -455,8 +639,9 @@ def _untangle(a, b, utw):
 
 
 def _csr_mel(power: torch.Tensor, ops: dict, n_mels: int) -> torch.Tensor:
-    """The FFT bodies' mel sums: (frames, bins) power against the CSR rows,
-    each band's bins added in bin order (bin i of every band at once)."""
+    """The FFT body's mel sums: (frames, bins) power against the CSR rows,
+    each band's bins added in bin order (bin i of every band at once). The
+    mixed and cluster bodies add in `_lane_mel`'s order."""
     first, ptr, mel_w = ops["mel_first"].long(), ops["mel_ptr"].long(), ops["mel_w"]
     count = ptr[1:] - ptr[:-1]
     acc = torch.zeros((power.shape[0], n_mels), dtype=torch.float32, device=power.device)
@@ -465,6 +650,31 @@ def _csr_mel(power: torch.Tensor, ops: dict, n_mels: int) -> torch.Tensor:
         w = torch.where(live, mel_w[torch.clamp(ptr[:-1] + i, max=mel_w.numel() - 1)], 0.0)
         acc = acc + w * power[:, torch.clamp(first + i, max=power.shape[1] - 1)]
     return acc
+
+
+def _lane_mel(power: torch.Tensor, ops: dict, n_mels: int) -> torch.Tensor:
+    """The mixed and cluster bodies' mel sums: (frames, bins) power against
+    the CSR rows, bin i of a band (counted from its first bin) added into
+    partial i mod 32 in bin order (lane i mod 32 of the band's warp in the
+    cluster body, register i mod 32 of one thread in the mixed body), then
+    the 32 partials combined by the fixed ``__shfl_xor_sync`` tree: at each
+    step s = 16, 8, 4, 2, 1, p_l + p_{l + s} for l < s."""
+    first, ptr, mel_w = ops["mel_first"].long(), ops["mel_ptr"].long(), ops["mel_w"]
+    count = ptr[1:] - ptr[:-1]
+    lanes = torch.arange(MEL_LANES, device=power.device)
+    acc = torch.zeros((power.shape[0], n_mels, MEL_LANES), dtype=torch.float32,
+                      device=power.device)
+    for base in range(0, int(count.max()), MEL_LANES):
+        i = base + lanes
+        live = i[None, :] < count[:, None]
+        w = torch.where(live, mel_w[torch.clamp(ptr[:-1, None] + i, max=mel_w.numel() - 1)], 0.0)
+        p = power[:, torch.clamp(first[:, None] + i, max=power.shape[1] - 1)]
+        acc = torch.where(live, acc + w * p, acc)
+    s = MEL_LANES // 2
+    while s:
+        acc = acc[..., :s] + acc[..., s:2 * s]
+        s //= 2
+    return acc[..., 0]
 
 
 def _butterfly(vr, vi):
@@ -584,14 +794,42 @@ def _mixed_stage(re, im, radix: int, ls: int, tw_r, tw_i, transposed: bool):
     return re, im
 
 
+def _matrix_stage(re, im, radix: int, ls: int, tw_r, tw_i):
+    """``matrix_stage`` of ``csrc/logmel_stages.cuh`` on sub-transforms of
+    length ``ls``, with `_mixed_stage`'s butterflies and points: each
+    butterfly's R-point DFT as one product with the exact DFT matrix in
+    float64, rounded once to float32, then the DIF twiddles in float32 as
+    `_mixed_stage` applies them. The kernel's three TF32 tensor-core
+    products approximate that product (within a stated tolerance, not
+    bitwise)."""
+    n = re.shape[1]
+    m = ls // radix
+    b = torch.arange(n // radix, device=re.device)
+    j = b % m
+    r = torch.arange(radix, device=re.device)
+    idx = ((b - j) * radix + j)[:, None] + m * r[None, :]
+    x = torch.complex(re[:, idx].double(), im[:, idx].double())
+    ang = 2.0 * np.pi * (np.outer(np.arange(radix), np.arange(radix)) % radix) / radix
+    v = x @ torch.from_numpy(np.exp(-1j * ang)).to(re.device)
+    vr, vi = v.real.float(), v.imag.float()
+    if m > 1:
+        t = j[:, None] * r[None, 1:] * (n // ls)
+        wr, wi = _cmul(vr[..., 1:], vi[..., 1:], tw_r[t], tw_i[t])
+        vr, vi = torch.cat([vr[..., :1], wr], -1), torch.cat([vi[..., :1], wi], -1)
+    re, im = torch.empty_like(re), torch.empty_like(im)
+    re[:, idx], im[:, idx] = vr, vi
+    return re, im
+
+
 def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-                 cfg: FrontendConfig) -> torch.Tensor:
+                 cfg: FrontendConfig, bluestein: Optional[bool] = None) -> torch.Tensor:
     """The mixed body's arithmetic stage by stage in float32 PyTorch ops,
-    frames read from the flat ``src`` at ``t * stride``: the same plan,
-    tables and order, each product and sum rounded where the kernel rounds
-    it (the kernel contracts nothing into an FMA)."""
-    plan = mixed_plan(n_fft)
-    ops = _operands(cfg, n_fft, "mixed", src.device)
+    frames read from the flat ``src`` at ``t * stride``: the same plan
+    (`mixed_plan` (n_fft, ``bluestein``)), tables and order, each product
+    and sum rounded where the kernel rounds it (the kernel contracts nothing
+    into an FMA); a matrix stage by `_matrix_stage`."""
+    plan = mixed_plan(n_fft, bluestein)
+    ops = _operands(cfg, n_fft, _MIXED_KINDS[bluestein], src.device)
     big, pts = plan.n, plan.points
     x = src.as_strided((n_frames, n_fft), (stride, 1), src.storage_offset()) * ops["window"]
     if n_fft % 2 == 0:
@@ -606,7 +844,10 @@ def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
         re, im = torch.cat([re, zeros], dim=1), torch.cat([im, zeros], dim=1)
     ls = big
     for radix in plan.radices:
-        re, im = _mixed_stage(re, im, radix, ls, tw_r, tw_i, False)
+        if radix in REGISTER_RADICES:
+            re, im = _mixed_stage(re, im, radix, ls, tw_r, tw_i, False)
+        else:
+            re, im = _matrix_stage(re, im, radix, ls, tw_r, tw_i)
         ls //= radix
     if plan.bluestein:
         re, im = _cmul(re, im, ops["bspec"][:, 0], ops["bspec"][:, 1])
@@ -628,24 +869,26 @@ def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     else:
         z_r, z_i = spectrum(k)
         power = z_r * z_r + z_i * z_i
-    return _finish(_csr_mel(power, ops, cfg.n_mels), cfg.log_floor)
+    return _finish(_lane_mel(power, ops, cfg.n_mels), cfg.log_floor)
 
 
-def mixed_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+def mixed_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig,
+                        bluestein: Optional[bool] = None) -> torch.Tensor:
     """A 1-D waveform (frames at stride hop on the centre-padded waveform) or
     an ``(n_frames, n_fft)`` frame matrix -> ``(n_frames, n_mels)`` log mel
     energies by the mixed body's arithmetic (`_mixed_plain`), at an n_fft
     that `body` sends to ``"mixed"`` or ``"cluster"`` (the same plan and
-    operations, split over a cluster)."""
+    operations, split over a cluster); ``bluestein`` forces a plan as
+    `mixed_plan` does."""
     n_fft = y.shape[1] if y.ndim == 2 else cfg.n_fft
     if body(n_fft) not in ("mixed", "cluster"):
         raise ValueError(f"the mixed and cluster bodies do not take n_fft {n_fft} "
                          f"(body {body(n_fft)!r})")
     if y.ndim == 2:
         src, n_frames, n_fft, _ = _frame_matrix(y.to(torch.float32), "dif")
-        return _mixed_plain(src, n_fft, n_frames, n_fft, cfg)
+        return _mixed_plain(src, n_fft, n_frames, n_fft, cfg, bluestein)
     src, n_frames = frame_source(y.to(torch.float32), cfg)
-    return _mixed_plain(src, cfg.hop_length, n_frames, cfg.n_fft, cfg)
+    return _mixed_plain(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, bluestein)
 
 
 def fused_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig, mode: str = "dif") -> torch.Tensor:
@@ -680,17 +923,19 @@ def _mixed_lib() -> ctypes.CDLL:
     lib = _build.load("logmel_mixed")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.logmel_mixed.argtypes = ([p, ctypes.c_longlong, i, i, i, i, ctypes.POINTER(i), i]
-                                 + [p] * 9 + [i, i, ctypes.c_float, p, p])
+                                 + [p] * 10 + [i, i, i, ctypes.c_float, p, p])
     lib.logmel_mixed.restype = i
     for name in ("logmel_mixed_max_smem", "logmel_mixed_max_stages"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.logmel_mixed_error_string.argtypes = [i]
     lib.logmel_mixed_error_string.restype = ctypes.c_char_p
-    if (lib.logmel_mixed_max_smem(), lib.logmel_mixed_max_stages()) != (MIXED_MAX_SMEM,
-                                                                        MIXED_MAX_STAGES):
+    lib.logmel_mixed_matrix_tiles.argtypes = []
+    lib.logmel_mixed_matrix_tiles.restype = i
+    if (lib.logmel_mixed_max_smem(), lib.logmel_mixed_max_stages(),
+            lib.logmel_mixed_matrix_tiles()) != (MIXED_MAX_SMEM, MIXED_MAX_STAGES, MATRIX_TILES):
         raise RuntimeError("csrc/logmel_mixed.cu limits differ from MIXED_MAX_SMEM / "
-                           "MIXED_MAX_STAGES")
+                           "MIXED_MAX_STAGES / MATRIX_TILES")
     return lib
 
 
@@ -777,27 +1022,34 @@ def _launch_fft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     return out
 
 
-def _mixed_args(plan: MixedPlan, ops: dict) -> tuple:
+_MIXED_TABLES = ("window", "tw", "pos", "chirp", "bspec", "utw", "mel_first", "mel_ptr", "mel_w")
+
+
+def _mixed_args(plan: MixedPlan, ops: dict, tables=_MIXED_TABLES) -> tuple:
     """The plan and tables as `logmel_mixed` and `logmel_cluster` take them,
     after the frame source: n_fft, N, stages, radices, Bluestein, and the
     table pointers (None where the plan has no such table)."""
     radices = (ctypes.c_int * max(1, len(plan.radices)))(*plan.radices)
     return (plan.n_fft, plan.n, len(plan.radices), radices, int(plan.bluestein),
-            tuple(ops[k].data_ptr() if k in ops else None
-                  for k in ("window", "tw", "pos", "chirp", "bspec", "utw", "mel_first",
-                            "mel_ptr", "mel_w")))
+            tuple(ops[k].data_ptr() if k in ops else None for k in tables))
 
 
 def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-                  cfg: FrontendConfig) -> torch.Tensor:
-    """The mixed body by `mixed_plan`; raises with the launcher's error where
-    the plan is refused."""
-    *plan, tables = _mixed_args(mixed_plan(n_fft), _operands(cfg, n_fft, "mixed", src.device))
+                  cfg: FrontendConfig, bluestein: Optional[bool] = None,
+                  group: Optional[int] = None) -> torch.Tensor:
+    """The mixed body by `mixed_plan` (n_fft, ``bluestein``), a band's mel
+    sum on ``group`` lanes (`mel_group` by default; 4, 8, 16 or 32 give the
+    same bits); raises with the launcher's error where the plan is
+    refused."""
+    ops = _operands(cfg, n_fft, _MIXED_KINDS[bluestein], src.device)
+    *plan, tables = _mixed_args(mixed_plan(n_fft, bluestein), ops,
+                                _MIXED_TABLES[:6] + ("dft",) + _MIXED_TABLES[6:])
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
     lib = _mixed_lib()
     with torch.cuda.device(src.device):
         status = lib.logmel_mixed(
-            src.data_ptr(), stride, n_frames, *plan, *tables, cfg.n_mels, *_floor(cfg),
+            src.data_ptr(), stride, n_frames, *plan, *tables, cfg.n_mels,
+            ops["mel_group"] if group is None else group, *_floor(cfg),
             out.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream,
         )
     if status != 0:
@@ -809,14 +1061,24 @@ def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
 
 
 def _launch_cluster(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-                    cfg: FrontendConfig, ctas: Optional[int] = None) -> torch.Tensor:
-    """The cluster body by `mixed_plan`, one frame a cluster of ``ctas``
-    CTAs (`cluster_size` by default; any 1 .. ``CLUSTER_MAX`` whose share
-    fits gives the same bits); raises ValueError beyond the body's limit and
-    the launcher's error where it or the card refuses the split."""
-    sp = cluster_split(n_fft, cluster_size(n_fft) if ctas is None else ctas)
+                    cfg: FrontendConfig, ctas: Optional[int] = None,
+                    bluestein: Optional[bool] = None) -> torch.Tensor:
+    """The cluster body by `mixed_plan` (n_fft, ``bluestein``), one frame a
+    cluster of ``ctas`` CTAs (`cluster_size` by default; any 1 ..
+    ``CLUSTER_MAX`` whose share fits gives the same bits); raises ValueError
+    for a plan with a matrix stage (the body has none; `mixed_plan` never
+    sends it one) and beyond the body's limit, and the launcher's error
+    where it or the card refuses the split."""
+    plan = mixed_plan(n_fft, bluestein)
+    if plan.matrix:
+        raise ValueError(f"the cluster body has no matrix stage: n_fft {n_fft}'s plan "
+                         f"{plan.radices} runs radices {plan.matrix} as matrix stages "
+                         f"(the mixed body's)")
+    sp = cluster_split(n_fft, cluster_size(n_fft, bluestein) if ctas is None else ctas,
+                       bluestein)
     cross = sum(1 << s for s, c in enumerate(sp.cross) if c)
-    *plan, tables = _mixed_args(mixed_plan(n_fft), _operands(cfg, n_fft, "mixed", src.device))
+    *plan, tables = _mixed_args(plan, _operands(cfg, n_fft, _MIXED_KINDS[bluestein],
+                                                src.device))
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
     lib = _cluster_lib()
     with torch.cuda.device(src.device):

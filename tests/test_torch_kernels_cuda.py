@@ -39,6 +39,7 @@ from sed_crnn_torch.ops.kernels.fused_logmel import (
     fused_log_mel_frames_plain,
     fused_log_mel_plain,
     mixed_log_mel_plain,
+    mixed_plan,
     route,
 )
 from sed_crnn_torch.ops.mel import mel_filterbank
@@ -487,7 +488,8 @@ def test_fft_kernel_matches_fft_plain_and_is_deterministic(cuda, kw, center, log
 
 @pytest.mark.parametrize("n_fft,hop,other", [
     (32768, 8192, "mixed"), (1000, 500, "mixed"), (3072, 1024, "mixed"),
-    (12865, 6432, "cluster"), (23042, 11521, "cluster"),
+    (12865, 6432, "mixed"), (23042, 11521, "mixed"), (12867, 6433, "cluster"),
+    (23044, 11522, "mixed"), (23054, 11527, "cluster"),
 ])
 def test_other_sizes_launch_the_dft_body(cuda, n_fft, hop, other):
     """Above 16384 or not a power of two: the mixed body up to its
@@ -521,18 +523,34 @@ def test_both_bodies_agree_at_a_power_of_two(cuda):
     _assert_logmel_close(fft, mixed)
 
 
-# The mixed body's shapes: chip_smoke.py's four (Bluestein 1034, direct
-# 1764 and 3072, odd Bluestein 1001), 25 ms at 16 kHz, an odd direct plan
-# (1575), a Bluestein 2050, and the largest plans (n_fft 32768 direct,
-# 1,024 threads a frame; 22000 Bluestein at M 22,050, 220 KB of shared
-# memory).
+# The mixed body's shapes: chip_smoke.py's (1034: 11 and a matrix stage of
+# 47; direct 1764 and 3072; 1001: 7, 11, 13), 25 ms at 16 kHz, an odd direct
+# plan (1575), 2050 (5, 5 and a matrix stage of 41), the largest plans (n_fft
+# 32768 direct, 1,024 threads a frame; 22000 direct with radix 11, 132 KB of
+# shared memory), matrix stages of 19 and 29 (1102), of 31 and 83 (12865)
+# and a Bluestein plan (2206, L 1103 prime).
 MIXED_SHAPES = [
     dict(n_fft=1034, hop_length=517), dict(n_fft=1764, hop_length=882),
     dict(n_fft=3072, hop_length=1024), dict(n_fft=1001, hop_length=500),
     dict(sample_rate=16000, n_fft=400, hop_length=160), dict(n_fft=1575, hop_length=700),
     dict(n_fft=2050, hop_length=1024), dict(n_fft=32768, hop_length=8192),
-    dict(n_fft=22000, hop_length=11000),
+    dict(n_fft=22000, hop_length=11000), dict(n_fft=1102, hop_length=551),
+    dict(n_fft=12865, hop_length=6432), dict(n_fft=2206, hop_length=1103),
 ]
+# A plan with matrix stages against `mixed_log_mel_plain` (chip_smoke.py's
+# MATRIX_ATOL): three TF32 products are not float32's bits.
+MATRIX_ATOL = 1e-4
+
+
+def _assert_plain(got, plain, n_fft):
+    """Bitwise the plain version, or within MATRIX_ATOL with matrix stages
+    and the same -inf entries."""
+    if not mixed_plan(n_fft).matrix:
+        assert torch.equal(got, plain)
+        return
+    fin = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], plain[~fin])
+    torch.testing.assert_close(got[fin], plain[fin], rtol=0, atol=MATRIX_ATOL)
 
 
 @pytest.mark.parametrize("kw", MIXED_SHAPES)
@@ -540,9 +558,11 @@ MIXED_SHAPES = [
                                       (True, 1500)])
 @pytest.mark.parametrize("log_floor", [None, 1e-10])
 def test_mixed_kernel_matches_its_plain_version_bitwise(cuda, kw, center, n, log_floor):
-    """The mixed body against `mixed_log_mel_plain` bit for bit, twice, one
-    mixed launch per call and no cluster launch, and within 5e-4 of the DIF /
-    direct plain version; a silent stretch gives the same -inf rows."""
+    """The mixed body against `mixed_log_mel_plain` bit for bit (within
+    MATRIX_ATOL with matrix stages), twice bitwise equal, one mixed launch
+    per call and no cluster launch, and within 5e-4 of the DIF / direct
+    plain version (torch's FFT + mel above n_fft 4096); a silent stretch
+    gives the same -inf rows."""
     cfg = FrontendConfig(center=center, log_floor=log_floor, **kw)
     sr = cfg.sample_rate
     y = torch.from_numpy(_signal(n, sr, 7, silent=(sr // 2, sr) if n > sr else None)).to(cuda)
@@ -553,8 +573,11 @@ def test_mixed_kernel_matches_its_plain_version_bitwise(cuda, kw, center, n, log
     torch.cuda.synchronize()
     assert (_counts()[3] - before[3], _counts()[4] - before[4]) == (2, 0)
     assert torch.equal(first, second)
-    assert torch.equal(first, mixed_log_mel_plain(y, cfg))
-    _assert_logmel_close(first, fused_log_mel_plain(y, cfg))
+    _assert_plain(first, mixed_log_mel_plain(y, cfg), cfg.n_fft)
+    if cfg.n_fft <= 4096:
+        _assert_logmel_close(first, fused_log_mel_plain(y, cfg))
+    else:
+        _assert_logmel_close(first, _fft_log_mel64(y, cfg))
 
 
 @pytest.mark.parametrize("kw", MIXED_SHAPES[:4])
@@ -569,18 +592,18 @@ def test_mixed_kernel_on_a_frame_matrix(cuda, kw):
     torch.cuda.synchronize()
     assert _counts()[3] == before[3] + 1
     assert torch.equal(got, fused_log_mel(y, cfg))
-    assert torch.equal(got, mixed_log_mel_plain(frames, cfg))
+    _assert_plain(got, mixed_log_mel_plain(frames, cfg), cfg.n_fft)
     _assert_logmel_close(got, fused_log_mel_frames_plain(frames, cfg))
 
 
 def test_mixed_launcher_refuses_a_plan_over_the_limit(cuda):
     """A plan whose frame takes more than 227 KB of shared memory is refused
     by the launcher, which raises its error: nothing falls back."""
-    cfg = FrontendConfig(n_fft=12865, hop_length=6432, center=False)
-    y = torch.zeros(4 * 12865, device=cuda)
+    cfg = FrontendConfig(n_fft=12867, hop_length=6433, center=False)
+    y = torch.zeros(4 * 12867, device=cuda)
     before = _counts()
     with pytest.raises(RuntimeError, match="logmel_mixed launch failed"):
-        _launch_mixed(y, 6432, 2, 12865, cfg)
+        _launch_mixed(y, 6433, 2, 12867, cfg)
     assert _counts() == before
 
 
@@ -605,9 +628,10 @@ def _fft_log_mel64(y, cfg):
 
 # The cluster body's sizes (n_fft, hop): the first odd and even sizes beyond
 # the mixed body's limit (Bluestein), 1 s at 44.1 and 48 kHz (direct, C = 2),
-# 2 s at 44.1 kHz (C = 3) and a power of two (C = 4).
-CLUSTER_SHAPES = [(12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000),
-                  (88200, 44100), (131072, 32768)]
+# 2 s at 44.1 kHz (C = 3), a power of two (C = 4) and a direct plan with
+# radix 11 (44000, L 22000).
+CLUSTER_SHAPES = [(12867, 6433), (23054, 11527), (44100, 22050), (48000, 24000),
+                  (88200, 44100), (131072, 32768), (44000, 22000)]
 
 
 @pytest.mark.parametrize("n_fft,hop", CLUSTER_SHAPES)
@@ -632,9 +656,10 @@ def test_cluster_kernel_matches_its_plain_version_bitwise(cuda, n_fft, hop, cent
     assert bool(torch.isinf(first).any()) == (log_floor is None)
 
 
-@pytest.mark.parametrize("n_fft,hop,ctas", [(12865, 6432, (2, 3, 4, 5, 8, 16)),
+@pytest.mark.parametrize("n_fft,hop,ctas", [(12867, 6433, (2, 3, 4, 5, 8, 16)),
                                             (44100, 22050, (2, 3, 4, 7, 9)),
-                                            (88200, 44100, (3, 4, 6, 12))])
+                                            (88200, 44100, (3, 4, 6, 12)),
+                                            (44000, 22000, (2, 3, 5))])
 def test_cluster_kernel_bits_do_not_depend_on_the_cluster_size(cuda, n_fft, hop, ctas):
     """The same frames split over every cluster size tried give the same
     bits as the default split: the stages that cross CTAs change (at 44100
@@ -653,20 +678,28 @@ def test_cluster_kernel_forced_small_is_the_mixed_body(cuda, kw, ctas):
     """The mixed body's shapes forced onto the cluster body, one frame split
     over 1 to 8 CTAs (3 and 8 do not divide every transform length, so
     nearly every stage crosses CTAs there): bitwise the mixed body's and
-    the plain version's."""
+    the plain version's. A plan with a matrix stage (1034) is refused, and
+    its Bluestein plan runs instead."""
     cfg = FrontendConfig(center=False, log_floor=None, **kw)
     y = torch.from_numpy(_signal(2 * 44100, 44100, 11, silent=(20000, 30000))).to(cuda)
     src, n_frames = frame_source(y, cfg)
-    got = _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas)
-    assert torch.equal(got, _launch_mixed(src, cfg.hop_length, n_frames, cfg.n_fft, cfg))
-    assert torch.equal(got, mixed_log_mel_plain(y, cfg))
+    forced = None
+    if mixed_plan(cfg.n_fft).matrix:
+        with pytest.raises(ValueError, match="no matrix stage"):
+            _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas)
+        forced = True
+    got = _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas,
+                          bluestein=forced)
+    assert torch.equal(got, _launch_mixed(src, cfg.hop_length, n_frames, cfg.n_fft, cfg,
+                                          bluestein=forced))
+    assert torch.equal(got, mixed_log_mel_plain(y, cfg, bluestein=forced))
 
 
 def test_cluster_kernel_on_a_frame_matrix(cuda):
-    """Stride n_fft on a frame matrix at n_fft 12865: the waveform's rows
+    """Stride n_fft on a frame matrix at n_fft 12867: the waveform's rows
     bit for bit, counted on the exact route and the cluster body."""
-    cfg = FrontendConfig(n_fft=12865, hop_length=6432, log_floor=1e-10)
-    y = torch.from_numpy(_signal(5 * 12865, 44100, 12)).to(cuda)
+    cfg = FrontendConfig(n_fft=12867, hop_length=6433, log_floor=1e-10)
+    y = torch.from_numpy(_signal(5 * 12867, 44100, 12)).to(cuda)
     frames = frame_signal(y, cfg.n_fft, cfg.hop_length, center=True).contiguous()
     before = _counts()
     got = fused_log_mel_frames(frames, cfg)
@@ -678,9 +711,9 @@ def test_cluster_kernel_on_a_frame_matrix(cuda):
 
 def test_cluster_kernel_takes_more_than_256_mels(cuda):
     """No body limits the mel count (the retired dft body's 256): 300 mels
-    at n_fft 12865, bitwise the plain version's."""
-    cfg = FrontendConfig(n_fft=12865, hop_length=6432, n_mels=300, log_floor=1e-10)
-    y = torch.from_numpy(_signal(4 * 12865, 44100, 13)).to(cuda)
+    at n_fft 12867, bitwise the plain version's."""
+    cfg = FrontendConfig(n_fft=12867, hop_length=6433, n_mels=300, log_floor=1e-10)
+    y = torch.from_numpy(_signal(4 * 12867, 44100, 13)).to(cuda)
     got = fused_log_mel(y, cfg)
     assert got.shape[1] == 300
     assert torch.equal(got, mixed_log_mel_plain(y, cfg))
@@ -703,11 +736,11 @@ def test_cluster_body_beyond_its_limit_raises(cuda):
     with pytest.raises(ValueError, match="beyond the cluster body's limit"):
         fused_log_mel(y, FrontendConfig(n_fft=206209, hop_length=103104, center=False))
     with pytest.raises(RuntimeError, match="logmel_cluster launch failed"):
-        _launch_cluster(y, 6432, 2, 12865, FrontendConfig(n_fft=12865, hop_length=6432), ctas=1)
+        _launch_cluster(y, 6433, 2, 12867, FrontendConfig(n_fft=12867, hop_length=6433), ctas=1)
     assert _counts() == before
 
 
-@pytest.mark.parametrize("n_fft,hop,ctas", [(12865, 6432, 2), (88200, 44100, 3)])
+@pytest.mark.parametrize("n_fft,hop,ctas", [(12867, 6433, 2), (88200, 44100, 3)])
 def test_cluster_launcher_checks_the_split_it_is_given(cuda, monkeypatch, n_fft, hop, ctas):
     """The launcher takes `cluster_split`'s split and checks it: a crossing
     stage marked as inside the CTAs, a chunk that leaves points uncovered
@@ -724,13 +757,13 @@ def test_cluster_launcher_checks_the_split_it_is_given(cuda, monkeypatch, n_fft,
            sp._replace(chunk=sp.chunk - 1),
            sp._replace(chunk=sp.chunk + 30000, smem_bytes=sp.smem_bytes + 240000))
     for split in bad:
-        monkeypatch.setattr(fl, "cluster_split", lambda n, c, split=split: split)
+        monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None, split=split: split)
         before = _counts()
         with pytest.raises(RuntimeError, match="logmel_cluster launch failed"):
             _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas)
         assert _counts() == before
     every = sp._replace(cross=(True,) * len(sp.cross))
-    monkeypatch.setattr(fl, "cluster_split", lambda n, c: every)
+    monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None: every)
     assert torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas), want)
 
 

@@ -86,13 +86,13 @@ def _assert_log_close(got, want, atol):
 
 
 # n_fft: (L, N, Bluestein, C, stages that cross CTAs, bytes a CTA). The
-# sizes chip_smoke.py times (12865, 23042, 44100, 48000, and 88200 at
+# sizes chip_smoke.py times (12867, 23054, 44100, 48000, and 88200 at
 # C = 3), a power of two, sizes whose smallest cluster does not divide
 # N, so that most or all stages cross CTAs (141000: C 7, 7 of 8; 141001:
 # C 11, all 9), and the largest plans (206208 and 617400 fill 9 and 16 CTAs).
 SPLITS = {
-    12865: (12865, 25920, True, 2, 1, 116548),
-    23042: (11521, 23328, True, 2, 1, 116356),
+    12867: (12867, 25920, True, 2, 1, 116548),
+    23054: (11527, 23328, True, 2, 1, 116368),
     44100: (22050, 22050, False, 2, 1, 132304),
     48000: (24000, 24000, False, 2, 1, 144004),
     88200: (44100, 44100, False, 3, 2, 176404),
@@ -147,24 +147,32 @@ def test_limit_is_sixteen_ctas_of_shared_memory(n_fft, fits):
 
 
 def test_first_beyond_is_the_first():
-    """Every n_fft below 206,209 is served: the mixed body's transform
-    lengths by byte counts alone (points, the next 7-smooth length from a
-    table, no plan built and nothing allocated), checked against
-    `mixed_plan` on a sample."""
+    """Every n_fft below 206,209 is served: by byte counts alone (points, the
+    next 7-smooth length from a table, no plan built and nothing allocated),
+    the plan the cluster body may run, direct at a 13-smooth L (register
+    radices only) and else Bluestein, fits 16 CTAs; a direct plan with
+    matrix stages runs only where it fits one block, on the mixed body.
+    Checked against `mixed_plan` on a sample."""
     n_fft = np.arange(1, FIRST_BEYOND + 1, dtype=np.int64)
     points = np.where(n_fft % 2 == 1, n_fft, n_fft // 2)
-    smooth = np.array(sorted(2**a * 3**b * 5**c * 7**d for a in range(21) for b in range(14)
-                             for c in range(10) for d in range(9)
-                             if 2**a * 3**b * 5**c * 7**d < 1 << 21), np.int64)
-    is_smooth = np.isin(points, smooth)
-    n = np.where(is_smooth, points, smooth[np.searchsorted(smooth, 2 * points - 1)])
+    smooth7 = np.array(sorted(2**a * 3**b * 5**c * 7**d for a in range(21) for b in range(14)
+                              for c in range(10) for d in range(9)
+                              if 2**a * 3**b * 5**c * 7**d < 1 << 21), np.int64)
+    smooth13 = np.array(sorted(int(k) * 11**e * 13**f for k in smooth7 for e in range(6)
+                               for f in range(6) if k * 11**e * 13**f < 1 << 21), np.int64)
+    is_smooth = np.isin(points, smooth13)
+    blue = smooth7[np.searchsorted(smooth7, 2 * points - 1)]
+    n = np.where(is_smooth, points, blue)
     share = 8 * -(-n // CLUSTER_MAX) + 4 * -(-(n_fft // 2 + 1) // CLUSTER_MAX)
     served = share <= MIXED_MAX_SMEM
     assert served[:-1].all() and not served[-1]
     rng = np.random.default_rng(0)
     for i in rng.integers(0, FIRST_BEYOND, 300):
         plan = mixed_plan(int(n_fft[i]))
-        assert (plan.points, plan.n) == (points[i], n[i])
+        if plan.matrix:
+            assert body(int(n_fft[i])) == "mixed" and plan.n == points[i]
+        else:
+            assert (plan.points, plan.n) == (points[i], n[i])
 
 
 def test_every_size_the_retired_body_held_on_the_card_is_served():
@@ -193,16 +201,25 @@ def test_body_never_names_the_dft_body():
             assert cluster_split(n, cluster_size(n)).smem_bytes <= MIXED_MAX_SMEM
 
 
+def _seven_smooth(k):
+    for p in (2, 3, 5, 7):
+        while k % p == 0:
+            k //= p
+    return k == 1
+
+
 def test_next_smooth_is_the_smallest_seven_smooth_length():
     for n in list(range(1, 3000)) + [25719, 100003, 412417, 413000]:
         m = _next_smooth(n)
         assert m >= n and mixed_plan(2 * m).n == m   # 2m: L = m, 7-smooth, direct
-        assert all(mixed_plan(2 * k).bluestein for k in range(max(n, 1), m))
+        assert _seven_smooth(m) and not any(_seven_smooth(k) for k in range(max(n, 1), m))
 
 
 # n_fft, hop: the first odd and even sizes beyond the mixed body's limit
-# (Bluestein), and 1 s at 44.1 and 48 kHz (direct).
-SIZES = [(12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000)]
+# (Bluestein), those before matrix stages put them on the mixed body, and 1
+# s at 44.1 and 48 kHz (direct).
+SIZES = [(12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000), (12867, 6433),
+         (23054, 11527)]
 
 
 @pytest.mark.parametrize("log_floor", [None, 1e-10])
@@ -232,26 +249,26 @@ def test_plan_tables_multiply_to_the_transform():
 
 
 def test_phases_tool_builds_the_kernels_own_cuts():
-    """`sed_crnn_torch.tools.logmel_cluster_phases` builds the cluster body at
-    each of its named profiling cuts; the source defines the macro as 0 (no
-    cut) and guards each phase the tool names with its level."""
+    """`sed_crnn_torch.tools.logmel_phases` builds the cluster body at each of
+    its named profiling cuts; the source defines the macro as 0 (no cut) and
+    guards each phase the tool names with its level."""
     from sed_crnn_torch.ops.kernels import _build
-    from sed_crnn_torch.tools import logmel_cluster_phases as tool
+    from sed_crnn_torch.tools import logmel_phases as tool
 
     src = (_build.CSRC_DIR / "logmel_cluster.cu").read_text()
     assert "#define LOGMEL_CLUSTER_CUT 0" in src
     assert tool.VARIANTS == {"full": 0, "no_mel": 1, "no_power": 2, "no_stages": 3}
     for level in (1, 2, 3):
         assert f"CUT < {level}" in src, level
-    assert [n for n, _ in tool.SIZES] == [12865, 23042, 44100, 48000, 88200]
+    assert [n for n, _ in tool.SIZES] == [12867, 23054, 44100, 48000, 88200]
     assert all(body(n) == "cluster" for n, _ in tool.SIZES)
 
 
 def test_phases_tool_refuses_without_a_card(monkeypatch, capsys):
     """Without a CUDA card the tool builds and launches nothing: exit 2."""
-    from sed_crnn_torch.tools import logmel_cluster_phases as tool
+    from sed_crnn_torch.tools import logmel_phases as tool
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(tool, "build_variants", lambda: pytest.fail("built without a card"))
-    assert tool.main() == 2
+    monkeypatch.setattr(tool, "build_variants", lambda *a: pytest.fail("built without a card"))
+    assert tool.main([]) == 2
     assert "a CUDA card is required" in capsys.readouterr().err

@@ -29,8 +29,10 @@ from sed_crnn_tpu.ops.pallas.fused_logmel import fused_log_mel as jax_fused_log_
 
 from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.ops.kernels.fused_logmel import (
+    MATRIX_MAX,
     MIXED_MAX_SMEM,
     MIXED_MAX_STAGES,
+    REGISTER_RADICES,
     bluestein_chirp,
     bluestein_filter,
     body,
@@ -111,42 +113,51 @@ def _within_ulp(table, exact):
 
 
 @pytest.mark.parametrize("n_fft,points,n,radices,bluestein", [
-    (1034, 517, 1050, (2, 3, 5, 5, 7), True),
+    (1034, 517, 517, (11, 47), False),
     (1764, 882, 882, (2, 3, 3, 7, 7), False),
     (3072, 1536, 1536, (4, 4, 4, 4, 2, 3), False),
-    (1001, 1001, 2016, (4, 4, 2, 3, 3, 7), True),
+    (1001, 1001, 1001, (7, 11, 13), False),
     (882, 441, 441, (3, 3, 7, 7), False),
     (400, 200, 200, (4, 2, 5, 5), False),
-    (2050, 1025, 2058, (2, 3, 7, 7, 7), True),
+    (2050, 1025, 1025, (5, 5, 41), False),
     (32768, 16384, 16384, (4,) * 7, False),
-    (26, 13, 25, (5, 5), True),
+    (26, 13, 13, (13,), False),
     (2, 1, 1, (), False),
+    (2206, 1103, 2205, (3, 3, 5, 7, 7), True),
 ])
 def test_plan_factors_and_picks_direct_or_bluestein(n_fft, points, n, radices, bluestein):
-    """L is n_fft / 2 (even) or n_fft (odd); a 7-smooth L is transformed
-    directly, any other by Bluestein at M, the smallest 7-smooth length
-    >= 2L - 1; the radices multiply to the length, radix 4 first for each
-    pair of 2s."""
+    """L is n_fft / 2 (even) or n_fft (odd); L is transformed directly by
+    register radices (radix 4 first for each pair of 2s, then 2, 3, 5, 7,
+    11, 13) and matrix stages for its primes above 13, ascending, unless a
+    prime above MATRIX_MAX divides it or Bluestein costs less, at M, the
+    smallest 7-smooth length >= 2L - 1; the radices multiply to the length."""
     plan = mixed_plan(n_fft)
     assert (plan.points, plan.n, plan.radices, plan.bluestein) == (points, n, radices, bluestein)
-    assert math.prod(plan.radices) == plan.n and set(plan.radices) <= {2, 3, 4, 5, 7}
+    assert math.prod(plan.radices) == plan.n
     assert plan.radices.count(2) <= 1 and len(plan.radices) <= MIXED_MAX_STAGES
-    assert _smooth(points) != bluestein
     if bluestein:
-        assert not any(_smooth(m) for m in range(2 * points - 1, n))
-    assert plan.smem_bytes == 8 * plan.n + 4 * (n_fft // 2 + 1)
+        assert set(plan.radices) <= {2, 3, 4, 5, 7}
+        assert not any(_smooth(m) for m in range(2 * points - 1, n)) and _smooth(n)
+    else:
+        assert n == points and all(r in REGISTER_RADICES or r <= MATRIX_MAX for r in radices)
+    arrays = 2 if plan.matrix else 1
+    assert plan.smem_bytes == 8 * arrays * plan.n + 4 * (n_fft // 2 + 1)
 
 
 @pytest.mark.parametrize("n_fft,fits", [
-    (12863, True), (12864, True), (12865, False), (23040, True), (23042, False),
+    (12863, True), (12864, True), (12865, True), (23040, True), (23042, True),
     (21875, True), (38416, True), (25725, False), (40000, False), (65536, False),
+    (12867, False), (23044, True), (23052, True), (23054, False),
 ])
 def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
-    """A plan fits when one frame's work array and power row take at most
-    227 KB: every n_fft to 12,864 (12,863: Bluestein at the largest M,
-    25,725), every even one to 23,040, and beyond them the sizes whose plan
-    is small enough (21,875 and 38,416 direct; 40,000, L 20,000, is not);
-    a plan that does not fit goes to the cluster body."""
+    """A plan fits when one frame's work arrays and power row take at most
+    227 KB: every n_fft to 12,866 (12,863: Bluestein at the largest M,
+    25,725; 12,865 direct with matrix stages, two work arrays, 231,572
+    bytes), every even one to 23,052 (23,044: a matrix stage of 823,
+    230,444 bytes), and beyond them the sizes whose plan is small enough
+    (21,875 and 38,416 direct; 40,000, L 20,000, is not); 12,867 (3 x 4289)
+    and 23,054 (L 11,527, prime) are the first odd and even sizes that do
+    not; a plan that does not fit goes to the cluster body."""
     assert (mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM) == fits
     assert body(n_fft) == ("mixed" if fits else "cluster") or body(n_fft) == "fft"
 
@@ -154,19 +165,20 @@ def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
 @pytest.mark.parametrize("n_fft,want", [
     (1034, "mixed"), (1764, "mixed"), (882, "mixed"), (400, "mixed"), (960, "mixed"),
     (1920, "mixed"), (1001, "mixed"), (128, "mixed"), (1, "mixed"), (20000, "mixed"),
-    (2048, "fft"), (256, "fft"), (16384, "fft"), (12865, "cluster"), (23042, "cluster"),
+    (2048, "fft"), (256, "fft"), (16384, "fft"), (12865, "mixed"), (23042, "mixed"),
+    (12867, "cluster"), (23044, "mixed"), (23054, "cluster"),
 ])
 def test_body_by_size(n_fft, want):
     assert body(n_fft) == want
 
 
 def test_body_below_the_limit_is_never_the_dft_body():
-    """No n_fft up to 12,864 leaves one block for the cluster body (and no
+    """No n_fft up to 12,866 leaves one block for the cluster body (and no
     n_fft reaches the retired dft body: `body` no longer names it)."""
-    assert {body(n) for n in range(1, 12865)} == {"fft", "mixed"}
+    assert {body(n) for n in range(1, 12867)} == {"fft", "mixed"}
 
 
-@pytest.mark.parametrize("n_fft", [1034, 1764, 1001, 3072, 400])
+@pytest.mark.parametrize("n_fft", [1034, 1764, 1001, 3072, 400, 2206])
 def test_tables_round_float64_once(n_fft):
     """The stage twiddles, the untangle twiddles and the chirp lie within one
     float32 ulp of their float64 values, the window is the float64 Hann
@@ -208,7 +220,7 @@ def test_filter_spectrum_against_a_float64_dft(n_fft):
     through the DIF positions: each part of each entry within one float32
     ulp of the entry's magnitude (a part near zero has no ulp of its own to
     be held to)."""
-    plan = mixed_plan(n_fft)
+    plan = mixed_plan(n_fft, bluestein=True)
     L, M = plan.points, plan.n
     q = np.array([n * n % (2 * L) for n in range(L)], np.float64)
     w = np.exp(-1j * np.pi * q / L)

@@ -228,7 +228,8 @@ def test_concurrent_builds_and_rebuild_when_newer(monkeypatch, tmp_path):
     assert not any(t.is_alive() for t in threads) and errors == []
     assert results == [str(lib)] * 4 and os.listdir(lib.parent) == ["liblogmel.so"]
     assert native.build_library() == str(lib)
-    old = lib.stat().st_mtime
-    os.utime(lib, (old - 3600, old - 3600))   # now older than the source
+    # An hour older than the source, whatever the checkout's age.
+    old = native.SRC.stat().st_mtime - 3600
+    os.utime(lib, (old, old))
     native.build_library()
-    assert lib.stat().st_mtime > old - 3600
+    assert lib.stat().st_mtime > old
