@@ -187,24 +187,35 @@ exits non-zero and prints no result line:
     aggregate training rates, one step of each mode timed and profiled;
     and the conv-128 split behind ``choose_runs_mode`` (timepooled-v1 x 2
     and x 4, sednet-dcase x 2, stacked against sequential steps);
-18. kernel B's wide body ([kernel B wide], ``csrc/gru_wide.cu``, H > 32):
-    pair launches against the plain versions at H in WIDE_WIDTHS (33 .. 128
-    in registers, 129 and 256 through L2), B in {1, 8, 128}, T=64, both
-    conventions, both gates, both directions, one launch of each kernel,
-    dwh bitwise run to run, and stacked (S=5) with seed 0 bitwise the
-    unstacked pair; at H=128 with wh up to 0.3 N(0, 1), against float64,
-    beside the float32 plain version and the same kernel built with exact
-    gates; its times at H in {64, 128, 256} (forward at B=1, residual
-    forward and backward at B=128, T=256) beside the plain versions, the
-    bounds and ``torch.nn.GRU``; then its three full-width paths: ``run_fold`` (2 epochs) and a card-vs-CPU train step
-    of ``sednet-dcase`` with ``gru_hidden=(128, 128)``, that checkpoint
-    through ``stream_logits`` (40 chunks, B=1) and ``forward_probabilities``
-    (B=256) against the CPU, and ``timepooled-v2`` with ``gru_hidden=(64,
-    64)``: one 5-seed ``MultiSeedTrainer`` step, the stacked kernels at its
-    shape, ``run_experiment_multiseed`` stacked against sequential, and the
-    two modes' per-step losses from one init (bf16 and float32 trunks,
-    the preset's GRUs and these); exact launch counts on every path and no
-    plain version on the card;
+18. kernel B above the warp body ([kernel B wide]): the wide body
+    (``csrc/gru_wide.cu``: registers to H=128, the L2 tier above 512) and
+    the cluster body (``csrc/gru_cluster.cu``, 128 < H <= 512): pair
+    launches against the plain versions at H in WIDE_WIDTHS (33 .. 128 in
+    registers, 129, 256 and 512 on the cluster body, 520 through L2), B in
+    {1, 8, 128}, T=64, both conventions, both gates, both directions, one
+    launch of each kernel on the body `gru_body` names, each shape's
+    cluster plan (C, R, a CTA's shared memory, held against the Python
+    mirror), the backward bitwise run to run, and stacked (S=5) with seed 0
+    bitwise the unstacked pair on either body; at H=128 with wh up to 0.3
+    N(0, 1), against float64, beside the float32 plain version and the same
+    kernel built with exact gates; the wide body's times at H in {64, 128}
+    (forward at B=1, residual forward and backward at B=128, T=256) beside
+    the plain versions, the bounds and ``torch.nn.GRU``; the cluster body's
+    at H=256 in turns with the L2 tier and a bidirectional ``torch.nn.GRU``
+    (a pair's forward at B=1, residual forward and backward with the chain /
+    dwh / sum split at B=128); then the full-width paths: ``run_fold`` (2
+    epochs) and a card-vs-CPU train step of ``sednet-dcase`` with
+    ``gru_hidden=(128, 128)``, that checkpoint through ``stream_logits``
+    (40 chunks, B=1) and ``forward_probabilities`` (B=256) against the CPU,
+    and ``timepooled-v2`` with ``gru_hidden=(64, 64)``: one 5-seed
+    ``MultiSeedTrainer`` step, the stacked kernels at its shape,
+    ``run_experiment_multiseed`` stacked against sequential, and the two
+    modes' per-step losses from one init (bf16 and float32 trunks, the
+    preset's GRUs and these); on the cluster body a card-vs-CPU train step
+    of ``sednet-dcase`` with ``gru_hidden=(256, 256)`` and that model,
+    exported, serving the 120 s wav through ``infer_file_artifact`` against
+    the CPU; exact launch counts by body on every path and no plain version
+    on the card;
 19. checkpoint migration ([import], after [serve]): the reference's v1 and
     v2 classes (`reference_model`: full width, weights from
     ``torch.Generator`` seeds, primed BatchNorm statistics) saved as a raw
@@ -1182,25 +1193,28 @@ def _gru_counts():
     return {"gru_scan_fwd": gru_scan.launches, "gru_scan_fwd_res": gru_scan_fwd_res.launches,
             "gru_scan_bwd": gru_scan_bwd.launches, "gru_dwh": gru_scan_bwd.dwh_launches,
             "gru_scan_sum_partials": gru_scan_bwd.sum_launches,
-            "gru_wide": gru_scan.wide_launches}
+            "gru_wide": gru_scan.wide_launches, "gru_cluster": gru_scan.cluster_launches}
 
 
 def _reset_gru_counts():
     from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_bwd, gru_scan_fwd_res
 
     gru_scan.launches = gru_scan_fwd_res.launches = gru_scan.wide_launches = 0
+    gru_scan.cluster_launches = 0
     gru_scan_bwd.launches = gru_scan_bwd.dwh_launches = gru_scan_bwd.sum_launches = 0
 
 
-def _gru_path_counts(fwd: int, steps: int, wide: bool = False) -> dict:
+def _gru_path_counts(fwd: int, steps: int, body: str = "warp") -> dict:
     """Exact GRU launch counts of a path with ``fwd`` no-grad BiGRU layer
     calls and ``steps`` train-step BiGRU layer calls: one pair launch of
-    each kernel per layer call, all on the warp body, or all on the wide
-    body (``wide``: its recurrences, the forward, residual forward and
-    backward chain, counted in ``gru_wide``)."""
+    each kernel per layer call, all on one body: the warp body, the wide
+    body or the cluster body (their recurrences, the forward, residual
+    forward and backward chain, counted in ``gru_wide`` / ``gru_cluster``)."""
+    check(body in ("warp", "wide", "cluster"), f"unknown GRU body {body!r}")
     return {"gru_scan_fwd": fwd, "gru_scan_fwd_res": steps, "gru_scan_bwd": steps,
             "gru_dwh": steps, "gru_scan_sum_partials": steps,
-            "gru_wide": fwd + 2 * steps if wide else 0}
+            "gru_wide": fwd + 2 * steps if body == "wide" else 0,
+            "gru_cluster": fwd + 2 * steps if body == "cluster" else 0}
 
 
 @contextlib.contextmanager
@@ -1230,9 +1244,14 @@ def _no_plain_gru_on_card():
             setattr(mod, n, saved[n])
 
 
-def _is_wide(model_cfg) -> bool:
-    """Whether the model's GRUs run kernel B's wide body (H > 32)."""
-    return any(h > 32 for h in model_cfg.gru_hidden)
+def _gru_model_body(model_cfg) -> str:
+    """The body kernel B runs the model's GRUs on (`gru_body`; one body for
+    every layer)."""
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_body
+
+    bodies = {gru_body(h) for h in model_cfg.gru_hidden}
+    check(len(bodies) == 1, f"gru_hidden {model_cfg.gru_hidden} mixes GRU bodies {bodies}")
+    return bodies.pop()
 
 
 def phase_train_step(model_overrides: dict | None = None, tag: str = "[train step]"):
@@ -1272,7 +1291,7 @@ def phase_train_step(model_overrides: dict | None = None, tag: str = "[train ste
         torch.cuda.synchronize()
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"train step log-mel launches {_logmel_counts()}")
-    want = _gru_path_counts(0, 2, _is_wide(mcfg))   # one pair per BiGRU layer, fwd and bwd
+    want = _gru_path_counts(0, 2, _gru_model_body(mcfg))   # a pair per BiGRU layer, fwd and bwd
     check(launches == want, f"train step launches {launches} != {want}")
     check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     t0 = time.perf_counter()
@@ -1331,7 +1350,7 @@ def phase_train_step(model_overrides: dict | None = None, tag: str = "[train ste
           f"{unclear} parameter elements with |g| inside the band; launches {launches}; "
           f"CPU step {cpu_s:.2f} s")
     return {"loss_rel": loss_rel, "grad_rel": worst_grad, "bn": bn_err,
-            "launches": launches["gru_wide"]}
+            "launches": launches["gru_wide"] + launches["gru_cluster"]}
 
 
 def phase_train(workdir: str, model_overrides: dict | None = None, tag: str = "[train]"):
@@ -1365,7 +1384,7 @@ def phase_train(workdir: str, model_overrides: dict | None = None, tag: str = "[
     wall = time.perf_counter() - t0
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"run_fold log-mel launches {_logmel_counts()}")
-    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs, _is_wide(cfg.model))
+    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs, _gru_model_body(cfg.model))
     check(launches == want, f"run_fold launches {launches} != {want}")
     check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     check(res.epochs_run == epochs, f"run_fold ran {res.epochs_run} epochs")
@@ -1486,8 +1505,8 @@ TOOLS_ANNOTATIONS = ("frontend", "train step", "serve")
 # by the WITH_RES template argument, demangled or not), chain, dwh and sum.
 TRACE_SYMBOLS = {
     "fused_logmel": ("logmel_fft_kernel", "logmel_mixed_kernel", "logmel_cluster_kernel"),
-    "gru_scan_fwd": ("gru_warp_fwd", "gru_wide_fwd"),
-    "gru_scan_bwd": ("gru_warp_bwd", "gru_wide_bwd"),
+    "gru_scan_fwd": ("gru_warp_fwd", "gru_wide_fwd", "gru_cluster_fwd"),
+    "gru_scan_bwd": ("gru_warp_bwd", "gru_wide_bwd", "gru_cluster_bwd"),
     "gru_dwh": ("gru_warp_dwh", "gru_wide_dwh"),
     "gru_scan_sum_partials": ("gru_warp_sum", "gru_wide_sum"),
 }
@@ -3215,7 +3234,7 @@ def _stack_kernel_checks(shapes=None, tag: str = "[multiseed stacked]", seed: in
     rng = np.random.default_rng(seed)
     worst = {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0}
     for S, B, T, H in shapes or STACK_SHAPES:
-        one = _gru_path_counts(1, 1, gru_body(H) == "wide")
+        one = _gru_path_counts(1, 1, gru_body(H))
         d0, d1 = _stack_operands(rng, dev, S, B, T, H)
         for reset_after in (False, True):
             def arg(i, reset_after=reset_after):   # operand i of both directions
@@ -4204,26 +4223,33 @@ def phase_import(workdir: str, pcm: np.ndarray):
     return launches, entry
 
 
-WIDE_WIDTHS = (33, 48, 64, 96, 128, 129, 256)   # register tier to 128, L2 tier above
+# Kernel B above the warp body: the wide body's register tier to H = 128,
+# the cluster body (csrc/gru_cluster.cu) to CLUSTER_MAX_H = 512, the wide
+# body's L2 tier above (520).
+WIDE_WIDTHS = (33, 48, 64, 96, 128, 129, 256, 512, 520)
 WIDE_BATCHES = (1, 8, 128)
 WIDE_CHECK_T = 64
-WIDE_TIMED = (64, 128, 256)
-WIDE_STACK_SHAPES = [(5, 8, 32, H) for H in (48, 64, 128, 129)]
+WIDE_TIMED = (64, 128)     # the wide body's register tier; H = 256 in `_cluster_times`
+CLUSTER_TIMED = 256        # the cluster body in turns with the L2 tier and the library
+WIDE_STACK_SHAPES = [(5, 8, 32, H) for H in (48, 64, 128, 129, 256)]
 WIDE_SEDNET = {"gru_hidden": (128, 128)}   # SELDnet's (DCASE 2019 Task 3) recurrent width
+CLUSTER_SEDNET = {"gru_hidden": (256, 256)}   # the cluster body's full-width paths
 WIDE_V2 = {"gru_hidden": (64, 64)}
 # Its operands scale wh by 1 / sqrt(H), so that the pre-activations keep one
 # spread at every width.
 
 
 def _wide_checks() -> dict:
-    """The wide body's pair launches against the plain versions at every
-    width of WIDE_WIDTHS and batch of WIDE_BATCHES, both conventions, both
-    gates: one launch of each kernel, forwards within GRU_ATOL, gradients and
-    dwh (also on the kernel's own dxp) within GRAD_RTOL, dwh bitwise equal
-    run to run. Returns the worst errors."""
+    """The wide and cluster bodies' pair launches against the plain versions
+    at every width of WIDE_WIDTHS (each on the body `gru_body` gives it) and
+    batch of WIDE_BATCHES, both conventions, both gates: one launch of each
+    kernel, forwards within GRU_ATOL, gradients and dwh (also on the
+    kernel's own dxp) within GRAD_RTOL, the backward bitwise equal run to
+    run. Returns the worst errors by body."""
     import torch
 
     from sed_crnn_torch.ops.kernels.gru_scan import (
+        CLUSTER_MAX_H,
         GATES,
         gru_body,
         gru_dwh_plain,
@@ -4236,10 +4262,11 @@ def _wide_checks() -> dict:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(21)
-    worst = {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0}
-    want_counts = _gru_path_counts(1, 1, True)
+    worst = {b: {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0} for b in ("wide", "cluster")}
     for H in WIDE_WIDTHS:
-        check(gru_body(H) == gru_body(H, backward=True) == "wide", f"H={H} not on the wide body")
+        body = "cluster" if 128 < H <= CLUSTER_MAX_H else "wide"
+        check(gru_body(H) == gru_body(H, backward=True) == body, f"H={H} not on the {body} body")
+        want_counts = _gru_path_counts(1, 1, body)
         for B in WIDE_BATCHES:
             fwd_e = bwd_e = dwh_e = 0.0
             for reset_after in (False, True):
@@ -4255,11 +4282,11 @@ def _wide_checks() -> dict:
                                               _pair_of(sets, 5), reset_after, gate)
                     torch.cuda.synchronize()
                     counts = _gru_counts()
-                    check(counts == want_counts, f"wide H={H} B={B} launches {counts}")
+                    check(counts == want_counts, f"{body} H={H} B={B} launches {counts}")
                     again = gru_scan_pair_bwd(ys, rs, args[1], args[3], _pair_of(sets, 4),
                                               _pair_of(sets, 5), reset_after, gate)
                     for k, rev in enumerate((False, True)):
-                        tag = f"wide H={H} B={B} reset_after={reset_after} {gate} dir {k}"
+                        tag = f"{body} H={H} B={B} reset_after={reset_after} {gate} dir {k}"
                         a = [x[k] for x in args]
                         want = gru_scan_fwd_res_plain(*a, reset_after, gate, rev)
                         fwd_e = max(fwd_e, max(_maxdiff(g, w) for g, w in zip(pres[k], want)))
@@ -4273,15 +4300,33 @@ def _wide_checks() -> dict:
                                                     ("dwh", "dbh")))
                         check(all(torch.equal(x, y) for x, y in zip(grads[k], again[k])),
                               f"{tag}: backward not bitwise equal run to run")
-            check(fwd_e <= GRU_ATOL, f"wide H={H} B={B} forward {fwd_e}")
-            worst["fwd"] = max(worst["fwd"], fwd_e)
-            worst["bwd"] = max(worst["bwd"], bwd_e)
-            worst["dwh"] = max(worst["dwh"], dwh_e)
-            print(f"[kernel B wide] H={H:3d} B={B:3d} T={WIDE_CHECK_T}: pair forward, residual "
+            check(fwd_e <= GRU_ATOL, f"{body} H={H} B={B} forward {fwd_e}")
+            for key, e in (("fwd", fwd_e), ("bwd", bwd_e), ("dwh", dwh_e)):
+                worst[body][key] = max(worst[body][key], e)
+            print(f"[kernel B wide] {body} body H={H:3d} B={B:3d} T={WIDE_CHECK_T}"
+                  f"{_cluster_plan_text(H, B)}: pair forward, residual "
                   f"forward and backward, both conventions and gates, one launch each; fwd "
                   f"max|diff| {fwd_e:.3g}, backward {bwd_e:.3g} and dwh on its own dxp "
                   f"{dwh_e:.3g} of max|grad|; dwh bitwise run to run")
     return worst
+
+
+def _cluster_plan_text(H: int, B: int, n_seed: int = 1) -> str:
+    """The cluster body's launch of a pair at (B, H) on this card, forward
+    and backward chain: C, R and a CTA's threads and shared memory; "" on
+    another body."""
+    from sed_crnn_torch.ops.kernels.gru_scan import cluster_plan, cluster_smem_bytes, gru_body
+
+    if gru_body(H) != "cluster":
+        return ""
+    parts = []
+    for backward in (False, True):
+        p = cluster_plan(2, n_seed, B, H, backward, with_res=True)
+        check(p["smem"] == cluster_smem_bytes(H, p["ctas"], p["rows"], backward),
+              f"cluster plan {p} at H={H} B={B}: shared memory differs from the Python mirror")
+        parts.append(f"{'backward' if backward else 'forward'} C {p['ctas']} R {p['rows']} "
+                     f"{p['threads']} threads {p['smem']:,} B a CTA")
+    return " (" + "; ".join(parts) + ")"
 
 
 def _wide_times(H: int) -> dict:
@@ -4415,6 +4460,273 @@ def _wide_times(H: int) -> dict:
     return out
 
 
+def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf) -> dict:
+    """The three launches of a pair's backward apart, on the card's current
+    stream, as closures (outputs allocated once): the gradient chain on the
+    cluster body and on the wide body's L2 tier, then the dwh reduction
+    and the fixed-order sum that both share, on the chain's dxp."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+
+    B, T, H = ys[0].shape
+    dev = ys[0].device
+    flags = (int(conf[0]), int(conf[1] == "hard_sigmoid"))
+    dxp = [torch.empty((B, T, 3 * H), device=dev) for _ in ys]
+    dh0 = [torch.empty((B, H), device=dev) for _ in ys]
+    chain = (gs._BwdDir * 2)(*(
+        gs._BwdDir(*(t.data_ptr() for t in d), x.data_ptr(), d0.data_ptr(), k)
+        for k, (d, x, d0) in enumerate(zip(zip(ys, rs, wh, h0, dys, dhl), dxp, dh0))))
+    cl, wl = gs._cluster_lib(), gs._wide_lib()
+    n_part, n = wl.gru_wide_dwh_splits(B, T, H), 3 * H * H + 3 * H
+    part = torch.empty((2, 1, n_part, n), device=dev)
+    sums = torch.empty((2, 1, n), device=dev)
+    dwh = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(), x.data_ptr(),
+                                        part[k].data_ptr(), k)
+                             for k, (y, r, h, x) in enumerate(zip(ys, rs, h0, dxp))))
+    scratch = gs._scratch(wl, 2, 1, B, H, True, dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    return {
+        "cluster": lambda: gs._raise_on(
+            cl.gru_cluster_bwd_launch(chain, 2, 1, B, T, H, *flags, 0, stream),
+            "gru_cluster_bwd", cl.gru_cluster_error_string),
+        "wide": lambda: gs._raise_on(
+            wl.gru_wide_bwd_launch(chain, 2, 1, B, T, H, *flags, scratch.data_ptr(), stream),
+            "gru_wide_bwd", wl.gru_wide_error_string),
+        "dwh": lambda: gs._raise_on(wl.gru_wide_dwh_launch(dwh, 2, 1, B, T, H, flags[0], stream),
+                                    "gru_wide_dwh", wl.gru_wide_error_string),
+        "sum": lambda: gs._raise_on(
+            wl.gru_wide_sum_partials(part.data_ptr(), sums.data_ptr(), 2, n_part, n, stream),
+            "gru_wide_sum", wl.gru_wide_error_string),
+    }
+
+
+def _cluster_times(H: int = CLUSTER_TIMED) -> dict:
+    """The cluster body at width H against the wide body's L2 tier and
+    `torch.nn.GRU`, T=GRU_T, reset_after=True sigmoid (the library's
+    convention), CUDA events, warm L2, in turns (cluster, L2, library,
+    library, L2, cluster; the two bodies through the private launch): a
+    pair's forward at B=1, a pair's residual forward and backward (chain +
+    dwh + sum, split by kernel on each body) at B=TRAIN_BATCH against a
+    bidirectional `torch.nn.GRU`'s forward and backward, and one direction's
+    residual forward at B=TRAIN_BATCH against a one-direction one; every
+    output held against its plain version first (the library's too), beside
+    the plain versions' times, the bounds and each shape's cluster plan."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        _bwd,
+        _fwd,
+        gru_body,
+        gru_scan_bwd_plain,
+        gru_scan_fwd_res_plain,
+        gru_scan_plain,
+    )
+
+    check(gru_body(H) == "cluster", f"H={H} is not on the cluster body")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(27)
+    T, BT = GRU_T, TRAIN_BATCH
+    conf = (True, "sigmoid")
+    order = ("cluster", "wide", "library", "library", "wide", "cluster")
+    out = {"H": H, "T": T}
+
+    def in_turns(fns: dict, reps: dict) -> dict:
+        ms = {k: [] for k in fns}
+        for k in order:
+            if k in fns:
+                ms[k].append(cuda_ms(fns[k], reps=reps[k], warmup=1))
+        return {k: float(np.mean(v)) for k, v in ms.items()}
+
+    def operands(B):
+        d0, d1 = (_gru_inputs(rng, dev, B, H, True, T, H ** -0.5) for _ in range(2))
+        x = d0[0]
+        return (x, x), (d0[1], d1[1]), (d0[2], d1[2]), (d0[3], d1[3]), (d0[4], d1[4]), \
+            (d0[5], d1[5])
+
+    def library(xp, wh, bh, h0, dys):
+        lib = _library_gru(wh, bh, bidirectional=True)
+        x_in = xp[0].clone().requires_grad_()
+        h_lib = torch.stack(h0)
+        y, hl = lib(x_in, h_lib)
+        err = 0.0
+        for k, rev in enumerate((False, True)):
+            want = gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf, rev)
+            err = max(err, _maxdiff(y[..., k * H:(k + 1) * H], want[0]), _maxdiff(hl[k], want[1]))
+        check(err <= LIBRARY_ATOL, f"bidirectional torch.nn.GRU H={H}: {err}")
+        dy = torch.cat(dys, dim=-1)
+
+        def fwd_bwd():
+            o, _ = lib(x_in, h_lib)
+            torch.autograd.backward(o, dy)
+        return (lambda: lib(x_in, h_lib)), fwd_bwd, err
+
+    # B = 1: a pair's forward.
+    xp, wh, bh, h0, dys, dhl = operands(1)
+    fwd = {b: (lambda b=b: _fwd(xp, wh, bh, h0, (False, True), *conf, False, b))
+           for b in ("cluster", "wide")}
+    plain = [gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)]
+    for b, fn in fwd.items():
+        outs, _ = fn()
+        err = max(max(_maxdiff(o[0], p[0]), _maxdiff(o[2], p[1])) for o, p in zip(outs, plain))
+        check(err <= GRU_ATOL, f"{b} H={H} pair forward B=1: {err}")
+        out[f"fwd_b1_{b}_err"] = err
+    lib_fwd, _, lib_err = library(xp, wh, bh, h0, dys)
+    with torch.no_grad():
+        ms = in_turns({**fwd, "library": lib_fwd}, {"cluster": 20, "wide": 5, "library": 10})
+    out.update({f"fwd_b1_{k}_ms": v for k, v in ms.items()})
+    out["fwd_b1_plain_ms"] = cuda_ms(lambda: [gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf,
+                                                             k == 1) for k in (0, 1)],
+                                     reps=2, warmup=1)
+    (out["fwd_b1_bound_ms"], out["fwd_b1_bound_by"]), _, _ = _gru_bounds(1, 1, T, H, True)
+    out["fwd_b1_plan"] = _cluster_plan_text(H, 1)
+
+    # B = TRAIN_BATCH: a pair's residual forward and backward.
+    xp, wh, bh, h0, dys, dhl = operands(BT)
+    fres = {b: (lambda b=b: _fwd(xp, wh, bh, h0, (False, True), *conf, True, b))
+            for b in ("cluster", "wide")}
+    (res_c, res_w) = (fres["cluster"]()[0], fres["wide"]()[0])
+    want_f = [gru_scan_fwd_res_plain(xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)]
+    for b, outs in (("cluster", res_c), ("wide", res_w)):
+        err = max(max(_maxdiff(g, w) for g, w in zip(o, p)) for o, p in zip(outs, want_f))
+        check(err <= GRU_ATOL, f"{b} H={H} pair residual forward B={BT}: {err}")
+        out[f"fwd_res_{b}_err"] = err
+    ys, rs = tuple(o[0] for o in res_c), tuple(o[1] for o in res_c)
+    bwd = {b: (lambda b=b: _bwd(ys, rs, wh, h0, dys, dhl, (False, True), *conf, b))
+           for b in ("cluster", "wide")}
+    want_b = [gru_scan_bwd_plain(ys[k], rs[k], wh[k], h0[k], dys[k], dhl[k], *conf, k == 1)
+              for k in (0, 1)]
+    for b, fn in bwd.items():
+        first, again = fn(), fn()
+        check(all(torch.equal(x, y) for f, a in zip(first, again) for x, y in zip(f, a)),
+              f"{b} H={H} backward B={BT} not bitwise equal run to run")
+        out[f"bwd_{b}_rel_err"] = max(_rel_err(g, w, f"{b} H={H} backward B={BT}")
+                                      for g, w in zip(first, want_b))
+    lib_fwd, lib_fwd_bwd, b128_err = library(xp, wh, bh, h0, dys)
+    out["library_err"] = max(lib_err, b128_err)
+    with torch.no_grad():
+        ms = in_turns({**fres, "library": lib_fwd}, {"cluster": 10, "wide": 3, "library": 10})
+    out.update({f"fwd_res_{k}_ms": v for k, v in ms.items()})
+    ms = in_turns({**bwd, "library": lib_fwd_bwd}, {"cluster": 10, "wide": 3, "library": 10})
+    out.update({f"bwd_{k}_ms": v for k, v in ms.items()})
+    out["bwd_library_ms"] -= out["fwd_res_library_ms"]     # the library's backward alone
+    parts = _bwd_parts(ys, rs, wh, h0, dys, dhl, conf)
+    ms = in_turns({b: parts[b] for b in ("cluster", "wide")}, {"cluster": 10, "wide": 3})
+    for b in ("cluster", "wide"):
+        out[f"bwd_{b}_chain_ms"] = ms[b]
+    out["bwd_dwh_ms"] = cuda_ms(parts["dwh"], reps=10)
+    out["bwd_sum_ms"] = cuda_ms(parts["sum"], reps=10)
+    out["fwd_res_plain_ms"] = cuda_ms(lambda: [gru_scan_fwd_res_plain(
+        xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)], reps=2, warmup=1)
+    out["bwd_plain_ms"] = cuda_ms(lambda: [gru_scan_bwd_plain(
+        ys[k], rs[k], wh[k], h0[k], dys[k], dhl[k], *conf, k == 1) for k in (0, 1)],
+        reps=2, warmup=1)
+    _, (out["fwd_res_bound_ms"], out["fwd_res_bound_by"]), (out["bwd_bound_ms"],
+                                                            out["bwd_bound_by"]) = \
+        _gru_bounds(1, BT, T, H, True)
+    out["b128_plan"] = _cluster_plan_text(H, BT)
+
+    # One direction's residual forward beside a one-direction torch.nn.GRU.
+    one = {b: (lambda b=b: _fwd([xp[0]], [wh[0]], [bh[0]], [h0[0]], [False], *conf, True, b))
+           for b in ("cluster", "wide")}
+    lib_one = _library_gru(wh[0], bh[0])
+    y_one, hl_one = lib_one(xp[0], h0[0][None])
+    check(max(_maxdiff(y_one, want_f[0][0]), _maxdiff(hl_one[0], want_f[0][2])) <= LIBRARY_ATOL,
+          f"torch.nn.GRU H={H} B={BT}")
+    with torch.no_grad():
+        ms = in_turns({**one, "library": lambda: lib_one(xp[0], h0[0][None])},
+                      {"cluster": 10, "wide": 3, "library": 10})
+    out.update({f"one_fwd_res_{k}_ms": v for k, v in ms.items()})
+    out["one_fwd_res_bound_ms"] = _gru_bounds(1, BT, T, H, True, 1)[1][0]
+
+    f = lambda k: out[f"{k}_library_ms"] / out[f"{k}_cluster_ms"]  # noqa: E731
+    print(f"[kernel B wide] cluster body H={H} T={T} reset_after=True sigmoid, in turns with the "
+          f"L2 tier and bidirectional torch.nn.GRU (vs plain {out['library_err']:.3g}), ms: pair "
+          f"forward B=1{out['fwd_b1_plan']} cluster {out['fwd_b1_cluster_ms']:.4f}, L2 "
+          f"{out['fwd_b1_wide_ms']:.4f}, library {out['fwd_b1_library_ms']:.4f} ({f('fwd_b1'):.2f}x "
+          f"the cluster's time), plain {out['fwd_b1_plain_ms']:.2f}, bound "
+          f"{out['fwd_b1_bound_ms']:.6f} ({out['fwd_b1_bound_by']})")
+    print(f"[kernel B wide] cluster body H={H} B={BT}{out['b128_plan']}: pair residual forward "
+          f"cluster {out['fwd_res_cluster_ms']:.4f}, L2 {out['fwd_res_wide_ms']:.4f}, library "
+          f"forward {out['fwd_res_library_ms']:.4f} ({f('fwd_res'):.2f}x), plain "
+          f"{out['fwd_res_plain_ms']:.2f}, bound {out['fwd_res_bound_ms']:.5f} "
+          f"({out['fwd_res_bound_by']}); pair backward cluster {out['bwd_cluster_ms']:.4f} "
+          f"(chain {out['bwd_cluster_chain_ms']:.4f}; vs plain {out['bwd_cluster_rel_err']:.3g} "
+          f"of max|grad|), L2 {out['bwd_wide_ms']:.4f} (chain {out['bwd_wide_chain_ms']:.4f}), "
+          f"both then dwh {out['bwd_dwh_ms']:.4f} and sum {out['bwd_sum_ms']:.4f}, library backward "
+          f"{out['bwd_library_ms']:.4f} ({f('bwd'):.2f}x), plain {out['bwd_plain_ms']:.2f}, bound "
+          f"{out['bwd_bound_ms']:.5f} ({out['bwd_bound_by']}); one direction's residual forward "
+          f"cluster {out['one_fwd_res_cluster_ms']:.4f}, L2 {out['one_fwd_res_wide_ms']:.4f}, "
+          f"one-direction torch.nn.GRU {out['one_fwd_res_library_ms']:.4f}, bound "
+          f"{out['one_fwd_res_bound_ms']:.5f}")
+    return out
+
+
+def _cluster_serving(workdir: str, pcm: np.ndarray) -> dict:
+    """sednet-dcase with CLUSTER_SEDNET's GRUs (seeded weights, `model_tree`)
+    exported as a serving artifact and served on the 120 s wav through
+    `apps.infer.infer_file_artifact`, on the card and on the CPU:
+    probabilities within PROB_ATOL, events equal, the chunks' logits within
+    LOGIT_ATOL; on the card one pair launch per BiGRU layer per chunk, all
+    on the cluster body, no GRU plain version."""
+    import torch
+
+    from sed_crnn_torch.apps.infer import infer_file_artifact, load_model
+    from sed_crnn_torch.core.config import get_preset
+    from sed_crnn_torch.data.wavio import write_wav
+    from sed_crnn_torch.models.export import export_serving
+    from sed_crnn_torch.models.streaming import stream_logits
+    from sed_crnn_torch.ops import frontend
+
+    cfg = get_preset("sednet-dcase")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **CLUSTER_SEDNET))
+    m = cfg.model
+    check(_gru_model_body(m) == "cluster", f"gru_hidden {m.gru_hidden} not on the cluster body")
+    params, state = model_tree(m, seed=28)
+    fe = dataclasses.replace(cfg.frontend, log_floor=1e-10)
+    stats = frontend.fit_norm_stats(frontend.extract(pcm, fe, device="cpu"))
+    stats = (stats.mean.numpy(), stats.scale.numpy())
+    art = os.path.join(workdir, "sednet_gru256.zip")
+    export_serving(cfg, params, state, norm_stats=stats, preset=None, device="cpu").save(art)
+    wav = os.path.join(workdir, "tones_120s.wav")
+    write_wav(wav, pcm, SR)
+
+    _reset_gru_counts()
+    t0 = time.perf_counter()
+    with _no_plain_gru_on_card() as plain_on_card:
+        probs, events, _ = infer_file_artifact(wav, art, device="cuda")
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = _gru_counts()
+    n_frames = frontend.extract(pcm, fe, device="cpu").shape[0]
+    n_chunks = -(-n_frames // m.seq_len_in)
+    layers = len(m.gru_hidden)
+    want = _gru_path_counts(layers * n_chunks, 0, "cluster")
+    check(counts == want and not plain_on_card,
+          f"cluster serving launches {counts} != {want}; plain on the card {plain_on_card}")
+    t0 = time.perf_counter()
+    probs_cpu, events_cpu, _ = infer_file_artifact(wav, art, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    pool = m.seq_len_in // m.seq_len_out
+    check(probs.shape == probs_cpu.shape == (n_frames // pool, m.n_classes),
+          f"cluster serving shape {probs.shape}")
+    prob_err = float(np.abs(probs - probs_cpu).max())
+    check(bool(np.isfinite(probs).all()) and prob_err <= PROB_ATOL,
+          f"cluster serving probabilities card vs CPU {prob_err}")
+    check(events == events_cpu and len(events) > 0, "cluster serving: card and CPU events differ")
+    tree = {"params": params, "model_state": state}
+    mel = frontend.normalize(frontend.extract(pcm, fe, device="cpu"), stats)
+    logits = stream_logits(load_model(tree, m, "cuda"), mel.cuda()).cpu()
+    logits_cpu = stream_logits(load_model(tree, m, "cpu"), mel)
+    logit_err = _maxdiff(logits, logits_cpu)
+    check(logit_err <= LOGIT_ATOL, f"cluster serving logits card vs CPU {logit_err}")
+    print(f"[kernel B wide] serving gru_hidden {tuple(m.gru_hidden)} (cluster body): the 120 s "
+          f"wav through infer_file_artifact, {n_chunks} chunks, card vs CPU probabilities "
+          f"{prob_err:.3g}, {len(events)} events equal, logits {logit_err:.3g}; card {card_s:.2f} "
+          f"s, CPU {cpu_s:.2f} s; launches {counts}")
+    return {"launches": layers * n_chunks, "prob_err": prob_err, "logit_err": logit_err}
+
+
 # The wide body's precision on a badly conditioned recurrence: the stacked
 # check's shape at H=128 with wh at the warp widths' scale (0.3 N(0, 1)) and
 # at smaller ones, against float64.
@@ -4529,18 +4841,23 @@ def _wide_precision() -> dict:
 
 
 def phase_gru_wide() -> dict:
-    """[kernel B wide]: the wide body's checks at every width, batch,
-    convention, gate and direction, pair and stacked; its precision against
-    float64 (`_wide_precision`); its times at WIDE_TIMED."""
+    """[kernel B wide]: the wide and cluster bodies' checks at every width,
+    batch, convention, gate and direction, pair and stacked; the wide body's
+    precision against float64 (`_wide_precision`) and times at WIDE_TIMED;
+    the cluster body's times at CLUSTER_TIMED in turns with the L2 tier."""
     t0 = time.perf_counter()
     worst = _wide_checks()
-    stack = _stack_kernel_checks(WIDE_STACK_SHAPES, "[kernel B wide]", seed=23)
-    for k in worst:
-        worst[k] = max(worst[k], stack[k])
+    for body in ("wide", "cluster"):
+        shapes = [s for s in WIDE_STACK_SHAPES if (s[3] <= 128) == (body == "wide")]
+        stack = _stack_kernel_checks(shapes, "[kernel B wide]", seed=23)
+        for k in worst[body]:
+            worst[body][k] = max(worst[body][k], stack[k])
     precision = _wide_precision()
     times = {H: _wide_times(H) for H in WIDE_TIMED}
+    cluster = _cluster_times()
     print(f"[kernel B wide] kernel checks and times in {time.perf_counter() - t0:.1f} s")
-    return {"worst": worst, "times": times, "precision": precision}
+    return {"worst": worst["wide"], "cluster_worst": worst["cluster"], "times": times,
+            "precision": precision, "cluster_times": cluster}
 
 
 def _wide_entry(wide: dict, paths: dict, train: dict, serving_err: float) -> dict:
@@ -4566,6 +4883,33 @@ def _wide_entry(wide: dict, paths: dict, train: dict, serving_err: float) -> dic
             "times": {str(h): v for h, v in wide["times"].items()},
             "precision_h128": {str(w): v for w, v in wide["precision"].items()},
             "at_h32": {k: train[k] for k in train if k.endswith("_at_32")}}
+
+
+def _cluster_entry(wide: dict, paths: dict) -> dict:
+    """The cluster body's entry of the kernels line: a pair's residual
+    forward at H=CLUSTER_TIMED, B=TRAIN_BATCH, reset_after=True (the
+    CLUSTER_SEDNET training path's width) as the headline, beside a
+    bidirectional `torch.nn.GRU`'s forward; its other times, the L2 tier's
+    in turns, its launches by path and worst errors."""
+    t = wide["cluster_times"]
+    worst = wide["cluster_worst"]
+    return {"name": "gru_cluster", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_cluster.cu",
+            "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
+            "replaces_backward": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
+            "shape": f"pair, B={TRAIN_BATCH} T={GRU_T} H={t['H']} reset_after=True, residual "
+                     "forward",
+            "max_abs_err": max(worst["fwd"], t["fwd_res_cluster_err"], t["fwd_b1_cluster_err"]),
+            "bwd_max_rel_err": max(worst["bwd"], t["bwd_cluster_rel_err"]),
+            "dwh_max_rel_err": worst["dwh"],
+            "ms": t["fwd_res_cluster_ms"], "plain_ms": t["fwd_res_plain_ms"],
+            "bound_ms": t["fwd_res_bound_ms"], "bound_by": t["fwd_res_bound_by"],
+            "library_ms": t["fwd_res_library_ms"],
+            "library_variant": "bidirectional torch.nn.GRU, reset_after=True, sigmoid",
+            "l2_tier_ms": t["fwd_res_wide_ms"], "launches_by_path": paths["cluster_launches"],
+            "train_step": {k: paths["cluster_step"][k] for k in ("loss_rel", "grad_rel", "bn")},
+            "serving_prob_err": paths["cluster_serving"]["prob_err"],
+            "serving_logit_err": paths["cluster_serving"]["logit_err"],
+            "times": t}
 
 
 def _wide_serving(cfg, best: str) -> dict:
@@ -4602,7 +4946,7 @@ def _wide_serving(cfg, best: str) -> dict:
         torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     counts = _gru_counts()
-    want = _gru_path_counts(layers * n_chunks, 0, True)
+    want = _gru_path_counts(layers * n_chunks, 0, "wide")
     check(counts == want and not plain_on_card, f"wide streaming launches {counts} != {want}")
     logits_cpu = stream_logits(cpu, mel)
     logit_err = _maxdiff(logits.cpu(), logits_cpu)
@@ -4616,7 +4960,7 @@ def _wide_serving(cfg, best: str) -> dict:
         probs = forward_probabilities([card], xw, 256)
         torch.cuda.synchronize()
     counts = _gru_counts()
-    want = _gru_path_counts(layers * 2, 0, True)
+    want = _gru_path_counts(layers * 2, 0, "wide")
     check(counts == want and not plain_on_card, f"wide forward_probabilities launches {counts}")
     probs_cpu = forward_probabilities([cpu], xw[:16], 16)
     prob_err = _maxdiff(probs[:16].cpu(), probs_cpu)
@@ -4689,7 +5033,7 @@ def _wide_stacked(workdir: str) -> dict:
         stacked_step()
         torch.cuda.synchronize()
     counts = _gru_counts()
-    want = _gru_path_counts(0, layers, True)
+    want = _gru_path_counts(0, layers, "wide")
     check(counts == want and not plain_on_card, f"wide stacked step launches {counts} != {want}")
     step_ms = _median_ms(stacked_step, reps=5)
     worst = _stack_kernel_checks([(STACK_RUNS, batch, m.seq_len_out, h) for h in
@@ -4713,7 +5057,7 @@ def _wide_stacked(workdir: str) -> dict:
         counts = _gru_counts()
         per = 1 if mode == "stacked" else STACK_RUNS
         want = _gru_path_counts(per * layers * n_val * STACK_EPOCHS,
-                                per * layers * n_train * STACK_EPOCHS, True)
+                                per * layers * n_train * STACK_EPOCHS, "wide")
         check(counts == want and not plain_on_card,
               f"wide --runs-mode {mode} launches {counts} != {want}")
         if mode == "stacked":
@@ -4761,11 +5105,13 @@ def _wide_stacked(workdir: str) -> dict:
             "loss_rel": worst_loss, "metric": worst_metric, "step_gaps": gaps}
 
 
-def phase_wide_paths(workdir: str) -> dict:
-    """[kernel B wide]'s three full-width paths on the wide body: `run_fold`
-    and a card-vs-CPU train step of sednet-dcase with WIDE_SEDNET's GRUs, that
-    checkpoint served, and stacked multi-seed timepooled-v2 with WIDE_V2's.
-    Returns the wide body's launches on each path and the errors."""
+def phase_wide_paths(workdir: str, pcm: np.ndarray) -> dict:
+    """[kernel B wide]'s full-width paths: on the wide body `run_fold` and a
+    card-vs-CPU train step of sednet-dcase with WIDE_SEDNET's GRUs, that
+    checkpoint served, and stacked multi-seed timepooled-v2 with WIDE_V2's;
+    on the cluster body a card-vs-CPU train step of sednet-dcase with
+    CLUSTER_SEDNET's GRUs and that model served on the 120 s wav. Returns
+    each body's launches on each path and the errors."""
     t0 = time.perf_counter()
     train_launches, cfg, _ = phase_train(os.path.join(workdir, "train"), WIDE_SEDNET,
                                          "[kernel B wide] train")
@@ -4775,9 +5121,17 @@ def phase_wide_paths(workdir: str) -> dict:
     launches = {"train": train_launches["gru_wide"] + step["launches"],
                 "serving": serving["launches"], "stacked": stacked["launches"]}
     check(all(v > 0 for v in launches.values()), f"wide body launches by path {launches}")
-    print(f"[kernel B wide] the wide body's launches by path {launches}; paths in "
-          f"{time.perf_counter() - t0:.1f} s")
-    return {"launches": launches, "step": step, "serving": serving, "stacked": stacked}
+    cluster_step = phase_train_step(CLUSTER_SEDNET, "[kernel B wide] cluster train step")
+    os.makedirs(os.path.join(workdir, "cluster"))
+    cluster_serving = _cluster_serving(os.path.join(workdir, "cluster"), pcm)
+    cluster_launches = {"train": cluster_step["launches"], "serving": cluster_serving["launches"]}
+    check(all(v > 0 for v in cluster_launches.values()),
+          f"cluster body launches by path {cluster_launches}")
+    print(f"[kernel B wide] the wide body's launches by path {launches}, the cluster body's "
+          f"{cluster_launches}; paths in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "step": step, "serving": serving, "stacked": stacked,
+            "cluster_launches": cluster_launches, "cluster_step": cluster_step,
+            "cluster_serving": cluster_serving}
 
 
 PARALLEL_EPOCHS = 2
@@ -5457,7 +5811,7 @@ def main() -> int:
         import_launches, import_numbers = phase_import(os.path.join(workdir, "import"), pcm)
         parallel = phase_parallel(train_dir, os.path.join(workdir, "parallel"))
         wide = phase_gru_wide()
-        wide_paths = phase_wide_paths(os.path.join(workdir, "wide"))
+        wide_paths = phase_wide_paths(os.path.join(workdir, "wide"), pcm)
     kernel_b.update(eval_numbers)
     kernel_b.update(serve_numbers)
     kernel_b["max_abs_err"] = max(kernel_b["max_abs_err"], serve_numbers["serve_max_abs_err"])
@@ -5473,6 +5827,7 @@ def main() -> int:
     launches["fused_logmel_mixed"] = mixed_launches
     launches["fused_logmel_cluster"] = cluster_launches
     launches["gru_wide"] = sum(wide_paths["launches"].values())
+    launches["gru_cluster"] = sum(wide_paths["cluster_launches"].values())
     # kernel B's stacked launches (one per kernel for all seeds) on the
     # stacked main path, and its stacked numbers at timepooled-v2's H=16
     for k in ("gru_scan_fwd", "gru_scan_fwd_res", "gru_scan_bwd", "gru_dwh"):
@@ -5498,6 +5853,7 @@ def main() -> int:
     kernel_bwd["max_abs_err"] = max(kernel_bwd["max_abs_err"], stack["worst"]["bwd"])
     kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])
     kernel_wide = _wide_entry(wide, wide_paths, wide_train, wide_serving_err)
+    kernel_cluster_b = _cluster_entry(wide, wide_paths)
     # [tools]: each kernel's device time per launch in the profile_trace trace
     for entry, kind in ((kernel_a, "fused_logmel"), (kernel_b, "gru_scan_fwd"),
                         (kernel_fwd_res, "gru_scan_fwd_res"), (kernel_bwd, "gru_scan_bwd"),
@@ -5508,7 +5864,7 @@ def main() -> int:
     kernels = []
     head = ("name", "route", "source", "replaces")
     for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_cluster, kernel_b,
-              kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_wide):
+              kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_wide, kernel_cluster_b):
         kernels.append({**{key: k[key] for key in head}, "launches": launches[k["name"]],
                         **{key: v for key, v in k.items() if key not in head}})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]

@@ -3,7 +3,8 @@
 // over the lanes, both directions of a BiGRU and every seed of a stack in one
 // launch, and the backward's dwh/dbh reduced after the chain.
 //
-// Replaces, for 32 < H (the warp body, csrc/gru_warp.cu, takes H <= 32), the
+// Replaces, for 32 < H <= 128 and H > 512 (the warp body, csrc/gru_warp.cu,
+// takes H <= 32, the cluster body, csrc/gru_cluster.cu, 128 < H <= 512), the
 // TPU kernels of sed_crnn_tpu/ops/pallas/gru_scan.py:
 //   * `_fwd_kernel` with with_res=False (`gru_scan_tc`) and with_res=True
 //     (`_gru_fwd`): gru_wide_fwd<KS, R, false / true>, and gru_wide_fwd_l2
@@ -59,11 +60,14 @@
 //     keeps the 1e-4 band), the rows split into a fixed number of slices
 //     that depends on B, T and H only, so a seed of a stack sums in the same
 //     order as alone;
-//   * above the register tier (H > 128: wh is 786 KB at H=256) the L2 tier
-//     gru_wide_*_l2 reads each step's weight slices through the cache
-//     (__ldg), one batch row a block, up to 1,024 threads looping over the
-//     units, the state rows in a global scratch the wrapper allocates: any
-//     width, correct and slow;
+//   * above the register tier the L2 tier gru_wide_*_l2 reads each step's
+//     weight slices through the cache (__ldg), one batch row a block, up to
+//     1,024 threads looping over the units, the state rows in a global
+//     scratch the wrapper allocates: any width, correct and slow (12.7 ms
+//     for a pair's residual forward at H=256, B=128, T=256, against the
+//     cluster body's 3.4 on an H100). The main path takes it only above the
+//     cluster body's 512, where a CTA's shared memory cannot hold a
+//     sixteenth of wh; below, only the private launch does;
 //   * the dynamic shared memory attribute and the occupancy are read once
 //     per kernel and device.
 

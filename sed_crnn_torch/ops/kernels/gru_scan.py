@@ -9,17 +9,25 @@ batch-major contract: ``xp (B, T, 3H)`` pre-projected inputs
 ``h_last (B, H)``. Both ``reset_after`` conventions, ``sigmoid`` and
 keras-2.2 ``hard_sigmoid`` gates, and reverse time.
 
-Two CUDA bodies, chosen by `gru_body` from the hidden width H, forward and
+Three CUDA bodies, chosen by `gru_body` from the hidden width H, forward and
 backward alike; every H >= 1 runs one of them:
 
 * ``"warp"`` (``csrc/gru_warp.cu``), H <= 32 (every preset): one warp per
   batch row (or 32 / HP rows, HP = H rounded up to a power of two), the
   recurrent weights in registers;
-* ``"wide"`` (``csrc/gru_wide.cu``), H > 32: four lanes per hidden unit, each
-  holding a quarter of the unit's weights in registers up to H = 128 (read
-  through L2 above), R batch rows a block.
+* ``"wide"`` (``csrc/gru_wide.cu``), 32 < H <= 128 and H > `CLUSTER_MAX_H`:
+  four lanes per hidden unit, each holding a quarter of the unit's weights
+  in registers up to H = 128 (the register tier), R batch rows a block;
+  above `CLUSTER_MAX_H` one row a block reading its weights through L2 (the
+  L2 tier);
+* ``"cluster"`` (``csrc/gru_cluster.cu``), 128 < H <= `CLUSTER_MAX_H` (512):
+  the recurrent weights resident in the shared memory of a thread-block
+  cluster of `cluster_ctas` (H) CTAs, each CTA holding its units' part, R
+  batch rows a cluster, the new state exchanged through distributed shared
+  memory each step. Its backward reduces ``dwh``/``dbh`` with the wide
+  body's kernels.
 
-Both run one or two directions (and S seeds) per launch, and reduce the
+All run one or two directions (and S seeds) per launch, and reduce the
 backward's ``dwh``/``dbh`` after the gradient chain by a separate kernel over
 the stored rows (`gru_dwh_plain` is its reference), summed in a fixed order.
 
@@ -52,9 +60,10 @@ direction carries a leading seed axis, ``xp (S, B, T, 3H)``, ``wh (S, H,
 3H)``, ``bh (S, 3H)``, ``h0 (S, B, H)``, and so does every result. Each
 kernel launches once per call for all S seeds x 2 directions, counted in the
 counters above. A CPU tensor runs the plain versions seed by seed.
-``gru_scan.wide_launches`` counts the launches of the wide body's
-recurrences (forward, residual forward, backward chain) among all of the
-above. The kernels stream every per-step array, so any T and B are taken.
+``gru_scan.wide_launches`` and ``gru_scan.cluster_launches`` count the
+launches of the wide and cluster bodies' recurrences (forward, residual
+forward, backward chain) among all of the above. The kernels stream every
+per-step array, so any T and B are taken.
 """
 
 from __future__ import annotations
@@ -69,6 +78,22 @@ from sed_crnn_torch.ops.kernels import _build
 
 GATES = ("sigmoid", "hard_sigmoid")
 WARP_MAX_HIDDEN = 32  # the warp body: lane j owns hidden unit j
+REGISTER_MAX_HIDDEN = 128  # the wide body's register tier
+BODIES = ("warp", "wide", "cluster")
+
+# The cluster body's plan, as csrc/gru_cluster.cu computes it (the card's
+# library reports the same numbers: `gru_cluster_ctas`, `_smem_bytes`,
+# `_max_h`). A group of CLUSTER_KQ lanes owns CLUSTER_UNITS_PER_GROUP
+# hidden units of a CTA; a CTA's shared memory holds its units' weights (3,
+# UP, HP + 4), the state rows and a staging ring of CLUSTER_STAGES steps.
+CLUSTER_KQ = 16
+CLUSTER_UNITS_PER_GROUP = 2
+CLUSTER_STAGES = 4
+CLUSTER_MAX_THREADS = 256
+CLUSTER_MAX_SMEM = 232448          # 227 KB, a CTA's opt-in limit on Hopper
+CLUSTER_MAX_CTAS = 16              # the non-portable cluster limit
+CLUSTER_WEIGHT_BYTES = 104000      # the rule's weight slice a CTA
+CLUSTER_ROWS = (1, 2, 4, 8, 16, 32)
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -100,13 +125,96 @@ def res_width(reset_after: bool, H: int) -> int:
     return 4 * H if reset_after else 3 * H
 
 
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def cluster_geometry(H: int, ctas: int) -> Tuple[int, int, int, int]:
+    """A CTA's share of width H on ``ctas`` CTAs: ``(U, UP, HP, WS)``, its
+    units, units rounded up to whole warps, the padded state row and the
+    padded weight row (floats)."""
+    U = -(-H // ctas)
+    HP = _round_up(H, 4 * CLUSTER_KQ)
+    return U, _round_up(U, 32 // CLUSTER_KQ * CLUSTER_UNITS_PER_GROUP), HP, HP + 4
+
+
+def cluster_threads(H: int, ctas: int) -> int:
+    """Threads a CTA: CLUSTER_KQ lanes for each group of units."""
+    return cluster_geometry(H, ctas)[1] // CLUSTER_UNITS_PER_GROUP * CLUSTER_KQ
+
+
+def cluster_smem_bytes(H: int, ctas: int, rows: int, backward: bool) -> int:
+    """Shared memory of a CTA of the cluster body: forward weights, state
+    rows (double-buffered), r h rows, the staged xp; backward weights, gate
+    gradients (double-buffered), the staged h_prev, r, z, n, hn, dys and the
+    lanes' carries."""
+    _, UP, HP, WS = cluster_geometry(H, ctas)
+    w = 3 * UP * WS
+    if not backward:
+        floats = w + 3 * rows * HP + CLUSTER_STAGES * rows * 3 * UP
+    else:
+        floats = w + 6 * rows * HP + CLUSTER_STAGES * rows * 6 * UP + 4 * rows * UP
+    return 4 * floats
+
+
+def cluster_ctas(H: int) -> int:
+    """The cluster size at width H, a function of H alone: the fewest CTAs,
+    a power of two, whose weight slice fits CLUSTER_WEIGHT_BYTES with at
+    most CLUSTER_MAX_THREADS threads; else CLUSTER_MAX_CTAS."""
+    C = 2
+    while C <= CLUSTER_MAX_CTAS:
+        _, UP, _, WS = cluster_geometry(H, C)
+        if (cluster_threads(H, C) <= CLUSTER_MAX_THREADS
+                and 12 * UP * WS <= CLUSTER_WEIGHT_BYTES):
+            return C
+        C *= 2
+    return CLUSTER_MAX_CTAS
+
+
+def cluster_fits(H: int, ctas: int, rows: int, backward: bool) -> bool:
+    return (cluster_threads(H, ctas) <= CLUSTER_MAX_THREADS
+            and cluster_smem_bytes(H, ctas, rows, backward) <= CLUSTER_MAX_SMEM)
+
+
+def _cluster_max_h() -> int:
+    H = 1
+    while all(cluster_fits(H + 1, cluster_ctas(H + 1), 1, bwd) for bwd in (False, True)):
+        H += 1
+    return H
+
+
+CLUSTER_MAX_H = _cluster_max_h()   # 512: C = 16, U = 32
+
+
+def cluster_rows(H: int, B: int, n_blocks: int, resident, backward: bool) -> int:
+    """The rows a cluster serves: the fewest of CLUSTER_ROWS whose
+    ceil(B / R) x ``n_blocks`` clusters the card holds at once
+    (``resident(R)``: the card's count at R's shared memory) or that cover
+    B, else the most that fit; 0 when none fits. Only the launch geometry
+    depends on it, never the order of a sum."""
+    C, best = cluster_ctas(H), 0
+    for R in CLUSTER_ROWS:
+        if not cluster_fits(H, C, R, backward):
+            break
+        n = resident(R)
+        if n < 1:
+            break
+        best = R
+        if -(-B // R) * n_blocks <= n or R >= B:
+            break
+    return best
+
+
 def gru_body(H: int, backward: bool = False) -> str:
     """The CUDA body that a hidden width H runs on, forward and backward
-    alike: ``"warp"`` (``csrc/gru_warp.cu``) for H <= 32, ``"wide"``
-    (``csrc/gru_wide.cu``) above."""
+    alike: ``"warp"`` (``csrc/gru_warp.cu``) for H <= 32, ``"cluster"``
+    (``csrc/gru_cluster.cu``) for 128 < H <= CLUSTER_MAX_H, ``"wide"``
+    (``csrc/gru_wide.cu``) at every other width."""
     if H <= 0:
         raise ValueError(f"hidden width must be positive, got {H}")
-    return "warp" if H <= WARP_MAX_HIDDEN else "wide"
+    if H <= WARP_MAX_HIDDEN:
+        return "warp"
+    return "cluster" if REGISTER_MAX_HIDDEN < H <= CLUSTER_MAX_H else "wide"
 
 
 def _steps(T: int, reverse: bool):
@@ -302,6 +410,42 @@ def _wide_lib() -> ctypes.CDLL:
     return lib
 
 
+@lru_cache(maxsize=None)
+def _cluster_lib() -> ctypes.CDLL:
+    """The cluster body, ``csrc/gru_cluster.cu``."""
+    return bind_cluster(_build.load("gru_cluster"))
+
+
+def bind_cluster(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C interface of a library built from ``csrc/gru_cluster.cu``."""
+    lib.gru_cluster_max_h.argtypes = []
+    lib.gru_cluster_max_h.restype = _i
+    lib.gru_cluster_ctas.argtypes = [_i]
+    lib.gru_cluster_ctas.restype = _i
+    lib.gru_cluster_smem_bytes.argtypes = [_i] * 4
+    lib.gru_cluster_smem_bytes.restype = ctypes.c_longlong
+    lib.gru_cluster_plan.argtypes = [_i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_cluster_plan.restype = _i
+    lib.gru_cluster_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 9 + [_p]
+    lib.gru_cluster_fwd_launch.restype = _i
+    lib.gru_cluster_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 8 + [_p]
+    lib.gru_cluster_bwd_launch.restype = _i
+    lib.gru_cluster_error_string.argtypes = [_i]
+    lib.gru_cluster_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def cluster_plan(n_dir: int, n_seed: int, B: int, H: int, backward: bool,
+                 with_res: bool = False, ctas: int = 0) -> dict:
+    """The cluster body's launch on the current card: ``{"ctas": C, "rows":
+    R, "threads": a CTA's, "smem": a CTA's bytes}`` (``ctas`` > 0 forces C)."""
+    lib = _cluster_lib()
+    out = (ctypes.c_longlong * 4)()
+    _raise_on(lib.gru_cluster_plan(n_dir, n_seed, B, H, int(backward), int(with_res), ctas, out),
+              "gru_cluster_plan", lib.gru_cluster_error_string)
+    return dict(zip(("ctas", "rows", "threads", "smem"), (int(v) for v in out)))
+
+
 def _scratch(lib, n_dir: int, n_seed: int, B: int, H: int, backward: bool,
              device) -> Optional[torch.Tensor]:
     """The wide body's global scratch above its register tier, else None."""
@@ -360,18 +504,20 @@ def _lead(stack: Optional[int]) -> tuple:
 
 def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
          reset_after: bool, gate_activation: str, with_res: bool,
-         body: Optional[str] = None, stack: Optional[int] = None) -> Tuple[List[tuple], int]:
+         body: Optional[str] = None, stack: Optional[int] = None,
+         ctas: int = 0) -> Tuple[List[tuple], int]:
     """Launch the forward of ``len(xps)`` (1 or 2) directions of one shape on
     the card, on ``body`` (default: `gru_body`'s choice; the private launch
-    takes either body at any width) -> per direction ``(ys, res or None,
-    h_last)``, and the number of launches. ``stack``: the seed count S of
-    stacked operands (both directions), None for unstacked ones."""
+    takes any body at any width it can hold) -> per direction ``(ys, res or
+    None, h_last)``, and the number of launches. ``stack``: the seed count S
+    of stacked operands (both directions), None for unstacked ones.
+    ``ctas`` > 0 forces the cluster body's cluster size."""
     dev = xps[0].device
     lead = _lead(stack)
     B, T, H3 = xps[0].shape[-3:]
     H, chosen = _validate(H3, gate_activation)
     body = body or chosen
-    if body not in ("warp", "wide"):
+    if body not in BODIES:
         raise ValueError(f"unknown GRU body {body!r}")
     dirs = []
     for x, wh, bh, h0 in zip(xps, whs, bhs, h0s):
@@ -400,6 +546,11 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
             lib = _warp_lib()
             status = lib.gru_warp_fwd_launch(arr, *shape, stream)
             _raise_on(status, "gru_warp_fwd", lib.gru_warp_error_string)
+        elif body == "cluster":
+            lib = _cluster_lib()
+            status = lib.gru_cluster_fwd_launch(arr, *shape, ctas, stream)
+            _raise_on(status, "gru_cluster_fwd", lib.gru_cluster_error_string)
+            gru_scan.cluster_launches += 1
         else:
             lib = _wide_lib()
             scratch = _scratch(lib, n_dir, n_seed, B, H, False, dev)
@@ -411,17 +562,18 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
 
 def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_after: bool,
          gate_activation: str, body: Optional[str] = None,
-         stack: Optional[int] = None) -> List[tuple]:
+         stack: Optional[int] = None, ctas: int = 0) -> List[tuple]:
     """Launch the backward of ``len(ys_s)`` directions of one shape on the
     card: the gradient chain, the ``dwh``/``dbh`` reduction and the
     fixed-order sum of its partials -> per direction ``(dxp, dwh, dbh,
-    dh0)``; counts its launches. ``body`` and ``stack`` as for `_fwd`."""
+    dh0)``; counts its launches. ``body``, ``stack`` and ``ctas`` as for
+    `_fwd` (the cluster body's reduction is the wide body's)."""
     dev = ys_s[0].device
     lead = _lead(stack)
     B, T, H = ys_s[0].shape[-3:]
     _, chosen = _validate(3 * H, gate_activation)
     body = body or chosen
-    if body not in ("warp", "wide"):
+    if body not in BODIES:
         raise ValueError(f"unknown GRU body {body!r}")
     RW = res_width(reset_after, H)
     dirs = [(_checked("ys", ys, lead + (B, T, H), dev),
@@ -447,6 +599,14 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
             lib, name = _warp_lib(), "gru_warp"
             status = lib.gru_warp_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, stream)
             n_part = lib.gru_warp_dwh_blocks(B, T)
+        elif body == "cluster":
+            clib = _cluster_lib()
+            status = clib.gru_cluster_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, ctas,
+                                                 stream)
+            _raise_on(status, "gru_cluster_bwd", clib.gru_cluster_error_string)
+            gru_scan.cluster_launches += 1
+            lib, name = _wide_lib(), "gru_wide"
+            n_part = lib.gru_wide_dwh_splits(B, T, H)
         else:
             lib, name = _wide_lib(), "gru_wide"
             scratch = _scratch(lib, n_dir, n_seed, B, H, True, dev)
@@ -510,6 +670,7 @@ def gru_scan(
 
 gru_scan.launches = 0
 gru_scan.wide_launches = 0
+gru_scan.cluster_launches = 0
 
 
 def gru_scan_fwd_res(

@@ -140,8 +140,9 @@ def test_gru_body_by_hidden_width(H_, forward, backward):
 def test_gru_body_rejects_widths_no_body_takes():
     """Every positive width has a body; only H <= 0 raises."""
     assert gru_body(1) == "warp"
-    for h, bwd in ((128, False), (129, False), (65, True), (4096, True)):
-        assert gru_body(h, backward=bwd) == "wide"
+    for h, bwd, body in ((128, False, "wide"), (129, False, "cluster"), (65, True, "wide"),
+                         (4096, True, "wide")):
+        assert gru_body(h, backward=bwd) == body
     for h, bwd in ((0, False), (-1, False), (0, True)):
         with pytest.raises(ValueError):
             gru_body(h, backward=bwd)

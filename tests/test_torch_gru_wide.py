@@ -1,13 +1,13 @@
-"""Kernel B at the widths the wide body serves (H > 32, ``csrc/gru_wide.cu``)
-on CPU tensors: the port's `BiGRU` and its pair entry points
-(`gru_scan_pair`, `gru_scan_pair_fwd_res`, `gru_scan_pair_bwd`, through
-`GruScanPairFn`) against the JAX package's `BiGRU.apply` on its Pallas
+"""Kernel B above the warp body (H > 32: ``csrc/gru_wide.cu``, and
+``csrc/gru_cluster.cu`` at 129 and 256) on CPU tensors: the port's `BiGRU`
+and its pair entry points (`gru_scan_pair`, `gru_scan_pair_fwd_res`,
+`gru_scan_pair_bwd`, through `GruScanPairFn`) against the JAX package's `BiGRU.apply` on its Pallas
 `gru_scan` (interpreted on the CPU, gradients through its custom-VJP
 backward kernel); `StackedCRNN` with wide GRUs against ``jax.vmap`` of the
 JAX model; the dispatch and the source's build rules.
 
 Small shapes (T=12, B=3), weights scaled by 1/sqrt(fan-in) so that the
-activations stay in range at H=128. Tolerance 1e-5 absolute, as in
+activations stay in range at H=256. Tolerance 1e-5 absolute, as in
 tests/test_torch_gru_warp.py: float32 on both sides, the same per-step
 arithmetic up to reassociation in the products and the batch sums.
 """
@@ -42,7 +42,7 @@ from tests.test_torch_model import narrowed, port_model
 ATOL = 1e-5
 B, T, IN = 3, 12, 10
 DIRS = ("fwd", "bwd")
-WIDTHS = [33, 64, 96, 128]
+WIDTHS = [33, 64, 96, 128, 129, 256]   # 129 and 256: the cluster tier on the card
 # (reset_after, gate, carried h0): both conventions, both gates.
 CASES = [(False, "hard_sigmoid", True), (False, "sigmoid", False),
          (True, "sigmoid", True), (True, "hard_sigmoid", False)]
@@ -204,8 +204,11 @@ def test_stacked_crnn_with_wide_grus_matches_jax_vmap():
 
 @pytest.mark.parametrize("H_", [33, 48, 64, 96, 128, 129, 256, 1000])
 def test_every_width_above_32_runs_the_wide_body(H_):
-    assert gru_body(H_) == "wide"
-    assert gru_body(H_, backward=True) == "wide"
+    """The wide body up to H = 128 and above CLUSTER_MAX_H (512); the
+    cluster body between (tests/test_torch_gru_cluster.py)."""
+    want = "cluster" if H_ in (129, 256) else "wide"
+    assert gru_body(H_) == want
+    assert gru_body(H_, backward=True) == want
 
 
 def test_wide_source_is_built_and_calls_no_library():

@@ -75,8 +75,9 @@ def cuda():
     return torch.device("cuda")
 
 
-# H <= 32 runs the warp body (csrc/gru_warp.cu), H > 32 the wide one
-# (csrc/gru_wide.cu; registers up to 128, L2 above).
+# H <= 32 runs the warp body (csrc/gru_warp.cu), 32 < H <= 128 the wide one
+# (csrc/gru_wide.cu, registers), 128 < H <= 512 the cluster body
+# (csrc/gru_cluster.cu), H > 512 the wide body's L2 tier.
 GRU_SHAPES = [(1, 1, 4), (3, 7, 8), (7, 45, 16), (5, 300, 32), (2, 20, 64), (3, 30, 129)]
 
 
@@ -92,10 +93,12 @@ def test_gru_kernel_matches_plain(cuda, B, T, H, reset_after, gate, reverse):
     bh = t(0.1 * rng.standard_normal(3 * H)) if reset_after else None
     h0 = t(0.5 * rng.standard_normal((B, H)))
     launches, wide = gru_scan.launches, gru_scan.wide_launches
+    cluster = gru_scan.cluster_launches
     ys, hl = gru_scan(xp, wh, bh, h0, reset_after, gate, reverse)
     torch.cuda.synchronize()
     assert gru_scan.launches == launches + 1
     assert gru_scan.wide_launches == wide + (gru_body(H) == "wide")
+    assert gru_scan.cluster_launches == cluster + (gru_body(H) == "cluster")
     ys_p, hl_p = gru_scan_plain(xp, wh, bh, h0, reset_after, gate, reverse)
     torch.testing.assert_close(ys, ys_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(hl, hl_p, rtol=0, atol=1e-5)
@@ -124,6 +127,7 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
     n_fwd, n_bwd, n_sum = (gru_scan_fwd_res.launches, gru_scan_bwd.launches,
                            gru_scan_bwd.sum_launches)
     n_dwh, n_wide = gru_scan_bwd.dwh_launches, gru_scan.wide_launches
+    n_cluster = gru_scan.cluster_launches
     ys, res, hl = gru_scan_fwd_res(xp, wh, bh, h0, *conf)
     torch.cuda.synchronize()
     ys_p, res_p, hl_p = gru_scan_fwd_res_plain(xp, wh, bh, h0, *conf)
@@ -144,6 +148,7 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
     assert gru_scan_bwd.dwh_launches == n_dwh + 1
     wide = gru_body(H) == "wide"
     assert gru_scan.wide_launches == n_wide + 3 * wide  # fwd_res, fwd, bwd
+    assert gru_scan.cluster_launches == n_cluster + 3 * (gru_body(H) == "cluster")
 
 
 @pytest.mark.parametrize("reset_after", [False, True])
@@ -205,9 +210,10 @@ def test_gru_pair_launches_match_two_plain_directions(cuda, B, T, H, reset_after
     """One pair launch of each kernel, on either body, against the
     single-direction plain versions run forward and reversed."""
     xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 70 + H)
-    wide = gru_body(H) == "wide"
+    wide, cluster = gru_body(H) == "wide", gru_body(H) == "cluster"
     before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
-              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches)
+              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches,
+              gru_scan.cluster_launches)
     pair = gru_scan_pair(xp, wh, bh, h0, reset_after, gate)
     pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, gate)
     ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
@@ -215,7 +221,8 @@ def test_gru_pair_launches_match_two_plain_directions(cuda, B, T, H, reset_after
     torch.cuda.synchronize()
     assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
             gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches,
-            gru_scan.wide_launches) == tuple(b + 1 for b in before[:5]) + (before[5] + 3 * wide,)
+            gru_scan.wide_launches, gru_scan.cluster_launches) == tuple(
+                b + 1 for b in before[:5]) + (before[5] + 3 * wide, before[6] + 3 * cluster)
     for k, rev in enumerate((False, True)):
         conf = (reset_after, gate, rev)
         want = gru_scan_fwd_res_plain(xp[k], wh[k], bh[k], h0[k], *conf)
@@ -281,7 +288,7 @@ def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, re
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
 
 
-WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256]
+WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256, 512, 520]
 
 
 @pytest.mark.parametrize("H", WIDE_WIDTHS)
@@ -289,24 +296,28 @@ WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256]
 @pytest.mark.parametrize("reset_after", [False, True])
 @pytest.mark.parametrize("gate", ["sigmoid", "hard_sigmoid"])
 def test_wide_body_pair_matches_plain(cuda, H, B, reset_after, gate):
-    """The wide body (csrc/gru_wide.cu) at every width it serves, register
-    tier (H <= 128) and L2 tier: a pair's forward, residual forward and
+    """The bodies above the warp body at every width they serve: the wide
+    body's register tier (H <= 128), the cluster body (128 < H <= 512) and
+    the wide body's L2 tier (above): a pair's forward, residual forward and
     backward against the plain versions of both directions (1e-5; gradients
-    1e-4 of each one's largest magnitude), dwh bitwise equal run to run, one
-    launch of each kernel."""
+    1e-4 of each one's largest magnitude), the backward bitwise equal run to
+    run, one launch of each kernel on the body `gru_body` names."""
     T = 64
     xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 700 + H + B)
-    assert gru_body(H) == gru_body(H, backward=True) == "wide"
+    body = "cluster" if 128 < H <= 512 else "wide"
+    assert gru_body(H) == gru_body(H, backward=True) == body
     before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
-              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches)
+              gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches,
+              gru_scan.cluster_launches)
     pair = gru_scan_pair(xp, wh, bh, h0, reset_after, gate)
     pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, gate)
     ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
     first = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, gate)
     torch.cuda.synchronize()
     assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
-            gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches,
-            gru_scan.wide_launches) == tuple(b + 1 for b in before[:5]) + (before[5] + 3,)
+            gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches,
+            gru_scan.cluster_launches) == tuple(b + 1 for b in before[:5]) + (
+                before[5] + 3 * (body == "wide"), before[6] + 3 * (body == "cluster"))
     second = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, gate)
     for k, rev in enumerate((False, True)):
         conf = (reset_after, gate, rev)
@@ -320,18 +331,42 @@ def test_wide_body_pair_matches_plain(cuda, H, B, reset_after, gate):
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
 
 
+@pytest.mark.parametrize("H,ctas", [(129, 16), (256, 16), (256, 4)])
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_cluster_body_gives_the_same_bits_at_every_cluster_size(cuda, H, ctas, reset_after):
+    """The cluster body's sums run in an order that depends on H alone: a
+    forced cluster size (the private launch's ``ctas``) gives the rule's
+    bits, forward and backward chain; a cluster the body cannot launch (C = 4
+    at H = 256 needs 512 threads a CTA) raises and runs nothing else."""
+    xp, wh, bh, h0, dys, dhl = _gru_case(cuda, 8, 40, H, reset_after, 90 + H)
+    conf = (reset_after, "sigmoid")
+    if ctas == 4:
+        with pytest.raises(RuntimeError, match="gru_cluster_fwd"):
+            _fwd([xp], [wh], [bh], [h0], [False], *conf, True, "cluster", None, ctas)
+        return
+    outs = {}
+    for c in (0, ctas):
+        (fwd,), _ = _fwd([xp], [wh], [bh], [h0], [False], *conf, True, "cluster", None, c)
+        (bwd,) = _bwd([fwd[0]], [fwd[1]], [wh], [h0], [dys], [dhl], [False], *conf, "cluster",
+                      None, c)
+        outs[c] = fwd + bwd
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[ctas]))
+
+
 @pytest.mark.parametrize("H", [8, 32])
 def test_retained_body_still_matches_plain_at_warp_widths(cuda, H):
-    """The private launchers put the wide body on a width the warp body takes
-    (as chip_smoke.py times them side by side): same function."""
+    """The private launchers put the wide and cluster bodies on a width the
+    warp body takes (as chip_smoke.py times bodies side by side): same
+    function."""
     xp, wh, bh, h0, dys, dhl = _gru_case(cuda, 4, 50, H, True, 11)
     outs = {}
-    for body in ("warp", "wide"):
+    for body in ("warp", "wide", "cluster"):
         (fwd,), _ = _fwd([xp], [wh], [bh], [h0], [True], True, "sigmoid", True, body)
         (bwd,) = _bwd([fwd[0]], [fwd[1]], [wh], [h0], [dys], [dhl], [True], True, "sigmoid", body)
         outs[body] = fwd + bwd
-    for a, b in zip(outs["warp"], outs["wide"]):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(float(b.abs().max()), 1e-6))
+    for other in ("wide", "cluster"):
+        for a, b in zip(outs["warp"], outs[other]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(float(b.abs().max()), 1e-6))
 
 
 @pytest.mark.parametrize("reset_after", [False, True])
