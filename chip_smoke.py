@@ -188,34 +188,41 @@ exits non-zero and prints no result line:
     and the conv-128 split behind ``choose_runs_mode`` (timepooled-v1 x 2
     and x 4, sednet-dcase x 2, stacked against sequential steps);
 18. kernel B above the warp body ([kernel B wide]): the wide body
-    (``csrc/gru_wide.cu``: registers to H=128, the L2 tier above 512) and
-    the cluster body (``csrc/gru_cluster.cu``, 128 < H <= 512): pair
-    launches against the plain versions at H in WIDE_WIDTHS (33 .. 128 in
-    registers, 129, 256 and 512 on the cluster body, 520 through L2), B in
-    {1, 8, 128}, T=64, both conventions, both gates, both directions, one
-    launch of each kernel on the body `gru_body` names, each shape's
-    cluster plan (C, R, a CTA's shared memory, held against the Python
-    mirror), the backward bitwise run to run, and stacked (S=5) with seed 0
-    bitwise the unstacked pair on either body; at H=128 with wh up to 0.3
-    N(0, 1), against float64, beside the float32 plain version and the same
-    kernel built with exact gates; the wide body's times at H in {64, 128}
+    (``csrc/gru_wide.cu``, registers to H=128), the cluster body
+    (``csrc/gru_cluster.cu``, 128 < H <= 512) and the grid body
+    (``csrc/gru_grid.cu``, H > 512): pair launches against the plain
+    versions at H in WIDE_WIDTHS (33 .. 128 in registers, 129, 256 and 512
+    on the cluster body, 520, 768 and 1024 on the grid body with resident
+    weights, 1536 and 2048 streamed), B in {1, 8, 128}, T=64, both
+    conventions, both gates, both directions, one launch of each kernel on
+    the body `gru_body` names, each shape's cluster or grid plan (held
+    against the Python mirror; the CTAs the card holds at once), the
+    backward bitwise run to run, and stacked (S=5) with seed 0 bitwise the
+    unstacked pair on every body (520 and 1024 on the grid body); the grid
+    body's bits at forced K (40 and 66 CTAs a direction) and a pair of more
+    CTAs than half the SMs refused; the grid body at 256 units a CTA (a
+    pair at H=8449, B=2, T=4) against the plain versions, and a pair one
+    unit wider than its plan holds (H=16897) refused; at H=128 with wh up to 0.3 N(0, 1),
+    against float64, beside the float32 plain version and the same kernel
+    built with exact gates; the wide body's times at H in {64, 128}
     (forward at B=1, residual forward and backward at B=128, T=256) beside
     the plain versions, the bounds and ``torch.nn.GRU``; the cluster body's
-    at H=256 in turns with the L2 tier and a bidirectional ``torch.nn.GRU``
-    (a pair's forward at B=1, residual forward and backward with the chain /
-    dwh / sum split at B=128); then the full-width paths: ``run_fold`` (2
-    epochs) and a card-vs-CPU train step of ``sednet-dcase`` with
-    ``gru_hidden=(128, 128)``, that checkpoint through ``stream_logits``
-    (40 chunks, B=1) and ``forward_probabilities`` (B=256) against the CPU,
-    and ``timepooled-v2`` with ``gru_hidden=(64, 64)``: one 5-seed
-    ``MultiSeedTrainer`` step, the stacked kernels at its shape,
-    ``run_experiment_multiseed`` stacked against sequential, and the two
-    modes' per-step losses from one init (bf16 and float32 trunks, the
-    preset's GRUs and these); on the cluster body a card-vs-CPU train step
-    of ``sednet-dcase`` with ``gru_hidden=(256, 256)`` and that model,
-    exported, serving the 120 s wav through ``infer_file_artifact`` against
-    the CPU; exact launch counts by body on every path and no plain version
-    on the card;
+    at H=256 and the grid body's at H=1024 (and 2048 at B=128) in turns with
+    a bidirectional ``torch.nn.GRU`` (a pair's forward at B=1, residual
+    forward and backward with the chain / dwh / sum split at B=128); then
+    the full-width paths: ``run_fold`` (2 epochs) and a card-vs-CPU train
+    step of ``sednet-dcase`` with ``gru_hidden=(128, 128)``, that checkpoint
+    through ``stream_logits`` (40 chunks, B=1) and ``forward_probabilities``
+    (B=256) against the CPU, and ``timepooled-v2`` with ``gru_hidden=(64,
+    64)``: one 5-seed ``MultiSeedTrainer`` step, the stacked kernels at its
+    shape, ``run_experiment_multiseed`` stacked against sequential, and the
+    two modes' per-step losses from one init (bf16 and float32 trunks, the
+    preset's GRUs and these); on the cluster body (``gru_hidden=(256,
+    256)``) and on the grid body (``(1024, 1024)``) a card-vs-CPU train step
+    of ``sednet-dcase`` and that model, exported, serving the 120 s wav
+    through ``infer_file_artifact``, ``stream_logits`` (B=1) and
+    ``forward_probabilities`` (its 20 whole windows) against the CPU; exact
+    launch counts by body on every path and no plain version on the card;
 19. checkpoint migration ([import], after [serve]): the reference's v1 and
     v2 classes (`reference_model`: full width, weights from
     ``torch.Generator`` seeds, primed BatchNorm statistics) saved as a raw
@@ -1193,28 +1200,30 @@ def _gru_counts():
     return {"gru_scan_fwd": gru_scan.launches, "gru_scan_fwd_res": gru_scan_fwd_res.launches,
             "gru_scan_bwd": gru_scan_bwd.launches, "gru_dwh": gru_scan_bwd.dwh_launches,
             "gru_scan_sum_partials": gru_scan_bwd.sum_launches,
-            "gru_wide": gru_scan.wide_launches, "gru_cluster": gru_scan.cluster_launches}
+            "gru_wide": gru_scan.wide_launches, "gru_cluster": gru_scan.cluster_launches,
+            "gru_grid": gru_scan.grid_launches}
 
 
 def _reset_gru_counts():
     from sed_crnn_torch.ops.kernels.gru_scan import gru_scan, gru_scan_bwd, gru_scan_fwd_res
 
     gru_scan.launches = gru_scan_fwd_res.launches = gru_scan.wide_launches = 0
-    gru_scan.cluster_launches = 0
+    gru_scan.cluster_launches = gru_scan.grid_launches = 0
     gru_scan_bwd.launches = gru_scan_bwd.dwh_launches = gru_scan_bwd.sum_launches = 0
 
 
 def _gru_path_counts(fwd: int, steps: int, body: str = "warp") -> dict:
     """Exact GRU launch counts of a path with ``fwd`` no-grad BiGRU layer
     calls and ``steps`` train-step BiGRU layer calls: one pair launch of
-    each kernel per layer call, all on one body: the warp body, the wide
-    body or the cluster body (their recurrences, the forward, residual
-    forward and backward chain, counted in ``gru_wide`` / ``gru_cluster``)."""
-    check(body in ("warp", "wide", "cluster"), f"unknown GRU body {body!r}")
+    each kernel per layer call, all on one body: the warp, wide, cluster or
+    grid body (the last three's recurrences, the forward, residual forward
+    and backward chain, counted in ``gru_wide`` / ``gru_cluster`` /
+    ``gru_grid``)."""
+    check(body in ("warp", "wide", "cluster", "grid"), f"unknown GRU body {body!r}")
     return {"gru_scan_fwd": fwd, "gru_scan_fwd_res": steps, "gru_scan_bwd": steps,
             "gru_dwh": steps, "gru_scan_sum_partials": steps,
-            "gru_wide": fwd + 2 * steps if body == "wide" else 0,
-            "gru_cluster": fwd + 2 * steps if body == "cluster" else 0}
+            **{f"gru_{b}": fwd + 2 * steps if body == b else 0
+               for b in ("wide", "cluster", "grid")}}
 
 
 @contextlib.contextmanager
@@ -1350,7 +1359,8 @@ def phase_train_step(model_overrides: dict | None = None, tag: str = "[train ste
           f"{unclear} parameter elements with |g| inside the band; launches {launches}; "
           f"CPU step {cpu_s:.2f} s")
     return {"loss_rel": loss_rel, "grad_rel": worst_grad, "bn": bn_err,
-            "launches": launches["gru_wide"] + launches["gru_cluster"]}
+            "launches": launches["gru_wide"] + launches["gru_cluster"] + launches["gru_grid"],
+            "counts": launches}
 
 
 def phase_train(workdir: str, model_overrides: dict | None = None, tag: str = "[train]"):
@@ -1505,8 +1515,8 @@ TOOLS_ANNOTATIONS = ("frontend", "train step", "serve")
 # by the WITH_RES template argument, demangled or not), chain, dwh and sum.
 TRACE_SYMBOLS = {
     "fused_logmel": ("logmel_fft_kernel", "logmel_mixed_kernel", "logmel_cluster_kernel"),
-    "gru_scan_fwd": ("gru_warp_fwd", "gru_wide_fwd", "gru_cluster_fwd"),
-    "gru_scan_bwd": ("gru_warp_bwd", "gru_wide_bwd", "gru_cluster_bwd"),
+    "gru_scan_fwd": ("gru_warp_fwd", "gru_wide_fwd", "gru_cluster_fwd", "gru_grid_fwd"),
+    "gru_scan_bwd": ("gru_warp_bwd", "gru_wide_bwd", "gru_cluster_bwd", "gru_grid_bwd"),
     "gru_dwh": ("gru_warp_dwh", "gru_wide_dwh"),
     "gru_scan_sum_partials": ("gru_warp_sum", "gru_wide_sum"),
 }
@@ -4224,32 +4234,45 @@ def phase_import(workdir: str, pcm: np.ndarray):
 
 
 # Kernel B above the warp body: the wide body's register tier to H = 128,
-# the cluster body (csrc/gru_cluster.cu) to CLUSTER_MAX_H = 512, the wide
-# body's L2 tier above (520).
-WIDE_WIDTHS = (33, 48, 64, 96, 128, 129, 256, 512, 520)
+# the cluster body (csrc/gru_cluster.cu) to CLUSTER_MAX_H = 512, the grid
+# body (csrc/gru_grid.cu) above: weights resident to GRID_RESIDENT_MAX_H =
+# 1056 (520, 768, 1024), streamed at 1536 and 2048.
+WIDE_WIDTHS = (33, 48, 64, 96, 128, 129, 256, 512, 520, 768, 1024, 1536, 2048)
 WIDE_BATCHES = (1, 8, 128)
 WIDE_CHECK_T = 64
 WIDE_TIMED = (64, 128)     # the wide body's register tier; H = 256 in `_cluster_times`
-CLUSTER_TIMED = 256        # the cluster body in turns with the L2 tier and the library
-WIDE_STACK_SHAPES = [(5, 8, 32, H) for H in (48, 64, 128, 129, 256)]
+CLUSTER_TIMED = 256        # the cluster body in turns with the library
+GRID_TIMED = (1024, 2048)  # the grid body in turns with the library (2048 at B = 128 only)
+WIDE_STACK_SHAPES = [(5, 8, 32, H) for H in (48, 64, 128, 129, 256, 520, 1024)]
+GRID_FORCED_K = (40, 66)   # a pair's CTAs a direction forced: other units a CTA, same bits
+GRID_WIDEST = 8449         # the first width whose pair's CTAs hold 256 units, the most
+GRID_REFUSED = 16897       # a pair one unit wider than 66 CTAs x 256 units: no plan
 WIDE_SEDNET = {"gru_hidden": (128, 128)}   # SELDnet's (DCASE 2019 Task 3) recurrent width
 CLUSTER_SEDNET = {"gru_hidden": (256, 256)}   # the cluster body's full-width paths
+GRID_SEDNET = {"gru_hidden": (1024, 1024)}    # the grid body's full-width paths
 WIDE_V2 = {"gru_hidden": (64, 64)}
 # Its operands scale wh by 1 / sqrt(H), so that the pre-activations keep one
 # spread at every width.
 
 
+def _body_of(H: int) -> str:
+    """The body that serves width H above the warp body, by the tier rule."""
+    from sed_crnn_torch.ops.kernels.gru_scan import CLUSTER_MAX_H, REGISTER_MAX_HIDDEN
+
+    return "wide" if H <= REGISTER_MAX_HIDDEN else "cluster" if H <= CLUSTER_MAX_H else "grid"
+
+
 def _wide_checks() -> dict:
-    """The wide and cluster bodies' pair launches against the plain versions
-    at every width of WIDE_WIDTHS (each on the body `gru_body` gives it) and
-    batch of WIDE_BATCHES, both conventions, both gates: one launch of each
-    kernel, forwards within GRU_ATOL, gradients and dwh (also on the
-    kernel's own dxp) within GRAD_RTOL, the backward bitwise equal run to
-    run. Returns the worst errors by body."""
+    """The wide, cluster and grid bodies' pair launches against the plain
+    versions at every width of WIDE_WIDTHS (each on the body `gru_body`
+    gives it) and batch of WIDE_BATCHES, both conventions, both gates: one
+    launch of each kernel, forwards within GRU_ATOL, gradients and dwh (also
+    on the kernel's own dxp) within GRAD_RTOL, the backward bitwise equal
+    run to run; each shape's plan held against the Python mirror. Returns
+    the worst errors by body."""
     import torch
 
     from sed_crnn_torch.ops.kernels.gru_scan import (
-        CLUSTER_MAX_H,
         GATES,
         gru_body,
         gru_dwh_plain,
@@ -4262,9 +4285,9 @@ def _wide_checks() -> dict:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(21)
-    worst = {b: {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0} for b in ("wide", "cluster")}
+    worst = {b: {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0} for b in ("wide", "cluster", "grid")}
     for H in WIDE_WIDTHS:
-        body = "cluster" if 128 < H <= CLUSTER_MAX_H else "wide"
+        body = _body_of(H)
         check(gru_body(H) == gru_body(H, backward=True) == body, f"H={H} not on the {body} body")
         want_counts = _gru_path_counts(1, 1, body)
         for B in WIDE_BATCHES:
@@ -4303,29 +4326,50 @@ def _wide_checks() -> dict:
             check(fwd_e <= GRU_ATOL, f"{body} H={H} B={B} forward {fwd_e}")
             for key, e in (("fwd", fwd_e), ("bwd", bwd_e), ("dwh", dwh_e)):
                 worst[body][key] = max(worst[body][key], e)
-            print(f"[kernel B wide] {body} body H={H:3d} B={B:3d} T={WIDE_CHECK_T}"
-                  f"{_cluster_plan_text(H, B)}: pair forward, residual "
+            print(f"[kernel B wide] {body} body H={H:4d} B={B:3d} T={WIDE_CHECK_T}"
+                  f"{_gru_plan_text(H, B)}: pair forward, residual "
                   f"forward and backward, both conventions and gates, one launch each; fwd "
                   f"max|diff| {fwd_e:.3g}, backward {bwd_e:.3g} and dwh on its own dxp "
                   f"{dwh_e:.3g} of max|grad|; dwh bitwise run to run")
     return worst
 
 
-def _cluster_plan_text(H: int, B: int, n_seed: int = 1) -> str:
-    """The cluster body's launch of a pair at (B, H) on this card, forward
-    and backward chain: C, R and a CTA's threads and shared memory; "" on
-    another body."""
-    from sed_crnn_torch.ops.kernels.gru_scan import cluster_plan, cluster_smem_bytes, gru_body
+def _gru_plan_text(H: int, B: int, n_seed: int = 1) -> str:
+    """The cluster or grid body's launch of a pair at (B, H) on this card,
+    forward and backward chain, held against the Python mirror: the cluster
+    body's C, R and a CTA's threads and shared memory; the grid body's K
+    CTAs a direction of U (UP) units, its lanes or tile body and rows a
+    pass, ring stages, resident or streamed weights, a CTA's shared memory
+    and the CTAs the card holds at once; "" on another body."""
+    import torch
 
-    if gru_body(H) != "cluster":
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+
+    body = gs.gru_body(H)
+    if body == "cluster":
+        parts = []
+        for backward in (False, True):
+            p = gs.cluster_plan(2, n_seed, B, H, backward, with_res=True)
+            check(p["smem"] == gs.cluster_smem_bytes(H, p["ctas"], p["rows"], backward),
+                  f"cluster plan {p} at H={H} B={B}: shared memory differs from the Python mirror")
+            parts.append(f"{'backward' if backward else 'forward'} C {p['ctas']} R {p['rows']} "
+                         f"{p['threads']} threads {p['smem']:,} B a CTA")
+        return " (" + "; ".join(parts) + ")"
+    if body != "grid":
         return ""
-    parts = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib, parts = gs._grid_lib(), []
     for backward in (False, True):
-        p = cluster_plan(2, n_seed, B, H, backward, with_res=True)
-        check(p["smem"] == cluster_smem_bytes(H, p["ctas"], p["rows"], backward),
-              f"cluster plan {p} at H={H} B={B}: shared memory differs from the Python mirror")
-        parts.append(f"{'backward' if backward else 'forward'} C {p['ctas']} R {p['rows']} "
-                     f"{p['threads']} threads {p['smem']:,} B a CTA")
+        p = gs.grid_plan_card(2, n_seed, B, H, backward, with_res=True)
+        mirror = gs.grid_plan(2, n_seed, B, H, backward, with_res=True, sms=sms)
+        check(p == mirror, f"grid plan at H={H} B={B}: card {p} vs Python mirror {mirror}")
+        held = lib.gru_grid_resident_ctas(2, B, H, int(backward), 1, 0)
+        check(held >= 2 * p["ctas"], f"grid H={H} B={B}: the card holds {held} CTAs at once")
+        parts.append(f"{'backward' if backward else 'forward'} K {p['ctas']} x {p['units']} "
+                     f"({p['units_padded']}) units, {'lanes' if p['split'] > 1 else 'tile'} "
+                     f"{p['rows']} rows a pass, stages {p['stages']}, "
+                     f"{'resident' if p['resident'] else 'streamed'}, {p['smem']:,} B a CTA, "
+                     f"{held} CTAs held at once")
     return " (" + "; ".join(parts) + ")"
 
 
@@ -4460,11 +4504,11 @@ def _wide_times(H: int) -> dict:
     return out
 
 
-def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf) -> dict:
+def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf, body: str) -> dict:
     """The three launches of a pair's backward apart, on the card's current
-    stream, as closures (outputs allocated once): the gradient chain on the
-    cluster body and on the wide body's L2 tier, then the dwh reduction
-    and the fixed-order sum that both share, on the chain's dxp."""
+    stream, as closures (outputs and scratch allocated once): the gradient
+    chain on the cluster or grid body, then the dwh reduction and the
+    fixed-order sum that both share, on the chain's dxp."""
     import torch
 
     from sed_crnn_torch.ops.kernels import gru_scan as gs
@@ -4477,22 +4521,27 @@ def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf) -> dict:
     chain = (gs._BwdDir * 2)(*(
         gs._BwdDir(*(t.data_ptr() for t in d), x.data_ptr(), d0.data_ptr(), k)
         for k, (d, x, d0) in enumerate(zip(zip(ys, rs, wh, h0, dys, dhl), dxp, dh0))))
-    cl, wl = gs._cluster_lib(), gs._wide_lib()
+    wl = gs._wide_lib()
     n_part, n = wl.gru_wide_dwh_splits(B, T, H), 3 * H * H + 3 * H
     part = torch.empty((2, 1, n_part, n), device=dev)
     sums = torch.empty((2, 1, n), device=dev)
     dwh = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(), x.data_ptr(),
                                         part[k].data_ptr(), k)
                              for k, (y, r, h, x) in enumerate(zip(ys, rs, h0, dxp))))
-    scratch = gs._scratch(wl, 2, 1, B, H, True, dev)
     stream = torch.cuda.current_stream().cuda_stream
-    return {
-        "cluster": lambda: gs._raise_on(
+    if body == "cluster":
+        cl = gs._cluster_lib()
+        run_chain = lambda: gs._raise_on(  # noqa: E731
             cl.gru_cluster_bwd_launch(chain, 2, 1, B, T, H, *flags, 0, stream),
-            "gru_cluster_bwd", cl.gru_cluster_error_string),
-        "wide": lambda: gs._raise_on(
-            wl.gru_wide_bwd_launch(chain, 2, 1, B, T, H, *flags, scratch.data_ptr(), stream),
-            "gru_wide_bwd", wl.gru_wide_error_string),
+            "gru_cluster_bwd", cl.gru_cluster_error_string)
+    else:
+        gl = gs._grid_lib()
+        scratch = gs._grid_scratch(gl, 2, B, H, True, dev)
+        run_chain = lambda: gs._raise_on(  # noqa: E731
+            gl.gru_grid_bwd_launch(chain, 2, 1, B, T, H, *flags, 0, scratch.data_ptr(), stream),
+            "gru_grid_bwd", gl.gru_grid_error_string)
+    return {
+        "chain": run_chain,
         "dwh": lambda: gs._raise_on(wl.gru_wide_dwh_launch(dwh, 2, 1, B, T, H, flags[0], stream),
                                     "gru_wide_dwh", wl.gru_wide_error_string),
         "sum": lambda: gs._raise_on(
@@ -4501,17 +4550,61 @@ def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf) -> dict:
     }
 
 
+def _in_turns(fns: dict, reps: dict, order) -> dict:
+    """Mean ms per call of each of ``fns``, CUDA events, in ``order`` (a
+    name that is not in ``fns`` is skipped)."""
+    ms = {k: [] for k in fns}
+    for k in order:
+        if k in fns:
+            ms[k].append(cuda_ms(fns[k], reps=reps[k], warmup=1))
+    return {k: float(np.mean(v)) for k, v in ms.items()}
+
+
+def _bigru_operands(rng, dev, B: int, H: int, T: int = GRU_T):
+    """Both directions' operands of a pair on the card, the same xp for both
+    (a bidirectional `torch.nn.GRU` reads one input): (xp, wh, bh, h0, dys,
+    dhl) pairs, wh scaled by 1 / sqrt(H)."""
+    d0, d1 = (_gru_inputs(rng, dev, B, H, True, T, H ** -0.5) for _ in range(2))
+    x = d0[0]
+    return (x, x), (d0[1], d1[1]), (d0[2], d1[2]), (d0[3], d1[3]), (d0[4], d1[4]), \
+        (d0[5], d1[5])
+
+
+def _bidirectional_library(xp, wh, bh, h0, dys, conf):
+    """A bidirectional `torch.nn.GRU` with the pair's weights, its outputs
+    held against the plain versions: (forward, forward + backward, err)."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_scan_plain
+
+    H = wh[0].shape[0]
+    lib = _library_gru(wh, bh, bidirectional=True)
+    x_in = xp[0].clone().requires_grad_()
+    h_lib = torch.stack(h0)
+    y, hl = lib(x_in, h_lib)
+    err = 0.0
+    for k, rev in enumerate((False, True)):
+        want = gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf, rev)
+        err = max(err, _maxdiff(y[..., k * H:(k + 1) * H], want[0]), _maxdiff(hl[k], want[1]))
+    check(err <= LIBRARY_ATOL, f"bidirectional torch.nn.GRU H={H}: {err}")
+    dy = torch.cat(dys, dim=-1)
+
+    def fwd_bwd():
+        o, _ = lib(x_in, h_lib)
+        torch.autograd.backward(o, dy)
+    return (lambda: lib(x_in, h_lib)), fwd_bwd, err
+
+
 def _cluster_times(H: int = CLUSTER_TIMED) -> dict:
-    """The cluster body at width H against the wide body's L2 tier and
-    `torch.nn.GRU`, T=GRU_T, reset_after=True sigmoid (the library's
-    convention), CUDA events, warm L2, in turns (cluster, L2, library,
-    library, L2, cluster; the two bodies through the private launch): a
-    pair's forward at B=1, a pair's residual forward and backward (chain +
-    dwh + sum, split by kernel on each body) at B=TRAIN_BATCH against a
-    bidirectional `torch.nn.GRU`'s forward and backward, and one direction's
-    residual forward at B=TRAIN_BATCH against a one-direction one; every
-    output held against its plain version first (the library's too), beside
-    the plain versions' times, the bounds and each shape's cluster plan."""
+    """The cluster body at width H against `torch.nn.GRU`, T=GRU_T,
+    reset_after=True sigmoid (the library's convention), CUDA events, warm
+    L2, in turns (cluster, library, library, cluster): a pair's forward at
+    B=1, a pair's residual forward and backward (chain + dwh + sum, split by
+    kernel) at B=TRAIN_BATCH against a bidirectional `torch.nn.GRU`'s
+    forward and backward, and one direction's residual forward at
+    B=TRAIN_BATCH against a one-direction one; every output held against its
+    plain version first (the library's too), beside the plain versions'
+    times, the bounds and each shape's cluster plan."""
     import torch
 
     from sed_crnn_torch.ops.kernels.gru_scan import (
@@ -4528,92 +4621,55 @@ def _cluster_times(H: int = CLUSTER_TIMED) -> dict:
     rng = np.random.default_rng(27)
     T, BT = GRU_T, TRAIN_BATCH
     conf = (True, "sigmoid")
-    order = ("cluster", "wide", "library", "library", "wide", "cluster")
+    order = ("cluster", "library", "library", "cluster")
     out = {"H": H, "T": T}
 
-    def in_turns(fns: dict, reps: dict) -> dict:
-        ms = {k: [] for k in fns}
-        for k in order:
-            if k in fns:
-                ms[k].append(cuda_ms(fns[k], reps=reps[k], warmup=1))
-        return {k: float(np.mean(v)) for k, v in ms.items()}
-
-    def operands(B):
-        d0, d1 = (_gru_inputs(rng, dev, B, H, True, T, H ** -0.5) for _ in range(2))
-        x = d0[0]
-        return (x, x), (d0[1], d1[1]), (d0[2], d1[2]), (d0[3], d1[3]), (d0[4], d1[4]), \
-            (d0[5], d1[5])
-
-    def library(xp, wh, bh, h0, dys):
-        lib = _library_gru(wh, bh, bidirectional=True)
-        x_in = xp[0].clone().requires_grad_()
-        h_lib = torch.stack(h0)
-        y, hl = lib(x_in, h_lib)
-        err = 0.0
-        for k, rev in enumerate((False, True)):
-            want = gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf, rev)
-            err = max(err, _maxdiff(y[..., k * H:(k + 1) * H], want[0]), _maxdiff(hl[k], want[1]))
-        check(err <= LIBRARY_ATOL, f"bidirectional torch.nn.GRU H={H}: {err}")
-        dy = torch.cat(dys, dim=-1)
-
-        def fwd_bwd():
-            o, _ = lib(x_in, h_lib)
-            torch.autograd.backward(o, dy)
-        return (lambda: lib(x_in, h_lib)), fwd_bwd, err
-
     # B = 1: a pair's forward.
-    xp, wh, bh, h0, dys, dhl = operands(1)
-    fwd = {b: (lambda b=b: _fwd(xp, wh, bh, h0, (False, True), *conf, False, b))
-           for b in ("cluster", "wide")}
+    xp, wh, bh, h0, dys, dhl = _bigru_operands(rng, dev, 1, H)
+    fwd = lambda: _fwd(xp, wh, bh, h0, (False, True), *conf, False, "cluster")  # noqa: E731
     plain = [gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)]
-    for b, fn in fwd.items():
-        outs, _ = fn()
-        err = max(max(_maxdiff(o[0], p[0]), _maxdiff(o[2], p[1])) for o, p in zip(outs, plain))
-        check(err <= GRU_ATOL, f"{b} H={H} pair forward B=1: {err}")
-        out[f"fwd_b1_{b}_err"] = err
-    lib_fwd, _, lib_err = library(xp, wh, bh, h0, dys)
+    outs, _ = fwd()
+    err = max(max(_maxdiff(o[0], p[0]), _maxdiff(o[2], p[1])) for o, p in zip(outs, plain))
+    check(err <= GRU_ATOL, f"cluster H={H} pair forward B=1: {err}")
+    out["fwd_b1_cluster_err"] = err
+    lib_fwd, _, lib_err = _bidirectional_library(xp, wh, bh, h0, dys, conf)
     with torch.no_grad():
-        ms = in_turns({**fwd, "library": lib_fwd}, {"cluster": 20, "wide": 5, "library": 10})
+        ms = _in_turns({"cluster": fwd, "library": lib_fwd}, {"cluster": 20, "library": 10}, order)
     out.update({f"fwd_b1_{k}_ms": v for k, v in ms.items()})
     out["fwd_b1_plain_ms"] = cuda_ms(lambda: [gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf,
                                                              k == 1) for k in (0, 1)],
                                      reps=2, warmup=1)
     (out["fwd_b1_bound_ms"], out["fwd_b1_bound_by"]), _, _ = _gru_bounds(1, 1, T, H, True)
-    out["fwd_b1_plan"] = _cluster_plan_text(H, 1)
+    out["fwd_b1_plan"] = _gru_plan_text(H, 1)
 
     # B = TRAIN_BATCH: a pair's residual forward and backward.
-    xp, wh, bh, h0, dys, dhl = operands(BT)
-    fres = {b: (lambda b=b: _fwd(xp, wh, bh, h0, (False, True), *conf, True, b))
-            for b in ("cluster", "wide")}
-    (res_c, res_w) = (fres["cluster"]()[0], fres["wide"]()[0])
+    xp, wh, bh, h0, dys, dhl = _bigru_operands(rng, dev, BT, H)
+    fres = lambda: _fwd(xp, wh, bh, h0, (False, True), *conf, True, "cluster")  # noqa: E731
+    res_c = fres()[0]
     want_f = [gru_scan_fwd_res_plain(xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)]
-    for b, outs in (("cluster", res_c), ("wide", res_w)):
-        err = max(max(_maxdiff(g, w) for g, w in zip(o, p)) for o, p in zip(outs, want_f))
-        check(err <= GRU_ATOL, f"{b} H={H} pair residual forward B={BT}: {err}")
-        out[f"fwd_res_{b}_err"] = err
+    err = max(max(_maxdiff(g, w) for g, w in zip(o, p)) for o, p in zip(res_c, want_f))
+    check(err <= GRU_ATOL, f"cluster H={H} pair residual forward B={BT}: {err}")
+    out["fwd_res_cluster_err"] = err
     ys, rs = tuple(o[0] for o in res_c), tuple(o[1] for o in res_c)
-    bwd = {b: (lambda b=b: _bwd(ys, rs, wh, h0, dys, dhl, (False, True), *conf, b))
-           for b in ("cluster", "wide")}
+    bwd = lambda: _bwd(ys, rs, wh, h0, dys, dhl, (False, True), *conf, "cluster")  # noqa: E731
     want_b = [gru_scan_bwd_plain(ys[k], rs[k], wh[k], h0[k], dys[k], dhl[k], *conf, k == 1)
               for k in (0, 1)]
-    for b, fn in bwd.items():
-        first, again = fn(), fn()
-        check(all(torch.equal(x, y) for f, a in zip(first, again) for x, y in zip(f, a)),
-              f"{b} H={H} backward B={BT} not bitwise equal run to run")
-        out[f"bwd_{b}_rel_err"] = max(_rel_err(g, w, f"{b} H={H} backward B={BT}")
-                                      for g, w in zip(first, want_b))
-    lib_fwd, lib_fwd_bwd, b128_err = library(xp, wh, bh, h0, dys)
+    first, again = bwd(), bwd()
+    check(all(torch.equal(x, y) for f, a in zip(first, again) for x, y in zip(f, a)),
+          f"cluster H={H} backward B={BT} not bitwise equal run to run")
+    out["bwd_cluster_rel_err"] = max(_rel_err(g, w, f"cluster H={H} backward B={BT}")
+                                     for g, w in zip(first, want_b))
+    lib_fwd, lib_fwd_bwd, b128_err = _bidirectional_library(xp, wh, bh, h0, dys, conf)
     out["library_err"] = max(lib_err, b128_err)
+    reps = {"cluster": 10, "library": 10}
     with torch.no_grad():
-        ms = in_turns({**fres, "library": lib_fwd}, {"cluster": 10, "wide": 3, "library": 10})
+        ms = _in_turns({"cluster": fres, "library": lib_fwd}, reps, order)
     out.update({f"fwd_res_{k}_ms": v for k, v in ms.items()})
-    ms = in_turns({**bwd, "library": lib_fwd_bwd}, {"cluster": 10, "wide": 3, "library": 10})
+    ms = _in_turns({"cluster": bwd, "library": lib_fwd_bwd}, reps, order)
     out.update({f"bwd_{k}_ms": v for k, v in ms.items()})
     out["bwd_library_ms"] -= out["fwd_res_library_ms"]     # the library's backward alone
-    parts = _bwd_parts(ys, rs, wh, h0, dys, dhl, conf)
-    ms = in_turns({b: parts[b] for b in ("cluster", "wide")}, {"cluster": 10, "wide": 3})
-    for b in ("cluster", "wide"):
-        out[f"bwd_{b}_chain_ms"] = ms[b]
+    parts = _bwd_parts(ys, rs, wh, h0, dys, dhl, conf, "cluster")
+    out["bwd_cluster_chain_ms"] = cuda_ms(parts["chain"], reps=10)
     out["bwd_dwh_ms"] = cuda_ms(parts["dwh"], reps=10)
     out["bwd_sum_ms"] = cuda_ms(parts["sum"], reps=10)
     out["fwd_res_plain_ms"] = cuda_ms(lambda: [gru_scan_fwd_res_plain(
@@ -4624,51 +4680,283 @@ def _cluster_times(H: int = CLUSTER_TIMED) -> dict:
     _, (out["fwd_res_bound_ms"], out["fwd_res_bound_by"]), (out["bwd_bound_ms"],
                                                             out["bwd_bound_by"]) = \
         _gru_bounds(1, BT, T, H, True)
-    out["b128_plan"] = _cluster_plan_text(H, BT)
+    out["b128_plan"] = _gru_plan_text(H, BT)
 
     # One direction's residual forward beside a one-direction torch.nn.GRU.
-    one = {b: (lambda b=b: _fwd([xp[0]], [wh[0]], [bh[0]], [h0[0]], [False], *conf, True, b))
-           for b in ("cluster", "wide")}
+    one = lambda: _fwd([xp[0]], [wh[0]], [bh[0]], [h0[0]], [False], *conf, True,  # noqa: E731
+                       "cluster")
     lib_one = _library_gru(wh[0], bh[0])
     y_one, hl_one = lib_one(xp[0], h0[0][None])
     check(max(_maxdiff(y_one, want_f[0][0]), _maxdiff(hl_one[0], want_f[0][2])) <= LIBRARY_ATOL,
           f"torch.nn.GRU H={H} B={BT}")
     with torch.no_grad():
-        ms = in_turns({**one, "library": lambda: lib_one(xp[0], h0[0][None])},
-                      {"cluster": 10, "wide": 3, "library": 10})
+        ms = _in_turns({"cluster": one, "library": lambda: lib_one(xp[0], h0[0][None])}, reps,
+                       order)
     out.update({f"one_fwd_res_{k}_ms": v for k, v in ms.items()})
     out["one_fwd_res_bound_ms"] = _gru_bounds(1, BT, T, H, True, 1)[1][0]
 
     f = lambda k: out[f"{k}_library_ms"] / out[f"{k}_cluster_ms"]  # noqa: E731
-    print(f"[kernel B wide] cluster body H={H} T={T} reset_after=True sigmoid, in turns with the "
-          f"L2 tier and bidirectional torch.nn.GRU (vs plain {out['library_err']:.3g}), ms: pair "
-          f"forward B=1{out['fwd_b1_plan']} cluster {out['fwd_b1_cluster_ms']:.4f}, L2 "
-          f"{out['fwd_b1_wide_ms']:.4f}, library {out['fwd_b1_library_ms']:.4f} ({f('fwd_b1'):.2f}x "
-          f"the cluster's time), plain {out['fwd_b1_plain_ms']:.2f}, bound "
-          f"{out['fwd_b1_bound_ms']:.6f} ({out['fwd_b1_bound_by']})")
+    print(f"[kernel B wide] cluster body H={H} T={T} reset_after=True sigmoid, in turns with "
+          f"bidirectional torch.nn.GRU (vs plain {out['library_err']:.3g}), ms: pair "
+          f"forward B=1{out['fwd_b1_plan']} cluster {out['fwd_b1_cluster_ms']:.4f}, library "
+          f"{out['fwd_b1_library_ms']:.4f} ({f('fwd_b1'):.2f}x the cluster's time), plain "
+          f"{out['fwd_b1_plain_ms']:.2f}, bound {out['fwd_b1_bound_ms']:.6f} "
+          f"({out['fwd_b1_bound_by']})")
     print(f"[kernel B wide] cluster body H={H} B={BT}{out['b128_plan']}: pair residual forward "
-          f"cluster {out['fwd_res_cluster_ms']:.4f}, L2 {out['fwd_res_wide_ms']:.4f}, library "
-          f"forward {out['fwd_res_library_ms']:.4f} ({f('fwd_res'):.2f}x), plain "
+          f"cluster {out['fwd_res_cluster_ms']:.4f}, library forward "
+          f"{out['fwd_res_library_ms']:.4f} ({f('fwd_res'):.2f}x), plain "
           f"{out['fwd_res_plain_ms']:.2f}, bound {out['fwd_res_bound_ms']:.5f} "
           f"({out['fwd_res_bound_by']}); pair backward cluster {out['bwd_cluster_ms']:.4f} "
-          f"(chain {out['bwd_cluster_chain_ms']:.4f}; vs plain {out['bwd_cluster_rel_err']:.3g} "
-          f"of max|grad|), L2 {out['bwd_wide_ms']:.4f} (chain {out['bwd_wide_chain_ms']:.4f}), "
-          f"both then dwh {out['bwd_dwh_ms']:.4f} and sum {out['bwd_sum_ms']:.4f}, library backward "
-          f"{out['bwd_library_ms']:.4f} ({f('bwd'):.2f}x), plain {out['bwd_plain_ms']:.2f}, bound "
-          f"{out['bwd_bound_ms']:.5f} ({out['bwd_bound_by']}); one direction's residual forward "
-          f"cluster {out['one_fwd_res_cluster_ms']:.4f}, L2 {out['one_fwd_res_wide_ms']:.4f}, "
+          f"(chain {out['bwd_cluster_chain_ms']:.4f}, dwh {out['bwd_dwh_ms']:.4f}, sum "
+          f"{out['bwd_sum_ms']:.4f}; vs plain {out['bwd_cluster_rel_err']:.3g} of max|grad|), "
+          f"library backward {out['bwd_library_ms']:.4f} ({f('bwd'):.2f}x), plain "
+          f"{out['bwd_plain_ms']:.2f}, bound {out['bwd_bound_ms']:.5f} ({out['bwd_bound_by']}); "
+          f"one direction's residual forward cluster {out['one_fwd_res_cluster_ms']:.4f}, "
           f"one-direction torch.nn.GRU {out['one_fwd_res_library_ms']:.4f}, bound "
           f"{out['one_fwd_res_bound_ms']:.5f}")
     return out
 
 
-def _cluster_serving(workdir: str, pcm: np.ndarray) -> dict:
-    """sednet-dcase with CLUSTER_SEDNET's GRUs (seeded weights, `model_tree`)
+def _grid_times(H: int) -> dict:
+    """The grid body at width H against `torch.nn.GRU`, T=GRU_T,
+    reset_after=True sigmoid (the library's convention), CUDA events, warm
+    L2, in turns (grid, library, library, grid): a pair's forward at B=1
+    (not at 2048), a pair's residual forward and backward (chain, dwh and
+    sum timed apart too) at B=TRAIN_BATCH against a bidirectional
+    `torch.nn.GRU`'s forward and backward; every output held against its
+    plain version first (the library's too), beside the plain versions'
+    times, the bounds and each shape's grid plan."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        _bwd,
+        _fwd,
+        gru_body,
+        gru_scan_bwd_plain,
+        gru_scan_fwd_res_plain,
+        gru_scan_plain,
+    )
+
+    check(gru_body(H) == "grid", f"H={H} is not on the grid body")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29 + H)
+    T, BT = GRU_T, TRAIN_BATCH
+    conf = (True, "sigmoid")
+    order = ("grid", "library", "library", "grid")
+    out = {"H": H, "T": T}
+    lib_errs = []
+    if H == GRID_TIMED[0]:
+        xp, wh, bh, h0, dys, dhl = _bigru_operands(rng, dev, 1, H)
+        fwd = lambda: _fwd(xp, wh, bh, h0, (False, True), *conf, False, "grid")  # noqa: E731
+        plain = [gru_scan_plain(xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)]
+        outs, _ = fwd()
+        err = max(max(_maxdiff(o[0], p[0]), _maxdiff(o[2], p[1])) for o, p in zip(outs, plain))
+        check(err <= GRU_ATOL, f"grid H={H} pair forward B=1: {err}")
+        out["fwd_b1_err"] = err
+        lib_fwd, _, e = _bidirectional_library(xp, wh, bh, h0, dys, conf)
+        lib_errs.append(e)
+        with torch.no_grad():
+            ms = _in_turns({"grid": fwd, "library": lib_fwd}, {"grid": 10, "library": 5}, order)
+        out.update({f"fwd_b1_{k}_ms": v for k, v in ms.items()})
+        out["fwd_b1_plain_ms"] = cuda_ms(lambda: [gru_scan_plain(
+            xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)], reps=1, warmup=1)
+        (out["fwd_b1_bound_ms"], out["fwd_b1_bound_by"]), _, _ = _gru_bounds(1, 1, T, H, True)
+        out["fwd_b1_plan"] = _gru_plan_text(H, 1)
+
+    xp, wh, bh, h0, dys, dhl = _bigru_operands(rng, dev, BT, H)
+    fres = lambda: _fwd(xp, wh, bh, h0, (False, True), *conf, True, "grid")  # noqa: E731
+    res_g = fres()[0]
+    want_f = [gru_scan_fwd_res_plain(xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)]
+    err = max(max(_maxdiff(g, w) for g, w in zip(o, p)) for o, p in zip(res_g, want_f))
+    check(err <= GRU_ATOL, f"grid H={H} pair residual forward B={BT}: {err}")
+    out["fwd_res_err"] = err
+    ys, rs = tuple(o[0] for o in res_g), tuple(o[1] for o in res_g)
+    bwd = lambda: _bwd(ys, rs, wh, h0, dys, dhl, (False, True), *conf, "grid")  # noqa: E731
+    want_b = [gru_scan_bwd_plain(ys[k], rs[k], wh[k], h0[k], dys[k], dhl[k], *conf, k == 1)
+              for k in (0, 1)]
+    first, again = bwd(), bwd()
+    check(all(torch.equal(x, y) for f, a in zip(first, again) for x, y in zip(f, a)),
+          f"grid H={H} backward B={BT} not bitwise equal run to run")
+    out["bwd_rel_err"] = max(_rel_err(g, w, f"grid H={H} backward B={BT}")
+                             for g, w in zip(first, want_b))
+    out["bwd_abs_err"] = max(_maxdiff(g[i], w[i]) for g, w in zip(first, want_b) for i in (0, 3))
+    lib_fwd, lib_fwd_bwd, e = _bidirectional_library(xp, wh, bh, h0, dys, conf)
+    out["library_err"] = max(lib_errs + [e])
+    reps = {"grid": 3, "library": 3}
+    with torch.no_grad():
+        ms = _in_turns({"grid": fres, "library": lib_fwd}, reps, order)
+    out.update({f"fwd_res_{k}_ms": v for k, v in ms.items()})
+    ms = _in_turns({"grid": bwd, "library": lib_fwd_bwd}, reps, order)
+    out.update({f"bwd_{k}_ms": v for k, v in ms.items()})
+    out["bwd_library_ms"] -= out["fwd_res_library_ms"]     # the library's backward alone
+    parts = _bwd_parts(ys, rs, wh, h0, dys, dhl, conf, "grid")
+    for k in ("chain", "dwh", "sum"):
+        out[f"bwd_{k}_ms"] = cuda_ms(parts[k], reps=3)
+    out["fwd_res_plain_ms"] = cuda_ms(lambda: [gru_scan_fwd_res_plain(
+        xp[k], wh[k], bh[k], h0[k], *conf, k == 1) for k in (0, 1)], reps=1, warmup=1)
+    out["bwd_plain_ms"] = cuda_ms(lambda: [gru_scan_bwd_plain(
+        ys[k], rs[k], wh[k], h0[k], dys[k], dhl[k], *conf, k == 1) for k in (0, 1)],
+        reps=1, warmup=1)
+    _, (out["fwd_res_bound_ms"], out["fwd_res_bound_by"]), (out["bwd_bound_ms"],
+                                                            out["bwd_bound_by"]) = \
+        _gru_bounds(1, BT, T, H, True)
+    out["b128_plan"] = _gru_plan_text(H, BT)
+
+    f = lambda k: out[f"{k}_library_ms"] / out[f"{k}_grid_ms"]  # noqa: E731
+    if "fwd_b1_grid_ms" in out:
+        print(f"[kernel B wide] grid body H={H} T={T} reset_after=True sigmoid, in turns with "
+              f"bidirectional torch.nn.GRU (vs plain {out['library_err']:.3g}), ms: pair "
+              f"forward B=1{out['fwd_b1_plan']} grid {out['fwd_b1_grid_ms']:.4f} "
+              f"({out['fwd_b1_grid_ms'] / T * 1e3:.2f} us a step), library "
+              f"{out['fwd_b1_library_ms']:.4f} ({f('fwd_b1'):.2f}x the grid's time), plain "
+              f"{out['fwd_b1_plain_ms']:.2f}, bound {out['fwd_b1_bound_ms']:.6f} "
+              f"({out['fwd_b1_bound_by']})")
+    print(f"[kernel B wide] grid body H={H} B={BT} T={T}{out['b128_plan']}: pair residual "
+          f"forward grid {out['fwd_res_grid_ms']:.4f} ({out['fwd_res_grid_ms'] / T * 1e3:.2f} us "
+          f"a step), library forward {out['fwd_res_library_ms']:.4f} ({f('fwd_res'):.2f}x), "
+          f"plain {out['fwd_res_plain_ms']:.2f}, bound {out['fwd_res_bound_ms']:.5f} "
+          f"({out['fwd_res_bound_by']}); pair backward grid {out['bwd_grid_ms']:.4f} (chain "
+          f"{out['bwd_chain_ms']:.4f}, dwh {out['bwd_dwh_ms']:.4f}, sum {out['bwd_sum_ms']:.4f}; "
+          f"vs plain {out['bwd_rel_err']:.3g} of max|grad|), library backward "
+          f"{out['bwd_library_ms']:.4f} ({f('bwd'):.2f}x), plain {out['bwd_plain_ms']:.2f}, "
+          f"bound {out['bwd_bound_ms']:.5f} ({out['bwd_bound_by']}); library vs plain "
+          f"{out['library_err']:.3g}")
+    return out
+
+
+def _grid_forced_k() -> dict:
+    """The grid body's bits at forced K: stacked S=5 at B=8, T=32, H in {520,
+    1024}, both conventions, the residual forward and the backward at each
+    of GRID_FORCED_K CTAs a direction (other units a CTA; at 40, 26 or 13
+    units padded to 32 or 16, the tile body, streamed at 1024) bitwise
+    those at the rule's K; a pair of more CTAs than half the card's SMs is
+    refused by the cooperative launch and raises."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import _bwd, _fwd, grid_plan
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(33)
+    S, B, T = 5, 8, 32
+    plans = {}
+    for H in (520, 1024):
+        d0, d1 = _stack_operands(rng, dev, S, B, T, H)
+        for reset_after in (False, True):
+            arg = lambda i: (d0[i], d1[i]) if (i != 2 or reset_after) else (None, None)  # noqa: E731
+            conf = (reset_after, "sigmoid")
+            outs = {}
+            for k in (0,) + GRID_FORCED_K:
+                fwd, _ = _fwd(arg(0), arg(1), arg(2), arg(3), (False, True), *conf, True, "grid",
+                              S, k)
+                bwd = _bwd(tuple(f[0] for f in fwd), tuple(f[1] for f in fwd), arg(1), arg(3),
+                           arg(4), arg(5), (False, True), *conf, "grid", S, k)
+                outs[k] = [t for f, b in zip(fwd, bwd) for t in f + b]
+                plans[(H, k)] = grid_plan(2, S, B, H, False, ctas=k, sms=sms)
+            for k in GRID_FORCED_K:
+                check(all(torch.equal(a, b) for a, b in zip(outs[0], outs[k])),
+                      f"grid H={H} S={S} reset_after={reset_after}: K={k} changes the bits")
+        try:
+            _fwd(arg(0), arg(1), arg(2), arg(3), (False, True), True, "sigmoid", True, "grid", S,
+                 sms // 2 + 1)
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            refused = ""
+        check("gru_grid_fwd" in refused, f"grid H={H}: a pair of {sms // 2 + 1} CTAs a "
+                                          f"direction was not refused")
+    text = "; ".join(f"H={H} K={p['ctas']}: {p['units']} ({p['units_padded']}) units, "
+                     f"{'lanes' if p['split'] > 1 else 'tile'}, "
+                     f"{'resident' if p['resident'] else 'streamed'}"
+                     for (H, _), p in plans.items())
+    print(f"[kernel B wide] grid body stacked S={S} B={B} T={T}, both conventions: residual "
+          f"forward and backward bitwise the rule's at forced K {GRID_FORCED_K} ({text}); a pair "
+          f"of {sms // 2 + 1} CTAs a direction refused: {refused!r}")
+    return {"forced_k": list(GRID_FORCED_K), "refused": refused}
+
+
+def _grid_widest() -> dict:
+    """The grid body at the most units a CTA: a pair at H=GRID_WIDEST (34
+    CTAs a direction of 249 (256) units, weights streamed), B=2, T=4, both
+    conventions, sigmoid, the residual forward within GRU_ATOL of the plain
+    version and the backward within GRAD_RTOL of max|grad|, its plan held
+    against the Python mirror; and a pair at H=GRID_REFUSED refused by the
+    launcher with the library's no-plan error, as the mirror refuses it."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import (
+        _bwd,
+        _fwd,
+        grid_plan,
+        gru_scan_bwd_plain,
+        gru_scan_fwd_res_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    B, T, H = 2, 4, GRID_WIDEST
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    d = [(randn(B, T, 3 * H), randn(H, 3 * H, scale=H ** -0.5), randn(3 * H, scale=0.1),
+          randn(B, H, scale=0.5), randn(B, T, H), randn(B, H)) for _ in range(2)]
+    arg = lambda i: tuple(x[i] for x in d)  # noqa: E731
+    plan = _gru_plan_text(H, B)
+    fwd_err = bwd_err = 0.0
+    for reset_after in (False, True):
+        conf = (reset_after, "sigmoid")
+        bh = arg(2) if reset_after else (None, None)
+        outs, _ = _fwd(arg(0), arg(1), bh, arg(3), (False, True), *conf, True, "grid")
+        want = [gru_scan_fwd_res_plain(d[k][0], d[k][1], bh[k], d[k][3], *conf, k == 1)
+                for k in (0, 1)]
+        err = max(_maxdiff(g, w) for o, p in zip(outs, want) for g, w in zip(o, p))
+        check(err <= GRU_ATOL, f"grid H={H} reset_after={reset_after} residual forward: {err}")
+        fwd_err = max(fwd_err, err)
+        ys, rs = tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+        got = _bwd(ys, rs, arg(1), arg(3), arg(4), arg(5), (False, True), *conf, "grid")
+        want_b = [gru_scan_bwd_plain(ys[k], rs[k], d[k][1], d[k][3], d[k][4], d[k][5], *conf,
+                                     k == 1) for k in (0, 1)]
+        bwd_err = max([bwd_err] + [_rel_err(g, w, f"grid H={H} reset_after={reset_after} "
+                                               "backward") for g, w in zip(got, want_b)])
+    del d, outs, got, want, want_b, ys, rs
+    Hr = GRID_REFUSED
+    try:
+        grid_plan(2, 1, 1, Hr, False)
+    except ValueError as e:
+        mirror = str(e)
+    else:
+        mirror = ""
+    check("no grid plan" in mirror, f"the Python mirror has a plan for a pair at H={Hr}")
+    empty = lambda *shape: torch.empty(shape, device=dev)  # noqa: E731
+    xp, wh, h0 = empty(1, 1, 3 * Hr), empty(Hr, 3 * Hr), empty(1, Hr)
+    try:
+        _fwd((xp, xp), (wh, wh), (None, None), (h0, h0), (False, True), False, "sigmoid", False,
+             "grid")
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        refused = ""
+    del xp, wh, h0
+    torch.cuda.empty_cache()
+    check("no grid plan" in refused, f"grid: a pair at H={Hr} was not refused ({refused!r})")
+    print(f"[kernel B wide] grid body at 256 units a CTA, pair H={H} B={B} T={T}{plan}, both "
+          f"conventions: residual forward vs plain {fwd_err:.3g}, backward {bwd_err:.3g} of "
+          f"max|grad|; a pair at H={Hr} refused: {refused!r}")
+    return {"H": H, "fwd": fwd_err, "bwd": bwd_err, "refused": refused}
+
+
+def _body_serving(workdir: str, pcm: np.ndarray, overrides: dict, body: str,
+                  seed: int) -> dict:
+    """sednet-dcase with ``overrides``' GRUs (seeded weights, `model_tree`)
     exported as a serving artifact and served on the 120 s wav through
     `apps.infer.infer_file_artifact`, on the card and on the CPU:
-    probabilities within PROB_ATOL, events equal, the chunks' logits within
-    LOGIT_ATOL; on the card one pair launch per BiGRU layer per chunk, all
-    on the cluster body, no GRU plain version."""
+    probabilities within PROB_ATOL, events equal; the chunks' logits through
+    `stream_logits` (B=1, 256-frame chunks, the GRU state carried) within
+    LOGIT_ATOL; the wav's whole 256-frame windows at once through
+    `forward_probabilities` within PROB_ATOL; on the card one pair launch
+    per BiGRU layer per chunk (and per layer for the windows), all on
+    ``body``, no GRU plain version."""
     import torch
 
     from sed_crnn_torch.apps.infer import infer_file_artifact, load_model
@@ -4677,16 +4965,17 @@ def _cluster_serving(workdir: str, pcm: np.ndarray) -> dict:
     from sed_crnn_torch.models.export import export_serving
     from sed_crnn_torch.models.streaming import stream_logits
     from sed_crnn_torch.ops import frontend
+    from sed_crnn_torch.train.evaluate import forward_probabilities
 
     cfg = get_preset("sednet-dcase")
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **CLUSTER_SEDNET))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **overrides))
     m = cfg.model
-    check(_gru_model_body(m) == "cluster", f"gru_hidden {m.gru_hidden} not on the cluster body")
-    params, state = model_tree(m, seed=28)
+    check(_gru_model_body(m) == body, f"gru_hidden {m.gru_hidden} not on the {body} body")
+    params, state = model_tree(m, seed=seed)
     fe = dataclasses.replace(cfg.frontend, log_floor=1e-10)
     stats = frontend.fit_norm_stats(frontend.extract(pcm, fe, device="cpu"))
     stats = (stats.mean.numpy(), stats.scale.numpy())
-    art = os.path.join(workdir, "sednet_gru256.zip")
+    art = os.path.join(workdir, f"sednet_gru{m.gru_hidden[0]}.zip")
     export_serving(cfg, params, state, norm_stats=stats, preset=None, device="cpu").save(art)
     wav = os.path.join(workdir, "tones_120s.wav")
     write_wav(wav, pcm, SR)
@@ -4701,30 +4990,52 @@ def _cluster_serving(workdir: str, pcm: np.ndarray) -> dict:
     n_frames = frontend.extract(pcm, fe, device="cpu").shape[0]
     n_chunks = -(-n_frames // m.seq_len_in)
     layers = len(m.gru_hidden)
-    want = _gru_path_counts(layers * n_chunks, 0, "cluster")
+    want = _gru_path_counts(layers * n_chunks, 0, body)
     check(counts == want and not plain_on_card,
-          f"cluster serving launches {counts} != {want}; plain on the card {plain_on_card}")
+          f"{body} serving launches {counts} != {want}; plain on the card {plain_on_card}")
     t0 = time.perf_counter()
     probs_cpu, events_cpu, _ = infer_file_artifact(wav, art, device="cpu")
     cpu_s = time.perf_counter() - t0
     pool = m.seq_len_in // m.seq_len_out
     check(probs.shape == probs_cpu.shape == (n_frames // pool, m.n_classes),
-          f"cluster serving shape {probs.shape}")
+          f"{body} serving shape {probs.shape}")
     prob_err = float(np.abs(probs - probs_cpu).max())
     check(bool(np.isfinite(probs).all()) and prob_err <= PROB_ATOL,
-          f"cluster serving probabilities card vs CPU {prob_err}")
-    check(events == events_cpu and len(events) > 0, "cluster serving: card and CPU events differ")
+          f"{body} serving probabilities card vs CPU {prob_err}")
+    check(events == events_cpu and len(events) > 0, f"{body} serving: card and CPU events differ")
     tree = {"params": params, "model_state": state}
+    card, cpu = load_model(tree, m, "cuda"), load_model(tree, m, "cpu")
     mel = frontend.normalize(frontend.extract(pcm, fe, device="cpu"), stats)
-    logits = stream_logits(load_model(tree, m, "cuda"), mel.cuda()).cpu()
-    logits_cpu = stream_logits(load_model(tree, m, "cpu"), mel)
+    _reset_gru_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        logits = stream_logits(card, mel.cuda()).cpu()
+        torch.cuda.synchronize()
+    counts = _gru_counts()
+    check(counts == _gru_path_counts(layers * n_chunks, 0, body) and not plain_on_card,
+          f"{body} stream_logits launches {counts}")
+    logits_cpu = stream_logits(cpu, mel)
     logit_err = _maxdiff(logits, logits_cpu)
-    check(logit_err <= LOGIT_ATOL, f"cluster serving logits card vs CPU {logit_err}")
-    print(f"[kernel B wide] serving gru_hidden {tuple(m.gru_hidden)} (cluster body): the 120 s "
+    check(logit_err <= LOGIT_ATOL, f"{body} serving logits card vs CPU {logit_err}")
+    n_win = n_frames // m.seq_len_in
+    windows = mel[: n_win * m.seq_len_in].reshape(n_win, m.seq_len_in, m.n_mels).numpy()
+    _reset_gru_counts()
+    with _no_plain_gru_on_card() as plain_on_card:
+        wprobs = forward_probabilities([card], windows, 256)
+        torch.cuda.synchronize()
+    counts = _gru_counts()
+    check(counts == _gru_path_counts(layers, 0, body) and not plain_on_card,
+          f"{body} forward_probabilities launches {counts}")
+    wprobs_cpu = forward_probabilities([cpu], windows, 256)
+    window_err = _maxdiff(wprobs.cpu(), wprobs_cpu)
+    check(window_err <= PROB_ATOL, f"{body} forward_probabilities card vs CPU {window_err}")
+    print(f"[kernel B wide] serving gru_hidden {tuple(m.gru_hidden)} ({body} body): the 120 s "
           f"wav through infer_file_artifact, {n_chunks} chunks, card vs CPU probabilities "
-          f"{prob_err:.3g}, {len(events)} events equal, logits {logit_err:.3g}; card {card_s:.2f} "
-          f"s, CPU {cpu_s:.2f} s; launches {counts}")
-    return {"launches": layers * n_chunks, "prob_err": prob_err, "logit_err": logit_err}
+          f"{prob_err:.3g}, {len(events)} events equal; stream_logits at B=1 card vs CPU "
+          f"{logit_err:.3g}; forward_probabilities of its {n_win} whole windows at once card vs "
+          f"CPU {window_err:.3g}; card {card_s:.2f} s, CPU {cpu_s:.2f} s (infer_file_artifact); "
+          f"launches exact, no plain version on the card")
+    return {"launches": layers * (2 * n_chunks + 1), "prob_err": prob_err,
+            "logit_err": logit_err, "window_err": window_err}
 
 
 # The wide body's precision on a badly conditioned recurrence: the stacked
@@ -4841,23 +5152,31 @@ def _wide_precision() -> dict:
 
 
 def phase_gru_wide() -> dict:
-    """[kernel B wide]: the wide and cluster bodies' checks at every width,
-    batch, convention, gate and direction, pair and stacked; the wide body's
-    precision against float64 (`_wide_precision`) and times at WIDE_TIMED;
-    the cluster body's times at CLUSTER_TIMED in turns with the L2 tier."""
+    """[kernel B wide]: the wide, cluster and grid bodies' checks at every
+    width, batch, convention, gate and direction, pair and stacked; the grid
+    body's bits at forced K; the wide body's precision against float64
+    (`_wide_precision`) and times at WIDE_TIMED; the cluster body's times at
+    CLUSTER_TIMED and the grid body's at GRID_TIMED in turns with the
+    library."""
     t0 = time.perf_counter()
     worst = _wide_checks()
-    for body in ("wide", "cluster"):
-        shapes = [s for s in WIDE_STACK_SHAPES if (s[3] <= 128) == (body == "wide")]
+    for body in ("wide", "cluster", "grid"):
+        shapes = [s for s in WIDE_STACK_SHAPES if _body_of(s[3]) == body]
         stack = _stack_kernel_checks(shapes, "[kernel B wide]", seed=23)
         for k in worst[body]:
             worst[body][k] = max(worst[body][k], stack[k])
+    forced = _grid_forced_k()
+    widest = _grid_widest()
+    worst["grid"]["fwd"] = max(worst["grid"]["fwd"], widest["fwd"])
+    worst["grid"]["bwd"] = max(worst["grid"]["bwd"], widest["bwd"])
     precision = _wide_precision()
     times = {H: _wide_times(H) for H in WIDE_TIMED}
     cluster = _cluster_times()
+    grid = {H: _grid_times(H) for H in GRID_TIMED}
     print(f"[kernel B wide] kernel checks and times in {time.perf_counter() - t0:.1f} s")
     return {"worst": worst["wide"], "cluster_worst": worst["cluster"], "times": times,
-            "precision": precision, "cluster_times": cluster}
+            "precision": precision, "cluster_times": cluster, "grid_worst": worst["grid"],
+            "grid_times": grid, "grid_forced": forced}
 
 
 def _wide_entry(wide: dict, paths: dict, train: dict, serving_err: float) -> dict:
@@ -4889,8 +5208,8 @@ def _cluster_entry(wide: dict, paths: dict) -> dict:
     """The cluster body's entry of the kernels line: a pair's residual
     forward at H=CLUSTER_TIMED, B=TRAIN_BATCH, reset_after=True (the
     CLUSTER_SEDNET training path's width) as the headline, beside a
-    bidirectional `torch.nn.GRU`'s forward; its other times, the L2 tier's
-    in turns, its launches by path and worst errors."""
+    bidirectional `torch.nn.GRU`'s forward; its other times, its launches by
+    path and worst errors."""
     t = wide["cluster_times"]
     worst = wide["cluster_worst"]
     return {"name": "gru_cluster", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_cluster.cu",
@@ -4905,11 +5224,74 @@ def _cluster_entry(wide: dict, paths: dict) -> dict:
             "bound_ms": t["fwd_res_bound_ms"], "bound_by": t["fwd_res_bound_by"],
             "library_ms": t["fwd_res_library_ms"],
             "library_variant": "bidirectional torch.nn.GRU, reset_after=True, sigmoid",
-            "l2_tier_ms": t["fwd_res_wide_ms"], "launches_by_path": paths["cluster_launches"],
+            "launches_by_path": paths["cluster_launches"],
             "train_step": {k: paths["cluster_step"][k] for k in ("loss_rel", "grad_rel", "bn")},
             "serving_prob_err": paths["cluster_serving"]["prob_err"],
             "serving_logit_err": paths["cluster_serving"]["logit_err"],
             "times": t}
+
+
+def _grid_entries(wide: dict, paths: dict) -> list:
+    """The grid body's two entries of the kernels line, at H=GRID_TIMED[0],
+    T=GRU_T, reset_after=True (the GRID_SEDNET paths' width), each beside a
+    bidirectional `torch.nn.GRU`: the forward (a pair's residual forward at
+    B=TRAIN_BATCH as the headline, the B=1 forward and H=2048 beside it) and
+    the backward chain (the pair's whole backward at B=TRAIN_BATCH, the
+    chain then the wide body's dwh reduction and sum, so that its time, plain
+    version, bound and library time are of one function: dxp, dwh, dbh and
+    dh0; the chain's own time and bound beside it). Launches by kind on the
+    grid paths."""
+    t, t2 = wide["grid_times"][GRID_TIMED[0]], wide["grid_times"][GRID_TIMED[1]]
+    worst = wide["grid_worst"]
+    counts = paths["grid_counts"]
+    common = {"route": "cuda", "source": "sed_crnn_torch/csrc/gru_grid.cu",
+              "library_variant": "bidirectional torch.nn.GRU, reset_after=True, sigmoid",
+              "forced_k": wide["grid_forced"]["forced_k"]}
+    chain_bound = _chain_bound(TRAIN_BATCH, GRU_T, t["H"])
+    fwd = {"name": "gru_grid_fwd", "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:94",
+           "shape": f"pair, B={TRAIN_BATCH} T={GRU_T} H={t['H']} reset_after=True, residual "
+                    "forward", "launches": counts["fwd"],
+           "max_abs_err": max(worst["fwd"], t["fwd_res_err"], t["fwd_b1_err"],
+                              t2["fwd_res_err"]),
+           "ms": t["fwd_res_grid_ms"], "plain_ms": t["fwd_res_plain_ms"],
+           "bound_ms": t["fwd_res_bound_ms"], "bound_by": t["fwd_res_bound_by"],
+           "library_ms": t["fwd_res_library_ms"], **common,
+           "b1_ms": t["fwd_b1_grid_ms"], "b1_library_ms": t["fwd_b1_library_ms"],
+           "b1_plain_ms": t["fwd_b1_plain_ms"], "b1_bound_ms": t["fwd_b1_bound_ms"],
+           "h2048_ms": t2["fwd_res_grid_ms"], "h2048_library_ms": t2["fwd_res_library_ms"],
+           "h2048_bound_ms": t2["fwd_res_bound_ms"], "launches_by_path": counts["fwd_by_path"],
+           "train_step": {k: paths["grid_step"][k] for k in ("loss_rel", "grad_rel", "bn")},
+           "serving_prob_err": paths["grid_serving"]["prob_err"],
+           "serving_logit_err": paths["grid_serving"]["logit_err"],
+           "serving_window_err": paths["grid_serving"]["window_err"]}
+    bwd = {"name": "gru_grid_bwd", "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
+           "shape": f"pair, B={TRAIN_BATCH} T={GRU_T} H={t['H']} reset_after=True, the "
+                    "backward: the chain (dxp, dh0), then dwh, dbh by gru_wide_dwh + "
+                    "gru_wide_sum", "launches": counts["bwd"],
+           "max_abs_err": max(t["bwd_abs_err"], t2["bwd_abs_err"]),
+           "bwd_max_rel_err": max(worst["bwd"], t["bwd_rel_err"],
+                                                               t2["bwd_rel_err"]),
+           "dwh_max_rel_err": worst["dwh"],
+           "ms": t["bwd_grid_ms"], "plain_ms": t["bwd_plain_ms"],
+           "bound_ms": t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
+           "library_ms": t["bwd_library_ms"], **common,
+           "chain_ms": t["bwd_chain_ms"], "chain_bound_ms": chain_bound[0],
+           "chain_bound_by": chain_bound[1], "dwh_ms": t["bwd_dwh_ms"],
+           "sum_ms": t["bwd_sum_ms"], "h2048_chain_ms": t2["bwd_chain_ms"], "h2048_ms": t2["bwd_grid_ms"],
+           "h2048_library_ms": t2["bwd_library_ms"], "h2048_bound_ms": t2["bwd_bound_ms"],
+           "launches_by_path": counts["bwd_by_path"]}
+    return [fwd, bwd]
+
+
+def _chain_bound(B: int, T: int, H: int):
+    """The least work of a pair's backward chain alone (dxp and dh0; dwh is
+    the next kernel's): its reads and writes, and 2 x 3H x H FMAs a row a
+    step for the gate-gradient products -> (ms, what bounds it)."""
+    f, RW = 4, 4 * H
+    n_bytes = 2 * f * (B * T * H + B * T * RW + H * 3 * H + 2 * B * H + B * T * H + B * T * 3 * H
+                       + B * H)
+    n_flops = 2 * T * B * (2 * H * 3 * H + 20 * H)
+    return bound_ms(n_bytes, n_flops)
 
 
 def _wide_serving(cfg, best: str) -> dict:
@@ -5109,9 +5491,9 @@ def phase_wide_paths(workdir: str, pcm: np.ndarray) -> dict:
     """[kernel B wide]'s full-width paths: on the wide body `run_fold` and a
     card-vs-CPU train step of sednet-dcase with WIDE_SEDNET's GRUs, that
     checkpoint served, and stacked multi-seed timepooled-v2 with WIDE_V2's;
-    on the cluster body a card-vs-CPU train step of sednet-dcase with
-    CLUSTER_SEDNET's GRUs and that model served on the 120 s wav. Returns
-    each body's launches on each path and the errors."""
+    on the cluster body (CLUSTER_SEDNET) and on the grid body (GRID_SEDNET)
+    a card-vs-CPU train step of sednet-dcase and that model served on the
+    120 s wav. Returns each body's launches on each path and the errors."""
     t0 = time.perf_counter()
     train_launches, cfg, _ = phase_train(os.path.join(workdir, "train"), WIDE_SEDNET,
                                          "[kernel B wide] train")
@@ -5123,15 +5505,31 @@ def phase_wide_paths(workdir: str, pcm: np.ndarray) -> dict:
     check(all(v > 0 for v in launches.values()), f"wide body launches by path {launches}")
     cluster_step = phase_train_step(CLUSTER_SEDNET, "[kernel B wide] cluster train step")
     os.makedirs(os.path.join(workdir, "cluster"))
-    cluster_serving = _cluster_serving(os.path.join(workdir, "cluster"), pcm)
+    cluster_serving = _body_serving(os.path.join(workdir, "cluster"), pcm, CLUSTER_SEDNET,
+                                    "cluster", 28)
     cluster_launches = {"train": cluster_step["launches"], "serving": cluster_serving["launches"]}
     check(all(v > 0 for v in cluster_launches.values()),
           f"cluster body launches by path {cluster_launches}")
+    t1 = time.perf_counter()
+    grid_step = phase_train_step(GRID_SEDNET, "[kernel B wide] grid train step")
+    os.makedirs(os.path.join(workdir, "grid"))
+    grid_serving = _body_serving(os.path.join(workdir, "grid"), pcm, GRID_SEDNET, "grid", 30)
+    grid_launches = {"train": grid_step["launches"], "serving": grid_serving["launches"]}
+    c = grid_step["counts"]
+    grid_counts = {"fwd": c["gru_scan_fwd_res"] + grid_serving["launches"],
+                   "bwd": c["gru_scan_bwd"],
+                   "fwd_by_path": {"train": c["gru_scan_fwd_res"],
+                                   "serving": grid_serving["launches"]},
+                   "bwd_by_path": {"train": c["gru_scan_bwd"]}}
+    check(all(v > 0 for v in grid_launches.values()) and grid_counts["fwd"] > 0
+          and grid_counts["bwd"] > 0, f"grid body launches by path {grid_launches}")
     print(f"[kernel B wide] the wide body's launches by path {launches}, the cluster body's "
-          f"{cluster_launches}; paths in {time.perf_counter() - t0:.1f} s")
+          f"{cluster_launches}, the grid body's {grid_launches} (grid paths in "
+          f"{time.perf_counter() - t1:.1f} s); paths in {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "step": step, "serving": serving, "stacked": stacked,
             "cluster_launches": cluster_launches, "cluster_step": cluster_step,
-            "cluster_serving": cluster_serving}
+            "cluster_serving": cluster_serving, "grid_launches": grid_launches,
+            "grid_step": grid_step, "grid_serving": grid_serving, "grid_counts": grid_counts}
 
 
 PARALLEL_EPOCHS = 2
@@ -5854,6 +6252,9 @@ def main() -> int:
     kernel_dwh["max_abs_err"] = max(kernel_dwh["max_abs_err"], stack["worst"]["dwh"])
     kernel_wide = _wide_entry(wide, wide_paths, wide_train, wide_serving_err)
     kernel_cluster_b = _cluster_entry(wide, wide_paths)
+    kernel_grid_fwd, kernel_grid_bwd = _grid_entries(wide, wide_paths)
+    launches["gru_grid_fwd"] = kernel_grid_fwd.pop("launches")
+    launches["gru_grid_bwd"] = kernel_grid_bwd.pop("launches")
     # [tools]: each kernel's device time per launch in the profile_trace trace
     for entry, kind in ((kernel_a, "fused_logmel"), (kernel_b, "gru_scan_fwd"),
                         (kernel_fwd_res, "gru_scan_fwd_res"), (kernel_bwd, "gru_scan_bwd"),
@@ -5864,7 +6265,8 @@ def main() -> int:
     kernels = []
     head = ("name", "route", "source", "replaces")
     for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_cluster, kernel_b,
-              kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_wide, kernel_cluster_b):
+              kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_wide, kernel_cluster_b,
+              kernel_grid_fwd, kernel_grid_bwd):
         kernels.append({**{key: k[key] for key in head}, "launches": launches[k["name"]],
                         **{key: v for key, v in k.items() if key not in head}})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]

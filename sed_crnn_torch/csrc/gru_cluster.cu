@@ -20,9 +20,9 @@
 // What bounds it: operations, once the weights stop streaming. A step of
 // one direction is a (B, H) x (H, 3H) product and the chain has T steps; at
 // H = 256, B = 128, T = 256 both directions' residual forward are 25.8
-// GFLOP, 0.39 ms at the card's 67 TFLOP/s float32. The L2 tier read all of
-// wh (786 KB at H = 256) from L2 for each batch row at each step, so it ran
-// at L2's bandwidth with each weight serving one row.
+// GFLOP, 0.39 ms at the card's 67 TFLOP/s float32. The wide body's retired
+// L2 tier read all of wh (786 KB at H = 256) from L2 for each batch row at
+// each step, so it ran at L2's bandwidth with each weight serving one row.
 //
 // What the design does about it:
 //   * a cluster of C CTAs serves R batch rows of one direction of one seed;

@@ -1,19 +1,20 @@
-// GRU recurrence for Hopper (sm_90a) at hidden widths H > 32: a block of
-// Q = 4 lanes per hidden unit and R batch rows, the recurrent weights split
-// over the lanes, both directions of a BiGRU and every seed of a stack in one
-// launch, and the backward's dwh/dbh reduced after the chain.
+// GRU recurrence for Hopper (sm_90a) at hidden widths 32 < H <= 128: a block
+// of Q = 4 lanes per hidden unit and R batch rows, the recurrent weights
+// split over the lanes' registers, both directions of a BiGRU and every seed
+// of a stack in one launch, and the backward's dwh/dbh reduced after the
+// chain (for every H > 32: the cluster and grid bodies use it too).
 //
-// Replaces, for 32 < H <= 128 and H > 512 (the warp body, csrc/gru_warp.cu,
-// takes H <= 32, the cluster body, csrc/gru_cluster.cu, 128 < H <= 512), the
-// TPU kernels of sed_crnn_tpu/ops/pallas/gru_scan.py:
+// Replaces, for 32 < H <= 128 (the warp body, csrc/gru_warp.cu, takes
+// H <= 32, the cluster body, csrc/gru_cluster.cu, 128 < H <= 512, the grid
+// body, csrc/gru_grid.cu, H > 512), the TPU kernels of
+// sed_crnn_tpu/ops/pallas/gru_scan.py:
 //   * `_fwd_kernel` with with_res=False (`gru_scan_tc`) and with_res=True
-//     (`_gru_fwd`): gru_wide_fwd<KS, R, false / true>, and gru_wide_fwd_l2
-//     above the register tier;
-//   * `_bwd_kernel` (`_gru_bwd`): gru_wide_bwd<KS, R> / gru_wide_bwd_l2 (the
-//     gradient chain: dxp and dh0), then gru_wide_dwh (dwh and dbh from the
-//     stored rows, a tiled product with one partial per row split) and
-//     gru_wide_sum (the partials added in split order, so dwh is bitwise
-//     equal from run to run).
+//     (`_gru_fwd`): gru_wide_fwd<KS, R, false / true>;
+//   * `_bwd_kernel` (`_gru_bwd`): gru_wide_bwd<KS, R> (the gradient chain:
+//     dxp and dh0), then gru_wide_dwh (dwh and dbh from the stored rows, a
+//     tiled product with one partial per row split) and gru_wide_sum (the
+//     partials added in split order, so dwh is bitwise equal from run to
+//     run).
 // The contract is the warp body's: pre-projected inputs xp = x @ wi + bi
 // (B, T, 3H), recurrent kernel wh (H, 3H) in gate order (reset, update,
 // candidate), bias bh (3H) read only when reset_after, initial state h0 (B, H)
@@ -60,14 +61,8 @@
 //     keeps the 1e-4 band), the rows split into a fixed number of slices
 //     that depends on B, T and H only, so a seed of a stack sums in the same
 //     order as alone;
-//   * above the register tier the L2 tier gru_wide_*_l2 reads each step's
-//     weight slices through the cache (__ldg), one batch row a block, up to
-//     1,024 threads looping over the units, the state rows in a global
-//     scratch the wrapper allocates: any width, correct and slow (12.7 ms
-//     for a pair's residual forward at H=256, B=128, T=256, against the
-//     cluster body's 3.4 on an H100). The main path takes it only above the
-//     cluster body's 512, where a CTA's shared memory cannot hold a
-//     sixteenth of wh; below, only the private launch does;
+//   * the launchers refuse H > 128 (cudaErrorInvalidValue): the cluster and
+//     grid bodies take those widths;
 //   * the dynamic shared memory attribute and the occupancy are read once
 //     per kernel and device.
 
@@ -118,7 +113,6 @@ constexpr int MAX_DIRS = 2;
 constexpr int Q = 4;               // lanes per hidden unit
 constexpr int STAGES = 4;          // staging ring: STAGES - 1 steps in flight
 constexpr int REG_MAX_H = 128;     // widest H whose weights stay in registers
-constexpr int L2_THREADS = 1024;
 constexpr int DT = 64;             // dwh tile: DT rows of wh x DT columns of a part
 constexpr int DK = 16;             // stored rows staged per dwh tile
 constexpr int DWH_THREADS = 256;
@@ -527,205 +521,6 @@ __global__ void __launch_bounds__(16 * KS) gru_wide_bwd(Dirs<BwdDir> dirs, int B
   }
 }
 
-// L2 tier: partial dot product of a state row (HU wide, zero-padded, in the
-// block's scratch) with lane q's slice of a weight vector whose element k is
-// w[k * stride] (stride H3: a column of wh; 1: a row), through the read-only
-// cache.
-__device__ __forceinline__ float dot_l2(const float* row, int q, int HU, int H,
-                                        const float* w, int stride) {
-  float a = 0.f, b = 0.f;
-  for (int kk = 4 * q; kk < HU; kk += 4 * Q) {
-    const float4 v = *reinterpret_cast<const float4*>(row + kk);
-    const float x[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = kk + c;
-      const float wk = k < H ? __ldg(w + (size_t)k * stride) : 0.f;
-      if (c & 1)
-        b = fmaf(x[c], wk, b);
-      else
-        a = fmaf(x[c], wk, a);
-    }
-  }
-  return a + b;
-}
-
-// Forward, L2 tier: one batch row a block; thread 4 u + q serves units
-// j = u, u + G, ... (G = blockDim / 4; j >= H: zeros, no writes). Scratch per
-// block: h (double-buffered), r h and z rows, each HU wide.
-template <bool WITH_RES>
-__global__ void __launch_bounds__(L2_THREADS) gru_wide_fwd_l2(Dirs<FwdDir> dirs, int B, int T,
-                                                              int H, int HU, int reset_after,
-                                                              int hard, float* scratch) {
-  const int dsel = blockIdx.y & 1;
-  const size_t seed = blockIdx.y >> 1;
-  const int H3 = 3 * H;
-  const int RW = reset_after ? 4 * H : H3;
-  const float* wh = PICK(wh) + seed * H * H3;
-  const float* bh = reset_after ? PICK(bh) + seed * H3 : nullptr;
-  const int rev = PICK(reverse);
-  const int tid = threadIdx.x, nthr = blockDim.x, G = nthr / Q, q = tid % Q;
-  const size_t bb = seed * B + blockIdx.x;
-  float* sc = scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 4 * HU;
-  float* hbuf[2] = {sc, sc + HU};
-  float* rh = sc + 2 * HU;
-  float* zb = sc + 3 * HU;
-  for (int e = tid; e < 4 * HU; e += nthr) sc[e] = 0.f;
-  __syncthreads();
-  for (int j = tid / Q; j < H; j += G)
-    if (q == 0) hbuf[0][j] = PICK(h0)[bb * H + j];
-
-  const float* xp = PICK(xp);
-  float* ys = PICK(ys);
-  float* res = WITH_RES ? PICK(res) : nullptr;
-  for (int i = 0; i < T; ++i) {
-    const int t = rev ? T - 1 - i : i;
-    const size_t row = bb * T + t;
-    const float* x = xp + row * H3;
-    const float* hc = hbuf[i & 1];
-    float* hx = hbuf[(i + 1) & 1];
-    __syncthreads();
-    for (int j = tid / Q; j < HU; j += G) {
-      const bool unit = j < H;
-      const int jc = unit ? j : 0;
-      const float ar = qsum(dot_l2(hc, q, HU, H, wh + jc, unit ? H3 : 0));
-      const float az = qsum(dot_l2(hc, q, HU, H, wh + H + jc, unit ? H3 : 0));
-      if (reset_after) {
-        const float hv =
-            qsum(dot_l2(hc, q, HU, H, wh + 2 * H + jc, unit ? H3 : 0)) + bh[2 * H + jc];
-        const float rg = gate(x[jc] + (ar + bh[jc]), hard);
-        const float zg = gate(x[H + jc] + (az + bh[H + jc]), hard);
-        const float ng = tanh_fast(x[2 * H + jc] + rg * hv);
-        const float hn = (1.0f - zg) * ng + zg * hc[jc];
-        if (!unit) continue;
-        if (q == 0) {
-          hx[j] = hn;
-          ys[row * H + j] = hn;
-        }
-        if (WITH_RES) res[row * RW + q * H + j] = q == 0 ? rg : q == 1 ? zg : q == 2 ? ng : hv;
-      } else {
-        const float rg = gate(x[jc] + ar, hard);
-        const float zg = gate(x[H + jc] + az, hard);
-        if (!unit) continue;
-        if (q == 0) {
-          rh[j] = rg * hc[j];
-          zb[j] = zg;
-        }
-        if (WITH_RES && q < 2) res[row * RW + q * H + j] = q == 0 ? rg : zg;
-      }
-    }
-    if (reset_after) continue;
-    __syncthreads();
-    for (int j = tid / Q; j < HU; j += G) {
-      const bool unit = j < H;
-      const int jc = unit ? j : 0;
-      const float ng = tanh_fast(x[2 * H + jc] +
-                                 qsum(dot_l2(rh, q, HU, H, wh + 2 * H + jc, unit ? H3 : 0)));
-      if (!unit || q != 0) continue;
-      const float hn = (1.0f - zb[j]) * ng + zb[j] * hc[j];
-      hx[j] = hn;
-      ys[row * H + j] = hn;
-      if (WITH_RES) res[row * RW + 2 * H + j] = ng;
-    }
-  }
-  __syncthreads();
-  for (int j = tid / Q; j < H; j += G)
-    if (q == 0) PICK(h_last)[bb * H + j] = hbuf[T & 1][j];
-}
-
-// Backward chain, L2 tier: one batch row a block, units as in the forward.
-// Scratch per block: dh, da_r, da_z, da_n (times r when reset_after) and two
-// per-unit carries, each HU wide.
-__global__ void __launch_bounds__(L2_THREADS) gru_wide_bwd_l2(Dirs<BwdDir> dirs, int B, int T,
-                                                              int H, int HU, int reset_after,
-                                                              int hard, float* scratch) {
-  const int dsel = blockIdx.y & 1;
-  const size_t seed = blockIdx.y >> 1;
-  const int H3 = 3 * H;
-  const int RW = reset_after ? 4 * H : H3;
-  const float* wh = PICK(wh) + seed * H * H3;
-  const int rev = PICK(reverse);
-  const int tid = threadIdx.x, nthr = blockDim.x, G = nthr / Q, q = tid % Q;
-  const size_t bb = seed * B + blockIdx.x;
-  float* sc = scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 6 * HU;
-  float* dh = sc;
-  float* ar = sc + HU;
-  float* az = sc + 2 * HU;
-  float* an = sc + 3 * HU;
-  float* c1 = sc + 4 * HU;
-  float* c2 = sc + 5 * HU;
-  for (int e = tid; e < 6 * HU; e += nthr) sc[e] = 0.f;
-  __syncthreads();
-  for (int j = tid / Q; j < H; j += G)
-    if (q == 0) dh[j] = PICK(dhl)[bb * H + j];
-
-  const float* ys = PICK(ys);
-  const float* res = PICK(res);
-  const float* dys = PICK(dys);
-  float* dxp = PICK(dxp);
-  for (int i = 0; i < T; ++i) {
-    const int t = rev ? i : T - 1 - i;
-    const size_t row = bb * T + t;
-    const float* hprev = i == T - 1 ? PICK(h0) + bb * H : ys + (bb * T + (rev ? t + 1 : t - 1)) * H;
-    const float* g = res + row * RW;
-    __syncthreads();
-    for (int j = tid / Q; j < H; j += G) {
-      if (q != 0) continue;
-      const float hp = hprev[j], r = g[j], z = g[H + j], n = g[2 * H + j];
-      const float dht = dys[row * H + j] + dh[j];
-      const float daz = dht * (hp - n) * gate_grad(z, hard);
-      const float dan = dht * (1.0f - z) * (1.0f - n * n);
-      az[j] = daz;
-      if (reset_after) {
-        const float dar = dan * g[3 * H + j] * gate_grad(r, hard);
-        ar[j] = dar;
-        an[j] = dan * r;
-        c1[j] = dht * z;
-        float* d = dxp + row * H3;
-        d[j] = dar;
-        d[H + j] = daz;
-        d[2 * H + j] = dan;
-      } else {
-        an[j] = dan;
-        c1[j] = dht;
-      }
-    }
-    __syncthreads();
-    for (int j = tid / Q; j < HU; j += G) {
-      const bool unit = j < H;
-      const float* wrow = wh + (size_t)(unit ? j : 0) * H3;
-      if (reset_after) {
-        const float s = (dot_l2(ar, q, HU, H, wrow, 1) + dot_l2(az, q, HU, H, wrow + H, 1)) +
-                        dot_l2(an, q, HU, H, wrow + 2 * H, 1);
-        const float tot = qsum(s);
-        if (unit && q == 0) dh[j] = c1[j] + tot;
-      } else {
-        const float drh = qsum(dot_l2(an, q, HU, H, wrow + 2 * H, 1));
-        const float dzs = qsum(dot_l2(az, q, HU, H, wrow + H, 1));
-        if (!unit || q != 0) continue;
-        const float hp = hprev[j], r = g[j], z = g[H + j];
-        const float dar = drh * hp * gate_grad(r, hard);
-        ar[j] = dar;
-        c2[j] = c1[j] * z + dzs + drh * r;
-        float* d = dxp + row * H3;
-        d[j] = dar;
-        d[H + j] = az[j];
-        d[2 * H + j] = an[j];
-      }
-    }
-    if (reset_after) continue;
-    __syncthreads();
-    for (int j = tid / Q; j < HU; j += G) {
-      const bool unit = j < H;
-      const float s = qsum(dot_l2(ar, q, HU, H, wh + (size_t)(unit ? j : 0) * H3, 1));
-      if (unit && q == 0) dh[j] = c2[j] + s;
-    }
-  }
-  __syncthreads();
-  for (int j = tid / Q; j < H; j += G)
-    if (q == 0) PICK(dh0)[bb * H + j] = dh[j];
-}
-
 // One partial of dwh (H, 3H) and dbh (3H) per (row split, direction, seed):
 // block (part p, row tile tm, column tile tn) of split blockIdx.y adds, over
 // the split's stored rows n = b T + t in index order, L[n, k] D[n, c] into
@@ -967,11 +762,6 @@ int launch_bwd_reg(const Dirs<BwdDir>& d, int ny, int B, int T, int H, int reset
   return static_cast<int>(cudaGetLastError());
 }
 
-int l2_threads(int H) {
-  const int t = Q * units(H);
-  return t < L2_THREADS ? t : L2_THREADS;
-}
-
 // Row splits of the dwh reduction: enough blocks for two waves of the
 // card's SMs over the 3 (H / 64)^2 tiles, at least 256 rows a split; a
 // function of B, T and H only.
@@ -993,65 +783,42 @@ const char* gru_wide_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// Floats of global scratch the L2 tier needs for ndir directions of nseed
-// seeds (0 in the register tier): the state rows of every block.
-long long gru_wide_scratch_floats(int ndir, int nseed, int B, int H, int backward) {
-  if (H <= REG_MAX_H) return 0;
-  return (long long)ndir * nseed * B * (backward ? 6 : 4) * units(H);
-}
-
 // ndir (1 or 2) directions of nseed seeds (nseed > 1 only with both
 // directions), each xp (nseed, B, T, 3H), wh (nseed, H, 3H), bh (nseed, 3H)
 // or null, h0 (nseed, B, H) -> ys (nseed, B, T, H), res (nseed, B, T, RW)
 // when with_res, h_last (nseed, B, H); float32, contiguous, on the device of
-// `stream`; scratch holds gru_wide_scratch_floats(..., 0) floats.
+// `stream`; H <= 128.
 int gru_wide_fwd_launch(const FwdDir* dirs, int ndir, int nseed, int B, int T, int H,
-                        int reset_after, int hard_sigmoid, int with_res, float* scratch,
-                        void* stream) {
-  if (bad_shape(ndir, nseed, B, T, H) || (H > REG_MAX_H && scratch == nullptr))
+                        int reset_after, int hard_sigmoid, int with_res, void* stream) {
+  if (bad_shape(ndir, nseed, B, T, H) || H > REG_MAX_H)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dirs<FwdDir> d = pack(dirs, ndir);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ny = ndir * nseed;
-  switch (H > REG_MAX_H ? 0 : slice_len(H)) {
+  switch (slice_len(H)) {
     case 8: return launch_fwd_reg<8>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s);
     case 16: return launch_fwd_reg<16>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s);
     case 24: return launch_fwd_reg<24>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s);
-    case 32: return launch_fwd_reg<32>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s);
-    default: break;
+    default: return launch_fwd_reg<32>(d, ny, B, T, H, reset_after, hard_sigmoid, with_res, s);
   }
-  const dim3 grid(B, ny);
-  if (with_res) {
-    gru_wide_fwd_l2<true><<<grid, l2_threads(H), 0, s>>>(d, B, T, H, units(H), reset_after,
-                                                         hard_sigmoid, scratch);
-  } else {
-    gru_wide_fwd_l2<false><<<grid, l2_threads(H), 0, s>>>(d, B, T, H, units(H), reset_after,
-                                                          hard_sigmoid, scratch);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ndir directions of nseed seeds, each ys (nseed, B, T, H), res (nseed, B,
 // T, RW), wh (nseed, H, 3H), h0 (nseed, B, H), dys (nseed, B, T, H), dhl
-// (nseed, B, H) -> dxp (nseed, B, T, 3H), dh0 (nseed, B, H); scratch holds
-// gru_wide_scratch_floats(..., 1) floats.
+// (nseed, B, H) -> dxp (nseed, B, T, 3H), dh0 (nseed, B, H); H <= 128.
 int gru_wide_bwd_launch(const BwdDir* dirs, int ndir, int nseed, int B, int T, int H,
-                        int reset_after, int hard_sigmoid, float* scratch, void* stream) {
-  if (bad_shape(ndir, nseed, B, T, H) || (H > REG_MAX_H && scratch == nullptr))
+                        int reset_after, int hard_sigmoid, void* stream) {
+  if (bad_shape(ndir, nseed, B, T, H) || H > REG_MAX_H)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dirs<BwdDir> d = pack(dirs, ndir);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ny = ndir * nseed;
-  switch (H > REG_MAX_H ? 0 : slice_len(H)) {
+  switch (slice_len(H)) {
     case 8: return launch_bwd_reg<8>(d, ny, B, T, H, reset_after, hard_sigmoid, s);
     case 16: return launch_bwd_reg<16>(d, ny, B, T, H, reset_after, hard_sigmoid, s);
     case 24: return launch_bwd_reg<24>(d, ny, B, T, H, reset_after, hard_sigmoid, s);
-    case 32: return launch_bwd_reg<32>(d, ny, B, T, H, reset_after, hard_sigmoid, s);
-    default: break;
+    default: return launch_bwd_reg<32>(d, ny, B, T, H, reset_after, hard_sigmoid, s);
   }
-  gru_wide_bwd_l2<<<dim3(B, ny), l2_threads(H), 0, s>>>(d, B, T, H, units(H), reset_after,
-                                                        hard_sigmoid, scratch);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Partials gru_wide_dwh_launch writes per (direction, seed) for B*T rows.

@@ -1,6 +1,7 @@
-"""GRU recurrence: the CUDA kernels (``csrc/gru_warp.cu`` and
-``csrc/gru_wide.cu``), their plain PyTorch versions, and the
-`torch.autograd.Function`s that join them.
+"""GRU recurrence: the CUDA kernels (``csrc/gru_warp.cu``,
+``csrc/gru_wide.cu``, ``csrc/gru_cluster.cu`` and ``csrc/gru_grid.cu``),
+their plain PyTorch versions, and the `torch.autograd.Function`s that join
+them.
 
 The counterpart of the JAX package's `ops/pallas/gru_scan.py`, with its
 batch-major contract: ``xp (B, T, 3H)`` pre-projected inputs
@@ -9,27 +10,33 @@ batch-major contract: ``xp (B, T, 3H)`` pre-projected inputs
 ``h_last (B, H)``. Both ``reset_after`` conventions, ``sigmoid`` and
 keras-2.2 ``hard_sigmoid`` gates, and reverse time.
 
-Three CUDA bodies, chosen by `gru_body` from the hidden width H, forward and
-backward alike; every H >= 1 runs one of them:
+Four CUDA bodies, chosen by `gru_body` from the hidden width H, forward and
+backward alike; every H >= 1 has one of them, and every H to 16,896 (a pair
+on an H100's 132 SMs; one direction to 33,792) runs on it:
 
 * ``"warp"`` (``csrc/gru_warp.cu``), H <= 32 (every preset): one warp per
   batch row (or 32 / HP rows, HP = H rounded up to a power of two), the
   recurrent weights in registers;
-* ``"wide"`` (``csrc/gru_wide.cu``), 32 < H <= 128 and H > `CLUSTER_MAX_H`:
-  four lanes per hidden unit, each holding a quarter of the unit's weights
-  in registers up to H = 128 (the register tier), R batch rows a block;
-  above `CLUSTER_MAX_H` one row a block reading its weights through L2 (the
-  L2 tier);
+* ``"wide"`` (``csrc/gru_wide.cu``), 32 < H <= 128: four lanes per hidden
+  unit, each holding a quarter of the unit's weights in registers, R batch
+  rows a block;
 * ``"cluster"`` (``csrc/gru_cluster.cu``), 128 < H <= `CLUSTER_MAX_H` (512):
   the recurrent weights resident in the shared memory of a thread-block
   cluster of `cluster_ctas` (H) CTAs, each CTA holding its units' part, R
   batch rows a cluster, the new state exchanged through distributed shared
-  memory each step. Its backward reduces ``dwh``/``dbh`` with the wide
-  body's kernels.
+  memory each step;
+* ``"grid"`` (``csrc/gru_grid.cu``), H > `CLUSTER_MAX_H`: one persistent
+  cooperative grid, K CTAs a direction (`grid_plan`), each holding its
+  units' part of wh in shared memory (resident to `GRID_RESIDENT_MAX_H`,
+  1056, for a pair, streamed each step above), the new state exchanged
+  through device memory (L2) behind a barrier of the direction's CTAs each
+  step. A CTA holds at most `GRID_UNITS_MAX` (256) units, so a wider shape
+  has no plan and its launch raises.
 
 All run one or two directions (and S seeds) per launch, and reduce the
 backward's ``dwh``/``dbh`` after the gradient chain by a separate kernel over
-the stored rows (`gru_dwh_plain` is its reference), summed in a fixed order.
+the stored rows (`gru_dwh_plain` is its reference; the cluster and grid
+bodies use the wide body's), summed in a fixed order.
 
 Entry points, each of which launches a kernel for a CUDA tensor, runs its
 plain version only for a CPU tensor, and counts its launches:
@@ -60,10 +67,11 @@ direction carries a leading seed axis, ``xp (S, B, T, 3H)``, ``wh (S, H,
 3H)``, ``bh (S, 3H)``, ``h0 (S, B, H)``, and so does every result. Each
 kernel launches once per call for all S seeds x 2 directions, counted in the
 counters above. A CPU tensor runs the plain versions seed by seed.
-``gru_scan.wide_launches`` and ``gru_scan.cluster_launches`` count the
-launches of the wide and cluster bodies' recurrences (forward, residual
-forward, backward chain) among all of the above. The kernels stream every
-per-step array, so any T and B are taken.
+``gru_scan.wide_launches``, ``gru_scan.cluster_launches`` and
+``gru_scan.grid_launches`` count the launches of the wide, cluster and grid
+bodies' recurrences (forward, residual forward, backward chain) among all of
+the above. The kernels stream every per-step array, so any T and B are
+taken.
 """
 
 from __future__ import annotations
@@ -79,7 +87,7 @@ from sed_crnn_torch.ops.kernels import _build
 GATES = ("sigmoid", "hard_sigmoid")
 WARP_MAX_HIDDEN = 32  # the warp body: lane j owns hidden unit j
 REGISTER_MAX_HIDDEN = 128  # the wide body's register tier
-BODIES = ("warp", "wide", "cluster")
+BODIES = ("warp", "wide", "cluster", "grid")
 
 # The cluster body's plan, as csrc/gru_cluster.cu computes it (the card's
 # library reports the same numbers: `gru_cluster_ctas`, `_smem_bytes`,
@@ -205,16 +213,122 @@ def cluster_rows(H: int, B: int, n_blocks: int, resident, backward: bool) -> int
     return best
 
 
+# The grid body's plan, as csrc/gru_grid.cu computes it (the card's library
+# reports the same numbers: `grid_plan_card`, `gru_grid_scratch_floats`). A
+# dot product over k is GRID_SLABS slabs of HP / 8 (HP = H rounded up to 32),
+# added in order; a CTA of GRID_THREADS threads holds UP units (a power of
+# two, GRID_UNITS_MIN .. GRID_UNITS_MAX).
+GRID_THREADS = 256
+GRID_SLABS = 8
+GRID_KC = 16                       # k a chunk of the tile body's ring
+GRID_TILE_UNITS = 2                # units a thread of the tile body (up to 4 rows)
+GRID_MAX_STAGES = 3                # the tile body's deepest ring
+GRID_LANES_MAX_B = 16              # widest batch the lanes body takes
+GRID_MAX_SMEM = 232448             # 227 KB, a CTA's opt-in limit on Hopper
+GRID_UNITS_MIN = 8
+GRID_UNITS_MAX = 256
+GRID_COUNTER_FLOATS = 64           # the scratch's head: the barrier counters
+GRID_SMS = 132                     # the mirror's card: an H100 SXM's SMs
+
+
+def grid_geometry(H: int) -> Tuple[int, int, int]:
+    """``(HP, HS, SS)`` of width H: the padded state row, a slab of it, and
+    the slab stride of the lanes body's layout (SS / 4 odd)."""
+    HP = _round_up(H, 4 * GRID_SLABS)
+    HS = HP // GRID_SLABS
+    return HP, HS, HS + (4 if HS % 8 == 0 else 8)
+
+
+def grid_plan(n_dir: int, n_seed: int, B: int, H: int, backward: bool,
+              with_res: bool = False, ctas: int = 0, sms: int = GRID_SMS) -> dict:
+    """The grid body's launch of ``n_dir`` directions of ``n_seed`` seeds at
+    (B, H) on a card of ``sms`` SMs (``ctas`` > 0 forces K): ``{"ctas": K,
+    "units": U, "units_padded": UP, "split": 8 (the lanes body) or 1 (the
+    tile body), "row_block": rows a thread, "rows": rows a pass, "stages":
+    the ring's (tile body), "resident": bool, "threads", "smem": a CTA's
+    bytes}``. UP: the fewest units a CTA (a power of two) whose ceil(H / UP)
+    CTAs a direction fit the card. The lanes body where B <=
+    GRID_LANES_MAX_B and its resident weights and whole rows fit; else the
+    tile body, its weights resident when they fit beside the smallest ring.
+    The seeds take turns in the same CTAs, and nothing here changes the
+    order of a sum (``csrc/gru_grid.cu``'s header). Raises when no plan
+    fits."""
+    del n_seed, with_res
+    if not (1 <= n_dir <= 2 and B >= 1 and H >= 1 and sms >= n_dir):
+        raise ValueError(f"no grid plan for {n_dir} directions at B={B} H={H}")
+    HP, _, SS = grid_geometry(H)
+    if ctas > 0:
+        K, UP = ctas, GRID_UNITS_MIN
+        while UP < -(-H // ctas):
+            UP *= 2
+    else:
+        UP = GRID_UNITS_MIN
+        while UP <= GRID_UNITS_MAX and -(-H // UP) > sms // n_dir:
+            UP *= 2
+        K = -(-H // UP)
+    if UP > GRID_UNITS_MAX:
+        raise ValueError(f"no grid plan: H={H} needs more than {GRID_UNITS_MAX} units a CTA")
+    plan = {"ctas": K, "units": -(-H // K), "units_padded": UP, "threads": GRID_THREADS}
+    G = 3 if backward else 1
+    if B <= GRID_LANES_MAX_B and UP <= 32:
+        nrg, ws = 32 // UP, GRID_SLABS * SS + 4
+        for RB in (4, 2, 1):
+            if RB > 1 and RB // 2 * nrg >= B:
+                continue
+            smem = 4 * (3 * UP + G * RB * nrg) * ws
+            if smem <= GRID_MAX_SMEM:
+                return {**plan, "split": GRID_SLABS, "row_block": RB, "rows": RB * nrg,
+                        "stages": 0, "resident": True, "smem": smem}
+    nrg, kcp = GRID_THREADS // (UP // GRID_TILE_UNITS), GRID_KC + 4
+    weights = 3 * UP * (HP + 4)
+    resident = 4 * (weights + 2 * G * nrg * kcp) <= GRID_MAX_SMEM
+    for RB in (4, 2, 1):
+        if RB > 1 and RB // 2 * nrg >= B:
+            continue
+        for stages in range(GRID_MAX_STAGES, 1, -1):
+            ring = stages * G * RB * nrg * kcp
+            smem = 4 * (weights + ring if resident else ring + stages * 3 * UP * kcp)
+            if smem <= GRID_MAX_SMEM:
+                return {**plan, "split": 1, "row_block": RB, "rows": RB * nrg,
+                        "stages": stages, "resident": resident, "smem": smem}
+    raise ValueError(f"no grid plan fits a CTA at B={B} H={H}")
+
+
+def grid_scratch_floats(n_dir: int, B: int, H: int, backward: bool) -> int:
+    """Device scratch of a grid launch: the barrier counters, then each
+    direction's exchanged rows and step values (32-float aligned)."""
+    HP = grid_geometry(H)[0]
+    n = 6 * B * HP + 4 * B * H if backward else 3 * B * HP + 2 * B * H
+    return GRID_COUNTER_FLOATS + n_dir * _round_up(n, 32)
+
+
+def _grid_resident_max_h(sms: int = GRID_SMS) -> int:
+    H = CLUSTER_MAX_H
+    while all(grid_plan(2, 1, B, H + 1, bwd, sms=sms)["resident"]
+              for B in (1, GRID_LANES_MAX_B + 1) for bwd in (False, True)):
+        H += 1
+    return H
+
+
+# 1056: a pair's 66 CTAs of 16 units (48 vectors of 1,060 floats, 203,520
+# bytes, beside the backward's smallest ring of 15,360); from 1057 a CTA
+# holds 32 units, streamed.
+GRID_RESIDENT_MAX_H = _grid_resident_max_h()
+
+
 def gru_body(H: int, backward: bool = False) -> str:
     """The CUDA body that a hidden width H runs on, forward and backward
-    alike: ``"warp"`` (``csrc/gru_warp.cu``) for H <= 32, ``"cluster"``
-    (``csrc/gru_cluster.cu``) for 128 < H <= CLUSTER_MAX_H, ``"wide"``
-    (``csrc/gru_wide.cu``) at every other width."""
+    alike: ``"warp"`` (``csrc/gru_warp.cu``) for H <= 32, ``"wide"``
+    (``csrc/gru_wide.cu``) for 32 < H <= 128, ``"cluster"``
+    (``csrc/gru_cluster.cu``) to CLUSTER_MAX_H and ``"grid"``
+    (``csrc/gru_grid.cu``) above."""
     if H <= 0:
         raise ValueError(f"hidden width must be positive, got {H}")
     if H <= WARP_MAX_HIDDEN:
         return "warp"
-    return "cluster" if REGISTER_MAX_HIDDEN < H <= CLUSTER_MAX_H else "wide"
+    if H <= REGISTER_MAX_HIDDEN:
+        return "wide"
+    return "cluster" if H <= CLUSTER_MAX_H else "grid"
 
 
 def _steps(T: int, reverse: bool):
@@ -393,11 +507,9 @@ def _warp_lib() -> ctypes.CDLL:
 def _wide_lib() -> ctypes.CDLL:
     """The wide body, ``csrc/gru_wide.cu``."""
     lib = _build.load("gru_wide")
-    lib.gru_wide_scratch_floats.argtypes = [_i] * 5
-    lib.gru_wide_scratch_floats.restype = ctypes.c_longlong
-    lib.gru_wide_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 8 + [_p, _p]
+    lib.gru_wide_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 8 + [_p]
     lib.gru_wide_fwd_launch.restype = _i
-    lib.gru_wide_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 7 + [_p, _p]
+    lib.gru_wide_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 7 + [_p]
     lib.gru_wide_bwd_launch.restype = _i
     lib.gru_wide_dwh_splits.argtypes = [_i, _i, _i]
     lib.gru_wide_dwh_splits.restype = _i
@@ -446,11 +558,49 @@ def cluster_plan(n_dir: int, n_seed: int, B: int, H: int, backward: bool,
     return dict(zip(("ctas", "rows", "threads", "smem"), (int(v) for v in out)))
 
 
-def _scratch(lib, n_dir: int, n_seed: int, B: int, H: int, backward: bool,
-             device) -> Optional[torch.Tensor]:
-    """The wide body's global scratch above its register tier, else None."""
-    n = lib.gru_wide_scratch_floats(n_dir, n_seed, B, H, int(backward))
-    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+@lru_cache(maxsize=None)
+def _grid_lib() -> ctypes.CDLL:
+    """The grid body, ``csrc/gru_grid.cu``."""
+    return bind_grid(_build.load("gru_grid"))
+
+
+def bind_grid(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C interface of a library built from ``csrc/gru_grid.cu``."""
+    lib.gru_grid_scratch_floats.argtypes = [_i] * 4
+    lib.gru_grid_scratch_floats.restype = ctypes.c_longlong
+    lib.gru_grid_resident_ctas.argtypes = [_i] * 6
+    lib.gru_grid_resident_ctas.restype = _i
+    lib.gru_grid_plan.argtypes = [_i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gru_grid_plan.restype = _i
+    lib.gru_grid_fwd_launch.argtypes = [ctypes.POINTER(_FwdDir)] + [_i] * 9 + [_p, _p]
+    lib.gru_grid_fwd_launch.restype = _i
+    lib.gru_grid_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 8 + [_p, _p]
+    lib.gru_grid_bwd_launch.restype = _i
+    lib.gru_grid_error_string.argtypes = [_i]
+    lib.gru_grid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+GRID_PLAN_KEYS = ("ctas", "units", "units_padded", "split", "row_block", "rows", "stages",
+                  "resident", "threads", "smem")
+
+
+def grid_plan_card(n_dir: int, n_seed: int, B: int, H: int, backward: bool,
+                   with_res: bool = False, ctas: int = 0, lib=None) -> dict:
+    """`grid_plan` as the library computes it on the current card."""
+    lib = lib or _grid_lib()
+    out = (ctypes.c_longlong * len(GRID_PLAN_KEYS))()
+    _raise_on(lib.gru_grid_plan(n_dir, n_seed, B, H, int(backward), int(with_res), ctas, out),
+              "gru_grid_plan", lib.gru_grid_error_string)
+    plan = dict(zip(GRID_PLAN_KEYS, (int(v) for v in out)))
+    plan["resident"] = bool(plan["resident"])
+    return plan
+
+
+def _grid_scratch(lib, n_dir: int, B: int, H: int, backward: bool, device) -> torch.Tensor:
+    """The grid body's device scratch for one launch."""
+    n = lib.gru_grid_scratch_floats(n_dir, B, H, int(backward))
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _checked(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
@@ -511,7 +661,8 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
     takes any body at any width it can hold) -> per direction ``(ys, res or
     None, h_last)``, and the number of launches. ``stack``: the seed count S
     of stacked operands (both directions), None for unstacked ones.
-    ``ctas`` > 0 forces the cluster body's cluster size."""
+    ``ctas`` > 0 forces the cluster body's cluster size or the grid body's
+    CTAs a direction."""
     dev = xps[0].device
     lead = _lead(stack)
     B, T, H3 = xps[0].shape[-3:]
@@ -551,10 +702,15 @@ def _fwd(xps: Sequence[torch.Tensor], whs, bhs, h0s, reverses: Sequence[bool],
             status = lib.gru_cluster_fwd_launch(arr, *shape, ctas, stream)
             _raise_on(status, "gru_cluster_fwd", lib.gru_cluster_error_string)
             gru_scan.cluster_launches += 1
+        elif body == "grid":
+            lib = _grid_lib()
+            scratch = _grid_scratch(lib, n_dir, B, H, False, dev)
+            status = lib.gru_grid_fwd_launch(arr, *shape, ctas, scratch.data_ptr(), stream)
+            _raise_on(status, "gru_grid_fwd", lib.gru_grid_error_string)
+            gru_scan.grid_launches += 1
         else:
             lib = _wide_lib()
-            scratch = _scratch(lib, n_dir, n_seed, B, H, False, dev)
-            status = lib.gru_wide_fwd_launch(arr, *shape, _ptr(scratch), stream)
+            status = lib.gru_wide_fwd_launch(arr, *shape, stream)
             _raise_on(status, "gru_wide_fwd", lib.gru_wide_error_string)
             gru_scan.wide_launches += 1
     return outs, 1
@@ -567,7 +723,7 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
     card: the gradient chain, the ``dwh``/``dbh`` reduction and the
     fixed-order sum of its partials -> per direction ``(dxp, dwh, dbh,
     dh0)``; counts its launches. ``body``, ``stack`` and ``ctas`` as for
-    `_fwd` (the cluster body's reduction is the wide body's)."""
+    `_fwd` (the cluster and grid bodies' reduction is the wide body's)."""
     dev = ys_s[0].device
     lead = _lead(stack)
     B, T, H = ys_s[0].shape[-3:]
@@ -607,11 +763,18 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
             gru_scan.cluster_launches += 1
             lib, name = _wide_lib(), "gru_wide"
             n_part = lib.gru_wide_dwh_splits(B, T, H)
+        elif body == "grid":
+            glib = _grid_lib()
+            scratch = _grid_scratch(glib, n_dir, B, H, True, dev)
+            status = glib.gru_grid_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, ctas,
+                                              scratch.data_ptr(), stream)
+            _raise_on(status, "gru_grid_bwd", glib.gru_grid_error_string)
+            gru_scan.grid_launches += 1
+            lib, name = _wide_lib(), "gru_wide"
+            n_part = lib.gru_wide_dwh_splits(B, T, H)
         else:
             lib, name = _wide_lib(), "gru_wide"
-            scratch = _scratch(lib, n_dir, n_seed, B, H, True, dev)
-            status = lib.gru_wide_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags,
-                                             _ptr(scratch), stream)
+            status = lib.gru_wide_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, stream)
             gru_scan.wide_launches += 1
             n_part = lib.gru_wide_dwh_splits(B, T, H)
         error_string = getattr(lib, f"{name}_error_string")
@@ -671,6 +834,7 @@ def gru_scan(
 gru_scan.launches = 0
 gru_scan.wide_launches = 0
 gru_scan.cluster_launches = 0
+gru_scan.grid_launches = 0
 
 
 def gru_scan_fwd_res(

@@ -1,9 +1,14 @@
-"""Where the time of kernel B's cluster tier goes, phase by phase, and its
-cluster size, on one CUDA card.
+"""Where the time of kernel B's cluster and grid tiers goes, phase by phase,
+on one CUDA card.
 
     python3 -m sed_crnn_torch.tools.gru_phases [--H 256] [--T 256]
+    python3 -m sed_crnn_torch.tools.gru_phases --body grid [--H 1024] [--T 256]
+    python3 -m sed_crnn_torch.tools.gru_phases --body grid --l2-source OLD/gru_wide.cu
+    python3 -m sed_crnn_torch.tools.gru_phases --body grid --against OTHER/gru_grid.cu
 
-from the root of a checkout. Builds ``sed_crnn_torch/csrc/gru_cluster.cu`` as
+from the root of a checkout.
+
+``--body cluster`` (the default) builds ``sed_crnn_torch/csrc/gru_cluster.cu`` as
 it is and with each of its profiling cuts (``-DGRU_CLUSTER_CUT=k``: the
 source leaves out part of each step, and the results are no longer right)
 and with a larger thread budget, all ``nvcc`` runs started
@@ -30,6 +35,34 @@ at most 128 registers a thread) times the full body; it is the only build
 that takes C = 4 at H = 256. C = 4, 8 and 16 are forced
 through the launcher's ``ctas`` argument (the sums' order does not depend
 on C); the library's rule picks `cluster_ctas` (H).
+
+``--body grid`` builds ``sed_crnn_torch/csrc/gru_grid.cu`` as it is and with
+its cuts (``-DGRU_GRID_CUT=k``): ``no_barrier`` (1: the direction's barriers
+wait for no other CTA), ``no_products`` (2: nor the gate products) and
+``no_loads`` (3: nor the loads of the state rows and streamed weight
+chunks), and times a pair's residual forward and backward chain at width H
+(default 1024) at B = 1 and 128, both conventions, in turns. The phases, in
+us a step: exchange + barrier = full - no_barrier (the wait for the
+direction's other CTAs, their skew included), products = no_barrier -
+no_products, tile loads = no_products - no_loads (the state rows from L2,
+and the weight chunks when streamed), rest = no_loads (gates, the writes of
+the exchanged rows and outputs, block barriers). One JSON line per
+(convention, B) with the plan of each build.
+
+``--against PATH`` (with ``--body grid``) instead builds the grid body as
+it is and from PATH, another version of ``gru_grid.cu`` with the same C
+interface (a changed plan rule, say), and times a pair's forward, residual
+forward and backward chain at width H (default 1024) at B = 1, 8 and 16
+(the lanes body's batches), both conventions, in turns (this, other, other, this),
+with each build's plan and whether the two give the same bits.
+
+``--l2-source PATH`` (with ``--body grid``) also builds the wide body from
+PATH, a ``gru_wide.cu`` that still has the L2 tier the grid body replaced
+(above H = 512; the parent of the commit that retired it), and times its
+pair forward at B = 1, T = ``--T``, and its pair residual forward and
+backward chain at B = 128 over ``--l2-T`` steps (16: the tier reads all of
+wh for each row at each step), in turns with the grid body at the same
+shapes; times also in ms a step.
 """
 
 from __future__ import annotations
@@ -46,34 +79,41 @@ import torch
 from sed_crnn_torch.ops.kernels import _build
 from sed_crnn_torch.ops.kernels import gru_scan as gs
 
+GRID_VARIANTS = {"full": (), "no_barrier": ("-DGRU_GRID_CUT=1",),
+                 "no_products": ("-DGRU_GRID_CUT=2",), "no_loads": ("-DGRU_GRID_CUT=3",)}
 VARIANTS = {"full": (), "no_exchange": ("-DGRU_CLUSTER_CUT=1",),
             "no_products": ("-DGRU_CLUSTER_CUT=2",), "no_staging": ("-DGRU_CLUSTER_CUT=3",),
             "threads512": ("-DGRU_CLUSTER_MAX_THREADS=512",)}
 CUTS = ("full", "no_exchange", "no_products", "no_staging")
 BATCHES = (1, 128)
+AGAINST_BATCHES = (1, 8, 16)
 CTAS = (4, 8, 16)
 REPS = 10
 
 
-def build_variants() -> dict:
-    """One library per variant under ``build/gru_phases/``, every ``nvcc``
-    started before any is waited for: {variant: bound CDLL}; their ptxas
-    lines in ``build_variants.ptxas``."""
+def build_variants(source: str = "gru_cluster", variants: dict = VARIANTS, bind=None,
+                   extra: dict = None) -> dict:
+    """One library per variant of ``csrc/<source>.cu`` under
+    ``build/gru_phases/`` (and one per ``extra`` {name: source path}), every
+    ``nvcc`` started before any is waited for: {variant: CDLL, bound by
+    ``bind``}; their ptxas lines in ``build_variants.ptxas``."""
     out_dir = _build.BUILD_DIR.parent / "gru_phases"
     out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {name: (flags, _build.CSRC_DIR / f"{source}.cu") for name, flags in variants.items()}
+    jobs.update({name: ((), path) for name, path in (extra or {}).items()})
     procs = {}
-    for name, flags in VARIANTS.items():
-        lib = out_dir / f"libgru_cluster_{name}.so"
+    for name, (flags, src) in jobs.items():
+        lib = out_dir / f"lib{source}_{name}.so"
         procs[name] = lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
-             str(_build.CSRC_DIR / "gru_cluster.cu")],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, ptxas = {}, {}
     for name, (lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the {name} variant:\n{out}")
-        libs[name] = gs.bind_cluster(ctypes.CDLL(str(lib)))
+        cdll = ctypes.CDLL(str(lib))
+        libs[name] = (bind or gs.bind_cluster)(cdll) if name in variants else cdll
         ptxas[name] = [ln.split(":", 1)[-1].strip() for ln in out.splitlines()
                        if "registers" in ln or "spill" in ln]
     build_variants.ptxas = ptxas
@@ -101,9 +141,9 @@ def _operands(rng, B: int, T: int, H: int, dev) -> list:
              t(rng.standard_normal((B, T, H))), t(rng.standard_normal((B, H)))) for _ in range(2)]
 
 
-def launchers(ops, reset_after: bool, ctas: int):
-    """(forward, chain) closures over ``ops`` that launch a given library's
-    residual forward and backward chain of both directions, C = ``ctas``."""
+def _pair_args(ops, reset_after: bool):
+    """The launchers' direction arrays over ``ops`` with outputs allocated
+    once: ``(B, T, H, fwd, bwd, buffers)`` (keep ``buffers`` alive)."""
     B, T, H3 = ops[0][0].shape
     H = H3 // 3
     RW = gs.res_width(reset_after, H)
@@ -120,6 +160,13 @@ def launchers(ops, reset_after: bool, ctas: int):
                                         o[3].data_ptr(), o[4].data_ptr(), o[5].data_ptr(),
                                         d.data_ptr(), d0.data_ptr(), k)
                              for k, (o, y, r, d, d0) in enumerate(zip(ops, ys, res, dxp, dh0))))
+    return B, T, H, fwd, bwd, (ys, res, hl, dxp, dh0)
+
+
+def launchers(ops, reset_after: bool, ctas: int):
+    """(forward, chain) closures over ``ops`` that launch a given library's
+    residual forward and backward chain of both directions, C = ``ctas``."""
+    B, T, H, fwd, bwd, buffers = _pair_args(ops, reset_after)
     stream = torch.cuda.current_stream().cuda_stream
 
     def forward(lib):
@@ -132,6 +179,7 @@ def launchers(ops, reset_after: bool, ctas: int):
                                                 stream), "gru_cluster_bwd",
                      lib.gru_cluster_error_string)
 
+    forward.buffers = chain.buffers = buffers
     return forward, chain
 
 
@@ -145,15 +193,162 @@ def _in_turns(libs: dict, fn) -> dict:
     return ms
 
 
+
+def grid_launchers(ops, reset_after: bool):
+    """(forward, chain) closures over ``ops`` that launch a given grid
+    library's residual forward and backward chain of both directions, each
+    with its own device scratch."""
+    B, T, H, fwd, bwd, buffers = _pair_args(ops, reset_after)
+    scratch = {bw: torch.empty(gs.grid_scratch_floats(2, B, H, bw), device=ops[0][0].device)
+               for bw in (False, True)}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def forward(lib, with_res: int = 1):
+        gs._raise_on(lib.gru_grid_fwd_launch(fwd, 2, 1, B, T, H, int(reset_after), 0, with_res, 0,
+                                             scratch[False].data_ptr(), stream),
+                     "gru_grid_fwd", lib.gru_grid_error_string)
+
+    def chain(lib):
+        gs._raise_on(lib.gru_grid_bwd_launch(bwd, 2, 1, B, T, H, int(reset_after), 0, 0,
+                                             scratch[True].data_ptr(), stream),
+                     "gru_grid_bwd", lib.gru_grid_error_string)
+
+    forward.buffers = chain.buffers = (buffers, scratch)
+    return forward, chain
+
+
+def l2_launchers(lib, ops, reset_after: bool):
+    """(forward, residual forward, chain) closures that launch the retired
+    L2 tier of a wide-body library built from an older ``gru_wide.cu`` (its
+    launchers still take a scratch of ``gru_wide_scratch_floats``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gru_wide_scratch_floats.argtypes = [i] * 5
+    lib.gru_wide_scratch_floats.restype = ctypes.c_longlong
+    lib.gru_wide_fwd_launch.argtypes = [ctypes.POINTER(gs._FwdDir)] + [i] * 8 + [p, p]
+    lib.gru_wide_fwd_launch.restype = i
+    lib.gru_wide_bwd_launch.argtypes = [ctypes.POINTER(gs._BwdDir)] + [i] * 7 + [p, p]
+    lib.gru_wide_bwd_launch.restype = i
+    lib.gru_wide_error_string.argtypes = [i]
+    lib.gru_wide_error_string.restype = ctypes.c_char_p
+    B, T, H, fwd, bwd, buffers = _pair_args(ops, reset_after)
+    scratch = {bw: torch.empty(lib.gru_wide_scratch_floats(2, 1, B, H, bw),
+                               device=ops[0][0].device)
+               for bw in (0, 1)}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch_fwd(with_res):
+        gs._raise_on(lib.gru_wide_fwd_launch(fwd, 2, 1, B, T, H, int(reset_after), 0, with_res,
+                                             scratch[0].data_ptr(), stream),
+                     "gru_wide_fwd (L2 tier)", lib.gru_wide_error_string)
+
+    def launch_chain():
+        gs._raise_on(lib.gru_wide_bwd_launch(bwd, 2, 1, B, T, H, int(reset_after), 0,
+                                             scratch[1].data_ptr(), stream),
+                     "gru_wide_bwd (L2 tier)", lib.gru_wide_error_string)
+
+    launch_fwd.buffers = launch_chain.buffers = (buffers, scratch)
+    return (lambda: launch_fwd(0)), (lambda: launch_fwd(1)), launch_chain
+
+
+def grid_against(H: int, T: int, source: str) -> int:
+    """``--body grid --against PATH``: this grid body and the one built from
+    PATH, a pair's forward, residual forward and chain in turns."""
+    libs = build_variants("gru_grid", {"this": ()}, gs.bind_grid, {"other": source})
+    libs["other"] = gs.bind_grid(libs["other"])
+    device = torch.cuda.get_device_name(0)
+    print(json.dumps({"ptxas": build_variants.ptxas, "device": device}), flush=True)
+    rng = np.random.default_rng(35)
+    for reset_after in (True, False):
+        for B in AGAINST_BATCHES:
+            ops = _operands(rng, B, T, H, torch.device("cuda"))
+            forward, chain = grid_launchers(ops, reset_after)
+            outs = {}
+            for name, lib in libs.items():
+                forward(lib)
+                chain(lib)
+                torch.cuda.synchronize()
+                outs[name] = [t.clone() for group in forward.buffers[0] for t in group]
+            line = {"body": "grid against", "H": H, "T": T, "B": B, "reset_after": reset_after,
+                    "device": device, "source": source,
+                    "same_bits": all(torch.equal(a, b) for a, b in zip(*outs.values())),
+                    "plans": {n: [gs.grid_plan_card(2, 1, B, H, bw, True, lib=lib)
+                                  for bw in (False, True)] for n, lib in libs.items()}}
+            for kind, fn in (("forward", lambda lib: forward(lib, 0)),
+                             ("residual_forward", forward), ("chain", chain)):
+                ms = _in_turns(libs, fn)
+                line[f"{kind}_ms"] = ms
+                line[f"{kind}_us_a_step"] = {k: float(np.mean(v)) * 1e3 / T for k, v in ms.items()}
+            print(json.dumps(line), flush=True)
+    return 0
+
+
+def grid_main(H: int, T: int, l2_source: str, l2_T: int) -> int:
+    """``--body grid``: the grid body's phases, and the retired L2 tier in
+    turns with it when ``l2_source`` names an older ``gru_wide.cu``."""
+    extra = {"l2": l2_source} if l2_source else None
+    libs = build_variants("gru_grid", GRID_VARIANTS, gs.bind_grid, extra)
+    l2 = libs.pop("l2", None)
+    device = torch.cuda.get_device_name(0)
+    print(json.dumps({"ptxas": build_variants.ptxas, "device": device}), flush=True)
+    rng = np.random.default_rng(32)
+    cuts = tuple(GRID_VARIANTS)
+    for reset_after in (True, False):
+        for B in BATCHES:
+            ops = _operands(rng, B, T, H, torch.device("cuda"))
+            forward, chain = grid_launchers(ops, reset_after)
+            line = {"body": "grid", "H": H, "T": T, "B": B, "reset_after": reset_after,
+                    "device": device,
+                    "plans": {k: gs.grid_plan_card(2, 1, B, H, k == "chain", True,
+                                                   lib=libs["full"]) for k in ("forward", "chain")}}
+            for kind, fn in (("forward", forward), ("chain", chain)):
+                ms = _in_turns(libs, fn)
+                mean = {k: float(np.mean(v)) for k, v in ms.items()}
+                us = {k: v * 1e3 / T for k, v in mean.items()}
+                line[f"{kind}_ms"] = ms
+                line[f"{kind}_us_a_step"] = {
+                    "full": us[cuts[0]], "exchange_barrier": us["full"] - us["no_barrier"],
+                    "products": us["no_barrier"] - us["no_products"],
+                    "tile_loads": us["no_products"] - us["no_loads"], "rest": us["no_loads"]}
+            print(json.dumps(line), flush=True)
+    if l2 is None:
+        return 0
+    for B, steps in ((1, T), (128, l2_T)):
+        ops = _operands(rng, B, steps, H, torch.device("cuda"))
+        forward, chain = grid_launchers(ops, True)
+        l2_fwd, l2_fres, l2_chain = l2_launchers(l2, ops, True)
+        fns = {"grid": {"forward": lambda: forward(libs["full"]),
+                        "chain": lambda: chain(libs["full"])},
+               "l2": {"forward": l2_fres if B > 1 else l2_fwd, "chain": l2_chain}}
+        line = {"body": "l2 tier vs grid", "H": H, "T": steps, "B": B, "reset_after": True,
+                "device": device}
+        kinds = ("forward", "chain") if B > 1 else ("forward",)
+        for kind in kinds:
+            ms = {}
+            for name in ("grid", "l2", "l2", "grid"):
+                ms.setdefault(name, []).append(cuda_ms(fns[name][kind], reps=2, warmup=1))
+            line[f"{kind}_ms"] = ms
+            line[f"{kind}_ms_a_step"] = {k: float(np.mean(v)) / steps for k, v in ms.items()}
+        print(json.dumps(line), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--H", type=int, default=256)
+    ap.add_argument("--body", choices=("cluster", "grid"), default="cluster")
+    ap.add_argument("--H", type=int, default=None)
     ap.add_argument("--T", type=int, default=256)
+    ap.add_argument("--l2-source", default=None)
+    ap.add_argument("--l2-T", type=int, default=16)
+    ap.add_argument("--against", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gru_phases: a CUDA card is required", file=sys.stderr)
         return 2
-    H, T = args.H, args.T
+    if args.body == "grid" and args.against:
+        return grid_against(args.H or 1024, args.T, args.against)
+    if args.body == "grid":
+        return grid_main(args.H or 1024, args.T, args.l2_source, args.l2_T)
+    H, T = args.H or 256, args.T
     libs = build_variants()
     device = torch.cuda.get_device_name(0)
     print(json.dumps({"ptxas": build_variants.ptxas, "device": device}), flush=True)

@@ -34,7 +34,7 @@ from sed_crnn_torch.ops.kernels.gru_scan import (
 
 @pytest.mark.parametrize("H_,want", [
     (33, "wide"), (128, "wide"), (129, "cluster"), (256, "cluster"),
-    (CLUSTER_MAX_H, "cluster"), (CLUSTER_MAX_H + 1, "wide")])
+    (CLUSTER_MAX_H, "cluster"), (CLUSTER_MAX_H + 1, "grid")])
 def test_tier_rule(H_, want):
     assert gru_body(H_) == want
     assert gru_body(H_, backward=True) == want

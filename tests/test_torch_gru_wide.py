@@ -204,9 +204,10 @@ def test_stacked_crnn_with_wide_grus_matches_jax_vmap():
 
 @pytest.mark.parametrize("H_", [33, 48, 64, 96, 128, 129, 256, 1000])
 def test_every_width_above_32_runs_the_wide_body(H_):
-    """The wide body up to H = 128 and above CLUSTER_MAX_H (512); the
-    cluster body between (tests/test_torch_gru_cluster.py)."""
-    want = "cluster" if H_ in (129, 256) else "wide"
+    """The wide body up to H = 128; the cluster body to CLUSTER_MAX_H (512,
+    tests/test_torch_gru_cluster.py) and the grid body above
+    (tests/test_torch_gru_grid.py)."""
+    want = "wide" if H_ <= 128 else "cluster" if H_ <= 512 else "grid"
     assert gru_body(H_) == want
     assert gru_body(H_, backward=True) == want
 

@@ -77,7 +77,7 @@ def cuda():
 
 # H <= 32 runs the warp body (csrc/gru_warp.cu), 32 < H <= 128 the wide one
 # (csrc/gru_wide.cu, registers), 128 < H <= 512 the cluster body
-# (csrc/gru_cluster.cu), H > 512 the wide body's L2 tier.
+# (csrc/gru_cluster.cu), H > 512 the grid body (csrc/gru_grid.cu).
 GRU_SHAPES = [(1, 1, 4), (3, 7, 8), (7, 45, 16), (5, 300, 32), (2, 20, 64), (3, 30, 129)]
 
 
@@ -127,7 +127,7 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
     n_fwd, n_bwd, n_sum = (gru_scan_fwd_res.launches, gru_scan_bwd.launches,
                            gru_scan_bwd.sum_launches)
     n_dwh, n_wide = gru_scan_bwd.dwh_launches, gru_scan.wide_launches
-    n_cluster = gru_scan.cluster_launches
+    n_cluster, n_grid = gru_scan.cluster_launches, gru_scan.grid_launches
     ys, res, hl = gru_scan_fwd_res(xp, wh, bh, h0, *conf)
     torch.cuda.synchronize()
     ys_p, res_p, hl_p = gru_scan_fwd_res_plain(xp, wh, bh, h0, *conf)
@@ -149,6 +149,7 @@ def test_gru_train_kernels_match_plain(cuda, B, T, H, reset_after, gate, reverse
     wide = gru_body(H) == "wide"
     assert gru_scan.wide_launches == n_wide + 3 * wide  # fwd_res, fwd, bwd
     assert gru_scan.cluster_launches == n_cluster + 3 * (gru_body(H) == "cluster")
+    assert gru_scan.grid_launches == n_grid + 3 * (gru_body(H) == "grid")
 
 
 @pytest.mark.parametrize("reset_after", [False, True])
@@ -288,7 +289,7 @@ def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, re
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
 
 
-WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256, 512, 520]
+WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256, 512, 520, 768, 1024, 1536, 2048]
 
 
 @pytest.mark.parametrize("H", WIDE_WIDTHS)
@@ -298,17 +299,18 @@ WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256, 512, 520]
 def test_wide_body_pair_matches_plain(cuda, H, B, reset_after, gate):
     """The bodies above the warp body at every width they serve: the wide
     body's register tier (H <= 128), the cluster body (128 < H <= 512) and
-    the wide body's L2 tier (above): a pair's forward, residual forward and
-    backward against the plain versions of both directions (1e-5; gradients
-    1e-4 of each one's largest magnitude), the backward bitwise equal run to
-    run, one launch of each kernel on the body `gru_body` names."""
+    the grid body (above; resident to 1056, streamed at 1536 and 2048): a
+    pair's forward, residual forward and backward against the plain
+    versions of both directions (1e-5; gradients 1e-4 of each one's largest
+    magnitude), the backward bitwise equal run to run, one launch of each
+    kernel on the body `gru_body` names."""
     T = 64
     xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 700 + H + B)
-    body = "cluster" if 128 < H <= 512 else "wide"
+    body = "wide" if H <= 128 else "cluster" if H <= 512 else "grid"
     assert gru_body(H) == gru_body(H, backward=True) == body
     before = (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
               gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches,
-              gru_scan.cluster_launches)
+              gru_scan.cluster_launches, gru_scan.grid_launches)
     pair = gru_scan_pair(xp, wh, bh, h0, reset_after, gate)
     pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, gate)
     ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
@@ -316,8 +318,10 @@ def test_wide_body_pair_matches_plain(cuda, H, B, reset_after, gate):
     torch.cuda.synchronize()
     assert (gru_scan.launches, gru_scan_fwd_res.launches, gru_scan_bwd.launches,
             gru_scan_bwd.dwh_launches, gru_scan_bwd.sum_launches, gru_scan.wide_launches,
-            gru_scan.cluster_launches) == tuple(b + 1 for b in before[:5]) + (
-                before[5] + 3 * (body == "wide"), before[6] + 3 * (body == "cluster"))
+            gru_scan.cluster_launches, gru_scan.grid_launches) == tuple(
+                b + 1 for b in before[:5]) + tuple(
+                before[5 + i] + 3 * (body == name) for i, name in
+                enumerate(("wide", "cluster", "grid")))
     second = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, gate)
     for k, rev in enumerate((False, True)):
         conf = (reset_after, gate, rev)
@@ -351,6 +355,48 @@ def test_cluster_body_gives_the_same_bits_at_every_cluster_size(cuda, H, ctas, r
                       None, c)
         outs[c] = fwd + bwd
     assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[ctas]))
+
+
+@pytest.mark.parametrize("H,B", [(520, 8), (1024, 1), (1024, 128), (2048, 8)])
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_grid_body_gives_the_same_bits_at_every_k(cuda, H, B, reset_after):
+    """The grid body's sums run in an order that depends on H alone: a pair
+    at forced K (the private launch's ``ctas``: other units a CTA, another
+    body or resident against streamed weights) gives the rule's bits,
+    forward and backward chain; a grid the card cannot hold at once (a pair
+    of 67 CTAs on 132 SMs) is refused by the cooperative launch and raises."""
+    xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, 24, H, reset_after, 95 + H)
+    conf = (reset_after, "sigmoid")
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    with pytest.raises(RuntimeError, match="gru_grid_fwd"):
+        _fwd(xp, wh, bh, h0, (False, True), *conf, True, "grid", None, n_sms // 2 + 1)
+    outs = {}
+    for k in (0, 40, n_sms // 2):
+        fwd, _ = _fwd(xp, wh, bh, h0, (False, True), *conf, True, "grid", None, k)
+        bwd = _bwd(tuple(f[0] for f in fwd), tuple(f[1] for f in fwd), wh, h0, dys, dhl,
+                   (False, True), *conf, "grid", None, k)
+        outs[k] = [t for f, b in zip(fwd, bwd) for t in f + b]
+    for k in (40, n_sms // 2):
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[k]))
+
+
+@pytest.mark.parametrize("n_dir", [1, 2])
+def test_grid_plan_refuses_what_a_cta_cannot_hold(cuda, n_dir):
+    """The card's plan is the Python mirror's at the widest width (256 units
+    a CTA on every CTA a direction gets) and refuses one unit more, as a
+    forced K that leaves more than 256 units a CTA."""
+    from sed_crnn_torch.ops.kernels.gru_scan import grid_plan, grid_plan_card
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    widest = sms // n_dir * 256
+    for backward in (False, True):
+        assert grid_plan_card(n_dir, 1, 8, widest, backward) == grid_plan(
+            n_dir, 1, 8, widest, backward, sms=sms)
+        for H, k in ((widest + 1, 0), (520, 2)):
+            with pytest.raises(RuntimeError, match="no grid plan"):
+                grid_plan_card(n_dir, 1, 8, H, backward, ctas=k)
+            with pytest.raises(ValueError, match="no grid plan"):
+                grid_plan(n_dir, 1, 8, H, backward, ctas=k, sms=sms)
 
 
 @pytest.mark.parametrize("H", [8, 32])
