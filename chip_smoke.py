@@ -201,8 +201,14 @@ exits non-zero and prints no result line:
     unstacked pair on every body (520 and 1024 on the grid body); the grid
     body's bits at forced K (40 and 66 CTAs a direction) and a pair of more
     CTAs than half the SMs refused; the grid body at 256 units a CTA (a
-    pair at H=8449, B=2, T=4) against the plain versions, and a pair one
-    unit wider than its plan holds (H=16897) refused; at H=128 with wh up to 0.3 N(0, 1),
+    pair at H=8449, B=2, T=4) and at two blocks of 256 units a CTA (a pair
+    at H=16897, B=1, T=4) against the plain versions; then kernel B's dwh
+    reduction ([kernel B dwh]: ``csrc/gru_dwh.cu``, 3xTF32 on the tensor
+    cores, at H in DWH_TIMED, a pair at B=128, T=256, both conventions,
+    against ``gru_dwh_plain``, bitwise run to run, in turns with one
+    ``torch.matmul`` of the same product and, given ``--dwh-parent PATH``,
+    an older ``gru_wide.cu``'s FMA reduction; at H=32 in turns with the warp
+    body's); at H=128 with wh up to 0.3 N(0, 1),
     against float64, beside the float32 plain version and the same kernel
     built with exact gates; the wide body's times at H in {64, 128}
     (forward at B=1, residual forward and backward at B=128, T=256) beside
@@ -1200,6 +1206,7 @@ def _gru_counts():
     return {"gru_scan_fwd": gru_scan.launches, "gru_scan_fwd_res": gru_scan_fwd_res.launches,
             "gru_scan_bwd": gru_scan_bwd.launches, "gru_dwh": gru_scan_bwd.dwh_launches,
             "gru_scan_sum_partials": gru_scan_bwd.sum_launches,
+            "gru_dwh_mma": gru_scan_bwd.mma_dwh_launches,
             "gru_wide": gru_scan.wide_launches, "gru_cluster": gru_scan.cluster_launches,
             "gru_grid": gru_scan.grid_launches}
 
@@ -1210,6 +1217,7 @@ def _reset_gru_counts():
     gru_scan.launches = gru_scan_fwd_res.launches = gru_scan.wide_launches = 0
     gru_scan.cluster_launches = gru_scan.grid_launches = 0
     gru_scan_bwd.launches = gru_scan_bwd.dwh_launches = gru_scan_bwd.sum_launches = 0
+    gru_scan_bwd.mma_dwh_launches = 0
 
 
 def _gru_path_counts(fwd: int, steps: int, body: str = "warp") -> dict:
@@ -1218,10 +1226,12 @@ def _gru_path_counts(fwd: int, steps: int, body: str = "warp") -> dict:
     each kernel per layer call, all on one body: the warp, wide, cluster or
     grid body (the last three's recurrences, the forward, residual forward
     and backward chain, counted in ``gru_wide`` / ``gru_cluster`` /
-    ``gru_grid``)."""
+    ``gru_grid``, and their dwh reductions, csrc/gru_dwh.cu's, in
+    ``gru_dwh_mma``)."""
     check(body in ("warp", "wide", "cluster", "grid"), f"unknown GRU body {body!r}")
     return {"gru_scan_fwd": fwd, "gru_scan_fwd_res": steps, "gru_scan_bwd": steps,
             "gru_dwh": steps, "gru_scan_sum_partials": steps,
+            "gru_dwh_mma": steps if body != "warp" else 0,
             **{f"gru_{b}": fwd + 2 * steps if body == b else 0
                for b in ("wide", "cluster", "grid")}}
 
@@ -1517,8 +1527,8 @@ TRACE_SYMBOLS = {
     "fused_logmel": ("logmel_fft_kernel", "logmel_mixed_kernel", "logmel_cluster_kernel"),
     "gru_scan_fwd": ("gru_warp_fwd", "gru_wide_fwd", "gru_cluster_fwd", "gru_grid_fwd"),
     "gru_scan_bwd": ("gru_warp_bwd", "gru_wide_bwd", "gru_cluster_bwd", "gru_grid_bwd"),
-    "gru_dwh": ("gru_warp_dwh", "gru_wide_dwh"),
-    "gru_scan_sum_partials": ("gru_warp_sum", "gru_wide_sum"),
+    "gru_dwh": ("gru_warp_dwh", "gru_dwh_kernel"),
+    "gru_scan_sum_partials": ("gru_warp_sum", "gru_dwh_sum"),
 }
 
 
@@ -4245,8 +4255,8 @@ CLUSTER_TIMED = 256        # the cluster body in turns with the library
 GRID_TIMED = (1024, 2048)  # the grid body in turns with the library (2048 at B = 128 only)
 WIDE_STACK_SHAPES = [(5, 8, 32, H) for H in (48, 64, 128, 129, 256, 520, 1024)]
 GRID_FORCED_K = (40, 66)   # a pair's CTAs a direction forced: other units a CTA, same bits
-GRID_WIDEST = 8449         # the first width whose pair's CTAs hold 256 units, the most
-GRID_REFUSED = 16897       # a pair one unit wider than 66 CTAs x 256 units: no plan
+GRID_WIDEST = 8449         # the first width whose pair's CTAs hold 256 units in one block
+GRID_TWO_BLOCKS = 16897    # a pair one unit wider than 66 CTAs x 256 units: two blocks a CTA
 WIDE_SEDNET = {"gru_hidden": (128, 128)}   # SELDnet's (DCASE 2019 Task 3) recurrent width
 CLUSTER_SEDNET = {"gru_hidden": (256, 256)}   # the cluster body's full-width paths
 GRID_SEDNET = {"gru_hidden": (1024, 1024)}    # the grid body's full-width paths
@@ -4433,8 +4443,8 @@ def _wide_times(H: int) -> dict:
     out["bwd_device_ms"], out["bwd_host_ms"] = device_host_ms(bwd)
     split = _by_kernel(bwd)
     out["bwd_chain_ms"] = _part(split, "gru_wide_bwd")
-    out["bwd_dwh_ms"] = _part(split, "gru_wide_dwh")
-    out["bwd_sum_ms"] = _part(split, "gru_wide_sum")
+    out["bwd_dwh_ms"] = _part(split, "gru_dwh_kernel")
+    out["bwd_sum_ms"] = _part(split, "gru_dwh_sum")
     _, (out["fwd_res_bound_ms"], out["fwd_res_bound_by"]), (out["bwd_bound_ms"],
                                                             out["bwd_bound_by"]) = \
         _gru_bounds(1, BT, T, H, False, 1)
@@ -4504,11 +4514,79 @@ def _wide_times(H: int) -> dict:
     return out
 
 
+def _dwh_launchers(lib, name: str, ops, reset_after: bool):
+    """A library's dwh/dbh reduction of a pair on ``ops`` ((ys, res, h0,
+    dxp) of each direction, on the card) as closures, partials and sums
+    allocated once: ``(dwh, total, sums)``: the reduction kernel alone, the
+    reduction then its fixed-order sum (``total.sum`` the sum alone), and
+    the (2, 1, 3H^2 + 3H) sums. ``name``: the library's prefix, ``gru_dwh``
+    (csrc/gru_dwh.cu), ``gru_warp`` or ``gru_wide`` (an older
+    csrc/gru_wide.cu, its reduction from before csrc/gru_dwh.cu)."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+
+    B, T, H = ops[0][0].shape
+    dev = ops[0][0].device
+    if name == "gru_warp":
+        n_part = lib.gru_warp_dwh_blocks(B, T)
+        launch, add = lib.gru_warp_dwh_launch, lib.gru_warp_sum_partials
+    elif name == "gru_wide":
+        n_part = lib.gru_wide_dwh_splits(B, T, H)
+        launch, add = lib.gru_wide_dwh_launch, lib.gru_wide_sum_partials
+    else:
+        n_part = lib.gru_dwh_splits(B, T, H)
+        launch, add = lib.gru_dwh_launch, lib.gru_dwh_sum_partials
+    error_string = getattr(lib, f"{name}_error_string")
+    n = 3 * H * H + 3 * H
+    part = torch.empty((2, 1, n_part, n), device=dev)
+    sums = torch.empty((2, 1, n), device=dev)
+    arr = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(), x.data_ptr(),
+                                        part[k].data_ptr(), k)
+                             for k, (y, r, h, x) in enumerate(ops)))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def dwh():
+        gs._raise_on(launch(arr, 2, 1, B, T, H, int(reset_after), stream), f"{name}_dwh",
+                     error_string)
+
+    def sum_():
+        gs._raise_on(add(part.data_ptr(), sums.data_ptr(), 2, n_part, n, stream),
+                     f"{name}_sum_partials", error_string)
+
+    def total():
+        dwh()
+        sum_()
+
+    total.sum, total.n_part, dwh.buffers = sum_, n_part, (arr, part, sums, ops)
+    return dwh, total, sums
+
+
+def _bind_old_wide(lib):
+    """The dwh reduction's C interface of a library built from an older
+    csrc/gru_wide.cu (before csrc/gru_dwh.cu took its place)."""
+    import ctypes
+
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gru_wide_dwh_splits.argtypes = [i] * 3
+    lib.gru_wide_dwh_splits.restype = i
+    lib.gru_wide_dwh_launch.argtypes = [ctypes.POINTER(gs._DwhDir)] + [i] * 6 + [p]
+    lib.gru_wide_dwh_launch.restype = i
+    lib.gru_wide_sum_partials.argtypes = [p, p, i, i, i, p]
+    lib.gru_wide_sum_partials.restype = i
+    lib.gru_wide_error_string.argtypes = [i]
+    lib.gru_wide_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf, body: str) -> dict:
     """The three launches of a pair's backward apart, on the card's current
     stream, as closures (outputs and scratch allocated once): the gradient
     chain on the cluster or grid body, then the dwh reduction and the
-    fixed-order sum that both share, on the chain's dxp."""
+    fixed-order sum that both share (``csrc/gru_dwh.cu``), on the chain's
+    dxp."""
     import torch
 
     from sed_crnn_torch.ops.kernels import gru_scan as gs
@@ -4521,13 +4599,8 @@ def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf, body: str) -> dict:
     chain = (gs._BwdDir * 2)(*(
         gs._BwdDir(*(t.data_ptr() for t in d), x.data_ptr(), d0.data_ptr(), k)
         for k, (d, x, d0) in enumerate(zip(zip(ys, rs, wh, h0, dys, dhl), dxp, dh0))))
-    wl = gs._wide_lib()
-    n_part, n = wl.gru_wide_dwh_splits(B, T, H), 3 * H * H + 3 * H
-    part = torch.empty((2, 1, n_part, n), device=dev)
-    sums = torch.empty((2, 1, n), device=dev)
-    dwh = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(), x.data_ptr(),
-                                        part[k].data_ptr(), k)
-                             for k, (y, r, h, x) in enumerate(zip(ys, rs, h0, dxp))))
+    dwh, total, _ = _dwh_launchers(gs._dwh_lib(), "gru_dwh", list(zip(ys, rs, h0, dxp)),
+                                   conf[0])
     stream = torch.cuda.current_stream().cuda_stream
     if body == "cluster":
         cl = gs._cluster_lib()
@@ -4540,14 +4613,7 @@ def _bwd_parts(ys, rs, wh, h0, dys, dhl, conf, body: str) -> dict:
         run_chain = lambda: gs._raise_on(  # noqa: E731
             gl.gru_grid_bwd_launch(chain, 2, 1, B, T, H, *flags, 0, scratch.data_ptr(), stream),
             "gru_grid_bwd", gl.gru_grid_error_string)
-    return {
-        "chain": run_chain,
-        "dwh": lambda: gs._raise_on(wl.gru_wide_dwh_launch(dwh, 2, 1, B, T, H, flags[0], stream),
-                                    "gru_wide_dwh", wl.gru_wide_error_string),
-        "sum": lambda: gs._raise_on(
-            wl.gru_wide_sum_partials(part.data_ptr(), sums.data_ptr(), 2, n_part, n, stream),
-            "gru_wide_sum", wl.gru_wide_error_string),
-    }
+    return {"chain": run_chain, "dwh": dwh, "sum": total.sum}
 
 
 def _in_turns(fns: dict, reps: dict, order) -> dict:
@@ -4877,73 +4943,61 @@ def _grid_forced_k() -> dict:
 
 def _grid_widest() -> dict:
     """The grid body at the most units a CTA: a pair at H=GRID_WIDEST (34
-    CTAs a direction of 249 (256) units, weights streamed), B=2, T=4, both
-    conventions, sigmoid, the residual forward within GRU_ATOL of the plain
-    version and the backward within GRAD_RTOL of max|grad|, its plan held
-    against the Python mirror; and a pair at H=GRID_REFUSED refused by the
-    launcher with the library's no-plan error, as the mirror refuses it."""
+    CTAs a direction of 249 (256) units, weights streamed), B=2, T=4, and a
+    pair at H=GRID_TWO_BLOCKS (66 CTAs a direction of 257 units, walked in
+    two blocks of 256; about 30 GB with the dwh partials), B=1, T=4, both
+    conventions, sigmoid: the residual forward within GRU_ATOL of the plain
+    version and the backward (chain, csrc/gru_dwh.cu's dwh) within
+    GRAD_RTOL of max|grad|, each plan held against the Python mirror."""
     import torch
 
     from sed_crnn_torch.ops.kernels.gru_scan import (
         _bwd,
         _fwd,
-        grid_plan,
         gru_scan_bwd_plain,
         gru_scan_fwd_res_plain,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(37)
-    B, T, H = 2, 4, GRID_WIDEST
 
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
 
-    d = [(randn(B, T, 3 * H), randn(H, 3 * H, scale=H ** -0.5), randn(3 * H, scale=0.1),
-          randn(B, H, scale=0.5), randn(B, T, H), randn(B, H)) for _ in range(2)]
-    arg = lambda i: tuple(x[i] for x in d)  # noqa: E731
-    plan = _gru_plan_text(H, B)
-    fwd_err = bwd_err = 0.0
-    for reset_after in (False, True):
-        conf = (reset_after, "sigmoid")
-        bh = arg(2) if reset_after else (None, None)
-        outs, _ = _fwd(arg(0), arg(1), bh, arg(3), (False, True), *conf, True, "grid")
-        want = [gru_scan_fwd_res_plain(d[k][0], d[k][1], bh[k], d[k][3], *conf, k == 1)
-                for k in (0, 1)]
-        err = max(_maxdiff(g, w) for o, p in zip(outs, want) for g, w in zip(o, p))
-        check(err <= GRU_ATOL, f"grid H={H} reset_after={reset_after} residual forward: {err}")
-        fwd_err = max(fwd_err, err)
-        ys, rs = tuple(o[0] for o in outs), tuple(o[1] for o in outs)
-        got = _bwd(ys, rs, arg(1), arg(3), arg(4), arg(5), (False, True), *conf, "grid")
-        want_b = [gru_scan_bwd_plain(ys[k], rs[k], d[k][1], d[k][3], d[k][4], d[k][5], *conf,
-                                     k == 1) for k in (0, 1)]
-        bwd_err = max([bwd_err] + [_rel_err(g, w, f"grid H={H} reset_after={reset_after} "
-                                               "backward") for g, w in zip(got, want_b)])
-    del d, outs, got, want, want_b, ys, rs
-    Hr = GRID_REFUSED
-    try:
-        grid_plan(2, 1, 1, Hr, False)
-    except ValueError as e:
-        mirror = str(e)
-    else:
-        mirror = ""
-    check("no grid plan" in mirror, f"the Python mirror has a plan for a pair at H={Hr}")
-    empty = lambda *shape: torch.empty(shape, device=dev)  # noqa: E731
-    xp, wh, h0 = empty(1, 1, 3 * Hr), empty(Hr, 3 * Hr), empty(1, Hr)
-    try:
-        _fwd((xp, xp), (wh, wh), (None, None), (h0, h0), (False, True), False, "sigmoid", False,
-             "grid")
-    except RuntimeError as e:
-        refused = str(e)
-    else:
-        refused = ""
-    del xp, wh, h0
-    torch.cuda.empty_cache()
-    check("no grid plan" in refused, f"grid: a pair at H={Hr} was not refused ({refused!r})")
-    print(f"[kernel B wide] grid body at 256 units a CTA, pair H={H} B={B} T={T}{plan}, both "
-          f"conventions: residual forward vs plain {fwd_err:.3g}, backward {bwd_err:.3g} of "
-          f"max|grad|; a pair at H={Hr} refused: {refused!r}")
-    return {"H": H, "fwd": fwd_err, "bwd": bwd_err, "refused": refused}
+    out = {}
+    for B, T, H in ((2, 4, GRID_WIDEST), (1, 4, GRID_TWO_BLOCKS)):
+        d = [(randn(B, T, 3 * H), randn(H, 3 * H, scale=H ** -0.5), randn(3 * H, scale=0.1),
+              randn(B, H, scale=0.5), randn(B, T, H), randn(B, H)) for _ in range(2)]
+        arg = lambda i: tuple(x[i] for x in d)  # noqa: E731
+        plan = _gru_plan_text(H, B)
+        fwd_err = bwd_err = 0.0
+        for reset_after in (False, True):
+            conf = (reset_after, "sigmoid")
+            bh = arg(2) if reset_after else (None, None)
+            outs, _ = _fwd(arg(0), arg(1), bh, arg(3), (False, True), *conf, True, "grid")
+            want = [gru_scan_fwd_res_plain(d[k][0], d[k][1], bh[k], d[k][3], *conf, k == 1)
+                    for k in (0, 1)]
+            err = max(_maxdiff(g, w) for o, p in zip(outs, want) for g, w in zip(o, p))
+            check(err <= GRU_ATOL, f"grid H={H} reset_after={reset_after} residual forward: {err}")
+            fwd_err = max(fwd_err, err)
+            del want
+            ys, rs = tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+            got = _bwd(ys, rs, arg(1), arg(3), arg(4), arg(5), (False, True), *conf, "grid")
+            for k in (0, 1):
+                want_b = gru_scan_bwd_plain(ys[k], rs[k], d[k][1], d[k][3], d[k][4], d[k][5],
+                                            *conf, k == 1)
+                bwd_err = max(bwd_err, _rel_err(got[k], want_b, f"grid H={H} reset_after="
+                                                                f"{reset_after} backward"))
+                del want_b
+            del outs, got, ys, rs
+        del d
+        torch.cuda.empty_cache()
+        out[H] = {"fwd": fwd_err, "bwd": bwd_err}
+        print(f"[kernel B wide] grid body at its most units a CTA, pair H={H} B={B} T={T}{plan}, "
+              f"both conventions: residual forward vs plain {fwd_err:.3g}, backward (dwh by "
+              f"csrc/gru_dwh.cu) {bwd_err:.3g} of max|grad|")
+    return {"H": GRID_WIDEST, "fwd": max(v["fwd"] for v in out.values()),
+            "bwd": max(v["bwd"] for v in out.values()), "two_blocks": out[GRID_TWO_BLOCKS]}
 
 
 def _body_serving(workdir: str, pcm: np.ndarray, overrides: dict, body: str,
@@ -5151,6 +5205,179 @@ def _wide_precision() -> dict:
     return out
 
 
+# [kernel B dwh]: csrc/gru_dwh.cu, the dwh/dbh reduction of every body above
+# the warp one, at the training shape (a pair, B=TRAIN_BATCH, T=GRU_T).
+DWH_TIMED = (64, 128, 256, 1024, 2048)
+DWH_WARP_H = 32            # the warp body's widest: its own reduction against this one
+DWH_REPS = {64: 20, 128: 20, 256: 10, 1024: 4, 2048: 2, DWH_WARP_H: 20}
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
+
+
+def _dwh_operands(gen, B: int, T: int, H: int, reset_after: bool) -> list:
+    """A pair's stored rows on the card: (ys, res, h0, dxp) of each
+    direction, ys in (-1, 1) and the gates in (0, 1) as a forward leaves
+    them."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import res_width
+
+    dev = torch.device("cuda")
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    return [(torch.tanh(randn(B, T, H)),
+             torch.rand((B, T, res_width(reset_after, H)), generator=gen, device=dev),
+             0.5 * randn(B, H), randn(B, T, 3 * H)) for _ in range(2)]
+
+
+def _dwh_library(ops, reset_after: bool):
+    """One `torch.matmul` of the same product on prepared operands: the two
+    directions' three parts L_p^T D_p (`dwh_factors`) batched, (6, H, N) x
+    (6, N, H) with the left operand a transposed view; returns the call
+    (its operands kept on it) and its dwh per direction for the check."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.gru_scan import dwh_factors
+
+    lefts, rights = [], []
+    for k, op in enumerate(ops):
+        left, right = dwh_factors(*op, reset_after, k == 1)
+        lefts += left
+        rights += right
+    a, b = torch.stack(lefts).transpose(1, 2), torch.stack(rights)
+    call = lambda: torch.matmul(a, b)  # noqa: E731
+    call.operands = (a, b)
+    out = call()
+    return call, [torch.cat(list(out[3 * k:3 * k + 3]), dim=-1) for k in (0, 1)]
+
+
+def _dwh_bound(B: int, T: int, H: int):
+    """The least time of a pair's dwh/dbh: each direction reads ys, r, h0 and
+    dxp once and writes dwh and dbh once; 2 N H 3H multiply-adds a
+    direction, three TF32 products each on the tensor cores (3xTF32) ->
+    ((ms, what bounds it), the same product's float32 bound in ms)."""
+    N = B * T
+    n_bytes = 2 * 4 * (N * H + N * H + B * H + N * 3 * H + 3 * H * H + 3 * H)
+    n_flops = 2 * 2 * N * H * 3 * H
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3 * n_flops / PEAK_TF32_FLOPS * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, n_flops / PEAK_FP32_FLOPS * 1e3
+
+
+def phase_gru_dwh(parent_wide: str = "") -> dict:
+    """[kernel B dwh]: csrc/gru_dwh.cu on a pair's stored rows at B=TRAIN_BATCH,
+    T=GRU_T, both conventions, at each width of DWH_TIMED: dwh/dbh against
+    `gru_dwh_plain` within GRAD_RTOL of the largest entry, bitwise from run
+    to run, the card's split count the Python mirror's; then, CUDA events in
+    turns (kernel, library, parent, parent, library, kernel), the reduction
+    with its partial sum beside one `torch.matmul` of the same product on
+    prepared operands (float32, TF32 off; checked against the plain version
+    too) and, where ``parent_wide`` names an older csrc/gru_wide.cu, that
+    file's FMA reduction and sum (held to the plain version as well);
+    beside the plain version's time and the bound. At DWH_WARP_H the kernel
+    in turns with the warp body's reduction, the one that width runs.
+    Returns the kernels line's entry for csrc/gru_dwh.cu (its launches are
+    counted on the [kernel B wide] paths)."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+    from sed_crnn_torch.ops.kernels.gru_scan import dwh_split_plan, gru_dwh_plain
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for torch.matmul")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    lib, old = gs._dwh_lib(), None
+    if parent_wide:
+        from sed_crnn_torch.tools.gru_phases import build_variants
+
+        built = build_variants("gru_wide", {}, None, {"parent": parent_wide})
+        old = _bind_old_wide(built["parent"])
+    B, T = TRAIN_BATCH, GRU_T
+    times, worst_rel, worst_abs = {}, 0.0, 0.0
+    for H in (DWH_WARP_H,) + DWH_TIMED:
+        for reset_after in (False, True):
+            ops = _dwh_operands(gen, B, T, H, reset_after)
+            want = [gru_dwh_plain(*ops[k], reset_after, k == 1) for k in (0, 1)]
+            paths = {"kernel": _dwh_launchers(lib, "gru_dwh", ops, reset_after)}
+            check(paths["kernel"][1].n_part == dwh_split_plan(B, T, H)[0],
+                  f"dwh H={H}: the card's split count differs from the Python mirror")
+            if H == DWH_WARP_H:
+                paths["warp"] = _dwh_launchers(gs._warp_lib(), "gru_warp", ops, reset_after)
+            elif old is not None:
+                paths["parent"] = _dwh_launchers(old, "gru_wide", ops, reset_after)
+            tag = f"[kernel B dwh] H={H} reset_after={reset_after}"
+            line = {"H": H, "B": B, "T": T, "reset_after": reset_after,
+                    "splits": paths["kernel"][1].n_part}
+            for name, (_, total, sums) in paths.items():
+                total()
+                first = sums.clone()
+                total()
+                torch.cuda.synchronize()
+                check(torch.equal(first, sums), f"{tag} {name}: dwh not bitwise run to run")
+                got = [(first[k, 0, :3 * H * H].view(H, 3 * H), first[k, 0, 3 * H * H:])
+                       for k in (0, 1)]
+                line[f"{name}_rel_err"] = max(_rel_err(g, w, f"{tag} {name} dir {k}",
+                                                       ("dwh", "dbh"), 1e-6)
+                                              for k, (g, w) in enumerate(zip(got, want)))
+                if name == "kernel":
+                    worst_rel = max(worst_rel, line["kernel_rel_err"])
+                    worst_abs = max(worst_abs, max(_maxdiff(x, y) for g, w in zip(got, want)
+                                                   for x, y in zip(g, w)))
+                del first, got
+            fns = {name: total for name, (_, total, _) in paths.items()}
+            if H > DWH_WARP_H:
+                fns["library"], lib_dwh = _dwh_library(ops, reset_after)
+                line["library_rel_err"] = max(
+                    _rel_err((g,), (w[0],), f"{tag} torch.matmul dir {k}", ("dwh",))
+                    for k, (g, w) in enumerate(zip(lib_dwh, want)))
+                del lib_dwh
+            order = ("kernel", "library", "parent", "warp")
+            turns = {k: [] for k in fns}
+            for name in order + order[::-1]:
+                if name in fns:
+                    turns[name].append(cuda_ms(fns[name], reps=DWH_REPS[H], warmup=1))
+            for name, v in turns.items():
+                line[f"{name}_ms"] = float(np.mean(v))
+                line[f"{name}_turns_ms"] = v
+            line["kernel_dwh_ms"] = cuda_ms(paths["kernel"][0], reps=DWH_REPS[H], warmup=1)
+            line["kernel_sum_ms"] = cuda_ms(paths["kernel"][1].sum, reps=DWH_REPS[H], warmup=1)
+            if "parent" in paths:
+                line["parent_dwh_ms"] = cuda_ms(paths["parent"][0], reps=DWH_REPS[H], warmup=1)
+            if H > DWH_WARP_H:
+                line["plain_ms"] = cuda_ms(lambda: [gru_dwh_plain(*ops[k], reset_after, k == 1)
+                                                    for k in (0, 1)], reps=2, warmup=1)
+            (line["bound_ms"], line["bound_by"]), line["fp32_bound_ms"] = _dwh_bound(B, T, H)
+            line["kernel_tflops"] = 2 * 2 * B * T * H * 3 * H / line["kernel_ms"] / 1e9
+            times[f"{H}/{reset_after}"] = line
+            turns_of = lambda k: ", ".join(f"{x:.4f}" for x in line[f"{k}_turns_ms"])  # noqa: E731
+            others = ", ".join(f"{k} {line[f'{k}_ms']:.4f} (turns {turns_of(k)})"
+                               for k in fns if k != "kernel")
+            print(f"{tag} B={B} T={T} pair, {line['splits']} splits: kernel (dwh + sum) "
+                  f"{line['kernel_ms']:.4f} ms (turns {turns_of('kernel')}; dwh "
+                  f"{line['kernel_dwh_ms']:.4f}, sum {line['kernel_sum_ms']:.4f}; "
+                  f"{line['kernel_tflops']:.1f} TFLOP/s of the float32 product), {others}; "
+                  f"plain {line.get('plain_ms', float('nan')):.3f}; bound {line['bound_ms']:.4f} "
+                  f"({line['bound_by']}, 3xTF32 at 495 TFLOP/s), float32 bound "
+                  f"{line['fp32_bound_ms']:.4f}; vs plain: "
+                  + ", ".join(f"{k[:-8]} {v:.3g}" for k, v in line.items()
+                              if k.endswith("_rel_err")) + " of max|dwh|")
+            del ops, want, paths, fns
+            torch.cuda.empty_cache()
+    t = times[f"{GRID_TIMED[0]}/True"]
+    print(f"[kernel B dwh] checks and times in {time.perf_counter() - t0:.1f} s")
+    return {"name": "gru_dwh_mma", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_dwh.cu",
+            "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
+            "shape": f"pair, B={B} T={T} H={GRID_TIMED[0]} reset_after=True: the dwh/dbh "
+                     "reduction (split-K, 3xTF32 on the tensor cores) and its fixed-order "
+                     "partial sum",
+            "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_variant": "one torch.matmul of the prepared L_p^T D_p, both directions' "
+                               "three parts batched, float32 with TF32 off",
+            "fp32_bound_ms": t["fp32_bound_ms"], "parent_given": old is not None,
+            "times": times}
+
+
 def phase_gru_wide() -> dict:
     """[kernel B wide]: the wide, cluster and grid bodies' checks at every
     width, batch, convention, gate and direction, pair and stacked; the grid
@@ -5237,7 +5464,7 @@ def _grid_entries(wide: dict, paths: dict) -> list:
     bidirectional `torch.nn.GRU`: the forward (a pair's residual forward at
     B=TRAIN_BATCH as the headline, the B=1 forward and H=2048 beside it) and
     the backward chain (the pair's whole backward at B=TRAIN_BATCH, the
-    chain then the wide body's dwh reduction and sum, so that its time, plain
+    chain then csrc/gru_dwh.cu's dwh reduction and sum, so that its time, plain
     version, bound and library time are of one function: dxp, dwh, dbh and
     dh0; the chain's own time and bound beside it). Launches by kind on the
     grid paths."""
@@ -5266,8 +5493,8 @@ def _grid_entries(wide: dict, paths: dict) -> list:
            "serving_window_err": paths["grid_serving"]["window_err"]}
     bwd = {"name": "gru_grid_bwd", "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
            "shape": f"pair, B={TRAIN_BATCH} T={GRU_T} H={t['H']} reset_after=True, the "
-                    "backward: the chain (dxp, dh0), then dwh, dbh by gru_wide_dwh + "
-                    "gru_wide_sum", "launches": counts["bwd"],
+                    "backward: the chain (dxp, dh0), then dwh, dbh by gru_dwh_kernel + "
+                    "gru_dwh_sum (csrc/gru_dwh.cu)", "launches": counts["bwd"],
            "max_abs_err": max(t["bwd_abs_err"], t2["bwd_abs_err"]),
            "bwd_max_rel_err": max(worst["bwd"], t["bwd_rel_err"],
                                                                t2["bwd_rel_err"]),
@@ -5523,13 +5750,19 @@ def phase_wide_paths(workdir: str, pcm: np.ndarray) -> dict:
                    "bwd_by_path": {"train": c["gru_scan_bwd"]}}
     check(all(v > 0 for v in grid_launches.values()) and grid_counts["fwd"] > 0
           and grid_counts["bwd"] > 0, f"grid body launches by path {grid_launches}")
+    # csrc/gru_dwh.cu: the dwh reduction of every train step above the warp body
+    dwh_launches = {"wide_train": train_launches["gru_dwh_mma"] + step["counts"]["gru_dwh_mma"],
+                    "cluster_train": cluster_step["counts"]["gru_dwh_mma"],
+                    "grid_train": grid_step["counts"]["gru_dwh_mma"]}
+    check(all(v > 0 for v in dwh_launches.values()), f"gru_dwh launches by path {dwh_launches}")
     print(f"[kernel B wide] the wide body's launches by path {launches}, the cluster body's "
           f"{cluster_launches}, the grid body's {grid_launches} (grid paths in "
           f"{time.perf_counter() - t1:.1f} s); paths in {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "step": step, "serving": serving, "stacked": stacked,
             "cluster_launches": cluster_launches, "cluster_step": cluster_step,
             "cluster_serving": cluster_serving, "grid_launches": grid_launches,
-            "grid_step": grid_step, "grid_serving": grid_serving, "grid_counts": grid_counts}
+            "grid_step": grid_step, "grid_serving": grid_serving, "grid_counts": grid_counts,
+            "dwh_launches": dwh_launches}
 
 
 PARALLEL_EPOCHS = 2
@@ -6171,7 +6404,14 @@ def phase_parallel(train_dir: str, workdir: str) -> dict:
         "two_rank_grad_rel": two["grad_rel"], "two_rank_grad_rel_same": two["grad_rel_same"]}}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's smoke run on one CUDA card.")
+    ap.add_argument("--dwh-parent", default="",
+                    help="an older csrc/gru_wide.cu whose FMA dwh reduction [kernel B dwh] "
+                         "times in turns with csrc/gru_dwh.cu")
+    args = ap.parse_args(argv)
     smi = phase_device()
     import torch
 
@@ -6209,6 +6449,7 @@ def main() -> int:
         import_launches, import_numbers = phase_import(os.path.join(workdir, "import"), pcm)
         parallel = phase_parallel(train_dir, os.path.join(workdir, "parallel"))
         wide = phase_gru_wide()
+        kernel_dwh_mma = phase_gru_dwh(args.dwh_parent)
         wide_paths = phase_wide_paths(os.path.join(workdir, "wide"), pcm)
     kernel_b.update(eval_numbers)
     kernel_b.update(serve_numbers)
@@ -6255,6 +6496,8 @@ def main() -> int:
     kernel_grid_fwd, kernel_grid_bwd = _grid_entries(wide, wide_paths)
     launches["gru_grid_fwd"] = kernel_grid_fwd.pop("launches")
     launches["gru_grid_bwd"] = kernel_grid_bwd.pop("launches")
+    launches["gru_dwh_mma"] = sum(wide_paths["dwh_launches"].values())
+    kernel_dwh_mma["launches_by_path"] = wide_paths["dwh_launches"]
     # [tools]: each kernel's device time per launch in the profile_trace trace
     for entry, kind in ((kernel_a, "fused_logmel"), (kernel_b, "gru_scan_fwd"),
                         (kernel_fwd_res, "gru_scan_fwd_res"), (kernel_bwd, "gru_scan_bwd"),
@@ -6266,7 +6509,7 @@ def main() -> int:
     head = ("name", "route", "source", "replaces")
     for k in (kernel_a, kernel_framed, kernel_exact, kernel_mixed, kernel_cluster, kernel_b,
               kernel_fwd_res, kernel_bwd, kernel_dwh, kernel_wide, kernel_cluster_b,
-              kernel_grid_fwd, kernel_grid_bwd):
+              kernel_grid_fwd, kernel_grid_bwd, kernel_dwh_mma):
         kernels.append({**{key: k[key] for key in head}, "launches": launches[k["name"]],
                         **{key: v for key, v in k.items() if key not in head}})
     idle = [k["name"] for k in kernels if not k["launches"] > 0]

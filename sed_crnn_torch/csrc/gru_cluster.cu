@@ -8,7 +8,7 @@
 //     (`_gru_fwd`): gru_cluster_fwd<RB, false / true>;
 //   * `_bwd_kernel` (`_gru_bwd`): its gradient chain (dxp and dh0),
 //     gru_cluster_bwd<RB>; dwh and dbh are reduced after it from the stored
-//     rows by gru_wide_dwh and gru_wide_sum (csrc/gru_wide.cu).
+//     rows by gru_dwh_kernel and gru_dwh_sum (csrc/gru_dwh.cu).
 // The contract is csrc/gru_wide.cu's: pre-projected inputs xp = x @ wi + bi
 // (B, T, 3H), recurrent kernel wh (H, 3H) in gate order (reset, update,
 // candidate), bias bh (3H) read only when reset_after, initial state h0
@@ -510,7 +510,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) gru_cluster_fwd(Dirs<FwdDir> d
 // Backward chain: lane group q of CTA c holds rows j = c U + UPL q + s of wh
 // and carries dh[j] of the cluster's rows; each step exchanges the rows'
 // gate-input gradients and writes dxp[t]. dwh and dbh are left to
-// gru_wide_dwh.
+// csrc/gru_dwh.cu.
 template <int RB>
 __global__ void __launch_bounds__(MAX_THREADS, 1) gru_cluster_bwd(Dirs<BwdDir> dirs, int B, int T,
                                                                   int H, int R, int reset_after,

@@ -9,7 +9,7 @@
 //     (`_gru_fwd`): gru_grid_fwd<SPLIT, RB, UL, false / true>;
 //   * `_bwd_kernel` (`_gru_bwd`): its gradient chain (dxp and dh0),
 //     gru_grid_bwd<SPLIT, RB, UL>; dwh and dbh are reduced after it from the
-//     stored rows by gru_wide_dwh and gru_wide_sum (csrc/gru_wide.cu).
+//     stored rows by gru_dwh_kernel and gru_dwh_sum (csrc/gru_dwh.cu).
 // The contract is csrc/gru_wide.cu's: pre-projected inputs xp = x @ wi + bi
 // (B, T, 3H), recurrent kernel wh (H, 3H) in gate order (reset, update,
 // candidate), bias bh (3H) read only when reset_after, initial state h0
@@ -37,9 +37,12 @@
 //   * weights resident in shared memory for the whole sequence where the
 //     slice and the smallest state ring fit (a pair to H = 1056 on 132 SMs,
 //     66 CTAs of 16 units), else streamed each step with the state, chunk
-//     by chunk, through the same cp.async ring. A CTA holds at most UP_MAX
-//     units, so a pair takes H <= 66 x 256 = 16,896 on 132 SMs and one
-//     direction H <= 33,792; wider shapes have no plan and are refused;
+//     by chunk, through the same cp.async ring. A CTA lays out at most
+//     UP_MAX units at once: where a direction's SMs need more (a pair above
+//     H = 66 x 256 = 16,896 on 132 SMs, one direction above 33,792) each of
+//     its K CTAs walks its U units in blocks of UP_MAX through the streamed
+//     tile body, one product of the step's rows per block, so every width
+//     whose operands fit in the card's memory has a plan;
 //   * the step's exchange: each CTA writes its units' new values for every
 //     row into a double-buffered state in device memory (B x HP floats,
 //     512 KB at B = 128, H = 1024, which L2 keeps) and passes its
@@ -134,7 +137,8 @@ struct Dirs {
 // the kernel never copies a whole direction struct to local memory.
 #define PICK(field) (dsel ? a.dirs.d[1].field : a.dirs.d[0].field)
 
-// The launch plan: K CTAs a direction of U units (UP padded), state rows HP
+// The launch plan: K CTAs a direction of U units (walked in blocks of UP,
+// the padded units a CTA lays out: one block unless U > UP_MAX), state rows HP
 // floats in HS-float slabs (SS apart in the lanes body's layout), the body
 // (split 8: lanes, 1: tile), RB rows a thread and RT rows a pass, the ring's
 // stages (tile body), and whether the weights stay resident.
@@ -259,9 +263,10 @@ __device__ __forceinline__ void dir_barrier(unsigned* ctr, unsigned& target, int
   __syncthreads();
 }
 
-// A CTA's view of the plan.
+// A CTA's view of the plan: its units [base, base + units), walked in nub
+// blocks of UP; lo and own are the current block's first unit and count.
 struct Geo {
-  int B, H, HP, HS, SS, UP, U, lo, own, RT, WS, stages, resident;
+  int B, H, HP, HS, SS, UP, U, base, units, nub, lo, own, RT, WS, stages, resident;
   int sl, ug, rg, NUG, NRG;
   float* s_w;    // resident weights [3 UP][WS]
   float* s_x;    // lanes: the pass's rows [NG][RT][WS]; tile: the state ring
@@ -278,8 +283,11 @@ __device__ __forceinline__ void make_geo(Geo& g, const Plan& p, int B, int H, in
   g.SS = p.SS;
   g.UP = p.UP;
   g.U = p.U;
-  g.lo = c * p.U;
-  g.own = min(p.U, H - g.lo);
+  g.base = c * p.U;
+  g.units = min(p.U, H - g.base);
+  g.nub = max(1, cdiv(g.units, p.UP));
+  g.lo = g.base;
+  g.own = min(p.UP, g.units);
   g.RT = p.RT;
   g.stages = p.stages;
   g.resident = p.resident;
@@ -293,6 +301,12 @@ __device__ __forceinline__ void make_geo(Geo& g, const Plan& p, int B, int H, in
   g.s_w = smem;
   g.s_x = g.s_w + (p.resident ? 3 * p.UP * g.WS : 0);
   g.s_wr = g.s_x + (SPLIT > 1 ? G * p.RT * g.WS : p.stages * G * p.RT * KCP);
+}
+
+// Make unit block ub (of UP units) the CTA's current one.
+__device__ __forceinline__ void unit_block(Geo& g, int ub) {
+  g.lo = g.base + ub * g.UP;
+  g.own = min(g.UP, g.units - ub * g.UP);
 }
 
 // The shared-memory offset of weight (or row) element k in the body's
@@ -585,12 +599,11 @@ __global__ void __launch_bounds__(THREADS, 1) gru_grid_fwd(const FwdArgs a) {
     float* ys = PICK(ys) + (size_t)seed * B * T * H;
     float* res = WITH_RES ? PICK(res) + (size_t)seed * B * T * RW : nullptr;
     float* hl = PICK(h_last) + (size_t)seed * B * H;
-    const float* wsrc = wh + g.lo;
     __syncthreads();   // the last seed's products are done with the weights
-    if (g.resident) load_weights<SPLIT>(g, wsrc, H3, 1);
+    if (g.resident) load_weights<SPLIT>(g, wh + g.base, H3, 1);
     for (int e = threadIdx.x; e < B * g.U; e += THREADS) {
       const int b = e / g.U, u = e % g.U;
-      if (u < g.own) hb0[(size_t)b * HP + g.lo + u] = h0[(size_t)b * H + g.lo + u];
+      if (u < g.units) hb0[(size_t)b * HP + g.base + u] = h0[(size_t)b * H + g.base + u];
     }
     const float* bh = ra ? PICK(bh) + (size_t)seed * H3 : nullptr;
     dir_barrier(ctr, target, K);   // h0 and the padding are in place
@@ -599,87 +612,95 @@ __global__ void __launch_bounds__(THREADS, 1) gru_grid_fwd(const FwdArgs a) {
       const int t = rev ? T - 1 - i : i;
       const float* hb = (i & 1) ? hb1 : hb0;
       float* hn = (i & 1) ? hb0 : hb1;
-      for (int b0 = 0; b0 < B; b0 += g.RT) {
-        const float* const rows[1] = {hb};
-        if (ra) {
-          const int gates[3] = {0, 1, 2};
-          float o[RB][3 * UL];
-          product<SPLIT, RB, UL, 3, 1>(g, rows, gates, b0, wsrc, H3, 1, o);
+      for (int ub = 0; ub < g.nub; ++ub) {
+        unit_block(g, ub);
+        const float* wsrc = wh + g.lo;
+        for (int b0 = 0; b0 < B; b0 += g.RT) {
+          const float* const rows[1] = {hb};
+          if (ra) {
+            const int gates[3] = {0, 1, 2};
+            float o[RB][3 * UL];
+            product<SPLIT, RB, UL, 3, 1>(g, rows, gates, b0, wsrc, H3, 1, o);
 #pragma unroll
-          for (int r = 0; r < RB; ++r)
+            for (int r = 0; r < RB; ++r)
 #pragma unroll
-            for (int cc = 0; cc < UL; ++cc) {
-              const int b = b0 + g.rg + g.NRG * r;
-              if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
-              const int j = g.lo + unit[cc];
-              const size_t n = (size_t)b * T + t;
-              const float* x = xp + n * H3 + j;
-              const float* bj = bh + j;
-              const float hv = o[r][2 * UL + cc] + __ldg(bj + 2 * H);
-              const float rg = gate(__ldg(x) + (o[r][cc] + __ldg(bj)), hard);
-              const float zg = gate(__ldg(x + H) + (o[r][UL + cc] + __ldg(bj + H)), hard);
-              const float ng = tanh_fast(fmaf(rg, hv, __ldg(x + 2 * H)));
-              const float h = blend(zg, ng, __ldcg(hb + (size_t)b * HP + j));
-              hn[(size_t)b * HP + j] = h;
-              ys[n * H + j] = h;
-              if (WITH_RES) {
-                float* out = res + n * RW + j;
-                out[0] = rg;
-                out[H] = zg;
-                out[2 * H] = ng;
-                out[3 * H] = hv;
+              for (int cc = 0; cc < UL; ++cc) {
+                const int b = b0 + g.rg + g.NRG * r;
+                if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
+                const int j = g.lo + unit[cc];
+                const size_t n = (size_t)b * T + t;
+                const float* x = xp + n * H3 + j;
+                const float* bj = bh + j;
+                const float hv = o[r][2 * UL + cc] + __ldg(bj + 2 * H);
+                const float rg = gate(__ldg(x) + (o[r][cc] + __ldg(bj)), hard);
+                const float zg = gate(__ldg(x + H) + (o[r][UL + cc] + __ldg(bj + H)), hard);
+                const float ng = tanh_fast(fmaf(rg, hv, __ldg(x + 2 * H)));
+                const float h = blend(zg, ng, __ldcg(hb + (size_t)b * HP + j));
+                hn[(size_t)b * HP + j] = h;
+                ys[n * H + j] = h;
+                if (WITH_RES) {
+                  float* out = res + n * RW + j;
+                  out[0] = rg;
+                  out[H] = zg;
+                  out[2 * H] = ng;
+                  out[3 * H] = hv;
+                }
+                if (i == T - 1) hl[(size_t)b * H + j] = h;
               }
-              if (i == T - 1) hl[(size_t)b * H + j] = h;
-            }
-        } else {
-          const int gates[2] = {0, 1};
-          float o[RB][2 * UL];
-          product<SPLIT, RB, UL, 2, 1>(g, rows, gates, b0, wsrc, H3, 1, o);
+          } else {
+            const int gates[2] = {0, 1};
+            float o[RB][2 * UL];
+            product<SPLIT, RB, UL, 2, 1>(g, rows, gates, b0, wsrc, H3, 1, o);
 #pragma unroll
-          for (int r = 0; r < RB; ++r)
+            for (int r = 0; r < RB; ++r)
 #pragma unroll
-            for (int cc = 0; cc < UL; ++cc) {
-              const int b = b0 + g.rg + g.NRG * r;
-              if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
-              const int j = g.lo + unit[cc];
-              const float* x = xp + ((size_t)b * T + t) * H3 + j;
-              const float rg = gate(__ldg(x) + o[r][cc], hard);
-              const float zg = gate(__ldg(x + H) + o[r][UL + cc], hard);
-              rhb[(size_t)b * HP + j] = __fmul_rn(rg, __ldcg(hb + (size_t)b * HP + j));
-              gzb[(size_t)b * 2 * H + j] = rg;
-              gzb[((size_t)b * 2 + 1) * H + j] = zg;
-            }
+              for (int cc = 0; cc < UL; ++cc) {
+                const int b = b0 + g.rg + g.NRG * r;
+                if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
+                const int j = g.lo + unit[cc];
+                const float* x = xp + ((size_t)b * T + t) * H3 + j;
+                const float rg = gate(__ldg(x) + o[r][cc], hard);
+                const float zg = gate(__ldg(x + H) + o[r][UL + cc], hard);
+                rhb[(size_t)b * HP + j] = __fmul_rn(rg, __ldcg(hb + (size_t)b * HP + j));
+                gzb[(size_t)b * 2 * H + j] = rg;
+                gzb[((size_t)b * 2 + 1) * H + j] = zg;
+              }
+          }
         }
       }
       if (!ra) {
         dir_barrier(ctr, target, K);   // every CTA's r h rows are in place
-        for (int b0 = 0; b0 < B; b0 += g.RT) {
-          const float* const rows[1] = {rhb};
-          const int gates[1] = {2};
-          float o[RB][UL];
-          product<SPLIT, RB, UL, 1, 1>(g, rows, gates, b0, wsrc, H3, 1, o);
+        for (int ub = 0; ub < g.nub; ++ub) {
+          unit_block(g, ub);
+          const float* wsrc = wh + g.lo;
+          for (int b0 = 0; b0 < B; b0 += g.RT) {
+            const float* const rows[1] = {rhb};
+            const int gates[1] = {2};
+            float o[RB][UL];
+            product<SPLIT, RB, UL, 1, 1>(g, rows, gates, b0, wsrc, H3, 1, o);
 #pragma unroll
-          for (int r = 0; r < RB; ++r)
+            for (int r = 0; r < RB; ++r)
 #pragma unroll
-            for (int cc = 0; cc < UL; ++cc) {
-              const int b = b0 + g.rg + g.NRG * r;
-              if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
-              const int j = g.lo + unit[cc];
-              const size_t n = (size_t)b * T + t;
-              const float rg = __ldcg(gzb + (size_t)b * 2 * H + j);
-              const float zg = __ldcg(gzb + ((size_t)b * 2 + 1) * H + j);
-              const float ng = tanh_fast(__ldg(xp + n * H3 + 2 * H + j) + o[r][cc]);
-              const float h = blend(zg, ng, __ldcg(hb + (size_t)b * HP + j));
-              hn[(size_t)b * HP + j] = h;
-              ys[n * H + j] = h;
-              if (WITH_RES) {
-                float* out = res + n * RW + j;
-                out[0] = rg;
-                out[H] = zg;
-                out[2 * H] = ng;
+              for (int cc = 0; cc < UL; ++cc) {
+                const int b = b0 + g.rg + g.NRG * r;
+                if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
+                const int j = g.lo + unit[cc];
+                const size_t n = (size_t)b * T + t;
+                const float rg = __ldcg(gzb + (size_t)b * 2 * H + j);
+                const float zg = __ldcg(gzb + ((size_t)b * 2 + 1) * H + j);
+                const float ng = tanh_fast(__ldg(xp + n * H3 + 2 * H + j) + o[r][cc]);
+                const float h = blend(zg, ng, __ldcg(hb + (size_t)b * HP + j));
+                hn[(size_t)b * HP + j] = h;
+                ys[n * H + j] = h;
+                if (WITH_RES) {
+                  float* out = res + n * RW + j;
+                  out[0] = rg;
+                  out[H] = zg;
+                  out[2 * H] = ng;
+                }
+                if (i == T - 1) hl[(size_t)b * H + j] = h;
               }
-              if (i == T - 1) hl[(size_t)b * H + j] = h;
-            }
+          }
         }
       }
       dir_barrier(ctr, target, K);   // every CTA's new state rows are in place
@@ -689,7 +710,7 @@ __global__ void __launch_bounds__(THREADS, 1) gru_grid_fwd(const FwdArgs a) {
 
 // Backward chain: the K CTAs of a direction hold their units' rows of wh and
 // carry dh of those units; each step exchanges the rows' gate-input
-// gradients and writes dxp[t]. dwh and dbh are left to gru_wide_dwh.
+// gradients and writes dxp[t]. dwh and dbh are left to csrc/gru_dwh.cu.
 template <int SPLIT, int RB, int UL>
 __global__ void __launch_bounds__(THREADS, 1) gru_grid_bwd(const BwdArgs a) {
   extern __shared__ float4 smem4[];
@@ -724,9 +745,8 @@ __global__ void __launch_bounds__(THREADS, 1) gru_grid_bwd(const BwdArgs a) {
     const float* dhl = PICK(dhl) + (size_t)seed * B * H;
     float* dxp = PICK(dxp) + so * H3;
     float* dh0 = PICK(dh0) + (size_t)seed * B * H;
-    const float* wsrc = wh + (size_t)g.lo * H3;
     __syncthreads();
-    if (g.resident) load_weights<SPLIT>(g, wsrc, 1, H3);
+    if (g.resident) load_weights<SPLIT>(g, wh + (size_t)g.base * H3, 1, H3);
     dir_barrier(ctr, target, K);   // the last seed's readers of the exchanged rows are done
 
     // Step i visits the forward's steps in reverse: t = T-1 .. 0 for a
@@ -738,102 +758,119 @@ __global__ void __launch_bounds__(THREADS, 1) gru_grid_bwd(const BwdArgs a) {
       float* ar = dab + (size_t)(i & 1) * 3 * BHP;
       float* az = ar + BHP;
       float* an = az + BHP;
-      for (int b0 = 0; b0 < B; b0 += g.RT) {
+      for (int ub = 0; ub < g.nub; ++ub) {
+        unit_block(g, ub);
+        for (int b0 = 0; b0 < B; b0 += g.RT) {
 #pragma unroll
-        for (int r = 0; r < RB; ++r)
+          for (int r = 0; r < RB; ++r)
 #pragma unroll
-          for (int cc = 0; cc < UL; ++cc) {
-            const int b = b0 + g.rg + g.NRG * r;
-            if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
-            const int j = g.lo + unit[cc];
-            const size_t n = (size_t)b * T + t;
-            const float hp = i == T - 1 ? h0[(size_t)b * H + j] : ys[((size_t)b * T + tp) * H + j];
-            const float* gr = res + n * RW + j;
-            const float rr = gr[0], z = gr[H], nn = gr[2 * H];
-            const float dh = i == 0 ? dhl[(size_t)b * H + j] : __ldcg(dhc + (size_t)b * H + j);
-            const float dht = dys[n * H + j] + dh;
-            const float daz = dht * (hp - nn) * gate_grad(z, hard);
-            const float dan = dht * (1.0f - z) * fmaf(-nn, nn, 1.0f);
-            float* d = dxp + n * H3 + j;
-            const size_t k = (size_t)b * HP + j;
-            if (ra) {
-              const float dar = dan * gr[3 * H] * gate_grad(rr, hard);
-              ar[k] = dar;
-              an[k] = __fmul_rn(dan, rr);
-              d[0] = dar;
-            } else {
-              an[k] = dan;
+            for (int cc = 0; cc < UL; ++cc) {
+              const int b = b0 + g.rg + g.NRG * r;
+              if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
+              const int j = g.lo + unit[cc];
+              const size_t n = (size_t)b * T + t;
+              const float hp =
+                  i == T - 1 ? h0[(size_t)b * H + j] : ys[((size_t)b * T + tp) * H + j];
+              const float* gr = res + n * RW + j;
+              const float rr = gr[0], z = gr[H], nn = gr[2 * H];
+              const float dh = i == 0 ? dhl[(size_t)b * H + j] : __ldcg(dhc + (size_t)b * H + j);
+              const float dht = dys[n * H + j] + dh;
+              const float daz = dht * (hp - nn) * gate_grad(z, hard);
+              const float dan = dht * (1.0f - z) * fmaf(-nn, nn, 1.0f);
+              float* d = dxp + n * H3 + j;
+              const size_t k = (size_t)b * HP + j;
+              if (ra) {
+                const float dar = dan * gr[3 * H] * gate_grad(rr, hard);
+                ar[k] = dar;
+                an[k] = __fmul_rn(dan, rr);
+                d[0] = dar;
+              } else {
+                an[k] = dan;
+              }
+              az[k] = daz;
+              d[H] = daz;
+              d[2 * H] = dan;
+              cs[(size_t)b * 3 * H + j] = dht;
             }
-            az[k] = daz;
-            d[H] = daz;
-            d[2 * H] = dan;
-            cs[(size_t)b * 3 * H + j] = dht;
-          }
+        }
       }
       dir_barrier(ctr, target, K);   // every CTA's gradient rows are in place
       float* dh_out = i == T - 1 ? dh0 : dhc;
       if (ra) {
-        for (int b0 = 0; b0 < B; b0 += g.RT) {
-          const float* const rows[3] = {ar, az, an};
-          const int gates[3] = {0, 1, 2};
-          float o[RB][3 * UL];
-          product<SPLIT, RB, UL, 3, 3>(g, rows, gates, b0, wsrc, 1, H3, o);
+        for (int ub = 0; ub < g.nub; ++ub) {
+          unit_block(g, ub);
+          const float* wsrc = wh + (size_t)g.lo * H3;
+          for (int b0 = 0; b0 < B; b0 += g.RT) {
+            const float* const rows[3] = {ar, az, an};
+            const int gates[3] = {0, 1, 2};
+            float o[RB][3 * UL];
+            product<SPLIT, RB, UL, 3, 3>(g, rows, gates, b0, wsrc, 1, H3, o);
 #pragma unroll
-          for (int r = 0; r < RB; ++r)
+            for (int r = 0; r < RB; ++r)
 #pragma unroll
-            for (int cc = 0; cc < UL; ++cc) {
-              const int b = b0 + g.rg + g.NRG * r;
-              if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
-              const int j = g.lo + unit[cc];
-              const float v = (o[r][cc] + o[r][UL + cc]) + o[r][2 * UL + cc];
-              const float z = res[((size_t)b * T + t) * RW + H + j];
-              const float dht = __ldcg(cs + (size_t)b * 3 * H + j);
-              dh_out[(size_t)b * H + j] = fmaf(dht, z, v);
-            }
+              for (int cc = 0; cc < UL; ++cc) {
+                const int b = b0 + g.rg + g.NRG * r;
+                if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
+                const int j = g.lo + unit[cc];
+                const float v = (o[r][cc] + o[r][UL + cc]) + o[r][2 * UL + cc];
+                const float z = res[((size_t)b * T + t) * RW + H + j];
+                const float dht = __ldcg(cs + (size_t)b * 3 * H + j);
+                dh_out[(size_t)b * H + j] = fmaf(dht, z, v);
+              }
+          }
         }
       } else {
-        for (int b0 = 0; b0 < B; b0 += g.RT) {
-          const float* const rows[2] = {an, az};
-          const int gates[2] = {2, 1};
-          float o[RB][2 * UL];
-          product<SPLIT, RB, UL, 2, 2>(g, rows, gates, b0, wsrc, 1, H3, o);
+        for (int ub = 0; ub < g.nub; ++ub) {
+          unit_block(g, ub);
+          const float* wsrc = wh + (size_t)g.lo * H3;
+          for (int b0 = 0; b0 < B; b0 += g.RT) {
+            const float* const rows[2] = {an, az};
+            const int gates[2] = {2, 1};
+            float o[RB][2 * UL];
+            product<SPLIT, RB, UL, 2, 2>(g, rows, gates, b0, wsrc, 1, H3, o);
 #pragma unroll
-          for (int r = 0; r < RB; ++r)
+            for (int r = 0; r < RB; ++r)
 #pragma unroll
-            for (int cc = 0; cc < UL; ++cc) {
-              const int b = b0 + g.rg + g.NRG * r;
-              if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
-              const int j = g.lo + unit[cc];
-              const size_t n = (size_t)b * T + t;
-              const float hp = i == T - 1 ? h0[(size_t)b * H + j] : ys[((size_t)b * T + tp) * H + j];
-              const float rr = res[n * RW + j];
-              const float drh = o[r][cc], dzs = o[r][UL + cc];
-              const float dar = drh * hp * gate_grad(rr, hard);
-              ar[(size_t)b * HP + j] = dar;
-              dxp[n * H3 + j] = dar;
-              cs[((size_t)b * 3 + 1) * H + j] = drh;
-              cs[((size_t)b * 3 + 2) * H + j] = dzs;
-            }
+              for (int cc = 0; cc < UL; ++cc) {
+                const int b = b0 + g.rg + g.NRG * r;
+                if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
+                const int j = g.lo + unit[cc];
+                const size_t n = (size_t)b * T + t;
+                const float hp =
+                  i == T - 1 ? h0[(size_t)b * H + j] : ys[((size_t)b * T + tp) * H + j];
+                const float rr = res[n * RW + j];
+                const float drh = o[r][cc], dzs = o[r][UL + cc];
+                const float dar = drh * hp * gate_grad(rr, hard);
+                ar[(size_t)b * HP + j] = dar;
+                dxp[n * H3 + j] = dar;
+                cs[((size_t)b * 3 + 1) * H + j] = drh;
+                cs[((size_t)b * 3 + 2) * H + j] = dzs;
+              }
+          }
         }
         dir_barrier(ctr, target, K);   // every CTA's da_r rows are in place
-        for (int b0 = 0; b0 < B; b0 += g.RT) {
-          const float* const rows[1] = {ar};
-          const int gates[1] = {0};
-          float o[RB][UL];
-          product<SPLIT, RB, UL, 1, 1>(g, rows, gates, b0, wsrc, 1, H3, o);
+        for (int ub = 0; ub < g.nub; ++ub) {
+          unit_block(g, ub);
+          const float* wsrc = wh + (size_t)g.lo * H3;
+          for (int b0 = 0; b0 < B; b0 += g.RT) {
+            const float* const rows[1] = {ar};
+            const int gates[1] = {0};
+            float o[RB][UL];
+            product<SPLIT, RB, UL, 1, 1>(g, rows, gates, b0, wsrc, 1, H3, o);
 #pragma unroll
-          for (int r = 0; r < RB; ++r)
+            for (int r = 0; r < RB; ++r)
 #pragma unroll
-            for (int cc = 0; cc < UL; ++cc) {
-              const int b = b0 + g.rg + g.NRG * r;
-              if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
-              const int j = g.lo + unit[cc];
-              const size_t n = (size_t)b * T + t;
-              const float* cb = cs + (size_t)b * 3 * H + j;
-              const float dht = __ldcg(cb), drh = __ldcg(cb + H), dzs = __ldcg(cb + 2 * H);
-              const float rr = res[n * RW + j], z = res[n * RW + H + j];
-              dh_out[(size_t)b * H + j] = fmaf(drh, rr, fmaf(dht, z, o[r][cc] + dzs));
-            }
+              for (int cc = 0; cc < UL; ++cc) {
+                const int b = b0 + g.rg + g.NRG * r;
+                if (!mine<SPLIT, UL>(g, r, cc) || b >= B || unit[cc] >= g.own) continue;
+                const int j = g.lo + unit[cc];
+                const size_t n = (size_t)b * T + t;
+                const float* cb = cs + (size_t)b * 3 * H + j;
+                const float dht = __ldcg(cb), drh = __ldcg(cb + H), dzs = __ldcg(cb + 2 * H);
+                const float rr = res[n * RW + j], z = res[n * RW + H + j];
+                dh_out[(size_t)b * H + j] = fmaf(drh, rr, fmaf(dht, z, o[r][cc] + dzs));
+              }
+          }
         }
       }
     }
@@ -876,11 +913,13 @@ const void* bwd_kernel(int split, int RB) {
 // The plan of ndir directions at (B, H) on a card of `sms` SMs, `ctas` > 0
 // forcing K. UP: the fewest units a CTA (a power of two from UP_MIN) whose
 // K = ceil(H / UP) CTAs a direction fit the card, or the power of two that
-// holds ceil(H / ctas). The lanes body where B <= LANES_MAX_B and its
-// resident weights and whole rows fit, the most rows a thread up to what B
-// needs; else the tile body, its weights resident when they fit beside the
-// smallest ring (one row a thread, two stages), with the most rows a thread
-// that B needs and fit, then the most stages.
+// holds ceil(H / ctas); where that passes UP_MAX, UP = UP_MAX and K the
+// direction's SMs (or `ctas`), each CTA walking its U units in blocks. The
+// lanes body where B <= LANES_MAX_B and its resident weights and whole rows
+// fit, the most rows a thread up to what B needs; else the tile body, its
+// weights resident when one block holds the CTA's units and they fit beside
+// the smallest ring (one row a thread, two stages), with the most rows a
+// thread that B needs and fit, then the most stages.
 int make_plan(int ndir, int B, int H, bool backward, int ctas, int sms, Plan* out) {
   if (ndir < 1 || ndir > MAX_DIRS || B < 1 || H < 1 || sms < ndir) return NO_PLAN;
   Plan p = {};
@@ -892,14 +931,13 @@ int make_plan(int ndir, int B, int H, bool backward, int ctas, int sms, Plan* ou
     p.K = ctas;
     const int U = cdiv(H, ctas);
     p.UP = UP_MIN;
-    while (p.UP < U) p.UP *= 2;
+    while (p.UP < U && p.UP < UP_MAX) p.UP *= 2;
   } else {
     const int kmax = sms / ndir;
     p.UP = UP_MIN;
-    while (p.UP <= UP_MAX && cdiv(H, p.UP) > kmax) p.UP *= 2;
-    p.K = cdiv(H, p.UP);
+    while (p.UP < UP_MAX && cdiv(H, p.UP) > kmax) p.UP *= 2;
+    p.K = cdiv(H, p.UP) < kmax ? cdiv(H, p.UP) : kmax;
   }
-  if (p.UP > UP_MAX) return NO_PLAN;
   p.U = cdiv(H, p.K);
   const long long G = backward ? 3 : 1;
   if (B <= LANES_MAX_B && p.UP <= 32) {
@@ -922,7 +960,7 @@ int make_plan(int ndir, int B, int H, bool backward, int ctas, int sms, Plan* ou
   }
   const int nrg = THREADS / (p.UP / TILE_UNITS);
   const long long weights = 3LL * p.UP * (p.HP + 4);
-  p.resident = 4 * (weights + 2 * G * nrg * KCP) <= MAX_SMEM;
+  p.resident = p.U <= p.UP && 4 * (weights + 2 * G * nrg * KCP) <= MAX_SMEM;
   for (const int RB : {4, 2, 1}) {
     if (RB > 1 && RB / 2 * nrg >= B) continue;
     for (int stages = MAX_STAGES; stages >= 2; --stages) {
@@ -1021,8 +1059,7 @@ int launch(Args& a, int ndir, bool backward, bool with_res, int ctas, float* scr
 extern "C" {
 
 const char* gru_grid_error_string(int status) {
-  if (status == NO_PLAN)
-    return "no grid plan fits this shape (H needs more than 256 units a CTA on this card)";
+  if (status == NO_PLAN) return "no grid plan fits this shape on this card";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 

@@ -1,8 +1,7 @@
 // GRU recurrence for Hopper (sm_90a) at hidden widths 32 < H <= 128: a block
 // of Q = 4 lanes per hidden unit and R batch rows, the recurrent weights
 // split over the lanes' registers, both directions of a BiGRU and every seed
-// of a stack in one launch, and the backward's dwh/dbh reduced after the
-// chain (for every H > 32: the cluster and grid bodies use it too).
+// of a stack in one launch.
 //
 // Replaces, for 32 < H <= 128 (the warp body, csrc/gru_warp.cu, takes
 // H <= 32, the cluster body, csrc/gru_cluster.cu, 128 < H <= 512, the grid
@@ -10,11 +9,10 @@
 // sed_crnn_tpu/ops/pallas/gru_scan.py:
 //   * `_fwd_kernel` with with_res=False (`gru_scan_tc`) and with_res=True
 //     (`_gru_fwd`): gru_wide_fwd<KS, R, false / true>;
-//   * `_bwd_kernel` (`_gru_bwd`): gru_wide_bwd<KS, R> (the gradient chain:
-//     dxp and dh0), then gru_wide_dwh (dwh and dbh from the stored rows, a
-//     tiled product with one partial per row split) and gru_wide_sum (the
-//     partials added in split order, so dwh is bitwise equal from run to
-//     run).
+//   * `_bwd_kernel` (`_gru_bwd`): gru_wide_bwd<KS, R>, the gradient chain
+//     (dxp and dh0); dwh and dbh are reduced after it from the stored rows
+//     by csrc/gru_dwh.cu (tensor cores, 3xTF32), as for the cluster and
+//     grid bodies.
 // The contract is the warp body's: pre-projected inputs xp = x @ wi + bi
 // (B, T, 3H), recurrent kernel wh (H, 3H) in gate order (reset, update,
 // candidate), bias bh (3H) read only when reset_after, initial state h0 (B, H)
@@ -26,8 +24,8 @@
 //                  n = tanh(xn + (r * h) @ wh_n)
 //   h' = (1 - z) * n + z * h
 // with g the logistic sigmoid or keras-2.2 hard_sigmoid clip(0.2 v + 0.5, 0, 1).
-// Every tensor of a direction holds S seeds one after another; grid.y (the
-// chain) or grid.z (the reduction) is 2 * seed + direction.
+// Every tensor of a direction holds S seeds one after another; grid.y is
+// 2 * seed + direction.
 //
 // What bounds it: latency. The T steps of a direction form one chain; a step
 // is a (rows, H) x (H, 3H) product, and when not reset_after a second product
@@ -53,14 +51,6 @@
 //   * staged inputs: the step's xp (forward) or h_prev, gates and dys
 //     (backward) are copied STAGES - 1 steps ahead into a ring in shared
 //     memory with cp.async;
-//   * dwh/dbh off the chain: dwh[:, part p] = L_p^T D_p over the B*T stored
-//     rows (L = h_prev, or r h_prev for the candidate columns when not
-//     reset_after; D = dxp's part, times r for the candidate when
-//     reset_after), dbh = column sums of D, by a tiled float32 product (64 x
-//     64 tiles, a 4 x 4 register tile a thread, no tensor cores: float32
-//     keeps the 1e-4 band), the rows split into a fixed number of slices
-//     that depends on B, T and H only, so a seed of a stack sums in the same
-//     order as alone;
 //   * the launchers refuse H > 128 (cudaErrorInvalidValue): the cluster and
 //     grid bodies take those widths;
 //   * the dynamic shared memory attribute and the occupancy are read once
@@ -98,24 +88,12 @@ struct BwdDir {
   int reverse;
 };
 
-struct DwhDir {
-  const float* ys;
-  const float* res;
-  const float* h0;
-  const float* dxp;
-  float* part;
-  int reverse;
-};
-
 namespace {
 
 constexpr int MAX_DIRS = 2;
 constexpr int Q = 4;               // lanes per hidden unit
 constexpr int STAGES = 4;          // staging ring: STAGES - 1 steps in flight
 constexpr int REG_MAX_H = 128;     // widest H whose weights stay in registers
-constexpr int DT = 64;             // dwh tile: DT rows of wh x DT columns of a part
-constexpr int DK = 16;             // stored rows staged per dwh tile
-constexpr int DWH_THREADS = 256;
 
 template <typename D>
 struct Dirs {
@@ -361,7 +339,7 @@ __global__ void __launch_bounds__(16 * KS) gru_wide_fwd(Dirs<FwdDir> dirs, int B
 // Backward chain, register tier: thread 4 j + q carries dh[j] of the block's
 // rows and holds lane q's slice of row j of wh; each step broadcasts the
 // rows' gate-input gradients and writes dxp[t]. dwh and dbh are left to
-// gru_wide_dwh.
+// csrc/gru_dwh.cu.
 template <int KS, int R>
 __global__ void __launch_bounds__(16 * KS) gru_wide_bwd(Dirs<BwdDir> dirs, int B, int T, int H,
                                                         int reset_after, int hard) {
@@ -521,113 +499,6 @@ __global__ void __launch_bounds__(16 * KS) gru_wide_bwd(Dirs<BwdDir> dirs, int B
   }
 }
 
-// One partial of dwh (H, 3H) and dbh (3H) per (row split, direction, seed):
-// block (part p, row tile tm, column tile tn) of split blockIdx.y adds, over
-// the split's stored rows n = b T + t in index order, L[n, k] D[n, c] into
-// dwh[k, p H + c] with L = h_prev (times r when p == 2 and not reset_after)
-// and D = dxp[n, p H + c] (times r when p == 2 and reset_after); the blocks
-// of row tile 0 also sum D into dbh (zeros unless reset_after). Thread
-// (ty, tx) owns rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of the
-// tile.
-__global__ void __launch_bounds__(DWH_THREADS) gru_wide_dwh(Dirs<DwhDir> dirs, int B, int T,
-                                                            int H, int reset_after, int nsplit) {
-  const int dsel = blockIdx.z & 1;
-  const size_t seed = blockIdx.z >> 1;
-  const int H3 = 3 * H;
-  const int RW = reset_after ? 4 * H : H3;
-  const long long N = (long long)B * T;
-  const float* ys = PICK(ys) + seed * N * H;
-  const float* res = PICK(res) + seed * N * RW;
-  const float* h0 = PICK(h0) + seed * B * H;
-  const float* dxp = PICK(dxp) + seed * N * H3;
-  const int rev = PICK(reverse);
-  const int tiles = (H + DT - 1) / DT;
-  const int p = blockIdx.x / (tiles * tiles);
-  const int tm = (blockIdx.x / tiles) % tiles, tn = blockIdx.x % tiles;
-  const int chunk = (int)((N + nsplit - 1) / nsplit);
-  const int n_lo = blockIdx.y * chunk;
-  const int n_hi = n_lo + chunk < N ? n_lo + chunk : (int)N;
-  const bool l_times_r = p == 2 && !reset_after;
-  const bool d_times_r = p == 2 && reset_after;
-  const bool bias = tm == 0 && reset_after;
-
-  __shared__ __align__(16) float sL[DK][DT];
-  __shared__ __align__(16) float sD[DK][DT];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4], bsum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-
-  // This thread stages column kk of both tiles for every DWH_THREADS / DT-th
-  // row; the row index n < B T fits in 32 bits (the launcher checks it).
-  const int kk = tid % DT;
-  const int k_st = tm * DT + kk, c_st = tn * DT + kk;
-  for (int n0 = n_lo; n0 < n_hi; n0 += DK) {
-    for (int rr = tid / DT; rr < DK; rr += DWH_THREADS / DT) {
-      const int n = n0 + rr;
-      float l = 0.f, d = 0.f;
-      if (n < n_hi) {
-        if (k_st < H) {
-          const int b = n / T, t = n - b * T;
-          const bool first = rev ? t == T - 1 : t == 0;
-          l = first ? h0[(size_t)b * H + k_st] : ys[(size_t)(n + (rev ? 1 : -1)) * H + k_st];
-          if (l_times_r) l *= res[(size_t)n * RW + k_st];
-        }
-        if (c_st < H) {
-          d = dxp[(size_t)n * H3 + p * H + c_st];
-          if (d_times_r) d *= res[(size_t)n * RW + c_st];
-        }
-      }
-      sL[rr][kk] = l;
-      sD[rr][kk] = d;
-    }
-    __syncthreads();
-    const int rows = n_hi - n0 < DK ? n_hi - n0 : DK;
-    for (int rr = 0; rr < rows; ++rr) {
-      const float4 l = *reinterpret_cast<const float4*>(&sL[rr][4 * ty]);
-      const float4 v = *reinterpret_cast<const float4*>(&sD[rr][4 * tx]);
-      const float lv[4] = {l.x, l.y, l.z, l.w};
-      const float dv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(lv[a], dv[c], acc[a][c]);
-      if (bias && ty == 0) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bsum[c] += dv[c];
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = PICK(part) + (seed * nsplit + blockIdx.y) * (size_t)(H * H3 + H3);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = tn * DT + 4 * tx + c;
-    if (col >= H) continue;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int k = tm * DT + 4 * ty + a;
-      if (k < H) out[(size_t)k * H3 + p * H + col] = acc[a][c];
-    }
-    if (tm == 0 && ty == 0) out[(size_t)H * H3 + p * H + col] = bias ? bsum[c] : 0.f;
-  }
-}
-
-// out[q][e] = sum over splits of part[q][s][e], splits added in index
-// order, for each (direction, seed) row q.
-__global__ void gru_wide_sum(const float* __restrict__ part, float* __restrict__ out, int nsplit,
-                             int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  const float* p = part + (size_t)blockIdx.y * nsplit * n + e;
-  float s = 0.0f;
-  for (int k = 0; k < nsplit; ++k) s += p[(size_t)k * n];
-  out[(size_t)blockIdx.y * n + e] = s;
-}
-
 // Host side ------------------------------------------------------------------
 
 // The blocks of one kernel that the device holds at once (occupancy at
@@ -762,19 +633,6 @@ int launch_bwd_reg(const Dirs<BwdDir>& d, int ny, int B, int T, int H, int reset
   return static_cast<int>(cudaGetLastError());
 }
 
-// Row splits of the dwh reduction: enough blocks for two waves of the
-// card's SMs over the 3 (H / 64)^2 tiles, at least 256 rows a split; a
-// function of B, T and H only.
-int dwh_splits(int B, int T, int H) {
-  const long long tiles = 3LL * ((H + DT - 1) / DT) * ((H + DT - 1) / DT);
-  const long long rows = (long long)B * T;
-  long long want = 264 / tiles;
-  if (want < 1) want = 1;
-  long long cap = (rows + 255) / 256;
-  if (cap < 1) cap = 1;
-  return (int)(want < cap ? want : cap);
-}
-
 }  // namespace
 
 extern "C" {
@@ -819,38 +677,6 @@ int gru_wide_bwd_launch(const BwdDir* dirs, int ndir, int nseed, int B, int T, i
     case 24: return launch_bwd_reg<24>(d, ny, B, T, H, reset_after, hard_sigmoid, s);
     default: return launch_bwd_reg<32>(d, ny, B, T, H, reset_after, hard_sigmoid, s);
   }
-}
-
-// Partials gru_wide_dwh_launch writes per (direction, seed) for B*T rows.
-int gru_wide_dwh_splits(int B, int T, int H) { return dwh_splits(B, T, H); }
-
-// ndir directions of nseed seeds, each ys (nseed, B, T, H), res (nseed, B,
-// T, RW), h0 (nseed, B, H), dxp (nseed, B, T, 3H) -> part (nseed,
-// gru_wide_dwh_splits(B, T, H), 3H * H + 3H): per split, dwh (row-major (H,
-// 3H)) then dbh (zeros unless reset_after).
-int gru_wide_dwh_launch(const DwhDir* dirs, int ndir, int nseed, int B, int T, int H,
-                        int reset_after, void* stream) {
-  if (bad_shape(ndir, nseed, B, T, H) || (long long)B * T >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = (H + DT - 1) / DT;
-  const int nsplit = dwh_splits(B, T, H);
-  gru_wide_dwh<<<dim3(3 * tiles * tiles, nsplit, ndir * nseed), DWH_THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(pack(dirs, ndir), B, T, H, reset_after,
-                                                      nsplit);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out (nrows, n) = part (nrows, nsplit, n) summed over its split axis in
-// index order; a row per (direction, seed).
-int gru_wide_sum_partials(const float* part, float* out, int nrows, int nsplit, int n,
-                          void* stream) {
-  if (nrows < 1 || nrows > 65535 || nsplit <= 0 || n <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int threads = 256;
-  gru_wide_sum<<<dim3((n + threads - 1) / threads, nrows), threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(part, out, nsplit, n);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

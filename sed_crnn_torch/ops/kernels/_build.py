@@ -25,8 +25,8 @@ from typing import Dict, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "sed_crnn_torch"
-KERNEL_SOURCES = ("gru_cluster", "gru_grid", "gru_warp", "gru_wide", "logmel_cluster",
-                  "logmel_fft", "logmel_mixed")
+KERNEL_SOURCES = ("gru_cluster", "gru_dwh", "gru_grid", "gru_warp", "gru_wide",
+                  "logmel_cluster", "logmel_fft", "logmel_mixed")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -11,8 +11,8 @@ batch-major contract: ``xp (B, T, 3H)`` pre-projected inputs
 keras-2.2 ``hard_sigmoid`` gates, and reverse time.
 
 Four CUDA bodies, chosen by `gru_body` from the hidden width H, forward and
-backward alike; every H >= 1 has one of them, and every H to 16,896 (a pair
-on an H100's 132 SMs; one direction to 33,792) runs on it:
+backward alike; every H >= 1 has one of them and runs on it, as far as the
+card's memory holds the operands:
 
 * ``"warp"`` (``csrc/gru_warp.cu``), H <= 32 (every preset): one warp per
   batch row (or 32 / HP rows, HP = H rounded up to a power of two), the
@@ -30,13 +30,16 @@ on an H100's 132 SMs; one direction to 33,792) runs on it:
   units' part of wh in shared memory (resident to `GRID_RESIDENT_MAX_H`,
   1056, for a pair, streamed each step above), the new state exchanged
   through device memory (L2) behind a barrier of the direction's CTAs each
-  step. A CTA holds at most `GRID_UNITS_MAX` (256) units, so a wider shape
-  has no plan and its launch raises.
+  step. A CTA lays out at most `GRID_UNITS_MAX` (256) units at once; a
+  wider share (a pair above H = 16,896 on 132 SMs, one direction above
+  33,792) is walked in blocks of 256 units, streamed.
 
 All run one or two directions (and S seeds) per launch, and reduce the
 backward's ``dwh``/``dbh`` after the gradient chain by a separate kernel over
-the stored rows (`gru_dwh_plain` is its reference; the cluster and grid
-bodies use the wide body's), summed in a fixed order.
+the stored rows, summed in a fixed order (`gru_dwh_plain` is its reference):
+the warp body its own, every other body ``csrc/gru_dwh.cu``, a split-K
+product on the tensor cores in 3xTF32 (`dwh_split_plan`; `gru_dwh_3xtf32`
+repeats its arithmetic for the tests).
 
 Entry points, each of which launches a kernel for a CUDA tensor, runs its
 plain version only for a CPU tensor, and counts its launches:
@@ -53,8 +56,9 @@ plain version only for a CPU tensor, and counts its launches:
 * `gru_scan_bwd` / `gru_scan_pair_bwd`: the reverse-time gradient recurrence
   (``_bwd_kernel``) over the stored residuals -> ``dxp, dwh, dbh, dh0``.
   The chain is counted in ``gru_scan_bwd.launches``, the ``dwh``/``dbh``
-  reduction in ``gru_scan_bwd.dwh_launches`` and the fixed-order sum of its
-  partials in ``gru_scan_bwd.sum_launches``. ``dbh`` is zero when
+  reduction in ``gru_scan_bwd.dwh_launches`` (those of ``csrc/gru_dwh.cu``
+  among them also in ``gru_scan_bwd.mma_dwh_launches``) and the fixed-order
+  sum of its partials in ``gru_scan_bwd.sum_launches``. ``dbh`` is zero when
   ``reset_after`` is False, as the JAX wrapper sets it.
 
 A pair is one launch of each kernel; ``direction 0`` runs forward in time
@@ -247,28 +251,29 @@ def grid_plan(n_dir: int, n_seed: int, B: int, H: int, backward: bool,
     tile body), "row_block": rows a thread, "rows": rows a pass, "stages":
     the ring's (tile body), "resident": bool, "threads", "smem": a CTA's
     bytes}``. UP: the fewest units a CTA (a power of two) whose ceil(H / UP)
-    CTAs a direction fit the card. The lanes body where B <=
-    GRID_LANES_MAX_B and its resident weights and whole rows fit; else the
-    tile body, its weights resident when they fit beside the smallest ring.
-    The seeds take turns in the same CTAs, and nothing here changes the
-    order of a sum (``csrc/gru_grid.cu``'s header). Raises when no plan
-    fits."""
+    CTAs a direction fit the card; where GRID_UNITS_MAX do not, UP =
+    GRID_UNITS_MAX, K the direction's SMs, and a CTA walks its U > UP units
+    in ceil(U / UP) blocks. The lanes body where B <= GRID_LANES_MAX_B and
+    its resident weights and whole rows fit; else the tile body, its
+    weights resident when one block holds the units and they fit beside the
+    smallest ring. The seeds take turns in the same CTAs, and nothing here
+    changes the order of a sum (``csrc/gru_grid.cu``'s header). Raises only
+    on a shape no launch takes (no direction, B or H below 1)."""
     del n_seed, with_res
     if not (1 <= n_dir <= 2 and B >= 1 and H >= 1 and sms >= n_dir):
         raise ValueError(f"no grid plan for {n_dir} directions at B={B} H={H}")
     HP, _, SS = grid_geometry(H)
     if ctas > 0:
         K, UP = ctas, GRID_UNITS_MIN
-        while UP < -(-H // ctas):
+        while UP < -(-H // ctas) and UP < GRID_UNITS_MAX:
             UP *= 2
     else:
         UP = GRID_UNITS_MIN
-        while UP <= GRID_UNITS_MAX and -(-H // UP) > sms // n_dir:
+        while UP < GRID_UNITS_MAX and -(-H // UP) > sms // n_dir:
             UP *= 2
-        K = -(-H // UP)
-    if UP > GRID_UNITS_MAX:
-        raise ValueError(f"no grid plan: H={H} needs more than {GRID_UNITS_MAX} units a CTA")
-    plan = {"ctas": K, "units": -(-H // K), "units_padded": UP, "threads": GRID_THREADS}
+        K = min(-(-H // UP), sms // n_dir)
+    U = -(-H // K)
+    plan = {"ctas": K, "units": U, "units_padded": UP, "threads": GRID_THREADS}
     G = 3 if backward else 1
     if B <= GRID_LANES_MAX_B and UP <= 32:
         nrg, ws = 32 // UP, GRID_SLABS * SS + 4
@@ -281,7 +286,7 @@ def grid_plan(n_dir: int, n_seed: int, B: int, H: int, backward: bool,
                         "stages": 0, "resident": True, "smem": smem}
     nrg, kcp = GRID_THREADS // (UP // GRID_TILE_UNITS), GRID_KC + 4
     weights = 3 * UP * (HP + 4)
-    resident = 4 * (weights + 2 * G * nrg * kcp) <= GRID_MAX_SMEM
+    resident = U <= UP and 4 * (weights + 2 * G * nrg * kcp) <= GRID_MAX_SMEM
     for RB in (4, 2, 1):
         if RB > 1 and RB // 2 * nrg >= B:
             continue
@@ -394,6 +399,28 @@ def gru_scan_fwd_res_plain(
     return ys_t, res_t, h
 
 
+def _h_prev(ys: torch.Tensor, h0: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The state before each step, (B*T, H) in row order n = b T + t: ``ys``
+    shifted by one step in the direction's order, ``h0`` at the chain's
+    start."""
+    before = h0[:, None]
+    h = torch.cat([ys[:, 1:], before], 1) if reverse else torch.cat([before, ys[:, :-1]], 1)
+    return h.reshape(-1, ys.shape[-1])
+
+
+def dwh_factors(ys, res, h0, dxp, reset_after: bool, reverse: bool):
+    """The operands of dwh's three products over the B*T stored rows,
+    ``dwh[:, pH:(p+1)H] = L_p^T D_p``: ``([L_0, L_1, L_2], [D_0, D_1,
+    D_2])``, each (B*T, H); L_2 is r h_prev when not ``reset_after``, D_2
+    is r da_n when ``reset_after``."""
+    H = ys.shape[-1]
+    h_prev = _h_prev(ys, h0, reverse)
+    r = res[..., :H].reshape(-1, H)
+    d = dxp.reshape(-1, 3 * H)
+    return ([h_prev, h_prev, h_prev if reset_after else r * h_prev],
+            [d[:, :H], d[:, H : 2 * H], d[:, 2 * H :] * r if reset_after else d[:, 2 * H :]])
+
+
 def gru_dwh_plain(
     ys: torch.Tensor,
     res: torch.Tensor,
@@ -412,9 +439,7 @@ def gru_dwh_plain(
     B, T, H = ys.shape
     if B == 0 or T == 0:
         return ys.new_zeros((H, 3 * H)), ys.new_zeros((3 * H,))
-    before = h0[:, None]
-    h_prev = torch.cat([ys[:, 1:], before], 1) if reverse else torch.cat([before, ys[:, :-1]], 1)
-    h_prev = h_prev.reshape(-1, H)
+    h_prev = _h_prev(ys, h0, reverse)
     r = res[..., :H].reshape(-1, H)
     d = dxp.reshape(-1, 3 * H)
     if reset_after:
@@ -422,6 +447,96 @@ def gru_dwh_plain(
         return h_prev.T @ dhp, dhp.sum(0)
     dwh = torch.cat([h_prev.T @ d[:, : 2 * H], (r * h_prev).T @ d[:, 2 * H :]], dim=-1)
     return dwh, ys.new_zeros((3 * H,))
+
+
+# The dwh/dbh reduction above the warp body, as csrc/gru_dwh.cu computes it
+# (the card's library reports the same split count: `gru_dwh_splits`): a
+# block owns DWH_TILE x DWH_TILE entries of one part of dwh and walks its
+# row split in chunks of DWH_K rows; the splits give about DWH_SPLIT_BLOCKS
+# blocks, at most one split per DWH_MIN_SPLIT_ROWS rows, whole chunks.
+DWH_TILE = 128
+DWH_K = 32
+DWH_SPLIT_BLOCKS = 264             # two waves of an H100's 132 SMs
+DWH_MIN_SPLIT_ROWS = 256
+
+
+def dwh_split_plan(B: int, T: int, H: int) -> Tuple[int, int]:
+    """``(splits, rows a split)`` of the dwh reduction over B*T rows at
+    width H: a function of (B, T, H) alone, so a seed of a stack, and every
+    run, sums in one order. One split where the 3 (H / DWH_TILE)^2 tiles
+    already make DWH_SPLIT_BLOCKS blocks."""
+    rows, t = B * T, -(-H // DWH_TILE)
+    n = min(max(1, DWH_SPLIT_BLOCKS // (3 * t * t)), max(1, -(-rows // DWH_MIN_SPLIT_ROWS)))
+    chunk = _round_up(-(-rows // n), DWH_K)
+    return -(-rows // chunk), chunk
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def gru_dwh_3xtf32(
+    ys: torch.Tensor,
+    res: torch.Tensor,
+    h0: torch.Tensor,
+    dxp: torch.Tensor,
+    reset_after: bool,
+    reverse: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`gru_dwh_plain`'s function in the arithmetic of ``csrc/gru_dwh.cu``,
+    for the tests: each split of `dwh_split_plan` walks its rows in chunks
+    of DWH_K, each chunk summing, 8 rows at a time in row order, the TF32
+    products lo.hi, hi.lo and hi.hi of the operands' splits x = hi + lo
+    into a fresh float32 accumulator that is then added to the split's
+    total; dbh adds the rows one by one; the partials are added in split
+    order. A leading seed axis is taken seed by seed. The tensor cores'
+    own order and rounding inside a product are not repeated, so this is
+    the kernel's arithmetic up to float32 rounding."""
+    if ys.dim() == 4:
+        outs = [gru_dwh_3xtf32(*(t[s] for t in (ys, res, h0, dxp)), reset_after, reverse)
+                for s in range(ys.shape[0])]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    B, T, H = ys.shape
+    if B == 0 or T == 0:
+        return ys.new_zeros((H, 3 * H)), ys.new_zeros((3 * H,))
+    lefts, rights = dwh_factors(ys, res, h0, dxp, reset_after, reverse)
+    n_split, chunk = dwh_split_plan(B, T, H)
+    rows = n_split * chunk
+
+    def blocks(x):     # (splits, steps, 8, H), zero rows past B*T
+        x = torch.cat([x, x.new_zeros((rows - x.shape[0], H))])
+        return x.view(n_split, chunk // 8, 8, H)
+
+    acc = ys.new_zeros((n_split, H, 3 * H))
+    steps = DWH_K // 8
+    for p, (a, b) in enumerate(zip(lefts, rights)):
+        (ah, al), (bh, bl) = _split_tf32(blocks(a)), _split_tf32(blocks(b))
+        out = acc[:, :, p * H : (p + 1) * H]
+        for c in range(chunk // DWH_K):
+            part = ys.new_zeros((n_split, H, H))
+            for j in range(c * steps, (c + 1) * steps):
+                for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                    part += x[:, j].transpose(1, 2) @ y[:, j]
+            out += part
+    dbh = ys.new_zeros((n_split, 3 * H))
+    if reset_after:
+        dd = torch.cat([torch.cat(rights, 1), ys.new_zeros((rows - B * T, 3 * H))])
+        dd = dd.view(n_split, chunk, 3 * H)
+        for i in range(chunk):
+            dbh += dd[:, i]
+    dwh, bias = acc[0].clone(), dbh[0].clone()
+    for s in range(1, n_split):
+        dwh += acc[s]
+        bias += dbh[s]
+    return dwh, bias
 
 
 def gru_scan_bwd_plain(
@@ -511,14 +626,27 @@ def _wide_lib() -> ctypes.CDLL:
     lib.gru_wide_fwd_launch.restype = _i
     lib.gru_wide_bwd_launch.argtypes = [ctypes.POINTER(_BwdDir)] + [_i] * 7 + [_p]
     lib.gru_wide_bwd_launch.restype = _i
-    lib.gru_wide_dwh_splits.argtypes = [_i, _i, _i]
-    lib.gru_wide_dwh_splits.restype = _i
-    lib.gru_wide_dwh_launch.argtypes = [ctypes.POINTER(_DwhDir)] + [_i] * 6 + [_p]
-    lib.gru_wide_dwh_launch.restype = _i
-    lib.gru_wide_sum_partials.argtypes = [_p, _p, _i, _i, _i, _p]
-    lib.gru_wide_sum_partials.restype = _i
     lib.gru_wide_error_string.argtypes = [_i]
     lib.gru_wide_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _dwh_lib() -> ctypes.CDLL:
+    """The dwh/dbh reduction above the warp body, ``csrc/gru_dwh.cu``."""
+    return bind_dwh(_build.load("gru_dwh"))
+
+
+def bind_dwh(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C interface of a library built from ``csrc/gru_dwh.cu``."""
+    lib.gru_dwh_splits.argtypes = [_i, _i, _i]
+    lib.gru_dwh_splits.restype = _i
+    lib.gru_dwh_launch.argtypes = [ctypes.POINTER(_DwhDir)] + [_i] * 6 + [_p]
+    lib.gru_dwh_launch.restype = _i
+    lib.gru_dwh_sum_partials.argtypes = [_p, _p, _i, _i, ctypes.c_longlong, _p]
+    lib.gru_dwh_sum_partials.restype = _i
+    lib.gru_dwh_error_string.argtypes = [_i]
+    lib.gru_dwh_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -723,7 +851,7 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
     card: the gradient chain, the ``dwh``/``dbh`` reduction and the
     fixed-order sum of its partials -> per direction ``(dxp, dwh, dbh,
     dh0)``; counts its launches. ``body``, ``stack`` and ``ctas`` as for
-    `_fwd` (the cluster and grid bodies' reduction is the wide body's)."""
+    `_fwd` (every body but the warp one reduces with ``csrc/gru_dwh.cu``)."""
     dev = ys_s[0].device
     lead = _lead(stack)
     B, T, H = ys_s[0].shape[-3:]
@@ -752,47 +880,50 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if body == "warp":
-            lib, name = _warp_lib(), "gru_warp"
-            status = lib.gru_warp_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, stream)
-            n_part = lib.gru_warp_dwh_blocks(B, T)
-        elif body == "cluster":
-            clib = _cluster_lib()
-            status = clib.gru_cluster_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, ctas,
-                                                 stream)
-            _raise_on(status, "gru_cluster_bwd", clib.gru_cluster_error_string)
-            gru_scan.cluster_launches += 1
-            lib, name = _wide_lib(), "gru_wide"
-            n_part = lib.gru_wide_dwh_splits(B, T, H)
-        elif body == "grid":
-            glib = _grid_lib()
-            scratch = _grid_scratch(glib, n_dir, B, H, True, dev)
-            status = glib.gru_grid_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, ctas,
-                                              scratch.data_ptr(), stream)
-            _raise_on(status, "gru_grid_bwd", glib.gru_grid_error_string)
-            gru_scan.grid_launches += 1
-            lib, name = _wide_lib(), "gru_wide"
-            n_part = lib.gru_wide_dwh_splits(B, T, H)
+            wl = _warp_lib()
+            _raise_on(wl.gru_warp_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, stream),
+                      "gru_warp_bwd", wl.gru_warp_error_string)
+            n_part = wl.gru_warp_dwh_blocks(B, T)
+            reduce = (wl.gru_warp_dwh_launch, wl.gru_warp_sum_partials, "gru_warp",
+                      wl.gru_warp_error_string)
         else:
-            lib, name = _wide_lib(), "gru_wide"
-            status = lib.gru_wide_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, stream)
-            gru_scan.wide_launches += 1
-            n_part = lib.gru_wide_dwh_splits(B, T, H)
-        error_string = getattr(lib, f"{name}_error_string")
-        _raise_on(status, f"{name}_bwd", error_string)
+            if body == "cluster":
+                clib = _cluster_lib()
+                status = clib.gru_cluster_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, ctas,
+                                                     stream)
+                _raise_on(status, "gru_cluster_bwd", clib.gru_cluster_error_string)
+                gru_scan.cluster_launches += 1
+            elif body == "grid":
+                glib = _grid_lib()
+                scratch = _grid_scratch(glib, n_dir, B, H, True, dev)
+                status = glib.gru_grid_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, ctas,
+                                                  scratch.data_ptr(), stream)
+                _raise_on(status, "gru_grid_bwd", glib.gru_grid_error_string)
+                gru_scan.grid_launches += 1
+            else:
+                wl = _wide_lib()
+                _raise_on(wl.gru_wide_bwd_launch(chain, n_dir, n_seed, B, T, H, *flags, stream),
+                          "gru_wide_bwd", wl.gru_wide_error_string)
+                gru_scan.wide_launches += 1
+            dl = _dwh_lib()
+            n_part = dl.gru_dwh_splits(B, T, H)
+            reduce = (dl.gru_dwh_launch, dl.gru_dwh_sum_partials, "gru_dwh",
+                      dl.gru_dwh_error_string)
         gru_scan_bwd.launches += 1
+        dwh_launch, sum_launch, name, error_string = reduce
         # Partials per (direction, seed), each seed's in a fixed order.
         part = torch.empty((n_dir, n_seed, n_part, n), dtype=torch.float32, device=dev)
         arr = (_DwhDir * n_dir)(*(
             _DwhDir(ys.data_ptr(), res.data_ptr(), h0.data_ptr(), dxp.data_ptr(),
                     part[k].data_ptr(), int(rev))
             for k, ((ys, res, _, h0, _, _), dxp, rev) in enumerate(zip(dirs, dxps, reverses))))
-        status = getattr(lib, f"{name}_dwh_launch")(arr, n_dir, n_seed, B, T, H,
-                                                     int(reset_after), stream)
+        status = dwh_launch(arr, n_dir, n_seed, B, T, H, int(reset_after), stream)
         _raise_on(status, f"{name}_dwh", error_string)
         gru_scan_bwd.dwh_launches += 1
+        if body != "warp":
+            gru_scan_bwd.mma_dwh_launches += 1
         sums = torch.empty((n_dir, n_seed, n), dtype=torch.float32, device=dev)
-        status = getattr(lib, f"{name}_sum_partials")(part.data_ptr(), sums.data_ptr(),
-                                                      n_dir * n_seed, n_part, n, stream)
+        status = sum_launch(part.data_ptr(), sums.data_ptr(), n_dir * n_seed, n_part, n, stream)
         _raise_on(status, f"{name}_sum_partials", error_string)
         gru_scan_bwd.sum_launches += 1
     if stack is not None:
@@ -885,6 +1016,7 @@ def gru_scan_bwd(
 gru_scan_bwd.launches = 0
 gru_scan_bwd.dwh_launches = 0
 gru_scan_bwd.sum_launches = 0
+gru_scan_bwd.mma_dwh_launches = 0
 
 
 def _pair_bias(bh: Sequence[Optional[torch.Tensor]], reset_after: bool, xp: Pair):

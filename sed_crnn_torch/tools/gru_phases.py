@@ -5,6 +5,8 @@ on one CUDA card.
     python3 -m sed_crnn_torch.tools.gru_phases --body grid [--H 1024] [--T 256]
     python3 -m sed_crnn_torch.tools.gru_phases --body grid --l2-source OLD/gru_wide.cu
     python3 -m sed_crnn_torch.tools.gru_phases --body grid --against OTHER/gru_grid.cu
+    python3 -m sed_crnn_torch.tools.gru_phases --body dwh [--H 1024] [--T 256]
+    python3 -m sed_crnn_torch.tools.gru_phases --body dwh --against OTHER/gru_dwh.cu
 
 from the root of a checkout.
 
@@ -56,6 +58,23 @@ forward and backward chain at width H (default 1024) at B = 1, 8 and 16
 (the lanes body's batches), both conventions, in turns (this, other, other, this),
 with each build's plan and whether the two give the same bits.
 
+``--body dwh`` builds ``sed_crnn_torch/csrc/gru_dwh.cu`` (the backward's
+dwh/dbh reduction above the warp body) as it is and with its cuts
+(``-DGRU_DWH_CUT=k``): ``one_product`` (1: hi.hi only, one TF32 product a
+tile in place of three), ``no_products`` (2: nor that, nor the fragments'
+loads and splits) and ``no_copies`` (3: nor the cp.async copies of the
+chunks), and times the reduction of a pair's stored rows at B = 128,
+T = ``--T``, at H (default 128, 1024 and 2048), both conventions, in
+turns. The phases, in ms: the two extra products of 3xTF32 = full -
+one_product, one product = one_product - no_products (fragments, splits,
+MMAs), copies = no_products - no_copies, rest = no_copies (the ring's
+waits and barriers, the partials' writes, dbh). One JSON line per
+(convention, H) with the split count and the rate of the float32 product.
+With ``--against PATH`` it builds ``gru_dwh.cu`` as it is and from PATH
+(another version with the same C interface) and times the two in turns
+instead, with the largest distance between their dwh relative to its
+largest entry.
+
 ``--l2-source PATH`` (with ``--body grid``) also builds the wide body from
 PATH, a ``gru_wide.cu`` that still has the L2 tier the grid body replaced
 (above H = 512; the parent of the commit that retired it), and times its
@@ -85,6 +104,9 @@ VARIANTS = {"full": (), "no_exchange": ("-DGRU_CLUSTER_CUT=1",),
             "no_products": ("-DGRU_CLUSTER_CUT=2",), "no_staging": ("-DGRU_CLUSTER_CUT=3",),
             "threads512": ("-DGRU_CLUSTER_MAX_THREADS=512",)}
 CUTS = ("full", "no_exchange", "no_products", "no_staging")
+DWH_VARIANTS = {"full": (), "one_product": ("-DGRU_DWH_CUT=1",),
+                "no_products": ("-DGRU_DWH_CUT=2",), "no_copies": ("-DGRU_DWH_CUT=3",)}
+DWH_WIDTHS = (128, 1024, 2048)
 BATCHES = (1, 128)
 AGAINST_BATCHES = (1, 8, 16)
 CTAS = (4, 8, 16)
@@ -332,9 +354,72 @@ def grid_main(H: int, T: int, l2_source: str, l2_T: int) -> int:
     return 0
 
 
+def dwh_main(H: int, T: int, against: str = "") -> int:
+    """``--body dwh``: csrc/gru_dwh.cu's phases, by its profiling cuts, or
+    this version in turns with the one at ``against``."""
+    if against:
+        libs = build_variants("gru_dwh", {"this": ()}, gs.bind_dwh, {"other": against})
+        libs["other"] = gs.bind_dwh(libs["other"])
+    else:
+        libs = build_variants("gru_dwh", DWH_VARIANTS, gs.bind_dwh)
+    first = next(iter(libs.values()))
+    device = torch.cuda.get_device_name(0)
+    print(json.dumps({"ptxas": build_variants.ptxas, "device": device}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    B = BATCHES[-1]
+    stream = torch.cuda.current_stream().cuda_stream
+    for H in (H,) if H else DWH_WIDTHS:
+        for reset_after in (True, False):
+            dev = torch.device("cuda")
+            randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+            ops = [(torch.tanh(randn(B, T, H)),
+                    torch.rand((B, T, gs.res_width(reset_after, H)), generator=gen, device=dev),
+                    0.5 * randn(B, H), randn(B, T, 3 * H)) for _ in range(2)]
+            n_part = first.gru_dwh_splits(B, T, H)
+            part = torch.empty((2, 1, n_part, 3 * H * H + 3 * H), device=dev)
+            arr = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(),
+                                                x.data_ptr(), part[k].data_ptr(), k)
+                                     for k, (y, r, h, x) in enumerate(ops)))
+
+            def launch(lib):
+                gs._raise_on(lib.gru_dwh_launch(arr, 2, 1, B, T, H, int(reset_after), stream),
+                             "gru_dwh", lib.gru_dwh_error_string)
+
+            ms = _in_turns(libs, launch)
+            mean = {k: float(np.mean(v)) for k, v in ms.items()}
+            if against:
+                outs = {}
+                for name, lib in libs.items():
+                    launch(lib)
+                    torch.cuda.synchronize()
+                    outs[name] = part.sum(dim=2)
+                scale = float(outs["this"].abs().max())
+                print(json.dumps({
+                    "body": "dwh against", "H": H, "T": T, "B": B,
+                    "reset_after": reset_after, "device": device, "source": against,
+                    "ms": ms, "mean_ms": mean,
+                    "rel_diff": float((outs["this"] - outs["other"]).abs().max()) / scale}),
+                    flush=True)
+                del ops, part, outs
+                torch.cuda.empty_cache()
+                continue
+            print(json.dumps({
+                "body": "dwh", "H": H, "T": T, "B": B, "reset_after": reset_after,
+                "device": device, "splits": n_part, "ms": ms,
+                "tflops": 2 * 2 * B * T * H * 3 * H / mean["full"] / 1e9,
+                "phases_ms": {"full": mean["full"],
+                              "two_more_products": mean["full"] - mean["one_product"],
+                              "one_product": mean["one_product"] - mean["no_products"],
+                              "copies": mean["no_products"] - mean["no_copies"],
+                              "rest": mean["no_copies"]}}), flush=True)
+            del ops, part
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--body", choices=("cluster", "grid"), default="cluster")
+    ap.add_argument("--body", choices=("cluster", "grid", "dwh"), default="cluster")
     ap.add_argument("--H", type=int, default=None)
     ap.add_argument("--T", type=int, default=256)
     ap.add_argument("--l2-source", default=None)
@@ -344,6 +429,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("gru_phases: a CUDA card is required", file=sys.stderr)
         return 2
+    if args.body == "dwh":
+        return dwh_main(args.H, args.T, args.against or "")
     if args.body == "grid" and args.against:
         return grid_against(args.H or 1024, args.T, args.against)
     if args.body == "grid":

@@ -63,13 +63,14 @@ def test_failed_compile_raises_after_waiting_for_all(tmp_path, build_dir, monkey
 
 
 def test_every_kernel_source_is_listed():
-    """The seven sources under csrc/ (the three log-mel bodies, the four GRU
-    bodies) are exactly the ones `build_all` compiles; the log-mel bodies
-    share one header."""
+    """The eight sources under csrc/ (the three log-mel bodies, the four GRU
+    bodies and the GRU backward's dwh reduction above the warp body) are
+    exactly the ones `build_all` compiles; the log-mel bodies share one
+    header."""
     on_disk = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert on_disk == sorted(_build.KERNEL_SOURCES)
-    assert on_disk == ["gru_cluster", "gru_grid", "gru_warp", "gru_wide", "logmel_cluster",
-                       "logmel_fft", "logmel_mixed"]
+    assert on_disk == ["gru_cluster", "gru_dwh", "gru_grid", "gru_warp", "gru_wide",
+                       "logmel_cluster", "logmel_fft", "logmel_mixed"]
     assert sorted(p.name for p in _build.CSRC_DIR.glob("*.cuh")) == ["logmel_stages.cuh"]
     for name in ("logmel_cluster", "logmel_fft", "logmel_mixed"):
         assert '#include "logmel_stages.cuh"' in (_build.CSRC_DIR / f"{name}.cu").read_text()

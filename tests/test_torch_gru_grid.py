@@ -61,7 +61,8 @@ ATOL = 1e-5
 B, T, IN = 3, 12, 10
 DIRS = ("fwd", "bwd")
 WIDTHS = [520, 1024]
-PLAN_WIDTHS = [513, 520, 768, 1000, 1024, 1025, 1536, 2048, 4096, 8448, 8449, 16896]
+PLAN_WIDTHS = [513, 520, 768, 1000, 1024, 1025, 1536, 2048, 4096, 8448, 8449, 16896, 16897,
+               33793, 40000]
 CASES = [(False, "hard_sigmoid", True), (True, "sigmoid", False)]
 
 
@@ -76,15 +77,19 @@ def test_tier_rule(H_):
 @pytest.mark.parametrize("backward", [False, True])
 def test_the_plan_fits_a_cta_and_the_card(H, n_dir, backward):
     """Every plan fits a CTA's 232,448 bytes, its K CTAs a direction fit
-    the card's SMs, every unit lies on one CTA, and the rows a pass are the
-    body's row groups times the rows a thread."""
+    the card's SMs, every unit lies on one CTA, a CTA's units fit one block
+    of UP or, where 256 units a CTA do not cover H, several blocks of 256 on
+    every SM of the direction, streamed; the rows a pass are the body's row
+    groups times the rows a thread."""
     for B_ in (1, 3, 8, 16, 17, 100, 128, 1000):
         p = grid_plan(n_dir, 1, B_, H, backward)
         assert set(p) == set(GRID_PLAN_KEYS)
         assert p["smem"] <= GRID_MAX_SMEM and p["threads"] == GRID_THREADS
         assert n_dir * p["ctas"] <= GRID_SMS
         K, U, UP = p["ctas"], p["units"], p["units_padded"]
-        assert U == -(-H // K) and (K - 1) * U < H and U <= UP
+        assert U == -(-H // K) and (K - 1) * U < H
+        assert U <= UP or (UP == GRID_UNITS_MAX and K == GRID_SMS // n_dir
+                           and not p["resident"])
         assert GRID_UNITS_MIN <= UP <= GRID_UNITS_MAX and UP & (UP - 1) == 0
         assert UP == GRID_UNITS_MIN or -(-H // (UP // 2)) > GRID_SMS // n_dir   # the fewest
         if p["split"] == GRID_SLABS:      # lanes body: resident, one unit a group
@@ -122,17 +127,26 @@ def test_the_resident_streamed_boundary():
 
 @pytest.mark.parametrize("n_dir,widest", [(2, 16896), (1, 33792)])
 def test_the_widest_width_and_the_first_refused(n_dir, widest):
-    """A CTA holds at most GRID_UNITS_MAX = 256 units: on 132 SMs a pair
-    (66 CTAs a direction) takes H to 66 x 256 = 16,896 and one direction
-    (132 CTAs) to 33,792, streamed; one unit wider has no plan and raises
-    the library's no-plan refusal. From 8,449 a pair's CTAs hold 256."""
+    """A CTA lays out at most GRID_UNITS_MAX = 256 units: on 132 SMs a pair
+    (66 CTAs a direction) holds H to 66 x 256 = 16,896 in one block a CTA
+    and one direction (132 CTAs) to 33,792, streamed. One unit wider is no
+    longer refused: the same CTAs walk 257 units each in two blocks of 256,
+    on the same plan otherwise, so no width is refused by the plan and what
+    bounds it is the card's memory (a pair at H = 40,000 holds 38.4 GB of
+    wh, as much of dwh's partials and as much of dwh: beyond an 80 GB card).
+    From 8,449 a pair's CTAs hold 256."""
     for backward in (False, True):
         for B_ in (1, 128):
             p = grid_plan(n_dir, 1, B_, widest, backward)
             assert (p["ctas"], p["units_padded"], p["split"]) == (132 // n_dir, 256, 1)
             assert not p["resident"] and p["smem"] <= GRID_MAX_SMEM
-            with pytest.raises(ValueError, match="no grid plan"):
-                grid_plan(n_dir, 1, B_, widest + 1, backward)
+            q = grid_plan(n_dir, 1, B_, widest + 1, backward)
+            assert (q["ctas"], q["units"], q["units_padded"]) == (132 // n_dir, 257, 256)
+            assert {k: v for k, v in q.items() if k != "units"} == {
+                k: v for k, v in p.items() if k != "units"}
+            far = grid_plan(n_dir, 1, B_, 40000, backward)
+            assert far["units"] == -(-40000 // (132 // n_dir)) and far["smem"] == p["smem"]
+    assert 3 * (2 * 3 * 40000 ** 2 * 4) > 80e9
     assert grid_plan(2, 1, 1, 8448, False)["units_padded"] == 128
     assert grid_plan(2, 1, 1, 8449, False)["units_padded"] == 256
 

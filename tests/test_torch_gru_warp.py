@@ -139,8 +139,8 @@ def test_gru_body_by_hidden_width(H_, forward, backward):
 
 def test_gru_body_rejects_widths_no_body_takes():
     """Every positive width has a body; only H <= 0 raises here. (The grid
-    body's launch refuses shapes wider than its plan holds, a pair above
-    H = 16,896: tests/test_torch_gru_grid.py.)"""
+    body has a plan at every width: above 256 units a CTA, a pair above
+    H = 16,896, its CTAs walk their units in blocks; tests/test_torch_gru_grid.py.)"""
     assert gru_body(1) == "warp"
     for h, bwd, body in ((128, False, "wide"), (129, False, "cluster"), (65, True, "wide"),
                          (4096, True, "grid")):

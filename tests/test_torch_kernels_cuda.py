@@ -289,6 +289,38 @@ def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, re
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
 
 
+@pytest.mark.parametrize("B,T,H", [(3, 100, 33), (128, 64, 128), (5, 70, 257), (64, 256, 1024)])
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_mma_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, reset_after):
+    """csrc/gru_dwh.cu (3xTF32 on the tensor cores, split-K, fixed-order
+    sum) on a pair's stored rows and its own dxp: dwh/dbh within 1e-4 of the
+    largest entry of `gru_dwh_plain`, two runs bitwise equal, one launch of
+    the reduction and of the sum; the card's split count is the Python
+    mirror's. At H = 1024 one split walks all 16,384 rows, where a single
+    tensor-core accumulator drifts out of the band."""
+    from sed_crnn_torch.ops.kernels.gru_scan import _dwh_lib, dwh_split_plan
+
+    assert _dwh_lib().gru_dwh_splits(B, T, H) == dwh_split_plan(B, T, H)[0]
+    xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 130 + H)
+    pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, "sigmoid")
+    ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
+    before = (gru_scan_bwd.dwh_launches, gru_scan_bwd.mma_dwh_launches,
+              gru_scan_bwd.sum_launches)
+    first = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, "sigmoid")
+    assert (gru_scan_bwd.dwh_launches, gru_scan_bwd.mma_dwh_launches,
+            gru_scan_bwd.sum_launches) == tuple(b + 1 for b in before)
+    second = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, "sigmoid")
+    torch.cuda.synchronize()
+    for k, rev in enumerate((False, True)):
+        dxp, dwh, dbh, _ = first[k]
+        want_dwh, want_dbh = gru_dwh_plain(ys[k], res[k], h0[k], dxp, reset_after, rev)
+        torch.testing.assert_close(dwh, want_dwh, rtol=0,
+                                   atol=1e-4 * float(want_dwh.abs().max()))
+        torch.testing.assert_close(dbh, want_dbh, rtol=0,
+                                   atol=1e-4 * max(float(want_dbh.abs().max()), 1e-6))
+        assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
+
+
 WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256, 512, 520, 768, 1024, 1536, 2048]
 
 
@@ -382,21 +414,29 @@ def test_grid_body_gives_the_same_bits_at_every_k(cuda, H, B, reset_after):
 
 @pytest.mark.parametrize("n_dir", [1, 2])
 def test_grid_plan_refuses_what_a_cta_cannot_hold(cuda, n_dir):
-    """The card's plan is the Python mirror's at the widest width (256 units
-    a CTA on every CTA a direction gets) and refuses one unit more, as a
-    forced K that leaves more than 256 units a CTA."""
+    """The card's plan is the Python mirror's at the widest width of one
+    block of 256 units a CTA on every CTA a direction gets, one unit wider
+    (two blocks a CTA: nothing is refused for width any more), and at a
+    forced K that leaves more than 256 units a CTA; that forced K walks its
+    units in blocks and gives the rule's bits, forward and backward chain."""
     from sed_crnn_torch.ops.kernels.gru_scan import grid_plan, grid_plan_card
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     widest = sms // n_dir * 256
     for backward in (False, True):
-        assert grid_plan_card(n_dir, 1, 8, widest, backward) == grid_plan(
-            n_dir, 1, 8, widest, backward, sms=sms)
-        for H, k in ((widest + 1, 0), (520, 2)):
-            with pytest.raises(RuntimeError, match="no grid plan"):
-                grid_plan_card(n_dir, 1, 8, H, backward, ctas=k)
-            with pytest.raises(ValueError, match="no grid plan"):
-                grid_plan(n_dir, 1, 8, H, backward, ctas=k, sms=sms)
+        for H, k in ((widest, 0), (widest + 1, 0), (520, 2)):
+            assert grid_plan_card(n_dir, 1, 8, H, backward, ctas=k) == grid_plan(
+                n_dir, 1, 8, H, backward, ctas=k, sms=sms)
+    xp, wh, bh, h0, dys, dhl = _gru_case(cuda, 3, 6, 520, True, 17)
+    outs = {}
+    for k in (0, 2):
+        fwd, _ = _fwd([xp] * n_dir, [wh] * n_dir, [bh] * n_dir, [h0] * n_dir,
+                      (False, True)[:n_dir], True, "sigmoid", True, "grid", None, k)
+        bwd = _bwd([f[0] for f in fwd], [f[1] for f in fwd], [wh] * n_dir, [h0] * n_dir,
+                   [dys] * n_dir, [dhl] * n_dir, (False, True)[:n_dir], True, "sigmoid", "grid",
+                   None, k)
+        outs[k] = [t for f, b in zip(fwd, bwd) for t in f + b]
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[2]))
 
 
 @pytest.mark.parametrize("H", [8, 32])

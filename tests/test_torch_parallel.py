@@ -231,7 +231,11 @@ def _ranks(payload):
 
     out["counts"] = dict(mesh_mod.counts)
 
-    # a collective that rank 1 never joins fails rank 0 within its timeout
+    # a collective that rank 1 never joins fails rank 0 within its timeout.
+    # The group's own rendezvous is bound by that timeout too, so both ranks
+    # first meet on the long-timeout group: the work above ends at different
+    # times on each rank, by more than 3 s on a loaded host.
+    mesh_mod.barrier(mesh)
     short = dist.new_group([0, 1], timeout=datetime.timedelta(seconds=3), backend="gloo")
     t0 = time.monotonic()
     if r == 0:
