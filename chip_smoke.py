@@ -97,31 +97,34 @@ exits non-zero and prints no result line:
     at n_fft 1034 / hop 517 (exact route, 11 and a matrix stage of 47),
     1764 / 882 (chunked, direct), 3072 / 1024 (framed, direct), 1001 / 500
     (exact, 7, 11, 13), 1102 / 551 (matrix stages 19, 29), 12865 / 6432
-    and 23042 / 11521 (matrix stages) on those signals, with and without a
-    floor: against `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL
-    with matrix stages), two runs bitwise equal, within 5e-4 of the DIF /
-    direct plain version (torch's FFT + mel above 4096) with the -inf
-    pattern equal, and on a frame matrix; its times on 150 s of padded
+    (matrix stages), 23042 / 11521 (a matrix stage of 41, a Rader stage of
+    281), and the Rader plans 12867 / 6433 (3, Rader 4289), 23054 / 11527
+    (Rader 11527) and 1103 / 551 (Rader 1103) on those signals, with and
+    without a floor: against `mixed_log_mel_plain` (bitwise, or within
+    MATRIX_ATOL with matrix stages), two runs bitwise equal, within 5e-4 of
+    the DIF / direct plain version (torch's FFT + mel above 4096) with the
+    -inf pattern equal, and on a frame matrix; its times on 150 s of padded
     audio (warm and cold L2, device and host) beside ``torch.stft`` + mel,
-    both plain versions and the bound; both plans in turns at the sizes
-    that were Bluestein; ``frontend.extract`` at n_fft 1034 with exactly
-    one mixed launch and no cluster launch;
+    its Bluestein plan in turns, both plain versions and the bound; every
+    plan in turns at the sizes that were Bluestein; ``frontend.extract`` at
+    n_fft 1034 with exactly one mixed launch and no cluster launch;
     then ([kernel A cluster]) the cluster body ``csrc/logmel_cluster.cu``
     (every n_fft beyond one block's shared memory): the clusters the card
-    holds at 227 KB a CTA for every size to 16; n_fft 12867 / 6433
-    (Bluestein, exact route), 23054 / 11527 (Bluestein), 44100 / 22050 and
-    48000 / 24000 (direct, chunked) and 88200 / 44100 (3 CTAs) on those
-    signals, with and without a floor: bitwise against
-    `mixed_log_mel_plain`, two runs bitwise equal, within 5e-4 of torch's
-    FFT + mel with the -inf pattern equal; the same bits at other
-    cluster sizes (12867 at 2-16 CTAs, 44100 at 2, 3, 4, 7, 88200 at 3-12)
-    and the mixed body's shapes forced onto it at 2, 3, 4 and 8 CTAs,
-    bitwise the mixed body's (plans with matrix stages refused, their
-    Bluestein plans run instead); times on 150 s of padded audio (warm and
-    cold L2, device and host) beside ``torch.stft`` + mel, the plain
-    version and the bound, and 88200 at 3 and 4 CTAs and 141000 at 7 and 8
-    in turns; ``frontend.extract`` of the 120 s file at 12867 (exact) and
-    44100 (chunked), exactly one cluster launch each;
+    holds at 227 KB a CTA for every size to 16; n_fft 25734 / 12867 (3,
+    Rader 4289, exact route), 31290 / 15645 (a matrix stage of 149), 44100
+    / 22050 and 48000 / 24000 (direct, chunked), 88200 / 44100 (3 CTAs)
+    and 12895 / 6447 (Bluestein, exact route) on those signals, with and
+    without a floor: against
+    `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL), two runs
+    bitwise equal, within 5e-4 of torch's FFT + mel with the -inf pattern
+    equal; the same bits at other cluster sizes (25734 at 2-16 CTAs, 44100
+    at 2, 3, 4, 7, 88200 at 3-12) and the mixed body's shapes (register,
+    matrix and Rader plans) forced onto it at 2, 3, 4 and 8 CTAs, bitwise
+    the mixed body's; times on 150 s of padded audio (warm and cold L2,
+    device and host) beside ``torch.stft`` + mel, the plain version, the
+    bound and every other plan in turns, and 88200 at 3 and 4 CTAs and
+    141000 at 7 and 8 in turns; ``frontend.extract`` of the 120 s file at
+    25734 (exact) and 44100 (chunked), exactly one cluster launch each;
 12. the feature path: a synthetic DCASE 2017 street layout (12 binaural
     120 s wavs at 44.1 kHz and one 20 s wav at 48 kHz, folds 1 and 2) through
     ``apps.feature.main --binmul --backend kernel --device cuda``: exactly 2
@@ -2071,22 +2074,26 @@ def phase_logmel_routes(pcm: np.ndarray):
 # The mixed body's shapes (n_fft, hop, route): L 517 = 11 x 47 (a matrix
 # stage of 47), direct at L 882 and 1536, L 1001 = 7 x 11 x 13 (register
 # radices), L 551 = 19 x 29 (two matrix stages), L 12865 = 5 x 31 x 83 and
-# 11521 = 41 x 281 (matrix stages; the cluster body's Bluestein sizes
-# before their direct plans fitted one block).
+# 11521 = 41 x 281 (matrix stages, and a Rader stage of 281), and the Rader
+# plans: L 12867 = 3 x 4289 and 11527 (prime), the cluster body's Bluestein
+# sizes before Rader stages fitted them in one block, and 1103 (prime, a 25
+# ms window at 44.1 kHz).
 MIXED_SHAPES = ((1034, 517, "exact"), (1764, 882, "chunked"), (3072, 1024, "framed"),
                 (1001, 500, "exact"), (1102, 551, "exact"), (12865, 6432, "exact"),
-                (23042, 11521, "exact"))
-# A plan with matrix stages against `mixed_log_mel_plain` (whose matrix
-# product is float64, rounded once): three TF32 products with float32 sums
-# come within about 2^-21 of a butterfly's inputs, not bitwise, so a band
-# far below its frame's peak (12 nats at 1034) moves by that over its
-# share: 4.2e-5 at most on the card over every shape and signal here
-# (PERF.md §6), held at 1e-4; LOGMEL_ATOL is the ceiling.
+                (23042, 11521, "exact"), (12867, 6433, "exact"), (23054, 11527, "exact"),
+                (1103, 551, "exact"))
+# A plan with matrix stages (a Rader stage's inner ones too) against
+# `mixed_log_mel_plain` (whose matrix product is float64, rounded once):
+# three TF32 products with float32 sums come within about 2^-21 of a
+# butterfly's inputs, not bitwise, so a band far below its frame's peak (12
+# nats at 1034) moves by that over its share: 5.7e-5 at most on the card
+# over every shape and signal here (PERF.md §6), held at 1e-4; LOGMEL_ATOL
+# is the ceiling.
 MATRIX_ATOL = 1e-4
 # The sizes whose plan was Bluestein before matrix stages, timed with each
-# plan in turns (direct on the mixed body; Bluestein on the mixed body, or
-# the cluster body where it does not fit one block); 23044 (L 2 x 7 x 823,
-# a matrix stage of 823, against Bluestein on the cluster body).
+# of their plans in turns (matrix, Rader and Bluestein, each on the body it
+# fits); 23044 (L 2 x 7 x 823: a Rader stage of 823 against a matrix stage
+# of 823 and Bluestein on the cluster body).
 PLAN_TURNS = ((1034, 517), (1102, 551), (12865, 6432), (23042, 11521), (23044, 11522))
 TPU_LOGMEL_SITES = ", ".join(f"sed_crnn_tpu/ops/pallas/fused_logmel.py:{line}"
                              for line in (173, 162, 264))
@@ -2094,8 +2101,18 @@ TPU_LOGMEL_SITES = ", ".join(f"sed_crnn_tpu/ops/pallas/fused_logmel.py:{line}"
 
 def _plan_text(plan) -> str:
     """A plan as the timed lines print it."""
-    return (f"{'Bluestein' if plan.bluestein else 'direct'} L {plan.points}, N {plan.n}, "
-            f"radices {plan.radices}, matrix stages {plan.matrix or 'none'}")
+    text = (f"{'Bluestein' if plan.bluestein else 'direct'} L {plan.points}, N {plan.n}, "
+            f"radices {plan.radices}, stages {'/'.join(plan.kinds) or 'none'}")
+    if plan.rader:
+        text += f", Rader {plan.rader_prime} over {plan.rader}"
+    return text
+
+
+def _plain_tolerance(plan):
+    """The tolerance against `mixed_log_mel_plain` and its reason."""
+    if plan.tensor_cores:
+        return MATRIX_ATOL, "TF32 x3 matrix stages against a float64 product"
+    return 0.0, "bitwise: the same float32 operations"
 
 
 def _check_plain_bits(tag: str, got, plain, plan) -> float:
@@ -2104,7 +2121,7 @@ def _check_plain_bits(tag: str, got, plain, plan) -> float:
     returns max|diff| at finite entries (0 when bitwise)."""
     import torch
 
-    if not plan.matrix:
+    if not plan.tensor_cores:
         check(torch.equal(got, plain), f"{tag}: not bitwise equal to mixed_log_mel_plain")
         return 0.0
     fin = torch.isfinite(plain)
@@ -2115,26 +2132,71 @@ def _check_plain_bits(tag: str, got, plain, plan) -> float:
     return err
 
 
+# The plans forced beside a size's own in turns (`mixed_plan` keywords).
+FORCED_PLANS = {"bluestein": {"plan": "bluestein"}, "direct": {"plan": "direct"},
+                "rader": {"plan": "rader"}}
+
+
+def _plan_turns(src, hop: int, n_frames: int, n_fft: int, cfg, check_bits: bool = True) -> dict:
+    """The size's own plan and every other plan it has (Bluestein, direct
+    without and with a Rader stage), each on the body it fits (the mixed
+    body where one block holds it, else the cluster body), each checked
+    against `mixed_log_mel_plain` forced alike, then timed in turns (own,
+    others, others reversed, own): {label: {"plan", "body", "ms"}}."""
+    from sed_crnn_torch.ops.kernels.fused_logmel import (
+        MIXED_MAX_SMEM,
+        _launch_cluster,
+        _launch_mixed,
+        mixed_log_mel_plain,
+        mixed_plan,
+    )
+
+    own = mixed_plan(n_fft)
+    plans = {"chosen": ({}, own)}
+    for label, kw in FORCED_PLANS.items():
+        try:
+            plan = mixed_plan(n_fft, **kw)
+        except ValueError:
+            continue
+        if all(plan != p for _, p in plans.values()):
+            plans[label] = (kw, plan)
+    fns, out = {}, {}
+    for label, (kw, plan) in plans.items():
+        where = "mixed" if plan.smem_bytes <= MIXED_MAX_SMEM else "cluster"
+        launch = _launch_mixed if where == "mixed" else _launch_cluster
+        fns[label] = lambda launch=launch, kw=kw: launch(src, hop, n_frames, n_fft, cfg, **kw)
+        if check_bits and label != "chosen":
+            _check_plain_bits(f"plans {n_fft}/{hop} {label}", fns[label](),
+                              mixed_log_mel_plain(src, cfg, **kw), plan)
+        out[label] = {"plan": _plan_text(plan), "body": where, "ms": []}
+    order = list(fns)
+    for label in order + order[::-1]:
+        out[label]["ms"].append(cuda_ms(fns[label], reps=10))
+    return out
+
+
+def _turns_text(turns: dict) -> str:
+    return "; ".join(f"{k} ({v['plan']}, {v['body']} body) {[round(t, 4) for t in v['ms']]} ms"
+                     for k, v in turns.items())
+
+
 def phase_logmel_mixed(pcm: np.ndarray):
-    """[kernel A mixed]: the mixed-radix / Bluestein body at `MIXED_SHAPES`
-    on phase 3's signals and a 1,500-sample one, with and without a floor:
-    against `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL with
-    matrix stages), two runs bitwise equal, within 5e-4 of the DIF / direct
-    plain version (torch's FFT + mel above n_fft 4096, where that version's
-    bases grow to gigabytes) with the -inf pattern equal, and on a frame
-    matrix; its times on 150 s of padded audio beside `torch.stft` + mel,
-    both plain versions and the bound; each `PLAN_TURNS` size with both
-    plans in turns; `frontend.extract` at n_fft 1034 with one mixed launch
-    and no cluster launch. Returns the mixed entry and its launches on that
-    `extract` run."""
+    """[kernel A mixed]: the mixed-radix / Rader / Bluestein body at
+    `MIXED_SHAPES` on phase 3's signals and a 1,500-sample one, with and
+    without a floor: against `mixed_log_mel_plain` (bitwise, or within
+    MATRIX_ATOL with matrix stages), two runs bitwise equal, within 5e-4 of
+    the DIF / direct plain version (torch's FFT + mel above n_fft 4096, where
+    that version's bases grow to gigabytes) with the -inf pattern equal, and
+    on a frame matrix; its times on 150 s of padded audio beside `torch.stft`
+    + mel, its Bluestein plan in turns, both plain versions and the bound;
+    each `PLAN_TURNS` size with every plan in turns; `frontend.extract` at
+    n_fft 1034 with one mixed launch and no cluster launch. Returns the mixed
+    entry and its launches on that `extract` run."""
     import torch
 
     from sed_crnn_torch.core.config import FrontendConfig
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import (
-        MIXED_MAX_SMEM,
-        _launch_cluster,
-        _launch_mixed,
         body,
         frame_source,
         fused_log_mel,
@@ -2186,9 +2248,10 @@ def phase_logmel_mixed(pcm: np.ndarray):
         check(counts["mixed"] == calls and counts["cluster"] == 0,
               f"mixed {n_fft}/{hop}: launches {counts} for {calls} calls")
         worst, worst_plain = max(worst, max(errs)), max(worst_plain, max(plain_errs))
-        versus = ("bitwise equal to mixed_log_mel_plain" if not plan.matrix else
+        atol, why = _plain_tolerance(plan)
+        versus = ("bitwise equal to mixed_log_mel_plain" if not plan.tensor_cores else
                   f"vs mixed_log_mel_plain max|diff| {max(plain_errs):.3g} (tolerance "
-                  f"{MATRIX_ATOL:g}, matrix stages)")
+                  f"{atol:g}: {why})")
         print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind} route; {_plan_text(plan)}): "
               f"{len(signals)} signals x 2 floors + a {tuple(frames.shape)} frame matrix, "
               f"{versus}, bitwise run to run, vs the "
@@ -2219,16 +2282,23 @@ def phase_logmel_mixed(pcm: np.ndarray):
         bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
         measured = {}
         split = split_line(bnd, measured, kernel=kernel, library=lib)
+        src, _ = frame_source(yt, cfg)
+        turns = _plan_turns(src, hop, n_frames, n_fft, cfg, check_bits=False)
+        blue = turns.get("bluestein")
         point_stages = n_frames * plan.n * len(plan.radices) * (2 if plan.bluestein else 1)
         plain_text = (f"plain ({'direct' if route(len(y), cfg) == 'exact' else 'DIF'}) "
                       f"{plain:.4f} ms, " if small else "")
+        atol, why = _plain_tolerance(plan)
         print(f"[kernel A mixed] n_fft {n_fft} hop {hop} ({kind}; {_plan_text(plan)}), "
               f"{n_frames} frames ({len(y) / SR:.1f} s padded): kernel {ms:.4f} ms warm L2, "
               f"{cold:.4f} ms cold L2; torch.stft+mel {lib_ms:.4f} ms, x{lib_ms / ms:.2f} "
-              f"against it ({'faster' if ms <= lib_ms else 'slower'}); {plain_text}"
-              f"mixed_log_mel_plain {mixed_plain:.4f} ms (tolerance "
-              f"{MATRIX_ATOL if plan.matrix else 0.0:g}: max|diff| {plain_err:.3g}); bound "
-              f"{bnd:.4f} ms ({by}, rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, "
+              f"against it ({'faster' if ms <= lib_ms else 'slower'}); "
+              + (f"its Bluestein plan in turns {blue['ms']} ms (this plan "
+                 f"{turns['chosen']['ms']}, x"
+                 f"{np.mean(blue['ms']) / np.mean(turns['chosen']['ms']):.2f}); " if blue else "")
+              + f"{plain_text}mixed_log_mel_plain {mixed_plain:.4f} ms (tolerance {atol:g}, "
+              f"{why}: max|diff| {plain_err:.3g}); bound {bnd:.4f} ms ({by}, "
+              f"rFFT+power+sparse mel {flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB), kernel at {bnd / ms:.3f} of its bound; {point_stages:,} "
               f"frame-point-stages (frames x N x stages, x2 for Bluestein), "
               f"{ms * 1e9 / point_stages:.2f} ps each")
@@ -2237,35 +2307,22 @@ def phase_logmel_mixed(pcm: np.ndarray):
                         "host_ms": measured["kernel"][1], "plain_ms": plain,
                         "mixed_plain_ms": mixed_plain, "bound_ms": bnd, "bound_by": by,
                         "library_ms": lib_ms, "radices": list(plan.radices),
-                        "matrix": list(plan.matrix), "plain_atol": MATRIX_ATOL if plan.matrix
-                        else 0.0, "plain_max_abs_err": plain_err}
+                        "kinds": list(plan.kinds), "rader": list(plan.rader),
+                        "matrix": list(plan.matrix + plan.rader_matrix), "plain_atol": atol,
+                        "plain_atol_reason": why, "plain_max_abs_err": plain_err,
+                        "bluestein_ms": blue["ms"] if blue else None,
+                        "plan_ms": turns["chosen"]["ms"]}
 
-    # Both plans at the sizes that were Bluestein before matrix stages, in
-    # turns: direct (the mixed body) and Bluestein (the mixed body where it
-    # fits one block, else the cluster body); `mixed_plan` keeps the faster.
+    # Every plan of the sizes that were Bluestein before matrix stages, in
+    # turns (matrix, Rader, Bluestein, each on the body it fits);
+    # `mixed_plan` should keep the fastest.
     turns = {}
     for n_fft, hop in PLAN_TURNS:
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
         src, n_frames = frame_source(torch.from_numpy(bucket_signal(pcm, cfg)).to(dev), cfg)
-        blue = mixed_plan(n_fft, True)
-        blue_body = "mixed" if blue.smem_bytes <= MIXED_MAX_SMEM else "cluster"
-        fns = {"direct": lambda: _launch_mixed(src, hop, n_frames, n_fft, cfg, bluestein=False),
-               "bluestein": (lambda: _launch_mixed(src, hop, n_frames, n_fft, cfg, bluestein=True))
-               if blue_body == "mixed" else
-               (lambda: _launch_cluster(src, hop, n_frames, n_fft, cfg, bluestein=True))}
-        for k, forced in (("direct", False), ("bluestein", True)):
-            _check_plain_bits(f"plans {n_fft}/{hop} {k}", fns[k](),
-                              mixed_log_mel_plain(src, cfg, bluestein=forced),
-                              mixed_plan(n_fft, forced))
-        ms = {k: [] for k in fns}
-        for k in ("direct", "bluestein", "bluestein", "direct"):
-            ms[k].append(cuda_ms(fns[k], reps=10))
-        chosen = "bluestein" if mixed_plan(n_fft).bluestein else "direct"
-        turns[f"{n_fft}/{hop}"] = {"ms": ms, "chosen": chosen, "bluestein_body": blue_body}
-        print(f"[kernel A mixed] plans at n_fft {n_fft} hop {hop}, {n_frames} frames, in turns "
-              f"(direct, Bluestein, Bluestein, direct): direct {mixed_plan(n_fft, False).radices} "
-              f"on the mixed body {ms['direct']} ms; Bluestein {blue.radices} (M {blue.n}) on "
-              f"the {blue_body} body {ms['bluestein']} ms; mixed_plan picks {chosen}")
+        turns[f"{n_fft}/{hop}"] = _plan_turns(src, hop, n_frames, n_fft, cfg)
+        print(f"[kernel A mixed] plans at n_fft {n_fft} hop {hop}, {n_frames} frames, in turns: "
+              f"{_turns_text(turns[f'{n_fft}/{hop}'])}; mixed_plan picks the first")
 
     # The main path at a size the mixed body takes: `frontend.extract` of
     # the 120 s file at n_fft 1034 (neither a power of two nor a multiple of
@@ -2293,20 +2350,23 @@ def phase_logmel_mixed(pcm: np.ndarray):
     return mixed, launches["mixed"]
 
 
-# The cluster body's shapes (n_fft, hop): the first odd size beyond the mixed
-# body's limit (12867 = 3 x 4289: Bluestein, exact route), the first such
-# even one (23054, L 11527 prime: Bluestein, exact route), 1 s at 44.1
-# kHz and at 48 kHz (direct, chunked, 2 CTAs a frame) and 2 s at 44.1 kHz
-# (direct, 3 CTAs).
-CLUSTER_SHAPES = ((12867, 6433), (23054, 11527), (44100, 22050), (48000, 24000),
-                  (88200, 44100))
+# The cluster body's shapes (n_fft, hop): L 12867 = 3 x 4289 at an even
+# n_fft (25734: a Rader stage of 4289, exact route), L 15645 = 3 x 5 x 7 x
+# 149 (31290: a matrix stage of 149), 1 s at 44.1 kHz and at 48 kHz
+# (direct, chunked, 2 CTAs a frame), 2 s at 44.1 kHz (direct, 3 CTAs) and
+# 12895, the first odd n_fft beyond one block (L = 5 x 2579, 2578 = 2 x
+# 1289: Bluestein at M 25,920 over 2 CTAs, exact route).
+CLUSTER_SHAPES = ((25734, 12867), (31290, 15645), (44100, 22050), (48000, 24000),
+                  (88200, 44100), (12895, 6447))
 # Other splits of three of them, whose bits must be the default split's (4
-# CTAs do not divide 44100's N, so all its stages cross CTAs).
-CLUSTER_SPLITS = {12867: (2, 3, 4, 8, 16), 44100: (2, 3, 4, 7), 88200: (3, 4, 6, 12)}
+# CTAs do not divide 44100's N, so all its stages cross CTAs; at 25734 C 3
+# the Rader stage's inner stages cross, at 2, 4, 8 and 16 they do not).
+CLUSTER_SPLITS = {25734: (2, 3, 4, 8, 16), 44100: (2, 3, 4, 7), 88200: (3, 4, 6, 12)}
 # Sizes timed at two cluster sizes in turns: the smallest that holds the
 # plan (`cluster_size`) and one with fewer stages crossing CTAs.
 CLUSTER_TURNS = ((88200, 44100, 3, 4), (141000, 70500, 7, 8))
-# The mixed body's shapes forced onto the cluster body at these sizes.
+# The mixed body's shapes (register, matrix and Rader plans) forced onto
+# the cluster body at these sizes.
 CLUSTER_FORCED = (2, 3, 4, 8)
 
 
@@ -2338,16 +2398,16 @@ def phase_logmel_cluster(pcm: np.ndarray):
     cluster (``csrc/logmel_cluster.cu``), at every n_fft beyond one block's
     shared memory. The clusters the card holds at full shared memory, by
     size; at `CLUSTER_SHAPES` on phase 3's signals and a 1,500-sample one,
-    with and without a floor: bitwise `mixed_log_mel_plain`, twice, and
-    within 5e-4 of torch's FFT + mel (`_library_fft_log_mel`) with the -inf
-    pattern equal; at `CLUSTER_SPLITS` the same bits at every cluster size;
-    the mixed body's shapes forced onto the cluster body at `CLUSTER_FORCED`
-    sizes, bitwise the mixed body's (a plan with matrix stages refused, and
-    its Bluestein plan run instead, bitwise that plan's plain version);
-    times on 150 s of padded audio (warm and cold L2, device and host)
-    beside the bound, `torch.stft` + mel and the plain version;
-    `frontend.extract` of the 120 s file at 12867 (exact route) and
-    44100 (chunked), one cluster launch each and nothing else. Returns the
+    with and without a floor: against `mixed_log_mel_plain` (bitwise, or
+    within MATRIX_ATOL with matrix stages), twice bitwise, and within 5e-4
+    of torch's FFT + mel (`_library_fft_log_mel`) with the -inf pattern
+    equal; at `CLUSTER_SPLITS` the same bits at every cluster size; the mixed
+    body's shapes (register, matrix and Rader plans) forced onto the cluster
+    body at `CLUSTER_FORCED` sizes, bitwise the mixed body's; times on 150 s
+    of padded audio (warm and cold L2, device and host) beside the bound,
+    `torch.stft` + mel, the plain version and every other plan in turns;
+    `frontend.extract` of the 120 s file at 25734 (exact route) and 44100
+    (chunked), one cluster launch each and nothing else. Returns the
     kernels-line entry and the launches of those two `extract` runs."""
     import torch
 
@@ -2355,7 +2415,6 @@ def phase_logmel_cluster(pcm: np.ndarray):
     from sed_crnn_torch.ops import frontend
     from sed_crnn_torch.ops.kernels.fused_logmel import (
         CLUSTER_MAX,
-        MIXED_MAX_SMEM,
         _launch_cluster,
         _launch_mixed,
         body,
@@ -2376,12 +2435,13 @@ def phase_logmel_cluster(pcm: np.ndarray):
     check(all(n > 0 for n in resident.values()),
           f"the card refuses a cluster size the body may pick: {resident}")
     signals = _logmel_signals(FrontendConfig())
-    worst = 0.0
+    worst = worst_plain = 0.0
     for n_fft, hop in CLUSTER_SHAPES:
         check(body(n_fft) == "cluster", f"{n_fft}: the cluster body")
+        plan = mixed_plan(n_fft)
         sp = cluster_split(n_fft, cluster_size(n_fft))
         _reset_logmel_counts()
-        calls, errs = 0, []
+        calls, errs, plain_errs = 0, [], []
         for name, y, center in signals:
             yt = torch.from_numpy(y).to(dev)
             for floor in (None, 1e-10):
@@ -2391,8 +2451,7 @@ def phase_logmel_cluster(pcm: np.ndarray):
                 again = fused_log_mel(yt, cfg)
                 calls += 2
                 check(torch.equal(got, again), f"{tag}: two runs differ")
-                check(torch.equal(got, mixed_log_mel_plain(yt, cfg)),
-                      f"{tag}: not bitwise equal to mixed_log_mel_plain")
+                plain_errs.append(_check_plain_bits(tag, got, mixed_log_mel_plain(yt, cfg), plan))
                 errs.append(_check_logmel(f"{tag} vs torch.fft+mel", got,
                                           _library_fft_log_mel(yt, cfg)))
                 if name == "silence" and floor is None:
@@ -2400,49 +2459,34 @@ def phase_logmel_cluster(pcm: np.ndarray):
         counts = _logmel_counts()
         check(counts["cluster"] == calls and counts["mixed"] == 0,
               f"cluster {n_fft}/{hop}: launches {counts} for {calls} calls")
-        worst = max(worst, max(errs))
-        plan = mixed_plan(n_fft)
-        print(f"[kernel A cluster] n_fft {n_fft} hop {hop} "
-              f"({'Bluestein' if plan.bluestein else 'direct'} L {plan.points}, N {plan.n}, "
-              f"radices {plan.radices}; {sp.ctas} CTAs of {sp.smem_bytes:,} bytes, "
-              f"{sum(sp.cross)} of {len(sp.cross)} stages cross CTAs, each twice with "
-              f"Bluestein): {len(signals)} signals x 2 floors, bitwise equal to "
-              f"mixed_log_mel_plain and run to run, vs torch.fft+mel max|diff| at finite "
-              f"{max(errs):.3g}, -inf patterns equal; launches {counts}")
+        worst, worst_plain = max(worst, max(errs)), max(worst_plain, max(plain_errs))
+        atol, why = _plain_tolerance(plan)
+        versus = ("bitwise equal to mixed_log_mel_plain" if not plan.tensor_cores else
+                  f"vs mixed_log_mel_plain max|diff| {max(plain_errs):.3g} (tolerance "
+                  f"{atol:g}: {why})")
+        print(f"[kernel A cluster] n_fft {n_fft} hop {hop} ({_plan_text(plan)}; {sp.ctas} CTAs "
+              f"of {sp.smem_bytes:,} bytes, chunk {sp.chunk}, {sum(sp.cross)} of "
+              f"{len(sp.cross)} stages cross CTAs, each twice with Bluestein, "
+              f"{sum(sp.rader_cross)} of {len(sp.rader_cross)} Rader inner stages): "
+              f"{len(signals)} signals x 2 floors, {versus}, bitwise run to run, vs "
+              f"torch.fft+mel max|diff| at finite {max(errs):.3g}, -inf patterns equal; "
+              f"launches {counts}")
 
-    # The mixed body's shapes forced onto the cluster body, and other splits
-    # of the real sizes: the same bits. The cluster body has no matrix
-    # stage: it refuses such a plan, and runs that size's Bluestein plan.
+    # The mixed body's shapes (register, matrix and Rader plans) forced onto
+    # the cluster body, and other splits of the real sizes: the same bits.
     y30 = torch.from_numpy(signals[0][1]).to(dev)
-    refused = []
     for n_fft, hop, _ in MIXED_SHAPES:
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False)
         src, n_frames = frame_source(y30, cfg)
-        forced = None
-        if mixed_plan(n_fft).matrix:
-            try:
-                _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=2)
-                why = None
-            except ValueError as e:
-                why = str(e)
-            check(why is not None and "no matrix stage" in why,
-                  f"cluster body forced to {n_fft}/{hop}: a matrix stage was not refused")
-            refused.append(f"{n_fft} ({mixed_plan(n_fft).matrix})")
-            forced = True
-        plan = mixed_plan(n_fft, forced)
-        want = (_launch_mixed(src, hop, n_frames, n_fft, cfg, bluestein=forced)
-                if plan.smem_bytes <= MIXED_MAX_SMEM else
-                mixed_log_mel_plain(src, cfg, bluestein=forced))
+        want = _launch_mixed(src, hop, n_frames, n_fft, cfg)
         for c in CLUSTER_FORCED:
-            got = _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c, bluestein=forced)
+            got = _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c)
             check(torch.equal(got, want),
-                  f"cluster body forced to {n_fft}/{hop} ({plan.radices}) at C {c}: not the "
-                  f"mixed body's bits")
-    print(f"[kernel A cluster] the mixed body's shapes {[s[:2] for s in MIXED_SHAPES]} on the "
-          f"30 s bucket at C {CLUSTER_FORCED}: bitwise equal to the mixed body (or to the plain "
-          f"version where the plan does not fit one block); refused, as plans with matrix "
-          f"stages the cluster body does not have, and run by their Bluestein plans instead: "
-          f"{', '.join(refused) or 'none'}")
+                  f"cluster body forced to {n_fft}/{hop} ({_plan_text(mixed_plan(n_fft))}) at "
+                  f"C {c}: not the mixed body's bits")
+    print(f"[kernel A cluster] the mixed body's shapes {[s[:2] for s in MIXED_SHAPES]} "
+          f"(register, matrix and Rader plans) on the 30 s bucket at C {CLUSTER_FORCED}: "
+          f"bitwise equal to the mixed body")
     for n_fft, splits in CLUSTER_SPLITS.items():
         hop = dict(CLUSTER_SHAPES)[n_fft]
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
@@ -2462,21 +2506,30 @@ def phase_logmel_cluster(pcm: np.ndarray):
         n_frames = 1 + (len(y) - n_fft) // hop
         kernel = lambda: fused_log_mel(yt, cfg)  # noqa: E731
         lib = _library_logmel(yt, cfg)
-        check(torch.equal(kernel(), mixed_log_mel_plain(yt, cfg)), f"timed {n_fft}: not bitwise")
+        plan, sp = mixed_plan(n_fft), cluster_split(n_fft, cluster_size(n_fft))
+        plain_err = _check_plain_bits(f"timed {n_fft}", kernel(), mixed_log_mel_plain(yt, cfg),
+                                      plan)
         ms, cold = cuda_ms(kernel), cuda_ms_cold(kernel)
         lib_ms = cuda_ms(lib)
         plain = cuda_ms(lambda: mixed_log_mel_plain(yt, cfg), reps=2, warmup=1)
         bnd, by, flops, nbytes = logmel_bound(len(y), n_frames, cfg)
         measured = {}
         split = split_line(bnd, measured, kernel=kernel, library=lib)
-        plan, sp = mixed_plan(n_fft), cluster_split(n_fft, cluster_size(n_fft))
+        src, _ = frame_source(yt, cfg)
+        turns = _plan_turns(src, hop, n_frames, n_fft, cfg, check_bits=False)
+        blue = turns.get("bluestein")
         point_stages = n_frames * plan.n * len(plan.radices) * (2 if plan.bluestein else 1)
+        atol, why = _plain_tolerance(plan)
         print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {n_frames} frames "
               f"({len(y) / SR:.1f} s padded; {_plan_text(plan)}), C {sp.ctas}: kernel "
               f"{ms:.4f} ms warm L2, {cold:.4f} ms cold L2; torch.stft+mel {lib_ms:.4f} ms "
               f"(x{lib_ms / ms:.2f}, {'faster' if ms <= lib_ms else 'slower'}); "
-              f"mixed_log_mel_plain {plain:.4f} ms (tolerance 0: bitwise); bound {bnd:.4f} ms "
-              f"({by}, rFFT+power+sparse "
+              + (f"its Bluestein plan in turns {blue['ms']} ms (this plan "
+                 f"{turns['chosen']['ms']}, x"
+                 f"{np.mean(blue['ms']) / np.mean(turns['chosen']['ms']):.2f}); " if blue else "") +
+              f"other plans in turns: {_turns_text(turns)}; "
+              f"mixed_log_mel_plain {plain:.4f} ms (tolerance {atol:g}, {why}: max|diff| "
+              f"{plain_err:.3g}); bound {bnd:.4f} ms ({by}, rFFT+power+sparse "
               f"mel {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), kernel at {bnd / ms:.4f} of "
               f"its bound; {point_stages:,} frame-point-stages, {ms * 1e9 / point_stages:.2f} ps "
               f"each")
@@ -2484,7 +2537,12 @@ def phase_logmel_cluster(pcm: np.ndarray):
         timed[n_fft] = {"ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
                         "host_ms": measured["kernel"][1], "plain_ms": plain, "bound_ms": bnd,
                         "bound_by": by, "library_ms": lib_ms, "ctas": sp.ctas,
-                        "cross_stages": sum(sp.cross), "stages": len(sp.cross)}
+                        "cross_stages": sum(sp.cross), "stages": len(sp.cross),
+                        "radices": list(plan.radices), "kinds": list(plan.kinds),
+                        "rader": list(plan.rader), "plain_atol": atol, "plain_atol_reason": why,
+                        "plain_max_abs_err": plain_err,
+                        "bluestein_ms": blue["ms"] if blue else None,
+                        "plan_ms": turns["chosen"]["ms"]}
     by_c = {}
     for n_fft, hop, small, other in CLUSTER_TURNS:
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
@@ -2498,11 +2556,11 @@ def phase_logmel_cluster(pcm: np.ndarray):
         print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {n_frames} frames, by cluster "
               f"size in turns [C, stages crossing, ms]: {turns}")
 
-    # The main path: `frontend.extract` of the 120 s file at 12867 (odd: the
-    # exact route) and at 44100 (hop n_fft / 2: the chunked route), against
-    # the fft backend.
+    # The main path: `frontend.extract` of the 120 s file at 25734 (n_fft %
+    # 4 = 2: the exact route, a Rader stage) and at 44100 (hop n_fft / 2: the
+    # chunked route), against the fft backend.
     launches = 0
-    for n_fft, hop, kind in ((12867, 6433, "exact"), (44100, 22050, "chunked")):
+    for n_fft, hop, kind in ((25734, 12867, "exact"), (44100, 22050, "chunked")):
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, backend="kernel")
         _reset_logmel_counts()
         got = frontend.extract(pcm, cfg, device=dev)
@@ -2519,12 +2577,12 @@ def phase_logmel_cluster(pcm: np.ndarray):
               f"at n_fft {n_fft} hop {hop}: {tuple(got.shape)}, launches {counts}, vs the fft "
               f"backend max|diff| {err:.3g}")
     print(f"[kernel A cluster] phase in {time.perf_counter() - t0:.1f} s")
-    main = timed[12867]
+    main = timed[25734]
     entry = {"name": "fused_logmel_cluster", "route": "cuda",
              "source": "sed_crnn_torch/csrc/logmel_cluster.cu", "replaces": TPU_LOGMEL_SITES,
-             "max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                            "bound_by", "library_ms")},
-             "shape": "n_fft 12867 hop 6433, 150 s padded",
+             "max_abs_err": worst, "plain_max_abs_err": worst_plain,
+             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+             "shape": "n_fft 25734 hop 12867, 150 s padded",
              "shapes": {f"{n}/{h}": timed[n] for n, h in CLUSTER_SHAPES},
              "ms_by_ctas": by_c}
     return entry, launches
@@ -5274,7 +5332,8 @@ def phase_gru_dwh(parent_wide: str = "") -> dict:
     too) and, where ``parent_wide`` names an older csrc/gru_wide.cu, that
     file's FMA reduction and sum (held to the plain version as well);
     beside the plain version's time and the bound. At DWH_WARP_H the kernel
-    in turns with the warp body's reduction, the one that width runs.
+    in turns with the warp body's reduction, the one that width runs, and
+    the library call.
     Returns the kernels line's entry for csrc/gru_dwh.cu (its launches are
     counted on the [kernel B wide] paths)."""
     import torch
@@ -5324,12 +5383,11 @@ def phase_gru_dwh(parent_wide: str = "") -> dict:
                                                    for x, y in zip(g, w)))
                 del first, got
             fns = {name: total for name, (_, total, _) in paths.items()}
-            if H > DWH_WARP_H:
-                fns["library"], lib_dwh = _dwh_library(ops, reset_after)
-                line["library_rel_err"] = max(
-                    _rel_err((g,), (w[0],), f"{tag} torch.matmul dir {k}", ("dwh",))
-                    for k, (g, w) in enumerate(zip(lib_dwh, want)))
-                del lib_dwh
+            fns["library"], lib_dwh = _dwh_library(ops, reset_after)
+            line["library_rel_err"] = max(
+                _rel_err((g,), (w[0],), f"{tag} torch.matmul dir {k}", ("dwh",))
+                for k, (g, w) in enumerate(zip(lib_dwh, want)))
+            del lib_dwh
             order = ("kernel", "library", "parent", "warp")
             turns = {k: [] for k in fns}
             for name in order + order[::-1]:

@@ -11,25 +11,33 @@
 // the frame stride picks the source.
 //
 // The plan is the mixed body's (ops/kernels/fused_logmel.py `mixed_plan`):
-// the same radices (register radices 2-13; a plan with a matrix stage is
-// refused: `mixed_plan` gives one only where it fits one block, else
-// Bluestein), twiddle tables, Bluestein chirp and filter spectrum, untangle
-// and lane order of the mel sums, and the same operations from
-// csrc/logmel_stages.cuh, so the result is bitwise `_mixed_plain`'s whatever
-// the cluster size C. One cluster of C CTAs owns one frame: CTA c holds
-// points [c chunk, (c + 1) chunk) of the N-point work array (chunk =
-// ceil(N / C)) and bins [c bin_chunk, (c + 1) bin_chunk) of the power row in
-// its own shared memory, and reaches its partners' through distributed
-// shared memory (`cluster.map_shared_rank`): point p lives in CTA p / chunk
-// at offset p % chunk.
+// the same radices (register radices 2-13, matrix stages for wider primes,
+// a Rader stage last for the largest prime, or Bluestein), twiddle and
+// value tables, Rader gather and filter spectrum, Bluestein chirp and filter
+// spectrum, untangle and lane order of the mel sums, and the same operations
+// from csrc/logmel_stages.cuh, so the result is the mixed body's bits (and
+// `_mixed_plain`'s, or within its band with matrix stages) whatever the
+// cluster size C. One cluster of C CTAs owns one frame: CTA c holds points
+// [c chunk, (c + 1) chunk) of the N-point work array (and of the second one
+// that matrix and Rader stages write out of place; chunk = ceil(N / C), or
+// whole inner transforms of a Rader stage) and bins [c bin_chunk, (c + 1)
+// bin_chunk) of the power row in its own shared memory, and reaches its
+// partners' through distributed shared memory (`cluster.map_shared_rank`):
+// point p lives in CTA p / chunk at offset p % chunk.
 //
 // A stage on sub-transforms of length ls whose span lies inside one CTA's
 // chunk (chunk % ls == 0) runs each CTA's own butterflies on its own points
 // between block barriers; a stage with a longer span (the first DIF stages,
 // the last transposed ones) splits its butterflies evenly over the CTAs,
 // which read and write each other's points, between cluster barriers
-// (barrier.cluster arrive.release / wait.acquire). A barrier is
-// cluster-wide when the phase before it or after it reaches another CTA.
+// (barrier.cluster arrive.release / wait.acquire). A matrix stage splits
+// its butterflies the same way and reads and writes through the same
+// accessors (a row of its mma products is one butterfly's, whatever the
+// other rows: the mixed body's bits). A Rader stage's gather and pointwise
+// product always cross CTAs (x_0 and X_0 sit in the tails); its inner
+// stages cross as the outer ones do, by their sub-transform length. A
+// barrier is cluster-wide when the phase before it or after it reaches
+// another CTA.
 // The power of a bin reads its spectrum points anywhere in the cluster; the
 // mel sum of a band runs on a warp of its own in the CTA that holds its
 // middle bin, lane l adding the band's bins l, l + 32, ... in bin order
@@ -45,13 +53,17 @@
 // barriers of the stages that cross CTAs. A band's mel sum, up to 4,019
 // bins at n_fft 44,100, was one serial chain of adds on one lane and took
 // about half the time at one-second windows; over 32 lanes it takes ~6 %
-// (sed_crnn_torch/tools/logmel_phases.py splits the time by phase). Radices
-// 11 and 13 run in the wide instantiation (512 threads a CTA at most, up to
-// 128 registers a thread), the others in the radix-7 one. Every product
-// and sum is an
-// explicitly rounded float32 operation (no FMA contraction) on tables
-// computed in float64 and rounded once on the host: bitwise the same from
-// run to run and at every C.
+// (sed_crnn_torch/tools/logmel_phases.py splits the time by phase). With a
+// Rader stage the transform is two p - 1 point transforms a butterfly,
+// O(p log p), in place of Bluestein's two of M >= 2L - 1 points: at n_fft
+// 25,734 the frame takes 2 CTAs either way and the Rader plan 0.63 ms to
+// Bluestein's 0.83 (PERF.md §6). Radices 11 and 13 run in the wide
+// instantiations (512 threads a CTA at most, up to 128 registers a thread),
+// matrix and Rader stages in the wide instantiation with two work arrays,
+// the others in the radix-7 one. Every product and sum outside the matrix
+// stages is an explicitly rounded float32 operation (no FMA contraction) on
+// tables computed in float64 and rounded once on the host: bitwise the same
+// from run to run and at every C.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -68,6 +80,7 @@ namespace {
 
 using logmel::MAX_STAGES;
 using logmel::Plan;
+using logmel::Tables;
 
 constexpr int MAX_THREADS = 1024;
 constexpr int WIDE_THREADS = 512;       // the instantiation with radices 11 and 13
@@ -78,7 +91,9 @@ constexpr int NO_CLUSTER_FITS = -1;     // status: the card holds no cluster of 
 
 // Profiling cuts, for sed_crnn_torch/tools/logmel_phases.py only
 // (the results are then wrong): built with -DLOGMEL_CLUSTER_CUT=1 the body
-// leaves out the mel sums, with 2 also the bins' power, with 3 also the FFT
+// leaves out the mel sums, with 2 also the bins' power, with 3 also the
+// matrix stages (a Rader stage's inner ones too), with 4 also the Rader
+// stage (gather, inner register stages, product), with 5 also the register
 // stages. 0, the default, cuts nothing.
 #ifndef LOGMEL_CLUSTER_CUT
 #define LOGMEL_CLUSTER_CUT 0
@@ -89,9 +104,10 @@ constexpr int CUT = LOGMEL_CLUSTER_CUT;
 // the launcher).
 struct Split {
   int ctas;         // C
-  int chunk;        // work-array points a CTA: ceil(N / C)
+  int chunk;        // work-array points a CTA: ceil(N / C), of each work array
   int bin_chunk;    // power-row bins a CTA: ceil(n_bins / C)
   unsigned cross;   // bit s: stage s (DIF s, and its transposed twin) reaches other CTAs
+  unsigned rcross;  // bit s: the Rader stage's inner stage s (and its twin) does
 };
 
 // `Spread`: point p of the cluster's work array, in CTA p / chunk.
@@ -114,25 +130,86 @@ __device__ __forceinline__ void phase_barrier(bool cross) {
   }
 }
 
-// One stage on either side of the split: a crossing stage's butterflies
-// evenly over the CTAs, on points anywhere in the cluster; any other
-// stage's own butterflies, on its own points.
+// Where a stage runs: this CTA's rank c of C, its points [lo, hi) of each
+// work array (chunk a CTA), and its threads.
+struct Part {
+  int c, C, chunk, lo, hi, lt, nt;
+};
+
+// One register stage on either side of the split, on an array of `count`
+// points (N the length of the twiddle table tw): a crossing stage's
+// butterflies evenly over the CTAs, on points anywhere in the cluster; any
+// other stage's own butterflies, on its own points.
 template <bool TRANSPOSED, bool WIDE>
-__device__ __forceinline__ void split_stage(int radix, bool cross, Spread all,
-                                            logmel::Shifted own, int N, int ls, int c, int C,
-                                            int lo, int hi, int lt, int nt,
+__device__ __forceinline__ void split_stage(int radix, bool cross, float2* z, const Part& q,
+                                            int N, int count, int ls,
                                             const float2* __restrict__ tw) {
-  const int nb = N / radix;
+  const int nb = count / radix;
   if (cross) {
-    const int per = (nb + C - 1) / C;
-    logmel::run_stage<TRANSPOSED, WIDE>(radix, all, N, ls, min(nb, c * per),
-                                        min(nb, (c + 1) * per), lt, nt, tw);
+    const int per = (nb + q.C - 1) / q.C;
+    logmel::run_stage<TRANSPOSED, WIDE>(radix, Spread{z, q.chunk}, N, ls, min(nb, q.c * per),
+                                        min(nb, (q.c + 1) * per), q.lt, q.nt, tw);
   } else {
-    logmel::run_stage<TRANSPOSED, WIDE>(radix, own, N, ls, lo / radix, hi / radix, lt, nt, tw);
+    logmel::run_stage<TRANSPOSED, WIDE>(radix, logmel::Shifted{z, q.lo}, N, ls,
+                                        min(q.lo, count) / radix, min(q.hi, count) / radix,
+                                        q.lt, q.nt, tw);
   }
 }
 
-template <bool BLUE, bool WIDE>
+// One matrix stage on either side of the split, from z into zo (the same
+// butterflies as `split_stage` takes; each butterfly's products the same
+// mma sequence wherever it runs, so the mixed body's bits).
+template <bool TRANSPOSED>
+__device__ __forceinline__ void split_matrix(int radix, bool cross, float2* z, float2* zo,
+                                             const Part& q, int N, int count, int ls,
+                                             const float* __restrict__ table,
+                                             const float2* __restrict__ tw) {
+  const int nb = count / radix;
+  if (cross) {
+    const int per = (nb + q.C - 1) / q.C;
+    logmel::run_matrix_stage<TRANSPOSED, 4>(Spread{z, q.chunk}, Spread{zo, q.chunk}, N, radix, ls,
+                                     min(nb, q.c * per), min(nb, (q.c + 1) * per), q.lt, q.nt,
+                                     table, tw);
+  } else {
+    logmel::run_matrix_stage<TRANSPOSED, 4>(logmel::Shifted{z, q.lo}, logmel::Shifted{zo, q.lo}, N,
+                                     radix, ls, min(q.lo, count) / radix,
+                                     min(q.hi, count) / radix, q.lt, q.nt, table, tw);
+  }
+}
+
+// A Rader stage's inner p - 1 point transforms across the cluster (steps 2
+// and 4 of the Rader stage in csrc/logmel_stages.cuh), forward or
+// transposed in reverse order, on `cur` (a matrix stage writes `oth` and
+// the two swap), each stage behind the barrier its crossing asks for.
+template <bool TRANSPOSED, bool WIDE>
+__device__ __forceinline__ void rader_inner(const Plan& plan, unsigned rcross, float2*& cur,
+                                            float2*& oth, int p, int Np, const Part& q,
+                                            const float2* rtw, const float* dft,
+                                            bool& cross_before) {
+  int ls = TRANSPOSED ? 1 : p - 1;
+  for (int i = 0; i < plan.rader_stages; ++i) {
+    const int s = TRANSPOSED ? plan.rader_stages - 1 - i : i;
+    const int r = plan.rader_radix[s];
+    if (TRANSPOSED) ls *= r;
+    const bool cross = (rcross >> s) & 1u;
+    phase_barrier(cross_before || cross);
+    cross_before = cross;
+    if (r > logmel::MAX_REGISTER_RADIX) {
+      if (CUT < 3)
+        split_matrix<TRANSPOSED>(r, cross, cur, oth, q, p - 1, Np, ls, dft + plan.rader_table[s],
+                                 rtw);
+      float2* const t = cur;
+      cur = oth;
+      oth = t;
+    } else if (CUT < 5) {
+      split_stage<TRANSPOSED, WIDE>(r, cross, cur, q, p - 1, Np, ls, rtw);
+    }
+    if (!TRANSPOSED) ls /= r;
+  }
+}
+
+// ALT: a plan with matrix or Rader stages, in two work arrays.
+template <bool BLUE, bool WIDE, bool ALT>
 __global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS)
 logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                       long long stride, int n_fft, Plan plan, Split split,
@@ -142,6 +219,10 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
                       const float2* __restrict__ chirp,   // (L) Bluestein: w_n
                       const float2* __restrict__ bspec,   // (M) Bluestein: B / M, DIF positions
                       const float2* __restrict__ utw,     // (L + 1) even n_fft: e^{-2 pi i k / n_fft}
+                      const float* __restrict__ dft,      // matrix stages' B fragments
+                      const int* __restrict__ rgather,    // (p - 1) Rader: g^m mod p
+                      const float2* __restrict__ rtw,     // (p - 1) Rader: e^{-2 pi i q / (p - 1)}
+                      const float2* __restrict__ rspec,   // (p - 1) Rader: B, DIF positions
                       const int* __restrict__ mel_first,  // (n_mels) first bin of each band
                       const int* __restrict__ mel_ptr,    // (n_mels + 1) CSR row pointers
                       const float* __restrict__ mel_w,    // (nnz) weights in bin order
@@ -151,16 +232,16 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = plan.n, L = plan.points, NB = plan.n_bins;
   const int C = split.ctas, chunk = split.chunk, bin_chunk = split.bin_chunk;
-  float2* const z = reinterpret_cast<float2*>(smem_raw);             // points [lo, hi)
-  float* const pw = reinterpret_cast<float*>(z + chunk);              // bins [k_lo, k_hi)
+  float2* z = reinterpret_cast<float2*>(smem_raw);                     // points [lo, hi)
+  float2* zb = z + chunk;                                               // the other (ALT)
+  float* const pw = reinterpret_cast<float*>(z + (ALT ? 2 : 1) * chunk);   // bins [k_lo, k_hi)
   const bool even = (n_fft & 1) == 0;
 
   const int c = static_cast<int>(cluster.block_rank());
   const int t = blockIdx.x / C;         // the frame of this cluster
   const int lt = threadIdx.x, nt = blockDim.x;
   const int lo = min(N, c * chunk), hi = min(N, lo + chunk);
-  const logmel::Shifted own{z, lo};
-  const Spread all{z, chunk};
+  const Part q{c, C, chunk, lo, hi, lt, nt};
 
   bool cross_before = false;   // the last phase reached another CTA
   // Load this CTA's points: window, pack (even) or zero imaginary part
@@ -171,12 +252,46 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
 
   int ls = N;
   for (int s = 0; s < plan.n_stages; ++s) {
+    const int r = plan.radix[s];
     const bool cross = (split.cross >> s) & 1u;
     phase_barrier(cross_before || cross);
     cross_before = cross;
-    if (CUT < 3)
-      split_stage<false, WIDE>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt, tw);
-    ls /= plan.radix[s];
+    if constexpr (ALT) {
+      if (plan.rader_stages > 0 && s == plan.n_stages - 1) {
+        // The Rader stage (the last; it crosses CTAs): gather into zb, the
+        // inner transforms and the product, after which zb holds X.
+        if (CUT < 4) {
+          const int Np = N - N / r;
+          logmel::rader_gather(Spread{z, chunk}, logmel::Shifted{zb, lo}, N, r, lo, hi, lt, nt,
+                               rgather);
+          float2* cur = zb;
+          float2* oth = z;
+          rader_inner<false, WIDE>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
+                                   cross_before);
+          phase_barrier(true);
+          logmel::rader_product(logmel::Shifted{cur, lo}, Spread{zb, chunk}, N, r, min(lo, Np),
+                                min(hi, Np), lt, nt, rspec);
+          cross_before = true;
+          rader_inner<true, WIDE>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
+                                  cross_before);
+        }
+        float2* const tmp = z;
+        z = zb;
+        zb = tmp;
+        continue;
+      }
+      if (r > logmel::MAX_REGISTER_RADIX) {
+        if (CUT < 3)
+          split_matrix<false>(r, cross, z, zb, q, N, N, ls, dft + plan.table[s], tw);
+        float2* const tmp = z;
+        z = zb;
+        zb = tmp;
+        ls /= r;
+        continue;
+      }
+    }
+    if (CUT < 5) split_stage<false, WIDE>(r, cross, z, q, N, N, ls, tw);
+    ls /= r;
   }
 
   if (BLUE) {
@@ -193,15 +308,14 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
       const bool cross = (split.cross >> s) & 1u;
       phase_barrier(cross_before || cross);
       cross_before = cross;
-      if (CUT < 3)
-        split_stage<true, WIDE>(plan.radix[s], cross, all, own, N, ls, c, C, lo, hi, lt, nt,
-                                tw);
+      if (CUT < 5) split_stage<true, WIDE>(plan.radix[s], cross, z, q, N, N, ls, tw);
     }
   }
 
   // Power of this CTA's bins: the untangle (even n_fft) or |Z_k|^2 (odd),
   // from spectrum points anywhere in the cluster.
   cluster.sync();
+  const Spread all{z, chunk};
   const int k_lo = min(NB, c * bin_chunk), k_hi = min(NB, k_lo + bin_chunk);
   for (int k = k_lo + lt; k < k_hi; k += nt)
     pw[k - k_lo] = CUT < 2 ? logmel::power<BLUE>(all, k, L, even, pos, chirp, utw) : 0.0f;
@@ -241,13 +355,16 @@ int threads_per_cta(int chunk, bool wide) {
   return t > most ? most : t;
 }
 
-size_t cta_smem(const Split& split) {
-  return sizeof(float2) * (size_t)split.chunk + sizeof(float) * (size_t)split.bin_chunk;
+// A CTA's shared memory: its share of the work array (two with matrix or
+// Rader stages) and of the power row.
+size_t cta_smem(const Split& split, bool alt) {
+  return sizeof(float2) * (size_t)split.chunk * (alt ? 2 : 1) +
+         sizeof(float) * (size_t)split.bin_chunk;
 }
 
 // Host side: the dynamic shared memory and non-portable cluster attributes
 // are set once per instantiation and device (bit d of `done`).
-template <bool BLUE, bool WIDE>
+template <bool BLUE, bool WIDE, bool ALT>
 cudaError_t opt_in() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -255,10 +372,10 @@ cudaError_t opt_in() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     done.fetch_or(bit);
@@ -269,7 +386,7 @@ cudaError_t opt_in() {
 // A launch of `clusters` clusters of `ctas` CTAs of `threads` threads and
 // `smem` bytes, and how many such clusters the card holds at once (0: none,
 // the launch would be refused).
-template <bool BLUE, bool WIDE>
+template <bool BLUE, bool WIDE, bool ALT>
 struct Launch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -288,30 +405,28 @@ struct Launch {
   }
 
   cudaError_t resident(int* clusters) {
-    cudaError_t err = opt_in<BLUE, WIDE>();
+    cudaError_t err = opt_in<BLUE, WIDE, ALT>();
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE, WIDE>, &cfg);
+    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE, WIDE, ALT>, &cfg);
   }
 };
 
 // The launch: grid C CTAs a frame, cluster dimension C, after asking the
 // card whether it holds one such cluster.
-template <bool BLUE, bool WIDE>
+template <bool BLUE, bool WIDE, bool ALT>
 int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
-           const Split& split, const float* window, const float2* tw, const int* pos,
-           const float2* chirp, const float2* bspec, const float2* utw, const int* mel_first,
-           const int* mel_ptr, const float* mel_w, int n_mels, int use_floor, float floor_v,
+           const Split& split, const Tables& t, int n_mels, int use_floor, float floor_v,
            float* out, cudaStream_t s) {
-  Launch<BLUE, WIDE> l(n_frames, split.ctas, threads_per_cta(split.chunk, WIDE), cta_smem(split),
-                       s);
+  Launch<BLUE, WIDE, ALT> l(n_frames, split.ctas, threads_per_cta(split.chunk, WIDE),
+                            cta_smem(split, ALT), s);
   int clusters = 0;
   cudaError_t err = l.resident(&clusters);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (clusters < 1) return NO_CLUSTER_FITS;
-  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE, WIDE>, src, stride, n_fft, plan,
-                           split,
-                           window, tw, pos, chirp, bspec, utw, mel_first, mel_ptr, mel_w,
-                           n_mels, use_floor, floor_v, out);
+  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE, WIDE, ALT>, src, stride, n_fft,
+                           plan, split, t.window, t.tw, t.pos, t.chirp, t.bspec, t.utw, t.dft,
+                           t.rgather, t.rtw, t.rspec, t.mel_first, t.mel_ptr, t.mel_w, n_mels,
+                           use_floor, floor_v, out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -329,6 +444,8 @@ const char* logmel_cluster_error_string(int status) {
 int logmel_cluster_max_smem() { return MAX_SMEM; }
 int logmel_cluster_max_ctas() { return MAX_CLUSTER; }
 int logmel_cluster_max_stages() { return MAX_STAGES; }
+// The most column tiles a matrix stage takes, as in csrc/logmel_mixed.cu.
+int logmel_cluster_matrix_tiles() { return 64; }
 
 // How many clusters of `ctas` CTAs (1 .. 16) of `threads` threads and
 // `smem` bytes of dynamic shared memory each the card holds at once (0:
@@ -337,78 +454,82 @@ int logmel_cluster_resident(int ctas, int threads, int smem) {
   if (ctas < 1 || ctas > MAX_CLUSTER || threads < 1 || threads > MAX_THREADS || smem < 0 ||
       smem > MAX_SMEM)
     return -static_cast<int>(cudaErrorInvalidValue);
-  Launch<true, false> l(1, ctas, threads, smem, nullptr);
+  Launch<true, false, false> l(1, ctas, threads, smem, nullptr);
   int clusters = 0;
   const cudaError_t err = l.resident(&clusters);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 // Frame t (t < n_frames) is the n_fft samples at src[t * stride]; the plan
-// and tables as for logmel_mixed (csrc/logmel_mixed.cu), split over
-// clusters of `ctas` CTAs (1 .. 16), one cluster a frame, as the caller
-// chose (ops/kernels/fused_logmel.py `cluster_split`): `chunk` work-array
-// points and `bin_chunk` power-row bins a CTA, and bit s of `cross` set
-// where stage s reaches other CTAs. The split is checked, not chosen, here:
-// it must cover the array and the row, fit a CTA's shared memory, and a
-// stage left inside the CTAs must have sub-transforms that divide the chunk.
-// Returns a cudaError_t, or -1 when the card cannot hold one such cluster;
+// and tables as for logmel_mixed (csrc/logmel_mixed.cu: register, matrix
+// and Rader stages, or Bluestein), split over clusters of `ctas` CTAs (1 ..
+// 16), one cluster a frame, as the caller chose (ops/kernels/fused_logmel.py
+// `cluster_split`): `chunk` points of each work array and `bin_chunk`
+// power-row bins a CTA, bit s of `cross` set where stage s reaches other
+// CTAs (always for a Rader stage) and of `rcross` where the Rader stage's
+// inner stage s does. The split is checked, not chosen, here: it must cover
+// the array and the row, fit a CTA's shared memory, and a stage left inside
+// the CTAs must have sub-transforms that divide the chunk. Returns a
+// cudaError_t, or -1 when the card cannot hold one such cluster;
 // cudaErrorInvalidValue for a plan or split it does not take.
 int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, int n,
-                   int n_stages, const int* radices, int bluestein, int ctas, int chunk,
-                   int bin_chunk, unsigned cross, const float* window, const void* tw,
-                   const int* pos, const void* chirp, const void* bspec, const void* utw,
-                   const int* mel_first, const int* mel_ptr, const float* mel_w, int n_mels,
-                   int use_floor, float floor_v, float* out, void* stream) {
+                   int n_stages, const int* radices, int bluestein, int rader_stages,
+                   const int* rader_radices, int ctas, int chunk, int bin_chunk, unsigned cross,
+                   unsigned rcross, const float* window, const void* tw, const int* pos,
+                   const void* chirp, const void* bspec, const void* utw, const float* dft,
+                   const int* rgather, const void* rtw, const void* rspec, const int* mel_first,
+                   const int* mel_ptr, const float* mel_w, int n_mels, int use_floor,
+                   float floor_v, float* out, void* stream) {
   if (n_frames <= 0 || stride <= 0 || n_mels <= 0 || n_fft <= 0 || n <= 0 || src == nullptr ||
-      out == nullptr || window == nullptr || tw == nullptr || n_stages < 0 ||
-      n_stages > MAX_STAGES || (n_stages > 0 && radices == nullptr) || ctas < 1 ||
-      ctas > MAX_CLUSTER || (long long)n_frames * ctas > 0x7fffffffLL)
+      out == nullptr || window == nullptr || tw == nullptr || ctas < 1 || ctas > MAX_CLUSTER ||
+      (long long)n_frames * ctas > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan plan{};
-  plan.n = n;
-  plan.points = n_fft % 2 ? n_fft : n_fft / 2;
-  plan.n_bins = n_fft / 2 + 1;
-  plan.n_stages = n_stages;
-  long long prod = 1;
-  bool wide = false;
-  for (int s = 0; s < n_stages; ++s) {
-    const int r = radices[s];
-    if (!logmel::register_radix(r, true)) return static_cast<int>(cudaErrorInvalidValue);
-    wide = wide || !logmel::register_radix(r, false);
-    plan.radix[s] = r;
-    prod *= r;
-  }
-  const bool direct_ok = !bluestein && n == plan.points && pos != nullptr;
+  Plan plan;
+  bool wide = false, matrix = false, alt = false;
+  if (!logmel::make_plan(plan, n_fft, n, n_stages, radices, rader_stages, rader_radices,
+                         logmel_cluster_matrix_tiles(), wide, matrix, alt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool rader = rader_stages > 0;
+  const bool direct_ok = !bluestein && n == plan.points && pos != nullptr &&
+                         (!rader || (rgather != nullptr && rtw != nullptr && rspec != nullptr));
   const bool blue_ok = bluestein && !wide && n >= 2 * plan.points - 1 && chirp != nullptr &&
                        bspec != nullptr;
-  if (prod != n || !(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr))
+  if (!(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr) ||
+      (matrix && dft == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Split split{ctas, chunk, bin_chunk, cross};
+  const Split split{ctas, chunk, bin_chunk, cross, rcross};
   if (chunk < 1 || bin_chunk < 1 || (long long)chunk * ctas < n ||
-      (long long)bin_chunk * ctas < plan.n_bins || cta_smem(split) > (size_t)MAX_SMEM ||
-      (cross >> n_stages) != 0u)
+      (long long)bin_chunk * ctas < plan.n_bins || cta_smem(split, alt) > (size_t)MAX_SMEM ||
+      (cross >> n_stages) != 0u || (rcross >> rader_stages) != 0u ||
+      (rader && !((cross >> (n_stages - 1)) & 1u)))
     return static_cast<int>(cudaErrorInvalidValue);
   int ls = n;
   for (int s = 0; s < n_stages; ++s) {
     if (!((cross >> s) & 1u) && chunk % ls != 0) return static_cast<int>(cudaErrorInvalidValue);
     ls /= plan.radix[s];
   }
+  ls = rader ? plan.radix[n_stages - 1] - 1 : 1;
+  for (int s = 0; s < rader_stages; ++s) {
+    if (!((rcross >> s) & 1u) && chunk % ls != 0) return static_cast<int>(cudaErrorInvalidValue);
+    ls /= plan.rader_radix[s];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float2* tw2 = static_cast<const float2*>(tw);
-  const float2* ch2 = static_cast<const float2*>(chirp);
-  const float2* bs2 = static_cast<const float2*>(bspec);
-  const float2* ut2 = static_cast<const float2*>(utw);
+  const Tables t{window, static_cast<const float2*>(tw), pos,
+                 static_cast<const float2*>(chirp), static_cast<const float2*>(bspec),
+                 static_cast<const float2*>(utw), dft, rgather,
+                 static_cast<const float2*>(rtw), static_cast<const float2*>(rspec), mel_first,
+                 mel_ptr, mel_w};
   if (bluestein)
-    return launch<true, false>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2,
-                               bs2, ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v,
-                               out, s);
+    return launch<true, false, false>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+                                      use_floor, floor_v, out, s);
+  if (alt)
+    return launch<false, true, true>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+                                     use_floor, floor_v, out, s);
   if (wide)
-    return launch<false, true>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2,
-                               bs2, ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v,
-                               out, s);
-  return launch<false, false>(src, stride, n_frames, n_fft, plan, split, window, tw2, pos, ch2,
-                              bs2, ut2, mel_first, mel_ptr, mel_w, n_mels, use_floor, floor_v,
-                              out, s);
+    return launch<false, true, false>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+                                      use_floor, floor_v, out, s);
+  return launch<false, false, false>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+                                     use_floor, floor_v, out, s);
 }
 
 }  // extern "C"

@@ -25,9 +25,17 @@
 //   table from the host); a matrix stage runs each butterfly's DFT as two
 //   real products on the tensor cores (`matrix_stage`, three TF32 mma a
 //   product: near float32's precision, not its bits) and writes out of
-//   place, into a second work array; or
-// * Bluestein, where a prime above 1,021 divides L or `plan_cost` finds it
-//   cheaper: the chirp w_n = e^{-i pi (n^2 mod 2L) / L}, a_n = z_n w_n
+//   place, into a second work array;
+// * direct with a Rader stage last for L's largest prime p (above 13; the
+//   primes above 1,021 whose p - 1 has a direct plan, and smaller ones
+//   where `plan_cost` finds it cheaper than a matrix stage): each p-point
+//   butterfly as a cyclic convolution of p - 1 points, two inner p - 1
+//   point transforms on register and matrix stages ping-ponging between the
+//   two work arrays, with a pointwise product between them (`rader_gather`,
+//   `rader_product` in csrc/logmel_stages.cuh; the gather folded into the
+//   load where L = p and n_fft is at most 4,096); or
+// * Bluestein, where L has a prime above 1,021 whose p - 1 has one too, or
+//   `plan_cost` finds it cheaper: the chirp w_n = e^{-i pi (n^2 mod 2L) / L}, a_n = z_n w_n
 //   zero-padded to N = M, the smallest 7-smooth length >= 2L - 1; the same
 //   DIF stages on a (output at permuted positions), a pointwise product with
 //   the filter spectrum B stored at those positions (1/M folded in on the
@@ -39,9 +47,17 @@
 // per frame is an FFT of n_fft points, the power and the sparse mel product,
 // against 4 * hop bytes of new waveform per frame: device-memory bytes at
 // the sizes users run (n_fft 400-3072). Bluestein costs two M-point FFTs a
-// frame (M ~ 2L), about 4x a direct transform, which is why wide primes run
-// as matrix stages: an R-point DFT is O(R^2) work, too wide for registers
-// above 13, and as two (R + 1) / 2-square products it fits the tensor cores.
+// frame (M ~ 2L) and a frame of twice the shared memory, about 4x a direct
+// transform, which is why wide primes run as matrix stages (an R-point DFT
+// is O(R^2) work, too wide for registers above 13, and as two (R + 1) /
+// 2-square products it fits the tensor cores) and the widest as Rader
+// stages: two p - 1 point transforms, O(p log p), in two work arrays of N
+// points (the inner transforms use N (p - 1) / p of each, the tails hold x_0
+// and X_0), so a frame of L = 3 x 4289 (n_fft 12,867) or 11,527 (23,054)
+// fits one block where Bluestein's M = 25,920 / 23,328 points did not. A
+// Rader stage with an inner matrix stage reads its operands twice (forward
+// and transposed) and adds two passes over N' points (gather and product):
+// its time is those passes and the inner matrix stages' products.
 // The design keeps every intermediate on chip: a frame is read once (scalar
 // loads at src[t * stride + k], size_t index, the Hann window applied on
 // load; a hop such as 517 rules out wider loads), the transform runs in
@@ -58,10 +74,14 @@
 // computed in float64 and rounded once on the host, so the result is
 // bitwise the same from run to run, and `mixed_log_mel_plain` repeats it
 // bitwise at plans without a matrix stage. Shared memory: frames a block x
-// (8 N (x2 with matrix stages) + 4 (n_fft / 2 + 1)) bytes, at most 227 KB
-// (232,448 bytes), opted in once per instantiation. Radices 11, 13 and the
-// matrix stages run in the wide instantiations (512 threads a frame at
-// most); the others keep the radix-7 kernel's code and registers.
+// (8 N (x2 with matrix or Rader stages) + 4 (n_fft / 2 + 1)) bytes, at most
+// 227 KB (232,448 bytes), opted in once per instantiation, and no static
+// shared memory: a Rader stage keeps x_0 and X_0 in the tails of the two
+// work arrays (N / p points each), so 12,867 takes 231,608 bytes (840 to
+// spare) and 23,054 230,544 (1,904 to spare). Radices 11, 13 and the matrix
+// stages run in the wide instantiations (512 threads a frame at most), the
+// Rader stage in its own wide instantiation; the others keep the radix-7
+// kernel's code and registers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,6 +95,7 @@ namespace {
 
 using logmel::MAX_STAGES;
 using logmel::Plan;
+using logmel::Tables;
 
 constexpr int MAX_THREADS = 1024;
 constexpr int WIDE_THREADS = 512;       // the instantiations with radices 11, 13 and matrix stages
@@ -85,8 +106,10 @@ constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a block
 // Profiling cuts, for sed_crnn_torch/tools/logmel_phases.py only (the
 // results are then wrong): built with -DLOGMEL_MIXED_CUT=1 the body leaves
 // out the mel sums, with 2 also the bins' power, with 3 also the matrix
-// stages, with 4 also Bluestein's filter product and second transform, with
-// 5 also the register stages. 0, the default, cuts nothing.
+// stages (a Rader stage's inner ones too), with 4 also the Rader stage
+// (gather, inner register stages, product), with 5 also Bluestein's filter
+// product and second transform, with 6 also the register stages. 0, the
+// default, cuts nothing.
 #ifndef LOGMEL_MIXED_CUT
 #define LOGMEL_MIXED_CUT 0
 #endif
@@ -126,7 +149,35 @@ __device__ __forceinline__ void mel_phase(const float* pall, int NB, int fpb, in
 #ifndef LOGMEL_WIDE_BLOCKS
 #define LOGMEL_WIDE_BLOCKS 0
 #endif
-template <bool BLUE, bool WIDE, int BLOCKS>
+// A Rader stage's inner p - 1 point transforms (steps 2-4 of the Rader stage
+// in csrc/logmel_stages.cuh), forward or transposed in reverse order, on
+// `cur` (its matrix stages write the other array and swap the two); Np the
+// points they cover.
+template <bool TRANSPOSED, int COLS>
+__device__ __forceinline__ void rader_inner(const Plan& plan, float2*& cur, float2*& oth, int p,
+                                            int Np, int lt, int tpf, const float2* rtw,
+                                            const float* dft) {
+  int ls = TRANSPOSED ? 1 : p - 1;
+  for (int i = 0; i < plan.rader_stages; ++i) {
+    const int s = TRANSPOSED ? plan.rader_stages - 1 - i : i;
+    const int r = plan.rader_radix[s];
+    if (TRANSPOSED) ls *= r;
+    if (r > logmel::MAX_REGISTER_RADIX) {
+      if (CUT < 3)
+        logmel::run_matrix_stage<TRANSPOSED, COLS>(cur, oth, p - 1, r, ls, 0, Np / r, lt, tpf,
+                                                   dft + plan.rader_table[s], rtw);
+      float2* const t = cur;
+      cur = oth;
+      oth = t;
+    } else {
+      logmel::run_block_stage<TRANSPOSED, true>(r, cur, p - 1, Np, ls, lt, tpf, rtw);
+    }
+    if (!TRANSPOSED) ls /= r;
+    __syncthreads();
+  }
+}
+
+template <bool BLUE, bool WIDE, bool RADER, int BLOCKS>
 __global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS, BLOCKS)
 logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                     long long stride, int n_frames, int n_fft, Plan plan, int tpf, int fpb,
@@ -138,12 +189,16 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
                     const float2* __restrict__ bspec,   // (M) Bluestein: B / M at DIF positions
                     const float2* __restrict__ utw,     // (L + 1) even n_fft: e^{-2 pi i k / n_fft}
                     const float* __restrict__ dft,      // matrix stages' B fragments
+                    const int* __restrict__ rgather,    // (p - 1) Rader: g^m mod p
+                    const float2* __restrict__ rtw,     // (p - 1) Rader: e^{-2 pi i q / (p - 1)}
+                    const float2* __restrict__ rspec,   // (p - 1) Rader: B, DIF positions
                     const int* __restrict__ mel_first,  // (n_mels) first bin of each band
                     const int* __restrict__ mel_ptr,    // (n_mels + 1) CSR row pointers
                     const float* __restrict__ mel_w,    // (nnz) weights in bin order
                     int n_mels, int mel_group, int use_floor, float floor_v,
                     float* __restrict__ out) {          // (n_frames, n_mels)
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int COLS = BLOCKS == 1 ? 4 : 2;   // a wide matrix stage's column tiles a warp job
   const int N = plan.n, L = plan.points, NB = plan.n_bins;
   float2* const zall = reinterpret_cast<float2*>(smem_raw);
   float* const pall = reinterpret_cast<float*>(zall + (size_t)(1 + alt) * fpb * N);
@@ -157,33 +212,65 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
   float2* zb = zall + (size_t)(fpb + f) * N;          // the other (matrix stages' output)
 
   // Load: window, pack (even) or zero imaginary part (odd), chirp
-  // (Bluestein), zeros past L. A frame past the end computes on zeros.
+  // (Bluestein), zeros past L. A frame past the end computes on zeros. A
+  // Rader stage that is the only stage of a small frame (`rader_first`)
+  // gathers here, into the other array.
   const float* fr = src + (size_t)(live ? t0 + f : 0) * (size_t)stride;
-  for (int n = lt; n < N; n += tpf)
-    z[n] = live ? logmel::load_point<BLUE>(fr, n, L, even, window, chirp)
-                : make_float2(0.0f, 0.0f);
+  const bool gathered = RADER && plan.rader_first;
+  float2* const zl = gathered ? zb : z;
+  for (int n = lt; n < N; n += tpf) {
+    const int k = gathered ? logmel::rader_load_index(n, N, rgather) : n;
+    zl[n] = live ? logmel::load_point<BLUE>(fr, k, L, even, window, chirp)
+                 : make_float2(0.0f, 0.0f);
+  }
   __syncthreads();
 
   int ls = N;
   for (int s = 0; s < plan.n_stages; ++s) {
     const int r = plan.radix[s];
-    if constexpr (WIDE) {
-      if (r > logmel::MAX_REGISTER_RADIX) {
-        if (CUT < 3) logmel::matrix_stage(z, zb, N, r, ls, lt, tpf, dft + plan.table[s], tw);
+    if constexpr (RADER) {
+      if (s == plan.n_stages - 1) {
+        // The Rader stage (the last): gather into zb, the inner transforms
+        // and the product, after which zb holds X; then zb is the array.
+        if (CUT < 4) {
+          const int Np = N - N / r;
+          if (!plan.rader_first) {
+            logmel::rader_gather(z, zb, N, r, 0, N, lt, tpf, rgather);
+            __syncthreads();
+          }
+          float2* cur = zb;
+          float2* oth = z;
+          rader_inner<false, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
+          logmel::rader_product(cur, zb, N, r, 0, Np, lt, tpf, rspec);
+          __syncthreads();
+          rader_inner<true, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
+        }
         float2* const t = z;
         z = zb;
         zb = t;
-      } else if (CUT < 5) {
-        logmel::run_block_stage<false, true>(r, z, N, ls, lt, tpf, tw);
+        __syncthreads();
+        continue;
       }
-    } else if (CUT < 5) {
-      logmel::run_block_stage<false, false>(r, z, N, ls, lt, tpf, tw);
+    }
+    if constexpr (WIDE) {
+      if (r > logmel::MAX_REGISTER_RADIX) {
+        if (CUT < 3)
+          logmel::run_matrix_stage<false, COLS>(static_cast<const float2*>(z), zb, N, r, ls, 0,
+                                                N / r, lt, tpf, dft + plan.table[s], tw);
+        float2* const t = z;
+        z = zb;
+        zb = t;
+      } else if (CUT < 6) {
+        logmel::run_block_stage<false, true>(r, z, N, N, ls, lt, tpf, tw);
+      }
+    } else if (CUT < 6) {
+      logmel::run_block_stage<false, false>(r, z, N, N, ls, lt, tpf, tw);
     }
     ls /= r;
     __syncthreads();
   }
 
-  if (BLUE && CUT < 4) {
+  if (BLUE && CUT < 5) {
     // Pointwise product with the filter spectrum, conjugated, then the
     // transposed stages in reverse order: D = FFT(conj(A B)) in natural order.
     for (int p = lt; p < N; p += tpf) z[p] = logmel::cconj(logmel::cmul(z[p], __ldg(bspec + p)));
@@ -191,7 +278,7 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
     ls = 1;
     for (int s = plan.n_stages - 1; s >= 0; --s) {
       ls *= plan.radix[s];
-      logmel::run_block_stage<true, WIDE>(plan.radix[s], z, N, ls, lt, tpf, tw);
+      logmel::run_block_stage<true, WIDE>(plan.radix[s], z, N, N, ls, lt, tpf, tw);
       __syncthreads();
     }
   }
@@ -236,62 +323,59 @@ int threads_per_frame(const Plan& plan, bool wide) {
   return t > most ? most : t;
 }
 
-// A frame's shared memory: its work array (two with matrix stages, which
-// write out of place) and its power row.
-size_t frame_smem(const Plan& plan, bool matrix) {
-  return sizeof(float2) * (size_t)plan.n * (matrix ? 2 : 1) +
-         sizeof(float) * (size_t)plan.n_bins;
+// A frame's shared memory: its work array (two with matrix or Rader stages,
+// which write out of place) and its power row.
+size_t frame_smem(const Plan& plan, bool alt) {
+  return sizeof(float2) * (size_t)plan.n * (alt ? 2 : 1) + sizeof(float) * (size_t)plan.n_bins;
 }
 
-int frames_per_block(const Plan& plan, bool matrix, int tpf) {
+int frames_per_block(const Plan& plan, bool alt, int tpf) {
   int fpb = tpf >= MIN_THREADS ? 1 : MIN_THREADS / tpf;
-  while (fpb > 1 && fpb * frame_smem(plan, matrix) > (size_t)MAX_SMEM) --fpb;
+  while (fpb > 1 && fpb * frame_smem(plan, alt) > (size_t)MAX_SMEM) --fpb;
   return fpb;
 }
 
-
 // Host side: the dynamic shared memory attribute is set once per
 // instantiation and device (bit d of `done`), then the launch.
-template <bool BLUE, bool WIDE, int BLOCKS>
+template <bool BLUE, bool WIDE, bool RADER, int BLOCKS>
 int launch_as(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
-              bool matrix, const float* window, const float2* tw, const int* pos,
-              const float2* chirp, const float2* bspec, const float2* utw, const float* dft,
-              const int* mel_first, const int* mel_ptr, const float* mel_w, int n_mels,
-              int mel_group, int use_floor, float floor_v, float* out, cudaStream_t s) {
+              bool alt, const Tables& t, int n_mels, int mel_group, int use_floor, float floor_v,
+              float* out, cudaStream_t s) {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE, WIDE, BLOCKS>,
+    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     done.fetch_or(bit);
   }
   const int tpf = threads_per_frame(plan, WIDE);
-  const int fpb = frames_per_block(plan, matrix, tpf);
-  const size_t smem = fpb * frame_smem(plan, matrix);
+  const int fpb = frames_per_block(plan, alt, tpf);
+  const size_t smem = fpb * frame_smem(plan, alt);
   const int blocks = (n_frames + fpb - 1) / fpb;
-  logmel_mixed_kernel<BLUE, WIDE, BLOCKS><<<blocks, tpf * fpb, smem, s>>>(
-      src, stride, n_frames, n_fft, plan, tpf, fpb, matrix ? 1 : 0, window, tw, pos, chirp,
-      bspec, utw, dft,
-      mel_first, mel_ptr, mel_w, n_mels, mel_group, use_floor, floor_v, out);
+  logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS><<<blocks, tpf * fpb, smem, s>>>(
+      src, stride, n_frames, n_fft, plan, tpf, fpb, alt ? 1 : 0, t.window, t.tw, t.pos, t.chirp,
+      t.bspec, t.utw, t.dft, t.rgather, t.rtw, t.rspec, t.mel_first, t.mel_ptr, t.mel_w, n_mels,
+      mel_group, use_floor, floor_v, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation by the blocks an SM holds (see BLOCKS): the wide ones
 // at 2 where two blocks' shared memory fits an SM.
-template <bool BLUE, bool WIDE, class... A>
+template <bool BLUE, bool WIDE, bool RADER, class... A>
 int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
-           bool matrix, A... rest) {
+           bool alt, A... rest) {
   if constexpr (WIDE) {
-    const int fpb = frames_per_block(plan, matrix, threads_per_frame(plan, true));
+    const int fpb = frames_per_block(plan, alt, threads_per_frame(plan, true));
     const bool two = LOGMEL_WIDE_BLOCKS ? LOGMEL_WIDE_BLOCKS == 2
-                                        : 2 * fpb * frame_smem(plan, matrix) <= (size_t)MAX_SMEM;
-    if (two) return launch_as<BLUE, WIDE, 2>(src, stride, n_frames, n_fft, plan, matrix, rest...);
+                                        : 2 * fpb * frame_smem(plan, alt) <= (size_t)MAX_SMEM;
+    if (two)
+      return launch_as<BLUE, WIDE, RADER, 2>(src, stride, n_frames, n_fft, plan, alt, rest...);
   }
-  return launch_as<BLUE, WIDE, 1>(src, stride, n_frames, n_fft, plan, matrix, rest...);
+  return launch_as<BLUE, WIDE, RADER, 1>(src, stride, n_frames, n_fft, plan, alt, rest...);
 }
 
 }  // namespace
@@ -312,74 +396,60 @@ int logmel_mixed_matrix_tiles() { return 64; }
 // transform length n (L = n_fft / 2 for an even n_fft, n_fft for an odd one;
 // M >= 2L - 1 with bluestein), its DIF radices (each 2, 3, 4, 5, 7, 11 or
 // 13, or, direct only, any odd radix from 15 whose matrix_tiles fit
-// logmel_mixed_matrix_tiles: a matrix stage; their product n); window
+// logmel_mixed_matrix_tiles: a matrix stage; with rader_stages > 0 the last
+// is a Rader stage's prime p, and rader_radices the rader_stages radices of
+// its p - 1 point transforms, register or matrix; their product n); window
 // (n_fft); tw (n) complex float32 pairs; pos (L, int32, direct only); chirp
 // (L) and bspec (n) (Bluestein only); utw (L + 1, even n_fft only); dft
-// (matrix stages only: each one's matrix_table, in stage order); the mel
-// filterbank as CSR rows of contiguous bins: band m covers bins
-// mel_first[m] .. mel_first[m] + mel_ptr[m + 1] - mel_ptr[m] - 1 with
-// weights mel_w[mel_ptr[m] ..], each band summed by mel_group lanes (4, 8,
-// 16 or 32); out (n_frames, n_mels). Returns a
+// (matrix stages only: each one's matrix_table, in stage order, the Rader
+// stage's inner ones last); rgather (p - 1, int32), rtw and rspec (p - 1
+// complex; Rader only); the mel filterbank as CSR rows of contiguous bins:
+// band m covers bins mel_first[m] .. mel_first[m] + mel_ptr[m + 1] -
+// mel_ptr[m] - 1 with weights mel_w[mel_ptr[m] ..], each band summed by
+// mel_group lanes (4, 8, 16 or 32); out (n_frames, n_mels). Returns a
 // cudaError_t: cudaErrorInvalidValue for a plan it does not take (one frame
 // over 227 KB of shared memory included).
 int logmel_mixed(const float* src, long long stride, int n_frames, int n_fft, int n,
-                 int n_stages, const int* radices, int bluestein, const float* window,
-                 const void* tw, const int* pos, const void* chirp, const void* bspec,
-                 const void* utw, const float* dft, const int* mel_first, const int* mel_ptr,
-                 const float* mel_w, int n_mels, int mel_group, int use_floor, float floor_v,
-                 float* out, void* stream) {
+                 int n_stages, const int* radices, int bluestein, int rader_stages,
+                 const int* rader_radices, const float* window, const void* tw, const int* pos,
+                 const void* chirp, const void* bspec, const void* utw, const float* dft,
+                 const int* rgather, const void* rtw, const void* rspec, const int* mel_first,
+                 const int* mel_ptr, const float* mel_w, int n_mels, int mel_group,
+                 int use_floor, float floor_v, float* out, void* stream) {
   if (n_frames <= 0 || stride <= 0 || n_mels <= 0 || n_fft <= 0 || src == nullptr ||
-      out == nullptr || window == nullptr || tw == nullptr || n_stages < 0 ||
-      n_stages > MAX_STAGES || (n_stages > 0 && radices == nullptr) ||
+      out == nullptr || window == nullptr || tw == nullptr ||
       (mel_group != 4 && mel_group != 8 && mel_group != 16 && mel_group != 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan plan{};
-  plan.n = n;
-  plan.points = n_fft % 2 ? n_fft : n_fft / 2;
-  plan.n_bins = n_fft / 2 + 1;
-  plan.n_stages = n_stages;
-  long long prod = 1;
-  bool wide = false, matrix = false;
-  int table = 0;
-  for (int s = 0; s < n_stages; ++s) {
-    const int r = radices[s];
-    plan.radix[s] = r;
-    plan.table[s] = 0;
-    if (logmel::register_radix(r, true)) {
-      wide = wide || !logmel::register_radix(r, false);
-    } else if (r > logmel::MAX_REGISTER_RADIX && r % 2 == 1 &&
-               logmel::matrix_tiles(r) <= logmel_mixed_matrix_tiles()) {
-      wide = matrix = true;
-      plan.table[s] = table;
-      const int t = logmel::matrix_tiles(r);
-      table += t * t * 32 * 8;
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    prod *= r;
-  }
-  const bool direct_ok = !bluestein && n == plan.points && pos != nullptr;
+  Plan plan;
+  bool wide = false, matrix = false, alt = false;
+  if (!logmel::make_plan(plan, n_fft, n, n_stages, radices, rader_stages, rader_radices,
+                         logmel_mixed_matrix_tiles(), wide, matrix, alt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool rader = rader_stages > 0;
+  const bool direct_ok = !bluestein && n == plan.points && pos != nullptr &&
+                         (!rader || (rgather != nullptr && rtw != nullptr && rspec != nullptr));
   const bool blue_ok = bluestein && !wide && n >= 2 * plan.points - 1 && chirp != nullptr &&
                        bspec != nullptr;
-  if (prod != n || !(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr) ||
-      (matrix && dft == nullptr) || frame_smem(plan, matrix) > (size_t)MAX_SMEM)
+  if (!(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr) ||
+      (matrix && dft == nullptr) || frame_smem(plan, alt) > (size_t)MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float2* tw2 = static_cast<const float2*>(tw);
-  const float2* ch2 = static_cast<const float2*>(chirp);
-  const float2* bs2 = static_cast<const float2*>(bspec);
-  const float2* ut2 = static_cast<const float2*>(utw);
+  const Tables t{window, static_cast<const float2*>(tw), pos,
+                 static_cast<const float2*>(chirp), static_cast<const float2*>(bspec),
+                 static_cast<const float2*>(utw), dft, rgather,
+                 static_cast<const float2*>(rtw), static_cast<const float2*>(rspec), mel_first,
+                 mel_ptr, mel_w};
   if (bluestein)
-    return launch<true, false>(src, stride, n_frames, n_fft, plan, false, window, tw2, pos, ch2,
-                               bs2, ut2, dft, mel_first, mel_ptr, mel_w, n_mels, mel_group,
-                               use_floor, floor_v, out, s);
+    return launch<true, false, false>(src, stride, n_frames, n_fft, plan, false, t, n_mels,
+                                      mel_group, use_floor, floor_v, out, s);
+  if (rader)
+    return launch<false, true, true>(src, stride, n_frames, n_fft, plan, true, t, n_mels,
+                                     mel_group, use_floor, floor_v, out, s);
   if (wide)
-    return launch<false, true>(src, stride, n_frames, n_fft, plan, matrix, window, tw2, pos, ch2,
-                               bs2, ut2, dft, mel_first, mel_ptr, mel_w, n_mels, mel_group,
-                               use_floor, floor_v, out, s);
-  return launch<false, false>(src, stride, n_frames, n_fft, plan, false, window, tw2, pos, ch2,
-                              bs2, ut2, dft, mel_first, mel_ptr, mel_w, n_mels, mel_group,
-                              use_floor, floor_v, out, s);
+    return launch<false, true, false>(src, stride, n_frames, n_fft, plan, alt, t, n_mels,
+                                      mel_group, use_floor, floor_v, out, s);
+  return launch<false, false, false>(src, stride, n_frames, n_fft, plan, false, t, n_mels,
+                                     mel_group, use_floor, floor_v, out, s);
 }
 
 }  // extern "C"

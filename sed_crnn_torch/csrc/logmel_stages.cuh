@@ -4,8 +4,9 @@
 // operation (no FMA contraction), the R-point butterflies, one in-place
 // decimation-in-frequency (or transposed) stage of the mixed-radix FFT in
 // registers, the matrix stage of a wide radix on the tensor cores (the
-// mixed body's), the real-to-complex untangle's bin power, the spectrum
-// lookup and the mel sums' tree over 32 partials.
+// mixed and cluster bodies'), the Rader stage's gather and pointwise
+// product, the real-to-complex untangle's bin power, the spectrum lookup
+// and the mel sums' tree over 32 partials.
 //
 // A stage of the cluster body reaches its work array through an accessor,
 // `z[p]` for point p: its own share (`Shifted`) or the whole cluster's
@@ -23,8 +24,11 @@
 namespace logmel {
 
 constexpr int MAX_STAGES = 16;
-constexpr int MAX_REGISTER_RADIX = 13;  // radices above run as matrix stages (mixed body)
+constexpr int MAX_REGISTER_RADIX = 13;  // radices above run as matrix or Rader stages
 constexpr int MEL_LANES = 32;           // a band's partial sums
+// The mixed body folds the gather of a Rader stage that is the only one
+// into the load up to this n_fft (see `rader_gather`).
+constexpr int RADER_FOLD_MAX_NFFT = 4096;
 
 struct Plan {
   int n;                  // transform length N: L (direct) or M (Bluestein)
@@ -33,6 +37,28 @@ struct Plan {
   int n_stages;
   int radix[MAX_STAGES];  // DIF order; their product is N
   int table[MAX_STAGES];  // matrix stage s: its B fragments at dft + table[s] (floats)
+  // A Rader stage, the last (radix[n_stages - 1] = p): its inner p - 1 point
+  // transforms' radices and their matrix stages' fragments; rader_first: it
+  // is the only stage (L = p) and the frame is small, so the mixed body's
+  // load gathers (the cluster body always runs the gather pass).
+  int rader_stages;       // 0: no Rader stage
+  int rader_first;
+  int rader_radix[MAX_STAGES];
+  int rader_table[MAX_STAGES];
+};
+
+// The tables a mixed or cluster launch reads, as the C interfaces take them
+// (csrc/logmel_mixed.cu `logmel_mixed`).
+struct Tables {
+  const float* window;
+  const float2* tw;
+  const int* pos;
+  const float2 *chirp, *bspec, *utw;
+  const float* dft;
+  const int* rgather;
+  const float2 *rtw, *rspec;
+  const int *mel_first, *mel_ptr;
+  const float* mel_w;
 };
 
 // A register radix of the wide instantiations (2, 3, 4, 5, 7, 11, 13), or
@@ -154,13 +180,15 @@ __device__ __forceinline__ void stage(Z z, int N, int ls, int b0, int b1, int lt
   }
 }
 
-// The same stage over a whole array in this block's shared memory, all N /
-// R butterflies: what `stage` does with z as the accessor, b0 = 0 and b1 = N
-// / R, as a loop of its own (a pointer base, the bound from the radix), the
-// mixed body's. Through `stage` that body ran 1-7 % slower on an H100 with
-// nearly the same instructions (PERF.md §6).
+// The same stage over a whole array of `count` points in this block's shared
+// memory (N, the length whose twiddle table tw is, divides into it: a
+// batch of count / N transforms), all count / R butterflies: what `stage`
+// does with z as the accessor, b0 = 0 and b1 = count / R, as a loop of its
+// own (a pointer base, the bound from the radix), the mixed body's. Through
+// `stage` that body ran 1-7 % slower on an H100 with nearly the same
+// instructions (PERF.md §6).
 template <int R, bool TRANSPOSED>
-__device__ __forceinline__ void block_stage(float2* z, int N, int ls, int lt, int nt,
+__device__ __forceinline__ void block_stage(float2* z, int N, int count, int ls, int lt, int nt,
                                             const float2* __restrict__ tw) {
   const int m = ls / R;
   const int step = N / ls;
@@ -169,7 +197,7 @@ __device__ __forceinline__ void block_stage(float2* z, int N, int ls, int lt, in
 #pragma unroll
     for (int q = 0; q < R; ++q) c[q] = __ldg(tw + q * (N / R));
   }
-  for (int b = lt; b < N / R; b += nt) {
+  for (int b = lt; b < count / R; b += nt) {
     const int g = b / m, j = b - g * m;
     float2* const base = z + g * ls + j;
     float2 v[R];
@@ -193,25 +221,25 @@ __device__ __forceinline__ void block_stage(float2* z, int N, int ls, int lt, in
 // 13 (the instantiations that take them, with fewer threads and more
 // registers a thread; the others keep the code they had before).
 template <bool TRANSPOSED, bool WIDE>
-__device__ __forceinline__ void run_block_stage(int radix, float2* z, int N, int ls, int lt,
-                                                int nt, const float2* __restrict__ tw) {
+__device__ __forceinline__ void run_block_stage(int radix, float2* z, int N, int count, int ls,
+                                                int lt, int nt, const float2* __restrict__ tw) {
   switch (radix) {
-    case 2: block_stage<2, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
-    case 3: block_stage<3, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
-    case 4: block_stage<4, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
-    case 5: block_stage<5, TRANSPOSED>(z, N, ls, lt, nt, tw); break;
+    case 2: block_stage<2, TRANSPOSED>(z, N, count, ls, lt, nt, tw); break;
+    case 3: block_stage<3, TRANSPOSED>(z, N, count, ls, lt, nt, tw); break;
+    case 4: block_stage<4, TRANSPOSED>(z, N, count, ls, lt, nt, tw); break;
+    case 5: block_stage<5, TRANSPOSED>(z, N, count, ls, lt, nt, tw); break;
     default:
       if constexpr (WIDE) {
         if (radix == 11) {
-          block_stage<11, TRANSPOSED>(z, N, ls, lt, nt, tw);
+          block_stage<11, TRANSPOSED>(z, N, count, ls, lt, nt, tw);
           break;
         }
         if (radix == 13) {
-          block_stage<13, TRANSPOSED>(z, N, ls, lt, nt, tw);
+          block_stage<13, TRANSPOSED>(z, N, count, ls, lt, nt, tw);
           break;
         }
       }
-      block_stage<7, TRANSPOSED>(z, N, ls, lt, nt, tw);
+      block_stage<7, TRANSPOSED>(z, N, count, ls, lt, nt, tw);
       break;
   }
 }
@@ -257,8 +285,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // One radix-R DIF stage as matrix products on the tensor cores (odd R, in
-// practice the primes above 13), from the N-point array z of this frame's
-// nt threads (whole warps, lt = 0 .. nt-1) into zo. Butterfly b (sub-
+// practice the primes above 13), its butterflies b0 <= b < b1 by nt threads
+// (whole warps, lt = 0 .. nt-1), from the array z into zo (accessors, as for
+// `stage`; N the length of the twiddle table tw). Butterfly b (sub-
 // transform g = b / m, offset j = b % m, m = ls / R) has points v_r =
 // z[g ls + j + r m]; with H = (R - 1) / 2, a_r = v_r + v_{R-r} and b_r = v_r
 // - v_{R-r} (r = 1 .. H), its outputs are V_0 = v_0 + sum a_r = P_0, V_s =
@@ -274,11 +303,19 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // Each product runs as three TF32 mma, a_lo b_hi + a_hi b_lo + a_hi b_hi,
 // the a = a_hi + a_lo split here: about float32's precision, not its bits.
 // Then the DIF twiddles (not at m = 1), written to the same positions of zo.
+// TRANSPOSED: the twiddles multiply the inputs v_r instead (before the
+// pairs), and the outputs are written as they come, as a transposed
+// register stage does. Each row of an mma is one butterfly's, and the tensor
+// cores sum a row's products in a fixed order whatever the other rows hold,
+// so a butterfly's bits do not depend on which butterflies share its tile:
+// the cluster body's split of the butterflies gives the mixed body's bits.
 //
-// Work: a warp's job is a row tile and two column tiles (one where T is
-// odd, at the last), the cos and sin fragments of its row built once a k
-// tile for both; jobs are independent, since the stage reads z and writes
-// zo, so a warp holds only its job's accumulators.
+// Work: a warp's job is a row tile and COLS column tiles (fewer at the
+// last), the cos and sin fragments of its row built once a k tile for all
+// of them: COLS 4 in the instantiations with 128 registers a thread, 2 in
+// those with 64; jobs are independent, since the stage reads z and writes
+// zo, so a warp holds only its job's accumulators. Each column's sums run
+// over the k tiles in order whatever COLS is: the same bits.
 __device__ __forceinline__ void split_tf32(const float (&a)[4], uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
 #pragma unroll
@@ -295,21 +332,26 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&hi)[4
   mma_tf32(d, hi, __float_as_uint(b.x), __float_as_uint(b.y));
 }
 
-__device__ __forceinline__ void matrix_stage(const float2* z, float2* zo, int N, int R, int ls,
+template <bool TRANSPOSED, int COLS = 2, class ZI, class ZO>
+__device__ __forceinline__ void matrix_stage(ZI z, ZO zo, int N, int R, int ls, int b0, int b1,
                                              int lt, int nt, const float* __restrict__ table,
                                              const float2* __restrict__ tw) {
-  const int m = ls / R, step = N / ls, nb = N / R, H = (R - 1) / 2;
-  const int T = matrix_tiles(R), pairs = (T + 1) / 2, jobs = (nb + 7) / 8 * pairs;
+  const int m = ls / R, step = N / ls, H = (R - 1) / 2;
+  const int T = matrix_tiles(R), groups = (T + COLS - 1) / COLS;
+  const int jobs = (b1 - b0 + 7) / 8 * groups;
   const int lane = lt % 32, gid = lane >> 2, tig = lane & 3;
   const float4* frag = reinterpret_cast<const float4*>(table);
   for (int job = lt / 32; job < jobs; job += nt / 32) {
-    const int mi = job / pairs, n0 = 2 * (job - mi * pairs);
+    const int mi = job / groups, n0 = COLS * (job - mi * groups);
     const bool two = n0 + 1 < T;
-    const int b = 8 * mi + gid, g = b / m;
-    const int base = b < nb ? g * ls + b - g * m : -1;   // g ls + j, -1 past the last
-    float p[2][4], q[2][4];
+    const int b = b0 + 8 * mi + gid, g = b / m;
+    const int base = b < b1 ? g * ls + b - g * m : -1;   // g ls + j, -1 past the last
+    const int j = b - g * m;
+    float p[COLS][4], q[COLS][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) p[0][e] = p[1][e] = q[0][e] = q[1][e] = 0.0f;
+    for (int t = 0; t < COLS; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[t][e] = q[t][e] = 0.0f;
     for (int kt = 0; kt < T; ++kt) {
       // A fragments: (row gid, r0), (row gid + 8, r0), (row gid, r1), (row
       // gid + 8, r1): rows gid and gid + 8 are this butterfly's real and
@@ -321,11 +363,15 @@ __device__ __forceinline__ void matrix_stage(const float2* z, float2* zo, int N,
         const int r = 8 * kt + tig + 4 * h;
         sa[h] = sb[h] = make_float2(0.0f, 0.0f);
         if (base >= 0 && r <= H) {
-          const float2 v = z[base + r * m];
+          float2 v = z[base + r * m];
           if (r == 0) {
             sa[h] = v;
           } else {
-            const float2 w = z[base + (R - r) * m];
+            float2 w = z[base + (R - r) * m];
+            if (TRANSPOSED && m > 1) {
+              v = cmul(v, __ldg(tw + j * r * step));
+              w = cmul(w, __ldg(tw + j * (R - r) * step));
+            }
             sa[h] = cadd(v, w);
             sb[h] = csub(v, w);
           }
@@ -337,23 +383,23 @@ __device__ __forceinline__ void matrix_stage(const float2* z, float2* zo, int N,
       split_tf32(fa, ahi, alo);
       split_tf32(fb, bhi, blo);
       const float4* f = frag + 2 * ((kt * T + n0) * 32 + lane);
-      mma_tf32x3(p[0], ahi, alo, __ldg(f));
-      mma_tf32x3(q[0], bhi, blo, __ldg(f + 1));
-      if (two) {
-        mma_tf32x3(p[1], ahi, alo, __ldg(f + 64));
-        mma_tf32x3(q[1], bhi, blo, __ldg(f + 65));
+#pragma unroll
+      for (int t = 0; t < COLS; ++t) {
+        if (t == 0 || (t == 1 ? two : n0 + t < T)) {
+          mma_tf32x3(p[t], ahi, alo, __ldg(f + 64 * t));
+          mma_tf32x3(q[t], bhi, blo, __ldg(f + 64 * t + 1));
+        }
       }
     }
     if (base < 0) continue;
-    const int j = base % ls;
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
+    for (int t = 0; t < COLS; ++t) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         // Column 2 tig + c of tile n0 + t: P_s in p[t][c] (real) and
         // p[t][c + 2] (imaginary), Q_s likewise.
         const int s = 8 * (n0 + t) + 2 * tig + c;
-        if (s > H || (t == 1 && !two)) continue;
+        if (s > H || (t == 1 && !two) || (t > 1 && n0 + t >= T)) continue;
         const float pr = p[t][c], pi = p[t][c + 2], qr = q[t][c], qi = q[t][c + 2];
         if (s == 0) {
           zo[base] = make_float2(pr, pi);
@@ -361,7 +407,7 @@ __device__ __forceinline__ void matrix_stage(const float2* z, float2* zo, int N,
         }
         float2 lo_s = make_float2(__fadd_rn(pr, qi), __fsub_rn(pi, qr));
         float2 hi_s = make_float2(__fsub_rn(pr, qi), __fadd_rn(pi, qr));
-        if (m > 1) {
+        if (!TRANSPOSED && m > 1) {
           lo_s = cmul(lo_s, __ldg(tw + j * s * step));
           hi_s = cmul(hi_s, __ldg(tw + j * (R - s) * step));
         }
@@ -369,6 +415,83 @@ __device__ __forceinline__ void matrix_stage(const float2* z, float2* zo, int N,
         zo[base + (R - s) * m] = hi_s;
       }
     }
+  }
+}
+
+// A matrix stage with COLS column tiles a job where the radix has more than
+// 4 tiles (R above 63), else 2: on an H100 four columns were faster at R =
+// 113 and 149 and two at 31 and 83 (PERF.md §6).
+template <bool TRANSPOSED, int COLS, class ZI, class ZO>
+__device__ __forceinline__ void run_matrix_stage(ZI z, ZO zo, int N, int R, int ls, int b0, int b1,
+                                                 int lt, int nt, const float* __restrict__ table,
+                                                 const float2* __restrict__ tw) {
+  if (COLS > 2 && matrix_tiles(R) > 4)
+    matrix_stage<TRANSPOSED, COLS>(z, zo, N, R, ls, b0, b1, lt, nt, table, tw);
+  else
+    matrix_stage<TRANSPOSED, 2>(z, zo, N, R, ls, b0, b1, lt, nt, table, tw);
+}
+
+// The Rader stage of a prime p, the plan's last (m = 1: butterfly b is the
+// points b p .. b p + p - 1 of the N-point array). Writing k = g^{-q} and n
+// = g^m (g a generator mod p), X_k - x_0 is the cyclic convolution of a_m =
+// x_{g^m} with b_m = e^{-2 pi i g^{-m} / p}, of length p - 1:
+//
+// 1. `rader_gather`: a_m of butterfly b to b (p - 1) + m of the other work
+//    array, and x_0 to its tail N' + b (N' = N (p - 1) / p; the inner
+//    transforms never touch the tail); in the mixed body, where the Rader
+//    stage is the only one (L = p) and n_fft is at most
+//    RADER_FOLD_MAX_NFFT, the load gathers instead (`rader_load_index`: a
+//    pass and a barrier fewer). On an H100, in turns with the pass, the
+//    fold was 1.5-8.3 % faster at every n_fft measured up to 4,001 (1103,
+//    1999, 2206, 3001, 3998, 4001) and 15 % slower at 6,007, 12 % at
+//    23,054, where the frame's permuted reads from device memory cost more
+//    than the pass in shared memory (PERF.md §6, tools/logmel_phases.py
+//    --sizes ... --against);
+// 2. the inner DIF stages, register and matrix, forward, on the N' points as
+//    a batch of p - 1 point transforms (their own twiddle table);
+// 3. `rader_product`: X_0 = x_0 + A_0 (A_0 the DC term, at b (p - 1)) goes
+//    to the tail, and each A_q is multiplied by the filter spectrum B_q =
+//    DFT(b)_q / (p - 1) (from the host, at the DIF positions), x_0 added to
+//    the DC product;
+// 4. the transposed stages in reverse order (a forward DFT with permuted
+//    input and natural output), which give D_n = conv_{-n} + x_0 = X_{g^n}.
+//
+// So X_{g^m} of butterfly b is at b (p - 1) + m and X_0 at N' + b: the
+// host's `pos` table says so, and no scatter pass is needed.
+template <class ZI, class ZO>
+__device__ __forceinline__ void rader_gather(ZI z, ZO w, int N, int p, int t0, int t1, int lt,
+                                             int nt, const int* __restrict__ rgather) {
+  const int count = p - 1, tail = N - N / p;
+  for (int t = t0 + lt; t < t1; t += nt) {
+    if (t < tail) {
+      const int b = t / count;
+      w[t] = z[b * p + __ldg(rgather + t - b * count)];
+    } else {
+      w[t] = z[(t - tail) * p];
+    }
+  }
+}
+
+// The input point that a Rader stage which is the only stage (L = p, one
+// butterfly) gathers into point t of its work array.
+__device__ __forceinline__ int rader_load_index(int t, int p, const int* __restrict__ rgather) {
+  return t < p - 1 ? __ldg(rgather + t) : 0;
+}
+
+template <class ZF, class ZT>
+__device__ __forceinline__ void rader_product(ZF f, ZT tail, int N, int p, int t0, int t1, int lt,
+                                              int nt, const float2* __restrict__ rspec) {
+  const int count = p - 1, base = N - N / p;
+  for (int t = t0 + lt; t < t1; t += nt) {
+    const int b = t / count, q = t - b * count;
+    const float2 a = f[t];
+    float2 y = cmul(a, __ldg(rspec + q));
+    if (q == 0) {
+      const float2 x0 = tail[base + b];
+      tail[base + b] = cadd(x0, a);
+      y = cadd(y, x0);
+    }
+    f[t] = y;
   }
 }
 
@@ -485,6 +608,66 @@ __device__ __forceinline__ float2 load_point(const float* fr, int n, int L, bool
     if (BLUE) v = cmul(v, __ldg(chirp + n));
   }
   return v;
+}
+
+// Host side: the plan a launcher takes, from its C interface's radices (the
+// last the Rader prime where rader_stages > 0) and the Rader stage's inner
+// radices; each a register radix, or an odd radix above 13 whose
+// matrix_tiles are at most max_tiles (a matrix stage, its fragments' offset
+// in `table` order: the outer stages', then the inner ones'). Sets `wide`
+// (radix 11 or 13, a matrix or a Rader stage), `matrix` (any matrix stage)
+// and `alt` (a second work array: a matrix or Rader stage). False for a plan
+// the bodies do not take.
+inline bool make_plan(Plan& plan, int n_fft, int n, int n_stages, const int* radices,
+                      int rader_stages, const int* rader_radices, int max_tiles, bool& wide,
+                      bool& matrix, bool& alt) {
+  if (n_stages < 0 || n_stages > MAX_STAGES || (n_stages > 0 && radices == nullptr) ||
+      rader_stages < 0 || rader_stages > MAX_STAGES ||
+      (rader_stages > 0 && (rader_radices == nullptr || n_stages == 0)))
+    return false;
+  plan = Plan{};
+  plan.n = n;
+  plan.points = n_fft % 2 ? n_fft : n_fft / 2;
+  plan.n_bins = n_fft / 2 + 1;
+  plan.n_stages = n_stages;
+  plan.rader_stages = rader_stages;
+  plan.rader_first = rader_stages > 0 && n_stages == 1 && n_fft <= RADER_FOLD_MAX_NFFT;
+  wide = matrix = false;
+  alt = rader_stages > 0;
+  int table = 0;
+  auto take = [&](int r, int& offset) {
+    offset = 0;
+    if (register_radix(r, true)) {
+      wide = wide || !register_radix(r, false);
+      return true;
+    }
+    if (r <= MAX_REGISTER_RADIX || r % 2 == 0 || matrix_tiles(r) > max_tiles) return false;
+    wide = matrix = alt = true;
+    offset = table;
+    table += matrix_tiles(r) * matrix_tiles(r) * 32 * 8;
+    return true;
+  };
+  long long prod = 1;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    plan.radix[s] = r;
+    prod *= r;
+    if (rader_stages > 0 && s == n_stages - 1) {
+      plan.table[s] = 0;
+      if (r <= MAX_REGISTER_RADIX || r % 2 == 0) return false;
+      wide = true;
+    } else if (!take(r, plan.table[s])) {
+      return false;
+    }
+  }
+  if (prod != n) return false;
+  long long inner = 1;
+  for (int s = 0; s < rader_stages; ++s) {
+    plan.rader_radix[s] = rader_radices[s];
+    inner *= rader_radices[s];
+    if (!take(rader_radices[s], plan.rader_table[s])) return false;
+  }
+  return rader_stages == 0 || inner == plan.radix[n_stages - 1] - 1;
 }
 
 }  // namespace logmel

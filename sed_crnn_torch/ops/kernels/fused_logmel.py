@@ -17,18 +17,21 @@ whatever the route:
   an odd ``n_fft``, the real frame as ``n_fft`` complex points), a
   mixed-radix FFT of the transform length L (register radices 4, 2, 3, 5,
   7, 11, 13 in place, then a matrix stage on the tensor cores for each
-  prime factor above 13 up to ``MATRIX_MAX``), or Bluestein's chirp
-  convolution through two FFTs of a 7-smooth length M >= 2L - 1 where a
-  larger prime divides L or `plan_cost` finds it cheaper, then the same
-  power, mel (a warp a band), floor, log. `mixed_log_mel_plain` repeats its
-  arithmetic operation by operation (a matrix stage as one float64 product,
-  which the kernel's TF32 products approximate);
+  prime factor above 13 up to ``MATRIX_MAX``, or a Rader stage last for the
+  largest prime: its p-point DFTs as cyclic convolutions of p - 1 points,
+  two inner transforms on the same stages), or Bluestein's chirp
+  convolution through two FFTs of a 7-smooth length M >= 2L - 1 where L has
+  a prime above ``MATRIX_MAX`` whose p - 1 has one too, or `plan_cost` finds
+  it cheaper, then the same power, mel (lanes a band), floor, log.
+  `mixed_log_mel_plain` repeats its arithmetic operation by operation (a
+  matrix stage as one float64 product, which the kernel's TF32 products
+  approximate);
 * ``"cluster"`` (``csrc/logmel_cluster.cu``), every n_fft beyond that limit:
-  the mixed body's plan and operations with one frame split over a
-  thread-block cluster of `cluster_size` CTAs, each holding its share of the
-  work array and power row in its own shared memory and reaching its
-  partners' through distributed shared memory; bitwise the mixed body's
-  (`mixed_log_mel_plain`) at every cluster size.
+  the mixed body's plan and operations (matrix and Rader stages included)
+  with one frame split over a thread-block cluster of `cluster_size` CTAs,
+  each holding its share of the work arrays and power row in its own shared
+  memory and reaching its partners' through distributed shared memory;
+  bitwise the mixed body's at every cluster size.
 
 Modes, renamed from the JAX package's (as `core/config.py` renames the
 backends): ``"dif"`` is the JAX ``"bf16x3"`` and ``"exact"`` keeps its
@@ -56,6 +59,7 @@ the ``"mixed"`` and ``"cluster"`` bodies among them.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from functools import lru_cache, partial
 from typing import NamedTuple, Optional, Tuple
@@ -83,12 +87,12 @@ MEL_BINS_PER_LANE = 16            # `mel_group`: a band's mean bins a lane, to w
 MATRIX_TILES = 64
 MATRIX_MAX = 1021                 # the largest prime a matrix stage takes
 # `plan_cost`'s weights, ns a frame on one SM, and the cluster body's cost
-# against the mixed body's for the same register stages: the least-squares
-# fits that `python3 -m sed_crnn_torch.tools.logmel_phases` prints from the
-# bodies' transform times on an H100 (PERF.md §6).
-COST_REGISTER = 0.268
-COST_MATRIX = 27.4
-COST_CLUSTER = 1.43
+# against the mixed body's for the same counts: the least-squares fits that
+# `python3 -m sed_crnn_torch.tools.logmel_phases` prints from the bodies'
+# transform times on an H100 (PERF.md §6).
+COST_REGISTER = 0.451
+COST_MATRIX = 18.5
+COST_CLUSTER = 1.056
 
 # Serving threads call the wrappers concurrently: the operand cache and the
 # launch counters are read-modify-write.
@@ -210,29 +214,68 @@ def _direct_radices(n: int) -> Optional[Tuple[int, ...]]:
     return (4,) * fours + (2,) * twos + tuple(p for p in primes if p != 2)
 
 
-def plan_counts(n: int, radices: Tuple[int, ...], bluestein: bool) -> Tuple[int, int]:
+def _primitive_root(p: int) -> int:
+    """The smallest generator of the multiplicative group mod the prime ``p``."""
+    qs = set(_prime_factors(p - 1))
+    return next(g for g in range(2, p) if all(pow(g, (p - 1) // q, p) != 1 for q in qs))
+
+
+def _rader_radices(points: int) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """A plan with a Rader stage for L = ``points``: (the outer radices, the
+    Rader prime p last; the inner radices of its p - 1 point transforms), or
+    None. p is L's largest prime, above 13, with a direct plan for p - 1
+    (`_direct_radices`: no nested Rader); L's other primes run as register
+    or matrix stages, so none of them may exceed ``MATRIX_MAX``."""
+    primes = _prime_factors(points)
+    if not primes or primes[-1] <= REGISTER_RADICES[-1]:
+        return None
+    p = primes[-1]
+    inner = _direct_radices(p - 1)
+    rest = _direct_radices(points // p)
+    if inner is None or rest is None:
+        return None
+    return rest + (p,), inner
+
+
+def plan_counts(n: int, radices: Tuple[int, ...], bluestein: bool,
+                rader: Tuple[int, ...] = ()) -> Tuple[int, int]:
     """A plan's work a frame as `plan_cost` weighs it: register-stage points
     (both transforms with Bluestein, and its filter product as one more
     stage), and matrix tile steps (ceil(N / R / 8) row tiles x
     `matrix_tiles` (R)^2 a stage, each six ``mma`` and the gather of their
-    operands)."""
+    operands). A Rader stage (its prime the last of ``radices``, ``rader``
+    the radices of its p - 1 point transforms, N' = N (p - 1) / p points)
+    counts both inner transforms' register points and tile steps, and its
+    gather and pointwise product as two more stages of N' points."""
+    if rader:
+        radices = radices[:-1]
     reg = sum(n for r in radices if r in REGISTER_RADICES)
     mat = sum(-(-(n // r) // 8) * matrix_tiles(r) ** 2 for r in radices
               if r not in REGISTER_RADICES)
-    return (2 * reg + n, 2 * mat) if bluestein else (reg, mat)
+    if bluestein:
+        return 2 * reg + n, 2 * mat
+    if rader:
+        inner = n - n // (math.prod(rader) + 1)
+        i_reg, i_mat = plan_counts(inner, rader, False)
+        reg, mat = reg + 2 * i_reg + 2 * inner, mat + 2 * i_mat
+    return reg, mat
 
 
 def plan_cost(n: int, radices: Tuple[int, ...], bluestein: bool,
-              cluster: bool = False) -> float:
+              cluster: bool = False, rader: Tuple[int, ...] = ()) -> float:
     """The cost model `mixed_plan` picks by, in nanoseconds a frame on one
     SM: ``COST_REGISTER`` a register-stage point and ``COST_MATRIX`` a
     matrix tile step (`plan_counts`), times ``COST_CLUSTER`` for a plan the
     cluster body runs (its stages cross CTAs through distributed shared
     memory and cluster barriers). Fitted to the bodies' transform times on
-    an H100 (12 plans at 7 sizes on the mixed body, within about 30 % of
-    each; 5 sizes on the cluster body), it orders every pair of plans timed
-    there as the card does."""
-    reg, mat = plan_counts(n, radices, bluestein)
+    an H100 (24 plans at 12 sizes on the mixed body, 5 sizes on the cluster
+    body; PERF.md §6): from 0.55x to 3.4x each plan's time (the largest
+    misses are register-only plans of under 2,000 points, whose cost a point
+    varies 3x with the radices and the frames a block), it orders every pair
+    of plans timed at one size as the card does: matrix before Rader at
+    primes to 281 and Rader before matrix at 823, Rader before Bluestein at
+    1,103 and 11,527."""
+    reg, mat = plan_counts(n, radices, bluestein, rader)
     return (COST_REGISTER * reg + COST_MATRIX * mat) * (COST_CLUSTER if cluster else 1.0)
 
 
@@ -240,9 +283,11 @@ class MixedPlan(NamedTuple):
     """How ``csrc/logmel_mixed.cu`` transforms a frame of ``n_fft`` samples:
     ``points`` complex points L (``n_fft / 2`` packed, or ``n_fft`` at an odd
     n_fft), a transform of length ``n`` (L direct, or Bluestein's M) by DIF
-    stages of ``radices`` (those above 13 are matrix stages), and the shared
-    memory one frame takes (the work array, twice with matrix stages, and
-    the power row)."""
+    stages of ``radices``, each a register stage (2-13), a matrix stage (an
+    odd prime above 13) or, the last only, a Rader stage (its prime p, with
+    ``rader`` the radices of its two p - 1 point inner transforms, each
+    register or matrix), and the shared memory one frame takes (the work
+    array, twice with a matrix or Rader stage, and the power row)."""
 
     n_fft: int
     points: int
@@ -250,124 +295,206 @@ class MixedPlan(NamedTuple):
     radices: Tuple[int, ...]
     bluestein: bool
     smem_bytes: int
+    rader: Tuple[int, ...] = ()
+
+    @property
+    def kinds(self) -> Tuple[str, ...]:
+        """Each stage's kind, in stage order: register, matrix or rader."""
+        last = len(self.radices) - 1
+        return tuple("rader" if self.rader and s == last else
+                     "register" if r in REGISTER_RADICES else "matrix"
+                     for s, r in enumerate(self.radices))
 
     @property
     def matrix(self) -> Tuple[int, ...]:
-        """The radices run as matrix stages, in stage order."""
-        return tuple(r for r in self.radices if r not in REGISTER_RADICES)
+        """The radices run as matrix stages, in stage order (not the Rader
+        stage's inner ones: `rader_matrix`)."""
+        return tuple(r for r, k in zip(self.radices, self.kinds) if k == "matrix")
+
+    @property
+    def rader_prime(self) -> int:
+        """The Rader stage's prime, 0 without one."""
+        return self.radices[-1] if self.rader else 0
+
+    @property
+    def rader_matrix(self) -> Tuple[int, ...]:
+        """The Rader stage's inner radices run as matrix stages."""
+        return tuple(r for r in self.rader if r not in REGISTER_RADICES)
+
+    @property
+    def tensor_cores(self) -> bool:
+        """Whether any stage runs on the tensor cores (the kernel is then
+        within ``MATRIX_ATOL``-sized bands of `mixed_log_mel_plain`, not its
+        bits)."""
+        return bool(self.matrix or self.rader_matrix)
 
 
-def _make_plan(n_fft: int, points: int, radices: Tuple[int, ...], bluestein: bool) -> MixedPlan:
+def _make_plan(n_fft: int, points: int, radices: Tuple[int, ...], bluestein: bool,
+               rader: Tuple[int, ...] = ()) -> MixedPlan:
     """A plan and its shared memory a frame: the work array (two where a
-    matrix stage writes out of place) and the power row."""
+    matrix or Rader stage writes out of place) and the power row."""
     n = int(np.prod(radices, dtype=np.int64))
-    arrays = 2 if any(r not in REGISTER_RADICES for r in radices) else 1
-    return MixedPlan(n_fft, points, n, radices, bluestein, 8 * arrays * n + 4 * (n_fft // 2 + 1))
+    arrays = 2 if rader or any(r not in REGISTER_RADICES for r in radices) else 1
+    return MixedPlan(n_fft, points, n, radices, bluestein,
+                     8 * arrays * n + 4 * (n_fft // 2 + 1), tuple(rader))
+
+
+def _share_bytes(plan: MixedPlan, chunk: int, ctas: int) -> int:
+    arrays = (plan.smem_bytes - 4 * (plan.n_fft // 2 + 1)) // (8 * plan.n)
+    return 8 * arrays * chunk + 4 * -(-(plan.n_fft // 2 + 1) // ctas)
+
+
+def _cluster_chunk(plan: MixedPlan, ctas: int) -> int:
+    """The points of each work array a CTA holds when ``ctas`` CTAs share
+    the plan's frame: ceil(N / C), or with a Rader stage whole inner
+    transforms of p - 1 points a CTA (ceil(N / p / C) of them) where those
+    cover the frame and fit, so that its inner stages stay inside the CTAs
+    (at n_fft 25,734, C 2: 8,576 points, where 6,434 made every inner stage
+    cross)."""
+    chunk = -(-plan.n // ctas)
+    if plan.rader:
+        count = plan.rader_prime - 1
+        aligned = count * -(-(plan.n // plan.rader_prime) // ctas)
+        if aligned * ctas >= plan.n and _share_bytes(plan, aligned, ctas) <= MIXED_MAX_SMEM:
+            return aligned
+    return chunk
+
+
+def _cluster_bytes(plan: MixedPlan, ctas: int) -> int:
+    """A CTA's shared memory when ``ctas`` CTAs share the plan's frame."""
+    return _share_bytes(plan, _cluster_chunk(plan, ctas), ctas)
+
+
+def _plan_cost_on_body(plan: MixedPlan) -> float:
+    return plan_cost(plan.n, plan.radices, plan.bluestein, plan.smem_bytes > MIXED_MAX_SMEM,
+                     plan.rader)
+
+
+# The plan kinds a caller may force (`mixed_plan`'s ``plan``).
+PLAN_KINDS = ("direct", "rader", "bluestein")
 
 
 @lru_cache(maxsize=None)
-def mixed_plan(n_fft: int, bluestein: Optional[bool] = None) -> MixedPlan:
+def mixed_plan(n_fft: int, plan: Optional[str] = None) -> MixedPlan:
     """The plan of the mixed and cluster bodies at ``n_fft`` >= 1.
 
-    L points (n_fft / 2 at an even n_fft, n_fft at an odd one) run either
-    direct, N = L, by `_direct_radices` (register radices 2, 3, 4, 5, 7,
-    11, 13, then matrix stages for the primes above 13 up to
-    ``MATRIX_MAX``), or by Bluestein at M, the smallest 7-smooth length >=
-    2L - 1 (register radices only). ``bluestein`` None picks the cheaper
-    by `plan_cost` (on the body each would run on); a direct plan with a
-    matrix stage that does not fit one block's shared memory
-    (``MIXED_MAX_SMEM``) takes Bluestein instead, since the cluster body
-    has no matrix stage. True or False forces the
-    one or the other (ValueError where L has no direct plan)."""
+    L points (n_fft / 2 at an even n_fft, n_fft at an odd one) run by one
+    of three plans: direct, N = L, by `_direct_radices` (register radices
+    2, 3, 4, 5, 7, 11, 13, then matrix stages for the primes above 13 up to
+    ``MATRIX_MAX``); direct with a Rader stage for L's largest prime p above
+    13 (`_rader_radices`: the other primes as before, p last, its two p - 1
+    point transforms on register and matrix stages), which takes the primes
+    above ``MATRIX_MAX`` whose p - 1 has a direct plan; or Bluestein at M,
+    the smallest 7-smooth length >= 2L - 1 (register radices only), which
+    keeps the rest. ``plan`` None picks the cheapest by `plan_cost`, on the
+    body each would run on (one block where it fits, else a cluster), among
+    the plans the cluster body's 16 CTAs hold (among all of them where none
+    is held: beyond the body's limit). One of `PLAN_KINDS` forces that
+    plan: ``"direct"`` (register and matrix stages only), ``"rader"`` or
+    ``"bluestein"``; ValueError where L has no such plan."""
     if n_fft < 1:
         raise ValueError(f"n_fft must be positive, got {n_fft}")
+    if plan is not None and plan not in PLAN_KINDS:
+        raise ValueError(f"unknown plan kind {plan!r}; expected one of {PLAN_KINDS}")
     points = n_fft if n_fft % 2 else n_fft // 2
+    plans = {"bluestein": _make_plan(n_fft, points,
+                                     _smooth_radices(_next_smooth(2 * points - 1)), True)}
     direct = _direct_radices(points)
-    blue = _make_plan(n_fft, points, _smooth_radices(_next_smooth(2 * points - 1)), True)
-    if bluestein:
-        return blue
-    if direct is None:
-        if bluestein is False:
-            raise ValueError(f"n_fft {n_fft}: L = {points} has a prime factor above "
-                             f"{MATRIX_MAX}, so no direct plan")
-        return blue
-    plan = _make_plan(n_fft, points, direct, False)
-    if bluestein is False:
-        return plan
-    if plan.matrix and plan.smem_bytes > MIXED_MAX_SMEM:
-        return blue
-    if plan_cost(plan.n, plan.radices, False, plan.smem_bytes > MIXED_MAX_SMEM) <= plan_cost(
-            blue.n, blue.radices, True, blue.smem_bytes > MIXED_MAX_SMEM):
-        return plan
-    return blue
+    if direct is not None:
+        plans["direct"] = _make_plan(n_fft, points, direct, False)
+    with_rader = _rader_radices(points)
+    if with_rader is not None:
+        plans["rader"] = _make_plan(n_fft, points, with_rader[0], False, with_rader[1])
+    if plan is not None:
+        if plan not in plans:
+            raise ValueError(f"n_fft {n_fft}: L = {points} has no {plan} plan")
+        return plans[plan]
+    held = [p for p in plans.values() if _cluster_bytes(p, CLUSTER_MAX) <= MIXED_MAX_SMEM]
+    return min(held or plans.values(), key=_plan_cost_on_body)
 
 
 class ClusterSplit(NamedTuple):
     """How ``csrc/logmel_cluster.cu`` splits one frame of `mixed_plan` over a
-    cluster of ``ctas`` CTAs: ``chunk`` work-array points and ``bin_chunk``
-    power-row bins a CTA, the shared memory a CTA takes, and which DIF
-    stages (each with its transposed twin) reach other CTAs: stage s on
-    sub-transforms of length ls crosses when ls does not divide the chunk."""
+    cluster of ``ctas`` CTAs: ``chunk`` work-array points (`_cluster_chunk`)
+    and ``bin_chunk`` power-row bins a CTA (of each work array: two with a
+    matrix or Rader stage), the shared memory a CTA takes, and which DIF stages (each with
+    its transposed twin) reach other CTAs: stage s on sub-transforms of
+    length ls crosses when ls does not divide the chunk. ``rader_cross``
+    says the same of the Rader stage's inner stages (its gather and
+    pointwise product always cross, and so does the Rader stage's bit)."""
 
     ctas: int
     chunk: int
     bin_chunk: int
     smem_bytes: int
     cross: Tuple[bool, ...]
+    rader_cross: Tuple[bool, ...] = ()
 
 
-def cluster_split(n_fft: int, ctas: int, bluestein: Optional[bool] = None) -> ClusterSplit:
-    """`mixed_plan` (n_fft, ``bluestein``) split over ``ctas`` CTAs: the split
-    `_launch_cluster` hands the kernel, whose launcher refuses one that
-    does not cover the frame, does not fit or keeps a stage inside the CTAs
-    whose sub-transforms do not divide the chunk."""
-    plan = mixed_plan(n_fft, bluestein)
-    chunk, bins = -(-plan.n // ctas), -(-(n_fft // 2 + 1) // ctas)
-    cross, ls = [], plan.n
-    for r in plan.radices:
+def _crossing(chunk: int, n: int, radices) -> Tuple[bool, ...]:
+    cross, ls = [], n
+    for r in radices:
         cross.append(chunk % ls != 0)
         ls //= r
-    return ClusterSplit(ctas, chunk, bins, 8 * chunk + 4 * bins, tuple(cross))
+    return tuple(cross)
+
+
+def cluster_split(n_fft: int, ctas: int, plan: Optional[str] = None) -> ClusterSplit:
+    """`mixed_plan` (n_fft, ``plan``) split over ``ctas``
+    CTAs: the split `_launch_cluster` hands the kernel, whose launcher
+    refuses one that does not cover the frame, does not fit or keeps a stage
+    inside the CTAs whose sub-transforms do not divide the chunk."""
+    mp = mixed_plan(n_fft, plan)
+    chunk, bins = _cluster_chunk(mp, ctas), -(-(n_fft // 2 + 1) // ctas)
+    cross = _crossing(chunk, mp.n, mp.radices)
+    inner = ()
+    if mp.rader:
+        cross = cross[:-1] + (True,)
+        inner = _crossing(chunk, mp.rader_prime - 1, mp.rader)
+    return ClusterSplit(ctas, chunk, bins, _cluster_bytes(mp, ctas), cross, inner)
 
 
 @lru_cache(maxsize=None)
-def cluster_size(n_fft: int, bluestein: Optional[bool] = None) -> int:
+def cluster_size(n_fft: int, plan: Optional[str] = None) -> int:
     """C, the CTAs a frame of the cluster body: the smallest C from 2 to
     ``CLUSTER_MAX`` whose share of the plan fits in ``MIXED_MAX_SMEM``
     (measured the fastest on an H100 at six of seven sizes, PERF.md §6).
     Raises ValueError beyond the body's limit, a plan that
     ``CLUSTER_MAX`` CTAs do not hold. The bits do not depend on C."""
     for c in range(2, CLUSTER_MAX + 1):
-        if cluster_split(n_fft, c, bluestein).smem_bytes <= MIXED_MAX_SMEM:
+        if cluster_split(n_fft, c, plan).smem_bytes <= MIXED_MAX_SMEM:
             return c
     raise ValueError(
         f"n_fft {n_fft} is beyond the cluster body's limit: its plan takes "
-        f"{mixed_plan(n_fft, bluestein).smem_bytes:,} bytes of shared memory a frame, more than "
-        f"{CLUSTER_MAX} CTAs of {MIXED_MAX_SMEM:,} bytes hold")
+        f"{mixed_plan(n_fft, plan).smem_bytes:,} bytes of shared memory a frame, "
+        f"more than {CLUSTER_MAX} CTAs of {MIXED_MAX_SMEM:,} bytes hold")
 
 
 def body(n_fft: int) -> str:
     """Which CUDA body computes a launch at ``n_fft`` >= 1: ``"fft"`` for a
     power of two from 256 to 16384; ``"mixed"`` for any other n_fft whose
     `mixed_plan` takes at most ``MIXED_MAX_SMEM`` bytes of shared memory a
-    frame (8 N bytes of work array, twice with matrix stages, and 4 (n_fft /
-    2 + 1) of power row): every n_fft up to 12,866 (12,865 = 5 x 31 x 83
-    direct with matrix stages, 231,572 bytes; 12,867 = 3 x 4289 is odd
-    Bluestein at M 25,920: 233,096 bytes), every even one up to 23,052
-    (23,042: L 41 x 281 direct, 230,424 bytes; 23,054: L 11,527 prime,
-    Bluestein at M 23,328), and above those the sizes whose plan fits:
-    direct with register radices up to L = 22,869 (an odd n_fft, 3^3 x 7 x
-    11^2; the largest even n_fft is 38,720, L = 19,360), with matrix stages
-    up to n_fft 23,244 (L 2 x 3 x 13 x 149, 232,444 bytes), and Bluestein
-    up to M = 25,725; ``"cluster"`` for the rest, the same plan split over `cluster_size`
-    CTAs (never a matrix stage: a direct plan with one that does not fit
-    one block takes Bluestein). The cluster body's limit is a plan whose
+    frame (8 N bytes of work array, twice with matrix or Rader stages, and 4
+    (n_fft / 2 + 1) of power row): every n_fft up to 12,894 (12,865 = 5 x
+    31 x 83 direct with matrix stages, 231,572 bytes; 12,867 = 3 x 4289
+    with a Rader stage, 231,608; 12,895 = 5 x 2579 is Bluestein at M 25,920,
+    233,152), every even one up to 23,080 (23,042: L 41 x 281 direct,
+    230,424 bytes; 23,054: L 11,527 prime, a Rader stage, 230,544; 23,082:
+    L 3 x 3847, Bluestein on the cluster body costs less), and above those
+    the sizes whose plan fits: direct with register radices up to L =
+    22,869 (an odd n_fft, 3^3 x 7 x 11^2; the largest even n_fft is 38,720,
+    L = 19,360), with matrix or Rader stages up to L = 12,913 (two work
+    arrays; the largest such n_fft is 23,244), and Bluestein up to M =
+    25,725; ``"cluster"`` for the rest, the same plan
+    split over `cluster_size` CTAs. The cluster body's limit is a plan whose
     share in ``CLUSTER_MAX`` (16) CTAs fits in 227 KB each: every n_fft
-    below 206,209 (odd: Bluestein at M = 413,343, 3,719,164 bytes), and
-    above it the sizes whose plan fits (to 617,400, an even n_fft whose half
-    is 7-smooth); beyond it a launch raises ValueError (`cluster_size`). No
-    n_fft that ran before matrix stages is refused: every plan is the old
-    plan or a smaller one on a body that takes it."""
+    below 206,215 (odd, L = 5 x 41,243: Bluestein at M = 413,343, 3,719,164
+    bytes; 206,209 to 206,214 run direct or Rader plans), and above it the
+    sizes whose plan fits (to 617,400, an even n_fft whose half is
+    7-smooth); beyond it a launch raises ValueError (`cluster_size`). No
+    n_fft that ran before Rader stages is refused: `mixed_plan` keeps a plan
+    16 CTAs hold wherever one exists, and Bluestein's is still among its
+    choices."""
     lo, hi = FFT_LOG_N
     if n_fft & (n_fft - 1) == 0 and 1 << lo <= n_fft <= 1 << hi:
         return "fft"
@@ -473,6 +600,50 @@ def bluestein_filter(points: int, radices) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def rader_tables(prime: int, inner) -> dict:
+    """A Rader stage's tables for the prime p = ``prime`` whose p - 1 point
+    transforms run by the DIF stages ``inner``: ``rgather`` (int32, p - 1),
+    g^m mod p for the smallest generator g (`_primitive_root`), the order in
+    which the stage gathers each butterfly's points v_{g^m}; ``rtw``, the
+    inner transforms' twiddles e^{-2 pi i q / (p - 1)}; and ``rspec``, the
+    filter spectrum B = DFT_{p-1}(b) / (p - 1) of b_m = e^{-2 pi i g^{-m} /
+    p}, in float64, stored at the DIF positions of ``inner`` and rounded
+    once. The stage's cyclic convolution is then one forward transform, the
+    product with B, and the transposed stages (a forward DFT in natural
+    order, which reads the convolution at -q): X_{g^m} = x_0 + D_m."""
+    count = prime - 1
+    g = _primitive_root(prime)
+    gather = np.empty(count, np.int64)
+    inverse = np.empty(count, np.int64)
+    gi = pow(g, prime - 2, prime)
+    a = b = 1
+    for m in range(count):
+        gather[m], inverse[m] = a, b
+        a, b = a * g % prime, b * gi % prime
+    spec = np.fft.fft(np.exp(-2j * np.pi * inverse.astype(np.float64) / prime)) / count
+    out = np.empty((count, 2), np.float64)
+    out[dif_positions(inner)] = np.stack([spec.real, spec.imag], axis=1)
+    return {"rgather": gather.astype(np.int32), "rtw": _unit_roots(count, count),
+            "rspec": out.astype(np.float32)}
+
+
+def output_positions(plan) -> np.ndarray:
+    """Where the mixed and cluster bodies leave X_k of a direct plan, k < L
+    (the ``pos`` table the bins' power reads): the DIF positions of the
+    plan's radices; with a Rader stage (the last, its butterflies the
+    contiguous runs of p points) remapped to where that stage leaves its
+    outputs, X_{g^m} of butterfly b at b (p - 1) + m and X_0 at N' + b (N'
+    = N (p - 1) / p, the tail the inner transforms do not use)."""
+    pos = dif_positions(plan.radices)
+    if not plan.rader:
+        return pos
+    p = plan.rader_prime
+    log = np.zeros(p, np.int64)
+    log[rader_tables(p, plan.rader)["rgather"]] = np.arange(p - 1)
+    b, s = pos // p, pos % p
+    return np.where(s == 0, plan.n - plan.n // p + b, b * (p - 1) + log[s])
+
+
 def _tf32(x: np.ndarray) -> np.ndarray:
     """float32 values rounded to TF32 (10 mantissa bits), to nearest with
     ties away from zero: what ``cvt.rna.tf32.f32`` does on the card."""
@@ -518,17 +689,19 @@ def matrix_table(radix: int) -> np.ndarray:
 
 
 def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax,
-                   bluestein: Optional[bool] = None) -> dict:
-    """The mixed body's operands for `mixed_plan` (n_fft, ``bluestein``),
-    each computed in float64 and rounded once to float32: the Hann window,
-    the stage twiddles of the N-point transform (``tw[m] = exp(-2 pi i m /
-    N)``, ``(N, 2)``, the register radices' constants among them), at an
-    even n_fft the untangle twiddles (``utw[k] = exp(-2 pi i k / n_fft)``,
-    ``(L + 1, 2)``); direct: the positions of X_k (``pos``, int32) and, with
-    matrix stages, their `matrix_table` s in stage order (``dft``);
-    Bluestein: the chirp (``(L, 2)``) and the filter spectrum (``bspec``,
-    ``(M, 2)``); the mel filterbank as CSR rows."""
-    plan = mixed_plan(n_fft, bluestein)
+                   plan: Optional[str] = None) -> dict:
+    """The mixed body's operands for `mixed_plan` (n_fft, ``plan``), each
+    computed in float64 and rounded once to float32: the
+    Hann window, the stage twiddles of the N-point transform (``tw[m] =
+    exp(-2 pi i m / N)``, ``(N, 2)``, the register radices' constants among
+    them), at an even n_fft the untangle twiddles (``utw[k] = exp(-2 pi i k
+    / n_fft)``, ``(L + 1, 2)``); direct: the positions of X_k (``pos``,
+    int32, `output_positions`), with a Rader stage its `rader_tables`, and
+    with matrix stages their `matrix_table` s in stage order, the Rader
+    stage's inner ones last (``dft``); Bluestein: the chirp (``(L, 2)``) and
+    the filter spectrum (``bspec``, ``(M, 2)``); the mel filterbank as CSR
+    rows."""
+    plan = mixed_plan(n_fft, plan)
     first, ptr, weights = mel_csr(sr, n_fft, n_mels, fmin, fmax)
     ops = {"window": hann_window(n_fft, np.float64).astype(np.float32),
            "tw": _unit_roots(plan.n, plan.n), "mel_first": first, "mel_ptr": ptr, "mel_w": weights}
@@ -538,31 +711,37 @@ def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax,
         ops["chirp"] = bluestein_chirp(plan.points)
         ops["bspec"] = bluestein_filter(plan.points, plan.radices)
     else:
-        ops["pos"] = dif_positions(plan.radices).astype(np.int32)
-    if plan.matrix:
-        ops["dft"] = np.concatenate([matrix_table(r) for r in plan.matrix])
+        ops["pos"] = output_positions(plan).astype(np.int32)
+    if plan.rader:
+        ops.update(rader_tables(plan.rader_prime, plan.rader))
+    if plan.matrix or plan.rader_matrix:
+        ops["dft"] = np.concatenate([matrix_table(r) for r in plan.matrix + plan.rader_matrix])
     ops["mel_group"] = mel_group(ptr)
     return ops
 
 
 _OPERANDS = {"dif": dif_operands, "exact": exact_operands, "fft": fft_operands,
-             "mixed": mixed_operands,
-             "mixed-bluestein": partial(mixed_operands, bluestein=True),
-             "mixed-direct": partial(mixed_operands, bluestein=False)}
-_MIXED_KINDS = {None: "mixed", True: "mixed-bluestein", False: "mixed-direct"}
+             "mixed": mixed_operands}
+
+
+def _mixed_kind(plan: Optional[str] = None):
+    """The operand kind of `mixed_plan` (n, ``plan``)."""
+    return "mixed" if plan is None else ("mixed", plan)
 
 
 @lru_cache(maxsize=16)
-def _device_operands(sr, n_fft, n_mels, fmin, fmax, kind: str, device: str) -> dict:
+def _device_operands(sr, n_fft, n_mels, fmin, fmax, kind, device: str) -> dict:
     """The operands of ``kind`` (``"dif"``, ``"exact"``, ``"fft"``,
-    ``"mixed"``) on ``device``, built on the host and cached only here: the cached tensors
-    are shared, read only."""
-    ops = _OPERANDS[kind](sr, n_fft, n_mels, fmin, fmax)
+    ``"mixed"``, or a forced mixed plan's `_mixed_kind`) on ``device``,
+    built on the host and cached only here: the cached tensors are shared,
+    read only."""
+    ops = (_OPERANDS[kind] if isinstance(kind, str) else
+           partial(mixed_operands, plan=kind[1]))(sr, n_fft, n_mels, fmin, fmax)
     return {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray) else v)
             for k, v in ops.items()}
 
 
-def _operands(cfg: FrontendConfig, n_fft: int, kind: str, device: torch.device) -> dict:
+def _operands(cfg: FrontendConfig, n_fft: int, kind, device: torch.device) -> dict:
     with _lock:   # one build per key when threads meet an empty cache
         return _device_operands(cfg.sample_rate, n_fft, cfg.n_mels, cfg.fmin, cfg.fmax,
                                 kind, str(device))
@@ -770,17 +949,18 @@ def _radix_butterfly(radix: int, vr, vi, tw_r, tw_i):
 
 def _mixed_stage(re, im, radix: int, ls: int, tw_r, tw_i, transposed: bool):
     """One in-place stage of ``csrc/logmel_mixed.cu`` on sub-transforms of
-    length ``ls``: butterfly b is sub-transform b // m at offset j = b % m
-    (m = ls / R), its points g ls + j + r m; DIF: butterfly, then output s
-    times e^{-2 pi i j s / ls}; transposed: input r times that, then
-    butterfly; no twiddles when m = 1."""
+    length ``ls`` (of a transform whose twiddle table ``tw`` has N entries;
+    the array may hold a batch of them): butterfly b is sub-transform b // m
+    at offset j = b % m (m = ls / R), its points g ls + j + r m; DIF:
+    butterfly, then output s times e^{-2 pi i j s / ls}; transposed: input r
+    times that, then butterfly; no twiddles when m = 1."""
     n = re.shape[1]
     m = ls // radix
     b = torch.arange(n // radix, device=re.device)
     j = b % m
     idx = [(b - j) * radix + j + r * m for r in range(radix)]
     vr, vi = [re[:, i] for i in idx], [im[:, i] for i in idx]
-    tw_idx = [j * r * (n // ls) for r in range(radix)]
+    tw_idx = [j * r * (tw_r.numel() // ls) for r in range(radix)]
     if transposed and m > 1:
         for r in range(1, radix):
             vr[r], vi[r] = _cmul(vr[r], vi[r], tw_r[tw_idx[r]], tw_i[tw_idx[r]])
@@ -794,26 +974,30 @@ def _mixed_stage(re, im, radix: int, ls: int, tw_r, tw_i, transposed: bool):
     return re, im
 
 
-def _matrix_stage(re, im, radix: int, ls: int, tw_r, tw_i):
+def _matrix_stage(re, im, radix: int, ls: int, tw_r, tw_i, transposed: bool = False):
     """``matrix_stage`` of ``csrc/logmel_stages.cuh`` on sub-transforms of
     length ``ls``, with `_mixed_stage`'s butterflies and points: each
     butterfly's R-point DFT as one product with the exact DFT matrix in
-    float64, rounded once to float32, then the DIF twiddles in float32 as
-    `_mixed_stage` applies them. The kernel's three TF32 tensor-core
-    products approximate that product (within a stated tolerance, not
-    bitwise)."""
+    float64, rounded once to float32, and the twiddles in float32 as
+    `_mixed_stage` applies them (after the product; before it, transposed).
+    The kernel's three TF32 tensor-core products approximate that product
+    (within a stated tolerance, not bitwise)."""
     n = re.shape[1]
     m = ls // radix
     b = torch.arange(n // radix, device=re.device)
     j = b % m
     r = torch.arange(radix, device=re.device)
     idx = ((b - j) * radix + j)[:, None] + m * r[None, :]
-    x = torch.complex(re[:, idx].double(), im[:, idx].double())
+    vr, vi = re[:, idx], im[:, idx]
+    t = j[:, None] * r[None, 1:] * (tw_r.numel() // ls)
+    if transposed and m > 1:
+        wr, wi = _cmul(vr[..., 1:], vi[..., 1:], tw_r[t], tw_i[t])
+        vr, vi = torch.cat([vr[..., :1], wr], -1), torch.cat([vi[..., :1], wi], -1)
+    x = torch.complex(vr.double(), vi.double())
     ang = 2.0 * np.pi * (np.outer(np.arange(radix), np.arange(radix)) % radix) / radix
     v = x @ torch.from_numpy(np.exp(-1j * ang)).to(re.device)
     vr, vi = v.real.float(), v.imag.float()
-    if m > 1:
-        t = j[:, None] * r[None, 1:] * (n // ls)
+    if not transposed and m > 1:
         wr, wi = _cmul(vr[..., 1:], vi[..., 1:], tw_r[t], tw_i[t])
         vr, vi = torch.cat([vr[..., :1], wr], -1), torch.cat([vi[..., :1], wi], -1)
     re, im = torch.empty_like(re), torch.empty_like(im)
@@ -821,15 +1005,52 @@ def _matrix_stage(re, im, radix: int, ls: int, tw_r, tw_i):
     return re, im
 
 
+def _inner_stage(re, im, radix: int, ls: int, tw_r, tw_i, transposed: bool):
+    """A register or matrix stage, by its radix."""
+    if radix in REGISTER_RADICES:
+        return _mixed_stage(re, im, radix, ls, tw_r, tw_i, transposed)
+    return _matrix_stage(re, im, radix, ls, tw_r, tw_i, transposed)
+
+
+def _rader_stage(re, im, plan: MixedPlan, ops: dict):
+    """The Rader stage of ``csrc/logmel_stages.cuh`` (the plan's last, m =
+    1: butterfly b is the points b p .. b p + p - 1), operation by operation:
+    gather a_m = v_{g^m} (``rgather``) into an array of N' = N (p - 1) / p
+    points, b (p - 1) + m; the inner DIF stages on it (twiddles ``rtw``);
+    X_0 = x_0 + A_0; the product with ``rspec``, x_0 added to its DC term;
+    the transposed stages in reverse order. X_{g^m} is then at b (p - 1) +
+    m, and X_0 goes to the tail N' + b (`output_positions`)."""
+    p, count = plan.rader_prime, plan.rader_prime - 1
+    batches = re.shape[1] // p
+    start = torch.arange(batches, device=re.device) * p
+    idx = (start[:, None] + ops["rgather"].long()[None, :]).reshape(-1)
+    ar, ai = re[:, idx], im[:, idx]
+    v0r, v0i = re[:, start], im[:, start]
+    tw_r, tw_i = ops["rtw"][:, 0], ops["rtw"][:, 1]
+    ls = count
+    for radix in plan.rader:
+        ar, ai = _inner_stage(ar, ai, radix, ls, tw_r, tw_i, False)
+        ls //= radix
+    dc = torch.arange(batches, device=re.device) * count
+    x0r, x0i = v0r + ar[:, dc], v0i + ai[:, dc]
+    ar, ai = _cmul(ar, ai, ops["rspec"][:, 0].repeat(batches), ops["rspec"][:, 1].repeat(batches))
+    ar[:, dc], ai[:, dc] = ar[:, dc] + v0r, ai[:, dc] + v0i
+    for radix in reversed(plan.rader):
+        ls *= radix
+        ar, ai = _inner_stage(ar, ai, radix, ls, tw_r, tw_i, True)
+    return torch.cat([ar, x0r], dim=1), torch.cat([ai, x0i], dim=1)
+
+
 def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-                 cfg: FrontendConfig, bluestein: Optional[bool] = None) -> torch.Tensor:
+                 cfg: FrontendConfig, forced: Optional[str] = None) -> torch.Tensor:
     """The mixed body's arithmetic stage by stage in float32 PyTorch ops,
     frames read from the flat ``src`` at ``t * stride``: the same plan
-    (`mixed_plan` (n_fft, ``bluestein``)), tables and order, each product
-    and sum rounded where the kernel rounds it (the kernel contracts nothing
-    into an FMA); a matrix stage by `_matrix_stage`."""
-    plan = mixed_plan(n_fft, bluestein)
-    ops = _operands(cfg, n_fft, _MIXED_KINDS[bluestein], src.device)
+    (`mixed_plan` (n_fft, ``forced``)), tables and order, each
+    product and sum rounded where the kernel rounds it (the kernel contracts
+    nothing into an FMA); a matrix stage by `_matrix_stage`, a Rader stage
+    by `_rader_stage`."""
+    plan = mixed_plan(n_fft, forced)
+    ops = _operands(cfg, n_fft, _mixed_kind(forced), src.device)
     big, pts = plan.n, plan.points
     x = src.as_strided((n_frames, n_fft), (stride, 1), src.storage_offset()) * ops["window"]
     if n_fft % 2 == 0:
@@ -843,11 +1064,11 @@ def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
         zeros = torch.zeros((n_frames, big - pts), dtype=torch.float32, device=src.device)
         re, im = torch.cat([re, zeros], dim=1), torch.cat([im, zeros], dim=1)
     ls = big
-    for radix in plan.radices:
-        if radix in REGISTER_RADICES:
-            re, im = _mixed_stage(re, im, radix, ls, tw_r, tw_i, False)
+    for radix, kind in zip(plan.radices, plan.kinds):
+        if kind == "rader":
+            re, im = _rader_stage(re, im, plan, ops)
         else:
-            re, im = _matrix_stage(re, im, radix, ls, tw_r, tw_i)
+            re, im = _inner_stage(re, im, radix, ls, tw_r, tw_i, False)
         ls //= radix
     if plan.bluestein:
         re, im = _cmul(re, im, ops["bspec"][:, 0], ops["bspec"][:, 1])
@@ -873,12 +1094,12 @@ def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
 
 
 def mixed_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig,
-                        bluestein: Optional[bool] = None) -> torch.Tensor:
+                        plan: Optional[str] = None) -> torch.Tensor:
     """A 1-D waveform (frames at stride hop on the centre-padded waveform) or
     an ``(n_frames, n_fft)`` frame matrix -> ``(n_frames, n_mels)`` log mel
     energies by the mixed body's arithmetic (`_mixed_plain`), at an n_fft
     that `body` sends to ``"mixed"`` or ``"cluster"`` (the same plan and
-    operations, split over a cluster); ``bluestein`` forces a plan as
+    operations, split over a cluster); ``plan`` forces a plan kind as
     `mixed_plan` does."""
     n_fft = y.shape[1] if y.ndim == 2 else cfg.n_fft
     if body(n_fft) not in ("mixed", "cluster"):
@@ -886,9 +1107,9 @@ def mixed_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig,
                          f"(body {body(n_fft)!r})")
     if y.ndim == 2:
         src, n_frames, n_fft, _ = _frame_matrix(y.to(torch.float32), "dif")
-        return _mixed_plain(src, n_fft, n_frames, n_fft, cfg, bluestein)
+        return _mixed_plain(src, n_fft, n_frames, n_fft, cfg, plan)
     src, n_frames = frame_source(y.to(torch.float32), cfg)
-    return _mixed_plain(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, bluestein)
+    return _mixed_plain(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, plan)
 
 
 def fused_log_mel_plain(y: torch.Tensor, cfg: FrontendConfig, mode: str = "dif") -> torch.Tensor:
@@ -922,8 +1143,8 @@ def fused_log_mel_frames_plain(frames: torch.Tensor, cfg: FrontendConfig,
 def _mixed_lib() -> ctypes.CDLL:
     lib = _build.load("logmel_mixed")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.logmel_mixed.argtypes = ([p, ctypes.c_longlong, i, i, i, i, ctypes.POINTER(i), i]
-                                 + [p] * 10 + [i, i, i, ctypes.c_float, p, p])
+    lib.logmel_mixed.argtypes = ([p, ctypes.c_longlong, i, i, i, i, ctypes.POINTER(i), i, i,
+                                  ctypes.POINTER(i)] + [p] * 13 + [i, i, i, ctypes.c_float, p, p])
     lib.logmel_mixed.restype = i
     for name in ("logmel_mixed_max_smem", "logmel_mixed_max_stages"):
         getattr(lib, name).argtypes = []
@@ -961,20 +1182,22 @@ def _cluster_lib() -> ctypes.CDLL:
     lib = _build.load("logmel_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.logmel_cluster.argtypes = ([p, ctypes.c_longlong, i, i, i, i, ctypes.POINTER(i), i, i,
-                                    i, i, ctypes.c_uint] + [p] * 9 + [i, i, ctypes.c_float, p, p])
+                                    ctypes.POINTER(i), i, i, i, ctypes.c_uint, ctypes.c_uint]
+                                   + [p] * 13 + [i, i, ctypes.c_float, p, p])
     lib.logmel_cluster.restype = i
     lib.logmel_cluster_resident.argtypes = [i, i, i]
     lib.logmel_cluster_resident.restype = i
     for name in ("logmel_cluster_max_smem", "logmel_cluster_max_ctas",
-                 "logmel_cluster_max_stages"):
+                 "logmel_cluster_max_stages", "logmel_cluster_matrix_tiles"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.logmel_cluster_error_string.argtypes = [i]
     lib.logmel_cluster_error_string.restype = ctypes.c_char_p
     if (lib.logmel_cluster_max_smem(), lib.logmel_cluster_max_ctas(),
-            lib.logmel_cluster_max_stages()) != (MIXED_MAX_SMEM, CLUSTER_MAX, MIXED_MAX_STAGES):
+            lib.logmel_cluster_max_stages(), lib.logmel_cluster_matrix_tiles()) != (
+                MIXED_MAX_SMEM, CLUSTER_MAX, MIXED_MAX_STAGES, MATRIX_TILES):
         raise RuntimeError("csrc/logmel_cluster.cu limits differ from MIXED_MAX_SMEM / "
-                           "CLUSTER_MAX / MIXED_MAX_STAGES")
+                           "CLUSTER_MAX / MIXED_MAX_STAGES / MATRIX_TILES")
     return lib
 
 
@@ -1022,33 +1245,36 @@ def _launch_fft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     return out
 
 
-_MIXED_TABLES = ("window", "tw", "pos", "chirp", "bspec", "utw", "mel_first", "mel_ptr", "mel_w")
+_MIXED_TABLES = ("window", "tw", "pos", "chirp", "bspec", "utw", "dft", "rgather", "rtw", "rspec",
+                 "mel_first", "mel_ptr", "mel_w")
 
 
-def _mixed_args(plan: MixedPlan, ops: dict, tables=_MIXED_TABLES) -> tuple:
-    """The plan and tables as `logmel_mixed` and `logmel_cluster` take them,
-    after the frame source: n_fft, N, stages, radices, Bluestein, and the
-    table pointers (None where the plan has no such table)."""
+def _mixed_args(plan: MixedPlan, ops: dict) -> tuple:
+    """The plan as `logmel_mixed` and `logmel_cluster` take it after the
+    frame source (n_fft, N, stages, radices, Bluestein), then the Rader
+    stage's inner stages and radices, then the table pointers (None where
+    the plan has no such table)."""
     radices = (ctypes.c_int * max(1, len(plan.radices)))(*plan.radices)
-    return (plan.n_fft, plan.n, len(plan.radices), radices, int(plan.bluestein),
-            tuple(ops[k].data_ptr() if k in ops else None for k in tables))
+    inner = (ctypes.c_int * max(1, len(plan.rader)))(*plan.rader)
+    return ((plan.n_fft, plan.n, len(plan.radices), radices, int(plan.bluestein)),
+            (len(plan.rader), inner),
+            tuple(ops[k].data_ptr() if k in ops else None for k in _MIXED_TABLES))
 
 
 def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
-                  cfg: FrontendConfig, bluestein: Optional[bool] = None,
+                  cfg: FrontendConfig, plan: Optional[str] = None,
                   group: Optional[int] = None) -> torch.Tensor:
-    """The mixed body by `mixed_plan` (n_fft, ``bluestein``), a band's mel
-    sum on ``group`` lanes (`mel_group` by default; 4, 8, 16 or 32 give the
-    same bits); raises with the launcher's error where the plan is
-    refused."""
-    ops = _operands(cfg, n_fft, _MIXED_KINDS[bluestein], src.device)
-    *plan, tables = _mixed_args(mixed_plan(n_fft, bluestein), ops,
-                                _MIXED_TABLES[:6] + ("dft",) + _MIXED_TABLES[6:])
+    """The mixed body by `mixed_plan` (n_fft, ``plan``), a
+    band's mel sum on ``group`` lanes (`mel_group` by default; 4, 8, 16 or
+    32 give the same bits); raises with the launcher's error where the plan
+    is refused."""
+    ops = _operands(cfg, n_fft, _mixed_kind(plan), src.device)
+    args, inner, tables = _mixed_args(mixed_plan(n_fft, plan), ops)
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
     lib = _mixed_lib()
     with torch.cuda.device(src.device):
         status = lib.logmel_mixed(
-            src.data_ptr(), stride, n_frames, *plan, *tables, cfg.n_mels,
+            src.data_ptr(), stride, n_frames, *args, *inner, *tables, cfg.n_mels,
             ops["mel_group"] if group is None else group, *_floor(cfg),
             out.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream,
         )
@@ -1062,29 +1288,23 @@ def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
 
 def _launch_cluster(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
                     cfg: FrontendConfig, ctas: Optional[int] = None,
-                    bluestein: Optional[bool] = None) -> torch.Tensor:
-    """The cluster body by `mixed_plan` (n_fft, ``bluestein``), one frame a
-    cluster of ``ctas`` CTAs (`cluster_size` by default; any 1 ..
-    ``CLUSTER_MAX`` whose share fits gives the same bits); raises ValueError
-    for a plan with a matrix stage (the body has none; `mixed_plan` never
-    sends it one) and beyond the body's limit, and the launcher's error
-    where it or the card refuses the split."""
-    plan = mixed_plan(n_fft, bluestein)
-    if plan.matrix:
-        raise ValueError(f"the cluster body has no matrix stage: n_fft {n_fft}'s plan "
-                         f"{plan.radices} runs radices {plan.matrix} as matrix stages "
-                         f"(the mixed body's)")
-    sp = cluster_split(n_fft, cluster_size(n_fft, bluestein) if ctas is None else ctas,
-                       bluestein)
+                    plan: Optional[str] = None) -> torch.Tensor:
+    """The cluster body by `mixed_plan` (n_fft, ``plan``),
+    one frame a cluster of ``ctas`` CTAs (`cluster_size` by default; any 1
+    .. ``CLUSTER_MAX`` whose share fits gives the same bits); raises
+    ValueError beyond the body's limit, and the launcher's error where it
+    or the card refuses the split."""
+    sp = cluster_split(n_fft, cluster_size(n_fft, plan) if ctas is None else ctas, plan)
     cross = sum(1 << s for s, c in enumerate(sp.cross) if c)
-    *plan, tables = _mixed_args(plan, _operands(cfg, n_fft, _MIXED_KINDS[bluestein],
-                                                src.device))
+    rcross = sum(1 << s for s, c in enumerate(sp.rader_cross) if c)
+    args, inner, tables = _mixed_args(mixed_plan(n_fft, plan),
+                                      _operands(cfg, n_fft, _mixed_kind(plan), src.device))
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
     lib = _cluster_lib()
     with torch.cuda.device(src.device):
         status = lib.logmel_cluster(
-            src.data_ptr(), stride, n_frames, *plan, sp.ctas, sp.chunk, sp.bin_chunk, cross,
-            *tables, cfg.n_mels, *_floor(cfg), out.data_ptr(),
+            src.data_ptr(), stride, n_frames, *args, *inner, sp.ctas, sp.chunk, sp.bin_chunk,
+            cross, rcross, *tables, cfg.n_mels, *_floor(cfg), out.data_ptr(),
             torch.cuda.current_stream(src.device).cuda_stream,
         )
     if status != 0:

@@ -25,6 +25,7 @@ import torch
 from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.ops.kernels.fused_logmel import (
     CLUSTER_MAX,
+    MIXED_MAX_SMEM,
     _launch_cluster,
     _launch_fft,
     _launch_mixed,
@@ -609,8 +610,9 @@ def test_fft_kernel_matches_fft_plain_and_is_deterministic(cuda, kw, center, log
 
 @pytest.mark.parametrize("n_fft,hop,other", [
     (32768, 8192, "mixed"), (1000, 500, "mixed"), (3072, 1024, "mixed"),
-    (12865, 6432, "mixed"), (23042, 11521, "mixed"), (12867, 6433, "cluster"),
-    (23044, 11522, "mixed"), (23054, 11527, "cluster"),
+    (12865, 6432, "mixed"), (23042, 11521, "mixed"), (12867, 6433, "mixed"),
+    (23044, 11522, "mixed"), (23054, 11527, "mixed"), (25734, 12867, "cluster"),
+    (31290, 15645, "cluster"),
 ])
 def test_other_sizes_launch_the_dft_body(cuda, n_fft, hop, other):
     """Above 16384 or not a power of two: the mixed body up to its
@@ -648,8 +650,10 @@ def test_both_bodies_agree_at_a_power_of_two(cuda):
 # 47; direct 1764 and 3072; 1001: 7, 11, 13), 25 ms at 16 kHz, an odd direct
 # plan (1575), 2050 (5, 5 and a matrix stage of 41), the largest plans (n_fft
 # 32768 direct, 1,024 threads a frame; 22000 direct with radix 11, 132 KB of
-# shared memory), matrix stages of 19 and 29 (1102), of 31 and 83 (12865)
-# and a Bluestein plan (2206, L 1103 prime).
+# shared memory), matrix stages of 19 and 29 (1102), of 31 and 83 (12865),
+# Rader stages (2206 and 1103: L 1103 prime, over 2 x 19 x 29; 12867: 3, and
+# 4289 over 4 x 4 x 4 x 67; 23054: L 11527 over 2 x 3 x 17 x 113) and a
+# Bluestein plan (4126, L 2063 prime, 2062 = 2 x 1031).
 MIXED_SHAPES = [
     dict(n_fft=1034, hop_length=517), dict(n_fft=1764, hop_length=882),
     dict(n_fft=3072, hop_length=1024), dict(n_fft=1001, hop_length=500),
@@ -657,6 +661,8 @@ MIXED_SHAPES = [
     dict(n_fft=2050, hop_length=1024), dict(n_fft=32768, hop_length=8192),
     dict(n_fft=22000, hop_length=11000), dict(n_fft=1102, hop_length=551),
     dict(n_fft=12865, hop_length=6432), dict(n_fft=2206, hop_length=1103),
+    dict(n_fft=1103, hop_length=551), dict(n_fft=12867, hop_length=6433),
+    dict(n_fft=23054, hop_length=11527), dict(n_fft=4126, hop_length=2063),
 ]
 # A plan with matrix stages against `mixed_log_mel_plain` (chip_smoke.py's
 # MATRIX_ATOL): three TF32 products are not float32's bits.
@@ -665,8 +671,8 @@ MATRIX_ATOL = 1e-4
 
 def _assert_plain(got, plain, n_fft):
     """Bitwise the plain version, or within MATRIX_ATOL with matrix stages
-    and the same -inf entries."""
-    if not mixed_plan(n_fft).matrix:
+    (a Rader stage's inner ones too) and the same -inf entries."""
+    if not mixed_plan(n_fft).tensor_cores:
         assert torch.equal(got, plain)
         return
     fin = torch.isfinite(plain)
@@ -720,11 +726,11 @@ def test_mixed_kernel_on_a_frame_matrix(cuda, kw):
 def test_mixed_launcher_refuses_a_plan_over_the_limit(cuda):
     """A plan whose frame takes more than 227 KB of shared memory is refused
     by the launcher, which raises its error: nothing falls back."""
-    cfg = FrontendConfig(n_fft=12867, hop_length=6433, center=False)
-    y = torch.zeros(4 * 12867, device=cuda)
+    cfg = FrontendConfig(n_fft=12895, hop_length=6447, center=False)
+    y = torch.zeros(4 * 12895, device=cuda)
     before = _counts()
     with pytest.raises(RuntimeError, match="logmel_mixed launch failed"):
-        _launch_mixed(y, 6433, 2, 12867, cfg)
+        _launch_mixed(y, 6447, 2, 12895, cfg)
     assert _counts() == before
 
 
@@ -747,12 +753,13 @@ def _fft_log_mel64(y, cfg):
     return torch.log(mel).float()
 
 
-# The cluster body's sizes (n_fft, hop): the first odd and even sizes beyond
-# the mixed body's limit (Bluestein), 1 s at 44.1 and 48 kHz (direct, C = 2),
-# 2 s at 44.1 kHz (C = 3), a power of two (C = 4) and a direct plan with
-# radix 11 (44000, L 22000).
-CLUSTER_SHAPES = [(12867, 6433), (23054, 11527), (44100, 22050), (48000, 24000),
-                  (88200, 44100), (131072, 32768), (44000, 22000)]
+# The cluster body's sizes (n_fft, hop): a Rader plan (25734: 3, and 4289
+# over 4 x 4 x 4 x 67), a matrix stage of 149 (31290), the first odd size
+# beyond the mixed body's limit (12895, Bluestein), 1 s at 44.1 and 48 kHz
+# (direct, C = 2), 2 s at 44.1 kHz (C = 3), a power of two (C = 4) and a
+# direct plan with radix 11 (44000, L 22000).
+CLUSTER_SHAPES = [(25734, 12867), (31290, 15645), (12895, 6447), (44100, 22050),
+                  (48000, 24000), (88200, 44100), (131072, 32768), (44000, 22000)]
 
 
 @pytest.mark.parametrize("n_fft,hop", CLUSTER_SHAPES)
@@ -760,7 +767,8 @@ CLUSTER_SHAPES = [(12867, 6433), (23054, 11527), (44100, 22050), (48000, 24000),
 @pytest.mark.parametrize("log_floor", [None, 1e-10])
 def test_cluster_kernel_matches_its_plain_version_bitwise(cuda, n_fft, hop, center, log_floor):
     """The cluster body through `fused_log_mel` against `mixed_log_mel_plain`
-    bit for bit, twice, one cluster launch per call and no mixed launch, and
+    bit for bit (within MATRIX_ATOL with matrix stages), twice bitwise, one
+    cluster launch per call and no mixed launch, and
     within 5e-4 of torch's FFT + mel in float64 with the same -inf rows (a
     silent stretch of two frames' length)."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=center, log_floor=log_floor)
@@ -772,12 +780,13 @@ def test_cluster_kernel_matches_its_plain_version_bitwise(cuda, n_fft, hop, cent
     torch.cuda.synchronize()
     assert (_counts()[3] - before[3], _counts()[4] - before[4]) == (0, 2)
     assert torch.equal(first, second)
-    assert torch.equal(first, mixed_log_mel_plain(y, cfg))
+    _assert_plain(first, mixed_log_mel_plain(y, cfg), n_fft)
     _assert_logmel_close(first, _fft_log_mel64(y, cfg))
     assert bool(torch.isinf(first).any()) == (log_floor is None)
 
 
-@pytest.mark.parametrize("n_fft,hop,ctas", [(12867, 6433, (2, 3, 4, 5, 8, 16)),
+@pytest.mark.parametrize("n_fft,hop,ctas", [(25734, 12867, (2, 3, 4, 5, 8, 16)),
+                                            (31290, 15645, (2, 3, 4, 8)),
                                             (44100, 22050, (2, 3, 4, 7, 9)),
                                             (88200, 44100, (3, 4, 6, 12)),
                                             (44000, 22000, (2, 3, 5))])
@@ -793,51 +802,72 @@ def test_cluster_kernel_bits_do_not_depend_on_the_cluster_size(cuda, n_fft, hop,
         assert torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c), want), c
 
 
-@pytest.mark.parametrize("kw", MIXED_SHAPES[:4])
+@pytest.mark.parametrize("kw", MIXED_SHAPES[:4] + MIXED_SHAPES[12:15])
 @pytest.mark.parametrize("ctas", [1, 2, 3, 4, 8])
 def test_cluster_kernel_forced_small_is_the_mixed_body(cuda, kw, ctas):
     """The mixed body's shapes forced onto the cluster body, one frame split
     over 1 to 8 CTAs (3 and 8 do not divide every transform length, so
-    nearly every stage crosses CTAs there): bitwise the mixed body's and
-    the plain version's. A plan with a matrix stage (1034) is refused, and
-    its Bluestein plan runs instead."""
+    nearly every stage crosses CTAs there): bitwise the mixed body's, and
+    the plain version's (within MATRIX_ATOL with matrix stages). Plans with
+    a matrix stage (1034) or a Rader stage (1103, 12867, 23054) run too, and
+    where such a plan's Bluestein plan fits one block (1034, 1103) that plan
+    runs forced, bitwise the mixed body's and the plain version's."""
     cfg = FrontendConfig(center=False, log_floor=None, **kw)
     y = torch.from_numpy(_signal(2 * 44100, 44100, 11, silent=(20000, 30000))).to(cuda)
     src, n_frames = frame_source(y, cfg)
-    forced = None
-    if mixed_plan(cfg.n_fft).matrix:
-        with pytest.raises(ValueError, match="no matrix stage"):
-            _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas)
-        forced = True
-    got = _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas,
-                          bluestein=forced)
-    assert torch.equal(got, _launch_mixed(src, cfg.hop_length, n_frames, cfg.n_fft, cfg,
-                                          bluestein=forced))
-    assert torch.equal(got, mixed_log_mel_plain(y, cfg, bluestein=forced))
+    got = _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas)
+    assert torch.equal(got, _launch_mixed(src, cfg.hop_length, n_frames, cfg.n_fft, cfg))
+    _assert_plain(got, mixed_log_mel_plain(y, cfg), cfg.n_fft)
+    if mixed_plan(cfg.n_fft).tensor_cores and (
+            mixed_plan(cfg.n_fft, "bluestein").smem_bytes <= MIXED_MAX_SMEM):
+        blue = _launch_cluster(src, cfg.hop_length, n_frames, cfg.n_fft, cfg, ctas=ctas,
+                               plan="bluestein")
+        assert torch.equal(blue, _launch_mixed(src, cfg.hop_length, n_frames, cfg.n_fft, cfg,
+                                               plan="bluestein"))
+        assert torch.equal(blue, mixed_log_mel_plain(y, cfg, plan="bluestein"))
 
 
-def test_cluster_kernel_on_a_frame_matrix(cuda):
-    """Stride n_fft on a frame matrix at n_fft 12867: the waveform's rows
-    bit for bit, counted on the exact route and the cluster body."""
-    cfg = FrontendConfig(n_fft=12867, hop_length=6433, log_floor=1e-10)
-    y = torch.from_numpy(_signal(5 * 12867, 44100, 12)).to(cuda)
+# A register-only plan (44100: bitwise the plain version) and a Rader plan
+# with matrix stages inside (25734: within MATRIX_ATOL), each with the
+# launch counts of its route on a frame matrix (framed: n_fft % 4 == 0;
+# exact otherwise) and the cluster body.
+CLUSTER_ROUTES = [(44100, 22050, [0, 1, 0, 0, 1]), (25734, 12867, [0, 0, 1, 0, 1])]
+
+
+@pytest.mark.parametrize("n_fft,hop,counts", CLUSTER_ROUTES)
+def test_cluster_kernel_on_a_frame_matrix(cuda, n_fft, hop, counts):
+    """Stride n_fft on a frame matrix: the waveform's rows bit for bit,
+    counted on the route and the cluster body, and the plain version's bit
+    for bit at 44100 (within MATRIX_ATOL at 25734)."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
+    assert body(n_fft) == "cluster" and mixed_plan(n_fft).tensor_cores == (n_fft == 25734)
+    y = torch.from_numpy(_signal(5 * n_fft, 44100, 12)).to(cuda)
     frames = frame_signal(y, cfg.n_fft, cfg.hop_length, center=True).contiguous()
     before = _counts()
     got = fused_log_mel_frames(frames, cfg)
     torch.cuda.synchronize()
-    assert [a - b for a, b in zip(_counts(), before)] == [0, 0, 1, 0, 1]
+    assert [a - b for a, b in zip(_counts(), before)] == counts
     assert torch.equal(got, fused_log_mel(y, cfg))
-    assert torch.equal(got, mixed_log_mel_plain(frames, cfg))
+    if n_fft == 44100:
+        assert torch.equal(got, mixed_log_mel_plain(frames, cfg))
+    else:
+        _assert_plain(got, mixed_log_mel_plain(frames, cfg), n_fft)
 
 
-def test_cluster_kernel_takes_more_than_256_mels(cuda):
-    """No body limits the mel count (the retired dft body's 256): 300 mels
-    at n_fft 12867, bitwise the plain version's."""
-    cfg = FrontendConfig(n_fft=12867, hop_length=6433, n_mels=300, log_floor=1e-10)
-    y = torch.from_numpy(_signal(4 * 12867, 44100, 13)).to(cuda)
+@pytest.mark.parametrize("n_fft,hop", [(44100, 22050), (25734, 12867)])
+def test_cluster_kernel_takes_more_than_256_mels(cuda, n_fft, hop):
+    """No body limits the mel count (the retired dft body's 256): 300 mels,
+    bitwise the plain version's at 44100 (a register-only plan), within
+    MATRIX_ATOL at 25734 (a Rader stage with matrix stages inside)."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, n_mels=300, log_floor=1e-10)
+    assert body(n_fft) == "cluster" and mixed_plan(n_fft).tensor_cores == (n_fft == 25734)
+    y = torch.from_numpy(_signal(4 * n_fft, 44100, 13)).to(cuda)
     got = fused_log_mel(y, cfg)
     assert got.shape[1] == 300
-    assert torch.equal(got, mixed_log_mel_plain(y, cfg))
+    if n_fft == 44100:
+        assert torch.equal(got, mixed_log_mel_plain(y, cfg))
+    else:
+        _assert_plain(got, mixed_log_mel_plain(y, cfg), n_fft)
 
 
 def test_card_holds_the_largest_cluster_at_full_shared_memory(cuda):
@@ -849,19 +879,20 @@ def test_card_holds_the_largest_cluster_at_full_shared_memory(cuda):
 
 
 def test_cluster_body_beyond_its_limit_raises(cuda):
-    """n_fft 206,209, the first plan that 16 CTAs do not hold, raises a
+    """n_fft 206,215, the first plan that 16 CTAs do not hold, raises a
     ValueError naming the limit, launches nothing, and falls back to
-    nothing; so does a split the launcher refuses."""
-    y = torch.zeros(2 * 206209, device=cuda)
+    nothing; so does a split the launcher refuses (25734 on one CTA)."""
+    y = torch.zeros(2 * 206215, device=cuda)
     before = _counts()
     with pytest.raises(ValueError, match="beyond the cluster body's limit"):
-        fused_log_mel(y, FrontendConfig(n_fft=206209, hop_length=103104, center=False))
+        fused_log_mel(y, FrontendConfig(n_fft=206215, hop_length=103107, center=False))
     with pytest.raises(RuntimeError, match="logmel_cluster launch failed"):
-        _launch_cluster(y, 6433, 2, 12867, FrontendConfig(n_fft=12867, hop_length=6433), ctas=1)
+        _launch_cluster(y, 12867, 2, 25734, FrontendConfig(n_fft=25734, hop_length=12867),
+                        ctas=1)
     assert _counts() == before
 
 
-@pytest.mark.parametrize("n_fft,hop,ctas", [(12867, 6433, 2), (88200, 44100, 3)])
+@pytest.mark.parametrize("n_fft,hop,ctas", [(25734, 12867, 2), (88200, 44100, 3)])
 def test_cluster_launcher_checks_the_split_it_is_given(cuda, monkeypatch, n_fft, hop, ctas):
     """The launcher takes `cluster_split`'s split and checks it: a crossing
     stage marked as inside the CTAs, a chunk that leaves points uncovered
@@ -878,13 +909,13 @@ def test_cluster_launcher_checks_the_split_it_is_given(cuda, monkeypatch, n_fft,
            sp._replace(chunk=sp.chunk - 1),
            sp._replace(chunk=sp.chunk + 30000, smem_bytes=sp.smem_bytes + 240000))
     for split in bad:
-        monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None, split=split: split)
+        monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None, r=None, split=split: split)
         before = _counts()
         with pytest.raises(RuntimeError, match="logmel_cluster launch failed"):
             _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas)
         assert _counts() == before
     every = sp._replace(cross=(True,) * len(sp.cross))
-    monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None: every)
+    monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None, r=None: every)
     assert torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas), want)
 
 

@@ -44,9 +44,12 @@ from sed_crnn_torch.ops.kernels.fused_logmel import (
 from sed_crnn_torch.ops.mel import mel_filterbank
 from sed_crnn_torch.ops.stft import hann_window
 
-# The first n_fft whose plan 16 CTAs of 227 KB do not hold: odd, Bluestein at
-# M = 413,343 (3^10 x 7), 3,719,164 bytes.
-FIRST_BEYOND = 206209
+# The first n_fft whose plans 16 CTAs of 227 KB do not hold: odd, L = 5 x
+# 41,243 (41,242 = 2 x 17 x 1,213: no direct plan for p - 1, so no Rader
+# stage), Bluestein at M = 413,343 (3^10 x 7), 3,719,164 bytes. The six
+# below it from 206,209 (where Bluestein first does not fit) run direct or
+# Rader plans.
+FIRST_BEYOND = 206215
 
 
 def _signal(n, sr, seed):
@@ -85,40 +88,59 @@ def _assert_log_close(got, want, atol):
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=atol)
 
 
-# n_fft: (L, N, Bluestein, C, stages that cross CTAs, bytes a CTA). The
-# sizes chip_smoke.py times (12867, 23054, 44100, 48000, and 88200 at
-# C = 3), a power of two, sizes whose smallest cluster does not divide
-# N, so that most or all stages cross CTAs (141000: C 7, 7 of 8; 141001:
-# C 11, all 9), and the largest plans (206208 and 617400 fill 9 and 16 CTAs).
+# n_fft: (L, N, Bluestein, C, stages that cross CTAs, bytes a CTA, chunk,
+# Rader inner stages that cross). The sizes chip_smoke.py times (25734: a
+# Rader stage, its chunk whole inner transforms so that none of them
+# crosses; 31290: a matrix stage; 44100, 48000, and 88200 at C = 3), a power
+# of two, sizes whose smallest cluster does not divide N, so that most
+# stages cross CTAs (141000: C 7, a matrix stage of 47; 141001: C 11, a
+# Rader stage of 20143 whose inner stages mostly cross), and the largest
+# plans (206208 (a matrix stage of 179), 206209 (Rader) and 617400 fill 9,
+# 16 and 16 CTAs).
 SPLITS = {
-    12867: (12867, 25920, True, 2, 1, 116548),
-    23054: (11527, 23328, True, 2, 1, 116368),
-    44100: (22050, 22050, False, 2, 1, 132304),
-    48000: (24000, 24000, False, 2, 1, 144004),
-    88200: (44100, 44100, False, 3, 2, 176404),
-    131072: (65536, 65536, False, 4, 1, 196612),
-    141000: (70500, 141120, True, 7, 7, 201568),
-    141001: (141001, 282240, True, 11, 9, 230912),
-    206208: (103104, 207360, True, 9, 7, 230148),
-    617400: (308700, 308700, False, 16, 8, 231528),
+    25734: (12867, 12867, False, 2, 2, 162952, 8576, 0),
+    31290: (15645, 15645, False, 2, 4, 156460, 7823, 0),
+    44100: (22050, 22050, False, 2, 1, 132304, 11025, 0),
+    48000: (24000, 24000, False, 2, 1, 144004, 12000, 0),
+    88200: (44100, 44100, False, 3, 2, 176404, 14700, 0),
+    131072: (65536, 65536, False, 4, 1, 196612, 16384, 0),
+    141000: (70500, 70500, False, 7, 6, 201440, 10072, 0),
+    141001: (141001, 141001, False, 11, 2, 230744, 12819, 5),
+    206208: (103104, 103104, False, 9, 5, 229124, 11456, 0),
+    206209: (206209, 206209, False, 16, 1, 232004, 12889, 7),
+    617400: (308700, 308700, False, 16, 8, 231528, 19294, 0),
 }
 
 
 @pytest.mark.parametrize("n_fft", list(SPLITS))
 def test_split_by_size(n_fft):
     """The plan is the mixed body's; C is the smallest cluster whose share
-    fits in 227 KB a CTA; a stage crosses CTAs when its sub-transform
-    length does not divide the chunk, so the first always does."""
-    points, n, blue, ctas, crossing, smem = SPLITS[n_fft]
+    fits in 227 KB a CTA; the chunk is ceil(N / C), or whole inner
+    transforms of a Rader stage where those fit; a stage crosses CTAs when
+    its sub-transform length does not divide the chunk, so the first always
+    does, and a Rader stage always does (its gather and product)."""
+    points, n, blue, ctas, crossing, smem, chunk, inner = SPLITS[n_fft]
     plan = mixed_plan(n_fft)
     assert (plan.points, plan.n, plan.bluestein) == (points, n, blue)
     assert body(n_fft) == "cluster" and plan.smem_bytes > MIXED_MAX_SMEM
     sp = cluster_split(n_fft, cluster_size(n_fft))
-    assert (sp.ctas, sum(sp.cross), sp.smem_bytes) == (ctas, crossing, smem)
-    assert sp.chunk == -(-n // ctas) and sp.bin_chunk == -(-(n_fft // 2 + 1) // ctas)
-    assert sp.cross[0] and sp.smem_bytes <= MIXED_MAX_SMEM
+    assert (sp.ctas, sum(sp.cross), sp.smem_bytes, sp.chunk, sum(sp.rader_cross)) == (
+        ctas, crossing, smem, chunk, inner)
+    assert sp.chunk * ctas >= n and sp.bin_chunk == -(-(n_fft // 2 + 1) // ctas)
+    if plan.rader:
+        assert sp.chunk in (-(-n // ctas), (plan.rader_prime - 1) * -(-(n // plan.rader_prime)
+                                                                       // ctas))
+    else:
+        assert sp.chunk == -(-n // ctas)
+    arrays = 2 if plan.matrix or plan.rader else 1
+    assert sp.smem_bytes == 8 * arrays * sp.chunk + 4 * sp.bin_chunk <= MIXED_MAX_SMEM
+    assert sp.cross[0]
     ls = n
-    for r, cross in zip(plan.radices, sp.cross):
+    for s, (r, cross) in enumerate(zip(plan.radices, sp.cross)):
+        assert cross == (sp.chunk % ls != 0 or (bool(plan.rader) and s == len(plan.radices) - 1))
+        ls //= r
+    ls = plan.rader_prime - 1
+    for r, cross in zip(plan.rader, sp.rader_cross):
         assert cross == (sp.chunk % ls != 0)
         ls //= r
     assert all(cluster_split(n_fft, c).smem_bytes > MIXED_MAX_SMEM for c in range(2, ctas))
@@ -130,10 +152,10 @@ def test_split_by_size(n_fft):
 ])
 def test_limit_is_sixteen_ctas_of_shared_memory(n_fft, fits):
     """The body's limit: a plan whose share in 16 CTAs fits in 227 KB each.
-    206,209 is the first n_fft beyond it; above it the sizes whose plan
-    still fits are taken (206,210: L 103,105, M 207,360), the largest a
-    7-smooth half (617,400, L 308,700 direct). Beyond it the wrapper raises
-    a ValueError that names the limit, before any launch."""
+    206,215 is the first n_fft beyond it; above it the sizes whose plan
+    still fits are taken (206,216: L 103,108 = 4 x 149 x 173 direct), the
+    largest a 7-smooth half (617,400, L 308,700 direct). Beyond it the
+    wrapper raises a ValueError that names the limit, before any launch."""
     assert body(n_fft) == "cluster"
     assert (cluster_split(n_fft, CLUSTER_MAX).smem_bytes <= MIXED_MAX_SMEM) == fits
     if fits:
@@ -147,32 +169,40 @@ def test_limit_is_sixteen_ctas_of_shared_memory(n_fft, fits):
 
 
 def test_first_beyond_is_the_first():
-    """Every n_fft below 206,209 is served: by byte counts alone (points, the
+    """Every n_fft below 206,215 is served: by byte counts alone (points, the
     next 7-smooth length from a table, no plan built and nothing allocated),
-    the plan the cluster body may run, direct at a 13-smooth L (register
-    radices only) and else Bluestein, fits 16 CTAs; a direct plan with
-    matrix stages runs only where it fits one block, on the mixed body.
-    Checked against `mixed_plan` on a sample."""
+    the Bluestein plan of every n_fft below 206,209 fits 16 CTAs, and
+    `mixed_plan` picks a plan 16 CTAs hold wherever one exists; from 206,209
+    to 206,214 a direct or Rader plan fits where Bluestein does not; at
+    206,215 none does. Checked against `mixed_plan` on a sample: the plan
+    is held, and it is Bluestein's where L has a prime above MATRIX_MAX
+    whose p - 1 has one too."""
     n_fft = np.arange(1, FIRST_BEYOND + 1, dtype=np.int64)
     points = np.where(n_fft % 2 == 1, n_fft, n_fft // 2)
     smooth7 = np.array(sorted(2**a * 3**b * 5**c * 7**d for a in range(21) for b in range(14)
                               for c in range(10) for d in range(9)
                               if 2**a * 3**b * 5**c * 7**d < 1 << 21), np.int64)
-    smooth13 = np.array(sorted(int(k) * 11**e * 13**f for k in smooth7 for e in range(6)
-                               for f in range(6) if k * 11**e * 13**f < 1 << 21), np.int64)
-    is_smooth = np.isin(points, smooth13)
     blue = smooth7[np.searchsorted(smooth7, 2 * points - 1)]
-    n = np.where(is_smooth, points, blue)
-    share = 8 * -(-n // CLUSTER_MAX) + 4 * -(-(n_fft // 2 + 1) // CLUSTER_MAX)
-    served = share <= MIXED_MAX_SMEM
-    assert served[:-1].all() and not served[-1]
+    share = 8 * -(-blue // CLUSTER_MAX) + 4 * -(-(n_fft // 2 + 1) // CLUSTER_MAX)
+    blue_fits = share <= MIXED_MAX_SMEM
+    assert blue_fits[: 206208].all() and not blue_fits[206208]
+    for n in range(206209, FIRST_BEYOND + 1):
+        assert (cluster_split(n, CLUSTER_MAX).smem_bytes <= MIXED_MAX_SMEM) == (n < FIRST_BEYOND)
+    from sed_crnn_torch.ops.kernels.fused_logmel import MATRIX_MAX, _prime_factors
+
     rng = np.random.default_rng(0)
-    for i in rng.integers(0, FIRST_BEYOND, 300):
-        plan = mixed_plan(int(n_fft[i]))
-        if plan.matrix:
-            assert body(int(n_fft[i])) == "mixed" and plan.n == points[i]
+    for i in rng.integers(0, FIRST_BEYOND - 1, 300):
+        n = int(n_fft[i])
+        plan = mixed_plan(n)
+        assert cluster_split(n, CLUSTER_MAX).smem_bytes <= MIXED_MAX_SMEM
+        primes = _prime_factors(int(points[i]))
+        big = [p for p in primes if p > MATRIX_MAX]
+        if big and any(q > MATRIX_MAX for q in _prime_factors(big[0] - 1)):
+            assert plan.bluestein and plan.n == blue[i]
+        if plan.bluestein:
+            assert plan.n == blue[i]
         else:
-            assert (plan.points, plan.n) == (points[i], n[i])
+            assert plan.n == points[i]
 
 
 def test_every_size_the_retired_body_held_on_the_card_is_served():
@@ -215,19 +245,19 @@ def test_next_smooth_is_the_smallest_seven_smooth_length():
         assert _seven_smooth(m) and not any(_seven_smooth(k) for k in range(max(n, 1), m))
 
 
-# n_fft, hop: the first odd and even sizes beyond the mixed body's limit
-# (Bluestein), those before matrix stages put them on the mixed body, and 1
-# s at 44.1 and 48 kHz (direct).
+# n_fft, hop: the sizes that matrix stages (12865, 23042) and Rader stages
+# (12867, 23054) put on the mixed body, 1 s at 44.1 and 48 kHz (direct), and
+# the cluster body's Rader (25734) and matrix (31290) plans.
 SIZES = [(12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000), (12867, 6433),
-         (23054, 11527)]
+         (23054, 11527), (25734, 12867), (31290, 15645)]
 
 
 @pytest.mark.parametrize("log_floor", [None, 1e-10])
 @pytest.mark.parametrize("center", [True, False])
 @pytest.mark.parametrize("n_fft,hop", SIZES)
 def test_cluster_plain_matches_references(n_fft, hop, center, log_floor):
-    """A clip of 7 frames with a silent middle half: the plain version the
-    cluster body repeats, against float64 rFFT + mel and the JAX package's
+    """A clip of 7 frames with a silent middle half: the plain version both
+    bodies repeat, against float64 rFFT + mel and the JAX package's
     `extract` (fft backend), -inf rows equal."""
     kw = dict(n_fft=n_fft, hop_length=hop, center=center, log_floor=log_floor)
     cfg = FrontendConfig(**kw)
@@ -250,18 +280,22 @@ def test_plan_tables_multiply_to_the_transform():
 
 def test_phases_tool_builds_the_kernels_own_cuts():
     """`sed_crnn_torch.tools.logmel_phases` builds the cluster body at each of
-    its named profiling cuts; the source defines the macro as 0 (no cut) and
-    guards each phase the tool names with its level."""
+    its named profiling cuts (the matrix and Rader stages among them); the
+    source defines the macro as 0 (no cut) and guards each phase the tool
+    names with its level; its sizes are the cluster body's, a Rader and a
+    matrix plan among them."""
     from sed_crnn_torch.ops.kernels import _build
     from sed_crnn_torch.tools import logmel_phases as tool
 
     src = (_build.CSRC_DIR / "logmel_cluster.cu").read_text()
     assert "#define LOGMEL_CLUSTER_CUT 0" in src
-    assert tool.VARIANTS == {"full": 0, "no_mel": 1, "no_power": 2, "no_stages": 3}
-    for level in (1, 2, 3):
+    assert tool.VARIANTS == {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3,
+                             "no_rader": 4, "no_stages": 5}
+    for level in (1, 2, 3, 4, 5):
         assert f"CUT < {level}" in src, level
-    assert [n for n, _ in tool.SIZES] == [12867, 23054, 44100, 48000, 88200]
+    assert [n for n, _ in tool.SIZES] == [25734, 31290, 44100, 48000, 88200]
     assert all(body(n) == "cluster" for n, _ in tool.SIZES)
+    assert mixed_plan(25734).rader and mixed_plan(31290).matrix == (149,)
 
 
 def test_phases_tool_refuses_without_a_card(monkeypatch, capsys):
@@ -271,4 +305,22 @@ def test_phases_tool_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(tool, "build_variants", lambda *a: pytest.fail("built without a card"))
     assert tool.main([]) == 2
+    assert "a CUDA card is required" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("bad", [1, FIRST_BEYOND])
+def test_phases_tool_refuses_a_size_no_body_takes(monkeypatch, capsys, bad):
+    """``--sizes`` takes any n_fft a body of kernel A takes (its lists' own
+    and others, such as 4001, at hop n_fft / 2); n_fft 1 (hop 0) and the
+    first size beyond the cluster body's limit are an argument error (exit
+    2) before anything is built, and the sizes it takes meet the card
+    check."""
+    from sed_crnn_torch.tools import logmel_phases as tool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tool, "build_variants", lambda *a: pytest.fail("built"))
+    with pytest.raises(SystemExit) as exc:
+        tool.main(["--sizes", "1103", str(bad)])
+    assert exc.value.code == 2 and f"--sizes [{bad}]" in capsys.readouterr().err
+    assert tool.main(["--sizes", "1103", "4001", "25734", "--body", "mixed"]) == 2
     assert "a CUDA card is required" in capsys.readouterr().err

@@ -126,7 +126,7 @@ def test_power_of_two_sizes_take_the_fft_body(n_fft):
 
 @pytest.mark.parametrize("n_fft,other", [
     (1034, "mixed"), (1000, "mixed"), (128, "mixed"), (32768, "mixed"), (2050, "mixed"),
-    (3072, "mixed"), (12865, "mixed"), (23042, "mixed"), (12867, "cluster"),
+    (3072, "mixed"), (12865, "mixed"), (23042, "mixed"), (12867, "mixed"), (25734, "cluster"),
 ])
 def test_other_sizes_take_the_dft_body(n_fft, other):
     """Every other size leaves the FFT body: the mixed body up to its

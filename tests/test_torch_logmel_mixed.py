@@ -123,41 +123,52 @@ def _within_ulp(table, exact):
     (32768, 16384, 16384, (4,) * 7, False),
     (26, 13, 13, (13,), False),
     (2, 1, 1, (), False),
-    (2206, 1103, 2205, (3, 3, 5, 7, 7), True),
+    (2206, 1103, 1103, (1103,), False),
+    (4126, 2063, 4200, (4, 2, 3, 5, 5, 7), True),
 ])
 def test_plan_factors_and_picks_direct_or_bluestein(n_fft, points, n, radices, bluestein):
     """L is n_fft / 2 (even) or n_fft (odd); L is transformed directly by
     register radices (radix 4 first for each pair of 2s, then 2, 3, 5, 7,
-    11, 13) and matrix stages for its primes above 13, ascending, unless a
-    prime above MATRIX_MAX divides it or Bluestein costs less, at M, the
-    smallest 7-smooth length >= 2L - 1; the radices multiply to the length."""
+    11, 13) and matrix stages for its primes above 13, ascending, or with a
+    Rader stage last for its largest prime (1103: over 1102 = 2 x 19 x 29),
+    unless a prime above MATRIX_MAX whose p - 1 has one too divides it (L
+    2063: 2062 = 2 x 1031) or Bluestein costs less, at M, the smallest
+    7-smooth length >= 2L - 1; the radices multiply to the length."""
     plan = mixed_plan(n_fft)
     assert (plan.points, plan.n, plan.radices, plan.bluestein) == (points, n, radices, bluestein)
     assert math.prod(plan.radices) == plan.n
     assert plan.radices.count(2) <= 1 and len(plan.radices) <= MIXED_MAX_STAGES
     if bluestein:
-        assert set(plan.radices) <= {2, 3, 4, 5, 7}
+        assert set(plan.radices) <= {2, 3, 4, 5, 7} and not plan.rader
         assert not any(_smooth(m) for m in range(2 * points - 1, n)) and _smooth(n)
     else:
-        assert n == points and all(r in REGISTER_RADICES or r <= MATRIX_MAX for r in radices)
-    arrays = 2 if plan.matrix else 1
+        outer = radices[:-1] if plan.rader else radices
+        assert n == points and all(r in REGISTER_RADICES or r <= MATRIX_MAX for r in outer)
+        if plan.rader:
+            assert math.prod(plan.rader) == radices[-1] - 1
+            assert all(r in REGISTER_RADICES or r <= MATRIX_MAX for r in plan.rader)
+    arrays = 2 if plan.matrix or plan.rader else 1
     assert plan.smem_bytes == 8 * arrays * plan.n + 4 * (n_fft // 2 + 1)
 
 
 @pytest.mark.parametrize("n_fft,fits", [
     (12863, True), (12864, True), (12865, True), (23040, True), (23042, True),
     (21875, True), (38416, True), (25725, False), (40000, False), (65536, False),
-    (12867, False), (23044, True), (23052, True), (23054, False),
+    (12867, True), (23044, True), (23052, True), (23054, True), (12895, False),
+    (23082, False),
 ])
 def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
     """A plan fits when one frame's work arrays and power row take at most
-    227 KB: every n_fft to 12,866 (12,863: Bluestein at the largest M,
-    25,725; 12,865 direct with matrix stages, two work arrays, 231,572
-    bytes), every even one to 23,052 (23,044: a matrix stage of 823,
-    230,444 bytes), and beyond them the sizes whose plan is small enough
-    (21,875 and 38,416 direct; 40,000, L 20,000, is not); 12,867 (3 x 4289)
-    and 23,054 (L 11,527, prime) are the first odd and even sizes that do
-    not; a plan that does not fit goes to the cluster body."""
+    227 KB: every n_fft to 12,894 (12,863: a Rader stage of 677, two work
+    arrays, 231,536 bytes; 12,865 direct with matrix stages, 231,572;
+    12,867 = 3 x 4289, a Rader stage, 231,608), every even one to 23,080
+    (23,044: a Rader stage of 823, 230,444 bytes; 23,054: L 11,527, a Rader
+    stage, 230,544), and beyond them the sizes whose plan is small enough
+    (21,875 and 38,416 direct; 40,000, L 20,000, is not); 12,895 (5 x 2579,
+    2578 = 2 x 1289: Bluestein at M 25,920) and 23,082 (L 3 x 3847: Bluestein
+    on the cluster body costs less than its Rader stage of 3847) are the
+    first odd and even sizes that do not; a plan that does not fit goes to
+    the cluster body."""
     assert (mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM) == fits
     assert body(n_fft) == ("mixed" if fits else "cluster") or body(n_fft) == "fft"
 
@@ -166,7 +177,8 @@ def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
     (1034, "mixed"), (1764, "mixed"), (882, "mixed"), (400, "mixed"), (960, "mixed"),
     (1920, "mixed"), (1001, "mixed"), (128, "mixed"), (1, "mixed"), (20000, "mixed"),
     (2048, "fft"), (256, "fft"), (16384, "fft"), (12865, "mixed"), (23042, "mixed"),
-    (12867, "cluster"), (23044, "mixed"), (23054, "cluster"),
+    (12867, "mixed"), (23044, "mixed"), (23054, "mixed"), (12895, "cluster"),
+    (25734, "cluster"),
 ])
 def test_body_by_size(n_fft, want):
     assert body(n_fft) == want
@@ -178,7 +190,7 @@ def test_body_below_the_limit_is_never_the_dft_body():
     assert {body(n) for n in range(1, 12867)} == {"fft", "mixed"}
 
 
-@pytest.mark.parametrize("n_fft", [1034, 1764, 1001, 3072, 400, 2206])
+@pytest.mark.parametrize("n_fft", [1034, 1764, 1001, 3072, 400, 2206, 4126])
 def test_tables_round_float64_once(n_fft):
     """The stage twiddles, the untangle twiddles and the chirp lie within one
     float32 ulp of their float64 values, the window is the float64 Hann
@@ -220,7 +232,7 @@ def test_filter_spectrum_against_a_float64_dft(n_fft):
     through the DIF positions: each part of each entry within one float32
     ulp of the entry's magnitude (a part near zero has no ulp of its own to
     be held to)."""
-    plan = mixed_plan(n_fft, bluestein=True)
+    plan = mixed_plan(n_fft, "bluestein")
     L, M = plan.points, plan.n
     q = np.array([n * n % (2 * L) for n in range(L)], np.float64)
     w = np.exp(-1j * np.pi * q / L)

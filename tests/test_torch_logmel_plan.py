@@ -1,18 +1,20 @@
 """The plan of kernel A's mixed and cluster bodies on the CPU: register
 radices 2-13, matrix stages for the primes above (``matrix_stage`` of
-``csrc/logmel_stages.cuh``: two real products on the tensor cores), Bluestein
-only where a prime above ``MATRIX_MAX`` divides L or the cost model says so;
-the body by size; the matrix stages' host tables; the mel sums' lane order;
-and `mixed_log_mel_plain` at the new plans against float64 rFFT + mel, the
-JAX package's `extract` and its fused kernel (interpreted).
+``csrc/logmel_stages.cuh``: two real products on the tensor cores), a Rader
+stage for the largest prime where the cost model says so (and for the primes
+above ``MATRIX_MAX`` whose p - 1 has a direct plan), Bluestein for the rest
+or where the cost model says so; the body by size; the matrix stages' host
+tables; the mel sums' lane order; and `mixed_log_mel_plain` at the new
+plans against float64 rFFT + mel, the JAX package's `extract` and its fused
+kernel (interpreted).
 
 Bands, in the log domain at finite entries, -inf entries equal: 1e-4
 against ``np.fft.rfft`` + mel in float64 (float32 rounding of the register
 stages, the float64 matrix product rounded once, the mel sums); 5e-4
 against the JAX package (the band every kernel A route is held to,
-tests/test_frontend_parity.py). The JAX kernel is not run at 12865: it
-builds dense (n_fft, n_fft / 2) float64 bases (1.3 GB) before its
-interpreted kernel runs; `extract` is.
+tests/test_frontend_parity.py). The JAX kernel is not run from 12865 on:
+it builds dense (n_fft, n_fft / 2) float64 bases (1.3 GB at 12865) before
+its interpreted kernel runs; `extract` is.
 """
 
 import math
@@ -33,6 +35,7 @@ from sed_crnn_torch.ops.kernels.fused_logmel import (
     MATRIX_MAX,
     MATRIX_TILES,
     MIXED_MAX_SMEM,
+    PLAN_KINDS,
     REGISTER_RADICES,
     _launch_cluster,
     _next_smooth,
@@ -87,50 +90,74 @@ def _assert_log_close(got, want, atol):
     np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=atol)
 
 
-# n_fft: (radices, Bluestein, body). L 1001 = 7 x 11 x 13 (register radices
-# only), 517 = 11 x 47, 551 = 19 x 29, 12865 = 5 x 31 x 83 (two work arrays
-# and the power row, 231,572 bytes: one block), 13 (one radix-13 stage),
-# 1103 (a prime above MATRIX_MAX: Bluestein at M 2,205), 11522 = 2 x 7 x 823
-# (a matrix stage of 823: cheaper than Bluestein on the cluster body), and
-# 12867 = 3 x 4289 and 11527 (prime) (the first odd and even sizes beyond
-# one block: Bluestein on the cluster body).
+# n_fft: (radices, Rader inner radices, Bluestein, body). L 1001 = 7 x 11 x
+# 13 (register radices only), 517 = 11 x 47, 551 = 19 x 29, 12865 = 5 x 31 x
+# 83 (two work arrays and the power row, 231,572 bytes: one block), 13 (one
+# radix-13 stage), 1103 (a prime above MATRIX_MAX: a Rader stage over 1102 =
+# 2 x 19 x 29), 11522 = 2 x 7 x 823 (a Rader stage of 823, cheaper than its
+# matrix stage), 12867 = 3 x 4289 and 11527 (prime) (the first odd and even
+# sizes that were Bluestein on the cluster body: Rader stages in one block),
+# 25734 (L 12867 at an even n_fft: Rader on the cluster body), 31290 (L 3 x
+# 5 x 7 x 149: a matrix stage on the cluster body) and 4126 (L 2063, prime,
+# 2062 = 2 x 1031: no direct plan for p - 1, so Bluestein).
 PLANS = {
-    1001: ((7, 11, 13), False, "mixed"),
-    1034: ((11, 47), False, "mixed"),
-    1102: ((19, 29), False, "mixed"),
-    12865: ((5, 31, 83), False, "mixed"),
-    26: ((13,), False, "mixed"),
-    2206: ((3, 3, 5, 7, 7), True, "mixed"),
-    12867: ((4, 4, 4, 3, 3, 3, 3, 5), True, "cluster"),
-    23044: ((2, 7, 823), False, "mixed"),
-    23054: ((4, 4, 2, 3, 3, 3, 3, 3, 3), True, "cluster"),
+    1001: ((7, 11, 13), (), False, "mixed"),
+    1034: ((11, 47), (), False, "mixed"),
+    1102: ((19, 29), (), False, "mixed"),
+    12865: ((5, 31, 83), (), False, "mixed"),
+    26: ((13,), (), False, "mixed"),
+    2206: ((1103,), (2, 19, 29), False, "mixed"),
+    12867: ((3, 4289), (4, 4, 4, 67), False, "mixed"),
+    23044: ((2, 7, 823), (2, 3, 137), False, "mixed"),
+    23054: ((11527,), (2, 3, 17, 113), False, "mixed"),
+    1103: ((1103,), (2, 19, 29), False, "mixed"),
+    25734: ((3, 4289), (4, 4, 4, 67), False, "cluster"),
+    31290: ((3, 5, 7, 149), (), False, "cluster"),
+    4126: ((4, 2, 3, 5, 5, 7), (), True, "mixed"),
 }
 
 
 @pytest.mark.parametrize("n_fft", list(PLANS))
 def test_new_plans(n_fft):
     """Direct plans take the register radices and, above 13, matrix stages
-    (ascending, after the register stages); Bluestein keeps 7-smooth M."""
-    radices, blue, where = PLANS[n_fft]
+    (ascending, after the register stages), or a Rader stage last for the
+    largest prime (its inner radices `_direct_radices` (p - 1)); Bluestein
+    keeps 7-smooth M. Two work arrays with a matrix or Rader stage."""
+    radices, inner, blue, where = PLANS[n_fft]
     plan = mixed_plan(n_fft)
-    assert (plan.radices, plan.bluestein, body(n_fft)) == (radices, blue, where)
+    assert (plan.radices, plan.rader, plan.bluestein, body(n_fft)) == (radices, inner, blue, where)
     assert math.prod(plan.radices) == plan.n and len(plan.radices) <= fl.MIXED_MAX_STAGES
-    assert plan.matrix == tuple(r for r in radices if r > 13)
-    arrays = 2 if plan.matrix else 1     # a matrix stage writes out of place
+    rader = radices[-1] if inner else 0
+    assert plan.rader_prime == rader
+    assert plan.matrix == tuple(r for r in radices[: len(radices) - bool(inner)] if r > 13)
+    assert plan.kinds == tuple("rader" if r == rader and s == len(radices) - 1 else
+                               "matrix" if r > 13 else "register" for s, r in enumerate(radices))
+    arrays = 2 if plan.matrix or inner else 1   # matrix and Rader stages write out of place
     assert plan.smem_bytes == 8 * arrays * plan.n + 4 * (n_fft // 2 + 1)
     if blue:
         assert plan.n == _next_smooth(2 * plan.points - 1) and set(plan.radices) <= {2, 3, 4, 5, 7}
     else:
         assert plan.n == plan.points and list(plan.matrix) == sorted(plan.matrix)
+    if inner:
+        assert math.prod(inner) == rader - 1 and inner == fl._direct_radices(rader - 1)
+        assert rader == max(fl._prime_factors(plan.points)) > 13
 
 
 def test_1103_has_a_prime_above_the_bound():
-    """An odd prime n_fft above MATRIX_MAX: no direct plan, so Bluestein."""
+    """An odd prime n_fft above MATRIX_MAX: no direct plan without a Rader
+    stage; its Rader stage runs over 1102 = 2 x 19 x 29 (a register stage
+    and two matrix stages), cheaper than Bluestein at M 2,205 by the cost
+    model, on the mixed body."""
     assert MATRIX_MAX < 1103 <= 2 * MATRIX_MAX
     plan = mixed_plan(1103)
-    assert plan.bluestein and plan.n == 2205 and body(1103) == "mixed"
-    with pytest.raises(ValueError, match="no direct plan"):
-        mixed_plan(1103, bluestein=False)
+    assert not plan.bluestein and plan.radices == (1103,) and plan.rader == (2, 19, 29)
+    assert plan.kinds == ("rader",) and plan.rader_matrix == (19, 29) and body(1103) == "mixed"
+    with pytest.raises(ValueError, match="L = 1103 has no direct plan"):
+        mixed_plan(1103, "direct")
+    assert plan == mixed_plan(1103, "rader")
+    blue = mixed_plan(1103, "bluestein")
+    assert blue.n == 2205 and plan_cost(plan.n, plan.radices, False, rader=plan.rader) < plan_cost(
+        blue.n, blue.radices, True)
 
 
 def test_matrix_bound_is_the_kernels_tile_limit():
@@ -144,41 +171,111 @@ def test_matrix_bound_is_the_kernels_tile_limit():
 
 
 def test_a_matrix_plan_beyond_one_block_takes_bluestein():
-    """L 31,744 = 31 x 1024 has a direct plan with a matrix stage, 380,932
-    bytes: more than one block, and the cluster body has no matrix stage,
-    so `mixed_plan` gives Bluestein and the cluster body runs it."""
-    direct = mixed_plan(63488, bluestein=False)
+    """L 31,744 = 31 x 1024 has a direct plan with a matrix stage, 634,884
+    bytes: more than one block. The cluster body has matrix stages, so
+    `mixed_plan` keeps it where it costs less than Bluestein there, and the
+    cluster body runs it at 3 CTAs: two work arrays a CTA, the matrix stage
+    the last, crossing CTAs (a chunk of 10,582 points is no multiple of
+    31)."""
+    direct = mixed_plan(63488, "direct")
     assert direct.matrix == (31,) and direct.smem_bytes > MIXED_MAX_SMEM
+    blue = mixed_plan(63488, "bluestein")
+    assert plan_cost(direct.n, direct.radices, False, True) < plan_cost(blue.n, blue.radices,
+                                                                        True, True)
     plan = mixed_plan(63488)
-    assert plan.bluestein and body(63488) == "cluster"
+    assert plan == direct and body(63488) == "cluster"
+    sp = fl.cluster_split(63488, fl.cluster_size(63488))
+    assert sp.smem_bytes == 16 * sp.chunk + 4 * sp.bin_chunk <= MIXED_MAX_SMEM
+    assert (sp.ctas, sp.chunk) == (3, 10582) and sp.cross[-1] and sp.chunk % 31 != 0
 
 
-@pytest.mark.parametrize("n_fft", [1034, 12865])
-def test_cluster_launcher_refuses_a_matrix_stage(n_fft):
-    """Forced onto the cluster body, a plan with a matrix stage raises before
-    any launch; nothing falls back."""
+class _FakeClusterLib:
+    """Stands in for the built ``logmel_cluster`` library: records the
+    arguments of one launch and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def logmel_cluster(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("n_fft", [1034, 12865, 1103, 25734])
+def test_cluster_launcher_takes_matrix_and_rader_plans(n_fft, monkeypatch):
+    """Forced onto the cluster body, a plan with a matrix or Rader stage is
+    no longer refused: the wrapper hands the launcher the plan's radices,
+    the Rader stage's inner radices, the split (chunk, crossing bits) and
+    the value tables, and counts one cluster launch."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=n_fft // 2, center=False)
+    plan = mixed_plan(n_fft)
+    assert plan.tensor_cores
+    fake = _FakeClusterLib()
+    monkeypatch.setattr(fl, "_cluster_lib", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: __import__("types").SimpleNamespace(cuda_stream=0))
     before = fl.fused_log_mel.cluster_launches
-    with pytest.raises(ValueError, match="no matrix stage"):
-        _launch_cluster(torch.zeros(2 * n_fft), n_fft // 2, 2, n_fft, cfg, ctas=2)
-    assert fl.fused_log_mel.cluster_launches == before
+    _launch_cluster(torch.zeros(2 * n_fft), n_fft // 2, 2, n_fft, cfg, ctas=2)
+    assert fl.fused_log_mel.cluster_launches == before + 1
+    (args,) = fake.calls
+    sp = fl.cluster_split(n_fft, 2)
+    assert args[3:6] == (n_fft, plan.n, len(plan.radices))
+    assert list(args[6][: len(plan.radices)]) == list(plan.radices) and args[7] == 0
+    assert args[8] == len(plan.rader) and list(args[9][: len(plan.rader)]) == list(plan.rader)
+    assert args[10:13] == (2, sp.chunk, sp.bin_chunk)
+    assert args[13] == sum(1 << s for s, c in enumerate(sp.cross) if c)
+    assert args[14] == sum(1 << s for s, c in enumerate(sp.rader_cross) if c)
+    tables = args[15:28]
+    assert tables[6] is not None                       # the matrix stages' fragments
+    assert (tables[7] is not None) == bool(plan.rader)  # the gather, twiddles, spectrum
+    assert sp.smem_bytes == 16 * sp.chunk + 4 * sp.bin_chunk
+
+
+@pytest.mark.parametrize("n_fft,kinds", [(1103, ("rader", "bluestein")),
+                                          (1034, ("direct", "rader", "bluestein")),
+                                          (4126, ("bluestein",)),
+                                          (44100, ("direct", "bluestein"))])
+def test_a_forced_plan_kind_is_that_kind_or_raises(n_fft, kinds):
+    """`mixed_plan`'s ``plan`` gives the plan of that kind where L has one
+    (direct: register and matrix stages only; rader: a Rader stage last;
+    bluestein), raises ValueError naming the kind where it has none, and
+    raises on a kind it does not know; the size's own plan is one of them."""
+    got = {}
+    for kind in PLAN_KINDS:
+        if kind in kinds:
+            got[kind] = mixed_plan(n_fft, kind)
+        else:
+            with pytest.raises(ValueError, match=f"has no {kind} plan"):
+                mixed_plan(n_fft, kind)
+    assert set(got) == set(kinds)
+    assert got["bluestein"].bluestein and not got["bluestein"].rader
+    if "direct" in got:
+        assert not got["direct"].bluestein and not got["direct"].rader
+    if "rader" in got:
+        assert not got["rader"].bluestein and got["rader"].kinds[-1] == "rader"
+    assert mixed_plan(n_fft) in got.values()
+    with pytest.raises(ValueError, match="unknown plan kind"):
+        mixed_plan(n_fft, "matrix")
 
 
 def test_cost_model_picks_the_cheaper_plan():
-    """`mixed_plan` keeps the cheaper plan by `plan_cost` wherever both fit
-    one block: a lone prime near the bound (L 509) costs more direct than
-    Bluestein's two 7-smooth transforms; the sizes above cost less direct."""
-    for n_fft in (1034, 1102, 12865, 1018, 2050, 4418, 10006):
-        blue = mixed_plan(n_fft, bluestein=True)
-        try:
-            direct = mixed_plan(n_fft, bluestein=False)
-        except ValueError:
-            continue
-        want = blue if plan_cost(blue.n, blue.radices, True) < plan_cost(
-            direct.n, direct.radices, False) else direct
+    """`mixed_plan` keeps the cheapest plan by `plan_cost` (on the body each
+    would run on) among the matrix, Rader and Bluestein plans a size has: a
+    lone prime near the bound (L 509) costs less by a Rader stage over 508 =
+    4 x 127 than by its matrix stage or Bluestein's two 7-smooth
+    transforms; the sizes above keep their matrix stages."""
+    for n_fft in (1034, 1102, 12865, 1018, 2050, 4418, 10006, 23042, 23044):
+        plans = []
+        for kind in PLAN_KINDS:
+            try:
+                plans.append(mixed_plan(n_fft, kind))
+            except ValueError:
+                continue
+        want = min(plans, key=fl._plan_cost_on_body)
         assert mixed_plan(n_fft) == want, n_fft
-    assert mixed_plan(1018).bluestein
-    assert not any(mixed_plan(n).bluestein for n in (1034, 1102, 12865))
+    assert mixed_plan(1018).rader == (4, 127) and mixed_plan(1018).radices == (509,)
+    assert not any(mixed_plan(n).bluestein or mixed_plan(n).rader for n in (1034, 1102, 12865))
 
 
 @pytest.mark.parametrize("radix", [17, 19, 31, 47, 83, 281])
@@ -257,6 +354,14 @@ def test_operands_carry_the_tables_in_stage_order():
                                                               matrix_table(83)]))
     assert "chirp" not in ops and sorted(ops["pos"].tolist()) == list(range(12865))
     assert "dft" not in mixed_operands(44100, 1001, 40, 0.0, None)
+    # A Rader plan: the outer matrix tables, then the inner ones; its tables.
+    ops = mixed_operands(44100, 23042, 40, 0.0, None, plan="rader")
+    np.testing.assert_array_equal(ops["dft"], matrix_table(41))
+    assert ops["rgather"].shape == (280,) and ops["rspec"].shape == (280, 2)
+    ops = mixed_operands(44100, 23054, 40, 0.0, None)
+    np.testing.assert_array_equal(ops["dft"], np.concatenate([matrix_table(17),
+                                                              matrix_table(113)]))
+    assert sorted(ops["pos"].tolist()) == list(range(11527)) and "rspec" in ops
 
 
 @pytest.mark.parametrize("radix,ls", [(7, 49), (7, 7), (11, 121)])
@@ -310,6 +415,11 @@ CONFIGS = {
     "1102": dict(n_fft=1102, hop_length=551),
     "1103": dict(n_fft=1103, hop_length=551),
     "12865": dict(n_fft=12865, hop_length=6432),
+    "2206": dict(n_fft=2206, hop_length=1103),
+    "12867": dict(n_fft=12867, hop_length=6433),
+    "23054": dict(n_fft=23054, hop_length=11527),
+    "25734": dict(n_fft=25734, hop_length=12867),
+    "31290": dict(n_fft=31290, hop_length=15645),
 }
 
 
@@ -331,7 +441,7 @@ def test_new_plans_plain_matches_references(case, center, log_floor):
     assert np.isneginf(got).any() == (log_floor is None)
 
 
-@pytest.mark.parametrize("case", ["1001", "1034", "1102", "1103"])
+@pytest.mark.parametrize("case", ["1001", "1034", "1102", "1103", "2206"])
 def test_new_plans_plain_against_the_jax_kernel(case):
     """A 1,500-sample clip, centred, against the JAX fused Pallas kernel run
     interpreted (its exact route: n_fft % 4 != 0)."""
@@ -347,18 +457,24 @@ def test_phases_tool_cuts_the_mixed_body():
     """`sed_crnn_torch.tools.logmel_phases` builds the mixed body at each of
     its named profiling cuts; the source defines the macro as 0 (no cut) and
     guards each phase the tool names with its level; every size it times
-    takes the mixed body."""
+    takes the mixed body, Rader plans among them; `plan_counts` counts a
+    Rader stage's two inner transforms and its two passes."""
     from sed_crnn_torch.ops.kernels import _build
     from sed_crnn_torch.tools import logmel_phases as tool
 
     src = (_build.CSRC_DIR / "logmel_mixed.cu").read_text()
     assert "#define LOGMEL_MIXED_CUT 0" in src
     assert tool.MIXED_VARIANTS == {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3,
-                                   "no_bluestein": 4, "no_stages": 5}
-    for level in (1, 2, 3, 4, 5):
+                                   "no_rader": 4, "no_bluestein": 5, "no_stages": 6}
+    for level in (1, 2, 3, 4, 5, 6):
         assert f"CUT < {level}" in src, level
     assert all(body(n) == "mixed" for n, _ in tool.MIXED_SIZES)
+    assert {12867, 23054, 1103} <= {n for n, _ in tool.MIXED_SIZES}
     plan = mixed_plan(12865)
     assert fl.plan_counts(plan.n, plan.radices, False) == (12865, 52 * 4 + 20 * 36)
-    blue = mixed_plan(12865, bluestein=True)
+    blue = mixed_plan(12865, "bluestein")
     assert fl.plan_counts(blue.n, blue.radices, True) == (2 * 8 * 25920 + 25920, 0)
+    rader = mixed_plan(12867)                 # 3, Rader 4289 over 4, 4, 4, 67
+    inner = 3 * 4288
+    assert fl.plan_counts(rader.n, rader.radices, False, rader.rader) == (
+        12867 + 2 * 3 * inner + 2 * inner, 2 * (-(-(inner // 67) // 8) * 5 * 5))
