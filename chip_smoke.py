@@ -98,10 +98,12 @@ exits non-zero and prints no result line:
     1764 / 882 (chunked, direct), 3072 / 1024 (framed, direct), 1001 / 500
     (exact, 7, 11, 13), 1102 / 551 (matrix stages 19, 29), 12865 / 6432
     (matrix stages), 23042 / 11521 (a matrix stage of 41, a Rader stage of
-    281), and the Rader plans 12867 / 6433 (3, Rader 4289), 23054 / 11527
-    (Rader 11527) and 1103 / 551 (Rader 1103) on those signals, with and
-    without a floor: against `mixed_log_mel_plain` (bitwise, or within
-    MATRIX_ATOL with matrix stages), two runs bitwise equal, within 5e-4 of
+    281), the Rader plans 12867 / 6433 (3, Rader 4289) and 23054 / 11527
+    (Rader 11527), 2066 / 1033 (Rader 1033 alone, its gather folded into
+    the load), 1103 / 551 (Bluestein on radices 9, 5, 7, 7) and 12895 /
+    6447 (5, Rader 2579 with Rader 1289 nested in its inner transforms) on
+    those signals, with and without a floor: against `mixed_log_mel_plain`
+    (bitwise, or within MATRIX_ATOL with matrix stages), two runs bitwise equal, within 5e-4 of
     the DIF / direct plain version (torch's FFT + mel above 4096) with the
     -inf pattern equal, and on a frame matrix; its times on 150 s of padded
     audio (warm and cold L2, device and host) beside ``torch.stft`` + mel,
@@ -110,16 +112,16 @@ exits non-zero and prints no result line:
     n_fft 1034 with exactly one mixed launch and no cluster launch;
     then ([kernel A cluster]) the cluster body ``csrc/logmel_cluster.cu``
     (every n_fft beyond one block's shared memory): the clusters the card
-    holds at 227 KB a CTA for every size to 16; n_fft 25734 / 12867 (3,
-    Rader 4289, exact route), 31290 / 15645 (a matrix stage of 149), 44100
-    / 22050 and 48000 / 24000 (direct, chunked), 88200 / 44100 (3 CTAs)
-    and 12895 / 6447 (Bluestein, exact route) on those signals, with and
+    holds at 227 KB a CTA for every size to 16; n_fft 25734 / 12867
+    (Bluestein, exact route), 25738 / 12869 (17, Rader 757), 31290 / 15645
+    (a matrix stage of 149), 44100 / 22050 and 48000 / 24000 (direct, chunked), 88200 / 44100 (3 CTAs)
+    and 21599 / 10799 (Bluestein, exact route) on those signals, with and
     without a floor: against
     `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL), two runs
     bitwise equal, within 5e-4 of torch's FFT + mel with the -inf pattern
-    equal; the same bits at other cluster sizes (25734 at 2-16 CTAs, 44100
-    at 2, 3, 4, 7, 88200 at 3-12) and the mixed body's shapes (register,
-    matrix and Rader plans) forced onto it at 2, 3, 4 and 8 CTAs, bitwise
+    equal; the same bits at other cluster sizes (25734 at 2-16 CTAs, 25738
+    at 2-4, 44100 at 2, 3, 4, 7, 88200 at 3-12) and the mixed body's shapes
+    (register, matrix and Rader plans) forced onto it at 2, 3, 4 and 8 CTAs, bitwise
     the mixed body's; times on 150 s of padded audio (warm and cold L2,
     device and host) beside ``torch.stft`` + mel, the plain version, the
     bound and every other plan in turns, and 88200 at 3 and 4 CTAs and
@@ -2076,12 +2078,19 @@ def phase_logmel_routes(pcm: np.ndarray):
 # radices), L 551 = 19 x 29 (two matrix stages), L 12865 = 5 x 31 x 83 and
 # 11521 = 41 x 281 (matrix stages, and a Rader stage of 281), and the Rader
 # plans: L 12867 = 3 x 4289 and 11527 (prime), the cluster body's Bluestein
-# sizes before Rader stages fitted them in one block, and 1103 (prime, a 25
-# ms window at 44.1 kHz).
+# sizes before Rader stages fitted them in one block; L 1033 (prime, 1032 =
+# 8 x 3 x 43: a Rader stage, the plan's only stage, its gather folded into
+# the load, a matrix stage of 43 inside); 1103 (prime, a 25 ms window at
+# 44.1 kHz: Bluestein on radices 9, 5, 7, 7, which `plan_cost` picks for L
+# 1,103 as at 2206, where the card timed it faster than the Rader plan;
+# at 1103 the Rader plan is the faster, PERF.md §6); and 12895 (L 5 x
+# 2579, 2578 = 2 x 1289, 1288 = 8 x 7 x 23: a Rader stage nested in the
+# Rader stage's inner transforms), Bluestein at M 25,920 on the cluster
+# body before the nested stage fitted it in one block.
 MIXED_SHAPES = ((1034, 517, "exact"), (1764, 882, "chunked"), (3072, 1024, "framed"),
                 (1001, 500, "exact"), (1102, 551, "exact"), (12865, 6432, "exact"),
                 (23042, 11521, "exact"), (12867, 6433, "exact"), (23054, 11527, "exact"),
-                (1103, 551, "exact"))
+                (2066, 1033, "exact"), (1103, 551, "exact"), (12895, 6447, "exact"))
 # A plan with matrix stages (a Rader stage's inner ones too) against
 # `mixed_log_mel_plain` (whose matrix product is float64, rounded once):
 # three TF32 products with float32 sums come within about 2^-21 of a
@@ -2105,6 +2114,8 @@ def _plan_text(plan) -> str:
             f"radices {plan.radices}, stages {'/'.join(plan.kinds) or 'none'}")
     if plan.rader:
         text += f", Rader {plan.rader_prime} over {plan.rader}"
+    if plan.nested:
+        text += f", nested Rader {plan.nested_prime} over {plan.nested}"
     return text
 
 
@@ -2134,7 +2145,7 @@ def _check_plain_bits(tag: str, got, plain, plan) -> float:
 
 # The plans forced beside a size's own in turns (`mixed_plan` keywords).
 FORCED_PLANS = {"bluestein": {"plan": "bluestein"}, "direct": {"plan": "direct"},
-                "rader": {"plan": "rader"}}
+                "rader": {"plan": "rader"}, "nested": {"plan": "nested"}}
 
 
 def _plan_turns(src, hop: int, n_frames: int, n_fft: int, cfg, check_bits: bool = True) -> dict:
@@ -2351,17 +2362,21 @@ def phase_logmel_mixed(pcm: np.ndarray):
 
 
 # The cluster body's shapes (n_fft, hop): L 12867 = 3 x 4289 at an even
-# n_fft (25734: a Rader stage of 4289, exact route), L 15645 = 3 x 5 x 7 x
-# 149 (31290: a matrix stage of 149), 1 s at 44.1 kHz and at 48 kHz
+# n_fft (25734: Bluestein at M 25,920 on radices 8, 9, 5, which the card
+# timed faster than its Rader stage of 4289; exact route), L 12869 = 17 x
+# 757 (25738: a matrix stage of 17, then a Rader stage of 757 over 4 x 3 x
+# 3 x 3 x 7, its chunk whole inner transforms; exact route), L 15645 = 3 x
+# 5 x 7 x 149 (31290: a matrix stage of 149), 1 s at 44.1 kHz and at 48 kHz
 # (direct, chunked, 2 CTAs a frame), 2 s at 44.1 kHz (direct, 3 CTAs) and
-# 12895, the first odd n_fft beyond one block (L = 5 x 2579, 2578 = 2 x
-# 1289: Bluestein at M 25,920 over 2 CTAs, exact route).
-CLUSTER_SHAPES = ((25734, 12867), (31290, 15645), (44100, 22050), (48000, 24000),
-                  (88200, 44100), (12895, 6447))
-# Other splits of three of them, whose bits must be the default split's (4
-# CTAs do not divide 44100's N, so all its stages cross CTAs; at 25734 C 3
-# the Rader stage's inner stages cross, at 2, 4, 8 and 16 they do not).
-CLUSTER_SPLITS = {25734: (2, 3, 4, 8, 16), 44100: (2, 3, 4, 7), 88200: (3, 4, 6, 12)}
+# 21599 (odd, L prime, 21598 = 2 x 10799, 10798 = 2 x 5399: no Rader plan,
+# nested or not; Bluestein at M 43,200, exact route).
+CLUSTER_SHAPES = ((25734, 12867), (25738, 12869), (31290, 15645), (44100, 22050),
+                  (48000, 24000), (88200, 44100), (21599, 10799))
+# Other splits of four of them, whose bits must be the default split's (4
+# CTAs do not divide 44100's N, so all its stages cross CTAs; at 25738 each
+# CTA holds whole inner transforms of its Rader stage at 2, 3 and 4 CTAs).
+CLUSTER_SPLITS = {25734: (2, 3, 4, 8, 16), 25738: (2, 3, 4), 44100: (2, 3, 4, 7),
+                  88200: (3, 4, 6, 12)}
 # Sizes timed at two cluster sizes in turns: the smallest that holds the
 # plan (`cluster_size`) and one with fewer stages crossing CTAs.
 CLUSTER_TURNS = ((88200, 44100, 3, 4), (141000, 70500, 7, 8))
@@ -2473,20 +2488,32 @@ def phase_logmel_cluster(pcm: np.ndarray):
               f"launches {counts}")
 
     # The mixed body's shapes (register, matrix and Rader plans) forced onto
-    # the cluster body, and other splits of the real sizes: the same bits.
+    # the cluster body, and other splits of the real sizes: the same bits. A
+    # nested plan (one block's only) is refused there, before any launch.
     y30 = torch.from_numpy(signals[0][1]).to(dev)
+    forced, refused = [], []
     for n_fft, hop, _ in MIXED_SHAPES:
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False)
         src, n_frames = frame_source(y30, cfg)
+        if mixed_plan(n_fft).nested:
+            before = _logmel_counts()
+            try:
+                _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=CLUSTER_FORCED[0])
+            except ValueError:
+                refused.append((n_fft, hop))
+            check(refused[-1:] == [(n_fft, hop)] and _logmel_counts() == before,
+                  f"cluster body forced to the nested plan of {n_fft}/{hop}: not refused")
+            continue
         want = _launch_mixed(src, hop, n_frames, n_fft, cfg)
         for c in CLUSTER_FORCED:
             got = _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c)
             check(torch.equal(got, want),
                   f"cluster body forced to {n_fft}/{hop} ({_plan_text(mixed_plan(n_fft))}) at "
                   f"C {c}: not the mixed body's bits")
-    print(f"[kernel A cluster] the mixed body's shapes {[s[:2] for s in MIXED_SHAPES]} "
-          f"(register, matrix and Rader plans) on the 30 s bucket at C {CLUSTER_FORCED}: "
-          f"bitwise equal to the mixed body")
+        forced.append((n_fft, hop))
+    print(f"[kernel A cluster] the mixed body's shapes {forced} (register, matrix and Rader "
+          f"plans) on the 30 s bucket at C {CLUSTER_FORCED}: bitwise equal to the mixed body; "
+          f"the nested plans of {refused} refused, nothing launched")
     for n_fft, splits in CLUSTER_SPLITS.items():
         hop = dict(CLUSTER_SHAPES)[n_fft]
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
@@ -2557,8 +2584,8 @@ def phase_logmel_cluster(pcm: np.ndarray):
               f"size in turns [C, stages crossing, ms]: {turns}")
 
     # The main path: `frontend.extract` of the 120 s file at 25734 (n_fft %
-    # 4 = 2: the exact route, a Rader stage) and at 44100 (hop n_fft / 2: the
-    # chunked route), against the fft backend.
+    # 4 = 2: the exact route) and at 44100 (hop n_fft / 2: the chunked
+    # route), against the fft backend.
     launches = 0
     for n_fft, hop, kind in ((25734, 12867, "exact"), (44100, 22050, "chunked")):
         cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, backend="kernel")

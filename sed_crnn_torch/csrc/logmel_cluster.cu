@@ -94,7 +94,8 @@ constexpr int NO_CLUSTER_FITS = -1;     // status: the card holds no cluster of 
 // leaves out the mel sums, with 2 also the bins' power, with 3 also the
 // matrix stages (a Rader stage's inner ones too), with 4 also the Rader
 // stage (gather, inner register stages, product), with 5 also the register
-// stages. 0, the default, cuts nothing.
+// stages. 0, the default, cuts nothing. (-DLOGMEL_SKIP_RADIX=R, in
+// csrc/logmel_stages.cuh, leaves out the register stages of one radix.)
 #ifndef LOGMEL_CLUSTER_CUT
 #define LOGMEL_CLUSTER_CUT 0
 #endif
@@ -140,19 +141,20 @@ struct Part {
 // points (N the length of the twiddle table tw): a crossing stage's
 // butterflies evenly over the CTAs, on points anywhere in the cluster; any
 // other stage's own butterflies, on its own points.
-template <bool TRANSPOSED, bool WIDE>
+template <bool TRANSPOSED, bool WIDE, bool EXT>
 __device__ __forceinline__ void split_stage(int radix, bool cross, float2* z, const Part& q,
                                             int N, int count, int ls,
                                             const float2* __restrict__ tw) {
   const int nb = count / radix;
   if (cross) {
     const int per = (nb + q.C - 1) / q.C;
-    logmel::run_stage<TRANSPOSED, WIDE>(radix, Spread{z, q.chunk}, N, ls, min(nb, q.c * per),
-                                        min(nb, (q.c + 1) * per), q.lt, q.nt, tw);
+    logmel::run_stage<TRANSPOSED, WIDE, EXT>(radix, Spread{z, q.chunk}, N, ls,
+                                             min(nb, q.c * per), min(nb, (q.c + 1) * per), q.lt,
+                                             q.nt, tw);
   } else {
-    logmel::run_stage<TRANSPOSED, WIDE>(radix, logmel::Shifted{z, q.lo}, N, ls,
-                                        min(q.lo, count) / radix, min(q.hi, count) / radix,
-                                        q.lt, q.nt, tw);
+    logmel::run_stage<TRANSPOSED, WIDE, EXT>(radix, logmel::Shifted{z, q.lo}, N, ls,
+                                             min(q.lo, count) / radix, min(q.hi, count) / radix,
+                                             q.lt, q.nt, tw);
   }
 }
 
@@ -181,7 +183,7 @@ __device__ __forceinline__ void split_matrix(int radix, bool cross, float2* z, f
 // and 4 of the Rader stage in csrc/logmel_stages.cuh), forward or
 // transposed in reverse order, on `cur` (a matrix stage writes `oth` and
 // the two swap), each stage behind the barrier its crossing asks for.
-template <bool TRANSPOSED, bool WIDE>
+template <bool TRANSPOSED, bool WIDE, bool EXT>
 __device__ __forceinline__ void rader_inner(const Plan& plan, unsigned rcross, float2*& cur,
                                             float2*& oth, int p, int Np, const Part& q,
                                             const float2* rtw, const float* dft,
@@ -194,7 +196,7 @@ __device__ __forceinline__ void rader_inner(const Plan& plan, unsigned rcross, f
     const bool cross = (rcross >> s) & 1u;
     phase_barrier(cross_before || cross);
     cross_before = cross;
-    if (r > logmel::MAX_REGISTER_RADIX) {
+    if (logmel::matrix_radix(r)) {
       if (CUT < 3)
         split_matrix<TRANSPOSED>(r, cross, cur, oth, q, p - 1, Np, ls, dft + plan.rader_table[s],
                                  rtw);
@@ -202,14 +204,15 @@ __device__ __forceinline__ void rader_inner(const Plan& plan, unsigned rcross, f
       cur = oth;
       oth = t;
     } else if (CUT < 5) {
-      split_stage<TRANSPOSED, WIDE>(r, cross, cur, q, p - 1, Np, ls, rtw);
+      split_stage<TRANSPOSED, WIDE, EXT>(r, cross, cur, q, p - 1, Np, ls, rtw);
     }
     if (!TRANSPOSED) ls /= r;
   }
 }
 
-// ALT: a plan with matrix or Rader stages, in two work arrays.
-template <bool BLUE, bool WIDE, bool ALT>
+// ALT: a plan with matrix or Rader stages, in two work arrays. EXT: with
+// composite radices (their code only in these instantiations).
+template <bool BLUE, bool WIDE, bool ALT, bool EXT>
 __global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS)
 logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                       long long stride, int n_fft, Plan plan, Split split,
@@ -266,21 +269,21 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
                                rgather);
           float2* cur = zb;
           float2* oth = z;
-          rader_inner<false, WIDE>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
-                                   cross_before);
+          rader_inner<false, WIDE, EXT>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
+                                        cross_before);
           phase_barrier(true);
           logmel::rader_product(logmel::Shifted{cur, lo}, Spread{zb, chunk}, N, r, min(lo, Np),
                                 min(hi, Np), lt, nt, rspec);
           cross_before = true;
-          rader_inner<true, WIDE>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
-                                  cross_before);
+          rader_inner<true, WIDE, EXT>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
+                                       cross_before);
         }
         float2* const tmp = z;
         z = zb;
         zb = tmp;
         continue;
       }
-      if (r > logmel::MAX_REGISTER_RADIX) {
+      if (logmel::matrix_radix(r)) {
         if (CUT < 3)
           split_matrix<false>(r, cross, z, zb, q, N, N, ls, dft + plan.table[s], tw);
         float2* const tmp = z;
@@ -290,7 +293,7 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
         continue;
       }
     }
-    if (CUT < 5) split_stage<false, WIDE>(r, cross, z, q, N, N, ls, tw);
+    if (CUT < 5) split_stage<false, WIDE, EXT>(r, cross, z, q, N, N, ls, tw);
     ls /= r;
   }
 
@@ -308,7 +311,7 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
       const bool cross = (split.cross >> s) & 1u;
       phase_barrier(cross_before || cross);
       cross_before = cross;
-      if (CUT < 5) split_stage<true, WIDE>(plan.radix[s], cross, z, q, N, N, ls, tw);
+      if (CUT < 5) split_stage<true, WIDE, EXT>(plan.radix[s], cross, z, q, N, N, ls, tw);
     }
   }
 
@@ -364,7 +367,7 @@ size_t cta_smem(const Split& split, bool alt) {
 
 // Host side: the dynamic shared memory and non-portable cluster attributes
 // are set once per instantiation and device (bit d of `done`).
-template <bool BLUE, bool WIDE, bool ALT>
+template <bool BLUE, bool WIDE, bool ALT, bool EXT>
 cudaError_t opt_in() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -372,10 +375,10 @@ cudaError_t opt_in() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     done.fetch_or(bit);
@@ -386,7 +389,7 @@ cudaError_t opt_in() {
 // A launch of `clusters` clusters of `ctas` CTAs of `threads` threads and
 // `smem` bytes, and how many such clusters the card holds at once (0: none,
 // the launch would be refused).
-template <bool BLUE, bool WIDE, bool ALT>
+template <bool BLUE, bool WIDE, bool ALT, bool EXT>
 struct Launch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -405,30 +408,38 @@ struct Launch {
   }
 
   cudaError_t resident(int* clusters) {
-    cudaError_t err = opt_in<BLUE, WIDE, ALT>();
+    cudaError_t err = opt_in<BLUE, WIDE, ALT, EXT>();
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE, WIDE, ALT>, &cfg);
+    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>,
+                                          &cfg);
   }
 };
 
 // The launch: grid C CTAs a frame, cluster dimension C, after asking the
 // card whether it holds one such cluster.
-template <bool BLUE, bool WIDE, bool ALT>
-int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
-           const Split& split, const Tables& t, int n_mels, int use_floor, float floor_v,
-           float* out, cudaStream_t s) {
-  Launch<BLUE, WIDE, ALT> l(n_frames, split.ctas, threads_per_cta(split.chunk, WIDE),
-                            cta_smem(split, ALT), s);
+template <bool BLUE, bool WIDE, bool ALT, bool EXT>
+int launch_as(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
+              const Split& split, const Tables& t, int n_mels, int use_floor, float floor_v,
+              float* out, cudaStream_t s) {
+  Launch<BLUE, WIDE, ALT, EXT> l(n_frames, split.ctas, threads_per_cta(split.chunk, WIDE),
+                                 cta_smem(split, ALT), s);
   int clusters = 0;
   cudaError_t err = l.resident(&clusters);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (clusters < 1) return NO_CLUSTER_FITS;
-  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE, WIDE, ALT>, src, stride, n_fft,
-                           plan, split, t.window, t.tw, t.pos, t.chirp, t.bspec, t.utw, t.dft,
-                           t.rgather, t.rtw, t.rspec, t.mel_first, t.mel_ptr, t.mel_w, n_mels,
-                           use_floor, floor_v, out);
+  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>, src, stride,
+                           n_fft, plan, split, t.window, t.tw, t.pos, t.chirp, t.bspec, t.utw,
+                           t.dft, t.rgather, t.rtw, t.rspec, t.mel_first, t.mel_ptr, t.mel_w,
+                           n_mels, use_floor, floor_v, out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation: EXT where the plan has composite radices.
+template <bool BLUE, bool WIDE, bool ALT, class... A>
+int launch(bool ext, A... args) {
+  if (ext) return launch_as<BLUE, WIDE, ALT, true>(args...);
+  return launch_as<BLUE, WIDE, ALT, false>(args...);
 }
 
 }  // namespace
@@ -454,7 +465,7 @@ int logmel_cluster_resident(int ctas, int threads, int smem) {
   if (ctas < 1 || ctas > MAX_CLUSTER || threads < 1 || threads > MAX_THREADS || smem < 0 ||
       smem > MAX_SMEM)
     return -static_cast<int>(cudaErrorInvalidValue);
-  Launch<true, false, false> l(1, ctas, threads, smem, nullptr);
+  Launch<true, false, false, false> l(1, ctas, threads, smem, nullptr);
   int clusters = 0;
   const cudaError_t err = l.resident(&clusters);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
@@ -462,16 +473,17 @@ int logmel_cluster_resident(int ctas, int threads, int smem) {
 
 // Frame t (t < n_frames) is the n_fft samples at src[t * stride]; the plan
 // and tables as for logmel_mixed (csrc/logmel_mixed.cu: register, matrix
-// and Rader stages, or Bluestein), split over clusters of `ctas` CTAs (1 ..
-// 16), one cluster a frame, as the caller chose (ops/kernels/fused_logmel.py
-// `cluster_split`): `chunk` points of each work array and `bin_chunk`
-// power-row bins a CTA, bit s of `cross` set where stage s reaches other
-// CTAs (always for a Rader stage) and of `rcross` where the Rader stage's
-// inner stage s does. The split is checked, not chosen, here: it must cover
-// the array and the row, fit a CTA's shared memory, and a stage left inside
-// the CTAs must have sub-transforms that divide the chunk. Returns a
-// cudaError_t, or -1 when the card cannot hold one such cluster;
-// cudaErrorInvalidValue for a plan or split it does not take.
+// and Rader stages, or Bluestein; no nested Rader stage), split over
+// clusters of `ctas` CTAs (1 .. 16), one cluster a frame, as the caller
+// chose (ops/kernels/fused_logmel.py `cluster_split`): `chunk` points of
+// each work array and `bin_chunk` power-row bins a CTA, bit s of `cross` set
+// where stage s reaches other CTAs (always for a Rader stage) and of
+// `rcross` where the Rader stage's inner stage s does. The split is
+// checked, not chosen, here: it must cover the array and the row, fit a
+// CTA's shared memory, and a stage left inside the CTAs must have
+// sub-transforms that divide the chunk. Returns a cudaError_t, or -1 when
+// the card cannot hold one such cluster; cudaErrorInvalidValue for a plan or
+// split it does not take.
 int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, int n,
                    int n_stages, const int* radices, int bluestein, int rader_stages,
                    const int* rader_radices, int ctas, int chunk, int bin_chunk, unsigned cross,
@@ -485,9 +497,9 @@ int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, 
       (long long)n_frames * ctas > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
-  bool wide = false, matrix = false, alt = false;
-  if (!logmel::make_plan(plan, n_fft, n, n_stages, radices, rader_stages, rader_radices,
-                         logmel_cluster_matrix_tiles(), wide, matrix, alt))
+  bool wide = false, matrix = false, alt = false, ext = false;
+  if (!logmel::make_plan(plan, n_fft, n, n_stages, radices, rader_stages, rader_radices, 0,
+                         nullptr, logmel_cluster_matrix_tiles(), wide, matrix, alt, ext))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool rader = rader_stages > 0;
   const bool direct_ok = !bluestein && n == plan.points && pos != nullptr &&
@@ -517,18 +529,18 @@ int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, 
   const Tables t{window, static_cast<const float2*>(tw), pos,
                  static_cast<const float2*>(chirp), static_cast<const float2*>(bspec),
                  static_cast<const float2*>(utw), dft, rgather,
-                 static_cast<const float2*>(rtw), static_cast<const float2*>(rspec), mel_first,
-                 mel_ptr, mel_w};
+                 static_cast<const float2*>(rtw), static_cast<const float2*>(rspec), nullptr,
+                 nullptr, nullptr, mel_first, mel_ptr, mel_w};
   if (bluestein)
-    return launch<true, false, false>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+    return launch<true, false, false>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
                                       use_floor, floor_v, out, s);
   if (alt)
-    return launch<false, true, true>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+    return launch<false, true, true>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
                                      use_floor, floor_v, out, s);
   if (wide)
-    return launch<false, true, false>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+    return launch<false, true, false>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
                                       use_floor, floor_v, out, s);
-  return launch<false, false, false>(src, stride, n_frames, n_fft, plan, split, t, n_mels,
+  return launch<false, false, false>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
                                      use_floor, floor_v, out, s);
 }
 

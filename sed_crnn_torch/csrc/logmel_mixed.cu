@@ -106,10 +106,12 @@ constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a block
 // Profiling cuts, for sed_crnn_torch/tools/logmel_phases.py only (the
 // results are then wrong): built with -DLOGMEL_MIXED_CUT=1 the body leaves
 // out the mel sums, with 2 also the bins' power, with 3 also the matrix
-// stages (a Rader stage's inner ones too), with 4 also the Rader stage
-// (gather, inner register stages, product), with 5 also Bluestein's filter
-// product and second transform, with 6 also the register stages. 0, the
-// default, cuts nothing.
+// stages (a Rader stage's inner ones too), with 4 also a nested Rader stage
+// (its gather, inner register stages, products and scatter), with 5 also
+// the Rader stage (gather, inner register stages, product), with 6 also
+// Bluestein's filter product and second transform, with 7 also the register
+// stages. 0, the default, cuts nothing. (-DLOGMEL_SKIP_RADIX=R, in
+// csrc/logmel_stages.cuh, leaves out the register stages of one radix.)
 #ifndef LOGMEL_MIXED_CUT
 #define LOGMEL_MIXED_CUT 0
 #endif
@@ -149,6 +151,79 @@ __device__ __forceinline__ void mel_phase(const float* pall, int NB, int fpb, in
 #ifndef LOGMEL_WIDE_BLOCKS
 #define LOGMEL_WIDE_BLOCKS 0
 #endif
+// DIF stages (register or matrix) of a batch of `len`-point transforms over
+// `count` points of `cur` (twiddle table tw of len points), forward or
+// transposed in reverse order, in the EXT instantiations: `ls0` the
+// sub-transform length before the first forward stage (len), or before the
+// first transposed one (what the stages left below them: 1, or a nested
+// Rader stage's q); its matrix stages write the other array and swap the
+// two.
+template <bool TRANSPOSED, int COLS>
+__device__ __forceinline__ void batch_stages(const int* radix, const int* table, int stages,
+                                             int len, int ls0, float2*& cur, float2*& oth,
+                                             int count, int lt, int tpf, const float2* tw,
+                                             const float* dft) {
+  int ls = ls0;
+  for (int i = 0; i < stages; ++i) {
+    const int s = TRANSPOSED ? stages - 1 - i : i;
+    const int r = radix[s];
+    if (TRANSPOSED) ls *= r;
+    if (logmel::matrix_radix(r)) {
+      if (CUT < 3)
+        logmel::run_matrix_stage<TRANSPOSED, COLS>(cur, oth, len, r, ls, 0, count / r, lt, tpf,
+                                                   dft + table[s], tw);
+      float2* const t = cur;
+      cur = oth;
+      oth = t;
+    } else {
+      logmel::run_block_stage<TRANSPOSED, true, true>(r, cur, len, count, ls, lt, tpf, tw);
+    }
+    if (!TRANSPOSED) ls /= r;
+    __syncthreads();
+  }
+}
+
+// The nested Rader stage of prime q, the inner transforms' last (m = 1, on
+// the runs of q points of the Np points of `cur`), into the other array,
+// after which the two swap. Forward: gather from the runs (x_0 to the
+// tail Np'' + b, Np'' = Np (q - 1) / q), then the convolution; transposed
+// (the input in that layout already): the convolution, then the scatter
+// back to the runs. The convolution: the q - 1 point transforms on the
+// Np'' points, the product with nspec (x_0 and X_0 in the tail), the
+// transposed transforms.
+template <bool TRANSPOSED, int COLS>
+__device__ __forceinline__ void nested_rader(const Plan& plan, float2*& cur, float2*& oth, int Np,
+                                             int lt, int tpf, const Tables& t) {
+  const int q = plan.rader_radix[plan.rader_stages - 1], Npp = Np - Np / q;
+  float2* w = cur;          // the array that holds the layout
+  float2* o = oth;
+  if (!TRANSPOSED) {
+    if (CUT < 4) logmel::rader_gather(cur, oth, Np, q, 0, Np, lt, tpf, t.ngather);
+    __syncthreads();
+    w = oth;
+    o = cur;
+  }
+  if (CUT < 4) {
+    float2* c2 = w;
+    float2* o2 = o;
+    batch_stages<false, COLS>(plan.nested_radix, plan.nested_table, plan.nested_stages,
+                                    q - 1, q - 1, c2, o2, Npp, lt, tpf, t.ntw, t.dft);
+    logmel::rader_product(c2, w, Np, q, 0, Npp, lt, tpf, t.nspec);
+    __syncthreads();
+    batch_stages<true, COLS>(plan.nested_radix, plan.nested_table, plan.nested_stages,
+                                   q - 1, 1, c2, o2, Npp, lt, tpf, t.ntw, t.dft);
+  }
+  if (TRANSPOSED) {
+    if (CUT < 4) logmel::rader_scatter(w, o, Np, q, 0, Np, lt, tpf, t.ngather);
+    __syncthreads();
+    cur = o;
+    oth = w;
+  } else {
+    cur = w;
+    oth = o;
+  }
+}
+
 // A Rader stage's inner p - 1 point transforms (steps 2-4 of the Rader stage
 // in csrc/logmel_stages.cuh), forward or transposed in reverse order, on
 // `cur` (its matrix stages write the other array and swap the two); Np the
@@ -177,7 +252,25 @@ __device__ __forceinline__ void rader_inner(const Plan& plan, float2*& cur, floa
   }
 }
 
-template <bool BLUE, bool WIDE, bool RADER, int BLOCKS>
+// `rader_inner` in the EXT instantiations: composite radices among the
+// inner ones, and the inner transforms may end in a nested Rader stage
+// (which writes the other array and swaps the two, as a matrix stage
+// does).
+template <bool TRANSPOSED, int COLS>
+__device__ __forceinline__ void rader_inner_ext(const Plan& plan, float2*& cur, float2*& oth,
+                                                int p, int Np, int lt, int tpf, const Tables& t) {
+  const bool nest = plan.nested_stages > 0;
+  const int stages = plan.rader_stages - nest;
+  const int below = nest ? plan.rader_radix[stages] : 1;
+  if (TRANSPOSED && nest) nested_rader<true, COLS>(plan, cur, oth, Np, lt, tpf, t);
+  batch_stages<TRANSPOSED, COLS>(plan.rader_radix, plan.rader_table, stages, p - 1,
+                                 TRANSPOSED ? below : p - 1, cur, oth, Np, lt, tpf, t.rtw, t.dft);
+  if (!TRANSPOSED && nest) nested_rader<false, COLS>(plan, cur, oth, Np, lt, tpf, t);
+}
+
+// EXT: a plan with composite radices or a nested Rader stage (their code
+// only in these instantiations, at one block an SM).
+template <bool BLUE, bool WIDE, bool RADER, int BLOCKS, bool EXT>
 __global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS, BLOCKS)
 logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                     long long stride, int n_frames, int n_fft, Plan plan, int tpf, int fpb,
@@ -192,6 +285,9 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
                     const int* __restrict__ rgather,    // (p - 1) Rader: g^m mod p
                     const float2* __restrict__ rtw,     // (p - 1) Rader: e^{-2 pi i q / (p - 1)}
                     const float2* __restrict__ rspec,   // (p - 1) Rader: B, DIF positions
+                    const int* __restrict__ ngather,    // (q - 1) nested Rader: g^m mod q
+                    const float2* __restrict__ ntw,     // (q - 1) nested: e^{-2 pi i m / (q - 1)}
+                    const float2* __restrict__ nspec,   // (q - 1) nested: B, DIF positions
                     const int* __restrict__ mel_first,  // (n_mels) first bin of each band
                     const int* __restrict__ mel_ptr,    // (n_mels + 1) CSR row pointers
                     const float* __restrict__ mel_w,    // (nnz) weights in bin order
@@ -232,7 +328,7 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
       if (s == plan.n_stages - 1) {
         // The Rader stage (the last): gather into zb, the inner transforms
         // and the product, after which zb holds X; then zb is the array.
-        if (CUT < 4) {
+        if (CUT < 5) {
           const int Np = N - N / r;
           if (!plan.rader_first) {
             logmel::rader_gather(z, zb, N, r, 0, N, lt, tpf, rgather);
@@ -240,10 +336,25 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
           }
           float2* cur = zb;
           float2* oth = z;
-          rader_inner<false, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
-          logmel::rader_product(cur, zb, N, r, 0, Np, lt, tpf, rspec);
-          __syncthreads();
-          rader_inner<true, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
+          if constexpr (EXT) {
+            const Tables t{window, tw, pos, chirp, bspec, utw, dft, rgather, rtw, rspec,
+                           ngather, ntw, nspec, mel_first, mel_ptr, mel_w};
+            rader_inner_ext<false, COLS>(plan, cur, oth, r, Np, lt, tpf, t);
+            if (plan.nested_stages > 0) {
+              const int q = plan.rader_radix[plan.rader_stages - 1];
+              logmel::rader_product_split(cur, zb, N, r, (r - 1) - (r - 1) / q, 0, Np, lt, tpf,
+                                          rspec);
+            } else {
+              logmel::rader_product(cur, zb, N, r, 0, Np, lt, tpf, rspec);
+            }
+            __syncthreads();
+            rader_inner_ext<true, COLS>(plan, cur, oth, r, Np, lt, tpf, t);
+          } else {
+            rader_inner<false, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
+            logmel::rader_product(cur, zb, N, r, 0, Np, lt, tpf, rspec);
+            __syncthreads();
+            rader_inner<true, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
+          }
         }
         float2* const t = z;
         z = zb;
@@ -253,24 +364,24 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
       }
     }
     if constexpr (WIDE) {
-      if (r > logmel::MAX_REGISTER_RADIX) {
+      if (logmel::matrix_radix(r)) {
         if (CUT < 3)
           logmel::run_matrix_stage<false, COLS>(static_cast<const float2*>(z), zb, N, r, ls, 0,
                                                 N / r, lt, tpf, dft + plan.table[s], tw);
         float2* const t = z;
         z = zb;
         zb = t;
-      } else if (CUT < 6) {
-        logmel::run_block_stage<false, true>(r, z, N, N, ls, lt, tpf, tw);
+      } else if (CUT < 7) {
+        logmel::run_block_stage<false, true, EXT>(r, z, N, N, ls, lt, tpf, tw);
       }
-    } else if (CUT < 6) {
-      logmel::run_block_stage<false, false>(r, z, N, N, ls, lt, tpf, tw);
+    } else if (CUT < 7) {
+      logmel::run_block_stage<false, false, EXT>(r, z, N, N, ls, lt, tpf, tw);
     }
     ls /= r;
     __syncthreads();
   }
 
-  if (BLUE && CUT < 5) {
+  if (BLUE && CUT < 6) {
     // Pointwise product with the filter spectrum, conjugated, then the
     // transposed stages in reverse order: D = FFT(conj(A B)) in natural order.
     for (int p = lt; p < N; p += tpf) z[p] = logmel::cconj(logmel::cmul(z[p], __ldg(bspec + p)));
@@ -278,7 +389,7 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
     ls = 1;
     for (int s = plan.n_stages - 1; s >= 0; --s) {
       ls *= plan.radix[s];
-      logmel::run_block_stage<true, WIDE>(plan.radix[s], z, N, N, ls, lt, tpf, tw);
+      logmel::run_block_stage<true, WIDE, EXT>(plan.radix[s], z, N, N, ls, lt, tpf, tw);
       __syncthreads();
     }
   }
@@ -337,7 +448,7 @@ int frames_per_block(const Plan& plan, bool alt, int tpf) {
 
 // Host side: the dynamic shared memory attribute is set once per
 // instantiation and device (bit d of `done`), then the launch.
-template <bool BLUE, bool WIDE, bool RADER, int BLOCKS>
+template <bool BLUE, bool WIDE, bool RADER, int BLOCKS, bool EXT>
 int launch_as(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
               bool alt, const Tables& t, int n_mels, int mel_group, int use_floor, float floor_v,
               float* out, cudaStream_t s) {
@@ -347,7 +458,7 @@ int launch_as(const float* src, long long stride, int n_frames, int n_fft, const
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS>,
+    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS, EXT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     done.fetch_or(bit);
@@ -356,26 +467,31 @@ int launch_as(const float* src, long long stride, int n_frames, int n_fft, const
   const int fpb = frames_per_block(plan, alt, tpf);
   const size_t smem = fpb * frame_smem(plan, alt);
   const int blocks = (n_frames + fpb - 1) / fpb;
-  logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS><<<blocks, tpf * fpb, smem, s>>>(
+  logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS, EXT><<<blocks, tpf * fpb, smem, s>>>(
       src, stride, n_frames, n_fft, plan, tpf, fpb, alt ? 1 : 0, t.window, t.tw, t.pos, t.chirp,
-      t.bspec, t.utw, t.dft, t.rgather, t.rtw, t.rspec, t.mel_first, t.mel_ptr, t.mel_w, n_mels,
-      mel_group, use_floor, floor_v, out);
+      t.bspec, t.utw, t.dft, t.rgather, t.rtw, t.rspec, t.ngather, t.ntw, t.nspec, t.mel_first,
+      t.mel_ptr, t.mel_w, n_mels, mel_group, use_floor, floor_v, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation by the blocks an SM holds (see BLOCKS): the wide ones
-// at 2 where two blocks' shared memory fits an SM.
+// at 2 where two blocks' shared memory fits an SM; EXT (composite radices
+// or a nested Rader stage) at 1, where they do not spill (n_fft 2579, its
+// nested plan: 1.45 ms at one block an SM, 1.91 at two, PERF.md §6).
 template <bool BLUE, bool WIDE, bool RADER, class... A>
 int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
-           bool alt, A... rest) {
+           bool alt, bool ext, A... rest) {
+  if (ext)
+    return launch_as<BLUE, WIDE, RADER, 1, true>(src, stride, n_frames, n_fft, plan, alt, rest...);
   if constexpr (WIDE) {
     const int fpb = frames_per_block(plan, alt, threads_per_frame(plan, true));
     const bool two = LOGMEL_WIDE_BLOCKS ? LOGMEL_WIDE_BLOCKS == 2
                                         : 2 * fpb * frame_smem(plan, alt) <= (size_t)MAX_SMEM;
     if (two)
-      return launch_as<BLUE, WIDE, RADER, 2>(src, stride, n_frames, n_fft, plan, alt, rest...);
+      return launch_as<BLUE, WIDE, RADER, 2, false>(src, stride, n_frames, n_fft, plan, alt,
+                                                    rest...);
   }
-  return launch_as<BLUE, WIDE, RADER, 1>(src, stride, n_frames, n_fft, plan, alt, rest...);
+  return launch_as<BLUE, WIDE, RADER, 1, false>(src, stride, n_frames, n_fft, plan, alt, rest...);
 }
 
 }  // namespace
@@ -411,23 +527,28 @@ int logmel_mixed_matrix_tiles() { return 64; }
 // over 227 KB of shared memory included).
 int logmel_mixed(const float* src, long long stride, int n_frames, int n_fft, int n,
                  int n_stages, const int* radices, int bluestein, int rader_stages,
-                 const int* rader_radices, const float* window, const void* tw, const int* pos,
-                 const void* chirp, const void* bspec, const void* utw, const float* dft,
-                 const int* rgather, const void* rtw, const void* rspec, const int* mel_first,
-                 const int* mel_ptr, const float* mel_w, int n_mels, int mel_group,
-                 int use_floor, float floor_v, float* out, void* stream) {
+                 const int* rader_radices, int nested_stages, const int* nested_radices,
+                 const float* window, const void* tw, const int* pos, const void* chirp,
+                 const void* bspec, const void* utw, const float* dft, const int* rgather,
+                 const void* rtw, const void* rspec, const int* ngather, const void* ntw,
+                 const void* nspec, const int* mel_first, const int* mel_ptr, const float* mel_w,
+                 int n_mels, int mel_group, int use_floor, float floor_v, float* out,
+                 void* stream) {
   if (n_frames <= 0 || stride <= 0 || n_mels <= 0 || n_fft <= 0 || src == nullptr ||
       out == nullptr || window == nullptr || tw == nullptr ||
       (mel_group != 4 && mel_group != 8 && mel_group != 16 && mel_group != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
-  bool wide = false, matrix = false, alt = false;
+  bool wide = false, matrix = false, alt = false, ext = false;
   if (!logmel::make_plan(plan, n_fft, n, n_stages, radices, rader_stages, rader_radices,
-                         logmel_mixed_matrix_tiles(), wide, matrix, alt))
+                         nested_stages, nested_radices, logmel_mixed_matrix_tiles(), wide, matrix,
+                         alt, ext))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool rader = rader_stages > 0;
-  const bool direct_ok = !bluestein && n == plan.points && pos != nullptr &&
-                         (!rader || (rgather != nullptr && rtw != nullptr && rspec != nullptr));
+  const bool direct_ok =
+      !bluestein && n == plan.points && pos != nullptr &&
+      (!rader || (rgather != nullptr && rtw != nullptr && rspec != nullptr)) &&
+      (nested_stages == 0 || (ngather != nullptr && ntw != nullptr && nspec != nullptr));
   const bool blue_ok = bluestein && !wide && n >= 2 * plan.points - 1 && chirp != nullptr &&
                        bspec != nullptr;
   if (!(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr) ||
@@ -437,18 +558,19 @@ int logmel_mixed(const float* src, long long stride, int n_frames, int n_fft, in
   const Tables t{window, static_cast<const float2*>(tw), pos,
                  static_cast<const float2*>(chirp), static_cast<const float2*>(bspec),
                  static_cast<const float2*>(utw), dft, rgather,
-                 static_cast<const float2*>(rtw), static_cast<const float2*>(rspec), mel_first,
+                 static_cast<const float2*>(rtw), static_cast<const float2*>(rspec), ngather,
+                 static_cast<const float2*>(ntw), static_cast<const float2*>(nspec), mel_first,
                  mel_ptr, mel_w};
   if (bluestein)
-    return launch<true, false, false>(src, stride, n_frames, n_fft, plan, false, t, n_mels,
+    return launch<true, false, false>(src, stride, n_frames, n_fft, plan, false, ext, t, n_mels,
                                       mel_group, use_floor, floor_v, out, s);
   if (rader)
-    return launch<false, true, true>(src, stride, n_frames, n_fft, plan, true, t, n_mels,
+    return launch<false, true, true>(src, stride, n_frames, n_fft, plan, true, ext, t, n_mels,
                                      mel_group, use_floor, floor_v, out, s);
   if (wide)
-    return launch<false, true, false>(src, stride, n_frames, n_fft, plan, alt, t, n_mels,
+    return launch<false, true, false>(src, stride, n_frames, n_fft, plan, alt, ext, t, n_mels,
                                       mel_group, use_floor, floor_v, out, s);
-  return launch<false, false, false>(src, stride, n_frames, n_fft, plan, false, t, n_mels,
+  return launch<false, false, false>(src, stride, n_frames, n_fft, plan, false, ext, t, n_mels,
                                      mel_group, use_floor, floor_v, out, s);
 }
 

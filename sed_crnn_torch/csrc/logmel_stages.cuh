@@ -4,9 +4,10 @@
 // operation (no FMA contraction), the R-point butterflies, one in-place
 // decimation-in-frequency (or transposed) stage of the mixed-radix FFT in
 // registers, the matrix stage of a wide radix on the tensor cores (the
-// mixed and cluster bodies'), the Rader stage's gather and pointwise
-// product, the real-to-complex untangle's bin power, the spectrum lookup
-// and the mel sums' tree over 32 partials.
+// mixed and cluster bodies'), the Rader stage's gather, pointwise product
+// and (for a Rader stage nested in another's inner transforms) scatter, the
+// real-to-complex untangle's bin power, the spectrum lookup and the mel
+// sums' tree over 32 partials.
 //
 // A stage of the cluster body reaches its work array through an accessor,
 // `z[p]` for point p: its own share (`Shifted`) or the whole cluster's
@@ -24,7 +25,8 @@
 namespace logmel {
 
 constexpr int MAX_STAGES = 16;
-constexpr int MAX_REGISTER_RADIX = 13;  // radices above run as matrix or Rader stages
+constexpr int MAX_REGISTER_RADIX = 13;  // the largest prime radix in registers; odd radices
+                                        // above run as matrix or Rader stages
 constexpr int MEL_LANES = 32;           // a band's partial sums
 // The mixed body folds the gather of a Rader stage that is the only one
 // into the load up to this n_fft (see `rader_gather`).
@@ -45,6 +47,12 @@ struct Plan {
   int rader_first;
   int rader_radix[MAX_STAGES];
   int rader_table[MAX_STAGES];
+  // A Rader stage nested in the inner transforms, their last stage
+  // (rader_radix[rader_stages - 1] = q): its q - 1 point transforms'
+  // radices and matrix fragments.
+  int nested_stages;      // 0: none
+  int nested_radix[MAX_STAGES];
+  int nested_table[MAX_STAGES];
 };
 
 // The tables a mixed or cluster launch reads, as the C interfaces take them
@@ -57,14 +65,23 @@ struct Tables {
   const float* dft;
   const int* rgather;
   const float2 *rtw, *rspec;
+  const int* ngather;
+  const float2 *ntw, *nspec;
   const int *mel_first, *mel_ptr;
   const float* mel_w;
 };
 
-// A register radix of the wide instantiations (2, 3, 4, 5, 7, 11, 13), or
-// of the others (to 7).
+// A register radix of the wide instantiations (2, 3, 4, 5, 7, 8, 9, 11, 13,
+// 16), or of the others (to 9: radix 16 spills at their 64 registers a
+// thread).
 __host__ __device__ constexpr bool register_radix(int r, bool wide) {
-  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || (wide && (r == 11 || r == 13));
+  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 || r == 9 ||
+         (wide && (r == 11 || r == 13 || r == 16));
+}
+
+// A radix that runs as a matrix stage: odd, above the register primes.
+__host__ __device__ constexpr bool matrix_radix(int r) {
+  return r > MAX_REGISTER_RADIX && (r & 1);
 }
 
 // The 8-wide tiles of a matrix stage's products each way: (R + 1) / 2 rows
@@ -86,12 +103,79 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
 
 __device__ __forceinline__ float2 cconj(float2 a) { return make_float2(a.x, -a.y); }
 
+// v times W_R^e inside a composite butterfly (`_rotate` in
+// ops/kernels/fused_logmel.py). Radix 8 and 16, e in 16ths of a turn (16 e
+// / R): a quarter turn as a swap, an eighth and three eighths by cos(pi / 4)
+// on the sum and difference, the others by cmul with float32 constants;
+// radix 9 by cmul with the stage's constant c[e] = e^{-2 pi i e / 9}. The
+// butterflies call it with e known once unrolled, so the branches fold.
+template <int R>
+__device__ __forceinline__ float2 rotate(float2 v, int e, const float2* c) {
+  if constexpr (R == 9) {
+    return cmul(v, c[e]);
+  } else {
+    constexpr float C8 = 0.70710677f, C16 = 0.9238795f, S16 = 0.38268343f;
+    switch (e * (16 / R)) {
+      case 4: return make_float2(v.y, -v.x);
+      case 2: return make_float2(__fmul_rn(C8, __fadd_rn(v.x, v.y)),
+                                 __fmul_rn(C8, __fsub_rn(v.y, v.x)));
+      case 6: return make_float2(__fmul_rn(C8, __fsub_rn(v.y, v.x)),
+                                 -__fmul_rn(C8, __fadd_rn(v.x, v.y)));
+      case 1: return cmul(v, make_float2(C16, -S16));
+      case 3: return cmul(v, make_float2(S16, -C16));
+      default: return cmul(v, make_float2(-C16, S16));   // 9
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void butterfly(float2* v, const float2* c);
+
+// A composite radix R = A B in registers: n = n1 + B n2, the B A-point
+// butterflies over n2, the twiddles W_R^(n1 k2), then the A B-point
+// butterflies over n1, X_{k2 + A k1}: one pass through shared memory where
+// its factors took two. Radix 9's sub-butterflies take the radix-3
+// constants c[3 q]; 8 and 16 read none.
+template <int R, int B, int A>
+__device__ __forceinline__ void composite(float2* v, const float2* c) {
+  float2 ca[A], cb[B];
+  if constexpr (R == 9) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) ca[q] = cb[q] = c[3 * q];
+  }
+  float2 u[B][A];
+#pragma unroll
+  for (int n1 = 0; n1 < B; ++n1) {
+#pragma unroll
+    for (int n2 = 0; n2 < A; ++n2) u[n1][n2] = v[n1 + B * n2];
+    butterfly<A>(u[n1], ca);
+#pragma unroll
+    for (int k2 = 1; k2 < A; ++k2)
+      if (n1 > 0) u[n1][k2] = rotate<R>(u[n1][k2], n1 * k2, c);
+  }
+#pragma unroll
+  for (int k2 = 0; k2 < A; ++k2) {
+    float2 w[B];
+#pragma unroll
+    for (int n1 = 0; n1 < B; ++n1) w[n1] = u[n1][k2];
+    butterfly<B>(w, cb);
+#pragma unroll
+    for (int k1 = 0; k1 < B; ++k1) v[k2 + A * k1] = w[k1];
+  }
+}
+
 // In-place R-point forward DFT (e^{-2 pi i / R}) of v[0..R-1]; c[q] =
-// e^{-2 pi i q / R} from the twiddle table (odd R only; radix 2 and 4 read
-// no constants).
+// e^{-2 pi i q / R} from the twiddle table (odd R only; radix 2, 4, 8 and
+// 16 read no constants).
 template <int R>
 __device__ __forceinline__ void butterfly(float2* v, const float2* c) {
-  if constexpr (R == 2) {
+  if constexpr (R == 8) {
+    composite<8, 2, 4>(v, c);
+  } else if constexpr (R == 9) {
+    composite<9, 3, 3>(v, c);
+  } else if constexpr (R == 16) {
+    composite<16, 4, 4>(v, c);
+  } else if constexpr (R == 2) {
     const float2 a = v[0], b = v[1];
     v[0] = cadd(a, b);
     v[1] = csub(a, b);
@@ -217,12 +301,35 @@ __device__ __forceinline__ void block_stage(float2* z, int N, int count, int ls,
   }
 }
 
+// Profiling cut, for sed_crnn_torch/tools/logmel_phases.py only (the
+// results are then wrong): built with -DLOGMEL_SKIP_RADIX=R the bodies leave
+// out every register stage of radix R (outer, inner and nested, forward and
+// transposed), so that the time of its passes is the difference. 0, the
+// default, skips none and leaves no test in the code.
+#ifndef LOGMEL_SKIP_RADIX
+#define LOGMEL_SKIP_RADIX 0
+#endif
+
 // The register stage of `radix`: 2, 3, 4, 5, 7, and with WIDE also 11 and
 // 13 (the instantiations that take them, with fewer threads and more
-// registers a thread; the others keep the code they had before).
-template <bool TRANSPOSED, bool WIDE>
+// registers a thread; the others keep the code they had before); with EXT
+// (the instantiations of plans with composite radices or a nested Rader
+// stage) also 8, 9 and, WIDE, 16. The others keep the code they had without
+// them: at 64 registers a thread the composite butterflies spill, and their
+// code in every kernel cost the plans without them (PERF.md §6).
+template <bool TRANSPOSED, bool WIDE, bool EXT = false>
 __device__ __forceinline__ void run_block_stage(int radix, float2* z, int N, int count, int ls,
                                                 int lt, int nt, const float2* __restrict__ tw) {
+#if LOGMEL_SKIP_RADIX
+  if (radix == LOGMEL_SKIP_RADIX) return;
+#endif
+  if constexpr (EXT) {
+    if (radix == 8) return block_stage<8, TRANSPOSED>(z, N, count, ls, lt, nt, tw);
+    if (radix == 9) return block_stage<9, TRANSPOSED>(z, N, count, ls, lt, nt, tw);
+    if constexpr (WIDE) {
+      if (radix == 16) return block_stage<16, TRANSPOSED>(z, N, count, ls, lt, nt, tw);
+    }
+  }
   switch (radix) {
     case 2: block_stage<2, TRANSPOSED>(z, N, count, ls, lt, nt, tw); break;
     case 3: block_stage<3, TRANSPOSED>(z, N, count, ls, lt, nt, tw); break;
@@ -244,9 +351,19 @@ __device__ __forceinline__ void run_block_stage(int radix, float2* z, int N, int
   }
 }
 
-template <bool TRANSPOSED, bool WIDE, class Z>
+template <bool TRANSPOSED, bool WIDE, bool EXT = false, class Z>
 __device__ __forceinline__ void run_stage(int radix, Z z, int N, int ls, int b0, int b1,
                                           int lt, int nt, const float2* __restrict__ tw) {
+#if LOGMEL_SKIP_RADIX
+  if (radix == LOGMEL_SKIP_RADIX) return;
+#endif
+  if constexpr (EXT) {
+    if (radix == 8) return stage<8, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw);
+    if (radix == 9) return stage<9, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw);
+    if constexpr (WIDE) {
+      if (radix == 16) return stage<16, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw);
+    }
+  }
   switch (radix) {
     case 2: stage<2, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw); break;
     case 3: stage<3, TRANSPOSED>(z, N, ls, b0, b1, lt, nt, tw); break;
@@ -495,6 +612,57 @@ __device__ __forceinline__ void rader_product(ZF f, ZT tail, int N, int p, int t
   }
 }
 
+// `rader_product` where the inner transforms end in a nested Rader stage of
+// prime q (the mixed body's EXT instantiations only): they leave transform
+// b's body at b split + l (split = (p - 1)(q - 1) / q) and its tail of (p -
+// 1) / q after every body, at N'' + b (p - 1 - split) + (l - split) (N'' =
+// N' split / (p - 1)), its DC term first there; rspec is stored in that
+// order (l < p - 1).
+template <class ZF, class ZT>
+__device__ __forceinline__ void rader_product_split(ZF f, ZT tail, int N, int p, int split,
+                                                    int t0, int t1, int lt, int nt,
+                                                    const float2* __restrict__ rspec) {
+  const int count = p - 1, base = N - N / p;
+  const int body_end = base / count * split, rest = count - split;
+  for (int t = t0 + lt; t < t1; t += nt) {
+    int b, q;
+    if (t < body_end) {
+      b = t / split;
+      q = t - b * split;
+    } else {
+      const int u = t - body_end;
+      b = u / rest;
+      q = split + u - b * rest;
+    }
+    const float2 a = f[t];
+    float2 y = cmul(a, __ldg(rspec + q));
+    if (q == split) {
+      const float2 x0 = tail[base + b];
+      tail[base + b] = cadd(x0, a);
+      y = cadd(y, x0);
+    }
+    f[t] = y;
+  }
+}
+
+// The transposed nested Rader stage's last step: its outputs, X_{g^m} of
+// butterfly b at b (p - 1) + m and X_0 at the tail N' + b of z (N' = N (p
+// - 1) / p), back to the runs of p points of w, b p + g^m and b p (the
+// points t0 <= t < t1 of z).
+template <class ZI, class ZO>
+__device__ __forceinline__ void rader_scatter(ZI z, ZO w, int N, int p, int t0, int t1, int lt,
+                                              int nt, const int* __restrict__ rgather) {
+  const int count = p - 1, tail = N - N / p;
+  for (int t = t0 + lt; t < t1; t += nt) {
+    if (t < tail) {
+      const int b = t / count;
+      w[b * p + __ldg(rgather + t - b * count)] = z[t];
+    } else {
+      w[(t - tail) * p] = z[t];
+    }
+  }
+}
+
 // One lane's share of a run of a band's bins: acc + w[t] p[t] + w[t + 32]
 // p[t + 32] + ... (t < n), added in that order, the loads and products
 // issued MEL_BATCH at a time ahead of their adds.
@@ -611,19 +779,24 @@ __device__ __forceinline__ float2 load_point(const float* fr, int n, int L, bool
 }
 
 // Host side: the plan a launcher takes, from its C interface's radices (the
-// last the Rader prime where rader_stages > 0) and the Rader stage's inner
-// radices; each a register radix, or an odd radix above 13 whose
+// last the Rader prime where rader_stages > 0), the Rader stage's inner
+// radices (the last the nested Rader prime q where nested_stages > 0) and the
+// nested stage's; each a register radix, or an odd radix above 13 whose
 // matrix_tiles are at most max_tiles (a matrix stage, its fragments' offset
-// in `table` order: the outer stages', then the inner ones'). Sets `wide`
-// (radix 11 or 13, a matrix or a Rader stage), `matrix` (any matrix stage)
-// and `alt` (a second work array: a matrix or Rader stage). False for a plan
-// the bodies do not take.
+// in `table` order: the outer stages', then the inner ones', then the
+// nested ones'). Sets `wide` (radix 11, 13 or 16, a matrix or a Rader
+// stage), `matrix` (any matrix stage), `alt` (a second work array: a matrix
+// or Rader stage) and `ext` (a composite radix or a nested Rader stage: the
+// EXT instantiations). False for a plan the bodies do not take.
 inline bool make_plan(Plan& plan, int n_fft, int n, int n_stages, const int* radices,
-                      int rader_stages, const int* rader_radices, int max_tiles, bool& wide,
-                      bool& matrix, bool& alt) {
+                      int rader_stages, const int* rader_radices, int nested_stages,
+                      const int* nested_radices, int max_tiles, bool& wide, bool& matrix,
+                      bool& alt, bool& ext) {
   if (n_stages < 0 || n_stages > MAX_STAGES || (n_stages > 0 && radices == nullptr) ||
       rader_stages < 0 || rader_stages > MAX_STAGES ||
-      (rader_stages > 0 && (rader_radices == nullptr || n_stages == 0)))
+      (rader_stages > 0 && (rader_radices == nullptr || n_stages == 0)) || nested_stages < 0 ||
+      nested_stages > MAX_STAGES ||
+      (nested_stages > 0 && (nested_radices == nullptr || rader_stages == 0)))
     return false;
   plan = Plan{};
   plan.n = n;
@@ -631,43 +804,56 @@ inline bool make_plan(Plan& plan, int n_fft, int n, int n_stages, const int* rad
   plan.n_bins = n_fft / 2 + 1;
   plan.n_stages = n_stages;
   plan.rader_stages = rader_stages;
+  plan.nested_stages = nested_stages;
   plan.rader_first = rader_stages > 0 && n_stages == 1 && n_fft <= RADER_FOLD_MAX_NFFT;
   wide = matrix = false;
   alt = rader_stages > 0;
+  ext = nested_stages > 0;
   int table = 0;
   auto take = [&](int r, int& offset) {
     offset = 0;
     if (register_radix(r, true)) {
       wide = wide || !register_radix(r, false);
+      ext = ext || r == 8 || r == 9 || r == 16;
       return true;
     }
-    if (r <= MAX_REGISTER_RADIX || r % 2 == 0 || matrix_tiles(r) > max_tiles) return false;
+    if (!matrix_radix(r) || matrix_tiles(r) > max_tiles) return false;
     wide = matrix = alt = true;
     offset = table;
     table += matrix_tiles(r) * matrix_tiles(r) * 32 * 8;
     return true;
+  };
+  // A Rader stage's prime: odd, above the register primes, its inner
+  // transforms' radices `inner` (each taken) multiplying to p - 1; the last
+  // of them a nested Rader stage's prime where `nest` is set.
+  auto rader = [&](int p, int stages, const int* inner, int* radix, int* tables, bool nest) {
+    if (!matrix_radix(p)) return false;
+    wide = true;
+    long long prod = 1;
+    for (int s = 0; s < stages; ++s) {
+      radix[s] = inner[s];
+      prod *= inner[s];
+      tables[s] = 0;
+      if (!(nest && s == stages - 1) && !take(inner[s], tables[s])) return false;
+    }
+    return prod == p - 1;
   };
   long long prod = 1;
   for (int s = 0; s < n_stages; ++s) {
     const int r = radices[s];
     plan.radix[s] = r;
     prod *= r;
-    if (rader_stages > 0 && s == n_stages - 1) {
-      plan.table[s] = 0;
-      if (r <= MAX_REGISTER_RADIX || r % 2 == 0) return false;
-      wide = true;
-    } else if (!take(r, plan.table[s])) {
-      return false;
-    }
+    plan.table[s] = 0;
+    if (!(rader_stages > 0 && s == n_stages - 1) && !take(r, plan.table[s])) return false;
   }
   if (prod != n) return false;
-  long long inner = 1;
-  for (int s = 0; s < rader_stages; ++s) {
-    plan.rader_radix[s] = rader_radices[s];
-    inner *= rader_radices[s];
-    if (!take(rader_radices[s], plan.rader_table[s])) return false;
-  }
-  return rader_stages == 0 || inner == plan.radix[n_stages - 1] - 1;
+  if (rader_stages == 0) return true;
+  if (!rader(plan.radix[n_stages - 1], rader_stages, rader_radices, plan.rader_radix,
+             plan.rader_table, nested_stages > 0))
+    return false;
+  return nested_stages == 0 ||
+         rader(plan.rader_radix[rader_stages - 1], nested_stages, nested_radices,
+               plan.nested_radix, plan.nested_table, false);
 }
 
 }  // namespace logmel

@@ -78,7 +78,19 @@ FFT_LOG_N = (8, 14)   # csrc/logmel_fft.cu: n_fft 256 .. 16384
 MIXED_MAX_SMEM = 232448           # csrc/logmel_mixed.cu MAX_SMEM: 227 KB a block
 MIXED_MAX_STAGES = 16             # csrc/logmel_stages.cuh MAX_STAGES
 CLUSTER_MAX = 16                  # csrc/logmel_cluster.cu MAX_CLUSTER: CTAs a cluster
-REGISTER_RADICES = (2, 3, 4, 5, 7, 11, 13)   # csrc/logmel_stages.cuh `butterfly<R>`
+REGISTER_RADICES = (2, 3, 4, 5, 7, 8, 9, 11, 13, 16)   # csrc/logmel_stages.cuh `butterfly<R>`
+PRIME_REGISTER_MAX = 13           # the largest prime a register stage takes
+# The composite register radices (`butterfly<R>`: R = A B, n = n1 + B n2):
+# B A-point butterflies, the twiddles W_R^(n1 k2), then A B-point ones.
+COMPOSITE = {8: (2, 4), 9: (3, 3), 16: (4, 4)}
+# A register pass's cost a point, in COST_REGISTER: for the composite
+# radices the time of a pass over that of a radix-4 pass on an H100, the
+# means `tools/logmel_phases.py --radix` printed from its per-radix cuts at
+# 25,920, 1,288 and 6,448 points (PERF.md §6), to two decimals; 1 for the
+# rest. `_power_radices` splits powers of 2 and 3 into the radices of
+# least total weight.
+RADIX_WEIGHT = {2: 1.0, 3: 1.0, 4: 1.0, 5: 1.0, 7: 1.0, 11: 1.0, 13: 1.0,
+                8: 1.07, 9: 1.38, 16: 1.29}
 MEL_LANES = 32                    # a band's partial sums: the lanes of a warp
 MEL_BINS_PER_LANE = 16            # `mel_group`: a band's mean bins a lane, to widen the group
 # csrc/logmel_mixed.cu `logmel_mixed_matrix_tiles`: the most column tiles a
@@ -86,13 +98,24 @@ MEL_BINS_PER_LANE = 16            # `mel_group`: a band's mean bins a lane, to w
 # odd R up to 1,023.
 MATRIX_TILES = 64
 MATRIX_MAX = 1021                 # the largest prime a matrix stage takes
-# `plan_cost`'s weights, ns a frame on one SM, and the cluster body's cost
-# against the mixed body's for the same counts: the least-squares fits that
-# `python3 -m sed_crnn_torch.tools.logmel_phases` prints from the bodies'
-# transform times on an H100 (PERF.md §6).
-COST_REGISTER = 0.451
-COST_MATRIX = 18.5
-COST_CLUSTER = 1.056
+# `plan_cost`'s weights, ns a frame on one SM, as `tools/logmel_phases.py`'s
+# `fit_choice` printed them from an H100's run (PERF.md §6): COST_REGISTER
+# the least-squares fit of the mixed body's transform times; the others
+# the values of its grid that pick the plans the card timed fastest, in
+# turns, at every size the tool times, nearest the least-squares fits among
+# equals. COST_NARROW: a register point of a plan in the narrow
+# instantiations (radices to 9 only, 1,024 threads a frame at 64
+# registers, more frames in flight) against one in the wide ones;
+# COST_MATRIX a matrix tile step; COST_CROSS a point of a stage that
+# crosses CTAs, and COST_CROSS_BLUESTEIN one of a Bluestein plan's (its
+# first M-point stages, each butterfly's points far apart, twice);
+# COST_CLUSTER the cluster body against the mixed body.
+COST_REGISTER = 0.345
+COST_MATRIX = 25.9
+COST_NARROW = 0.45
+COST_CROSS = 0.0
+COST_CROSS_BLUESTEIN = 0.345
+COST_CLUSTER = 1.75
 
 # Serving threads call the wrappers concurrently: the operand cache and the
 # launch counters are read-modify-write.
@@ -151,10 +174,29 @@ def exact_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax) -> dict:
     return {"bc": bc, "bs": bs, "melw": melw}
 
 
+@lru_cache(maxsize=None)
+def _power_radices(prime: int, count: int, wide: bool = False,
+                   composite: bool = True) -> Tuple[int, ...]:
+    """The register radices of prime^count (prime 2 or 3) of least total
+    `RADIX_WEIGHT`, fewest stages among equals, largest first: 8, 4 and 2
+    (and 16 where the plan runs in the wide instantiations, ``wide``: radix
+    16 spills at the others' 64 registers a thread) for the 2s, 9 and 3 for
+    the 3s; without ``composite`` 4, 2 and 3 alone (radix 4 for each pair
+    of 2s and one radix 2 for an odd one out)."""
+    options = {2: (16, 8, 4, 2) if wide else (8, 4, 2), 3: (9, 3)}[prime]
+    if not composite:
+        options = tuple(r for r in options if r not in COMPOSITE)
+    best = [()]
+    for k in range(1, count + 1):
+        cands = [tuple(sorted(best[k - e] + (r,), reverse=True))
+                 for r in options for e in [round(math.log(r, prime))] if e <= k]
+        best.append(min(cands, key=lambda c: (sum(RADIX_WEIGHT[r] for r in c), len(c))))
+    return best[count]
+
+
 def _smooth_radices(n: int) -> Optional[Tuple[int, ...]]:
-    """The DIF radices of a 7-smooth ``n`` (radix 4 for each pair of 2s, one
-    radix 2 for an odd one out, then 3, 5, 7), or None when a prime above 7
-    divides it."""
+    """The DIF radices of a 7-smooth ``n`` (`_power_radices` of its 2s and
+    of its 3s, then 5, 7), or None when a prime above 7 divides it."""
     counts = {}
     for p in (2, 3, 5, 7):
         counts[p] = 0
@@ -163,8 +205,8 @@ def _smooth_radices(n: int) -> Optional[Tuple[int, ...]]:
             counts[p] += 1
     if n != 1:
         return None
-    fours, twos = divmod(counts[2], 2)
-    return (4,) * fours + (2,) * twos + (3,) * counts[3] + (5,) * counts[5] + (7,) * counts[7]
+    return (_power_radices(2, counts[2]) + _power_radices(3, counts[3]) + (5,) * counts[5]
+            + (7,) * counts[7])
 
 
 def _next_smooth(n: int) -> int:
@@ -202,16 +244,22 @@ def matrix_tiles(radix: int) -> int:
     return -(-(radix + 1) // 16)
 
 
-def _direct_radices(n: int) -> Optional[Tuple[int, ...]]:
-    """The DIF radices of a direct transform of ``n`` points: radix 4 for
-    each pair of 2s, one radix 2 for an odd one out, the other register
-    radices ascending, then each prime above them as a matrix stage,
-    ascending; None when a prime above ``MATRIX_MAX`` divides ``n``."""
+def _direct_radices(n: int, wide: bool = False,
+                    composite: bool = True) -> Optional[Tuple[int, ...]]:
+    """The DIF radices of a direct transform of ``n`` points: the 2s and 3s
+    by `_power_radices` (radix 16 among them where the plan runs wide
+    anyway: ``wide``, a Rader stage's inner transforms, or a prime from 11
+    up in ``n``; no composite radix without ``composite``), the other
+    register primes ascending, then each prime above them as a matrix
+    stage, ascending; None when a prime above ``MATRIX_MAX`` divides
+    ``n``."""
     primes = _prime_factors(n)
     if any(p > MATRIX_MAX for p in primes):
         return None
-    fours, twos = divmod(primes.count(2), 2)
-    return (4,) * fours + (2,) * twos + tuple(p for p in primes if p != 2)
+    wide = wide or any(p > 7 for p in primes)
+    return (_power_radices(2, primes.count(2), wide, composite)
+            + _power_radices(3, primes.count(3), wide, composite)
+            + tuple(p for p in primes if p > 3))
 
 
 def _primitive_root(p: int) -> int:
@@ -220,74 +268,108 @@ def _primitive_root(p: int) -> int:
     return next(g for g in range(2, p) if all(pow(g, (p - 1) // q, p) != 1 for q in qs))
 
 
-def _rader_radices(points: int) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+def _rader_radices(points: int, nested: bool = False, composite: bool = True
+                   ) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]]:
     """A plan with a Rader stage for L = ``points``: (the outer radices, the
-    Rader prime p last; the inner radices of its p - 1 point transforms), or
-    None. p is L's largest prime, above 13, with a direct plan for p - 1
-    (`_direct_radices`: no nested Rader); L's other primes run as register
-    or matrix stages, so none of them may exceed ``MATRIX_MAX``."""
+    Rader prime p last; the inner radices of its p - 1 point transforms;
+    with ``nested``, the radices of the q - 1 point transforms of the Rader
+    stage that ends the inner plan), or None. p is L's largest prime, above
+    13; L's other primes run as register or matrix stages, so none of them
+    may exceed ``MATRIX_MAX``. Without ``nested`` the inner plan is direct
+    (`_direct_radices` (p - 1)); with it, the inner plan ends in a Rader
+    stage for q, the largest prime of p - 1, above 13, whose q - 1 has a
+    direct plan (one level: q's inner transforms have no Rader stage), and
+    (p - 1) / q has a direct plan too. ``composite`` as for
+    `_direct_radices`."""
     primes = _prime_factors(points)
-    if not primes or primes[-1] <= REGISTER_RADICES[-1]:
+    if not primes or primes[-1] <= PRIME_REGISTER_MAX:
         return None
     p = primes[-1]
-    inner = _direct_radices(p - 1)
-    rest = _direct_radices(points // p)
-    if inner is None or rest is None:
+    rest = _direct_radices(points // p, True, composite)
+    if rest is None:
         return None
-    return rest + (p,), inner
+    if not nested:
+        inner = _direct_radices(p - 1, True, composite)
+        return None if inner is None else (rest + (p,), inner, ())
+    inner = _rader_radices(p - 1, False, composite)
+    if inner is None:
+        return None
+    return rest + (p,), inner[0], inner[1]
 
 
 def plan_counts(n: int, radices: Tuple[int, ...], bluestein: bool,
-                rader: Tuple[int, ...] = ()) -> Tuple[int, int]:
-    """A plan's work a frame as `plan_cost` weighs it: register-stage points
-    (both transforms with Bluestein, and its filter product as one more
-    stage), and matrix tile steps (ceil(N / R / 8) row tiles x
-    `matrix_tiles` (R)^2 a stage, each six ``mma`` and the gather of their
-    operands). A Rader stage (its prime the last of ``radices``, ``rader``
-    the radices of its p - 1 point transforms, N' = N (p - 1) / p points)
-    counts both inner transforms' register points and tile steps, and its
-    gather and pointwise product as two more stages of N' points."""
+                rader: Tuple[int, ...] = (), nested: Tuple[int, ...] = ()
+                ) -> Tuple[float, int]:
+    """A plan's work a frame as `plan_cost` weighs it: register-stage points,
+    each stage's times its radix's `RADIX_WEIGHT` (both transforms with
+    Bluestein, and its filter product as one more stage), and matrix tile
+    steps (ceil(N / R / 8) row tiles x `matrix_tiles` (R)^2 a stage, each
+    six ``mma`` and the gather of their operands). A Rader stage (its prime
+    the last of ``radices``, ``rader`` the radices of its p - 1 point
+    transforms, N' = N (p - 1) / p points) counts both inner transforms'
+    register points and tile steps, and its gather and pointwise product as
+    two more stages of N' points; a Rader stage nested in them (the last of
+    ``rader``, ``nested`` the radices of its q - 1 point transforms) counts
+    the same within each inner transform (its gather or scatter and its
+    product)."""
     if rader:
         radices = radices[:-1]
-    reg = sum(n for r in radices if r in REGISTER_RADICES)
+    reg = sum(n * RADIX_WEIGHT[r] for r in radices if r in REGISTER_RADICES)
     mat = sum(-(-(n // r) // 8) * matrix_tiles(r) ** 2 for r in radices
               if r not in REGISTER_RADICES)
     if bluestein:
         return 2 * reg + n, 2 * mat
     if rader:
         inner = n - n // (math.prod(rader) + 1)
-        i_reg, i_mat = plan_counts(inner, rader, False)
+        i_reg, i_mat = plan_counts(inner, rader, False, nested)
         reg, mat = reg + 2 * i_reg + 2 * inner, mat + 2 * i_mat
     return reg, mat
 
 
 def plan_cost(n: int, radices: Tuple[int, ...], bluestein: bool,
-              cluster: bool = False, rader: Tuple[int, ...] = ()) -> float:
+              cluster: bool = False, rader: Tuple[int, ...] = (),
+              nested: Tuple[int, ...] = (), crossing: int = 0) -> float:
     """The cost model `mixed_plan` picks by, in nanoseconds a frame on one
-    SM: ``COST_REGISTER`` a register-stage point and ``COST_MATRIX`` a
-    matrix tile step (`plan_counts`), times ``COST_CLUSTER`` for a plan the
-    cluster body runs (its stages cross CTAs through distributed shared
-    memory and cluster barriers). Fitted to the bodies' transform times on
-    an H100 (24 plans at 12 sizes on the mixed body, 5 sizes on the cluster
-    body; PERF.md §6): from 0.55x to 3.4x each plan's time (the largest
-    misses are register-only plans of under 2,000 points, whose cost a point
-    varies 3x with the radices and the frames a block), it orders every pair
-    of plans timed at one size as the card does: matrix before Rader at
-    primes to 281 and Rader before matrix at 823, Rader before Bluestein at
-    1,103 and 11,527."""
-    reg, mat = plan_counts(n, radices, bluestein, rader)
-    return (COST_REGISTER * reg + COST_MATRIX * mat) * (COST_CLUSTER if cluster else 1.0)
+    SM: ``COST_REGISTER`` a register-stage point (weighted by radix; times
+    ``COST_NARROW`` in the narrow instantiations, `_narrow`) and
+    ``COST_MATRIX`` a matrix tile step (`plan_counts`); for a plan the
+    cluster body runs (``cluster``) that plus ``COST_CROSS`` (a Bluestein
+    plan: ``COST_CROSS_BLUESTEIN``) a point of a stage that crosses CTAs
+    (``crossing``, `_crossing_points`: its reads and writes through
+    distributed shared memory and its cluster barrier), all times
+    ``COST_CLUSTER``. Its weights are `tools/logmel_phases.py`'s
+    `fit_choice` of an H100's run (PERF.md §6): over the 35 sizes it times,
+    every plan in turns, they pick a plan within 2 % of the fastest at all
+    but 1,103 (Bluestein, 3.9 % slower than its Rader plan; the model weighs
+    a plan by L alone, and at 2,206, the same L, Bluestein is 3.5 % the
+    faster) and 12,899 (its nested plan, 8 % slower than Bluestein on the
+    cluster body)."""
+    reg, mat = plan_counts(n, radices, bluestein, rader, nested)
+    reg *= COST_NARROW if _narrow(radices, rader) else 1.0
+    cost = COST_REGISTER * reg + COST_MATRIX * mat
+    if not cluster:
+        return cost
+    return (cost + (COST_CROSS_BLUESTEIN if bluestein else COST_CROSS) * crossing) * COST_CLUSTER
+
+
+def _narrow(radices: Tuple[int, ...], rader: Tuple[int, ...] = ()) -> bool:
+    """Whether the bodies run a plan in their narrow instantiations
+    (``register_radix`` (r, false) in ``csrc/logmel_stages.cuh``): no Rader
+    or matrix stage, no radix 11, 13 or 16."""
+    return not rader and all(r in REGISTER_RADICES and r not in (11, 13, 16) for r in radices)
 
 
 class MixedPlan(NamedTuple):
     """How ``csrc/logmel_mixed.cu`` transforms a frame of ``n_fft`` samples:
     ``points`` complex points L (``n_fft / 2`` packed, or ``n_fft`` at an odd
     n_fft), a transform of length ``n`` (L direct, or Bluestein's M) by DIF
-    stages of ``radices``, each a register stage (2-13), a matrix stage (an
-    odd prime above 13) or, the last only, a Rader stage (its prime p, with
-    ``rader`` the radices of its two p - 1 point inner transforms, each
-    register or matrix), and the shared memory one frame takes (the work
-    array, twice with a matrix or Rader stage, and the power row)."""
+    stages of ``radices``, each a register stage (2-13, 16), a matrix stage
+    (an odd prime above 13) or, the last only, a Rader stage (its prime p,
+    with ``rader`` the radices of its two p - 1 point inner transforms, each
+    register or matrix, or, the last of them only, a nested Rader stage of
+    prime q whose q - 1 point transforms run by ``nested``), and the shared
+    memory one frame takes (the work array, twice with a matrix or Rader
+    stage, and the power row)."""
 
     n_fft: int
     points: int
@@ -296,14 +378,12 @@ class MixedPlan(NamedTuple):
     bluestein: bool
     smem_bytes: int
     rader: Tuple[int, ...] = ()
+    nested: Tuple[int, ...] = ()
 
     @property
     def kinds(self) -> Tuple[str, ...]:
         """Each stage's kind, in stage order: register, matrix or rader."""
-        last = len(self.radices) - 1
-        return tuple("rader" if self.rader and s == last else
-                     "register" if r in REGISTER_RADICES else "matrix"
-                     for s, r in enumerate(self.radices))
+        return _kinds(self.radices, bool(self.rader))
 
     @property
     def matrix(self) -> Tuple[int, ...]:
@@ -317,26 +397,50 @@ class MixedPlan(NamedTuple):
         return self.radices[-1] if self.rader else 0
 
     @property
+    def nested_prime(self) -> int:
+        """The nested Rader stage's prime q (the last of ``rader``), 0
+        without one."""
+        return self.rader[-1] if self.nested else 0
+
+    @property
     def rader_matrix(self) -> Tuple[int, ...]:
-        """The Rader stage's inner radices run as matrix stages."""
-        return tuple(r for r in self.rader if r not in REGISTER_RADICES)
+        """The Rader stage's inner radices run as matrix stages (not the
+        nested stage's: `nested_matrix`)."""
+        return tuple(r for r, k in zip(self.rader, _kinds(self.rader, bool(self.nested)))
+                     if k == "matrix")
+
+    @property
+    def nested_matrix(self) -> Tuple[int, ...]:
+        """The nested Rader stage's inner radices run as matrix stages."""
+        return tuple(r for r in self.nested if r not in REGISTER_RADICES)
 
     @property
     def tensor_cores(self) -> bool:
         """Whether any stage runs on the tensor cores (the kernel is then
         within ``MATRIX_ATOL``-sized bands of `mixed_log_mel_plain`, not its
         bits)."""
-        return bool(self.matrix or self.rader_matrix)
+        return bool(self.matrix or self.rader_matrix or self.nested_matrix)
+
+
+def _kinds(radices: Tuple[int, ...], rader: bool) -> Tuple[str, ...]:
+    """Each stage's kind: rader for the last where ``rader``, else register
+    or matrix by its radix."""
+    last = len(radices) - 1
+    return tuple("rader" if rader and s == last else
+                 "register" if r in REGISTER_RADICES else "matrix"
+                 for s, r in enumerate(radices))
 
 
 def _make_plan(n_fft: int, points: int, radices: Tuple[int, ...], bluestein: bool,
-               rader: Tuple[int, ...] = ()) -> MixedPlan:
+               rader: Tuple[int, ...] = (), nested: Tuple[int, ...] = ()) -> MixedPlan:
     """A plan and its shared memory a frame: the work array (two where a
-    matrix or Rader stage writes out of place) and the power row."""
+    matrix or Rader stage writes out of place) and the power row. A nested
+    Rader stage keeps its x_0 and X_0 inside the outer stage's N' points
+    (its own tail of N' / q), so it takes no more."""
     n = int(np.prod(radices, dtype=np.int64))
     arrays = 2 if rader or any(r not in REGISTER_RADICES for r in radices) else 1
     return MixedPlan(n_fft, points, n, radices, bluestein,
-                     8 * arrays * n + 4 * (n_fft // 2 + 1), tuple(rader))
+                     8 * arrays * n + 4 * (n_fft // 2 + 1), tuple(rader), tuple(nested))
 
 
 def _share_bytes(plan: MixedPlan, chunk: int, ctas: int) -> int:
@@ -365,13 +469,55 @@ def _cluster_bytes(plan: MixedPlan, ctas: int) -> int:
     return _share_bytes(plan, _cluster_chunk(plan, ctas), ctas)
 
 
+def _crossing_points(plan: MixedPlan) -> int:
+    """The points a frame of the plan passes through stages that cross CTAs
+    on the cluster body at `plan_cluster_size`: N for each crossing stage
+    (twice with Bluestein), N' for each crossing inner stage of a Rader
+    stage (twice: forward and transposed); 0 beyond the body's limit."""
+    try:
+        sp = split_plan(plan, plan_cluster_size(plan))
+    except ValueError:
+        return 0
+    points = sum(sp.cross) * plan.n * (2 if plan.bluestein else 1)
+    if plan.rader:
+        points += sum(sp.rader_cross) * 2 * (plan.n - plan.n // plan.rader_prime)
+    return points
+
+
 def _plan_cost_on_body(plan: MixedPlan) -> float:
-    return plan_cost(plan.n, plan.radices, plan.bluestein, plan.smem_bytes > MIXED_MAX_SMEM,
-                     plan.rader)
+    cluster = plan.smem_bytes > MIXED_MAX_SMEM
+    return plan_cost(plan.n, plan.radices, plan.bluestein, cluster, plan.rader, plan.nested,
+                     _crossing_points(plan) if cluster else 0)
+
+
+def _wide_composite_cluster(plan: MixedPlan) -> bool:
+    """A plan beyond one block in the wide instantiations with a composite
+    radix, which `mixed_plan` rebuilds without them: the cluster body's wide
+    instantiation with them spills (1,676 bytes a thread at 128 registers),
+    and its Rader plans ran slower than on radices 4, 2 and 3 (PERF.md
+    §6)."""
+    return (plan.smem_bytes > MIXED_MAX_SMEM and not _narrow(plan.radices, plan.rader)
+            and bool(set(plan.radices + plan.rader) & set(COMPOSITE)))
+
+
+def _kind_plan(n_fft: int, points: int, kind: str, composite: bool) -> Optional[MixedPlan]:
+    """L's direct, Rader or nested Rader plan (`mixed_plan`'s kinds but
+    Bluestein), with or without composite radices; None where it has none,
+    and for a nested plan beyond one block: the cluster body runs no nested
+    stage (every nested plan the card timed there, before it was taken out,
+    ran 1.6-3.4x slower than its size's fastest plan; PERF.md §6)."""
+    if kind == "direct":
+        direct = _direct_radices(points, composite=composite)
+        return None if direct is None else _make_plan(n_fft, points, direct, False)
+    with_rader = _rader_radices(points, kind == "nested", composite)
+    if with_rader is None or len(with_rader[1]) > MIXED_MAX_STAGES:
+        return None
+    got = _make_plan(n_fft, points, with_rader[0], False, *with_rader[1:])
+    return None if got.nested and got.smem_bytes > MIXED_MAX_SMEM else got
 
 
 # The plan kinds a caller may force (`mixed_plan`'s ``plan``).
-PLAN_KINDS = ("direct", "rader", "bluestein")
+PLAN_KINDS = ("direct", "rader", "nested", "bluestein")
 
 
 @lru_cache(maxsize=None)
@@ -379,19 +525,25 @@ def mixed_plan(n_fft: int, plan: Optional[str] = None) -> MixedPlan:
     """The plan of the mixed and cluster bodies at ``n_fft`` >= 1.
 
     L points (n_fft / 2 at an even n_fft, n_fft at an odd one) run by one
-    of three plans: direct, N = L, by `_direct_radices` (register radices
-    2, 3, 4, 5, 7, 11, 13, then matrix stages for the primes above 13 up to
-    ``MATRIX_MAX``); direct with a Rader stage for L's largest prime p above
-    13 (`_rader_radices`: the other primes as before, p last, its two p - 1
+    of four plans: direct, N = L, by `_direct_radices` (register radices
+    2-16, then matrix stages for the primes above 13 up to ``MATRIX_MAX``);
+    direct with a Rader stage for L's largest prime p above 13
+    (`_rader_radices`: the other primes as before, p last, its two p - 1
     point transforms on register and matrix stages), which takes the primes
-    above ``MATRIX_MAX`` whose p - 1 has a direct plan; or Bluestein at M,
-    the smallest 7-smooth length >= 2L - 1 (register radices only), which
-    keeps the rest. ``plan`` None picks the cheapest by `plan_cost`, on the
-    body each would run on (one block where it fits, else a cluster), among
-    the plans the cluster body's 16 CTAs hold (among all of them where none
-    is held: beyond the body's limit). One of `PLAN_KINDS` forces that
-    plan: ``"direct"`` (register and matrix stages only), ``"rader"`` or
-    ``"bluestein"``; ValueError where L has no such plan."""
+    above ``MATRIX_MAX`` whose p - 1 has a direct plan; the same with a
+    Rader stage nested in the inner transforms, for p - 1's largest prime q
+    above 13 whose q - 1 has a direct plan (the primes p whose p - 1 has a
+    prime above ``MATRIX_MAX``, and where it costs less than a matrix stage
+    of q; in one block only); or Bluestein at M, the smallest 7-smooth
+    length >= 2L - 1 (register radices only), which keeps the rest. ``plan``
+    None picks the cheapest by `plan_cost`, on the body each would run on
+    (one block where it fits, else a cluster), among the plans the cluster
+    body's 16 CTAs hold (among all of them where none is held: beyond the
+    body's limit). One of
+    `PLAN_KINDS` forces that plan: ``"direct"`` (register and matrix
+    stages only), ``"rader"`` (a direct inner plan, or the nested one where
+    L has no other Rader plan), ``"nested"`` or ``"bluestein"``; ValueError
+    where L has no such plan."""
     if n_fft < 1:
         raise ValueError(f"n_fft must be positive, got {n_fft}")
     if plan is not None and plan not in PLAN_KINDS:
@@ -399,15 +551,18 @@ def mixed_plan(n_fft: int, plan: Optional[str] = None) -> MixedPlan:
     points = n_fft if n_fft % 2 else n_fft // 2
     plans = {"bluestein": _make_plan(n_fft, points,
                                      _smooth_radices(_next_smooth(2 * points - 1)), True)}
-    direct = _direct_radices(points)
-    if direct is not None:
-        plans["direct"] = _make_plan(n_fft, points, direct, False)
-    with_rader = _rader_radices(points)
-    if with_rader is not None:
-        plans["rader"] = _make_plan(n_fft, points, with_rader[0], False, with_rader[1])
+    for kind in ("direct", "rader", "nested"):
+        got = _kind_plan(n_fft, points, kind, True)
+        if got is not None and _wide_composite_cluster(got):
+            got = _kind_plan(n_fft, points, kind, False)
+        if got is not None:
+            plans[kind] = got
+    if plan == "rader" and "rader" not in plans and "nested" in plans:
+        return plans["nested"]
     if plan is not None:
         if plan not in plans:
-            raise ValueError(f"n_fft {n_fft}: L = {points} has no {plan} plan")
+            where = " in one block (the cluster body runs none)" if plan == "nested" else ""
+            raise ValueError(f"n_fft {n_fft}: L = {points} has no {plan} plan{where}")
         return plans[plan]
     held = [p for p in plans.values() if _cluster_bytes(p, CLUSTER_MAX) <= MIXED_MAX_SMEM]
     return min(held or plans.values(), key=_plan_cost_on_body)
@@ -421,7 +576,8 @@ class ClusterSplit(NamedTuple):
     its transposed twin) reach other CTAs: stage s on sub-transforms of
     length ls crosses when ls does not divide the chunk. ``rader_cross``
     says the same of the Rader stage's inner stages (its gather and
-    pointwise product always cross, and so does the Rader stage's bit)."""
+    pointwise product always cross, and so does the Rader stage's bit).
+    The cluster body runs no nested Rader stage."""
 
     ctas: int
     chunk: int
@@ -444,8 +600,12 @@ def cluster_split(n_fft: int, ctas: int, plan: Optional[str] = None) -> ClusterS
     CTAs: the split `_launch_cluster` hands the kernel, whose launcher
     refuses one that does not cover the frame, does not fit or keeps a stage
     inside the CTAs whose sub-transforms do not divide the chunk."""
-    mp = mixed_plan(n_fft, plan)
-    chunk, bins = _cluster_chunk(mp, ctas), -(-(n_fft // 2 + 1) // ctas)
+    return split_plan(mixed_plan(n_fft, plan), ctas)
+
+
+def split_plan(mp: MixedPlan, ctas: int) -> ClusterSplit:
+    """`cluster_split` of the plan ``mp``."""
+    chunk, bins = _cluster_chunk(mp, ctas), -(-(mp.n_fft // 2 + 1) // ctas)
     cross = _crossing(chunk, mp.n, mp.radices)
     inner = ()
     if mp.rader:
@@ -461,12 +621,17 @@ def cluster_size(n_fft: int, plan: Optional[str] = None) -> int:
     (measured the fastest on an H100 at six of seven sizes, PERF.md §6).
     Raises ValueError beyond the body's limit, a plan that
     ``CLUSTER_MAX`` CTAs do not hold. The bits do not depend on C."""
+    return plan_cluster_size(mixed_plan(n_fft, plan))
+
+
+def plan_cluster_size(mp: MixedPlan) -> int:
+    """`cluster_size` of the plan ``mp``."""
     for c in range(2, CLUSTER_MAX + 1):
-        if cluster_split(n_fft, c, plan).smem_bytes <= MIXED_MAX_SMEM:
+        if _cluster_bytes(mp, c) <= MIXED_MAX_SMEM:
             return c
     raise ValueError(
-        f"n_fft {n_fft} is beyond the cluster body's limit: its plan takes "
-        f"{mixed_plan(n_fft, plan).smem_bytes:,} bytes of shared memory a frame, "
+        f"n_fft {mp.n_fft} is beyond the cluster body's limit: its plan takes "
+        f"{mp.smem_bytes:,} bytes of shared memory a frame, "
         f"more than {CLUSTER_MAX} CTAs of {MIXED_MAX_SMEM:,} bytes hold")
 
 
@@ -475,20 +640,23 @@ def body(n_fft: int) -> str:
     power of two from 256 to 16384; ``"mixed"`` for any other n_fft whose
     `mixed_plan` takes at most ``MIXED_MAX_SMEM`` bytes of shared memory a
     frame (8 N bytes of work array, twice with matrix or Rader stages, and 4
-    (n_fft / 2 + 1) of power row): every n_fft up to 12,894 (12,865 = 5 x
+    (n_fft / 2 + 1) of power row): every n_fft up to 12,910 (12,865 = 5 x
     31 x 83 direct with matrix stages, 231,572 bytes; 12,867 = 3 x 4289
-    with a Rader stage, 231,608; 12,895 = 5 x 2579 is Bluestein at M 25,920,
-    233,152), every even one up to 23,080 (23,042: L 41 x 281 direct,
-    230,424 bytes; 23,054: L 11,527 prime, a Rader stage, 230,544; 23,082:
-    L 3 x 3847, Bluestein on the cluster body costs less), and above those
-    the sizes whose plan fits: direct with register radices up to L =
-    22,869 (an odd n_fft, 3^3 x 7 x 11^2; the largest even n_fft is 38,720,
-    L = 19,360), with matrix or Rader stages up to L = 12,913 (two work
-    arrays; the largest such n_fft is 23,244), and Bluestein up to M =
-    25,725; ``"cluster"`` for the rest, the same plan
-    split over `cluster_size` CTAs. The cluster body's limit is a plan whose
-    share in ``CLUSTER_MAX`` (16) CTAs fits in 227 KB each: every n_fft
-    below 206,215 (odd, L = 5 x 41,243: Bluestein at M = 413,343, 3,719,164
+    with a Rader stage, 231,608; 12,895 = 5 x 2579, a Rader stage with a
+    Rader stage of 1,289 nested in its inner transforms, 232,112; 12,911 is
+    Bluestein at M 25,920 on the cluster body), every even one up to 23,096
+    (23,042: L 41 x 281, a Rader stage of 281, 230,424 bytes; 23,054: L
+    11,527 prime, a Rader stage, 230,544; 23,082: L 3 x 3847, a nested
+    Rader stage of 641, 230,824; 23,098 is Bluestein on the cluster body),
+    and above those the sizes whose plan fits: direct with register radices
+    up to L = 22,869 (an odd n_fft, 3^3 x 7 x 11^2; the largest even n_fft
+    is 38,720, L = 19,360), with matrix, Rader or nested Rader stages up to
+    L = 12,913 (two work arrays; the largest such n_fft is 23,244), and
+    Bluestein up to M = 25,725; ``"cluster"`` for the rest, the same plan
+    split over `cluster_size` CTAs (no nested Rader stage: a nested plan is
+    one block's only). The cluster body's limit is a plan whose share in
+    ``CLUSTER_MAX`` (16) CTAs fits in 227 KB each: every n_fft below
+    206,215 (odd, L = 5 x 41,243: Bluestein at M = 413,343, 3,719,164
     bytes; 206,209 to 206,214 run direct or Rader plans), and above it the
     sizes whose plan fits (to 617,400, an even n_fft whose half is
     7-smooth); beyond it a launch raises ValueError (`cluster_size`). No
@@ -600,17 +768,9 @@ def bluestein_filter(points: int, radices) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def rader_tables(prime: int, inner) -> dict:
-    """A Rader stage's tables for the prime p = ``prime`` whose p - 1 point
-    transforms run by the DIF stages ``inner``: ``rgather`` (int32, p - 1),
-    g^m mod p for the smallest generator g (`_primitive_root`), the order in
-    which the stage gathers each butterfly's points v_{g^m}; ``rtw``, the
-    inner transforms' twiddles e^{-2 pi i q / (p - 1)}; and ``rspec``, the
-    filter spectrum B = DFT_{p-1}(b) / (p - 1) of b_m = e^{-2 pi i g^{-m} /
-    p}, in float64, stored at the DIF positions of ``inner`` and rounded
-    once. The stage's cyclic convolution is then one forward transform, the
-    product with B, and the transposed stages (a forward DFT in natural
-    order, which reads the convolution at -q): X_{g^m} = x_0 + D_m."""
+def _generator_powers(prime: int) -> Tuple[np.ndarray, np.ndarray]:
+    """g^m and g^-m mod ``prime`` for m < prime - 1, g the smallest
+    generator (`_primitive_root`), int64."""
     count = prime - 1
     g = _primitive_root(prime)
     gather = np.empty(count, np.int64)
@@ -620,28 +780,63 @@ def rader_tables(prime: int, inner) -> dict:
     for m in range(count):
         gather[m], inverse[m] = a, b
         a, b = a * g % prime, b * gi % prime
+    return gather, inverse
+
+
+def rader_tables(prime: int, inner, nested=()) -> dict:
+    """A Rader stage's tables for the prime p = ``prime`` whose p - 1 point
+    transforms run by the DIF stages ``inner`` (the last a nested Rader
+    stage where ``nested`` gives its inner radices): ``rgather`` (int32, p -
+    1), g^m mod p for the smallest generator g (`_primitive_root`), the order
+    in which the stage gathers each butterfly's points v_{g^m}; ``rtw``, the
+    inner transforms' twiddles e^{-2 pi i q / (p - 1)}; and ``rspec``, the
+    filter spectrum B = DFT_{p-1}(b) / (p - 1) of b_m = e^{-2 pi i g^{-m} /
+    p}, in float64, stored where the inner transforms leave each frequency
+    (`plan_positions` of ``inner``, ``nested``) and rounded once. The
+    stage's cyclic convolution is then one forward transform, the product
+    with B, and the transposed stages (a forward DFT in natural order, which
+    reads the convolution at -q): X_{g^m} = x_0 + D_m."""
+    count = prime - 1
+    gather, inverse = _generator_powers(prime)
     spec = np.fft.fft(np.exp(-2j * np.pi * inverse.astype(np.float64) / prime)) / count
     out = np.empty((count, 2), np.float64)
-    out[dif_positions(inner)] = np.stack([spec.real, spec.imag], axis=1)
+    out[plan_positions(tuple(inner), tuple(nested))] = np.stack([spec.real, spec.imag], axis=1)
     return {"rgather": gather.astype(np.int32), "rtw": _unit_roots(count, count),
             "rspec": out.astype(np.float32)}
 
 
+def nested_tables(prime: int, inner) -> dict:
+    """The nested Rader stage's tables for its prime q = ``prime``:
+    `rader_tables` (q, ``inner``) as ``ngather``, ``ntw`` and ``nspec``."""
+    t = rader_tables(prime, inner)
+    return {"ngather": t["rgather"], "ntw": t["rtw"], "nspec": t["rspec"]}
+
+
+def plan_positions(radices: Tuple[int, ...], rader: Tuple[int, ...] = ()) -> np.ndarray:
+    """Where a direct transform by the DIF stages ``radices`` leaves X_k
+    (k < N, the product of ``radices``): their DIF positions; where
+    ``rader`` is set (the last stage is then a Rader stage of prime p, its
+    butterflies the contiguous runs of p points, ``rader`` its inner
+    radices) remapped to where that stage leaves its outputs, X_{g^m} of
+    butterfly b at b (p - 1) + m and X_0 at N' + b (N' = N (p - 1) / p, the
+    tail the inner transforms do not use). Nested inner stages do not move
+    the outer stage's outputs: the transposed inner transform's first stage
+    scatters them back to natural order."""
+    pos = dif_positions(radices)
+    if not rader:
+        return pos
+    p, n = radices[-1], int(np.prod(radices, dtype=np.int64))
+    log = np.zeros(p, np.int64)
+    log[_generator_powers(p)[0]] = np.arange(p - 1)
+    b, s = pos // p, pos % p
+    return np.where(s == 0, n - n // p + b, b * (p - 1) + log[s])
+
+
 def output_positions(plan) -> np.ndarray:
     """Where the mixed and cluster bodies leave X_k of a direct plan, k < L
-    (the ``pos`` table the bins' power reads): the DIF positions of the
-    plan's radices; with a Rader stage (the last, its butterflies the
-    contiguous runs of p points) remapped to where that stage leaves its
-    outputs, X_{g^m} of butterfly b at b (p - 1) + m and X_0 at N' + b (N'
-    = N (p - 1) / p, the tail the inner transforms do not use)."""
-    pos = dif_positions(plan.radices)
-    if not plan.rader:
-        return pos
-    p = plan.rader_prime
-    log = np.zeros(p, np.int64)
-    log[rader_tables(p, plan.rader)["rgather"]] = np.arange(p - 1)
-    b, s = pos // p, pos % p
-    return np.where(s == 0, plan.n - plan.n // p + b, b * (p - 1) + log[s])
+    (the ``pos`` table the bins' power reads): `plan_positions` of the
+    plan's radices and Rader stage."""
+    return plan_positions(plan.radices, plan.rader)
 
 
 def _tf32(x: np.ndarray) -> np.ndarray:
@@ -697,11 +892,17 @@ def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax,
     them), at an even n_fft the untangle twiddles (``utw[k] = exp(-2 pi i k
     / n_fft)``, ``(L + 1, 2)``); direct: the positions of X_k (``pos``,
     int32, `output_positions`), with a Rader stage its `rader_tables`, and
-    with matrix stages their `matrix_table` s in stage order, the Rader
-    stage's inner ones last (``dft``); Bluestein: the chirp (``(L, 2)``) and
+    with a nested Rader stage its `nested_tables`, and with matrix stages
+    their `matrix_table` s in stage order, the Rader stage's inner ones
+    next, the nested stage's inner ones last (``dft``); Bluestein: the chirp (``(L, 2)``) and
     the filter spectrum (``bspec``, ``(M, 2)``); the mel filterbank as CSR
     rows."""
-    plan = mixed_plan(n_fft, plan)
+    return plan_operands(sr, n_mels, fmin, fmax, mixed_plan(n_fft, plan))
+
+
+def plan_operands(sr: int, n_mels: int, fmin: float, fmax, plan: MixedPlan) -> dict:
+    """`mixed_operands` of the plan ``plan``."""
+    n_fft = plan.n_fft
     first, ptr, weights = mel_csr(sr, n_fft, n_mels, fmin, fmax)
     ops = {"window": hann_window(n_fft, np.float64).astype(np.float32),
            "tw": _unit_roots(plan.n, plan.n), "mel_first": first, "mel_ptr": ptr, "mel_w": weights}
@@ -713,9 +914,12 @@ def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax,
     else:
         ops["pos"] = output_positions(plan).astype(np.int32)
     if plan.rader:
-        ops.update(rader_tables(plan.rader_prime, plan.rader))
-    if plan.matrix or plan.rader_matrix:
-        ops["dft"] = np.concatenate([matrix_table(r) for r in plan.matrix + plan.rader_matrix])
+        ops.update(rader_tables(plan.rader_prime, plan.rader, plan.nested))
+    if plan.nested:
+        ops.update(nested_tables(plan.nested_prime, plan.nested))
+    if plan.tensor_cores:
+        ops["dft"] = np.concatenate([matrix_table(r) for r in
+                                     plan.matrix + plan.rader_matrix + plan.nested_matrix])
     ops["mel_group"] = mel_group(ptr)
     return ops
 
@@ -919,12 +1123,56 @@ def _cmul(ar, ai, wr, wi):
     return ar * wr - ai * wi, ar * wi + ai * wr
 
 
+# The float32 constants of the composite butterflies' twiddles (the
+# kernels' literals): cos(pi / 4), cos(pi / 8), sin(pi / 8).
+_C8, _C16, _S16 = (float(np.float32(v)) for v in (np.cos(np.pi / 4), np.cos(np.pi / 8),
+                                                     np.sin(np.pi / 8)))
+
+
+def _rotate(radix: int, e: int, vr, vi, tw_r, tw_i):
+    """``rotate<R, E>`` of ``csrc/logmel_stages.cuh``: v times W_R^e inside a
+    composite butterfly. Radix 8 and 16 (e in 16ths of a turn: 16 e / R):
+    a quarter turn as a swap, an eighth and three eighths by cos(pi / 4) on
+    the sum and difference, the others by `_cmul` with the float32
+    constants; radix 9 by `_cmul` with the stage's constant tw[e N / 9]."""
+    if radix == 9:
+        step = tw_r.numel() // 9
+        return _cmul(vr, vi, tw_r[e * step], tw_i[e * step])
+    e16 = e * 16 // radix
+    if e16 == 4:
+        return vi, -vr
+    if e16 == 2:
+        return _C8 * (vr + vi), _C8 * (vi - vr)
+    if e16 == 6:
+        return _C8 * (vi - vr), -(_C8 * (vr + vi))
+    w = {1: (_C16, -_S16), 3: (_S16, -_C16), 9: (-_C16, _S16)}[e16]
+    return _cmul(vr, vi, w[0], w[1])
+
+
 def _radix_butterfly(radix: int, vr, vi, tw_r, tw_i):
-    """``butterfly<R>`` of ``csrc/logmel_mixed.cu``: radix 2 and 4 as in the
-    FFT body; an odd radix by the pairs a_r = v_r + v_{R-r}, b_r = v_r -
-    v_{R-r} against its constants e^{-2 pi i q / R} = ``tw[q N / R]``."""
+    """``butterfly<R>`` of ``csrc/logmel_stages.cuh``: radix 2 and 4 as in
+    the FFT body; an odd radix by the pairs a_r = v_r + v_{R-r}, b_r = v_r -
+    v_{R-r} against its constants e^{-2 pi i q / R} = ``tw[q N / R]``; a
+    composite radix R = A B (`COMPOSITE`) as B A-point butterflies over n =
+    n1 + B n2, the twiddles W_R^(n1 k2) (`_rotate`), then A B-point ones,
+    X_{k2 + A k1}."""
     if radix in (2, 4):
         return _butterfly(vr, vi)
+    if radix in COMPOSITE:
+        b, a = COMPOSITE[radix]
+        ur, ui = [], []
+        for n1 in range(b):
+            xr, xi = _radix_butterfly(a, vr[n1::b], vi[n1::b], tw_r, tw_i)
+            for k2 in range(1, a):
+                if n1:
+                    xr[k2], xi[k2] = _rotate(radix, n1 * k2, xr[k2], xi[k2], tw_r, tw_i)
+            ur.append(xr)
+            ui.append(xi)
+        out_r, out_i = [None] * radix, [None] * radix
+        for k2 in range(a):
+            xr, xi = _radix_butterfly(b, [u[k2] for u in ur], [u[k2] for u in ui], tw_r, tw_i)
+            out_r[k2::a], out_i[k2::a] = xr, xi
+        return out_r, out_i
     h = (radix - 1) // 2
     step = tw_r.numel() // radix
     c = [(tw_r[q * step], -tw_i[q * step]) for q in range(radix)]   # (cos, sin)
@@ -1012,33 +1260,107 @@ def _inner_stage(re, im, radix: int, ls: int, tw_r, tw_i, transposed: bool):
     return _matrix_stage(re, im, radix, ls, tw_r, tw_i, transposed)
 
 
+def _rader_convolve(ar, ai, x0r, x0i, radices, nested, tables, nest_tables):
+    """Steps 2-4 of a Rader stage of prime p on its gathered array (frames,
+    N') of (p - 1)-point sequences a_m (or, for a transposed nested stage,
+    the layout the forward stage left) and its x_0 (frames, N' / (p - 1)):
+    the inner DIF stages ``radices`` (twiddles ``tables[1]``; the last a
+    nested Rader stage where ``nested`` is set), X_0 = x_0 + A_0, the
+    product with ``tables[2]`` (stored where the inner stages leave each
+    frequency), x_0 added to its DC term, the transposed stages in reverse
+    order. Returns the array (X_{g^m} - x_0 + x_0 at b (p - 1) + m) and
+    X_0."""
+    count = math.prod(radices)
+    batches = ar.shape[1] // count
+    ar, ai = _inner_transform(ar, ai, radices, nested, tables[1], nest_tables, False)
+    # Each position's frequency slot in the table and each transform's DC
+    # position: b (p - 1) + l without a nested stage; with one, the body of
+    # transform b at b s + l (s = (p - 1)(q - 1) / q) and its tail at N's +
+    # b (p - 1) / q + (l - s), the DC term first in its tail.
+    split = count - count // _nested_prime(radices, nested) if nested else count
+    t = torch.arange(ar.shape[1], device=ar.device)
+    body_end = batches * split
+    b = torch.where(t < body_end, t // split, (t - body_end) // max(1, count - split))
+    slot = torch.where(t < body_end, t - b * split,
+                       split + (t - body_end) - b * (count - split))
+    dc = (torch.arange(batches, device=ar.device) * split if not nested else
+          body_end + torch.arange(batches, device=ar.device) * (count - split))
+    spec = tables[2]
+    X0r, X0i = x0r + ar[:, dc], x0i + ai[:, dc]
+    ar, ai = _cmul(ar, ai, spec[slot, 0], spec[slot, 1])
+    ar[:, dc], ai[:, dc] = ar[:, dc] + x0r, ai[:, dc] + x0i
+    ar, ai = _inner_transform(ar, ai, radices, nested, tables[1], nest_tables, True)
+    return ar, ai, X0r, X0i
+
+
+def _nested_prime(radices, nested) -> int:
+    """The prime of a nested Rader stage: the last of ``radices`` where
+    ``nested`` is set."""
+    return radices[-1] if nested else 0
+
+
+def _inner_transform(ar, ai, radices, nested, tw, nest_tables, transposed: bool):
+    """A Rader stage's inner (p - 1)-point transforms over the batch ``ar``:
+    the DIF stages of ``radices`` (register or matrix, twiddles ``tw``), or
+    transposed in reverse order; where ``nested`` is set the last of them is
+    a Rader stage of prime q (m = 1, its butterflies the runs of q points):
+    forward, its gather into N'' = N' (q - 1) / q points and a tail of N' /
+    q, its own convolution (`_rader_convolve` with ``nest_tables``), the
+    output left in that layout (body, then tail); transposed, the
+    convolution on that layout as it stands, then its scatter back to the
+    runs: X_{g^m} of butterfly b from b (q - 1) + m to b q + g^m, X_0 from
+    the tail to b q."""
+    tw_r, tw_i = tw[:, 0], tw[:, 1]
+    plain = radices[:-1] if nested else radices
+    q = _nested_prime(radices, nested)
+    if nested and transposed:
+        gather = nest_tables[0].long()
+        body = ar.shape[1] - ar.shape[1] // q
+        br, bi, X0r, X0i = _rader_convolve(ar[:, :body], ai[:, :body], ar[:, body:],
+                                           ai[:, body:], nested, (), nest_tables, None)
+        runs = ar.shape[1] // q
+        dst = (torch.arange(runs, device=ar.device)[:, None] * q + gather[None, :]).reshape(-1)
+        start = torch.arange(runs, device=ar.device) * q
+        ar, ai = torch.empty_like(ar), torch.empty_like(ai)
+        ar[:, dst], ai[:, dst] = br, bi
+        ar[:, start], ai[:, start] = X0r, X0i
+    if transposed:
+        ls = q or 1
+        for radix in reversed(plain):
+            ls *= radix
+            ar, ai = _inner_stage(ar, ai, radix, ls, tw_r, tw_i, True)
+        return ar, ai
+    ls = math.prod(radices)
+    for radix in plain:
+        ar, ai = _inner_stage(ar, ai, radix, ls, tw_r, tw_i, False)
+        ls //= radix
+    if nested:
+        runs = ar.shape[1] // q
+        start = torch.arange(runs, device=ar.device) * q
+        idx = (start[:, None] + nest_tables[0].long()[None, :]).reshape(-1)
+        br, bi, X0r, X0i = _rader_convolve(ar[:, idx], ai[:, idx], ar[:, start], ai[:, start],
+                                           nested, (), nest_tables, None)
+        ar, ai = torch.cat([br, X0r], dim=1), torch.cat([bi, X0i], dim=1)
+    return ar, ai
+
+
 def _rader_stage(re, im, plan: MixedPlan, ops: dict):
     """The Rader stage of ``csrc/logmel_stages.cuh`` (the plan's last, m =
     1: butterfly b is the points b p .. b p + p - 1), operation by operation:
     gather a_m = v_{g^m} (``rgather``) into an array of N' = N (p - 1) / p
-    points, b (p - 1) + m; the inner DIF stages on it (twiddles ``rtw``);
-    X_0 = x_0 + A_0; the product with ``rspec``, x_0 added to its DC term;
-    the transposed stages in reverse order. X_{g^m} is then at b (p - 1) +
-    m, and X_0 goes to the tail N' + b (`output_positions`)."""
-    p, count = plan.rader_prime, plan.rader_prime - 1
-    batches = re.shape[1] // p
-    start = torch.arange(batches, device=re.device) * p
+    points, b (p - 1) + m; the inner DIF stages on it (twiddles ``rtw``; a
+    nested Rader stage last, `_inner_transform`); X_0 = x_0 + A_0; the
+    product with ``rspec``, x_0 added to its DC term; the transposed stages
+    in reverse order. X_{g^m} is then at b (p - 1) + m, and X_0 goes to the
+    tail N' + b (`output_positions`)."""
+    p = plan.rader_prime
+    start = torch.arange(re.shape[1] // p, device=re.device) * p
     idx = (start[:, None] + ops["rgather"].long()[None, :]).reshape(-1)
-    ar, ai = re[:, idx], im[:, idx]
-    v0r, v0i = re[:, start], im[:, start]
-    tw_r, tw_i = ops["rtw"][:, 0], ops["rtw"][:, 1]
-    ls = count
-    for radix in plan.rader:
-        ar, ai = _inner_stage(ar, ai, radix, ls, tw_r, tw_i, False)
-        ls //= radix
-    dc = torch.arange(batches, device=re.device) * count
-    x0r, x0i = v0r + ar[:, dc], v0i + ai[:, dc]
-    ar, ai = _cmul(ar, ai, ops["rspec"][:, 0].repeat(batches), ops["rspec"][:, 1].repeat(batches))
-    ar[:, dc], ai[:, dc] = ar[:, dc] + v0r, ai[:, dc] + v0i
-    for radix in reversed(plan.rader):
-        ls *= radix
-        ar, ai = _inner_stage(ar, ai, radix, ls, tw_r, tw_i, True)
-    return torch.cat([ar, x0r], dim=1), torch.cat([ai, x0i], dim=1)
+    nest = (ops["ngather"], ops["ntw"], ops["nspec"]) if plan.nested else None
+    ar, ai, X0r, X0i = _rader_convolve(re[:, idx], im[:, idx], re[:, start], im[:, start],
+                                       plan.rader, plan.nested,
+                                       (ops["rgather"], ops["rtw"], ops["rspec"]), nest)
+    return torch.cat([ar, X0r], dim=1), torch.cat([ai, X0i], dim=1)
 
 
 def _mixed_plain(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
@@ -1144,7 +1466,8 @@ def _mixed_lib() -> ctypes.CDLL:
     lib = _build.load("logmel_mixed")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.logmel_mixed.argtypes = ([p, ctypes.c_longlong, i, i, i, i, ctypes.POINTER(i), i, i,
-                                  ctypes.POINTER(i)] + [p] * 13 + [i, i, i, ctypes.c_float, p, p])
+                                  ctypes.POINTER(i), i, ctypes.POINTER(i)] + [p] * 16
+                                 + [i, i, i, ctypes.c_float, p, p])
     lib.logmel_mixed.restype = i
     for name in ("logmel_mixed_max_smem", "logmel_mixed_max_stages"):
         getattr(lib, name).argtypes = []
@@ -1246,19 +1569,23 @@ def _launch_fft(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
 
 
 _MIXED_TABLES = ("window", "tw", "pos", "chirp", "bspec", "utw", "dft", "rgather", "rtw", "rspec",
-                 "mel_first", "mel_ptr", "mel_w")
+                 "ngather", "ntw", "nspec", "mel_first", "mel_ptr", "mel_w")
+_NESTED_TABLES = ("ngather", "ntw", "nspec")      # the mixed body's alone
 
 
-def _mixed_args(plan: MixedPlan, ops: dict) -> tuple:
-    """The plan as `logmel_mixed` and `logmel_cluster` take it after the
-    frame source (n_fft, N, stages, radices, Bluestein), then the Rader
-    stage's inner stages and radices, then the table pointers (None where
-    the plan has no such table)."""
+def _mixed_args(plan: MixedPlan, ops: dict, nested: bool = True) -> tuple:
+    """The plan as `logmel_mixed` (``nested``) and `logmel_cluster` take it
+    after the frame source (n_fft, N, stages, radices, Bluestein), then the
+    Rader stage's inner stages and radices and, for the mixed body, the
+    nested stage's, then the table pointers (None where the plan has no such
+    table; the nested stage's for the mixed body only)."""
     radices = (ctypes.c_int * max(1, len(plan.radices)))(*plan.radices)
-    inner = (ctypes.c_int * max(1, len(plan.rader)))(*plan.rader)
-    return ((plan.n_fft, plan.n, len(plan.radices), radices, int(plan.bluestein)),
-            (len(plan.rader), inner),
-            tuple(ops[k].data_ptr() if k in ops else None for k in _MIXED_TABLES))
+    inner = (len(plan.rader), (ctypes.c_int * max(1, len(plan.rader)))(*plan.rader))
+    if nested:
+        inner += (len(plan.nested), (ctypes.c_int * max(1, len(plan.nested)))(*plan.nested))
+    keys = [k for k in _MIXED_TABLES if nested or k not in _NESTED_TABLES]
+    return ((plan.n_fft, plan.n, len(plan.radices), radices, int(plan.bluestein)), inner,
+            tuple(ops[k].data_ptr() if k in ops else None for k in keys))
 
 
 def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
@@ -1268,8 +1595,15 @@ def _launch_mixed(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     band's mel sum on ``group`` lanes (`mel_group` by default; 4, 8, 16 or
     32 give the same bits); raises with the launcher's error where the plan
     is refused."""
-    ops = _operands(cfg, n_fft, _mixed_kind(plan), src.device)
-    args, inner, tables = _mixed_args(mixed_plan(n_fft, plan), ops)
+    return launch_mixed_plan(src, stride, n_frames, cfg, mixed_plan(n_fft, plan),
+                             _operands(cfg, n_fft, _mixed_kind(plan), src.device), group)
+
+
+def launch_mixed_plan(src: torch.Tensor, stride: int, n_frames: int, cfg: FrontendConfig,
+                      mp: MixedPlan, ops: dict, group: Optional[int] = None) -> torch.Tensor:
+    """`_launch_mixed` of the plan ``mp`` with its operands ``ops``
+    (`plan_operands` on the card)."""
+    args, inner, tables = _mixed_args(mp, ops)
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
     lib = _mixed_lib()
     with torch.cuda.device(src.device):
@@ -1294,11 +1628,21 @@ def _launch_cluster(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
     .. ``CLUSTER_MAX`` whose share fits gives the same bits); raises
     ValueError beyond the body's limit, and the launcher's error where it
     or the card refuses the split."""
-    sp = cluster_split(n_fft, cluster_size(n_fft, plan) if ctas is None else ctas, plan)
-    cross = sum(1 << s for s, c in enumerate(sp.cross) if c)
-    rcross = sum(1 << s for s, c in enumerate(sp.rader_cross) if c)
-    args, inner, tables = _mixed_args(mixed_plan(n_fft, plan),
-                                      _operands(cfg, n_fft, _mixed_kind(plan), src.device))
+    return launch_cluster_plan(src, stride, n_frames, cfg, mixed_plan(n_fft, plan),
+                               _operands(cfg, n_fft, _mixed_kind(plan), src.device), ctas)
+
+
+def launch_cluster_plan(src: torch.Tensor, stride: int, n_frames: int, cfg: FrontendConfig,
+                        mp: MixedPlan, ops: dict, ctas: Optional[int] = None) -> torch.Tensor:
+    """`_launch_cluster` of the plan ``mp`` with its operands ``ops``;
+    ValueError for a plan with a nested Rader stage, which the cluster body
+    does not run."""
+    if mp.nested:
+        raise ValueError(f"n_fft {mp.n_fft}: the cluster body runs no nested Rader stage")
+    sp = split_plan(mp, plan_cluster_size(mp) if ctas is None else ctas)
+    cross, rcross = (sum(1 << s for s, c in enumerate(bits) if c)
+                     for bits in (sp.cross, sp.rader_cross))
+    args, inner, tables = _mixed_args(mp, ops, nested=False)
     out = torch.empty((n_frames, cfg.n_mels), dtype=torch.float32, device=src.device)
     lib = _cluster_lib()
     with torch.cuda.device(src.device):

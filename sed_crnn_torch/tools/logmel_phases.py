@@ -3,7 +3,8 @@ phase, on one CUDA card, and the weights of `mixed_plan`'s cost model.
 
     python3 -m sed_crnn_torch.tools.logmel_phases [--body mixed|cluster|both]
                                                   [--against OTHER_CHECKOUT]
-                                                  [--sizes N_FFT ...]
+                                                  [--sizes N_FFT ...] [--radix]
+                                                  [--turns] [--fit-from JSONL]
 
 from the root of a checkout. Builds ``sed_crnn_torch/csrc/logmel_mixed.cu``
 and ``logmel_cluster.cu`` as they are and with each of their profiling cuts
@@ -16,31 +17,60 @@ reverse order).
 
 The mixed body's variants: ``full``; ``no_mel`` (cut 1: without the mel
 sums); ``no_power`` (2: nor the bins' power); ``no_matrix`` (3: nor the
-matrix stages, a Rader stage's inner ones too); ``no_rader`` (4: nor the
-Rader stage: its gather, inner register stages and product);
-``no_bluestein`` (5: nor Bluestein's filter product and second transform);
-``no_stages`` (6: nor the register stages: what is left is the load). Its
-phases are the differences: mel = full - no_mel, power = no_mel -
-no_power, matrix = no_power - no_matrix, rader = no_matrix - no_rader,
-bluestein = no_rader - no_bluestein, register = no_bluestein - no_stages.
-Each of `MIXED_SIZES` runs its plan and each other plan (`mixed_plan` with
-its ``plan`` forced to each of `PLAN_KINDS`) that fits one block.
+matrix stages, a Rader stage's inner ones too); ``no_nested`` (4: nor a
+nested Rader stage: its gather, inner register stages, products and
+scatter); ``no_rader`` (5: nor the Rader stage: its gather, inner register
+stages and product); ``no_bluestein`` (6: nor Bluestein's filter product
+and second transform); ``no_stages`` (7: nor the register stages: what is
+left is the load). Its phases are the differences: mel = full - no_mel,
+power = no_mel - no_power, matrix = no_power - no_matrix, nested =
+no_matrix - no_nested, rader = no_nested - no_rader, bluestein = no_rader
+- no_bluestein, register = no_bluestein - no_stages. Each of `MIXED_SIZES`
+runs its plan and each other plan (`mixed_plan` with its ``plan`` forced
+to each of `PLAN_KINDS`) that fits one block.
 
 The cluster body's variants: ``full``, ``no_mel`` (1), ``no_power`` (2),
 ``no_matrix`` (3), ``no_rader`` (4), ``no_stages`` (5: nor the register
 stages; left: the load, the Bluestein filter product and the barriers):
-mel, power, matrix, rader and register as above.
+mel, power, matrix, rader and register as above (it runs no nested
+stage). Each of `SIZES` runs its plan and each other plan on the cluster
+body.
+
+With ``--radix``, the per-radix pass cuts (``skip_R``: built with
+``-DLOGMEL_SKIP_RADIX=R``, every register stage of radix R left out): at
+`RADIX_SIZES` (n_fft 12,895: its Bluestein plan's 25,920-point transforms,
+and its nested plan, whose nested Rader stage runs 1,288-point
+transforms), each plan as `_power_radices` factors it with radices 4, 8 or
+16 alone among the powers of two (`RADIX_SETS`), timed in turns with each
+of its radices cut: ms a pass and ps a point-pass by radix, and each
+composite radix's pass against the radix-4 pass (the `RADIX_WEIGHT` the
+card gives).
 
 Then each mixed size's time with its mel sums on 4, 8, 16 and 32 lanes a
 band (the body picks `mel_group`) and with the wide instantiations forced
 to 1 and 2 blocks an SM (``-DLOGMEL_WIDE_BLOCKS``; the body picks by
-shared memory). Last, a least-squares fit of `plan_cost`'s weights
-(``COST_REGISTER``, ``COST_MATRIX``: ns a frame on one SM, i.e. ms x 1e6 x
-the card's SMs / frames) to the mixed body's transform time (no_power -
-no_stages) of every plan timed, against each plan's `plan_counts`,
-non-negative, with each plan's error; and of ``COST_CLUSTER``, the cluster
-body's stage time (no_power - no_stages) over what the fitted weights give
-its plans' counts.
+shared memory). Then the least-squares fits (`_fit`: non-negative, each
+row weighted by one over its time, so that every plan counts alike) of
+`plan_cost`'s weights to the transform times (no_power - no_stages, in ns
+a frame on one SM: ms x 1e6 x the card's SMs / frames): ``COST_REGISTER``,
+``COST_NARROW``, ``COST_MATRIX`` from the mixed body's plans against their
+`plan_counts` (the register points split by instantiation, `_narrow`);
+``COST_CLUSTER``, ``COST_CROSS`` and ``COST_CROSS_BLUESTEIN`` from the
+cluster body's against what those weights give them and their
+`_crossing_points`. Then (`plan_turns`) every size's plans in turns, each
+on the body it fits (full builds only), with `torch.stft` + mel beside
+them, the pairs the model in use (`plan_cost`) orders otherwise than the
+card, and the sizes where it does not pick the plan the card timed fastest
+(more than 2 % off). Last (`fit_choice`), the weights `plan_cost` is set
+to: those of `CHOICE_GRID` that pick, over every size just timed, the
+plans of least total time (the sum of log(picked / fastest)), among equals
+the nearest the least-squares fits; each weight to three digits, with the
+sizes where they miss the fastest plan.
+
+With ``--turns``, only `plan_turns` (and ``--against``), on the default
+build: the check of the weights in use. With ``--fit-from`` a JSON-lines
+file this tool printed (its ``fit``, ``fit_cluster`` and ``turns``
+lines), `fit_choice` again from those lines alone, on the CPU.
 
 With ``--against`` (the root of another checkout, e.g. an unpacked ``git
 archive`` of the parent commit under the git-ignored ``build/``): that
@@ -73,14 +103,51 @@ from sed_crnn_torch.core.config import FrontendConfig
 from sed_crnn_torch.ops.kernels import _build
 from sed_crnn_torch.ops.kernels import fused_logmel as fl
 
-MIXED_VARIANTS = {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3, "no_rader": 4,
-                  "no_bluestein": 5, "no_stages": 6}
+MIXED_VARIANTS = {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3, "no_nested": 4,
+                  "no_rader": 5, "no_bluestein": 6, "no_stages": 7}
 VARIANTS = {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3, "no_rader": 4,
             "no_stages": 5}   # the cluster body's
+# The register radices the per-radix pass cuts leave out, one build each.
+SKIP_RADICES = (2, 3, 4, 5, 7, 8, 9, 16)
+# n_fft 2579, 4126, 18992, 12895 and 12899: sizes with a nested Rader plan
+# in one block (L 2579 over 2 x 1289 over 8 x 7 x 23; 2063 over 2 x 1031;
+# 1187 over 2 x 593; 5 x 2579; 12899 over 2 x 6449 over 16 x 13 x 31);
+# 1018 (L 509: Bluestein against Rader over 4 x 127).
 MIXED_SIZES = ((1001, 500), (1034, 517), (1102, 551), (1103, 551), (1764, 882), (2206, 1103),
                (3072, 1024), (12865, 6432), (12867, 6433), (23042, 11521), (23044, 11522),
-               (23054, 11527))
-SIZES = ((25734, 12867), (31290, 15645), (44100, 22050), (48000, 24000), (88200, 44100))
+               (23054, 11527), (2579, 1289), (4126, 2063), (18992, 9496), (12895, 6447),
+               (12899, 6449), (1018, 509))
+# n_fft 12941 (L prime, 12940 = 4 x 5 x 647: Rader with a matrix stage of
+# 647 against Bluestein), 23792 (L 8 x 1487, 1486 = 2 x 743), 21599, 24763,
+# 29517, which keep Bluestein, and 141001 (L 7 x 20143: a Rader stage over 2
+# x 3 x 3 x 3 x 373, whose inner stages cross CTAs, against Bluestein).
+SIZES = ((25734, 12867), (31290, 15645), (44100, 22050), (48000, 24000), (88200, 44100),
+         (12941, 6470), (23792, 11896), (21599, 10799), (24763, 12381), (29517, 14758),
+         (141001, 70500))
+# Sizes only `plan_turns` times (every plan in turns; no phases): nested
+# plans in one block just above one block's Bluestein limit (23082, 23158),
+# and sizes whose Rader plan competes with Bluestein on the composite
+# radices, from 45002 to 190002 (C 2 to 9).
+TURN_SIZES = ((23082, 11541), (23158, 11579), (45002, 22501), (90002, 45001),
+              (150002, 75001), (190002, 95001))
+# The per-radix pass cuts: n_fft 12895's Bluestein plan (M 25,920) and its
+# nested plan (1,288-point transforms), and 12899's nested plan (6,448-point
+# transforms), each factored with one of 4, 8 and 16 among the powers of two
+# (9 with 8 and 16; 16 only in the wide instantiations).
+RADIX_SIZES = ((12895, 6447, "bluestein"), (12895, 6447, "nested"), (12899, 6449, "nested"))
+RADIX_SETS = {"4": {8: float("inf"), 9: float("inf"), 16: float("inf")},
+              "8": {8: 1.0, 9: 1.0, 16: float("inf")},
+              "16": {8: float("inf"), 9: 1.0, 16: 1.0}}
+# `fit_choice`'s candidates for each weight (COST_MATRIX, COST_CROSS and
+# COST_CROSS_BLUESTEIN as multiples of the fitted COST_REGISTER).
+CHOICE_GRID = {"COST_NARROW": tuple(round(0.2 + 0.05 * k, 2) for k in range(17)),
+               "COST_MATRIX": (25, 30, 35, 40, 45, 50, 55, 65, 75, 100, 125),
+               "COST_CLUSTER": (1.0, 1.25, 1.5, 1.75, 2.0, 2.25, 2.5, 3.0),
+               "COST_CROSS": (0.0, 0.125, 0.25, 0.5, 1.0, 2.0, 4.0),
+               "COST_CROSS_BLUESTEIN": (0.0, 0.5, 1.0, 2.0, 3.0, 4.0, 6.0)}
+PER_REGISTER = ("COST_MATRIX", "COST_CROSS", "COST_CROSS_BLUESTEIN")
+WEIGHTS = ("COST_REGISTER", "COST_NARROW", "COST_MATRIX", "COST_CLUSTER", "COST_CROSS",
+           "COST_CROSS_BLUESTEIN")
 # The plans forced beside each size's own (`mixed_plan`'s ``plan``).
 FORCED = tuple({"plan": k} for k in fl.PLAN_KINDS)
 # The wide instantiations' blocks an SM, forced (the body picks 2 where two
@@ -101,6 +168,8 @@ def build_variants(bodies=("mixed", "cluster")) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = {(b, name): f"-D{BODIES[b][1]}={cut}" for b in bodies
              for name, cut in BODIES[b][2].items()}
+    flags.update({(b, f"skip_{r}"): f"-DLOGMEL_SKIP_RADIX={r}" for b in bodies
+                  for r in SKIP_RADICES})
     if "mixed" in bodies:
         flags.update({("mixed", name): f"-DLOGMEL_WIDE_BLOCKS={n}"
                       for name, n in WIDE_BLOCKS.items()})
@@ -119,7 +188,7 @@ def build_variants(bodies=("mixed", "cluster")) -> dict:
             raise RuntimeError(f"nvcc failed for the {b} {name} variant:\n{out}")
         libs[b][name] = ctypes.CDLL(str(lib))
         ptxas[b, name] = [ln.split(":", 1)[-1].strip() for ln in out.splitlines()
-                          if "registers" in ln or "spill" in ln]
+                          if "registers" in ln or "spill" in ln or "properties for" in ln]
     build_variants.ptxas = ptxas
     return libs
 
@@ -171,7 +240,10 @@ def against(root: str, y: torch.Tensor, device: str, sizes=FFT_SIZES + MIXED_SIZ
     of its own, its sources built (all ``nvcc`` runs started together)
     under ``build/logmel_phases/against/``; one JSON line a size with both
     plans, ms a launch of each (this, other, other, this) and whether the
-    two outputs are bitwise equal."""
+    two outputs are bitwise equal; then, for each plan kind both trees force
+    to the same plan where that is not both trees' own, the same for that
+    forced plan (``forced``), so that an unchanged plan is compared with
+    itself."""
     other = Path(root).resolve()
     out_dir = _build.BUILD_DIR.parent / "logmel_phases" / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -202,6 +274,257 @@ def against(root: str, y: torch.Tensor, device: str, sizes=FFT_SIZES + MIXED_SIZ
                  for name, mod in (("this", fl), ("other", theirs))}
         print(json.dumps({"against": str(other), "n_fft": n_fft, "hop": hop, "plans": plans,
                           "bitwise_equal": same, "ms": ms, "device": device}), flush=True)
+        if fl.body(n_fft) == "fft":
+            continue
+        src, n_frames = fl.frame_source(y, cfg)
+        for kind in fl.PLAN_KINDS:
+            try:
+                mine, theirs_plan = fl.mixed_plan(n_fft, kind), theirs.mixed_plan(n_fft, kind)
+            except ValueError:      # a kind one of them has not
+                continue
+            key = (mine.radices, mine.rader, mine.bluestein)
+            if (key != (theirs_plan.radices, theirs_plan.rader, theirs_plan.bluestein)
+                    or mine.nested or mine == fl.mixed_plan(n_fft)
+                    and theirs_plan == theirs.mixed_plan(n_fft)):
+                continue
+            fns = {name: (lambda mod=mod: (
+                mod._launch_mixed(src, hop, n_frames, n_fft, cfg, plan=kind)
+                if mod.mixed_plan(n_fft, kind).smem_bytes <= mod.MIXED_MAX_SMEM
+                else mod._launch_cluster(src, hop, n_frames, n_fft, cfg, plan=kind)))
+                for name, mod in (("this", fl), ("other", theirs))}
+            same = torch.equal(fns["this"](), fns["other"]())
+            ms = {k: [] for k in fns}
+            for k in ("this", "other", "other", "this"):
+                ms[k].append(cuda_ms(fns[k]))
+            print(json.dumps({"against": str(other), "n_fft": n_fft, "hop": hop,
+                              "forced": kind, "plan": [mine.radices, mine.rader],
+                              "bitwise_equal": same, "ms": ms, "device": device}), flush=True)
+
+
+def _library(y: torch.Tensor, cfg: FrontendConfig):
+    """`torch.stft` + mel + floor + log, uncentred: one library pipeline
+    computing kernel A's function (timed beside it, never used by the
+    port)."""
+    from sed_crnn_torch.ops.mel import mel_filterbank
+
+    fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels)).to(y.device)
+    window = torch.hann_window(cfg.n_fft, periodic=True, device=y.device)
+    return lambda: torch.log(torch.clamp_min(fb @ torch.stft(
+        y, cfg.n_fft, cfg.hop_length, window=window, center=False,
+        return_complex=True).abs().square(), cfg.log_floor))
+
+
+def _features(plan) -> list:
+    """What `plan_cost` weighs of a plan on the body it fits: its
+    `plan_counts`, whether it runs narrow, on the cluster body, its
+    `_crossing_points` there, and whether it is Bluestein's."""
+    reg, mat = fl.plan_counts(plan.n, plan.radices, plan.bluestein, plan.rader, plan.nested)
+    cluster = plan.smem_bytes > fl.MIXED_MAX_SMEM
+    return [reg, mat, fl._narrow(plan.radices, plan.rader), cluster,
+            fl._crossing_points(plan) if cluster else 0, plan.bluestein]
+
+
+def plan_turns(sizes, y: torch.Tensor, device: str) -> list:
+    """Each size's own plan and every other plan it has (`PLAN_KINDS`), each
+    on the body it fits, and the library (`_library`), timed in turns (every
+    one, then in reverse); one JSON line a size with each plan's ms,
+    `plan_cost` and `_features`, then one line with the pairs whose order by
+    `plan_cost` is not the card's and the sizes whose cheapest plan by
+    `plan_cost` is more than 2 % slower than their fastest. Returns the
+    sizes' lines."""
+    wrong, missed, pairs, rows = [], [], 0, []
+    for n_fft, hop in sizes:
+        if fl.body(n_fft) == "fft":
+            continue
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        src, n_frames = fl.frame_source(y, cfg)
+        plans = {}
+        for kind in (None,) + fl.PLAN_KINDS:
+            try:
+                plan = fl.mixed_plan(n_fft, kind)
+                if plan.smem_bytes > fl.MIXED_MAX_SMEM:
+                    fl.cluster_size(n_fft, kind)
+            except ValueError:
+                continue
+            if plan not in [p for p, _ in plans.values()]:
+                launch = (fl._launch_mixed if plan.smem_bytes <= fl.MIXED_MAX_SMEM
+                          else fl._launch_cluster)
+                plans[kind or "chosen"] = (plan, lambda launch=launch, kind=kind: launch(
+                    src, hop, n_frames, n_fft, cfg, plan=kind))
+        fns = {k: fn for k, (_, fn) in plans.items()} | {"library": _library(y, cfg)}
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            ms[k].append(cuda_ms(fns[k]))
+        cost = {k: fl._plan_cost_on_body(p) for k, (p, _) in plans.items()}
+        mean = {k: v for k, v in _mean(ms).items() if k in plans}
+        for a in plans:
+            for b in plans:
+                if a < b:
+                    pairs += 1
+                    if (mean[a] < mean[b]) != (cost[a] < cost[b]):
+                        wrong.append([n_fft, a, b])
+        fastest, picked = min(mean, key=mean.get), min(cost, key=cost.get)
+        if mean[picked] > 1.02 * mean[fastest]:
+            missed.append([n_fft, picked, fastest, mean[picked] / mean[fastest]])
+        rows.append({"turns": n_fft, "hop": hop, "frames": n_frames, "ms": ms, "model": cost,
+                     "plans": {k: [p.radices, p.rader, p.nested, p.bluestein]
+                               for k, (p, _) in plans.items()},
+                     "features": {k: _features(p) for k, (p, _) in plans.items()},
+                     "device": device})
+        print(json.dumps(rows[-1]), flush=True)
+    print(json.dumps({"ordering": {"pairs": pairs, "wrong": wrong, "not_fastest": missed},
+                      "in_use": {k: getattr(fl, k) for k in WEIGHTS},
+                      "radix_weight": fl.RADIX_WEIGHT, "device": device}), flush=True)
+    return rows
+
+
+def _fit(rows, times) -> np.ndarray:
+    """Non-negative least squares of ``times`` on ``rows``, each row weighted
+    by one over its time (relative errors)."""
+    from scipy.optimize import nnls
+
+    a, t = np.array(rows, float), np.array(times, float)
+    return nnls(a / t[:, None], np.ones_like(t))[0]
+
+
+def _round3(x: float) -> float:
+    return float(f"{x:.3g}")
+
+
+def fit_choice(rows, anchor: dict) -> dict:
+    """`plan_cost`'s weights that pick the fastest plans at the sizes of
+    ``rows`` (`plan_turns`' lines): over every combination of `CHOICE_GRID`
+    (``anchor``'s COST_REGISTER, the others' multiples of it), the least
+    total log(picked / fastest) plan time over the sizes; among equals, the
+    nearest ``anchor`` (the least-squares fits) by sum of squared log(1 +
+    w) differences. Each weight to three digits; prints them, the total,
+    the sizes where they pick a plan more than 2 % slower than the fastest,
+    and ``anchor``; returns them."""
+    reg = _round3(anchor["COST_REGISTER"])
+    names = tuple(CHOICE_GRID)
+    grid = np.array(np.meshgrid(*(CHOICE_GRID[k] for k in names), indexing="ij"),
+                    float).reshape(len(names), -1)
+    for i, k in enumerate(names):
+        if k in PER_REGISTER:
+            grid[i] = np.vectorize(_round3)(grid[i] * reg)
+    w = dict(zip(names, grid))
+
+    def excess(weights) -> tuple:
+        """The total log(picked / fastest) and each size's picked / fastest
+        under every column of ``weights``."""
+        total, ratios = 0.0, []
+        ones = np.ones_like(weights["COST_NARROW"])
+        for r in rows:
+            kinds = [k for k in r["features"] if k in r["ms"]]
+            ms = np.array([float(np.mean(r["ms"][k])) for k in kinds])
+            cost = []
+            for k in kinds:
+                n_reg, n_mat, narrow, cluster, crossing, blue = r["features"][k]
+                c = (reg * n_reg * (weights["COST_NARROW"] if narrow else ones)
+                     + weights["COST_MATRIX"] * n_mat)
+                if cluster:
+                    c = (c + (weights["COST_CROSS_BLUESTEIN"] if blue else weights["COST_CROSS"])
+                         * crossing) * weights["COST_CLUSTER"]
+                cost.append(c * ones)
+            ratio = ms[np.argmin(np.array(cost), axis=0)] / ms.min()
+            total = total + np.log(ratio)
+            ratios.append(ratio)
+        return total, ratios
+
+    total, ratios = excess(w)
+    best = np.flatnonzero(total <= total.min() + 1e-12)
+    dist = sum((np.log1p(grid[i, best]) - np.log1p(anchor[k])) ** 2
+               for i, k in enumerate(names))
+    pick = best[int(np.argmin(dist))]
+    out = {"COST_REGISTER": reg} | {k: _round3(float(grid[i, pick]))
+                                    for i, k in enumerate(names)}
+    _, ratios = excess({k: np.array([v]) for k, v in out.items()})
+    missed = [[r["turns"], float(x[0])] for r, x in zip(rows, ratios) if x[0] > 1.02]
+    print(json.dumps({"fit_choice": out, "log_excess": float(total[pick]), "sizes": len(rows),
+                      "not_fastest": missed, "anchor": anchor,
+                      "in_use": {k: getattr(fl, k) for k in WEIGHTS}}), flush=True)
+    return out
+
+
+def _passes(plan) -> dict:
+    """Points a frame each register radix of ``plan`` passes over: a stage of
+    N points (twice with Bluestein), of the Rader stage's N' points twice
+    (forward and transposed inner transforms), of the nested stage's N''
+    points four times (twice in each inner transform)."""
+    out = {}
+    levels = [(plan.radices[:-1] if plan.rader else plan.radices,
+               plan.n * (2 if plan.bluestein else 1))]
+    if plan.rader:
+        n1 = plan.n - plan.n // plan.rader_prime
+        levels.append((plan.rader[:-1] if plan.nested else plan.rader, 2 * n1))
+        if plan.nested:
+            levels.append((plan.nested, 4 * (n1 - n1 // plan.nested_prime)))
+    for radices, points in levels:
+        for r in radices:
+            if r in fl.REGISTER_RADICES:
+                out[r] = out.get(r, 0) + points
+    return out
+
+
+def _with_weights(weights: dict):
+    """`fl.RADIX_WEIGHT` updated by ``weights`` and the plan caches cleared;
+    returns the weights it replaced."""
+    old = dict(fl.RADIX_WEIGHT)
+    fl.RADIX_WEIGHT.update(weights)
+    for f in (fl._power_radices, fl.mixed_plan, fl.cluster_size, fl._device_operands):
+        f.cache_clear()
+    return old
+
+
+def radix_passes(libs: dict, skips: dict, y: torch.Tensor, device: str) -> None:
+    """The per-radix pass cuts at `RADIX_SIZES` under each of `RADIX_SETS`:
+    each plan (built and its operands put on the card before any timing),
+    then in turns its full build and each radix's ``skip_R`` build; one JSON
+    line a plan with ms a pass and ps a point-pass by radix, then one line
+    with each composite radix's ps a point-pass over radix 4's."""
+    dev = y.device
+    per_point = {}
+    for n_fft, hop, kind in RADIX_SIZES:
+        cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+        src, n_frames = fl.frame_source(y, cfg)
+        for label, weights in RADIX_SETS.items():
+            old = _with_weights(weights)
+            try:
+                plan = fl.mixed_plan(n_fft, kind)
+            finally:
+                _with_weights(old)
+            ops = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+                   for k, v in fl.plan_operands(cfg.sample_rate, cfg.n_mels, cfg.fmin, cfg.fmax,
+                                                plan).items()}
+            body, launch = (("mixed", fl.launch_mixed_plan) if plan.smem_bytes <= fl.MIXED_MAX_SMEM
+                            else ("cluster", fl.launch_cluster_plan))
+            source = BODIES[body][0]
+            passes = {r: v for r, v in _passes(plan).items() if r in SKIP_RADICES}
+            variants = {"full": libs[body]["full"]} | {f"skip_{r}": skips[body][r]
+                                                        for r in passes}
+            ms = _mean(_time_variants(variants, source, lambda: launch(
+                src, hop, n_frames, cfg, plan, ops)))
+            radix = {}
+            for r, points in passes.items():
+                d = ms["full"] - ms[f"skip_{r}"]
+                radix[r] = {"ms": d, "point_passes": points * n_frames,
+                            "ps_per_point_pass": d * 1e9 / (points * n_frames)}
+                per_point.setdefault((n_fft, kind, label), {})[r] = radix[r]["ps_per_point_pass"]
+            print(json.dumps({"radix_set": label, "n_fft": n_fft, "plan": kind, "body": body,
+                              "radices": plan.radices, "rader": plan.rader,
+                              "nested": plan.nested, "bluestein": plan.bluestein,
+                              "frames": n_frames, "ms": ms, "by_radix": radix,
+                              "device": device}), flush=True)
+    weight = {}
+    for (n_fft, kind, label), rows in per_point.items():
+        four = per_point.get((n_fft, kind, "4"), {}).get(4)
+        if four:
+            for r, v in rows.items():
+                if r in fl.COMPOSITE:
+                    weight.setdefault(r, []).append(v / four)
+    print(json.dumps({"radix_weight": {r: float(np.mean(v)) for r, v in weight.items()},
+                      "per_set": {f"{n}/{k}/{lab}": v for (n, k, lab), v in per_point.items()},
+                      "in_use": fl.RADIX_WEIGHT, "device": device}), flush=True)
 
 
 def _timeable(n_fft: int) -> bool:
@@ -212,6 +535,22 @@ def _timeable(n_fft: int) -> bool:
         return False
 
 
+def _fit_from(path: str) -> int:
+    """`fit_choice` again from a JSON-lines file this tool printed."""
+    lines = [json.loads(ln) for ln in Path(path).read_text().splitlines()
+             if ln.startswith("{")]
+    rows = [ln for ln in lines if "turns" in ln and "features" in ln]
+    if not rows:
+        print(f"logmel_phases: {path} holds no turns lines with features", file=sys.stderr)
+        return 2
+    anchor = {k: getattr(fl, k) for k in WEIGHTS}
+    for ln in lines:
+        anchor.update(ln.get("fit", {}))
+        anchor.update(ln.get("fit_cluster", {}))
+    fit_choice(rows, anchor)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--body", choices=("mixed", "cluster", "both"), default="both")
@@ -219,7 +558,17 @@ def main(argv=None) -> int:
                     help="the root of another checkout to time in turns with this one")
     ap.add_argument("--sizes", type=int, nargs="+", default=None,
                     help="time only these n_fft (hop n_fft / 2 where the lists name none)")
+    ap.add_argument("--radix", action="store_true",
+                    help="also the per-radix pass cuts at RADIX_SIZES (both bodies built)")
+    ap.add_argument("--turns", action="store_true",
+                    help="only every size's plans in turns (and --against), no phases")
+    ap.add_argument("--fit-from", default="",
+                    help="fit the weights again from this tool's printed lines (no card)")
     args = ap.parse_args(argv)
+    if args.fit_from:
+        return _fit_from(args.fit_from)
+    if args.radix and (args.body != "both" or args.turns):
+        ap.error("--radix needs --body both and no --turns")
     known = FFT_SIZES + MIXED_SIZES + SIZES
     if args.sizes is not None:
         hops = dict(known)
@@ -231,8 +580,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("logmel_phases: a CUDA card is required", file=sys.stderr)
         return 2
-    bodies = ("mixed", "cluster") if args.body == "both" else (args.body,)
-    libs = build_variants(bodies)
+    bodies = () if args.turns else ("mixed", "cluster") if args.body == "both" else (args.body,)
+    libs = build_variants(bodies) if bodies else {}
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(9)
@@ -240,8 +589,9 @@ def main(argv=None) -> int:
                          .astype(np.float32)).to(dev)
     device = torch.cuda.get_device_name(0)
     fit_rows, fit_ns = [], []
-    fit = {"COST_REGISTER": fl.COST_REGISTER}
-    cluster_ns = cluster_points = 0.0
+    fit = {}
+    cluster_rows, cluster_ns = [], []
+    skips = {b: {r: libs[b].pop(f"skip_{r}") for r in SKIP_RADICES} for b in bodies}
     if "mixed" in bodies:
         wide = {k: libs["mixed"].pop(k) for k in WIDE_BLOCKS}
         print(json.dumps({"ptxas": {f"{b} {k}": v for (b, k), v in build_variants.ptxas.items()
@@ -263,20 +613,24 @@ def main(argv=None) -> int:
                 m = _mean(ms)
                 phases = {"mel": m["full"] - m["no_mel"], "power": m["no_mel"] - m["no_power"],
                           "matrix": m["no_power"] - m["no_matrix"],
-                          "rader": m["no_matrix"] - m["no_rader"],
+                          "nested": m["no_matrix"] - m["no_nested"],
+                          "rader": m["no_nested"] - m["no_rader"],
                           "bluestein": m["no_rader"] - m["no_bluestein"],
                           "register": m["no_bluestein"] - m["no_stages"],
                           "rest": m["no_stages"]}
-                counts = fl.plan_counts(plan.n, plan.radices, plan.bluestein, plan.rader)
+                reg, mat = fl.plan_counts(plan.n, plan.radices, plan.bluestein, plan.rader,
+                                          plan.nested)
+                narrow = fl._narrow(plan.radices, plan.rader)
+                counts = (0.0 if narrow else reg, reg if narrow else 0.0, mat)
                 fit_rows.append(counts)
                 fit_ns.append((m["no_power"] - m["no_stages"]) * 1e6 * sms / n_frames)
                 print(json.dumps({"body": "mixed", "n_fft": n_fft, "hop": hop,
                                   "frames": n_frames, "radices": plan.radices,
                                   "kinds": plan.kinds, "rader": plan.rader,
-                                  "bluestein": plan.bluestein, "chosen": not forced,
-                                  "forced": forced, "ms": ms, "phases_ms": phases,
-                                  "counts": list(counts), "model": fl.plan_cost(
-                                      plan.n, plan.radices, plan.bluestein, rader=plan.rader),
+                                  "nested": plan.nested, "bluestein": plan.bluestein,
+                                  "chosen": not forced, "forced": forced, "ms": ms,
+                                  "phases_ms": phases, "counts": list(counts),
+                                  "model": fl._plan_cost_on_body(plan),
                                   "device": device}), flush=True)
         # The band's lanes and the wide instantiations' blocks an SM, each
         # against the body's own choice, on the full library.
@@ -292,49 +646,82 @@ def main(argv=None) -> int:
             print(json.dumps({"body": "mixed", "n_fft": n_fft, "hop": hop, "frames": n_frames,
                               "mel_group": fl._operands(cfg, n_fft, "mixed", dev)["mel_group"],
                               "mel_group_ms": groups, "blocks_ms": blocks,
-                              "wide": bool(set(fl.mixed_plan(n_fft).radices) - {2, 3, 4, 5, 7}),
+                              "wide": bool(set(fl.mixed_plan(n_fft).radices)
+                                           - {2, 3, 4, 5, 7, 8, 9, 16}),
                               "device": device}), flush=True)
         if fit_rows:      # --sizes may leave the mixed body nothing to fit
-            from scipy.optimize import nnls
-
-            w, _ = nnls(np.array(fit_rows, float), np.array(fit_ns))
-            fit["COST_REGISTER"], fit["COST_MATRIX"] = w[0], w[1]
+            w = _fit(fit_rows, fit_ns)
+            fit["COST_REGISTER"], fit["COST_MATRIX"] = float(w[0]), float(w[2])
+            fit["COST_NARROW"] = float(w[1] / w[0]) if w[0] else 1.0
             errors = [float(np.dot(w, r)) / t - 1.0 for r, t in zip(fit_rows, fit_ns)]
-            print(json.dumps({"fit": {"COST_REGISTER": w[0], "COST_MATRIX": w[1]},
-                              "in_use": {"COST_REGISTER": fl.COST_REGISTER,
-                                         "COST_MATRIX": fl.COST_MATRIX},
+            print(json.dumps({"fit": fit,
+                              "in_use": {k: getattr(fl, k) for k in fit},
                               "measured_vs_fit_ns": [
                                   [r, round(t, 1), round(float(np.dot(w, r)), 1)]
                                   for r, t in zip(fit_rows, fit_ns)],
                               "largest_error": max(errors, key=abs), "rows": len(fit_rows),
                               "sms": sms, "device": device}), flush=True)
     if "cluster" in bodies:
-        fit.setdefault("COST_MATRIX", fl.COST_MATRIX)
+        for k in ("COST_REGISTER", "COST_NARROW", "COST_MATRIX"):
+            fit.setdefault(k, getattr(fl, k))
         for n_fft, hop in sizes:
             cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
             src, n_frames = fl.frame_source(y, cfg)
-            ms = _time_variants(libs["cluster"], "logmel_cluster", lambda: fl._launch_cluster(
-                src, hop, n_frames, n_fft, cfg))
-            m = _mean(ms)
-            plan = fl.mixed_plan(n_fft)
-            reg, mat = fl.plan_counts(plan.n, plan.radices, plan.bluestein, plan.rader)
-            cluster_ns += (m["no_power"] - m["no_stages"]) * 1e6 * sms / n_frames
-            cluster_points += fit["COST_REGISTER"] * reg + fit["COST_MATRIX"] * mat
-            sp = fl.cluster_split(n_fft, fl.cluster_size(n_fft))
-            print(json.dumps({"body": "cluster", "n_fft": n_fft, "hop": hop, "frames": n_frames,
-                              "ctas": sp.ctas, "radices": plan.radices, "kinds": plan.kinds,
-                              "rader": plan.rader, "bluestein": plan.bluestein, "ms": ms,
-                              "phases_ms": {"mel": m["full"] - m["no_mel"],
-                                            "power": m["no_mel"] - m["no_power"],
-                                            "matrix": m["no_power"] - m["no_matrix"],
-                                            "rader": m["no_matrix"] - m["no_rader"],
-                                            "register": m["no_rader"] - m["no_stages"],
-                                            "rest": m["no_stages"]},
-                              "mel_share": (m["full"] - m["no_mel"]) / m["full"],
-                              "device": device}), flush=True)
-        print(json.dumps({"fit_cluster": {"COST_CLUSTER": cluster_ns / cluster_points},
-                          "in_use": {"COST_CLUSTER": fl.COST_CLUSTER},
-                          "sizes": len(sizes), "device": device}), flush=True)
+            seen = []
+            for forced in ({},) + FORCED:
+                try:
+                    plan = fl.mixed_plan(n_fft, **forced)
+                    ctas = fl.cluster_size(n_fft, **forced)
+                except ValueError:      # no such plan, or none 16 CTAs hold
+                    continue
+                if plan in seen:
+                    continue
+                seen.append(plan)
+                ms = _time_variants(libs["cluster"], "logmel_cluster", lambda: fl._launch_cluster(
+                    src, hop, n_frames, n_fft, cfg, **forced))
+                m = _mean(ms)
+                reg, mat = fl.plan_counts(plan.n, plan.radices, plan.bluestein, plan.rader,
+                                          plan.nested)
+                narrow = fl._narrow(plan.radices, plan.rader)
+                crossing = fl._crossing_points(plan)
+                base = (fit["COST_REGISTER"] * reg * (fit["COST_NARROW"] if narrow else 1.0)
+                        + fit["COST_MATRIX"] * mat)
+                cluster_rows.append((base, 0.0 if plan.bluestein else crossing,
+                                     crossing if plan.bluestein else 0.0))
+                cluster_ns.append((m["no_power"] - m["no_stages"]) * 1e6 * sms / n_frames)
+                sp = fl.cluster_split(n_fft, ctas, **forced)
+                print(json.dumps({"body": "cluster", "n_fft": n_fft, "hop": hop,
+                                  "frames": n_frames, "ctas": sp.ctas, "radices": plan.radices,
+                                  "kinds": plan.kinds, "rader": plan.rader,
+                                  "bluestein": plan.bluestein,
+                                  "chosen": not forced, "forced": forced, "ms": ms,
+                                  "phases_ms": {"mel": m["full"] - m["no_mel"],
+                                                "power": m["no_mel"] - m["no_power"],
+                                                "matrix": m["no_power"] - m["no_matrix"],
+                                                "rader": m["no_matrix"] - m["no_rader"],
+                                                "register": m["no_rader"] - m["no_stages"],
+                                                "rest": m["no_stages"]},
+                                  "counts": [reg, mat], "crossing": crossing,
+                                  "model": fl._plan_cost_on_body(plan),
+                                  "mel_share": (m["full"] - m["no_mel"]) / m["full"],
+                                  "device": device}), flush=True)
+        if cluster_rows:
+            v = _fit(cluster_rows, cluster_ns)
+            fit["COST_CLUSTER"] = float(v[0])
+            fit["COST_CROSS"], fit["COST_CROSS_BLUESTEIN"] = (
+                (float(v[1] / v[0]), float(v[2] / v[0])) if v[0] else (0.0, 0.0))
+            print(json.dumps({"fit_cluster": {k: fit[k] for k in (
+                                  "COST_CLUSTER", "COST_CROSS", "COST_CROSS_BLUESTEIN")},
+                              "in_use": {k: getattr(fl, k) for k in (
+                                  "COST_CLUSTER", "COST_CROSS", "COST_CROSS_BLUESTEIN")},
+                              "largest_error": max((float(np.dot(v, r)) / t - 1.0 for r, t in
+                                                    zip(cluster_rows, cluster_ns)), key=abs),
+                              "rows": len(cluster_rows), "device": device}), flush=True)
+    rows = plan_turns(known + (TURN_SIZES if args.sizes is None else ()), y, device)
+    if bodies:
+        fit_choice(rows, {k: getattr(fl, k) for k in WEIGHTS} | fit)
+    if args.radix:
+        radix_passes(libs, skips, y, device)
     if args.against:
         against(args.against, y, device, known)
     return 0

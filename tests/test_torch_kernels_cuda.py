@@ -663,6 +663,7 @@ MIXED_SHAPES = [
     dict(n_fft=12865, hop_length=6432), dict(n_fft=2206, hop_length=1103),
     dict(n_fft=1103, hop_length=551), dict(n_fft=12867, hop_length=6433),
     dict(n_fft=23054, hop_length=11527), dict(n_fft=4126, hop_length=2063),
+    dict(n_fft=12895, hop_length=6447),
 ]
 # A plan with matrix stages against `mixed_log_mel_plain` (chip_smoke.py's
 # MATRIX_ATOL): three TF32 products are not float32's bits.
@@ -725,12 +726,14 @@ def test_mixed_kernel_on_a_frame_matrix(cuda, kw):
 
 def test_mixed_launcher_refuses_a_plan_over_the_limit(cuda):
     """A plan whose frame takes more than 227 KB of shared memory is refused
-    by the launcher, which raises its error: nothing falls back."""
-    cfg = FrontendConfig(n_fft=12895, hop_length=6447, center=False)
-    y = torch.zeros(4 * 12895, device=cuda)
+    by the launcher, which raises its error: nothing falls back (12941:
+    every plan of it beyond one block)."""
+    cfg = FrontendConfig(n_fft=12941, hop_length=6470, center=False)
+    assert mixed_plan(12941).smem_bytes > MIXED_MAX_SMEM
+    y = torch.zeros(4 * 12941, device=cuda)
     before = _counts()
     with pytest.raises(RuntimeError, match="logmel_mixed launch failed"):
-        _launch_mixed(y, 6447, 2, 12895, cfg)
+        _launch_mixed(y, 6470, 2, 12941, cfg)
     assert _counts() == before
 
 
@@ -753,13 +756,16 @@ def _fft_log_mel64(y, cfg):
     return torch.log(mel).float()
 
 
-# The cluster body's sizes (n_fft, hop): a Rader plan (25734: 3, and 4289
-# over 4 x 4 x 4 x 67), a matrix stage of 149 (31290), the first odd size
-# beyond the mixed body's limit (12895, Bluestein), 1 s at 44.1 and 48 kHz
-# (direct, C = 2), 2 s at 44.1 kHz (C = 3), a power of two (C = 4) and a
-# direct plan with radix 11 (44000, L 22000).
-CLUSTER_SHAPES = [(25734, 12867), (31290, 15645), (12895, 6447), (44100, 22050),
-                  (48000, 24000), (88200, 44100), (131072, 32768), (44000, 22000)]
+# The cluster body's sizes (n_fft, hop): L 12867 at an even n_fft (25734:
+# Bluestein on radices 8 and 9, which the card timed faster than its Rader
+# plan), a matrix stage of 17 before a Rader stage of 757 (25738), a matrix
+# stage of 149 (31290), an odd size beyond the mixed body's limit (12941,
+# Bluestein on radices 8 and 9), 1 s at 44.1 and 48 kHz (direct, C = 2), 2
+# s at 44.1 kHz (C = 3), a power of two (C = 4), a direct plan with radix
+# 11 (44000, L 22000), and 21599 (Bluestein at M 43,200).
+CLUSTER_SHAPES = [(25734, 12867), (25738, 12869), (31290, 15645), (12941, 6470),
+                  (44100, 22050), (48000, 24000), (88200, 44100), (131072, 32768),
+                  (44000, 22000), (21599, 10799)]
 
 
 @pytest.mark.parametrize("n_fft,hop", CLUSTER_SHAPES)
@@ -828,19 +834,20 @@ def test_cluster_kernel_forced_small_is_the_mixed_body(cuda, kw, ctas):
 
 
 # A register-only plan (44100: bitwise the plain version) and a Rader plan
-# with matrix stages inside (25734: within MATRIX_ATOL), each with the
-# launch counts of its route on a frame matrix (framed: n_fft % 4 == 0;
-# exact otherwise) and the cluster body.
-CLUSTER_ROUTES = [(44100, 22050, [0, 1, 0, 0, 1]), (25734, 12867, [0, 0, 1, 0, 1])]
+# with matrix stages inside (23201: L prime, 23200 over 4 x 4 x 2 x 5 x 5 x
+# 29; within MATRIX_ATOL), each with the launch counts of its route on a
+# frame matrix (framed: n_fft % 4 == 0; exact otherwise) and the cluster
+# body.
+CLUSTER_ROUTES = [(44100, 22050, [0, 1, 0, 0, 1]), (23201, 11600, [0, 0, 1, 0, 1])]
 
 
 @pytest.mark.parametrize("n_fft,hop,counts", CLUSTER_ROUTES)
 def test_cluster_kernel_on_a_frame_matrix(cuda, n_fft, hop, counts):
     """Stride n_fft on a frame matrix: the waveform's rows bit for bit,
     counted on the route and the cluster body, and the plain version's bit
-    for bit at 44100 (within MATRIX_ATOL at 25734)."""
+    for bit at 44100 (within MATRIX_ATOL at 23201)."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, log_floor=1e-10)
-    assert body(n_fft) == "cluster" and mixed_plan(n_fft).tensor_cores == (n_fft == 25734)
+    assert body(n_fft) == "cluster" and mixed_plan(n_fft).tensor_cores == (n_fft == 23201)
     y = torch.from_numpy(_signal(5 * n_fft, 44100, 12)).to(cuda)
     frames = frame_signal(y, cfg.n_fft, cfg.hop_length, center=True).contiguous()
     before = _counts()
@@ -854,13 +861,13 @@ def test_cluster_kernel_on_a_frame_matrix(cuda, n_fft, hop, counts):
         _assert_plain(got, mixed_log_mel_plain(frames, cfg), n_fft)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(44100, 22050), (25734, 12867)])
+@pytest.mark.parametrize("n_fft,hop", [(44100, 22050), (23201, 11600)])
 def test_cluster_kernel_takes_more_than_256_mels(cuda, n_fft, hop):
     """No body limits the mel count (the retired dft body's 256): 300 mels,
     bitwise the plain version's at 44100 (a register-only plan), within
-    MATRIX_ATOL at 25734 (a Rader stage with matrix stages inside)."""
+    MATRIX_ATOL at 23201 (a Rader stage with matrix stages inside)."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, n_mels=300, log_floor=1e-10)
-    assert body(n_fft) == "cluster" and mixed_plan(n_fft).tensor_cores == (n_fft == 25734)
+    assert body(n_fft) == "cluster" and mixed_plan(n_fft).tensor_cores == (n_fft == 23201)
     y = torch.from_numpy(_signal(4 * n_fft, 44100, 13)).to(cuda)
     got = fused_log_mel(y, cfg)
     assert got.shape[1] == 300
@@ -876,6 +883,76 @@ def test_card_holds_the_largest_cluster_at_full_shared_memory(cuda):
     limit stands as `body` states it."""
     assert cluster_size(617400) == CLUSTER_MAX
     assert [c for c in range(1, CLUSTER_MAX + 1) if cluster_resident(c) < 1] == []
+
+
+# Nested Rader plans (forced), each in one block: 2579, 4126, 12895, 12899
+# (each Rader prime's p - 1 has a prime above MATRIX_MAX), 23158 (L 11579,
+# 11578 = 2 x 7 x 827, 826 = 2 x 7 x 59) and 1034 (L 11 x 47, 46 = 2 x 23,
+# 22 = 2 x 11: register stages only).
+NESTED_SHAPES = [(2579, 1289), (4126, 2063), (12895, 6447), (12899, 6449), (23158, 11579),
+                 (1034, 517)]
+
+
+@pytest.mark.parametrize("n_fft,hop", NESTED_SHAPES)
+def test_nested_plans_match_their_plain_versions(cuda, n_fft, hop):
+    """The nested plan forced on the mixed body: against
+    `mixed_log_mel_plain` forced alike (within MATRIX_ATOL: its nested
+    stage's matrix stages; bitwise without them) with the same -inf rows,
+    twice bitwise, within 5e-4 of torch's FFT + mel in float64; the cluster
+    body refuses it (it runs no nested stage) and launches nothing."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=None)
+    y = torch.from_numpy(_signal(6 * hop + n_fft, 44100, 12, silent=(n_fft, 2 * n_fft))).to(cuda)
+    src, n_frames = frame_source(y, cfg)
+    plan = mixed_plan(n_fft, "nested")
+    assert plan.nested and plan.smem_bytes <= MIXED_MAX_SMEM
+    first = _launch_mixed(src, hop, n_frames, n_fft, cfg, plan="nested")
+    assert torch.equal(first, _launch_mixed(src, hop, n_frames, n_fft, cfg, plan="nested"))
+    plain = mixed_log_mel_plain(y, cfg, plan="nested")
+    fin = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(first), fin) and torch.equal(first[~fin], plain[~fin])
+    if plan.tensor_cores:
+        torch.testing.assert_close(first[fin], plain[fin], rtol=0, atol=MATRIX_ATOL)
+    else:
+        assert torch.equal(first, plain)
+    _assert_logmel_close(first, _fft_log_mel64(y, cfg))
+    before = _counts()
+    with pytest.raises(ValueError, match="runs no nested Rader stage"):
+        _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=2, plan="nested")
+    assert _counts() == before
+
+
+# Plans on the composite radices: Bluestein at 12895 (M 25,920 = 8 x 8 x 9
+# x 9 x 5, the cluster body), 2579 (M 5,184, one block) and 21599 (M
+# 43,200 = 8 x 8 x 9 x 3 x 5 x 5); direct at 1764 (L 882 = 2 x 9 x 7 x 7)
+# and 3072 (L 1536 = 8 x 8 x 8 x 3), and radix 16 in 12899's nested stage
+# (6448 = 16 x 13 x 31).
+COMPOSITE_SHAPES = [(12895, 6447, "bluestein"), (2579, 1289, "bluestein"),
+                    (21599, 10799, "bluestein"), (1764, 882, None), (3072, 1024, None),
+                    (12899, 6449, "nested")]
+
+
+@pytest.mark.parametrize("n_fft,hop,plan", COMPOSITE_SHAPES)
+def test_composite_radices_match_their_plain_versions(cuda, n_fft, hop, plan):
+    """Radices 8, 9 and 16 on both bodies: bitwise the plain version (within
+    MATRIX_ATOL with a matrix stage), twice bitwise, the same bits on the
+    cluster body at 2 and 4 CTAs (but for the nested plan, which it does not
+    run)."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+    y = torch.from_numpy(_signal(6 * hop + n_fft, 44100, 13)).to(cuda)
+    src, n_frames = frame_source(y, cfg)
+    mp = mixed_plan(n_fft, plan)
+    assert set(mp.radices + mp.rader + mp.nested) & {8, 9, 16}
+    launch = _launch_mixed if mp.smem_bytes <= MIXED_MAX_SMEM else _launch_cluster
+    first = launch(src, hop, n_frames, n_fft, cfg, plan=plan)
+    assert torch.equal(first, launch(src, hop, n_frames, n_fft, cfg, plan=plan))
+    plain = mixed_log_mel_plain(y, cfg, plan=plan)
+    if mp.tensor_cores:
+        torch.testing.assert_close(first, plain, rtol=0, atol=MATRIX_ATOL)
+    else:
+        assert torch.equal(first, plain)
+    for c in (() if mp.nested else (2, 4)):
+        assert torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c, plan=plan),
+                           first), c
 
 
 def test_cluster_body_beyond_its_limit_raises(cuda):
@@ -909,13 +986,13 @@ def test_cluster_launcher_checks_the_split_it_is_given(cuda, monkeypatch, n_fft,
            sp._replace(chunk=sp.chunk - 1),
            sp._replace(chunk=sp.chunk + 30000, smem_bytes=sp.smem_bytes + 240000))
     for split in bad:
-        monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None, r=None, split=split: split)
+        monkeypatch.setattr(fl, "split_plan", lambda mp, c, split=split: split)
         before = _counts()
         with pytest.raises(RuntimeError, match="logmel_cluster launch failed"):
             _launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas)
         assert _counts() == before
     every = sp._replace(cross=(True,) * len(sp.cross))
-    monkeypatch.setattr(fl, "cluster_split", lambda n, c, b=None, r=None: every)
+    monkeypatch.setattr(fl, "split_plan", lambda mp, c: every)
     assert torch.equal(_launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=ctas), want)
 
 

@@ -46,9 +46,10 @@ from sed_crnn_torch.ops.stft import hann_window
 
 # The first n_fft whose plans 16 CTAs of 227 KB do not hold: odd, L = 5 x
 # 41,243 (41,242 = 2 x 17 x 1,213: no direct plan for p - 1, so no Rader
-# stage), Bluestein at M = 413,343 (3^10 x 7), 3,719,164 bytes. The six
-# below it from 206,209 (where Bluestein first does not fit) run direct or
-# Rader plans.
+# stage; its nested Rader plan, 1,213 within 41,243, is beyond one block,
+# where the cluster body runs no nested stage), Bluestein at M = 413,343
+# (3^10 x 7), 3,719,164 bytes. The six below it from 206,209 (where
+# Bluestein first does not fit) run direct or Rader plans.
 FIRST_BEYOND = 206215
 
 
@@ -89,16 +90,19 @@ def _assert_log_close(got, want, atol):
 
 
 # n_fft: (L, N, Bluestein, C, stages that cross CTAs, bytes a CTA, chunk,
-# Rader inner stages that cross). The sizes chip_smoke.py times (25734: a
-# Rader stage, its chunk whole inner transforms so that none of them
-# crosses; 31290: a matrix stage; 44100, 48000, and 88200 at C = 3), a power
+# Rader inner stages that cross). The sizes chip_smoke.py times (25734:
+# Bluestein at M 25,920; 25738: a Rader stage of 757 after a matrix stage of
+# 17, its chunk whole inner transforms so that none of them crosses; 31290:
+# a matrix stage; 44100, 48000, and 88200 at C = 3), a power
 # of two, sizes whose smallest cluster does not divide N, so that most
 # stages cross CTAs (141000: C 7, a matrix stage of 47; 141001: C 11, a
 # Rader stage of 20143 whose inner stages mostly cross), and the largest
 # plans (206208 (a matrix stage of 179), 206209 (Rader) and 617400 fill 9,
-# 16 and 16 CTAs).
+# 16 and 16 CTAs). Plans beyond one block with a matrix or Rader stage take
+# no composite radix.
 SPLITS = {
-    25734: (12867, 12867, False, 2, 2, 162952, 8576, 0),
+    25734: (12867, 25920, True, 2, 1, 129416, 12960, 0),
+    25738: (12869, 12869, False, 2, 2, 134604, 6804, 0),
     31290: (15645, 15645, False, 2, 4, 156460, 7823, 0),
     44100: (22050, 22050, False, 2, 1, 132304, 11025, 0),
     48000: (24000, 24000, False, 2, 1, 144004, 12000, 0),
@@ -108,7 +112,7 @@ SPLITS = {
     141001: (141001, 141001, False, 11, 2, 230744, 12819, 5),
     206208: (103104, 103104, False, 9, 5, 229124, 11456, 0),
     206209: (206209, 206209, False, 16, 1, 232004, 12889, 7),
-    617400: (308700, 308700, False, 16, 8, 231528, 19294, 0),
+    617400: (308700, 308700, False, 16, 7, 231528, 19294, 0),
 }
 
 
@@ -175,8 +179,8 @@ def test_first_beyond_is_the_first():
     `mixed_plan` picks a plan 16 CTAs hold wherever one exists; from 206,209
     to 206,214 a direct or Rader plan fits where Bluestein does not; at
     206,215 none does. Checked against `mixed_plan` on a sample: the plan
-    is held, and it is Bluestein's where L has a prime above MATRIX_MAX
-    whose p - 1 has one too."""
+    is held, and it is Bluestein's (or, in one block, a nested Rader plan)
+    where L has a prime above MATRIX_MAX whose p - 1 has one too."""
     n_fft = np.arange(1, FIRST_BEYOND + 1, dtype=np.int64)
     points = np.where(n_fft % 2 == 1, n_fft, n_fft // 2)
     smooth7 = np.array(sorted(2**a * 3**b * 5**c * 7**d for a in range(21) for b in range(14)
@@ -198,7 +202,7 @@ def test_first_beyond_is_the_first():
         primes = _prime_factors(int(points[i]))
         big = [p for p in primes if p > MATRIX_MAX]
         if big and any(q > MATRIX_MAX for q in _prime_factors(big[0] - 1)):
-            assert plan.bluestein and plan.n == blue[i]
+            assert plan.bluestein and plan.n == blue[i] or plan.nested
         if plan.bluestein:
             assert plan.n == blue[i]
         else:
@@ -247,7 +251,8 @@ def test_next_smooth_is_the_smallest_seven_smooth_length():
 
 # n_fft, hop: the sizes that matrix stages (12865, 23042) and Rader stages
 # (12867, 23054) put on the mixed body, 1 s at 44.1 and 48 kHz (direct), and
-# the cluster body's Rader (25734) and matrix (31290) plans.
+# the cluster body's Bluestein (25734, on radices 8, 9, 5) and matrix
+# (31290) plans.
 SIZES = [(12865, 6432), (23042, 11521), (44100, 22050), (48000, 24000), (12867, 6433),
          (23054, 11527), (25734, 12867), (31290, 15645)]
 
@@ -293,9 +298,13 @@ def test_phases_tool_builds_the_kernels_own_cuts():
                              "no_rader": 4, "no_stages": 5}
     for level in (1, 2, 3, 4, 5):
         assert f"CUT < {level}" in src, level
-    assert [n for n, _ in tool.SIZES] == [25734, 31290, 44100, 48000, 88200]
+    assert [n for n, _ in tool.SIZES] == [25734, 31290, 44100, 48000, 88200, 12941, 23792,
+                                          21599, 24763, 29517, 141001]
     assert all(body(n) == "cluster" for n, _ in tool.SIZES)
-    assert mixed_plan(25734).rader and mixed_plan(31290).matrix == (149,)
+    assert mixed_plan(25734, "rader").rader and mixed_plan(31290).matrix == (149,)
+    assert mixed_plan(12941, "rader").rader_matrix == (647,) and mixed_plan(21599).bluestein
+    with pytest.raises(ValueError, match="no nested plan"):   # beyond one block
+        mixed_plan(12941, "nested")
 
 
 def test_phases_tool_refuses_without_a_card(monkeypatch, capsys):

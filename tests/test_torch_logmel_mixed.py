@@ -114,32 +114,33 @@ def _within_ulp(table, exact):
 
 @pytest.mark.parametrize("n_fft,points,n,radices,bluestein", [
     (1034, 517, 517, (11, 47), False),
-    (1764, 882, 882, (2, 3, 3, 7, 7), False),
-    (3072, 1536, 1536, (4, 4, 4, 4, 2, 3), False),
+    (1764, 882, 882, (2, 9, 7, 7), False),
+    (3072, 1536, 1536, (8, 8, 8, 3), False),
     (1001, 1001, 1001, (7, 11, 13), False),
-    (882, 441, 441, (3, 3, 7, 7), False),
-    (400, 200, 200, (4, 2, 5, 5), False),
+    (882, 441, 441, (9, 7, 7), False),
+    (400, 200, 200, (8, 5, 5), False),
     (2050, 1025, 1025, (5, 5, 41), False),
-    (32768, 16384, 16384, (4,) * 7, False),
+    (32768, 16384, 16384, (8, 8, 8, 8, 4), False),
     (26, 13, 13, (13,), False),
     (2, 1, 1, (), False),
-    (2206, 1103, 1103, (1103,), False),
-    (4126, 2063, 4200, (4, 2, 3, 5, 5, 7), True),
+    (2206, 1103, 2205, (9, 5, 7, 7), True),
+    (4126, 2063, 4200, (8, 3, 5, 5, 7), True),
 ])
 def test_plan_factors_and_picks_direct_or_bluestein(n_fft, points, n, radices, bluestein):
     """L is n_fft / 2 (even) or n_fft (odd); L is transformed directly by
-    register radices (radix 4 first for each pair of 2s, then 2, 3, 5, 7,
-    11, 13) and matrix stages for its primes above 13, ascending, or with a
-    Rader stage last for its largest prime (1103: over 1102 = 2 x 19 x 29),
-    unless a prime above MATRIX_MAX whose p - 1 has one too divides it (L
-    2063: 2062 = 2 x 1031) or Bluestein costs less, at M, the smallest
-    7-smooth length >= 2L - 1; the radices multiply to the length."""
+    register radices (the 2s and 3s by `_power_radices`: 8, 4, 2 and 9, 3,
+    largest first; then 5, 7, 11, 13) and matrix stages for its primes
+    above 13, ascending, or with a Rader stage last for its largest prime,
+    unless Bluestein costs less, at M, the smallest 7-smooth length >= 2L -
+    1 (L 1103: Bluestein on 9, 5, 7, 7 costs less than a Rader stage over
+    1102 = 2 x 19 x 29; L 2063: than the nested Rader plan over 2062 = 2 x
+    1031); the radices multiply to the length."""
     plan = mixed_plan(n_fft)
     assert (plan.points, plan.n, plan.radices, plan.bluestein) == (points, n, radices, bluestein)
     assert math.prod(plan.radices) == plan.n
     assert plan.radices.count(2) <= 1 and len(plan.radices) <= MIXED_MAX_STAGES
     if bluestein:
-        assert set(plan.radices) <= {2, 3, 4, 5, 7} and not plan.rader
+        assert set(plan.radices) <= {2, 3, 4, 5, 7, 8, 9} and not plan.rader
         assert not any(_smooth(m) for m in range(2 * points - 1, n)) and _smooth(n)
     else:
         outer = radices[:-1] if plan.rader else radices
@@ -154,21 +155,25 @@ def test_plan_factors_and_picks_direct_or_bluestein(n_fft, points, n, radices, b
 @pytest.mark.parametrize("n_fft,fits", [
     (12863, True), (12864, True), (12865, True), (23040, True), (23042, True),
     (21875, True), (38416, True), (25725, False), (40000, False), (65536, False),
-    (12867, True), (23044, True), (23052, True), (23054, True), (12895, False),
-    (23082, False),
+    (12867, True), (23044, True), (23052, True), (23054, True), (12895, True),
+    (23082, True), (12915, False), (23228, False), (12911, False), (23098, False),
 ])
 def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
     """A plan fits when one frame's work arrays and power row take at most
-    227 KB: every n_fft to 12,894 (12,863: a Rader stage of 677, two work
-    arrays, 231,536 bytes; 12,865 direct with matrix stages, 231,572;
-    12,867 = 3 x 4289, a Rader stage, 231,608), every even one to 23,080
-    (23,044: a Rader stage of 823, 230,444 bytes; 23,054: L 11,527, a Rader
-    stage, 230,544), and beyond them the sizes whose plan is small enough
-    (21,875 and 38,416 direct; 40,000, L 20,000, is not); 12,895 (5 x 2579,
-    2578 = 2 x 1289: Bluestein at M 25,920) and 23,082 (L 3 x 3847: Bluestein
-    on the cluster body costs less than its Rader stage of 3847) are the
-    first odd and even sizes that do not; a plan that does not fit goes to
-    the cluster body."""
+    227 KB: every n_fft to 12,910 (12,863: Bluestein at M 25,725, 231,528
+    bytes; 12,865 direct with matrix stages, 231,572; 12,867 = 3 x 4289, a
+    Rader stage, 231,608; 12,895 = 5 x 2579, a Rader stage of 2579 with one
+    of 1289 nested in it, 232,112), every even one to 23,096 (23,044: a
+    Rader stage of 823, 230,444 bytes; 23,054: L 11,527, a Rader stage,
+    230,544; 23,082: L 3 x 3847, a nested Rader plan, 230,824), and beyond
+    them the sizes whose plan is small enough (21,875 and 38,416 direct;
+    40,000, L 20,000, is not); 12,911 (Bluestein at M 25,920, 233,184
+    bytes, which `plan_cost` prefers to its nested plan) and 23,098 (L
+    11,549: Bluestein at M 23,328) are the first odd and even sizes that do
+    not, 12,915 (L 3^2 x 5 x 7 x 41, direct with a matrix stage, 232,472
+    bytes) and 23,228 (L 11,614: Bluestein at M 23,328) the first before
+    the cost model's refit; a plan that does not fit goes to the cluster
+    body."""
     assert (mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM) == fits
     assert body(n_fft) == ("mixed" if fits else "cluster") or body(n_fft) == "fft"
 
@@ -177,7 +182,7 @@ def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
     (1034, "mixed"), (1764, "mixed"), (882, "mixed"), (400, "mixed"), (960, "mixed"),
     (1920, "mixed"), (1001, "mixed"), (128, "mixed"), (1, "mixed"), (20000, "mixed"),
     (2048, "fft"), (256, "fft"), (16384, "fft"), (12865, "mixed"), (23042, "mixed"),
-    (12867, "mixed"), (23044, "mixed"), (23054, "mixed"), (12895, "cluster"),
+    (12867, "mixed"), (23044, "mixed"), (23054, "mixed"), (12895, "mixed"),
     (25734, "cluster"),
 ])
 def test_body_by_size(n_fft, want):

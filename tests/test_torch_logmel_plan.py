@@ -93,27 +93,31 @@ def _assert_log_close(got, want, atol):
 # n_fft: (radices, Rader inner radices, Bluestein, body). L 1001 = 7 x 11 x
 # 13 (register radices only), 517 = 11 x 47, 551 = 19 x 29, 12865 = 5 x 31 x
 # 83 (two work arrays and the power row, 231,572 bytes: one block), 13 (one
-# radix-13 stage), 1103 (a prime above MATRIX_MAX: a Rader stage over 1102 =
-# 2 x 19 x 29), 11522 = 2 x 7 x 823 (a Rader stage of 823, cheaper than its
-# matrix stage), 12867 = 3 x 4289 and 11527 (prime) (the first odd and even
-# sizes that were Bluestein on the cluster body: Rader stages in one block),
-# 25734 (L 12867 at an even n_fft: Rader on the cluster body), 31290 (L 3 x
-# 5 x 7 x 149: a matrix stage on the cluster body) and 4126 (L 2063, prime,
-# 2062 = 2 x 1031: no direct plan for p - 1, so Bluestein).
+# radix-13 stage), 1103 (a prime above MATRIX_MAX: its Rader stage over 1102
+# = 2 x 19 x 29 now costs more than Bluestein on radices 9, 5, 7, 7, as the
+# card timed it), 11522 = 2 x 7 x 823 (a Rader stage of 823, cheaper than
+# its matrix stage), 12867 = 3 x 4289 and 11527 (prime) (the first odd and
+# even sizes that were Bluestein on the cluster body: Rader stages in one
+# block, 4288 over 8 x 8 x 67), 25734 (L 12867 at an even n_fft: on the
+# cluster body Bluestein at M 25,920 on radices 8, 9 and 5, which the card
+# timed faster than its Rader plan),
+# 31290 (L 3 x 5 x 7 x 149: a matrix stage on the cluster body) and 4126 (L
+# 2063, prime, 2062 = 2 x 1031: its nested Rader plan costs more than
+# Bluestein).
 PLANS = {
     1001: ((7, 11, 13), (), False, "mixed"),
     1034: ((11, 47), (), False, "mixed"),
     1102: ((19, 29), (), False, "mixed"),
     12865: ((5, 31, 83), (), False, "mixed"),
     26: ((13,), (), False, "mixed"),
-    2206: ((1103,), (2, 19, 29), False, "mixed"),
-    12867: ((3, 4289), (4, 4, 4, 67), False, "mixed"),
+    2206: ((9, 5, 7, 7), (), True, "mixed"),
+    12867: ((3, 4289), (8, 8, 67), False, "mixed"),
     23044: ((2, 7, 823), (2, 3, 137), False, "mixed"),
     23054: ((11527,), (2, 3, 17, 113), False, "mixed"),
-    1103: ((1103,), (2, 19, 29), False, "mixed"),
-    25734: ((3, 4289), (4, 4, 4, 67), False, "cluster"),
+    1103: ((9, 5, 7, 7), (), True, "mixed"),
+    25734: ((8, 8, 9, 9, 5), (), True, "cluster"),
     31290: ((3, 5, 7, 149), (), False, "cluster"),
-    4126: ((4, 2, 3, 5, 5, 7), (), True, "mixed"),
+    4126: ((8, 3, 5, 5, 7), (), True, "mixed"),
 }
 
 
@@ -135,28 +139,33 @@ def test_new_plans(n_fft):
     arrays = 2 if plan.matrix or inner else 1   # matrix and Rader stages write out of place
     assert plan.smem_bytes == 8 * arrays * plan.n + 4 * (n_fft // 2 + 1)
     if blue:
-        assert plan.n == _next_smooth(2 * plan.points - 1) and set(plan.radices) <= {2, 3, 4, 5, 7}
+        assert plan.n == _next_smooth(2 * plan.points - 1)
+        assert set(plan.radices) <= {2, 3, 4, 5, 7, 8, 9}
     else:
         assert plan.n == plan.points and list(plan.matrix) == sorted(plan.matrix)
     if inner:
-        assert math.prod(inner) == rader - 1 and inner == fl._direct_radices(rader - 1)
+        # composite radices only in one block (`mixed_plan`)
+        one_block = plan.smem_bytes <= MIXED_MAX_SMEM
+        assert math.prod(inner) == rader - 1
+        assert inner == fl._direct_radices(rader - 1, True, one_block)
         assert rader == max(fl._prime_factors(plan.points)) > 13
 
 
 def test_1103_has_a_prime_above_the_bound():
     """An odd prime n_fft above MATRIX_MAX: no direct plan without a Rader
     stage; its Rader stage runs over 1102 = 2 x 19 x 29 (a register stage
-    and two matrix stages), cheaper than Bluestein at M 2,205 by the cost
-    model, on the mixed body."""
+    and two matrix stages), and costs more by the cost model than Bluestein
+    at M 2,205 on radices 9, 5, 7, 7 (narrow, in one block), which the card
+    timed 2 % faster (PERF.md §6)."""
     assert MATRIX_MAX < 1103 <= 2 * MATRIX_MAX
-    plan = mixed_plan(1103)
+    plan = mixed_plan(1103, "rader")
     assert not plan.bluestein and plan.radices == (1103,) and plan.rader == (2, 19, 29)
     assert plan.kinds == ("rader",) and plan.rader_matrix == (19, 29) and body(1103) == "mixed"
     with pytest.raises(ValueError, match="L = 1103 has no direct plan"):
         mixed_plan(1103, "direct")
-    assert plan == mixed_plan(1103, "rader")
     blue = mixed_plan(1103, "bluestein")
-    assert blue.n == 2205 and plan_cost(plan.n, plan.radices, False, rader=plan.rader) < plan_cost(
+    assert blue == mixed_plan(1103) and blue.radices == (9, 5, 7, 7)
+    assert blue.n == 2205 and plan_cost(plan.n, plan.radices, False, rader=plan.rader) > plan_cost(
         blue.n, blue.radices, True)
 
 
@@ -167,7 +176,7 @@ def test_matrix_bound_is_the_kernels_tile_limit():
     nxt = next(p for p in range(MATRIX_MAX + 1, 4 * MATRIX_MAX)
                if all(p % q for q in range(2, int(p ** 0.5) + 1)))
     assert matrix_tiles(nxt) > MATRIX_TILES
-    assert set(REGISTER_RADICES) == {2, 3, 4, 5, 7, 11, 13}
+    assert set(REGISTER_RADICES) == {2, 3, 4, 5, 7, 8, 9, 11, 13, 16}
 
 
 def test_a_matrix_plan_beyond_one_block_takes_bluestein():
@@ -206,9 +215,12 @@ def test_cluster_launcher_takes_matrix_and_rader_plans(n_fft, monkeypatch):
     """Forced onto the cluster body, a plan with a matrix or Rader stage is
     no longer refused: the wrapper hands the launcher the plan's radices,
     the Rader stage's inner radices, the split (chunk, crossing bits) and
-    the value tables, and counts one cluster launch."""
+    the value tables (no nested stage's: the cluster body runs none), and
+    counts one cluster launch (1103 and 25734: their Rader plans,
+    forced)."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=n_fft // 2, center=False)
-    plan = mixed_plan(n_fft)
+    kind = "rader" if n_fft in (1103, 25734) else None
+    plan = mixed_plan(n_fft, kind)
     assert plan.tensor_cores
     fake = _FakeClusterLib()
     monkeypatch.setattr(fl, "_cluster_lib", lambda: fake)
@@ -216,31 +228,77 @@ def test_cluster_launcher_takes_matrix_and_rader_plans(n_fft, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: __import__("types").SimpleNamespace(cuda_stream=0))
     before = fl.fused_log_mel.cluster_launches
-    _launch_cluster(torch.zeros(2 * n_fft), n_fft // 2, 2, n_fft, cfg, ctas=2)
+    _launch_cluster(torch.zeros(2 * n_fft), n_fft // 2, 2, n_fft, cfg, ctas=2, plan=kind)
     assert fl.fused_log_mel.cluster_launches == before + 1
     (args,) = fake.calls
-    sp = fl.cluster_split(n_fft, 2)
+    sp = fl.cluster_split(n_fft, 2, kind)
     assert args[3:6] == (n_fft, plan.n, len(plan.radices))
     assert list(args[6][: len(plan.radices)]) == list(plan.radices) and args[7] == 0
     assert args[8] == len(plan.rader) and list(args[9][: len(plan.rader)]) == list(plan.rader)
     assert args[10:13] == (2, sp.chunk, sp.bin_chunk)
     assert args[13] == sum(1 << s for s, c in enumerate(sp.cross) if c)
     assert args[14] == sum(1 << s for s, c in enumerate(sp.rader_cross) if c)
+    assert len(args) == 15 + 13 + 5    # the 13 tables, then n_mels, floor, out, stream
     tables = args[15:28]
     assert tables[6] is not None                       # the matrix stages' fragments
     assert (tables[7] is not None) == bool(plan.rader)  # the gather, twiddles, spectrum
     assert sp.smem_bytes == 16 * sp.chunk + 4 * sp.bin_chunk
 
 
-@pytest.mark.parametrize("n_fft,kinds", [(1103, ("rader", "bluestein")),
-                                          (1034, ("direct", "rader", "bluestein")),
-                                          (4126, ("bluestein",)),
+class _FakeFunction:
+    """A C function of a stand-in library: takes ``argtypes`` and
+    ``restype`` and returns ``value`` when called."""
+
+    def __init__(self, value=0):
+        self.value, self.argtypes, self.restype = value, None, None
+
+    def __call__(self, *args):
+        return self.value
+
+
+class _FakeLibrary:
+    """Stands in for a built library: each function a `_FakeFunction`, the
+    limits the wrappers check set to the values they expect."""
+
+    def __init__(self, values):
+        self.values, self.functions = values, {}
+
+    def __getattr__(self, name):
+        return self.functions.setdefault(name, _FakeFunction(self.values.get(name, 0)))
+
+
+@pytest.mark.parametrize("source,function", [("logmel_mixed", "_mixed_lib"),
+                                             ("logmel_cluster", "_cluster_lib"),
+                                             ("logmel_fft", "_fft_lib")])
+def test_argtypes_match_the_c_signatures(source, function, monkeypatch):
+    """Each kernel A wrapper declares as many ctypes arguments for its
+    launcher as the C interface in the source takes (ctypes refuses a call
+    with fewer only on the card)."""
+    from sed_crnn_torch.ops.kernels import _build
+
+    values = {f"{source}_max_smem": MIXED_MAX_SMEM, f"{source}_max_stages": fl.MIXED_MAX_STAGES,
+              f"{source}_matrix_tiles": fl.MATRIX_TILES, "logmel_cluster_max_ctas": fl.CLUSTER_MAX,
+              "logmel_fft_min_log_n": fl.FFT_LOG_N[0], "logmel_fft_max_log_n": fl.FFT_LOG_N[1]}
+    fake = _FakeLibrary(values)
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    getattr(fl, function).__wrapped__()
+    text = (_build.CSRC_DIR / f"{source}.cu").read_text()
+    head = text[text.index(f"\nint {source}(") :]
+    params = head[head.index("(") + 1 : head.index(")")]
+    assert len(fake.functions[source].argtypes) == params.count(",") + 1
+
+
+@pytest.mark.parametrize("n_fft,kinds", [(1103, ("rader", "nested", "bluestein")),
+                                          (1034, ("direct", "rader", "nested", "bluestein")),
+                                          (4126, ("rader", "nested", "bluestein")),
                                           (44100, ("direct", "bluestein"))])
 def test_a_forced_plan_kind_is_that_kind_or_raises(n_fft, kinds):
     """`mixed_plan`'s ``plan`` gives the plan of that kind where L has one
-    (direct: register and matrix stages only; rader: a Rader stage last;
-    bluestein), raises ValueError naming the kind where it has none, and
-    raises on a kind it does not know; the size's own plan is one of them."""
+    (direct: register and matrix stages only; rader: a Rader stage last,
+    the nested one where L has no other (4126); nested: a Rader stage
+    nested in its inner transforms; bluestein), raises ValueError naming the
+    kind where it has none, and raises on a kind it does not know; the
+    size's own plan is one of them."""
     got = {}
     for kind in PLAN_KINDS:
         if kind in kinds:
@@ -254,6 +312,9 @@ def test_a_forced_plan_kind_is_that_kind_or_raises(n_fft, kinds):
         assert not got["direct"].bluestein and not got["direct"].rader
     if "rader" in got:
         assert not got["rader"].bluestein and got["rader"].kinds[-1] == "rader"
+        assert bool(got["rader"].nested) == (got["rader"] == got["nested"])
+    if "nested" in got:
+        assert got["nested"].nested and got["nested"].kinds[-1] == "rader"
     assert mixed_plan(n_fft) in got.values()
     with pytest.raises(ValueError, match="unknown plan kind"):
         mixed_plan(n_fft, "matrix")
@@ -262,9 +323,9 @@ def test_a_forced_plan_kind_is_that_kind_or_raises(n_fft, kinds):
 def test_cost_model_picks_the_cheaper_plan():
     """`mixed_plan` keeps the cheapest plan by `plan_cost` (on the body each
     would run on) among the matrix, Rader and Bluestein plans a size has: a
-    lone prime near the bound (L 509) costs less by a Rader stage over 508 =
-    4 x 127 than by its matrix stage or Bluestein's two 7-smooth
-    transforms; the sizes above keep their matrix stages."""
+    lone prime near the bound (L 509) costs less by Bluestein's two 1,024
+    point transforms on radices 8 and 4 than by a Rader stage over 508 = 4 x
+    127 or its matrix stage; the sizes above keep their matrix stages."""
     for n_fft in (1034, 1102, 12865, 1018, 2050, 4418, 10006, 23042, 23044):
         plans = []
         for kind in PLAN_KINDS:
@@ -274,7 +335,8 @@ def test_cost_model_picks_the_cheaper_plan():
                 continue
         want = min(plans, key=fl._plan_cost_on_body)
         assert mixed_plan(n_fft) == want, n_fft
-    assert mixed_plan(1018).rader == (4, 127) and mixed_plan(1018).radices == (509,)
+    assert mixed_plan(1018, "rader").rader == (4, 127) and mixed_plan(1018).bluestein
+    assert mixed_plan(1018).radices == (8, 8, 4, 4)
     assert not any(mixed_plan(n).bluestein or mixed_plan(n).rader for n in (1034, 1102, 12865))
 
 
@@ -465,16 +527,19 @@ def test_phases_tool_cuts_the_mixed_body():
     src = (_build.CSRC_DIR / "logmel_mixed.cu").read_text()
     assert "#define LOGMEL_MIXED_CUT 0" in src
     assert tool.MIXED_VARIANTS == {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3,
-                                   "no_rader": 4, "no_bluestein": 5, "no_stages": 6}
-    for level in (1, 2, 3, 4, 5, 6):
+                                   "no_nested": 4, "no_rader": 5, "no_bluestein": 6,
+                                   "no_stages": 7}
+    for level in (1, 2, 3, 4, 5, 6, 7):
         assert f"CUT < {level}" in src, level
     assert all(body(n) == "mixed" for n, _ in tool.MIXED_SIZES)
     assert {12867, 23054, 1103} <= {n for n, _ in tool.MIXED_SIZES}
     plan = mixed_plan(12865)
     assert fl.plan_counts(plan.n, plan.radices, False) == (12865, 52 * 4 + 20 * 36)
-    blue = mixed_plan(12865, "bluestein")
-    assert fl.plan_counts(blue.n, blue.radices, True) == (2 * 8 * 25920 + 25920, 0)
-    rader = mixed_plan(12867)                 # 3, Rader 4289 over 4, 4, 4, 67
+    blue = mixed_plan(12865, "bluestein")     # M 25,920 = 8 x 8 x 9 x 9 x 5
+    w = fl.RADIX_WEIGHT
+    assert fl.plan_counts(blue.n, blue.radices, True) == pytest.approx(
+        (2 * 25920 * (2 * w[8] + 2 * w[9] + w[5]) + 25920, 0))
+    rader = mixed_plan(12867)                 # 3, Rader 4289 over 8, 8, 67
     inner = 3 * 4288
-    assert fl.plan_counts(rader.n, rader.radices, False, rader.rader) == (
-        12867 + 2 * 3 * inner + 2 * inner, 2 * (-(-(inner // 67) // 8) * 5 * 5))
+    assert fl.plan_counts(rader.n, rader.radices, False, rader.rader) == pytest.approx((
+        12867 + 2 * 2 * w[8] * inner + 2 * inner, 2 * (-(-(inner // 67) // 8) * 5 * 5)))

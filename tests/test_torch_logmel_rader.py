@@ -129,14 +129,16 @@ def test_output_positions_follow_the_rader_stage(n_fft):
 
 
 @pytest.mark.parametrize("points,want", [
-    (1103, ((1103,), (2, 19, 29))), (12867, ((3, 4289), (4, 4, 4, 67))),
-    (11527, ((11527,), (2, 3, 17, 113))), (15645, ((3, 5, 7, 149), (4, 37))),
-    (2063, None), (1001, None), (6400, None), (17 * 17, ((17, 17), (4, 4))),
+    (1103, ((1103,), (2, 19, 29), ())), (12867, ((3, 4289), (8, 8, 67), ())),
+    (11527, ((11527,), (2, 3, 17, 113), ())), (15645, ((3, 5, 7, 149), (4, 37), ())),
+    (2063, None), (1001, None), (6400, None), (17 * 17, ((17, 17), (16,), ())),
 ])
 def test_rader_radices(points, want):
     """A Rader stage takes L's largest prime, above 13, last; its inner
-    radices are the direct plan of p - 1; none where p - 1 has a prime above
-    MATRIX_MAX (2063: 2062 = 2 x 1031) or L is 13-smooth (1001, 6400)."""
+    radices are the direct plan of p - 1 (wide: radix 16 among them), and no
+    nested stage; none where p - 1 has a prime above MATRIX_MAX (2063: 2062
+    = 2 x 1031, which only a nested plan takes) or L is 13-smooth (1001,
+    6400)."""
     assert fl._rader_radices(points) == want
 
 
@@ -161,7 +163,12 @@ def test_every_size_gets_a_plan_and_a_body():
             assert cluster_split(n_fft, cluster_size(n_fft)).smem_bytes <= MIXED_MAX_SMEM
         else:
             assert where == "fft" and n_fft & (n_fft - 1) == 0
-        if plan.rader:
+        if plan.nested:
+            p, q = plan.rader_prime, plan.nested_prime
+            assert p > 13 and q == fl._prime_factors(p - 1)[-1] > 13
+            assert all(r <= MATRIX_MAX for r in fl._prime_factors(q - 1))
+            kinds.add(("nested", where))
+        elif plan.rader:
             p = plan.rader_prime
             assert p > 13 and all(q <= MATRIX_MAX for q in fl._prime_factors(p - 1))
             kinds.add(("rader", where))
@@ -184,14 +191,15 @@ def _rfft_log_mel(y, cfg):
         return np.log(power @ fb.T)
 
 
-@pytest.mark.parametrize("n_fft,kw", [(34, {}), (38, {}), (578, {"plan": "rader"}),
+@pytest.mark.parametrize("n_fft,kw", [(34, {"plan": "rader"}), (38, {"plan": "rader"}),
+                                      (578, {"plan": "rader"}),
                                       (1034, {"plan": "rader"}), (1102, {"plan": "rader"}),
                                       (12865, {"plan": "rader"})])
 def test_forced_rader_plans_plain_matches_rfft(n_fft, kw):
-    """Rader plans with register-only and matrix inner stages (17 over 4 x
-    4, 19 over 2 x 3 x 3, 47 over 2 x 23, 29 over 4 x 7, 83 over 2 x 41),
-    chosen or forced, through `mixed_log_mel_plain` within 1e-4 of float64
-    rFFT + mel, with a silent frame's -inf kept."""
+    """Rader plans with register-only and matrix inner stages (17 over 16,
+    19 over 2 x 9, 47 over 2 x 23, 29 over 4 x 7, 83 over 2 x 41), forced,
+    through `mixed_log_mel_plain` within 1e-4 of float64 rFFT + mel, with a
+    silent frame's -inf kept."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=n_fft // 2, center=False, log_floor=None)
     assert mixed_plan(n_fft, **kw).rader
     rng = np.random.default_rng(n_fft)
