@@ -100,7 +100,7 @@ exits non-zero and prints no result line:
     (matrix stages), 23042 / 11521 (a matrix stage of 41, a Rader stage of
     281), the Rader plans 12867 / 6433 (3, Rader 4289) and 23054 / 11527
     (Rader 11527), 2066 / 1033 (Rader 1033 alone, its gather folded into
-    the load), 1103 / 551 (Bluestein on radices 9, 5, 7, 7) and 12895 /
+    the load), 1103 / 551 (Rader 1103 over 2 x 19 x 29) and 12895 /
     6447 (5, Rader 2579 with Rader 1289 nested in its inner transforms) on
     those signals, with and without a floor: against `mixed_log_mel_plain`
     (bitwise, or within MATRIX_ATOL with matrix stages), two runs bitwise equal, within 5e-4 of
@@ -113,9 +113,10 @@ exits non-zero and prints no result line:
     then ([kernel A cluster]) the cluster body ``csrc/logmel_cluster.cu``
     (every n_fft beyond one block's shared memory): the clusters the card
     holds at 227 KB a CTA for every size to 16; n_fft 25734 / 12867
-    (Bluestein, exact route), 25738 / 12869 (17, Rader 757), 31290 / 15645
+    (3, Rader 4289, exact route), 25738 / 12869 (17, Rader 757), 31290 / 15645
     (a matrix stage of 149), 44100 / 22050 and 48000 / 24000 (direct, chunked), 88200 / 44100 (3 CTAs)
-    and 21599 / 10799 (Bluestein, exact route) on those signals, with and
+    21599 / 10799 (Bluestein, exact route) and 141001 / 70500 (7, Rader
+    20143 over 2 x 3 x 3 x 3 x 373, exact route) on those signals, with and
     without a floor: against
     `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL), two runs
     bitwise equal, within 5e-4 of torch's FFT + mel with the -inf pattern
@@ -2081,9 +2082,9 @@ def phase_logmel_routes(pcm: np.ndarray):
 # sizes before Rader stages fitted them in one block; L 1033 (prime, 1032 =
 # 8 x 3 x 43: a Rader stage, the plan's only stage, its gather folded into
 # the load, a matrix stage of 43 inside); 1103 (prime, a 25 ms window at
-# 44.1 kHz: Bluestein on radices 9, 5, 7, 7, which `plan_cost` picks for L
-# 1,103 as at 2206, where the card timed it faster than the Rader plan;
-# at 1103 the Rader plan is the faster, PERF.md §6); and 12895 (L 5 x
+# 44.1 kHz: a Rader stage over 2 x 19 x 29, which `plan_cost` picks for L
+# 1,103 as at 2206 under its refitted weights; the card timed it faster than
+# Bluestein at 1103, slower at 2206, PERF.md §6); and 12895 (L 5 x
 # 2579, 2578 = 2 x 1289, 1288 = 8 x 7 x 23: a Rader stage nested in the
 # Rader stage's inner transforms), Bluestein at M 25,920 on the cluster
 # body before the nested stage fitted it in one block.
@@ -2097,7 +2098,10 @@ MIXED_SHAPES = ((1034, 517, "exact"), (1764, 882, "chunked"), (3072, 1024, "fram
 # butterfly's inputs, not bitwise, so a band far below its frame's peak (12
 # nats at 1034) moves by that over its share: 5.7e-5 at most on the card
 # over every shape and signal here (PERF.md §6), held at 1e-4; LOGMEL_ATOL
-# is the ceiling.
+# is the ceiling. It holds at these frames; at a frame of tens of points
+# (n_fft 46, one matrix stage of 23) a band of one weak bin came 1.1e-4 off,
+# so the card tests of the stage's small forms bound the energies and the
+# bands of at least 1e-2 of the frame's largest (PERF.md §7).
 MATRIX_ATOL = 1e-4
 # The sizes whose plan was Bluestein before matrix stages, timed with each
 # of their plans in turns (matrix, Rader and Bluestein, each on the body it
@@ -2362,21 +2366,25 @@ def phase_logmel_mixed(pcm: np.ndarray):
 
 
 # The cluster body's shapes (n_fft, hop): L 12867 = 3 x 4289 at an even
-# n_fft (25734: Bluestein at M 25,920 on radices 8, 9, 5, which the card
-# timed faster than its Rader stage of 4289; exact route), L 12869 = 17 x
+# n_fft (25734: a Rader stage of 4289 over 4 x 4 x 4 x 67 under the
+# refitted `plan_cost`, 3.2 % slower than Bluestein at M 25,920 there;
+# exact route), L 12869 = 17 x
 # 757 (25738: a matrix stage of 17, then a Rader stage of 757 over 4 x 3 x
 # 3 x 3 x 7, its chunk whole inner transforms; exact route), L 15645 = 3 x
 # 5 x 7 x 149 (31290: a matrix stage of 149), 1 s at 44.1 kHz and at 48 kHz
 # (direct, chunked, 2 CTAs a frame), 2 s at 44.1 kHz (direct, 3 CTAs) and
 # 21599 (odd, L prime, 21598 = 2 x 10799, 10798 = 2 x 5399: no Rader plan,
-# nested or not; Bluestein at M 43,200, exact route).
+# nested or not; Bluestein at M 43,200, exact route) and 141001 (odd, L = 7
+# x 20143: a Rader stage of 20143 over 2 x 3 x 3 x 3 x 373, its inner
+# matrix stage of 373 crossing CTAs, C 11; exact route).
 CLUSTER_SHAPES = ((25734, 12867), (25738, 12869), (31290, 15645), (44100, 22050),
-                  (48000, 24000), (88200, 44100), (21599, 10799))
-# Other splits of four of them, whose bits must be the default split's (4
+                  (48000, 24000), (88200, 44100), (21599, 10799), (141001, 70500))
+# Other splits of five of them, whose bits must be the default split's (4
 # CTAs do not divide 44100's N, so all its stages cross CTAs; at 25738 each
-# CTA holds whole inner transforms of its Rader stage at 2, 3 and 4 CTAs).
+# CTA holds whole inner transforms of its Rader stage at 2, 3 and 4 CTAs; at
+# 141001 every inner stage crosses at every size).
 CLUSTER_SPLITS = {25734: (2, 3, 4, 8, 16), 25738: (2, 3, 4), 44100: (2, 3, 4, 7),
-                  88200: (3, 4, 6, 12)}
+                  88200: (3, 4, 6, 12), 141001: (12, 16)}
 # Sizes timed at two cluster sizes in turns: the smallest that holds the
 # plan (`cluster_size`) and one with fewer stages crossing CTAs.
 CLUSTER_TURNS = ((88200, 44100, 3, 4), (141000, 70500, 7, 8))

@@ -25,7 +25,10 @@
 //   table from the host); a matrix stage runs each butterfly's DFT as two
 //   real products on the tensor cores (`matrix_stage`, three TF32 mma a
 //   product: near float32's precision, not its bits) and writes out of
-//   place, into a second work array;
+//   place, into a second work array. Its time is latency (PERF.md §5), so
+//   its warps' jobs are few and independent: a row tile and all its
+//   columns up to 4 tiles (each point gathered once up to R = 63), two
+//   row tiles a job at R <= 31, at 128 registers a thread;
 // * direct with a Rader stage last for L's largest prime p (above 13; the
 //   primes above 1,021 whose p - 1 has a direct plan, and smaller ones
 //   where `plan_cost` finds it cheaper than a matrix stage): each p-point

@@ -38,9 +38,9 @@ struct Plan {
   int n_bins;             // n_fft / 2 + 1
   int n_stages;
   int radix[MAX_STAGES];  // DIF order; their product is N
-  int table[MAX_STAGES];  // matrix stage s: its B fragments at dft + table[s] (floats)
+  int table[MAX_STAGES];  // matrix stage s: its B values at dft + table[s] (floats)
   // A Rader stage, the last (radix[n_stages - 1] = p): its inner p - 1 point
-  // transforms' radices and their matrix stages' fragments; rader_first: it
+  // transforms' radices and their matrix stages' B values; rader_first: it
   // is the only stage (L = p) and the frame is small, so the mixed body's
   // load gathers (the cluster body always runs the gather pass).
   int rader_stages;       // 0: no Rader stage
@@ -49,7 +49,7 @@ struct Plan {
   int rader_table[MAX_STAGES];
   // A Rader stage nested in the inner transforms, their last stage
   // (rader_radix[rader_stages - 1] = q): its q - 1 point transforms'
-  // radices and matrix fragments.
+  // radices and matrix stages' B values.
   int nested_stages;      // 0: none
   int nested_radix[MAX_STAGES];
   int nested_table[MAX_STAGES];
@@ -418,21 +418,44 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // and sin, rows r, columns s, zero-padded to T = matrix_tiles(R) tiles of 8,
 // in mma.m16n8k8 B-fragment order, each value as TF32 hi and lo parts).
 // Each product runs as three TF32 mma, a_lo b_hi + a_hi b_lo + a_hi b_hi,
-// the a = a_hi + a_lo split here: about float32's precision, not its bits.
-// Then the DIF twiddles (not at m = 1), written to the same positions of zo.
+// on one float32 accumulator, the k tiles in order: about float32's
+// precision, not its bits, and the order a function of R alone. Then the
+// DIF twiddles (not at m = 1), written to the same positions of zo.
 // TRANSPOSED: the twiddles multiply the inputs v_r instead (before the
 // pairs), and the outputs are written as they come, as a transposed
 // register stage does. Each row of an mma is one butterfly's, and the tensor
 // cores sum a row's products in a fixed order whatever the other rows hold,
-// so a butterfly's bits do not depend on which butterflies share its tile:
-// the cluster body's split of the butterflies gives the mixed body's bits.
+// so a butterfly's bits do not depend on which butterflies share its tile or
+// which warp or CTA runs it: the cluster body's split of the butterflies
+// gives the mixed body's bits.
 //
 // Work: a warp's job is a row tile and COLS column tiles (fewer at the
-// last), the cos and sin fragments of its row built once a k tile for all
-// of them: COLS 4 in the instantiations with 128 registers a thread, 2 in
-// those with 64; jobs are independent, since the stage reads z and writes
-// zo, so a warp holds only its job's accumulators. Each column's sums run
-// over the k tiles in order whatever COLS is: the same bits.
+// last), the cos and sin fragments of its row gathered and split once a k
+// tile for all of them (`matrix_stage`), or, where T = 2 at 4 columns, two
+// row tiles of 2 column tiles (`matrix_stage_pair`); jobs are independent,
+// since the stage reads z and writes zo, so each warp runs its own and the
+// others hide its latency. In the 128-register instantiations COLS is 4:
+// one job a row tile covers every column up to 4 tiles (R <= 63: each
+// point gathered once, where 2 columns a job gathered it twice from 3
+// tiles on), and at 2 tiles (R <= 31) a job takes 2 row tiles (half the
+// jobs, two independent chains of products, each B fragment loaded for 16
+// butterflies); in the 64-register ones COLS is 2. Each column's sums run
+// over the k tiles in order whatever the job: the same bits.
+//
+// What bounds it on an H100 (tools/logmel_phases.py's part builds, PERF.md
+// §5): not the tensor cores. At n_fft 141,001 (a Rader stage's inner stage
+// of 373, crossing CTAs) the gathers alone took 1.49 ms of the stage's
+// 1.73, the B loads alone 1.03 and the products alone 0.88; in one block
+// each part alone took 80-90 % of the whole: latency, 16 warps an SM each
+// a chain of loads and products, so the jobs' count and independence set
+// its time. Not done here (ROADMAP, kernel A's matrix stage): at T > 4 each
+// point is still gathered and split once a column group (6 times at R =
+// 373), B still comes through __ldg for 8 butterflies a fragment, and no
+// product runs on wgmma. A copy of a crossing stage's points into the
+// CTA's own shared memory has no room at 141,001's 11 CTAs (a CTA's 35
+// butterflies of 373 points take 104,440 bytes; the power row and the
+// slack beside the two work arrays leave 27,344), and a K-major B slab
+// with a second buffer none beside the mixed body's largest frames.
 __device__ __forceinline__ void split_tf32(const float (&a)[4], uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
 #pragma unroll
@@ -449,7 +472,95 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&hi)[4
   mma_tf32(d, hi, __float_as_uint(b.x), __float_as_uint(b.y));
 }
 
-template <bool TRANSPOSED, int COLS = 2, class ZI, class ZO>
+// Profiling cut, for sed_crnn_torch/tools/logmel_phases.py only (the
+// results are then wrong): built with -DLOGMEL_MATRIX_PART=1 a matrix stage
+// keeps only the gather and TF32 split of its A operands, with 2 only the
+// loads of its B operands, with 3 only its products (on constant
+// operands); each part's time is the difference to the build without
+// matrix stages.
+#ifndef LOGMEL_MATRIX_PART
+#define LOGMEL_MATRIX_PART 0
+#endif
+constexpr int MATRIX_PART = LOGMEL_MATRIX_PART;
+
+// A lane's A fragments of k tile kt for the butterfly at `base` (g ls + j;
+// -1: none, zeros): (row gid, r0), (row gid + 8, r0), (row gid, r1), (row
+// gid + 8, r1), r0 = 8 kt + tig, r1 = r0 + 4: rows gid and gid + 8 are the
+// butterfly's real and imaginary parts; column r of the cos product is a_r
+// (v_0 at r = 0), of the sin product b_r (0 at r = 0); each as TF32 hi and
+// lo parts.
+struct AFrag {
+  uint32_t ahi[4], alo[4], bhi[4], blo[4];
+};
+
+template <bool TRANSPOSED, class ZI>
+__device__ __forceinline__ AFrag gather_a(ZI z, int R, int m, int step, int base, int j, int kt,
+                                          int lane, const float2* __restrict__ tw) {
+  const int H = (R - 1) / 2, tig = lane & 3;
+  AFrag f;
+  if (MATRIX_PART >= 2) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f.ahi[e] = f.bhi[e] = 0x3f800000u + (static_cast<uint32_t>(kt + lane) << 13);
+      f.alo[e] = f.blo[e] = 0x34000000u;
+    }
+    return f;
+  }
+  float2 sa[2], sb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 8 * kt + tig + 4 * h;
+    sa[h] = sb[h] = make_float2(0.0f, 0.0f);
+    if (base >= 0 && r <= H) {
+      float2 v = z[base + r * m];
+      if (r == 0) {
+        sa[h] = v;
+      } else {
+        float2 w = z[base + (R - r) * m];
+        if (TRANSPOSED && m > 1) {
+          v = cmul(v, __ldg(tw + j * r * step));
+          w = cmul(w, __ldg(tw + j * (R - r) * step));
+        }
+        sa[h] = cadd(v, w);
+        sb[h] = csub(v, w);
+      }
+    }
+  }
+  const float fa[4] = {sa[0].x, sa[0].y, sa[1].x, sa[1].y};
+  const float fb[4] = {sb[0].x, sb[0].y, sb[1].x, sb[1].y};
+  split_tf32(fa, f.ahi, f.alo);
+  split_tf32(fb, f.bhi, f.blo);
+  return f;
+}
+
+// One column tile's products: p += the cos product, q += the sin product,
+// with this lane's B fragments at f (cos) and f + 1 (sin).
+__device__ __forceinline__ void tile_mma(float (&p)[4], float (&q)[4], const AFrag& a,
+                                         const float4* __restrict__ f, int lane) {
+  if (MATRIX_PART == 1) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = __fadd_rn(p[e], __uint_as_float(a.ahi[e] ^ a.alo[e]));
+      q[e] = __fadd_rn(q[e], __uint_as_float(a.bhi[e] ^ a.blo[e]));
+    }
+  } else if (MATRIX_PART == 2) {
+    const float4 fp = __ldg(f), fq = __ldg(f + 1);
+    p[0] = __fadd_rn(p[0], __fadd_rn(fp.x, fp.z));
+    p[1] = __fadd_rn(p[1], __fadd_rn(fp.y, fp.w));
+    q[0] = __fadd_rn(q[0], __fadd_rn(fq.x, fq.z));
+    q[1] = __fadd_rn(q[1], __fadd_rn(fq.y, fq.w));
+  } else if (MATRIX_PART == 3) {
+    const float c = 0.5f + 0.0625f * lane;
+    const float4 fc = make_float4(c, 0.25f, 0.125f, 0.0625f);
+    mma_tf32x3(p, a.ahi, a.alo, fc);
+    mma_tf32x3(q, a.bhi, a.blo, fc);
+  } else {
+    mma_tf32x3(p, a.ahi, a.alo, __ldg(f));
+    mma_tf32x3(q, a.bhi, a.blo, __ldg(f + 1));
+  }
+}
+
+template <bool TRANSPOSED, int COLS, class ZI, class ZO>
 __device__ __forceinline__ void matrix_stage(ZI z, ZO zo, int N, int R, int ls, int b0, int b1,
                                              int lt, int nt, const float* __restrict__ table,
                                              const float2* __restrict__ tw) {
@@ -470,43 +581,11 @@ __device__ __forceinline__ void matrix_stage(ZI z, ZO zo, int N, int R, int ls, 
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[t][e] = q[t][e] = 0.0f;
     for (int kt = 0; kt < T; ++kt) {
-      // A fragments: (row gid, r0), (row gid + 8, r0), (row gid, r1), (row
-      // gid + 8, r1): rows gid and gid + 8 are this butterfly's real and
-      // imaginary parts; column r of the cos product is a_r (v_0 at r = 0),
-      // of the sin product b_r (0 at r = 0).
-      float2 sa[2], sb[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 8 * kt + tig + 4 * h;
-        sa[h] = sb[h] = make_float2(0.0f, 0.0f);
-        if (base >= 0 && r <= H) {
-          float2 v = z[base + r * m];
-          if (r == 0) {
-            sa[h] = v;
-          } else {
-            float2 w = z[base + (R - r) * m];
-            if (TRANSPOSED && m > 1) {
-              v = cmul(v, __ldg(tw + j * r * step));
-              w = cmul(w, __ldg(tw + j * (R - r) * step));
-            }
-            sa[h] = cadd(v, w);
-            sb[h] = csub(v, w);
-          }
-        }
-      }
-      const float fa[4] = {sa[0].x, sa[0].y, sa[1].x, sa[1].y};
-      const float fb[4] = {sb[0].x, sb[0].y, sb[1].x, sb[1].y};
-      uint32_t ahi[4], alo[4], bhi[4], blo[4];
-      split_tf32(fa, ahi, alo);
-      split_tf32(fb, bhi, blo);
+      const AFrag a = gather_a<TRANSPOSED>(z, R, m, step, base, j, kt, lane, tw);
       const float4* f = frag + 2 * ((kt * T + n0) * 32 + lane);
 #pragma unroll
-      for (int t = 0; t < COLS; ++t) {
-        if (t == 0 || (t == 1 ? two : n0 + t < T)) {
-          mma_tf32x3(p[t], ahi, alo, __ldg(f + 64 * t));
-          mma_tf32x3(q[t], bhi, blo, __ldg(f + 64 * t + 1));
-        }
-      }
+      for (int t = 0; t < COLS; ++t)
+        if (t == 0 || (t == 1 ? two : n0 + t < T)) tile_mma(p[t], q[t], a, f + 64 * t, lane);
     }
     if (base < 0) continue;
 #pragma unroll
@@ -535,17 +614,82 @@ __device__ __forceinline__ void matrix_stage(ZI z, ZO zo, int N, int R, int ls, 
   }
 }
 
-// A matrix stage with COLS column tiles a job where the radix has more than
-// 4 tiles (R above 63), else 2: on an H100 four columns were faster at R =
-// 113 and 149 and two at 31 and 83 (PERF.md §6).
+// Two row tiles a job of two column tiles each (T = 2, at 128 registers a
+// thread): 16 butterflies, two independent chains of products.
+template <bool TRANSPOSED, class ZI, class ZO>
+__device__ __forceinline__ void matrix_stage_pair(ZI z, ZO zo, int N, int R, int ls, int b0,
+                                                  int b1, int lt, int nt,
+                                                  const float* __restrict__ table,
+                                                  const float2* __restrict__ tw) {
+  constexpr int COLS = 4, ROWS = 2, W = COLS / ROWS;   // W: column tiles of each row tile
+  const int m = ls / R, step = N / ls, H = (R - 1) / 2;
+  const int T = matrix_tiles(R), groups = (T + W - 1) / W;
+  const int jobs = ((b1 - b0 + 7) / 8 + ROWS - 1) / ROWS * groups;
+  const int lane = lt % 32, gid = lane >> 2, tig = lane & 3;
+  const float4* frag = reinterpret_cast<const float4*>(table);
+  for (int job = lt / 32; job < jobs; job += nt / 32) {
+    const int mi = job / groups, n0 = W * (job - mi * groups);
+    int base[ROWS], j[ROWS];
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+      const int b = b0 + 8 * (ROWS * mi + u) + gid, g = b / m;
+      j[u] = b - g * m;
+      base[u] = b < b1 ? g * ls + j[u] : -1;   // g ls + j, -1 past the last
+    }
+    float p[COLS][4], q[COLS][4];
+#pragma unroll
+    for (int t = 0; t < COLS; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[t][e] = q[t][e] = 0.0f;
+    for (int kt = 0; kt < T; ++kt) {
+      AFrag a[ROWS];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u)
+        a[u] = gather_a<TRANSPOSED>(z, R, m, step, base[u], j[u], kt, lane, tw);
+      const float4* f = frag + 2 * ((kt * T + n0) * 32 + lane);
+#pragma unroll
+      for (int t = 0; t < COLS; ++t)
+        if (n0 + t % W < T) tile_mma(p[t], q[t], a[t / W], f + 64 * (t % W), lane);
+    }
+#pragma unroll
+    for (int t = 0; t < COLS; ++t) {
+      const int u = t / W, tile = n0 + t % W;
+      if (base[u] < 0 || tile >= T) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        // Column 2 tig + c of tile `tile`: P_s in p[t][c] (real) and
+        // p[t][c + 2] (imaginary), Q_s likewise.
+        const int s = 8 * tile + 2 * tig + c;
+        if (s > H) continue;
+        const float pr = p[t][c], pi = p[t][c + 2], qr = q[t][c], qi = q[t][c + 2];
+        if (s == 0) {
+          zo[base[u]] = make_float2(pr, pi);
+          continue;
+        }
+        float2 lo_s = make_float2(__fadd_rn(pr, qi), __fsub_rn(pi, qr));
+        float2 hi_s = make_float2(__fsub_rn(pr, qi), __fadd_rn(pi, qr));
+        if (!TRANSPOSED && m > 1) {
+          lo_s = cmul(lo_s, __ldg(tw + j[u] * s * step));
+          hi_s = cmul(hi_s, __ldg(tw + j[u] * (R - s) * step));
+        }
+        zo[base[u] + s * m] = lo_s;
+        zo[base[u] + (R - s) * m] = hi_s;
+      }
+    }
+  }
+}
+
+// The stage (see above), COLS column tiles a job: 4 in the instantiations
+// with 128 registers a thread (two row tiles of 2 where T = 2), 2 in those
+// with 64.
 template <bool TRANSPOSED, int COLS, class ZI, class ZO>
 __device__ __forceinline__ void run_matrix_stage(ZI z, ZO zo, int N, int R, int ls, int b0, int b1,
                                                  int lt, int nt, const float* __restrict__ table,
                                                  const float2* __restrict__ tw) {
-  if (COLS > 2 && matrix_tiles(R) > 4)
-    matrix_stage<TRANSPOSED, COLS>(z, zo, N, R, ls, b0, b1, lt, nt, table, tw);
+  if (COLS > 2 && matrix_tiles(R) == 2)
+    matrix_stage_pair<TRANSPOSED>(z, zo, N, R, ls, b0, b1, lt, nt, table, tw);
   else
-    matrix_stage<TRANSPOSED, 2>(z, zo, N, R, ls, b0, b1, lt, nt, table, tw);
+    matrix_stage<TRANSPOSED, COLS>(z, zo, N, R, ls, b0, b1, lt, nt, table, tw);
 }
 
 // The Rader stage of a prime p, the plan's last (m = 1: butterfly b is the
@@ -782,7 +926,7 @@ __device__ __forceinline__ float2 load_point(const float* fr, int n, int L, bool
 // last the Rader prime where rader_stages > 0), the Rader stage's inner
 // radices (the last the nested Rader prime q where nested_stages > 0) and the
 // nested stage's; each a register radix, or an odd radix above 13 whose
-// matrix_tiles are at most max_tiles (a matrix stage, its fragments' offset
+// matrix_tiles are at most max_tiles (a matrix stage, its B values' offset
 // in `table` order: the outer stages', then the inner ones', then the
 // nested ones'). Sets `wide` (radix 11, 13 or 16, a matrix or a Rader
 // stage), `matrix` (any matrix stage), `alt` (a second work array: a matrix

@@ -94,8 +94,7 @@ RADIX_WEIGHT = {2: 1.0, 3: 1.0, 4: 1.0, 5: 1.0, 7: 1.0, 11: 1.0, 13: 1.0,
 MEL_LANES = 32                    # a band's partial sums: the lanes of a warp
 MEL_BINS_PER_LANE = 16            # `mel_group`: a band's mean bins a lane, to widen the group
 # csrc/logmel_mixed.cu `logmel_mixed_matrix_tiles`: the most column tiles a
-# matrix stage takes (`matrix_tiles`; B fragments of at most 4 MB), so every
-# odd R up to 1,023.
+# matrix stage takes (`matrix_tiles`), so every odd R up to 1,023.
 MATRIX_TILES = 64
 MATRIX_MAX = 1021                 # the largest prime a matrix stage takes
 # `plan_cost`'s weights, ns a frame on one SM, as `tools/logmel_phases.py`'s
@@ -110,12 +109,12 @@ MATRIX_MAX = 1021                 # the largest prime a matrix stage takes
 # crosses CTAs, and COST_CROSS_BLUESTEIN one of a Bluestein plan's (its
 # first M-point stages, each butterfly's points far apart, twice);
 # COST_CLUSTER the cluster body against the mixed body.
-COST_REGISTER = 0.345
+COST_REGISTER = 0.346
 COST_MATRIX = 25.9
-COST_NARROW = 0.45
-COST_CROSS = 0.0
-COST_CROSS_BLUESTEIN = 0.345
-COST_CLUSTER = 1.75
+COST_NARROW = 0.8
+COST_CROSS = 0.173
+COST_CROSS_BLUESTEIN = 0.346
+COST_CLUSTER = 1.25
 
 # Serving threads call the wrappers concurrently: the operand cache and the
 # launch counters are read-modify-write.
@@ -338,12 +337,16 @@ def plan_cost(n: int, radices: Tuple[int, ...], bluestein: bool,
     (``crossing``, `_crossing_points`: its reads and writes through
     distributed shared memory and its cluster barrier), all times
     ``COST_CLUSTER``. Its weights are `tools/logmel_phases.py`'s
-    `fit_choice` of an H100's run (PERF.md §6): over the 35 sizes it times,
-    every plan in turns, they pick a plan within 2 % of the fastest at all
-    but 1,103 (Bluestein, 3.9 % slower than its Rader plan; the model weighs
-    a plan by L alone, and at 2,206, the same L, Bluestein is 3.5 % the
-    faster) and 12,899 (its nested plan, 8 % slower than Bluestein on the
-    cluster body)."""
+    `fit_choice` of an H100's runs (PERF.md §6): over the 57 sizes timed
+    (the tool's 35 and 22 whose plan an earlier fit moved), every plan in
+    turns, they pick a plan within 2 % of the fastest at all but 2,206
+    (its Rader plan, 2.7 % slower than Bluestein; the model weighs a plan
+    by L alone, and at 1,103, the same L, the Rader plan is 3.8 % the
+    faster), 12,893 (nested, 23 % slower than its Rader plan), 12,899
+    (nested, 6.0 % slower than Bluestein), 15,964 (Rader, 4.8 %), 16,994
+    (Rader, 12 %), 18,992 (Bluestein, 18 %), 23,098 (nested, 2.2 %),
+    25,734 (Rader, 3.2 %), 122,406 (Bluestein, 8.5 %) and 190,002 (Rader,
+    2.7 %)."""
     reg, mat = plan_counts(n, radices, bluestein, rader, nested)
     reg *= COST_NARROW if _narrow(radices, rader) else 1.0
     cost = COST_REGISTER * reg + COST_MATRIX * mat
@@ -640,14 +643,15 @@ def body(n_fft: int) -> str:
     power of two from 256 to 16384; ``"mixed"`` for any other n_fft whose
     `mixed_plan` takes at most ``MIXED_MAX_SMEM`` bytes of shared memory a
     frame (8 N bytes of work array, twice with matrix or Rader stages, and 4
-    (n_fft / 2 + 1) of power row): every n_fft up to 12,910 (12,865 = 5 x
+    (n_fft / 2 + 1) of power row): every n_fft up to 12,913 (12,865 = 5 x
     31 x 83 direct with matrix stages, 231,572 bytes; 12,867 = 3 x 4289
     with a Rader stage, 231,608; 12,895 = 5 x 2579, a Rader stage with a
-    Rader stage of 1,289 nested in its inner transforms, 232,112; 12,911 is
-    Bluestein at M 25,920 on the cluster body), every even one up to 23,096
-    (23,042: L 41 x 281, a Rader stage of 281, 230,424 bytes; 23,054: L
-    11,527 prime, a Rader stage, 230,544; 23,082: L 3 x 3847, a nested
-    Rader stage of 641, 230,824; 23,098 is Bluestein on the cluster body),
+    Rader stage of 1,289 nested in its inner transforms, 232,112; 12,911
+    prime, nested, 232,400; 12,915 is direct with a matrix stage of 41 on
+    the cluster body), every even one up to 23,172 (23,042: L 41 x 281, a
+    Rader stage of 281, 230,424 bytes; 23,054: L 11,527 prime, a Rader
+    stage, 230,544; 23,082: L 3 x 3847, a nested Rader stage of 641,
+    230,824; 23,174 is Bluestein on the cluster body),
     and above those the sizes whose plan fits: direct with register radices
     up to L = 22,869 (an odd n_fft, 3^3 x 7 x 11^2; the largest even n_fft
     is 38,720, L = 19,360), with matrix, Rader or nested Rader stages up to

@@ -36,6 +36,15 @@ mel, power, matrix, rader and register as above (it runs no nested
 stage). Each of `SIZES` runs its plan and each other plan on the cluster
 body.
 
+Each body also at `MATRIX_PARTS` (``-DLOGMEL_MATRIX_PART=k``: a matrix
+stage keeps only the gather and split of its A operands, only its B
+operands, or only its products), timed beside the others for every plan
+with matrix stages: each part alone is its ms over ``no_matrix``. A plan's
+``matrix`` entry gives the matrix phase beside its bound (`matrix_report`:
+the three TF32 products' FLOPs at `TF32_FLOPS`, or the shared-memory and
+B-table bytes at the SMs' shared-memory rate, the larger; a share above 1
+stops the tool), its share of it, its TFLOP/s, and the parts.
+
 With ``--radix``, the per-radix pass cuts (``skip_R``: built with
 ``-DLOGMEL_SKIP_RADIX=R``, every register stage of radix R left out): at
 `RADIX_SIZES` (n_fft 12,895: its Bluestein plan's 25,920-point transforms,
@@ -77,7 +86,10 @@ archive`` of the parent commit under the git-ignored ``build/``): that
 checkout's ``ops/kernels/fused_logmel.py`` and its three log-mel sources
 built beside this tree's, and both trees' `fused_log_mel` timed in turns
 (this, other, other, this) at every size above and at the FFT body's 1024,
-2048 and 4096, with whether their bits agree; one JSON line a size.
+2048 and 4096, with whether their bits agree; one JSON line a size, with
+both trees' matrix phase (``matrix_ms``: `MATRIX_CUTS` of both, in turns)
+where both run the same plan with matrix stages; first, for each of the
+three sources, which kernels both trees compile to the same SASS.
 
 With ``--sizes``, only those n_fft are timed, in every part: a size of the
 lists above (`FFT_SIZES`, `MIXED_SIZES`, `SIZES`) at its hop, any other at
@@ -91,6 +103,7 @@ import argparse
 import ctypes
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import types
@@ -109,6 +122,16 @@ VARIANTS = {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3, "no_rader": 4
             "no_stages": 5}   # the cluster body's
 # The register radices the per-radix pass cuts leave out, one build each.
 SKIP_RADICES = (2, 3, 4, 5, 7, 8, 9, 16)
+# The matrix stages' part builds (``-DLOGMEL_MATRIX_PART=k``, on top of the
+# full build): only the gather and TF32 split of the A operands, only the
+# B operands, only the products.
+MATRIX_PARTS = {"matrix_gather": 1, "matrix_b": 2, "matrix_mma": 3}
+TF32_FLOPS = 495e12        # an H100's dense TF32 rate (NVIDIA's data sheet)
+# The most bytes an SM's shared memory and L1 (one array) move a clock: 32
+# banks of 4 bytes; every byte a stage reads from L2 passes them too. At the
+# H100 SXM's highest SM clock (data sheet), 1,980 MHz.
+SMEM_BYTES_CLOCK = 128
+SM_CLOCK_HZ = 1.98e9
 # n_fft 2579, 4126, 18992, 12895 and 12899: sizes with a nested Rader plan
 # in one block (L 2579 over 2 x 1289 over 8 x 7 x 23; 2063 over 2 x 1031;
 # 1187 over 2 x 593; 5 x 2579; 12899 over 2 x 6449 over 16 x 13 x 31);
@@ -160,16 +183,20 @@ BODIES = {"mixed": ("logmel_mixed", "LOGMEL_MIXED_CUT", MIXED_VARIANTS),
           "cluster": ("logmel_cluster", "LOGMEL_CLUSTER_CUT", VARIANTS)}
 
 
-def build_variants(bodies=("mixed", "cluster")) -> dict:
+def build_variants(bodies=("mixed", "cluster"), radix: bool = False) -> dict:
     """One library per body and variant under ``build/logmel_phases/``, every
     ``nvcc`` started before any is waited for: {body: {variant: CDLL}}; the
-    mixed body's also at each of `WIDE_BLOCKS`."""
+    mixed body's also at each of `WIDE_BLOCKS`, each body's at each of
+    `MATRIX_PARTS` and, with ``radix``, without each of `SKIP_RADICES`."""
     out_dir = _build.BUILD_DIR.parent / "logmel_phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = {(b, name): f"-D{BODIES[b][1]}={cut}" for b in bodies
              for name, cut in BODIES[b][2].items()}
-    flags.update({(b, f"skip_{r}"): f"-DLOGMEL_SKIP_RADIX={r}" for b in bodies
-                  for r in SKIP_RADICES})
+    flags.update({(b, name): f"-DLOGMEL_MATRIX_PART={k}" for b in bodies
+                  for name, k in MATRIX_PARTS.items()})
+    if radix:
+        flags.update({(b, f"skip_{r}"): f"-DLOGMEL_SKIP_RADIX={r}" for b in bodies
+                      for r in SKIP_RADICES})
     if "mixed" in bodies:
         flags.update({("mixed", name): f"-DLOGMEL_WIDE_BLOCKS={n}"
                       for name, n in WIDE_BLOCKS.items()})
@@ -233,6 +260,56 @@ AGAINST_SOURCES = ("logmel_fft", "logmel_mixed", "logmel_cluster")
 FFT_SIZES = ((1024, 512), (2048, 1024), (4096, 2048))
 
 
+# The cuts `against` builds of both trees for the matrix phase (no_power -
+# no_matrix), in turns.
+MATRIX_CUTS = {"no_power": 2, "no_matrix": 3}
+
+
+def _with_lib(mod, source: str, lib, fn):
+    """``fn`` () with ``mod``'s kernel A library ``source`` replaced by
+    ``lib`` (its library caches cleared before and after)."""
+    build = mod._build
+    load = build.load
+    mod._mixed_lib.cache_clear()
+    mod._cluster_lib.cache_clear()
+    build.load = lambda n: lib if n == source else load(n)
+    try:
+        return fn()
+    finally:
+        build.load = load
+        mod._mixed_lib.cache_clear()
+        mod._cluster_lib.cache_clear()
+
+
+def _plan_key(plan) -> list:
+    """A plan as the JSON lines print it: radices, Rader and nested inner
+    radices, Bluestein."""
+    return [plan.radices, plan.rader, plan.nested, plan.bluestein]
+
+
+def _sass(lib: Path) -> dict:
+    """Each kernel's SASS in a library (``cuobjdump -sass``): {name: text},
+    the name without its anonymous namespace's tag, which differs from
+    build to build."""
+    text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for ln in text.splitlines():
+        if ln.strip().startswith("Function : "):
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", ln.strip()[len("Function : "):])
+            out[name] = []
+        elif name is not None:
+            out[name].append(ln)
+    return {k: "\n".join(v) for k, v in out.items()}
+
+
+def _sass_compare(mine: Path, theirs: Path) -> dict:
+    """Which kernels two builds of one source compile to the same SASS."""
+    a, b = _sass(mine), _sass(theirs)
+    return {"same": sorted(k for k in a if b.get(k) == a[k]),
+            "different": sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))}
+
+
 def against(root: str, y: torch.Tensor, device: str, sizes=FFT_SIZES + MIXED_SIZES + SIZES
             ) -> None:
     """This tree's kernel A against another checkout's, in turns, at every
@@ -240,23 +317,38 @@ def against(root: str, y: torch.Tensor, device: str, sizes=FFT_SIZES + MIXED_SIZ
     of its own, its sources built (all ``nvcc`` runs started together)
     under ``build/logmel_phases/against/``; one JSON line a size with both
     plans, ms a launch of each (this, other, other, this) and whether the
-    two outputs are bitwise equal; then, for each plan kind both trees force
-    to the same plan where that is not both trees' own, the same for that
-    forced plan (``forced``), so that an unchanged plan is compared with
-    itself."""
+    two outputs are bitwise equal; where both trees run the same plan with
+    matrix stages, both trees' matrix phase too (`MATRIX_CUTS` of each
+    tree's body, every variant of both in turns, ``matrix_ms`` = no_power -
+    no_matrix); then, for each plan kind both trees force to the same plan
+    where that is not both trees' own, the same for that forced plan
+    (``forced``), so that an unchanged plan is compared with itself."""
     other = Path(root).resolve()
     out_dir = _build.BUILD_DIR.parent / "logmel_phases" / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {n: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{n}.so"),
-         str(other / "sed_crnn_torch" / "csrc" / f"{n}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in AGAINST_SOURCES}
-    libs = {}
-    for n, proc in procs.items():
+    jobs = {(tree, n, ""): base for n in AGAINST_SOURCES
+            for tree, base in (("other", other / "sed_crnn_torch" / "csrc"),)}
+    for b in ("mixed", "cluster"):
+        for cut, level in MATRIX_CUTS.items():
+            for tree, base in (("this", _build.CSRC_DIR), ("other", other / "sed_crnn_torch" / "csrc")):
+                jobs[tree, BODIES[b][0], f"-D{BODIES[b][1]}={level}"] = base
+    procs = {}
+    for (tree, n, flag), base in jobs.items():
+        lib = out_dir / f"lib{tree}_{n}{flag.replace('=', '_').replace('-D', '_')}.so"
+        procs[tree, n, flag] = lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *([flag] if flag else []), "-o", str(lib),
+             str(base / f"{n}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for key, (lib, proc) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the other checkout's {n}.cu:\n{text}")
-        libs[n] = ctypes.CDLL(str(out_dir / f"lib{n}.so"))
+            raise RuntimeError(f"nvcc failed for {key}:\n{text}")
+        built[key] = ctypes.CDLL(str(lib))
+    libs = {n: built["other", n, ""] for n in AGAINST_SOURCES}
+    for n in AGAINST_SOURCES:
+        _build.load(n)
+        print(json.dumps({"sass_against": str(other), "source": n} | _sass_compare(
+            _build._library_path(n)[1], procs["other", n, ""][0])), flush=True)
     spec = importlib.util.spec_from_file_location(
         "fused_logmel_against", other / "sed_crnn_torch" / "ops" / "kernels" / "fused_logmel.py")
     theirs = importlib.util.module_from_spec(spec)
@@ -270,10 +362,27 @@ def against(root: str, y: torch.Tensor, device: str, sizes=FFT_SIZES + MIXED_SIZ
         ms = {k: [] for k in fns}
         for k in ("this", "other", "other", "this"):
             ms[k].append(cuda_ms(fns[k]))
-        plans = {name: (mod.mixed_plan(n_fft).radices if mod.body(n_fft) != "fft" else "fft")
+        plans = {name: (_plan_key(mod.mixed_plan(n_fft)) if mod.body(n_fft) != "fft" else "fft")
                  for name, mod in (("this", fl), ("other", theirs))}
-        print(json.dumps({"against": str(other), "n_fft": n_fft, "hop": hop, "plans": plans,
-                          "bitwise_equal": same, "ms": ms, "device": device}), flush=True)
+        line = {"against": str(other), "n_fft": n_fft, "hop": hop, "plans": plans,
+                "bitwise_equal": same, "ms": ms, "device": device}
+        mine = fl.mixed_plan(n_fft) if fl.body(n_fft) != "fft" else None
+        if mine is not None and mine.tensor_cores and mine == theirs.mixed_plan(n_fft):
+            source = BODIES[fl.body(n_fft)][0]
+            flag = BODIES[fl.body(n_fft)][1]
+            variants = {(tree, cut): (mod, built[tree, source, f"-D{flag}={level}"])
+                        for tree, mod in (("this", fl), ("other", theirs))
+                        for cut, level in MATRIX_CUTS.items()}
+            cut_ms = {k: [] for k in variants}
+            for k in list(variants) + list(variants)[::-1]:
+                mod, lib = variants[k]
+                cut_ms[k].append(_with_lib(mod, source, lib, lambda mod=mod: cuda_ms(
+                    lambda: mod.fused_log_mel(y, cfg))))
+            m = {k: float(np.mean(v)) for k, v in cut_ms.items()}
+            line["matrix_ms"] = {tree: m[tree, "no_power"] - m[tree, "no_matrix"]
+                                 for tree in ("this", "other")}
+            line["cut_ms"] = {f"{t}/{c}": v for (t, c), v in cut_ms.items()}
+        print(json.dumps(line), flush=True)
         if fl.body(n_fft) == "fft":
             continue
         src, n_frames = fl.frame_source(y, cfg)
@@ -322,6 +431,59 @@ def _features(plan) -> list:
     cluster = plan.smem_bytes > fl.MIXED_MAX_SMEM
     return [reg, mat, fl._narrow(plan.radices, plan.rader), cluster,
             fl._crossing_points(plan) if cluster else 0, plan.bluestein]
+
+
+def matrix_work(plan) -> tuple:
+    """A frame's matrix stages as the least work they must do: FLOPs of the
+    three TF32 products a butterfly (P and Q, real and imaginary rows, (H +
+    1)^2 each way, H = (R - 1) / 2: 24 (H + 1)^2) and shared-memory bytes
+    (each stage's N points read once and written once, 16 N), over every
+    pass: an outer stage once, a Rader stage's inner stage twice (forward
+    and transposed), a nested stage's inner stage four times; and the bytes
+    of the B tables (`matrix_table`: T^2 x 64 float4 a radix), which every
+    SM that runs a stage must read at least once a launch."""
+    flops = nbytes = table = 0.0
+    n1 = plan.n - plan.n // plan.rader_prime if plan.rader else 0
+    n2 = n1 - n1 // plan.nested_prime if plan.nested else 0
+    for radices, points in ((plan.matrix, plan.n), (plan.rader_matrix, 2 * n1),
+                            (plan.nested_matrix, 4 * n2)):
+        for r in radices:
+            flops += points / r * 24 * ((r + 1) // 2) ** 2
+            nbytes += 16 * points
+    for r in set(plan.matrix + plan.rader_matrix + plan.nested_matrix):
+        table += fl.matrix_tiles(r) ** 2 * 64 * 16
+    return flops, nbytes, table
+
+
+def matrix_report(m: dict, plan, n_frames: int, sms: int) -> dict:
+    """The matrix phase of a timed plan (``m``: mean ms by variant, on a card
+    of ``sms`` SMs) beside its bound, its share of the bound, its rate in
+    TFLOP/s, and, where the part builds ran, each part alone (gather and
+    split, B operands, products): its ms over the build without matrix
+    stages. The bound is the larger of `matrix_work`'s FLOPs at
+    `TF32_FLOPS` and its bytes (the points' through shared memory, the B
+    tables' once an SM of the launch) at `SMEM_BYTES_CLOCK` an SM at
+    `SM_CLOCK_HZ`. Raises ValueError for a share above 1: a stage faster
+    than its least time means the bound is wrong."""
+    if not plan.tensor_cores:
+        return {}
+    flops, nbytes, table = matrix_work(plan)
+    ctas = n_frames * (fl.plan_cluster_size(plan) if plan.smem_bytes > fl.MIXED_MAX_SMEM else 1)
+    t_ops = flops * n_frames / TF32_FLOPS
+    t_bytes = (nbytes * n_frames + table * min(sms, ctas)) / (SMEM_BYTES_CLOCK * sms * SM_CLOCK_HZ)
+    ms = m["no_power"] - m["no_matrix"]
+    bound = max(t_ops, t_bytes) * 1e3
+    share = bound / ms if ms > 0 else None
+    if share is not None and share > 1:
+        raise ValueError(f"n_fft {plan.n_fft}: the matrix phase {ms:.4f} ms is below its "
+                         f"bound {bound:.4f} ms")
+    out = {"ms": ms, "bound_ms": bound, "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "share_of_bound": share,
+           "tflops": flops * n_frames / (ms * 1e-3) / 1e12 if ms > 0 else None}
+    for k in MATRIX_PARTS:
+        if k in m:
+            out[k.replace("matrix_", "") + "_ms"] = m[k] - m["no_matrix"]
+    return out
 
 
 def plan_turns(sizes, y: torch.Tensor, device: str) -> list:
@@ -581,7 +743,7 @@ def main(argv=None) -> int:
         print("logmel_phases: a CUDA card is required", file=sys.stderr)
         return 2
     bodies = () if args.turns else ("mixed", "cluster") if args.body == "both" else (args.body,)
-    libs = build_variants(bodies) if bodies else {}
+    libs = build_variants(bodies, args.radix) if bodies else {}
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(9)
@@ -591,7 +753,9 @@ def main(argv=None) -> int:
     fit_rows, fit_ns = [], []
     fit = {}
     cluster_rows, cluster_ns = [], []
-    skips = {b: {r: libs[b].pop(f"skip_{r}") for r in SKIP_RADICES} for b in bodies}
+    skips = {b: {r: libs[b].pop(f"skip_{r}") for r in SKIP_RADICES} for b in bodies
+             if args.radix}
+    parts = {b: {k: libs[b].pop(k) for k in MATRIX_PARTS} for b in bodies}
     if "mixed" in bodies:
         wide = {k: libs["mixed"].pop(k) for k in WIDE_BLOCKS}
         print(json.dumps({"ptxas": {f"{b} {k}": v for (b, k), v in build_variants.ptxas.items()
@@ -608,7 +772,8 @@ def main(argv=None) -> int:
                 if plan in seen or plan.smem_bytes > fl.MIXED_MAX_SMEM:
                     continue
                 seen.append(plan)
-                ms = _time_variants(libs["mixed"], "logmel_mixed", lambda: fl._launch_mixed(
+                variants = libs["mixed"] | (parts["mixed"] if plan.tensor_cores else {})
+                ms = _time_variants(variants, "logmel_mixed", lambda: fl._launch_mixed(
                     src, hop, n_frames, n_fft, cfg, **forced))
                 m = _mean(ms)
                 phases = {"mel": m["full"] - m["no_mel"], "power": m["no_mel"] - m["no_power"],
@@ -630,6 +795,7 @@ def main(argv=None) -> int:
                                   "nested": plan.nested, "bluestein": plan.bluestein,
                                   "chosen": not forced, "forced": forced, "ms": ms,
                                   "phases_ms": phases, "counts": list(counts),
+                                  "matrix": matrix_report(m, plan, n_frames, sms),
                                   "model": fl._plan_cost_on_body(plan),
                                   "device": device}), flush=True)
         # The band's lanes and the wide instantiations' blocks an SM, each
@@ -677,7 +843,8 @@ def main(argv=None) -> int:
                 if plan in seen:
                     continue
                 seen.append(plan)
-                ms = _time_variants(libs["cluster"], "logmel_cluster", lambda: fl._launch_cluster(
+                variants = libs["cluster"] | (parts["cluster"] if plan.tensor_cores else {})
+                ms = _time_variants(variants, "logmel_cluster", lambda: fl._launch_cluster(
                     src, hop, n_frames, n_fft, cfg, **forced))
                 m = _mean(ms)
                 reg, mat = fl.plan_counts(plan.n, plan.radices, plan.bluestein, plan.rader,
@@ -702,6 +869,7 @@ def main(argv=None) -> int:
                                                 "register": m["no_rader"] - m["no_stages"],
                                                 "rest": m["no_stages"]},
                                   "counts": [reg, mat], "crossing": crossing,
+                                  "matrix": matrix_report(m, plan, n_frames, sms),
                                   "model": fl._plan_cost_on_body(plan),
                                   "mel_share": (m["full"] - m["no_mel"]) / m["full"],
                                   "device": device}), flush=True)

@@ -666,8 +666,13 @@ MIXED_SHAPES = [
     dict(n_fft=12895, hop_length=6447),
 ]
 # A plan with matrix stages against `mixed_log_mel_plain` (chip_smoke.py's
-# MATRIX_ATOL): three TF32 products are not float32's bits.
+# MATRIX_ATOL): three TF32 products are not float32's bits. Their error is
+# float32's against a frame's largest outputs, so the log-domain tolerance
+# holds for bands that are not far below the frame's largest: at the small
+# frames of the matrix stage's forms, the bands of at least
+# MATRIX_BAND_FLOOR of it.
 MATRIX_ATOL = 1e-4
+MATRIX_BAND_FLOOR = 1e-2
 
 
 def _assert_plain(got, plain, n_fft):
@@ -756,9 +761,55 @@ def _fft_log_mel64(y, cfg):
     return torch.log(mel).float()
 
 
+# The matrix stage's forms (`matrix_stage` in csrc/logmel_stages.cuh), each
+# radix alone or nearly so in a forced plan: 17, 23, 31 (one or two column
+# tiles, warp by warp), 373 (24 tiles: the A operands shared, two bands)
+# and 647 (41 tiles, four bands) as the only stage (n_fft 2 R), 373 after a
+# radix-3 stage (2238), and 373 in a Rader stage's inner transforms, forward
+# and transposed (4478: L 2239, 2238 = 2 x 3 x 373).
+MATRIX_FORMS = [(34, "direct", 17), (46, "direct", 23), (62, "direct", 31),
+                (746, "direct", 373), (1294, "direct", 647), (2238, "direct", 373),
+                (4478, "rader", 373)]
+
+
+@pytest.mark.parametrize("n_fft,kind,radix", MATRIX_FORMS)
+def test_matrix_stage_forms_match_plain_on_both_bodies(cuda, n_fft, kind, radix):
+    """Each form of the matrix stage in the mixed body against
+    `mixed_log_mel_plain` (-inf entries equal; mel energies within 1e-5 of
+    the frame's largest, and within MATRIX_ATOL in the log domain at every
+    band of at least MATRIX_BAND_FLOOR of the frame's largest: three TF32
+    products hold float32's precision against a frame's largest outputs,
+    so a weaker band of these small frames, one bin wide, can be further
+    off in the log domain, 1.1e-4 at n_fft 46), twice bitwise, and the
+    cluster body forced to the same plan over 1, 2, 3, 4 and 8 CTAs bitwise
+    the mixed body's (the butterflies split otherwise, and crossing
+    CTAs)."""
+    plan = mixed_plan(n_fft, kind)
+    assert radix in plan.matrix + plan.rader_matrix
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=n_fft // 2, center=False, log_floor=None)
+    y = torch.from_numpy(_signal(2 * 44100, 44100, 12, silent=(20000, 30000))).to(cuda)
+    src, n_frames = frame_source(y, cfg)
+    got = _launch_mixed(src, n_fft // 2, n_frames, n_fft, cfg, plan=kind)
+    again = _launch_mixed(src, n_fft // 2, n_frames, n_fft, cfg, plan=kind)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    plain = mixed_log_mel_plain(y, cfg, plan=kind)
+    fin = torch.isfinite(plain)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], plain[~fin])
+    e_got, e_plain = got.double().exp(), plain.double().exp()
+    largest = e_plain.amax(1, keepdim=True)
+    assert ((e_got - e_plain).abs() <= 1e-5 * largest).all()
+    strong = e_plain >= MATRIX_BAND_FLOOR * largest
+    assert strong.sum() >= n_frames
+    torch.testing.assert_close(got[strong], plain[strong], rtol=0, atol=MATRIX_ATOL)
+    for c in (1, 2, 3, 4, 8):
+        cluster = _launch_cluster(src, n_fft // 2, n_frames, n_fft, cfg, ctas=c, plan=kind)
+        assert torch.equal(cluster, got), c
+
+
 # The cluster body's sizes (n_fft, hop): L 12867 at an even n_fft (25734:
-# Bluestein on radices 8 and 9, which the card timed faster than its Rader
-# plan), a matrix stage of 17 before a Rader stage of 757 (25738), a matrix
+# a Rader stage of 4289 over 4 x 4 x 4 x 67 under `plan_cost`'s refitted
+# weights), a matrix stage of 17 before a Rader stage of 757 (25738), a matrix
 # stage of 149 (31290), an odd size beyond the mixed body's limit (12941,
 # Bluestein on radices 8 and 9), 1 s at 44.1 and 48 kHz (direct, C = 2), 2
 # s at 44.1 kHz (C = 3), a power of two (C = 4), a direct plan with radix

@@ -91,7 +91,8 @@ def _assert_log_close(got, want, atol):
 
 # n_fft: (L, N, Bluestein, C, stages that cross CTAs, bytes a CTA, chunk,
 # Rader inner stages that cross). The sizes chip_smoke.py times (25734:
-# Bluestein at M 25,920; 25738: a Rader stage of 757 after a matrix stage of
+# a Rader stage of 4289 over 4 x 4 x 4 x 67, its chunk whole inner
+# transforms, under the refitted weights; 25738: a Rader stage of 757 after a matrix stage of
 # 17, its chunk whole inner transforms so that none of them crosses; 31290:
 # a matrix stage; 44100, 48000, and 88200 at C = 3), a power
 # of two, sizes whose smallest cluster does not divide N, so that most
@@ -101,7 +102,7 @@ def _assert_log_close(got, want, atol):
 # 16 and 16 CTAs). Plans beyond one block with a matrix or Rader stage take
 # no composite radix.
 SPLITS = {
-    25734: (12867, 25920, True, 2, 1, 129416, 12960, 0),
+    25734: (12867, 12867, False, 2, 2, 162952, 8576, 0),
     25738: (12869, 12869, False, 2, 2, 134604, 6804, 0),
     31290: (15645, 15645, False, 2, 4, 156460, 7823, 0),
     44100: (22050, 22050, False, 2, 1, 132304, 11025, 0),

@@ -123,7 +123,7 @@ def _within_ulp(table, exact):
     (32768, 16384, 16384, (8, 8, 8, 8, 4), False),
     (26, 13, 13, (13,), False),
     (2, 1, 1, (), False),
-    (2206, 1103, 2205, (9, 5, 7, 7), True),
+    (2206, 1103, 1103, (1103,), False),
     (4126, 2063, 4200, (8, 3, 5, 5, 7), True),
 ])
 def test_plan_factors_and_picks_direct_or_bluestein(n_fft, points, n, radices, bluestein):
@@ -156,24 +156,25 @@ def test_plan_factors_and_picks_direct_or_bluestein(n_fft, points, n, radices, b
     (12863, True), (12864, True), (12865, True), (23040, True), (23042, True),
     (21875, True), (38416, True), (25725, False), (40000, False), (65536, False),
     (12867, True), (23044, True), (23052, True), (23054, True), (12895, True),
-    (23082, True), (12915, False), (23228, False), (12911, False), (23098, False),
+    (23082, True), (12915, False), (23228, False), (12911, True), (23098, True),
+    (23174, False),
 ])
 def test_size_limit_is_the_shared_memory_of_one_frame(n_fft, fits):
     """A plan fits when one frame's work arrays and power row take at most
-    227 KB: every n_fft to 12,910 (12,863: Bluestein at M 25,725, 231,528
+    227 KB: every n_fft to 12,913 (12,863: Bluestein at M 25,725, 231,528
     bytes; 12,865 direct with matrix stages, 231,572; 12,867 = 3 x 4289, a
     Rader stage, 231,608; 12,895 = 5 x 2579, a Rader stage of 2579 with one
-    of 1289 nested in it, 232,112), every even one to 23,096 (23,044: a
-    Rader stage of 823, 230,444 bytes; 23,054: L 11,527, a Rader stage,
-    230,544; 23,082: L 3 x 3847, a nested Rader plan, 230,824), and beyond
-    them the sizes whose plan is small enough (21,875 and 38,416 direct;
-    40,000, L 20,000, is not); 12,911 (Bluestein at M 25,920, 233,184
-    bytes, which `plan_cost` prefers to its nested plan) and 23,098 (L
-    11,549: Bluestein at M 23,328) are the first odd and even sizes that do
-    not, 12,915 (L 3^2 x 5 x 7 x 41, direct with a matrix stage, 232,472
-    bytes) and 23,228 (L 11,614: Bluestein at M 23,328) the first before
-    the cost model's refit; a plan that does not fit goes to the cluster
-    body."""
+    of 1289 nested in it, 232,112; 12,911, prime, a Rader stage with one of
+    1291 nested in it, 232,400, since the refitted weights price it below
+    Bluestein), every even one to 23,172 (23,044: a Rader stage of
+    823, 230,444 bytes; 23,054: L 11,527, a Rader stage, 230,544; 23,082: L
+    3 x 3847, a nested Rader plan, 230,824; 23,098: L 11,549, nested,
+    230,984), and beyond them the sizes whose plan is small enough (21,875
+    and 38,416 direct; 40,000, L 20,000, is not); 12,915 (L 3^2 x 5 x 7 x
+    41, direct with a matrix stage, 232,472 bytes) and 23,174 (L 11,587:
+    Bluestein at M 23,328) are the first odd and even sizes that do not,
+    23,228 (L 11,614: Bluestein at M 23,328) the first even one under
+    older weights; a plan that does not fit goes to the cluster body."""
     assert (mixed_plan(n_fft).smem_bytes <= MIXED_MAX_SMEM) == fits
     assert body(n_fft) == ("mixed" if fits else "cluster") or body(n_fft) == "fft"
 

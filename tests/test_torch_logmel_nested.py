@@ -376,11 +376,19 @@ def test_plain_matches_the_jax_extract(n_fft, hop, center):
         _assert_log_close(got, want, 5e-4)
 
 
-# The n_fft below 40,000 whose own plan is nested: each just above the
-# sizes whose Bluestein plan fits one block, where the nested plan keeps
-# the frame in one block (`plan_cost`; PERF.md §6).
-NESTED_CHOSEN = (12893, 12895, 12899, 23062, 23082, 23090, 23094, 23152, 23164, 23172, 23190,
-                 23224)
+# The n_fft below 40,000 whose own plan is nested under the refitted
+# weights (`plan_cost`; PERF.md §6): sizes from 3,269 up whose nested plan
+# costs less than Bluestein, and those just above the sizes whose
+# Bluestein plan fits one block, where the nested plan keeps the frame in
+# one block.
+NESTED_CHOSEN = (3269, 3736, 4197, 4203, 4937, 5137, 5393, 5411, 5417, 6071, 6538, 6995, 7457,
+                 7472, 7939, 8389, 8391, 8394, 8406, 8445, 8457, 8503, 9335, 9340, 9371, 9627,
+                 9679, 9793, 9807, 9874, 10119, 10253, 10274, 10741, 10779, 10786, 10822, 10834,
+                 11208, 11675, 11823, 12142, 12591, 12609, 12893, 12895, 12899, 12911, 13076,
+                 13990, 14914, 14944, 15878, 16778, 16782, 16812, 16890, 16914, 17006, 18670,
+                 18680, 18742, 19254, 19358, 19586, 19614, 20238, 20506, 20548, 21482, 21558,
+                 21668, 22376, 22384, 22416, 23062, 23082, 23090, 23094, 23098, 23152, 23158,
+                 23164, 23172, 23190, 23224)
 
 
 def test_every_size_keeps_a_plan_sixteen_ctas_hold():
