@@ -1213,6 +1213,7 @@ def _gru_counts():
             "gru_scan_bwd": gru_scan_bwd.launches, "gru_dwh": gru_scan_bwd.dwh_launches,
             "gru_scan_sum_partials": gru_scan_bwd.sum_launches,
             "gru_dwh_mma": gru_scan_bwd.mma_dwh_launches,
+            "gru_dwh_wgmma": gru_scan_bwd.wgmma_dwh_launches,
             "gru_wide": gru_scan.wide_launches, "gru_cluster": gru_scan.cluster_launches,
             "gru_grid": gru_scan.grid_launches}
 
@@ -1223,21 +1224,26 @@ def _reset_gru_counts():
     gru_scan.launches = gru_scan_fwd_res.launches = gru_scan.wide_launches = 0
     gru_scan.cluster_launches = gru_scan.grid_launches = 0
     gru_scan_bwd.launches = gru_scan_bwd.dwh_launches = gru_scan_bwd.sum_launches = 0
-    gru_scan_bwd.mma_dwh_launches = 0
+    gru_scan_bwd.mma_dwh_launches = gru_scan_bwd.wgmma_dwh_launches = 0
 
 
-def _gru_path_counts(fwd: int, steps: int, body: str = "warp") -> dict:
+def _gru_path_counts(fwd: int, steps: int, body: str = "warp", hidden=()) -> dict:
     """Exact GRU launch counts of a path with ``fwd`` no-grad BiGRU layer
     calls and ``steps`` train-step BiGRU layer calls: one pair launch of
     each kernel per layer call, all on one body: the warp, wide, cluster or
     grid body (the last three's recurrences, the forward, residual forward
     and backward chain, counted in ``gru_wide`` / ``gru_cluster`` /
     ``gru_grid``, and their dwh reductions, csrc/gru_dwh.cu's, in
-    ``gru_dwh_mma``)."""
+    ``gru_dwh_mma``; those of its wgmma body, the layers of ``hidden`` whose
+    width `dwh_body` sends there, also in ``gru_dwh_wgmma``)."""
+    from sed_crnn_torch.ops.kernels.gru_scan import dwh_body
+
     check(body in ("warp", "wide", "cluster", "grid"), f"unknown GRU body {body!r}")
+    wgmma = sum(dwh_body(h) == "wgmma" for h in hidden) if body != "warp" else 0
     return {"gru_scan_fwd": fwd, "gru_scan_fwd_res": steps, "gru_scan_bwd": steps,
             "gru_dwh": steps, "gru_scan_sum_partials": steps,
             "gru_dwh_mma": steps if body != "warp" else 0,
+            "gru_dwh_wgmma": steps // max(1, len(hidden)) * wgmma,
             **{f"gru_{b}": fwd + 2 * steps if body == b else 0
                for b in ("wide", "cluster", "grid")}}
 
@@ -1316,7 +1322,7 @@ def phase_train_step(model_overrides: dict | None = None, tag: str = "[train ste
         torch.cuda.synchronize()
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"train step log-mel launches {_logmel_counts()}")
-    want = _gru_path_counts(0, 2, _gru_model_body(mcfg))   # a pair per BiGRU layer, fwd and bwd
+    want = _gru_path_counts(0, 2, _gru_model_body(mcfg), mcfg.gru_hidden)   # a pair a layer
     check(launches == want, f"train step launches {launches} != {want}")
     check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     t0 = time.perf_counter()
@@ -1410,7 +1416,8 @@ def phase_train(workdir: str, model_overrides: dict | None = None, tag: str = "[
     wall = time.perf_counter() - t0
     launches = _gru_counts()
     check(not any(_logmel_counts().values()), f"run_fold log-mel launches {_logmel_counts()}")
-    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs, _gru_model_body(cfg.model))
+    want = _gru_path_counts(2 * n_sweep * epochs, 2 * n_train * epochs, _gru_model_body(cfg.model),
+                            cfg.model.gru_hidden)
     check(launches == want, f"run_fold launches {launches} != {want}")
     check(not plain_on_card, f"a GRU plain version ran on the card: {plain_on_card}")
     check(res.epochs_run == epochs, f"run_fold ran {res.epochs_run} epochs")
@@ -1533,7 +1540,7 @@ TRACE_SYMBOLS = {
     "fused_logmel": ("logmel_fft_kernel", "logmel_mixed_kernel", "logmel_cluster_kernel"),
     "gru_scan_fwd": ("gru_warp_fwd", "gru_wide_fwd", "gru_cluster_fwd", "gru_grid_fwd"),
     "gru_scan_bwd": ("gru_warp_bwd", "gru_wide_bwd", "gru_cluster_bwd", "gru_grid_bwd"),
-    "gru_dwh": ("gru_warp_dwh", "gru_dwh_kernel"),
+    "gru_dwh": ("gru_warp_dwh", "gru_dwh_kernel", "gru_dwh_wgmma"),
     "gru_scan_sum_partials": ("gru_warp_sum", "gru_dwh_sum"),
 }
 
@@ -3347,7 +3354,7 @@ def _stack_kernel_checks(shapes=None, tag: str = "[multiseed stacked]", seed: in
     rng = np.random.default_rng(seed)
     worst = {"fwd": 0.0, "bwd": 0.0, "dwh": 0.0}
     for S, B, T, H in shapes or STACK_SHAPES:
-        one = _gru_path_counts(1, 1, gru_body(H))
+        one = _gru_path_counts(1, 1, gru_body(H), (H,))
         d0, d1 = _stack_operands(rng, dev, S, B, T, H)
         for reset_after in (False, True):
             def arg(i, reset_after=reset_after):   # operand i of both directions
@@ -4392,7 +4399,7 @@ def _wide_checks() -> dict:
     for H in WIDE_WIDTHS:
         body = _body_of(H)
         check(gru_body(H) == gru_body(H, backward=True) == body, f"H={H} not on the {body} body")
-        want_counts = _gru_path_counts(1, 1, body)
+        want_counts = _gru_path_counts(1, 1, body, (H,))
         for B in WIDE_BATCHES:
             fwd_e = bwd_e = dwh_e = 0.0
             for reset_after in (False, True):
@@ -4536,7 +4543,7 @@ def _wide_times(H: int) -> dict:
     out["bwd_device_ms"], out["bwd_host_ms"] = device_host_ms(bwd)
     split = _by_kernel(bwd)
     out["bwd_chain_ms"] = _part(split, "gru_wide_bwd")
-    out["bwd_dwh_ms"] = _part(split, "gru_dwh_kernel")
+    out["bwd_dwh_ms"] = _part(split, "gru_dwh_kernel", "gru_dwh_wgmma")
     out["bwd_sum_ms"] = _part(split, "gru_dwh_sum")
     _, (out["fwd_res_bound_ms"], out["fwd_res_bound_by"]), (out["bwd_bound_ms"],
                                                             out["bwd_bound_by"]) = \
@@ -5303,6 +5310,10 @@ def _wide_precision() -> dict:
 DWH_TIMED = (64, 128, 256, 1024, 2048)
 DWH_WARP_H = 32            # the warp body's widest: its own reduction against this one
 DWH_REPS = {64: 20, 128: 20, 256: 10, 1024: 4, 2048: 2, DWH_WARP_H: 20}
+# Widths that take the mma.sync tile (not a multiple of 4), checked but not
+# timed: (H, B, T); the widest pair's at its [kernel B wide] batch, the dwh
+# partials alone 3.4 GB a direction.
+DWH_CHECKED = ((33, 128, 256), (129, 128, 256), (257, 128, 256), (GRID_TWO_BLOCKS, 2, 40))
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
 
 
@@ -5356,52 +5367,142 @@ def _dwh_bound(B: int, T: int, H: int):
     return bound, n_flops / PEAK_FP32_FLOPS * 1e3
 
 
-def phase_gru_dwh(parent_wide: str = "") -> dict:
+def _dwh_stacked_seed0(lib, gen, ops, reset_after: bool):
+    """csrc/gru_dwh.cu on a stack of two seeds of both directions (one
+    launch, grid.z = 2 S) whose seed 0 is ``ops`` -> seed 0's sums, (2, n)."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+
+    B, T, H = ops[0][0].shape
+    other = _dwh_operands(gen, B, T, H, reset_after)
+    stacked = [tuple(torch.stack([a, b]) for a, b in zip(o, q)) for o, q in zip(ops, other)]
+    del other
+    n_part, n = lib.gru_dwh_splits(B, T, H), 3 * H * H + 3 * H
+    part = torch.empty((2, 2, n_part, n), device=ops[0][0].device)
+    sums = torch.empty((2, 2, n), device=ops[0][0].device)
+    arr = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(), x.data_ptr(),
+                                        part[k].data_ptr(), k)
+                             for k, (y, r, h, x) in enumerate(stacked)))
+    stream = torch.cuda.current_stream().cuda_stream
+    gs._raise_on(lib.gru_dwh_launch(arr, 2, 2, B, T, H, int(reset_after), stream), "gru_dwh_dwh",
+                 lib.gru_dwh_error_string)
+    gs._raise_on(lib.gru_dwh_sum_partials(part.data_ptr(), sums.data_ptr(), 4, n_part, n,
+                                          stream), "gru_dwh_sum_partials", lib.gru_dwh_error_string)
+    torch.cuda.synchronize()
+    return sums[:, 0].clone()
+
+
+def _dwh_parent(path: str):
+    """The reduction of an older source, built beside this one: an older
+    csrc/gru_dwh.cu (its C interface this one's) or csrc/gru_wide.cu (the FMA
+    reduction from before csrc/gru_dwh.cu) -> (library, its prefix)."""
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+    from sed_crnn_torch.tools.gru_phases import build_variants
+
+    source = os.path.basename(path)
+    check(source in ("gru_dwh.cu", "gru_wide.cu"), f"--dwh-parent {path}: not a gru_dwh.cu "
+                                                   "or gru_wide.cu")
+    name = source[:-3]
+    built = build_variants(name, {}, None, {"parent": path})
+    return (gs.bind_dwh if name == "gru_dwh" else _bind_old_wide)(built["parent"]), name
+
+
+def _dwh_check(lib, gen, H: int, B: int, T: int, reset_after: bool, tag: str) -> dict:
+    """csrc/gru_dwh.cu on a pair at (B, T, H): against `gru_dwh_plain` within
+    GRAD_RTOL of the largest entry, dwh and dbh of both directions, bitwise
+    run to run, seed 0 of a stack of two bitwise the pair; the card's split
+    count and body the Python mirrors' -> the errors, the operands, the
+    plain version's results and the launchers."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+    from sed_crnn_torch.ops.kernels.gru_scan import dwh_body, dwh_split_plan, gru_dwh_plain
+
+    ops = _dwh_operands(gen, B, T, H, reset_after)
+    want = [gru_dwh_plain(*ops[k], reset_after, k == 1) for k in (0, 1)]
+    launchers = _dwh_launchers(lib, "gru_dwh", ops, reset_after)
+    check(launchers[1].n_part == dwh_split_plan(B, T, H)[0],
+          f"{tag}: the card's split count differs from the Python mirror")
+    check(gs.DWH_BODIES[lib.gru_dwh_body(launchers[0].buffers[0], 2, H)] == dwh_body(H),
+          f"{tag}: the card's body differs from the Python mirror")
+    _, total, sums = launchers
+    total()
+    first = sums.clone()
+    total()
+    torch.cuda.synchronize()
+    check(torch.equal(first, sums), f"{tag}: dwh not bitwise run to run")
+    got = [(first[k, 0, :3 * H * H].view(H, 3 * H), first[k, 0, 3 * H * H:]) for k in (0, 1)]
+    rel = max(_rel_err(g, w, f"{tag} dir {k}", ("dwh", "dbh"), 1e-6)
+              for k, (g, w) in enumerate(zip(got, want)))
+    abs_err = max(_maxdiff(x, y) for g, w in zip(got, want) for x, y in zip(g, w))
+    del got
+    seed0 = _dwh_stacked_seed0(lib, gen, ops, reset_after)
+    check(torch.equal(seed0, first[:, 0]), f"{tag}: stacked seed 0 differs from the pair")
+    del seed0, first
+    torch.cuda.empty_cache()
+    return {"rel": rel, "abs": abs_err, "ops": ops, "want": want, "launchers": launchers,
+            "body": dwh_body(H)}
+
+
+def phase_gru_dwh(parent: str = "") -> dict:
     """[kernel B dwh]: csrc/gru_dwh.cu on a pair's stored rows at B=TRAIN_BATCH,
-    T=GRU_T, both conventions, at each width of DWH_TIMED: dwh/dbh against
+    T=GRU_T, both conventions, at each width of DWH_TIMED and, checked only,
+    at DWH_CHECKED's (the mma.sync tile's odd widths): dwh/dbh against
     `gru_dwh_plain` within GRAD_RTOL of the largest entry, bitwise from run
-    to run, the card's split count the Python mirror's; then, CUDA events in
-    turns (kernel, library, parent, parent, library, kernel), the reduction
-    with its partial sum beside one `torch.matmul` of the same product on
-    prepared operands (float32, TF32 off; checked against the plain version
-    too) and, where ``parent_wide`` names an older csrc/gru_wide.cu, that
-    file's FMA reduction and sum (held to the plain version as well);
-    beside the plain version's time and the bound. At DWH_WARP_H the kernel
-    in turns with the warp body's reduction, the one that width runs, and
-    the library call.
+    to run, seed 0 of a stacked launch bitwise the pair, the card's split
+    count and body (`dwh_body`) the Python mirrors'; then, at DWH_TIMED,
+    CUDA events in turns (kernel, library, parent, parent, library,
+    kernel), the reduction with its partial sum beside one `torch.matmul` of
+    the same product on prepared operands (float32, TF32 off; checked
+    against the plain version too) and, where ``parent`` names an older
+    csrc/gru_dwh.cu (the mma.sync tile at every width) or csrc/gru_wide.cu
+    (the FMA reduction), that file's reduction and sum (held to the plain
+    version as well); beside the plain version's time, the bound and each
+    one's share of it. At DWH_WARP_H the kernel in turns with the warp
+    body's reduction, the one that width runs, and the library call.
     Returns the kernels line's entry for csrc/gru_dwh.cu (its launches are
     counted on the [kernel B wide] paths)."""
     import torch
 
     from sed_crnn_torch.ops.kernels import gru_scan as gs
-    from sed_crnn_torch.ops.kernels.gru_scan import dwh_split_plan, gru_dwh_plain
+    from sed_crnn_torch.ops.kernels.gru_scan import gru_dwh_plain
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for torch.matmul")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(41)
-    lib, old = gs._dwh_lib(), None
-    if parent_wide:
-        from sed_crnn_torch.tools.gru_phases import build_variants
-
-        built = build_variants("gru_wide", {}, None, {"parent": parent_wide})
-        old = _bind_old_wide(built["parent"])
+    lib, old, old_name = gs._dwh_lib(), None, ""
+    if parent:
+        old, old_name = _dwh_parent(parent)
     B, T = TRAIN_BATCH, GRU_T
-    times, worst_rel, worst_abs = {}, 0.0, 0.0
+    times, checked, worst_rel, worst_abs = {}, {}, 0.0, 0.0
+    for H, b, t in DWH_CHECKED:
+        for reset_after in (False, True):
+            tag = f"[kernel B dwh] H={H} B={b} T={t} reset_after={reset_after}"
+            c = _dwh_check(lib, gen, H, b, t, reset_after, tag)
+            worst_rel, worst_abs = max(worst_rel, c["rel"]), max(worst_abs, c["abs"])
+            checked[f"{H}/{reset_after}"] = {"B": b, "T": t, "body": c["body"], "rel_err": c["rel"]}
+            print(f"{tag}: {c['body']} body, vs plain {c['rel']:.3g} of max|dwh|, bitwise run to "
+                  f"run, stacked seed 0 bitwise the pair")
+            del c
+            torch.cuda.empty_cache()
     for H in (DWH_WARP_H,) + DWH_TIMED:
         for reset_after in (False, True):
-            ops = _dwh_operands(gen, B, T, H, reset_after)
-            want = [gru_dwh_plain(*ops[k], reset_after, k == 1) for k in (0, 1)]
-            paths = {"kernel": _dwh_launchers(lib, "gru_dwh", ops, reset_after)}
-            check(paths["kernel"][1].n_part == dwh_split_plan(B, T, H)[0],
-                  f"dwh H={H}: the card's split count differs from the Python mirror")
+            tag = f"[kernel B dwh] H={H} reset_after={reset_after}"
+            c = _dwh_check(lib, gen, H, B, T, reset_after, tag)
+            ops, want = c["ops"], c["want"]
+            worst_rel, worst_abs = max(worst_rel, c["rel"]), max(worst_abs, c["abs"])
+            paths = {"kernel": c["launchers"]}
             if H == DWH_WARP_H:
                 paths["warp"] = _dwh_launchers(gs._warp_lib(), "gru_warp", ops, reset_after)
             elif old is not None:
-                paths["parent"] = _dwh_launchers(old, "gru_wide", ops, reset_after)
-            tag = f"[kernel B dwh] H={H} reset_after={reset_after}"
-            line = {"H": H, "B": B, "T": T, "reset_after": reset_after,
-                    "splits": paths["kernel"][1].n_part}
+                paths["parent"] = _dwh_launchers(old, old_name, ops, reset_after)
+            line = {"H": H, "B": B, "T": T, "reset_after": reset_after, "body": c["body"],
+                    "splits": paths["kernel"][1].n_part, "kernel_rel_err": c["rel"]}
+            del c
             for name, (_, total, sums) in paths.items():
+                if name == "kernel":
+                    continue
                 total()
                 first = sums.clone()
                 total()
@@ -5412,10 +5513,6 @@ def phase_gru_dwh(parent_wide: str = "") -> dict:
                 line[f"{name}_rel_err"] = max(_rel_err(g, w, f"{tag} {name} dir {k}",
                                                        ("dwh", "dbh"), 1e-6)
                                               for k, (g, w) in enumerate(zip(got, want)))
-                if name == "kernel":
-                    worst_rel = max(worst_rel, line["kernel_rel_err"])
-                    worst_abs = max(worst_abs, max(_maxdiff(x, y) for g, w in zip(got, want)
-                                                   for x, y in zip(g, w)))
                 del first, got
             fns = {name: total for name, (_, total, _) in paths.items()}
             fns["library"], lib_dwh = _dwh_library(ops, reset_after)
@@ -5439,20 +5536,25 @@ def phase_gru_dwh(parent_wide: str = "") -> dict:
                 line["plain_ms"] = cuda_ms(lambda: [gru_dwh_plain(*ops[k], reset_after, k == 1)
                                                     for k in (0, 1)], reps=2, warmup=1)
             (line["bound_ms"], line["bound_by"]), line["fp32_bound_ms"] = _dwh_bound(B, T, H)
+            for name in fns:
+                line[f"{name}_bound_share"] = line["bound_ms"] / line[f"{name}_ms"]
             line["kernel_tflops"] = 2 * 2 * B * T * H * 3 * H / line["kernel_ms"] / 1e9
             times[f"{H}/{reset_after}"] = line
             turns_of = lambda k: ", ".join(f"{x:.4f}" for x in line[f"{k}_turns_ms"])  # noqa: E731
-            others = ", ".join(f"{k} {line[f'{k}_ms']:.4f} (turns {turns_of(k)})"
+            others = ", ".join(f"{k} {line[f'{k}_ms']:.4f} (turns {turns_of(k)}; "
+                               f"{line[f'{k}_bound_share']:.3f} of the bound)"
                                for k in fns if k != "kernel")
-            print(f"{tag} B={B} T={T} pair, {line['splits']} splits: kernel (dwh + sum) "
-                  f"{line['kernel_ms']:.4f} ms (turns {turns_of('kernel')}; dwh "
+            print(f"{tag} B={B} T={T} pair, {line['body']} body, {line['splits']} splits: kernel "
+                  f"(dwh + sum) {line['kernel_ms']:.4f} ms (turns {turns_of('kernel')}; dwh "
                   f"{line['kernel_dwh_ms']:.4f}, sum {line['kernel_sum_ms']:.4f}; "
-                  f"{line['kernel_tflops']:.1f} TFLOP/s of the float32 product), {others}; "
+                  f"{line['kernel_tflops']:.1f} TFLOP/s of the float32 product; "
+                  f"{line['kernel_bound_share']:.3f} of the bound), {others}; "
                   f"plain {line.get('plain_ms', float('nan')):.3f}; bound {line['bound_ms']:.4f} "
                   f"({line['bound_by']}, 3xTF32 at 495 TFLOP/s), float32 bound "
                   f"{line['fp32_bound_ms']:.4f}; vs plain: "
                   + ", ".join(f"{k[:-8]} {v:.3g}" for k, v in line.items()
-                              if k.endswith("_rel_err")) + " of max|dwh|")
+                              if k.endswith("_rel_err")) + " of max|dwh|; bitwise run to run, "
+                  "stacked seed 0 bitwise the pair")
             del ops, want, paths, fns
             torch.cuda.empty_cache()
     t = times[f"{GRID_TIMED[0]}/True"]
@@ -5460,15 +5562,17 @@ def phase_gru_dwh(parent_wide: str = "") -> dict:
     return {"name": "gru_dwh_mma", "route": "cuda", "source": "sed_crnn_torch/csrc/gru_dwh.cu",
             "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
             "shape": f"pair, B={B} T={T} H={GRID_TIMED[0]} reset_after=True: the dwh/dbh "
-                     "reduction (split-K, 3xTF32 on the tensor cores) and its fixed-order "
+                     "reduction (split-K, 3xTF32 on the tensor cores: wgmma fed by TMA above "
+                     "H = 64 at multiples of 4, mma.sync elsewhere) and its fixed-order "
                      "partial sum",
             "max_abs_err": worst_abs, "max_rel_err": worst_rel,
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_by": t["bound_by"], "bound_share": t["kernel_bound_share"],
+            "library_ms": t["library_ms"],
             "library_variant": "one torch.matmul of the prepared L_p^T D_p, both directions' "
                                "three parts batched, float32 with TF32 off",
-            "fp32_bound_ms": t["fp32_bound_ms"], "parent_given": old is not None,
-            "times": times}
+            "fp32_bound_ms": t["fp32_bound_ms"], "parent_given": parent or None,
+            "times": times, "checked": checked}
 
 
 def phase_gru_wide() -> dict:
@@ -5586,7 +5690,7 @@ def _grid_entries(wide: dict, paths: dict) -> list:
            "serving_window_err": paths["grid_serving"]["window_err"]}
     bwd = {"name": "gru_grid_bwd", "replaces": "sed_crnn_tpu/ops/pallas/gru_scan.py:154",
            "shape": f"pair, B={TRAIN_BATCH} T={GRU_T} H={t['H']} reset_after=True, the "
-                    "backward: the chain (dxp, dh0), then dwh, dbh by gru_dwh_kernel + "
+                    "backward: the chain (dxp, dh0), then dwh, dbh by gru_dwh_wgmma + "
                     "gru_dwh_sum (csrc/gru_dwh.cu)", "launches": counts["bwd"],
            "max_abs_err": max(t["bwd_abs_err"], t2["bwd_abs_err"]),
            "bwd_max_rel_err": max(worst["bwd"], t["bwd_rel_err"],
@@ -5735,7 +5839,7 @@ def _wide_stacked(workdir: str) -> dict:
         stacked_step()
         torch.cuda.synchronize()
     counts = _gru_counts()
-    want = _gru_path_counts(0, layers, "wide")
+    want = _gru_path_counts(0, layers, "wide", m.gru_hidden)
     check(counts == want and not plain_on_card, f"wide stacked step launches {counts} != {want}")
     step_ms = _median_ms(stacked_step, reps=5)
     worst = _stack_kernel_checks([(STACK_RUNS, batch, m.seq_len_out, h) for h in
@@ -5759,7 +5863,7 @@ def _wide_stacked(workdir: str) -> dict:
         counts = _gru_counts()
         per = 1 if mode == "stacked" else STACK_RUNS
         want = _gru_path_counts(per * layers * n_val * STACK_EPOCHS,
-                                per * layers * n_train * STACK_EPOCHS, "wide")
+                                per * layers * n_train * STACK_EPOCHS, "wide", m.gru_hidden)
         check(counts == want and not plain_on_card,
               f"wide --runs-mode {mode} launches {counts} != {want}")
         if mode == "stacked":
@@ -5848,6 +5952,13 @@ def phase_wide_paths(workdir: str, pcm: np.ndarray) -> dict:
                     "cluster_train": cluster_step["counts"]["gru_dwh_mma"],
                     "grid_train": grid_step["counts"]["gru_dwh_mma"]}
     check(all(v > 0 for v in dwh_launches.values()), f"gru_dwh launches by path {dwh_launches}")
+    # its wgmma body: every one of these widths (128, 256, 1024) takes it
+    wgmma_launches = {"wide_train": train_launches["gru_dwh_wgmma"]
+                      + step["counts"]["gru_dwh_wgmma"],
+                      "cluster_train": cluster_step["counts"]["gru_dwh_wgmma"],
+                      "grid_train": grid_step["counts"]["gru_dwh_wgmma"]}
+    check(wgmma_launches == dwh_launches,
+          f"gru_dwh wgmma launches by path {wgmma_launches} != {dwh_launches}")
     print(f"[kernel B wide] the wide body's launches by path {launches}, the cluster body's "
           f"{cluster_launches}, the grid body's {grid_launches} (grid paths in "
           f"{time.perf_counter() - t1:.1f} s); paths in {time.perf_counter() - t0:.1f} s")
@@ -5855,7 +5966,7 @@ def phase_wide_paths(workdir: str, pcm: np.ndarray) -> dict:
             "cluster_launches": cluster_launches, "cluster_step": cluster_step,
             "cluster_serving": cluster_serving, "grid_launches": grid_launches,
             "grid_step": grid_step, "grid_serving": grid_serving, "grid_counts": grid_counts,
-            "dwh_launches": dwh_launches}
+            "dwh_launches": dwh_launches, "dwh_wgmma_launches": wgmma_launches}
 
 
 PARALLEL_EPOCHS = 2
@@ -6502,8 +6613,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="The port's smoke run on one CUDA card.")
     ap.add_argument("--dwh-parent", default="",
-                    help="an older csrc/gru_wide.cu whose FMA dwh reduction [kernel B dwh] "
-                         "times in turns with csrc/gru_dwh.cu")
+                    help="an older csrc/gru_dwh.cu (or csrc/gru_wide.cu, its FMA reduction) "
+                         "whose dwh reduction [kernel B dwh] times in turns with "
+                         "csrc/gru_dwh.cu")
     args = ap.parse_args(argv)
     smi = phase_device()
     import torch
@@ -6591,6 +6703,7 @@ def main(argv=None) -> int:
     launches["gru_grid_bwd"] = kernel_grid_bwd.pop("launches")
     launches["gru_dwh_mma"] = sum(wide_paths["dwh_launches"].values())
     kernel_dwh_mma["launches_by_path"] = wide_paths["dwh_launches"]
+    kernel_dwh_mma["wgmma_launches_by_path"] = wide_paths["dwh_wgmma_launches"]
     # [tools]: each kernel's device time per launch in the profile_trace trace
     for entry, kind in ((kernel_a, "fused_logmel"), (kernel_b, "gru_scan_fwd"),
                         (kernel_fwd_res, "gru_scan_fwd_res"), (kernel_bwd, "gru_scan_bwd"),

@@ -38,8 +38,9 @@ All run one or two directions (and S seeds) per launch, and reduce the
 backward's ``dwh``/``dbh`` after the gradient chain by a separate kernel over
 the stored rows, summed in a fixed order (`gru_dwh_plain` is its reference):
 the warp body its own, every other body ``csrc/gru_dwh.cu``, a split-K
-product on the tensor cores in 3xTF32 (`dwh_split_plan`; `gru_dwh_3xtf32`
-repeats its arithmetic for the tests).
+product on the tensor cores in 3xTF32 (`dwh_split_plan`; `dwh_body` picks its
+wgmma body or its mma.sync tile; `gru_dwh_3xtf32` repeats its arithmetic for
+the tests).
 
 Entry points, each of which launches a kernel for a CUDA tensor, runs its
 plain version only for a CPU tensor, and counts its launches:
@@ -57,7 +58,8 @@ plain version only for a CPU tensor, and counts its launches:
   (``_bwd_kernel``) over the stored residuals -> ``dxp, dwh, dbh, dh0``.
   The chain is counted in ``gru_scan_bwd.launches``, the ``dwh``/``dbh``
   reduction in ``gru_scan_bwd.dwh_launches`` (those of ``csrc/gru_dwh.cu``
-  among them also in ``gru_scan_bwd.mma_dwh_launches``) and the fixed-order
+  among them also in ``gru_scan_bwd.mma_dwh_launches``, and those of its
+  wgmma body also in ``gru_scan_bwd.wgmma_dwh_launches``) and the fixed-order
   sum of its partials in ``gru_scan_bwd.sum_launches``. ``dbh`` is zero when
   ``reset_after`` is False, as the JAX wrapper sets it.
 
@@ -450,14 +452,20 @@ def gru_dwh_plain(
 
 
 # The dwh/dbh reduction above the warp body, as csrc/gru_dwh.cu computes it
-# (the card's library reports the same split count: `gru_dwh_splits`): a
-# block owns DWH_TILE x DWH_TILE entries of one part of dwh and walks its
-# row split in chunks of DWH_K rows; the splits give about DWH_SPLIT_BLOCKS
-# blocks, at most one split per DWH_MIN_SPLIT_ROWS rows, whole chunks.
+# (the card's library reports the same split count and body:
+# `gru_dwh_splits`, `gru_dwh_body`): a block owns DWH_TILE x DWH_TILE
+# entries of one part of dwh and walks its row split in chunks of DWH_K
+# rows; the splits give about DWH_SPLIT_BLOCKS blocks, at most one split per
+# DWH_MIN_SPLIT_ROWS rows, whole chunks. The wgmma body takes the widths
+# above DWH_WGMMA_MIN_H that are multiples of 4 on operands that start on
+# 16-byte boundaries (its TMA copies need 16-byte rows and bases), the
+# mma.sync tile the others.
 DWH_TILE = 128
 DWH_K = 32
 DWH_SPLIT_BLOCKS = 264             # two waves of an H100's 132 SMs
 DWH_MIN_SPLIT_ROWS = 256
+DWH_WGMMA_MIN_H = 64
+DWH_BODIES = ("tile", "wgmma")     # gru_dwh_body's 0 and 1
 
 
 def dwh_split_plan(B: int, T: int, H: int) -> Tuple[int, int]:
@@ -469,6 +477,14 @@ def dwh_split_plan(B: int, T: int, H: int) -> Tuple[int, int]:
     n = min(max(1, DWH_SPLIT_BLOCKS // (3 * t * t)), max(1, -(-rows // DWH_MIN_SPLIT_ROWS)))
     chunk = _round_up(-(-rows // n), DWH_K)
     return -(-rows // chunk), chunk
+
+
+def dwh_body(H: int, aligned: bool = True) -> str:
+    """Which body of ``csrc/gru_dwh.cu`` reduces H-wide operands:
+    ``"wgmma"`` (warpgroup products fed by TMA copies) where H is a multiple
+    of 4 above DWH_WGMMA_MIN_H and every operand is ``aligned`` to 16 bytes
+    (as fresh tensors are), else ``"tile"`` (mma.sync)."""
+    return DWH_BODIES[int(aligned and H % 4 == 0 and H > DWH_WGMMA_MIN_H)]
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -647,6 +663,9 @@ def bind_dwh(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gru_dwh_sum_partials.restype = _i
     lib.gru_dwh_error_string.argtypes = [_i]
     lib.gru_dwh_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "gru_dwh_body"):   # not in a library built before the wgmma body
+        lib.gru_dwh_body.argtypes = [ctypes.POINTER(_DwhDir), _i, _i]
+        lib.gru_dwh_body.restype = _i
     return lib
 
 
@@ -922,6 +941,8 @@ def _bwd(ys_s, res_s, whs, h0s, dys_s, dhl_s, reverses: Sequence[bool], reset_af
         gru_scan_bwd.dwh_launches += 1
         if body != "warp":
             gru_scan_bwd.mma_dwh_launches += 1
+            if _dwh_lib().gru_dwh_body(arr, n_dir, H) == 1:   # the body it launched
+                gru_scan_bwd.wgmma_dwh_launches += 1
         sums = torch.empty((n_dir, n_seed, n), dtype=torch.float32, device=dev)
         status = sum_launch(part.data_ptr(), sums.data_ptr(), n_dir * n_seed, n_part, n, stream)
         _raise_on(status, f"{name}_sum_partials", error_string)
@@ -1017,6 +1038,7 @@ gru_scan_bwd.launches = 0
 gru_scan_bwd.dwh_launches = 0
 gru_scan_bwd.sum_launches = 0
 gru_scan_bwd.mma_dwh_launches = 0
+gru_scan_bwd.wgmma_dwh_launches = 0
 
 
 def _pair_bias(bh: Sequence[Optional[torch.Tensor]], reset_after: bool, xp: Pair):

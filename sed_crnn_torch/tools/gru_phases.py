@@ -61,19 +61,30 @@ with each build's plan and whether the two give the same bits.
 ``--body dwh`` builds ``sed_crnn_torch/csrc/gru_dwh.cu`` (the backward's
 dwh/dbh reduction above the warp body) as it is and with its cuts
 (``-DGRU_DWH_CUT=k``): ``one_product`` (1: hi.hi only, one TF32 product a
-tile in place of three), ``no_products`` (2: nor that, nor the fragments'
-loads and splits) and ``no_copies`` (3: nor the cp.async copies of the
-chunks), and times the reduction of a pair's stored rows at B = 128,
-T = ``--T``, at H (default 128, 1024 and 2048), both conventions, in
-turns. The phases, in ms: the two extra products of 3xTF32 = full -
-one_product, one product = one_product - no_products (fragments, splits,
-MMAs), copies = no_products - no_copies, rest = no_copies (the ring's
-waits and barriers, the partials' writes, dbh). One JSON line per
-(convention, H) with the split count and the rate of the float32 product.
-With ``--against PATH`` it builds ``gru_dwh.cu`` as it is and from PATH
-(another version with the same C interface) and times the two in turns
-instead, with the largest distance between their dwh relative to its
-largest entry.
+k step in place of three), ``no_products`` (2: nor that, nor the A
+fragments' loads and splits), ``no_copies`` (3: nor the copies of the
+chunks; on the wgmma body the split pass of B is what is left),
+``no_split`` (4: no products and no split pass: the wgmma body's copies
+alone; the tile body has no split pass, so it is its no_products),
+``products_alone`` (5: no copies and no split pass, the products with
+their A loads) and ``bare_products`` (6: nor the A loads), and times the
+reduction of a pair's stored rows at B = 128, T = ``--T``, at H (default
+128, 1024 and 2048), both conventions, in turns, on the body the library's
+``gru_dwh_body`` picks. The phases, in ms: the two extra products of
+3xTF32 = full - one_product, one product = one_product - no_products (A
+fragments, splits, MMAs); on the wgmma body copies alone = no_split, split
+pass alone = no_copies, copies and split pass together = no_products,
+products alone with and without their A loads = products_alone,
+bare_products; on the tile body copies = no_products - no_copies, rest =
+no_copies (the ring's waits and barriers, the partials' writes, dbh). One
+JSON line per (convention, H) with the body, the split count, the rate of
+the float32 product, the share of the bound (three TF32 products at 495
+TFLOP/s) and the host's issue time of one launch (the wgmma body encodes
+its tensor maps there). With ``--against PATH`` it builds ``gru_dwh.cu``
+as it is and from PATH (another version with the same C interface, an
+older one from `git archive` of a commit before the wgmma body among them)
+and times the two in turns instead, each on its own dispatch, with the
+largest distance between their dwh relative to its largest entry.
 
 ``--l2-source PATH`` (with ``--body grid``) also builds the wide body from
 PATH, a ``gru_wide.cu`` that still has the L2 tier the grid body replaced
@@ -91,6 +102,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -105,7 +117,10 @@ VARIANTS = {"full": (), "no_exchange": ("-DGRU_CLUSTER_CUT=1",),
             "threads512": ("-DGRU_CLUSTER_MAX_THREADS=512",)}
 CUTS = ("full", "no_exchange", "no_products", "no_staging")
 DWH_VARIANTS = {"full": (), "one_product": ("-DGRU_DWH_CUT=1",),
-                "no_products": ("-DGRU_DWH_CUT=2",), "no_copies": ("-DGRU_DWH_CUT=3",)}
+                "no_products": ("-DGRU_DWH_CUT=2",), "no_copies": ("-DGRU_DWH_CUT=3",),
+                "no_split": ("-DGRU_DWH_CUT=4",), "products_alone": ("-DGRU_DWH_CUT=5",),
+                "bare_products": ("-DGRU_DWH_CUT=6",)}
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
 DWH_WIDTHS = (128, 1024, 2048)
 BATCHES = (1, 128)
 AGAINST_BATCHES = (1, 8, 16)
@@ -354,6 +369,33 @@ def grid_main(H: int, T: int, l2_source: str, l2_T: int) -> int:
     return 0
 
 
+def host_issue_ms(fn, reps: int = REPS) -> float:
+    """Host ms per call of ``fn`` that launches work on the card without
+    waiting for it: the issue alone (the card idle before, the calls far
+    fewer than the launch queue holds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def _dwh_phases(body: str, mean: dict) -> dict:
+    """The reduction's phases in ms from its cuts' mean times."""
+    out = {"full": mean["full"], "two_more_products": mean["full"] - mean["one_product"],
+           "one_product": mean["one_product"] - mean["no_products"]}
+    if body == "wgmma":
+        out.update({"copies_alone": mean["no_split"], "split_pass_alone": mean["no_copies"],
+                    "copies_and_split": mean["no_products"],
+                    "products_alone": mean["products_alone"],
+                    "bare_products": mean["bare_products"]})
+    else:
+        out.update({"copies": mean["no_products"] - mean["no_copies"], "rest": mean["no_copies"]})
+    return out
+
+
 def dwh_main(H: int, T: int, against: str = "") -> int:
     """``--body dwh``: csrc/gru_dwh.cu's phases, by its profiling cuts, or
     this version in turns with the one at ``against``."""
@@ -380,6 +422,7 @@ def dwh_main(H: int, T: int, against: str = "") -> int:
             arr = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(),
                                                 x.data_ptr(), part[k].data_ptr(), k)
                                      for k, (y, r, h, x) in enumerate(ops)))
+            on = gs.DWH_BODIES[first.gru_dwh_body(arr, 2, H)]
 
             def launch(lib):
                 gs._raise_on(lib.gru_dwh_launch(arr, 2, 1, B, T, H, int(reset_after), stream),
@@ -387,6 +430,7 @@ def dwh_main(H: int, T: int, against: str = "") -> int:
 
             ms = _in_turns(libs, launch)
             mean = {k: float(np.mean(v)) for k, v in ms.items()}
+            host = {k: host_issue_ms(lambda lib=lib: launch(lib)) for k, lib in libs.items()}
             if against:
                 outs = {}
                 for name, lib in libs.items():
@@ -397,21 +441,19 @@ def dwh_main(H: int, T: int, against: str = "") -> int:
                 print(json.dumps({
                     "body": "dwh against", "H": H, "T": T, "B": B,
                     "reset_after": reset_after, "device": device, "source": against,
-                    "ms": ms, "mean_ms": mean,
+                    "ms": ms, "mean_ms": mean, "host_issue_ms": host,
                     "rel_diff": float((outs["this"] - outs["other"]).abs().max()) / scale}),
                     flush=True)
                 del ops, part, outs
                 torch.cuda.empty_cache()
                 continue
+            flops = 2 * 2 * B * T * H * 3 * H
             print(json.dumps({
-                "body": "dwh", "H": H, "T": T, "B": B, "reset_after": reset_after,
-                "device": device, "splits": n_part, "ms": ms,
-                "tflops": 2 * 2 * B * T * H * 3 * H / mean["full"] / 1e9,
-                "phases_ms": {"full": mean["full"],
-                              "two_more_products": mean["full"] - mean["one_product"],
-                              "one_product": mean["one_product"] - mean["no_products"],
-                              "copies": mean["no_products"] - mean["no_copies"],
-                              "rest": mean["no_copies"]}}), flush=True)
+                "body": "dwh", "dwh_body": on, "H": H, "T": T, "B": B,
+                "reset_after": reset_after, "device": device, "splits": n_part, "ms": ms,
+                "host_issue_ms": host["full"], "tflops": flops / mean["full"] / 1e9,
+                "bound_share": 3 * flops / PEAK_TF32_FLOPS * 1e3 / mean["full"],
+                "phases_ms": _dwh_phases(on, mean)}), flush=True)
             del ops, part
             torch.cuda.empty_cache()
     return 0

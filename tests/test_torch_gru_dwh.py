@@ -1,8 +1,10 @@
 """Kernel B's dwh/dbh reduction above the warp body (``csrc/gru_dwh.cu``,
-every H > 32) on the CPU: the Python mirror of its row split, the 3xTF32
-emulation of its arithmetic (`gru_dwh_3xtf32`) against a float64 product and
-against the JAX package's `_bwd_kernel` (its custom-VJP backward, Pallas
-interpreted on the CPU), and the source's build rules.
+every H > 32) on the CPU: the Python mirrors of its row split and of its
+choice of body (`dwh_body`: the wgmma body or the mma.sync tile), the 3xTF32
+emulation of its arithmetic (`gru_dwh_3xtf32`, both bodies' order) against
+a float64 product and against the JAX package's `_bwd_kernel` (its
+custom-VJP backward, Pallas interpreted on the CPU), and the source's build
+rules.
 
 Tolerance: 1e-4 of the largest entry of the reference, the band the card
 holds dwh to (chip_smoke.py's GRAD_RTOL): the three TF32 products keep about
@@ -25,6 +27,8 @@ from sed_crnn_torch.ops.kernels.gru_scan import (
     DWH_MIN_SPLIT_ROWS,
     DWH_SPLIT_BLOCKS,
     DWH_TILE,
+    DWH_WGMMA_MIN_H,
+    dwh_body,
     dwh_split_plan,
     gru_dwh_3xtf32,
     gru_dwh_plain,
@@ -81,6 +85,24 @@ def test_split_plan_at_the_timed_shapes():
     assert dwh_split_plan(128, 256, 64) == dwh_split_plan(128, 256, 128) == (86, 384)
     assert dwh_split_plan(128, 256, 256) == (22, 1504)
     assert dwh_split_plan(128, 256, 1024) == dwh_split_plan(128, 256, 2048) == (1, 32768)
+
+
+# The body each width takes on operands that start on 16-byte boundaries:
+# the wgmma body where H is a multiple of 4 above 64 (its tensor maps need
+# 16-byte rows), the mma.sync tile at H <= 64 (its 64-wide instantiation) and
+# at every width that is not a multiple of 4.
+BODY_OF = {33: "tile", 64: "tile", 128: "wgmma", 129: "tile", 256: "wgmma", 257: "tile",
+           1024: "wgmma", 2048: "wgmma", WIDEST_PAIR: "tile"}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("H", sorted(BODY_OF))
+def test_body_rule_pins_each_width(H, aligned):
+    """`dwh_body`, the mirror of gru_dwh_body in csrc/gru_dwh.cu: 1,024 and
+    2,048 (the grid body's timed widths) take the wgmma body; an operand off
+    a 16-byte boundary sends every width to the tile."""
+    assert dwh_body(H, aligned) == (BODY_OF[H] if aligned else "tile")
+    assert dwh_body(H) == BODY_OF[H]
 
 
 def test_tf32_round_is_cvt_rna():
@@ -174,27 +196,53 @@ def test_emulation_matches_the_jax_backward_kernel(H, reset_after, reverse):
 def test_dwh_source_is_built_uses_the_tensor_cores_and_calls_no_library():
     """csrc/gru_dwh.cu is one of the built sources, for sm_90a; it calls no
     cuDNN, cuBLAS, CUTLASS or other finished kernel; its products are
-    mma.sync TF32 on operands split by `tf32_round`'s integer rounding (the
-    bits of cvt.rna.tf32), staged by cp.async;
-    its constants are the Python mirror's; the wide body's FMA reduction is
+    wgmma.mma_async TF32 (A from registers, B from shared memory) in the wgmma
+    body and mma.sync TF32 in the tile, on operands split by `tf32_round`'s
+    integer rounding (the bits of cvt.rna.tf32); the wgmma body is fed by TMA
+    boxes under mbarriers (its tensor maps encoded through the runtime's
+    driver entry point, so nothing links -lcuda), split once a block, its
+    roles one if/else with setmaxnreg; the tile is staged by cp.async; its
+    constants are the Python mirror's; the wide body's FMA reduction is
     gone."""
     assert "gru_dwh" in _build.KERNEL_SOURCES
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("-lcuda" in flag for flag in _build.NVCC_FLAGS)
     src = (_build.CSRC_DIR / "gru_dwh.cu").read_text()
     includes = sorted(ln.split()[1] for ln in src.splitlines() if ln.startswith("#include"))
-    assert includes == ["<cuda_runtime.h>", "<mutex>", "<stdint.h>", "<vector>"]
-    for word in ("cudnn", "cublas", "cutlass", "matmul", "wgmma", "gru_wide_dwh", "atomicadd"):
+    assert includes == ["<cstring>", "<cuda.h>", "<cuda_runtime.h>", "<mutex>", "<stdint.h>",
+                        "<vector>"]
+    for word in ("cudnn", "cublas", "cutlass", "matmul", "gru_wide_dwh", "atomicadd"):
         assert word not in src.lower()
     for word in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32",
+                 "wgmma.fence.sync.aligned", "wgmma.commit_group.sync.aligned",
+                 "wgmma.wait_group.sync.aligned 0", "mbarrier.init.shared::cta.b64",
+                 "mbarrier.arrive.expect_tx.shared::cta.b64", "mbarrier.try_wait.parity",
+                 "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes",
+                 "fence.proxy.async.shared::cta",
+                 "setmaxnreg.dec.sync.aligned.u32 40", "setmaxnreg.inc.sync.aligned.u32 232",
+                 "__grid_constant__", "cudaGetDriverEntryPoint(\"cuTensorMapEncodeTiled\"",
                  "(__float_as_uint(x) + 0x1000u) & 0xffffe000u", "cp.async",
-                 "gru_dwh_sum_partials", "gru_dwh_splits"):
-        assert word in src
+                 "gru_dwh_sum_partials", "gru_dwh_splits", "gru_dwh_body"):
+        assert word in src, word
     for name, value in (("BM", DWH_TILE), ("BK", DWH_K), ("SPLIT_BLOCKS", DWH_SPLIT_BLOCKS),
-                        ("MIN_SPLIT_ROWS", DWH_MIN_SPLIT_ROWS)):
+                        ("MIN_SPLIT_ROWS", DWH_MIN_SPLIT_ROWS),
+                        ("WGMMA_MIN_H", DWH_WGMMA_MIN_H)):
         assert f"constexpr int {name} = {value};" in src
+    # the body rule: the wgmma body only on 16-byte rows (H a multiple of 4,
+    # every operand aligned), which its tensor maps need; it has no other
+    # producer path
+    assert "return H > WGMMA_MIN_H && rows16(dirs, ndir, H) ? 1 : 0;" in src
+    assert "bool vec = H % 4 == 0;" in src and "aligned16(dirs[i].dxp)" in src
+    assert "cp.async.mbarrier" not in src and src.count("rows16(dirs, ndir, H)") == 2
     assert src.count("mma_tf32(acc[mt][nt]") == 3    # lo.hi, hi.lo, hi.hi
-    # two block tiles: 128 wide, 64 wide where H <= 64 (the split plan's
-    # tiles are the wide ones at every H)
+    # the wgmma body's k step: lo.hi (a fresh accumulator at k step 0), hi.lo,
+    # hi.hi, from the A set in registers and B's hi / lo descriptors
+    step = src.index("if (ks == 0) wgmma_tf32<0>(acc, al[ks], dh);")
+    assert src.index("else wgmma_tf32<1>(acc, al[ks], dh);", step) < src.index(
+        "wgmma_tf32<1>(acc, ah[ks], dl);", step) < src.index("wgmma_tf32<1>(acc, ah[ks], dh);", step)
+    # two block tiles for mma.sync: 128 wide, 64 wide where H <= 64 (the
+    # split plan's tiles are the wide ones at every H and on both bodies)
     assert "constexpr int BM_NARROW = 64;" in src and "launch<BM_NARROW, 2>" in src
     # The profiling cuts are the only build-time switch, off by default.
     assert "#define GRU_DWH_CUT 0\n" in src
@@ -204,3 +252,4 @@ def test_dwh_source_is_built_uses_the_tensor_cores_and_calls_no_library():
     for name in ("gru_wide_dwh", "gru_wide_sum", "dwh_splits", "DwhDir", "constexpr int DT",
                  "constexpr int DK"):
         assert name not in wide
+

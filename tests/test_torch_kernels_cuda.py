@@ -290,26 +290,35 @@ def test_gru_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, re
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
 
 
-@pytest.mark.parametrize("B,T,H", [(3, 100, 33), (128, 64, 128), (5, 70, 257), (64, 256, 1024)])
+@pytest.mark.parametrize("B,T,H", [(3, 100, 33), (128, 64, 128), (5, 70, 257), (5, 70, 260),
+                                   (64, 256, 1024)])
 @pytest.mark.parametrize("reset_after", [False, True])
 def test_mma_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, reset_after):
     """csrc/gru_dwh.cu (3xTF32 on the tensor cores, split-K, fixed-order
-    sum) on a pair's stored rows and its own dxp: dwh/dbh within 1e-4 of the
-    largest entry of `gru_dwh_plain`, two runs bitwise equal, one launch of
-    the reduction and of the sum; the card's split count is the Python
-    mirror's. At H = 1024 one split walks all 16,384 rows, where a single
-    tensor-core accumulator drifts out of the band."""
-    from sed_crnn_torch.ops.kernels.gru_scan import _dwh_lib, dwh_split_plan
+    sum) on a pair's stored rows and its own dxp, on the body `dwh_body`
+    picks (the mma.sync tile at the odd widths 33 and 257, the wgmma body at
+    128, 260 (a partial tile) and 1024): dwh/dbh within 1e-4 of the largest
+    entry of `gru_dwh_plain`, two runs bitwise equal, one launch of the
+    reduction and of the sum (the wgmma body's counted apart, by the body the
+    library launched, as the Python mirror says); the card's split count is
+    the Python mirror's; a stack of two seeds whose
+    seed 0 is this pair gives seed 0 bitwise the pair's. At H = 1024 one
+    split walks all 16,384 rows, where a single tensor-core accumulator
+    drifts out of the band."""
+    from sed_crnn_torch.ops.kernels.gru_scan import _dwh_lib, dwh_body, dwh_split_plan
 
     assert _dwh_lib().gru_dwh_splits(B, T, H) == dwh_split_plan(B, T, H)[0]
-    xp, wh, bh, h0, dys, dhl = _pair_case(cuda, B, T, H, reset_after, 130 + H)
+    cases = [_pair_case(cuda, B, T, H, reset_after, 130 + H + 7 * s) for s in range(2)]
+    xp, wh, bh, h0, dys, dhl = cases[0]
     pair_res = gru_scan_pair_fwd_res(xp, wh, bh, h0, reset_after, "sigmoid")
     ys, res = tuple(r[0] for r in pair_res), tuple(r[1] for r in pair_res)
     before = (gru_scan_bwd.dwh_launches, gru_scan_bwd.mma_dwh_launches,
-              gru_scan_bwd.sum_launches)
+              gru_scan_bwd.wgmma_dwh_launches, gru_scan_bwd.sum_launches)
     first = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, "sigmoid")
+    wgmma = int(dwh_body(H) == "wgmma")
     assert (gru_scan_bwd.dwh_launches, gru_scan_bwd.mma_dwh_launches,
-            gru_scan_bwd.sum_launches) == tuple(b + 1 for b in before)
+            gru_scan_bwd.wgmma_dwh_launches, gru_scan_bwd.sum_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + wgmma, before[3] + 1)
     second = gru_scan_pair_bwd(ys, res, wh, h0, dys, dhl, reset_after, "sigmoid")
     torch.cuda.synchronize()
     for k, rev in enumerate((False, True)):
@@ -321,8 +330,98 @@ def test_mma_dwh_reduction_matches_plain_and_is_bitwise_stable(cuda, B, T, H, re
                                    atol=1e-4 * max(float(want_dbh.abs().max()), 1e-6))
         assert all(torch.equal(a, b) for a, b in zip(first[k], second[k]))
 
+    def stacked(i):   # operand i of both directions, seeds stacked
+        if cases[0][i][0] is None:
+            return None, None
+        return tuple(torch.stack([c[i][k] for c in cases]) for k in range(2))
 
-WIDE_WIDTHS = [33, 48, 64, 96, 128, 129, 256, 512, 520, 768, 1024, 1536, 2048]
+    s_xp, s_wh, s_bh, s_h0, s_dys, s_dhl = (stacked(i) for i in range(6))
+    s_res = gru_scan_stack_fwd_res(s_xp, s_wh, s_bh, s_h0, reset_after, "sigmoid")
+    s_ys, s_rs = tuple(r[0] for r in s_res), tuple(r[1] for r in s_res)
+    stack = gru_scan_stack_bwd(s_ys, s_rs, s_wh, s_h0, s_dys, s_dhl, reset_after, "sigmoid")
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert torch.equal(s_ys[k][0], ys[k]) and torch.equal(s_rs[k][0], res[k])
+        assert all(torch.equal(a[0], b) for a, b in zip(stack[k], first[k]))
+
+
+@pytest.mark.parametrize("B,T,H,offset", [(3, 50, 512, 1), (3, 50, 512, 0), (2, 200, 132, 0),
+                                          (1, 4, 384, 0), (1, 4, 384, 1), (4, 33, 1024, 0),
+                                          (1, 1, 520, 0), (2, 40, 129, 0)])
+@pytest.mark.parametrize("reset_after", [False, True])
+def test_dwh_dispatch_matches_plain(cuda, B, T, H, offset, reset_after):
+    """csrc/gru_dwh.cu through its one entry, `gru_dwh_launch`, on a pair's
+    operands: the body `gru_dwh_body` names is the Python mirror's
+    (`dwh_body`); within 1e-4 of `gru_dwh_plain`'s largest entry, bitwise
+    run to run. T = 1 and 4 put several sequence starts (h0's rows) in a
+    chunk, T = 33 one that crosses chunks; operands one float off a 16-byte
+    boundary (offset 1) go to the tile, whose 4-byte copies take them, as
+    H = 129 does."""
+    from sed_crnn_torch.ops.kernels import gru_scan as gs
+
+    lib = gs._dwh_lib()
+    gen = torch.Generator(device=cuda).manual_seed(B + T + H + offset)
+
+    def placed(t):   # a copy of t that starts `offset` floats into its storage
+        buf = torch.empty(t.numel() + offset, device=cuda)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    ops = [tuple(placed(t) for t in (
+        torch.tanh(torch.randn((B, T, H), generator=gen, device=cuda)),
+        torch.rand((B, T, gs.res_width(reset_after, H)), generator=gen, device=cuda),
+        0.5 * torch.randn((B, H), generator=gen, device=cuda),
+        torch.randn((B, T, 3 * H), generator=gen, device=cuda))) for _ in range(2)]
+    n_part, n = lib.gru_dwh_splits(B, T, H), 3 * H * H + 3 * H
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for _ in range(2):
+        part = torch.full((2, 1, n_part, n), float("nan"), device=cuda)
+        sums = torch.empty((2, 1, n), device=cuda)
+        arr = (gs._DwhDir * 2)(*(gs._DwhDir(y.data_ptr(), r.data_ptr(), h.data_ptr(),
+                                            x.data_ptr(), part[k].data_ptr(), k)
+                                 for k, (y, r, h, x) in enumerate(ops)))
+        assert gs.DWH_BODIES[lib.gru_dwh_body(arr, 2, H)] == gs.dwh_body(H, offset == 0)
+        gs._raise_on(lib.gru_dwh_launch(arr, 2, 1, B, T, H, int(reset_after), stream),
+                     "gru_dwh", lib.gru_dwh_error_string)
+        gs._raise_on(lib.gru_dwh_sum_partials(part.data_ptr(), sums.data_ptr(), 2, n_part, n,
+                                              stream), "gru_dwh_sum", lib.gru_dwh_error_string)
+        outs.append(sums)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    for k in range(2):
+        want_dwh, want_dbh = gru_dwh_plain(*ops[k], reset_after, k == 1)
+        torch.testing.assert_close(outs[0][k, 0, : 3 * H * H].view(H, 3 * H), want_dwh, rtol=0,
+                                   atol=1e-4 * float(want_dwh.abs().max()))
+        torch.testing.assert_close(outs[0][k, 0, 3 * H * H :], want_dbh, rtol=0,
+                                   atol=1e-4 * max(float(want_dbh.abs().max()), 1e-6))
+
+
+def test_dwh_bodies_build_without_spills(cuda, tmp_path):
+    """csrc/gru_dwh.cu built as the port builds it (sm_90a): ptxas reports
+    no spill in the wgmma body, whose consumers hold 64 + 64 accumulators
+    and 32 A registers a thread under setmaxnreg, nor in either tile."""
+    import subprocess
+
+    from sed_crnn_torch.ops.kernels import _build
+
+    done = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp_path / "libgru_dwh.so"),
+         str(_build.CSRC_DIR / "gru_dwh.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=600)
+    assert done.returncode == 0, done.stdout
+    lines = done.stdout.splitlines()
+    spills = {ln.rsplit(" ", 1)[-1]: lines[i + 1] for i, ln in enumerate(lines[:-1])
+              if "Function properties for" in ln}
+    bodies = {k: v for k, v in spills.items() if "gru_dwh_wgmma" in k or "gru_dwh_kernel" in k}
+    assert sum("gru_dwh_wgmma" in k for k in bodies) == 1, spills
+    assert sum("gru_dwh_kernel" in k for k in bodies) == 2, spills
+    for name, line in bodies.items():
+        assert "0 bytes spill stores, 0 bytes spill loads" in line, (name, line)
+
+
+WIDE_WIDTHS =[33, 48, 64, 96, 128, 129, 256, 512, 520, 768, 1024, 1536, 2048]
 
 
 @pytest.mark.parametrize("H", WIDE_WIDTHS)
