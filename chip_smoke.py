@@ -107,9 +107,14 @@ exits non-zero and prints no result line:
     the DIF / direct plain version (torch's FFT + mel above 4096) with the
     -inf pattern equal, and on a frame matrix; its times on 150 s of padded
     audio (warm and cold L2, device and host) beside ``torch.stft`` + mel,
-    its Bluestein plan in turns, both plain versions and the bound; every
-    plan in turns at the sizes that were Bluestein; ``frontend.extract`` at
-    n_fft 1034 with exactly one mixed launch and no cluster launch;
+    its Bluestein plan in turns, both plain versions and the bound; for
+    each plan with matrix stages, which form each ran (one launch, counted
+    by form: ``wgmma`` where `wgmma_radix` names the radix, else
+    ``mma.sync``), the kernel in turns with ``torch.stft`` + mel, and the
+    matrix phase (two cut builds of the body, started after the kernels'
+    build) beside its bound; every plan in turns at the sizes that were
+    Bluestein; ``frontend.extract`` at n_fft 1034 with exactly one mixed
+    launch and no cluster launch;
     then ([kernel A cluster]) the cluster body ``csrc/logmel_cluster.cu``
     (every n_fft beyond one block's shared memory): the clusters the card
     holds at 227 KB a CTA for every size to 16; n_fft 25734 / 12867
@@ -121,12 +126,15 @@ exits non-zero and prints no result line:
     `mixed_log_mel_plain` (bitwise, or within MATRIX_ATOL), two runs
     bitwise equal, within 5e-4 of torch's FFT + mel with the -inf pattern
     equal; the same bits at other cluster sizes (25734 at 2-16 CTAs, 25738
-    at 2-4, 44100 at 2, 3, 4, 7, 88200 at 3-12) and the mixed body's shapes
+    at 2-4, 44100 at 2, 3, 4, 7, 88200 at 3-12, 141001 at 11, 12 and 13:
+    one B slab a CTA, two; its default is 16) and the mixed body's shapes
     (register, matrix and Rader plans) forced onto it at 2, 3, 4 and 8 CTAs, bitwise
     the mixed body's; times on 150 s of padded audio (warm and cold L2,
     device and host) beside ``torch.stft`` + mel, the plain version, the
-    bound and every other plan in turns, and 88200 at 3 and 4 CTAs and
-    141000 at 7 and 8 in turns; ``frontend.extract`` of the 120 s file at
+    bound and every other plan in turns, the matrix plans' forms, turns
+    with the library and matrix phases as for the mixed body (141001's 373
+    on ``wgmma``), and 88200 at 3 and 4 CTAs and 141000 at 7 and 8 in
+    turns; ``frontend.extract`` of the 120 s file at
     25734 (exact) and 44100 (chunked), exactly one cluster launch each;
 12. the feature path: a synthetic DCASE 2017 street layout (12 binaural
     120 s wavs at 44.1 kHz and one 20 s wav at 48 kHz, folds 1 and 2) through
@@ -1910,6 +1918,119 @@ def _reset_logmel_counts():
 
     fused_log_mel.launches = fused_log_mel.framed_launches = fused_log_mel.exact_launches = 0
     fused_log_mel.mixed_launches = fused_log_mel.cluster_launches = 0
+    fused_log_mel.wgmma_launches = fused_log_mel.mma_launches = 0
+
+
+def _form_counts():
+    """Mixed and cluster launches by the form of their matrix stages: on
+    ``wgmma`` and on ``mma.sync`` (`fused_logmel.wgmma_radix`, R alone)."""
+    from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel
+
+    return {"wgmma": fused_log_mel.wgmma_launches, "mma": fused_log_mel.mma_launches}
+
+
+def _forms_text(plan) -> str:
+    """A plan's matrix stages by form."""
+    from sed_crnn_torch.ops.kernels.fused_logmel import wgmma_radix
+
+    radices = plan.matrix + plan.rader_matrix + plan.nested_matrix
+    on = {f: [r for r in radices if wgmma_radix(r) == (f == "wgmma")] for f in ("wgmma", "mma")}
+    return ", ".join(f"{on[f]} on {'wgmma' if f == 'wgmma' else 'mma.sync'}" for f in on
+                     if on[f])
+
+
+# The matrix phase of a timed plan (`tools/logmel_phases.py`'s MATRIX_CUTS:
+# each body built without the power and mel sums, and also without the
+# matrix stages; the phase is the difference). The four builds start after
+# the kernels' (`_start_matrix_cuts`) and are waited for by the first
+# phase that times a matrix phase.
+_MATRIX_CUT_LIBS: dict = {}
+
+
+def _start_matrix_cuts():
+    from sed_crnn_torch.ops.kernels import _build
+    from sed_crnn_torch.tools import logmel_phases as lp
+
+    out = _build.BUILD_DIR.parent / "chip_smoke_cuts"
+    out.mkdir(parents=True, exist_ok=True)
+    for body in ("mixed", "cluster"):
+        source, macro, _ = lp.BODIES[body]
+        for cut, level in lp.MATRIX_CUTS.items():
+            lib = out / f"lib{source}_{cut}.so"
+            _MATRIX_CUT_LIBS[source, cut] = lib, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{macro}={level}", "-o", str(lib),
+                 str(_build.CSRC_DIR / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _matrix_cut_lib(source: str, cut: str):
+    import ctypes
+
+    lib, proc = _MATRIX_CUT_LIBS[source, cut]
+    if isinstance(proc, subprocess.Popen):
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc of {source} {cut}: {out[-2000:]}")
+        _MATRIX_CUT_LIBS[source, cut] = lib, ctypes.CDLL(str(lib))
+    return _MATRIX_CUT_LIBS[source, cut][1]
+
+
+def _matrix_phase(yt, cfg, n_frames: int) -> dict:
+    """The matrix phase of ``cfg``'s plan on its body, ms (the two cut
+    builds in turns), beside its bound and share of it (`tools/
+    logmel_phases.py`'s `matrix_report`: the three TF32 products at 495
+    TFLOP/s or the points' and tables' bytes through shared memory)."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels import fused_logmel as fl
+    from sed_crnn_torch.tools import logmel_phases as lp
+
+    plan = fl.mixed_plan(cfg.n_fft)
+    source = lp.BODIES[fl.body(cfg.n_fft)][0]
+    libs = {cut: _matrix_cut_lib(source, cut) for cut in lp.MATRIX_CUTS}
+    ms = {cut: [] for cut in libs}
+    for cut in list(libs) + list(libs)[::-1]:
+        ms[cut].append(lp._with_lib(fl, source, libs[cut], lambda: cuda_ms(
+            lambda: fl.fused_log_mel(yt, cfg), reps=10)))
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    out = lp.matrix_report(mean, plan, n_frames, torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    return {k: out[k] for k in ("ms", "bound_ms", "bound_by", "share_of_bound")}
+
+
+def _kernel_library_turns(kernel, library) -> tuple:
+    """The kernel and one library call in turns (kernel, library, library,
+    kernel): their mean ms."""
+    ms = {"kernel": [], "library": []}
+    for k in ("kernel", "library", "library", "kernel"):
+        ms[k].append(cuda_ms(kernel if k == "kernel" else library, reps=10))
+    return float(np.mean(ms["kernel"])), float(np.mean(ms["library"]))
+
+
+def _matrix_line(tag: str, plan, yt, cfg, n_frames: int, kernel, library) -> dict:
+    """For a timed plan with matrix stages: which form each ran (one launch,
+    counted by the forms the library reports, checked against the rule's
+    mirror `wgmma_radix`), the kernel in turns with `torch.stft` + mel, and
+    the matrix phase beside its bound; printed, and returned for the
+    kernels line."""
+    import torch
+
+    from sed_crnn_torch.ops.kernels.fused_logmel import fused_log_mel, wgmma_radix
+
+    radices = plan.matrix + plan.rader_matrix + plan.nested_matrix
+    _reset_logmel_counts()
+    fused_log_mel(yt, cfg)
+    torch.cuda.synchronize()
+    forms = _form_counts()
+    want = {"wgmma": int(any(wgmma_radix(r) for r in radices)),
+            "mma": int(any(not wgmma_radix(r) for r in radices))}
+    check(forms == want, f"{tag}: launches by form {forms}, expected {want}")
+    ms, lib_ms = _kernel_library_turns(kernel, library)
+    phase = _matrix_phase(yt, cfg, n_frames)
+    print(f"{tag}: matrix stages {_forms_text(plan)}, one launch by form {forms}; in turns "
+          f"kernel {ms:.4f} ms, torch.stft+mel {lib_ms:.4f} ms (x{lib_ms / ms:.2f}); matrix "
+          f"phase {phase['ms']:.4f} ms against its bound {phase['bound_ms']:.4f} ms "
+          f"({phase['bound_by']}): {phase['share_of_bound']:.3f} of it")
+    return {"forms": forms, "turns_ms": ms, "turns_library_ms": lib_ms, "matrix_phase": phase}
 
 
 def _check_logmel(tag: str, got, want) -> float:
@@ -2325,7 +2446,9 @@ def phase_logmel_mixed(pcm: np.ndarray):
               f"frame-point-stages (frames x N x stages, x2 for Bluestein), "
               f"{ms * 1e9 / point_stages:.2f} ps each")
         print(f"[kernel A mixed] n_fft {n_fft} hop {hop}, {split}")
-        timed[n_fft] = {"ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
+        matrix = (_matrix_line(f"[kernel A mixed] n_fft {n_fft} hop {hop}", plan, yt, cfg,
+                               n_frames, kernel, lib) if plan.tensor_cores else {})
+        timed[n_fft] = {**matrix, "ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
                         "host_ms": measured["kernel"][1], "plain_ms": plain,
                         "mixed_plain_ms": mixed_plain, "bound_ms": bnd, "bound_by": by,
                         "library_ms": lib_ms, "radices": list(plan.radices),
@@ -2383,15 +2506,17 @@ def phase_logmel_mixed(pcm: np.ndarray):
 # 21599 (odd, L prime, 21598 = 2 x 10799, 10798 = 2 x 5399: no Rader plan,
 # nested or not; Bluestein at M 43,200, exact route) and 141001 (odd, L = 7
 # x 20143: a Rader stage of 20143 over 2 x 3 x 3 x 3 x 373, its inner
-# matrix stage of 373 crossing CTAs, C 11; exact route).
+# matrix stage of 373 (on wgmma) crossing CTAs, C 16, as every plan with a
+# wgmma stage, two of its B slabs a CTA; exact route).
 CLUSTER_SHAPES = ((25734, 12867), (25738, 12869), (31290, 15645), (44100, 22050),
                   (48000, 24000), (88200, 44100), (21599, 10799), (141001, 70500))
 # Other splits of five of them, whose bits must be the default split's (4
 # CTAs do not divide 44100's N, so all its stages cross CTAs; at 25738 each
 # CTA holds whole inner transforms of its Rader stage at 2, 3 and 4 CTAs; at
-# 141001 every inner stage crosses at every size).
+# 141001 every inner stage crosses at every size, and its CTAs hold one B
+# slab at C 11 and 12, two from 13).
 CLUSTER_SPLITS = {25734: (2, 3, 4, 8, 16), 25738: (2, 3, 4), 44100: (2, 3, 4, 7),
-                  88200: (3, 4, 6, 12), 141001: (12, 16)}
+                  88200: (3, 4, 6, 12), 141001: (11, 12, 13)}
 # Sizes timed at two cluster sizes in turns: the smallest that holds the
 # plan (`cluster_size`) and one with fewer stages crossing CTAs.
 CLUSTER_TURNS = ((88200, 44100, 3, 4), (141000, 70500, 7, 8))
@@ -2576,7 +2701,9 @@ def phase_logmel_cluster(pcm: np.ndarray):
               f"its bound; {point_stages:,} frame-point-stages, {ms * 1e9 / point_stages:.2f} ps "
               f"each")
         print(f"[kernel A cluster] n_fft {n_fft} hop {hop}, {split}")
-        timed[n_fft] = {"ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
+        matrix = (_matrix_line(f"[kernel A cluster] n_fft {n_fft} hop {hop}", plan, yt, cfg,
+                               n_frames, kernel, lib) if plan.tensor_cores else {})
+        timed[n_fft] = {**matrix, "ms": ms, "cold_ms": cold, "device_ms": measured["kernel"][0],
                         "host_ms": measured["kernel"][1], "plain_ms": plain, "bound_ms": bnd,
                         "bound_by": by, "library_ms": lib_ms, "ctas": sp.ctas,
                         "cross_stages": sum(sp.cross), "stages": len(sp.cross),
@@ -6624,6 +6751,7 @@ def main(argv=None) -> int:
 
     set_full_fp32()
     phase_build()
+    _start_matrix_cuts()
     from sed_crnn_torch.core.config import FrontendConfig
 
     pcm = tones(120.0, 9, silent=[(50.0, 52.0)])

@@ -33,7 +33,11 @@
 // (barrier.cluster arrive.release / wait.acquire). A matrix stage splits
 // its butterflies the same way and reads and writes through the same
 // accessors (a row of its mma products is one butterfly's, whatever the
-// other rows: the mixed body's bits). A Rader stage's gather and pointwise
+// other rows: the mixed body's bits); a stage of 373 runs on wgmma
+// (`wgmma_stage`, in the WG instantiations), its B slabs copied into each
+// CTA's own shared memory, and `cluster_size` gives a plan with one 16
+// CTAs, the most warpgroups on its butterflies. A Rader stage's gather and
+// pointwise
 // product always cross CTAs (x_0 and X_0 sit in the tails); its inner
 // stages cross as the outer ones do, by their sub-transform length. A
 // barrier is cluster-wide when the phase before it or after it reaches
@@ -85,6 +89,10 @@ using logmel::Tables;
 constexpr int MAX_THREADS = 1024;
 constexpr int WIDE_THREADS = 512;       // the instantiation with radices 11 and 13
 constexpr int POINTS = 8;               // transform points a thread owns per stage
+// The wgmma instantiations' threads a CTA at most: 384, 168 registers a
+// thread for the stage's 64 accumulators (at 512 threads and 128 registers
+// they spilled and n_fft 141,001 ran 4 % slower on an H100, PERF.md §6).
+constexpr int WG_THREADS = 384;
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a CTA
 constexpr int MAX_CLUSTER = 16;         // the non-portable cluster limit on Hopper
 constexpr int NO_CLUSTER_FITS = -1;     // status: the card holds no cluster of this shape
@@ -161,21 +169,21 @@ __device__ __forceinline__ void split_stage(int radix, bool cross, float2* z, co
 // One matrix stage on either side of the split, from z into zo (the same
 // butterflies as `split_stage` takes; each butterfly's products the same
 // mma sequence wherever it runs, so the mixed body's bits).
-template <bool TRANSPOSED>
+template <bool TRANSPOSED, class RG>
 __device__ __forceinline__ void split_matrix(int radix, bool cross, float2* z, float2* zo,
                                              const Part& q, int N, int count, int ls,
                                              const float* __restrict__ table,
-                                             const float2* __restrict__ tw) {
+                                             const float2* __restrict__ tw, RG ring) {
   const int nb = count / radix;
   if (cross) {
     const int per = (nb + q.C - 1) / q.C;
     logmel::run_matrix_stage<TRANSPOSED, 4>(Spread{z, q.chunk}, Spread{zo, q.chunk}, N, radix, ls,
                                      min(nb, q.c * per), min(nb, (q.c + 1) * per), q.lt, q.nt,
-                                     table, tw);
+                                     table, tw, ring);
   } else {
     logmel::run_matrix_stage<TRANSPOSED, 4>(logmel::Shifted{z, q.lo}, logmel::Shifted{zo, q.lo}, N,
                                      radix, ls, min(q.lo, count) / radix,
-                                     min(q.hi, count) / radix, q.lt, q.nt, table, tw);
+                                     min(q.hi, count) / radix, q.lt, q.nt, table, tw, ring);
   }
 }
 
@@ -183,11 +191,11 @@ __device__ __forceinline__ void split_matrix(int radix, bool cross, float2* z, f
 // and 4 of the Rader stage in csrc/logmel_stages.cuh), forward or
 // transposed in reverse order, on `cur` (a matrix stage writes `oth` and
 // the two swap), each stage behind the barrier its crossing asks for.
-template <bool TRANSPOSED, bool WIDE, bool EXT>
+template <bool TRANSPOSED, bool WIDE, bool EXT, class RG>
 __device__ __forceinline__ void rader_inner(const Plan& plan, unsigned rcross, float2*& cur,
                                             float2*& oth, int p, int Np, const Part& q,
                                             const float2* rtw, const float* dft,
-                                            bool& cross_before) {
+                                            RG ring, bool& cross_before) {
   int ls = TRANSPOSED ? 1 : p - 1;
   for (int i = 0; i < plan.rader_stages; ++i) {
     const int s = TRANSPOSED ? plan.rader_stages - 1 - i : i;
@@ -199,7 +207,7 @@ __device__ __forceinline__ void rader_inner(const Plan& plan, unsigned rcross, f
     if (logmel::matrix_radix(r)) {
       if (CUT < 3)
         split_matrix<TRANSPOSED>(r, cross, cur, oth, q, p - 1, Np, ls, dft + plan.rader_table[s],
-                                 rtw);
+                                 rtw, ring);
       float2* const t = cur;
       cur = oth;
       oth = t;
@@ -211,9 +219,10 @@ __device__ __forceinline__ void rader_inner(const Plan& plan, unsigned rcross, f
 }
 
 // ALT: a plan with matrix or Rader stages, in two work arrays. EXT: with
-// composite radices (their code only in these instantiations).
-template <bool BLUE, bool WIDE, bool ALT, bool EXT>
-__global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS)
+// composite radices (their code only in these instantiations). WG: with
+// wgmma matrix stages (their code and B ring only in these; ALT).
+template <bool BLUE, bool WIDE, bool ALT, bool EXT, bool WG>
+__global__ void __launch_bounds__(WG ? WG_THREADS : WIDE ? WIDE_THREADS : MAX_THREADS)
 logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                       long long stride, int n_fft, Plan plan, Split split,
                       const float* __restrict__ window,   // (n_fft) Hann
@@ -239,6 +248,8 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
   float2* zb = z + chunk;                                               // the other (ALT)
   float* const pw = reinterpret_cast<float*>(z + (ALT ? 2 : 1) * chunk);   // bins [k_lo, k_hi)
   const bool even = (n_fft & 1) == 0;
+  // The wgmma matrix stages' B ring, in the power row's place.
+  const auto ring = logmel::ring_at<WG>(pw, plan.ring);
 
   const int c = static_cast<int>(cluster.block_rank());
   const int t = blockIdx.x / C;         // the frame of this cluster
@@ -269,13 +280,13 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
                                rgather);
           float2* cur = zb;
           float2* oth = z;
-          rader_inner<false, WIDE, EXT>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
+          rader_inner<false, WIDE, EXT>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft, ring,
                                         cross_before);
           phase_barrier(true);
           logmel::rader_product(logmel::Shifted{cur, lo}, Spread{zb, chunk}, N, r, min(lo, Np),
                                 min(hi, Np), lt, nt, rspec);
           cross_before = true;
-          rader_inner<true, WIDE, EXT>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft,
+          rader_inner<true, WIDE, EXT>(plan, split.rcross, cur, oth, r, Np, q, rtw, dft, ring,
                                        cross_before);
         }
         float2* const tmp = z;
@@ -285,7 +296,7 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
       }
       if (logmel::matrix_radix(r)) {
         if (CUT < 3)
-          split_matrix<false>(r, cross, z, zb, q, N, N, ls, dft + plan.table[s], tw);
+          split_matrix<false>(r, cross, z, zb, q, N, N, ls, dft + plan.table[s], tw, ring);
         float2* const tmp = z;
         z = zb;
         zb = tmp;
@@ -349,25 +360,33 @@ logmel_cluster_kernel(const float* __restrict__ src,      // frame t at src[t * 
   cluster.sync();
 }
 
-// Threads a CTA: POINTS points of its chunk a thread, whole warps, at most
-// MAX_THREADS (WIDE_THREADS for the wide instantiation).
-int threads_per_cta(int chunk, bool wide) {
+// Threads a CTA: POINTS points of its chunk a thread, whole warps (whole
+// warpgroups with a wgmma matrix stage), at most MAX_THREADS (WIDE_THREADS
+// for the wide instantiation).
+int threads_per_cta(int chunk, bool wide, bool wgmma) {
+  const int unit = wgmma ? 128 : 32;
   int t = (chunk + POINTS - 1) / POINTS;
-  t = (t + 31) / 32 * 32;
-  const int most = wide ? WIDE_THREADS : MAX_THREADS;
+  t = (t + unit - 1) / unit * unit;
+  const int most = unit == 128 ? WG_THREADS : wide ? WIDE_THREADS : MAX_THREADS;
   return t > most ? most : t;
 }
 
 // A CTA's shared memory: its share of the work array (two with matrix or
-// Rader stages) and of the power row.
-size_t cta_smem(const Split& split, bool alt) {
-  return sizeof(float2) * (size_t)split.chunk * (alt ? 2 : 1) +
-         sizeof(float) * (size_t)split.bin_chunk;
+// Rader stages) and of the power row, whose place holds the wgmma stages'
+// B ring (`logmel::ring_plan`, which sets plan.ring; its least, one slab,
+// without `plan_ring`) where that is larger.
+size_t cta_smem(const Split& split, bool alt, Plan plan, bool plan_ring = true) {
+  const size_t row = sizeof(float) * (size_t)split.bin_chunk;
+  const size_t arrays = sizeof(float2) * (size_t)split.chunk * (alt ? 2 : 1);
+  const size_t ring = !plan.slab ? 0
+                      : plan_ring ? logmel::ring_plan(plan, arrays, MAX_SMEM)
+                                  : logmel::RING_ALIGN + (size_t)plan.slab;
+  return arrays + (row > ring ? row : ring);
 }
 
 // Host side: the dynamic shared memory and non-portable cluster attributes
 // are set once per instantiation and device (bit d of `done`).
-template <bool BLUE, bool WIDE, bool ALT, bool EXT>
+template <bool BLUE, bool WIDE, bool ALT, bool EXT, bool WG>
 cudaError_t opt_in() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -375,10 +394,10 @@ cudaError_t opt_in() {
   if (err != cudaSuccess) return err;
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT, EXT, WG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>,
+    err = cudaFuncSetAttribute(logmel_cluster_kernel<BLUE, WIDE, ALT, EXT, WG>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     done.fetch_or(bit);
@@ -389,7 +408,7 @@ cudaError_t opt_in() {
 // A launch of `clusters` clusters of `ctas` CTAs of `threads` threads and
 // `smem` bytes, and how many such clusters the card holds at once (0: none,
 // the launch would be refused).
-template <bool BLUE, bool WIDE, bool ALT, bool EXT>
+template <bool BLUE, bool WIDE, bool ALT, bool EXT, bool WG>
 struct Launch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -408,26 +427,28 @@ struct Launch {
   }
 
   cudaError_t resident(int* clusters) {
-    cudaError_t err = opt_in<BLUE, WIDE, ALT, EXT>();
+    cudaError_t err = opt_in<BLUE, WIDE, ALT, EXT, WG>();
     if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>,
+    return cudaOccupancyMaxActiveClusters(clusters, logmel_cluster_kernel<BLUE, WIDE, ALT, EXT, WG>,
                                           &cfg);
   }
 };
 
 // The launch: grid C CTAs a frame, cluster dimension C, after asking the
 // card whether it holds one such cluster.
-template <bool BLUE, bool WIDE, bool ALT, bool EXT>
-int launch_as(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
+template <bool BLUE, bool WIDE, bool ALT, bool EXT, bool WG>
+int launch_as(const float* src, long long stride, int n_frames, int n_fft, Plan plan,
               const Split& split, const Tables& t, int n_mels, int use_floor, float floor_v,
               float* out, cudaStream_t s) {
-  Launch<BLUE, WIDE, ALT, EXT> l(n_frames, split.ctas, threads_per_cta(split.chunk, WIDE),
-                                 cta_smem(split, ALT), s);
+  logmel::ring_plan(plan, (long long)sizeof(float2) * split.chunk * (ALT ? 2 : 1), MAX_SMEM);
+  Launch<BLUE, WIDE, ALT, EXT, WG> l(n_frames, split.ctas,
+                                 threads_per_cta(split.chunk, WIDE, plan.slab > 0),
+                                 cta_smem(split, ALT, plan), s);
   int clusters = 0;
   cudaError_t err = l.resident(&clusters);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (clusters < 1) return NO_CLUSTER_FITS;
-  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE, WIDE, ALT, EXT>, src, stride,
+  err = cudaLaunchKernelEx(&l.cfg, logmel_cluster_kernel<BLUE, WIDE, ALT, EXT, WG>, src, stride,
                            n_fft, plan, split, t.window, t.tw, t.pos, t.chirp, t.bspec, t.utw,
                            t.dft, t.rgather, t.rtw, t.rspec, t.mel_first, t.mel_ptr, t.mel_w,
                            n_mels, use_floor, floor_v, out);
@@ -435,11 +456,15 @@ int launch_as(const float* src, long long stride, int n_frames, int n_fft, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation: EXT where the plan has composite radices.
+// The instantiation: EXT where the plan has composite radices, WG where it
+// has wgmma matrix stages.
 template <bool BLUE, bool WIDE, bool ALT, class... A>
-int launch(bool ext, A... args) {
-  if (ext) return launch_as<BLUE, WIDE, ALT, true>(args...);
-  return launch_as<BLUE, WIDE, ALT, false>(args...);
+int launch(bool ext, bool wg, A... args) {
+  if constexpr (ALT) {
+    if (wg) return launch_as<BLUE, WIDE, ALT, false, true>(args...);
+  }
+  if (ext) return launch_as<BLUE, WIDE, ALT, true, false>(args...);
+  return launch_as<BLUE, WIDE, ALT, false, false>(args...);
 }
 
 }  // namespace
@@ -465,10 +490,23 @@ int logmel_cluster_resident(int ctas, int threads, int smem) {
   if (ctas < 1 || ctas > MAX_CLUSTER || threads < 1 || threads > MAX_THREADS || smem < 0 ||
       smem > MAX_SMEM)
     return -static_cast<int>(cudaErrorInvalidValue);
-  Launch<true, false, false, false> l(1, ctas, threads, smem, nullptr);
+  Launch<true, false, false, false, false> l(1, ctas, threads, smem, nullptr);
   int clusters = 0;
   const cudaError_t err = l.resident(&clusters);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+// The forms of the matrix stages a launch of this plan runs
+// (`logmel_cluster`'s plan arguments): bit 0 mma.sync, bit 1 wgmma; -1 for
+// a plan it does not take.
+int logmel_cluster_forms(int n_fft, int n, int n_stages, const int* radices, int bluestein,
+                         int rader_stages, const int* rader_radices) {
+  Plan plan;
+  bool wide = false, matrix = false, alt = false, ext = false;
+  if (!logmel::make_plan(plan, n_fft, n, n_stages, radices, rader_stages, rader_radices, 0,
+                         nullptr, logmel_cluster_matrix_tiles(), wide, matrix, alt, ext))
+    return -1;
+  return logmel::plan_forms(plan);
 }
 
 // Frame t (t < n_frames) is the n_fft samples at src[t * stride]; the plan
@@ -507,11 +545,13 @@ int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, 
   const bool blue_ok = bluestein && !wide && n >= 2 * plan.points - 1 && chirp != nullptr &&
                        bspec != nullptr;
   if (!(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr) ||
-      (matrix && dft == nullptr))
+      (matrix && dft == nullptr) ||
+      (plan.slab && ext))   // a wgmma stage beside a composite radix
     return static_cast<int>(cudaErrorInvalidValue);
   const Split split{ctas, chunk, bin_chunk, cross, rcross};
   if (chunk < 1 || bin_chunk < 1 || (long long)chunk * ctas < n ||
-      (long long)bin_chunk * ctas < plan.n_bins || cta_smem(split, alt) > (size_t)MAX_SMEM ||
+      (long long)bin_chunk * ctas < plan.n_bins ||
+      cta_smem(split, alt, plan, false) > (size_t)MAX_SMEM ||
       (cross >> n_stages) != 0u || (rcross >> rader_stages) != 0u ||
       (rader && !((cross >> (n_stages - 1)) & 1u)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -531,17 +571,18 @@ int logmel_cluster(const float* src, long long stride, int n_frames, int n_fft, 
                  static_cast<const float2*>(utw), dft, rgather,
                  static_cast<const float2*>(rtw), static_cast<const float2*>(rspec), nullptr,
                  nullptr, nullptr, mel_first, mel_ptr, mel_w};
+  const bool wg = plan.slab > 0;
   if (bluestein)
-    return launch<true, false, false>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
-                                      use_floor, floor_v, out, s);
+    return launch<true, false, false>(ext, wg, src, stride, n_frames, n_fft, plan, split, t,
+                                      n_mels, use_floor, floor_v, out, s);
   if (alt)
-    return launch<false, true, true>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
-                                     use_floor, floor_v, out, s);
+    return launch<false, true, true>(ext, wg, src, stride, n_frames, n_fft, plan, split, t,
+                                     n_mels, use_floor, floor_v, out, s);
   if (wide)
-    return launch<false, true, false>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
-                                      use_floor, floor_v, out, s);
-  return launch<false, false, false>(ext, src, stride, n_frames, n_fft, plan, split, t, n_mels,
-                                     use_floor, floor_v, out, s);
+    return launch<false, true, false>(ext, wg, src, stride, n_frames, n_fft, plan, split, t,
+                                      n_mels, use_floor, floor_v, out, s);
+  return launch<false, false, false>(ext, wg, src, stride, n_frames, n_fft, plan, split, t,
+                                     n_mels, use_floor, floor_v, out, s);
 }
 
 }  // extern "C"

@@ -28,7 +28,10 @@
 //   place, into a second work array. Its time is latency (PERF.md §5), so
 //   its warps' jobs are few and independent: a row tile and all its
 //   columns up to 4 tiles (each point gathered once up to R = 63), two
-//   row tiles a job at R <= 31, at 128 registers a thread;
+//   row tiles a job at R <= 31, at 128 registers a thread; 373 runs on
+//   wgmma instead (`wgmma_stage`: a warpgroup's 32 butterflies against 8
+//   column tiles, the B slabs in shared memory), in instantiations of its
+//   own (WG, 384 threads);
 // * direct with a Rader stage last for L's largest prime p (above 13; the
 //   primes above 1,021 whose p - 1 has a direct plan, and smaller ones
 //   where `plan_cost` finds it cheaper than a matrix stage): each p-point
@@ -104,6 +107,10 @@ constexpr int MAX_THREADS = 1024;
 constexpr int WIDE_THREADS = 512;       // the instantiations with radices 11, 13 and matrix stages
 constexpr int MIN_THREADS = 256;        // frames a block grow to this many threads
 constexpr int POINTS = 8;               // transform points a thread owns per frame
+// The wgmma instantiations' threads a block at most: 384, 168 registers a
+// thread for the stage's 64 accumulators (at 512 threads and 128 registers
+// they spilled and n_fft 141,001 ran 4 % slower on an H100, PERF.md §6).
+constexpr int WG_THREADS = 384;
 constexpr int MAX_SMEM = 232448;        // 227 KB, the opt-in limit of a block
 
 // Profiling cuts, for sed_crnn_torch/tools/logmel_phases.py only (the
@@ -161,11 +168,11 @@ __device__ __forceinline__ void mel_phase(const float* pall, int NB, int fpb, in
 // first transposed one (what the stages left below them: 1, or a nested
 // Rader stage's q); its matrix stages write the other array and swap the
 // two.
-template <bool TRANSPOSED, int COLS>
+template <bool TRANSPOSED, int COLS, class RG>
 __device__ __forceinline__ void batch_stages(const int* radix, const int* table, int stages,
                                              int len, int ls0, float2*& cur, float2*& oth,
                                              int count, int lt, int tpf, const float2* tw,
-                                             const float* dft) {
+                                             const float* dft, RG ring) {
   int ls = ls0;
   for (int i = 0; i < stages; ++i) {
     const int s = TRANSPOSED ? stages - 1 - i : i;
@@ -174,7 +181,7 @@ __device__ __forceinline__ void batch_stages(const int* radix, const int* table,
     if (logmel::matrix_radix(r)) {
       if (CUT < 3)
         logmel::run_matrix_stage<TRANSPOSED, COLS>(cur, oth, len, r, ls, 0, count / r, lt, tpf,
-                                                   dft + table[s], tw);
+                                                   dft + table[s], tw, ring);
       float2* const t = cur;
       cur = oth;
       oth = t;
@@ -194,9 +201,9 @@ __device__ __forceinline__ void batch_stages(const int* radix, const int* table,
 // back to the runs. The convolution: the q - 1 point transforms on the
 // Np'' points, the product with nspec (x_0 and X_0 in the tail), the
 // transposed transforms.
-template <bool TRANSPOSED, int COLS>
+template <bool TRANSPOSED, int COLS, class RG>
 __device__ __forceinline__ void nested_rader(const Plan& plan, float2*& cur, float2*& oth, int Np,
-                                             int lt, int tpf, const Tables& t) {
+                                             int lt, int tpf, const Tables& t, RG ring) {
   const int q = plan.rader_radix[plan.rader_stages - 1], Npp = Np - Np / q;
   float2* w = cur;          // the array that holds the layout
   float2* o = oth;
@@ -210,11 +217,11 @@ __device__ __forceinline__ void nested_rader(const Plan& plan, float2*& cur, flo
     float2* c2 = w;
     float2* o2 = o;
     batch_stages<false, COLS>(plan.nested_radix, plan.nested_table, plan.nested_stages,
-                                    q - 1, q - 1, c2, o2, Npp, lt, tpf, t.ntw, t.dft);
+                                    q - 1, q - 1, c2, o2, Npp, lt, tpf, t.ntw, t.dft, ring);
     logmel::rader_product(c2, w, Np, q, 0, Npp, lt, tpf, t.nspec);
     __syncthreads();
     batch_stages<true, COLS>(plan.nested_radix, plan.nested_table, plan.nested_stages,
-                                   q - 1, 1, c2, o2, Npp, lt, tpf, t.ntw, t.dft);
+                                   q - 1, 1, c2, o2, Npp, lt, tpf, t.ntw, t.dft, ring);
   }
   if (TRANSPOSED) {
     if (CUT < 4) logmel::rader_scatter(w, o, Np, q, 0, Np, lt, tpf, t.ngather);
@@ -231,10 +238,10 @@ __device__ __forceinline__ void nested_rader(const Plan& plan, float2*& cur, flo
 // in csrc/logmel_stages.cuh), forward or transposed in reverse order, on
 // `cur` (its matrix stages write the other array and swap the two); Np the
 // points they cover.
-template <bool TRANSPOSED, int COLS>
+template <bool TRANSPOSED, int COLS, class RG>
 __device__ __forceinline__ void rader_inner(const Plan& plan, float2*& cur, float2*& oth, int p,
                                             int Np, int lt, int tpf, const float2* rtw,
-                                            const float* dft) {
+                                            const float* dft, RG ring) {
   int ls = TRANSPOSED ? 1 : p - 1;
   for (int i = 0; i < plan.rader_stages; ++i) {
     const int s = TRANSPOSED ? plan.rader_stages - 1 - i : i;
@@ -243,7 +250,7 @@ __device__ __forceinline__ void rader_inner(const Plan& plan, float2*& cur, floa
     if (r > logmel::MAX_REGISTER_RADIX) {
       if (CUT < 3)
         logmel::run_matrix_stage<TRANSPOSED, COLS>(cur, oth, p - 1, r, ls, 0, Np / r, lt, tpf,
-                                                   dft + plan.rader_table[s], rtw);
+                                                   dft + plan.rader_table[s], rtw, ring);
       float2* const t = cur;
       cur = oth;
       oth = t;
@@ -259,22 +266,27 @@ __device__ __forceinline__ void rader_inner(const Plan& plan, float2*& cur, floa
 // inner ones, and the inner transforms may end in a nested Rader stage
 // (which writes the other array and swaps the two, as a matrix stage
 // does).
-template <bool TRANSPOSED, int COLS>
+template <bool TRANSPOSED, int COLS, class RG>
 __device__ __forceinline__ void rader_inner_ext(const Plan& plan, float2*& cur, float2*& oth,
-                                                int p, int Np, int lt, int tpf, const Tables& t) {
+                                                int p, int Np, int lt, int tpf, const Tables& t,
+                                                RG ring) {
   const bool nest = plan.nested_stages > 0;
   const int stages = plan.rader_stages - nest;
   const int below = nest ? plan.rader_radix[stages] : 1;
-  if (TRANSPOSED && nest) nested_rader<true, COLS>(plan, cur, oth, Np, lt, tpf, t);
+  if (TRANSPOSED && nest) nested_rader<true, COLS>(plan, cur, oth, Np, lt, tpf, t, ring);
   batch_stages<TRANSPOSED, COLS>(plan.rader_radix, plan.rader_table, stages, p - 1,
-                                 TRANSPOSED ? below : p - 1, cur, oth, Np, lt, tpf, t.rtw, t.dft);
-  if (!TRANSPOSED && nest) nested_rader<false, COLS>(plan, cur, oth, Np, lt, tpf, t);
+                                 TRANSPOSED ? below : p - 1, cur, oth, Np, lt, tpf, t.rtw, t.dft,
+                                 ring);
+  if (!TRANSPOSED && nest) nested_rader<false, COLS>(plan, cur, oth, Np, lt, tpf, t, ring);
 }
 
 // EXT: a plan with composite radices or a nested Rader stage (their code
-// only in these instantiations, at one block an SM).
-template <bool BLUE, bool WIDE, bool RADER, int BLOCKS, bool EXT>
-__global__ void __launch_bounds__(WIDE ? WIDE_THREADS : MAX_THREADS, BLOCKS)
+// only in these instantiations, at one block an SM). WG: a plan with wgmma
+// matrix stages (their code and B ring only in these, wide at one block an
+// SM; the others keep the mma.sync form's code alone).
+template <bool BLUE, bool WIDE, bool RADER, int BLOCKS, bool EXT, bool WG>
+__global__ void __launch_bounds__(WG ? WG_THREADS : WIDE ? WIDE_THREADS : MAX_THREADS,
+                                   BLOCKS)
 logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * stride]
                     long long stride, int n_frames, int n_fft, Plan plan, int tpf, int fpb,
                     int alt,                            // 1: a second work array (matrix stages)
@@ -302,6 +314,8 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
   float2* const zall = reinterpret_cast<float2*>(smem_raw);
   float* const pall = reinterpret_cast<float*>(zall + (size_t)(1 + alt) * fpb * N);
   const bool even = (n_fft & 1) == 0;
+  // The wgmma matrix stages' B ring, in the power rows' place.
+  const auto ring = logmel::ring_at<WG>(pall, plan.ring);
 
   const int lt = threadIdx.x % tpf;     // thread within its frame
   const int f = threadIdx.x / tpf;      // frame within the block
@@ -342,7 +356,7 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
           if constexpr (EXT) {
             const Tables t{window, tw, pos, chirp, bspec, utw, dft, rgather, rtw, rspec,
                            ngather, ntw, nspec, mel_first, mel_ptr, mel_w};
-            rader_inner_ext<false, COLS>(plan, cur, oth, r, Np, lt, tpf, t);
+            rader_inner_ext<false, COLS>(plan, cur, oth, r, Np, lt, tpf, t, ring);
             if (plan.nested_stages > 0) {
               const int q = plan.rader_radix[plan.rader_stages - 1];
               logmel::rader_product_split(cur, zb, N, r, (r - 1) - (r - 1) / q, 0, Np, lt, tpf,
@@ -351,12 +365,12 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
               logmel::rader_product(cur, zb, N, r, 0, Np, lt, tpf, rspec);
             }
             __syncthreads();
-            rader_inner_ext<true, COLS>(plan, cur, oth, r, Np, lt, tpf, t);
+            rader_inner_ext<true, COLS>(plan, cur, oth, r, Np, lt, tpf, t, ring);
           } else {
-            rader_inner<false, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
+            rader_inner<false, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft, ring);
             logmel::rader_product(cur, zb, N, r, 0, Np, lt, tpf, rspec);
             __syncthreads();
-            rader_inner<true, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft);
+            rader_inner<true, COLS>(plan, cur, oth, r, Np, lt, tpf, rtw, dft, ring);
           }
         }
         float2* const t = z;
@@ -370,7 +384,7 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
       if (logmel::matrix_radix(r)) {
         if (CUT < 3)
           logmel::run_matrix_stage<false, COLS>(static_cast<const float2*>(z), zb, N, r, ls, 0,
-                                                N / r, lt, tpf, dft + plan.table[s], tw);
+                                                N / r, lt, tpf, dft + plan.table[s], tw, ring);
         float2* const t = z;
         z = zb;
         zb = t;
@@ -427,32 +441,47 @@ logmel_mixed_kernel(const float* __restrict__ src,      // frame t at src[t * st
   }
 }
 
-// Threads per frame: POINTS transform points a thread, whole warps, at most
-// MAX_THREADS (WIDE_THREADS for the wide instantiation). Frames a block: up
-// to MIN_THREADS threads, within MAX_SMEM.
+// Threads per frame: POINTS transform points a thread, whole warps (whole
+// warpgroups with a wgmma matrix stage), at most MAX_THREADS (WIDE_THREADS
+// for the wide instantiation). Frames a block: up to MIN_THREADS threads,
+// within MAX_SMEM.
 int threads_per_frame(const Plan& plan, bool wide) {
+  const int unit = plan.slab ? 128 : 32;
   int t = (plan.n + POINTS - 1) / POINTS;
-  t = (t + 31) / 32 * 32;
-  const int most = wide ? WIDE_THREADS : MAX_THREADS;
+  t = (t + unit - 1) / unit * unit;
+  const int most = unit == 128 ? WG_THREADS : wide ? WIDE_THREADS : MAX_THREADS;
   return t > most ? most : t;
 }
 
-// A frame's shared memory: its work array (two with matrix or Rader stages,
-// which write out of place) and its power row.
-size_t frame_smem(const Plan& plan, bool alt) {
-  return sizeof(float2) * (size_t)plan.n * (alt ? 2 : 1) + sizeof(float) * (size_t)plan.n_bins;
+// A block's work arrays for fpb frames (two with matrix or Rader stages,
+// which write out of place).
+size_t block_arrays(const Plan& plan, bool alt, int fpb) {
+  return sizeof(float2) * (size_t)plan.n * (alt ? 2 : 1) * fpb;
+}
+
+// A block's shared memory for fpb frames: their work arrays and power rows,
+// whose place holds the wgmma stages' B ring (`logmel::ring_plan`, which
+// sets plan.ring; its least, one slab, without `plan_ring`) where that is
+// larger.
+size_t block_smem(Plan plan, bool alt, int fpb, bool plan_ring = true) {
+  const size_t rows = sizeof(float) * (size_t)plan.n_bins * fpb;
+  const size_t arrays = block_arrays(plan, alt, fpb);
+  const size_t ring = !plan.slab ? 0
+                      : plan_ring ? logmel::ring_plan(plan, arrays, MAX_SMEM)
+                                  : logmel::RING_ALIGN + (size_t)plan.slab;
+  return arrays + (rows > ring ? rows : ring);
 }
 
 int frames_per_block(const Plan& plan, bool alt, int tpf) {
   int fpb = tpf >= MIN_THREADS ? 1 : MIN_THREADS / tpf;
-  while (fpb > 1 && fpb * frame_smem(plan, alt) > (size_t)MAX_SMEM) --fpb;
+  while (fpb > 1 && block_smem(plan, alt, fpb, false) > (size_t)MAX_SMEM) --fpb;
   return fpb;
 }
 
 // Host side: the dynamic shared memory attribute is set once per
 // instantiation and device (bit d of `done`), then the launch.
-template <bool BLUE, bool WIDE, bool RADER, int BLOCKS, bool EXT>
-int launch_as(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
+template <bool BLUE, bool WIDE, bool RADER, int BLOCKS, bool EXT, bool WG>
+int launch_as(const float* src, long long stride, int n_frames, int n_fft, Plan plan,
               bool alt, const Tables& t, int n_mels, int mel_group, int use_floor, float floor_v,
               float* out, cudaStream_t s) {
   static std::atomic<unsigned long long> done{0};
@@ -461,16 +490,17 @@ int launch_as(const float* src, long long stride, int n_frames, int n_fft, const
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(done.load() & bit)) {
-    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS, EXT>,
+    err = cudaFuncSetAttribute(logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS, EXT, WG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     done.fetch_or(bit);
   }
   const int tpf = threads_per_frame(plan, WIDE);
   const int fpb = frames_per_block(plan, alt, tpf);
-  const size_t smem = fpb * frame_smem(plan, alt);
+  const size_t smem = block_smem(plan, alt, fpb);
+  logmel::ring_plan(plan, block_arrays(plan, alt, fpb), MAX_SMEM);
   const int blocks = (n_frames + fpb - 1) / fpb;
-  logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS, EXT><<<blocks, tpf * fpb, smem, s>>>(
+  logmel_mixed_kernel<BLUE, WIDE, RADER, BLOCKS, EXT, WG><<<blocks, tpf * fpb, smem, s>>>(
       src, stride, n_frames, n_fft, plan, tpf, fpb, alt ? 1 : 0, t.window, t.tw, t.pos, t.chirp,
       t.bspec, t.utw, t.dft, t.rgather, t.rtw, t.rspec, t.ngather, t.ntw, t.nspec, t.mel_first,
       t.mel_ptr, t.mel_w, n_mels, mel_group, use_floor, floor_v, out);
@@ -480,21 +510,30 @@ int launch_as(const float* src, long long stride, int n_frames, int n_fft, const
 // The instantiation by the blocks an SM holds (see BLOCKS): the wide ones
 // at 2 where two blocks' shared memory fits an SM; EXT (composite radices
 // or a nested Rader stage) at 1, where they do not spill (n_fft 2579, its
-// nested plan: 1.45 ms at one block an SM, 1.91 at two, PERF.md §6).
+// nested plan: 1.45 ms at one block an SM, 1.91 at two, PERF.md §6); a plan
+// with wgmma matrix stages in its own (WG) wide instantiations at 1, whose
+// accumulators want the 128 registers.
 template <bool BLUE, bool WIDE, bool RADER, class... A>
 int launch(const float* src, long long stride, int n_frames, int n_fft, const Plan& plan,
            bool alt, bool ext, A... rest) {
+  if constexpr (WIDE && !BLUE) {
+    if (plan.slab)
+      return launch_as<BLUE, WIDE, RADER, 1, false, true>(src, stride, n_frames, n_fft, plan,
+                                                          alt, rest...);
+  }
   if (ext)
-    return launch_as<BLUE, WIDE, RADER, 1, true>(src, stride, n_frames, n_fft, plan, alt, rest...);
+    return launch_as<BLUE, WIDE, RADER, 1, true, false>(src, stride, n_frames, n_fft, plan, alt,
+                                                        rest...);
   if constexpr (WIDE) {
     const int fpb = frames_per_block(plan, alt, threads_per_frame(plan, true));
     const bool two = LOGMEL_WIDE_BLOCKS ? LOGMEL_WIDE_BLOCKS == 2
-                                        : 2 * fpb * frame_smem(plan, alt) <= (size_t)MAX_SMEM;
+                                        : 2 * block_smem(plan, alt, fpb, false) <= (size_t)MAX_SMEM;
     if (two)
-      return launch_as<BLUE, WIDE, RADER, 2, false>(src, stride, n_frames, n_fft, plan, alt,
-                                                    rest...);
+      return launch_as<BLUE, WIDE, RADER, 2, false, false>(src, stride, n_frames, n_fft, plan,
+                                                           alt, rest...);
   }
-  return launch_as<BLUE, WIDE, RADER, 1, false>(src, stride, n_frames, n_fft, plan, alt, rest...);
+  return launch_as<BLUE, WIDE, RADER, 1, false, false>(src, stride, n_frames, n_fft, plan, alt,
+                                                       rest...);
 }
 
 }  // namespace
@@ -510,6 +549,21 @@ int logmel_mixed_max_stages() { return MAX_STAGES; }
 // The most column tiles a matrix stage takes (`matrix_tiles`): the largest
 // odd radix whose B fragments (2 x tiles^2 x 512 bytes) stay within 4 MB.
 int logmel_mixed_matrix_tiles() { return 64; }
+
+// The forms of the matrix stages a launch of this plan runs (`logmel_mixed`'s
+// plan arguments): bit 0 mma.sync, bit 1 wgmma; -1 for a plan it does not
+// take.
+int logmel_mixed_forms(int n_fft, int n, int n_stages, const int* radices, int bluestein,
+                       int rader_stages, const int* rader_radices, int nested_stages,
+                       const int* nested_radices) {
+  Plan plan;
+  bool wide = false, matrix = false, alt = false, ext = false;
+  if (!logmel::make_plan(plan, n_fft, n, n_stages, radices, rader_stages, rader_radices,
+                         nested_stages, nested_radices, logmel_mixed_matrix_tiles(), wide, matrix,
+                         alt, ext))
+    return -1;
+  return logmel::plan_forms(plan);
+}
 
 // Frame t (t < n_frames) is the n_fft samples at src[t * stride]; the plan:
 // transform length n (L = n_fft / 2 for an even n_fft, n_fft for an odd one;
@@ -555,7 +609,8 @@ int logmel_mixed(const float* src, long long stride, int n_frames, int n_fft, in
   const bool blue_ok = bluestein && !wide && n >= 2 * plan.points - 1 && chirp != nullptr &&
                        bspec != nullptr;
   if (!(direct_ok || blue_ok) || (n_fft % 2 == 0 && utw == nullptr) ||
-      (matrix && dft == nullptr) || frame_smem(plan, alt) > (size_t)MAX_SMEM)
+      (matrix && dft == nullptr) || block_smem(plan, alt, 1, false) > (size_t)MAX_SMEM ||
+      (plan.slab && ext))   // a wgmma stage beside a composite radix or a nested stage
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Tables t{window, static_cast<const float2*>(tw), pos,

@@ -53,6 +53,12 @@ struct Plan {
   int nested_stages;      // 0: none
   int nested_radix[MAX_STAGES];
   int nested_table[MAX_STAGES];
+  // The wgmma matrix stages' B ring: the largest slab of a k step, bytes
+  // (0: no such stage), and the slabs a block holds (`ring_plan`: 2 where
+  // they fit beside its work arrays, else 1).
+  int slab;
+  int ring;
+  int mma;                // 1: a matrix stage on mma.sync
 };
 
 // The tables a mixed or cluster launch reads, as the C interfaces take them
@@ -87,6 +93,47 @@ __host__ __device__ constexpr bool matrix_radix(int r) {
 // The 8-wide tiles of a matrix stage's products each way: (R + 1) / 2 rows
 // and columns (r, s = 0 .. (R - 1) / 2), padded to the mma depth of 8.
 __host__ __device__ constexpr int matrix_tiles(int r) { return (r + 16) / 16; }
+
+// The matrix stage's two forms, chosen by R alone (`wgmma_radix`), so that
+// a butterfly's bits never depend on the body, the cluster size or the
+// free shared memory: `wgmma_stage` for the radices from WGMMA_MIN_RADIX
+// to WGMMA_MAX_RADIX, `matrix_stage` / `matrix_stage_pair` on mma.sync for
+// the others. On an H100 (PERF.md §6) the wgmma form was faster at 373
+// alone (n_fft 141,001: 1.59x in its matrix phase), slower at 277 and 331
+// (more than 32 butterflies of the stage a CTA: two passes of its k steps)
+// and at 17-149 (many passes a frame, against the mma.sync form's
+// independent warps), so the rule names 373; up to 383 (24 column tiles)
+// a k step's B slab, 24,576 bytes, fits beside the largest frame of one
+// block. (The two forms' three TF32 products gave the same bits there;
+// the rule does not lean on it.)
+constexpr int WGMMA_MIN_RADIX = 373;
+constexpr int WGMMA_MAX_RADIX = 373;
+constexpr int RING_ALIGN = 256;   // the 32-byte swizzle's atom: a B slab's alignment
+
+__host__ __device__ constexpr bool wgmma_radix(int r) {
+  return (r & 1) && r >= WGMMA_MIN_RADIX && r <= WGMMA_MAX_RADIX;
+}
+
+// A wgmma's column tiles (n = 64): a stage runs column groups of 8, the
+// last padded with zero columns; every radix of the rule in as many groups
+// (a constant of the stage's code).
+constexpr int WGMMA_COLS = 8;
+constexpr int WGMMA_GROUPS = (matrix_tiles(WGMMA_MAX_RADIX) + WGMMA_COLS - 1) / WGMMA_COLS;
+static_assert((matrix_tiles(WGMMA_MIN_RADIX) + WGMMA_COLS - 1) / WGMMA_COLS == WGMMA_GROUPS,
+              "the wgmma radices share their column groups");
+
+// One k step's B slab: cos hi, cos lo, sin hi, sin lo, each the stage's
+// column groups x 64 rows (the columns s) of 32 bytes (8 k, the rows r).
+__host__ __device__ constexpr int wgmma_slab_bytes(int r) {
+  return 4 * ((matrix_tiles(r) + WGMMA_COLS - 1) / WGMMA_COLS) * WGMMA_COLS * 8 * 32;
+}
+
+// A matrix stage's B values in the table, floats: the wgmma form's slabs,
+// one a k step, or the mma.sync fragments.
+__host__ __device__ constexpr int matrix_table_floats(int r) {
+  return wgmma_radix(r) ? matrix_tiles(r) * wgmma_slab_bytes(r) / 4
+                        : matrix_tiles(r) * matrix_tiles(r) * 32 * 8;
+}
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
@@ -448,14 +495,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // 1.73, the B loads alone 1.03 and the products alone 0.88; in one block
 // each part alone took 80-90 % of the whole: latency, 16 warps an SM each
 // a chain of loads and products, so the jobs' count and independence set
-// its time. Not done here (ROADMAP, kernel A's matrix stage): at T > 4 each
-// point is still gathered and split once a column group (6 times at R =
-// 373), B still comes through __ldg for 8 butterflies a fragment, and no
-// product runs on wgmma. A copy of a crossing stage's points into the
-// CTA's own shared memory has no room at 141,001's 11 CTAs (a CTA's 35
-// butterflies of 373 points take 104,440 bytes; the power row and the
-// slack beside the two work arrays leave 27,344), and a K-major B slab
-// with a second buffer none beside the mixed body's largest frames.
+// its time. This form keeps every radix but 373, which `wgmma_stage` runs
+// (below: each point gathered 3 times there, not 6, B from shared memory);
+// at 17-149, 277 and 331 that form was slower (PERF.md §6): its
+// warpgroups walk the k steps together behind a block barrier a step,
+// where these jobs run free. A copy of a crossing stage's points into the
+// CTA's own shared memory has no room (at 141,001's 13 CTAs a CTA's 30
+// butterflies of 373 points take 89,520 bytes; the two work arrays and the
+// B ring leave 9,488).
 __device__ __forceinline__ void split_tf32(const float (&a)[4], uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
 #pragma unroll
@@ -492,6 +539,92 @@ constexpr int MATRIX_PART = LOGMEL_MATRIX_PART;
 struct AFrag {
   uint32_t ahi[4], alo[4], bhi[4], blo[4];
 };
+
+// The wgmma form's `gather_a`, in two halves (kept apart from it: through
+// them the mma.sync form's code made ptxas spill in the cluster body's WG
+// instantiation, which holds both forms; PERF.md §6): a lane's raw points
+// of k step kt, loaded a step ahead of their use, v_r and v_{R-r} at r = 8
+// kt + tig and r + 4 (zeros where there is no such point). The transposed
+// stage's twiddles are loaded at their use, in `form_a`: held across the
+// step they made ptxas spill there.
+struct ARaw {
+  float2 v[2], w[2];
+};
+
+template <class ZI>
+__device__ __forceinline__ ARaw load_a(ZI z, int R, int m, int base, int kt, int tig) {
+  const int H = (R - 1) / 2;
+  ARaw x;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 8 * kt + tig + 4 * h;
+    x.v[h] = x.w[h] = make_float2(0.0f, 0.0f);
+    if (base >= 0 && r <= H) {
+      x.v[h] = z[base + r * m];
+      if (r > 0) x.w[h] = z[base + (R - r) * m];
+    }
+  }
+  return x;
+}
+
+// `gather_a`'s arithmetic on loaded points: the same operations, the same
+// bits (a missing point stays +0, as +0 times a zero twiddle gives).
+template <bool TRANSPOSED>
+__device__ __forceinline__ AFrag form_a(const ARaw& x, int R, int m, int step, int base, int j,
+                                        int kt, int tig, const float2* __restrict__ tw) {
+  const int H = (R - 1) / 2;
+  float2 sa[2], sb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 8 * kt + tig + 4 * h;
+    if (r == 0) {   // a_0 = v_0, b_0 = 0
+      sa[h] = x.v[h];
+      sb[h] = make_float2(0.0f, 0.0f);
+    } else {
+      float2 v = x.v[h], w = x.w[h];
+      if (TRANSPOSED && m > 1 && base >= 0 && r <= H) {
+        v = cmul(v, __ldg(tw + j * r * step));
+        w = cmul(w, __ldg(tw + j * (R - r) * step));
+      }
+      sa[h] = cadd(v, w);
+      sb[h] = csub(v, w);
+    }
+  }
+  AFrag f;
+  const float fa[4] = {sa[0].x, sa[0].y, sa[1].x, sa[1].y};
+  const float fb[4] = {sb[0].x, sb[0].y, sb[1].x, sb[1].y};
+  split_tf32(fa, f.ahi, f.alo);
+  split_tf32(fb, f.bhi, f.blo);
+  return f;
+}
+
+// The outputs of one column tile (P_s in p[c] real and p[c + 2]
+// imaginary, Q_s in q likewise, column 2 tig + c), as `matrix_stage`
+// writes them.
+template <bool TRANSPOSED, class ZO>
+__device__ __forceinline__ void store_tile(ZO zo, const float* p, const float* q, int tile,
+                                           int R, int m, int step, int base, int j, int tig,
+                                           const float2* __restrict__ tw) {
+  const int H = (R - 1) / 2;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int s = 8 * tile + 2 * tig + c;
+    if (s > H) continue;
+    const float pr = p[c], pi = p[c + 2], qr = q[c], qi = q[c + 2];
+    if (s == 0) {
+      zo[base] = make_float2(pr, pi);
+      continue;
+    }
+    float2 lo_s = make_float2(__fadd_rn(pr, qi), __fsub_rn(pi, qr));
+    float2 hi_s = make_float2(__fsub_rn(pr, qi), __fadd_rn(pi, qr));
+    if (!TRANSPOSED && m > 1) {
+      lo_s = cmul(lo_s, __ldg(tw + j * s * step));
+      hi_s = cmul(hi_s, __ldg(tw + j * (R - s) * step));
+    }
+    zo[base + s * m] = lo_s;
+    zo[base + (R - s) * m] = hi_s;
+  }
+}
 
 template <bool TRANSPOSED, class ZI>
 __device__ __forceinline__ AFrag gather_a(ZI z, int R, int m, int step, int base, int j, int kt,
@@ -679,13 +812,234 @@ __device__ __forceinline__ void matrix_stage_pair(ZI z, ZO zo, int N, int R, int
   }
 }
 
+// The wgmma form of the stage (the radices `wgmma_radix` names), Hopper's
+// own tensor-core path: the same butterflies, products, order of sums and
+// outputs as `matrix_stage`, with
+//   * A from registers (wgmma's register-A form): a warpgroup's job is 32
+//     butterflies (its 64 rows: warp w's 16 rows are butterflies 8 w ..
+//     8 w + 7, real and imaginary, the mma.sync fragment) and one column
+//     group of WGMMA_COLS = 8 tiles (n = 64), so each point is gathered,
+//     paired and split once a k step for 8 column tiles: ceil(T / 8) times
+//     a stage (3 at R = 373, where the mma.sync form gathers it 6 times);
+//     a k step's points are loaded as soon as the previous step's products
+//     are done and waited for behind the next barrier;
+//   * B from shared memory, read by the tensor cores through a descriptor:
+//     the host lays each k step's slab out (`wgmma_table` in
+//     ops/kernels/fused_logmel.py: cos hi, cos lo, sin hi, sin lo, each
+//     column s a row of 8 k in the 32-byte swizzle), the block copies it
+//     into a ring (cp.async, 16 bytes a thread) in the power row's place,
+//     which no stage uses, behind one block barrier a k step, and every
+//     warpgroup of the block (every frame of the mixed body's) reads it: at
+//     depth 2 step k + 1's slab is copied while step k's products run, at
+//     depth 1 after them (a barrier more). The depth is where the
+//     launchers have room (`ring_plan`); it changes no sum;
+//   * each k step's six wgmma (P: a_lo cos_hi, a_hi cos_lo, a_hi cos_hi; Q
+//     the same with b and sin) in one group, m64n64k8 .tf32, the first of a
+//     job's sums from scale-d 0, the k steps in order: the mma.sync form's
+//     order (its bits, on an H100).
+// It needs whole warpgroups: the launchers give a plan with such a stage a
+// multiple of 128 threads a frame (mixed) or a CTA (cluster), and run it in
+// instantiations of its own (WG, 128 registers a thread: 64 of them the
+// accumulators), so that the other plans keep the mma.sync form's code and
+// registers. Every thread of the block calls it with the same butterfly
+// count (the mixed body's frames alike, the cluster body's CTAs each its
+// own): its barriers are the block's.
+struct Ring {
+  static constexpr bool on = true;
+  unsigned char* base;   // RING_ALIGN-aligned, depth x the plan's largest slab
+  int depth;             // 1 or 2
+};
+
+// The instantiations without wgmma stages take no ring (their code is the
+// mma.sync form's alone).
+struct NoRing {
+  static constexpr bool on = false;
+};
+
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[4 * NT], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// A B operand of n rows (columns s) x 8 k in the 32-byte swizzled K-major
+// layout: row n at 32 n bytes, its two 16-byte halves swapped where bit 2
+// of n is set; start >> 4, leading offset 1 (unused: a row is the swizzle's
+// width), 256 bytes between groups of 8 rows, layout type 3.
+__device__ __forceinline__ uint64_t b32_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(256 >> 4) << 32) |
+         ((uint64_t)3 << 62);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The bytes from p up to the next RING_ALIGN boundary of shared memory.
+__device__ __forceinline__ int ring_pad(const void* p) {
+  return (RING_ALIGN - (smem_addr(p) & (RING_ALIGN - 1))) & (RING_ALIGN - 1);
+}
+
+// A kernel's ring in the power row's place at p (the instantiations with
+// wgmma stages, WG), or none.
+template <bool WG>
+__device__ __forceinline__ auto ring_at(void* p, int depth) {
+  if constexpr (WG) {
+    return Ring{static_cast<unsigned char*>(p) + ring_pad(p), depth};
+  } else {
+    return NoRing{};
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// This thread's copies landed and made visible to the tensor cores' reads;
+// then the block barrier.
+__device__ __forceinline__ void ring_sync() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void hold(AFrag& f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm volatile("" : "+r"(f.ahi[i]), "+r"(f.alo[i]), "+r"(f.bhi[i]), "+r"(f.blo[i])::"memory");
+}
+
+template <bool TRANSPOSED, class ZI, class ZO>
+__device__ __forceinline__ void wgmma_stage(ZI z, ZO zo, int N, int R, int ls, int b0, int b1,
+                                            int lt, int nt, const float* __restrict__ table,
+                                            const float2* __restrict__ tw, Ring ring) {
+  constexpr int NT = WGMMA_COLS, groups = WGMMA_GROUPS;
+  constexpr int part = groups * NT * 256, slab = 4 * part;
+  const int m = ls / R, step = N / ls, T = matrix_tiles(R);
+  const int jobs = (b1 - b0 + 31) / 32 * groups;
+  const int nwg = nt / 128, wg = lt / 128, steps = (jobs + nwg - 1) / nwg * T;
+  if (steps == 0) return;   // a CTA with none of a crossing stage's butterflies
+  const int lane = lt % 32, gid = lane >> 2, tig = lane & 3, row = 8 * ((lt / 32) % 4) + gid;
+  // The profiling cuts (MATRIX_PART): 1 the gathers and splits alone, 2
+  // the slabs' copies alone, 3 the products alone, on constant operands.
+  constexpr bool GATHER = MATRIX_PART == 0 || MATRIX_PART == 1;
+  constexpr bool COPY = MATRIX_PART == 0 || MATRIX_PART == 2;
+  constexpr bool MMA = MATRIX_PART == 0 || MATRIX_PART == 3;
+  const uint32_t ring0 = smem_addr(ring.base);
+  const char* const src = reinterpret_cast<const char*>(table);
+  // Slab kt into buffer `buf`, 16 bytes a thread of the block.
+  auto copy = [&](int kt, int buf) {
+    if (!COPY) return;
+    for (int o = 16 * static_cast<int>(threadIdx.x); o < slab; o += 16 * blockDim.x)
+      cp_async16(ring0 + buf * slab + o, src + (size_t)kt * slab + o);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // This thread's butterfly in a job: g ls + j, -1 past the last (or no job).
+  auto where = [&](int job, int& base, int& j) {
+    const int b = b0 + 32 * (job / groups) + row, g = b / m;
+    j = b - g * m;
+    base = job < jobs && b < b1 ? g * ls + j : -1;
+  };
+  float p[4 * NT], q[4 * NT];
+#pragma unroll
+  for (int i = 0; i < 4 * NT; ++i) p[i] = q[i] = 0.0f;
+  int job = wg, base, j;
+  where(job, base, j);
+  copy(0, 0);
+  ARaw raw = load_a(z, R, m, base, 0, tig);
+  for (int s = 0; s < steps; ++s) {
+    const int kt = s % T, buf = ring.depth == 2 ? s & 1 : 0;
+    ring_sync();
+    if (ring.depth == 2 && s + 1 < steps) copy((s + 1) % T, (s + 1) & 1);
+    const bool live = job < jobs;   // the warpgroup's
+    AFrag a;
+    if (!GATHER) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a.ahi[e] = a.bhi[e] = 0x3f800000u + (static_cast<uint32_t>(kt + lane) << 13);
+        a.alo[e] = a.blo[e] = 0x34000000u;
+      }
+    } else {
+      a = form_a<TRANSPOSED>(raw, R, m, step, base, j, kt, tig, tw);
+    }
+    const int cg = job % groups;
+    if (live && MMA) {
+      const uint32_t hb = ring0 + buf * slab + cg * NT * 256;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_tf32<NT>(p, a.alo, b32_desc(hb), kt > 0);
+      wgmma_tf32<NT>(p, a.ahi, b32_desc(hb + part), 1);
+      wgmma_tf32<NT>(p, a.ahi, b32_desc(hb), 1);
+      wgmma_tf32<NT>(q, a.blo, b32_desc(hb + 2 * part), kt > 0);
+      wgmma_tf32<NT>(q, a.bhi, b32_desc(hb + 3 * part), 1);
+      wgmma_tf32<NT>(q, a.bhi, b32_desc(hb + 2 * part), 1);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      hold(p);
+      hold(q);
+      hold(a);
+    } else if (live && GATHER) {   // the gather alone: keep its values
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = __fadd_rn(p[e], __uint_as_float(a.ahi[e] ^ a.alo[e]));
+        q[e] = __fadd_rn(q[e], __uint_as_float(a.bhi[e] ^ a.blo[e]));
+      }
+    }
+    // A job's outputs after its last k step; then the next step's job and
+    // points, loaded once the products are done and the outputs stored
+    // (their registers free again), waited for behind the next barrier.
+    if (kt == T - 1) {
+      if (live && base >= 0) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          if (cg * NT + t < T)
+            store_tile<TRANSPOSED>(zo, p + 4 * t, q + 4 * t, cg * NT + t, R, m, step, base, j,
+                                   tig, tw);
+      }
+      job += nwg;
+      where(job, base, j);
+    }
+    if (s + 1 < steps && GATHER)
+      raw = load_a(z, R, m, base, (s + 1) % T, tig);
+    if (ring.depth == 1 && s + 1 < steps) {
+      __syncthreads();
+      copy((s + 1) % T, 0);
+    }
+  }
+}
+
 // The stage (see above), COLS column tiles a job: 4 in the instantiations
 // with 128 registers a thread (two row tiles of 2 where T = 2), 2 in those
 // with 64.
-template <bool TRANSPOSED, int COLS, class ZI, class ZO>
+template <bool TRANSPOSED, int COLS, class ZI, class ZO, class RG>
 __device__ __forceinline__ void run_matrix_stage(ZI z, ZO zo, int N, int R, int ls, int b0, int b1,
                                                  int lt, int nt, const float* __restrict__ table,
-                                                 const float2* __restrict__ tw) {
+                                                 const float2* __restrict__ tw, RG ring) {
+  if (wgmma_radix(R)) {
+    // The launchers run a plan with such a stage in the instantiations
+    // with a ring (WG) only.
+    if constexpr (RG::on && COLS > 2) return wgmma_stage<TRANSPOSED>(z, zo, N, R, ls, b0, b1, lt,
+                                                                    nt, table, tw, ring);
+    __trap();
+  }
   if (COLS > 2 && matrix_tiles(R) == 2)
     matrix_stage_pair<TRANSPOSED>(z, zo, N, R, ls, b0, b1, lt, nt, table, tw);
   else
@@ -964,7 +1318,9 @@ inline bool make_plan(Plan& plan, int n_fft, int n, int n_stages, const int* rad
     if (!matrix_radix(r) || matrix_tiles(r) > max_tiles) return false;
     wide = matrix = alt = true;
     offset = table;
-    table += matrix_tiles(r) * matrix_tiles(r) * 32 * 8;
+    table += matrix_table_floats(r);
+    if (!wgmma_radix(r)) plan.mma = 1;
+    else if (wgmma_slab_bytes(r) > plan.slab) plan.slab = wgmma_slab_bytes(r);
     return true;
   };
   // A Rader stage's prime: odd, above the register primes, its inner
@@ -991,13 +1347,29 @@ inline bool make_plan(Plan& plan, int n_fft, int n, int n_stages, const int* rad
     if (!(rader_stages > 0 && s == n_stages - 1) && !take(r, plan.table[s])) return false;
   }
   if (prod != n) return false;
-  if (rader_stages == 0) return true;
-  if (!rader(plan.radix[n_stages - 1], rader_stages, rader_radices, plan.rader_radix,
-             plan.rader_table, nested_stages > 0))
+  if (rader_stages > 0 &&
+      (!rader(plan.radix[n_stages - 1], rader_stages, rader_radices, plan.rader_radix,
+              plan.rader_table, nested_stages > 0) ||
+       (nested_stages > 0 && !rader(plan.rader_radix[rader_stages - 1], nested_stages,
+                                    nested_radices, plan.nested_radix, plan.nested_table, false))))
     return false;
-  return nested_stages == 0 ||
-         rader(plan.rader_radix[rader_stages - 1], nested_stages, nested_radices,
-               plan.nested_radix, plan.nested_table, false);
+  return true;
+}
+
+// The forms a launch of the plan runs its matrix stages on: bit 0 mma.sync,
+// bit 1 wgmma (the WG instantiations, which the launchers pick by the same
+// plan.slab).
+inline int plan_forms(const Plan& plan) { return (plan.mma ? 1 : 0) | (plan.slab ? 2 : 0); }
+
+// The B ring of a block whose work arrays take `arrays` bytes: two slabs of
+// the largest wgmma stage where they fit beside them, else one. Sets
+// plan.ring; returns the block's bytes for the ring (0 without a wgmma
+// stage), RING_ALIGN of alignment included.
+inline long long ring_plan(Plan& plan, long long arrays, long long max_smem) {
+  plan.ring = 0;
+  if (!plan.slab) return 0;
+  plan.ring = arrays + RING_ALIGN + 2LL * plan.slab <= max_smem ? 2 : 1;
+  return RING_ALIGN + (long long)plan.ring * plan.slab;
 }
 
 }  // namespace logmel

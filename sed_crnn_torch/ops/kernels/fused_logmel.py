@@ -53,7 +53,10 @@ kernels compute, as the JAX package runs it. Launches are counted per route
 on `fused_log_mel`: ``launches`` (chunked), ``framed_launches`` and
 ``exact_launches``, whichever of the two wrappers launched and whichever
 body ran; ``mixed_launches`` and ``cluster_launches`` count the launches of
-the ``"mixed"`` and ``"cluster"`` bodies among them.
+the ``"mixed"`` and ``"cluster"`` bodies among them, and ``wgmma_launches``
+and ``mma_launches`` those of theirs whose matrix stages ran on ``wgmma``
+or on ``mma.sync`` as the library reports it (a plan with both counts in
+both).
 """
 
 from __future__ import annotations
@@ -97,6 +100,23 @@ MEL_BINS_PER_LANE = 16            # `mel_group`: a band's mean bins a lane, to w
 # matrix stage takes (`matrix_tiles`), so every odd R up to 1,023.
 MATRIX_TILES = 64
 MATRIX_MAX = 1021                 # the largest prime a matrix stage takes
+# csrc/logmel_stages.cuh `wgmma_radix`: the matrix stages on `wgmma`, by R
+# alone (the rest on mma.sync): 373 (24 column tiles, each point gathered 3
+# times where the mma.sync form gathers it 6), the one radix whose stage
+# the card timed faster than mma.sync's (n_fft 141,001; at 277 and 331,
+# and at 17-149, it was slower: PERF.md §6).
+WGMMA_MIN_RADIX = 373
+WGMMA_MAX_RADIX = 373
+WGMMA_COLS = 8                    # `WGMMA_COLS`: a wgmma's column tiles, n = 64
+# The cluster sizes of a plan with a wgmma stage, the first that holds it:
+# up to 8 (two clusters or more a GPC of 16 SMs) or 16 (one that fills it).
+# On an H100 (PERF.md §6) such a plan ran slower at every C from 9 to 15
+# than at 8 or 16 (55,975: 1.70 ms at 8, 2.63-3.35 at 9-15; 141,001: 2.40 at
+# 16, 2.52-4.19 at 11-15), and up to 8 fastest at the fewest CTAs that hold
+# it or within 4 % of it, but at 134,370 (28,367: 1.33 at 3, 2.59 at 8;
+# 55,975: 1.64 at 5; 134,370: 1.06 at 6, 0.90 at 8).
+WGMMA_CLUSTERS = (2, 3, 4, 5, 6, 7, 8, 16)
+RING_ALIGN = 256                  # the 32-byte swizzle's atom: a B slab's alignment
 # `plan_cost`'s weights, ns a frame on one SM, as `tools/logmel_phases.py`'s
 # `fit_choice` printed them from an H100's run (PERF.md §6): COST_REGISTER
 # the least-squares fit of the mixed body's transform times; the others
@@ -241,6 +261,48 @@ def matrix_tiles(radix: int) -> int:
     / 2 rows r and columns s (0 .. (R - 1) / 2), padded to the ``mma``
     depth of 8."""
     return -(-(radix + 1) // 16)
+
+
+def wgmma_radix(radix: int) -> bool:
+    """Whether a matrix stage of ``radix`` runs on ``wgmma`` (``wgmma_stage``
+    in ``csrc/logmel_stages.cuh``) rather than on ``mma.sync``: an odd radix
+    from `WGMMA_MIN_RADIX` to `WGMMA_MAX_RADIX`, a function of R alone, so
+    that a butterfly's bits are the same in every body, at every cluster
+    size and in every frame (``wgmma_radix`` there)."""
+    return radix % 2 == 1 and WGMMA_MIN_RADIX <= radix <= WGMMA_MAX_RADIX
+
+
+def wgmma_slab_bytes(radix: int) -> int:
+    """The B slab of one k step of a ``wgmma`` stage: cos hi, cos lo, sin
+    hi, sin lo, each `matrix_tiles` rounded up to whole column groups of
+    `WGMMA_COLS` tiles (a wgmma's n = 64), 8 columns a tile of 32 bytes (8
+    k)."""
+    return 4 * -(-matrix_tiles(radix) // WGMMA_COLS) * WGMMA_COLS * 256
+
+
+def _wgmma_stages(plan) -> Tuple[int, ...]:
+    return tuple(r for r in plan.matrix + plan.rader_matrix + plan.nested_matrix
+                 if wgmma_radix(r))
+
+
+def ring_bytes(plan, slabs: int = 1) -> int:
+    """The shared memory of the B ring a block of ``plan`` takes at
+    ``slabs`` slabs of its largest ``wgmma`` stage's k step, after up to
+    `RING_ALIGN` bytes of alignment; 0 without such a stage. The ring
+    overlaps the power row, which no stage touches."""
+    slab = max((wgmma_slab_bytes(r) for r in _wgmma_stages(plan)), default=0)
+    return RING_ALIGN + slabs * slab if slab else 0
+
+
+def ring_plan(plan, arrays: int) -> int:
+    """The bytes of the B ring the launchers give a block whose work arrays
+    take ``arrays`` bytes (``ring_plan`` in ``csrc/logmel_stages.cuh``): two
+    slabs of its largest ``wgmma`` stage's k step where they fit in
+    `MIXED_MAX_SMEM` beside them, else one; 0 without such a stage."""
+    if not ring_bytes(plan):
+        return 0
+    return ring_bytes(plan, 2 if arrays + ring_bytes(plan, 2) <= MIXED_MAX_SMEM else 1) \
+        - RING_ALIGN
 
 
 def _direct_radices(n: int, wide: bool = False,
@@ -441,14 +503,22 @@ def _make_plan(n_fft: int, points: int, radices: Tuple[int, ...], bluestein: boo
     Rader stage keeps its x_0 and X_0 inside the outer stage's N' points
     (its own tail of N' / q), so it takes no more."""
     n = int(np.prod(radices, dtype=np.int64))
-    arrays = 2 if rader or any(r not in REGISTER_RADICES for r in radices) else 1
-    return MixedPlan(n_fft, points, n, radices, bluestein,
-                     8 * arrays * n + 4 * (n_fft // 2 + 1), tuple(rader), tuple(nested))
+    plan = MixedPlan(n_fft, points, n, radices, bluestein, 0, tuple(rader), tuple(nested))
+    return plan._replace(smem_bytes=_share_bytes(plan, n, 1))
+
+
+def _arrays(plan: MixedPlan) -> int:
+    """The work arrays a frame of the plan takes: two where a matrix or
+    Rader stage writes out of place."""
+    return 2 if plan.rader or any(r not in REGISTER_RADICES for r in plan.radices) else 1
 
 
 def _share_bytes(plan: MixedPlan, chunk: int, ctas: int) -> int:
-    arrays = (plan.smem_bytes - 4 * (plan.n_fft // 2 + 1)) // (8 * plan.n)
-    return 8 * arrays * chunk + 4 * -(-(plan.n_fft // 2 + 1) // ctas)
+    """A block's least shared memory for ``chunk`` points of each work array
+    and its share of the power row over ``ctas`` CTAs, the power row's place
+    holding a B ring of one slab where that is larger (`ring_bytes`)."""
+    power = 4 * -(-(plan.n_fft // 2 + 1) // ctas)
+    return 8 * _arrays(plan) * chunk + max(power, ring_bytes(plan))
 
 
 def _cluster_chunk(plan: MixedPlan, ctas: int) -> int:
@@ -468,7 +538,8 @@ def _cluster_chunk(plan: MixedPlan, ctas: int) -> int:
 
 
 def _cluster_bytes(plan: MixedPlan, ctas: int) -> int:
-    """A CTA's shared memory when ``ctas`` CTAs share the plan's frame."""
+    """A CTA's least shared memory when ``ctas`` CTAs share the plan's
+    frame (one B slab)."""
     return _share_bytes(plan, _cluster_chunk(plan, ctas), ctas)
 
 
@@ -501,6 +572,15 @@ def _wide_composite_cluster(plan: MixedPlan) -> bool:
     §6)."""
     return (plan.smem_bytes > MIXED_MAX_SMEM and not _narrow(plan.radices, plan.rader)
             and bool(set(plan.radices + plan.rader) & set(COMPOSITE)))
+
+
+def _wgmma_composite(plan: MixedPlan) -> bool:
+    """A plan with a ``wgmma`` matrix stage and a composite radix, which
+    `mixed_plan` rebuilds without them, as it drops a nested plan with such
+    a stage: the bodies run wgmma stages in instantiations without the
+    composite radices' and nested stages' code (EXT), whose registers they
+    would share (ptxas spilled them)."""
+    return bool(_wgmma_stages(plan)) and bool(set(plan.radices + plan.rader) & set(COMPOSITE))
 
 
 def _kind_plan(n_fft: int, points: int, kind: str, composite: bool) -> Optional[MixedPlan]:
@@ -556,9 +636,9 @@ def mixed_plan(n_fft: int, plan: Optional[str] = None) -> MixedPlan:
                                      _smooth_radices(_next_smooth(2 * points - 1)), True)}
     for kind in ("direct", "rader", "nested"):
         got = _kind_plan(n_fft, points, kind, True)
-        if got is not None and _wide_composite_cluster(got):
+        if got is not None and (_wide_composite_cluster(got) or _wgmma_composite(got)):
             got = _kind_plan(n_fft, points, kind, False)
-        if got is not None:
+        if got is not None and not (got.nested and _wgmma_stages(got)):
             plans[kind] = got
     if plan == "rader" and "rader" not in plans and "nested" in plans:
         return plans["nested"]
@@ -580,7 +660,10 @@ class ClusterSplit(NamedTuple):
     length ls crosses when ls does not divide the chunk. ``rader_cross``
     says the same of the Rader stage's inner stages (its gather and
     pointwise product always cross, and so does the Rader stage's bit).
-    The cluster body runs no nested Rader stage."""
+    ``ring``: the bytes of the B ring a CTA holds for its ``wgmma`` matrix
+    stages (`ring_plan`: two slabs where they fit, else one; 0 without such
+    a stage), counted in ``smem_bytes``. The cluster body runs no nested Rader
+    stage."""
 
     ctas: int
     chunk: int
@@ -588,6 +671,7 @@ class ClusterSplit(NamedTuple):
     smem_bytes: int
     cross: Tuple[bool, ...]
     rader_cross: Tuple[bool, ...] = ()
+    ring: int = 0
 
 
 def _crossing(chunk: int, n: int, radices) -> Tuple[bool, ...]:
@@ -614,22 +698,30 @@ def split_plan(mp: MixedPlan, ctas: int) -> ClusterSplit:
     if mp.rader:
         cross = cross[:-1] + (True,)
         inner = _crossing(chunk, mp.rader_prime - 1, mp.rader)
-    return ClusterSplit(ctas, chunk, bins, _cluster_bytes(mp, ctas), cross, inner)
+    arrays = 8 * _arrays(mp) * chunk
+    ring = ring_plan(mp, arrays)
+    smem = arrays + max(4 * bins, RING_ALIGN + ring if ring else 0)
+    return ClusterSplit(ctas, chunk, bins, smem, cross, inner, ring)
 
 
 @lru_cache(maxsize=None)
 def cluster_size(n_fft: int, plan: Optional[str] = None) -> int:
     """C, the CTAs a frame of the cluster body: the smallest C from 2 to
     ``CLUSTER_MAX`` whose share of the plan fits in ``MIXED_MAX_SMEM``
-    (measured the fastest on an H100 at six of seven sizes, PERF.md §6).
-    Raises ValueError beyond the body's limit, a plan that
-    ``CLUSTER_MAX`` CTAs do not hold. The bits do not depend on C."""
+    (measured the fastest on an H100 at six of seven sizes, PERF.md §6);
+    where the plan has ``wgmma`` matrix stages, the fewest up to 8, else 16
+    (`plan_cluster_size`). Raises ValueError beyond the body's limit, a
+    plan that ``CLUSTER_MAX`` CTAs do not hold. The bits do not depend on
+    C, nor on the B ring's depth."""
     return plan_cluster_size(mixed_plan(n_fft, plan))
 
 
 def plan_cluster_size(mp: MixedPlan) -> int:
-    """`cluster_size` of the plan ``mp``."""
-    for c in range(2, CLUSTER_MAX + 1):
+    """`cluster_size` of the plan ``mp``: the fewest CTAs whose share fits,
+    from `WGMMA_CLUSTERS` alone where it has ``wgmma`` stages (with one B
+    slab at least)."""
+    sizes = WGMMA_CLUSTERS if _wgmma_stages(mp) else range(2, CLUSTER_MAX + 1)
+    for c in sizes:
         if _cluster_bytes(mp, c) <= MIXED_MAX_SMEM:
             return c
     raise ValueError(
@@ -887,6 +979,39 @@ def matrix_table(radix: int) -> np.ndarray:
     return np.stack(parts, axis=-1).reshape(-1)
 
 
+def wgmma_table(radix: int) -> np.ndarray:
+    """`pair_matrices` (radix) as the B slabs of ``wgmma_stage``, one a k
+    step ks (rows r = 8 ks .. 8 ks + 7): cos hi, cos lo, sin hi, sin lo (the
+    TF32 parts as `matrix_table` splits them), each a K-major tile of
+    `WGMMA_COLS` x 8 columns s a column group, zero beyond the matrix, one
+    row of 32 bytes a column s (its 8 k, r = 8 ks + k at float k, or k ^ 4
+    where bit 2 of s is set: the 32-byte swizzle the stage's descriptors
+    name). ``(T x 4 x rows x 8,)`` float32, T = `matrix_tiles`, rows the
+    columns rounded up to whole column groups; each slab
+    `wgmma_slab_bytes` long."""
+    t = matrix_tiles(radix)
+    rows = wgmma_slab_bytes(radix) // (4 * 32)
+    n, k = np.arange(rows)[:, None], np.arange(8)[None, :]
+    place = k ^ (4 * ((n >> 2) & 1))
+    out = np.zeros((t, 4, rows, 8), np.float32)
+    parts = []
+    for g in pair_matrices(radix):
+        hi = _tf32(g.astype(np.float32))
+        parts += [hi, _tf32((g - hi.astype(np.float64)).astype(np.float32))]
+    for ks in range(t):
+        for i, part in enumerate(parts):
+            tile = np.zeros((rows, 8), np.float32)
+            tile[: 8 * t] = part[8 * ks: 8 * ks + 8].T
+            out[ks, i, n, place] = tile
+    return out.reshape(-1)
+
+
+def stage_table(radix: int) -> np.ndarray:
+    """A matrix stage's B values in its form's layout: `wgmma_table` where
+    `wgmma_radix`, else `matrix_table`."""
+    return wgmma_table(radix) if wgmma_radix(radix) else matrix_table(radix)
+
+
 def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax,
                    plan: Optional[str] = None) -> dict:
     """The mixed body's operands for `mixed_plan` (n_fft, ``plan``), each
@@ -897,7 +1022,7 @@ def mixed_operands(sr: int, n_fft: int, n_mels: int, fmin: float, fmax,
     / n_fft)``, ``(L + 1, 2)``); direct: the positions of X_k (``pos``,
     int32, `output_positions`), with a Rader stage its `rader_tables`, and
     with a nested Rader stage its `nested_tables`, and with matrix stages
-    their `matrix_table` s in stage order, the Rader stage's inner ones
+    their `stage_table` s in stage order, the Rader stage's inner ones
     next, the nested stage's inner ones last (``dft``); Bluestein: the chirp (``(L, 2)``) and
     the filter spectrum (``bspec``, ``(M, 2)``); the mel filterbank as CSR
     rows."""
@@ -922,7 +1047,7 @@ def plan_operands(sr: int, n_mels: int, fmin: float, fmax, plan: MixedPlan) -> d
     if plan.nested:
         ops.update(nested_tables(plan.nested_prime, plan.nested))
     if plan.tensor_cores:
-        ops["dft"] = np.concatenate([matrix_table(r) for r in
+        ops["dft"] = np.concatenate([stage_table(r) for r in
                                      plan.matrix + plan.rader_matrix + plan.nested_matrix])
     ops["mel_group"] = mel_group(ptr)
     return ops
@@ -1473,6 +1598,9 @@ def _mixed_lib() -> ctypes.CDLL:
                                   ctypes.POINTER(i), i, ctypes.POINTER(i)] + [p] * 16
                                  + [i, i, i, ctypes.c_float, p, p])
     lib.logmel_mixed.restype = i
+    lib.logmel_mixed_forms.argtypes = [i, i, i, ctypes.POINTER(i), i, i, ctypes.POINTER(i), i,
+                                       ctypes.POINTER(i)]
+    lib.logmel_mixed_forms.restype = i
     for name in ("logmel_mixed_max_smem", "logmel_mixed_max_stages"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
@@ -1512,6 +1640,8 @@ def _cluster_lib() -> ctypes.CDLL:
                                     ctypes.POINTER(i), i, i, i, ctypes.c_uint, ctypes.c_uint]
                                    + [p] * 13 + [i, i, ctypes.c_float, p, p])
     lib.logmel_cluster.restype = i
+    lib.logmel_cluster_forms.argtypes = [i, i, i, ctypes.POINTER(i), i, i, ctypes.POINTER(i)]
+    lib.logmel_cluster_forms.restype = i
     lib.logmel_cluster_resident.argtypes = [i, i, i]
     lib.logmel_cluster_resident.restype = i
     for name in ("logmel_cluster_max_smem", "logmel_cluster_max_ctas",
@@ -1619,9 +1749,22 @@ def launch_mixed_plan(src: torch.Tensor, stride: int, n_frames: int, cfg: Fronte
     if status != 0:
         raise RuntimeError(
             f"logmel_mixed launch failed: {lib.logmel_mixed_error_string(status).decode()}")
+    forms = lib.logmel_mixed_forms(*args, *inner)
     with _lock:
         fused_log_mel.mixed_launches += 1
+        _count_forms(forms)
     return out
+
+
+def _count_forms(forms: int) -> None:
+    """A launch of the mixed or cluster body counted by the forms the library
+    says its matrix stages ran on (``logmel_mixed_forms`` /
+    ``logmel_cluster_forms``: bit 1 ``wgmma``, bit 0 ``mma.sync``) in
+    ``wgmma_launches`` and ``mma_launches`` (the caller holds the lock)."""
+    if forms < 0:
+        raise RuntimeError("the log-mel library does not take the plan it launched")
+    fused_log_mel.wgmma_launches += (forms >> 1) & 1
+    fused_log_mel.mma_launches += forms & 1
 
 
 def _launch_cluster(src: torch.Tensor, stride: int, n_frames: int, n_fft: int,
@@ -1658,8 +1801,10 @@ def launch_cluster_plan(src: torch.Tensor, stride: int, n_frames: int, cfg: Fron
     if status != 0:
         raise RuntimeError(
             f"logmel_cluster launch failed: {lib.logmel_cluster_error_string(status).decode()}")
+    forms = lib.logmel_cluster_forms(*args, *inner)
     with _lock:
         fused_log_mel.cluster_launches += 1
+        _count_forms(forms)
     return out
 
 
@@ -1721,3 +1866,5 @@ fused_log_mel.framed_launches = 0
 fused_log_mel.exact_launches = 0
 fused_log_mel.mixed_launches = 0
 fused_log_mel.cluster_launches = 0
+fused_log_mel.wgmma_launches = 0
+fused_log_mel.mma_launches = 0

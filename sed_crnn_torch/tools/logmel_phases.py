@@ -77,9 +77,14 @@ the nearest the least-squares fits; each weight to three digits, with the
 sizes where they miss the fastest plan.
 
 With ``--turns``, only `plan_turns` (and ``--against``), on the default
-build: the check of the weights in use. With ``--fit-from`` a JSON-lines
+build: the check of the weights in use. With ``--ctas``, only `time_ctas`:
+each cluster-body size of the lists (or ``--sizes``) at every cluster size
+that holds its plan, in turns. With ``--fit-from`` a JSON-lines
 file this tool printed (its ``fit``, ``fit_cluster`` and ``turns``
-lines), `fit_choice` again from those lines alone, on the CPU.
+lines), `fit_choice` again from those lines alone, on the CPU. With
+``--moved`` the root of another checkout, on the CPU: how many n_fft up
+to 206,214 this tree plans otherwise (`moved`: body or plan kind, radices,
+cluster size; refusals).
 
 With ``--against`` (the root of another checkout, e.g. an unpacked ``git
 archive`` of the parent commit under the git-ignored ``build/``): that
@@ -123,8 +128,10 @@ VARIANTS = {"full": 0, "no_mel": 1, "no_power": 2, "no_matrix": 3, "no_rader": 4
 # The register radices the per-radix pass cuts leave out, one build each.
 SKIP_RADICES = (2, 3, 4, 5, 7, 8, 9, 16)
 # The matrix stages' part builds (``-DLOGMEL_MATRIX_PART=k``, on top of the
-# full build): only the gather and TF32 split of the A operands, only the
-# B operands, only the products.
+# full build), in either form (`fl.wgmma_radix`): only the gather and TF32
+# split of the A operands, only the B operands (the mma.sync form's B
+# fragment loads, the wgmma form's slab copies into shared memory and their
+# barriers), only the products (mma.sync, or wgmma on the slabs' memory).
 MATRIX_PARTS = {"matrix_gather": 1, "matrix_b": 2, "matrix_mma": 3}
 TF32_FLOPS = 495e12        # an H100's dense TF32 rate (NVIDIA's data sheet)
 # The most bytes an SM's shared memory and L1 (one array) move a clock: 32
@@ -389,7 +396,9 @@ def against(root: str, y: torch.Tensor, device: str, sizes=FFT_SIZES + MIXED_SIZ
         for kind in fl.PLAN_KINDS:
             try:
                 mine, theirs_plan = fl.mixed_plan(n_fft, kind), theirs.mixed_plan(n_fft, kind)
-            except ValueError:      # a kind one of them has not
+                if mine.smem_bytes > fl.MIXED_MAX_SMEM:
+                    fl.plan_cluster_size(mine)
+            except ValueError:      # a kind one of them has not, or no body holds
                 continue
             key = (mine.radices, mine.rader, mine.bluestein)
             if (key != (theirs_plan.radices, theirs_plan.rader, theirs_plan.bluestein)
@@ -458,12 +467,12 @@ def matrix_work(plan) -> tuple:
 def matrix_report(m: dict, plan, n_frames: int, sms: int) -> dict:
     """The matrix phase of a timed plan (``m``: mean ms by variant, on a card
     of ``sms`` SMs) beside its bound, its share of the bound, its rate in
-    TFLOP/s, and, where the part builds ran, each part alone (gather and
-    split, B operands, products): its ms over the build without matrix
-    stages. The bound is the larger of `matrix_work`'s FLOPs at
-    `TF32_FLOPS` and its bytes (the points' through shared memory, the B
-    tables' once an SM of the launch) at `SMEM_BYTES_CLOCK` an SM at
-    `SM_CLOCK_HZ`. Raises ValueError for a share above 1: a stage faster
+    TFLOP/s, the radices on each form (``wgmma``, ``mma``), and, where the
+    part builds ran, each part alone (gather and split, B operands,
+    products): its ms over the build without matrix stages. The bound is
+    the larger of `matrix_work`'s FLOPs at `TF32_FLOPS` and its bytes (the
+    points' through shared memory, the B tables' once an SM of the launch)
+    at `SMEM_BYTES_CLOCK` an SM at `SM_CLOCK_HZ`. Raises ValueError for a share above 1: a stage faster
     than its least time means the bound is wrong."""
     if not plan.tensor_cores:
         return {}
@@ -477,8 +486,11 @@ def matrix_report(m: dict, plan, n_frames: int, sms: int) -> dict:
     if share is not None and share > 1:
         raise ValueError(f"n_fft {plan.n_fft}: the matrix phase {ms:.4f} ms is below its "
                          f"bound {bound:.4f} ms")
+    radices = plan.matrix + plan.rader_matrix + plan.nested_matrix
     out = {"ms": ms, "bound_ms": bound, "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "share_of_bound": share,
+           "wgmma": sorted({r for r in radices if fl.wgmma_radix(r)}),
+           "mma": sorted({r for r in radices if not fl.wgmma_radix(r)}),
            "tflops": flops * n_frames / (ms * 1e-3) / 1e12 if ms > 0 else None}
     for k in MATRIX_PARTS:
         if k in m:
@@ -697,6 +709,94 @@ def _timeable(n_fft: int) -> bool:
         return False
 
 
+def _load_module(root: str, name: str):
+    """Another checkout's ``ops/kernels/fused_logmel.py`` as a module of its
+    own (its plan rule; nothing built)."""
+    path = Path(root).resolve() / "sed_crnn_torch" / "ops" / "kernels" / "fused_logmel.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def plan_key(mod, n_fft: int) -> tuple:
+    """A size's kernel A plan under ``mod``: its body, plan kind, radices
+    and cluster size (0 off the cluster body), or ``("refused",)``."""
+    try:
+        where = mod.body(n_fft)
+        if where == "fft":
+            return (where,)
+        plan = mod.mixed_plan(n_fft)
+        kind = ("bluestein" if plan.bluestein else "nested" if plan.nested else
+                "rader" if plan.rader else "direct")
+        return (where, kind, plan.radices, plan.rader, plan.nested,
+                mod.cluster_size(n_fft) if where == "cluster" else 0)
+    except ValueError:
+        return ("refused",)
+
+
+def _moved_chunk(args) -> dict:
+    root, lo, hi = args
+    other = _load_module(root, "fused_logmel_moved")
+    counts = {"sizes": 0, "kind": 0, "plan": 0, "ctas": 0, "refused": 0, "refused_other": 0,
+              "kind_sizes": []}
+    for n in range(lo, hi):
+        mine, theirs = plan_key(fl, n), plan_key(other, n)
+        counts["sizes"] += 1
+        counts["refused"] += mine == ("refused",)
+        counts["refused_other"] += theirs == ("refused",)
+        counts["kind"] += mine[:2] != theirs[:2]
+        if mine[:2] != theirs[:2]:
+            counts["kind_sizes"].append(n)
+        counts["plan"] += mine[:5] != theirs[:5]
+        counts["ctas"] += mine[:5] == theirs[:5] and mine != theirs
+        for mod in (fl, other):
+            mod.mixed_plan.cache_clear()
+            mod.cluster_size.cache_clear()
+    return counts
+
+
+def moved(root: str, lo: int = 1, hi: int = 206_215, workers: int = 4) -> dict:
+    """How many n_fft from ``lo`` to ``hi`` - 1 this tree plans otherwise than
+    the checkout at ``root``, on the CPU: another body or plan kind
+    (``kind``, those n_fft in ``kind_sizes``), other radices (``plan``), the
+    same plan on another cluster size (``ctas``), and those either refuses;
+    ``workers`` processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    step = -(-(hi - lo) // workers)
+    parts = [(root, a, min(hi, a + step)) for a in range(lo, hi, step)]
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(_moved_chunk, parts))
+    return {k: sum((r[k] for r in results), [] if k == "kind_sizes" else 0) for k in results[0]}
+
+
+def time_ctas(y: torch.Tensor, n_fft: int, hop: int, device: str) -> None:
+    """One size's plan on the cluster body at every cluster size whose share
+    of it fits (`_cluster_bytes`), in turns (each C, then in reverse), with
+    each C's B ring (bytes) and whether every C gave `cluster_size`'s bits;
+    one JSON line."""
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
+    src, n_frames = fl.frame_source(y, cfg)
+    plan = fl.mixed_plan(n_fft)
+    sizes = [c for c in range(2, fl.CLUSTER_MAX + 1)
+             if fl._cluster_bytes(plan, c) <= fl.MIXED_MAX_SMEM]
+    launch = {c: (lambda c=c: fl._launch_cluster(src, hop, n_frames, n_fft, cfg, ctas=c))
+              for c in sizes}
+    default = fl.cluster_size(n_fft)
+    want = fl._launch_cluster(src, hop, n_frames, n_fft, cfg)
+    same = all(torch.equal(want, launch[c]()) for c in sizes)
+    ms = {c: [] for c in sizes}
+    for c in sizes + sizes[::-1]:
+        ms[c].append(cuda_ms(launch[c]))
+    print(json.dumps({"body": "cluster", "n_fft": n_fft, "hop": hop, "frames": n_frames,
+                      "radices": plan.radices, "rader": plan.rader, "default_ctas": default,
+                      "ms_by_ctas": ms, "ring": {c: fl.cluster_split(n_fft, c).ring
+                                                 for c in sizes},
+                      "same_bits": same, "device": device}), flush=True)
+
+
 def _fit_from(path: str) -> int:
     """`fit_choice` again from a JSON-lines file this tool printed."""
     lines = [json.loads(ln) for ln in Path(path).read_text().splitlines()
@@ -726,9 +826,18 @@ def main(argv=None) -> int:
                     help="only every size's plans in turns (and --against), no phases")
     ap.add_argument("--fit-from", default="",
                     help="fit the weights again from this tool's printed lines (no card)")
+    ap.add_argument("--ctas", action="store_true",
+                    help="only each cluster-body size at every cluster size that holds it, "
+                         "in turns")
+    ap.add_argument("--moved", default="",
+                    help="the root of another checkout: count the n_fft this tree plans "
+                         "otherwise, to 206,214 (no card)")
     args = ap.parse_args(argv)
     if args.fit_from:
         return _fit_from(args.fit_from)
+    if args.moved:
+        print(json.dumps({"moved_against": args.moved} | moved(args.moved)), flush=True)
+        return 0
     if args.radix and (args.body != "both" or args.turns):
         ap.error("--radix needs --body both and no --turns")
     known = FFT_SIZES + MIXED_SIZES + SIZES
@@ -742,7 +851,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("logmel_phases: a CUDA card is required", file=sys.stderr)
         return 2
-    bodies = () if args.turns else ("mixed", "cluster") if args.body == "both" else (args.body,)
+    bodies = () if args.turns or args.ctas else \
+        ("mixed", "cluster") if args.body == "both" else (args.body,)
     libs = build_variants(bodies, args.radix) if bodies else {}
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -750,6 +860,10 @@ def main(argv=None) -> int:
     y = torch.from_numpy((0.1 * rng.standard_normal(int(SECONDS * FrontendConfig().sample_rate)))
                          .astype(np.float32)).to(dev)
     device = torch.cuda.get_device_name(0)
+    if args.ctas:
+        for n_fft, hop in sizes:
+            time_ctas(y, n_fft, hop, device)
+        return 0
     fit_rows, fit_ns = [], []
     fit = {}
     cluster_rows, cluster_ns = [], []

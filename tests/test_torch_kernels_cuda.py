@@ -421,6 +421,35 @@ def test_dwh_bodies_build_without_spills(cuda, tmp_path):
         assert "0 bytes spill stores, 0 bytes spill loads" in line, (name, line)
 
 
+def test_logmel_wgmma_instantiations_build_without_spills(cuda, tmp_path):
+    """csrc/logmel_mixed.cu and logmel_cluster.cu built as the port builds
+    them (sm_90a): ptxas reports no spill in the instantiations that run
+    wgmma matrix stages (WG, the last template argument: the mixed body's
+    two wide ones at one block an SM, with and without a Rader stage; the
+    cluster body's one with two work arrays; 384 threads, whose 168
+    registers a thread hold the stage's 64 accumulators)."""
+    import re
+    import subprocess
+
+    from sed_crnn_torch.ops.kernels import _build
+
+    for source, kernel, wg_count in (("logmel_mixed", "logmel_mixed_kernel", 2),
+                                     ("logmel_cluster", "logmel_cluster_kernel", 1)):
+        done = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp_path / f"lib{source}.so"),
+             str(_build.CSRC_DIR / f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=900)
+        assert done.returncode == 0, done.stdout
+        lines = done.stdout.splitlines()
+        spills = {ln.rsplit(" ", 1)[-1]: lines[i + 1] for i, ln in enumerate(lines[:-1])
+                  if "Function properties for" in ln and kernel in ln}
+        wg = {k: v for k, v in spills.items()
+              if re.search(kernel + r"I(?:L[bi]\d+E)+Lb1EE", k)}
+        assert len(wg) == wg_count, sorted(spills)
+        for name, line in wg.items():
+            assert "0 bytes spill stores, 0 bytes spill loads" in line, (name, line)
+
+
 WIDE_WIDTHS =[33, 48, 64, 96, 128, 129, 256, 512, 520, 768, 1024, 1536, 2048]
 
 
@@ -860,15 +889,18 @@ def _fft_log_mel64(y, cfg):
     return torch.log(mel).float()
 
 
-# The matrix stage's forms (`matrix_stage` in csrc/logmel_stages.cuh), each
-# radix alone or nearly so in a forced plan: 17, 23, 31 (one or two column
-# tiles, warp by warp), 373 (24 tiles: the A operands shared, two bands)
-# and 647 (41 tiles, four bands) as the only stage (n_fft 2 R), 373 after a
-# radix-3 stage (2238), and 373 in a Rader stage's inner transforms, forward
-# and transposed (4478: L 2239, 2238 = 2 x 3 x 373).
+# The matrix stage's forms (csrc/logmel_stages.cuh), each radix alone or
+# nearly so in a forced plan, on the form `wgmma_radix` gives it: on
+# mma.sync 17, 23, 31 (one or two column tiles, the pair jobs), 47, 83, 113,
+# 149 (3 to 10 tiles, 4 a job) and 647 (41 tiles, four bands), on wgmma 373
+# (24 tiles, three column groups of 8, two B slabs in turn) as the only
+# stage (n_fft 2 R), 373 after a radix-3 stage (2238) and in a Rader
+# stage's inner transforms, forward and transposed (4478: L 2239, 2238 = 2
+# x 3 x 373).
 MATRIX_FORMS = [(34, "direct", 17), (46, "direct", 23), (62, "direct", 31),
                 (746, "direct", 373), (1294, "direct", 647), (2238, "direct", 373),
-                (4478, "rader", 373)]
+                (4478, "rader", 373), (94, "direct", 47), (166, "direct", 83),
+                (298, "direct", 149), (226, "direct", 113)]
 
 
 @pytest.mark.parametrize("n_fft,kind,radix", MATRIX_FORMS)
@@ -882,13 +914,20 @@ def test_matrix_stage_forms_match_plain_on_both_bodies(cuda, n_fft, kind, radix)
     off in the log domain, 1.1e-4 at n_fft 46), twice bitwise, and the
     cluster body forced to the same plan over 1, 2, 3, 4 and 8 CTAs bitwise
     the mixed body's (the butterflies split otherwise, and crossing
-    CTAs)."""
+    CTAs); the library reports the forms `wgmma_radix` gives the plan's
+    stages."""
+    from sed_crnn_torch.ops.kernels.fused_logmel import wgmma_radix
+
     plan = mixed_plan(n_fft, kind)
-    assert radix in plan.matrix + plan.rader_matrix
+    stages = plan.matrix + plan.rader_matrix
+    assert radix in stages
     cfg = FrontendConfig(n_fft=n_fft, hop_length=n_fft // 2, center=False, log_floor=None)
     y = torch.from_numpy(_signal(2 * 44100, 44100, 12, silent=(20000, 30000))).to(cuda)
     src, n_frames = frame_source(y, cfg)
+    before = (fused_log_mel.wgmma_launches, fused_log_mel.mma_launches)
     got = _launch_mixed(src, n_fft // 2, n_frames, n_fft, cfg, plan=kind)
+    assert (fused_log_mel.wgmma_launches - before[0], fused_log_mel.mma_launches - before[1]) == (
+        int(any(wgmma_radix(r) for r in stages)), int(any(not wgmma_radix(r) for r in stages)))
     again = _launch_mixed(src, n_fft // 2, n_frames, n_fft, cfg, plan=kind)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -945,11 +984,14 @@ def test_cluster_kernel_matches_its_plain_version_bitwise(cuda, n_fft, hop, cent
                                             (31290, 15645, (2, 3, 4, 8)),
                                             (44100, 22050, (2, 3, 4, 7, 9)),
                                             (88200, 44100, (3, 4, 6, 12)),
-                                            (44000, 22000, (2, 3, 5))])
+                                            (44000, 22000, (2, 3, 5)),
+                                            (141001, 70500, (11, 12, 13, 14))])
 def test_cluster_kernel_bits_do_not_depend_on_the_cluster_size(cuda, n_fft, hop, ctas):
     """The same frames split over every cluster size tried give the same
     bits as the default split: the stages that cross CTAs change (at 44100
-    over 4 CTAs, which do not divide N, all 7 do), the operations do not."""
+    over 4 CTAs, which do not divide N, all 7 do), and so does the B ring of
+    a wgmma stage (141001's 373: one slab a CTA at 11 and 12, two at 13,
+    14 and the default 16), the operations do not."""
     cfg = FrontendConfig(n_fft=n_fft, hop_length=hop, center=False, log_floor=1e-10)
     y = torch.from_numpy(_signal(5 * n_fft, 44100, 10)).to(cuda)
     src, n_frames = frame_source(y, cfg)

@@ -41,6 +41,7 @@ from sed_crnn_torch.ops.kernels.fused_logmel import (
     mixed_log_mel_plain,
     mixed_plan,
 )
+from sed_crnn_torch.ops.kernels import fused_logmel as fl
 from sed_crnn_torch.ops.mel import mel_filterbank
 from sed_crnn_torch.ops.stft import hann_window
 
@@ -96,11 +97,15 @@ def _assert_log_close(got, want, atol):
 # 17, its chunk whole inner transforms so that none of them crosses; 31290:
 # a matrix stage; 44100, 48000, and 88200 at C = 3), a power
 # of two, sizes whose smallest cluster does not divide N, so that most
-# stages cross CTAs (141000: C 7, a matrix stage of 47; 141001: C 11, a
-# Rader stage of 20143 whose inner stages mostly cross), and the largest
+# stages cross CTAs (141000: C 7, a matrix stage of 47; 141001: C 16, as
+# every plan with a wgmma stage that 8 CTAs do not hold (it fits 11), here
+# 373 inside a Rader stage of 20143 whose inner stages mostly cross), and
+# the largest
 # plans (206208 (a matrix stage of 179), 206209 (Rader) and 617400 fill 9,
-# 16 and 16 CTAs). Plans beyond one block with a matrix or Rader stage take
-# no composite radix.
+# 16 and 16 CTAs; 206209 with one B slab). Plans beyond one block with a
+# matrix or Rader stage take no composite radix. A CTA's bytes: its shares
+# of the work arrays, and of the power row, or the B ring of its wgmma
+# stages in its place where that is larger (141001: two slabs of 373's).
 SPLITS = {
     25734: (12867, 12867, False, 2, 2, 162952, 8576, 0),
     25738: (12869, 12869, False, 2, 2, 134604, 6804, 0),
@@ -110,7 +115,7 @@ SPLITS = {
     88200: (44100, 44100, False, 3, 2, 176404, 14700, 0),
     131072: (65536, 65536, False, 4, 1, 196612, 16384, 0),
     141000: (70500, 70500, False, 7, 6, 201440, 10072, 0),
-    141001: (141001, 141001, False, 11, 2, 230744, 12819, 5),
+    141001: (141001, 141001, False, 16, 2, 190416, 8813, 5),
     206208: (103104, 103104, False, 9, 5, 229124, 11456, 0),
     206209: (206209, 206209, False, 16, 1, 232004, 12889, 7),
     617400: (308700, 308700, False, 16, 7, 231528, 19294, 0),
@@ -120,7 +125,9 @@ SPLITS = {
 @pytest.mark.parametrize("n_fft", list(SPLITS))
 def test_split_by_size(n_fft):
     """The plan is the mixed body's; C is the smallest cluster whose share
-    fits in 227 KB a CTA; the chunk is ceil(N / C), or whole inner
+    fits in 227 KB a CTA, of 2-8 and 16 alone where the plan has wgmma
+    matrix stages (a double B ring where it fits); the chunk is ceil(N / C),
+    or whole inner
     transforms of a Rader stage where those fit; a stage crosses CTAs when
     its sub-transform length does not divide the chunk, so the first always
     does, and a Rader stage always does (its gather and product)."""
@@ -138,7 +145,9 @@ def test_split_by_size(n_fft):
     else:
         assert sp.chunk == -(-n // ctas)
     arrays = 2 if plan.matrix or plan.rader else 1
-    assert sp.smem_bytes == 8 * arrays * sp.chunk + 4 * sp.bin_chunk <= MIXED_MAX_SMEM
+    assert sp.ring == fl.ring_plan(plan, 8 * arrays * sp.chunk)
+    ring = 256 + sp.ring if sp.ring else 0
+    assert sp.smem_bytes == 8 * arrays * sp.chunk + max(4 * sp.bin_chunk, ring) <= MIXED_MAX_SMEM
     assert sp.cross[0]
     ls = n
     for s, (r, cross) in enumerate(zip(plan.radices, sp.cross)):
@@ -148,7 +157,11 @@ def test_split_by_size(n_fft):
     for r, cross in zip(plan.rader, sp.rader_cross):
         assert cross == (sp.chunk % ls != 0)
         ls //= r
-    assert all(cluster_split(n_fft, c).smem_bytes > MIXED_MAX_SMEM for c in range(2, ctas))
+    if ring:
+        assert ctas == next(c for c in fl.WGMMA_CLUSTERS
+                            if fl._cluster_bytes(plan, c) <= MIXED_MAX_SMEM)
+    else:
+        assert all(cluster_split(n_fft, c).smem_bytes > MIXED_MAX_SMEM for c in range(2, ctas))
 
 
 @pytest.mark.parametrize("n_fft,fits", [

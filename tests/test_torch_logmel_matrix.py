@@ -217,6 +217,47 @@ def test_each_point_is_gathered_once_a_job(radix):
         assert rows * columns == cols
 
 
+def test_form_rule_reads_only_the_radix():
+    """The stage's form is a function of R alone: ``wgmma_radix`` in the
+    source reads its one argument and the two constants the module mirrors
+    (`WGMMA_MIN_RADIX`, `WGMMA_MAX_RADIX`), `wgmma_radix` takes the radix
+    alone, and ``run_matrix_stage`` picks the form by ``wgmma_radix(R)``
+    before anything else (not by the body, C, the butterflies or the
+    ring, whose depth the launchers choose by free shared memory)."""
+    import inspect
+
+    text = _source("logmel_stages.cuh")
+    lo, hi = (int(re.search(rf"constexpr int WGMMA_{k}_RADIX = (\d+);", text).group(1))
+              for k in ("MIN", "MAX"))
+    assert (lo, hi) == (fl.WGMMA_MIN_RADIX, fl.WGMMA_MAX_RADIX)
+    body = re.search(r"constexpr bool wgmma_radix\(int r\) \{(.*?)\}", text, re.S).group(1)
+    assert set(re.findall(r"[A-Za-z_]\w*", body)) == {"return", "r", "WGMMA_MIN_RADIX",
+                                                        "WGMMA_MAX_RADIX"}
+    dispatch = re.search(r"void run_matrix_stage\(.*?\{\s*(if \(.*?\)) \{", text, re.S).group(1)
+    assert dispatch == "if (wgmma_radix(R))"
+    assert list(inspect.signature(fl.wgmma_radix).parameters) == ["radix"]
+    primes = [r for r in range(15, 1022, 2) if all(r % q for q in range(3, int(r ** 0.5) + 1, 2))]
+    assert [r for r in primes if fl.wgmma_radix(r)] == [r for r in primes if lo <= r <= hi]
+    assert fl.matrix_tiles(hi) <= 24 and fl.wgmma_slab_bytes(hi) == 24576
+    assert fl.matrix_tiles(lo) > 4    # a wgmma stage is never 8 columns of padding
+
+
+@pytest.mark.parametrize("radix", list(JOBS))
+def test_wgmma_form_gathers_each_point_once_a_column_group(radix):
+    """In the wgmma form a warpgroup's job is 32 butterflies and a column
+    group of `WGMMA_COLS` (8) tiles, each point gathered, paired and split
+    once a k step for the whole group: ceil(T / 8) times a stage (3 at R =
+    373, where the mma.sync form gathers it 6 times; no more often than
+    that form's at any R of more than 4 tiles); the source's column tiles a
+    wgmma are the module's."""
+    t = fl.matrix_tiles(radix)
+    cols = fl.WGMMA_COLS
+    text = _source("logmel_stages.cuh")
+    assert int(re.search(r"constexpr int WGMMA_COLS = (\d+);", text).group(1)) == cols == 8
+    assert -(-t // cols) == (1 if t <= 8 else -(-t // 8))
+    assert -(-t // cols) <= JOBS[radix][1] or t <= 4
+
+
 @pytest.mark.parametrize("n_fft,frames,by", [(141001, 92, "operations"), (12895, 1025, "bytes"),
                                              (12865, 1027, "operations")])
 def test_matrix_bound_is_the_least_time(n_fft, frames, by):
@@ -237,6 +278,35 @@ def test_matrix_bound_is_the_least_time(n_fft, frames, by):
     assert got["share_of_bound"] == pytest.approx(0.02, rel=1e-12)
     with pytest.raises(ValueError, match="below its bound"):
         tool.matrix_report({"no_power": 0.5 * want, "no_matrix": 0.0}, plan, frames, sms)
+
+
+def test_moved_counts_another_checkouts_plans():
+    """`tools/logmel_phases.py --moved`: a size's plan key (body, kind,
+    radices, cluster size) and the count of sizes another checkout plans
+    otherwise; against this tree itself none moved."""
+    from pathlib import Path
+
+    from sed_crnn_torch.tools import logmel_phases as tool
+
+    assert tool.plan_key(fl, 141001) == ("cluster", "rader", (7, 20143), (2, 3, 3, 3, 373), (),
+                                         16)
+    assert tool.plan_key(fl, 2048) == ("fft",) and tool.plan_key(fl, 206_215) == ("refused",)
+    root = str(Path(fl.__file__).resolve().parents[3])
+    assert tool.moved(root, 206_212, 206_216, workers=1) == {
+        "sizes": 4, "kind": 0, "plan": 0, "ctas": 0, "refused": 1, "refused_other": 1,
+        "kind_sizes": []}
+
+
+def test_ctas_sweep_needs_a_card(monkeypatch, capsys):
+    """`tools/logmel_phases.py --ctas` (each cluster-body size at every
+    cluster size that holds it, in turns) refuses to run without a CUDA
+    card and times nothing."""
+    from sed_crnn_torch.tools import logmel_phases as tool
+
+    monkeypatch.setattr(tool.torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tool, "time_ctas", lambda *a: pytest.fail("timed without a card"))
+    assert tool.main(["--ctas", "--sizes", "141001"]) == 2
+    assert "a CUDA card is required" in capsys.readouterr().err
 
 
 def test_sass_compare_reads_each_kernel(monkeypatch, tmp_path):
@@ -305,14 +375,59 @@ def test_plan_is_the_cheapest_of_the_timed_ones(n_fft):
 
 def test_141001_keeps_a_plan_and_206215_is_the_first_refused():
     """The largest loss to the library, 141,001 (L 7 x 20,143), keeps its
-    Rader stage over 2 x 3 x 3 x 3 x 373 on 11 CTAs, every inner stage
-    crossing CTAs; 206,215 is still the first n_fft beyond the cluster
-    body's limit."""
+    Rader stage over 2 x 3 x 3 x 3 x 373 (373 on wgmma) on 16 CTAs, which
+    hold its double B ring (11 are the fewest that hold one slab, 13 two),
+    every inner stage crossing CTAs; 206,215 is still the first n_fft
+    beyond the cluster body's limit."""
     plan = fl.mixed_plan(141001)
     assert (plan.radices, plan.rader, fl.body(141001)) == ((7, 20143), (2, 3, 3, 3, 373),
                                                            "cluster")
+    assert fl.wgmma_radix(373) and fl.ring_bytes(plan, 2) == 256 + 2 * 24576
     sp = fl.cluster_split(141001, fl.cluster_size(141001))
-    assert sp.ctas == 11 and all(sp.rader_cross)
+    assert sp.ctas == 16 and sp.ring == 2 * 24576 and all(sp.rader_cross)
+    assert [fl.cluster_split(141001, c).ring for c in (12, 13)] == [24576, 2 * 24576]
+    assert fl._cluster_bytes(plan, 10) > fl.MIXED_MAX_SMEM >= fl._cluster_bytes(plan, 11)
+    assert fl.cluster_split(141001, 11).ring == 24576
+    assert all(fl.cluster_size(n) <= fl.CLUSTER_MAX for n in range(206_200, 206_215))
+    with pytest.raises(ValueError, match="beyond the cluster body's limit"):
+        fl.cluster_size(206_215)
+
+
+@pytest.mark.parametrize("n_fft,kind,ctas,slabs", [
+    (141001, None, 16, 2), (168709, None, 16, 1), (181651, None, 16, 1), (194090, None, 16, 2),
+    (28367, None, 3, 2), (182146, None, 8, 2), (746, "direct", 0, 2),
+    (4478, "rader", 0, 2), (12865, None, 0, 0), (206213, None, 16, 0)])
+def test_shared_memory_counts_the_b_ring(n_fft, kind, ctas, slabs):
+    """A block's shared memory holds its wgmma stages' B ring in the power
+    row's place (256 bytes of alignment, then two slabs of the largest
+    stage's k step where they fit beside the work arrays, else one:
+    `ring_plan`); `cluster_size` gives a plan with a wgmma stage the fewest
+    CTAs that hold it up to 8 (28,367: 3, 182,146: 8), else 16 (141,001;
+    194,090, which 9 would hold; 168,709 and 181,651 with one slab: 373
+    inside a Rader stage), any other plan the fewest CTAs that hold it; a
+    plan with no
+    wgmma stage takes no ring
+    (12865: 31 and 83 on mma.sync; 206213: 89 and 331); every n_fft up to
+    206,214 still has a plan, 206,215 none."""
+    plan = fl.mixed_plan(n_fft, kind)
+    slab = max((fl.wgmma_slab_bytes(r) for r in plan.matrix + plan.rader_matrix
+                if fl.wgmma_radix(r)), default=0)
+    arrays = 16 * (plan.n if not ctas else fl.cluster_split(n_fft, ctas, kind).chunk)
+    assert fl.ring_plan(plan, arrays) == slabs * slab
+    assert fl.ring_bytes(plan, slabs) == (256 + slabs * slab if slab else 0)
+    if not ctas:
+        assert plan.smem_bytes == arrays + max(4 * (n_fft // 2 + 1), fl.ring_bytes(plan, 1))
+        assert plan.smem_bytes <= fl.MIXED_MAX_SMEM
+        return
+    assert fl.cluster_size(n_fft) == ctas
+    sp = fl.cluster_split(n_fft, ctas)
+    assert sp.ring == slabs * slab and sp.smem_bytes <= fl.MIXED_MAX_SMEM
+    assert sp.smem_bytes == arrays + max(4 * sp.bin_chunk, 256 + slabs * slab)
+    assert all(fl._cluster_bytes(plan, c) > fl.MIXED_MAX_SMEM for c in range(2, min(ctas, 9)))
+    if slab:
+        assert fl.WGMMA_CLUSTERS == (2, 3, 4, 5, 6, 7, 8, 16) and ctas in fl.WGMMA_CLUSTERS
+    else:
+        assert all(fl._cluster_bytes(plan, c) > fl.MIXED_MAX_SMEM for c in range(2, ctas))
     assert all(fl.cluster_size(n) <= fl.CLUSTER_MAX for n in range(206_200, 206_215))
     with pytest.raises(ValueError, match="beyond the cluster body's limit"):
         fl.cluster_size(206_215)

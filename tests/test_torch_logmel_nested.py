@@ -276,12 +276,16 @@ def test_no_nested_plan_beyond_one_block(n_fft):
 def test_mixed_launcher_takes_a_nested_plan(monkeypatch):
     """The wrapper hands the mixed launcher the nested stage's radices and
     tables after the Rader stage's (a stand-in library records the call)."""
-    calls = []
+    calls, forms = [], []
 
     class Fake:
         def logmel_mixed(self, *args):
             calls.append(args)
             return 0
+
+        def logmel_mixed_forms(self, *args):
+            forms.append(args)
+            return 1
 
     monkeypatch.setattr(fl, "_mixed_lib", lambda: Fake())
     monkeypatch.setattr(torch.cuda, "device", lambda d: __import__("contextlib").nullcontext())
@@ -293,6 +297,7 @@ def test_mixed_launcher_takes_a_nested_plan(monkeypatch):
     fl._launch_mixed(torch.zeros(2 * n_fft), 6447, 2, n_fft, cfg, plan="nested")
     assert fl.fused_log_mel.mixed_launches == before + 1
     (args,) = calls
+    assert forms == [args[3:12]]    # the forms query takes the launch's plan
     plan = mixed_plan(n_fft, "nested")
     assert args[3:6] == (n_fft, plan.n, len(plan.radices)) and args[7] == 0
     assert args[8] == len(plan.rader) and list(args[9][: len(plan.rader)]) == list(plan.rader)

@@ -18,6 +18,8 @@ its interpreted kernel runs; `extract` is.
 """
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -138,7 +140,8 @@ def test_new_plans(n_fft):
     assert plan.kinds == tuple("rader" if r == rader and s == len(radices) - 1 else
                                "matrix" if r > 13 else "register" for s, r in enumerate(radices))
     arrays = 2 if plan.matrix or inner else 1   # matrix and Rader stages write out of place
-    assert plan.smem_bytes == 8 * arrays * plan.n + 4 * (n_fft // 2 + 1)
+    # the power row's place holds the wgmma stages' B slab where that is larger
+    assert plan.smem_bytes == 8 * arrays * plan.n + max(4 * (n_fft // 2 + 1), fl.ring_bytes(plan))
     if blue:
         assert plan.n == _next_smooth(2 * plan.points - 1)
         assert set(plan.radices) <= {2, 3, 4, 5, 7, 8, 9}
@@ -195,20 +198,26 @@ def test_a_matrix_plan_beyond_one_block_takes_bluestein():
     plan = mixed_plan(63488)
     assert plan == direct and body(63488) == "cluster"
     sp = fl.cluster_split(63488, fl.cluster_size(63488))
-    assert sp.smem_bytes == 16 * sp.chunk + 4 * sp.bin_chunk <= MIXED_MAX_SMEM
+    assert sp.smem_bytes == 16 * sp.chunk + max(4 * sp.bin_chunk, 256 + sp.ring if sp.ring else 0)
+    assert sp.smem_bytes <= MIXED_MAX_SMEM
     assert (sp.ctas, sp.chunk) == (3, 10582) and sp.cross[-1] and sp.chunk % 31 != 0
 
 
 class _FakeClusterLib:
     """Stands in for the built ``logmel_cluster`` library: records the
-    arguments of one launch and returns success."""
+    arguments of one launch and of its forms query, returns success and
+    the mma.sync form."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.forms = [], []
 
     def logmel_cluster(self, *args):
         self.calls.append(args)
         return 0
+
+    def logmel_cluster_forms(self, *args):
+        self.forms.append(args)
+        return 1
 
 
 @pytest.mark.parametrize("n_fft", [1034, 12865, 1103, 25734])
@@ -232,6 +241,7 @@ def test_cluster_launcher_takes_matrix_and_rader_plans(n_fft, monkeypatch):
     _launch_cluster(torch.zeros(2 * n_fft), n_fft // 2, 2, n_fft, cfg, ctas=2, plan=kind)
     assert fl.fused_log_mel.cluster_launches == before + 1
     (args,) = fake.calls
+    assert fake.forms == [args[3:10]]    # the forms query takes the launch's plan
     sp = fl.cluster_split(n_fft, 2, kind)
     assert args[3:6] == (n_fft, plan.n, len(plan.radices))
     assert list(args[6][: len(plan.radices)]) == list(plan.radices) and args[7] == 0
@@ -243,7 +253,7 @@ def test_cluster_launcher_takes_matrix_and_rader_plans(n_fft, monkeypatch):
     tables = args[15:28]
     assert tables[6] is not None                       # the matrix stages' fragments
     assert (tables[7] is not None) == bool(plan.rader)  # the gather, twiddles, spectrum
-    assert sp.smem_bytes == 16 * sp.chunk + 4 * sp.bin_chunk
+    assert sp.smem_bytes == 16 * sp.chunk + max(4 * sp.bin_chunk, 256 + sp.ring if sp.ring else 0)
 
 
 class _FakeFunction:
@@ -398,6 +408,117 @@ def test_matrix_table_is_the_fragments_of_both_matrices(radix):
         assert np.all(np.abs(back - g) <= 2.0 ** -21 * np.abs(g))
 
 
+@pytest.mark.parametrize("radix", [17, 31, 47, 67, 83, 113, 149, 373])
+def test_wgmma_table_is_both_matrices_in_the_swizzle(radix):
+    """Read back from the wgmma form's slabs (k step ks, part cos hi / lo,
+    sin hi / lo, row n = column s, the 8 k of row n at float k, or k ^ 4
+    where bit 2 of n is set: the 32-byte swizzle), every position holds
+    `pair_matrices`' value as `matrix_table` splits it: the same TF32 hi and
+    lo parts, zero in the padding to whole column groups."""
+    t, cols = matrix_tiles(radix), fl.WGMMA_COLS
+    rows = -(-t // cols) * cols * 8
+    assert fl.wgmma_slab_bytes(radix) == 4 * rows * 32
+    slabs = fl.wgmma_table(radix).reshape(t, 4, rows, 8)
+    assert slabs.dtype == np.float32
+    assert not np.any(slabs.view(np.uint32) & np.uint32(0x1FFF))
+    frag = matrix_table(radix).reshape(t, t, 32, 8)
+    for i, g in enumerate(pair_matrices(radix)):
+        hi = _tf32(g.astype(np.float32))
+        lo = _tf32((g - hi.astype(np.float64)).astype(np.float32))
+        for j, want in enumerate((hi, lo)):
+            back = np.zeros((8 * t, rows), np.float32)
+            for n in range(rows):
+                for k in range(8):
+                    back[8 * np.arange(t) + k, n] = slabs[:, 2 * i + j, n, k ^ (4 * ((n >> 2) & 1))]
+            np.testing.assert_array_equal(back[:, : 8 * t], want)
+            assert not back[:, 8 * t:].any()
+            # the mma.sync fragments hold the same parts: lane 4 g + u, k = 8 kt + u, n = 8 nt + g
+            lane = np.arange(32)
+            k = 8 * np.arange(t)[:, None, None] + (lane % 4)[None, None, :]
+            n = 8 * np.arange(t)[None, :, None] + (lane // 4)[None, None, :]
+            np.testing.assert_array_equal(frag[..., 4 * i + 2 * j], back[k, n])
+            np.testing.assert_array_equal(frag[..., 4 * i + 2 * j + 1], back[k + 4, n])
+    assert fl.stage_table(radix) is not None and np.array_equal(
+        fl.stage_table(radix), fl.wgmma_table(radix) if fl.wgmma_radix(radix) else frag.reshape(-1))
+
+
+@pytest.mark.parametrize("n_fft,kind,wgmma,mma", [
+    (746, "direct", 1, 0), (141001, None, 1, 0), (4478, "rader", 1, 0), (206213, None, 0, 1),
+    (12865, None, 0, 1), (1294, "direct", 0, 1), (12941, "bluestein", 0, 0), (4126, None, 0, 0)])
+def test_launches_are_counted_by_form(n_fft, kind, wgmma, mma, monkeypatch):
+    """A mixed or cluster launch counts in ``wgmma_launches`` where the
+    library says one of its matrix stages ran on wgmma (373 at 746 and, in a
+    Rader stage, at 4478 and 141001), in ``mma_launches`` where one ran on
+    mma.sync (89 and 331 at 206213; 31 and 83 at 12865; 647 at 1294's direct
+    plan), in neither without matrix stages (12941's Bluestein plan; 4126's
+    composite plan): the wrapper passes the launch's plan to the library's
+    forms query (here a stand-in that applies `wgmma_radix` to the matrix
+    stages it is given, as ``make_plan`` does) and counts its bits."""
+    plan = mixed_plan(n_fft, kind)
+
+    def forms(n_fft, n, n_stages, radices, bluestein, rader_stages, rader, nested_stages=0,
+              nested=None):
+        stages = list(radices[: n_stages - (rader_stages > 0)])
+        stages += list(rader[: rader_stages - (nested_stages > 0)])
+        stages += list(nested[:nested_stages]) if nested_stages else []
+        stages = [r for r in stages if r not in fl.REGISTER_RADICES]
+        return (any(not fl.wgmma_radix(r) for r in stages)
+                | 2 * any(fl.wgmma_radix(r) for r in stages))
+
+    fake = type("Lib", (), {"logmel_mixed": lambda self, *a: 0,
+                            "logmel_cluster": lambda self, *a: 0,
+                            "logmel_mixed_forms": lambda self, *a: forms(*a),
+                            "logmel_cluster_forms": lambda self, *a: forms(*a)})()
+    monkeypatch.setattr(fl, "_mixed_lib", lambda: fake)
+    monkeypatch.setattr(fl, "_cluster_lib", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: __import__("types").SimpleNamespace(cuda_stream=0))
+    cfg = FrontendConfig(n_fft=n_fft, hop_length=n_fft // 2, center=False)
+    ops = fl.plan_operands(cfg.sample_rate, cfg.n_mels, cfg.fmin, cfg.fmax, plan)
+    ops = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in ops.items()}
+    before = (fl.fused_log_mel.wgmma_launches, fl.fused_log_mel.mma_launches)
+    src = torch.zeros(2 * n_fft)
+    if plan.smem_bytes <= MIXED_MAX_SMEM:
+        fl.launch_mixed_plan(src, n_fft // 2, 2, cfg, plan, ops)
+    else:
+        fl.launch_cluster_plan(src, n_fft // 2, 2, cfg, plan, ops)
+    assert (fl.fused_log_mel.wgmma_launches - before[0],
+            fl.fused_log_mel.mma_launches - before[1]) == (wgmma, mma)
+
+
+@pytest.mark.parametrize("source", ["logmel_mixed", "logmel_cluster"])
+def test_forms_query_is_the_launchers_rule(source):
+    """The forms a launch is counted by come from the library's own rule:
+    ``<source>_forms`` builds the plan with ``make_plan`` from the launch's
+    plan arguments and returns ``plan_forms``, which reads ``plan.slab``
+    (set by a wgmma stage), the field by which the launcher picks the WG
+    instantiations, and ``plan.mma`` (set by a matrix stage ``wgmma_radix``
+    does not name); the wrapper declares the query's arguments as the
+    launcher's plan arguments."""
+    from sed_crnn_torch.ops.kernels import _build
+
+    text = (_build.CSRC_DIR / f"{source}.cu").read_text()
+    head = text[text.index(f"\nint {source}_forms("):]
+    body = head[head.index("{"): head.index("\n}\n")]
+    assert "logmel::make_plan(plan" in body and "return logmel::plan_forms(plan);" in body
+    params = head[head.index("(") + 1: head.index(")")]
+    launcher = text[text.index(f"\nint {source}("):]
+    launch_params = launcher[launcher.index("(") + 1: launcher.index(")")]
+    for name in ("n_fft", "n", "n_stages", "radices", "bluestein", "rader_stages",
+                 "rader_radices"):
+        assert re.search(rf"\b{name}\b", params) and re.search(rf"\b{name}\b", launch_params)
+    assert ("wg = plan.slab > 0" in text) if source == "logmel_cluster" else \
+        ("if (plan.slab)" in text)
+    stages = (_build.CSRC_DIR / "logmel_stages.cuh").read_text()
+    assert re.search(r"int plan_forms\(const Plan& plan\) \{ return \(plan\.mma \? 1 : 0\) \| "
+                     r"\(plan\.slab \? 2 : 0\); \}", stages)
+    assert "if (!wgmma_radix(r)) plan.mma = 1;" in stages
+    lib_text = Path(fl.__file__).read_text()
+    decl = re.search(rf"lib\.{source}_forms\.argtypes = \[(.*?)\]\n", lib_text, re.S).group(1)
+    assert len(re.findall(r"ctypes\.POINTER\(i\)|\bi\b", decl)) == params.count(",") + 1
+
+
 @pytest.mark.parametrize("sr,n_fft,group", [
     (16000, 400, 4), (44100, 1001, 4), (44100, 1764, 4), (44100, 3072, 8), (44100, 4410, 8),
     (44100, 12865, 32), (44100, 23042, 32),
@@ -413,17 +534,17 @@ def test_mel_group_follows_the_bands_mean_width(sr, n_fft, group):
 
 def test_operands_carry_the_tables_in_stage_order():
     ops = mixed_operands(44100, 12865, 40, 0.0, None)
-    np.testing.assert_array_equal(ops["dft"], np.concatenate([matrix_table(31),
-                                                              matrix_table(83)]))
+    np.testing.assert_array_equal(ops["dft"], np.concatenate([fl.stage_table(31),
+                                                              fl.stage_table(83)]))
     assert "chirp" not in ops and sorted(ops["pos"].tolist()) == list(range(12865))
     assert "dft" not in mixed_operands(44100, 1001, 40, 0.0, None)
     # A Rader plan: the outer matrix tables, then the inner ones; its tables.
     ops = mixed_operands(44100, 23042, 40, 0.0, None, plan="rader")
-    np.testing.assert_array_equal(ops["dft"], matrix_table(41))
+    np.testing.assert_array_equal(ops["dft"], fl.stage_table(41))
     assert ops["rgather"].shape == (280,) and ops["rspec"].shape == (280, 2)
     ops = mixed_operands(44100, 23054, 40, 0.0, None)
-    np.testing.assert_array_equal(ops["dft"], np.concatenate([matrix_table(17),
-                                                              matrix_table(113)]))
+    np.testing.assert_array_equal(ops["dft"], np.concatenate([fl.stage_table(17),
+                                                              fl.stage_table(113)]))
     assert sorted(ops["pos"].tolist()) == list(range(11527)) and "rspec" in ops
 
 
